@@ -1,8 +1,8 @@
 """Builds the port's CUDA sources (``csrc/*.cu``) into shared libraries with
 a plain C interface, at first use, and loads them with ctypes.
 
-Each source compiles with its own ``nvcc`` process, all started together,
-into ``build/lib<name>-<hash>.so`` beside this file. The hash covers the
+Each source compiles with ``nvcc``, one after another, into
+``build/lib<name>-<hash>.so`` beside this file. The hash covers the
 source and the flags, so an edited source never loads a stale library, and
 a finished library is moved into place atomically, so processes that build
 at the same time do not see half-written files. The compiler's report
@@ -53,38 +53,24 @@ def library_path(name: str) -> Path:
 
 def build_all() -> dict[str, Path]:
     """Compile every source that has no library yet; returns the library
-    path of every source. Raises with the compiler's output if any build
-    fails, after every started ``nvcc`` has ended."""
+    path of every source. Raises with the compiler's output if a build
+    fails."""
     with _lock:
         BUILD.mkdir(parents=True, exist_ok=True)
         libs = {name: library_path(name) for name in sources()}
-        procs = []
-        try:
-            for name, lib in libs.items():
-                if lib.exists():
-                    continue
-                tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-                cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                       str(sources()[name])]
-                procs.append((name, lib, tmp, subprocess.Popen(
-                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                    text=True)))
-            failed = []
-            for name, lib, tmp, proc in procs:
-                out, _ = proc.communicate()
-                lib.with_suffix(".log").write_text(out)
-                if proc.returncode != 0:
-                    failed.append(f"nvcc failed for {name} "
-                                  f"(exit {proc.returncode}):\n{out}")
-                    continue
-                os.replace(tmp, lib)
-        finally:
-            for *_, proc in procs:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-        if failed:
-            raise RuntimeError("\n".join(failed))
+        for name, lib in libs.items():
+            if lib.exists():
+                continue
+            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+            proc = subprocess.run(
+                [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(sources()[name])],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                check=False)
+            lib.with_suffix(".log").write_text(proc.stdout)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name} "
+                                   f"(exit {proc.returncode}):\n{proc.stdout}")
+            os.replace(tmp, lib)
         return libs
 
 
