@@ -1,19 +1,24 @@
 #!/usr/bin/env python3
-"""Quickest proof that the PyTorch/CUDA port runs its serving path on one
-NVIDIA GPU (H100, sm_90a). Run from the repository root:
+"""Quickest proof that the PyTorch/CUDA port runs its serving and training
+paths on one NVIDIA GPU (H100, sm_90a). Run from the repository root:
 
     python3 chip_smoke.py
 
 Phases, each of which fails the run (non-zero exit) if it goes wrong:
 
-1. Build: compiles every CUDA source of the port with nvcc (TF32 is off for
-   all float32 products).
+1. Build: compiles every CUDA source of the port, one nvcc per source, all
+   started together (TF32 is off for all float32 products).
 2. Kernels: holds ``embedding_bag`` and ``unique_bag`` bit for bit against
    their plain torch versions on the card, at the serving shape (B=64,
    L=8, D=128, V=62,500) and on edge cases (all-padding bags, plan
    padding, all-duplicate bags, D=13 on the scalar path), and times each
    kernel, its plain version and ``torch.nn.functional.embedding_bag`` as a
-   yardstick (the port never calls it) over 32 tables of that shape.
+   yardstick (the port never calls it) over 32 tables of that shape. Then
+   ``fused_backward`` bit for bit (payload, table and accumulator) against
+   its plain version at the training shape (kwai_video batch of 512, 4,096
+   occurrences, D=128, queue width 4,096): the hybrid put (the popped put
+   applied, -1 rows in it), the sync put (its own sums applied), sgd,
+   all-padding and D=13 on the scalar path; timed over 32 tables.
 3. Serve: the full width of ``kwai-dlrm`` (32 tables of 62,500 x 128 fp32,
    FFNN 4112-4096-2048-1024-512-256-4) with random weights from a seeded
    generator. A ``ServingService(max_batch=64)`` answers 512 traffic-model
@@ -23,6 +28,16 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    (gather + pool, no kernel) and the launch counts must show that every
    flush went through both kernels. Then ``trainer.eval`` on a 1024-row
    batch.
+4. Train: ``PersiaTrainer.step`` at the full kwai-dlrm width, batch 512,
+   Adam lr 3e-3, adagrad lr 5e-2: hybrid(3) for 2 warm-up and 30 timed
+   steps, 10 more with a stage breakdown and 5 under the profiler; then
+   sync and async(3,3) for 4 steps each. Every step must launch
+   ``unique_bag`` and ``fused_backward`` once per table, every loss must be
+   finite and the queues' ring pointers must be where the step count puts
+   them. Then the card against the CPU (``device="cpu"``, the plain
+   versions) from one starting state: sync for 2 steps and hybrid(3) for 5
+   (two popped puts applied), tables, accumulators, queues and dense
+   parameters compared. Eval loss and AUC on a 4096-row batch.
 
 It prints the card's name and power limit, one JSON line per phase, the
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
@@ -48,13 +63,16 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs.recsys_configs import KWAI  # noqa: E402
 from repro_torch.core import adapters  # noqa: E402
+from repro_torch.core import backend as BK  # noqa: E402
 from repro_torch.core import dedup as D  # noqa: E402
 from repro_torch.core.hybrid import PersiaTrainer, TrainMode  # noqa: E402
 from repro_torch.data.ctr import CTR_BENCHMARKS  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.models.recsys import pool_bag  # noqa: E402
+from repro_torch.optim.optimizers import OptConfig  # noqa: E402
 from repro_torch.serving import (ServingConfig, ServingService,  # noqa: E402
                                  StateCell, TrafficModel)
+from repro_torch.utils import tree_leaves  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and fp32 outside the
 # tensor cores. The bound of a kernel is the larger of its bytes over the
@@ -66,13 +84,23 @@ B, L, DIM, V = 64, 8, 128, 62_500        # the serving flush of one table
 N_TABLES = 32                             # kwai-dlrm's tables
 N_REQUESTS, N_CLIENTS, CHUNK = 512, 4, 16
 SEED = 0
+# training (the JAX package's launch/train.py defaults): batch, dense Adam
+# lr, embedding adagrad lr; hybrid staleness; steps
+TRAIN_B, DENSE_LR, EMB_LR, TAU = 512, 3e-3, 5e-2, 3
+WARMUP_STEPS, TIMED_STEPS, BREAKDOWN_STEPS, PROFILED_STEPS = 2, 30, 10, 5
 
 KERNELS = {
     "embedding_bag": {"source": "src/repro_torch/kernels/csrc/bag.cu",
                       "replaces": "src/repro/kernels/embedding_bag.py:35"},
     "unique_bag": {"source": "src/repro_torch/kernels/csrc/bag.cu",
                    "replaces": "src/repro/kernels/unique_bag.py:45"},
+    "fused_backward": {
+        "source": "src/repro_torch/kernels/csrc/fused_backward.cu",
+        "replaces": "src/repro/kernels/fused_backward.py:79"},
 }
+
+
+BAG_KERNELS = ("embedding_bag", "unique_bag")
 
 
 class SmokeFailure(RuntimeError):
@@ -152,8 +180,9 @@ def exact(name, case, got, want):
 
 
 def kernel_phase(dev, rng):
+    """The bag kernels: bit-exactness and per-call times."""
     cuda = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
-    errs = {k: 0.0 for k in KERNELS}
+    errs = {k: 0.0 for k in BAG_KERNELS}
 
     def both(case, table, ids, plan=None):
         ids_t = cuda(ids.astype(np.int32))
@@ -226,7 +255,7 @@ def kernel_phase(dev, rng):
             timing[name]["eager_" + key] = eager_ms(run, reps) / N_TABLES
     # bound: each distinct row read once, each output row written once,
     # each index read once; operations: one fp32 add per valid element
-    for name in KERNELS:
+    for name in BAG_KERNELS:
         bound, n_bytes, n_ops = [], [], []
         for k, ids in enumerate(serve_ids):
             valid = ids[ids >= 0]
@@ -244,6 +273,155 @@ def kernel_phase(dev, rng):
             bound_by="bytes" if b_bytes >= b_ops else "operations",
             max_abs_err=errs[name])
     del tables
+    torch.cuda.empty_cache()
+    return timing
+
+
+def train_plans(dev, ds, n_batches, seed):
+    """The host prepare of ``n_batches`` kwai_video training batches:
+    per batch, each table's dedup plan on the card (what a train step hands
+    its kernels)."""
+    coll = adapters.ctr_collection(KWAI, field_rows=ds.field_rows())
+    backends = coll.make_backends()
+    it = ds.sampler(TRAIN_B, seed=seed)
+    out = []
+    for _ in range(n_batches):
+        b = next(it)
+        ids = {n: b["ids"][:, i] for i, n in enumerate(coll.names)}
+        _, plans, _ = BK.prepare_all(backends, dict.fromkeys(ids), ids, dev)
+        out.append((ids, plans))
+    return coll.names, out
+
+
+def fb_inputs(gen, ids, plan, prev, cap, sgd=False):
+    """One table's fused_backward arguments at the training shape: the
+    occurrence gradients (zero at padding, as the trainer forms them), this
+    batch's CSR and, for the hybrid put, the popped put of the batch before
+    (``prev``: its plan rows padded with -1 to the queue width, random
+    payload); ``prev=None`` is the sync put (apply_self)."""
+    n_occ = ids.size
+    dev = plan.inv.device
+    mask = torch.as_tensor(ids.reshape(-1) >= 0, device=dev)
+    grads = torch.randn((n_occ, DIM), generator=gen, device=dev) * 1e-3
+    grads = grads * mask[:, None].float()
+    acc = None if sgd else \
+        torch.rand((V,), generator=gen, device=dev) * 1e-6
+    if prev is None:
+        return acc, grads, plan.rows, None, True
+    idx = torch.full((cap,), -1, dtype=torch.int32, device=dev)
+    idx[:prev.rows.numel()] = prev.rows
+    g = torch.randn((cap, DIM), generator=gen, device=dev) * 1e-3
+    g[prev.rows.numel():] = 0
+    return acc, grads, idx, g, False
+
+
+def fb_bound(plan, apply_idx, apply_self) -> tuple[float, float]:
+    """(bytes, operations) that one call must move and do: the valid
+    occurrence rows and the CSR read, the payload written, the live
+    positions' gradient rows read (unless they are the payload itself), the
+    live table rows and accumulators read and written; a fp32 add per
+    occurrence element, three operations per applied element (the step,
+    its scaling, the row add) and two per squared element."""
+    n_valid, cap = plan.order.numel(), apply_idx.numel()
+    live = apply_idx[apply_idx >= 0]
+    n_live, n_rows = live.numel(), torch.unique(live).numel()
+    nb = (n_valid * (DIM + 1) * 4 + plan.offsets.numel() * 4 + cap * 4
+          + cap * DIM * 4 + (0 if apply_self else n_live * DIM * 4)
+          + n_rows * (DIM + 1) * 4 * 2)
+    no = n_valid * DIM + n_live * DIM * 5
+    return float(nb), float(no)
+
+
+def fused_backward_phase(dev, ds):
+    """fused_backward against its plain version on the card, bit for bit,
+    then its per-call time over 32 tables."""
+    names, batches = train_plans(dev, ds, 2, SEED + 10)
+    (_, prev_plans), (ids_now, plans) = batches
+    cap = D.dedup_cap(TRAIN_B * L, V)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    tables = [torch.randn((V, DIM), generator=gen, device=dev) * 0.02
+              for _ in range(N_TABLES)]
+    cases, errs = {}, []
+
+    def run(case, table, acc, plan, grads, idx, g, apply_self):
+        outs = []
+        for fn in (ops.fused_backward, ref.fused_backward_ref):
+            t = table.clone()
+            a = None if acc is None else acc.clone()
+            push = fn(t, a, plan.order, plan.offsets, grads, idx, g,
+                      lr=EMB_LR, eps=1e-8, apply_self=apply_self)
+            outs.append((push, t, a))
+        (p0, t0, a0), (p1, t1, a1) = outs
+        torch.cuda.synchronize()
+        errs.append(exact("fused_backward", f"{case}: payload", p0, p1))
+        errs.append(exact("fused_backward", f"{case}: table", t0, t1))
+        check((a0 is None) == (a1 is None),
+              f"fused_backward[{case}]: acc given on one side only")
+        if a0 is not None:
+            errs.append(exact("fused_backward", f"{case}: acc", a0, a1))
+        cases[case] = {"live_positions": int((idx >= 0).sum()),
+                       "shared_rows": int((idx >= 0).sum())
+                       - int(torch.unique(idx[idx >= 0]).numel()),
+                       "valid_occurrences": int(plan.order.numel())}
+
+    n0 = names[0]
+    for case, prev, sgd in (("hybrid", prev_plans[n0], False),
+                            ("sync", None, False),
+                            ("hybrid_sgd", prev_plans[n0], True)):
+        acc, grads, idx, g, self_ = fb_inputs(gen, ids_now[n0], plans[n0],
+                                              prev, cap, sgd)
+        run(case, tables[0], acc, plans[n0], grads, idx, g, self_)
+    # all padding: no valid occurrence, no live row
+    i32 = dict(dtype=torch.int32, device=dev)
+    pad = D.DedupPlan(dev=None, inv=None, order=torch.zeros(0, **i32),
+                      offsets=torch.zeros(33, **i32))
+    run("all_padding", tables[1], torch.rand((V,), device=dev), pad,
+        torch.randn((TRAIN_B * L, DIM), device=dev),
+        torch.full((cap,), -1, **i32), torch.randn((cap, DIM), device=dev),
+        False)
+    # D = 13, the scalar path, on a plan of its own
+    t13 = torch.randn((1000, 13), generator=gen, device=dev)
+    ids13 = bag_ids(np.random.default_rng(SEED), TRAIN_B, L, 1000)
+    u, inv, _, _ = D.make_plan(ids13, 1000, D.dedup_cap(ids13.size, 1000))
+    order, offsets = D.occurrence_csr(inv, u.size)
+    p13 = D.DedupPlan(dev=None, inv=None,
+                      order=torch.from_numpy(order).to(dev),
+                      offsets=torch.from_numpy(offsets).to(dev))
+    idx13 = torch.full((u.size,), -1, **i32)
+    idx13[:u.size // 2] = torch.randperm(1000, device=dev)[:u.size // 2] \
+        .int()
+    run("d13_scalar", t13, torch.rand((1000,), device=dev), p13,
+        torch.randn((ids13.size, 13), generator=gen, device=dev), idx13,
+        torch.randn((u.size, 13), generator=gen, device=dev), False)
+
+    # timing: the hybrid put of each of the 32 tables, as one step does
+    args = []
+    for k, n in enumerate(names):
+        acc, grads, idx, g, _ = fb_inputs(gen, ids_now[n], plans[n],
+                                          prev_plans[n], cap)
+        args.append((tables[k], acc, plans[n].order, plans[n].offsets,
+                     grads, idx, g))
+
+    def loop(fn):
+        return lambda: [fn(*a, lr=EMB_LR, eps=1e-8) for a in args]
+
+    timing = {
+        "ms": device_ms(loop(ops.fused_backward), 20) / N_TABLES,
+        "eager_ms": eager_ms(loop(ops.fused_backward), 20) / N_TABLES,
+        # the plain version synchronises with the host (its loops are
+        # sized by the data), so it cannot be captured in a graph: eager
+        "plain_ms": eager_ms(loop(ref.fused_backward_ref), 2) / N_TABLES,
+        "library_ms": None,          # no single PyTorch call computes it
+    }
+    nbs, nos = zip(*(fb_bound(plans[n], args[k][5], False)
+                     for k, n in enumerate(names)))
+    b_bytes = float(np.mean(nbs)) / HBM_BYTES_PER_S
+    b_ops = float(np.mean(nos)) / FP32_OPS_PER_S
+    timing.update(bound_ms=max(b_bytes, b_ops) * 1e3,
+                  bound_by="bytes" if b_bytes >= b_ops else "operations",
+                  bound_bytes=float(np.mean(nbs)), max_abs_err=max(errs),
+                  cases=cases, cap=cap, n_occ=TRAIN_B * L)
+    del tables, args
     torch.cuda.empty_cache()
     return timing
 
@@ -401,6 +579,238 @@ def serve_phase(dev):
     }
 
 
+# ---------------------------------------------------------------------------
+# train phase
+# ---------------------------------------------------------------------------
+
+def kwai_train_trainer(dev, mode):
+    ds = CTR_BENCHMARKS["kwai_video"]
+    adapter = adapters.recsys_adapter(KWAI, lr=EMB_LR,
+                                      field_rows=ds.field_rows())
+    return PersiaTrainer(adapter, mode, OptConfig(kind="adam", lr=DENSE_LR),
+                         device=dev)
+
+
+def staged_step(trainer, state, batch, times):
+    """``trainer.step`` cut at its stage boundaries (the composition of
+    ``PersiaTrainer.train_step``), with a synchronize at each so the host
+    wall ms of every stage lands in ``times``."""
+    lookup_fn, dense_step, emb_put = trainer.decomposed_fns()
+    marks = [time.perf_counter()]
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    state, dev_ids, _ = trainer._prepare(state, batch)
+    mark()
+    pooled, _ = lookup_fn(state.emb, dev_ids)
+    mark()
+    dense, opt, dq, agrads, m = dense_step(state.dense, state.opt,
+                                           state.dense_queue, pooled, batch,
+                                           state.step)
+    mark()
+    emb, queues, _ = emb_put(state.emb, state.emb_queue, dev_ids, agrads)
+    mark()
+    for k, a, b in zip(("prepare_ms", "lookup_ms", "dense_ms", "put_ms"),
+                       marks, marks[1:]):
+        times.setdefault(k, []).append((b - a) * 1e3)
+    return state.replace(dense=dense, opt=opt, emb=emb, emb_queue=queues,
+                         dense_queue=dq, step=state.step + 1), m
+
+
+def check_rings(trainer, state, steps, what):
+    """The staleness queues' and the dense delay queue's ring pointers
+    after ``steps`` steps from empty."""
+    for n, q in state.emb_queue.items():
+        tau = trainer.collection[n].staleness
+        want = None if tau == 0 else (steps % tau, min(steps, tau))
+        got = None if q is None else (q["ptr"], q["filled"])
+        check(got == want, f"{what}: {n} queue ring {got}, want {want}")
+    tau_d = trainer.mode.dense_staleness
+    dq = state.dense_queue
+    got = None if dq is None else (dq["ptr"], dq["filled"])
+    want = None if tau_d == 0 else (steps % tau_d, min(steps, tau_d))
+    check(got == want, f"{what}: dense queue ring {got}, want {want}")
+
+
+def run_steps(trainer, state, batches, what):
+    """Steps with the launch counts read around them: every step must
+    launch unique_bag and fused_backward once per table."""
+    ops.reset_launch_counts()
+    losses = []
+    for b in batches:
+        state, m = trainer.step(state, b)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    want = N_TABLES * len(batches)
+    check(launches["unique_bag"] == want and
+          launches["fused_backward"] == want and
+          launches["embedding_bag"] == 0,
+          f"{what}: launches {launches}, want {want} of unique_bag and "
+          "fused_backward")
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"{what}: losses {losses}")
+    return state, losses, launches
+
+
+def dense_agreement(start, a, b, steps) -> dict:
+    """Card (``a``) against CPU (``b``) dense parameters, through their
+    updates from the shared ``start``. Adam moves every weight by about lr
+    a step whatever its gradient's size, so a weight whose gradient is near
+    zero or near eps moves differently on the two devices: the updates must
+    agree in norm to 1e-3 and no weight may differ by more than 2 lr per
+    step (``ok``). The count of weights off by more than rtol 1e-4 / atol
+    1e-6 is reported."""
+    n, off, worst, diff2, upd2 = 0, 0, 0.0, 0.0, 0.0
+    for w0, x, y in zip(tree_leaves(start), tree_leaves(a), tree_leaves(b)):
+        y, w0 = y.to(x.device), w0.to(x.device)
+        off += int((~torch.isclose(x, y, rtol=1e-4, atol=1e-6)).sum())
+        n += x.numel()
+        worst = max(worst, float((x - y).abs().max()))
+        diff2 += float(((x - y).double() ** 2).sum())
+        upd2 += float(((y - w0).double() ** 2).sum())
+    rel = (diff2 / max(upd2, 1e-300)) ** 0.5
+    return {"ok": rel <= 1e-3 and worst <= 2 * DENSE_LR * steps + 1e-6,
+            "dense_params": n, "dense_off": off, "dense_max_abs": worst,
+            "dense_update_rel": rel}
+
+
+def card_vs_cpu(dev, ds) -> dict:
+    """The same steps from one starting state on the card (kernels) and on
+    the CPU (plain versions): sync for 2 steps, hybrid(3) for 5 (two
+    popped puts applied). Every comparison is recorded and printed before
+    the first disagreement fails the run."""
+    it = ds.sampler(TRAIN_B, seed=SEED + 20)
+    batches = [next(it) for _ in range(5)]
+    out, bad = {}, []
+    for mode, steps in ((TrainMode.sync(), 2), (TrainMode.hybrid(TAU), 5)):
+        tg = kwai_train_trainer(dev, mode)
+        tc = kwai_train_trainer("cpu", mode)
+        sg = tg.init(seed=SEED + 1, batch_example=batches[0])
+        sc = sg.to("cpu")
+        start = sc.dense            # the steps make new dense tensors
+        lg, lc = [], []
+        for b in batches[:steps]:
+            sg, mg = tg.step(sg, b)
+            sc, mc = tc.step(sc, b)
+            lg.append(float(mg["loss"]))
+            lc.append(float(mc["loss"]))
+        if not np.allclose(lg, lc, rtol=1e-4):
+            bad.append(f"{mode.name}: losses card {lg} cpu {lc}")
+        err = {"table": 0.0, "acc": 0.0, "queue_rel": 0.0}
+        for n in tg.collection.names:
+            for k, rtol, atol in (("table", 1e-4, 1e-6),
+                                  ("acc", 1e-3, 1e-12)):
+                x, y = sg.emb[n][k], sc.emb[n][k].to(dev)
+                d = float((x - y).abs().max())
+                err[k] = max(err[k], d)
+                if not torch.allclose(x, y, rtol=rtol, atol=atol):
+                    bad.append(f"{mode.name}: {n}.{k} differs by {d}")
+            qg, qc = sg.emb_queue[n], sc.emb_queue[n]
+            if qg is None:
+                continue
+            if not (torch.equal(qg["ids"], qc["ids"].to(dev))
+                    and (qg["ptr"], qg["filled"]) ==
+                    (qc["ptr"], qc["filled"])):
+                bad.append(f"{mode.name}: {n} queue ids/ring differ")
+            # the payloads are gradients through the dense parameters,
+            # which drift apart as dense_agreement allows (up to 1e-3 of
+            # their update), and sum a unique id's occurrences, which may
+            # cancel: compared to 1e-3 of the largest payload element
+            x, y = qg["grads"], qc["grads"].to(dev)
+            scale = float(y.abs().max())
+            d = float((x - y).abs().max())
+            err["queue_rel"] = max(err["queue_rel"], d / scale)
+            if not torch.allclose(x, y, rtol=1e-3, atol=1e-3 * scale):
+                bad.append(f"{mode.name}: {n} queue grads differ by {d} "
+                           f"(largest {scale})")
+        dense = dense_agreement(start, sg.dense, sc.dense, steps)
+        if not dense.pop("ok"):
+            bad.append(f"{mode.name}: dense {dense}")
+        out[mode.name] = {"steps": steps, "loss_card": lg, "loss_cpu": lc,
+                          "table_max_abs": err["table"],
+                          "acc_max_abs": err["acc"],
+                          "queue_max_rel_to_largest": err["queue_rel"],
+                          **dense}
+        del sg, sc, tg, tc
+        torch.cuda.empty_cache()
+    emit({"phase": "card_vs_cpu", **out})
+    check(not bad, "card against CPU: " + "; ".join(bad[:6]))
+    return out
+
+
+def train_phase(dev):
+    ds = CTR_BENCHMARKS["kwai_video"]
+    it = ds.sampler(TRAIN_B, seed=SEED + 3)
+    n_main = WARMUP_STEPS + TIMED_STEPS + BREAKDOWN_STEPS + PROFILED_STEPS
+    batches = [next(it) for _ in range(n_main)]
+    trainer = kwai_train_trainer(dev, TrainMode.hybrid(TAU))
+    state = trainer.init(seed=SEED, batch_example=batches[0])
+    for b in batches[:WARMUP_STEPS]:
+        state, _ = trainer.step(state, b)
+    torch.cuda.synchronize()
+
+    # the main path: timed steps, counts set to 0 just before
+    timed = batches[WARMUP_STEPS:WARMUP_STEPS + TIMED_STEPS]
+    t0 = time.perf_counter()
+    state, losses, launches = run_steps(trainer, state, timed, "hybrid")
+    wall = time.perf_counter() - t0
+    step_ms = wall * 1e3 / TIMED_STEPS
+
+    times = {}
+    rest = batches[WARMUP_STEPS + TIMED_STEPS:]
+    for b in rest[:BREAKDOWN_STEPS]:
+        state, _ = staged_step(trainer, state, b, times)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for b in rest[BREAKDOWN_STEPS:]:
+            state, _ = trainer.step(state, b)
+        torch.cuda.synchronize()
+    device_ms = sum(e.self_device_time_total
+                    for e in prof.key_averages()) / 1e3 / PROFILED_STEPS
+    check_rings(trainer, state, n_main, "hybrid")
+
+    eb = next(ds.sampler(4096, seed=SEED + 4))
+    em = trainer.eval(state, eb)
+    ep = trainer.predict(state, eb).cpu().numpy()
+    aucs = [adapters.auc(eb["labels"][:, t], ep[:, t])
+            for t in range(KWAI.n_tasks)]
+    check(np.isfinite(float(em["loss"])) and np.all(np.isfinite(ep)),
+          "eval not finite")
+    del state, trainer
+    torch.cuda.empty_cache()
+
+    modes = {}
+    for mode in (TrainMode.sync(), TrainMode.async_(TAU, TAU)):
+        tr = kwai_train_trainer(dev, mode)
+        it = ds.sampler(TRAIN_B, seed=SEED + 5)
+        bs = [next(it) for _ in range(4)]
+        st = tr.init(seed=SEED, batch_example=bs[0])
+        st, ls, _ = run_steps(tr, st, bs, mode.name)
+        check_rings(tr, st, 4, mode.name)
+        modes[mode.name] = {"steps": 4, "losses": ls}
+        del st, tr
+        torch.cuda.empty_cache()
+
+    rec = {
+        "phase": "train", "model": KWAI.name, "dataset": "kwai_video",
+        "batch": TRAIN_B, "mode": f"hybrid({TAU})", "dense_lr": DENSE_LR,
+        "emb_lr": EMB_LR, "timed_steps": TIMED_STEPS,
+        "step_ms": step_ms, "steps_per_s": TIMED_STEPS / wall,
+        "samples_per_s": TIMED_STEPS * TRAIN_B / wall,
+        "breakdown_ms": {k: float(np.median(v)) for k, v in times.items()},
+        "device_ms_per_step": device_ms,
+        "device_busy_share": device_ms / step_ms,
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "steps_total": n_main, "eval_rows": 4096,
+        "eval_loss": float(em["loss"]), "eval_auc_per_task": aucs,
+        "other_modes": modes,
+    }
+    return launches, rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this check runs on a GPU",
@@ -427,23 +837,33 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED)
     timing = kernel_phase(dev, rng)
+    timing["fused_backward"] = fused_backward_phase(
+        dev, CTR_BENCHMARKS["kwai_video"])
     emit({"phase": "kernels", "shape": {"B": B, "L": L, "D": DIM, "V": V,
-                                        "tables": N_TABLES},
+                                        "tables": N_TABLES,
+                                        "train_batch": TRAIN_B},
           "bit_exact": True, "per_call_ms": timing})
-    launches, serve_rec = serve_phase(dev)
+    serve_launches, serve_rec = serve_phase(dev)
     emit(serve_rec)
+    train_launches, train_rec = train_phase(dev)
+    emit(train_rec)
+    train_rec["card_vs_cpu"] = card_vs_cpu(dev, CTR_BENCHMARKS["kwai_video"])
 
     kernels = []
     for name, meta in KERNELS.items():
         t = timing[name]
+        by_path = {"serve": serve_launches[name],
+                   "train": train_launches[name]}
         kernels.append({
             "name": name, "route": "cuda", **meta,
-            "launches": launches[name], "max_abs_err": t["max_abs_err"],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+        check(kernels[-1]["launches"] > 0, f"{name} was never launched")
     record = {"card": card, "build_s": build_s, "ptxas": ptxas,
-              "serve": serve_rec, "kernels": kernels}
+              "serve": serve_rec, "train": train_rec, "kernels": kernels}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -1,11 +1,16 @@
 """PyTorch/CUDA port of the Persia reproduction, laid out module for module
 like the JAX package ``repro`` beside it.
 
-This package holds the CTR serving path: ``ServingService`` micro-batches
-requests, ``PersiaTrainer.serve_lookup`` reads each table's pooled bags
-through ``DenseBackend.read_pooled`` (uniform-shuffle row placement, the
-worker-side dedup plan, then the ``unique_bag`` or ``embedding_bag`` CUDA
-kernel), and the FFNN plus a sigmoid turns them into predictions.
+This package holds the CTR serving path and hybrid training.
+``ServingService`` micro-batches requests, ``PersiaTrainer.serve_lookup``
+reads each table's pooled bags through ``DenseBackend.read_pooled``
+(uniform-shuffle row placement, the worker-side dedup plan, then the
+``unique_bag`` or ``embedding_bag`` CUDA kernel), and the FFNN plus a
+sigmoid turns them into predictions. ``PersiaTrainer.step`` trains in sync,
+hybrid(tau) and async modes: the pooled lookup through ``unique_bag``, the
+FFNN's backward and a hand-written Adam, and each table's put through the
+``fused_backward`` CUDA kernel and its bounded-staleness queue;
+``save``/``restore`` use the JAX package's checkpoint format.
 
 Ground rules:
 

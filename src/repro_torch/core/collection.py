@@ -4,9 +4,9 @@ registry part of ``repro/core/collection.py``).
 Persia's production models (paper §4.1, Table 1) are built from many
 heterogeneous ID feature groups; a collection maps table *names* to
 independent :class:`~repro_torch.core.embedding_ps.EmbeddingSpec` s. The
-collection-level PS operations of the JAX package (lookup, puts, queues)
-come with the training slice; the trainer reaches tables through their
-backends.
+trainer reaches tables through their backends and the fan-outs of
+``core/backend.py`` (``prepare_all``, ``lookup_all``, ``put_all``); the JAX
+package's collection-level wrappers of those are not ported.
 """
 from __future__ import annotations
 

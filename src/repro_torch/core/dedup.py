@@ -3,10 +3,17 @@ Persia §4.2.3).
 
 A CTR batch's multi-hot ids repeat heavily, so the worker reads one row per
 *unique* id. The :class:`DedupPlan` is computed once per (table, batch) on
-the host and carries ``dev`` (the unique ids as device rows, padded with -1
+the host and carries ``dev`` (the unique ids as device ids, padded with -1
 to a power-of-two bucket) and ``inv`` (occurrence -> position in ``dev``,
 -1 for padding). ``make_plan`` is the JAX package's numpy code, copied, so
 both packages build identical plans from identical ids.
+
+The port's plan also carries what the CUDA kernels read: the physical
+table rows of ``dev`` (``rows``, for the ``unique_bag`` lookup) and the
+occurrence CSR (``order``/``offsets``, for the ``fused_backward`` put),
+all built on the host beside the plan and uploaded with it. The CSR lets
+the put sum each unique id's occurrence gradients in occurrence order —
+the order of the JAX package's scatter-add — without atomics.
 """
 from __future__ import annotations
 
@@ -15,6 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.kernels import ref as KR
 from repro_torch.utils import round_up
 
 
@@ -40,12 +48,21 @@ def pow2_bucket(n: int, floor: int = 32) -> int:
 class DedupPlan:
     """One batch's unique-width routing for one table.
 
-    ``dev``: (U,) int32 unique *device* rows, -1 padding.
+    ``dev``: (U,) int32 unique *device* ids (the logical ids, for the
+    dense backend), -1 padding.
     ``inv``: occurrence-shaped int32, occurrence -> position in ``dev``
     (-1 for padding / out-of-range occurrences).
+    ``rows``: (U,) int32 physical table rows of ``dev``, -1 padding.
+    ``order``/``offsets``: the occurrence CSR of ``inv``
+    (:func:`occurrence_csr`).
+    The last three are built by ``backend.prepare_all``; a plan made by
+    hand may leave them ``None``.
     """
     dev: torch.Tensor
     inv: torch.Tensor
+    rows: torch.Tensor | None = None
+    order: torch.Tensor | None = None
+    offsets: torch.Tensor | None = None
 
 
 def is_plan(x) -> bool:
@@ -98,3 +115,91 @@ def plan_scatter(acts_u: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
     safe = flat.clamp(0, acts_u.shape[0] - 1).long()
     out = torch.where((flat >= 0)[:, None], acts_u[safe], 0)
     return out.reshape(*inv.shape, acts_u.shape[-1])
+
+
+def occurrence_csr(inv, width: int) -> tuple[np.ndarray, np.ndarray]:
+    """The occurrence CSR of a plan inverse (host numpy): ``order`` lists
+    the flat indices of the valid occurrences (0 <= inv < width) grouped by
+    unique position, each group in occurrence order (a stable argsort);
+    ``offsets`` (width + 1,) bounds each position's group. Both int32."""
+    flat = np.asarray(inv).reshape(-1)
+    occ = np.flatnonzero((flat >= 0) & (flat < width))
+    keys = flat[occ]
+    order = occ[np.argsort(keys, kind="stable")].astype(np.int32)
+    offsets = np.zeros(width + 1, np.int32)
+    np.cumsum(np.bincount(keys, minlength=width), out=offsets[1:])
+    return order, offsets
+
+
+def plan_segment_sum(inv: torch.Tensor, grads: torch.Tensor, width: int
+                     ) -> torch.Tensor:
+    """Occurrence-width gradients -> (width, D) fp32 unique-width sums.
+
+    Sums run in occurrence order from 0.0 — the order of the JAX package's
+    scatter-add — so they are bit-identical to it. Invalid occurrences
+    (inv < 0) contribute nothing. The CSR is built on the host."""
+    order, offsets = occurrence_csr(inv.cpu().numpy(), width)
+    g = grads.reshape(inv.numel(), -1)
+    return KR.segment_sum_ref(torch.from_numpy(order).to(g.device),
+                              torch.from_numpy(offsets).to(g.device), g,
+                              width)
+
+
+def pad_axis0(arr: torch.Tensor, width: int, fill) -> torch.Tensor:
+    """Pad (n, ...) to (width, ...) along axis 0 with ``fill`` (n <= width)
+    — fitting a plan-bucket-width put into the fixed-width staleness
+    queue."""
+    n = int(arr.shape[0])
+    if n == width:
+        return arr
+    out = torch.full((width,) + tuple(arr.shape[1:]), fill, dtype=arr.dtype,
+                     device=arr.device)
+    out[:n] = arr
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint migration: full-width queue blobs -> unique width (numpy, copied)
+# ---------------------------------------------------------------------------
+
+def migrate_queue_blob(q, new_width: int):
+    """Re-encode one staleness-queue blob at ``new_width`` by deduplicating
+    each of its tau pending puts (numpy, host-side — the restore path).
+
+    Accepts the dense form ({ids, grads, ptr, filled}) and the host-LRU
+    form (+ slots; dedup keys on the slot, the id rides along). Summation
+    runs in occurrence order per key, so a migrated queue's pops apply the
+    exact same fp32 updates the full-width queue would have."""
+    ids = np.asarray(q["ids"])
+    grads = np.asarray(q["grads"])
+    slots = np.asarray(q["slots"]) if "slots" in q else None
+    tau, width = ids.shape
+    new_width = int(new_width)
+    key = slots if slots is not None else ids
+    new_ids = np.full((tau, new_width), -1, ids.dtype)
+    new_grads = np.zeros((tau, new_width, grads.shape[-1]), grads.dtype)
+    new_slots = (None if slots is None
+                 else np.full((tau, new_width), -1, slots.dtype))
+    for t in range(tau):
+        k = key[t]
+        valid = k >= 0
+        uniq, first, inv = np.unique(k[valid], return_index=True,
+                                     return_inverse=True)
+        if uniq.size > new_width:
+            raise ValueError(
+                f"queue slot {t} holds {uniq.size} unique puts but the "
+                f"migrated width is only {new_width} — the dedup capacity "
+                "rule should make this impossible; was the blob edited?")
+        acc = np.zeros((uniq.size, grads.shape[-1]), np.float32)
+        np.add.at(acc, inv, grads[t][valid].astype(np.float32))
+        new_grads[t, : uniq.size] = acc.astype(grads.dtype)
+        if slots is None:
+            new_ids[t, : uniq.size] = uniq
+        else:
+            new_slots[t, : uniq.size] = uniq
+            new_ids[t, : uniq.size] = ids[t][valid][first]
+    out = {"ids": new_ids, "grads": new_grads,
+           "ptr": np.asarray(q["ptr"]), "filled": np.asarray(q["filled"])}
+    if new_slots is not None:
+        out["slots"] = new_slots
+    return out

@@ -1,7 +1,7 @@
 """Builds the port's CUDA sources (``csrc/*.cu``) into shared libraries with
 a plain C interface, at first use, and loads them with ctypes.
 
-Each source compiles with ``nvcc``, one after another, into
+Each source compiles with its own ``nvcc``, all started together, into
 ``build/lib<name>-<hash>.so`` beside this file. The hash covers the
 source and the flags, so an edited source never loads a stale library, and
 a finished library is moved into place atomically, so processes that build
@@ -58,19 +58,32 @@ def build_all() -> dict[str, Path]:
     with _lock:
         BUILD.mkdir(parents=True, exist_ok=True)
         libs = {name: library_path(name) for name in sources()}
-        for name, lib in libs.items():
-            if lib.exists():
-                continue
-            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(sources()[name])],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                check=False)
-            lib.with_suffix(".log").write_text(proc.stdout)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {name} "
-                                   f"(exit {proc.returncode}):\n{proc.stdout}")
-            os.replace(tmp, lib)
+        procs, failed = {}, []
+        try:
+            for name, lib in libs.items():
+                if lib.exists():
+                    continue
+                tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+                procs[name] = (tmp, subprocess.Popen(
+                    [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                     str(sources()[name])],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True))
+            for name, (tmp, proc) in procs.items():
+                out, _ = proc.communicate()
+                libs[name].with_suffix(".log").write_text(out)
+                if proc.returncode != 0:
+                    failed.append(f"nvcc failed for {name} "
+                                  f"(exit {proc.returncode}):\n{out}")
+                else:
+                    os.replace(tmp, libs[name])
+        finally:
+            for _, proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        if failed:
+            raise RuntimeError("\n".join(failed))
         return libs
 
 

@@ -8,7 +8,9 @@ error, never a quiet detour through the plain version.
 
 Each wrapper counts its launches in ``<wrapper>.launches`` (a plain int,
 raised by one per kernel launch and nowhere else), so a caller can show
-that a run went through the kernel.
+that a run went through the kernel. ``fused_backward``'s kernel is two
+grid passes and a memset on the stream (segment sum, then apply), launched
+and counted as one.
 """
 from __future__ import annotations
 
@@ -18,10 +20,16 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                    ctypes.c_float)
+# C entry point -> (source in csrc/, argument types)
 _SIGNATURES = {
-    "persia_embedding_bag_f32": (_P, _P, _P, _I64, _I, _I, _I, _P),
-    "persia_unique_bag_f32": (_P, _P, _P, _P, _I64, _I, _I, _I, _I, _P),
+    "persia_embedding_bag_f32": ("bag", (_P, _P, _P, _I64, _I, _I, _I, _P)),
+    "persia_unique_bag_f32": ("bag", (_P, _P, _P, _P, _I64, _I, _I, _I, _I,
+                                      _P)),
+    "persia_fused_backward_f32": ("fused_backward",
+                                  (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I,
+                                   _I, _I, _I, _I, _F, _F, _I, _P)),
 }
 _fns: dict = {}
 
@@ -29,8 +37,9 @@ _fns: dict = {}
 def _fn(name: str):
     fn = _fns.get(name)
     if fn is None:
-        fn = getattr(build.load("bag"), name)
-        fn.argtypes = list(_SIGNATURES[name])
+        source, argtypes = _SIGNATURES[name]
+        fn = getattr(build.load(source), name)
+        fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
@@ -40,10 +49,13 @@ def _all_on_cpu(*ts: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in ts)
 
 
-def _check_cuda(op: str, table: torch.Tensor, **index: torch.Tensor):
-    """The CUDA kernels take an fp32 contiguous (V, D) table and int32
-    contiguous index arrays, all on one CUDA device."""
-    devices = {t.device for t in (table, *index.values())}
+def _check_cuda(op: str, table: torch.Tensor, floats: dict | None = None,
+                **index: torch.Tensor):
+    """The CUDA kernels take an fp32 contiguous (V, D) table, fp32
+    contiguous ``floats`` and int32 contiguous index arrays, all on one CUDA
+    device."""
+    floats = floats or {}
+    devices = {t.device for t in (table, *floats.values(), *index.values())}
     if table.device.type != "cuda" or len(devices) != 1:
         raise ValueError(
             f"{op}: tensors must all lie on the CPU (plain version) or all "
@@ -54,6 +66,10 @@ def _check_cuda(op: str, table: torch.Tensor, **index: torch.Tensor):
                         f"{table.dtype}")
     if table.dim() != 2 or not table.is_contiguous():
         raise ValueError(f"{op}: table must be a contiguous (V, D) tensor")
+    for k, t in floats.items():
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise TypeError(f"{op}: {k} must be a contiguous fp32 tensor, "
+                            f"got {t.dtype}")
     for k, t in index.items():
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise TypeError(f"{op}: {k} must be a contiguous int32 tensor, "
@@ -113,9 +129,65 @@ def unique_bag(table: torch.Tensor, dev: torch.Tensor,
     return out
 
 
+def fused_backward(table: torch.Tensor, acc: torch.Tensor | None,
+                   order: torch.Tensor, offsets: torch.Tensor,
+                   grads: torch.Tensor, apply_idx: torch.Tensor,
+                   apply_g: torch.Tensor | None = None, *, lr: float,
+                   eps: float, apply_self: bool = False) -> torch.Tensor:
+    """Fused embedding backward (port of ``repro.kernels.ops.
+    fused_backward``): segment-sum the occurrence gradients ``grads``
+    (n_occ, D) to unique width through the plan's occurrence CSR (``order``
+    (n,), ``offsets`` (U + 1,)), apply the row-wise adagrad step (sgd when
+    ``acc`` is None) to ``table``/``acc`` in place at ``apply_idx`` (cap,)
+    (-1 = no-op) with ``apply_g`` (cap, D), or with the fresh sums when
+    ``apply_self``; returns the (cap, D) fp32 queue payload ``g_push``.
+
+    Unlike the JAX version, which returns new arrays, the table and acc
+    are updated in place, on both paths."""
+    if table.dim() != 2 or grads.dim() != 2 or \
+            grads.shape[1] != table.shape[1]:
+        raise ValueError(f"fused_backward: table (R, D) and grads (n_occ, D) "
+                         f"of one D, got {tuple(table.shape)} and "
+                         f"{tuple(grads.shape)}")
+    (R, D), cap = table.shape, int(apply_idx.shape[0])
+    if apply_idx.dim() != 1 or order.dim() != 1 or offsets.dim() != 1:
+        raise ValueError("fused_backward: apply_idx, order and offsets must "
+                         "be 1-D")
+    if acc is not None and tuple(acc.shape) != (R,):
+        raise ValueError(f"fused_backward: acc must be ({R},), got "
+                         f"{tuple(acc.shape)}")
+    if not apply_self and (apply_g is None
+                           or tuple(apply_g.shape) != (cap, D)):
+        raise ValueError(f"fused_backward: apply_g must be ({cap}, {D}) "
+                         "unless apply_self")
+    given = {k: t for k, t in (("acc", acc), ("grads", grads),
+                               ("apply_g", None if apply_self else apply_g))
+             if t is not None}
+    if _all_on_cpu(table, order, offsets, apply_idx, *given.values()):
+        return ref.fused_backward_ref(table, acc, order, offsets, grads,
+                                      apply_idx, apply_g, lr=lr, eps=eps,
+                                      apply_self=apply_self)
+    _check_cuda("fused_backward", table, floats=given, order=order,
+                offsets=offsets, apply_idx=apply_idx)
+    push = torch.empty((cap, D), dtype=torch.float32, device=table.device)
+    if cap == 0 or D == 0:
+        return push
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    _launch("fused_backward", "persia_fused_backward_f32", table, push,
+            (table.data_ptr(), ptr(acc), order.data_ptr(),
+             offsets.data_ptr(), grads.data_ptr(), apply_idx.data_ptr(),
+             ptr(None if apply_self else apply_g), push.data_ptr(), R,
+             int(grads.shape[0]), int(order.shape[0]),
+             max(int(offsets.shape[0]) - 1, 0), cap, D, float(lr),
+             float(eps), int(bool(apply_self))))
+    fused_backward.launches += 1
+    return push
+
+
 embedding_bag.launches = 0
 unique_bag.launches = 0
-WRAPPERS = (embedding_bag, unique_bag)
+fused_backward.launches = 0
+WRAPPERS = (embedding_bag, unique_bag, fused_backward)
 
 
 def launch_counts() -> dict[str, int]:

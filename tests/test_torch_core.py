@@ -313,7 +313,8 @@ def test_trainer_init_is_seeded_and_sized():
     assert not torch.equal(t, c.emb["field_00"]["table"])
     w = [lyr["w"].shape for lyr in a.dense["mlp"]]
     assert w == [(F * D + 4, 16), (16, CFG.n_tasks)]
-    assert a.opt is None and a.step == 0
+    assert set(a.opt) == {"m", "v", "t"} and a.opt["t"] == 0 and a.step == 0
+    assert torch.equal(a.opt["m"]["mlp"][0]["w"], torch.zeros(F * D + 4, 16))
     assert set(a.emb_queue) == set(tt.collection.names)
 
 

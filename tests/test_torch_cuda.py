@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.dedup import occurrence_csr
 from repro_torch.kernels import ops, ref
 
 SHAPES = [  # (V, D, B, L)
@@ -63,7 +64,8 @@ def test_cuda_kernels_match_plain_versions(cuda_device, V, D, B, L):
     assert torch.equal(ops.unique_bag(table, dev_t, inv_t),
                        ref.unique_bag_ref(table, dev_t, inv_t))
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"embedding_bag": 1, "unique_bag": 1}
+    counts = ops.launch_counts()
+    assert (counts["embedding_bag"], counts["unique_bag"]) == (1, 1)
 
 
 @pytest.mark.cuda
@@ -102,3 +104,77 @@ def test_cuda_kernels_edge_cases(cuda_device, case):
     assert torch.equal(ops.unique_bag(table, dev_t, inv_t),
                        ref.unique_bag_ref(table, dev_t, inv_t))
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# fused_backward: segment-sum + row-wise adagrad/sgd apply + queue payload
+# ---------------------------------------------------------------------------
+
+def _fb_case(seed, R, D, U, n_occ, cap, n_dup=0, sgd=False):
+    """Inputs of one fused_backward call: half the plan live (at most R
+    rows), ``n_dup`` apply positions naming a row another position names
+    too (as colliding shuffled ids do), the rest -1."""
+    rng = np.random.default_rng(seed)
+    table = rng.standard_normal((R, D)).astype(np.float32)
+    acc = None if sgd else rng.random(R).astype(np.float32)
+    inv = rng.integers(-1, U, n_occ).astype(np.int32)
+    grads = rng.standard_normal((n_occ, D)).astype(np.float32)
+    n_live = min(max(U // 2, 1), R)
+    apply_idx = np.full(cap, -1, np.int32)
+    apply_idx[:n_live] = rng.permutation(R)[:n_live]
+    for k in range(min(n_dup, cap - n_live, n_live)):
+        apply_idx[n_live + k] = apply_idx[k]
+    apply_idx = apply_idx[rng.permutation(cap)]
+    apply_g = rng.standard_normal((cap, D)).astype(np.float32)
+    order, offsets = occurrence_csr(inv, U)
+    return table, acc, order, offsets, grads, apply_idx, apply_g
+
+
+FB_CASES = [  # (R, D, U, n_occ, cap, n_dup, sgd)
+    (64, 16, 8, 24, 8, 0, False),
+    (257, 64, 32, 128, 32, 0, False),
+    (300, 13, 16, 40, 32, 0, False),          # scalar path, cap > U
+    (8, 8, 32, 1, 32, 0, False),              # n_live capped at R
+    (200, 128, 64, 400, 128, 9, False),       # shared rows
+    (200, 128, 64, 400, 128, 9, True),        # sgd
+    (62_500, 128, 1024, 4096, 4096, 4, False),  # one kwai-dlrm table
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("apply_self", [False, True])
+@pytest.mark.parametrize("R,D,U,n_occ,cap,n_dup,sgd", FB_CASES)
+def test_cuda_fused_backward_matches_plain_version(cuda_device, R, D, U,
+                                                   n_occ, cap, n_dup, sgd,
+                                                   apply_self):
+    case = _fb_case(R + D + U, R, D, U, n_occ, cap, n_dup, sgd)
+    outs = []
+    for _ in ("kernel", "plain"):
+        table, acc, order, offsets, grads, idx, g = (
+            None if a is None else torch.from_numpy(a).to(cuda_device)
+            for a in case)
+        fn = ops.fused_backward if not outs else ref.fused_backward_ref
+        push = fn(table, acc, order, offsets, grads, idx, g, lr=5e-2,
+                  eps=1e-8, apply_self=apply_self)
+        outs.append((push, table, acc))
+    torch.cuda.synchronize()
+    (p0, t0, a0), (p1, t1, a1) = outs
+    assert torch.equal(p0, p1)
+    assert torch.equal(t0, t1)
+    assert (a0 is None and a1 is None) or torch.equal(a0, a1)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_backward_all_padding_and_counts(cuda_device):
+    ops.reset_launch_counts()
+    table = torch.ones((16, 8), device=cuda_device)
+    acc = torch.ones(16, device=cuda_device)
+    i32 = dict(dtype=torch.int32, device=cuda_device)
+    push = ops.fused_backward(
+        table, acc, torch.zeros(0, **i32), torch.zeros(5, **i32),
+        torch.ones((6, 8), device=cuda_device), torch.full((4,), -1, **i32),
+        torch.ones((4, 8), device=cuda_device), lr=0.1, eps=1e-8)
+    torch.cuda.synchronize()
+    assert not push.any() and bool((table == 1).all()) and \
+        bool((acc == 1).all())
+    assert ops.launch_counts()["fused_backward"] == 1
