@@ -1,5 +1,7 @@
 """Embedding storage backends (port of ``repro/core/backend.py``): the
-protocol base and the device-resident ``DenseBackend``.
+protocol base, the device-resident ``DenseBackend`` and the §4.2.3
+compressed wire (``CompressedWireBackend``), with the factory that builds
+them from ``EmbeddingSpec.backend``.
 
 The serving path reads each table through :meth:`EmbeddingBackend.
 read_pooled`, which returns the table's sum-pooled bags straight from the
@@ -11,16 +13,21 @@ ids in the JAX package (``prepare_all``), applied to the read.
 
 The training path: ``prepare_all`` builds every table's plan on the host
 and uploads all of the plans' index arrays in one copy; ``lookup_all``
-reads the pooled bags through ``unique_bag``; ``put_all`` runs each
-table's put through the ``fused_backward`` kernel, which segment-sums the
-occurrence gradients, applies the row-wise optimizer to the put that pops
-out of the staleness queue (or to its own sums in sync mode) and returns
-the payload pushed into the queue. The puts update the tables, their
-accumulators and the queues in place (the JAX trainer donates them).
+reads the pooled bags through ``unique_bag`` (``embedding_bag`` for the
+occurrence-width ids of ``batch_dedup=False`` tables); ``put_all`` runs
+each table's put through the ``fused_backward`` kernel, which segment-sums
+the occurrence gradients, applies the row-wise optimizer to the put that
+pops out of the staleness queue (or to its own sums in sync mode) and
+returns the payload pushed into the queue. A put of occurrence-width ids
+is grouped on the device first (``compression.dedup_plan``) and summed by
+the same kernel. The puts update the tables, their accumulators and the
+queues in place (the JAX trainer donates them).
 
-The host-cached, sharded and compressed-wire backends, and training on
-``batch_dedup=False`` tables (which needs ``dedup_put``), come with later
-slices.
+``CompressedWireBackend`` wraps the dense backend: its gets and puts cross
+the wire as blockscale fp16 (the ``blockscale_compress`` /
+``blockscale_decompress`` CUDA kernels) and its puts are deduplicated to
+one row per unique id. The host-cached and sharded backends come with
+later slices; the factory refuses them.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.core import compression as C
 from repro_torch.core import dedup as D
 from repro_torch.core import embedding_ps as PS
 from repro_torch.core.embedding_ps import EmbeddingSpec
@@ -49,13 +57,6 @@ def _host_ids(ids) -> np.ndarray:
 
 def _n_distinct(flat: np.ndarray, rows: int) -> int:
     return int(np.unique(flat[(flat >= 0) & (flat < rows)]).size)
-
-
-def flat_training_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} has batch_dedup=False: training at occurrence width needs "
-        "dedup_put (core/compression.py), which the torch port does not "
-        "have yet — train with batch_dedup=True (the default)")
 
 
 class EmbeddingBackend:
@@ -174,10 +175,10 @@ class EmbeddingBackend:
         return self._lookup_flat(state, dev_u)
 
     def _put_flat(self, state, dev_ids, grads):
-        raise flat_training_not_ported("this table")
+        raise NotImplementedError
 
     def _hybrid_flat(self, state, queue, dev_ids, grads):
-        raise flat_training_not_ported("this table")
+        raise NotImplementedError
 
     def _put_unique(self, state, dev_u, g_u):
         """Pre-deduped put: (U,) unique device ids + (U, dim) fp32 summed
@@ -188,6 +189,15 @@ class EmbeddingBackend:
         raise NotImplementedError
 
 
+def _plan_csr(plan) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plan's occurrence CSR, built on the host from ``inv`` when the
+    plan was made by hand without it."""
+    if plan.order is not None:
+        return plan.order, plan.offsets
+    o, f = D.occurrence_csr(plan.inv.cpu().numpy(), plan.dev.shape[0])
+    return tuple(torch.from_numpy(a).to(plan.inv.device) for a in (o, f))
+
+
 def _fused_backward(spec: EmbeddingSpec, state: dict, plan, grads,
                     apply_idx: torch.Tensor, apply_g, *,
                     apply_self: bool = False):
@@ -196,16 +206,10 @@ def _fused_backward(spec: EmbeddingSpec, state: dict, plan, grads,
     the optimizer row-wise at ``apply_idx`` (-1 = no-op) in place, return
     ``(state, g_push)`` with ``g_push`` the queue-ready (cap, dim) payload.
     Adagrad updates ``acc``; sgd (no ``acc``) is the plain scaled step."""
-    order, offsets = plan.order, plan.offsets
-    if order is None:
-        o, f = D.occurrence_csr(plan.inv.cpu().numpy(), plan.dev.shape[0])
-        order, offsets = (torch.from_numpy(a).to(plan.inv.device)
-                          for a in (o, f))
-    acc = state.get("acc") if spec.optimizer == "adagrad" else None
-    g_push = K.fused_backward(
-        state["table"], acc, order, offsets,
-        grads.reshape(-1, spec.dim).float().contiguous(), apply_idx, apply_g,
-        lr=spec.lr, eps=spec.eps, apply_self=apply_self)
+    g_push = PS.fused_apply(
+        state, spec, *_plan_csr(plan),
+        grads.reshape(-1, spec.dim).float().contiguous(), apply_idx,
+        None if apply_self else apply_g)
     return state, g_push
 
 
@@ -277,21 +281,35 @@ class DenseBackend(EmbeddingBackend):
         return PS.apply_put(state, self.spec, dev_u, g_u,
                             assume_unique=True), {}
 
-    def _put_plan(self, state, plan, grads):
-        new, _ = _fused_backward(self.spec, state, plan, grads,
-                                 self._plan_rows(plan), None,
-                                 apply_self=True)
-        return new, {}
+    def _put_flat(self, state, dev_ids, grads):
+        return PS.apply_put(state, self.spec, dev_ids.reshape(-1),
+                            grads.reshape(-1, self.spec.dim)), {}
 
-    def _hybrid_plan(self, state, queue, plan, grads):
+    # ``codec`` (the compressed wire's roundtrip) transforms the unique-width
+    # sums before they are applied or queued: the put's payload crosses the
+    # wire between its segment sum and the PS
+
+    def _put_plan(self, state, plan, grads, codec=None):
+        if codec is None:
+            new, _ = _fused_backward(self.spec, state, plan, grads,
+                                     self._plan_rows(plan), None,
+                                     apply_self=True)
+            return new, {}
+        # the sums cross the wire before they are applied: a sum-only
+        # launch, the codec, then an apply-only launch
+        g_u = D.csr_segment_sum(*_plan_csr(plan), grads,
+                                int(plan.dev.shape[0]))
+        return self._put_unique(state, plan.dev, codec(g_u))
+
+    def _hybrid_plan(self, state, queue, plan, grads, codec=None):
         spec = self.spec
         if spec.staleness <= 0 or queue is None:
-            st, m = self._put_plan(state, plan, grads)
+            st, m = self._put_plan(state, plan, grads, codec)
             return st, queue, m
         # pop the tau-stale put first (the kernel reads the slot before it
         # is overwritten), fuse its apply with this step's segment-sum, then
         # push the fresh payload into the popped slot — queue_push_pop's
-        # order
+        # order. The popped put crossed the codec when it was pushed.
         ids_q, g_q = queue["ids"], queue["grads"]
         tau, cap = int(ids_q.shape[0]), int(ids_q.shape[1])
         ptr, U = int(queue["ptr"]), int(plan.dev.shape[0])
@@ -300,11 +318,30 @@ class DenseBackend(EmbeddingBackend):
         new, g_push = _fused_backward(spec, state, plan, grads,
                                       self._logical_to_pos(ids_q[ptr]),
                                       g_q[ptr])
+        if codec is not None:
+            g_push[:U] = codec(g_push[:U])
         ids_q[ptr, :U] = plan.dev
         ids_q[ptr, U:] = -1
         g_q[ptr] = g_push
         return new, dict(queue, ptr=(ptr + 1) % tau,
                          filled=min(int(queue["filled"]) + 1, tau)), {}
+
+    def _hybrid_flat(self, state, queue, dev_ids, grads):
+        spec = self.spec
+        flat = dev_ids.reshape(-1)
+        g = grads.reshape(-1, spec.dim)
+        if spec.staleness <= 0 or queue is None or not spec.batch_dedup:
+            # occurrence-width queue; the popped put is aggregated on its
+            # physical rows when it is applied
+            st, q = PS.hybrid_emb_update(state, queue, spec, flat, g)
+            return st, q, {}
+        # unique-width queue: the occurrence put is deduplicated BEFORE the
+        # push (the same sums the post-queue dedup would produce), so every
+        # queued put is one row per unique id
+        valid = (flat >= 0) & (flat < spec.rows)
+        ids_signed = torch.where(valid, flat, -1)
+        plan = C.dedup_plan(ids_signed, int(queue["ids"].shape[1]))
+        return self._hybrid_plan(state, queue, plan, g)
 
     def _hybrid_unique(self, state, queue, dev_u, g_u):
         spec = self.spec
@@ -340,17 +377,200 @@ class DenseBackend(EmbeddingBackend):
         return blob
 
 
-def check_backend_name(name: str | None) -> None:
-    """Reject ``EmbeddingSpec.backend`` values the port does not have yet
-    (the JAX package also has host_lru, +disk and +compressed)."""
-    if (name or "dense").strip().lower() != "dense":
-        raise ValueError(f"embedding backend {name!r} is not ported yet: "
-                         "the torch port has 'dense' only")
+class CompressedWireBackend(EmbeddingBackend):
+    """The paper's §4.2.3 communication compression, as a decorator over
+    the dense backend: gradient puts are deduplicated to one row per unique
+    id (lossless), and both get and put payloads cross the wire as
+    blockscale fp16 (lossy), through the ``blockscale_compress`` and
+    ``blockscale_decompress`` CUDA kernels (their plain versions on the
+    CPU). Per-step bytes-moved metrics surface through the trainer's
+    metrics as ``wire/<table>/{get,put}_bytes_{raw,wire}``, computed from
+    host counts (a put of occurrence-width ids, grouped on the device,
+    reports its unique count as a device scalar, without a sync).
+
+    The codec's blocks run across rows: with a plan the get roundtrips the
+    (U, dim) unique rows, otherwise the occurrence rows, as in the JAX
+    package; both agree only when ``dim`` is a multiple of the block."""
+
+    def __init__(self, inner: EmbeddingBackend):
+        self.inner = inner
+        self.spec = inner.spec
+        self._block = int(self.spec.wire_block)
+        if self.spec.wire_kernel and self._block != 128:
+            raise ValueError("the Pallas blockscale kernel is fixed at "
+                             f"block=128 (got wire_block={self._block})")
+
+    def _roundtrip(self, v: torch.Tensor) -> torch.Tensor:
+        return K.blockscale_roundtrip(v.contiguous(), block=self._block)
+
+    def _get_metrics(self, n_raw: int, n_wire: int) -> dict:
+        blocks = -(-n_wire // self._block)
+        return {"get_bytes_raw": float(n_raw * 4),
+                "get_bytes_wire": float(blocks * self._block * 2
+                                        + blocks * 4)}
+
+    # -- host-level: delegate ------------------------------------------------
+
+    def init(self, generator: torch.Generator, shards: int = 1,
+             scale: float = 0.02):
+        return self.inner.init(generator, shards, scale)
+
+    def prepare(self, state, ids, assume_unique: bool = False, counts=None):
+        return self.inner.prepare(state, ids, assume_unique, counts)
+
+    def read_rows(self, state, ids):
+        # serve reads cross the same lossy wire as training lookups
+        rows, info = self.inner.read_rows(state, ids)
+        return self._roundtrip(rows), info
+
+    def read_pooled(self, state, ids):
+        rows, info = self.read_rows(state, ids)
+        return _pool_rows(rows, torch.as_tensor(_host_ids(ids),
+                                                device=rows.device)), info
+
+    def dedup_rows(self) -> int:
+        return self.inner.dedup_rows()
+
+    def queue_width(self, n_occ: int) -> int:
+        # the wire ALWAYS dedups its puts (even at occurrence width), so its
+        # queue is capped whatever batch_dedup says
+        return D.dedup_cap(n_occ, self.dedup_rows())
+
+    def queue_init(self, ids_shape, device=None):
+        # the queue lives PS-side, AFTER the wire: it holds deduped puts
+        if self.spec.staleness <= 0:
+            return None
+        return self.inner._queue_init_width(
+            self.queue_width(_prod(ids_shape)), device)
+
+    # -- device-side ---------------------------------------------------------
+
+    def _get(self, state, dev_ids):
+        """The rows that cross the wire, roundtripped, with the get's byte
+        metrics: one row per unique id for a plan (the inverse scatter to
+        occurrence width happens after the wire, so the bytes shrink by the
+        batch's dup factor), else one per occurrence."""
+        if D.is_plan(dev_ids):
+            rows, m = self.inner._lookup_unique(state, dev_ids.dev)
+            n_raw = dev_ids.inv.numel() * self.spec.dim
+        else:
+            rows, m = self.inner.lookup(state, dev_ids)
+            n_raw = rows.numel()
+        return self._roundtrip(rows), {
+            **m, **self._get_metrics(n_raw, rows.numel())}
+
+    def lookup(self, state, dev_ids):
+        rows, m = self._get(state, dev_ids)
+        if D.is_plan(dev_ids):
+            return D.plan_scatter(rows, dev_ids.inv), m
+        return rows, m
+
+    def lookup_pooled(self, state, dev_ids):
+        rows, m = self._get(state, dev_ids)
+        if not D.is_plan(dev_ids):
+            return _pool_rows(rows, dev_ids), m
+        slots = torch.arange(rows.shape[0], dtype=torch.int32,
+                             device=rows.device)
+        return K.unique_bag(rows, slots, dev_ids.inv), m
+
+    def _compress_put(self, dev_ids):
+        """dev_ids (plan | occurrence ids) -> (the put's dedup plan, byte
+        metrics). With a plan the lossless dedup IS the plan; occurrence
+        ids are grouped on the device (``compression.dedup_plan``)."""
+        spec = self.spec
+        if D.is_plan(dev_ids):
+            plan, n_put = dev_ids, int(dev_ids.inv.numel())
+            n_uniq = plan.n_unique if plan.n_unique is not None \
+                else int((plan.dev >= 0).sum())
+            n_vals = n_uniq * spec.dim
+            blocks = -(-n_vals // self._block)
+        else:
+            flat = dev_ids.reshape(-1)
+            n_put = int(flat.numel())
+            plan = C.dedup_plan(flat, D.dedup_cap(n_put, self.dedup_rows()))
+            n_uniq = (plan.dev >= 0).sum().float()
+            n_vals = n_uniq * spec.dim
+            blocks = torch.ceil(n_vals / self._block)
+        return plan, {
+            # raw wire: one (int32 id, fp32 row) per put entry, pre-dedup
+            "put_bytes_raw": float(n_put * (4 + spec.dim * 4)),
+            # compressed wire: unique ids + fp16 values + per-block scales
+            "put_bytes_wire": n_uniq * 4 + n_vals * 2 + blocks * 4,
+        }
+
+    def apply_put(self, state, dev_ids, grads):
+        plan, m = self._compress_put(dev_ids)
+        st, m2 = self.inner._put_plan(state, plan, grads,
+                                      codec=self._roundtrip)
+        return st, {**m, **m2}
+
+    def hybrid_update(self, state, queue, dev_ids, grads):
+        plan, m = self._compress_put(dev_ids)
+        st, q, m2 = self.inner._hybrid_plan(state, queue, plan, grads,
+                                            codec=self._roundtrip)
+        return st, q, {**m, **m2}
+
+
+def _pool_rows(rows: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """(B, L, dim) occurrence rows and their (B, L) ids -> (B, dim) sum
+    over the valid (id >= 0) slots, through ``embedding_bag`` over the rows
+    themselves."""
+    B, L = ids.shape
+    slot = torch.arange(B * L, dtype=torch.int32,
+                        device=rows.device).view(B, L)
+    return K.embedding_bag(rows.reshape(B * L, -1).contiguous(),
+                           torch.where(ids >= 0, slot, -1))
+
+
+def parse_backend_name(name: str | None) -> tuple[str, bool]:
+    """``EmbeddingSpec.backend`` string -> (base, compressed?). Accepted
+    forms, as in the JAX package: ``dense``, ``host_lru``, ``host_lru+disk``
+    (``base`` keeps the ``+disk`` marker), plus a ``+compressed`` suffix on
+    any of them (``compressed`` alone means ``dense+compressed``). The port
+    builds ``dense`` and ``dense+compressed`` (:func:`create_backend`)."""
+    name = (name or "dense").strip().lower()
+    parts = name.split("+")
+    base, flags = parts[0], parts[1:]
+    wrap = "compressed" in flags
+    if base in ("", "compressed"):
+        base, wrap, flags = "dense", True, [f for f in flags
+                                            if f != "compressed"]
+    unknown = [f for f in flags if f not in ("compressed", "disk")]
+    if unknown:
+        raise ValueError(
+            f"unknown backend decorator {unknown[0]!r} in {name!r} "
+            "(only '+disk' and '+compressed' exist)")
+    if base not in ("dense", "host_lru"):
+        raise ValueError(
+            f"unknown embedding backend {name!r}: expected 'dense', "
+            "'host_lru' or 'host_lru+disk', optionally with a "
+            "'+compressed' suffix")
+    if "disk" in flags:
+        if base != "host_lru":
+            raise ValueError(
+                f"the '+disk' tier only stacks under 'host_lru' "
+                f"(got {name!r})")
+        base = "host_lru+disk"
+    return base, wrap
 
 
 def create_backend(spec: EmbeddingSpec) -> EmbeddingBackend:
-    check_backend_name(spec.backend)
-    return DenseBackend(spec)
+    """``spec.backend`` -> backend instance (see :func:`parse_backend_name`):
+    ``dense``, or ``dense`` behind the compressed wire."""
+    base, wrap = parse_backend_name(spec.backend)
+    if base != "dense":
+        raise ValueError(f"embedding backend {spec.backend!r} is not ported "
+                         "yet: the torch port builds 'dense' and "
+                         "'dense+compressed'")
+    backend = DenseBackend(spec)
+    return CompressedWireBackend(backend) if wrap else backend
+
+
+def unwrap(backend: EmbeddingBackend) -> EmbeddingBackend:
+    """Strip wire decorators down to the storage backend."""
+    while isinstance(backend, CompressedWireBackend):
+        backend = backend.inner
+    return backend
 
 
 def make_backends(collection) -> dict[str, EmbeddingBackend]:
@@ -391,7 +611,7 @@ def prepare_all(backends, states, ids, device):
     per-table ``dedup/<table>/{dup_factor,unique_rows,bytes_saved}``
     host gauges."""
     new_states = dict(states)
-    host, metrics = {}, {}
+    host, metrics, n_unique = {}, {}, {}
     for n in ids:
         b = backends[n]
         spec = b.spec
@@ -405,9 +625,10 @@ def prepare_all(backends, states, ids, device):
         new_states[n], dev_u = b.prepare(states[n], u_pad, assume_unique=True,
                                          counts=counts)
         dev_u = np.asarray(dev_u, np.int32)
-        rows = b._logical_to_pos(torch.from_numpy(dev_u)).numpy()
+        rows = unwrap(b)._logical_to_pos(torch.from_numpy(dev_u)).numpy()
         order, offsets = D.occurrence_csr(inv, dev_u.shape[0])
         host[n] = [dev_u, inv, rows, order, offsets]
+        n_unique[n] = info["n_unique"]
         itemsize = torch.empty((), dtype=spec.dtype).element_size()
         metrics[f"dedup/{n}/dup_factor"] = info["dup_factor"]
         metrics[f"dedup/{n}/unique_rows"] = float(info["n_unique"])
@@ -420,7 +641,7 @@ def prepare_all(backends, states, ids, device):
         got = [next(flat) for _ in arrs]
         dev_ids[n] = got[0] if len(got) == 1 else D.DedupPlan(
             dev=got[0], inv=got[1], rows=got[2], order=got[3],
-            offsets=got[4])
+            offsets=got[4], n_unique=n_unique[n])
     return new_states, dev_ids, metrics
 
 

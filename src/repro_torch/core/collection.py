@@ -24,7 +24,7 @@ class EmbeddingCollection:
     tables: tuple[tuple[str, EmbeddingSpec], ...]
 
     def __post_init__(self):
-        from repro_torch.core.backend import check_backend_name
+        from repro_torch.core.backend import create_backend
         seen = set()
         for n, s in self.tables:
             # names key checkpoint blob paths in the JAX package: '/' would
@@ -36,7 +36,7 @@ class EmbeddingCollection:
             if n in seen:
                 raise ValueError(f"duplicate table name {n!r}")
             seen.add(n)
-            check_backend_name(s.backend)       # fail fast on bad specs
+            create_backend(s)       # fail fast on bad or unported specs
 
     @staticmethod
     def from_dict(specs: Mapping[str, EmbeddingSpec]) -> "EmbeddingCollection":
@@ -73,6 +73,12 @@ class EmbeddingCollection:
         """Set every table's staleness to ``tau`` (mode-wide override)."""
         return self.map_specs(
             lambda _, s: dataclasses.replace(s, staleness=tau))
+
+    def with_backend(self, backend: str) -> "EmbeddingCollection":
+        """Set every table's storage backend (collection-wide override),
+        e.g. ``"dense+compressed"``."""
+        return self.map_specs(
+            lambda _, s: dataclasses.replace(s, backend=backend))
 
     def make_backends(self):
         """One EmbeddingBackend per table (core/backend.py)."""

@@ -22,7 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.kernels import ref as KR
+from repro_torch.kernels import ops as K
 from repro_torch.utils import round_up
 
 
@@ -55,7 +55,8 @@ class DedupPlan:
     ``rows``: (U,) int32 physical table rows of ``dev``, -1 padding.
     ``order``/``offsets``: the occurrence CSR of ``inv``
     (:func:`occurrence_csr`).
-    The last three are built by ``backend.prepare_all``; a plan made by
+    ``n_unique``: the host count of the valid entries of ``dev``.
+    The last four are built by ``backend.prepare_all``; a plan made by
     hand may leave them ``None``.
     """
     dev: torch.Tensor
@@ -63,6 +64,7 @@ class DedupPlan:
     rows: torch.Tensor | None = None
     order: torch.Tensor | None = None
     offsets: torch.Tensor | None = None
+    n_unique: int | None = None
 
 
 def is_plan(x) -> bool:
@@ -131,6 +133,21 @@ def occurrence_csr(inv, width: int) -> tuple[np.ndarray, np.ndarray]:
     return order, offsets
 
 
+def csr_segment_sum(order: torch.Tensor, offsets: torch.Tensor,
+                    grads: torch.Tensor, width: int) -> torch.Tensor:
+    """(n, D) occurrence gradients -> (width, D) fp32: row j sums
+    ``grads[order[k]]`` for k in [offsets[j], offsets[j + 1]) in k order
+    from 0.0 — the first pass of the ``fused_backward`` kernel, launched
+    with nothing to apply (its plain version on the CPU)."""
+    D = int(grads.shape[-1])
+    g = grads.reshape(-1, D).float().contiguous()
+    i32 = dict(dtype=torch.int32, device=g.device)
+    return K.fused_backward(
+        g.new_zeros((0, D)), None, order.to(torch.int32),
+        offsets.to(torch.int32), g, torch.full((int(width),), -1, **i32),
+        None, lr=0.0, eps=0.0, apply_self=True)
+
+
 def plan_segment_sum(inv: torch.Tensor, grads: torch.Tensor, width: int
                      ) -> torch.Tensor:
     """Occurrence-width gradients -> (width, D) fp32 unique-width sums.
@@ -139,10 +156,9 @@ def plan_segment_sum(inv: torch.Tensor, grads: torch.Tensor, width: int
     scatter-add — so they are bit-identical to it. Invalid occurrences
     (inv < 0) contribute nothing. The CSR is built on the host."""
     order, offsets = occurrence_csr(inv.cpu().numpy(), width)
-    g = grads.reshape(inv.numel(), -1)
-    return KR.segment_sum_ref(torch.from_numpy(order).to(g.device),
-                              torch.from_numpy(offsets).to(g.device), g,
-                              width)
+    return csr_segment_sum(torch.from_numpy(order).to(grads.device),
+                           torch.from_numpy(offsets).to(grads.device),
+                           grads.reshape(inv.numel(), -1), width)
 
 
 def pad_axis0(arr: torch.Tensor, width: int, fill) -> torch.Tensor:

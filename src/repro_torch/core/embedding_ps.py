@@ -14,9 +14,9 @@ package does (both increments reach the accumulator first).
 
 Unlike the JAX package, whose arrays are immutable, the puts and the queue
 update the state's tensors in place and return the same dicts (the JAX
-trainer donates them, so no caller sees the difference). The mesh-sharded
-branches (``shard_map``) and the put of non-unique ids (``dedup_put``) come
-with later slices.
+trainer donates them, so no caller sees the difference). Every apply runs
+through the ``fused_backward`` kernel (its plain version on the CPU). The
+mesh-sharded branches (``shard_map``) come with a later slice.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.kernels import ref as KR
+from repro_torch.kernels import ops as K
 from repro_torch.utils import round_up
 
 # Affine permutation constants (odd multiplier => bijection mod 2^k when padded)
@@ -44,8 +44,15 @@ class EmbeddingSpec:
     eps: float = 1e-8
     staleness: int = 0              # tau; 0 = synchronous embedding updates
     dtype: Any = torch.float32
-    # storage backend (core/backend.py); the port has 'dense' so far
+    # storage backend (core/backend.py): 'dense', optionally behind the
+    # '+compressed' wire ('dense+compressed'); the port builds no other
     backend: str = "dense"
+    wire_block: int = 128           # +compressed: blockscale block size
+    # +compressed: in the JAX package, the Pallas kernel instead of the jnp
+    # codec (equal outputs). It selects nothing in the port, whose wire
+    # always runs the CUDA codec (ops.blockscale_*); kept so specs and
+    # checkpoints round-trip, and True still needs wire_block == 128
+    wire_kernel: bool = False
     # worker-side batch dedup (core/dedup.py): True (default) reads through
     # a per-batch DedupPlan at unique width (the unique_bag kernel); False
     # reads at occurrence width (the embedding_bag kernel)
@@ -100,34 +107,51 @@ def apply_put(state: dict, spec: EmbeddingSpec, ids: torch.Tensor,
     in place. ids: (T,) logical ids (< 0 or >= rows = no-op); grads:
     (T, dim) — the gradients of the looked-up activations (F^emb').
 
-    Only the pre-deduplicated put (``assume_unique=True``: a dedup plan's
-    unique ids with their segment-summed grads) is ported; the JAX
-    package's on-device dedup of repeated ids (``dedup_put``) comes with a
-    later slice."""
-    if not assume_unique:
-        raise NotImplementedError(
-            "apply_put of non-unique ids needs dedup_put (core/compression"
-            ".py), which the torch port does not have yet: pass a dedup "
-            "plan's unique ids with assume_unique=True")
+    ``assume_unique=True`` declares the put pre-deduplicated (a dedup
+    plan's unique ids with their segment-summed grads). Otherwise the put
+    is first aggregated on the PHYSICAL rows (``compression.dedup_plan``,
+    the grouping of ``dedup_put``): two logical ids that share a shuffled
+    row are summed into one row here, before the accumulator sees them, as
+    in the JAX package. The aggregation's sums and the apply are one
+    ``fused_backward`` launch."""
+    from repro_torch.core import compression as C
+    from repro_torch.core.dedup import dedup_cap
     rows = spec.padded_rows(1)
     flat = ids.reshape(-1)
     grads = grads.reshape(-1, spec.dim)
     valid = (flat >= 0) & (flat < spec.rows)
     pos = shuffle_pos(torch.where(valid, flat, 0), rows)
-    g = torch.where(valid[:, None], grads.float(), 0.0)
-    return _apply_sparse(state, spec, torch.where(valid, pos, rows), g, rows)
+    pos_signed = torch.where(valid, pos, -1)
+    if assume_unique:
+        return _apply_sparse(state, spec, pos_signed,
+                             torch.where(valid[:, None], grads.float(), 0.0))
+    plan = C.dedup_plan(pos_signed, dedup_cap(int(flat.numel()), rows))
+    fused_apply(state, spec, plan.order, plan.offsets,
+                grads.float().contiguous(), plan.dev, None)
+    return state
+
+
+def fused_apply(st: dict, spec: EmbeddingSpec, order, offsets, grads,
+                idx: torch.Tensor, g) -> torch.Tensor:
+    """One ``fused_backward`` launch on ``st``: the segment sums of
+    ``grads`` along (order, offsets), then the row-wise optimizer step at
+    ``idx`` (-1 = no-op) with ``g``, or with the sums when ``g`` is None.
+    Returns the sums."""
+    acc = st.get("acc") if spec.optimizer == "adagrad" else None
+    return K.fused_backward(st["table"], acc, order, offsets, grads,
+                            idx.to(torch.int32).contiguous(), g, lr=spec.lr,
+                            eps=spec.eps, apply_self=g is None)
 
 
 def _apply_sparse(st: dict, spec: EmbeddingSpec, idx: torch.Tensor,
-                  g: torch.Tensor, n_rows: int) -> dict:
+                  g: torch.Tensor) -> dict:
     """Row-sparse optimizer apply, in place: O(#puts), never O(rows).
-    idx: (U,) row indices, entries outside [0, n_rows) dropped. Duplicate
-    rows accumulate (the paper's lock-free put: acc sees every increment
-    before the scaled step is taken)."""
-    acc = st["acc"] if spec.optimizer == "adagrad" else None
-    live = (idx >= 0) & (idx < n_rows)
-    KR.apply_rows_ref(st["table"], acc, torch.where(live, idx, -1), g,
-                      lr=spec.lr, eps=spec.eps)
+    idx: (U,) row indices, -1 = no-op. Duplicate rows accumulate (the
+    paper's lock-free put: acc sees every increment before the scaled step
+    is taken). One ``fused_backward`` launch with no segment to sum."""
+    i32 = dict(dtype=torch.int32, device=g.device)
+    fused_apply(st, spec, torch.zeros(0, **i32), torch.zeros(1, **i32),
+                g.new_zeros((0, spec.dim)), idx, g.float().contiguous())
     return st
 
 
@@ -174,8 +198,9 @@ def hybrid_emb_update(state: dict, queue, spec: EmbeddingSpec,
                       assume_unique: bool = False):
     """One hybrid-algorithm embedding update: enqueue this step's put,
     apply the (tau-stale) put that pops out. tau=0 applies immediately
-    (sync). ``assume_unique`` passes to :func:`apply_put`, which takes only
-    unique ids in the port."""
+    (sync). ``assume_unique`` passes to :func:`apply_put`: without it the
+    queue holds the put at occurrence width and the popped put is
+    aggregated when it is applied."""
     if spec.staleness <= 0 or queue is None:
         return apply_put(state, spec, ids, grads, assume_unique), queue
     queue, old_ids, old_grads = queue_push_pop(queue, ids, grads)

@@ -4,8 +4,9 @@ paper Alg. 1 + Alg. 2).
 One train step =
   (1) prepare (host): each table's ids become a dedup plan (unique ids,
       inverse, physical rows, occurrence CSR), uploaded in one copy;
-  (2) lookup: each table's pooled bags through the ``unique_bag`` kernel,
-      from the (possibly tau-stale) tables                  [Alg.1 forward]
+  (2) lookup: each table's pooled bags through the ``unique_bag`` kernel
+      (``embedding_bag`` for occurrence-width tables), from the (possibly
+      tau-stale) tables                                     [Alg.1 forward]
   (3) dense forward/backward: the pooled (B, D) bags are autograd leaves,
       so one ``torch.autograd.grad`` gives the dense gradients and each
       table's pooled gradient; the occurrence gradient is the pooled one
@@ -42,10 +43,12 @@ Differences from the JAX package, all of eager PyTorch:
 * ``TrainState.step``, the optimizer's ``t`` and the queues' ``ptr`` and
   ``filled`` are host ints (int32 scalars on the device in the JAX
   package; the checkpoint stores them in the JAX package's dtypes).
-* Training needs every table on the dedup-plan path (``batch_dedup``, the
-  default): the occurrence-width put needs ``dedup_put``, which comes with
-  a later slice, as do the pipelined trainer and the host-cached, sharded
-  and compressed backends.
+* Tables with ``batch_dedup=False`` read and put at occurrence width:
+  the pooled lookup through ``embedding_bag``, the put grouped on the
+  device and summed by ``fused_backward``. Tables behind the compressed
+  wire (``backend="dense+compressed"``) roundtrip their gets and puts
+  through the blockscale kernels. The pipelined trainer and the
+  host-cached and sharded backends come with later slices.
 """
 from __future__ import annotations
 
@@ -211,8 +214,8 @@ class PersiaTrainer:
     staleness is overridden by ``mode.emb_staleness`` (the JAX package's
     default); ``per_table_staleness=True`` honours each spec's own.
     ``batch_dedup=None`` honours each spec's flag; a bool overrides every
-    table (True: plan + ``unique_bag``, False: ``embedding_bag``, serving
-    only).
+    table (True: plan + ``unique_bag``, False: occurrence width,
+    ``embedding_bag``).
     """
 
     def __init__(self, adapter: ModelAdapter, mode: TrainMode | None = None,
@@ -281,10 +284,8 @@ class PersiaTrainer:
 
     def _prepare(self, state: TrainState, batch):
         """Returns (state, dev_ids, metrics): each table's ids deduplicated
-        into a dedup plan on the host and uploaded in one copy."""
-        for n, s in self.collection.items():
-            if not s.batch_dedup:
-                raise BK.flat_training_not_ported(f"table {n!r}")
+        into a dedup plan on the host (kept at occurrence width for
+        ``batch_dedup=False`` tables) and uploaded in one copy."""
         ids = self.adapter.emb_ids(batch)
         emb, dev_ids, m = BK.prepare_all(self.backends, state.emb, ids,
                                          self.device)
@@ -443,8 +444,9 @@ class PersiaTrainer:
         dense_tree = {"dense": tree["dense"], "opt": tree["opt"]}
         if tree["dense_queue"] is not None:
             dense_tree["dense_queue"] = tree["dense_queue"]
-        emb_tree = {"emb": {n: self.backends[n].state_for_checkpoint(
-                        state.emb[n]) for n in state.emb},
+        emb_tree = {"emb": {n: BK.unwrap(self.backends[n])
+                            .state_for_checkpoint(state.emb[n])
+                            for n in state.emb},
                     "emb_queue": tree["emb_queue"]}
         return save_checkpoint(directory, step, dense_tree, emb_tree)
 
@@ -464,8 +466,8 @@ class PersiaTrainer:
         emb = {}
         for n in self.collection.names:
             try:
-                emb[n] = self.backends[n].restore_from_checkpoint(
-                    emb_tree["emb"][n])
+                emb[n] = BK.unwrap(self.backends[n]) \
+                    .restore_from_checkpoint(emb_tree["emb"][n])
             except ValueError as e:
                 raise ValueError(f"checkpoint table {n!r}: {e}") from e
         queues = emb_tree.get("emb_queue", {})
@@ -482,8 +484,9 @@ class PersiaTrainer:
                     "the pending-put queue; rebuild the trainer with the "
                     "mode the checkpoint was trained under")
         for n in self.collection.names:
-            # occurrence-width queue blobs restore into a batch-dedup
-            # trainer by re-encoding each pending put at unique width
+            # occurrence-width queue blobs restore into a batch-dedup (or
+            # wire) trainer by re-encoding each pending put at the width
+            # this trainer's backend runs (queue_width)
             emb_queue[n] = _migrate_queue_widths(self.backends[n],
                                                  emb_queue[n])
         dq = dense_tree.get("dense_queue")

@@ -30,6 +30,10 @@ _SIGNATURES = {
     "persia_fused_backward_f32": ("fused_backward",
                                   (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I,
                                    _I, _I, _I, _I, _F, _F, _I, _P)),
+    "persia_blockscale_compress_f32": ("blockscale",
+                                       (_P, _I64, _I, _P, _P, _P)),
+    "persia_blockscale_decompress_f32": ("blockscale",
+                                         (_P, _P, _I64, _I, _P, _P)),
 }
 _fns: dict = {}
 
@@ -184,10 +188,101 @@ def fused_backward(table: torch.Tensor, acc: torch.Tensor | None,
     return push
 
 
+def _check_codec(op: str, **tensors: tuple[torch.Tensor, torch.dtype]):
+    """The codec kernels take contiguous tensors of the given dtypes, all
+    on one CUDA device."""
+    devices = {t.device for t, _ in tensors.values()}
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(
+            f"{op}: tensors must all lie on the CPU (plain version) or all "
+            f"on one CUDA device (kernel); got "
+            f"{sorted(str(d) for d in devices)}")
+    for k, (t, dtype) in tensors.items():
+        if t.dtype != dtype or not t.is_contiguous():
+            raise TypeError(f"{op}: {k} must be a contiguous {dtype} tensor, "
+                            f"got {t.dtype}")
+
+
+def _check_block(block) -> int:
+    if int(block) != block or block < 1:
+        raise ValueError(f"blockscale: block must be a positive int, got "
+                         f"{block!r}")
+    return int(block)
+
+
+def blockscale_compress(v: torch.Tensor, block: int = 128):
+    """Any-shape fp32 ``v``, flattened and zero-padded to whole blocks of
+    ``block`` -> ``(comp, scales)``: (n_blocks, block) fp16 and (n_blocks,)
+    fp32, ``comp = fp16(v * s)`` with ``s = 32768 / max(max|v|, 1e-30)``
+    per block. Port of ``repro.kernels.ops.blockscale_compress`` (block 128
+    over (n, 128) blocks) that also takes the jnp codec's any ``block``
+    (``repro.core.compression.blockscale_compress``); no 256-block tile."""
+    block = _check_block(block)
+    if _all_on_cpu(v):
+        return ref.blockscale_compress_ref(v, block)
+    _check_codec("blockscale_compress", v=(v, torch.float32))
+    n = v.numel()
+    n_blocks = -(-n // block)
+    comp = torch.empty((n_blocks, block), dtype=torch.float16,
+                       device=v.device)
+    scales = torch.empty((n_blocks,), dtype=torch.float32, device=v.device)
+    if n == 0:
+        return comp, scales
+    _launch("blockscale_compress", "persia_blockscale_compress_f32", v, comp,
+            (v.data_ptr(), n, block, comp.data_ptr(), scales.data_ptr()))
+    blockscale_compress.launches += 1
+    return comp, scales
+
+
+def blockscale_decompress(comp: torch.Tensor, scales: torch.Tensor,
+                          shape=None) -> torch.Tensor:
+    """(n_blocks, block) fp16 and (n_blocks,) fp32 scales -> fp32 ``comp /
+    s`` (a true division): the (n_blocks, block) blocks, or with ``shape``
+    the first ``prod(shape)`` elements in that shape (the inverse of the
+    flatten and pad of :func:`blockscale_compress`). Port of
+    ``repro.kernels.ops.blockscale_decompress``."""
+    if comp.dim() != 2 or tuple(scales.shape) != (comp.shape[0],):
+        raise ValueError(f"blockscale_decompress: comp (n_blocks, block) and "
+                         f"scales (n_blocks,), got {tuple(comp.shape)} and "
+                         f"{tuple(scales.shape)}")
+    n_blocks, block = comp.shape
+    shape = tuple(comp.shape) if shape is None else tuple(shape)
+    n = 1
+    for s in shape:
+        n *= int(s)
+    if n > comp.numel():
+        raise ValueError(f"blockscale_decompress: shape {shape} holds more "
+                         f"than the {comp.numel()} compressed elements")
+    if _all_on_cpu(comp, scales):
+        out = ref.blockscale_decompress_ref(comp, scales)
+        return out.reshape(-1)[:n].reshape(shape)
+    _check_codec("blockscale_decompress", comp=(comp, torch.float16),
+                 scales=(scales, torch.float32))
+    out = torch.empty(shape, dtype=torch.float32, device=comp.device)
+    if n == 0:
+        return out
+    _launch("blockscale_decompress", "persia_blockscale_decompress_f32",
+            comp, out, (comp.data_ptr(), scales.data_ptr(), n, int(block),
+                        out.data_ptr()))
+    blockscale_decompress.launches += 1
+    return out
+
+
+def blockscale_roundtrip(v: torch.Tensor, block: int = 128) -> torch.Tensor:
+    """Compress then decompress: what a payload of ``v``'s shape reads after
+    crossing the wire (fp32). Port of ``repro.kernels.ops.
+    blockscale_roundtrip``."""
+    comp, scales = blockscale_compress(v, block)
+    return blockscale_decompress(comp, scales, v.shape)
+
+
 embedding_bag.launches = 0
 unique_bag.launches = 0
 fused_backward.launches = 0
-WRAPPERS = (embedding_bag, unique_bag, fused_backward)
+blockscale_compress.launches = 0
+blockscale_decompress.launches = 0
+WRAPPERS = (embedding_bag, unique_bag, fused_backward, blockscale_compress,
+            blockscale_decompress)
 
 
 def launch_counts() -> dict[str, int]:

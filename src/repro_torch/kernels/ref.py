@@ -6,11 +6,40 @@ The bag pools add the L rows one ``l`` at a time, in order, starting from
 zero, and skip padding with a select: the same additions in the same order
 as the CUDA kernels and as the Pallas kernels in interpret mode, so all
 three agree bit for bit. ``fused_backward_ref`` repeats its CUDA kernel's
-operations in the kernel's order (see its section below).
+operations in the kernel's order (see its section below), and the
+blockscale codec's operations are each one correctly rounded IEEE
+operation, in the kernel and here.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+KAPPA = 32_768.0    # the paper's "relatively large constant scalar"
+
+
+# ---------------------------------------------------------------------------
+# blockscale: the §4.2.3 lossy fp32 -> fp16 wire codec
+# ---------------------------------------------------------------------------
+
+def blockscale_compress_ref(v: torch.Tensor, block: int = 128):
+    """Any-shape fp32 ``v``, flattened and zero-padded to whole blocks of
+    ``block`` -> ``(comp, scales)``: ``comp`` (n_blocks, block) fp16 =
+    ``fp16(v * s)`` rounded to nearest even, ``scales`` (n_blocks,) fp32 =
+    ``KAPPA / max(max|v|, 1e-30)`` per block (NaN in a block gives a NaN
+    scale)."""
+    flat = v.reshape(-1).float()
+    blocks = F.pad(flat, (0, (-flat.numel()) % block)).reshape(-1, block)
+    linf = blocks.abs().amax(dim=1)
+    scale = torch.full_like(linf, KAPPA) / torch.clamp(linf, min=1e-30)
+    return (blocks * scale[:, None]).to(torch.float16), scale
+
+
+def blockscale_decompress_ref(comp: torch.Tensor, scales: torch.Tensor
+                              ) -> torch.Tensor:
+    """(n_blocks, block) fp16 and (n_blocks,) fp32 scales -> (n_blocks,
+    block) fp32 ``comp / s``: a true division, never a multiply by 1/s."""
+    return comp.float() / scales[:, None]
 
 
 def _pool_in_order(rows: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -55,7 +84,10 @@ def unique_bag_ref(table: torch.Tensor, dev: torch.Tensor,
 # the same order, so on the card the two agree bit for bit:
 # * a segment adds its occurrence rows in occurrence order, from 0.0;
 # * mean(g^2) adds the squares in column order, then divides by D;
-# * the adagrad scale is 1 / sqrt(acc + eps) (two rounded operations);
+# * the adagrad scale is 1 / sqrt(acc + eps) (two rounded operations; the
+#   square root is taken in float64 and rounded once to float32, which is
+#   the correctly rounded float32 root: torch's float32 sqrt on the CPU is
+#   not correctly rounded everywhere, __fsqrt_rn is);
 # * rows that several apply positions share take their updates in position
 #   order: every increment reaches acc before any scale is read, and the
 #   row adds the positions' updates one after another.
@@ -128,7 +160,8 @@ def apply_rows_ref(table: torch.Tensor, acc, idx: torch.Tensor,
         inc = _mean_sq(step)
         for p in passes:
             acc[rows[p]] = acc[rows[p]] + inc[p]
-        step = step * torch.reciprocal(torch.sqrt(acc[rows] + eps))[:, None]
+        root = torch.sqrt((acc[rows] + eps).double()).float()
+        step = step * torch.reciprocal(root)[:, None]
     upd = (step * -lr).to(table.dtype)
     for p in passes:
         table[rows[p]] = table[rows[p]] + upd[p]

@@ -178,3 +178,117 @@ def test_cuda_fused_backward_all_padding_and_counts(cuda_device):
     assert not push.any() and bool((table == 1).all()) and \
         bool((acc == 1).all())
     assert ops.launch_counts()["fused_backward"] == 1
+
+
+# ---------------------------------------------------------------------------
+# blockscale: the §4.2.3 wire codec
+# ---------------------------------------------------------------------------
+
+def _codec_input(case, rows=300, seed=0):
+    """(rows, 128) fp32 of lognormal magnitudes with one edge case planted;
+    ``partial`` and ``odd`` trim the flat input (a partial last block; on
+    the scalar path when the length is not a multiple of 4)."""
+    rng = np.random.default_rng(seed)
+    v = (rng.standard_normal((rows, 128))
+         * np.exp(rng.standard_normal((rows, 1)) * 4)).astype(np.float32)
+    if case == "zero_block":
+        v[5] = 0.0
+    elif case == "fp16_subnormal":
+        v[7] = rng.standard_normal(128).astype(np.float32) * 1e-7
+        v[7, 0] = 1e3
+    elif case == "fp32_subnormal":
+        v[3] = (rng.standard_normal(128) * 1e-39).astype(np.float32)
+    elif case == "partial":
+        return v.reshape(-1)[:rows * 128 - 76]
+    elif case == "odd":
+        return v.reshape(-1)[:rows * 128 - 77]
+    return v
+
+
+def _same_bits(a, b):
+    view = torch.int16 if a.dtype == torch.float16 else torch.int32
+    return a.shape == b.shape and torch.equal(a.view(view), b.view(view))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [64, 128, 30])
+@pytest.mark.parametrize("case", ["lognormal", "zero_block", "fp16_subnormal",
+                                  "fp32_subnormal", "partial", "odd"])
+def test_cuda_blockscale_matches_plain_versions(cuda_device, case, block):
+    v = torch.from_numpy(_codec_input(case)).to(cuda_device)
+    ops.reset_launch_counts()
+    comp, s = ops.blockscale_compress(v, block)
+    pc, ps = ref.blockscale_compress_ref(v, block)
+    out = ops.blockscale_decompress(comp, s, v.shape)
+    want = ref.blockscale_decompress_ref(pc, ps).reshape(-1)[:v.numel()] \
+        .reshape(v.shape)
+    torch.cuda.synchronize()
+    assert _same_bits(comp, pc) and _same_bits(s, ps)
+    assert _same_bits(out, want)
+    counts = ops.launch_counts()
+    assert (counts["blockscale_compress"],
+            counts["blockscale_decompress"]) == (1, 1)
+
+
+@pytest.mark.cuda
+def test_cuda_blockscale_launch_error_raises(cuda_device, monkeypatch):
+    ops.reset_launch_counts()
+    monkeypatch.setattr(ops, "_fn", lambda name: lambda *args: 700)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        ops.blockscale_compress(torch.ones(256, device=cuda_device))
+    assert ops.launch_counts()["blockscale_compress"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["plan", "flat"])
+@pytest.mark.parametrize("staleness", [0, 2])
+def test_cuda_wire_matches_cpu(cuda_device, form, staleness):
+    """The compressed wire's pooled lookup and puts on the card and on the
+    CPU, from the same inputs, bit for bit: every kernel equals its plain
+    version and the ops around them (gathers, sorts, copies) are exact."""
+    from repro_torch.core import backend, dedup
+    from repro_torch.core.embedding_ps import EmbeddingSpec
+    rows, dim = 9_000, 128
+    spec = EmbeddingSpec(rows=rows, dim=dim, staleness=staleness, lr=0.05,
+                         backend="dense+compressed")
+    bk = backend.create_backend(spec)
+    rng = np.random.default_rng(staleness)
+    table = torch.from_numpy(rng.standard_normal((rows, dim))
+                             .astype(np.float32))
+    states = {d: {"table": table.to(d), "acc": torch.zeros(rows, device=d)}
+              for d in ("cpu", cuda_device)}
+    queues = {d: bk.queue_init((16, 8), d) for d in states}
+    ops.reset_launch_counts()
+    for _ in range(3):
+        ids = _bags(rng, 16, 8, 300)
+        g = rng.standard_normal((16, 8, dim)).astype(np.float32)
+        out = {}
+        for d in states:
+            if form == "plan":
+                u, inv, _, info = dedup.make_plan(
+                    ids, rows, dedup.dedup_cap(ids.size, rows))
+                order, offsets = occurrence_csr(inv, u.size)
+                dev_ids = dedup.DedupPlan(
+                    *(torch.from_numpy(a.astype(np.int32)).to(d)
+                      for a in (u, inv)),
+                    order=torch.from_numpy(order).to(d),
+                    offsets=torch.from_numpy(offsets).to(d),
+                    n_unique=info["n_unique"])
+            else:
+                dev_ids = torch.from_numpy(ids).to(d)
+            pooled, _ = bk.lookup_pooled(states[d], dev_ids)
+            states[d], queues[d], m = bk.hybrid_update(
+                states[d], queues[d], dev_ids, torch.from_numpy(g).to(d))
+            out[d] = pooled
+        torch.cuda.synchronize()
+        assert _same_bits(out[cuda_device].cpu(), out["cpu"])
+    for k in ("table", "acc"):
+        assert _same_bits(states[cuda_device][k].cpu(), states["cpu"][k])
+    if staleness:
+        for k in ("ids", "grads"):
+            assert _same_bits(queues[cuda_device][k].cpu(), queues["cpu"][k])
+    counts = ops.launch_counts()
+    assert counts["blockscale_compress"] == counts["blockscale_decompress"] \
+        == 6
+    assert counts["fused_backward"] == (3 if staleness else 6)
+    assert counts["unique_bag" if form == "plan" else "embedding_bag"] == 3

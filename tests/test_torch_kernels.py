@@ -152,8 +152,11 @@ def test_cpu_wrappers_run_plain_version_and_count_no_launch():
                        torch.zeros(2, dtype=torch.int32), torch.ones((3, 4)),
                        torch.full((1,), 2, dtype=torch.int32), None, lr=0.1,
                        eps=1e-8, apply_self=True)
+    ops.blockscale_roundtrip(torch.ones((3, 5)), block=4)
     assert ops.launch_counts() == {"embedding_bag": 0, "unique_bag": 0,
-                                   "fused_backward": 0}
+                                   "fused_backward": 0,
+                                   "blockscale_compress": 0,
+                                   "blockscale_decompress": 0}
 
 
 def test_wrappers_reject_other_devices_and_bad_shapes():
@@ -174,7 +177,7 @@ def test_wrappers_reject_other_devices_and_bad_shapes():
 
 
 def test_build_names_sources_and_hashes_them(monkeypatch):
-    assert set(build.sources()) == {"bag", "fused_backward"}
+    assert set(build.sources()) == {"bag", "blockscale", "fused_backward"}
     path = build.library_path("bag")
     assert path.parent == build.BUILD and path.name.startswith("libbag-")
     assert path == build.library_path("bag")          # content-addressed

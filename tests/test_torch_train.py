@@ -98,7 +98,23 @@ def _leaves(tree):
     return jax.tree.leaves(tree)
 
 
-def _check_states(tstate, jstate):
+def _close_lossy(got, want, atol, what):
+    """The FFNN's class through the lossy wire: the two packages' payloads
+    differ in their last bits (the FFNN's class), so once in a while a value
+    lies on an fp16 rounding boundary and rounds up on one side and down on
+    the other, moving one element by one fp16 step of its block. At most 1%
+    of the elements may leave rtol 1e-5 / atol 1e-6, each by at most
+    ``atol``."""
+    got, want = np.asarray(got), np.asarray(want)
+    off = ~np.isclose(got, want, rtol=1e-5, atol=1e-6)
+    assert off.mean() <= 0.01, f"{what}: {off.sum()} of {off.size} off"
+    _close(got, want, 0, atol, what)
+
+
+def _check_states(tstate, jstate, lossy=False):
+    """Slice 2's bar. ``lossy``: the tables and queued grads crossed the
+    compressed wire (``_close_lossy``; a table element within 1e-4, 2e-3
+    of the embedding lr, a queued element within 2^-10 of the largest)."""
     got = convert.state_to_numpy(tstate)
     want = _to_np(jstate)
     assert int(got["step"]) == int(want.step)
@@ -110,7 +126,12 @@ def _check_states(tstate, jstate):
     for g, w in zip(_leaves(got["opt"]["v"]), _leaves(want.opt["v"])):
         _close(g, w, 1e-4, 1e-12, "adam v")
     for n in want.emb:
-        _close(got["emb"][n]["table"], want.emb[n]["table"], 1e-5, 1e-6, n)
+        if lossy:
+            _close_lossy(got["emb"][n]["table"], want.emb[n]["table"], 1e-4,
+                         n)
+        else:
+            _close(got["emb"][n]["table"], want.emb[n]["table"], 1e-5, 1e-6,
+                   n)
         _close(got["emb"][n]["acc"], want.emb[n]["acc"], 1e-5, 1e-9, n)
         gq, wq = got["emb_queue"][n], want.emb_queue[n]
         assert (gq is None) == (wq is None)
@@ -119,7 +140,12 @@ def _check_states(tstate, jstate):
             assert gq["ids"].dtype == np.int32
             assert (int(gq["ptr"]), int(gq["filled"])) == \
                 (int(wq["ptr"]), int(wq["filled"]))
-            _close(gq["grads"], wq["grads"], 1e-5, 1e-6, f"{n} queue")
+            if lossy:
+                _close_lossy(gq["grads"], wq["grads"],
+                             2.0 ** -10 * np.abs(wq["grads"]).max(),
+                             f"{n} queue")
+            else:
+                _close(gq["grads"], wq["grads"], 1e-5, 1e-6, f"{n} queue")
     gd, wd = got["dense_queue"], want.dense_queue
     assert (gd is None) == (wd is None)
     if wd is not None:
@@ -297,9 +323,13 @@ def test_hybrid_emb_update_of_unique_ids_matches_jax():
                                        jnp.asarray(g))
     _close(ts["table"].numpy(), np.asarray(js["table"]), 2e-6, 2e-6, "table")
     _close(ts["acc"].numpy(), np.asarray(js["acc"]), 2e-6, 2e-6, "acc")
-    with pytest.raises(NotImplementedError, match="dedup_put"):
-        embedding_ps.apply_put(ts, spec_t, torch.from_numpy(ids),
-                               torch.from_numpy(g))
+    # the same ids, repeated, without assume_unique: aggregated first
+    ids2, g2 = np.concatenate([ids, ids]), np.concatenate([g, g])
+    ts = embedding_ps.apply_put(ts, spec_t, torch.from_numpy(ids2),
+                                torch.from_numpy(g2))
+    js = jps.apply_put(js, spec_j, jnp.asarray(ids2), jnp.asarray(g2))
+    _close(ts["table"].numpy(), np.asarray(js["table"]), 2e-6, 2e-6, "table")
+    _close(ts["acc"].numpy(), np.asarray(js["acc"]), 2e-6, 2e-6, "acc")
 
 
 # ---------------------------------------------------------------------------
@@ -445,19 +475,37 @@ def test_init_sizes_queues_and_needs_a_batch_under_staleness():
 
 
 def test_training_a_flat_table_raises():
-    ad = adapters.recsys_adapter(CFG, field_rows=DS.field_rows())
-    coll = ad.collection.map_specs(lambda n, s: dataclasses.replace(
-        s, batch_dedup=n != "field_01"))
-    tt = PersiaTrainer(dataclasses.replace(ad, collection=coll),
-                       TrainMode.sync(), device="cpu",
-                       per_table_staleness=True)
-    state = tt.init(seed=0)
-    before = state.emb["field_00"]["table"].clone()
-    with pytest.raises(NotImplementedError, match="field_01.*dedup_put"):
-        tt.step(state, _batches(1)[0])
-    assert torch.equal(state.emb["field_00"]["table"], before)
-    # the serving read of the same trainer still works
-    assert tt.predict(state, _batches(1)[0]).shape == (B, CFG.n_tasks)
+    """A trainer with one occurrence-width table among plan tables trains
+    as the JAX trainer does; what still raises is a flat table behind a
+    backend the port does not build."""
+    ad = adapters.recsys_adapter(CFG, lr=EMB_LR, field_rows=DS.field_rows())
+    flat = lambda n, s: dataclasses.replace(  # noqa: E731
+        s, batch_dedup=n != "field_01")
+    tt = PersiaTrainer(dataclasses.replace(
+        ad, collection=ad.collection.map_specs(flat)), TrainMode.sync(),
+        topt.OptConfig(kind="adam", lr=DENSE_LR), device="cpu",
+        per_table_staleness=True)
+    jcfg = JConfig(**dataclasses.asdict(CFG))
+    jad = jadapters.recsys_adapter(jcfg, lr=EMB_LR,
+                                   field_rows=DS.field_rows())
+    jt = jhybrid.PersiaTrainer(
+        dataclasses.replace(jad, collection=jad.collection.map_specs(flat)),
+        jhybrid.TrainMode.sync(), jopt.OptConfig(kind="adam", lr=DENSE_LR),
+        per_table_staleness=True)
+    js = jt.init(jax.random.PRNGKey(0))
+    ts = _carry(tt, js)
+    for b in _batches(2):
+        js, jm = jt.step(js, b)
+        ts, tm = tt.step(ts, b)
+        _close(float(tm["loss"]), float(jm["loss"]), 1e-5, 0, "loss")
+        assert "dedup/field_01/dup_factor" not in tm
+    _check_states(ts, js)
+    assert tt.predict(ts, _batches(1)[0]).shape == (B, CFG.n_tasks)
+    with pytest.raises(ValueError, match="not ported yet"):
+        PersiaTrainer(dataclasses.replace(
+            ad, collection=ad.collection.map_specs(
+                lambda n, s: dataclasses.replace(
+                    flat(n, s), backend="host_lru"))), device="cpu")
 
 
 # ---------------------------------------------------------------------------
