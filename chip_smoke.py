@@ -11,7 +11,8 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
 2. Kernels: holds ``embedding_bag`` and ``unique_bag`` bit for bit against
    their plain torch versions on the card, at the serving shape (B=64,
    L=8, D=128, V=62,500) and on edge cases (all-padding bags, plan
-   padding, all-duplicate bags, D=13 on the scalar path), and times each
+   padding, all-duplicate bags, indices past the end, clamped, D=13 on
+   the scalar path), and times each
    kernel, its plain version and ``torch.nn.functional.embedding_bag`` as a
    yardstick (the port never calls it) over 32 tables of that shape. Then
    ``fused_backward`` bit for bit (payload, table and accumulator) against
@@ -57,6 +58,31 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
 6. Occurrence-width train: every table ``batch_dedup=False``, hybrid(3)
    for 4 steps: ``embedding_bag`` and ``fused_backward`` once per table
    and step, rings checked.
+7. The ``embedding_sgd`` entry point, once (``ops.embedding_sgd`` with its
+   ``check_unique``), bit for bit against the plain version.
+8. LM serving: ``launch.serve.serve`` at the full width of granite-3-2b
+   (40 layers, d_model 2048, 32/8 heads of 64, vocab 49,155 padded to
+   49,664, fp32: 10.1 GB of dense weights, a 0.40 GB vocab table, a 1.36
+   GB KV cache) with random weights from a seeded generator: B=4, a 2,048
+   token prompt, 32 greedy tokens. The prefill must launch
+   ``flash_attention_fwd`` once per layer (40); its last-token logits must
+   be finite and equal those of the plain attention on the card (max |d|
+   <= 1e-3 max |logit|, the first token equal). Prefill ms, ms per decoded
+   token, decode tokens/s and the device-busy share under the profiler.
+   Then the same model cut to 2 layers, B=1, prompt 256, 4 tokens, on the
+   card and on the CPU from one state: logits within rtol 1e-4 / atol
+   1e-5, greedy tokens equal.
+
+The kernel phase also holds ``embedding_sgd`` bit for bit on 32 tables'
+real kwai-dlrm puts (the unique physical rows of a training put, -1 and
+ids >= V mixed in; ``check_unique`` must raise on a duplicate), and
+``flash_attention_fwd`` against its plain version at granite's prefill
+shape (B=4, 32/8 heads of 64, S=2,048, fp32, causal; o within 2e-5, lse
+within 1e-4) and on edge cases (S=1,000, a ragged tile; window 256;
+non-causal; Hq = Hkv; Dh 96 and 128; bf16 inputs, o within 4e-2), each
+timed beside its bound, its plain version and its library call
+(``index_add_``, ``scaled_dot_product_attention``; the port calls
+neither).
 
 It prints the card's name and power limit, one JSON line per phase, the
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
@@ -67,11 +93,13 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import threading
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -80,6 +108,7 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.recsys_configs import KWAI  # noqa: E402
 from repro_torch.core import adapters  # noqa: E402
 from repro_torch.core import backend as BK  # noqa: E402
@@ -88,11 +117,16 @@ from repro_torch.core import dedup as D  # noqa: E402
 from repro_torch.core.hybrid import PersiaTrainer, TrainMode  # noqa: E402
 from repro_torch.data.ctr import CTR_BENCHMARKS  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.launch import serve as lm_serve  # noqa: E402
+from repro_torch.launch.shards import build_embedding_spec  # noqa: E402
+from repro_torch.models import flash as lm_flash  # noqa: E402
+from repro_torch.models import layers as lm_layers  # noqa: E402
+from repro_torch.models import transformer as lm_model  # noqa: E402
 from repro_torch.models.recsys import pool_bag  # noqa: E402
 from repro_torch.optim.optimizers import OptConfig  # noqa: E402
 from repro_torch.serving import (ServingConfig, ServingService,  # noqa: E402
                                  StateCell, TrafficModel)
-from repro_torch.utils import tree_leaves  # noqa: E402
+from repro_torch.utils import tree_leaves, tree_map  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and fp32 outside the
 # tensor cores. The bound of a kernel is the larger of its bytes over the
@@ -112,6 +146,12 @@ WARMUP_STEPS, TIMED_STEPS, BREAKDOWN_STEPS, PROFILED_STEPS = 2, 30, 10, 5
 WIRE_STEPS = {"timed": 10, "breakdown": 5, "profiled": 3, "modes": 3}
 WIRE = "dense+compressed"
 BLOCK = 128
+# LM serving: granite-3-2b at full width (40 layers, d_model 2048, vocab
+# 49,155), batch, prompt and generated tokens; the card-against-CPU run's
+# depth and sizes; the attention kernel's shape at that prefill
+LM_ARCH, LM_B, LM_PROMPT, LM_GEN = "granite_3_2b", 4, 2048, 32
+LM_CPU = {"layers": 2, "batch": 1, "prompt": 256, "gen": 4}
+EMB_SGD_LR = 1e-2
 
 KERNELS = {
     "embedding_bag": {"source": "src/repro_torch/kernels/csrc/bag.cu",
@@ -127,6 +167,12 @@ KERNELS = {
     "blockscale_decompress": {
         "source": "src/repro_torch/kernels/csrc/blockscale.cu",
         "replaces": "src/repro/kernels/blockscale.py:57"},
+    "embedding_sgd": {
+        "source": "src/repro_torch/kernels/csrc/embedding_sgd.cu",
+        "replaces": "src/repro/kernels/embedding_sgd.py:52"},
+    "flash_attention_fwd": {
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:73"},
 }
 CODEC = ("blockscale_compress", "blockscale_decompress")
 
@@ -244,6 +290,14 @@ def kernel_phase(dev, rng):
     inv = np.where((np.arange(L)[None, :] % 2 == 1) & (inv >= 0),
                    n_u + (inv % 32), inv).astype(np.int32)
     both("dev_padding", t, serve_ids[2], plan=(u, inv))
+    # past the end, clamped as the JAX package's gathers clamp: ids >= V
+    # read row V - 1, inv >= U reads dev[U - 1], a dev entry >= V row V - 1
+    past = serve_ids[3].copy()
+    past[:, -1] = V + 3
+    u, inv = plan_of(serve_ids[3], V)
+    u[0], u[-1] = V + 11, 17
+    inv[:, -1] = u.size + 5
+    both("past_end_clamped", t, past, plan=(u, inv))
     t13 = torch.randn((1000, 13), generator=gen, device=dev)
     both("d13_scalar", t13, bag_ids(rng, B, L, 1000))
     torch.cuda.synchronize()
@@ -564,6 +618,190 @@ def blockscale_phase(dev, ds):
             rows_per_table=float(np.mean([a.shape[0] for a in acts])),
             cases=list(cases))
     del tables, acts, comps
+    torch.cuda.empty_cache()
+    return timing
+
+
+def sgd_puts(dev, ds, gen):
+    """One embedding_sgd put per table at the training shape: the unique
+    physical rows of a real kwai_video put (a row two ids share once; the
+    plan's -1 padding kept) with -1 and ids >= V mixed in, and the put's
+    segment sums as gradients."""
+    names, batches = train_plans(dev, ds, 1, SEED + 14)
+    ids_now, plans = batches[0]
+    puts = []
+    for k, n in enumerate(names):
+        rows = plans[n].rows.clone()
+        live = torch.nonzero(rows >= 0).flatten()
+        first = torch.ones_like(live, dtype=torch.bool)
+        srt, perm = torch.sort(rows[live], stable=True)
+        first[perm[1:]] = srt[1:] != srt[:-1]
+        rows[live[~first]] = -1            # a shared row once
+        rows[live[::9]] = -1               # padding among the live rows
+        past = live[1::13]                 # past the end: no-ops
+        rows[past] = V + 1 + torch.arange(past.numel(), device=dev,
+                                          dtype=rows.dtype)
+        mask = torch.as_tensor(ids_now[n].reshape(-1) >= 0, device=dev)
+        grads = torch.randn((mask.numel(), DIM), generator=gen, device=dev) \
+            * 1e-3 * mask[:, None].float()
+        sums = D.csr_segment_sum(plans[n].order, plans[n].offsets, grads,
+                                 int(rows.numel()))
+        puts.append((rows.contiguous(), sums.contiguous()))
+    return puts
+
+
+def sgd_phase(dev, ds):
+    """embedding_sgd against its plain version on the card, bit for bit,
+    on 32 tables' puts; check_unique on a duplicate; per-call times."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    tables = [torch.randn((V, DIM), generator=gen, device=dev) * 0.02
+              for _ in range(N_TABLES)]
+    puts = sgd_puts(dev, ds, gen)
+    err = 0.0
+    for k in (0, 1):
+        ids, g = puts[k]
+        got = ops.embedding_sgd(tables[k].clone(), ids, g, EMB_SGD_LR)
+        want = ref.embedding_sgd_ref(tables[k].clone(), ids, g,
+                                     lr=EMB_SGD_LR)
+        torch.cuda.synchronize()
+        err = max(err, exact("embedding_sgd", f"table {k}", got, want))
+        untouched = torch.ones(V, dtype=torch.bool, device=dev)
+        untouched[ids[(ids >= 0) & (ids < V)].long()] = False
+        check(torch.equal(got[untouched], tables[k][untouched]),
+              "embedding_sgd: a row outside the put changed")
+    ids, g = puts[0]
+    dup = ids.clone()
+    live = torch.nonzero((dup >= 0) & (dup < V)).flatten()
+    dup[live[1]] = dup[live[0]]
+    try:
+        ops.embedding_sgd(tables[0], dup, g, EMB_SGD_LR)
+        raised = False
+    except ValueError:
+        raised = True
+    check(raised, "embedding_sgd: check_unique let a duplicate through")
+
+    valid = [(i >= 0) & (i < V) for i, _ in puts]
+    lib_args = [(i[m].long(), gr[m]) for (i, gr), m in zip(puts, valid)]
+
+    def loop(f):
+        return lambda: [f(k) for k in range(N_TABLES)]
+
+    timing = {
+        "ms": device_ms(loop(lambda k: ops.embedding_sgd(
+            tables[k], *puts[k], EMB_SGD_LR, assume_unique=True)), 20)
+        / N_TABLES,
+        "eager_ms": eager_ms(loop(lambda k: ops.embedding_sgd(
+            tables[k], *puts[k], EMB_SGD_LR, assume_unique=True)), 20)
+        / N_TABLES,
+        "eager_checked_ms": eager_ms(loop(lambda k: ops.embedding_sgd(
+            tables[k], *puts[k], EMB_SGD_LR)), 5) / N_TABLES,
+        # the plain version selects the valid ids with a mask (a sync with
+        # the host), so it cannot be captured in a graph: eager
+        "plain_ms": eager_ms(loop(lambda k: ref.embedding_sgd_ref(
+            tables[k], *puts[k], lr=EMB_SGD_LR)), 5) / N_TABLES,
+        # index_add_ takes no -1 or past-the-end id: given the valid ids
+        # (selected before the timing), as the one call
+        "library_ms": device_ms(loop(lambda k: tables[k].index_add_(
+            0, *lib_args[k], alpha=-EMB_SGD_LR)), 20) / N_TABLES,
+    }
+    # bytes: each id read once, each applied put's gradient row and table
+    # row read and the row written; operations: a product and a sum per
+    # applied element
+    n_ids = float(np.mean([i.numel() for i, _ in puts]))
+    n_live = float(np.mean([int(m.sum()) for m in valid]))
+    nb, no = n_ids * 4 + n_live * DIM * 4 * 3, n_live * DIM * 2
+    b_bytes, b_ops = nb / HBM_BYTES_PER_S, no / FP32_OPS_PER_S
+    timing.update(bound_ms=max(b_bytes, b_ops) * 1e3,
+                  bound_by="bytes" if b_bytes >= b_ops else "operations",
+                  bound_bytes=nb, max_abs_err=err, ids_per_put=n_ids,
+                  applied_rows_per_put=n_live)
+    del tables, puts, lib_args
+    torch.cuda.empty_cache()
+    return timing
+
+
+def attended_pairs(Sq, Sk, causal, window, q_offset=0) -> int:
+    """(query, key) pairs the masks leave, the work of one head."""
+    qpos = np.arange(Sq)[:, None] + q_offset
+    kpos = np.arange(Sk)[None, :]
+    m = np.ones((Sq, Sk), bool)
+    if causal:
+        m &= qpos >= kpos
+    if window > 0:
+        m &= qpos - kpos < window
+    return int(m.sum())
+
+
+def flash_phase(dev):
+    """flash_attention_fwd against its plain version on the card at
+    granite-3-2b's prefill shape and on edge cases; per-call times beside
+    the plain version and SDPA."""
+    lm = get_config(LM_ARCH)
+    Hq, Hkv, Dh = lm.n_heads, lm.n_kv_heads, lm.head_dim
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+
+    def qkv(B, hq, hkv, Sq, Sk, dh, dtype=torch.float32):
+        return [torch.randn(s, generator=gen, device=dev).to(dtype)
+                for s in ((B, hq, Sq, dh), (B, hkv, Sk, dh),
+                          (B, hkv, Sk, dh))]
+
+    # (B, Hq, Hkv, Sq, Sk, Dh, causal, window, dtype)
+    cases = {
+        "prefill": (LM_B, Hq, Hkv, LM_PROMPT, LM_PROMPT, Dh, True, 0,
+                    torch.float32),
+        "ragged_1000": (2, Hq, Hkv, 1000, 1000, Dh, True, 0, torch.float32),
+        "window_256": (2, Hq, Hkv, 1000, 1000, Dh, True, 256,
+                       torch.float32),
+        "non_causal": (2, Hq, Hkv, 700, 700, Dh, False, 0, torch.float32),
+        "hq_eq_hkv": (2, 8, 8, 513, 513, Dh, True, 0, torch.float32),
+        "dh_96": (2, 8, 2, 300, 300, 96, True, 0, torch.float32),
+        "dh_128": (2, 8, 2, 300, 300, 128, True, 0, torch.float32),
+        "bf16": (2, Hq, Hkv, 1000, 1000, Dh, True, 0, torch.bfloat16),
+    }
+    scale = 1.0 / math.sqrt(Dh)
+    errs, err32 = {}, 0.0
+    for name, (B, hq, hkv, Sq, Sk, dh, causal, window, dtype) in \
+            cases.items():
+        q, k, v = qkv(B, hq, hkv, Sq, Sk, dh, dtype)
+        sc = 1.0 / math.sqrt(dh)
+        o, lse = ops.flash_attention_fwd(q, k, v, sc, causal, window)
+        po, plse = ref.flash_attention_fwd_ref(q, k, v, sc, causal, window)
+        torch.cuda.synchronize()
+        e_o = float((o.float() - po.float()).abs().max())
+        e_l = float((lse - plse).abs().max())
+        tol = 2e-5 if dtype == torch.float32 else 4e-2
+        errs[name] = {"o": e_o, "lse": e_l}
+        check(math.isfinite(e_o) and e_o <= tol and e_l <= 1e-4,
+              f"flash_attention_fwd[{name}]: o off by {e_o} (tol {tol}), "
+              f"lse by {e_l} (tol 1e-4)")
+        if dtype == torch.float32:
+            err32 = max(err32, e_o)
+        del q, k, v, o, lse, po, plse
+    torch.cuda.empty_cache()
+
+    B, S = LM_B, LM_PROMPT
+    q, k, v = qkv(B, Hq, Hkv, S, S, Dh)
+    timing = {
+        "ms": device_ms(lambda: ops.flash_attention_fwd(q, k, v, scale),
+                        10),
+        "eager_ms": eager_ms(lambda: ops.flash_attention_fwd(q, k, v,
+                                                             scale), 10),
+        "plain_ms": device_ms(lambda: ref.flash_attention_fwd_ref(
+            q, k, v, scale), 3),
+        "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale, enable_gqa=True), 10),
+    }
+    pairs = attended_pairs(S, S, True, 0)
+    no = 4.0 * B * Hq * Dh * pairs
+    nb = 4.0 * (2 * B * Hq * S * Dh + 2 * B * Hkv * S * Dh + B * Hq * S)
+    b_bytes, b_ops = nb / HBM_BYTES_PER_S, no / FP32_OPS_PER_S
+    timing.update(bound_ms=max(b_bytes, b_ops) * 1e3,
+                  bound_by="bytes" if b_bytes >= b_ops else "operations",
+                  bound_bytes=nb, bound_ops=no, max_abs_err=err32,
+                  tflops=no / (timing["ms"] * 1e-3) / 1e12,
+                  errors=errs, shape={"B": B, "Hq": Hq, "Hkv": Hkv,
+                                      "S": S, "Dh": Dh, "causal": True})
+    del q, k, v
     torch.cuda.empty_cache()
     return timing
 
@@ -1058,6 +1296,171 @@ def flat_train_phase(dev, steps=4):
                                             for k, v in launches.items()}}
 
 
+# ---------------------------------------------------------------------------
+# LM serving: granite-3-2b
+# ---------------------------------------------------------------------------
+
+def sgd_entry_path(dev):
+    """The embedding_sgd entry point, once: a unique put of 694 rows on a
+    62,500 x 128 table through ``ops.embedding_sgd`` (``check_unique``
+    first), held against the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    table = torch.randn((V, DIM), generator=gen, device=dev) * 0.02
+    ids = torch.randperm(V, generator=gen, device=dev)[:694].int()
+    grads = torch.randn((694, DIM), generator=gen, device=dev) * 1e-3
+    want = ref.embedding_sgd_ref(table.clone(), ids, grads, lr=EMB_SGD_LR)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    ops.embedding_sgd(table, ids, grads, EMB_SGD_LR)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check(launches["embedding_sgd"] == 1, f"sgd entry launches {launches}")
+    exact("embedding_sgd", "entry point", table, want)
+    return launches, {"phase": "sgd_entry", "rows": 694, "table": [V, DIM],
+                      "launches": launches["embedding_sgd"]}
+
+
+def lm_state(cfg, dev, seed, backend="dense"):
+    """Random granite weights and vocab table from a seeded generator on
+    ``dev``: (backend, emb state, dense params)."""
+    spec = build_embedding_spec(cfg.vocab_size, cfg.d_model,
+                                backend=backend)
+    bk = BK.create_backend(spec)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dense = lm_model.init_dense(cfg, gen)
+    return bk, bk.init(gen), dense
+
+
+def plain_attention(q, k, v, **kw):
+    """The plain full-sequence attention in the place of the kernel."""
+    return lm_layers._attn_naive(q, k, v, **kw)
+
+
+def lm_generate(cfg, bk, emb, dense, prompts, gen):
+    """Greedy generation through the serving functions, keeping every
+    step's logits: (prefill logits (B, vocab), [decode logits], tokens)."""
+    emb, logits, caches = lm_serve.prefill_step(
+        cfg, bk, emb, dense, prompts, prompts.shape[1] + gen)
+    first = logits[:, 0, :cfg.vocab_size]
+    tok = torch.argmax(first, dim=-1)[:, None].int()
+    steps, toks = [], [tok]
+    for _ in range(gen - 1):
+        emb, lg, caches = lm_serve.decode_token(cfg, bk, emb, dense, tok,
+                                                caches)
+        steps.append(lg)
+        tok = torch.argmax(lg, dim=-1)[:, None].int()
+        toks.append(tok)
+    return first, steps, torch.cat(toks, dim=1)
+
+
+def lm_serve_phase(dev):
+    """``launch.serve.serve`` at the full granite-3-2b width, B=4, prompt
+    2,048, 32 greedy tokens: 40 flash_attention_fwd launches per prefill,
+    finite logits equal to the plain attention's on the card, timings and
+    the device-busy share under the profiler."""
+    cfg = get_config(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    bk, emb, dense = lm_state(cfg, dev, SEED)
+    state = (emb, dense)
+    n_dense = sum(t.numel() for t in tree_leaves(dense))
+    lm_serve.serve(cfg, LM_B, LM_PROMPT, 2, SEED, device=dev, state=state)
+    torch.cuda.synchronize()
+
+    # the main path: counts set to 0 just before
+    ops.reset_launch_counts()
+    res = lm_serve.serve(cfg, LM_B, LM_PROMPT, LM_GEN, SEED, device=dev,
+                         state=state)
+    launches = ops.launch_counts()
+    n_layers = cfg.n_layers
+    check(launches["flash_attention_fwd"] == n_layers,
+          f"lm serve: {launches['flash_attention_fwd']} flash_attention_fwd "
+          f"launches, want {n_layers} (one prefill)")
+    toks = res["tokens"]
+    check(toks.shape == (LM_B, LM_GEN) and toks.min() >= 0
+          and toks.max() < cfg.vocab_size, f"lm serve tokens {toks.shape}")
+
+    # the prefill's last-token logits through the kernel and through the
+    # plain attention, on the card
+    prompts = torch.as_tensor(
+        lm_serve.make_prompts(cfg, LM_B, LM_PROMPT, SEED), device=dev)
+    _, lk, _ = lm_serve.prefill_step(cfg, bk, emb, dense, prompts,
+                                     LM_PROMPT + 1)
+    with mock.patch.object(lm_flash, "flash_attention", plain_attention):
+        _, lp, _ = lm_serve.prefill_step(cfg, bk, emb, dense, prompts,
+                                         LM_PROMPT + 1)
+    lk, lp = lk[:, 0, :cfg.vocab_size], lp[:, 0, :cfg.vocab_size]
+    torch.cuda.synchronize()
+    diff = float((lk - lp).abs().max())
+    top = float(lp.abs().max())
+    check(bool(torch.isfinite(lk).all()), "lm prefill logits not finite")
+    check(diff <= 1e-3 * top, f"lm prefill logits: kernel and plain "
+          f"attention differ by {diff} (largest logit {top})")
+    check(torch.equal(lk.argmax(-1), lp.argmax(-1)),
+          "lm prefill: the first token differs with the plain attention")
+    check(torch.equal(lk.argmax(-1).cpu(), torch.as_tensor(toks[:, 0]).long()),
+          "lm prefill: serve's first token differs from the prefill's")
+    del lk, lp
+    torch.cuda.empty_cache()
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prof_res = lm_serve.serve(cfg, LM_B, LM_PROMPT, LM_GEN, SEED,
+                                  device=dev, state=state)
+        wall = time.perf_counter() - t0
+    device_s = sum(e.self_device_time_total
+                   for e in prof.key_averages()) / 1e6
+    check(np.array_equal(prof_res["tokens"], toks),
+          "lm serve: a second run gave other tokens")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del bk, emb, dense, state
+    torch.cuda.empty_cache()
+    ms_tok = res["decode_s"] * 1e3 / (LM_GEN - 1)
+    return launches, {
+        "phase": "lm_serve", "model": cfg.name, "layers": n_layers,
+        "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads,
+                                          cfg.head_dim],
+        "vocab": [cfg.vocab_size, cfg.padded_vocab],
+        "dense_params": n_dense, "dense_gb": n_dense * 4 / 1e9,
+        "batch": LM_B, "prompt": LM_PROMPT, "gen": LM_GEN,
+        "prefill_ms": res["prefill_s"] * 1e3, "ms_per_token": ms_tok,
+        "decode_tok_per_s": res["decode_tok_per_s"],
+        "flash_launches_per_prefill": launches["flash_attention_fwd"],
+        "prefill_logit_diff_vs_plain": diff, "largest_logit": top,
+        "profiled_wall_s": wall, "profiled_device_s": device_s,
+        "device_busy_share": device_s / wall, "peak_gib": peak,
+        "first_tokens": toks[0, :8].tolist()}
+
+
+def lm_card_vs_cpu(dev):
+    """The full-width granite model cut to 2 layers, from one starting
+    state (drawn on the CPU, copied to the card) on the card and on the
+    CPU: prefill and decode logits within rtol 1e-4 / atol 1e-5 and equal
+    greedy tokens."""
+    cfg = get_config(LM_ARCH).replace(pattern_repeats=LM_CPU["layers"])
+    bk, emb, dense = lm_state(cfg, torch.device("cpu"), SEED + 1)
+    prompts = torch.as_tensor(lm_serve.make_prompts(
+        cfg, LM_CPU["batch"], LM_CPU["prompt"], SEED + 1))
+    out = []
+    for d in (dev, torch.device("cpu")):
+        e = {k: t.to(d) for k, t in emb.items()}
+        p = tree_map(lambda t: t.to(d), dense)
+        first, steps, toks = lm_generate(cfg, bk, e, p, prompts.to(d),
+                                         LM_CPU["gen"])
+        out.append(([first.cpu()] + [x.cpu() for x in steps], toks.cpu()))
+    (lg, tg), (lc, tc) = out
+    errs = [float((a - b).abs().max()) for a, b in zip(lg, lc)]
+    ok = all(torch.allclose(a, b, rtol=1e-4, atol=1e-5)
+             for a, b in zip(lg, lc))
+    rec = {"phase": "lm_card_vs_cpu", **LM_CPU, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "logit_max_abs_by_step": errs,
+           "tokens_card": tg.tolist(), "tokens_cpu": tc.tolist()}
+    emit(rec)
+    check(ok, f"lm card against CPU: logits differ by {max(errs)}")
+    check(torch.equal(tg, tc), "lm card against CPU: greedy tokens differ")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this check runs on a GPU",
@@ -1087,10 +1490,13 @@ def main() -> int:
     timing = kernel_phase(dev, rng)
     timing["fused_backward"] = fused_backward_phase(dev, ds)
     timing.update(blockscale_phase(dev, ds))
+    timing["embedding_sgd"] = sgd_phase(dev, ds)
+    timing["flash_attention_fwd"] = flash_phase(dev)
     emit({"phase": "kernels", "shape": {"B": B, "L": L, "D": DIM, "V": V,
                                         "tables": N_TABLES,
                                         "train_batch": TRAIN_B},
-          "bit_exact": True, "per_call_ms": timing})
+          "bit_exact": [k for k in KERNELS if k != "flash_attention_fwd"],
+          "allclose": ["flash_attention_fwd"], "per_call_ms": timing})
     # each path's launch counts, read around its own run
     paths, recs = {}, {}
     paths["serve"], recs["serve"] = serve_phase(dev)
@@ -1108,6 +1514,11 @@ def main() -> int:
         dev, ds, WIRE, ((TrainMode.sync(), 2), (TrainMode.hybrid(TAU), 4)))
     paths["train_flat"], recs["train_flat"] = flat_train_phase(dev)
     emit(recs["train_flat"])
+    paths["sgd_entry"], recs["sgd_entry"] = sgd_entry_path(dev)
+    emit(recs["sgd_entry"])
+    paths["lm_serve"], recs["lm_serve"] = lm_serve_phase(dev)
+    emit(recs["lm_serve"])
+    recs["lm_serve"]["card_vs_cpu"] = lm_card_vs_cpu(dev)
 
     kernels = []
     for name, meta in KERNELS.items():

@@ -1,6 +1,33 @@
-"""Config schema and the paper's recsys configurations (copies of
-``repro/configs/base.py`` and ``repro/configs/recsys_configs.py``)."""
+"""Config schema, the paper's recsys configurations and the LM
+architectures ported so far (copies of ``repro/configs``).
+
+``get_config('<arch-id>')`` returns the exact configuration,
+``get_config('<arch-id>', reduced=True)`` its smoke variant, as in the JAX
+package. The port has ``granite_3_2b`` and the recsys ids; the other
+architectures of the JAX package raise until their slice is ported.
+"""
 from repro_torch.configs.base import (BlockCfg, InputShape, INPUT_SHAPES,
                                       ModelConfig)
 from repro_torch.configs.recsys_configs import (AVAZU, CRITEO, KWAI, TAOBAO,
                                                 criteo_syn)
+
+ARCH_IDS = ["granite_3_2b"]
+RECSYS_IDS = ["taobao_dlrm", "avazu_dlrm", "criteo_dlrm", "kwai_dlrm"]
+_RECSYS = dict(zip(RECSYS_IDS, (TAOBAO, AVAZU, CRITEO, KWAI)))
+
+
+def canonical(name: str) -> str:
+    return name.replace("-", "_").replace(".", "_")
+
+
+def get_config(name: str, *, reduced: bool = False) -> ModelConfig:
+    name = canonical(name)
+    if name in _RECSYS:
+        cfg = _RECSYS[name]
+    elif name == "granite_3_2b":
+        from repro_torch.configs.granite_3_2b import CONFIG as cfg
+    else:
+        raise NotImplementedError(
+            f"architecture {name!r} is not ported yet: the torch port has "
+            f"{ARCH_IDS + RECSYS_IDS}")
+    return cfg.reduced() if reduced else cfg

@@ -10,6 +10,11 @@ keep their physical (uniform-shuffled, padded) row layout: the two packages
 place rows with the same ``shuffle_pos``, so a table is copied as it is.
 The checkpoint format (``PersiaTrainer.save``/``restore``) goes through
 these two functions.
+
+For the LM family, ``lm_dense_from_numpy`` carries the transformer's dense
+parameters across (``repro.models.transformer.init_dense``'s tree, key for
+key, stacked layers included) and ``emb_from_numpy`` one embedding table's
+state (``backend.init``'s ``{"table", "acc"}``).
 """
 from __future__ import annotations
 
@@ -71,14 +76,8 @@ def state_from_numpy(trainer: PersiaTrainer, dense_np: dict, emb_np: dict,
     if set(emb_np) != set(trainer.collection.names):
         raise ValueError(f"tables {sorted(emb_np)} do not match the "
                          f"collection {sorted(trainer.collection.names)}")
-    emb = {}
-    for n, spec in trainer.collection.items():
-        rows = spec.padded_rows(1)
-        emb[n] = {"table": _tensor(emb_np[n]["table"], (rows, spec.dim),
-                                   f"{n}.table", device).to(spec.dtype)}
-        if spec.optimizer == "adagrad":
-            emb[n]["acc"] = _tensor(emb_np[n]["acc"], (rows,), f"{n}.acc",
-                                    device)
+    emb = {n: _emb_state(emb_np[n], spec, device, f"{n}.")
+           for n, spec in trainer.collection.items()}
     if opt is None:
         opt = trainer.opt_init(dense)
     else:
@@ -129,3 +128,42 @@ def state_to_numpy(state: TrainState) -> dict:
         "dense_queue": _ring_to_numpy(state.dense_queue),
         "step": np.asarray(state.step, np.int32),
     }
+
+
+def lm_dense_from_numpy(tree: dict, cfg, device=None) -> dict:
+    """The JAX package's LM dense parameters (``transformer.init_dense``'s
+    tree as numpy) -> fp32 tensors on ``device`` (the card by default).
+    Keys and shapes are checked against the port's own init for ``cfg``
+    (drawn on the meta device, so nothing is allocated)."""
+    from repro_torch.models import transformer as T
+    device = resolve_device("cuda" if device is None else device)
+    want = T.init_dense(cfg, torch.Generator(device="cpu"),
+                        device=torch.device("meta"))
+
+    def walk(a, w, path):
+        if isinstance(w, dict):
+            if not isinstance(a, dict) or set(a) != set(w):
+                got = sorted(a) if isinstance(a, dict) else type(a).__name__
+                raise ValueError(f"{path or 'params'}: keys {got}, this "
+                                 f"model has {sorted(w)}")
+            return {k: walk(a[k], w[k], f"{path}/{k}") for k in w}
+        return _tensor(a, w.shape, path, device)
+
+    return walk(tree, want, "")
+
+
+def emb_from_numpy(emb_np: dict, spec, device=None) -> dict:
+    """One embedding table's state as numpy (``{"table": (padded_rows,
+    dim), "acc": (padded_rows,)}`` for adagrad, the physical shuffled
+    layout) -> tensors on ``device`` (the card by default)."""
+    return _emb_state(emb_np, spec,
+                      resolve_device("cuda" if device is None else device))
+
+
+def _emb_state(emb_np: dict, spec, device, what: str = "") -> dict:
+    rows = spec.padded_rows(1)
+    st = {"table": _tensor(emb_np["table"], (rows, spec.dim),
+                           f"{what}table", device).to(spec.dtype)}
+    if spec.optimizer == "adagrad":
+        st["acc"] = _tensor(emb_np["acc"], (rows,), f"{what}acc", device)
+    return st

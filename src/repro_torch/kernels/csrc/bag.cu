@@ -14,9 +14,10 @@
 // block), strides over D with float4 loads when D % 4 == 0 and the table
 // and output are 16-byte aligned (a scalar path otherwise), loads its own
 // indices, and adds the L rows in registers in l order. Padding (an index
-// < 0 or past the end of the array it indexes) skips the row: a select, not
-// a multiply by zero, so a padded slot never turns a non-finite row into
-// NaN. Each bag's output row is stored once. Row offsets are int64, since
+// < 0) skips the row: a select, not a multiply by zero, so a padded slot
+// never turns a non-finite row into NaN. An index past the end of the array
+// it indexes reads the array's last entry, as the JAX package's gathers
+// clamp. Each bag's output row is stored once. Row offsets are int64, since
 // V * D can pass 2^31.
 //
 // Bound: memory. The least traffic is each distinct row read once, each
@@ -46,14 +47,19 @@ __device__ __forceinline__ void vadd(float4& a, float4 b) {
   a.w = __fadd_rn(a.w, b.w);
 }
 
+// An index into an array of n entries: < 0 is padding (-1), past the end
+// reads the last entry.
+__device__ __forceinline__ long long clamp_index(long long i, long long n) {
+  return (i < 0 || n <= 0) ? -1LL : (i < n ? i : n - 1);
+}
+
 // Table row of occurrence (b, l), or -1 for padding.
 struct BagRows {
   const int* ids;
   long long V;
   int L;
   __device__ __forceinline__ long long operator()(int b, int l) const {
-    const int id = __ldg(ids + (long long)b * L + l);
-    return (id >= 0 && id < V) ? (long long)id : -1LL;
+    return clamp_index(__ldg(ids + (long long)b * L + l), V);
   }
 };
 
@@ -64,10 +70,8 @@ struct UniqueRows {
   int U;
   int L;
   __device__ __forceinline__ long long operator()(int b, int l) const {
-    const int u = __ldg(inv + (long long)b * L + l);
-    if (u < 0 || u >= U) return -1LL;
-    const int r = __ldg(dev + u);
-    return (r >= 0 && r < V) ? (long long)r : -1LL;
+    const long long u = clamp_index(__ldg(inv + (long long)b * L + l), U);
+    return u < 0 ? -1LL : clamp_index(__ldg(dev + u), V);
   }
 };
 
@@ -118,7 +122,8 @@ int launch(const float* table, float* out, Rows rows, int B, int L, int D,
 
 }  // namespace
 
-// table (V, D) fp32; ids (B, L) int32, < 0 or >= V = padding; out (B, D).
+// table (V, D) fp32; ids (B, L) int32, < 0 = padding, >= V reads row V-1;
+// out (B, D).
 extern "C" int persia_embedding_bag_f32(const float* table, const int* ids,
                                         float* out, long long V, int B, int L,
                                         int D, void* stream) {
@@ -127,8 +132,9 @@ extern "C" int persia_embedding_bag_f32(const float* table, const int* ids,
                 static_cast<cudaStream_t>(stream));
 }
 
-// table (V, D) fp32; dev (U,) int32 table rows, < 0 = padding;
-// inv (B, L) int32 positions in dev, < 0 = padding; out (B, D).
+// table (V, D) fp32; dev (U,) int32 table rows, < 0 = padding, >= V reads
+// row V-1; inv (B, L) int32 positions in dev, < 0 = padding, >= U reads
+// dev[U-1]; out (B, D).
 extern "C" int persia_unique_bag_f32(const float* table, const int* dev,
                                      const int* inv, float* out, long long V,
                                      int U, int B, int L, int D,

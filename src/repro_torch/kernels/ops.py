@@ -6,9 +6,10 @@ is the only way to it. Tensors on a CUDA device launch the kernel on the
 current stream, or raise: wrong device mix, dtype, shape or layout is an
 error, never a quiet detour through the plain version.
 
-Each wrapper counts its launches in ``<wrapper>.launches`` (a plain int,
-raised by one per kernel launch and nowhere else), so a caller can show
-that a run went through the kernel. ``fused_backward``'s kernel is two
+``embedding_sgd`` and ``fused_backward`` update their table in place on
+both paths. Each wrapper counts its launches in ``<wrapper>.launches`` (a
+plain int, raised by one per kernel launch and nowhere else), so a caller
+can show that a run went through the kernel. ``fused_backward``'s kernel is two
 grid passes and a memset on the stream (segment sum, then apply), launched
 and counted as one.
 """
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build, ref
@@ -34,6 +36,11 @@ _SIGNATURES = {
                                        (_P, _I64, _I, _P, _P, _P)),
     "persia_blockscale_decompress_f32": ("blockscale",
                                          (_P, _P, _I64, _I, _P, _P)),
+    "persia_embedding_sgd_f32": ("embedding_sgd",
+                                 (_P, _P, _P, _I64, _I, _I, _F, _P)),
+    "persia_flash_attention_fwd": ("flash_attention",
+                                   (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                    _I, _F, _I, _I, _I, _I, _P)),
 }
 _fns: dict = {}
 
@@ -189,8 +196,8 @@ def fused_backward(table: torch.Tensor, acc: torch.Tensor | None,
 
 
 def _check_codec(op: str, **tensors: tuple[torch.Tensor, torch.dtype]):
-    """The codec kernels take contiguous tensors of the given dtypes, all
-    on one CUDA device."""
+    """The codec and attention kernels take contiguous tensors of the given
+    dtypes, all on one CUDA device."""
     devices = {t.device for t, _ in tensors.values()}
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(
@@ -276,13 +283,122 @@ def blockscale_roundtrip(v: torch.Tensor, block: int = 128) -> torch.Tensor:
     return blockscale_decompress(comp, scales, v.shape)
 
 
+def check_unique(ids) -> None:
+    """Raise ValueError when ``ids`` hold duplicates among the valid (>= 0)
+    entries: the occurrence-width misuse ``embedding_sgd`` cannot honour.
+    The check reads a host copy of the ids (a copy from the card waits for
+    it). Port of ``repro.kernels.embedding_sgd.check_unique``, with its
+    message."""
+    host = (ids.detach().cpu().numpy() if isinstance(ids, torch.Tensor)
+            else np.asarray(ids)).reshape(-1)
+    valid = host[host >= 0]
+    if valid.size != np.unique(valid).size:
+        uniq, counts = np.unique(valid, return_counts=True)
+        dups = uniq[counts > 1][:8]
+        raise ValueError(
+            "embedding_sgd requires pre-aggregated unique ids (duplicate "
+            f"ids last-write-win and drop gradients); got duplicates "
+            f"{dups.tolist()} among {valid.size} valid ids. Segment-sum "
+            "via a DedupPlan / compression.dedup_put first, or pass "
+            "assume_unique=True if the rows are already aggregated.")
+
+
+def embedding_sgd(table: torch.Tensor, ids: torch.Tensor,
+                  grads: torch.Tensor, lr: float = 1e-2,
+                  assume_unique: bool = False) -> torch.Tensor:
+    """Row-wise SGD scatter-apply, in place: ``table[ids[t]] += -lr *
+    grads[t]`` where 0 <= ids[t] < V; -1 and ids >= V change nothing.
+    table (V, D), ids (T,), grads (T, D); returns ``table``. Port of
+    ``repro.kernels.ops.embedding_sgd`` (which returns a new table): the
+    kernel's threads race on a repeated row, so unless ``assume_unique``
+    vouches for the ids, :func:`check_unique` runs first and duplicates
+    raise."""
+    if table.dim() != 2 or ids.dim() != 1 or grads.dim() != 2 or \
+            tuple(grads.shape) != (ids.shape[0], table.shape[1]):
+        raise ValueError(f"embedding_sgd: table (V, D), ids (T,) and grads "
+                         f"(T, D), got {tuple(table.shape)}, "
+                         f"{tuple(ids.shape)} and {tuple(grads.shape)}")
+    if not assume_unique:
+        check_unique(ids)
+    if _all_on_cpu(table, ids, grads):
+        return ref.embedding_sgd_ref(table, ids, grads, lr=lr)
+    _check_cuda("embedding_sgd", table, floats={"grads": grads}, ids=ids)
+    (V, D), T = table.shape, int(ids.shape[0])
+    if T == 0 or D == 0:
+        return table
+    _launch("embedding_sgd", "persia_embedding_sgd_f32", table, table,
+            (table.data_ptr(), ids.data_ptr(), grads.data_ptr(), V, T, D,
+             float(lr)))
+    embedding_sgd.launches += 1
+    return table
+
+
+_ATTN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float, causal: bool = True, window: int = 0,
+                        q_offset: int = 0):
+    """(B, Hq, Sq, Dh) x (B, Hkv, Sk, Dh) -> ``(o, lse)``: causal and/or
+    sliding-window GQA attention forward (query head h reads kv head
+    h // (Hq // Hkv)) with an fp32 online softmax; ``o`` in q's dtype,
+    ``lse`` (B, Hq, Sq) fp32. Port of ``repro.kernels.ops.
+    flash_attention_fwd``, plus ``q_offset`` (the first query row's
+    position, as ``repro.models.flash.flash_attention`` takes it); no block
+    sizes and no padding: any Sq and Sk >= 1. The CUDA kernel takes fp32 or
+    bf16, contiguous, Dh a multiple of 4 up to 128."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or \
+            k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] or \
+            k.shape[1] == 0 or q.shape[1] % k.shape[1] != 0:
+        raise ValueError(f"flash_attention_fwd: q (B, Hq, Sq, Dh), k and v "
+                         f"(B, Hkv, Sk, Dh) with Hkv dividing Hq, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)} and "
+                         f"{tuple(v.shape)}")
+    if k.shape[2] == 0:
+        raise ValueError("flash_attention_fwd: needs at least one key")
+    if window < 0 or q_offset < 0:
+        raise ValueError(f"flash_attention_fwd: window ({window}) and "
+                         f"q_offset ({q_offset}) must be >= 0")
+    if _all_on_cpu(q, k, v):
+        return ref.flash_attention_fwd_ref(q, k, v, scale, causal, window,
+                                           q_offset)
+    _check_codec("flash_attention_fwd",
+                 **{n: (t, q.dtype) for n, t in (("q", q), ("k", k),
+                                                 ("v", v))})
+    B, Hq, Sq, Dh = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    if q.dtype not in _ATTN_DTYPES:
+        raise TypeError(f"flash_attention_fwd: the CUDA kernel takes fp32 "
+                        f"or bf16, got {q.dtype}")
+    if Dh % 4 or not 4 <= Dh <= 128:
+        raise ValueError(f"flash_attention_fwd: the CUDA kernel takes a "
+                         f"head dim that is a multiple of 4 up to 128, got "
+                         f"{Dh}")
+    if any(t.data_ptr() % (4 * t.element_size()) for t in (q, k, v)):
+        raise ValueError("flash_attention_fwd: q, k and v must be aligned "
+                         "to 4 elements")
+    o = torch.empty_like(q)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    if B * Hq * Sq == 0:
+        return o, lse
+    _launch("flash_attention_fwd", "persia_flash_attention_fwd", q, o,
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             lse.data_ptr(), B, Hq, Hkv, Sq, Sk, Dh, float(scale),
+             int(bool(causal)), int(window), int(q_offset),
+             _ATTN_DTYPES[q.dtype]))
+    flash_attention_fwd.launches += 1
+    return o, lse
+
+
 embedding_bag.launches = 0
 unique_bag.launches = 0
 fused_backward.launches = 0
 blockscale_compress.launches = 0
 blockscale_decompress.launches = 0
+embedding_sgd.launches = 0
+flash_attention_fwd.launches = 0
 WRAPPERS = (embedding_bag, unique_bag, fused_backward, blockscale_compress,
-            blockscale_decompress)
+            blockscale_decompress, embedding_sgd, flash_attention_fwd)
 
 
 def launch_counts() -> dict[str, int]:

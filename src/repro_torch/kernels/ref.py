@@ -7,8 +7,10 @@ zero, and skip padding with a select: the same additions in the same order
 as the CUDA kernels and as the Pallas kernels in interpret mode, so all
 three agree bit for bit. ``fused_backward_ref`` repeats its CUDA kernel's
 operations in the kernel's order (see its section below), and the
-blockscale codec's operations are each one correctly rounded IEEE
-operation, in the kernel and here.
+blockscale codec's and ``embedding_sgd``'s operations are each one
+correctly rounded IEEE operation, in the kernel and here.
+``flash_attention_fwd_ref`` is the one plain version held to a tolerance:
+its softmax adds and exponentiates in another order than the kernel.
 """
 from __future__ import annotations
 
@@ -51,28 +53,31 @@ def _pool_in_order(rows: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _clamp_index(i: torch.Tensor, n: int):
+    """(index, valid): an index into n entries clamped as jnp's gather
+    clamps it (past the end -> n - 1); < 0 is padding (not valid)."""
+    valid = (i >= 0) & (n > 0)
+    return torch.where(valid, i.clamp(max=max(n - 1, 0)), 0).long(), valid
+
+
 def embedding_bag_ref(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """table (V, D); ids (B, L), < 0 (or >= V) = padding -> (B, D) sum."""
-    valid = (ids >= 0) & (ids < table.shape[0])
-    rows = table[torch.where(valid, ids, 0).long()]
-    return _pool_in_order(rows, valid)
+    """table (V, D); ids (B, L), < 0 = padding, >= V reads row V - 1 (the
+    JAX oracle's clamping gather) -> (B, D) sum."""
+    rows, valid = _clamp_index(ids, table.shape[0])
+    return _pool_in_order(table[rows], valid)
 
 
 def unique_bag_ref(table: torch.Tensor, dev: torch.Tensor,
                    inv: torch.Tensor) -> torch.Tensor:
-    """table (V, D); dev (U,) table rows, < 0 = padding; inv (B, L)
-    positions in ``dev``, < 0 = padding -> (B, D) sum of
-    ``table[dev[inv]]``: the dedup-plan lookup (unique gather, inverse
-    scatter, bag pool) as one function."""
-    U = dev.shape[0]
-    valid = (inv >= 0) & (inv < U)
-    if U:
-        row_ids = dev[torch.where(valid, inv, 0).long()]
-        valid = valid & (row_ids >= 0) & (row_ids < table.shape[0])
-    else:
-        row_ids = torch.zeros_like(inv)
-    rows = table[torch.where(valid, row_ids, 0).long()]
-    return _pool_in_order(rows, valid)
+    """table (V, D); dev (U,) table rows, < 0 = padding, >= V reads row
+    V - 1; inv (B, L) positions in ``dev``, < 0 = padding, >= U reads
+    ``dev[U - 1]`` -> (B, D) sum of ``table[dev[inv]]``: the dedup-plan
+    lookup (unique gather, inverse scatter, bag pool) as one function,
+    clamping as the JAX oracle's gathers do."""
+    pos, valid = _clamp_index(inv, dev.shape[0])
+    rows, valid_row = _clamp_index(dev[pos] if dev.numel() else
+                                   torch.zeros_like(pos), table.shape[0])
+    return _pool_in_order(table[rows], valid & valid_row)
 
 
 # ---------------------------------------------------------------------------
@@ -188,3 +193,59 @@ def fused_backward_ref(table: torch.Tensor, acc, order: torch.Tensor,
     apply_rows_ref(table, acc, apply_idx, g_push if apply_self else apply_g,
                    lr=lr, eps=eps)
     return g_push
+
+
+# ---------------------------------------------------------------------------
+# embedding_sgd: the row-wise SGD scatter-apply
+# ---------------------------------------------------------------------------
+
+def embedding_sgd_ref(table: torch.Tensor, ids: torch.Tensor,
+                      grads: torch.Tensor, *, lr: float) -> torch.Tensor:
+    """table (V, D), updated in place and returned; ids (T,), applied where
+    0 <= id < V (-1 and ids >= V change nothing, as the JAX oracle's
+    scatter drops them); grads (T, D). Each applied row becomes ``row +
+    (-lr * g)``, the product rounded to fp32 and then the sum: the CUDA
+    kernel's two operations. Duplicate ids accumulate (the oracle's
+    ``.at[].add``)."""
+    valid = (ids >= 0) & (ids < table.shape[0])
+    neg_lr = torch.tensor(-float(lr), dtype=torch.float32,
+                          device=grads.device)
+    upd = (grads[valid].float() * neg_lr).to(table.dtype)
+    return table.index_add_(0, ids[valid].long(), upd)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention_fwd: causal / sliding-window GQA attention forward
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30
+
+
+def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, scale: float,
+                            causal: bool = True, window: int = 0,
+                            q_offset: int = 0):
+    """q (B, Hq, Sq, Dh), k and v (B, Hkv, Sk, Dh) -> (o (B, Hq, Sq, Dh) in
+    q's dtype, lse (B, Hq, Sq) fp32); query head h reads kv head
+    h // (Hq // Hkv). The arithmetic of ``repro/models/layers.py::
+    _attn_naive`` in fp32: scores times ``scale``, masked to -1e30 (causal:
+    qpos < kpos; window > 0: qpos - kpos >= window; qpos = row +
+    ``q_offset``), softmax over the keys; ``lse`` is the scores'
+    logsumexp."""
+    B, Hq, Sq, Dh = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    qg = q.float().reshape(B, Hkv, Hq // Hkv, Sq, Dh)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
+    qpos = torch.arange(Sq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window > 0:
+        mask &= qpos - kpos < window
+    s = torch.where(mask, s, NEG_INF)
+    lse = torch.logsumexp(s, dim=-1)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", torch.softmax(s, dim=-1),
+                     v.float())
+    return (o.reshape(B, Hq, Sq, Dh).to(q.dtype),
+            lse.reshape(B, Hq, Sq))

@@ -1,0 +1,154 @@
+"""Batched LM serving driver (port of ``repro/launch/serve.py``): prefill a
+batch of prompts, then decode tokens step by step against the per-layer KV
+caches. The vocab table lives in an embedding backend (``dense`` or
+``dense+compressed``); each step looks its tokens up there and runs the
+transformer on the activations. Every prefill attention goes through the
+``flash_attention_fwd`` CUDA kernel on the card.
+
+Usage (on the card; ``--device cpu`` runs the plain versions):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_2b \\
+      --full --batch 4 --prompt-len 32 --gen 16
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core.backend import create_backend
+from repro_torch.device import resolve_device
+from repro_torch.launch.shards import build_embedding_spec
+from repro_torch.models import transformer as T
+
+VOCAB_TABLE = "vocab"      # serve's sole table name in --emb-shards pairs
+
+
+def make_prompts(cfg, batch: int, prompt_len: int, seed: int) -> np.ndarray:
+    """(batch, prompt_len) int32 token ids: the JAX package's prompts."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, cfg.vocab_size,
+                        (batch, prompt_len)).astype(np.int32)
+
+
+def prefill_step(cfg, backend, emb, dense, prompts: torch.Tensor,
+                 max_len: int):
+    """Look the prompts up and prefill: ``(emb, last-token logits (B, 1,
+    padded_vocab) fp32, caches)``."""
+    emb, dev_ids = backend.prepare(emb, prompts)
+    acts, _ = backend.lookup(emb, dev_ids)
+    logits, caches = T.prefill(cfg, dense, acts, max_len=max_len)
+    return emb, logits, caches
+
+
+def decode_token(cfg, backend, emb, dense, tok: torch.Tensor, caches):
+    """Look the (B, 1) tokens up and decode one step: ``(emb, logits (B,
+    vocab_size) fp32, caches)``; the caches are updated in place."""
+    emb, dev_ids = backend.prepare(emb, tok)
+    acts, _ = backend.lookup(emb, dev_ids)
+    logits, caches = T.decode_step(cfg, dense, acts, caches)
+    return emb, logits[:, 0, :cfg.vocab_size], caches
+
+
+def _next(logits: torch.Tensor, temperature: float,
+          generator: torch.Generator) -> torch.Tensor:
+    """(B, vocab) -> (B, 1) int32: greedy, or a draw from softmax(logits /
+    temperature) (a torch stream: it cannot match ``jax.random``)."""
+    if temperature > 0:
+        p = torch.softmax(logits / temperature, dim=-1)
+        return torch.multinomial(p, 1, generator=generator).int()
+    return torch.argmax(logits, dim=-1)[:, None].int()
+
+
+def serve(cfg, batch=4, prompt_len=32, gen=16, seed=0, temperature=0.0,
+          emb_backend="dense", cache_rows=0, emb_shards=1, *,
+          device="cuda", state=None):
+    """Prefill ``batch`` random prompts of ``prompt_len`` tokens and decode
+    ``gen`` tokens (greedy unless ``temperature`` > 0). The weights and
+    the vocab table are random from ``seed``, or ``state=(emb_state,
+    dense_params)`` (e.g. a JAX state through ``repro_torch.convert``).
+    Returns the JAX package's keys: ``tokens`` (batch, gen) int32,
+    ``prefill_s``, ``decode_s`` (host wall, ended by a synchronize) and
+    ``decode_tok_per_s``."""
+    dev = resolve_device(device)
+    spec = build_embedding_spec(cfg.vocab_size, cfg.d_model,
+                                backend=emb_backend, cache_rows=cache_rows,
+                                emb_shards=emb_shards, table=VOCAB_TABLE)
+    backend = create_backend(spec)
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    if state is None:
+        dense = T.init_dense(cfg, generator)
+        emb = backend.init(generator)
+    else:
+        emb, dense = state
+    prompts = torch.as_tensor(make_prompts(cfg, batch, prompt_len, seed),
+                              device=dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    t0 = time.perf_counter()
+    emb, logits, caches = prefill_step(cfg, backend, emb, dense, prompts,
+                                       prompt_len + gen)
+    tok = torch.argmax(logits[:, 0, :cfg.vocab_size], dim=-1)[:, None].int()
+    sync()
+    t_prefill = time.perf_counter() - t0
+
+    out = [tok]
+    t1 = time.perf_counter()
+    for _ in range(gen - 1):
+        emb, logits, caches = decode_token(cfg, backend, emb, dense, tok,
+                                           caches)
+        tok = _next(logits, temperature, generator)
+        out.append(tok)
+    sync()
+    t_decode = time.perf_counter() - t1
+    return {
+        "tokens": torch.cat(out, dim=1).cpu().numpy(),
+        "prefill_s": t_prefill,
+        "decode_s": t_decode,
+        "decode_tok_per_s": batch * (gen - 1) / max(t_decode, 1e-9),
+    }
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="granite_3_2b")
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--emb-backend", default="dense",
+                    choices=["dense", "host_lru", "host_lru+disk",
+                             "dense+compressed", "host_lru+compressed",
+                             "host_lru+disk+compressed"],
+                    help="vocab-table storage backend (the port builds "
+                         "dense and dense+compressed; the host_lru tiers "
+                         "are not ported yet)")
+    ap.add_argument("--cache-rows", type=int, default=0,
+                    help="host_lru device-cache slots (0 = vocab/8)")
+    ap.add_argument("--emb-shards", default="1",
+                    help="embedding-PS shards for the vocab table (a bare "
+                         "int or 'vocab=k'; > 1 is not ported yet)")
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (default) or 'cpu' (the plain versions)")
+    args = ap.parse_args()
+    cfg = get_config(args.arch, reduced=args.reduced)
+    res = serve(cfg, args.batch, args.prompt_len, args.gen,
+                temperature=args.temperature,
+                emb_backend=args.emb_backend, cache_rows=args.cache_rows,
+                emb_shards=args.emb_shards, device=args.device)
+    print(f"arch={cfg.name} batch={args.batch} prompt={args.prompt_len} "
+          f"gen={args.gen}")
+    print(f"prefill {res['prefill_s']:.2f}s decode {res['decode_s']:.2f}s "
+          f"({res['decode_tok_per_s']:.1f} tok/s)")
+    print("first sample tokens:", res["tokens"][0][:12])
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,276 @@
+"""Primitive layers of the LM family (port of ``repro/models/layers.py``):
+inits, norms, RoPE, attention, the GQA attention block and the MLPs, as
+plain functions over parameter dicts in the JAX package's layout and key
+names, so weights carry across unchanged (``repro_torch.convert``).
+
+Inits draw from an explicit ``torch.Generator``; ``lead`` puts a leading
+stack axis in front of every weight (the transformer's stacked layers),
+drawn in one call. Norms and RoPE run in fp32, as in JAX. The JAX
+package's sharding hints (``utils.shard``) do nothing on one card and are
+dropped. Every full-sequence attention (training and prefill) goes through
+the ``flash_attention_fwd`` CUDA kernel on the card, whatever its length;
+the JAX package takes ``_attn_naive`` up to 2,048 positions, the same
+function (``kernels/ref.py`` is its arithmetic). Decode attention stays
+plain torch, as the JAX package computes it in jnp. Not ported yet: logit
+soft-capping (no config sets it), the ring-buffer decode of sliding-window
+caches, MLA, and the mesh-sharded decode.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ref
+from repro_torch.models import flash
+
+NEG_INF = ref.NEG_INF
+
+
+def _not_ported(what: str):
+    return NotImplementedError(f"{what} is not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def dense_init(generator: torch.Generator, d_in: int, d_out: int,
+               dtype=torch.float32, scale: float | None = None, *,
+               lead: tuple = (), device=None) -> torch.Tensor:
+    """(*lead, d_in, d_out) normal weights times ``scale`` (1/sqrt(d_in) by
+    default), on ``device`` (the generator's by default)."""
+    scale = (1.0 / math.sqrt(d_in)) if scale is None else scale
+    device = generator.device if device is None else device
+    return (torch.randn((*lead, d_in, d_out), generator=generator,
+                        device=device, dtype=torch.float32)
+            * scale).to(dtype)
+
+
+def embed_init(generator: torch.Generator, rows: int, dim: int,
+               dtype=torch.float32, scale: float = 0.02, *, device=None
+               ) -> torch.Tensor:
+    device = generator.device if device is None else device
+    return (torch.randn((rows, dim), generator=generator, device=device,
+                        dtype=torch.float32) * scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5
+            ) -> torch.Tensor:
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps)
+    return (out * weight.float()).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    return (out * weight.float() + bias.float()).to(x.dtype)
+
+
+def norm_init(cfg, d: int, *, lead: tuple = (), device=None) -> dict:
+    p = {"w": torch.ones((*lead, d), dtype=torch.float32, device=device)}
+    if cfg.norm != "rmsnorm":
+        p["b"] = torch.zeros((*lead, d), dtype=torch.float32, device=device)
+    return p
+
+
+def apply_norm(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
+    if "b" in p:
+        return layernorm(x, p["w"], p["b"], cfg.norm_eps)
+    return rmsnorm(x, p["w"], cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(dim: int, theta: float, device=None) -> torch.Tensor:
+    # a Python base: a tensor made from it on the card would be a blocking
+    # host-to-device copy, once per layer and token
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    return 1.0 / (float(theta) ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (..., S, H, D); positions: (..., S) integer."""
+    d = x.shape[-1]
+    inv = rope_freqs(d, theta, x.device)                        # (d/2,)
+    ang = positions[..., None].float() * inv                    # (..., S, d/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention. Layout (grouped GQA): q (B, Sq, Hkv, G, Dh), k (B, Sk, Hkv, Dh),
+# v (B, Sk, Hkv, Dv)
+# ---------------------------------------------------------------------------
+
+def _attn_naive(q, k, v, *, scale, causal, window, q_offset, softcap=0.0):
+    """The plain full-sequence attention: the JAX package's ``_attn_naive``,
+    through the kernel layout of ``ref.flash_attention_fwd_ref`` (the same
+    arithmetic)."""
+    if softcap > 0:
+        raise _not_ported("attention logit soft-capping")
+    o, _ = ref.flash_attention_fwd_ref(
+        *flash.to_kernel_layout(q, k, v), scale, causal, window, q_offset)
+    return flash.from_kernel_layout(o, q.shape)
+
+
+def grouped_attention(q, k, v, *, scale, causal=True, window=0, q_offset=0,
+                      softcap=0.0):
+    """Full-sequence attention through ``flash.flash_attention`` (the CUDA
+    kernel on the card, its plain version on the CPU), at every length."""
+    if softcap > 0:
+        raise _not_ported("attention logit soft-capping")
+    return flash.flash_attention(q, k, v, scale=scale, causal=causal,
+                                 window=window, q_offset=q_offset)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, scale, window=0,
+                     softcap=0.0):
+    """Single-token decode. q: (B, 1, Hkv, G, Dh); caches: (B, S, Hkv, D*).
+
+    ``cache_len`` (B,) is the number of valid entries (the new token already
+    written at position cache_len - 1). Linear in S."""
+    if softcap > 0:
+        raise _not_ported("attention logit soft-capping")
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k_cache.float()) * scale
+    kpos = torch.arange(k_cache.shape[1], device=q.device)
+    msk = kpos[None, :] < cache_len[:, None]                      # (B, S)
+    if window > 0:
+        msk = msk & (cache_len[:, None] - 1 - kpos[None, :] < window)
+    s = torch.where(msk[:, None, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v_cache.float())
+    return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention block
+# ---------------------------------------------------------------------------
+
+def gqa_init(generator: torch.Generator, cfg, dtype=torch.float32, *,
+             lead: tuple = (), device=None) -> dict:
+    """Self-attention weights (the JAX package's ``cross=True`` variant,
+    keyed to a memory width, comes with cross-attention)."""
+    d, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kw = dict(lead=lead, device=device)
+    p = {
+        "wq": dense_init(generator, d, H * Dh, dtype, **kw),
+        "wk": dense_init(generator, d, Hkv * Dh, dtype, **kw),
+        "wv": dense_init(generator, d, Hkv * Dh, dtype, **kw),
+        "wo": dense_init(generator, H * Dh, d, dtype,
+                         scale=1.0 / math.sqrt(H * Dh), **kw),
+    }
+    if cfg.qk_norm:
+        ones = dict(dtype=torch.float32, device=p["wq"].device)
+        p["q_norm"] = {"w": torch.ones((*lead, Dh), **ones)}
+        p["k_norm"] = {"w": torch.ones((*lead, Dh), **ones)}
+    return p
+
+
+def _qkv(p: dict, cfg, x: torch.Tensor):
+    B, S, _ = x.shape
+    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, S, Hkv, H // Hkv, Dh)
+    k = (x @ p["wk"]).reshape(B, S, Hkv, Dh)
+    v = (x @ p["wv"]).reshape(B, S, Hkv, Dh)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"]["w"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"]["w"], cfg.norm_eps)
+    return q, k, v
+
+
+def gqa_forward(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor, *,
+                window=None, use_rope=True):
+    """Self-attention over the full sequence (training / prefill). Returns
+    ``(out, (k, v))`` with k and v after RoPE, (B, S, Hkv, Dh)."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, cfg, x)
+    if use_rope:
+        q = apply_rope(q.reshape(B, S, -1, cfg.head_dim), positions,
+                       cfg.rope_theta).reshape(q.shape)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    w = cfg.sliding_window if window is None else window
+    out = grouped_attention(q, k, v, scale=1.0 / math.sqrt(cfg.head_dim),
+                            causal=True, window=w,
+                            softcap=cfg.attn_logit_softcap)
+    return out.reshape(B, S, -1) @ p["wo"], (k, v)
+
+
+def gqa_decode(p: dict, cfg, x: torch.Tensor, cache: dict, *, window=None,
+               use_rope=True):
+    """One-token decode against a full-length cache ``{'k': (B, S, Hkv,
+    Dh), 'v': ..., 'len': (B,)}``, updated IN PLACE: the new token's k and
+    v are written at slot ``len`` (clamped to the last slot, as JAX's
+    ``dynamic_update_slice`` clamps) and ``len`` grows by one. The cache's
+    contents then equal the new cache the JAX package returns. Returns
+    ``(out, cache)``."""
+    w = cfg.sliding_window if window is None else window
+    if w > 0:
+        raise _not_ported("the ring-buffer decode of a sliding-window cache")
+    B, Dh = x.shape[0], cfg.head_dim
+    q, k, v = _qkv(p, cfg, x)
+    pos = cache["len"][:, None]                                   # (B, 1)
+    if use_rope:
+        q = apply_rope(q.reshape(B, 1, -1, Dh), pos,
+                       cfg.rope_theta).reshape(q.shape)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    rows = torch.arange(B, device=x.device)
+    slot = cache["len"].long().clamp(max=cache["k"].shape[1] - 1)
+    cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
+    cache["len"] += 1
+    out = decode_attention(q, cache["k"], cache["v"], cache["len"],
+                           scale=1.0 / math.sqrt(Dh),
+                           softcap=cfg.attn_logit_softcap)
+    return out.reshape(B, 1, -1) @ p["wo"], cache
+
+
+def gqa_cache_init(cfg, batch: int, max_len: int, dtype=torch.float32, *,
+                   window=None, lead: tuple = (), device=None) -> dict:
+    w = cfg.sliding_window if window is None else window
+    if w > 0:
+        raise _not_ported("the ring-buffer cache of sliding-window attention")
+    shape = (*lead, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "len": torch.zeros((*lead, batch), dtype=torch.int32,
+                               device=device)}
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def mlp_init(generator: torch.Generator, cfg, d_ff=None, dtype=torch.float32,
+             *, lead: tuple = (), device=None) -> dict:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    kw = dict(lead=lead, device=device)
+    p = {"wu": dense_init(generator, d, f, dtype, **kw),
+         "wd": dense_init(generator, f, d, dtype,
+                          scale=1.0 / math.sqrt(f), **kw)}
+    if cfg.ffn_act == "swiglu":
+        p["wg"] = dense_init(generator, d, f, dtype, **kw)
+    return p
+
+
+def mlp_forward(p: dict, cfg, x: torch.Tensor) -> torch.Tensor:
+    if "wg" in p:
+        h = F.silu(x @ p["wg"]) * (x @ p["wu"])
+    else:
+        h = F.gelu(x @ p["wu"], approximate="tanh")   # jax.nn.gelu's default
+    return h @ p["wd"]

@@ -14,16 +14,7 @@ import math
 
 import torch
 
-
-def dense_init(generator: torch.Generator, d_in: int, d_out: int,
-               dtype=torch.float32, scale: float | None = None
-               ) -> torch.Tensor:
-    """(d_in, d_out) normal weights on the generator's device (port of
-    ``repro/models/layers.py::dense_init``)."""
-    scale = (1.0 / math.sqrt(d_in)) if scale is None else scale
-    return (torch.randn((d_in, d_out), generator=generator,
-                        device=generator.device, dtype=torch.float32)
-            * scale).to(dtype)
+from repro_torch.models.layers import dense_init
 
 
 def recsys_init(cfg, generator: torch.Generator, dtype=torch.float32,

@@ -292,3 +292,84 @@ def test_cuda_wire_matches_cpu(cuda_device, form, staleness):
         == 6
     assert counts["fused_backward"] == (3 if staleness else 6)
     assert counts["unique_bag" if form == "plan" else "embedding_bag"] == 3
+
+
+# ---------------------------------------------------------------------------
+# embedding_sgd: bit for bit; flash_attention_fwd: allclose (o within 2e-5
+# in fp32 and 4e-2 with bf16 inputs, lse within 1e-4: the kernel's
+# exponentials and sums run in another order than the plain version's)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,D,T", [(62_500, 128, 694), (1_000, 13, 40),
+                                   (50, 4, 1)])
+def test_cuda_embedding_sgd_matches_plain_version(cuda_device, V, D, T):
+    rng = np.random.default_rng(V + T)
+    table = torch.from_numpy(rng.standard_normal((V, D)).astype(np.float32))
+    ids = rng.permutation(V)[:T].astype(np.int32)
+    ids[::7] = -1
+    ids[1::11] = V + 3          # past the end: no-op
+    grads = torch.from_numpy(rng.standard_normal((T, D)).astype(np.float32))
+    ids_t = torch.from_numpy(ids)
+    want = ops.embedding_sgd(table.clone(), ids_t, grads, 0.05,
+                             assume_unique=True)
+    ops.reset_launch_counts()
+    got = ops.embedding_sgd(table.to(cuda_device), ids_t.to(cuda_device),
+                            grads.to(cuda_device), 0.05, assume_unique=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert ops.launch_counts()["embedding_sgd"] == 1
+    with pytest.raises(ValueError, match="duplicates"):
+        ops.embedding_sgd(got, torch.zeros(2, dtype=torch.int32,
+                                           device=cuda_device),
+                          torch.ones((2, D), device=cuda_device))
+
+
+FLASH_CASES = [  # (B, Hq, Hkv, Sq, Sk, Dh, causal, window, q_offset)
+    (2, 4, 2, 64, 64, 32, True, 0, 0),
+    (1, 4, 1, 1000, 1000, 64, True, 0, 0),        # ragged tiles
+    (1, 2, 2, 300, 300, 64, True, 64, 0),         # window, Hq == Hkv
+    (2, 4, 2, 130, 130, 96, False, 0, 0),         # non-causal, Dh 96
+    (1, 2, 1, 200, 200, 128, True, 24, 0),        # Dh 128
+    (1, 2, 1, 7, 90, 64, True, 0, 83),            # q_offset
+    (1, 2, 1, 100, 50, 16, True, 10, 0),          # rows attending no key
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,Dh,causal,window,q_offset",
+                         FLASH_CASES)
+def test_cuda_flash_attention_matches_plain_version(
+        cuda_device, dtype, B, Hq, Hkv, Sq, Sk, Dh, causal, window,
+        q_offset):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda_device).manual_seed(Sq + Dh)
+    q, k, v = (torch.randn(s, generator=g, device=cuda_device).to(dtype)
+               for s in ((B, Hq, Sq, Dh), (B, Hkv, Sk, Dh),
+                         (B, Hkv, Sk, Dh)))
+    ops.reset_launch_counts()
+    o, lse = ops.flash_attention_fwd(q, k, v, 0.125, causal, window,
+                                     q_offset)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention_fwd"] == 1
+    po, plse = ref.flash_attention_fwd_ref(q, k, v, 0.125, causal, window,
+                                           q_offset)
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    atol = 2e-5 if dtype == torch.float32 else 4e-2
+    assert torch.allclose(o.float(), po.float(), atol=atol, rtol=0)
+    assert torch.allclose(lse, plse, atol=1e-4, rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_rejects_what_it_cannot_run(cuda_device):
+    q = torch.ones((1, 2, 8, 130), device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 4 up to 128"):
+        ops.flash_attention_fwd(q, q[:, :1], q[:, :1], 1.0)
+    h = torch.ones((1, 2, 8, 64), dtype=torch.float16, device=cuda_device)
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        ops.flash_attention_fwd(h, h[:, :1], h[:, :1], 1.0)
+    f = torch.ones((1, 2, 64, 8), device=cuda_device).transpose(2, 3)
+    with pytest.raises(TypeError, match="contiguous"):
+        ops.flash_attention_fwd(f, f[:, :1].contiguous(),
+                                f[:, :1].contiguous(), 1.0)

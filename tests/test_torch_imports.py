@@ -13,8 +13,10 @@ import torch
 
 from repro_torch.core import adapters
 from repro_torch.core.hybrid import PersiaTrainer
+from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch.serve import serve
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -64,6 +66,8 @@ def test_default_device_raises_without_a_gpu(monkeypatch):
                       emb_dim=4, emb_rows=8, mlp_dims=(4,))
     with pytest.raises(RuntimeError, match="no GPU"):
         PersiaTrainer(adapters.recsys_adapter(cfg))
+    with pytest.raises(RuntimeError, match="no GPU"):
+        serve(get_config("granite_3_2b", reduced=True), 1, 2, 2)
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")

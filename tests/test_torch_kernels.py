@@ -129,17 +129,46 @@ def test_plain_versions_sum_in_l_order():
 
 
 def test_ids_past_the_table_read_as_zero():
-    """An index past the end is padding in both the kernel and its plain
-    version (the JAX kernel would clamp it; every caller in the port
-    translates such ids to -1 first)."""
+    """Negative ids stay padding (zero); an index past the end of the array
+    it indexes reads its last entry, as the JAX oracle's gathers clamp:
+    ids >= V read row V - 1, inv >= U reads dev[U - 1], a dev entry >= V
+    reads row V - 1."""
     table = torch.arange(12, dtype=torch.float32).reshape(4, 3)
-    ids = torch.tensor([[1, 4, 9]], dtype=torch.int32)
-    np.testing.assert_array_equal(ops.embedding_bag(table, ids).numpy(),
-                                  table[1:2].numpy())
+    ids = torch.tensor([[1, 4, 9], [-1, -1, -1]], dtype=torch.int32)
+    np.testing.assert_array_equal(
+        ops.embedding_bag(table, ids).numpy(),
+        np.stack([table[1] + table[3] + table[3], torch.zeros(3)]))
     dev = torch.tensor([2, 4, -1], dtype=torch.int32)
     inv = torch.tensor([[0, 1, 2, 3, -1]], dtype=torch.int32)
     np.testing.assert_array_equal(ops.unique_bag(table, dev, inv).numpy(),
-                                  table[2:3].numpy())
+                                  (table[2:3] + table[3:4]).numpy())
+
+
+@pytest.mark.parametrize("case", ["ids_past_end", "inv_past_end",
+                                  "dev_past_end", "mixed"])
+def test_bag_clamping_matches_jax_oracle(case):
+    """Out-of-range indices against the JAX oracles (jnp gathers clamp)
+    and, where the Pallas kernels clamp too (embedding_bag), the
+    kernels."""
+    rng = np.random.default_rng(17)
+    V, D, B, L = 12, 8, 5, 4
+    table = rng.standard_normal((V, D)).astype(np.float32)
+    ids = _bags(rng, B, L, V)
+    dev, inv = _plan(ids, extra_pad=2)
+    if case in ("ids_past_end", "mixed"):
+        ids[:, 0] = V + np.arange(B)
+    if case in ("inv_past_end", "mixed"):
+        inv[:, -1] = dev.size + 3
+    if case in ("dev_past_end", "mixed"):
+        dev[0] = V + 5
+    got = ops.embedding_bag(torch.from_numpy(table), torch.from_numpy(ids))
+    np.testing.assert_array_equal(got.numpy(), _jax_bag(table, ids)[1])
+    if case == "ids_past_end":
+        np.testing.assert_array_equal(got.numpy(), _jax_bag(table, ids)[0])
+    got_u = ops.unique_bag(*(torch.from_numpy(x)
+                             for x in (table, dev, inv)))
+    np.testing.assert_array_equal(got_u.numpy(),
+                                  _jax_unique(table, dev, inv)[1])
 
 
 def test_cpu_wrappers_run_plain_version_and_count_no_launch():
@@ -153,10 +182,16 @@ def test_cpu_wrappers_run_plain_version_and_count_no_launch():
                        torch.full((1,), 2, dtype=torch.int32), None, lr=0.1,
                        eps=1e-8, apply_self=True)
     ops.blockscale_roundtrip(torch.ones((3, 5)), block=4)
+    ops.embedding_sgd(table, torch.tensor([1, -1], dtype=torch.int32),
+                      torch.ones((2, 4)))
+    ops.flash_attention_fwd(torch.ones((1, 2, 3, 4)), torch.ones((1, 1, 3, 4)),
+                            torch.ones((1, 1, 3, 4)), 0.5)
     assert ops.launch_counts() == {"embedding_bag": 0, "unique_bag": 0,
                                    "fused_backward": 0,
                                    "blockscale_compress": 0,
-                                   "blockscale_decompress": 0}
+                                   "blockscale_decompress": 0,
+                                   "embedding_sgd": 0,
+                                   "flash_attention_fwd": 0}
 
 
 def test_wrappers_reject_other_devices_and_bad_shapes():
@@ -177,7 +212,8 @@ def test_wrappers_reject_other_devices_and_bad_shapes():
 
 
 def test_build_names_sources_and_hashes_them(monkeypatch):
-    assert set(build.sources()) == {"bag", "blockscale", "fused_backward"}
+    assert set(build.sources()) == {"bag", "blockscale", "embedding_sgd",
+                                    "flash_attention", "fused_backward"}
     path = build.library_path("bag")
     assert path.parent == build.BUILD and path.name.startswith("libbag-")
     assert path == build.library_path("bag")          # content-addressed
@@ -343,3 +379,212 @@ def test_fused_backward_wrapper_checks_arguments():
         ops.fused_backward(t.to("meta"), None, i32(0), i32(2),
                            torch.ones((3, 4)), i32(2), None, lr=0.1,
                            eps=1e-8, apply_self=True)
+
+
+# ---------------------------------------------------------------------------
+# embedding_sgd against the JAX package's kernel (interpret mode) and oracle
+# ---------------------------------------------------------------------------
+#
+# Bit-exact against the oracle: each applied element is row + (-lr * g),
+# one rounded product and one rounded sum, in the oracle, the port's plain
+# version and its CUDA kernel. The Pallas kernel in interpret mode is held
+# within 1 ulp: XLA's CPU backend contracts its row - lr * g into one fused
+# multiply-add, so it differs from its own oracle in the last bit of some
+# elements. Ids >= V are held against the oracle only: the Pallas kernel's
+# block index clamps them onto row V - 1, while the oracle's scatter drops
+# them, and the port follows the oracle.
+
+def _sgd_case(seed, T, V=40, D=16, pad=0, past_end=0, dup=0):
+    rng = np.random.default_rng(seed)
+    table = rng.standard_normal((V, D)).astype(np.float32)
+    ids = rng.permutation(V)[:T].astype(np.int32)
+    ids[:pad] = -1
+    ids[pad:pad + past_end] = V + np.arange(past_end)
+    if dup:
+        ids[-dup:] = ids[pad + past_end]
+    grads = rng.standard_normal((T, D)).astype(np.float32)
+    return table, ids, grads
+
+
+def _port_sgd(table, ids, grads, lr, **kw):
+    t = torch.from_numpy(table.copy())
+    out = ops.embedding_sgd(t, torch.from_numpy(ids), torch.from_numpy(grads),
+                            lr, **kw)
+    assert out is t                       # in place
+    return out.numpy()
+
+
+@pytest.mark.parametrize("T", [1, 4, 17])
+@pytest.mark.parametrize("pad", [0, 1])
+def test_embedding_sgd_matches_jax_kernel_and_oracle(T, pad):
+    pad = min(pad, T - 1)
+    table, ids, grads = _sgd_case(T * 10 + pad, T, pad=pad)
+    got = _port_sgd(table, ids, grads, 0.05)
+    args = [jnp.asarray(a) for a in (table, ids, grads)]
+    np.testing.assert_array_equal(got, np.asarray(
+        jref.embedding_sgd_ref(*args, lr=0.05)))
+    np.testing.assert_array_max_ulp(got, np.asarray(
+        jops.embedding_sgd(*args, lr=0.05)), maxulp=1)
+    untouched = np.setdiff1d(np.arange(table.shape[0]), ids[ids >= 0])
+    np.testing.assert_array_equal(got[untouched], table[untouched])
+
+
+@pytest.mark.parametrize("T", [4, 17])
+def test_embedding_sgd_ids_past_end_change_nothing(T):
+    table, ids, grads = _sgd_case(T, T, pad=1, past_end=2)
+    got = _port_sgd(table, ids, grads, 0.1)
+    np.testing.assert_array_equal(got, np.asarray(jref.embedding_sgd_ref(
+        *(jnp.asarray(a) for a in (table, ids, grads)), lr=0.1)))
+    untouched = np.setdiff1d(np.arange(table.shape[0]), ids[ids >= 0])
+    np.testing.assert_array_equal(got[untouched], table[untouched])
+
+
+def test_embedding_sgd_duplicates_raise_like_jax_and_assume_unique_adds():
+    table, ids, grads = _sgd_case(5, 17, pad=2, dup=3)
+    args = [jnp.asarray(a) for a in (table, ids, grads)]
+    with pytest.raises(ValueError) as want:
+        jops.embedding_sgd(*args, lr=0.1)
+    with pytest.raises(ValueError) as got:
+        _port_sgd(table, ids, grads, 0.1)
+    assert str(got.value) == str(want.value)
+    # vouched for: the plain version accumulates, as the oracle does
+    np.testing.assert_allclose(
+        _port_sgd(table, ids, grads, 0.1, assume_unique=True),
+        np.asarray(jref.embedding_sgd_ref(*args, lr=0.1)), rtol=0,
+        atol=1e-6)
+    with pytest.raises(ValueError, match="grads"):
+        ops.embedding_sgd(torch.ones((4, 3)),
+                          torch.zeros(2, dtype=torch.int32),
+                          torch.ones((2, 4)))
+
+
+# ---------------------------------------------------------------------------
+# flash_attention_fwd's plain version against the Pallas kernel (interpret
+# mode) and the JAX package's _attn_naive
+# ---------------------------------------------------------------------------
+#
+# allclose, in the JAX test's classes (tests/test_kernels.py): o within
+# atol 1e-5 in fp32 (4e-2 with bf16 inputs), lse within 1e-5: the softmax
+# sums run in other orders.
+
+from repro.kernels.flash_attention import \
+    flash_attention_fwd as jflash_kernel  # noqa: E402
+from repro.models.flash import flash_attention as jflash  # noqa: E402
+from repro.models.layers import _attn_naive as jnaive  # noqa: E402
+
+from repro_torch.models import flash as tflash  # noqa: E402
+from repro_torch.models import layers as tlayers  # noqa: E402
+
+
+def _qkv(seed, B, Hq, Hkv, Sq, Sk, Dh, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal(s).astype(np.float32) for s in
+               ((B, Hq, Sq, Dh), (B, Hkv, Sk, Dh), (B, Hkv, Sk, Dh)))
+    if dtype != np.float32:       # round through bf16 on both sides
+        q, k, v = (np.asarray(jnp.asarray(a).astype(jnp.bfloat16))
+                   for a in (q, k, v))
+    return q, k, v
+
+
+def _naive(q, k, v, scale, causal, window, q_offset=0):
+    """The JAX _attn_naive in kernel layout."""
+    B, Hq, Sq, Dh = q.shape
+    Hkv = k.shape[1]
+    qg = jnp.asarray(q).reshape(B, Hkv, Hq // Hkv, Sq, Dh).transpose(
+        0, 3, 1, 2, 4)
+    on = jnaive(qg, jnp.asarray(k).transpose(0, 2, 1, 3),
+                jnp.asarray(v).transpose(0, 2, 1, 3), scale=scale,
+                causal=causal, window=window, q_offset=q_offset)
+    return np.asarray(on.transpose(0, 2, 3, 1, 4).reshape(q.shape),
+                      np.float32)
+
+
+def _port_flash(q, k, v, scale, causal, window, q_offset=0):
+    tq, tk, tv = (torch.from_numpy(np.asarray(a, np.float32)) for a in
+                  (q, k, v))
+    if q.dtype != np.float32:
+        tq, tk, tv = (t.to(torch.bfloat16) for t in (tq, tk, tv))
+    o, lse = ops.flash_attention_fwd(tq, tk, tv, scale, causal, window,
+                                     q_offset)
+    assert o.dtype == tq.dtype and lse.dtype == torch.float32
+    return o.float().numpy(), lse.numpy()
+
+
+@pytest.mark.parametrize("causal,window,bf16",
+                         [(True, 0, False), (True, 24, False),
+                          (False, 0, False), (True, 0, True)])
+def test_flash_ref_matches_pallas_kernel_and_naive(causal, window, bf16):
+    dtype = jnp.bfloat16 if bf16 else np.float32
+    B, Hq, Hkv, S, Dh = 2, 4, 2, 64, 32
+    q, k, v = _qkv(0, B, Hq, Hkv, S, S, Dh, dtype)
+    o, lse = _port_flash(q, k, v, 0.2, causal, window)
+    jo, jlse = jflash_kernel(*(jnp.asarray(a) for a in (q, k, v)), scale=0.2,
+                             causal=causal, window=window, qblk=16, kblk=16,
+                             interpret=True)
+    atol = 0.04 if bf16 else 1e-5
+    np.testing.assert_allclose(o, np.asarray(jo, np.float32), atol=atol)
+    np.testing.assert_allclose(o, _naive(q, k, v, 0.2, causal, window),
+                               atol=atol)
+    np.testing.assert_allclose(lse, np.asarray(jlse), atol=1e-5, rtol=1e-6)
+
+
+@pytest.mark.parametrize("S,qblk,kblk", [(128, 32, 64), (96, 16, 32),
+                                         (37, 37, 37)])
+def test_flash_ref_block_shapes_and_ragged_lengths(S, qblk, kblk):
+    """The JAX test's block shapes, plus a length that is a multiple of no
+    tile of the CUDA kernel (37, one Pallas block)."""
+    q, k, v = _qkv(S, 1, 2, 2, S, S, 16)
+    o, lse = _port_flash(q, k, v, 0.25, True, 0)
+    jo, jlse = jflash_kernel(*(jnp.asarray(a) for a in (q, k, v)),
+                             scale=0.25, qblk=qblk, kblk=kblk,
+                             interpret=True)
+    np.testing.assert_allclose(o, np.asarray(jo), atol=1e-5)
+    np.testing.assert_allclose(lse, np.asarray(jlse), atol=1e-5, rtol=1e-6)
+    np.testing.assert_allclose(o, _naive(q, k, v, 0.25, True, 0), atol=1e-5)
+
+
+@pytest.mark.parametrize("Sq,Sk,q_offset,causal,window",
+                         [(70, 70, 0, True, 5), (1, 70, 69, True, 0),
+                          (30, 50, 20, True, 16), (40, 25, 0, False, 0)])
+def test_flash_ref_offsets_and_unequal_lengths_match_naive(Sq, Sk, q_offset,
+                                                          causal, window):
+    q, k, v = _qkv(Sq + Sk, 2, 6, 3, Sq, Sk, 8)
+    o, _ = _port_flash(q, k, v, 0.3, causal, window, q_offset)
+    np.testing.assert_allclose(
+        o, _naive(q, k, v, 0.3, causal, window, q_offset), atol=1e-5)
+
+
+@pytest.mark.parametrize("S", [50, 300])
+def test_flash_layout_wrapper_matches_jax_flash_attention(S):
+    """models.flash.flash_attention (grouped layout, through the kernel
+    wrapper) against the JAX package's jnp flash attention, and the port's
+    _attn_naive against the JAX one."""
+    rng = np.random.default_rng(S)
+    q = rng.standard_normal((2, S, 2, 3, 16)).astype(np.float32)
+    k = rng.standard_normal((2, S, 2, 16)).astype(np.float32)
+    v = rng.standard_normal((2, S, 2, 16)).astype(np.float32)
+    want = np.asarray(jflash(*(jnp.asarray(a) for a in (q, k, v)),
+                             scale=0.25, causal=True, window=0))
+    got = tflash.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                                 scale=0.25)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    naive = tlayers._attn_naive(*(torch.from_numpy(a) for a in (q, k, v)),
+                                scale=0.25, causal=True, window=0,
+                                q_offset=0)
+    np.testing.assert_allclose(naive.numpy(), np.asarray(jnaive(
+        *(jnp.asarray(a) for a in (q, k, v)), scale=0.25, causal=True,
+        window=0, q_offset=0)), atol=1e-5)
+
+
+def test_flash_wrapper_checks_arguments():
+    q = torch.ones((1, 4, 3, 8))
+    kv = torch.ones((1, 3, 3, 8))
+    with pytest.raises(ValueError, match="Hkv dividing Hq"):
+        ops.flash_attention_fwd(q, kv, kv, 1.0)
+    with pytest.raises(ValueError, match="at least one key"):
+        ops.flash_attention_fwd(q, kv[:, :2, :0], kv[:, :2, :0], 1.0)
+    with pytest.raises(ValueError, match=">= 0"):
+        ops.flash_attention_fwd(q, kv[:, :2], kv[:, :2], 1.0, window=-1)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ops.flash_attention_fwd(q.to("meta"), kv[:, :2].to("meta"),
+                                kv[:, :2].to("meta"), 1.0)

@@ -1,0 +1,293 @@
+"""The port's LM serving path (repro_torch/models, launch/serve) against the
+JAX package on the CPU: layers, prefill and decode with their KV caches,
+and the serve driver from the JAX package's own state.
+
+Tolerance (allclose): XLA and torch reduce matmuls and softmax sums in
+other orders, and the port's prefill attention runs the flash kernel's
+plain version where the JAX package runs ``_attn_naive`` (the same
+arithmetic), so layer outputs, logits and caches are held to rtol 1e-4 /
+atol 1e-5. Greedy tokens must be equal wherever the JAX logits' top-2
+margin exceeds 1e-3; after the first step of a row at or under that margin
+the two trajectories may part, so the row is compared up to there.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.core.backend import create_backend as jcreate_backend
+from repro.launch import serve as jserve
+from repro.launch import shards as jshards
+from repro.models import layers as JL
+from repro.models import transformer as JT
+
+from repro_torch import convert
+from repro_torch.configs import BlockCfg, get_config
+from repro_torch.launch import serve as tserve
+from repro_torch.launch import shards
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+
+RTOL, ATOL = 1e-4, 1e-5
+CFG_J = jget_config("granite_3_2b", reduced=True).replace(pattern_repeats=2)
+CFG = get_config("granite_3_2b", reduced=True).replace(pattern_repeats=2)
+
+
+def _np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _close(got, want, what=""):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=RTOL,
+                               atol=ATOL, err_msg=what)
+
+
+def test_configs_copy_the_jax_package():
+    for name in ("granite_3_2b", "granite-3-2b"):
+        for reduced in (False, True):
+            t, j = get_config(name, reduced=reduced), \
+                jget_config(name, reduced=reduced)
+            for f in ("d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff",
+                      "vocab_size", "padded_vocab", "n_layers", "rope_theta",
+                      "norm_eps", "ffn_act", "norm", "qk_norm"):
+                assert getattr(t, f) == getattr(j, f), f
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        get_config("qwen3_14b")
+
+
+@pytest.mark.parametrize("arg", [3, "2", "vocab=4,field_00=2", None])
+def test_shards_grammar_matches_jax(arg):
+    assert shards.parse_emb_shards(arg) == jshards.parse_emb_shards(arg)
+    p = shards.parse_emb_shards(arg)
+    assert shards.shards_for_table(p, "vocab") == \
+        jshards.shards_for_table(p, "vocab")
+    assert shards.default_cache_rows(49_155) == \
+        jshards.default_cache_rows(49_155)
+
+
+def test_build_embedding_spec_refuses_what_is_not_ported():
+    spec = shards.build_embedding_spec(1024, 64, backend="dense+compressed")
+    assert (spec.rows, spec.dim, spec.backend) == (1024, 64,
+                                                   "dense+compressed")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        shards.build_embedding_spec(1024, 64, emb_shards="vocab=2")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        shards.build_embedding_spec(1024, 64, backend="host_lru")
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+def test_rmsnorm_layernorm_and_rope_match_jax():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 5, 3, 64)).astype(np.float32) * 3
+    w = rng.standard_normal(64).astype(np.float32)
+    b = rng.standard_normal(64).astype(np.float32)
+    _close(L.rmsnorm(_t(x), _t(w), 1e-5),
+           JL.rmsnorm(jnp.asarray(x), jnp.asarray(w), 1e-5))
+    _close(L.layernorm(_t(x), _t(w), _t(b), 1e-5),
+           JL.layernorm(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                        1e-5))
+    pos = np.array([[0, 1, 7, 300, 2047]] * 2, np.int32)
+    _close(L.apply_rope(_t(x), _t(pos), 10_000.0),
+           JL.apply_rope(jnp.asarray(x), jnp.asarray(pos), 10_000.0))
+
+
+@pytest.mark.parametrize("qk_norm", [False, True])
+def test_gqa_forward_and_mlp_match_jax(qk_norm):
+    cfg_j, cfg = (c.replace(qk_norm=qk_norm) for c in (CFG_J, CFG))
+    pj = JL.gqa_init(jax.random.PRNGKey(1), cfg_j, jnp.float32)
+    if qk_norm:      # non-trivial norm weights
+        pj["q_norm"]["w"] = pj["q_norm"]["w"] * 1.5
+        pj["k_norm"]["w"] = pj["k_norm"]["w"] * 0.5
+    pt = jax.tree.map(lambda a: _t(a), _np_tree(pj))
+    rng = np.random.default_rng(2)
+    B, S = 2, 37
+    x = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
+    oj, (kj, vj) = JL.gqa_forward(pj, cfg_j, jnp.asarray(x),
+                                  jnp.asarray(pos))
+    ot, (kt, vt) = L.gqa_forward(pt, cfg, _t(x), _t(pos))
+    _close(ot, oj, "out")
+    _close(kt, kj, "k")
+    _close(vt, vj, "v")
+    mj = JL.mlp_init(jax.random.PRNGKey(3), cfg_j)
+    mt = jax.tree.map(lambda a: _t(a), _np_tree(mj))
+    _close(L.mlp_forward(mt, cfg, _t(x)),
+           JL.mlp_forward(mj, cfg_j, jnp.asarray(x)), "mlp")
+
+
+def test_gelu_mlp_matches_jax():
+    cfg_j, cfg = (c.replace(ffn_act="gelu") for c in (CFG_J, CFG))
+    mj = JL.mlp_init(jax.random.PRNGKey(4), cfg_j)
+    mt = jax.tree.map(lambda a: _t(a), _np_tree(mj))
+    x = np.random.default_rng(5).standard_normal(
+        (3, 4, cfg.d_model)).astype(np.float32)
+    assert "wg" not in mt
+    _close(L.mlp_forward(mt, cfg, _t(x)),
+           JL.mlp_forward(mj, cfg_j, jnp.asarray(x)))
+
+
+def test_decode_attention_matches_jax():
+    rng = np.random.default_rng(6)
+    q = rng.standard_normal((2, 1, 2, 3, 16)).astype(np.float32)
+    kc = rng.standard_normal((2, 20, 2, 16)).astype(np.float32)
+    vc = rng.standard_normal((2, 20, 2, 16)).astype(np.float32)
+    n = np.array([5, 20], np.int32)
+    for window in (0, 4):
+        _close(L.decode_attention(_t(q), _t(kc), _t(vc), _t(n), scale=0.25,
+                                  window=window),
+               JL.decode_attention(*(jnp.asarray(a) for a in (q, kc, vc, n)),
+                                   scale=0.25, window=window))
+
+
+def test_unported_paths_raise():
+    q = torch.zeros((1, 4, 1, 1, 8))
+    k = torch.zeros((1, 4, 1, 8))
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        L.grouped_attention(q, k, k, scale=1.0, softcap=30.0)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        L.gqa_cache_init(CFG.replace(sliding_window=8), 1, 4)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        T.init_dense(CFG.replace(pattern=(BlockCfg("mla", "moe"),)),
+                     torch.Generator())
+
+
+# ---------------------------------------------------------------------------
+# prefill + decode with KV caches
+# ---------------------------------------------------------------------------
+
+def _jax_dense(cfg_j, seed=0):
+    dj = JT.init_dense(cfg_j, jax.random.PRNGKey(seed))
+    return dj, convert.lm_dense_from_numpy(_np_tree(dj), CFG, device="cpu")
+
+
+def _check_caches(tc, jc, what):
+    """The whole (R, B, max_len, Hkv, Dh) caches, the unwritten tail
+    (zeros on both sides) included, and the lengths exactly."""
+    for key in ("k", "v"):
+        _close(tc["stack"]["0"]["attn"][key],
+               jc["stack"]["0"]["attn"][key], f"{what}: cache {key}")
+    np.testing.assert_array_equal(tc["stack"]["0"]["attn"]["len"],
+                                  jc["stack"]["0"]["attn"]["len"])
+    np.testing.assert_array_equal(tc["pos"], jc["pos"])
+
+
+def test_prefill_and_teacher_forced_decode_match_jax():
+    dj, dt = _jax_dense(CFG_J)
+    rng = np.random.default_rng(7)
+    B, S, n_dec = 2, 11, 4
+    acts = rng.standard_normal((B, S, CFG.d_model)).astype(np.float32)
+    nxt = rng.standard_normal((n_dec, B, 1, CFG.d_model)).astype(np.float32)
+    lj, cj = JT.prefill(CFG_J, dj, jnp.asarray(acts), max_len=S + n_dec)
+    lt, ct = T.prefill(CFG, dt, _t(acts), max_len=S + n_dec)
+    assert ct["stack"]["0"]["attn"]["k"].shape == \
+        cj["stack"]["0"]["attn"]["k"].shape
+    _close(lt, lj, "prefill logits")
+    _check_caches(ct, cj, "prefill")
+    step = jax.jit(lambda c, a: JT.decode_step(CFG_J, dj, a, c))
+    for t in range(n_dec):
+        lj, cj = step(cj, jnp.asarray(nxt[t]))
+        lt, ct = T.decode_step(CFG, dt, _t(nxt[t]), ct)
+        _close(lt, lj, f"decode {t} logits")
+        _check_caches(ct, cj, f"decode {t}")
+    # pad-vocab columns masked in decode, as in JAX
+    assert (lt[..., CFG.vocab_size:] == -1e30).all()
+
+
+def test_lm_dense_from_numpy_checks_the_tree():
+    dj, _ = _jax_dense(CFG_J)
+    tree = _np_tree(dj)
+    tree["stack"]["0"]["ffn"].pop("wg")
+    with pytest.raises(ValueError, match="keys"):
+        convert.lm_dense_from_numpy(tree, CFG, device="cpu")
+    with pytest.raises(ValueError, match="shape"):
+        convert.lm_dense_from_numpy(_np_tree(dj), CFG.replace(
+            pattern_repeats=3), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the serve driver from the JAX package's state
+# ---------------------------------------------------------------------------
+
+def _jax_state(cfg_j, seed, backend_name):
+    """The state ``repro.launch.serve.serve`` builds (serve.py:29-36)."""
+    key = jax.random.PRNGKey(seed)
+    dense = JT.init_dense(cfg_j, key)
+    spec = jshards.build_embedding_spec(cfg_j.vocab_size, cfg_j.d_model,
+                                        backend=backend_name, table="vocab")
+    backend = jcreate_backend(spec)
+    emb = backend.init(jax.random.split(key, 1)[0])
+    return dense, backend, emb
+
+
+def _jax_margins(cfg_j, dense, backend, emb, prompts, tokens):
+    """Top-2 margin of JAX's logits at every generated step, along JAX's
+    own greedy trajectory (teacher forcing ``tokens``)."""
+    def top2(logits):
+        s = np.sort(np.asarray(logits), axis=-1)
+        return s[:, -1] - s[:, -2]
+
+    acts, _ = backend.lookup(emb, jnp.asarray(prompts))
+    logits, caches = JT.prefill(cfg_j, dense, acts,
+                                max_len=prompts.shape[1] + tokens.shape[1])
+    out = [top2(logits[:, 0, :cfg_j.vocab_size])]
+    for t in range(tokens.shape[1] - 1):
+        acts, _ = backend.lookup(emb, jnp.asarray(tokens[:, t:t + 1]))
+        logits, caches = JT.decode_step(cfg_j, dense, acts, caches)
+        out.append(top2(logits[:, 0, :cfg_j.vocab_size]))
+    return np.stack(out, axis=1)
+
+
+@pytest.mark.parametrize("backend_name", ["dense", "dense+compressed"])
+def test_serve_from_jax_state_matches_jax(backend_name):
+    B, P, G, seed = 2, 8, 6, 3
+    dense, jbackend, emb = _jax_state(CFG_J, seed, backend_name)
+    spec = shards.build_embedding_spec(CFG.vocab_size, CFG.d_model,
+                                       backend=backend_name)
+    state = (convert.emb_from_numpy(_np_tree(emb), spec, device="cpu"),
+             convert.lm_dense_from_numpy(_np_tree(dense), CFG,
+                                         device="cpu"))
+    want = jserve.serve(CFG_J, B, P, G, seed=seed, emb_backend=backend_name)
+    got = tserve.serve(CFG, B, P, G, seed=seed, emb_backend=backend_name,
+                       device="cpu", state=state)
+    assert set(got) == set(want)
+    assert got["tokens"].shape == want["tokens"].shape == (B, G)
+    assert got["tokens"].dtype == np.int32
+    prompts = tserve.make_prompts(CFG, B, P, seed)
+    margins = _jax_margins(CFG_J, dense, jbackend, emb, prompts,
+                           want["tokens"])
+    compared = 0
+    for b in range(B):
+        for t in range(G):
+            assert got["tokens"][b, t] == want["tokens"][b, t] or \
+                margins[b, t] <= 1e-3, (b, t, margins[b])
+            if margins[b, t] <= 1e-3:
+                break
+            compared += 1
+    assert compared >= B      # at least each row's first token
+
+
+def test_prompts_match_jax():
+    rng = np.random.default_rng(11)
+    want = rng.integers(0, CFG.vocab_size, (3, 5))
+    np.testing.assert_array_equal(tserve.make_prompts(CFG, 3, 5, 11), want)
+
+
+def test_serve_defaults_and_temperature_on_cpu():
+    res = tserve.serve(CFG, 2, 5, 4, seed=1, temperature=0.8, device="cpu")
+    assert res["tokens"].shape == (2, 4)
+    assert ((res["tokens"] >= 0) & (res["tokens"] < CFG.vocab_size)).all()
+    again = tserve.serve(CFG, 2, 5, 4, seed=1, temperature=0.8,
+                         device="cpu")
+    np.testing.assert_array_equal(res["tokens"], again["tokens"])
+    assert res["decode_tok_per_s"] > 0
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tserve.serve(CFG, emb_backend="host_lru", device="cpu")
