@@ -18,8 +18,10 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    ``fused_backward`` bit for bit (payload, table and accumulator) against
    its plain version at the training shape (kwai_video batch of 512, 4,096
    occurrences, D=128, queue width 4,096): the hybrid put (the popped put
-   applied, -1 rows in it), the sync put (its own sums applied), sgd,
-   all-padding and D=13 on the scalar path; timed over 32 tables. Then
+   applied, -1 rows in it), the sync put (its own sums applied), sgd, a
+   row that three positions share (hybrid and sync), all-padding and D=13
+   on the scalar path; timed over 32 tables, with each launch's device
+   time from the profiler (``device_split``). Then
    ``blockscale_compress`` and ``blockscale_decompress`` bit for bit (fp16
    payload, scales, output) on a real training lookup's unique rows and a
    real put's sums, on an all-zero block, fp16- and fp32-subnormal blocks,
@@ -79,10 +81,13 @@ ids >= V mixed in; ``check_unique`` must raise on a duplicate), and
 ``flash_attention_fwd`` against its plain version at granite's prefill
 shape (B=4, 32/8 heads of 64, S=2,048, fp32, causal; o within 2e-5, lse
 within 1e-4) and on edge cases (S=1,000, a ragged tile; window 256;
-non-causal; Hq = Hkv; Dh 96 and 128; bf16 inputs, o within 4e-2), each
-timed beside its bound, its plain version and its library call
+non-causal; Hq = Hkv; Dh 96 and 128; q and k x30 with the scale / 900;
+bf16 inputs, o within 4e-2, and bf16 at Dh 12, whose K/V go by cp.async),
+each timed beside its bound, its plain version and its library call
 (``index_add_``, ``scaled_dot_product_attention``; the port calls
-neither).
+neither). The attention's bound is three TF32 passes of its operations
+(its fp32 products run as 3xTF32), with the one-pass fp32 bound beside
+it; the same shape with bf16 inputs is timed against its own bound.
 
 It prints the card's name and power limit, one JSON line per phase, the
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
@@ -128,11 +133,14 @@ from repro_torch.serving import (ServingConfig, ServingService,  # noqa: E402
                                  StateCell, TrafficModel)
 from repro_torch.utils import tree_leaves, tree_map  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and fp32 outside the
-# tensor cores. The bound of a kernel is the larger of its bytes over the
-# first and its operations over the second.
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 outside the
+# tensor cores, dense TF32 and bf16 on them. The bound of a kernel is the
+# larger of its bytes over the bandwidth and its operations over the peak
+# of their type (the attention's fp32 products run as three TF32 passes).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
+BF16_OPS_PER_S = 989e12
 
 B, L, DIM, V = 64, 8, 128, 62_500        # the serving flush of one table
 N_TABLES = 32                             # kwai-dlrm's tables
@@ -228,6 +236,28 @@ def device_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def device_split(fn, reps: int, calls_per_fn: int) -> dict:
+    """Device us per call of each device activity (each kernel by name, a
+    memset) that ``reps`` eager runs of ``fn``, ``calls_per_fn`` calls
+    each, launch, from ``torch.profiler``; a warm-up run first."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    n = reps * calls_per_fn
+    split = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            split[e.key] = us / n
+    return split
 
 
 # ---------------------------------------------------------------------------
@@ -403,10 +433,11 @@ def fb_inputs(gen, ids, plan, prev, cap, sgd=False):
 def fb_bound(plan, apply_idx, apply_self) -> tuple[float, float]:
     """(bytes, operations) that one call must move and do: the valid
     occurrence rows and the CSR read, the payload written, the live
-    positions' gradient rows read (unless they are the payload itself), the
-    live table rows and accumulators read and written; a fp32 add per
+    positions' gradient rows read (unless they are the payload itself), and
+    the live table rows and accumulators read and written; a fp32 add per
     occurrence element, three operations per applied element (the step,
-    its scaling, the row add) and two per squared element."""
+    its scaling, the row add) and two per squared element. The kernel's
+    own leader-election scratch is a choice of its design, not counted."""
     n_valid, cap = plan.order.numel(), apply_idx.numel()
     live = apply_idx[apply_idx >= 0]
     n_live, n_rows = live.numel(), torch.unique(live).numel()
@@ -456,6 +487,19 @@ def fused_backward_phase(dev, ds):
         acc, grads, idx, g, self_ = fb_inputs(gen, ids_now[n0], plans[n0],
                                               prev, cap, sgd)
         run(case, tables[0], acc, plans[n0], grads, idx, g, self_)
+    # a physical row that three positions of the hybrid put share (as three
+    # colliding ids would), in both modes
+    acc, grads, idx, g, _ = fb_inputs(gen, ids_now[n0], plans[n0],
+                                      prev_plans[n0], cap)
+    live = torch.nonzero(idx >= 0).flatten()
+    idx[live[[5, 40]]] = idx[live[20]].clone()
+    run("hybrid_shared_by_3", tables[0], acc, plans[n0], grads, idx, g,
+        False)
+    sync_idx = plans[n0].rows.clone()
+    live = torch.nonzero(sync_idx >= 0).flatten()
+    sync_idx[live[[3, 30]]] = sync_idx[live[10]].clone()
+    run("sync_shared_by_3", tables[0], acc, plans[n0], grads, sync_idx,
+        None, True)
     # all padding: no valid occurrence, no live row
     i32 = dict(dtype=torch.int32, device=dev)
     pad = D.DedupPlan(dev=None, inv=None, order=torch.zeros(0, **i32),
@@ -497,6 +541,8 @@ def fused_backward_phase(dev, ds):
         # sized by the data), so it cannot be captured in a graph: eager
         "plain_ms": eager_ms(loop(ref.fused_backward_ref), 2) / N_TABLES,
         "library_ms": None,          # no single PyTorch call computes it
+        # device us per call of each launch (profiler, eager calls)
+        "split_us": device_split(loop(ops.fused_backward), 20, N_TABLES),
     }
     nbs, nos = zip(*(fb_bound(plans[n], args[k][5], False)
                      for k, n in enumerate(names)))
@@ -757,6 +803,11 @@ def flash_phase(dev):
         "dh_96": (2, 8, 2, 300, 300, 96, True, 0, torch.float32),
         "dh_128": (2, 8, 2, 300, 300, 128, True, 0, torch.float32),
         "bf16": (2, Hq, Hkv, 1000, 1000, Dh, True, 0, torch.bfloat16),
+        # q and k x30 with the scale / 900: the scores keep their range,
+        # single-pass TF32 would miss the fp32 check
+        "x30": (2, Hq, Hkv, 300, 300, Dh, True, 0, torch.float32),
+        # bf16 rows of 24 bytes: K/V by cp.async, not TMA
+        "dh_12_bf16": (2, 8, 2, 300, 300, 12, True, 0, torch.bfloat16),
     }
     scale = 1.0 / math.sqrt(Dh)
     errs, err32 = {}, 0.0
@@ -764,6 +815,8 @@ def flash_phase(dev):
             cases.items():
         q, k, v = qkv(B, hq, hkv, Sq, Sk, dh, dtype)
         sc = 1.0 / math.sqrt(dh)
+        if name == "x30":
+            q, k, sc = q * 30, k * 30, sc / 900
         o, lse = ops.flash_attention_fwd(q, k, v, sc, causal, window)
         po, plse = ref.flash_attention_fwd_ref(q, k, v, sc, causal, window)
         torch.cuda.synchronize()
@@ -792,15 +845,30 @@ def flash_phase(dev):
             q, k, v, is_causal=True, scale=scale, enable_gqa=True), 10),
     }
     pairs = attended_pairs(S, S, True, 0)
+    # fp32-equivalent operations; at fp32 accuracy the card does them as
+    # three TF32 passes (the kernel's 3xTF32), outside the tensor cores as
+    # one fp32 pass (the old SIMT bound, kept beside it)
     no = 4.0 * B * Hq * Dh * pairs
     nb = 4.0 * (2 * B * Hq * S * Dh + 2 * B * Hkv * S * Dh + B * Hq * S)
-    b_bytes, b_ops = nb / HBM_BYTES_PER_S, no / FP32_OPS_PER_S
+    b_bytes, b_ops = nb / HBM_BYTES_PER_S, 3 * no / TF32_OPS_PER_S
     timing.update(bound_ms=max(b_bytes, b_ops) * 1e3,
                   bound_by="bytes" if b_bytes >= b_ops else "operations",
+                  bound_simt_ms=max(b_bytes, no / FP32_OPS_PER_S) * 1e3,
                   bound_bytes=nb, bound_ops=no, max_abs_err=err32,
                   tflops=no / (timing["ms"] * 1e-3) / 1e12,
                   errors=errs, shape={"B": B, "Hq": Hq, "Hkv": Hkv,
                                       "S": S, "Dh": Dh, "causal": True})
+    # the same shape with bf16 inputs: one bf16 pass per product
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    bf16_ms = device_ms(lambda: ops.flash_attention_fwd(q, k, v, scale), 10)
+    nb16 = (2.0 * (2 * B * Hq * S * Dh + 2 * B * Hkv * S * Dh)
+            + 4.0 * B * Hq * S)
+    timing["bf16"] = {
+        "ms": bf16_ms,
+        "bound_ms": max(nb16 / HBM_BYTES_PER_S, no / BF16_OPS_PER_S) * 1e3,
+        "tflops": no / (bf16_ms * 1e-3) / 1e12,
+        "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale, enable_gqa=True), 10)}
     del q, k, v
     torch.cuda.empty_cache()
     return timing

@@ -10,8 +10,8 @@ error, never a quiet detour through the plain version.
 both paths. Each wrapper counts its launches in ``<wrapper>.launches`` (a
 plain int, raised by one per kernel launch and nowhere else), so a caller
 can show that a run went through the kernel. ``fused_backward``'s kernel is two
-grid passes and a memset on the stream (segment sum, then apply), launched
-and counted as one.
+grid passes on the stream (segment sums and leader election, then apply),
+launched and counted as one.
 """
 from __future__ import annotations
 
@@ -30,8 +30,9 @@ _SIGNATURES = {
     "persia_unique_bag_f32": ("bag", (_P, _P, _P, _P, _I64, _I, _I, _I, _I,
                                       _P)),
     "persia_fused_backward_f32": ("fused_backward",
-                                  (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I,
-                                   _I, _I, _I, _I, _F, _F, _I, _P)),
+                                  (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I64, _I, _I, _I, _I, _I, _F, _F, _I,
+                                   _P)),
     "persia_blockscale_compress_f32": ("blockscale",
                                        (_P, _I64, _I, _P, _P, _P)),
     "persia_blockscale_decompress_f32": ("blockscale",
@@ -140,6 +141,31 @@ def unique_bag(table: torch.Tensor, dev: torch.Tensor,
     return out
 
 
+# (device, R) -> (2, R) int32 leader-election scratch of fused_backward's
+# kernel: row 0 holds INT_MAX, row 1 holds -1 between calls (each call
+# restores what it touched)
+_fb_scratch: dict = {}
+
+
+def _election_scratch(device: torch.device, R: int) -> torch.Tensor:
+    """The per-row scratch of ``fused_backward``'s kernel on ``device``
+    for tables of ``R`` rows, allocated and filled at the first call for
+    that size (never inside a CUDA-graph capture: a capture that needs a new
+    one raises). Calls sharing it must be ordered on one stream."""
+    key = (device, R)
+    buf = _fb_scratch.get(key)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"fused_backward: its scratch for tables of {R} rows is made "
+                "at the first call; make one call before capturing a graph")
+        buf = torch.empty((2, max(R, 1)), dtype=torch.int32, device=device)
+        buf[0].fill_(torch.iinfo(torch.int32).max)
+        buf[1].fill_(-1)
+        _fb_scratch[key] = buf
+    return buf
+
+
 def fused_backward(table: torch.Tensor, acc: torch.Tensor | None,
                    order: torch.Tensor, offsets: torch.Tensor,
                    grads: torch.Tensor, apply_idx: torch.Tensor,
@@ -183,14 +209,22 @@ def fused_backward(table: torch.Tensor, acc: torch.Tensor | None,
     push = torch.empty((cap, D), dtype=torch.float32, device=table.device)
     if cap == 0 or D == 0:
         return push
+    scratch = _election_scratch(table.device, R)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    _launch("fused_backward", "persia_fused_backward_f32", table, push,
-            (table.data_ptr(), ptr(acc), order.data_ptr(),
-             offsets.data_ptr(), grads.data_ptr(), apply_idx.data_ptr(),
-             ptr(None if apply_self else apply_g), push.data_ptr(), R,
-             int(grads.shape[0]), int(order.shape[0]),
-             max(int(offsets.shape[0]) - 1, 0), cap, D, float(lr),
-             float(eps), int(bool(apply_self))))
+    try:
+        _launch("fused_backward", "persia_fused_backward_f32", table, push,
+                (table.data_ptr(), ptr(acc), order.data_ptr(),
+                 offsets.data_ptr(), grads.data_ptr(), apply_idx.data_ptr(),
+                 ptr(None if apply_self else apply_g), push.data_ptr(),
+                 scratch[0].data_ptr(), scratch[1].data_ptr(), R,
+                 int(grads.shape[0]), int(order.shape[0]),
+                 max(int(offsets.shape[0]) - 1, 0), cap, D, float(lr),
+                 float(eps), int(bool(apply_self))))
+    except RuntimeError:
+        # launch 1 may have run without the apply that restores the
+        # sentinels: the next call at this size starts from fresh scratch
+        _fb_scratch.pop((table.device, R), None)
+        raise
     fused_backward.launches += 1
     return push
 

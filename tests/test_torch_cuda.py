@@ -147,21 +147,85 @@ FB_CASES = [  # (R, D, U, n_occ, cap, n_dup, sgd)
 def test_cuda_fused_backward_matches_plain_version(cuda_device, R, D, U,
                                                    n_occ, cap, n_dup, sgd,
                                                    apply_self):
-    case = _fb_case(R + D + U, R, D, U, n_occ, cap, n_dup, sgd)
+    _fb_both(cuda_device, _fb_case(R + D + U, R, D, U, n_occ, cap, n_dup,
+                                   sgd), apply_self)
+
+
+def _fb_both(device, case, apply_self, lr=5e-2, eps=1e-8):
+    """One fused_backward call through the kernel and through the plain
+    version on the card, from the same numpy inputs; asserts payload,
+    table and acc equal bit for bit."""
     outs = []
-    for _ in ("kernel", "plain"):
+    for fn in (ops.fused_backward, ref.fused_backward_ref):
         table, acc, order, offsets, grads, idx, g = (
-            None if a is None else torch.from_numpy(a).to(cuda_device)
+            None if a is None else torch.from_numpy(a).to(device)
             for a in case)
-        fn = ops.fused_backward if not outs else ref.fused_backward_ref
-        push = fn(table, acc, order, offsets, grads, idx, g, lr=5e-2,
-                  eps=1e-8, apply_self=apply_self)
+        push = fn(table, acc, order, offsets, grads, idx, g, lr=lr, eps=eps,
+                  apply_self=apply_self)
         outs.append((push, table, acc))
     torch.cuda.synchronize()
     (p0, t0, a0), (p1, t1, a1) = outs
     assert torch.equal(p0, p1)
     assert torch.equal(t0, t1)
     assert (a0 is None and a1 is None) or torch.equal(a0, a1)
+
+
+def _fb_shared(seed, R, D, U, n_occ, cap, ways, sgd=False, hot=0, past=0):
+    """fused_backward inputs with one physical row named by ``ways``
+    positions and a few by two (rows that colliding ids share), ``hot``
+    occurrences of unique position 0 (a Zipf-hot id's segment) and
+    ``past`` positions naming rows >= R (no-ops)."""
+    rng = np.random.default_rng(seed)
+    table = rng.standard_normal((R, D)).astype(np.float32)
+    acc = None if sgd else rng.random(R).astype(np.float32)
+    inv = rng.integers(-1, U, n_occ).astype(np.int32)
+    inv[rng.permutation(n_occ)[:hot]] = 0
+    grads = rng.standard_normal((n_occ, D)).astype(np.float32)
+    rows = rng.permutation(R)[:U].astype(np.int32)
+    rows[1:ways] = rows[0]
+    rows[ways:ways + 6:2] = rows[ways + 1:ways + 7:2]
+    if past:
+        rows[-past:] = R + np.arange(past)
+    apply_idx = np.full(cap, -1, np.int32)
+    apply_idx[:U] = rows
+    apply_idx = apply_idx[rng.permutation(cap)]
+    apply_g = rng.standard_normal((cap, D)).astype(np.float32)
+    order, offsets = occurrence_csr(inv, U)
+    return table, acc, order, offsets, grads, apply_idx, apply_g
+
+
+FB_NEW_CASES = {  # name: _fb_shared arguments after the seed
+    "hot_segment_1500": (1_000, 128, 64, 4_096, 128, 1, False, 1_500),
+    "shared_by_3": (500, 128, 48, 300, 64, 3),
+    "shared_by_4": (500, 128, 48, 300, 64, 4),
+    "shared_by_4_scalar": (500, 13, 48, 300, 64, 4),
+    "rows_past_R": (300, 64, 40, 200, 64, 2, False, 0, 7),
+    "sgd_shared_by_3": (500, 128, 48, 300, 64, 3, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("apply_self", [False, True])
+@pytest.mark.parametrize("name", list(FB_NEW_CASES))
+def test_cuda_fused_backward_hot_segments_and_shared_rows(cuda_device, name,
+                                                          apply_self):
+    case = _fb_shared(len(name), *FB_NEW_CASES[name])
+    if name == "hot_segment_1500":
+        assert int(np.diff(case[3])[0]) >= 1_500
+    _fb_both(cuda_device, case, apply_self)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_backward_scratch_comes_back_clean(cuda_device):
+    """Calls in a row on tables of two sizes (each with its own scratch),
+    then two on one size (sharing it), every one bit-exact, and the
+    scratch back at its sentinels after each."""
+    for k, R in enumerate((400, 257, 400, 400)):
+        _fb_both(cuda_device, _fb_shared(k, R, 64, 40, 200, 64, 3),
+                 apply_self=bool(k % 2))
+        buf = ops._fb_scratch[(torch.device(cuda_device), R)]
+        assert bool((buf[0] == torch.iinfo(torch.int32).max).all())
+        assert bool((buf[1] == -1).all())
 
 
 @pytest.mark.cuda
@@ -325,35 +389,55 @@ def test_cuda_embedding_sgd_matches_plain_version(cuda_device, V, D, T):
                           torch.ones((2, D), device=cuda_device))
 
 
-FLASH_CASES = [  # (B, Hq, Hkv, Sq, Sk, Dh, causal, window, q_offset)
-    (2, 4, 2, 64, 64, 32, True, 0, 0),
-    (1, 4, 1, 1000, 1000, 64, True, 0, 0),        # ragged tiles
-    (1, 2, 2, 300, 300, 64, True, 64, 0),         # window, Hq == Hkv
-    (2, 4, 2, 130, 130, 96, False, 0, 0),         # non-causal, Dh 96
-    (1, 2, 1, 200, 200, 128, True, 24, 0),        # Dh 128
-    (1, 2, 1, 7, 90, 64, True, 0, 83),            # q_offset
-    (1, 2, 1, 100, 50, 16, True, 10, 0),          # rows attending no key
+FLASH_CASES = [  # (B, Hq, Hkv, Sq, Sk, Dh, causal, window, q_offset, x)
+    (2, 4, 2, 64, 64, 32, True, 0, 0, 1),
+    (1, 4, 1, 1000, 1000, 64, True, 0, 0, 1),     # ragged tiles
+    (1, 2, 2, 300, 300, 64, True, 64, 0, 1),      # window, Hq == Hkv
+    (2, 4, 2, 130, 130, 96, False, 0, 0, 1),      # non-causal, Dh 96
+    (1, 2, 1, 200, 200, 128, True, 24, 0, 1),     # Dh 128
+    (1, 2, 1, 7, 90, 64, True, 0, 83, 1),         # q_offset
+    (1, 2, 1, 100, 50, 16, True, 10, 0, 1),       # rows attending no key
+    # q and k x30, the scale / 900: the split holds fp32's checks where
+    # single-pass TF32 misses them (tests/test_torch_kernels.py emulates
+    # both at this shape)
+    (1, 4, 1, 256, 256, 64, True, 0, 0, 30),
+    (1, 4, 2, 200, 200, 12, True, 0, 0, 1),       # Dh 12: bf16 by cp.async
+    (2, 2, 1, 150, 150, 4, True, 0, 0, 1),        # Dh 4
+    (1, 4, 2, 129, 129, 64, True, 0, 0, 1),       # one past a 128-row tile
+    (1, 2, 1, 129, 129, 128, False, 0, 0, 1),     # ... and Dh 128's 64
+    (1, 32, 8, 300, 300, 64, True, 0, 0, 1),      # granite's 32 / 8 heads
+    (1, 16, 2, 300, 300, 64, True, 0, 0, 1),      # a GQA group of 8
 ]
+
+
+def _flash_id(case):
+    """The case's id: its values joined by '-', with ``x`` only where it
+    is not 1 (the ids of the cases that had no ``x`` stay as they were)."""
+    return "-".join(str(c) for c in case[:9]) + \
+        (f"-x{case[9]}" if case[9] != 1 else "")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,Dh,causal,window,q_offset",
-                         FLASH_CASES)
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,Dh,causal,window,q_offset,x",
+                         [pytest.param(*c, id=_flash_id(c))
+                          for c in FLASH_CASES])
 def test_cuda_flash_attention_matches_plain_version(
         cuda_device, dtype, B, Hq, Hkv, Sq, Sk, Dh, causal, window,
-        q_offset):
+        q_offset, x):
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=cuda_device).manual_seed(Sq + Dh)
-    q, k, v = (torch.randn(s, generator=g, device=cuda_device).to(dtype)
+    q, k, v = (torch.randn(s, generator=g, device=cuda_device)
                for s in ((B, Hq, Sq, Dh), (B, Hkv, Sk, Dh),
                          (B, Hkv, Sk, Dh)))
+    q, k, v = ((t * m).to(dtype) for t, m in ((q, x), (k, x), (v, 1)))
+    scale = 0.125 / (x * x)
     ops.reset_launch_counts()
-    o, lse = ops.flash_attention_fwd(q, k, v, 0.125, causal, window,
+    o, lse = ops.flash_attention_fwd(q, k, v, scale, causal, window,
                                      q_offset)
     torch.cuda.synchronize()
     assert ops.launch_counts()["flash_attention_fwd"] == 1
-    po, plse = ref.flash_attention_fwd_ref(q, k, v, 0.125, causal, window,
+    po, plse = ref.flash_attention_fwd_ref(q, k, v, scale, causal, window,
                                            q_offset)
     assert o.dtype == dtype and lse.dtype == torch.float32
     atol = 2e-5 if dtype == torch.float32 else 4e-2

@@ -588,3 +588,65 @@ def test_flash_wrapper_checks_arguments():
     with pytest.raises(ValueError, match="one CUDA device"):
         ops.flash_attention_fwd(q.to("meta"), kv[:, :2].to("meta"),
                                 kv[:, :2].to("meta"), 1.0)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's fp32 numerics: 3xTF32 on the tensor cores
+# ---------------------------------------------------------------------------
+#
+# flash_attention_fwd's kernel computes both fp32 products with wgmma .tf32:
+# each operand x is split into big = tf32(x) and small = tf32(x - big), and
+# a product is small.big + big.small + big.big. Emulated here with torch
+# bit operations (round to nearest, ties away, at 10 mantissa bits, as
+# cvt.rna.tf32.f32 does) inside the plain version's own arithmetic, at a
+# granite-like shape: the split stays within the kernel's unchanged checks
+# (o 2e-5, lse 1e-4) and single-pass TF32 does not. The x30 case scales q
+# and k by 30 and the softmax scale down by 900, so the scores keep their
+# range and the operands' magnitudes change; scaling v instead would put
+# the fp32 plain version itself ~2e-5 from exact arithmetic (its o reaches
+# ~70), below the check's resolution for any kernel.
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _einsum_tf32(split: bool):
+    einsum = torch.einsum
+
+    def product(eq, a, b):
+        ab, bb = _tf32(a), _tf32(b)
+        if not split:
+            return einsum(eq, ab, bb)
+        return (einsum(eq, _tf32(a - ab), bb) + einsum(eq, ab, _tf32(b - bb))
+                + einsum(eq, ab, bb))
+    return product
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits():
+    x = torch.tensor([1.0 + 2**-11, 1.0 + 2**-10 + 2**-12, -3.0 - 2**-9,
+                      1.0 + 2**-12])
+    # a tie rounds away from zero, below half an ulp rounds down
+    assert _tf32(x).tolist() == [1.0 + 2**-10, 1.0 + 2**-10, -3.0 - 2**-9,
+                                 1.0]
+    big = _tf32(x)
+    assert torch.equal(big + _tf32(x - big), x)     # 2 halves hold fp32
+
+
+@pytest.mark.parametrize("x", [1.0, 30.0])
+def test_flash_3xtf32_meets_fp32_checks_and_single_tf32_misses(monkeypatch,
+                                                                x):
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((1, 4, 256, 64), (1, 1, 256, 64), (1, 1, 256, 64)))
+    q, k, scale = q * x, k * x, 0.125 / (x * x)
+    po, plse = ref.flash_attention_fwd_ref(q, k, v, scale)
+    out = {}
+    for split in (True, False):
+        monkeypatch.setattr(torch, "einsum", _einsum_tf32(split))
+        out[split] = ref.flash_attention_fwd_ref(q, k, v, scale)
+        monkeypatch.undo()
+    (o3, lse3), (o1, lse1) = out[True], out[False]
+    assert float((o3 - po).abs().max()) <= 2e-5
+    assert torch.allclose(lse3, plse, atol=1e-4, rtol=1e-6)
+    assert float((o1 - po).abs().max()) > 2e-5 * 10
