@@ -14,7 +14,14 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    padding, all-duplicate bags, indices past the end, clamped, D=13 on
    the scalar path), and times each
    kernel, its plain version and ``torch.nn.functional.embedding_bag`` as a
-   yardstick (the port never calls it) over 32 tables of that shape. Then
+   yardstick (the port never calls it) over 32 tables of that shape. The
+   grouped ``unique_bag`` (one launch for a group of tables) bit for bit
+   against the plain version and the one-table kernel on every table of
+   the 32-table serving and training stages, of tables of unequal V, U, B,
+   L and D (D=13, B=0, U=0, L=40, padding, clamped indices, the identity
+   dev, a misaligned table) and of 100 tables (two launches); timed as one
+   launch per stage at the serving (B=64) and training (batch 512) shapes
+   beside each stage's bound. Then
    ``fused_backward`` bit for bit (payload, table and accumulator) against
    its plain version at the training shape (kwai_video batch of 512, 4,096
    occurrences, D=128, queue width 4,096): the hybrid put (the popped put
@@ -26,33 +33,42 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    payload, scales, output) on a real training lookup's unique rows and a
    real put's sums, on an all-zero block, fp16- and fp32-subnormal blocks,
    a partial last block, the scalar path and block 64; timed over 32
-   tables' unique rows.
+   tables' unique rows. The grouped decompress bit for bit on the 32
+   tables' unique rows written into given buffers (as a put's payloads
+   are), on payloads of unequal length and block (empty, partial last
+   block, the scalar path, a misaligned output) and on 100 payloads (two
+   launches); timed as one launch for the 32 tables beside
+   ``torch.div(comp, scales[:, None])``, its one-call yardstick.
 3. Serve: the full width of ``kwai-dlrm`` (32 tables of 62,500 x 128 fp32,
    FFNN 4112-4096-2048-1024-512-256-4) with random weights from a seeded
    generator. A ``ServingService(max_batch=64)`` answers 512 traffic-model
    requests from 4 client threads; half the tables read through the dedup
-   plan (``unique_bag``), half at occurrence width (``embedding_bag``).
-   The predictions must be finite, in (0, 1), agree with the plain lookup
+   plan (one ``unique_bag`` launch for the 16 of them per flush), half at
+   occurrence width (``embedding_bag``, one launch per table). The
+   predictions must be finite, in (0, 1), agree with the plain lookup
    (gather + pool, no kernel) and the launch counts must show that every
    flush went through both kernels. Then ``trainer.eval`` on a 1024-row
    batch. The same again with every table ``dense+compressed``: every
-   flush must run both blockscale kernels and ``embedding_bag`` once per
-   table, and the predictions agree with the plain lookup (gather, plain
-   codec, pool).
+   flush must run ``blockscale_compress`` and ``embedding_bag`` once per
+   table and ONE decompress for all of them, and the predictions agree
+   with the plain lookup (gather, plain codec, pool).
 4. Train: ``PersiaTrainer.step`` at the full kwai-dlrm width, batch 512,
    Adam lr 3e-3, adagrad lr 5e-2: hybrid(3) for 2 warm-up and 30 timed
    steps, 10 more with a stage breakdown and 5 under the profiler; then
    sync and async(3,3) for 4 steps each. Every step must launch
-   ``unique_bag`` and ``fused_backward`` once per table, every loss must be
+   ``unique_bag`` once for all 32 tables and ``fused_backward`` once per
+   table, every loss must be
    finite and the queues' ring pointers must be where the step count puts
    them. Then the card against the CPU (``device="cpu"``, the plain
    versions) from one starting state: sync for 2 steps and hybrid(3) for 5
    (two popped puts applied), tables, accumulators, queues and dense
    parameters compared. Eval loss and AUC on a 4096-row batch.
 5. Compressed train: the same model with every table ``dense+compressed``:
-   hybrid(3) for 2 warm-up and 10 timed steps (each step launches both
-   blockscale kernels twice per table, a get and a put, ``unique_bag`` and
-   ``fused_backward`` once per table), 5 with a stage breakdown and 3 under
+   hybrid(3) for 2 warm-up and 10 timed steps (each step launches
+   ``blockscale_compress`` twice per table, a get and a put, ONE
+   decompress for all the tables' get and ONE for their put, ONE
+   ``unique_bag`` and ``fused_backward`` once per table), 5 with a stage
+   breakdown and 3 under
    the profiler, the wire's byte ratio (>= 1.8, the JAX test's bound),
    sync (two ``fused_backward`` launches per table: the sums cross the
    wire before they are applied) and async(3,3) for 3 steps each, and the
@@ -73,7 +89,10 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    token, decode tokens/s and the device-busy share under the profiler.
    Then the same model cut to 2 layers, B=1, prompt 256, 4 tokens, on the
    card and on the CPU from one state: logits within rtol 1e-4 / atol
-   1e-5, greedy tokens equal.
+   1e-5, greedy tokens equal; before that check, the card's error split
+   into what the fp32 GEMMs leave alone (the card with the plain attention
+   against the CPU) and what the attention kernel adds (kernel against
+   plain attention on the card).
 
 The kernel phase also holds ``embedding_sgd`` bit for bit on 32 tables'
 real kwai-dlrm puts (the unique physical rows of a training put, -1 and
@@ -183,6 +202,9 @@ KERNELS = {
         "replaces": "src/repro/kernels/flash_attention.py:73"},
 }
 CODEC = ("blockscale_compress", "blockscale_decompress")
+# the grouped kernels' per-stage fields in the kernels line
+STAGE_KEYS = ("stage_tables", "stage_ms", "stage_bound_ms", "stage_library_ms",
+              "train_stage_ms", "train_stage_bound_ms")
 
 
 BAG_KERNELS = ("embedding_bag", "unique_bag")
@@ -273,7 +295,7 @@ def bag_ids(rng, b, l, v):
 
 def plan_of(ids, v):
     """Dedup plan of host ids: (dev (U,) int32 rows, inv (B, L) int32)."""
-    u_pad, inv, _, _ = D.make_plan(ids, v, D.dedup_cap(ids.size, v))
+    u_pad, inv, _, _ = D.make_plan(ids, v, D.dedup_cap(max(ids.size, 1), v))
     return u_pad.astype(np.int32), inv
 
 
@@ -286,8 +308,114 @@ def exact(name, case, got, want):
     return err
 
 
-def kernel_phase(dev, rng):
-    """The bag kernels: bit-exactness and per-call times."""
+def bag_cost(ids, n_rows, n_index) -> tuple[float, float]:
+    """(bytes, operations) of one bag call on (B, L) host ``ids``: each of
+    ``n_rows`` distinct rows read once, each output row written once, each
+    of ``n_index`` indices read once; one fp32 add per valid element."""
+    valid = int((ids >= 0).sum())
+    return (float(n_rows * DIM * 4 + ids.shape[0] * DIM * 4 + n_index * 4),
+            float(valid * DIM))
+
+
+def bound_of(costs) -> tuple[float, str]:
+    """(bound ms, what bounds it) of work whose (bytes, operations) are
+    ``costs``, summed: the larger of bytes over the memory rate and fp32
+    operations over their peak."""
+    nb, no = (sum(c[k] for c in costs) for k in (0, 1))
+    b_bytes, b_ops = nb / HBM_BYTES_PER_S, no / FP32_OPS_PER_S
+    return max(b_bytes, b_ops) * 1e3, \
+        "bytes" if b_bytes >= b_ops else "operations"
+
+
+# groups of tables for the grouped unique_bag: (V, D, B, L, kind)
+BAG_GROUP = [
+    (V, DIM, B, L, "plan"),
+    (1000, 13, 40, 5, "plan"),          # D % 4 != 0: the scalar path
+    (500, 64, 0, 8, "plan"),            # B = 0: no bag
+    (800, DIM, 20, 8, "empty_dev"),     # U = 0: every bag reads nothing
+    (V, DIM, B, L, "past_end"),         # inv >= U, dev >= V: clamped
+    (V, DIM, B, L, "dev_padding"),      # inv pointing at dev's -1 slots
+    (300, 24, 30, 6, "identity"),       # dev None: the rows themselves
+    (700, 32, 50, 8, "misaligned"),     # table 4 bytes off: scalar path
+    (400, 16, 9, 40, "plan"),           # L > 32: two index rounds a bag
+]
+CHUNK_TABLES = 100          # more tables than one launch takes
+
+
+def bag_group(rng, dev, specs):
+    """(tables, devs, invs) on ``dev`` for the grouped unique_bag."""
+    tables, devs, invs = [], [], []
+    for v, d, b, l, kind in specs:
+        t = torch.as_tensor(rng.standard_normal((v, d)).astype(np.float32),
+                            device=dev)
+        if kind == "misaligned":
+            buf = torch.empty(t.numel() + 1, device=dev)
+            buf[1:].copy_(t.reshape(-1))
+            t = buf[1:].view(v, d)
+        ids = bag_ids(rng, b, l, v) if b and l else np.full((b, l), -1)
+        u, inv = plan_of(ids, v)
+        if kind == "past_end" and l:
+            u[0] = v + 11
+            inv[:, -1] = u.size + 5
+        elif kind == "dev_padding" and l:
+            n_u = int((u >= 0).sum())
+            u = np.concatenate([u, np.full(32, -1, np.int32)])
+            inv = np.where((np.arange(l)[None, :] % 2 == 1) & (inv >= 0),
+                           n_u + (inv % 32), inv).astype(np.int32)
+        elif kind == "empty_dev":
+            u = u[:0]
+        tables.append(t)
+        if kind == "identity":
+            devs.append(None)
+            inv = rng.integers(-1, v + 3, (b, l)).astype(np.int32)
+        else:
+            devs.append(torch.as_tensor(u, device=dev))
+        invs.append(torch.as_tensor(inv.astype(np.int32), device=dev))
+    return tables, devs, invs
+
+
+def random_specs(rng, n, kinds):
+    return [(int(rng.integers(1, 2000)), int(rng.choice([4, 13, 64, 128])),
+             int(rng.integers(0, 80)), int(rng.integers(1, 12)),
+             str(rng.choice(kinds))) for _ in range(n)]
+
+
+def grouped_bag_checks(dev, rng, groups) -> dict:
+    """The grouped unique_bag bit for bit against the plain version and
+    the one-table kernel on every table of every group, with the launches
+    each grouped call made (one per 56 non-empty tables)."""
+    out = {}
+    for case, (tables, devs, invs) in groups.items():
+        ops.reset_launch_counts()
+        got = ops.unique_bag_grouped(tables, devs, invs)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()["unique_bag"]
+        served = sum(1 for t, i in zip(tables, invs)
+                     if i.shape[0] and t.shape[1])
+        check(launches == -(-served // 56),
+              f"unique_bag_grouped[{case}]: {launches} launches for "
+              f"{served} tables")
+        want = ref.unique_bag_grouped_ref(tables, devs, invs)
+        err = 0.0
+        for k, (t, d, i, g, w) in enumerate(zip(tables, devs, invs, got,
+                                               want)):
+            err = max(err, exact("unique_bag_grouped", f"{case}: table {k}",
+                                 g, w))
+            if i.shape[0]:
+                one = ops.unique_bag(t, torch.arange(
+                    t.shape[0], dtype=torch.int32, device=dev)
+                    if d is None else d, i)
+                exact("unique_bag_grouped", f"{case}: table {k} against "
+                      "the one-table kernel", g, one)
+        out[case] = {"tables": len(tables), "launches": launches,
+                     "max_abs_err": err}
+    torch.cuda.synchronize()
+    return out
+
+
+def kernel_phase(dev, rng, ds):
+    """The bag kernels: bit-exactness and per-call times; the grouped
+    unique_bag bit for bit on groups of tables and timed per stage."""
     cuda = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
     errs = {k: 0.0 for k in BAG_KERNELS}
 
@@ -371,23 +499,49 @@ def kernel_phase(dev, rng):
     # bound: each distinct row read once, each output row written once,
     # each index read once; operations: one fp32 add per valid element
     for name in BAG_KERNELS:
-        bound, n_bytes, n_ops = [], [], []
-        for k, ids in enumerate(serve_ids):
-            valid = ids[ids >= 0]
-            idx_bytes = ids.size * 4 + (plans[k][0].numel() * 4
-                                        if name == "unique_bag" else 0)
-            nb = np.unique(valid).size * DIM * 4 + B * DIM * 4 + idx_bytes
-            no = valid.size * DIM
-            n_bytes.append(nb)
-            n_ops.append(no)
-            bound.append(max(nb / HBM_BYTES_PER_S, no / FP32_OPS_PER_S))
-        b_bytes = float(np.mean(n_bytes)) / HBM_BYTES_PER_S
-        b_ops = float(np.mean(n_ops)) / FP32_OPS_PER_S
+        costs = [bag_cost(ids, np.unique(ids[ids >= 0]).size, ids.size + (
+            plans[k][0].numel() if name == "unique_bag" else 0))
+            for k, ids in enumerate(serve_ids)]
         timing[name].update(
-            bound_ms=float(np.mean(bound)) * 1e3,
-            bound_by="bytes" if b_bytes >= b_ops else "operations",
-            max_abs_err=errs[name])
-    del tables
+            bound_ms=float(np.mean([bound_of([c])[0] for c in costs])),
+            bound_by=bound_of(costs)[1], max_abs_err=errs[name])
+
+    # the grouped unique_bag: bit for bit on every table of each group
+    # (the serving and training stages, unequal and edge-case tables, more
+    # tables than one launch takes), then timed as one launch per stage of
+    # the 32 tables, at the serving shape (B = 64) and at the training
+    # shape (kwai_video batch of 512)
+    names, batches = train_plans(dev, ds, 1, SEED + 18)
+    ids_tr, plans_tr = batches[0]
+    groups = {
+        "serve_stage": (tables, [p[0] for p in plans], [p[1] for p in plans]),
+        "train_stage": (tables, [plans_tr[n].rows for n in names],
+                        [plans_tr[n].inv for n in names]),
+        "mixed": bag_group(rng, dev, BAG_GROUP),
+        f"{CHUNK_TABLES}_tables": bag_group(rng, dev, random_specs(
+            rng, CHUNK_TABLES, ["plan", "past_end", "identity"])),
+    }
+    cases = grouped_bag_checks(dev, rng, groups)
+    serve_args, train_args = groups["serve_stage"], groups["train_stage"]
+    serve_bound = bound_of([bag_cost(ids, np.unique(ids[ids >= 0]).size,
+                                     ids.size + plans[k][0].numel())
+                            for k, ids in enumerate(serve_ids)])
+    train_bound = bound_of([bag_cost(
+        ids_tr[n], int(torch.unique(p.rows[p.rows >= 0]).numel()),
+        p.inv.numel() + p.rows.numel())
+        for n, p in ((n, plans_tr[n]) for n in names)])
+    timing["unique_bag"].update(
+        stage_tables=N_TABLES,
+        stage_ms=device_ms(lambda: ops.unique_bag_grouped(*serve_args),
+                           reps),
+        eager_stage_ms=eager_ms(lambda: ops.unique_bag_grouped(*serve_args),
+                                reps),
+        stage_bound_ms=serve_bound[0], stage_bound_by=serve_bound[1],
+        train_stage_ms=device_ms(lambda: ops.unique_bag_grouped(*train_args),
+                                 reps),
+        train_stage_bound_ms=train_bound[0],
+        train_stage_bound_by=train_bound[1], grouped_cases=cases)
+    del tables, groups, serve_args, train_args
     torch.cuda.empty_cache()
     return timing
 
@@ -580,6 +734,71 @@ def codec_bound(n: int, block: int) -> tuple[float, float]:
     return float(n * 6 + nb * 4), float(2 * n + nb)
 
 
+# payloads for the grouped decompress: (n, block, output)
+CODEC_GROUP = [
+    (300 * 128, 128, "shape"),
+    (1000, 64, "into"),
+    (0, 128, "shape"),                  # empty
+    (4096 - 76, 128, "into"),           # a partial last block
+    (5000 - 77, 128, "shape"),          # n % 4 != 0: the scalar path
+    (3000, 30, "shape"),                # block % 4 != 0: the scalar path
+    (2048, 128, "misaligned"),          # out 4 bytes off: the scalar path
+]
+
+
+def codec_group(rng, dev, specs):
+    """(comps, scales, outs, wants) on ``dev``: the plain compress of each
+    lognormal payload, its output (a shape, a tensor written in place, or
+    one 4 bytes into its buffer) and the plain decompress it must equal."""
+    comps, scales, outs, wants = [], [], [], []
+    for n, block, kind in specs:
+        v = torch.as_tensor((rng.standard_normal(n) * np.exp(
+            rng.standard_normal(n) * 4)).astype(np.float32), device=dev)
+        c, sc = ref.blockscale_compress_ref(v, block)
+        comps.append(c)
+        scales.append(sc)
+        wants.append(ref.blockscale_decompress_ref(c, sc).reshape(-1)[:n])
+        outs.append((n,) if kind == "shape" else
+                    torch.zeros(n, device=dev) if kind == "into" else
+                    torch.zeros(n + 1, device=dev)[1:])
+    return comps, scales, outs, wants
+
+
+def grouped_codec_checks(groups) -> dict:
+    """The grouped decompress bit for bit against the plain version and
+    the one-table kernel on every payload of every group, written in place
+    where an output tensor is given, with the launches each grouped call
+    made (one per 80 non-empty payloads)."""
+    out = {}
+    for case, (comps, scales, outs, wants) in groups.items():
+        ops.reset_launch_counts()
+        got = ops.blockscale_decompress_grouped(comps, scales, outs)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()["blockscale_decompress"]
+        served = sum(1 for w in wants if w.numel())
+        check(launches == -(-served // 80),
+              f"blockscale_decompress_grouped[{case}]: {launches} launches "
+              f"for {served} payloads")
+        err = 0.0
+        for k, (c, sc, o, g, w) in enumerate(zip(comps, scales, outs, got,
+                                                 wants)):
+            check(not isinstance(o, torch.Tensor) or g is o,
+                  f"blockscale_decompress_grouped[{case}]: payload {k} not "
+                  "written in place")
+            err = max(err, same_bits("blockscale_decompress_grouped",
+                                     f"{case}: payload {k}", g.reshape(-1),
+                                     w.reshape(-1)))
+            if w.numel():
+                same_bits("blockscale_decompress_grouped",
+                          f"{case}: payload {k} against the one-table "
+                          "kernel", g.reshape(-1),
+                          ops.blockscale_decompress(c, sc, (w.numel(),)))
+        out[case] = {"payloads": len(comps), "launches": launches,
+                     "max_abs_err": err}
+    torch.cuda.synchronize()
+    return out
+
+
 def blockscale_phase(dev, ds):
     """The codec kernels against their plain versions on the card, bit for
     bit, on a real lookup's unique rows, a real put's sums and the edge
@@ -635,9 +854,28 @@ def blockscale_phase(dev, ds):
             errs["blockscale_decompress"],
             same_bits("blockscale_decompress", case, out, want))
 
+    # the grouped decompress on every payload of each group: the 32
+    # tables' unique rows (a get) written into buffers as a put's payloads
+    # are, unequal and edge-case payloads, more payloads than one launch
+    # takes
+    comps = [ops.blockscale_compress(a, BLOCK) for a in acts]
+    rng = np.random.default_rng(SEED + 19)
+    groups = {
+        "stage": ([c for c, _ in comps], [sc for _, sc in comps],
+                  [torch.empty(a.numel(), device=dev) for a in acts],
+                  [ref.blockscale_decompress_ref(*c).reshape(-1)[
+                      :a.numel()] for c, a in zip(comps, acts)]),
+        "mixed": codec_group(rng, dev, CODEC_GROUP),
+        f"{CHUNK_TABLES}_payloads": codec_group(rng, dev, [
+            (int(rng.integers(0, 6000)), int(rng.choice([30, 64, 128])),
+             str(rng.choice(["shape", "into", "misaligned"])))
+            for _ in range(CHUNK_TABLES)]),
+    }
+    grouped = grouped_codec_checks(groups)
+    del groups
+
     # timing: one call per table over the 32 tables, as one step's get
     # roundtrip does (the put's sums have the same shape)
-    comps = [ops.blockscale_compress(a, BLOCK) for a in acts]
     fns = {
         "blockscale_compress": {
             "ms": lambda k: ops.blockscale_compress(acts[k], BLOCK),
@@ -645,11 +883,16 @@ def blockscale_phase(dev, ds):
                                                               BLOCK)},
         "blockscale_decompress": {
             "ms": lambda k: ops.blockscale_decompress(*comps[k]),
-            "plain_ms": lambda k: ref.blockscale_decompress_ref(*comps[k])},
+            "plain_ms": lambda k: ref.blockscale_decompress_ref(*comps[k]),
+            # fp16 -> fp32 promotion is exact, so one true division
+            "library_ms": lambda k: torch.div(comps[k][0],
+                                              comps[k][1][:, None])},
     }
     timing = {}
     for name, by in fns.items():
-        timing[name] = {"library_ms": None}    # no single PyTorch call
+        # compress: max|v| per block, a scale, a product and an fp16 cast;
+        # no single PyTorch call does all of them
+        timing[name] = {"library_ms": None}
         for key, f in by.items():
             run = lambda f=f: [f(k) for k in range(N_TABLES)]  # noqa: E731
             timing[name][key] = device_ms(run, 20) / N_TABLES
@@ -663,7 +906,23 @@ def blockscale_phase(dev, ds):
             bound_bytes=float(np.mean(nbs)), max_abs_err=errs[name],
             rows_per_table=float(np.mean([a.shape[0] for a in acts])),
             cases=list(cases))
-    del tables, acts, comps
+    # the grouped decompress, one launch for the stage's 32 tables
+    cs, ss = [c for c, _ in comps], [sc for _, sc in comps]
+    shapes = [a.shape for a in acts]
+    stage_bound = bound_of([codec_bound(a.numel(), BLOCK) for a in acts])
+    timing["blockscale_decompress"].update(
+        stage_tables=N_TABLES,
+        stage_ms=device_ms(lambda: ops.blockscale_decompress_grouped(
+            cs, ss, shapes), 20),
+        eager_stage_ms=eager_ms(lambda: ops.blockscale_decompress_grouped(
+            cs, ss, shapes), 20),
+        stage_library_ms=device_ms(lambda: [torch.div(c, sc[:, None])
+                                            for c, sc in comps], 20),
+        stage_bound_ms=stage_bound[0], stage_bound_by=stage_bound[1],
+        stage_bound_bytes=float(sum(codec_bound(a.numel(), BLOCK)[0]
+                                    for a in acts)),
+        grouped_cases=grouped)
+    del tables, acts, comps, cs, ss
     torch.cuda.empty_cache()
     return timing
 
@@ -986,8 +1245,11 @@ def serve_phase(dev, backend="dense"):
 
     ops.reset_launch_counts()
     preds, m = serve(trainer, cell, reqs, config)
-    launches = ops.launch_counts()
+    launches, served = ops.launch_counts(), ops.table_counts()
 
+    # per flush: ONE unique_bag launch for the tables read through a plan
+    # and ONE decompress for the tables behind the wire; embedding_bag and
+    # compress one launch per table
     n_plan = 0 if wire else \
         sum(s.batch_dedup for _, s in trainer.collection.items())
     n_flat = len(trainer.collection) - n_plan
@@ -995,12 +1257,18 @@ def serve_phase(dev, backend="dense"):
     flushes = int(m["serving/batches"])
     check(int(m["serving/requests"]) == N_REQUESTS
           and m["serving/errors"] == 0, f"service metrics {m}")
-    check(launches["unique_bag"] == n_plan * flushes
-          and launches["embedding_bag"] == n_flat * flushes
-          and all(launches[k] == n_wire * flushes for k in CODEC),
-          f"launches {launches} != one per table per flush "
-          f"({flushes} flushes, {n_plan} plan / {n_flat} flat / {n_wire} "
-          "compressed tables)")
+    want = {"unique_bag": int(n_plan > 0) * flushes,
+            "embedding_bag": n_flat * flushes,
+            "blockscale_compress": n_wire * flushes,
+            "blockscale_decompress": int(n_wire > 0) * flushes}
+    want_tables = {"unique_bag": n_plan * flushes,
+                   "blockscale_decompress": n_wire * flushes}
+    check(all(launches[k] == v for k, v in want.items())
+          and served == want_tables,
+          f"launches {launches} (tables {served}) != {want} (tables "
+          f"{want_tables}): one grouped launch per flush, one per table "
+          f"otherwise ({flushes} flushes, {n_plan} plan / {n_flat} flat / "
+          f"{n_wire} compressed tables)")
     check(preds.shape == (N_REQUESTS, KWAI.n_tasks), f"shape {preds.shape}")
     check(bool(np.all(np.isfinite(preds))) and preds.min() > 0
           and preds.max() < 1, "predictions not finite in (0, 1)")
@@ -1030,6 +1298,7 @@ def serve_phase(dev, backend="dense"):
         "p50_ms": m["serving/p50_ms"], "p99_ms": m["serving/p99_ms"],
         "qps": m["serving/qps"], "max_abs_diff_vs_plain": diff,
         "flush": breakdown,
+        "tables_per_launch": tables_per_launch(launches, served),
     }
     if wire:
         return launches, rec
@@ -1061,20 +1330,34 @@ def kwai_train_trainer(dev, mode, backend="dense", batch_dedup=None):
                          batch_dedup=batch_dedup, device=dev)
 
 
-def step_launches(trainer) -> dict:
-    """The launches one train step makes, by kernel. Per table: the get
-    (``unique_bag`` on a plan, ``embedding_bag`` at occurrence width), the
-    put (one ``fused_backward``; two behind the wire in sync mode, where
-    the sums cross the wire between their sum and their apply) and, behind
-    the wire, a compress and a decompress for the get and for the put."""
+def step_launches(trainer) -> tuple[dict, dict]:
+    """The launches one train step makes, by kernel, and the tables the
+    grouped kernels serve. The get: ONE ``unique_bag`` launch for every
+    table read through a plan, ``embedding_bag`` per occurrence-width
+    table. The put: one ``fused_backward`` per table (two behind the wire
+    in sync mode, where the sums cross the wire between their sum and their
+    apply). Behind the wire, a compress per table and ONE decompress for
+    all the tables, for the get and for the put."""
     want = dict.fromkeys(ops.launch_counts(), 0)
+    tables = dict.fromkeys(ops.table_counts(), 0)
     for b in trainer.backends.values():
         wire = isinstance(b, BK.CompressedWireBackend)
-        want["unique_bag" if b.spec.batch_dedup else "embedding_bag"] += 1
+        if b.spec.batch_dedup:
+            tables["unique_bag"] += 1
+        else:
+            want["embedding_bag"] += 1
         want["fused_backward"] += 2 if wire and b.spec.staleness == 0 else 1
-        for k in CODEC:
-            want[k] += 2 if wire else 0
-    return want
+        want["blockscale_compress"] += 2 if wire else 0
+        tables["blockscale_decompress"] += 2 if wire else 0
+    want["unique_bag"] = int(tables["unique_bag"] > 0)
+    want["blockscale_decompress"] = 2 * int(tables["blockscale_decompress"]
+                                            > 0)
+    return want, tables
+
+
+def tables_per_launch(launches, served) -> dict:
+    return {k: served[k] / launches[k] if launches[k] else 0.0
+            for k in served}
 
 
 def staged_step(trainer, state, batch, times):
@@ -1123,7 +1406,8 @@ def check_rings(trainer, state, steps, what):
 def run_steps(trainer, state, batches, what):
     """Steps with the launch counts read around them: every step must make
     the launches ``step_launches`` names. Returns the state, the losses,
-    the launch counts and the wire's bytes summed over the steps."""
+    the launch counts, the wire's bytes summed over the steps and the
+    tables the grouped kernels served."""
     ops.reset_launch_counts()
     losses, wire = [], {"bytes_raw": 0.0, "bytes_wire": 0.0}
     for b in batches:
@@ -1134,12 +1418,16 @@ def run_steps(trainer, state, batches, what):
                 wire["bytes_raw" if k.endswith("_raw") else
                      "bytes_wire"] += float(v)
     torch.cuda.synchronize()
-    launches = ops.launch_counts()
-    want = {k: v * len(batches) for k, v in step_launches(trainer).items()}
-    check(launches == want, f"{what}: launches {launches}, want {want}")
+    launches, served = ops.launch_counts(), ops.table_counts()
+    per_step, tables = step_launches(trainer)
+    want = {k: v * len(batches) for k, v in per_step.items()}
+    want_tables = {k: v * len(batches) for k, v in tables.items()}
+    check(launches == want and served == want_tables,
+          f"{what}: launches {launches} (tables {served}), want {want} "
+          f"(tables {want_tables})")
     losses = [float(x) for x in losses]
     check(all(np.isfinite(losses)), f"{what}: losses {losses}")
-    return state, losses, launches, wire
+    return state, losses, launches, wire, served
 
 
 def dense_agreement(start, a, b, steps) -> dict:
@@ -1271,7 +1559,7 @@ def train_phase(dev, backend="dense", timed=TIMED_STEPS,
 
     # the main path: timed steps, counts set to 0 just before
     t0 = time.perf_counter()
-    state, losses, launches, wire = run_steps(
+    state, losses, launches, wire, served = run_steps(
         trainer, state, batches[WARMUP_STEPS:WARMUP_STEPS + timed],
         f"{backend} hybrid")
     wall = time.perf_counter() - t0
@@ -1310,7 +1598,8 @@ def train_phase(dev, backend="dense", timed=TIMED_STEPS,
         it = ds.sampler(TRAIN_B, seed=SEED + 5)
         bs = [next(it) for _ in range(mode_steps)]
         st = tr.init(seed=SEED, batch_example=bs[0])
-        st, ls, mlaunch, _ = run_steps(tr, st, bs, f"{backend} {mode.name}")
+        st, ls, mlaunch, _, _ = run_steps(tr, st, bs,
+                                          f"{backend} {mode.name}")
         check_rings(tr, st, mode_steps, mode.name)
         modes[mode.name] = {"steps": mode_steps, "losses": ls,
                             "launches": mlaunch}
@@ -1324,6 +1613,7 @@ def train_phase(dev, backend="dense", timed=TIMED_STEPS,
         "step_ms": step_ms, "steps_per_s": timed / wall,
         "samples_per_s": timed * TRAIN_B / wall,
         "launches_per_step": {k: v / timed for k, v in launches.items()},
+        "tables_per_launch": tables_per_launch(launches, served),
         "breakdown_ms": {k: float(np.median(v)) for k, v in times.items()},
         "device_ms_per_step": device_ms,
         "device_busy_share": device_ms / step_ms,
@@ -1348,8 +1638,8 @@ def flat_train_phase(dev, steps=4):
     batches = [next(it) for _ in range(steps)]
     state = trainer.init(seed=SEED, batch_example=batches[0])
     t0 = time.perf_counter()
-    state, losses, launches, _ = run_steps(trainer, state, batches,
-                                           "flat hybrid")
+    state, losses, launches, _, _ = run_steps(trainer, state, batches,
+                                              "flat hybrid")
     wall = time.perf_counter() - t0
     check_rings(trainer, state, steps, "flat hybrid")
     width = int(state.emb_queue["field_00"]["ids"].shape[1])
@@ -1504,25 +1794,40 @@ def lm_card_vs_cpu(dev):
     """The full-width granite model cut to 2 layers, from one starting
     state (drawn on the CPU, copied to the card) on the card and on the
     CPU: prefill and decode logits within rtol 1e-4 / atol 1e-5 and equal
-    greedy tokens."""
+    greedy tokens. Before the check, the card's error is split: the same
+    run on the card with the plain attention in the kernel's place gives
+    what the fp32 GEMMs alone leave (card, plain attention, against the
+    CPU), and how far the kernel moves the logits from the plain attention
+    on the card is what the attention adds."""
     cfg = get_config(LM_ARCH).replace(pattern_repeats=LM_CPU["layers"])
     bk, emb, dense = lm_state(cfg, torch.device("cpu"), SEED + 1)
     prompts = torch.as_tensor(lm_serve.make_prompts(
         cfg, LM_CPU["batch"], LM_CPU["prompt"], SEED + 1))
-    out = []
-    for d in (dev, torch.device("cpu")):
+
+    def run(d):
         e = {k: t.to(d) for k, t in emb.items()}
         p = tree_map(lambda t: t.to(d), dense)
         first, steps, toks = lm_generate(cfg, bk, e, p, prompts.to(d),
                                          LM_CPU["gen"])
-        out.append(([first.cpu()] + [x.cpu() for x in steps], toks.cpu()))
-    (lg, tg), (lc, tc) = out
+        return [first.cpu()] + [x.cpu() for x in steps], toks.cpu()
+
+    (lg, tg), (lc, tc) = run(dev), run(torch.device("cpu"))
+    with mock.patch.object(lm_flash, "flash_attention", plain_attention):
+        lp, _ = run(dev)
     errs = [float((a - b).abs().max()) for a, b in zip(lg, lc)]
+    split = {"phase": "lm_card_vs_cpu_split",
+             "gemms_alone_max_abs": max(float((a - b).abs().max())
+                                        for a, b in zip(lp, lc)),
+             "kernel_vs_plain_attention_max_abs": max(
+                 float((a - b).abs().max()) for a, b in zip(lg, lp)),
+             "card_vs_cpu_max_abs": max(errs)}
+    emit(split)
     ok = all(torch.allclose(a, b, rtol=1e-4, atol=1e-5)
              for a, b in zip(lg, lc))
     rec = {"phase": "lm_card_vs_cpu", **LM_CPU, "d_model": cfg.d_model,
            "vocab": cfg.vocab_size, "logit_max_abs_by_step": errs,
-           "tokens_card": tg.tolist(), "tokens_cpu": tc.tolist()}
+           "tokens_card": tg.tolist(), "tokens_cpu": tc.tolist(),
+           "error_split": split}
     emit(rec)
     check(ok, f"lm card against CPU: logits differ by {max(errs)}")
     check(torch.equal(tg, tc), "lm card against CPU: greedy tokens differ")
@@ -1555,7 +1860,7 @@ def main() -> int:
 
     ds = CTR_BENCHMARKS["kwai_video"]
     rng = np.random.default_rng(SEED)
-    timing = kernel_phase(dev, rng)
+    timing = kernel_phase(dev, rng, ds)
     timing["fused_backward"] = fused_backward_phase(dev, ds)
     timing.update(blockscale_phase(dev, ds))
     timing["embedding_sgd"] = sgd_phase(dev, ds)
@@ -1598,7 +1903,9 @@ def main() -> int:
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]})
+            "library_ms": t["library_ms"],
+            # the grouped kernels: one launch for a stage's 32 tables
+            **{k: t[k] for k in STAGE_KEYS if k in t}})
         check(kernels[-1]["launches"] > 0, f"{name} was never launched")
     record = {"card": card, "build_s": build_s, "ptxas": ptxas,
               "kernel_timing": timing, **recs, "kernels": kernels}

@@ -3,9 +3,10 @@ protocol base, the device-resident ``DenseBackend`` and the §4.2.3
 compressed wire (``CompressedWireBackend``), with the factory that builds
 them from ``EmbeddingSpec.backend``.
 
-The serving path reads each table through :meth:`EmbeddingBackend.
-read_pooled`, which returns the table's sum-pooled bags straight from the
-CUDA kernels: with ``spec.batch_dedup`` (the default) the host builds a
+The serving path reads every table through :func:`read_pooled_all` (the
+per-table :meth:`EmbeddingBackend.read_pooled`, grouped), which returns
+the sum-pooled bags straight from the CUDA kernels: with
+``spec.batch_dedup`` (the default) the host builds a
 :class:`~repro_torch.core.dedup.DedupPlan` and ``unique_bag`` gathers,
 scatters and pools at unique width; without it ``embedding_bag`` pools at
 occurrence width. That is the trainer's own choice between plan and flat
@@ -13,20 +14,22 @@ ids in the JAX package (``prepare_all``), applied to the read.
 
 The training path: ``prepare_all`` builds every table's plan on the host
 and uploads all of the plans' index arrays in one copy; ``lookup_all``
-reads the pooled bags through ``unique_bag`` (``embedding_bag`` for the
-occurrence-width ids of ``batch_dedup=False`` tables); ``put_all`` runs
-each table's put through the ``fused_backward`` kernel, which segment-sums
-the occurrence gradients, applies the row-wise optimizer to the put that
-pops out of the staleness queue (or to its own sums in sync mode) and
-returns the payload pushed into the queue. A put of occurrence-width ids
-is grouped on the device first (``compression.dedup_plan``) and summed by
-the same kernel. The puts update the tables, their accumulators and the
-queues in place (the JAX trainer donates them).
+reads the pooled bags of every table read through a plan in ONE
+``unique_bag`` launch (``embedding_bag`` for the occurrence-width ids of
+``batch_dedup=False`` tables); ``put_all`` runs each table's put through
+the ``fused_backward`` kernel, which segment-sums the occurrence
+gradients, applies the row-wise optimizer to the put that pops out of the
+staleness queue (or to its own sums in sync mode) and returns the payload
+pushed into the queue. A put of occurrence-width ids is grouped on the
+device first (``compression.dedup_plan``) and summed by the same kernel.
+The puts update the tables, their accumulators and the queues in place
+(the JAX trainer donates them).
 
 ``CompressedWireBackend`` wraps the dense backend: its gets and puts cross
 the wire as blockscale fp16 (the ``blockscale_compress`` /
 ``blockscale_decompress`` CUDA kernels) and its puts are deduplicated to
-one row per unique id. The host-cached and sharded backends come with
+one row per unique id. Each table compresses on its own; the stage's
+tables decompress together, in ONE launch per get, put or serve read. The host-cached and sharded backends come with
 later slices; the factory refuses them.
 """
 from __future__ import annotations
@@ -255,26 +258,32 @@ class DenseBackend(EmbeddingBackend):
         return K.embedding_bag(
             table, self._logical_to_pos(dev_ids).to(table.device)), {}
 
-    def read_pooled(self, state, ids):
+    def _read_host(self, ids):
+        """The host side of a pooled serve read: LOGICAL (B, L) ids ->
+        (the int32 index arrays to upload, distinct ids read). With
+        ``spec.batch_dedup`` the plan's inverse and physical rows (for
+        ``unique_bag``), else the occurrence rows (for ``embedding_bag``);
+        the translation to physical rows runs on the host, beside the
+        plan."""
         arr = _host_ids(ids)
         if arr.ndim != 2:
             raise ValueError(f"read_pooled takes (B, L) bags, got shape "
                              f"{arr.shape}")
-        spec, table = self.spec, state["table"]
-        # the translation to physical rows runs on the host, beside the
-        # plan; the device gets one index copy per array
+        spec = self.spec
         if spec.batch_dedup:
             cap = D.dedup_cap(max(arr.size, 1), self.dedup_rows())
             u_pad, inv, _, info = D.make_plan(arr, spec.rows, cap)
-            rows = self._logical_to_pos(torch.from_numpy(u_pad))
-            plan = D.DedupPlan(dev=torch.from_numpy(u_pad.astype(np.int32)),
-                               inv=torch.from_numpy(inv).to(table.device),
-                               rows=rows.to(table.device))
-            pooled, _ = self.lookup_pooled(state, plan)
-            n = info["n_unique"]
-        else:
-            pooled, _ = self.lookup_pooled(state, torch.from_numpy(arr))
-            n = _n_distinct(arr.reshape(-1), spec.rows)
+            rows = self._logical_to_pos(torch.from_numpy(u_pad)).numpy()
+            return [inv, rows], info["n_unique"]
+        rows = self._logical_to_pos(torch.from_numpy(arr)).numpy()
+        return [rows], _n_distinct(arr.reshape(-1), spec.rows)
+
+    def read_pooled(self, state, ids):
+        arrs, n = self._read_host(ids)
+        table = state["table"]
+        idx = upload_int32(arrs, table.device)
+        pooled = K.unique_bag(table, idx[1], idx[0]) if len(idx) == 2 \
+            else K.embedding_bag(table, idx[0])
         return pooled, {"reads": n, "hits": n, "misses": 0}
 
     def _put_unique(self, state, dev_u, g_u):
@@ -285,46 +294,59 @@ class DenseBackend(EmbeddingBackend):
         return PS.apply_put(state, self.spec, dev_ids.reshape(-1),
                             grads.reshape(-1, self.spec.dim)), {}
 
-    # ``codec`` (the compressed wire's roundtrip) transforms the unique-width
-    # sums before they are applied or queued: the put's payload crosses the
-    # wire between its segment sum and the PS
+    def _put_plan(self, state, plan, grads):
+        new, _ = _fused_backward(self.spec, state, plan, grads,
+                                 self._plan_rows(plan), None,
+                                 apply_self=True)
+        return new, {}
 
-    def _put_plan(self, state, plan, grads, codec=None):
-        if codec is None:
-            new, _ = _fused_backward(self.spec, state, plan, grads,
-                                     self._plan_rows(plan), None,
-                                     apply_self=True)
-            return new, {}
-        # the sums cross the wire before they are applied: a sum-only
-        # launch, the codec, then an apply-only launch
-        g_u = D.csr_segment_sum(*_plan_csr(plan), grads,
-                                int(plan.dev.shape[0]))
-        return self._put_unique(state, plan.dev, codec(g_u))
-
-    def _hybrid_plan(self, state, queue, plan, grads, codec=None):
-        spec = self.spec
-        if spec.staleness <= 0 or queue is None:
-            st, m = self._put_plan(state, plan, grads, codec)
+    def _hybrid_plan(self, state, queue, plan, grads):
+        if self.spec.staleness <= 0 or queue is None:
+            st, m = self._put_plan(state, plan, grads)
             return st, queue, m
-        # pop the tau-stale put first (the kernel reads the slot before it
-        # is overwritten), fuse its apply with this step's segment-sum, then
-        # push the fresh payload into the popped slot — queue_push_pop's
-        # order. The popped put crossed the codec when it was pushed.
+        _, finish = self._hybrid_begin(state, queue, plan, grads)
+        return finish()
+
+    def _hybrid_begin(self, state, queue, plan, grads):
+        """A hybrid put up to its push: pop the tau-stale put first (the
+        kernel reads the slot before it is overwritten) and fuse its apply
+        with this step's segment sums -> ``(payload, finish)``. ``payload``
+        is the (U, dim) fresh sums, a view of the queue-ready (cap, dim)
+        payload; ``finish()`` pushes the payload into the popped slot
+        (queue_push_pop's order) -> (state, queue, metrics). The popped put
+        crossed the wire, if any, when it was pushed."""
         ids_q, g_q = queue["ids"], queue["grads"]
         tau, cap = int(ids_q.shape[0]), int(ids_q.shape[1])
         ptr, U = int(queue["ptr"]), int(plan.dev.shape[0])
         if U > cap:
             raise ValueError(f"plan width {U} exceeds the queue width {cap}")
-        new, g_push = _fused_backward(spec, state, plan, grads,
+        new, g_push = _fused_backward(self.spec, state, plan, grads,
                                       self._logical_to_pos(ids_q[ptr]),
                                       g_q[ptr])
-        if codec is not None:
-            g_push[:U] = codec(g_push[:U])
-        ids_q[ptr, :U] = plan.dev
-        ids_q[ptr, U:] = -1
-        g_q[ptr] = g_push
-        return new, dict(queue, ptr=(ptr + 1) % tau,
-                         filled=min(int(queue["filled"]) + 1, tau)), {}
+
+        def finish():
+            ids_q[ptr, :U] = plan.dev
+            ids_q[ptr, U:] = -1
+            g_q[ptr] = g_push
+            return new, dict(queue, ptr=(ptr + 1) % tau,
+                             filled=min(int(queue["filled"]) + 1, tau)), {}
+        return g_push[:U], finish
+
+    def _wire_begin(self, state, queue, plan, grads):
+        """A put whose unique-width sums cross the wire between their sum
+        and the PS, up to the wire: ``(payload, finish)`` as
+        :meth:`_hybrid_begin`; the caller roundtrips ``payload`` IN PLACE
+        before it calls ``finish()``. In sync mode the sums are a sum-only
+        launch here and their apply an apply-only launch in ``finish``."""
+        if self.spec.staleness > 0 and queue is not None:
+            return self._hybrid_begin(state, queue, plan, grads)
+        g_u = D.csr_segment_sum(*_plan_csr(plan), grads,
+                                int(plan.dev.shape[0]))
+
+        def finish():
+            st, m = self._put_unique(state, plan.dev, g_u)
+            return st, queue, m
+        return g_u, finish
 
     def _hybrid_flat(self, state, queue, dev_ids, grads):
         spec = self.spec
@@ -445,19 +467,28 @@ class CompressedWireBackend(EmbeddingBackend):
 
     # -- device-side ---------------------------------------------------------
 
-    def _get(self, state, dev_ids):
-        """The rows that cross the wire, roundtripped, with the get's byte
-        metrics: one row per unique id for a plan (the inverse scatter to
-        occurrence width happens after the wire, so the bytes shrink by the
-        batch's dup factor), else one per occurrence."""
+    def _get_compressed(self, state, dev_ids):
+        """The get up to the wire: the rows that cross it, compressed, with
+        the get's byte metrics -> ``((comp, scales, rows' shape),
+        metrics)``. One row per unique id for a plan (the inverse scatter
+        to occurrence width happens after the wire, so the bytes shrink by
+        the batch's dup factor), else one per occurrence."""
         if D.is_plan(dev_ids):
             rows, m = self.inner._lookup_unique(state, dev_ids.dev)
             n_raw = dev_ids.inv.numel() * self.spec.dim
         else:
             rows, m = self.inner.lookup(state, dev_ids)
             n_raw = rows.numel()
-        return self._roundtrip(rows), {
+        comp, scales = K.blockscale_compress(rows.contiguous(),
+                                             block=self._block)
+        return (comp, scales, rows.shape), {
             **m, **self._get_metrics(n_raw, rows.numel())}
+
+    def _get(self, state, dev_ids):
+        """The rows that cross the wire, roundtripped, with the get's byte
+        metrics."""
+        (comp, scales, shape), m = self._get_compressed(state, dev_ids)
+        return K.blockscale_decompress(comp, scales, shape), m
 
     def lookup(self, state, dev_ids):
         rows, m = self._get(state, dev_ids)
@@ -499,16 +530,33 @@ class CompressedWireBackend(EmbeddingBackend):
         }
 
     def apply_put(self, state, dev_ids, grads):
-        plan, m = self._compress_put(dev_ids)
-        st, m2 = self.inner._put_plan(state, plan, grads,
-                                      codec=self._roundtrip)
-        return st, {**m, **m2}
+        st, _, m = _wire_puts([(self, state, None, dev_ids, grads)])[0]
+        return st, m
 
     def hybrid_update(self, state, queue, dev_ids, grads):
-        plan, m = self._compress_put(dev_ids)
-        st, q, m2 = self.inner._hybrid_plan(state, queue, plan, grads,
-                                            codec=self._roundtrip)
-        return st, q, {**m, **m2}
+        return _wire_puts([(self, state, queue, dev_ids, grads)])[0]
+
+
+def _wire_puts(items) -> list:
+    """The puts of tables behind the wire, ``items`` of (backend, state,
+    queue, dev_ids, grads), run in phases so that the decompress is one
+    launch for all of them: (1) every table's segment sums (fused with the
+    popped put's apply in hybrid mode, a sum-only launch in sync mode);
+    (2) every table's compress; (3) ONE decompress of all the payloads,
+    written back into them in place; (4) every table's queue write (sync:
+    its apply-only launch). Returns [(state, queue, metrics)]."""
+    begun = []
+    for b, state, queue, dev_ids, grads in items:
+        plan, m = b._compress_put(dev_ids)
+        payload, finish = b.inner._wire_begin(state, queue, plan, grads)
+        begun.append((payload, finish, m, b._block))
+    _decompress_all({k: (*K.blockscale_compress(p, block), p)
+                     for k, (p, _, _, block) in enumerate(begun)})
+    out = []
+    for _, finish, m, _ in begun:
+        st, q, m2 = finish()
+        out.append((st, q, {**m, **m2}))
+    return out
 
 
 def _pool_rows(rows: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -651,25 +699,118 @@ def _tag(metrics, name, table_metrics):
 
 
 def lookup_all(backends, states, dev_ids):
-    """Per-table pooled lookups -> ({table: (B, dim) pooled}, metrics)."""
+    """Pooled lookups of every table -> ({table: (B, dim) pooled},
+    metrics), one launch per kernel for the stage where the kernel takes a
+    group: the tables read through a plan share ONE ``unique_bag`` launch
+    (a dense table's physical rows, or a wire table's roundtripped unique
+    rows with the identity for dev); the tables behind the wire gather and
+    compress each, then decompress in ONE launch. Occurrence-width tables
+    pool through ``embedding_bag``, one launch each."""
     pooled, metrics = {}, {}
-    for n in dev_ids:
+    bags = {}                  # name -> (table, dev or None, inv)
+    wire = {}                  # name -> (comp, scales, rows' shape)
+    for n, ids in dev_ids.items():
         if n not in backends:
             raise KeyError(f"ids for unknown table {n!r}; collection has "
                            f"{sorted(backends)}")
-        pooled[n], m = backends[n].lookup_pooled(states[n], dev_ids[n])
+        b, m = backends[n], {}
+        if isinstance(b, CompressedWireBackend):
+            wire[n], m = b._get_compressed(states[n], ids)
+        elif D.is_plan(ids):
+            bags[n] = (states[n]["table"], b._plan_rows(ids), ids.inv)
+        else:
+            pooled[n], m = b.lookup_pooled(states[n], ids)
         _tag(metrics, n, m)
-    return pooled, metrics
+    for n, rows in _decompress_all(wire).items():
+        ids = dev_ids[n]
+        if D.is_plan(ids):
+            bags[n] = (rows, None, ids.inv)
+        else:
+            pooled[n] = _pool_rows(rows, ids)
+    pooled.update(_bag_all(bags))
+    return {n: pooled[n] for n in dev_ids}, metrics
+
+
+def _columns(items: dict, width: int) -> list[list]:
+    return [[a[k] for a in items.values()] for k in range(width)]
+
+
+def _bag_all(bags: dict) -> dict:
+    """{table: (table, dev or None, inv)} -> {table: (B, dim) pooled}, in
+    one ``unique_bag`` launch."""
+    return dict(zip(bags, K.unique_bag_grouped(*_columns(bags, 3))))
+
+
+def _decompress_all(items: dict) -> dict:
+    """{table: (comp, scales, out or shape)} -> {table: decompressed}, in
+    one ``blockscale_decompress`` launch."""
+    return dict(zip(items,
+                    K.blockscale_decompress_grouped(*_columns(items, 3))))
 
 
 def put_all(backends, states, queues, dev_ids, grads):
-    """Per-table hybrid updates (push this step's put, apply the tau-stale
-    one) -> (states, queues, metrics)."""
+    """Hybrid updates of every table (push this step's put, apply the
+    tau-stale one) -> (states, queues, metrics). Dense tables put through
+    one ``fused_backward`` launch each; the tables behind the wire run
+    their puts in phases that share ONE decompress (:func:`_wire_puts`)."""
     queues = queues or {}
     new_states, new_queues, metrics = dict(states), dict(queues), {}
+    wire = [n for n in dev_ids if isinstance(backends[n],
+                                             CompressedWireBackend)]
+    done = {n: backends[n].hybrid_update(states[n], queues.get(n),
+                                         dev_ids[n], grads[n])
+            for n in dev_ids if n not in wire}
+    done.update(zip(wire, _wire_puts(
+        [(backends[n], states[n], queues.get(n), dev_ids[n], grads[n])
+         for n in wire])))
     for n in dev_ids:
-        st, q, m = backends[n].hybrid_update(
-            states[n], queues.get(n), dev_ids[n], grads[n])
-        new_states[n], new_queues[n] = st, q
+        new_states[n], new_queues[n], m = done[n]
         _tag(metrics, n, m)
     return new_states, new_queues, metrics
+
+
+_INT32_MAX = int(np.iinfo(np.int32).max)
+
+
+def read_pooled_all(backends, states, ids, device):
+    """Serve-path pooled reads of every table (the per-table
+    :meth:`EmbeddingBackend.read_pooled`, grouped): LOGICAL (B, L) ids per
+    table -> ({table: (B, dim) fp32 pooled}, {table: read gauges}). Every
+    dense table's index arrays (its plan's, or its occurrence rows) are
+    built on the host and uploaded with the wire tables' ids in ONE copy;
+    the tables read through a plan share ONE ``unique_bag`` launch, the
+    others pool through ``embedding_bag``; the tables behind the wire
+    gather and compress each, decompress in ONE launch and pool through
+    ``embedding_bag``. Read-only."""
+    host, info = {}, {}
+    for n, x in ids.items():
+        b = backends[n]
+        if isinstance(b, CompressedWireBackend):
+            arr = _host_ids(x)
+            if arr.ndim != 2:
+                raise ValueError(f"read_pooled takes (B, L) bags, got "
+                                 f"shape {arr.shape}")
+            # negatives stay padding and ids past int32 stay out of range
+            host[n] = [np.clip(arr, -1, _INT32_MAX)]
+            c = _n_distinct(arr.reshape(-1), b.spec.rows)
+        else:
+            host[n], c = b._read_host(x)
+        info[n] = {"reads": c, "hits": c, "misses": 0}
+    flat = iter(upload_int32([a for arrs in host.values() for a in arrs],
+                             device))
+    idx = {n: [next(flat) for _ in arrs] for n, arrs in host.items()}
+    pooled, bags, wire = {}, {}, {}
+    for n, got in idx.items():
+        b, table = backends[n], states[n]["table"]
+        if isinstance(b, CompressedWireBackend):
+            rows, _ = b.inner._lookup_flat(states[n], got[0])
+            wire[n] = (*K.blockscale_compress(rows.float().contiguous(),
+                                              b._block), rows.shape)
+        elif len(got) == 2:
+            bags[n] = (table, got[1], got[0])
+        else:
+            pooled[n] = K.embedding_bag(table, got[0])
+    for n, rows in _decompress_all(wire).items():
+        pooled[n] = _pool_rows(rows, idx[n][0])
+    pooled.update(_bag_all(bags))
+    return {n: pooled[n] for n in ids}, info

@@ -4,9 +4,9 @@ paper Alg. 1 + Alg. 2).
 One train step =
   (1) prepare (host): each table's ids become a dedup plan (unique ids,
       inverse, physical rows, occurrence CSR), uploaded in one copy;
-  (2) lookup: each table's pooled bags through the ``unique_bag`` kernel
-      (``embedding_bag`` for occurrence-width tables), from the (possibly
-      tau-stale) tables                                     [Alg.1 forward]
+  (2) lookup: every table's pooled bags through ONE launch of the
+      ``unique_bag`` kernel (``embedding_bag`` for occurrence-width
+      tables), from the (possibly tau-stale) tables         [Alg.1 forward]
   (3) dense forward/backward: the pooled (B, D) bags are autograd leaves,
       so one ``torch.autograd.grad`` gives the dense gradients and each
       table's pooled gradient; the occurrence gradient is the pooled one
@@ -396,15 +396,13 @@ class PersiaTrainer:
 
     @torch.no_grad()
     def serve_lookup(self, state: TrainState, batch):
-        """Read-path lookup (``EmbeddingBackend.read_pooled``): logical ids
-        -> per-table pooled (B, D) fp32 bags, read by the bag kernels,
-        without touching any backend state. Returns ``(pooled, info)``
-        with per-table ``{reads, hits, misses}`` read gauges."""
-        pooled, info = {}, {}
-        for n, ids in self.adapter.emb_ids(batch).items():
-            pooled[n], info[n] = self.backends[n].read_pooled(state.emb[n],
-                                                              ids)
-        return pooled, info
+        """Read-path lookup (``backend.read_pooled_all``): logical ids ->
+        per-table pooled (B, D) fp32 bags, read by the bag kernels (one
+        ``unique_bag`` launch for every table read through a plan), without
+        touching any backend state. Returns ``(pooled, info)`` with
+        per-table ``{reads, hits, misses}`` read gauges."""
+        return BK.read_pooled_all(self.backends, state.emb,
+                                  self.adapter.emb_ids(batch), self.device)
 
     @torch.no_grad()
     def lookup(self, state: TrainState, batch) -> dict:

@@ -1,39 +1,69 @@
 // Sum-pooled embedding bags for Hopper (sm_90a), fp32.
 //
-//   persia_embedding_bag_f32: out[b] = sum_l table[ids[b, l]]
-//   persia_unique_bag_f32:    out[b] = sum_l table[dev[inv[b, l]]]
+//   persia_embedding_bag_f32:      out[b] = sum_l table[ids[b, l]]
+//   persia_unique_bag_grouped_f32: for every table t of a group, in one
+//                                  launch: out_t[b] = sum_l
+//                                  table_t[dev_t[inv_t[b, l]]]
+//   persia_unique_bag_f32:         the grouped kernel's one-table case
 //
 // They replace the Pallas TPU kernels
 //   src/repro/kernels/embedding_bag.py  embedding_bag (_bag_kernel)
 //   src/repro/kernels/unique_bag.py     unique_bag (_unique_bag_kernel)
 // and agree bit for bit with their plain torch versions in ../ref.py.
 //
-// Design. The TPU kernels walk the B*L occurrences as a sequential grid, one
-// row DMA per step, revisiting the bag's output row in VMEM. Here the bags
-// run in parallel: a row of threads owns one bag (blockDim.y bags per
-// block), strides over D with float4 loads when D % 4 == 0 and the table
-// and output are 16-byte aligned (a scalar path otherwise), loads its own
-// indices, and adds the L rows in registers in l order. Padding (an index
-// < 0) skips the row: a select, not a multiply by zero, so a padded slot
-// never turns a non-finite row into NaN. An index past the end of the array
-// it indexes reads the array's last entry, as the JAX package's gathers
-// clamp. Each bag's output row is stored once. Row offsets are int64, since
-// V * D can pass 2^31.
+// Common to both. The TPU kernels walk the B*L occurrences as a sequential
+// grid, one row DMA per step, revisiting the bag's output row in VMEM. Here
+// the bags run in parallel and each adds its L rows in registers in l
+// order, from zero, with __fadd_rn: the fixed sum order is what keeps the
+// result bit-exact. Padding (an index < 0) skips the row: a select, not a
+// multiply by zero, so a padded slot never turns a non-finite row into NaN.
+// An index past the end of the array it indexes reads the array's last
+// entry, as the JAX package's gathers clamp. float4 loads when D % 4 == 0
+// and the table and output are 16-byte aligned, a scalar path otherwise.
+// Row offsets are int64, since V * D can pass 2^31.
+//
+// embedding_bag: a row of threads owns one bag (blockDim.y bags per block),
+// strides over D and loads its own indices; one launch per table.
+//
+// unique_bag, grouped. At the main path's shapes a table's call moves well
+// under 1 MB, so its time is the launch plus the chain of dependent loads
+// inv -> dev -> row, not the bytes; one launch per table made a 32-table
+// stage 32 launches in a row. So one launch serves every table of a stage:
+// * Each table has a descriptor {table, dev, inv, out, V, U, B, L, D, vec},
+//   passed by value in a __grid_constant__ kernel parameter (no pointer
+//   table to copy to the device, no synchronisation), with the first CTA
+//   of each table beside them. The parameter stays under the 4 KB classic
+//   limit, so a launch takes up to kMaxTables tables and the host launches
+//   once per chunk of that many.
+// * One flat grid covers every table's bags, kBagWarps bags per CTA; a CTA
+//   finds its table by a binary search of the first-CTA prefix, a read that
+//   is uniform across the CTA (a broadcast from parameter space).
+// * One warp per bag: lanes < L load the bag's inv entries together, then
+//   their dev entries, and __shfl_sync spreads the rows across the warp,
+//   so the chain is three round trips per bag, not per occurrence. The L
+//   row loads are issued eight at a time, unrolled, all in flight before
+//   the adds, which then run in l order. At D = 128 the 32 lanes' float4
+//   loads cover a 512-byte row in one coalesced access.
+// * A null dev is the identity (dev = arange(V)): the table IS the unique
+//   rows, as behind the compressed wire.
 //
 // Bound: memory. The least traffic is each distinct row read once, each
 // output row written once and each index read once:
 //   (distinct_rows * D * 4 + B * D * 4 + index_bytes) / 3.35 TB/s.
-// At the serving shape (B=64, L=8, D=128) that is well under a microsecond,
-// so the fixed cost of a launch dominates. The kernel is written to be
-// right first; it is not tuned.
+// At the serving shape (B=64, L=8, D=128) that is 0.05 us a table, so even
+// a 32-table launch (512 CTAs, one wave on 132 SMs) is dominated by the
+// launch and the dependent-load chain.
 //
 // C interface (bound with ctypes): every function launches on `stream`,
 // does not synchronise, allocates nothing, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ void vzero(float& a) { a = 0.0f; }
 __device__ __forceinline__ void vzero(float4& a) {
@@ -53,39 +83,26 @@ __device__ __forceinline__ long long clamp_index(long long i, long long n) {
   return (i < 0 || n <= 0) ? -1LL : (i < n ? i : n - 1);
 }
 
-// Table row of occurrence (b, l), or -1 for padding.
-struct BagRows {
-  const int* ids;
-  long long V;
-  int L;
-  __device__ __forceinline__ long long operator()(int b, int l) const {
-    return clamp_index(__ldg(ids + (long long)b * L + l), V);
-  }
-};
+bool aligned(const void* p, uintptr_t to) {
+  return reinterpret_cast<uintptr_t>(p) % to == 0;
+}
 
-struct UniqueRows {
-  const int* dev;
-  const int* inv;
-  long long V;
-  int U;
-  int L;
-  __device__ __forceinline__ long long operator()(int b, int l) const {
-    const long long u = clamp_index(__ldg(inv + (long long)b * L + l), U);
-    return u < 0 ? -1LL : clamp_index(__ldg(dev + u), V);
-  }
-};
+// ---------------------------------------------------------------------------
+// embedding_bag: one launch per table
+// ---------------------------------------------------------------------------
 
 // T is float or float4; n_vec = D / (sizeof(T) / 4) elements of T per row.
-template <typename T, typename Rows>
+template <typename T>
 __global__ void bag_kernel(const T* __restrict__ table, T* __restrict__ out,
-                           Rows rows, int B, int L, int n_vec) {
+                           const int* __restrict__ ids, long long V, int B,
+                           int L, int n_vec) {
   const int b = blockIdx.x * blockDim.y + threadIdx.y;
   if (b >= B) return;
   for (int c = threadIdx.x; c < n_vec; c += blockDim.x) {
     T acc;
     vzero(acc);
     for (int l = 0; l < L; ++l) {
-      const long long r = rows(b, l);
+      const long long r = clamp_index(__ldg(ids + (long long)b * L + l), V);
       if (r >= 0) vadd(acc, __ldg(table + r * n_vec + c));
     }
     out[(long long)b * n_vec + c] = acc;
@@ -94,30 +111,161 @@ __global__ void bag_kernel(const T* __restrict__ table, T* __restrict__ out,
 
 constexpr int kThreads = 128;
 
-template <typename Rows>
-int launch(const float* table, float* out, Rows rows, int B, int L, int D,
-           cudaStream_t stream) {
-  if (B <= 0 || L < 0 || D <= 0) {
+// ---------------------------------------------------------------------------
+// unique_bag: one launch per chunk of tables
+// ---------------------------------------------------------------------------
+
+constexpr int kBagWarps = 4;       // bags (warps) per CTA
+constexpr int kRowsInFlight = 8;   // row loads issued before their adds
+constexpr int kMaxTables = 56;     // tables per launch (parameter < 4 KB)
+
+struct UniqueBagTable {
+  const float* table;   // (V, D)
+  const int* dev;       // (U,), or null for the identity
+  const int* inv;       // (B, L)
+  float* out;           // (B, D)
+  long long V;
+  int U, B, L, D;
+  int vec;              // float4 path
+};
+
+struct UniqueBagGroup {
+  int n;                          // tables in this launch, each B, D > 0
+  int first[kMaxTables + 1];      // first CTA of each table; first[n] = grid
+  UniqueBagTable t[kMaxTables];
+};
+static_assert(sizeof(UniqueBagGroup) <= 4000,
+              "the grouped unique_bag parameter must stay under 4 KB");
+
+// The index of the table whose CTAs hold `cta`: the last t with
+// first[t] <= cta (every table has at least one CTA).
+__device__ __forceinline__ int table_of(const int* first, int n, int cta) {
+  int lo = 0, hi = n - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (first[mid] <= cta) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  return lo;
+}
+
+// Bag b of table t, one warp; T is float4 (vec) or float.
+template <typename T>
+__device__ __forceinline__ void unique_bag_warp(const UniqueBagTable& t,
+                                                int b, int lane) {
+  const T* __restrict__ table = reinterpret_cast<const T*>(t.table);
+  T* __restrict__ out = reinterpret_cast<T*>(t.out);
+  const int n_vec = t.D / static_cast<int>(sizeof(T) / 4);
+  const int* __restrict__ inv = t.inv + static_cast<long long>(b) * t.L;
+  for (int c0 = 0; c0 < n_vec; c0 += 32) {
+    const int c = c0 + lane;
+    const bool live = c < n_vec;
+    T acc;
+    vzero(acc);
+    for (int l0 = 0; l0 < t.L; l0 += 32) {
+      // lanes < m fetch the chain of occurrences l0 .. l0 + m: inv, dev
+      const int m = min(32, t.L - l0);
+      long long r = -1;
+      if (lane < m) {
+        const long long u = clamp_index(__ldg(inv + l0 + lane), t.U);
+        if (u >= 0) {
+          r = clamp_index(t.dev != nullptr ? __ldg(t.dev + u) : u, t.V);
+        }
+      }
+      for (int j0 = 0; j0 < m; j0 += kRowsInFlight) {
+        T v[kRowsInFlight];
+        long long rj[kRowsInFlight];
+#pragma unroll
+        for (int j = 0; j < kRowsInFlight; ++j) {
+          rj[j] = __shfl_sync(kFull, r, (j0 + j) & 31);
+          if (j0 + j >= m) rj[j] = -1;
+          if (live && rj[j] >= 0) v[j] = __ldg(table + rj[j] * n_vec + c);
+        }
+#pragma unroll
+        for (int j = 0; j < kRowsInFlight; ++j) {
+          if (live && rj[j] >= 0) vadd(acc, v[j]);
+        }
+      }
+    }
+    if (live) out[static_cast<long long>(b) * n_vec + c] = acc;
+  }
+}
+
+__global__ void __launch_bounds__(kBagWarps * 32)
+    unique_bag_grouped_kernel(const __grid_constant__ UniqueBagGroup g) {
+  const int cta = static_cast<int>(blockIdx.x);
+  const int k = table_of(g.first, g.n, cta);
+  const UniqueBagTable& t = g.t[k];
+  const int b = (cta - g.first[k]) * kBagWarps + (threadIdx.x >> 5);
+  if (b >= t.B) return;
+  if (t.vec) {
+    unique_bag_warp<float4>(t, b, threadIdx.x & 31);
+  } else {
+    unique_bag_warp<float>(t, b, threadIdx.x & 31);
+  }
+}
+
+// One row of the host descriptor array (int64 each):
+//   table, dev (0: identity), inv, out, V, U, B, L, D
+constexpr int kBagDescWords = 9;
+
+int launch_group(UniqueBagGroup& g, int& ctas, int* launches,
+                 cudaStream_t stream) {
+  g.first[g.n] = ctas;
+  unique_bag_grouped_kernel<<<ctas, kBagWarps * 32, 0, stream>>>(g);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err == 0 && launches != nullptr) ++*launches;
+  g.n = 0;
+  ctas = 0;
+  return err;
+}
+
+int unique_bag_grouped(const long long* desc, int n, int* launches,
+                       cudaStream_t stream) {
+  if (launches != nullptr) *launches = 0;
+  if (n < 0 || (n > 0 && desc == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool vec = (D % 4 == 0) &&
-                   (reinterpret_cast<uintptr_t>(table) % 16 == 0) &&
-                   (reinterpret_cast<uintptr_t>(out) % 16 == 0);
-  const int n_vec = vec ? D / 4 : D;
-  int tx = ((n_vec + 31) / 32) * 32;
-  if (tx > kThreads) tx = kThreads;
-  const int ty = kThreads / tx;
-  const dim3 block(tx, ty);
-  const dim3 grid((B + ty - 1) / ty);
-  if (vec) {
-    bag_kernel<float4, Rows><<<grid, block, 0, stream>>>(
-        reinterpret_cast<const float4*>(table), reinterpret_cast<float4*>(out),
-        rows, B, L, n_vec);
-  } else {
-    bag_kernel<float, Rows><<<grid, block, 0, stream>>>(table, out, rows, B,
-                                                        L, n_vec);
+  UniqueBagGroup g;
+  g.n = 0;
+  int ctas = 0;
+  for (int i = 0; i < n; ++i) {
+    const long long* d = desc + static_cast<long long>(i) * kBagDescWords;
+    const long long V = d[4], U = d[5], B = d[6], L = d[7], D = d[8];
+    if (V < 0 || U < 0 || B < 0 || L < 0 || D < 0 || U > INT_MAX ||
+        B > INT_MAX || L > INT_MAX || D > INT_MAX) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (B == 0 || D == 0) continue;    // nothing to write
+    UniqueBagTable t;
+    t.table = reinterpret_cast<const float*>(d[0]);
+    t.dev = reinterpret_cast<const int*>(d[1]);
+    t.inv = reinterpret_cast<const int*>(d[2]);
+    t.out = reinterpret_cast<float*>(d[3]);
+    t.V = V;
+    t.U = static_cast<int>(U);
+    t.B = static_cast<int>(B);
+    t.L = static_cast<int>(L);
+    t.D = static_cast<int>(D);
+    t.vec = D % 4 == 0 && aligned(t.table, 16) && aligned(t.out, 16);
+    const long long need = (B + kBagWarps - 1) / kBagWarps;
+    if (g.n > 0 && ctas + need > INT_MAX) {
+      const int err = launch_group(g, ctas, launches, stream);
+      if (err != 0) return err;
+    }
+    g.first[g.n] = ctas;
+    g.t[g.n++] = t;
+    ctas += static_cast<int>(need);
+    if (g.n == kMaxTables) {
+      const int err = launch_group(g, ctas, launches, stream);
+      if (err != 0) return err;
+    }
   }
-  return static_cast<int>(cudaGetLastError());
+  return g.n > 0 ? launch_group(g, ctas, launches, stream)
+                 : static_cast<int>(cudaSuccess);
 }
 
 }  // namespace
@@ -127,19 +275,55 @@ int launch(const float* table, float* out, Rows rows, int B, int L, int D,
 extern "C" int persia_embedding_bag_f32(const float* table, const int* ids,
                                         float* out, long long V, int B, int L,
                                         int D, void* stream) {
-  BagRows rows{ids, V, L};
-  return launch(table, out, rows, B, L, D,
-                static_cast<cudaStream_t>(stream));
+  if (B <= 0 || L < 0 || D <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool vec = (D % 4 == 0) && aligned(table, 16) && aligned(out, 16);
+  const int n_vec = vec ? D / 4 : D;
+  int tx = ((n_vec + 31) / 32) * 32;
+  if (tx > kThreads) tx = kThreads;
+  const int ty = kThreads / tx;
+  const dim3 block(tx, ty);
+  const dim3 grid((B + ty - 1) / ty);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec) {
+    bag_kernel<float4><<<grid, block, 0, s>>>(
+        reinterpret_cast<const float4*>(table), reinterpret_cast<float4*>(out),
+        ids, V, B, L, n_vec);
+  } else {
+    bag_kernel<float><<<grid, block, 0, s>>>(table, out, ids, V, B, L, n_vec);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
-// table (V, D) fp32; dev (U,) int32 table rows, < 0 = padding, >= V reads
-// row V-1; inv (B, L) int32 positions in dev, < 0 = padding, >= U reads
-// dev[U-1]; out (B, D).
+// desc: n rows of 9 int64 {table, dev, inv, out, V, U, B, L, D}, in host
+// memory, one per table: table (V, D) fp32; dev (U,) int32 table rows (< 0
+// = padding, >= V reads row V-1), or 0 for the identity (U = V); inv
+// (B, L) int32 positions in dev (< 0 = padding, >= U reads dev[U-1]); out
+// (B, D). Tables with B = 0 or D = 0 are skipped. Launches once per
+// kMaxTables non-empty tables and stores the number of launches in
+// *launches.
+extern "C" int persia_unique_bag_grouped_f32(const long long* desc, int n,
+                                             int* launches, void* stream) {
+  return unique_bag_grouped(desc, n, launches,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// The one-table case: table (V, D) fp32; dev (U,) int32; inv (B, L) int32;
+// out (B, D).
 extern "C" int persia_unique_bag_f32(const float* table, const int* dev,
                                      const int* inv, float* out, long long V,
                                      int U, int B, int L, int D,
                                      void* stream) {
-  UniqueRows rows{dev, inv, V, U, L};
-  return launch(table, out, rows, B, L, D,
-                static_cast<cudaStream_t>(stream));
+  if (B <= 0 || L < 0 || D <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long desc[kBagDescWords] = {
+      static_cast<long long>(reinterpret_cast<uintptr_t>(table)),
+      static_cast<long long>(reinterpret_cast<uintptr_t>(dev)),
+      static_cast<long long>(reinterpret_cast<uintptr_t>(inv)),
+      static_cast<long long>(reinterpret_cast<uintptr_t>(out)),
+      V, U, B, L, D};
+  return unique_bag_grouped(desc, 1, nullptr,
+                            static_cast<cudaStream_t>(stream));
 }

@@ -5,8 +5,10 @@
 //   into blocks of `block` (the last block reads zeros past n); per block k
 //     scale[k] = 32768 / max(max|v_k|, 1e-30)     (NaN if v_k holds a NaN)
 //     comp[k * block + i] = fp16_rn(v[k * block + i] * scale[k])
-//   persia_blockscale_decompress_f32:
+//   persia_blockscale_decompress_grouped_f32: for every table of a group,
+//   in one launch,
 //     out[i] = float(comp[i]) / scale[i / block]   for i < n
+//   persia_blockscale_decompress_f32: its one-table case
 //
 // They replace the Pallas TPU kernels
 //   src/repro/kernels/blockscale.py  compress (_compress_kernel)
@@ -27,7 +29,9 @@
 //   first pass in registers when the block fits in one load per lane
 //   (block 128 on the float4 path, the wire's block); otherwise the second
 //   pass reads the block again, from L1.
-// * Decompress: a thread per float4 (or float) of the output.
+// * Decompress: grouped, one launch for every table of a stage (a wire
+//   get or put crosses 32 tables at once), see decompress_grouped_kernel;
+//   each table's output goes straight into the caller's buffer.
 // * Every float operation is one correctly rounded intrinsic: the scale by
 //   __fdiv_rn, the product by __fmul_rn, the fp16 cast by __float2half_rn
 //   (round to nearest even, fp16 subnormals kept), and the decompression by
@@ -38,15 +42,21 @@
 // Bound: memory. Compress reads 4 bytes and writes 2 per element plus 4 per
 // block; decompress the reverse. At the training shape (one table's
 // unique rows, 1,024 to 4,096 rows of 128) that is 0.8 to 3.2 MB, under a
-// microsecond at 3.35 TB/s, so the fixed cost of a launch dominates. The
-// kernels are written to be right first; they are not tuned.
+// microsecond at 3.35 TB/s, so one table's launch is dominated by its
+// fixed cost; the 32 tables of a stage (about 25 MB) bound the grouped
+// decompress at about 7.6 us, where it is bandwidth-bound: hence its wide
+// loads and several of them in flight per thread. Compress is one launch
+// per table, written to be right first, not tuned.
 //
 // C interface (bound with ctypes): every function launches on `stream`,
 // does not synchronise, allocates nothing, and returns cudaGetLastError().
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -134,31 +144,127 @@ __global__ void compress_kernel(const float* __restrict__ v, long long n,
   }
 }
 
-template <int W>
-__global__ void decompress_kernel(const unsigned short* __restrict__ comp,
-                                  const float* __restrict__ scale,
-                                  long long n, int block,
-                                  float* __restrict__ out) {
-  const long long e =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * W;
-  if (e >= n) return;
-  // with W == 4, block % 4 == 0: the four elements share one block
-  const float s = __ldg(scale + e / block);
-  if constexpr (W == 4) {
-    const uint2 p = __ldg(reinterpret_cast<const uint2*>(comp + e));
-    float4 o;
-    o.x = __fdiv_rn(__half2float(__ushort_as_half(p.x & 0xffffu)), s);
-    o.y = __fdiv_rn(__half2float(__ushort_as_half(p.x >> 16)), s);
-    o.z = __fdiv_rn(__half2float(__ushort_as_half(p.y & 0xffffu)), s);
-    o.w = __fdiv_rn(__half2float(__ushort_as_half(p.y >> 16)), s);
-    *reinterpret_cast<float4*>(out + e) = o;
+bool aligned(const void* p, uintptr_t to) {
+  return reinterpret_cast<uintptr_t>(p) % to == 0;
+}
+
+// Decompress, grouped: one launch for a group of tables' payloads. Each
+// table's descriptor {comp, scale, out, n, block, vec} is passed by value
+// in a __grid_constant__ parameter (under 4 KB, so up to kMaxCodecTables
+// tables a launch), with the first CTA of each table beside them. One flat
+// grid covers every table; a CTA covers `groups` 4-element groups per
+// thread of one table and finds the table by a binary search of the
+// first-CTA prefix (uniform across the CTA). On the vector path a thread
+// loads its groups of four halves (uint2) and their scales before it
+// divides and stores them as float4. `groups` is chosen per launch: one
+// while the launch's work does not fill a wave of kWaveCtas CTAs (one
+// table alone then still spreads over the SMs), up to kDecGroups (32
+// bytes of payload in flight per thread) for a whole stage. The scalar
+// path (block or n not a multiple of 4, or a misaligned pointer) is chosen
+// per table.
+constexpr int kDecGroups = 4;
+constexpr int kWaveCtas = 132 * 8;   // H100: 132 SMs x 8 CTAs of 256
+constexpr int kMaxCodecTables = 80;
+
+struct DecompressTable {
+  const unsigned short* comp;   // (>= n,) fp16 bits
+  const float* scale;           // (ceil(n / block),)
+  float* out;                   // (n,)
+  long long n;
+  int block;
+  int vec;
+};
+
+struct DecompressGroup {
+  int n;
+  int groups;                       // 4-element groups per thread, 1..4
+  int first[kMaxCodecTables + 1];   // first CTA of each table; [n] = grid
+  DecompressTable t[kMaxCodecTables];
+};
+static_assert(sizeof(DecompressGroup) <= 4000,
+              "the grouped decompress parameter must stay under 4 KB");
+
+__device__ __forceinline__ float unscale(unsigned short c, float s) {
+  return __fdiv_rn(__half2float(__ushort_as_half(c)), s);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    decompress_grouped_kernel(const __grid_constant__ DecompressGroup g) {
+  const int cta = static_cast<int>(blockIdx.x);
+  int k = 0, hi = g.n - 1;   // the last table whose first CTA is <= cta
+  while (k < hi) {
+    const int mid = (k + hi + 1) >> 1;
+    if (g.first[mid] <= cta) {
+      k = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  const DecompressTable& t = g.t[k];
+  const long long base =
+      static_cast<long long>(cta - g.first[k]) * kThreads * 4 * g.groups;
+  if (t.vec) {
+    // block % 4 == 0: the four elements of a group share one scale
+    uint2 p[kDecGroups];
+    float s[kDecGroups];
+#pragma unroll
+    for (int j = 0; j < kDecGroups; ++j) {
+      const long long e = base + (j * kThreads + threadIdx.x) * 4LL;
+      if (j < g.groups && e < t.n) {
+        p[j] = __ldg(reinterpret_cast<const uint2*>(t.comp + e));
+        s[j] = __ldg(t.scale + e / t.block);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kDecGroups; ++j) {
+      const long long e = base + (j * kThreads + threadIdx.x) * 4LL;
+      if (j < g.groups && e < t.n) {
+        float4 o;
+        o.x = unscale(p[j].x & 0xffffu, s[j]);
+        o.y = unscale(p[j].x >> 16, s[j]);
+        o.z = unscale(p[j].y & 0xffffu, s[j]);
+        o.w = unscale(p[j].y >> 16, s[j]);
+        *reinterpret_cast<float4*>(t.out + e) = o;
+      }
+    }
   } else {
-    out[e] = __fdiv_rn(__half2float(__ushort_as_half(comp[e])), s);
+    for (int j = 0; j < g.groups * 4; ++j) {
+      const long long e = base + j * kThreads + threadIdx.x;
+      if (e < t.n) {
+        t.out[e] = unscale(__ldg(t.comp + e), __ldg(t.scale + e / t.block));
+      }
+    }
   }
 }
 
-bool aligned(const void* p, uintptr_t to) {
-  return reinterpret_cast<uintptr_t>(p) % to == 0;
+// One row of the host descriptor array (int64 each): comp, scale, out, n,
+// block
+constexpr int kDecDescWords = 5;
+
+// Lays out the group's grid (groups per thread, first CTAs), launches it
+// and empties the group.
+int launch_decompress(DecompressGroup& g, int* launches,
+                      cudaStream_t stream) {
+  long long work = 0;   // 4-element groups
+  for (int i = 0; i < g.n; ++i) work += (g.t[i].n + 3) / 4;
+  const long long wave = static_cast<long long>(kThreads) * kWaveCtas;
+  g.groups = static_cast<int>(
+      std::min<long long>(std::max<long long>((work + wave - 1) / wave, 1),
+                          kDecGroups));
+  const long long span = static_cast<long long>(kThreads) * 4 * g.groups;
+  long long ctas = 0;
+  for (int i = 0; i < g.n; ++i) {
+    g.first[i] = static_cast<int>(ctas);
+    ctas += (g.t[i].n + span - 1) / span;
+    if (ctas > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  g.first[g.n] = static_cast<int>(ctas);
+  decompress_grouped_kernel<<<static_cast<unsigned>(ctas), kThreads, 0,
+                              stream>>>(g);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err == 0 && launches != nullptr) ++*launches;
+  g.n = 0;
+  return err;
 }
 
 }  // namespace
@@ -185,24 +291,56 @@ extern "C" int persia_blockscale_compress_f32(const float* v, long long n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// comp (>= n,) fp16; scale (ceil(n / block),) fp32; out (n,) fp32 out.
+// desc: n rows of 5 int64 {comp, scale, out, n, block}, in host memory,
+// one per table: comp (>= n,) fp16; scale (ceil(n / block),) fp32; out
+// (n,) fp32, written. Tables with n = 0 are skipped. Launches once per
+// kMaxCodecTables non-empty tables and stores the number of launches in
+// *launches.
+extern "C" int persia_blockscale_decompress_grouped_f32(const long long* desc,
+                                                        int n, int* launches,
+                                                        void* stream) {
+  if (launches != nullptr) *launches = 0;
+  if (n < 0 || (n > 0 && desc == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  DecompressGroup g;
+  g.n = 0;
+  for (int i = 0; i < n; ++i) {
+    const long long* d = desc + static_cast<long long>(i) * kDecDescWords;
+    const long long len = d[3], block = d[4];
+    if (len < 0 || block <= 0 || block > INT_MAX) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (len == 0) continue;
+    DecompressTable t;
+    t.comp = reinterpret_cast<const unsigned short*>(d[0]);
+    t.scale = reinterpret_cast<const float*>(d[1]);
+    t.out = reinterpret_cast<float*>(d[2]);
+    t.n = len;
+    t.block = static_cast<int>(block);
+    t.vec = block % 4 == 0 && len % 4 == 0 && aligned(t.comp, 8) &&
+            aligned(t.out, 16);
+    g.t[g.n++] = t;
+    if (g.n == kMaxCodecTables) {
+      const int err = launch_decompress(g, launches, s);
+      if (err != 0) return err;
+    }
+  }
+  return g.n > 0 ? launch_decompress(g, launches, s)
+                 : static_cast<int>(cudaSuccess);
+}
+
+// The one-table case: comp (>= n,) fp16; scale (ceil(n / block),) fp32;
+// out (n,) fp32 out.
 extern "C" int persia_blockscale_decompress_f32(const void* comp,
                                                 const float* scale,
                                                 long long n, int block,
                                                 float* out, void* stream) {
   if (n < 0 || block <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return static_cast<int>(cudaSuccess);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned short* c = static_cast<const unsigned short*>(comp);
-  if (block % 4 == 0 && n % 4 == 0 && aligned(comp, 8) && aligned(out, 16)) {
-    const long long n_thr = n / 4;
-    decompress_kernel<4><<<static_cast<unsigned>((n_thr + kThreads - 1) /
-                                                 kThreads),
-                           kThreads, 0, s>>>(c, scale, n, block, out);
-  } else {
-    decompress_kernel<1><<<static_cast<unsigned>((n + kThreads - 1) /
-                                                 kThreads),
-                           kThreads, 0, s>>>(c, scale, n, block, out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const long long desc[kDecDescWords] = {
+      static_cast<long long>(reinterpret_cast<uintptr_t>(comp)),
+      static_cast<long long>(reinterpret_cast<uintptr_t>(scale)),
+      static_cast<long long>(reinterpret_cast<uintptr_t>(out)), n, block};
+  return persia_blockscale_decompress_grouped_f32(desc, 1, nullptr, stream);
 }

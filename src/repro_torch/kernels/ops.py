@@ -12,10 +12,18 @@ plain int, raised by one per kernel launch and nowhere else), so a caller
 can show that a run went through the kernel. ``fused_backward``'s kernel is two
 grid passes on the stream (segment sums and leader election, then apply),
 launched and counted as one.
+
+``unique_bag_grouped`` and ``blockscale_decompress_grouped`` serve a group
+of tables in one launch (one per chunk of descriptors; the kwai-dlrm
+stage's 32 tables fit in one). They launch the same kernels as
+``unique_bag`` and ``blockscale_decompress``, whose one-table cases those
+are, and count on those wrappers: ``launches`` by real launches and
+``tables`` by the tables they served (``table_counts``).
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -29,6 +37,7 @@ _SIGNATURES = {
     "persia_embedding_bag_f32": ("bag", (_P, _P, _P, _I64, _I, _I, _I, _P)),
     "persia_unique_bag_f32": ("bag", (_P, _P, _P, _P, _I64, _I, _I, _I, _I,
                                       _P)),
+    "persia_unique_bag_grouped_f32": ("bag", (_P, _I, _P, _P)),
     "persia_fused_backward_f32": ("fused_backward",
                                   (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _I64, _I, _I, _I, _I, _I, _F, _F, _I,
@@ -37,6 +46,8 @@ _SIGNATURES = {
                                        (_P, _I64, _I, _P, _P, _P)),
     "persia_blockscale_decompress_f32": ("blockscale",
                                          (_P, _P, _I64, _I, _P, _P)),
+    "persia_blockscale_decompress_grouped_f32": ("blockscale",
+                                                 (_P, _I, _P, _P)),
     "persia_embedding_sgd_f32": ("embedding_sgd",
                                  (_P, _P, _P, _I64, _I, _I, _F, _P)),
     "persia_flash_attention_fwd": ("flash_attention",
@@ -138,7 +149,92 @@ def unique_bag(table: torch.Tensor, dev: torch.Tensor,
             (table.data_ptr(), dev.data_ptr(), inv.data_ptr(), out.data_ptr(),
              V, U, B, L, D))
     unique_bag.launches += 1
+    unique_bag.tables += 1
     return out
+
+
+def _check_group(op: str, items) -> torch.device:
+    """The grouped kernels take contiguous tensors of the given dtypes, all
+    on one CUDA device: ``items`` of (name, tensor, dtype); returns the
+    device. One pass, as the group's launch is meant to be cheap on the
+    host too."""
+    device = items[0][1].device
+    for name, t, dtype in items:
+        if t.device != device or device.type != "cuda":
+            raise ValueError(
+                f"{op}: tensors must all lie on the CPU (plain version) or "
+                f"all on one CUDA device (kernel); got {device} and "
+                f"{t.device}")
+        if t.dtype != dtype or not t.is_contiguous():
+            raise TypeError(f"{op}: {name} must be a contiguous {dtype} "
+                            f"tensor, got {t.dtype}")
+    return device
+
+
+def _launch_grouped(op: str, name: str, device: torch.device,
+                    desc: list) -> int:
+    """Launch a grouped kernel on its host descriptor rows (int64 each);
+    returns the launches it made."""
+    rows = np.asarray(desc, dtype=np.int64).reshape(len(desc), -1)
+    made = np.zeros(1, dtype=np.int32)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _fn(name)(rows.ctypes.data, len(desc), made.ctypes.data,
+                        stream)
+    if err != 0:
+        raise RuntimeError(f"{op}: kernel launch failed with CUDA error "
+                           f"{err}")
+    return int(made[0])
+
+
+def unique_bag_grouped(tables, devs, invs) -> list[torch.Tensor]:
+    """:func:`unique_bag` of every table of a group in ONE launch (one per
+    chunk of descriptors): per table t, (V_t, D_t) x (U_t,) dev x (B_t,
+    L_t) inv -> (B_t, D_t). Tables may differ in every size. A dev of
+    ``None`` is the identity (``arange(V_t)``): the table holds the plan's
+    unique rows themselves. Where every table has one B and one D, the
+    outputs are the rows of one (T, B, D) buffer."""
+    tables, devs, invs = list(tables), list(devs), list(invs)
+    if not len(tables) == len(devs) == len(invs):
+        raise ValueError(f"unique_bag_grouped: {len(tables)} tables, "
+                         f"{len(devs)} devs and {len(invs)} invs")
+    for t, d, i in zip(tables, devs, invs):
+        if t.dim() != 2 or (d is not None and d.dim() != 1) or i.dim() != 2:
+            raise ValueError(
+                "unique_bag_grouped: each table (V, D), dev (U,) or None, "
+                f"inv (B, L); got {tuple(t.shape)}, "
+                f"{None if d is None else tuple(d.shape)}, {tuple(i.shape)}")
+    given = [x for x in (*tables, *devs, *invs) if x is not None]
+    if not given:
+        return []
+    if _all_on_cpu(*given):
+        return ref.unique_bag_grouped_ref(tables, devs, invs)
+    device = _check_group("unique_bag_grouped", [
+        x for t, d, i in zip(tables, devs, invs)
+        for x in (("table", t, torch.float32), ("inv", i, torch.int32),
+                  ("dev", d, torch.int32)) if x[1] is not None])
+    shapes = {(int(i.shape[0]), int(t.shape[1]))
+              for t, i in zip(tables, invs)}
+    if len(shapes) == 1:
+        (B, D), = shapes
+        outs = list(torch.empty((len(tables), B, D), dtype=torch.float32,
+                                device=device).unbind(0))
+    else:
+        outs = [torch.empty((int(i.shape[0]), int(t.shape[1])),
+                            dtype=torch.float32, device=device)
+                for t, i in zip(tables, invs)]
+    desc = [(t.data_ptr(), 0 if d is None else d.data_ptr(), i.data_ptr(),
+             o.data_ptr(), int(t.shape[0]),
+             int(t.shape[0] if d is None else d.shape[0]), int(i.shape[0]),
+             int(i.shape[1]), int(t.shape[1]))
+            for t, d, i, o in zip(tables, devs, invs, outs)]
+    served = sum(1 for o in outs if o.numel())
+    if served:
+        unique_bag.launches += _launch_grouped(
+            "unique_bag_grouped", "persia_unique_bag_grouped_f32", device,
+            desc)
+        unique_bag.tables += served
+    return outs
 
 
 # (device, R) -> (2, R) int32 leader-election scratch of fused_backward's
@@ -306,7 +402,63 @@ def blockscale_decompress(comp: torch.Tensor, scales: torch.Tensor,
             comp, out, (comp.data_ptr(), scales.data_ptr(), n, int(block),
                         out.data_ptr()))
     blockscale_decompress.launches += 1
+    blockscale_decompress.tables += 1
     return out
+
+
+def blockscale_decompress_grouped(comps, scales, outs) -> list[torch.Tensor]:
+    """:func:`blockscale_decompress` of every table of a group in ONE
+    launch (one per chunk of descriptors). ``outs[t]`` is either a shape
+    (a new fp32 tensor of that shape is returned) or a contiguous fp32
+    tensor that receives the first ``numel`` decompressed elements in
+    place, as a put's payload does."""
+    comps, scales, outs = list(comps), list(scales), list(outs)
+    if not len(comps) == len(scales) == len(outs):
+        raise ValueError(f"blockscale_decompress_grouped: {len(comps)} "
+                         f"comps, {len(scales)} scales and {len(outs)} "
+                         "outputs")
+    # elements of each output asked for by shape (0 for a given tensor)
+    sizes = [0 if isinstance(o, torch.Tensor) else math.prod(
+        int(x) for x in o) for o in outs]
+    for c, s, o, n in zip(comps, scales, outs, sizes):
+        if c.dim() != 2 or tuple(s.shape) != (c.shape[0],):
+            raise ValueError(
+                "blockscale_decompress_grouped: comp (n_blocks, block) and "
+                f"scales (n_blocks,), got {tuple(c.shape)} and "
+                f"{tuple(s.shape)}")
+        if isinstance(o, torch.Tensor):
+            n = o.numel()
+        if n > c.numel():
+            raise ValueError(
+                f"blockscale_decompress_grouped: an output of {n} elements "
+                f"from {c.numel()} compressed elements")
+    given = [*comps, *scales, *(o for o in outs
+                                if isinstance(o, torch.Tensor))]
+    if not given:
+        return []
+    if _all_on_cpu(*given):
+        return ref.blockscale_decompress_grouped_ref(comps, scales, outs)
+    device = _check_group("blockscale_decompress_grouped", [
+        x for c, s, o in zip(comps, scales, outs)
+        for x in (("comp", c, torch.float16), ("scales", s, torch.float32),
+                  ("out", o, torch.float32)) if isinstance(x[1],
+                                                          torch.Tensor)])
+    # the outputs asked for by shape: views of one buffer, each starting on
+    # a 16-byte boundary (the kernel's float4 stores)
+    starts = np.cumsum([0] + [-(-n // 4) * 4 for n in sizes])
+    buf = torch.empty(int(starts[-1]), dtype=torch.float32, device=device)
+    res = [o if isinstance(o, torch.Tensor) else
+           buf[int(a):int(a) + n].view(tuple(int(x) for x in o))
+           for o, a, n in zip(outs, starts, sizes)]
+    desc = [(c.data_ptr(), s.data_ptr(), o.data_ptr(), o.numel(),
+             int(c.shape[1])) for c, s, o in zip(comps, scales, res)]
+    served = sum(1 for o in res if o.numel())
+    if served:
+        blockscale_decompress.launches += _launch_grouped(
+            "blockscale_decompress_grouped",
+            "persia_blockscale_decompress_grouped_f32", device, desc)
+        blockscale_decompress.tables += served
+    return res
 
 
 def blockscale_roundtrip(v: torch.Tensor, block: int = 128) -> torch.Tensor:
@@ -435,10 +587,22 @@ WRAPPERS = (embedding_bag, unique_bag, fused_backward, blockscale_compress,
             blockscale_decompress, embedding_sgd, flash_attention_fwd)
 
 
+unique_bag.tables = 0
+blockscale_decompress.tables = 0
+GROUPED = (unique_bag, blockscale_decompress)
+
+
 def launch_counts() -> dict[str, int]:
     return {w.__name__: w.launches for w in WRAPPERS}
+
+
+def table_counts() -> dict[str, int]:
+    """Tables served by the kernels that take a group of tables."""
+    return {w.__name__: w.tables for w in GROUPED}
 
 
 def reset_launch_counts() -> None:
     for w in WRAPPERS:
         w.launches = 0
+    for w in GROUPED:
+        w.tables = 0

@@ -14,6 +14,8 @@ its softmax adds and exponentiates in another order than the kernel.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -42,6 +44,21 @@ def blockscale_decompress_ref(comp: torch.Tensor, scales: torch.Tensor
     """(n_blocks, block) fp16 and (n_blocks,) fp32 scales -> (n_blocks,
     block) fp32 ``comp / s``: a true division, never a multiply by 1/s."""
     return comp.float() / scales[:, None]
+
+
+def blockscale_decompress_grouped_ref(comps, scales, outs) -> list:
+    """:func:`blockscale_decompress_ref` table by table: per table the first
+    ``prod(shape)`` elements in ``shape`` when ``outs[t]`` is a shape, or
+    copied into ``outs[t]`` (its ``numel`` elements) when it is a tensor."""
+    res = []
+    for c, s, o in zip(comps, scales, outs):
+        flat = blockscale_decompress_ref(c, s).reshape(-1)
+        if isinstance(o, torch.Tensor):
+            res.append(o.copy_(flat[:o.numel()].view(o.shape)))
+        else:
+            shape = tuple(int(x) for x in o)
+            res.append(flat[:math.prod(shape)].reshape(shape))
+    return res
 
 
 def _pool_in_order(rows: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -78,6 +95,15 @@ def unique_bag_ref(table: torch.Tensor, dev: torch.Tensor,
     rows, valid_row = _clamp_index(dev[pos] if dev.numel() else
                                    torch.zeros_like(pos), table.shape[0])
     return _pool_in_order(table[rows], valid & valid_row)
+
+
+def unique_bag_grouped_ref(tables, devs, invs) -> list:
+    """:func:`unique_bag_ref` table by table; a dev of ``None`` is the
+    identity, ``arange(V)``."""
+    return [unique_bag_ref(t, torch.arange(t.shape[0], dtype=torch.int32,
+                                           device=t.device)
+                           if d is None else d, i)
+            for t, d, i in zip(tables, devs, invs)]
 
 
 # ---------------------------------------------------------------------------

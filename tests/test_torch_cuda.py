@@ -107,6 +107,191 @@ def test_cuda_kernels_edge_cases(cuda_device, case):
 
 
 # ---------------------------------------------------------------------------
+# the grouped kernels: unique_bag and blockscale_decompress, one launch for
+# a group of tables (the case generators are shared with the CPU tests of
+# test_torch_grouped.py)
+# ---------------------------------------------------------------------------
+
+BAG_TABLES = [  # (V, D, B, L, kind)
+    (200, 128, 16, 8, "plan"),
+    (300, 13, 8, 5, "plan"),            # D % 4 != 0: the scalar path
+    (50, 8, 0, 3, "plan"),              # B = 0: no bag
+    (40, 16, 6, 4, "empty_dev"),        # U = 0: every bag reads nothing
+    (97, 64, 33, 2, "past_end"),        # inv >= U and dev >= V, clamped
+    (60, 4, 5, 40, "plan"),             # L > 32: two index rounds a bag
+    (30, 24, 7, 3, "identity"),         # dev None: the rows themselves
+    (70, 32, 9, 6, "misaligned"),       # table 4 bytes off: scalar path
+    (62_500, 128, 64, 8, "plan"),       # one kwai-dlrm serving table
+]
+
+
+def _bag_group(seed, n=None):
+    """Host inputs of one grouped unique_bag: ``BAG_TABLES``, or ``n``
+    tables of random shapes (several chunks of descriptors for n = 100).
+    Each is (table, dev or None, inv, kind)."""
+    rng = np.random.default_rng(seed)
+    specs = BAG_TABLES if n is None else [
+        (int(rng.integers(1, 400)), int(rng.choice([1, 3, 4, 8, 13, 128])),
+         int(rng.integers(0, 40)), int(rng.integers(0, 10)),
+         str(rng.choice(["plan", "past_end", "identity"])))
+        for _ in range(n)]
+    cases = []
+    for V, D, B, L, kind in specs:
+        table = rng.standard_normal((V, D)).astype(np.float32)
+        ids = _bags(rng, B, L, V)
+        dev, inv = _plan(ids, extra_pad=3)
+        if kind == "past_end":
+            dev[0] = V + 7
+            inv[:, -1:] = dev.size + 5
+        elif kind == "empty_dev":
+            dev = dev[:0]
+        elif kind == "identity":
+            dev = None
+            inv = rng.integers(-1, V + 3, (B, L)).astype(np.int32)
+        cases.append((table, dev, inv, kind))
+    return cases
+
+
+def _group_tensors(cases, device):
+    """(tables, devs, invs) on ``device``; a ``misaligned`` table starts 4
+    bytes into its buffer."""
+    tables, devs, invs = [], [], []
+    for table, dev, inv, kind in cases:
+        t = torch.from_numpy(table).to(device)
+        if kind == "misaligned":
+            buf = torch.empty(t.numel() + 1, device=device)
+            buf[1:].copy_(t.reshape(-1))
+            t = buf[1:].view(t.shape)
+        tables.append(t)
+        devs.append(None if dev is None else torch.from_numpy(dev).to(device))
+        invs.append(torch.from_numpy(inv).to(device))
+    return tables, devs, invs
+
+
+CODEC_TABLES = [  # (n, block, out)
+    (300 * 128, 128, "shape"),
+    (1000, 64, "into"),
+    (0, 128, "shape"),                  # empty
+    (4096 - 76, 128, "into"),           # a partial last block
+    (5000 - 77, 128, "shape"),          # n % 4 != 0: the scalar path
+    (3000, 30, "shape"),                # block % 4 != 0: the scalar path
+    (2048, 128, "misaligned"),          # out 4 bytes off: the scalar path
+    (1030 * 128, 128, "into"),          # one table's unique rows
+]
+
+
+def _codec_group(seed, n=None):
+    """Host payloads of one grouped decompress: ``CODEC_TABLES``, or ``n``
+    of random lengths and blocks. Each is (v, block, out kind)."""
+    rng = np.random.default_rng(seed)
+    specs = CODEC_TABLES if n is None else [
+        (int(rng.integers(0, 6000)), int(rng.choice([30, 64, 128])),
+         str(rng.choice(["shape", "into", "misaligned"])))
+        for _ in range(n)]
+    return [((rng.standard_normal(m) * np.exp(rng.standard_normal(m) * 4))
+             .astype(np.float32), block, kind) for m, block, kind in specs]
+
+
+def _codec_tensors(cases, device):
+    """(comps, scales, outs, wants) on ``device``: the plain compress of
+    each payload, its output (a shape, a zeroed tensor, or one 4 bytes
+    into its buffer) and the plain decompress it must equal."""
+    comps, scales, outs, wants = [], [], [], []
+    for v, block, kind in cases:
+        c, s = ref.blockscale_compress_ref(torch.from_numpy(v), block)
+        want = ref.blockscale_decompress_ref(c, s).reshape(-1)[:v.size]
+        comps.append(c.to(device))
+        scales.append(s.to(device))
+        wants.append(want.to(device))
+        if kind == "shape":
+            outs.append((v.size,))
+        elif kind == "into":
+            outs.append(torch.zeros(v.size, device=device))
+        else:
+            outs.append(torch.zeros(v.size + 1, device=device)[1:])
+    return comps, scales, outs, wants
+
+
+def _chunks(sizes, per_launch):
+    n = sum(1 for x in sizes if x)
+    return -(-n // per_launch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tables", [None, 100])
+def test_cuda_unique_bag_grouped_matches_plain_and_per_table(cuda_device,
+                                                             n_tables):
+    tables, devs, invs = _group_tensors(_bag_group(3, n_tables),
+                                        cuda_device)
+    ops.reset_launch_counts()
+    got = ops.unique_bag_grouped(tables, devs, invs)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()["unique_bag"]
+    served = [i.shape[0] * t.shape[1] for t, i in zip(tables, invs)]
+    assert counts == _chunks(served, 56)          # kMaxTables in bag.cu
+    assert ops.table_counts()["unique_bag"] == sum(1 for x in served if x)
+    want = ref.unique_bag_grouped_ref(tables, devs, invs)
+    for t, d, i, g, w in zip(tables, devs, invs, got, want):
+        assert torch.equal(g, w)
+        if i.shape[0]:
+            dev = torch.arange(t.shape[0], dtype=torch.int32,
+                               device=cuda_device) if d is None else d
+            assert torch.equal(g, ops.unique_bag(t, dev, i))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_unique_bag_grouped_shares_one_buffer(cuda_device):
+    """32 tables of one (B, D), the kwai-dlrm serving stage: one launch,
+    the outputs are the rows of one (32, B, D) buffer."""
+    cases = [c for c in _bag_group(5, None) if c[3] == "plan"][-1:] * 32
+    tables, devs, invs = _group_tensors(cases, cuda_device)
+    ops.reset_launch_counts()
+    got = ops.unique_bag_grouped(tables, devs, invs)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["unique_bag"] == 1
+    base = got[0].untyped_storage().data_ptr()
+    assert all(g.untyped_storage().data_ptr() == base for g in got)
+    want = ref.unique_bag_ref(tables[0], devs[0], invs[0])
+    assert all(torch.equal(g, want) for g in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tables", [None, 100])
+def test_cuda_decompress_grouped_matches_plain_and_per_table(cuda_device,
+                                                             n_tables):
+    comps, scales, outs, wants = _codec_tensors(_codec_group(4, n_tables),
+                                                cuda_device)
+    ops.reset_launch_counts()
+    got = ops.blockscale_decompress_grouped(comps, scales, outs)
+    torch.cuda.synchronize()
+    sizes = [w.numel() for w in wants]
+    assert ops.launch_counts()["blockscale_decompress"] == \
+        _chunks(sizes, 80)                        # kMaxCodecTables
+    for c, s, o, g, w in zip(comps, scales, outs, got, wants):
+        if isinstance(o, torch.Tensor):
+            assert g is o
+        assert _same_bits(g, w)
+        if w.numel():
+            assert _same_bits(g, ops.blockscale_decompress(c, s, w.shape))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_launch_error_raises(cuda_device, monkeypatch):
+    tables, devs, invs = _group_tensors(_bag_group(3)[:2], cuda_device)
+    comps, scales, outs, _ = _codec_tensors(_codec_group(4)[:2], cuda_device)
+    ops.reset_launch_counts()
+    monkeypatch.setattr(ops, "_fn", lambda name: lambda *args: 700)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        ops.unique_bag_grouped(tables, devs, invs)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        ops.blockscale_decompress_grouped(comps, scales, outs)
+    assert ops.launch_counts()["unique_bag"] == 0
+    assert ops.launch_counts()["blockscale_decompress"] == 0
+
+
+# ---------------------------------------------------------------------------
 # fused_backward: segment-sum + row-wise adagrad/sgd apply + queue payload
 # ---------------------------------------------------------------------------
 

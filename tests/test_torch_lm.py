@@ -246,23 +246,35 @@ def _jax_margins(cfg_j, dense, backend, emb, prompts, tokens):
     return np.stack(out, axis=1)
 
 
-@pytest.mark.parametrize("backend_name", ["dense", "dense+compressed"])
-def test_serve_from_jax_state_matches_jax(backend_name):
+# granite at its full depth, narrow: the JAX side scans the 40 layers, so
+# its compile stays small
+NARROW_40 = dict(pattern_repeats=40, d_model=64, n_heads=4, n_kv_heads=2,
+                 head_dim=16, rope_head_dim=16, v_head_dim=16, d_ff=128,
+                 d_memory=64)
+
+
+@pytest.mark.parametrize("backend_name,layers",
+                         [("dense", 2), ("dense+compressed", 2),
+                          ("dense", 40)],
+                         ids=["dense", "dense+compressed", "dense-40_layers"])
+def test_serve_from_jax_state_matches_jax(backend_name, layers):
     B, P, G, seed = 2, 8, 6, 3
-    dense, jbackend, emb = _jax_state(CFG_J, seed, backend_name)
-    spec = shards.build_embedding_spec(CFG.vocab_size, CFG.d_model,
+    cfg_j, cfg = (CFG_J, CFG) if layers == 2 else \
+        (CFG_J.replace(**NARROW_40), CFG.replace(**NARROW_40))
+    dense, jbackend, emb = _jax_state(cfg_j, seed, backend_name)
+    spec = shards.build_embedding_spec(cfg.vocab_size, cfg.d_model,
                                        backend=backend_name)
     state = (convert.emb_from_numpy(_np_tree(emb), spec, device="cpu"),
-             convert.lm_dense_from_numpy(_np_tree(dense), CFG,
+             convert.lm_dense_from_numpy(_np_tree(dense), cfg,
                                          device="cpu"))
-    want = jserve.serve(CFG_J, B, P, G, seed=seed, emb_backend=backend_name)
-    got = tserve.serve(CFG, B, P, G, seed=seed, emb_backend=backend_name,
+    want = jserve.serve(cfg_j, B, P, G, seed=seed, emb_backend=backend_name)
+    got = tserve.serve(cfg, B, P, G, seed=seed, emb_backend=backend_name,
                        device="cpu", state=state)
     assert set(got) == set(want)
     assert got["tokens"].shape == want["tokens"].shape == (B, G)
     assert got["tokens"].dtype == np.int32
-    prompts = tserve.make_prompts(CFG, B, P, seed)
-    margins = _jax_margins(CFG_J, dense, jbackend, emb, prompts,
+    prompts = tserve.make_prompts(cfg, B, P, seed)
+    margins = _jax_margins(cfg_j, dense, jbackend, emb, prompts,
                            want["tokens"])
     compared = 0
     for b in range(B):
