@@ -21,7 +21,12 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    L and D (D=13, B=0, U=0, L=40, padding, clamped indices, the identity
    dev, a misaligned table) and of 100 tables (two launches); timed as one
    launch per stage at the serving (B=64) and training (batch 512) shapes
-   beside each stage's bound. Then
+   beside each stage's bound. ``embedding_bag`` is that kernel's identity
+   case: bit for bit on the 32 occurrence-width tables of a serving and a
+   training stage, on edge cases (D=13, B=0, ids past the end, a
+   misaligned table, L=40), alone and in one launch with plan tables (the
+   dense flush's 16 + 16); timed one table at the training shape and one
+   launch per stage beside 32 ``F.embedding_bag`` calls. Then
    ``fused_backward`` bit for bit (payload, table and accumulator) against
    its plain version at the training shape (kwai_video batch of 512, 4,096
    occurrences, D=128, queue width 4,096): the hybrid put (the popped put
@@ -33,7 +38,14 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    payload, scales, output) on a real training lookup's unique rows and a
    real put's sums, on an all-zero block, fp16- and fp32-subnormal blocks,
    a partial last block, the scalar path and block 64; timed over 32
-   tables' unique rows. The grouped decompress bit for bit on the 32
+   tables' unique rows. The grouped compress bit for bit against the
+   plain version and the one-table kernel on the training get stage (32
+   tables' unique rows), the put stage (32 tables' put sums), the wire
+   serving stage (32 tables' occurrence rows), payloads of unequal length
+   and block (empty, partial last block, the scalar path, a misaligned
+   input, a NaN block, a block of 200, the edge blocks above) and 100
+   payloads (two launches); timed as one launch per stage. The grouped
+   decompress bit for bit on the 32
    tables' unique rows written into given buffers (as a put's payloads
    are), on payloads of unequal length and block (empty, partial last
    block, the scalar path, a misaligned output) and on 100 payloads (two
@@ -43,20 +55,21 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    FFNN 4112-4096-2048-1024-512-256-4) with random weights from a seeded
    generator. A ``ServingService(max_batch=64)`` answers 512 traffic-model
    requests from 4 client threads; half the tables read through the dedup
-   plan (one ``unique_bag`` launch for the 16 of them per flush), half at
-   occurrence width (``embedding_bag``, one launch per table). The
+   plan (``unique_bag``), half at occurrence width (``embedding_bag``),
+   all 32 in ONE bag launch per flush. The
    predictions must be finite, in (0, 1), agree with the plain lookup
-   (gather + pool, no kernel) and the launch counts must show that every
-   flush went through both kernels. Then ``trainer.eval`` on a 1024-row
+   (gather + pool, no kernel) and the launch and table counts must show
+   that every flush pooled both kinds of table in that one launch. Then
+   ``trainer.eval`` on a 1024-row
    batch. The same again with every table ``dense+compressed``: every
-   flush must run ``blockscale_compress`` and ``embedding_bag`` once per
-   table and ONE decompress for all of them, and the predictions agree
+   flush must run ONE compress, ONE decompress and ONE bag launch for all
+   the tables, and the predictions agree
    with the plain lookup (gather, plain codec, pool).
 4. Train: ``PersiaTrainer.step`` at the full kwai-dlrm width, batch 512,
    Adam lr 3e-3, adagrad lr 5e-2: hybrid(3) for 2 warm-up and 30 timed
    steps, 10 more with a stage breakdown and 5 under the profiler; then
-   sync and async(3,3) for 4 steps each. Every step must launch
-   ``unique_bag`` once for all 32 tables and ``fused_backward`` once per
+   sync and async(3,3) for 4 steps each. Every step must launch the bag
+   kernel once for all 32 tables and ``fused_backward`` once per
    table, every loss must be
    finite and the queues' ring pointers must be where the step count puts
    them. Then the card against the CPU (``device="cpu"``, the plain
@@ -64,18 +77,18 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    (two popped puts applied), tables, accumulators, queues and dense
    parameters compared. Eval loss and AUC on a 4096-row batch.
 5. Compressed train: the same model with every table ``dense+compressed``:
-   hybrid(3) for 2 warm-up and 10 timed steps (each step launches
-   ``blockscale_compress`` twice per table, a get and a put, ONE
-   decompress for all the tables' get and ONE for their put, ONE
-   ``unique_bag`` and ``fused_backward`` once per table), 5 with a stage
+   hybrid(3) for 2 warm-up and 10 timed steps (each step launches ONE
+   compress and ONE decompress for all the tables' get and the same for
+   their put, ONE bag launch and ``fused_backward`` once per table), 5
+   with a stage
    breakdown and 3 under
    the profiler, the wire's byte ratio (>= 1.8, the JAX test's bound),
    sync (two ``fused_backward`` launches per table: the sums cross the
    wire before they are applied) and async(3,3) for 3 steps each, and the
    card against the CPU for sync 2 and hybrid(3) 4 steps.
 6. Occurrence-width train: every table ``batch_dedup=False``, hybrid(3)
-   for 4 steps: ``embedding_bag`` and ``fused_backward`` once per table
-   and step, rings checked.
+   for 4 steps: ONE bag launch (``embedding_bag``, 32 tables) per step
+   and ``fused_backward`` once per table, rings checked.
 7. The ``embedding_sgd`` entry point, once (``ops.embedding_sgd`` with its
    ``check_unique``), bit for bit against the plain version.
 8. LM serving: ``launch.serve.serve`` at the full width of granite-3-2b
@@ -107,6 +120,11 @@ each timed beside its bound, its plain version and its library call
 neither). The attention's bound is three TF32 passes of its operations
 (its fp32 products run as 3xTF32), with the one-pass fp32 bound beside
 it; the same shape with bf16 inputs is timed against its own bound.
+
+The bag kernel serves both bag functions: a launch counts once, on
+``unique_bag`` when it pooled a plan table and on ``embedding_bag``
+otherwise, and each function counts the tables it served (``tables`` in
+the kernels line).
 
 It prints the card's name and power limit, one JSON line per phase, the
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
@@ -204,7 +222,8 @@ KERNELS = {
 CODEC = ("blockscale_compress", "blockscale_decompress")
 # the grouped kernels' per-stage fields in the kernels line
 STAGE_KEYS = ("stage_tables", "stage_ms", "stage_bound_ms", "stage_library_ms",
-              "train_stage_ms", "train_stage_bound_ms")
+              "train_stage_ms", "train_stage_bound_ms", "put_stage_ms",
+              "put_stage_bound_ms", "train_ms", "train_bound_ms")
 
 
 BAG_KERNELS = ("embedding_bag", "unique_bag")
@@ -380,34 +399,79 @@ def random_specs(rng, n, kinds):
              str(rng.choice(kinds))) for _ in range(n)]
 
 
+# occurrence-width tables for the bag kernel's identity case: (V, D, B, L,
+# kind)
+FLAT_GROUP = [
+    (V, DIM, B, L, "flat"),
+    (1000, 13, 40, 5, "flat"),          # D % 4 != 0: the scalar path
+    (500, 64, 0, 8, "flat"),            # B = 0: no bag
+    (V, DIM, B, L, "past_end"),         # ids >= V: clamped to row V - 1
+    (700, 32, 50, 8, "misaligned"),     # table 4 bytes off: scalar path
+    (400, 16, 9, 40, "flat"),           # L > 32: two index rounds a bag
+]
+
+
+def flat_group(rng, dev, specs):
+    """(tables, ids) on ``dev`` of occurrence-width tables."""
+    tables, ids = [], []
+    for v, d, b, l, kind in specs:
+        t = torch.as_tensor(rng.standard_normal((v, d)).astype(np.float32),
+                            device=dev)
+        if kind == "misaligned":
+            buf = torch.empty(t.numel() + 1, device=dev)
+            buf[1:].copy_(t.reshape(-1))
+            t = buf[1:].view(v, d)
+        i = bag_ids(rng, b, l, v) if b and l else np.full((b, l), -1)
+        if kind == "past_end" and b:
+            i[:, 0] = v + 7
+        tables.append(t)
+        ids.append(torch.as_tensor(i.astype(np.int32), device=dev))
+    return tables, ids
+
+
 def grouped_bag_checks(dev, rng, groups) -> dict:
-    """The grouped unique_bag bit for bit against the plain version and
-    the one-table kernel on every table of every group, with the launches
-    each grouped call made (one per 56 non-empty tables)."""
+    """The grouped bag kernel bit for bit on every table of every group
+    (tables, devs, invs, flat): a plan table against ``unique_bag``'s plain
+    version and one-table kernel, an occurrence-width (flat) table against
+    ``embedding_bag``'s; with the launches each grouped call made (one per
+    56 non-empty tables), counted once, on ``unique_bag`` when the call
+    pooled a plan table, and each kind's tables counted on its own."""
     out = {}
-    for case, (tables, devs, invs) in groups.items():
+    for case, (tables, devs, invs, flat) in groups.items():
         ops.reset_launch_counts()
-        got = ops.unique_bag_grouped(tables, devs, invs)
+        got = ops.unique_bag_grouped(tables, devs, invs, flat)
         torch.cuda.synchronize()
-        launches = ops.launch_counts()["unique_bag"]
-        served = sum(1 for t, i in zip(tables, invs)
-                     if i.shape[0] and t.shape[1])
-        check(launches == -(-served // 56),
-              f"unique_bag_grouped[{case}]: {launches} launches for "
-              f"{served} tables")
-        want = ref.unique_bag_grouped_ref(tables, devs, invs)
-        err = 0.0
-        for k, (t, d, i, g, w) in enumerate(zip(tables, devs, invs, got,
-                                               want)):
-            err = max(err, exact("unique_bag_grouped", f"{case}: table {k}",
-                                 g, w))
+        launches, served = ops.launch_counts(), ops.table_counts()
+        live = [bool(i.shape[0] and t.shape[1])
+                for t, i in zip(tables, invs)]
+        n_flat = sum(1 for x, f in zip(live, flat) if x and f)
+        n_plan = sum(live) - n_flat
+        owner = "unique_bag" if n_plan else "embedding_bag"
+        want = dict.fromkeys(BAG_KERNELS, 0)
+        want[owner] = -(-sum(live) // 56)
+        check({k: launches[k] for k in want} == want
+              and served["unique_bag"] == n_plan
+              and served["embedding_bag"] == n_flat,
+              f"bag grouped[{case}]: launches {launches}, tables {served}, "
+              f"want {want} and {n_plan} plan / {n_flat} flat tables")
+        err = {"unique_bag": 0.0, "embedding_bag": 0.0}
+        for k, (t, d, i, f, g) in enumerate(zip(tables, devs, invs, flat,
+                                                got)):
+            if f:
+                name, plain = "embedding_bag", ref.embedding_bag_ref(t, i)
+                one = (lambda t=t, i=i: ops.embedding_bag(t, i))
+            else:
+                full = torch.arange(t.shape[0], dtype=torch.int32,
+                                    device=dev) if d is None else d
+                name, plain = "unique_bag", ref.unique_bag_ref(t, full, i)
+                one = (lambda t=t, i=i, full=full: ops.unique_bag(t, full, i))
+            err[name] = max(err[name], exact(
+                f"{name} grouped", f"{case}: table {k}", g, plain))
             if i.shape[0]:
-                one = ops.unique_bag(t, torch.arange(
-                    t.shape[0], dtype=torch.int32, device=dev)
-                    if d is None else d, i)
-                exact("unique_bag_grouped", f"{case}: table {k} against "
-                      "the one-table kernel", g, one)
-        out[case] = {"tables": len(tables), "launches": launches,
+                exact(f"{name} grouped", f"{case}: table {k} against the "
+                      "one-table kernel", g, one())
+        out[case] = {"tables": len(tables), "plan_tables": n_plan,
+                     "flat_tables": n_flat, "launches": launches[owner],
                      "max_abs_err": err}
     torch.cuda.synchronize()
     return out
@@ -506,23 +570,55 @@ def kernel_phase(dev, rng, ds):
             bound_ms=float(np.mean([bound_of([c])[0] for c in costs])),
             bound_by=bound_of(costs)[1], max_abs_err=errs[name])
 
-    # the grouped unique_bag: bit for bit on every table of each group
-    # (the serving and training stages, unequal and edge-case tables, more
+    # the grouped bag kernel: bit for bit on every table of each group
+    # (the serving and training stages of plan tables and of
+    # occurrence-width tables, the dense flush's 16 plan and 16 flat tables
+    # in one launch, unequal and edge-case tables of both kinds, more
     # tables than one launch takes), then timed as one launch per stage of
     # the 32 tables, at the serving shape (B = 64) and at the training
     # shape (kwai_video batch of 512)
     names, batches = train_plans(dev, ds, 1, SEED + 18)
     ids_tr, plans_tr = batches[0]
+    # a training batch's occurrence rows: what an occurrence-width step
+    # pools (the physical row of every id, -1 at padding)
+    occ_tr = [torch.where(p.inv >= 0, p.rows[p.inv.clamp(min=0).long()], -1)
+              for p in (plans_tr[n] for n in names)]
+    plan_cases = bag_group(rng, dev, BAG_GROUP)
+    flat_cases = flat_group(rng, dev, FLAT_GROUP)
+    half = N_TABLES // 2
+    flat_marks = [False] * N_TABLES
     groups = {
-        "serve_stage": (tables, [p[0] for p in plans], [p[1] for p in plans]),
+        "serve_stage": (tables, [p[0] for p in plans],
+                        [p[1] for p in plans], flat_marks),
         "train_stage": (tables, [plans_tr[n].rows for n in names],
-                        [plans_tr[n].inv for n in names]),
-        "mixed": bag_group(rng, dev, BAG_GROUP),
-        f"{CHUNK_TABLES}_tables": bag_group(rng, dev, random_specs(
+                        [plans_tr[n].inv for n in names], flat_marks),
+        "flat_serve_stage": (tables, [None] * N_TABLES, ids_t,
+                             [True] * N_TABLES),
+        "flat_train_stage": (tables, [None] * N_TABLES, occ_tr,
+                             [True] * N_TABLES),
+        # the dense flush: even tables through their plan, odd ones flat
+        "dense_flush": (tables, [plans[k][0] if k % 2 == 0 else None
+                                 for k in range(N_TABLES)],
+                        [plans[k][1] if k % 2 == 0 else ids_t[k]
+                         for k in range(N_TABLES)],
+                        [k % 2 == 1 for k in range(N_TABLES)]),
+        "mixed": (*plan_cases, [False] * len(plan_cases[0])),
+        "flat_edge": (flat_cases[0], [None] * len(flat_cases[0]),
+                      flat_cases[1], [True] * len(flat_cases[0])),
+        "mixed_both": (plan_cases[0] + flat_cases[0],
+                       plan_cases[1] + [None] * len(flat_cases[0]),
+                       plan_cases[2] + flat_cases[1],
+                       [False] * len(plan_cases[0])
+                       + [True] * len(flat_cases[0])),
+        f"{CHUNK_TABLES}_tables": (*bag_group(rng, dev, random_specs(
             rng, CHUNK_TABLES, ["plan", "past_end", "identity"])),
+            [False] * CHUNK_TABLES),
     }
+    check(sum(groups["dense_flush"][3]) == half, "dense flush group")
     cases = grouped_bag_checks(dev, rng, groups)
     serve_args, train_args = groups["serve_stage"], groups["train_stage"]
+    flat_serve, flat_train = groups["flat_serve_stage"], \
+        groups["flat_train_stage"]
     serve_bound = bound_of([bag_cost(ids, np.unique(ids[ids >= 0]).size,
                                      ids.size + plans[k][0].numel())
                             for k, ids in enumerate(serve_ids)])
@@ -541,7 +637,37 @@ def kernel_phase(dev, rng, ds):
                                  reps),
         train_stage_bound_ms=train_bound[0],
         train_stage_bound_by=train_bound[1], grouped_cases=cases)
-    del tables, groups, serve_args, train_args
+    # embedding_bag, the bag kernel's identity case: one table at the
+    # training shape, and one launch per stage of the 32 occurrence-width
+    # tables (a wire serving flush at B = 64; an occurrence-width training
+    # step at batch 512)
+    train_loop = [(tables[k], o) for k, o in enumerate(occ_tr)]
+    flat_serve_bound = bound_of([bag_cost(ids, np.unique(ids[ids >= 0]).size,
+                                          ids.size) for ids in serve_ids])
+    occ_host = [o.cpu().numpy() for o in occ_tr]
+    flat_train_bound = bound_of([bag_cost(o, np.unique(o[o >= 0]).size,
+                                          o.size) for o in occ_host])
+    timing["embedding_bag"].update(
+        train_ms=device_ms(lambda: [ops.embedding_bag(t, o)
+                                    for t, o in train_loop], reps) / N_TABLES,
+        train_bound_ms=float(np.mean([bound_of([bag_cost(
+            o, np.unique(o[o >= 0]).size, o.size)])[0] for o in occ_host])),
+        stage_tables=N_TABLES,
+        stage_ms=device_ms(lambda: ops.unique_bag_grouped(*flat_serve),
+                           reps),
+        eager_stage_ms=eager_ms(lambda: ops.unique_bag_grouped(*flat_serve),
+                                reps),
+        stage_library_ms=device_ms(loop(fns["embedding_bag"]["library_ms"]),
+                                   reps),
+        stage_bound_ms=flat_serve_bound[0],
+        stage_bound_by=flat_serve_bound[1],
+        train_stage_ms=device_ms(lambda: ops.unique_bag_grouped(*flat_train),
+                                 reps),
+        train_stage_bound_ms=flat_train_bound[0],
+        train_stage_bound_by=flat_train_bound[1],
+        dense_flush_ms=device_ms(lambda: ops.unique_bag_grouped(
+            *groups["dense_flush"]), reps))
+    del tables, groups, serve_args, train_args, flat_serve, flat_train
     torch.cuda.empty_cache()
     return timing
 
@@ -799,6 +925,75 @@ def grouped_codec_checks(groups) -> dict:
     return out
 
 
+# payloads for the grouped compress: (n, block, kind)
+COMPRESS_GROUP = [
+    (300 * 128, 128, "plain"),
+    (1000, 64, "plain"),
+    (0, 128, "plain"),                  # empty
+    (4096 - 76, 128, "plain"),          # a partial last block
+    (5000 - 77, 128, "plain"),          # n % 4 != 0: the scalar path
+    (3000, 30, "plain"),                # block % 4 != 0: the scalar path
+    (2048, 128, "misaligned"),          # v 4 bytes off: the scalar path
+    (1024, 128, "nan"),                 # a NaN in one block
+    (3000, 200, "plain"),               # block > 128: each block read twice
+    (1000, 20, "plain"),                # several blocks a warp, scalar
+]
+
+
+def compress_group(rng, dev, specs):
+    """(vs, blocks) on ``dev``: lognormal payloads, a ``misaligned`` one 4
+    bytes into its buffer, a ``nan`` one with a NaN in one block."""
+    vs, blocks = [], []
+    for n, block, kind in specs:
+        v = (rng.standard_normal(n) * np.exp(rng.standard_normal(n) * 4)) \
+            .astype(np.float32)
+        if kind == "nan" and n:
+            v[rng.integers(0, n)] = np.nan
+        t = torch.as_tensor(v, device=dev)
+        if kind == "misaligned":
+            buf = torch.empty(n + 1, device=dev)
+            buf[1:].copy_(t)
+            t = buf[1:]
+        vs.append(t)
+        blocks.append(block)
+    return vs, blocks
+
+
+def grouped_compress_checks(groups) -> dict:
+    """The grouped compress bit for bit (fp16 payload and scales) against
+    the plain version and the one-table kernel on every payload of every
+    group, with the launches each grouped call made (one per 80 non-empty
+    payloads) and the payloads it counted."""
+    out = {}
+    for case, (vs, blocks) in groups.items():
+        ops.reset_launch_counts()
+        got = ops.blockscale_compress_grouped(vs, blocks)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()["blockscale_compress"]
+        served = ops.table_counts()["blockscale_compress"]
+        live = sum(1 for v in vs if v.numel())
+        check(launches == -(-live // 80) and served == live,
+              f"blockscale_compress_grouped[{case}]: {launches} launches "
+              f"and {served} payloads counted for {live} payloads")
+        err = 0.0
+        for k, (v, b, (c, sc)) in enumerate(zip(vs, blocks, got)):
+            pc, ps = ref.blockscale_compress_ref(v, b)
+            err = max(err, same_bits("blockscale_compress_grouped",
+                                     f"{case}: payload {k}", c, pc),
+                      same_bits("blockscale_compress_grouped",
+                                f"{case}: scales {k}", sc, ps))
+            if v.numel():
+                oc, os_ = ops.blockscale_compress(v, b)
+                same_bits("blockscale_compress_grouped", f"{case}: payload "
+                          f"{k} against the one-table kernel", c, oc)
+                same_bits("blockscale_compress_grouped", f"{case}: scales "
+                          f"{k} against the one-table kernel", sc, os_)
+        out[case] = {"payloads": len(vs), "launches": launches,
+                     "max_abs_err": err}
+    torch.cuda.synchronize()
+    return out
+
+
 def blockscale_phase(dev, ds):
     """The codec kernels against their plain versions on the card, bit for
     bit, on a real lookup's unique rows, a real put's sums and the edge
@@ -874,6 +1069,41 @@ def blockscale_phase(dev, ds):
     grouped = grouped_codec_checks(groups)
     del groups
 
+    # the grouped compress on every payload of each group: the training
+    # get stage (32 tables' unique rows) and put stage (32 tables' put
+    # sums, one row per plan slot as _wire_begin hands them over), the wire
+    # serving stage (32 tables' occurrence rows at B = 64), unequal and
+    # edge-case payloads, more payloads than one launch takes
+    sums_all = []
+    for n in names:
+        m = torch.as_tensor(ids_now[n].reshape(-1) >= 0, device=dev)
+        g = torch.randn((m.numel(), DIM), generator=gen, device=dev) \
+            * 1e-3 * m[:, None].float()
+        sums_all.append(D.csr_segment_sum(plans[n].order, plans[n].offsets,
+                                          g, int(plans[n].dev.numel())))
+        del g
+    serve_ids = [torch.as_tensor(bag_ids(rng, B, L, V), device=dev)
+                 for _ in range(N_TABLES)]
+    serve_rows = [torch.where(i[..., None] >= 0,
+                              tables[k][i.clamp(min=0)], 0).contiguous()
+                  for k, i in enumerate(serve_ids)]
+    edge_vs, edge_blocks = compress_group(rng, dev, COMPRESS_GROUP)
+    edge_vs += [v.reshape(-1) for v in edge.values()]
+    edge_blocks += [BLOCK] * len(edge)
+    cgroups = {
+        "get_stage": (acts, [BLOCK] * N_TABLES),
+        "put_stage": (sums_all, [BLOCK] * N_TABLES),
+        "serve_stage": (serve_rows, [BLOCK] * N_TABLES),
+        "edge": (edge_vs, edge_blocks),
+        f"{CHUNK_TABLES}_payloads": compress_group(rng, dev, [
+            (int(rng.integers(0, 6000)),
+             int(rng.choice([20, 30, 64, 128, 200])),
+             str(rng.choice(["plain", "misaligned", "nan"])))
+            for _ in range(CHUNK_TABLES)]),
+    }
+    compressed = grouped_compress_checks(cgroups)
+    del cgroups, edge_vs
+
     # timing: one call per table over the 32 tables, as one step's get
     # roundtrip does (the put's sums have the same shape)
     fns = {
@@ -922,7 +1152,33 @@ def blockscale_phase(dev, ds):
         stage_bound_bytes=float(sum(codec_bound(a.numel(), BLOCK)[0]
                                     for a in acts)),
         grouped_cases=grouped)
-    del tables, acts, comps, cs, ss
+    # the grouped compress, one launch for the stage's 32 tables: the wire
+    # serving flush's occurrence rows, a training get's unique rows and a
+    # put's sums (the same rows per table as the get)
+    def stage(vs):
+        bound = bound_of([codec_bound(v.numel(), BLOCK) for v in vs])
+        return {"ms": device_ms(lambda: ops.blockscale_compress_grouped(
+                    vs, BLOCK), 20),
+                "eager_ms": eager_ms(lambda: ops.blockscale_compress_grouped(
+                    vs, BLOCK), 20),
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "bound_bytes": float(sum(codec_bound(v.numel(), BLOCK)[0]
+                                         for v in vs)),
+                "rows_per_table": float(np.mean([v.numel() / DIM
+                                                 for v in vs]))}
+    serve_st, get_st, put_st = stage(serve_rows), stage(acts), \
+        stage(sums_all)
+    timing["blockscale_compress"].update(
+        stage_tables=N_TABLES, stage_ms=serve_st["ms"],
+        eager_stage_ms=serve_st["eager_ms"],
+        stage_bound_ms=serve_st["bound_ms"],
+        stage_bound_by=serve_st["bound_by"], stage_library_ms=None,
+        train_stage_ms=get_st["ms"], train_stage_bound_ms=get_st["bound_ms"],
+        train_stage_bound_by=get_st["bound_by"], put_stage_ms=put_st["ms"],
+        put_stage_bound_ms=put_st["bound_ms"],
+        stages={"serve": serve_st, "get": get_st, "put": put_st},
+        grouped_cases=compressed)
+    del tables, acts, comps, cs, ss, sums_all, serve_rows
     torch.cuda.empty_cache()
     return timing
 
@@ -1247,9 +1503,9 @@ def serve_phase(dev, backend="dense"):
     preds, m = serve(trainer, cell, reqs, config)
     launches, served = ops.launch_counts(), ops.table_counts()
 
-    # per flush: ONE unique_bag launch for the tables read through a plan
-    # and ONE decompress for the tables behind the wire; embedding_bag and
-    # compress one launch per table
+    # per flush: ONE bag launch for every table (counted on unique_bag when
+    # it pools a plan table, on embedding_bag otherwise) and, behind the
+    # wire, ONE compress and ONE decompress; each kind's tables counted
     n_plan = 0 if wire else \
         sum(s.batch_dedup for _, s in trainer.collection.items())
     n_flat = len(trainer.collection) - n_plan
@@ -1258,16 +1514,18 @@ def serve_phase(dev, backend="dense"):
     check(int(m["serving/requests"]) == N_REQUESTS
           and m["serving/errors"] == 0, f"service metrics {m}")
     want = {"unique_bag": int(n_plan > 0) * flushes,
-            "embedding_bag": n_flat * flushes,
-            "blockscale_compress": n_wire * flushes,
+            "embedding_bag": int(n_plan == 0 and n_flat > 0) * flushes,
+            "blockscale_compress": int(n_wire > 0) * flushes,
             "blockscale_decompress": int(n_wire > 0) * flushes}
-    want_tables = {"unique_bag": n_plan * flushes,
+    want_tables = {"embedding_bag": n_flat * flushes,
+                   "unique_bag": n_plan * flushes,
+                   "blockscale_compress": n_wire * flushes,
                    "blockscale_decompress": n_wire * flushes}
     check(all(launches[k] == v for k, v in want.items())
           and served == want_tables,
           f"launches {launches} (tables {served}) != {want} (tables "
-          f"{want_tables}): one grouped launch per flush, one per table "
-          f"otherwise ({flushes} flushes, {n_plan} plan / {n_flat} flat / "
+          f"{want_tables}): one launch per grouped kernel and flush "
+          f"({flushes} flushes, {n_plan} plan / {n_flat} flat / "
           f"{n_wire} compressed tables)")
     check(preds.shape == (N_REQUESTS, KWAI.n_tasks), f"shape {preds.shape}")
     check(bool(np.all(np.isfinite(preds))) and preds.min() > 0
@@ -1301,7 +1559,7 @@ def serve_phase(dev, backend="dense"):
         "tables_per_launch": tables_per_launch(launches, served),
     }
     if wire:
-        return launches, rec
+        return (launches, served), rec
 
     eb = next(ds.sampler(1024, seed=2))
     em = trainer.eval(state, eb)
@@ -1311,7 +1569,7 @@ def serve_phase(dev, backend="dense"):
     loss = float(em["loss"])
     check(np.isfinite(loss) and ep.shape == (1024, KWAI.n_tasks),
           "eval not finite")
-    return launches, {**rec, "eval_rows": 1024, "eval_loss": loss,
+    return (launches, served), {**rec, "eval_rows": 1024, "eval_loss": loss,
                       "eval_pred_mean": float(em["pred_mean"]),
                       "eval_auc_per_task": aucs}
 
@@ -1332,26 +1590,25 @@ def kwai_train_trainer(dev, mode, backend="dense", batch_dedup=None):
 
 def step_launches(trainer) -> tuple[dict, dict]:
     """The launches one train step makes, by kernel, and the tables the
-    grouped kernels serve. The get: ONE ``unique_bag`` launch for every
-    table read through a plan, ``embedding_bag`` per occurrence-width
-    table. The put: one ``fused_backward`` per table (two behind the wire
-    in sync mode, where the sums cross the wire between their sum and their
-    apply). Behind the wire, a compress per table and ONE decompress for
-    all the tables, for the get and for the put."""
+    grouped kernels serve. The get: ONE bag launch for every table, plan
+    (``unique_bag``) and occurrence-width (``embedding_bag``) tables alike,
+    counted on ``unique_bag`` when it pools a plan table. The put: one
+    ``fused_backward`` per table (two behind the wire in sync mode, where
+    the sums cross the wire between their sum and their apply). Behind the
+    wire, ONE compress and ONE decompress for all the tables, for the get
+    and for the put."""
     want = dict.fromkeys(ops.launch_counts(), 0)
     tables = dict.fromkeys(ops.table_counts(), 0)
     for b in trainer.backends.values():
         wire = isinstance(b, BK.CompressedWireBackend)
-        if b.spec.batch_dedup:
-            tables["unique_bag"] += 1
-        else:
-            want["embedding_bag"] += 1
+        tables["unique_bag" if b.spec.batch_dedup else "embedding_bag"] += 1
         want["fused_backward"] += 2 if wire and b.spec.staleness == 0 else 1
-        want["blockscale_compress"] += 2 if wire else 0
-        tables["blockscale_decompress"] += 2 if wire else 0
-    want["unique_bag"] = int(tables["unique_bag"] > 0)
-    want["blockscale_decompress"] = 2 * int(tables["blockscale_decompress"]
-                                            > 0)
+        for k in CODEC:
+            tables[k] += 2 if wire else 0
+    owner = "unique_bag" if tables["unique_bag"] else "embedding_bag"
+    want[owner] = int(tables[owner] > 0)
+    for k in CODEC:
+        want[k] = 2 * int(tables[k] > 0)
     return want, tables
 
 
@@ -1562,6 +1819,7 @@ def train_phase(dev, backend="dense", timed=TIMED_STEPS,
     state, losses, launches, wire, served = run_steps(
         trainer, state, batches[WARMUP_STEPS:WARMUP_STEPS + timed],
         f"{backend} hybrid")
+    main_counts = (launches, served)
     wall = time.perf_counter() - t0
     step_ms = wall * 1e3 / timed
 
@@ -1624,34 +1882,46 @@ def train_phase(dev, backend="dense", timed=TIMED_STEPS,
     }
     if ratio is not None:
         rec.update(wire_bytes=wire, wire_ratio=ratio)
-    return launches, rec
+    return main_counts, rec
 
 
-def flat_train_phase(dev, steps=4):
+def flat_train_phase(dev, steps=4, profiled=2):
     """hybrid(3) with every table at occurrence width (batch_dedup=False):
-    the lookup through ``embedding_bag``, the put grouped on the card and
-    applied by ``fused_backward``."""
+    the lookup through ``embedding_bag`` (one bag launch for the 32
+    tables), the put grouped on the card and applied by
+    ``fused_backward``; then ``profiled`` steps under the profiler."""
     ds = CTR_BENCHMARKS["kwai_video"]
     trainer = kwai_train_trainer(dev, TrainMode.hybrid(TAU),
                                  batch_dedup=False)
     it = ds.sampler(TRAIN_B, seed=SEED + 6)
-    batches = [next(it) for _ in range(steps)]
+    batches = [next(it) for _ in range(steps + profiled)]
     state = trainer.init(seed=SEED, batch_example=batches[0])
     t0 = time.perf_counter()
-    state, losses, launches, _, _ = run_steps(trainer, state, batches,
-                                              "flat hybrid")
+    state, losses, launches, _, served = run_steps(trainer, state,
+                                                   batches[:steps],
+                                                   "flat hybrid")
     wall = time.perf_counter() - t0
-    check_rings(trainer, state, steps, "flat hybrid")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for b in batches[steps:]:
+            state, _ = trainer.step(state, b)
+        torch.cuda.synchronize()
+    device_ms = sum(e.self_device_time_total
+                    for e in prof.key_averages()) / 1e3 / profiled
+    check_rings(trainer, state, steps + profiled, "flat hybrid")
     width = int(state.emb_queue["field_00"]["ids"].shape[1])
     check(width == TRAIN_B * L, f"flat queue width {width}")
     del state, trainer
     torch.cuda.empty_cache()
-    return launches, {"phase": "train_flat", "model": KWAI.name,
+    return (launches, served), {"phase": "train_flat", "model": KWAI.name,
                       "batch": TRAIN_B, "mode": f"hybrid({TAU})",
                       "steps": steps, "step_ms": wall * 1e3 / steps,
+                      "device_ms_per_step": device_ms,
                       "queue_width": width, "losses": losses,
                       "launches_per_step": {k: v / steps
-                                            for k, v in launches.items()}}
+                                            for k, v in launches.items()},
+                      "tables_per_launch": tables_per_launch(launches,
+                                                             served)}
 
 
 # ---------------------------------------------------------------------------
@@ -1674,8 +1944,9 @@ def sgd_entry_path(dev):
     launches = ops.launch_counts()
     check(launches["embedding_sgd"] == 1, f"sgd entry launches {launches}")
     exact("embedding_sgd", "entry point", table, want)
-    return launches, {"phase": "sgd_entry", "rows": 694, "table": [V, DIM],
-                      "launches": launches["embedding_sgd"]}
+    return (launches, ops.table_counts()), {
+        "phase": "sgd_entry", "rows": 694, "table": [V, DIM],
+        "launches": launches["embedding_sgd"]}
 
 
 def lm_state(cfg, dev, seed, backend="dense"):
@@ -1728,7 +1999,7 @@ def lm_serve_phase(dev):
     ops.reset_launch_counts()
     res = lm_serve.serve(cfg, LM_B, LM_PROMPT, LM_GEN, SEED, device=dev,
                          state=state)
-    launches = ops.launch_counts()
+    launches, served = ops.launch_counts(), ops.table_counts()
     n_layers = cfg.n_layers
     check(launches["flash_attention_fwd"] == n_layers,
           f"lm serve: {launches['flash_attention_fwd']} flash_attention_fwd "
@@ -1774,7 +2045,7 @@ def lm_serve_phase(dev):
     del bk, emb, dense, state
     torch.cuda.empty_cache()
     ms_tok = res["decode_s"] * 1e3 / (LM_GEN - 1)
-    return launches, {
+    return (launches, served), {
         "phase": "lm_serve", "model": cfg.name, "layers": n_layers,
         "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads,
                                           cfg.head_dim],
@@ -1896,11 +2167,19 @@ def main() -> int:
     kernels = []
     for name, meta in KERNELS.items():
         t = timing[name]
-        by_path = {p: launches[name] for p, launches in paths.items()}
+        by_path = {p: launches[name] for p, (launches, _) in paths.items()}
+        grouped = {}
+        if name in ops.table_counts():
+            # the tables each function served on the main paths (the bag
+            # kernel's launches count once, on one of its two functions)
+            tables = {p: served[name] for p, (_, served) in paths.items()}
+            grouped = {"tables": sum(tables.values()),
+                       "tables_by_path": tables}
+            check(grouped["tables"] > 0, f"{name} served no table")
         kernels.append({
             "name": name, "route": "cuda", **meta,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
-            "max_abs_err": t["max_abs_err"],
+            **grouped, "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],

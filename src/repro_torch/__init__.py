@@ -5,11 +5,11 @@ This package holds the CTR serving path and hybrid training.
 ``ServingService`` micro-batches requests, ``PersiaTrainer.serve_lookup``
 reads each table's pooled bags through ``DenseBackend.read_pooled``
 (uniform-shuffle row placement, the worker-side dedup plan, then the
-``unique_bag`` or ``embedding_bag`` CUDA kernel), and the FFNN plus a
-sigmoid turns them into predictions. ``PersiaTrainer.step`` trains in sync,
-hybrid(tau) and async modes: the pooled lookup through ``unique_bag``, the
-FFNN's backward and a hand-written Adam, and each table's put through the
-``fused_backward`` CUDA kernel and its bounded-staleness queue;
+bag CUDA kernel, as ``unique_bag`` or ``embedding_bag``), and the FFNN
+plus a sigmoid turns them into predictions. ``PersiaTrainer.step`` trains
+in sync, hybrid(tau) and async modes: the pooled lookup through the bag
+kernel, the FFNN's backward and a hand-written Adam, and each table's put
+through the ``fused_backward`` CUDA kernel and its bounded-staleness queue;
 ``save``/``restore`` use the JAX package's checkpoint format.
 
 Ground rules:

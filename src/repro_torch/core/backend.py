@@ -10,13 +10,15 @@ the sum-pooled bags straight from the CUDA kernels: with
 :class:`~repro_torch.core.dedup.DedupPlan` and ``unique_bag`` gathers,
 scatters and pools at unique width; without it ``embedding_bag`` pools at
 occurrence width. That is the trainer's own choice between plan and flat
-ids in the JAX package (``prepare_all``), applied to the read.
+ids in the JAX package (``prepare_all``), applied to the read. Both are
+one bag kernel (``embedding_bag`` is its identity case), so every table of
+a read pools in ONE launch.
 
 The training path: ``prepare_all`` builds every table's plan on the host
 and uploads all of the plans' index arrays in one copy; ``lookup_all``
-reads the pooled bags of every table read through a plan in ONE
-``unique_bag`` launch (``embedding_bag`` for the occurrence-width ids of
-``batch_dedup=False`` tables); ``put_all`` runs each table's put through
+pools every table in ONE bag launch (``unique_bag`` through a plan,
+``embedding_bag`` for the occurrence-width ids of ``batch_dedup=False``
+tables); ``put_all`` runs each table's put through
 the ``fused_backward`` kernel, which segment-sums the occurrence
 gradients, applies the row-wise optimizer to the put that pops out of the
 staleness queue (or to its own sums in sync mode) and returns the payload
@@ -28,9 +30,10 @@ The puts update the tables, their accumulators and the queues in place
 ``CompressedWireBackend`` wraps the dense backend: its gets and puts cross
 the wire as blockscale fp16 (the ``blockscale_compress`` /
 ``blockscale_decompress`` CUDA kernels) and its puts are deduplicated to
-one row per unique id. Each table compresses on its own; the stage's
-tables decompress together, in ONE launch per get, put or serve read. The host-cached and sharded backends come with
-later slices; the factory refuses them.
+one row per unique id. The stage's tables compress together and
+decompress together: ONE launch of each per get, put or serve read. The
+host-cached and sharded backends come with later slices; the factory
+refuses them.
 """
 from __future__ import annotations
 
@@ -467,9 +470,9 @@ class CompressedWireBackend(EmbeddingBackend):
 
     # -- device-side ---------------------------------------------------------
 
-    def _get_compressed(self, state, dev_ids):
-        """The get up to the wire: the rows that cross it, compressed, with
-        the get's byte metrics -> ``((comp, scales, rows' shape),
+    def _get_rows(self, state, dev_ids):
+        """The get up to the wire: the rows that cross it (contiguous, to
+        be compressed by the caller), with the get's byte metrics -> ``(rows,
         metrics)``. One row per unique id for a plan (the inverse scatter
         to occurrence width happens after the wire, so the bytes shrink by
         the batch's dup factor), else one per occurrence."""
@@ -479,16 +482,14 @@ class CompressedWireBackend(EmbeddingBackend):
         else:
             rows, m = self.inner.lookup(state, dev_ids)
             n_raw = rows.numel()
-        comp, scales = K.blockscale_compress(rows.contiguous(),
-                                             block=self._block)
-        return (comp, scales, rows.shape), {
+        return rows.contiguous(), {
             **m, **self._get_metrics(n_raw, rows.numel())}
 
     def _get(self, state, dev_ids):
         """The rows that cross the wire, roundtripped, with the get's byte
         metrics."""
-        (comp, scales, shape), m = self._get_compressed(state, dev_ids)
-        return K.blockscale_decompress(comp, scales, shape), m
+        rows, m = self._get_rows(state, dev_ids)
+        return self._roundtrip(rows), m
 
     def lookup(self, state, dev_ids):
         rows, m = self._get(state, dev_ids)
@@ -539,10 +540,10 @@ class CompressedWireBackend(EmbeddingBackend):
 
 def _wire_puts(items) -> list:
     """The puts of tables behind the wire, ``items`` of (backend, state,
-    queue, dev_ids, grads), run in phases so that the decompress is one
-    launch for all of them: (1) every table's segment sums (fused with the
+    queue, dev_ids, grads), run in phases so that the codec is one launch
+    each for all of them: (1) every table's segment sums (fused with the
     popped put's apply in hybrid mode, a sum-only launch in sync mode);
-    (2) every table's compress; (3) ONE decompress of all the payloads,
+    (2) ONE compress of all the payloads; (3) ONE decompress of them,
     written back into them in place; (4) every table's queue write (sync:
     its apply-only launch). Returns [(state, queue, metrics)]."""
     begun = []
@@ -550,8 +551,11 @@ def _wire_puts(items) -> list:
         plan, m = b._compress_put(dev_ids)
         payload, finish = b.inner._wire_begin(state, queue, plan, grads)
         begun.append((payload, finish, m, b._block))
-    _decompress_all({k: (*K.blockscale_compress(p, block), p)
-                     for k, (p, _, _, block) in enumerate(begun)})
+    payloads = [p for p, _, _, _ in begun]
+    packed = K.blockscale_compress_grouped(
+        payloads, [block for _, _, _, block in begun])
+    _decompress_all({k: (c, s, p) for k, ((c, s), p)
+                     in enumerate(zip(packed, payloads))})
     out = []
     for _, finish, m, _ in begun:
         st, q, m2 = finish()
@@ -559,15 +563,27 @@ def _wire_puts(items) -> list:
     return out
 
 
-def _pool_rows(rows: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """(B, L, dim) occurrence rows and their (B, L) ids -> (B, dim) sum
-    over the valid (id >= 0) slots, through ``embedding_bag`` over the rows
-    themselves."""
+def _slots(ids: torch.Tensor) -> torch.Tensor:
+    """(B, L) ids on the device -> their occurrence slots: ``b * L + l``
+    where the id is valid (>= 0), -1 at padding (int32, on the device)."""
     B, L = ids.shape
     slot = torch.arange(B * L, dtype=torch.int32,
-                        device=rows.device).view(B, L)
-    return K.embedding_bag(rows.reshape(B * L, -1).contiguous(),
-                           torch.where(ids >= 0, slot, -1))
+                        device=ids.device).view(B, L)
+    return torch.where(ids >= 0, slot, -1)
+
+
+def _host_slots(ids: np.ndarray) -> np.ndarray:
+    """:func:`_slots` of host (B, L) ids, on the host (int32)."""
+    return np.where(ids >= 0, np.arange(ids.size, dtype=np.int32)
+                    .reshape(ids.shape), -1).astype(np.int32)
+
+
+def _pool_rows(rows: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """(B, L, dim) occurrence rows and their (B, L) ids on the device ->
+    (B, dim) sum over the valid (id >= 0) slots, through ``embedding_bag``
+    over the rows themselves."""
+    B, L = ids.shape
+    return K.embedding_bag(rows.reshape(B * L, -1).contiguous(), _slots(ids))
 
 
 def parse_backend_name(name: str | None) -> tuple[str, bool]:
@@ -700,34 +716,38 @@ def _tag(metrics, name, table_metrics):
 
 def lookup_all(backends, states, dev_ids):
     """Pooled lookups of every table -> ({table: (B, dim) pooled},
-    metrics), one launch per kernel for the stage where the kernel takes a
-    group: the tables read through a plan share ONE ``unique_bag`` launch
-    (a dense table's physical rows, or a wire table's roundtripped unique
-    rows with the identity for dev); the tables behind the wire gather and
-    compress each, then decompress in ONE launch. Occurrence-width tables
-    pool through ``embedding_bag``, one launch each."""
-    pooled, metrics = {}, {}
-    bags = {}                  # name -> (table, dev or None, inv)
-    wire = {}                  # name -> (comp, scales, rows' shape)
+    metrics), ONE launch per kernel for the stage: the tables behind the
+    wire gather their rows, compress in ONE launch and decompress in ONE;
+    then every table pools in ONE bag launch, through a plan (``unique_bag``
+    on a dense table's physical rows, or on a wire table's roundtripped
+    unique rows with the identity for dev) or at occurrence width
+    (``embedding_bag`` on a dense table's physical rows, or on a wire
+    table's roundtripped occurrence rows through their slots)."""
+    metrics = {}
+    bags = {}                  # name -> (table, dev or None, inv, flat)
+    wire = {}                  # name -> (rows, block)
     for n, ids in dev_ids.items():
         if n not in backends:
             raise KeyError(f"ids for unknown table {n!r}; collection has "
                            f"{sorted(backends)}")
-        b, m = backends[n], {}
+        b, m, table = backends[n], {}, states[n]["table"]
         if isinstance(b, CompressedWireBackend):
-            wire[n], m = b._get_compressed(states[n], ids)
+            rows, m = b._get_rows(states[n], ids)
+            wire[n] = (rows, b._block)
         elif D.is_plan(ids):
-            bags[n] = (states[n]["table"], b._plan_rows(ids), ids.inv)
+            bags[n] = (table, b._plan_rows(ids), ids.inv, False)
         else:
-            pooled[n], m = b.lookup_pooled(states[n], ids)
+            bags[n] = (table, None,
+                       b._logical_to_pos(ids).to(table.device), True)
         _tag(metrics, n, m)
-    for n, rows in _decompress_all(wire).items():
+    for n, rows in _roundtrip_all(wire).items():
         ids = dev_ids[n]
         if D.is_plan(ids):
-            bags[n] = (rows, None, ids.inv)
+            bags[n] = (rows, None, ids.inv, False)
         else:
-            pooled[n] = _pool_rows(rows, ids)
-    pooled.update(_bag_all(bags))
+            bags[n] = (rows.reshape(-1, rows.shape[-1]), None, _slots(ids),
+                       True)
+    pooled = _bag_all(bags)
     return {n: pooled[n] for n in dev_ids}, metrics
 
 
@@ -736,9 +756,10 @@ def _columns(items: dict, width: int) -> list[list]:
 
 
 def _bag_all(bags: dict) -> dict:
-    """{table: (table, dev or None, inv)} -> {table: (B, dim) pooled}, in
-    one ``unique_bag`` launch."""
-    return dict(zip(bags, K.unique_bag_grouped(*_columns(bags, 3))))
+    """{table: (table, dev or None, inv, flat)} -> {table: (B, dim)
+    pooled}, in ONE bag launch (``flat``: an occurrence-width table)."""
+    tables, devs, invs, flat = _columns(bags, 4)
+    return dict(zip(bags, K.unique_bag_grouped(tables, devs, invs, flat)))
 
 
 def _decompress_all(items: dict) -> dict:
@@ -748,11 +769,21 @@ def _decompress_all(items: dict) -> dict:
                     K.blockscale_decompress_grouped(*_columns(items, 3))))
 
 
+def _roundtrip_all(items: dict) -> dict:
+    """{table: (contiguous fp32 rows, block)} -> {table: the rows after
+    crossing the wire}, in ONE compress and ONE decompress launch."""
+    rows, blocks = _columns(items, 2)
+    packed = K.blockscale_compress_grouped(rows, blocks)
+    return _decompress_all({n: (c, s, r.shape) for n, (c, s), r
+                            in zip(items, packed, rows)})
+
+
 def put_all(backends, states, queues, dev_ids, grads):
     """Hybrid updates of every table (push this step's put, apply the
     tau-stale one) -> (states, queues, metrics). Dense tables put through
     one ``fused_backward`` launch each; the tables behind the wire run
-    their puts in phases that share ONE decompress (:func:`_wire_puts`)."""
+    their puts in phases that share ONE compress and ONE decompress
+    (:func:`_wire_puts`)."""
     queues = queues or {}
     new_states, new_queues, metrics = dict(states), dict(queues), {}
     wire = [n for n in dev_ids if isinstance(backends[n],
@@ -776,12 +807,13 @@ def read_pooled_all(backends, states, ids, device):
     """Serve-path pooled reads of every table (the per-table
     :meth:`EmbeddingBackend.read_pooled`, grouped): LOGICAL (B, L) ids per
     table -> ({table: (B, dim) fp32 pooled}, {table: read gauges}). Every
-    dense table's index arrays (its plan's, or its occurrence rows) are
-    built on the host and uploaded with the wire tables' ids in ONE copy;
-    the tables read through a plan share ONE ``unique_bag`` launch, the
-    others pool through ``embedding_bag``; the tables behind the wire
-    gather and compress each, decompress in ONE launch and pool through
-    ``embedding_bag``. Read-only."""
+    table's index arrays (a dense table's plan or occurrence rows, a wire
+    table's ids and their occurrence slots) are built on the host and
+    uploaded in ONE copy; the tables behind the wire gather their
+    occurrence rows, compress in ONE launch and decompress in ONE; then
+    every table pools in ONE bag launch (``unique_bag`` through a plan,
+    ``embedding_bag`` at occurrence width and behind the wire).
+    Read-only."""
     host, info = {}, {}
     for n, x in ids.items():
         b = backends[n]
@@ -791,7 +823,8 @@ def read_pooled_all(backends, states, ids, device):
                 raise ValueError(f"read_pooled takes (B, L) bags, got "
                                  f"shape {arr.shape}")
             # negatives stay padding and ids past int32 stay out of range
-            host[n] = [np.clip(arr, -1, _INT32_MAX)]
+            clipped = np.clip(arr, -1, _INT32_MAX)
+            host[n] = [clipped, _host_slots(clipped)]
             c = _n_distinct(arr.reshape(-1), b.spec.rows)
         else:
             host[n], c = b._read_host(x)
@@ -799,18 +832,17 @@ def read_pooled_all(backends, states, ids, device):
     flat = iter(upload_int32([a for arrs in host.values() for a in arrs],
                              device))
     idx = {n: [next(flat) for _ in arrs] for n, arrs in host.items()}
-    pooled, bags, wire = {}, {}, {}
+    bags, wire = {}, {}
     for n, got in idx.items():
         b, table = backends[n], states[n]["table"]
         if isinstance(b, CompressedWireBackend):
             rows, _ = b.inner._lookup_flat(states[n], got[0])
-            wire[n] = (*K.blockscale_compress(rows.float().contiguous(),
-                                              b._block), rows.shape)
+            wire[n] = (rows.float().contiguous(), b._block)
         elif len(got) == 2:
-            bags[n] = (table, got[1], got[0])
+            bags[n] = (table, got[1], got[0], False)
         else:
-            pooled[n] = K.embedding_bag(table, got[0])
-    for n, rows in _decompress_all(wire).items():
-        pooled[n] = _pool_rows(rows, idx[n][0])
-    pooled.update(_bag_all(bags))
+            bags[n] = (table, None, got[0], True)
+    for n, rows in _roundtrip_all(wire).items():
+        bags[n] = (rows.reshape(-1, rows.shape[-1]), None, idx[n][1], True)
+    pooled = _bag_all(bags)
     return {n: pooled[n] for n in ids}, info

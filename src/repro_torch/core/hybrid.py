@@ -4,9 +4,10 @@ paper Alg. 1 + Alg. 2).
 One train step =
   (1) prepare (host): each table's ids become a dedup plan (unique ids,
       inverse, physical rows, occurrence CSR), uploaded in one copy;
-  (2) lookup: every table's pooled bags through ONE launch of the
-      ``unique_bag`` kernel (``embedding_bag`` for occurrence-width
-      tables), from the (possibly tau-stale) tables         [Alg.1 forward]
+  (2) lookup: every table's pooled bags through ONE launch of the bag
+      kernel (``unique_bag`` through a plan, ``embedding_bag`` for
+      occurrence-width tables), from the (possibly tau-stale) tables
+                                                             [Alg.1 forward]
   (3) dense forward/backward: the pooled (B, D) bags are autograd leaves,
       so one ``torch.autograd.grad`` gives the dense gradients and each
       table's pooled gradient; the occurrence gradient is the pooled one
@@ -44,10 +45,12 @@ Differences from the JAX package, all of eager PyTorch:
   ``filled`` are host ints (int32 scalars on the device in the JAX
   package; the checkpoint stores them in the JAX package's dtypes).
 * Tables with ``batch_dedup=False`` read and put at occurrence width:
-  the pooled lookup through ``embedding_bag``, the put grouped on the
-  device and summed by ``fused_backward``. Tables behind the compressed
-  wire (``backend="dense+compressed"``) roundtrip their gets and puts
-  through the blockscale kernels. The pipelined trainer and the
+  the pooled lookup through ``embedding_bag`` (in the stage's one bag
+  launch), the put grouped on the device and summed by
+  ``fused_backward``. Tables behind the compressed wire
+  (``backend="dense+compressed"``) roundtrip their gets and puts through
+  the blockscale kernels, one compress and one decompress launch for all
+  of them per get and per put. The pipelined trainer and the
   host-cached and sharded backends come with later slices.
 """
 from __future__ import annotations

@@ -1,34 +1,37 @@
-// Sum-pooled embedding bags for Hopper (sm_90a), fp32.
+// Sum-pooled embedding bags for Hopper (sm_90a), fp32: one kernel serves
+// both TPU bag kernels.
 //
-//   persia_embedding_bag_f32:      out[b] = sum_l table[ids[b, l]]
 //   persia_unique_bag_grouped_f32: for every table t of a group, in one
 //                                  launch: out_t[b] = sum_l
 //                                  table_t[dev_t[inv_t[b, l]]]
-//   persia_unique_bag_f32:         the grouped kernel's one-table case
+//   persia_unique_bag_f32:         its one-table case
 //
-// They replace the Pallas TPU kernels
+// With the identity for dev (U = -1, no dev array) a table's pool is
+//   out[b] = sum_l table[ids[b, l]],
+// the occurrence-width bag. So the one kernel replaces both Pallas TPU
+// kernels
 //   src/repro/kernels/embedding_bag.py  embedding_bag (_bag_kernel)
 //   src/repro/kernels/unique_bag.py     unique_bag (_unique_bag_kernel)
-// and agree bit for bit with their plain torch versions in ../ref.py.
+// and agrees bit for bit with both plain torch versions in ../ref.py
+// (embedding_bag_ref, unique_bag_ref). One launch may mix tables of the
+// two kinds: every bag read of a stage, plan tables and occurrence-width
+// tables alike, is one launch.
 //
-// Common to both. The TPU kernels walk the B*L occurrences as a sequential
-// grid, one row DMA per step, revisiting the bag's output row in VMEM. Here
-// the bags run in parallel and each adds its L rows in registers in l
-// order, from zero, with __fadd_rn: the fixed sum order is what keeps the
-// result bit-exact. Padding (an index < 0) skips the row: a select, not a
-// multiply by zero, so a padded slot never turns a non-finite row into NaN.
-// An index past the end of the array it indexes reads the array's last
-// entry, as the JAX package's gathers clamp. float4 loads when D % 4 == 0
-// and the table and output are 16-byte aligned, a scalar path otherwise.
-// Row offsets are int64, since V * D can pass 2^31.
+// The TPU kernels walk the B*L occurrences as a sequential grid, one row
+// DMA per step, revisiting the bag's output row in VMEM. Here the bags run
+// in parallel and each adds its L rows in registers in l order, from zero,
+// with __fadd_rn: the fixed sum order is what keeps the result bit-exact.
+// Padding (an index < 0) skips the row: a select, not a multiply by zero,
+// so a padded slot never turns a non-finite row into NaN. An index past
+// the end of the array it indexes reads the array's last entry, as the JAX
+// package's gathers clamp. float4 loads when D % 4 == 0 and the table and
+// output are 16-byte aligned, a scalar path otherwise. Row offsets are
+// int64, since V * D can pass 2^31.
 //
-// embedding_bag: a row of threads owns one bag (blockDim.y bags per block),
-// strides over D and loads its own indices; one launch per table.
-//
-// unique_bag, grouped. At the main path's shapes a table's call moves well
-// under 1 MB, so its time is the launch plus the chain of dependent loads
-// inv -> dev -> row, not the bytes; one launch per table made a 32-table
-// stage 32 launches in a row. So one launch serves every table of a stage:
+// At the main path's shapes a table's call moves well under 1 MB, so its
+// time is the launch plus the chain of dependent loads inv -> dev -> row,
+// not the bytes; one launch per table made a 32-table stage 32 launches in
+// a row. So one launch serves every table of a stage:
 // * Each table has a descriptor {table, dev, inv, out, V, U, B, L, D, vec},
 //   passed by value in a __grid_constant__ kernel parameter (no pointer
 //   table to copy to the device, no synchronisation), with the first CTA
@@ -40,12 +43,11 @@
 //   is uniform across the CTA (a broadcast from parameter space).
 // * One warp per bag: lanes < L load the bag's inv entries together, then
 //   their dev entries, and __shfl_sync spreads the rows across the warp,
-//   so the chain is three round trips per bag, not per occurrence. The L
-//   row loads are issued eight at a time, unrolled, all in flight before
-//   the adds, which then run in l order. At D = 128 the 32 lanes' float4
-//   loads cover a 512-byte row in one coalesced access.
-// * A null dev is the identity (dev = arange(V)): the table IS the unique
-//   rows, as behind the compressed wire.
+//   so the chain is three round trips per bag (two for the identity), not
+//   per occurrence. The L row loads are issued eight at a time, unrolled,
+//   all in flight before the adds, which then run in l order. At D = 128
+//   the 32 lanes' float4 loads cover a 512-byte row in one coalesced
+//   access.
 //
 // Bound: memory. The least traffic is each distinct row read once, each
 // output row written once and each index read once:
@@ -88,31 +90,7 @@ bool aligned(const void* p, uintptr_t to) {
 }
 
 // ---------------------------------------------------------------------------
-// embedding_bag: one launch per table
-// ---------------------------------------------------------------------------
-
-// T is float or float4; n_vec = D / (sizeof(T) / 4) elements of T per row.
-template <typename T>
-__global__ void bag_kernel(const T* __restrict__ table, T* __restrict__ out,
-                           const int* __restrict__ ids, long long V, int B,
-                           int L, int n_vec) {
-  const int b = blockIdx.x * blockDim.y + threadIdx.y;
-  if (b >= B) return;
-  for (int c = threadIdx.x; c < n_vec; c += blockDim.x) {
-    T acc;
-    vzero(acc);
-    for (int l = 0; l < L; ++l) {
-      const long long r = clamp_index(__ldg(ids + (long long)b * L + l), V);
-      if (r >= 0) vadd(acc, __ldg(table + r * n_vec + c));
-    }
-    out[(long long)b * n_vec + c] = acc;
-  }
-}
-
-constexpr int kThreads = 128;
-
-// ---------------------------------------------------------------------------
-// unique_bag: one launch per chunk of tables
+// the grouped bag kernel: one launch per chunk of tables
 // ---------------------------------------------------------------------------
 
 constexpr int kBagWarps = 4;       // bags (warps) per CTA
@@ -121,11 +99,11 @@ constexpr int kMaxTables = 56;     // tables per launch (parameter < 4 KB)
 
 struct UniqueBagTable {
   const float* table;   // (V, D)
-  const int* dev;       // (U,), or null for the identity
+  const int* dev;       // (U,); not read for the identity
   const int* inv;       // (B, L)
   float* out;           // (B, D)
   long long V;
-  int U, B, L, D;
+  int U, B, L, D;       // U = -1: the identity (inv holds table rows)
   int vec;              // float4 path
 };
 
@@ -170,9 +148,12 @@ __device__ __forceinline__ void unique_bag_warp(const UniqueBagTable& t,
       const int m = min(32, t.L - l0);
       long long r = -1;
       if (lane < m) {
-        const long long u = clamp_index(__ldg(inv + l0 + lane), t.U);
-        if (u >= 0) {
-          r = clamp_index(t.dev != nullptr ? __ldg(t.dev + u) : u, t.V);
+        const long long i = __ldg(inv + l0 + lane);
+        if (t.U < 0) {
+          r = clamp_index(i, t.V);   // the identity: the index is the row
+        } else {
+          const long long u = clamp_index(i, t.U);
+          if (u >= 0) r = clamp_index(__ldg(t.dev + u), t.V);
         }
       }
       for (int j0 = 0; j0 < m; j0 += kRowsInFlight) {
@@ -209,7 +190,7 @@ __global__ void __launch_bounds__(kBagWarps * 32)
 }
 
 // One row of the host descriptor array (int64 each):
-//   table, dev (0: identity), inv, out, V, U, B, L, D
+//   table, dev, inv, out, V, U (-1: the identity), B, L, D
 constexpr int kBagDescWords = 9;
 
 int launch_group(UniqueBagGroup& g, int& ctas, int* launches,
@@ -235,7 +216,7 @@ int unique_bag_grouped(const long long* desc, int n, int* launches,
   for (int i = 0; i < n; ++i) {
     const long long* d = desc + static_cast<long long>(i) * kBagDescWords;
     const long long V = d[4], U = d[5], B = d[6], L = d[7], D = d[8];
-    if (V < 0 || U < 0 || B < 0 || L < 0 || D < 0 || U > INT_MAX ||
+    if (V < 0 || U < -1 || B < 0 || L < 0 || D < 0 || U > INT_MAX ||
         B > INT_MAX || L > INT_MAX || D > INT_MAX) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -270,47 +251,21 @@ int unique_bag_grouped(const long long* desc, int n, int* launches,
 
 }  // namespace
 
-// table (V, D) fp32; ids (B, L) int32, < 0 = padding, >= V reads row V-1;
-// out (B, D).
-extern "C" int persia_embedding_bag_f32(const float* table, const int* ids,
-                                        float* out, long long V, int B, int L,
-                                        int D, void* stream) {
-  if (B <= 0 || L < 0 || D <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const bool vec = (D % 4 == 0) && aligned(table, 16) && aligned(out, 16);
-  const int n_vec = vec ? D / 4 : D;
-  int tx = ((n_vec + 31) / 32) * 32;
-  if (tx > kThreads) tx = kThreads;
-  const int ty = kThreads / tx;
-  const dim3 block(tx, ty);
-  const dim3 grid((B + ty - 1) / ty);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec) {
-    bag_kernel<float4><<<grid, block, 0, s>>>(
-        reinterpret_cast<const float4*>(table), reinterpret_cast<float4*>(out),
-        ids, V, B, L, n_vec);
-  } else {
-    bag_kernel<float><<<grid, block, 0, s>>>(table, out, ids, V, B, L, n_vec);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 // desc: n rows of 9 int64 {table, dev, inv, out, V, U, B, L, D}, in host
 // memory, one per table: table (V, D) fp32; dev (U,) int32 table rows (< 0
-// = padding, >= V reads row V-1), or 0 for the identity (U = V); inv
-// (B, L) int32 positions in dev (< 0 = padding, >= U reads dev[U-1]); out
-// (B, D). Tables with B = 0 or D = 0 are skipped. Launches once per
-// kMaxTables non-empty tables and stores the number of launches in
-// *launches.
+// = padding, >= V reads row V-1); inv (B, L) int32 positions in dev (< 0 =
+// padding, >= U reads dev[U-1]); out (B, D). U = -1 is the identity: dev
+// is not read and inv holds table rows (the occurrence-width bag). Tables
+// with B = 0 or D = 0 are skipped. Launches once per kMaxTables non-empty
+// tables and stores the number of launches in *launches.
 extern "C" int persia_unique_bag_grouped_f32(const long long* desc, int n,
                                              int* launches, void* stream) {
   return unique_bag_grouped(desc, n, launches,
                             static_cast<cudaStream_t>(stream));
 }
 
-// The one-table case: table (V, D) fp32; dev (U,) int32; inv (B, L) int32;
-// out (B, D).
+// The one-table case: table (V, D) fp32; dev (U,) int32 (U = -1: the
+// identity, dev not read); inv (B, L) int32; out (B, D).
 extern "C" int persia_unique_bag_f32(const float* table, const int* dev,
                                      const int* inv, float* out, long long V,
                                      int U, int B, int L, int D,

@@ -13,12 +13,19 @@ can show that a run went through the kernel. ``fused_backward``'s kernel is two
 grid passes on the stream (segment sums and leader election, then apply),
 launched and counted as one.
 
-``unique_bag_grouped`` and ``blockscale_decompress_grouped`` serve a group
-of tables in one launch (one per chunk of descriptors; the kwai-dlrm
-stage's 32 tables fit in one). They launch the same kernels as
-``unique_bag`` and ``blockscale_decompress``, whose one-table cases those
-are, and count on those wrappers: ``launches`` by real launches and
-``tables`` by the tables they served (``table_counts``).
+``unique_bag_grouped``, ``blockscale_compress_grouped`` and
+``blockscale_decompress_grouped`` serve a group of tables in one launch
+(one per chunk of descriptors; the kwai-dlrm stage's 32 tables fit in
+one). They launch the same kernels as the one-table wrappers, whose
+one-table cases those are, and count on them: ``launches`` by real
+launches and ``tables`` by the tables they served (``table_counts``).
+
+``embedding_bag`` and ``unique_bag`` share one kernel: the occurrence-width
+bag is the grouped bag kernel with the identity for ``dev``, so one launch
+may pool tables of both kinds. Each kind counts its tables on its own
+wrapper; a launch counts once, on ``unique_bag`` when it pooled any plan
+table and on ``embedding_bag`` otherwise, so the launch counts add up to
+the launches made.
 """
 from __future__ import annotations
 
@@ -34,7 +41,6 @@ _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                     ctypes.c_float)
 # C entry point -> (source in csrc/, argument types)
 _SIGNATURES = {
-    "persia_embedding_bag_f32": ("bag", (_P, _P, _P, _I64, _I, _I, _I, _P)),
     "persia_unique_bag_f32": ("bag", (_P, _P, _P, _P, _I64, _I, _I, _I, _I,
                                       _P)),
     "persia_unique_bag_grouped_f32": ("bag", (_P, _I, _P, _P)),
@@ -44,6 +50,8 @@ _SIGNATURES = {
                                    _P)),
     "persia_blockscale_compress_f32": ("blockscale",
                                        (_P, _I64, _I, _P, _P, _P)),
+    "persia_blockscale_compress_grouped_f32": ("blockscale",
+                                               (_P, _I, _P, _P)),
     "persia_blockscale_decompress_f32": ("blockscale",
                                          (_P, _P, _I64, _I, _P, _P)),
     "persia_blockscale_decompress_grouped_f32": ("blockscale",
@@ -112,7 +120,8 @@ def _launch(op: str, name: str, table: torch.Tensor, out: torch.Tensor,
 
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """(V, D) x (B, L) ids (< 0 = padding) -> (B, D) fused gather and sum
-    pool. Port of ``repro.kernels.ops.embedding_bag``."""
+    pool. Port of ``repro.kernels.ops.embedding_bag``: on the card the
+    grouped bag kernel's one-table case with the identity for ``dev``."""
     if ids.dim() != 2:
         raise ValueError(f"embedding_bag: ids must be (B, L), got "
                          f"{tuple(ids.shape)}")
@@ -123,9 +132,11 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     out = torch.empty((B, D), dtype=table.dtype, device=table.device)
     if B == 0 or D == 0:
         return out
-    _launch("embedding_bag", "persia_embedding_bag_f32", table, out,
-            (table.data_ptr(), ids.data_ptr(), out.data_ptr(), V, B, L, D))
+    _launch("embedding_bag", "persia_unique_bag_f32", table, out,
+            (table.data_ptr(), None, ids.data_ptr(), out.data_ptr(), V, -1,
+             B, L, D))
     embedding_bag.launches += 1
+    embedding_bag.tables += 1
     return out
 
 
@@ -187,17 +198,25 @@ def _launch_grouped(op: str, name: str, device: torch.device,
     return int(made[0])
 
 
-def unique_bag_grouped(tables, devs, invs) -> list[torch.Tensor]:
+def unique_bag_grouped(tables, devs, invs, flat=None) -> list[torch.Tensor]:
     """:func:`unique_bag` of every table of a group in ONE launch (one per
     chunk of descriptors): per table t, (V_t, D_t) x (U_t,) dev x (B_t,
     L_t) inv -> (B_t, D_t). Tables may differ in every size. A dev of
     ``None`` is the identity (``arange(V_t)``): the table holds the plan's
-    unique rows themselves. Where every table has one B and one D, the
-    outputs are the rows of one (T, B, D) buffer."""
+    unique rows themselves. ``flat[t]`` marks an occurrence-width table,
+    whose pool is :func:`embedding_bag` of ``(tables[t], invs[t])`` (its
+    dev must be ``None``) and counts on that wrapper. Where every table
+    has one B and one D, the outputs are the rows of one (T, B, D)
+    buffer."""
     tables, devs, invs = list(tables), list(devs), list(invs)
-    if not len(tables) == len(devs) == len(invs):
+    flat = [False] * len(tables) if flat is None else list(flat)
+    if not len(tables) == len(devs) == len(invs) == len(flat):
         raise ValueError(f"unique_bag_grouped: {len(tables)} tables, "
-                         f"{len(devs)} devs and {len(invs)} invs")
+                         f"{len(devs)} devs, {len(invs)} invs and "
+                         f"{len(flat)} flat marks")
+    if any(f and d is not None for d, f in zip(devs, flat)):
+        raise ValueError("unique_bag_grouped: an occurrence-width (flat) "
+                         "table takes no dev")
     for t, d, i in zip(tables, devs, invs):
         if t.dim() != 2 or (d is not None and d.dim() != 1) or i.dim() != 2:
             raise ValueError(
@@ -225,15 +244,17 @@ def unique_bag_grouped(tables, devs, invs) -> list[torch.Tensor]:
                 for t, i in zip(tables, invs)]
     desc = [(t.data_ptr(), 0 if d is None else d.data_ptr(), i.data_ptr(),
              o.data_ptr(), int(t.shape[0]),
-             int(t.shape[0] if d is None else d.shape[0]), int(i.shape[0]),
+             -1 if d is None else int(d.shape[0]), int(i.shape[0]),
              int(i.shape[1]), int(t.shape[1]))
             for t, d, i, o in zip(tables, devs, invs, outs)]
-    served = sum(1 for o in outs if o.numel())
-    if served:
-        unique_bag.launches += _launch_grouped(
-            "unique_bag_grouped", "persia_unique_bag_grouped_f32", device,
-            desc)
-        unique_bag.tables += served
+    n_flat = sum(1 for o, f in zip(outs, flat) if o.numel() and f)
+    n_plan = sum(1 for o, f in zip(outs, flat) if o.numel() and not f)
+    if n_flat + n_plan:
+        made = _launch_grouped("unique_bag_grouped",
+                               "persia_unique_bag_grouped_f32", device, desc)
+        (unique_bag if n_plan else embedding_bag).launches += made
+        unique_bag.tables += n_plan
+        embedding_bag.tables += n_flat
     return outs
 
 
@@ -368,7 +389,48 @@ def blockscale_compress(v: torch.Tensor, block: int = 128):
     _launch("blockscale_compress", "persia_blockscale_compress_f32", v, comp,
             (v.data_ptr(), n, block, comp.data_ptr(), scales.data_ptr()))
     blockscale_compress.launches += 1
+    blockscale_compress.tables += 1
     return comp, scales
+
+
+def blockscale_compress_grouped(vs, block=128) -> list[tuple]:
+    """:func:`blockscale_compress` of every payload of a group in ONE
+    launch (one per chunk of descriptors) -> ``[(comp, scales)]``.
+    ``block`` is one block size for all or one per payload. The outputs
+    are views of one fp16 and one fp32 buffer, each starting on a 16-byte
+    boundary."""
+    vs = list(vs)
+    blocks = [_check_block(b) for b in (
+        [block] * len(vs) if isinstance(block, (int, np.integer))
+        else block)]
+    if len(blocks) != len(vs):
+        raise ValueError(f"blockscale_compress_grouped: {len(vs)} payloads "
+                         f"and {len(blocks)} blocks")
+    if not vs:
+        return []
+    if _all_on_cpu(*vs):
+        return ref.blockscale_compress_grouped_ref(vs, blocks)
+    device = _check_group("blockscale_compress_grouped",
+                          [("v", v, torch.float32) for v in vs])
+    n_blocks = [-(-v.numel() // b) for v, b in zip(vs, blocks)]
+    # starts rounded up to 8 halves and 4 floats (16 bytes)
+    c_at = np.cumsum([0] + [-(-k * b // 8) * 8
+                            for k, b in zip(n_blocks, blocks)])
+    s_at = np.cumsum([0] + [-(-k // 4) * 4 for k in n_blocks])
+    c_buf = torch.empty(int(c_at[-1]), dtype=torch.float16, device=device)
+    s_buf = torch.empty(int(s_at[-1]), dtype=torch.float32, device=device)
+    res = [(c_buf[int(c):int(c) + k * b].view(k, b),
+            s_buf[int(s):int(s) + k])
+           for k, b, c, s in zip(n_blocks, blocks, c_at, s_at)]
+    desc = [(v.data_ptr(), c.data_ptr(), s.data_ptr(), v.numel(), b)
+            for v, (c, s), b in zip(vs, res, blocks)]
+    served = sum(1 for v in vs if v.numel())
+    if served:
+        blockscale_compress.launches += _launch_grouped(
+            "blockscale_compress_grouped",
+            "persia_blockscale_compress_grouped_f32", device, desc)
+        blockscale_compress.tables += served
+    return res
 
 
 def blockscale_decompress(comp: torch.Tensor, scales: torch.Tensor,
@@ -587,9 +649,12 @@ WRAPPERS = (embedding_bag, unique_bag, fused_backward, blockscale_compress,
             blockscale_decompress, embedding_sgd, flash_attention_fwd)
 
 
+embedding_bag.tables = 0
 unique_bag.tables = 0
+blockscale_compress.tables = 0
 blockscale_decompress.tables = 0
-GROUPED = (unique_bag, blockscale_decompress)
+GROUPED = (embedding_bag, unique_bag, blockscale_compress,
+           blockscale_decompress)
 
 
 def launch_counts() -> dict[str, int]:
@@ -597,7 +662,8 @@ def launch_counts() -> dict[str, int]:
 
 
 def table_counts() -> dict[str, int]:
-    """Tables served by the kernels that take a group of tables."""
+    """Tables served by each function of the kernels that take a group of
+    tables."""
     return {w.__name__: w.tables for w in GROUPED}
 
 

@@ -39,6 +39,12 @@ def blockscale_compress_ref(v: torch.Tensor, block: int = 128):
     return (blocks * scale[:, None]).to(torch.float16), scale
 
 
+def blockscale_compress_grouped_ref(vs, blocks) -> list:
+    """:func:`blockscale_compress_ref` payload by payload, ``blocks[t]``
+    the block of ``vs[t]``."""
+    return [blockscale_compress_ref(v, b) for v, b in zip(vs, blocks)]
+
+
 def blockscale_decompress_ref(comp: torch.Tensor, scales: torch.Tensor
                               ) -> torch.Tensor:
     """(n_blocks, block) fp16 and (n_blocks,) fp32 scales -> (n_blocks,

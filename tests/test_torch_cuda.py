@@ -107,8 +107,9 @@ def test_cuda_kernels_edge_cases(cuda_device, case):
 
 
 # ---------------------------------------------------------------------------
-# the grouped kernels: unique_bag and blockscale_decompress, one launch for
-# a group of tables (the case generators are shared with the CPU tests of
+# the grouped kernels: the bag kernel (unique_bag and embedding_bag),
+# blockscale_compress and blockscale_decompress, one launch for a group of
+# tables (the case generators are shared with the CPU tests of
 # test_torch_grouped.py)
 # ---------------------------------------------------------------------------
 
@@ -212,6 +213,84 @@ def _codec_tensors(cases, device):
     return comps, scales, outs, wants
 
 
+COMPRESS_TABLES = [  # (n, block, kind)
+    (300 * 128, 128, "plain"),
+    (1000, 64, "plain"),
+    (0, 128, "plain"),                  # empty
+    (4096 - 76, 128, "plain"),          # a partial last block
+    (5000 - 77, 128, "plain"),          # n % 4 != 0: the scalar path
+    (3000, 30, "plain"),                # block % 4 != 0: the scalar path
+    (2048, 128, "misaligned"),          # v 4 bytes off: the scalar path
+    (1024, 128, "nan"),                 # a NaN in one block
+    (3000, 200, "plain"),               # block > 128: each block read twice
+    (1000, 20, "plain"),                # several blocks a warp, scalar
+    (256 * 128, 128, "plain"),          # whole 256-block tiles (Pallas)
+    (1030 * 128, 128, "plain"),         # one table's unique rows
+]
+
+
+def _compress_group(seed, n=None):
+    """Host payloads of one grouped compress: ``COMPRESS_TABLES``, or ``n``
+    of random lengths, blocks and kinds. Each is (v, block, kind)."""
+    rng = np.random.default_rng(seed)
+    specs = COMPRESS_TABLES if n is None else [
+        (int(rng.integers(0, 6000)), int(rng.choice([20, 30, 64, 128, 200])),
+         str(rng.choice(["plain", "misaligned", "nan"])))
+        for _ in range(n)]
+    cases = []
+    for m, block, kind in specs:
+        v = (rng.standard_normal(m) * np.exp(rng.standard_normal(m) * 4)) \
+            .astype(np.float32)
+        if kind == "nan" and m:
+            v[rng.integers(0, m)] = np.nan
+        cases.append((v, block, kind))
+    return cases
+
+
+def _compress_tensors(cases, device):
+    """(vs, blocks) on ``device``; a ``misaligned`` payload starts 4 bytes
+    into its buffer."""
+    vs = []
+    for v, _, kind in cases:
+        t = torch.from_numpy(v).to(device)
+        if kind == "misaligned":
+            buf = torch.empty(t.numel() + 1, device=device)
+            buf[1:].copy_(t)
+            t = buf[1:]
+        vs.append(t)
+    return vs, [block for _, block, _ in cases]
+
+
+FLAT_TABLES = [  # occurrence-width tables of a mixed bag group: (V, D, B, L)
+    (200, 128, 16, 8),
+    (300, 13, 8, 5),                    # the scalar path
+    (50, 8, 0, 3),                      # B = 0: no bag
+    (70, 32, 9, 6),                     # misaligned below: scalar path
+    (62_500, 128, 512, 8),              # one kwai-dlrm training table
+]
+
+
+def _flat_group(seed, device):
+    """(tables, ids) of occurrence-width tables: random ids with -1
+    padding, some past the end (clamped); the fourth table starts 4 bytes
+    into its buffer."""
+    rng = np.random.default_rng(seed)
+    tables, ids = [], []
+    for k, (V, D, B, L) in enumerate(FLAT_TABLES):
+        t = torch.from_numpy(rng.standard_normal((V, D)).astype(np.float32)) \
+            .to(device)
+        if k == 3:
+            buf = torch.empty(t.numel() + 1, device=device)
+            buf[1:].copy_(t.reshape(-1))
+            t = buf[1:].view(V, D)
+        i = _bags(rng, B, L, V)
+        if B:
+            i[0, 0] = V + 5
+        tables.append(t)
+        ids.append(torch.from_numpy(i).to(device))
+    return tables, ids
+
+
 def _chunks(sizes, per_launch):
     n = sum(1 for x in sizes if x)
     return -(-n // per_launch)
@@ -278,17 +357,89 @@ def test_cuda_decompress_grouped_matches_plain_and_per_table(cuda_device,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_tables", [None, 100])
+def test_cuda_compress_grouped_matches_plain_and_per_table(cuda_device,
+                                                           n_tables):
+    """Bit for bit (fp16 payload and scales, NaN blocks included) against
+    the plain version and the one-table kernel; the outputs are views of
+    one buffer per dtype, each on a 16-byte boundary."""
+    vs, blocks = _compress_tensors(_compress_group(6, n_tables), cuda_device)
+    ops.reset_launch_counts()
+    got = ops.blockscale_compress_grouped(vs, blocks)
+    torch.cuda.synchronize()
+    sizes = [v.numel() for v in vs]
+    assert ops.launch_counts()["blockscale_compress"] == \
+        _chunks(sizes, 80)                        # kMaxCodecTables
+    assert ops.table_counts()["blockscale_compress"] == \
+        sum(1 for x in sizes if x)
+    for v, b, (c, s) in zip(vs, blocks, got):
+        pc, ps = ref.blockscale_compress_ref(v, b)
+        assert _same_bits(c, pc) and _same_bits(s, ps)
+        assert c.data_ptr() % 16 == 0 and s.data_ptr() % 16 == 0
+        if v.numel():
+            oc, os_ = ops.blockscale_compress(v, b)
+            assert _same_bits(c, oc) and _same_bits(s, os_)
+    for k, dtype in ((0, torch.float16), (1, torch.float32)):
+        bases = {x[k].untyped_storage().data_ptr() for x in got}
+        assert len(bases) == 1 and got[0][k].dtype == dtype
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_bag_grouped_mixes_plan_and_occurrence_tables(cuda_device):
+    """Plan tables and occurrence-width tables (``embedding_bag`` as the
+    bag kernel's identity case) in ONE launch, counted once, on
+    ``unique_bag``; occurrence tables alone count on ``embedding_bag``."""
+    tables, devs, invs = _group_tensors(_bag_group(3), cuda_device)
+    ft, fi = _flat_group(8, cuda_device)
+    n_plan = sum(1 for t, i in zip(tables, invs) if i.shape[0] * t.shape[1])
+    n_flat = sum(1 for i in fi if i.shape[0])
+    # interleaved: flat tables between the plan tables
+    order = [("p", k) for k in range(len(tables))]
+    for k in range(len(ft)):
+        order.insert(2 * k + 1, ("f", k))
+    args = [(tables[k], devs[k], invs[k], False) if kind == "p" else
+            (ft[k], None, fi[k], True) for kind, k in order]
+    ops.reset_launch_counts()
+    got = ops.unique_bag_grouped(*(list(c) for c in zip(*args)))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["unique_bag"] == 1
+    assert ops.launch_counts()["embedding_bag"] == 0
+    assert ops.table_counts()["unique_bag"] == n_plan
+    assert ops.table_counts()["embedding_bag"] == n_flat
+    for (t, d, i, flat), g in zip(args, got):
+        if flat:
+            assert torch.equal(g, ref.embedding_bag_ref(t, i))
+            if i.shape[0]:
+                assert torch.equal(g, ops.embedding_bag(t, i))
+        else:
+            assert torch.equal(g, ref.unique_bag_grouped_ref([t], [d],
+                                                             [i])[0])
+    ops.reset_launch_counts()
+    alone = ops.unique_bag_grouped(ft, [None] * len(ft), fi, [True] * len(ft))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["embedding_bag"] == 1
+    assert ops.launch_counts()["unique_bag"] == 0
+    for t, i, g in zip(ft, fi, alone):
+        assert torch.equal(g, ref.embedding_bag_ref(t, i))
+
+
+@pytest.mark.cuda
 def test_cuda_grouped_launch_error_raises(cuda_device, monkeypatch):
     tables, devs, invs = _group_tensors(_bag_group(3)[:2], cuda_device)
     comps, scales, outs, _ = _codec_tensors(_codec_group(4)[:2], cuda_device)
+    vs, blocks = _compress_tensors(_compress_group(6)[:2], cuda_device)
     ops.reset_launch_counts()
     monkeypatch.setattr(ops, "_fn", lambda name: lambda *args: 700)
     with pytest.raises(RuntimeError, match="CUDA error 700"):
         ops.unique_bag_grouped(tables, devs, invs)
     with pytest.raises(RuntimeError, match="CUDA error 700"):
         ops.blockscale_decompress_grouped(comps, scales, outs)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        ops.blockscale_compress_grouped(vs, blocks)
     assert ops.launch_counts()["unique_bag"] == 0
     assert ops.launch_counts()["blockscale_decompress"] == 0
+    assert ops.launch_counts()["blockscale_compress"] == 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,8 @@
-"""The grouped kernels' wrappers (``ops.unique_bag_grouped``,
-``ops.blockscale_decompress_grouped``) and the all-table functions built on
-them (``backend.lookup_all``, ``put_all``, ``read_pooled_all``) on the CPU.
+"""The grouped kernels' wrappers (``ops.unique_bag_grouped``, with
+occurrence-width ``embedding_bag`` tables among its plan tables,
+``ops.blockscale_compress_grouped``, ``ops.blockscale_decompress_grouped``)
+and the all-table functions built on them (``backend.lookup_all``,
+``put_all``, ``read_pooled_all``) on the CPU.
 
 Tolerance: bit-exact throughout. On the CPU a grouped wrapper loops its
 plain version table by table, and the all-table functions compute each
@@ -20,6 +22,7 @@ import pytest
 import torch
 
 from repro.core import compression as JC
+from repro.kernels import blockscale as JB
 from repro.kernels import ref as jref
 
 from repro_torch.core import adapters, backend
@@ -29,8 +32,9 @@ from repro_torch.kernels import ops
 from repro_torch.optim import optimizers as topt
 from repro_torch.utils import tree_leaves
 
-from test_torch_cuda import (_bag_group, _codec_group, _group_tensors,
-                             _codec_tensors)
+from test_torch_cuda import (_bag_group, _codec_group, _codec_tensors,
+                             _compress_group, _compress_tensors, _flat_group,
+                             _group_tensors)
 from test_torch_train import CFG, DENSE_LR, DS, EMB_LR, _batches
 
 
@@ -94,13 +98,92 @@ def test_decompress_grouped_equals_per_table_and_jax(n_tables):
             np.testing.assert_array_equal(g.numpy(), jv)
 
 
+def _same_or_both_nan(a: np.ndarray, b: np.ndarray) -> bool:
+    """Bit-equal, except that a NaN may carry another payload on each side
+    (torch and XLA propagate NaN bits differently on the CPU)."""
+    a, b = np.asarray(a), np.asarray(b)
+    view = np.uint16 if a.dtype == np.float16 else np.uint32
+    nan = np.isnan(a)
+    return a.shape == b.shape and np.array_equal(nan, np.isnan(b)) and \
+        np.array_equal(a[~nan].view(view), b[~nan].view(view))
+
+
+@pytest.mark.parametrize("n_tables", [None, 100])
+def test_compress_grouped_equals_per_table_and_jax(n_tables):
+    """Payloads of unequal length and block: empty, a partial last block,
+    the scalar path's lengths and block, a block longer than 128, a NaN
+    block, a misaligned view on the card; 100 payloads are more than one
+    launch takes on the card. The fixed group is held against the JAX
+    codec, and its block-128 payloads of whole 256-block tiles against the
+    Pallas kernel in interpret mode too."""
+    cases = _compress_group(6, n_tables)
+    vs, blocks = _compress_tensors(cases, "cpu")
+    ops.reset_launch_counts()
+    got = ops.blockscale_compress_grouped(vs, blocks)
+    assert ops.launch_counts()["blockscale_compress"] == 0
+    assert ops.table_counts()["blockscale_compress"] == 0
+    assert len(got) == len(vs)
+    for v, b, (c, sc) in zip(vs, blocks, got):
+        pc, ps = ops.blockscale_compress(v, b)
+        assert _same(c, pc) and _same(sc, ps)
+        if n_tables is not None:
+            continue
+        jc, js, _ = JC.blockscale_compress(jnp.asarray(v.numpy()), b)
+        assert _same_or_both_nan(c.numpy(), jc)
+        assert _same_or_both_nan(sc.numpy(), js)
+        if b == 128 and v.numel() and v.numel() % (256 * 128) == 0:
+            kc, ks = JB.compress(jnp.asarray(v.numpy().reshape(-1, 128)),
+                                 interpret=True)
+            assert _same_or_both_nan(c.numpy(), kc)
+            assert _same_or_both_nan(sc.numpy(), ks)
+    # one block for every payload
+    same = ops.blockscale_compress_grouped(vs[:4], 64)
+    for v, (c, sc) in zip(vs, same):
+        pc, ps = ops.blockscale_compress(v, 64)
+        assert _same(c, pc) and _same(sc, ps)
+
+
+def test_bag_grouped_pools_occurrence_tables_as_embedding_bag():
+    """Occurrence-width tables (``flat``: the identity dev, ids into the
+    table) among the plan tables of one group: each equals
+    ``embedding_bag`` and the JAX package's oracle."""
+    tables, devs, invs = _group_tensors(_bag_group(3), "cpu")
+    ft, fi = _flat_group(8, "cpu")
+    ops.reset_launch_counts()
+    got = ops.unique_bag_grouped(tables + ft, devs + [None] * len(ft),
+                                 invs + fi,
+                                 [False] * len(tables) + [True] * len(ft))
+    assert ops.launch_counts()["embedding_bag"] == 0
+    assert ops.table_counts()["embedding_bag"] == 0
+    for g, t, d, i in zip(got, tables, devs, invs):
+        dev = torch.arange(t.shape[0], dtype=torch.int32) if d is None else d
+        assert _same(g, ops.unique_bag(t, dev, i))
+    for g, t, i in zip(got[len(tables):], ft, fi):
+        assert _same(g, ops.embedding_bag(t, i))
+        if i.numel():
+            want = np.asarray(jref.embedding_bag_ref(jnp.asarray(t.numpy()),
+                                                     jnp.asarray(i.numpy())))
+            np.testing.assert_array_equal(g.numpy(), want)
+
+
 def test_grouped_wrappers_check_their_arguments():
     t = torch.ones((5, 4))
     i = torch.zeros((2, 3), dtype=torch.int32)
     assert ops.unique_bag_grouped([], [], []) == []
     assert ops.blockscale_decompress_grouped([], [], []) == []
+    assert ops.blockscale_compress_grouped([]) == []
     with pytest.raises(ValueError, match="1 tables, 0 devs"):
         ops.unique_bag_grouped([t], [], [i])
+    with pytest.raises(ValueError, match="takes no dev"):
+        ops.unique_bag_grouped([t], [i[0]], [i], [True])
+    with pytest.raises(ValueError, match="1 flat marks"):
+        ops.unique_bag_grouped([t, t], [None, None], [i, i], [True])
+    with pytest.raises(ValueError, match="2 payloads and 1 blocks"):
+        ops.blockscale_compress_grouped([t, t], [4])
+    with pytest.raises(ValueError, match="positive int"):
+        ops.blockscale_compress_grouped([t], 0)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ops.blockscale_compress_grouped([t.to("meta")])
     with pytest.raises(ValueError, match=r"inv \(B, L\)"):
         ops.unique_bag_grouped([t], [None], [i[0]])
     with pytest.raises(ValueError, match="one CUDA device"):
@@ -142,19 +225,30 @@ def _read_per_table(backends, states, ids, device):
     return pooled, info
 
 
-# name -> (rows, dim, backend, batch_dedup, ids per bag)
+# name -> (rows, dim, backend, batch_dedup, ids per bag[, wire_block])
 TABLES = {"a": (300, 16, "dense", True, 4),
           "b": (120, 13, "dense", True, 3),
           "c": (500, 16, "dense", False, 4),
           "d": (200, 128, "dense+compressed", True, 8),
           "e": (90, 16, "dense+compressed", False, 2),
           "f": (60, 12, "dense+compressed", True, 5)}
+# groups of one kind each: every table at occurrence width (dense and
+# behind the wire), and every table behind the wire (plan and occurrence
+# width, blocks of 128, 64 and 12)
+GROUPS = {"mixed": TABLES,
+          "flat": {"c": TABLES["c"], "e": TABLES["e"],
+                   "g": (80, 8, "dense", False, 3),
+                   "h": (150, 24, "dense+compressed", False, 6, 64)},
+          "wire": {"d": TABLES["d"], "e": TABLES["e"], "f": TABLES["f"],
+                   "i": (140, 20, "dense+compressed", True, 4, 64),
+                   "j": (70, 12, "dense+compressed", False, 3, 12)}}
 
 
-def _collection(staleness):
+def _collection(staleness, tables=TABLES):
     specs = {n: EmbeddingSpec(rows=r, dim=d, staleness=staleness, lr=0.05,
-                              backend=bk, batch_dedup=dd)
-             for n, (r, d, bk, dd, _) in TABLES.items()}
+                              backend=bk, batch_dedup=dd,
+                              wire_block=block[0] if block else 128)
+             for n, (r, d, bk, dd, _, *block) in tables.items()}
     backends = {n: backend.create_backend(s) for n, s in specs.items()}
     rng = np.random.default_rng(staleness)
     states = {}
@@ -166,9 +260,9 @@ def _collection(staleness):
     return backends, states
 
 
-def _ids(rng, n_bags):
+def _ids(rng, n_bags, tables=TABLES):
     out = {}
-    for n, (rows, _, _, _, L) in TABLES.items():
+    for n, (rows, _, _, _, L, *_) in tables.items():
         ids = rng.integers(0, rows + 3, (n_bags, L))    # some past the end
         ids[rng.random((n_bags, L)) < 0.2] = -1
         out[n] = ids
@@ -180,20 +274,23 @@ def _clone(states):
             for n, st in states.items()}
 
 
-@pytest.mark.parametrize("staleness", [0, 3])
-def test_lookup_all_and_put_all_equal_the_per_table_path(staleness):
-    backends, states = _collection(staleness)
+@pytest.mark.parametrize("staleness,group", [
+    (0, "mixed"), (3, "mixed"), (0, "flat"), (3, "flat"), (0, "wire"),
+    (3, "wire")], ids=["0", "3", "flat-0", "flat-3", "wire-0", "wire-3"])
+def test_lookup_all_and_put_all_equal_the_per_table_path(staleness, group):
+    tables = GROUPS[group]
+    backends, states = _collection(staleness, tables)
     sides = {"grouped": (backend.lookup_all, backend.put_all),
              "per_table": (_lookup_per_table, _put_per_table)}
     st = {k: _clone(states) for k in sides}
-    qs = {k: {n: b.queue_init((16, TABLES[n][4]), "cpu")
+    qs = {k: {n: b.queue_init((16, tables[n][4]), "cpu")
               for n, b in backends.items()} for k in sides}
     rng = np.random.default_rng(7)
     for _ in range(5):
-        ids = _ids(rng, 16)
+        ids = _ids(rng, 16, tables)
         grads = {n: torch.from_numpy(rng.standard_normal(
-            (16, TABLES[n][4], TABLES[n][1])).astype(np.float32))
-            for n in TABLES}
+            (16, tables[n][4], tables[n][1])).astype(np.float32))
+            for n in tables}
         out = {}
         for k, (lookup, put) in sides.items():
             _, dev_ids, _ = backend.prepare_all(backends, st[k], ids, "cpu")
@@ -201,14 +298,14 @@ def test_lookup_all_and_put_all_equal_the_per_table_path(staleness):
             st[k], qs[k], pm = put(backends, st[k], qs[k], dev_ids, grads)
             out[k] = pooled, gm, pm
         (pg, gg, pmg), (pp, gp, pmp) = out["grouped"], out["per_table"]
-        assert list(pg) == list(TABLES)
-        for n in TABLES:
+        assert list(pg) == list(tables)
+        for n in tables:
             assert _same(pg[n], pp[n]), n
         for m, w in ((gg, gp), (pmg, pmp)):
             assert set(m) == set(w)
             for key in m:
                 assert float(m[key]) == float(w[key]), key
-    for n in TABLES:
+    for n in tables:
         for key in ("table", "acc"):
             assert _same(st["grouped"][n][key], st["per_table"][n][key])
         qg, qp = qs["grouped"][n], qs["per_table"][n]
@@ -219,17 +316,29 @@ def test_lookup_all_and_put_all_equal_the_per_table_path(staleness):
             assert _same(qg["grads"], qp["grads"])
 
 
-def test_read_pooled_all_equals_read_pooled():
-    backends, states = _collection(0)
+def _read_pooled_all_equals_read_pooled(group):
+    tables = GROUPS[group]
+    backends, states = _collection(0, tables)
     rng = np.random.default_rng(9)
-    ids = _ids(rng, 24)
-    ids["a"][0] = -5                       # all padding, another negative
-    ids["d"][1, 0] = 2**40                 # past int32: still out of range
+    ids = _ids(rng, 24, tables)
+    first, wired = list(tables)[0], [n for n in tables if "compressed" in
+                                      tables[n][2]]
+    ids[first][0] = -5                     # all padding, another negative
+    ids[wired[0]][1, 0] = 2**40            # past int32: still out of range
     got, info = backend.read_pooled_all(backends, states, ids, "cpu")
     want, winfo = _read_per_table(backends, states, ids, "cpu")
-    assert list(got) == list(TABLES) and info == winfo
-    for n in TABLES:
+    assert list(got) == list(tables) and info == winfo
+    for n in tables:
         assert _same(got[n], want[n]), n
+
+
+def test_read_pooled_all_equals_read_pooled():
+    _read_pooled_all_equals_read_pooled("mixed")
+
+
+@pytest.mark.parametrize("group", ["flat", "wire"])
+def test_read_pooled_all_equals_read_pooled_per_group(group):
+    _read_pooled_all_equals_read_pooled(group)
 
 
 VARIANTS = {"dense": lambda n, s: s,
