@@ -120,6 +120,10 @@ each timed beside its bound, its plain version and its library call
 neither). The attention's bound is three TF32 passes of its operations
 (its fp32 products run as 3xTF32), with the one-pass fp32 bound beside
 it; the same shape with bf16 inputs is timed against its own bound.
+``embedding_sgd`` is also timed as one call per graph replay (``lone_ms``),
+beside the launch floor (``launch_floor_ms``): an empty one-thread kernel
+timed the same two ways, a chain of 32 launches in one graph and one
+launch per replay, as a plain launch and as a programmatic dependent.
 
 The bag kernel serves both bag functions: a launch counts once, on
 ``unique_bag`` when it pooled a plan table and on ``embedding_bag``
@@ -197,6 +201,8 @@ BLOCK = 128
 LM_ARCH, LM_B, LM_PROMPT, LM_GEN = "granite_3_2b", 4, 2048, 32
 LM_CPU = {"layers": 2, "batch": 1, "prompt": 256, "gen": 4}
 EMB_SGD_LR = 1e-2
+# graph replays of a one-launch graph (a lone call, the launch floor)
+LONE_REPS = 200
 
 KERNELS = {
     "embedding_bag": {"source": "src/repro_torch/kernels/csrc/bag.cu",
@@ -1251,6 +1257,9 @@ def sgd_phase(dev, ds):
         "ms": device_ms(loop(lambda k: ops.embedding_sgd(
             tables[k], *puts[k], EMB_SGD_LR, assume_unique=True)), 20)
         / N_TABLES,
+        # one call per graph replay: no launch before it to overlap
+        "lone_ms": device_ms(lambda: ops.embedding_sgd(
+            tables[0], *puts[0], EMB_SGD_LR, assume_unique=True), LONE_REPS),
         "eager_ms": eager_ms(loop(lambda k: ops.embedding_sgd(
             tables[k], *puts[k], EMB_SGD_LR, assume_unique=True)), 20)
         / N_TABLES,
@@ -1279,6 +1288,21 @@ def sgd_phase(dev, ds):
     del tables, puts, lib_args
     torch.cuda.empty_cache()
     return timing
+
+
+def floor_phase(dev) -> dict:
+    """The launch floor: device ms per launch of an empty one-thread kernel
+    (``ops.launch_floor``), timed as the kernels are: a chain of 32 launches
+    in one CUDA graph, and one launch per graph replay; each as a plain
+    launch and as a programmatic dependent (PDL)."""
+    floor = {}
+    for pdl, tag in ((False, ""), (True, "pdl_")):
+        floor[tag + "chain_ms"] = device_ms(lambda: [
+            ops.launch_floor(dev, pdl) for _ in range(N_TABLES)], 20) \
+            / N_TABLES
+        floor[tag + "lone_ms"] = device_ms(
+            lambda: ops.launch_floor(dev, pdl), LONE_REPS)
+    return floor
 
 
 def attended_pairs(Sq, Sk, causal, window, q_offset=0) -> int:
@@ -2136,11 +2160,13 @@ def main() -> int:
     timing.update(blockscale_phase(dev, ds))
     timing["embedding_sgd"] = sgd_phase(dev, ds)
     timing["flash_attention_fwd"] = flash_phase(dev)
+    floor = floor_phase(dev)
     emit({"phase": "kernels", "shape": {"B": B, "L": L, "D": DIM, "V": V,
                                         "tables": N_TABLES,
                                         "train_batch": TRAIN_B},
           "bit_exact": [k for k in KERNELS if k != "flash_attention_fwd"],
-          "allclose": ["flash_attention_fwd"], "per_call_ms": timing})
+          "allclose": ["flash_attention_fwd"], "launch_floor_ms": floor,
+          "per_call_ms": timing})
     # each path's launch counts, read around its own run
     paths, recs = {}, {}
     paths["serve"], recs["serve"] = serve_phase(dev)
@@ -2187,7 +2213,8 @@ def main() -> int:
             **{k: t[k] for k in STAGE_KEYS if k in t}})
         check(kernels[-1]["launches"] > 0, f"{name} was never launched")
     record = {"card": card, "build_s": build_s, "ptxas": ptxas,
-              "kernel_timing": timing, **recs, "kernels": kernels}
+              "kernel_timing": timing, "launch_floor_ms": floor, **recs,
+              "kernels": kernels}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -58,6 +58,8 @@ _SIGNATURES = {
                                                  (_P, _I, _P, _P)),
     "persia_embedding_sgd_f32": ("embedding_sgd",
                                  (_P, _P, _P, _I64, _I, _I, _F, _P)),
+    "persia_embedding_sgd_rows_per_warp": ("embedding_sgd", (_I64,)),
+    "persia_launch_floor": ("embedding_sgd", (_I, _P)),
     "persia_flash_attention_fwd": ("flash_attention",
                                    (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                     _I, _F, _I, _I, _I, _I, _P)),
@@ -558,7 +560,7 @@ def embedding_sgd(table: torch.Tensor, ids: torch.Tensor,
     grads[t]`` where 0 <= ids[t] < V; -1 and ids >= V change nothing.
     table (V, D), ids (T,), grads (T, D); returns ``table``. Port of
     ``repro.kernels.ops.embedding_sgd`` (which returns a new table): the
-    kernel's threads race on a repeated row, so unless ``assume_unique``
+    kernel's warps race on a repeated row, so unless ``assume_unique``
     vouches for the ids, :func:`check_unique` runs first and duplicates
     raise."""
     if table.dim() != 2 or ids.dim() != 1 or grads.dim() != 2 or \
@@ -579,6 +581,22 @@ def embedding_sgd(table: torch.Tensor, ids: torch.Tensor,
              float(lr)))
     embedding_sgd.launches += 1
     return table
+
+
+def launch_floor(device, pdl: bool = False) -> None:
+    """Launch an empty one-thread kernel on ``device``'s current stream, as
+    a programmatic dependent (PDL) when ``pdl``: the fixed cost any launch
+    pays, which ``chip_smoke.py`` times beside the kernels. It computes
+    nothing, serves no path and counts no launch. Needs a CUDA device."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"launch_floor: needs a CUDA device, got {device}")
+    with torch.cuda.device(device):
+        err = _fn("persia_launch_floor")(
+            int(pdl), torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"launch_floor: kernel launch failed with CUDA "
+                           f"error {err}")
 
 
 _ATTN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}

@@ -700,10 +700,40 @@ def test_cuda_wire_matches_cpu(cuda_device, form, staleness):
 # exponentials and sums run in another order than the plain version's)
 # ---------------------------------------------------------------------------
 
+# embedding_sgd.cu puts one row on a warp until a put fills a wave of 132 SMs
+# x 16 CTAs of 4 warps; past that two rows a warp, past four waves four
+SGD_WAVE_ROWS = 132 * 16 * 4
+SGD_CASES = [  # (V, D, T, case)
+    (62_500, 128, 694, "plain"),     # the entry point's put
+    (1_000, 13, 40, "plain"),
+    (50, 4, 1, "plain"),
+    # the scalar path (D 13) and rows narrower and wider than a warp's 32
+    # float4s; part-filled warps and CTAs
+    *[(5_000, D, T, "plain") for D in (4, 13, 64, 128, 256, 1000)
+      for T in (1, 31, 694, 4096)],
+    (5_000, 128, 694, "misaligned"),     # grads off 16 bytes: scalar path
+    (5_000, 1000, 31, "misaligned"),
+    (5_000, 128, 0, "plain"),
+    (62_500, 128, 5, "plain"),           # the most rows a warp takes, + 1
+    (62_500, 128, SGD_WAVE_ROWS + 1, "plain"),      # 2 rows a warp
+    (62_500, 128, 4 * SGD_WAVE_ROWS + 1, "plain"),  # 4, past one wave
+    # in one graph after the kernels that write their inputs; with wide
+    # rows a put runs long enough that a read before its wait would race
+    (62_500, 128, 694, "graph"),
+    (1_000, 13, 40, "graph"),
+    (5_000, 1000, 694, "graph"),
+    (1_000, 4096, 40, "graph"),
+]
+
+
+def _sgd_id(case):
+    return "-".join(str(c) for c in case[:3]) + \
+        (f"-{case[3]}" if case[3] != "plain" else "")
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("V,D,T", [(62_500, 128, 694), (1_000, 13, 40),
-                                   (50, 4, 1)])
-def test_cuda_embedding_sgd_matches_plain_version(cuda_device, V, D, T):
+@pytest.mark.parametrize("V,D,T,case", SGD_CASES, ids=map(_sgd_id, SGD_CASES))
+def test_cuda_embedding_sgd_matches_plain_version(cuda_device, V, D, T, case):
     rng = np.random.default_rng(V + T)
     table = torch.from_numpy(rng.standard_normal((V, D)).astype(np.float32))
     ids = rng.permutation(V)[:T].astype(np.int32)
@@ -711,18 +741,70 @@ def test_cuda_embedding_sgd_matches_plain_version(cuda_device, V, D, T):
     ids[1::11] = V + 3          # past the end: no-op
     grads = torch.from_numpy(rng.standard_normal((T, D)).astype(np.float32))
     ids_t = torch.from_numpy(ids)
+    assert ops._fn("persia_embedding_sgd_rows_per_warp")(T) == \
+        min(max(-(-T // SGD_WAVE_ROWS), 1), 4)
+    if case == "graph":
+        _sgd_in_one_graph(cuda_device, rng, table, ids_t, grads)
+        return
     want = ops.embedding_sgd(table.clone(), ids_t, grads, 0.05,
                              assume_unique=True)
+    grads_d = grads.to(cuda_device)
+    if case == "misaligned":
+        grads_d = torch.empty(T * D + 1, device=cuda_device)[1:].view(T, D)
+        grads_d.copy_(grads)
+        assert grads_d.data_ptr() % 16 != 0
     ops.reset_launch_counts()
     got = ops.embedding_sgd(table.to(cuda_device), ids_t.to(cuda_device),
-                            grads.to(cuda_device), 0.05, assume_unique=True)
+                            grads_d, 0.05, assume_unique=True)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
-    assert ops.launch_counts()["embedding_sgd"] == 1
+    assert ops.launch_counts()["embedding_sgd"] == (1 if T else 0)
     with pytest.raises(ValueError, match="duplicates"):
         ops.embedding_sgd(got, torch.zeros(2, dtype=torch.int32,
                                            device=cuda_device),
                           torch.ones((2, D), device=cuda_device))
+
+
+def _sgd_in_one_graph(dev, rng, table, ids, grads):
+    """Three puts in one captured graph, each reading what the kernel just
+    before it wrote: copy kernels write the first put's ids and gradients,
+    the first put writes the second's gradients (a (T, D) buffer taken as
+    a table), the third reads the table rows the second wrote. A put lets
+    its successor launch at once (PDL), so only its griddepcontrol.wait
+    before the first read keeps it from reading early."""
+    T, D = grads.shape
+    perm = torch.from_numpy(rng.permutation(T).astype(np.int32))
+    h = torch.from_numpy(rng.standard_normal((T, D)).astype(np.float32))
+    want_g = ops.embedding_sgd(grads.clone(), perm, h, 0.05)
+    want = table.clone()
+    for _ in range(2):
+        ops.embedding_sgd(want, ids, want_g, 0.05, assume_unique=True)
+    table_d, g_d = table.to(dev), torch.zeros((T, D), device=dev)
+    ids_src, g_src = ids.to(dev), grads.to(dev)
+    ids_d = torch.full_like(ids_src, -1)
+    perm_d, h_d = perm.to(dev), h.to(dev)
+
+    def puts():
+        ids_d.copy_(ids_src)
+        g_d.copy_(g_src)
+        ops.embedding_sgd(g_d, perm_d, h_d, 0.05, assume_unique=True)
+        for _ in range(2):
+            ops.embedding_sgd(table_d, ids_d, g_d, 0.05, assume_unique=True)
+
+    puts()                          # builds and loads the kernel
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        puts()
+    table_d.copy_(table)
+    ids_d.fill_(-1)
+    g_d.zero_()
+    ops.reset_launch_counts()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(g_d.cpu(), want_g)
+    assert torch.equal(table_d.cpu(), want)
+    assert ops.launch_counts()["embedding_sgd"] == 0    # counted at capture
 
 
 FLASH_CASES = [  # (B, Hq, Hkv, Sq, Sk, Dh, causal, window, q_offset, x)

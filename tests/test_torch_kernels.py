@@ -211,6 +211,13 @@ def test_wrappers_reject_other_devices_and_bad_shapes():
         ops.unique_bag(torch.ones((5, 4)), ids, ids)
 
 
+def test_launch_floor_needs_a_cuda_device():
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        ops.launch_floor("cpu")
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        ops.launch_floor(torch.device("cpu"), pdl=True)
+
+
 def test_build_names_sources_and_hashes_them(monkeypatch):
     assert set(build.sources()) == {"bag", "blockscale", "embedding_sgd",
                                     "flash_attention", "fused_backward"}
@@ -429,7 +436,7 @@ def test_embedding_sgd_matches_jax_kernel_and_oracle(T, pad):
     np.testing.assert_array_equal(got[untouched], table[untouched])
 
 
-@pytest.mark.parametrize("T", [4, 17])
+@pytest.mark.parametrize("T", [4, 17, 31, 40])
 def test_embedding_sgd_ids_past_end_change_nothing(T):
     table, ids, grads = _sgd_case(T, T, pad=1, past_end=2)
     got = _port_sgd(table, ids, grads, 0.1)

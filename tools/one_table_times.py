@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Device time of one-table calls of ``embedding_bag`` and
-``blockscale_compress`` at the kwai-dlrm shapes, to hold two trees'
-kernels against each other in one run on one card:
+"""Device time of one-table calls of ``embedding_bag``,
+``blockscale_compress`` and ``embedding_sgd`` at the kwai-dlrm shapes, to
+hold two trees' kernels against each other in one run on one card:
 
     python3 tools/one_table_times.py [--src DIR]
 
@@ -12,8 +12,9 @@ one call's device ms, from a CUDA graph of 32 calls (one per table of
 ``chip_smoke.py`` times a kernel: ``embedding_bag`` at the serving (B 64)
 and training (B 512) shapes, L 8, uniform random ids with a random-length
 tail of -1 padding; ``blockscale_compress`` (block 128) of 1,024 rows of
-128 per table, a training get's width. Prints the card and one JSON line.
-Needs a GPU.
+128 per table, a training get's width; ``embedding_sgd`` of a unique put
+of 694 rows per table (the entry point's put), also as one call per graph
+replay (200 replays). Prints the card and one JSON line. Needs a GPU.
 """
 from __future__ import annotations
 
@@ -83,6 +84,14 @@ def main() -> int:
             for _ in range(TABLES)]
     out["blockscale_compress_ms"] = device_ms(lambda: [
         ops.blockscale_compress(r, 128) for r in rows]) / TABLES
+    puts = [(torch.randperm(V, generator=gen, device=dev)[:694].int(),
+             torch.randn((694, DIM), generator=gen, device=dev) * 1e-3)
+            for _ in range(TABLES)]
+    out["embedding_sgd_ms"] = device_ms(lambda: [
+        ops.embedding_sgd(t, *p, 1e-2, assume_unique=True)
+        for t, p in zip(tables, puts)]) / TABLES
+    out["embedding_sgd_lone_ms"] = device_ms(lambda: ops.embedding_sgd(
+        tables[0], *puts[0], 1e-2, assume_unique=True), 200)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
