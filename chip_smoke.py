@@ -106,6 +106,31 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    into what the fp32 GEMMs leave alone (the card with the plain attention
    against the CPU) and what the attention kernel adds (kernel against
    plain attention on the card).
+9. The out-of-core tier, train: kwai-dlrm with every table ``host_lru``
+   (a device cache of 7,812 slots, ``default_cache_rows``, over the
+   62,500 host rows), hybrid(3), batch 512: 2 warm-up and 30 timed steps
+   (ONE bag launch over the cache slots and ``fused_backward`` once per
+   table, as dense), 5 with a stage breakdown whose prepare is split into
+   fault-in, eviction (and its wait for the stream) and plan, 3 under the
+   profiler; faults, write-backs and hits per step. Every table must fault
+   more rows than its cache holds and write rows back, the caches must
+   hold fewer bytes than the host stores, and eval must fault nothing.
+10. The out-of-core tier, serve: that trained state behind the
+   ``ServingService`` (512 Zipf requests, 4 clients, ``max_batch=64``):
+   every flush ONE bag launch over each table's hits (gathered from the
+   cache) and misses (read from the host store), reads that miss, nothing
+   faulted in, predictions equal to the plain read's. Then the card
+   against the CPU for 4 more hybrid(3) steps from that state (carried as
+   checkpoint blobs): the classes of phase 4, slot maps and counters
+   exactly. Then ``host_lru+disk`` (a host tier of 2,048 rows over mmap
+   files under ``build/``) bit for bit against ``host_lru`` over 4 steps
+   from one seed, and ``host_lru+compressed`` for 4 steps (ONE compress
+   and ONE decompress per get and per put).
+11. The out-of-core tier, LM: granite-3-2b at full width with the vocab
+   table on ``host_lru`` (6,144 slots), B=1, a 2,048-token prompt, 32
+   greedy tokens through ``launch.serve.serve``: its prefill logits equal
+   those of the dense vocab table from the same seed bit for bit, and its
+   tokens those of the dense serve.
 
 The kernel phase also holds ``embedding_sgd`` bit for bit on 32 tables'
 real kwai-dlrm puts (the unique physical rows of a training put, -1 and
@@ -164,7 +189,8 @@ from repro_torch.core.hybrid import PersiaTrainer, TrainMode  # noqa: E402
 from repro_torch.data.ctr import CTR_BENCHMARKS  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.launch import serve as lm_serve  # noqa: E402
-from repro_torch.launch.shards import build_embedding_spec  # noqa: E402
+from repro_torch.launch.shards import (build_embedding_spec,  # noqa: E402
+                                       default_cache_rows)
 from repro_torch.models import flash as lm_flash  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import transformer as lm_model  # noqa: E402
@@ -201,6 +227,16 @@ BLOCK = 128
 LM_ARCH, LM_B, LM_PROMPT, LM_GEN = "granite_3_2b", 4, 2048, 32
 LM_CPU = {"layers": 2, "batch": 1, "prompt": 256, "gen": 4}
 EMB_SGD_LR = 1e-2
+# the out-of-core tier: kwai-dlrm's steps on host_lru (the device cache is
+# default_cache_rows of the 62,500 rows: 7,812), the short runs of
+# host_lru+disk and host_lru+compressed, the card-against-CPU steps; the
+# granite vocab table's cache (vocab/8) and batch
+HOST_LRU = "host_lru"
+LRU_STEPS = {"timed": 30, "breakdown": 5, "profiled": 3, "short": 4,
+             "cpu": 4}
+LM_LRU_CACHE, LM_LRU_B = 6144, 1
+# the +disk runs' host tier: small enough that 4 steps spill to disk
+LRU_HOST_ROWS = 2048
 # graph replays of a one-launch graph (a lone call, the launch floor)
 LONE_REPS = 200
 
@@ -1602,12 +1638,22 @@ def serve_phase(dev, backend="dense"):
 # train phase
 # ---------------------------------------------------------------------------
 
-def kwai_train_trainer(dev, mode, backend="dense", batch_dedup=None):
+def kwai_train_trainer(dev, mode, backend="dense", batch_dedup=None,
+                       disk_path=None):
+    """kwai-dlrm's trainer; a host_lru backend gets the launchers' cache
+    (``default_cache_rows``) and, under ``+disk``, a host tier of
+    ``LRU_HOST_ROWS`` over mmap files in a directory of ``disk_path`` per
+    table."""
     ds = CTR_BENCHMARKS["kwai_video"]
     adapter = adapters.recsys_adapter(KWAI, lr=EMB_LR,
                                       field_rows=ds.field_rows())
-    adapter = dataclasses.replace(
-        adapter, collection=adapter.collection.with_backend(backend))
+    cache = default_cache_rows(ds.rows_per_field) \
+        if backend.startswith(HOST_LRU) else None
+    coll = adapter.collection.with_backend(backend, cache)
+    if "+disk" in backend:
+        coll = coll.map_specs(lambda n, s: dataclasses.replace(
+            s, host_rows=LRU_HOST_ROWS, disk_path=str(Path(disk_path) / n)))
+    adapter = dataclasses.replace(adapter, collection=coll)
     return PersiaTrainer(adapter, mode, OptConfig(kind="adam", lr=DENSE_LR),
                          batch_dedup=batch_dedup, device=dev)
 
@@ -2129,6 +2175,404 @@ def lm_card_vs_cpu(dev):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the out-of-core tier: host_lru and host_lru+disk under kwai-dlrm and the
+# granite vocab table
+# ---------------------------------------------------------------------------
+
+def lru_backends(trainer) -> list:
+    return [BK.unwrap(b) for b in trainer.backends.values()]
+
+
+def lru_counters(trainer) -> dict:
+    """faults, writebacks, hits and the host seconds of the fault path,
+    summed over the tables."""
+    out = dict.fromkeys(("faults", "writebacks", "hits", "evict_s",
+                         "evict_sync_s", "fault_s"), 0.0)
+    for b in lru_backends(trainer):
+        out["faults"] += b.faults
+        out["writebacks"] += b.writebacks
+        out["hits"] += b.hits
+        for k, v in b.stage_s.items():
+            out[f"{k}_s"] += v
+    return out
+
+
+def lru_delta(a, b, per=1) -> dict:
+    return {k: (b[k] - a[k]) / per for k in a}
+
+
+def train_host_lru_phase(dev):
+    """kwai-dlrm at full width with every table ``host_lru`` (device cache
+    of ``default_cache_rows`` = 7,812 slots over the 62,500 host rows),
+    hybrid(3), batch 512: 2 warm-up and 30 timed steps, a staged breakdown
+    with the prepare split into fault-in, eviction and plan, profiled
+    steps; the fault path's counters per step; every table must fault more
+    rows than its cache holds and write rows back. Returns the trainer and
+    its state for the serve and card-against-CPU phases."""
+    ds = CTR_BENCHMARKS["kwai_video"]
+    steps = LRU_STEPS
+    it = ds.sampler(TRAIN_B, seed=SEED + 3)
+    n_main = WARMUP_STEPS + steps["timed"] + steps["breakdown"] + \
+        steps["profiled"]
+    batches = [next(it) for _ in range(n_main)]
+    trainer = kwai_train_trainer(dev, TrainMode.hybrid(TAU), HOST_LRU)
+    cache = trainer.collection["field_00"].cache_rows
+    t0 = time.perf_counter()
+    state = trainer.init(seed=SEED, batch_example=batches[0])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    for b in batches[:WARMUP_STEPS]:
+        state, _ = trainer.step(state, b)
+    torch.cuda.synchronize()
+
+    # the main path: timed steps, counts set to 0 just before
+    c0 = lru_counters(trainer)
+    t0 = time.perf_counter()
+    timed = batches[WARMUP_STEPS:WARMUP_STEPS + steps["timed"]]
+    state, losses, launches, _, served = run_steps(trainer, state, timed,
+                                                   "host_lru hybrid")
+    wall = time.perf_counter() - t0
+    main_counts = (launches, served)
+    per_step = lru_delta(c0, lru_counters(trainer), steps["timed"])
+
+    times, split = {}, {}
+    rest = batches[WARMUP_STEPS + steps["timed"]:]
+    for b in rest[:steps["breakdown"]]:
+        c = lru_counters(trainer)
+        state, _ = staged_step(trainer, state, b, times)
+        for k, v in lru_delta(c, lru_counters(trainer)).items():
+            split.setdefault(k, []).append(v)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for b in rest[steps["breakdown"]:]:
+            state, _ = trainer.step(state, b)
+        torch.cuda.synchronize()
+    device_ms = sum(e.self_device_time_total
+                    for e in prof.key_averages()) / 1e3 / steps["profiled"]
+    check_rings(trainer, state, n_main, "host_lru hybrid")
+    tables = lru_backends(trainer)
+    few = [n for n, b in zip(trainer.collection.names, tables)
+           if not (b.faults > cache and b.writebacks > 0)]
+    check(not few, f"host_lru: tables {few[:4]} faulted no more than their "
+          f"{cache} slots or wrote nothing back")
+    dev_bytes = sum(b.device_bytes(state.emb[n]) for n, b
+                    in zip(trainer.collection.names, tables))
+    host_bytes = sum(b.host_bytes() for b in tables)
+    check(dev_bytes < host_bytes, f"host_lru: device bytes {dev_bytes} >= "
+          f"host bytes {host_bytes}")
+
+    eb = next(ds.sampler(4096, seed=SEED + 4))
+    before = lru_counters(trainer)["faults"]
+    em = trainer.eval(state, eb)
+    ep = trainer.predict(state, eb).cpu().numpy()
+    check(lru_counters(trainer)["faults"] == before,
+          "host_lru eval faulted rows in")
+    check(np.isfinite(float(em["loss"])) and np.all(np.isfinite(ep)),
+          "host_lru eval not finite")
+    aucs = [adapters.auc(eb["labels"][:, t], ep[:, t])
+            for t in range(KWAI.n_tasks)]
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    prep = {k: float(np.median(v)) * 1e3
+            for k, v in split.items() if k.endswith("_s")}
+    step_ms = wall * 1e3 / steps["timed"]
+    rec = {
+        "phase": "train_host_lru", "model": KWAI.name,
+        "dataset": "kwai_video", "backend": HOST_LRU, "batch": TRAIN_B,
+        "mode": f"hybrid({TAU})", "table_rows": ds.rows_per_field,
+        "cache_rows": cache, "init_s": init_s, "timed_steps": steps["timed"],
+        "step_ms": step_ms, "steps_per_s": steps["timed"] / wall,
+        "samples_per_s": steps["timed"] * TRAIN_B / wall,
+        "per_step": per_step,
+        "launches_per_step": {k: v / steps["timed"]
+                              for k, v in launches.items()},
+        "tables_per_launch": tables_per_launch(launches, served),
+        "breakdown_ms": med,
+        "prepare_split_ms": {
+            "fault_in": prep["fault_s"], "eviction": prep["evict_s"],
+            "eviction_sync": prep["evict_sync_s"],
+            "plan": med["prepare_ms"] - prep["fault_s"] - prep["evict_s"]},
+        "breakdown_writebacks_per_step": float(np.median(
+            split["writebacks"])),
+        "eviction_sync_share_of_step": prep["evict_sync_s"] / sum(
+            med.values()),
+        "device_ms_per_step": device_ms,
+        "device_busy_share": device_ms / step_ms,
+        "faults_total": sum(b.faults for b in tables),
+        "writebacks_total": sum(b.writebacks for b in tables),
+        "min_table_faults": min(b.faults for b in tables),
+        "min_table_writebacks": min(b.writebacks for b in tables),
+        "device_bytes": dev_bytes, "host_bytes": host_bytes,
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "eval_rows": 4096, "eval_loss": float(em["loss"]),
+        "eval_auc_per_task": aucs,
+    }
+    return main_counts, rec, (trainer, state)
+
+
+def serve_host_lru_phase(dev, trainer, state):
+    """The trained host_lru kwai-dlrm behind a ``ServingService``
+    (max_batch 64, 512 Zipf requests, 4 clients): some rows are resident
+    in the device caches and some only in the host stores. Every flush is
+    ONE bag launch for the 32 tables (each table's unique rows, hits
+    gathered from the cache and misses read from the store); the read
+    faults nothing in, and the predictions equal the plain read's
+    (``read_rows``, summed)."""
+    ds = CTR_BENCHMARKS["kwai_video"]
+    cell = StateCell(state, state.step)
+    reqs = [r for _, r in TrafficModel.for_dataset(ds, seed=SEED)
+            .requests(N_REQUESTS, seed=1)]
+    config = ServingConfig(max_batch=64, max_wait_ms=2.0)
+    serve(trainer, cell, reqs[:128], config)             # warm-up
+    torch.cuda.synchronize()
+    before = lru_counters(trainer)
+
+    ops.reset_launch_counts()
+    preds, m = serve(trainer, cell, reqs, config)
+    launches, served = ops.launch_counts(), ops.table_counts()
+    flushes = int(m["serving/batches"])
+    n = len(trainer.collection)
+    check(int(m["serving/requests"]) == N_REQUESTS
+          and m["serving/errors"] == 0, f"host_lru service metrics {m}")
+    check(launches["unique_bag"] == flushes and served["unique_bag"] ==
+          n * flushes and launches["embedding_bag"] == 0,
+          f"host_lru serve: launches {launches} (tables {served}), want one "
+          f"bag launch of {n} tables per flush ({flushes} flushes)")
+    after = lru_counters(trainer)
+    check(all(after[k] == before[k] for k in ("faults", "writebacks")),
+          "host_lru serve faulted or evicted rows")
+    check(bool(np.all(np.isfinite(preds))) and preds.min() > 0
+          and preds.max() < 1, "host_lru predictions not finite in (0, 1)")
+
+    # hits and misses of each 64-request flush, summed over the tables
+    hits, misses = [], []
+    for i in range(0, N_REQUESTS, 64):
+        _, info = trainer.serve_lookup(state, stack(reqs[i:i + 64]))
+        hits.append(sum(v["hits"] for v in info.values()))
+        misses.append(sum(v["misses"] for v in info.values()))
+    check(sum(misses) > 0, "host_lru serve: no read missed the caches")
+
+    batch = stack(reqs)
+    plain = plain_predict(trainer, state, batch)
+    diff = float(np.abs(preds - plain).max())
+    check(np.allclose(preds, plain, rtol=1e-5, atol=1e-6),
+          f"host_lru served predictions differ from the plain read by {diff}")
+    breakdown = flush_breakdown(trainer, state, stack(reqs[:64]))
+    return (launches, served), {
+        "phase": "serve_host_lru", "model": KWAI.name, "backend": HOST_LRU,
+        "cache_rows": trainer.collection["field_00"].cache_rows,
+        "trained_steps": int(state.step), "requests": N_REQUESTS,
+        "clients": N_CLIENTS, "max_batch": 64, "flushes": flushes,
+        "p50_ms": m["serving/p50_ms"], "p99_ms": m["serving/p99_ms"],
+        "qps": m["serving/qps"],
+        "hit_rate_field_00": m["serving/field_00/hit_rate"],
+        "hits_per_flush": float(np.mean(hits)),
+        "misses_per_flush": float(np.mean(misses)),
+        "max_abs_diff_vs_plain": diff, "flush": breakdown,
+        "tables_per_launch": tables_per_launch(launches, served)}
+
+
+def lru_card_vs_cpu(dev, trainer, state, steps=LRU_STEPS["cpu"]) -> dict:
+    """The trained host_lru trainer (caches full, evicting) and a CPU
+    trainer carried across from its state as checkpoint blobs, for
+    ``steps`` hybrid(3) steps: the classes of :func:`card_vs_cpu` for the
+    tables, accumulators, queue payloads, losses and dense parameters (and
+    the host stores' rows, as the tables), the slot maps, device slot
+    ids, queue slots and ids, and the fault counters equal exactly."""
+    from repro_torch.convert import state_from_numpy, state_to_numpy
+    ds = CTR_BENCHMARKS["kwai_video"]
+    it = ds.sampler(TRAIN_B, seed=SEED + 21)
+    batches = [next(it) for _ in range(steps)]
+    tc = kwai_train_trainer("cpu", TrainMode.hybrid(TAU), HOST_LRU)
+    tree = state_to_numpy(state)
+    blobs = {n: BK.unwrap(b).state_for_checkpoint(state.emb[n])
+             for n, b in trainer.backends.items()}
+    sc = state_from_numpy(tc, tree["dense"], blobs, opt=tree["opt"],
+                          emb_queue=tree["emb_queue"],
+                          dense_queue=tree["dense_queue"], step=state.step)
+    del blobs
+    start = sc.dense
+    sg = state
+    lg, lc = [], []
+    for b in batches:
+        sg, mg = trainer.step(sg, b)
+        sc, mc = tc.step(sc, b)
+        lg.append(float(mg["loss"]))
+        lc.append(float(mc["loss"]))
+    bad = []
+    if not np.allclose(lg, lc, rtol=1e-4):
+        bad.append(f"losses card {lg} cpu {lc}")
+    err = {"table": 0.0, "acc": 0.0, "store_rows": 0.0, "queue_rel": 0.0}
+    wb = 0
+    for n in trainer.collection.names:
+        bg, bc = BK.unwrap(trainer.backends[n]), BK.unwrap(tc.backends[n])
+        wb += bc.writebacks
+        for k, rtol, atol in (("table", 1e-4, 1e-6), ("acc", 1e-3, 1e-12)):
+            x, y = sg.emb[n][k], sc.emb[n][k].to(dev)
+            err[k] = max(err[k], float((x - y).abs().max()))
+            if not torch.allclose(x, y, rtol=rtol, atol=atol):
+                bad.append(f"{n}.{k} differs")
+        if not (torch.equal(sg.emb[n]["slot_ids"].cpu(),
+                            sc.emb[n]["slot_ids"])
+                and np.array_equal(bg._id_for_slot, bc._id_for_slot)
+                and (bg.faults, bg.writebacks, bg.hits)
+                == (bc.faults, bc.writebacks, bc.hits)):
+            bad.append(f"{n}: slot maps or counters differ")
+        rg, rc = bg.store.vectors, bc.store.vectors
+        err["store_rows"] = max(err["store_rows"],
+                                float(np.abs(rg - rc).max()))
+        if not (np.allclose(rg, rc, rtol=1e-4, atol=1e-6)
+                and np.allclose(bg.store.opt_acc, bc.store.opt_acc,
+                                rtol=1e-3, atol=1e-12)
+                and np.array_equal(bg.store.keys, bc.store.keys)):
+            bad.append(f"{n}: host stores differ")
+        qg, qc = sg.emb_queue[n], sc.emb_queue[n]
+        if not (torch.equal(qg["slots"].cpu(), qc["slots"])
+                and torch.equal(qg["ids"].cpu(), qc["ids"])
+                and (qg["ptr"], qg["filled"]) == (qc["ptr"], qc["filled"])):
+            bad.append(f"{n}: queue slots, ids or ring differ")
+        x, y = qg["grads"], qc["grads"].to(dev)
+        scale = float(y.abs().max())
+        err["queue_rel"] = max(err["queue_rel"],
+                               float((x - y).abs().max()) / scale)
+        if not torch.allclose(x, y, rtol=1e-3, atol=1e-3 * scale):
+            bad.append(f"{n}: queue grads differ")
+    dense = dense_agreement(start, sg.dense, sc.dense, steps)
+    if not dense.pop("ok"):
+        bad.append(f"dense {dense}")
+    out = {"phase": "card_vs_cpu_host_lru", "steps": steps,
+           "mode": f"hybrid({TAU})", "loss_card": lg, "loss_cpu": lc,
+           "writebacks_cpu": wb, **{f"{k}_max_abs": v for k, v in
+                                    err.items()}, **dense}
+    emit(out)
+    check(wb > 0, "host_lru card against CPU: no write-back in the run")
+    check(not bad, "host_lru card against CPU: " + "; ".join(bad[:6]))
+    return out
+
+
+def lru_tiers_phase(dev, steps=LRU_STEPS["short"]):
+    """Short hybrid(3) runs from one seed: ``host_lru+disk`` (a host tier of
+    ``LRU_HOST_ROWS`` over a memory-mapped disk tier under the git-ignored
+    build/)
+    bit for bit against ``host_lru`` (losses, caches, queues, slot maps);
+    then ``host_lru+compressed``, whose every step runs ONE compress and
+    ONE decompress for all the tables, get and put."""
+    import shutil
+    ds = CTR_BENCHMARKS["kwai_video"]
+    it = ds.sampler(TRAIN_B, seed=SEED + 7)
+    batches = [next(it) for _ in range(steps)]
+    disk = ROOT / "build" / "host_lru_disk"
+    shutil.rmtree(disk, ignore_errors=True)
+    runs, paths = {}, {}
+    try:
+        for name in (HOST_LRU, HOST_LRU + "+disk", HOST_LRU + "+compressed"):
+            tr = kwai_train_trainer(dev, TrainMode.hybrid(TAU), name,
+                                    disk_path=disk)
+            st = tr.init(seed=SEED, batch_example=batches[0])
+            t0 = time.perf_counter()
+            st, losses, launches, wire, served = run_steps(tr, st, batches,
+                                                           name)
+            wall = time.perf_counter() - t0
+            c = lru_counters(tr)
+            runs[name] = (tr, st, losses)
+            paths[name] = (launches, served)
+            rec = {"steps": steps, "step_ms": wall * 1e3 / steps,
+                   "losses": losses, "faults": c["faults"],
+                   "writebacks": c["writebacks"],
+                   "launches_per_step": {k: v / steps
+                                         for k, v in launches.items()}}
+            if name.endswith("compressed"):
+                check(all(launches[k] > 0 for k in CODEC),
+                      f"{name}: codec launches {launches}")
+                rec["wire_ratio"] = wire["bytes_raw"] / wire["bytes_wire"]
+            if name.endswith("disk"):
+                spills = sum(b.store.spills for b in lru_backends(tr))
+                check(spills > 0, "host_lru+disk: the host tier never "
+                      "spilled to disk")
+                rec["spills"] = spills
+            runs[name] += (rec,)
+        (ta, sa, la, _), (tb, sb, lb, _) = runs[HOST_LRU], \
+            runs[HOST_LRU + "+disk"]
+        same = la == lb and all(
+            torch.equal(sa.emb[n][k], sb.emb[n][k])
+            for n in sa.emb for k in sa.emb[n]) and all(
+            torch.equal(sa.emb_queue[n][k], sb.emb_queue[n][k])
+            for n in sa.emb_queue for k in ("slots", "ids", "grads")) and \
+            all(np.array_equal(x._id_for_slot, y._id_for_slot)
+                and x.faults == y.faults
+                for x, y in zip(lru_backends(ta), lru_backends(tb)))
+        rec = {"phase": "train_host_lru_tiers", "model": KWAI.name,
+               "batch": TRAIN_B, "mode": f"hybrid({TAU})",
+               "disk_bit_equal_to_two_tier": bool(same),
+               **{name: r[-1] for name, r in runs.items()}}
+        emit(rec)
+        check(same, "host_lru+disk is not bit-equal to host_lru")
+    finally:
+        runs.clear()
+        shutil.rmtree(disk, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return paths[HOST_LRU + "+disk"], paths[HOST_LRU + "+compressed"], rec
+
+
+def lm_serve_host_lru_phase(dev):
+    """``launch.serve.serve`` at the full granite-3-2b width with the vocab
+    table on ``host_lru`` (6,144 device slots, vocab/8): B=1, a 2,048-token
+    prompt, 32 greedy tokens, its rows faulted in before the prefill and
+    before each decode step. The prefill's logits must equal, bit for bit,
+    those of the dense vocab table drawn from the same seed, and so must
+    the tokens: both read the same rows and nothing trains."""
+    cfg = get_config(LM_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    dense = lm_model.init_dense(cfg, gen)
+    after_dense = gen.get_state()
+    dbk = BK.create_backend(build_embedding_spec(cfg.vocab_size,
+                                                 cfg.d_model))
+    demb = dbk.init(gen)
+    gen.set_state(after_dense)
+    lbk = BK.create_backend(build_embedding_spec(
+        cfg.vocab_size, cfg.d_model, backend=HOST_LRU,
+        cache_rows=LM_LRU_CACHE))
+    lemb = lbk.init(gen)
+    blob = lbk.state_for_checkpoint(lemb)
+    prompts = torch.as_tensor(
+        lm_serve.make_prompts(cfg, LM_LRU_B, LM_PROMPT, SEED), device=dev)
+    _, ld, _ = lm_serve.prefill_step(cfg, dbk, demb, dense, prompts,
+                                     LM_PROMPT + 1)
+    _, ll, _ = lm_serve.prefill_step(cfg, lbk, lemb, dense, prompts,
+                                     LM_PROMPT + 1)
+    torch.cuda.synchronize()
+    check(torch.equal(ld, ll), "lm host_lru: prefill logits differ from the "
+          f"dense vocab table's by {float((ld - ll).abs().max())}")
+    faults = lbk.faults
+    del ld, ll, lemb, lbk
+
+    # the main path: counts set to 0 just before
+    ops.reset_launch_counts()
+    res = lm_serve.serve(cfg, LM_LRU_B, LM_PROMPT, LM_GEN, SEED,
+                         emb_backend=HOST_LRU, cache_rows=LM_LRU_CACHE,
+                         device=dev, state=(blob, dense))
+    launches, served = ops.launch_counts(), ops.table_counts()
+    check(launches["flash_attention_fwd"] == cfg.n_layers,
+          f"lm host_lru serve: {launches['flash_attention_fwd']} "
+          f"flash_attention_fwd launches, want {cfg.n_layers}")
+    want = lm_serve.serve(cfg, LM_LRU_B, LM_PROMPT, LM_GEN, SEED,
+                          device=dev, state=(demb, dense))
+    check(np.array_equal(res["tokens"], want["tokens"]),
+          "lm host_lru serve: tokens differ from the dense vocab table's")
+    del dense, demb, blob
+    torch.cuda.empty_cache()
+    return (launches, served), {
+        "phase": "lm_serve_host_lru", "model": cfg.name,
+        "vocab": cfg.vocab_size, "cache_rows": LM_LRU_CACHE,
+        "batch": LM_LRU_B, "prompt": LM_PROMPT, "gen": LM_GEN,
+        "prefill_faults": faults, "prefill_logits_bit_equal": True,
+        "prefill_ms": res["prefill_s"] * 1e3,
+        "ms_per_token": res["decode_s"] * 1e3 / (LM_GEN - 1),
+        "dense_prefill_ms": want["prefill_s"] * 1e3,
+        "dense_ms_per_token": want["decode_s"] * 1e3 / (LM_GEN - 1),
+        "first_tokens": res["tokens"][0, :8].tolist()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this check runs on a GPU",
@@ -2189,6 +2633,21 @@ def main() -> int:
     paths["lm_serve"], recs["lm_serve"] = lm_serve_phase(dev)
     emit(recs["lm_serve"])
     recs["lm_serve"]["card_vs_cpu"] = lm_card_vs_cpu(dev)
+    # the out-of-core tier
+    paths["train_host_lru"], recs["train_host_lru"], (tr, st) = \
+        train_host_lru_phase(dev)
+    emit(recs["train_host_lru"])
+    paths["serve_host_lru"], recs["serve_host_lru"] = serve_host_lru_phase(
+        dev, tr, st)
+    emit(recs["serve_host_lru"])
+    recs["train_host_lru"]["card_vs_cpu"] = lru_card_vs_cpu(dev, tr, st)
+    del tr, st
+    torch.cuda.empty_cache()
+    paths["train_host_lru_disk"], paths["train_host_lru_wire"], \
+        recs["train_host_lru_tiers"] = lru_tiers_phase(dev)
+    paths["lm_serve_host_lru"], recs["lm_serve_host_lru"] = \
+        lm_serve_host_lru_phase(dev)
+    emit(recs["lm_serve_host_lru"])
 
     kernels = []
     for name, meta in KERNELS.items():

@@ -3,9 +3,10 @@ like the JAX package ``repro`` beside it.
 
 This package holds the CTR serving path and hybrid training.
 ``ServingService`` micro-batches requests, ``PersiaTrainer.serve_lookup``
-reads each table's pooled bags through ``DenseBackend.read_pooled``
-(uniform-shuffle row placement, the worker-side dedup plan, then the
-bag CUDA kernel, as ``unique_bag`` or ``embedding_bag``), and the FFNN
+reads every table's pooled bags through ``backend.read_pooled_all``
+(uniform-shuffle row placement or a host_lru table's cache slots and
+host-store misses, the worker-side dedup plan, then one launch of the bag
+CUDA kernel, as ``unique_bag`` or ``embedding_bag``), and the FFNN
 plus a sigmoid turns them into predictions. ``PersiaTrainer.step`` trains
 in sync, hybrid(tau) and async modes: the pooled lookup through the bag
 kernel, the FFNN's backward and a hand-written Adam, and each table's put

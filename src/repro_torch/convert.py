@@ -9,7 +9,9 @@ the optimizer's ``t`` and the queues' ``ptr``/``filled`` as int32). Tables
 keep their physical (uniform-shuffled, padded) row layout: the two packages
 place rows with the same ``shuffle_pos``, so a table is copied as it is.
 The checkpoint format (``PersiaTrainer.save``/``restore``) goes through
-these two functions.
+these two functions. A host_lru table crosses as its checkpoint blob
+(device cache, host store and slot map, :func:`table_from_numpy`): its
+host tiers live in the backend, not in the train state.
 
 For the LM family, ``lm_dense_from_numpy`` carries the transformer's dense
 parameters across (``repro.models.transformer.init_dense``'s tree, key for
@@ -42,14 +44,18 @@ def _like_dense(tree, dense, what, device, lead=()):
 
 
 def _queue_from_numpy(q, spec, device):
+    """A staleness queue as numpy -> tensors (a host_lru queue's
+    ``slots`` ride beside its ids)."""
     if q is None:
         return None
     ids = np.asarray(q["ids"])
-    return {"ids": torch.tensor(ids, dtype=torch.int32, device=device),
-            "grads": _tensor(q["grads"], ids.shape + (spec.dim,),
+    out = {k: _tensor(q[k], ids.shape, f"queue {k}", device, torch.int32)
+           for k in ("slots", "ids") if k in q}
+    out.update(grads=_tensor(q["grads"], ids.shape + (spec.dim,),
                              "queue grads", device, spec.dtype),
-            "ptr": int(np.asarray(q["ptr"])),
-            "filled": int(np.asarray(q["filled"]))}
+               ptr=int(np.asarray(q["ptr"])),
+               filled=int(np.asarray(q["filled"])))
+    return out
 
 
 def state_from_numpy(trainer: PersiaTrainer, dense_np: dict, emb_np: dict,
@@ -57,10 +63,13 @@ def state_from_numpy(trainer: PersiaTrainer, dense_np: dict, emb_np: dict,
                      step: int = 0, device=None) -> TrainState:
     """``dense_np``: ``{"mlp": [{"w": (d_in, d_out), "b": (d_out,)}, ...]}``;
     ``emb_np``: ``{table: {"table": (padded_rows, dim), "acc":
-    (padded_rows,)}}`` in the physical shuffled layout; ``opt``: the
+    (padded_rows,)}}`` in the physical shuffled layout for a dense table,
+    and for a host_lru table its checkpoint blob or restored cache (see
+    :func:`table_from_numpy`); ``opt``: the
     optimizer state (``{"m", "v", "t"}`` for Adam; a fresh one when
     ``None``); ``emb_queue``: ``{table: {"ids", "grads", "ptr", "filled"} |
-    None}`` (none when ``None``); ``dense_queue``: ``{"grads", "ptr",
+    None}`` (plus ``"slots"`` for host_lru; none when ``None``);
+    ``dense_queue``: ``{"grads", "ptr",
     "filled"}`` or ``None``. Shapes are checked against the trainer's model
     and collection. ``device`` defaults to the trainer's."""
     device = trainer.device if device is None else resolve_device(device)
@@ -76,8 +85,9 @@ def state_from_numpy(trainer: PersiaTrainer, dense_np: dict, emb_np: dict,
     if set(emb_np) != set(trainer.collection.names):
         raise ValueError(f"tables {sorted(emb_np)} do not match the "
                          f"collection {sorted(trainer.collection.names)}")
-    emb = {n: _emb_state(emb_np[n], spec, device, f"{n}.")
-           for n, spec in trainer.collection.items()}
+    emb = {n: table_from_numpy(trainer.backends[n], emb_np[n], device,
+                               f"{n}.")
+           for n in trainer.collection.names}
     if opt is None:
         opt = trainer.opt_init(dense)
     else:
@@ -158,6 +168,30 @@ def emb_from_numpy(emb_np: dict, spec, device=None) -> dict:
     layout) -> tensors on ``device`` (the card by default)."""
     return _emb_state(emb_np, spec,
                       resolve_device("cuda" if device is None else device))
+
+
+def table_from_numpy(backend, emb_np: dict, device, what: str = "") -> dict:
+    """One table's state as numpy -> tensors on ``device``, for the
+    table's backend. Dense: ``{"table", "acc"}`` in the physical layout.
+    host_lru: the JAX package's (or the port's) checkpoint blob
+    ``{"cache", "store", "cache_meta"}``, whose host tiers (store, slot
+    map, counters) are loaded into ``backend`` and whose device cache is
+    returned, or a cache ``{"table", "slot_ids", "acc"}`` that the backend
+    has already restored."""
+    from repro_torch.core.backend import HostLRUBackend, unwrap
+    inner = unwrap(backend)
+    if not isinstance(inner, HostLRUBackend):
+        return _emb_state(emb_np, backend.spec, device, what)
+    if "store" in emb_np:
+        emb_np = inner.restore_from_checkpoint(emb_np)
+    spec, n = inner.spec, inner.dev_slots
+    st = {"table": _tensor(emb_np["table"], (n, spec.dim), f"{what}table",
+                           device).to(spec.dtype),
+          "slot_ids": _tensor(emb_np["slot_ids"], (n,), f"{what}slot_ids",
+                              device, torch.int32)}
+    if spec.optimizer == "adagrad":
+        st["acc"] = _tensor(emb_np["acc"], (n,), f"{what}acc", device)
+    return st
 
 
 def _emb_state(emb_np: dict, spec, device, what: str = "") -> dict:

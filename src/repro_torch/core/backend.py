@@ -1,7 +1,8 @@
 """Embedding storage backends (port of ``repro/core/backend.py``): the
-protocol base, the device-resident ``DenseBackend`` and the §4.2.3
-compressed wire (``CompressedWireBackend``), with the factory that builds
-them from ``EmbeddingSpec.backend``.
+protocol base, the device-resident ``DenseBackend``, the out-of-core
+``HostLRUBackend`` (paper §4.2.2) and the §4.2.3 compressed wire
+(``CompressedWireBackend``), with the factory that builds them from
+``EmbeddingSpec.backend``.
 
 The serving path reads every table through :func:`read_pooled_all` (the
 per-table :meth:`EmbeddingBackend.read_pooled`, grouped), which returns
@@ -12,9 +13,14 @@ scatters and pools at unique width; without it ``embedding_bag`` pools at
 occurrence width. That is the trainer's own choice between plan and flat
 ids in the JAX package (``prepare_all``), applied to the read. Both are
 one bag kernel (``embedding_bag`` is its identity case), so every table of
-a read pools in ONE launch.
+a read pools in ONE launch. A host_lru read is read-only: it gathers its
+hits from the device cache and its misses from the host store into one
+block of unique rows, which the same launch pools with the identity for
+``dev``.
 
 The training path: ``prepare_all`` builds every table's plan on the host
+(a host_lru table faults its missing rows into the device cache and writes
+its evicted rows back first, and its plan's device ids are cache slots)
 and uploads all of the plans' index arrays in one copy; ``lookup_all``
 pools every table in ONE bag launch (``unique_bag`` through a plan,
 ``embedding_bag`` for the occurrence-width ids of ``batch_dedup=False``
@@ -25,19 +31,24 @@ staleness queue (or to its own sums in sync mode) and returns the payload
 pushed into the queue. A put of occurrence-width ids is grouped on the
 device first (``compression.dedup_plan``) and summed by the same kernel.
 The puts update the tables, their accumulators and the queues in place
-(the JAX trainer donates them).
+(the JAX trainer donates them). Each backend maps its device ids to table
+rows through :meth:`EmbeddingBackend.table_rows` (the uniform shuffle, or
+the cache slots themselves), so the fan-outs treat every table alike.
 
-``CompressedWireBackend`` wraps the dense backend: its gets and puts cross
-the wire as blockscale fp16 (the ``blockscale_compress`` /
+``CompressedWireBackend`` wraps either storage backend: its gets and puts
+cross the wire as blockscale fp16 (the ``blockscale_compress`` /
 ``blockscale_decompress`` CUDA kernels) and its puts are deduplicated to
 one row per unique id. The stage's tables compress together and
 decompress together: ONE launch of each per get, put or serve read. The
-host-cached and sharded backends come with later slices; the factory
-refuses them.
+sharded router comes with a later slice.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import math
+import threading
+import time
 
 import numpy as np
 import torch
@@ -46,6 +57,9 @@ from repro_torch.core import compression as C
 from repro_torch.core import dedup as D
 from repro_torch.core import embedding_ps as PS
 from repro_torch.core.embedding_ps import EmbeddingSpec
+from repro_torch.core.hotness import HotnessSketch
+from repro_torch.core.lru import STORE_DTYPES, LRUEmbeddingStore
+from repro_torch.core.mmap_store import TieredHostStore
 from repro_torch.kernels import ops as K
 
 
@@ -67,7 +81,8 @@ def _n_distinct(flat: np.ndarray, rows: int) -> int:
 
 class EmbeddingBackend:
     """Protocol base. A subclass owns one table's storage; its device state
-    is a dict of tensors threaded through by the caller.
+    is a dict of tensors threaded through by the caller, anything on the
+    host (a host_lru table's store and slot map) lives on ``self``.
 
     The device-side ops accept device ids in two forms: a raw id tensor
     (one row per occurrence) or a :class:`~repro_torch.core.dedup.
@@ -89,32 +104,66 @@ class EmbeddingBackend:
         unique ids); ``counts`` carries the per-unique occurrence counts."""
         return state, ids
 
+    def read_lock(self):
+        """The context a serve read holds while it resolves residency and
+        enqueues its gathers (host_lru: the backend's lock)."""
+        return contextlib.nullcontext()
+
     def read_rows(self, state, ids):
         """Serve-path read at occurrence width: LOGICAL ids -> ``(rows,
         info)`` with ``rows`` fp32 of shape ``ids.shape + (dim,)`` on the
         table's device, and ``info`` the read gauges ``reads`` (unique ids
         resolved), ``hits`` (served from device-resident rows) and
         ``misses`` (served from a host tier). Read-only. Invalid ids (< 0 or
-        >= rows) read as zero rows.
-
-        This is the plain gather (no kernel); the device-resident default
-        goes through the backend's own lookup, so every read is a hit."""
+        >= rows) read as zero rows."""
         arr = _host_ids(ids)
-        acts, _ = self._lookup_flat(
-            state, torch.as_tensor(arr, device=state["table"].device))
-        n = _n_distinct(arr.reshape(-1), self.spec.rows)
-        return acts.float(), {"reads": n, "hits": n, "misses": 0}
+        with self.read_lock():
+            arrs, rows, info = self._read_begin(arr, occ=True)
+            idx, rows = _upload_read({0: (arrs, rows)},
+                                     state["table"].device)[0]
+            out = self._read_end(state, idx, rows, occ=True)
+        return out.float(), info
 
     def read_pooled(self, state, ids):
         """Serve-path read, pooled: LOGICAL ids (B, L) -> ``(pooled,
         info)`` with ``pooled`` the (B, dim) fp32 sum over each bag's valid
         rows and ``info`` the same gauges as :meth:`read_rows`. Read-only."""
+        arr = _bags(ids)
+        with self.read_lock():
+            arrs, rows, info = self._read_begin(arr)
+            idx, rows = _upload_read({0: (arrs, rows)},
+                                     state["table"].device)[0]
+            bag = self._read_end(state, idx, rows)
+        return _bag_all({0: bag})[0], info
+
+    def _read_begin(self, arr: np.ndarray, occ: bool = False):
+        """The host half of a serve read of LOGICAL ids ``arr`` -> (the
+        int32 index arrays to upload, fp32 rows to upload or None, read
+        gauges). Pooled reads take (B, L) bags; ``occ`` reads occurrence
+        rows of any shape."""
+        raise NotImplementedError
+
+    def _read_end(self, state, idx: list, rows, occ: bool = False):
+        """The device half of a serve read, on the uploaded arrays: the
+        bag kernel's entry ``(table, dev or None, inv, flat)``, or with
+        ``occ`` the occurrence rows ``arr.shape + (dim,)``."""
         raise NotImplementedError
 
     def dedup_rows(self) -> int:
         """Upper bound on distinct device ids one batch can produce — the
         denominator of the dedup capacity rule for this backend."""
         return self.spec.rows
+
+    def dev_rows(self) -> int:
+        """Rows of the device id space (the table rows, or the cache
+        slots): the capacity rule of puts grouped on the device."""
+        return self.spec.rows
+
+    def table_rows(self, dev_ids: torch.Tensor) -> torch.Tensor:
+        """Device ids -> the rows of ``state["table"]`` they read, int32;
+        padding and ids out of range become -1. The bag kernel reads and
+        the put applies at these rows."""
+        raise NotImplementedError
 
     def queue_width(self, n_occ: int) -> int:
         """Width of this table's staleness-queue slots for a batch of
@@ -124,6 +173,24 @@ class EmbeddingBackend:
             return D.dedup_cap(n_occ, self.dedup_rows())
         return int(n_occ)
 
+    # slot pinning: a pipelined caller pins a batch's device slots between
+    # its prepare and its applied put, so a later batch's fault-in cannot
+    # recycle rows still in flight. No-ops for device-resident backends.
+    def pin_slots(self, dev_ids):
+        pass
+
+    def unpin_slots(self, dev_ids):
+        pass
+
+    def reset_pins(self):
+        pass
+
+    def cache_metrics(self) -> dict:
+        """Per-step cache-admission gauges (keys are relative: the prepare
+        fan-out prefixes ``cache/<table>/``). Empty for backends without
+        an admission policy."""
+        return {}
+
     def queue_init(self, ids_shape, device=None):
         raise NotImplementedError
 
@@ -132,7 +199,8 @@ class EmbeddingBackend:
 
     def restore_from_checkpoint(self, blob):
         """Validate a checkpoint blob (host numpy arrays) and return the
-        table state to restore; the trainer moves it to its device."""
+        table state to restore, as numpy; the trainer moves it to its
+        device."""
         raise NotImplementedError
 
     # -- device-side ---------------------------------------------------------
@@ -147,10 +215,15 @@ class EmbeddingBackend:
 
     def lookup_pooled(self, state, dev_ids):
         """Pooled bags (B, dim) through the bag kernels: a plan reads
-        through ``unique_bag``, flat (B, L) logical ids (translated to rows
-        where they lie, then copied to the table's device) through
+        through ``unique_bag``, flat (B, L) device ids (translated to table
+        rows, then copied to the table's device) through
         ``embedding_bag``. Returns ``(pooled, metrics)``."""
-        raise NotImplementedError
+        table = state["table"]
+        if D.is_plan(dev_ids):
+            return K.unique_bag(table, self._plan_rows(dev_ids),
+                                dev_ids.inv), {}
+        return K.embedding_bag(
+            table, self.table_rows(dev_ids).to(table.device)), {}
 
     def apply_put(self, state, dev_ids, grads):
         if D.is_plan(dev_ids):
@@ -162,15 +235,50 @@ class EmbeddingBackend:
             return self._hybrid_plan(state, queue, dev_ids, grads)
         return self._hybrid_flat(state, queue, dev_ids, grads)
 
+    def _plan_rows(self, plan) -> torch.Tensor:
+        return plan.rows if plan.rows is not None \
+            else self.table_rows(plan.dev)
+
     def _put_plan(self, state, plan, grads):
-        """Plan-driven put. Default: the plan's segment-sum, then the
-        unique-width put. DenseBackend overrides it with the fused kernel."""
-        g_u = D.plan_segment_sum(plan.inv, grads, int(plan.dev.shape[0]))
-        return self._put_unique(state, plan.dev, g_u)
+        """Plan-driven put through the fused kernel: the segment sums and
+        their apply at the plan's table rows, one launch."""
+        new, _ = _fused_backward(self.spec, state, plan, grads,
+                                 self._plan_rows(plan), None,
+                                 apply_self=True)
+        return new, {}
 
     def _hybrid_plan(self, state, queue, plan, grads):
-        g_u = D.plan_segment_sum(plan.inv, grads, int(plan.dev.shape[0]))
-        return self._hybrid_unique(state, queue, plan.dev, g_u)
+        if self.spec.staleness <= 0 or queue is None:
+            st, m = self._put_plan(state, plan, grads)
+            return st, queue, m
+        _, finish = self._hybrid_begin(state, queue, plan, grads)
+        return finish()
+
+    def _hybrid_begin(self, state, queue, plan, grads):
+        """A hybrid put up to its push: pop the tau-stale put first (the
+        kernel reads the slot before it is overwritten) and fuse its apply
+        with this step's segment sums -> ``(payload, finish)``. ``payload``
+        is the (U, dim) fresh sums, a view of the queue-ready (cap, dim)
+        payload; ``finish()`` pushes the payload into the popped slot
+        (queue_push_pop's order) -> (state, queue, metrics). The popped put
+        crossed the wire, if any, when it was pushed."""
+        raise NotImplementedError
+
+    def _wire_begin(self, state, queue, plan, grads):
+        """A put whose unique-width sums cross the wire between their sum
+        and the PS, up to the wire: ``(payload, finish)`` as
+        :meth:`_hybrid_begin`; the caller roundtrips ``payload`` IN PLACE
+        before it calls ``finish()``. In sync mode the sums are a sum-only
+        launch here and their apply an apply-only launch in ``finish``."""
+        if self.spec.staleness > 0 and queue is not None:
+            return self._hybrid_begin(state, queue, plan, grads)
+        g_u = D.csr_segment_sum(*_plan_csr(plan), grads,
+                                int(plan.dev.shape[0]))
+
+        def finish():
+            st, m = self._put_unique(state, plan.dev, g_u)
+            return st, queue, m
+        return g_u, finish
 
     def _lookup_flat(self, state, dev_ids):
         raise NotImplementedError
@@ -193,6 +301,13 @@ class EmbeddingBackend:
 
     def _hybrid_unique(self, state, queue, dev_u, g_u):
         raise NotImplementedError
+
+    # -- capacity accounting -------------------------------------------------
+    def device_bytes(self, state) -> int:
+        return sum(int(x.numel()) * x.element_size() for x in state.values())
+
+    def host_bytes(self) -> int:
+        return 0
 
 
 def _plan_csr(plan) -> tuple[torch.Tensor, torch.Tensor]:
@@ -223,6 +338,11 @@ class DenseBackend(EmbeddingBackend):
     """Device-resident PS shard; device ids ARE the logical ids."""
 
     def __init__(self, spec: EmbeddingSpec):
+        if spec.store_dtype != "fp32":
+            raise ValueError(
+                f"store_dtype={spec.store_dtype!r} compresses cold HOST "
+                "rows — the dense backend is fully device-resident; use a "
+                "host_lru backend (or drop store_dtype)")
         self.spec = spec
 
     def init(self, generator: torch.Generator, shards: int = 1,
@@ -249,45 +369,37 @@ class DenseBackend(EmbeddingBackend):
         pos = PS.shuffle_pos(torch.where(valid, ids, 0), spec.padded_rows(1))
         return torch.where(valid, pos, -1).to(torch.int32)
 
-    def _plan_rows(self, plan) -> torch.Tensor:
-        return plan.rows if plan.rows is not None \
-            else self._logical_to_pos(plan.dev)
+    def table_rows(self, dev_ids: torch.Tensor) -> torch.Tensor:
+        return self._logical_to_pos(dev_ids)
 
-    def lookup_pooled(self, state, dev_ids):
-        table = state["table"]
-        if D.is_plan(dev_ids):
-            return K.unique_bag(table, self._plan_rows(dev_ids),
-                                dev_ids.inv), {}
-        return K.embedding_bag(
-            table, self._logical_to_pos(dev_ids).to(table.device)), {}
-
-    def _read_host(self, ids):
-        """The host side of a pooled serve read: LOGICAL (B, L) ids ->
-        (the int32 index arrays to upload, distinct ids read). With
-        ``spec.batch_dedup`` the plan's inverse and physical rows (for
-        ``unique_bag``), else the occurrence rows (for ``embedding_bag``);
-        the translation to physical rows runs on the host, beside the
-        plan."""
-        arr = _host_ids(ids)
-        if arr.ndim != 2:
-            raise ValueError(f"read_pooled takes (B, L) bags, got shape "
-                             f"{arr.shape}")
+    def _read_begin(self, arr, occ=False):
+        """Pooled: with ``spec.batch_dedup`` the plan's inverse and
+        physical rows (for ``unique_bag``), else the occurrence rows (for
+        ``embedding_bag``), translated on the host beside the plan. ``occ``:
+        the ids themselves, for the plain gather."""
         spec = self.spec
-        if spec.batch_dedup:
+        if occ:
+            # negatives stay padding and ids past int32 stay out of range
+            arrs = [np.clip(arr, -1, _INT32_MAX)]
+            n = _n_distinct(arr.reshape(-1), spec.rows)
+        elif spec.batch_dedup:
             cap = D.dedup_cap(max(arr.size, 1), self.dedup_rows())
             u_pad, inv, _, info = D.make_plan(arr, spec.rows, cap)
-            rows = self._logical_to_pos(torch.from_numpy(u_pad)).numpy()
-            return [inv, rows], info["n_unique"]
-        rows = self._logical_to_pos(torch.from_numpy(arr)).numpy()
-        return [rows], _n_distinct(arr.reshape(-1), spec.rows)
+            arrs = [inv, self._logical_to_pos(torch.from_numpy(u_pad))
+                    .numpy()]
+            n = info["n_unique"]
+        else:
+            arrs = [self._logical_to_pos(torch.from_numpy(arr)).numpy()]
+            n = _n_distinct(arr.reshape(-1), spec.rows)
+        return arrs, None, {"reads": n, "hits": n, "misses": 0}
 
-    def read_pooled(self, state, ids):
-        arrs, n = self._read_host(ids)
+    def _read_end(self, state, idx, rows, occ=False):
         table = state["table"]
-        idx = upload_int32(arrs, table.device)
-        pooled = K.unique_bag(table, idx[1], idx[0]) if len(idx) == 2 \
-            else K.embedding_bag(table, idx[0])
-        return pooled, {"reads": n, "hits": n, "misses": 0}
+        if occ:
+            return self._lookup_flat(state, idx[0])[0]
+        if len(idx) == 2:
+            return (table, idx[1], idx[0], False)
+        return (table, None, idx[0], True)
 
     def _put_unique(self, state, dev_u, g_u):
         return PS.apply_put(state, self.spec, dev_u, g_u,
@@ -297,27 +409,7 @@ class DenseBackend(EmbeddingBackend):
         return PS.apply_put(state, self.spec, dev_ids.reshape(-1),
                             grads.reshape(-1, self.spec.dim)), {}
 
-    def _put_plan(self, state, plan, grads):
-        new, _ = _fused_backward(self.spec, state, plan, grads,
-                                 self._plan_rows(plan), None,
-                                 apply_self=True)
-        return new, {}
-
-    def _hybrid_plan(self, state, queue, plan, grads):
-        if self.spec.staleness <= 0 or queue is None:
-            st, m = self._put_plan(state, plan, grads)
-            return st, queue, m
-        _, finish = self._hybrid_begin(state, queue, plan, grads)
-        return finish()
-
     def _hybrid_begin(self, state, queue, plan, grads):
-        """A hybrid put up to its push: pop the tau-stale put first (the
-        kernel reads the slot before it is overwritten) and fuse its apply
-        with this step's segment sums -> ``(payload, finish)``. ``payload``
-        is the (U, dim) fresh sums, a view of the queue-ready (cap, dim)
-        payload; ``finish()`` pushes the payload into the popped slot
-        (queue_push_pop's order) -> (state, queue, metrics). The popped put
-        crossed the wire, if any, when it was pushed."""
         ids_q, g_q = queue["ids"], queue["grads"]
         tau, cap = int(ids_q.shape[0]), int(ids_q.shape[1])
         ptr, U = int(queue["ptr"]), int(plan.dev.shape[0])
@@ -334,22 +426,6 @@ class DenseBackend(EmbeddingBackend):
             return new, dict(queue, ptr=(ptr + 1) % tau,
                              filled=min(int(queue["filled"]) + 1, tau)), {}
         return g_push[:U], finish
-
-    def _wire_begin(self, state, queue, plan, grads):
-        """A put whose unique-width sums cross the wire between their sum
-        and the PS, up to the wire: ``(payload, finish)`` as
-        :meth:`_hybrid_begin`; the caller roundtrips ``payload`` IN PLACE
-        before it calls ``finish()``. In sync mode the sums are a sum-only
-        launch here and their apply an apply-only launch in ``finish``."""
-        if self.spec.staleness > 0 and queue is not None:
-            return self._hybrid_begin(state, queue, plan, grads)
-        g_u = D.csr_segment_sum(*_plan_csr(plan), grads,
-                                int(plan.dev.shape[0]))
-
-        def finish():
-            st, m = self._put_unique(state, plan.dev, g_u)
-            return st, queue, m
-        return g_u, finish
 
     def _hybrid_flat(self, state, queue, dev_ids, grads):
         spec = self.spec
@@ -402,10 +478,726 @@ class DenseBackend(EmbeddingBackend):
         return blob
 
 
+# ===========================================================================
+# HostLRUBackend — the out-of-core tier (paper §4.2.2)
+# ===========================================================================
+
+class HostLRUBackend(EmbeddingBackend):
+    """Device hot-cache of ``spec.cache_rows`` slots over a host
+    :class:`~repro_torch.core.lru.LRUEmbeddingStore` holding all
+    ``spec.rows`` (vectors and adagrad accumulators, the paper's array-item
+    layout), or, under ``+disk``, a host LRU over a memory-mapped disk
+    tier (:class:`~repro_torch.core.mmap_store.TieredHostStore`).
+
+    ``prepare`` is the fault path: it resolves the batch's unique ids
+    against the slot map, writes the LRU victims' (vector, acc) back to the
+    host store, loads the missing rows into their slots and returns the
+    batch translated to cache-slot indices. The device-side ops then run on
+    the cache: the bag kernel reads slots and ``fused_backward`` applies at
+    slots, so a working set that fits in cache is bit-exact with dense
+    (where no two ids share a shuffled row).
+
+    Staleness queues store ``(slot, logical id)`` pairs; a popped put whose
+    slot has been recycled for another id since it was enqueued is dropped
+    (the paper's tolerated lost put). The check reads the device's
+    ``slot_ids``, which only the fault-in writes.
+
+    The state lives in place, as the dense backend's does: the eviction's
+    gather of the victims' rows and the fault-in's scatter are enqueued on
+    the current stream, after the previous step's puts and in that order.
+    The host must hold the evicted rows before it writes them to the store,
+    so a prepare that evicts waits for the stream once (a device-to-host
+    copy); the fault-in goes up through a fresh pinned staging buffer as
+    ONE non-blocking copy per table (PyTorch's pinned-memory allocator
+    keeps the buffer until its copy is done). ``stage_s`` accumulates the
+    host seconds of the eviction (``evict``, of which ``evict_sync`` is
+    the wait for the stream) and of the fault-in (``fault``).
+
+    The host tier (slot map, clock, store) is guarded by an RLock, held
+    through ``prepare`` and through a serve read's residency resolution
+    and its enqueued gathers."""
+
+    def __init__(self, spec: EmbeddingSpec):
+        if spec.cache_rows <= 0:
+            raise ValueError(
+                "host_lru backend needs EmbeddingSpec.cache_rows > 0 "
+                f"(got {spec.cache_rows})")
+        if spec.optimizer not in ("adagrad", "sgd"):
+            raise ValueError(spec.optimizer)
+        if spec.store_dtype not in STORE_DTYPES:
+            raise ValueError(
+                f"unknown store_dtype {spec.store_dtype!r}: one of "
+                f"{STORE_DTYPES}")
+        self.spec = spec
+        self.cache_rows = int(spec.cache_rows)
+        self._disk = "disk" in (spec.backend or "").split("+")
+        # frequency-aware admission: ids below admit_threshold are served
+        # from BYPASS slots appended after the main cache, so a once-seen
+        # cold id never evicts a hot resident; admit_threshold <= 0 turns
+        # the sketch off
+        self.admit_threshold = float(spec.admit_threshold)
+        if self.admit_threshold > 0:
+            self.bypass_rows = (int(spec.bypass_rows)
+                                or max(1, self.cache_rows // 4))
+            self._sketch: HotnessSketch | None = HotnessSketch()
+        else:
+            self.bypass_rows = 0
+            self._sketch = None
+        self.dev_slots = self.cache_rows + self.bypass_rows
+        self.store: LRUEmbeddingStore | TieredHostStore | None = None
+        self._lock = threading.RLock()
+        self.stage_s = {"evict": 0.0, "evict_sync": 0.0, "fault": 0.0}
+        self._reset_slots()
+
+    def _reset_slots(self):
+        spec = self.spec
+        # _slot_for_id (dict) is authoritative for the sparse mutations;
+        # _slot_arr (id -> slot, -1 = absent) and _id_for_slot (slot -> id)
+        # are its vectorised mirrors
+        self._slot_for_id: dict[int, int] = {}
+        self._slot_arr = np.full(spec.rows, -1, np.int32)
+        self._id_for_slot = np.full(self.dev_slots, -1, np.int64)
+        self._slot_clock = np.zeros(self.dev_slots, np.int64)
+        self._pin_count = np.zeros(self.dev_slots, np.int32)
+        self._tick = 0
+        self.faults = 0          # rows moved host -> device
+        self.writebacks = 0      # rows moved device -> host
+        self.hits = 0            # unique ids resolved without a fault
+        self.admits = 0          # faults granted a main-cache slot
+        self.bypasses = 0        # faults served from the bypass region
+        self.promotes = 0        # bypass rows re-admitted once hot
+        self.last_admit = 0      # per-step versions of the three above
+        self.last_bypass = 0
+        self.last_promote = 0
+
+    # -- host-level ----------------------------------------------------------
+
+    def init(self, generator: torch.Generator, shards: int = 1,
+             scale: float = 0.02):
+        """Draw the SAME table the dense backend would from ``generator``
+        (on its device, then copied out) and park it host-side: the host
+        row of id i is what a dense lookup of i reads (``table[
+        shuffle_pos(i)]``). The device cache starts empty, on the
+        generator's device."""
+        if shards != 1:
+            raise ValueError("HostLRUBackend is one PS shard; the sharded "
+                             "router is not ported yet")
+        spec = self.spec
+        dense = PS.ps_init(generator, dataclasses.replace(spec,
+                                                          backend="dense"),
+                           1, scale)["table"]
+        pos = PS.shuffle_pos(torch.arange(spec.rows), spec.padded_rows(1))
+        table = dense.float().cpu().numpy()[pos.numpy()]
+        del dense
+        with self._lock:
+            return self._init_with_rows_locked(np.arange(spec.rows), table,
+                                               device=generator.device)
+
+    def _init_with_rows(self, ids, vecs, accs=None, device="cpu"):
+        """Fresh run seeded with explicit host rows: ids land in the host
+        store, the device cache (on ``device``) starts empty, all slot
+        bookkeeping is reset."""
+        with self._lock:
+            return self._init_with_rows_locked(ids, vecs, accs, device)
+
+    def _make_store(self):
+        """The host tier: a plain all-rows LRU store (it never evicts, so
+        the fault path skips its recency upkeep), or, under ``+disk``, the
+        tiered host-over-mmap store whose host tier spills to disk."""
+        spec = self.spec
+        if self._disk:
+            host_rows = int(spec.host_rows) or max(1024, spec.rows // 4)
+            return TieredHostStore(spec.rows, spec.dim,
+                                   host_rows=host_rows,
+                                   path=spec.disk_path,
+                                   store_dtype=spec.store_dtype)
+        return LRUEmbeddingStore(spec.rows, spec.dim, track_recency=False,
+                                 store_dtype=spec.store_dtype)
+
+    def _init_with_rows_locked(self, ids, vecs, accs=None, device="cpu"):
+        spec = self.spec
+        self.store = self._make_store()
+        self.store.preload(np.asarray(ids, np.int64),
+                           np.asarray(vecs, np.float32), accs)
+        self._reset_slots()
+        if self._sketch is not None:
+            self._sketch = HotnessSketch()
+        state = {
+            "table": torch.zeros((self.dev_slots, spec.dim), dtype=spec.dtype,
+                                 device=device),
+            "slot_ids": torch.full((self.dev_slots,), -1, dtype=torch.int32,
+                                   device=device),
+        }
+        if spec.optimizer == "adagrad":
+            state["acc"] = torch.zeros((self.dev_slots,), dtype=torch.float32,
+                                       device=device)
+        return state
+
+    def prepare(self, state, ids, assume_unique: bool = False, counts=None):
+        """Fault the batch's rows into the device cache; translate ids to
+        cache-slot indices (-1 for padding / out-of-range), as host int32
+        for host ids or as a tensor on the cache's device for a tensor.
+        ``assume_unique=True`` (the plan path) skips the np.unique: the
+        caller already deduplicated the batch. Thread-safe: the whole
+        fault-in is one critical section."""
+        with self._lock:
+            st, dev = self._prepare_locked(state, _host_ids(ids),
+                                           assume_unique, counts)
+        if isinstance(ids, torch.Tensor):
+            dev = torch.from_numpy(dev).to(state["table"].device)
+        return st, dev
+
+    def _split_admission(self, missing: np.ndarray,
+                         hit_slots: np.ndarray) -> tuple[np.ndarray,
+                                                         np.ndarray]:
+        """Partition this step's missing ids into (admitted, bypassed) by
+        sketch hotness. Bypassed faults are capped by the bypass slots
+        actually free this step (unpinned and not holding a row the batch
+        also hits); the overflow is admitted, from the front of the bypass
+        list, so a cold burst can still be served."""
+        hot = self._sketch.estimate(missing) >= self.admit_threshold
+        admit, bypass = missing[hot], missing[~hot]
+        if bypass.size:
+            avail = np.ones(self.dev_slots, bool)
+            avail[: self.cache_rows] = False
+            avail[self._pin_count > 0] = False
+            avail[hit_slots] = False
+            room = int(np.count_nonzero(avail))
+            if bypass.size > room:
+                admit = np.concatenate([admit, bypass[room:]])
+                bypass = bypass[:room]
+        return admit, bypass
+
+    def _prepare_locked(self, state, ids: np.ndarray,
+                        assume_unique: bool = False, counts=None):
+        spec = self.spec
+        flat = ids.reshape(-1)
+        valid = (flat >= 0) & (flat < spec.rows)
+        uniq = flat[valid] if assume_unique else np.unique(flat[valid])
+        if uniq.size > self.cache_rows:
+            raise ValueError(
+                f"batch working set ({uniq.size} unique ids) exceeds the "
+                f"device cache ({self.cache_rows} slots) — raise "
+                "EmbeddingSpec.cache_rows or shrink the batch")
+        self._tick += 1
+        if self._sketch is not None:
+            c = None
+            if counts is not None:
+                c = np.asarray(counts, np.float64).reshape(-1)
+                c = c[valid] if c.size == flat.size else None
+            self._sketch.update(uniq, c)
+        uslots = self._slot_arr[uniq].astype(np.int64)
+        self.last_admit = self.last_bypass = self.last_promote = 0
+        if self._sketch is not None:
+            # promote bypass-resident rows that have become hot: write the
+            # device copy back, free the bypass slot, and let the fault
+            # path re-admit them into the main cache this same step
+            # (pinned slots wait for a later step)
+            in_byp = uslots >= self.cache_rows
+            if in_byp.any():
+                hot = self._sketch.estimate(uniq) >= self.admit_threshold
+                safe = np.clip(uslots, 0, self.dev_slots - 1)
+                promo = in_byp & hot & (self._pin_count[safe] == 0)
+                if promo.any():
+                    self._evict_slots(uslots[promo], state)
+                    uslots[promo] = -1
+                    self.last_promote = int(promo.sum())
+                    self.promotes += self.last_promote
+        hit_slots = uslots[uslots >= 0]
+        missing = uniq[uslots < 0]
+        self.hits += int(hit_slots.size)
+        if missing.size:
+            if self._sketch is not None:
+                admit, bypass = self._split_admission(missing, hit_slots)
+                v_main = self._free_slots(hit_slots, admit.size, state,
+                                          hi=self.cache_rows)
+                v_byp = self._free_slots(hit_slots, bypass.size, state,
+                                         lo=self.cache_rows)
+                missing = np.concatenate([admit, bypass])
+                victims = np.concatenate([v_main, v_byp])
+                self.admits += int(admit.size)
+                self.bypasses += int(bypass.size)
+                self.last_admit = int(admit.size)
+                self.last_bypass = int(bypass.size)
+            else:
+                victims = self._free_slots(hit_slots, missing.size, state)
+                self.admits += int(missing.size)
+                self.last_admit = int(missing.size)
+            t0 = time.perf_counter()
+            vecs, accs = self.store.read_rows(missing)
+            self.faults += missing.size
+            self._fault_in(state, victims, missing, vecs, accs)
+            self.stage_s["fault"] += time.perf_counter() - t0
+            for k, s in zip(missing.tolist(), victims.tolist()):
+                self._slot_for_id[k] = s
+            self._slot_arr[missing] = victims
+            self._id_for_slot[victims] = missing
+            touched = np.concatenate([hit_slots, victims])
+        else:
+            touched = hit_slots
+        self._slot_clock[touched] = self._tick
+        dev = np.where(valid, self._slot_arr[np.where(valid, flat, 0)], -1)
+        return state, dev.astype(np.int32).reshape(ids.shape)
+
+    def _fault_in(self, state, slots, ids, vecs, accs):
+        """Scatter the faulted rows into their slots, in place: slots,
+        ids, accs and vectors travel in ONE staging buffer and one
+        host-to-device copy (pinned and non-blocking on a GPU)."""
+        m, dim = int(slots.size), self.spec.dim
+        has_acc = "acc" in state
+        base = 3 * m if has_acc else 2 * m
+        buf = np.empty(base + m * dim, np.int32)
+        buf[:m] = slots
+        buf[m:2 * m] = ids
+        words = buf.view(np.float32)
+        if has_acc:
+            words[2 * m:3 * m] = accs
+        words[base:] = np.asarray(vecs, np.float32).reshape(-1)
+        table = state["table"]
+        up = torch.from_numpy(buf)
+        if table.device.type == "cuda":
+            up = up.pin_memory().to(table.device, non_blocking=True)
+        idx = up[:m].long()
+        fl = up.view(torch.float32)
+        table.index_copy_(0, idx, fl[base:].view(m, dim).to(table.dtype))
+        state["slot_ids"].index_copy_(0, idx, up[m:2 * m])
+        if has_acc:
+            state["acc"].index_copy_(0, idx, fl[2 * m:3 * m])
+
+    def _free_slots(self, protected: np.ndarray, need: int, state,
+                    lo: int = 0, hi: int | None = None):
+        """Pick ``need`` victim slots inside ``[lo, hi)`` (the full slot
+        pool by default; admission carves it into the main cache ``[0,
+        cache_rows)`` and the bypass region ``[cache_rows, dev_slots)``):
+        empty slots first, then the least-recently-touched occupied slots
+        outside the current batch (never a pinned slot); evicted rows
+        (vector + acc) are written back to the host store."""
+        if hi is None:
+            hi = self.dev_slots
+        if need <= 0:
+            return np.zeros(0, np.int64)
+        in_region = np.zeros(self.dev_slots, bool)
+        in_region[lo:hi] = True
+        pinned = self._pin_count > 0
+        free = np.nonzero((self._id_for_slot < 0) & ~pinned
+                          & in_region)[0][:need]
+        n_evict = need - free.size
+        if n_evict <= 0:
+            return free
+        cand = in_region.copy()
+        cand[self._id_for_slot < 0] = False
+        cand[protected] = False
+        cand[pinned] = False
+        cand_slots = np.nonzero(cand)[0]
+        if cand_slots.size < n_evict:
+            raise ValueError(
+                f"fault-in needs {n_evict} eviction victims but only "
+                f"{cand_slots.size} unpinned slots are evictable: the "
+                f"combined working set of in-flight pipelined batches "
+                f"exceeds the device cache ({hi - lo} slots in "
+                f"[{lo}, {hi}), {int(pinned.sum())} pinned) — lower "
+                "max_inflight or raise EmbeddingSpec.cache_rows")
+        order = np.argsort(self._slot_clock[cand_slots], kind="stable")
+        evict = cand_slots[order[:n_evict]]
+        self._evict_slots(evict, state)
+        return np.concatenate([free, evict])
+
+    def _evict_slots(self, evict: np.ndarray, state):
+        """Write the given occupied slots' rows (vector + acc: the device
+        copy is the freshest) back to the host store and clear their slot
+        bookkeeping. The gather is enqueued after every put before it; the
+        copy to the host waits for it."""
+        t0 = time.perf_counter()
+        n, dim = int(evict.size), self.spec.dim
+        ev_ids = self._id_for_slot[evict]
+        table = state["table"]
+        idx = upload_int32([evict], table.device)[0].long()
+        rows = table.index_select(0, idx).float()
+        if "acc" in state:
+            acc = state["acc"].index_select(0, idx)
+            rows = torch.cat([rows, acc[:, None]], 1)
+        t1 = time.perf_counter()
+        host = rows.cpu().numpy()
+        self.stage_s["evict_sync"] += time.perf_counter() - t1
+        accs = host[:, dim].copy() if "acc" in state else None
+        self.store.write_rows(ev_ids, np.ascontiguousarray(host[:, :dim]),
+                              accs)
+        self.writebacks += n
+        for k in ev_ids.tolist():
+            del self._slot_for_id[k]
+        self._slot_arr[ev_ids] = -1
+        self._id_for_slot[evict] = -1
+        self.stage_s["evict"] += time.perf_counter() - t0
+
+    # -- slot pinning (pipelined callers) ------------------------------------
+    #
+    # Between a batch's prepare and its applied put, a deep pipeline must
+    # keep that batch's cache slots resident: a later batch's fault-in that
+    # recycled them would make the pending lookup read the WRONG row and
+    # silently drop the put. Pins are reference counts; a fault-in that
+    # cannot find enough unpinned victims raises.
+
+    def _pin_targets(self, dev_ids) -> np.ndarray:
+        slots = _host_ids(D.plan_dev(dev_ids)).reshape(-1)
+        return slots[(slots >= 0) & (slots < self.dev_slots)]
+
+    def pin_slots(self, dev_ids):
+        slots = self._pin_targets(dev_ids)
+        with self._lock:
+            np.add.at(self._pin_count, slots, 1)
+
+    def unpin_slots(self, dev_ids):
+        slots = self._pin_targets(dev_ids)
+        with self._lock:
+            np.subtract.at(self._pin_count, slots, 1)
+            np.maximum(self._pin_count, 0, out=self._pin_count)
+
+    def reset_pins(self):
+        with self._lock:
+            self._pin_count[:] = 0
+
+    # -- serve-path read (read-only) -----------------------------------------
+
+    def read_lock(self):
+        return self._lock
+
+    def _read_begin(self, arr, occ=False):
+        """Resolve residency against the host mirror of the slot map and
+        read the misses from the host store, quantized through the cache
+        dtype (a served row is the same whether it is cached or not). The
+        unique ids are reordered hits first: the arrays to upload are the
+        occurrence inverse into that order and the hit slots, the rows to
+        upload the misses. Call under :meth:`read_lock` with the
+        matching :meth:`_read_end`."""
+        spec = self.spec
+        flat = arr.reshape(-1)
+        valid = (flat >= 0) & (flat < spec.rows)
+        uniq, inv_valid = np.unique(flat[valid], return_inverse=True)
+        slots = self._slot_arr[uniq]
+        hit = slots >= 0
+        new_pos = np.empty(uniq.size, np.int64)
+        new_pos[hit] = np.arange(int(hit.sum()))
+        new_pos[~hit] = int(hit.sum()) + np.arange(int((~hit).sum()))
+        inv = np.full(flat.shape, -1, np.int32)
+        inv[valid] = new_pos[inv_valid]
+        missing = uniq[~hit]
+        m_vecs, _ = self.store.read_rows(missing) if missing.size \
+            else (np.zeros((0, spec.dim), np.float32), None)
+        m_vecs = torch.from_numpy(np.asarray(m_vecs, np.float32)) \
+            .to(spec.dtype).float().numpy()
+        return ([inv.reshape(arr.shape), slots[hit].astype(np.int32)],
+                m_vecs, {"reads": int(uniq.size), "hits": int(hit.sum()),
+                         "misses": int(missing.size)})
+
+    def _read_end(self, state, idx, rows, occ=False):
+        """Gather the hits from the device cache beside the uploaded
+        misses: the read's unique rows, hits first (at least one row, so
+        an empty read still pools zeros)."""
+        inv, hit_slots = idx
+        table = state["table"]
+        rows_u = torch.cat([table.index_select(0, hit_slots.long()).float(),
+                            rows])
+        if rows_u.shape[0] == 0:
+            rows_u = table.new_zeros((1, self.spec.dim), dtype=torch.float32)
+        if occ:
+            return D.plan_scatter(rows_u, inv)
+        return (rows_u, None, inv, False)
+
+    def dedup_rows(self) -> int:
+        # a batch's unique set must fit the device cache (prepare raises
+        # otherwise), so the cache bounds the distinct device ids too
+        return min(self.spec.rows, self.cache_rows)
+
+    def dev_rows(self) -> int:
+        return self.dev_slots
+
+    def table_rows(self, dev_ids: torch.Tensor) -> torch.Tensor:
+        valid = (dev_ids >= 0) & (dev_ids < self.dev_slots)
+        return torch.where(valid, dev_ids, -1).to(torch.int32)
+
+    def queue_init(self, ids_shape, device=None):
+        if self.spec.staleness <= 0:
+            return None
+        return self._queue_init_width(self.queue_width(_prod(ids_shape)),
+                                      device)
+
+    def _queue_init_width(self, width: int, device=None):
+        """The FIFO of tau pending puts at ``width``: each holds the cache
+        slots, their logical ids and the grads (``ptr``/``filled`` host
+        ints, as the dense queue's)."""
+        spec = self.spec
+        tau, n = spec.staleness, int(width)
+        i32 = dict(dtype=torch.int32, device=device)
+        return {"slots": torch.full((tau, n), -1, **i32),
+                "ids": torch.full((tau, n), -1, **i32),
+                "grads": torch.zeros((tau, n, spec.dim), dtype=spec.dtype,
+                                     device=device),
+                "ptr": 0, "filled": 0}
+
+    # -- device-side ---------------------------------------------------------
+
+    def _safe(self, slots: torch.Tensor) -> torch.Tensor:
+        return slots.clamp(0, self.dev_slots - 1).long()
+
+    def _logical(self, state, slots: torch.Tensor) -> torch.Tensor:
+        """The logical ids the cache holds at ``slots`` (-1 where < 0)."""
+        return torch.where(slots >= 0, state["slot_ids"][self._safe(slots)],
+                           -1).to(torch.int32)
+
+    def _still(self, state, old_slots, old_ids) -> torch.Tensor:
+        """A popped put lands only if its slot still holds its row."""
+        return (old_slots >= 0) & (old_ids >= 0) & \
+            (state["slot_ids"][self._safe(old_slots)] == old_ids)
+
+    def _lookup_flat(self, state, dev_ids):
+        shape = dev_ids.shape
+        flat = dev_ids.reshape(-1)
+        valid = (flat >= 0) & (flat < self.dev_slots)
+        table = state["table"]
+        out = table[self._safe(flat)] * valid[:, None].to(table.dtype)
+        return out.reshape(*shape, self.spec.dim), {}
+
+    def _put_flat(self, state, dev_ids, grads):
+        spec = self.spec
+        flat = dev_ids.reshape(-1)
+        valid = (flat >= 0) & (flat < self.dev_slots)
+        plan = C.dedup_plan(torch.where(valid, flat, -1),
+                            D.dedup_cap(int(flat.numel()), self.dev_slots))
+        PS.fused_apply(state, spec, plan.order, plan.offsets,
+                       grads.reshape(-1, spec.dim).float().contiguous(),
+                       plan.dev, None)
+        return state, {}
+
+    def _put_unique(self, state, slots_u, g_u):
+        return PS._apply_sparse(state, self.spec, self.table_rows(slots_u),
+                                g_u), {}
+
+    def _hybrid_flat(self, state, queue, dev_ids, grads):
+        spec = self.spec
+        flat = dev_ids.reshape(-1)
+        g = grads.reshape(-1, spec.dim)
+        if spec.staleness <= 0 or queue is None:
+            st, m = self._put_flat(state, flat, g)
+            return st, queue, m
+        slot_signed = self.table_rows(flat)
+        if not spec.batch_dedup:
+            return self._hybrid_flat_legacy(state, queue, slot_signed, g)
+        # unique-width queue: dedup by slot before the push
+        plan = C.dedup_plan(slot_signed, int(queue["slots"].shape[1]))
+        return self._hybrid_plan(state, queue, plan, g)
+
+    def _hybrid_flat_legacy(self, state, queue, slot_signed, g):
+        """The occurrence-width queue: push every occurrence's (slot, id,
+        grad), apply the popped put where its slots still hold its rows."""
+        queue, old_slots, old_ids, old_g = self._queue_push_pop(
+            queue, slot_signed, self._logical(state, slot_signed), g)
+        st, m = self._put_flat(
+            state, torch.where(self._still(state, old_slots, old_ids),
+                               old_slots, -1), old_g)
+        return st, queue, m
+
+    def _hybrid_begin(self, state, queue, plan, grads):
+        slots_q, ids_q, g_q = queue["slots"], queue["ids"], queue["grads"]
+        tau, cap = int(slots_q.shape[0]), int(slots_q.shape[1])
+        ptr, U = int(queue["ptr"]), int(plan.dev.shape[0])
+        if U > cap:
+            raise ValueError(f"plan width {U} exceeds the queue width {cap}")
+        old_slots = slots_q[ptr]
+        apply_idx = torch.where(self._still(state, old_slots, ids_q[ptr]),
+                                old_slots, -1)
+        logical = self._logical(state, plan.dev)
+        new, g_push = _fused_backward(self.spec, state, plan, grads,
+                                      apply_idx, g_q[ptr])
+
+        def finish():
+            slots_q[ptr, :U] = plan.dev
+            slots_q[ptr, U:] = -1
+            ids_q[ptr, :U] = logical
+            ids_q[ptr, U:] = -1
+            g_q[ptr] = g_push
+            return new, dict(queue, ptr=(ptr + 1) % tau,
+                             filled=min(int(queue["filled"]) + 1, tau)), {}
+        return g_push[:U], finish
+
+    def _hybrid_unique(self, state, queue, slots_u, g_u):
+        spec = self.spec
+        if spec.staleness <= 0 or queue is None:
+            st, m = self._put_unique(state, slots_u, g_u)
+            return st, queue, m
+        cap = int(queue["slots"].shape[1])
+        slots_cap = D.pad_axis0(slots_u.to(torch.int32), cap, -1)
+        queue, old_slots, old_ids, old_g = self._queue_push_pop(
+            queue, slots_cap, self._logical(state, slots_cap),
+            D.pad_axis0(g_u, cap, 0))
+        st, m = self._put_unique(
+            state, torch.where(self._still(state, old_slots, old_ids),
+                               old_slots, -1), old_g)
+        return st, queue, m
+
+    def _queue_push_pop(self, queue, slots, logical, g):
+        """Push (slots, ids, grads) at ``ptr``; pop (copies of) the
+        tau-stale entry."""
+        ptr = int(queue["ptr"])
+        old = [queue[k][ptr].clone() for k in ("slots", "ids", "grads")]
+        queue["slots"][ptr] = slots.to(torch.int32)
+        queue["ids"][ptr] = logical.to(torch.int32)
+        queue["grads"][ptr] = g.to(queue["grads"].dtype)
+        tau = int(queue["slots"].shape[0])
+        return (dict(queue, ptr=(ptr + 1) % tau,
+                     filled=min(int(queue["filled"]) + 1, tau)), *old)
+
+    # -- checkpoint ----------------------------------------------------------
+
+    def state_for_checkpoint(self, state):
+        """Snapshot ALL tiers: the device cache (so queued slot references
+        stay live across restore), the host store (plain or tiered, with
+        its recency order), the slot map and, with admission on, the
+        hotness sketch: a restore resumes bit-identically. The JAX
+        package's blob, key for key."""
+        with self._lock:
+            cm = {
+                "id_for_slot": self._id_for_slot.copy(),
+                "slot_clock": self._slot_clock.copy(),
+                "scalars": np.array([self._tick, self.faults,
+                                     self.writebacks, self.hits,
+                                     self.admits, self.bypasses,
+                                     self.promotes], np.int64),
+            }
+            if self._sketch is not None:
+                cm["hotness"] = self._sketch.serialize()
+            return {"cache": {k: v.detach().cpu().numpy()
+                              for k, v in state.items()},
+                    "store": self.store.serialize(),
+                    "cache_meta": cm}
+
+    def restore_from_checkpoint(self, blob):
+        """Load a host_lru blob's host tiers into this backend and return
+        its device cache as numpy (``{"table", "slot_ids", "acc"?}``). A
+        blob of the other store format (two-tier into ``+disk`` or the
+        reverse) is rebuilt row-exactly from its logical rows; a blob of
+        the other ``store_dtype`` is re-encoded."""
+        if isinstance(blob, dict) and "shard_meta" in blob:
+            raise NotImplementedError(
+                "this checkpoint holds a sharded-router table: resharding "
+                "on restore is not ported yet")
+        with self._lock:
+            return self._restore_locked(blob)
+
+    def _restore_locked(self, blob):
+        spec = self.spec
+        if not isinstance(blob, dict) or "store" not in blob \
+                or "cache" not in blob:
+            raise ValueError(
+                "checkpoint blob has no host store — it was not written by "
+                "the host_lru backend (restoring across backends is not "
+                "supported)")
+        meta = blob["store"]["meta"]
+        cap, dim = int(meta[0]), int(meta[1])
+        if cap != spec.rows or dim != spec.dim:
+            raise ValueError(
+                f"checkpoint host store is ({cap}, {dim}) but this table's "
+                f"spec wants ({spec.rows}, {spec.dim}) — collection changed "
+                "since the save?")
+        cache_tbl = blob["cache"]["table"]
+        if cache_tbl.shape[0] != self.dev_slots:
+            raise ValueError(
+                f"checkpoint device cache has {cache_tbl.shape[0]} slots but "
+                f"this table runs {self.dev_slots} "
+                f"(cache_rows={self.cache_rows} + "
+                f"bypass_rows={self.bypass_rows}) — rebuild the trainer "
+                "with the cache geometry the checkpoint was trained under")
+        sblob = blob["store"]
+        if ("disk" in sblob) == self._disk:
+            # matching store format: a bit-identical tier restore (a
+            # store_dtype mismatch re-encodes the blob's fp32 rows)
+            if self._disk:
+                self.store = TieredHostStore.deserialize(
+                    sblob, path=spec.disk_path,
+                    store_dtype=spec.store_dtype)
+            else:
+                self.store = LRUEmbeddingStore.deserialize(
+                    sblob, store_dtype=spec.store_dtype)
+                self.store.track_recency = False   # backend-owned: see init
+        else:
+            # cross-format restore: rebuild the configured hierarchy from
+            # the blob's logical rows (row-exact, tier residency fresh)
+            vec, acc = _store_logical_rows(sblob, spec.rows, spec.dim)
+            self.store = self._make_store()
+            self.store.preload(np.arange(spec.rows), vec, acc)
+        cm = blob["cache_meta"]
+        self._reset_slots()
+        self._id_for_slot = np.asarray(cm["id_for_slot"], np.int64).copy()
+        self._slot_clock = np.asarray(cm["slot_clock"], np.int64).copy()
+        scalars = [int(x) for x in np.asarray(cm["scalars"]).reshape(-1)]
+        self._tick, self.faults, self.writebacks = scalars[:3]
+        # older blobs carry 3 scalars (no hit counter) or 4 (no
+        # admit/bypass/promote counters)
+        self.hits = scalars[3] if len(scalars) > 3 else 0
+        self.admits = scalars[4] if len(scalars) > 4 else 0
+        self.bypasses = scalars[5] if len(scalars) > 5 else 0
+        self.promotes = scalars[6] if len(scalars) > 6 else 0
+        if self._sketch is not None:
+            self._sketch = (HotnessSketch.deserialize(cm["hotness"])
+                            if "hotness" in cm else HotnessSketch())
+        live = np.nonzero(self._id_for_slot >= 0)[0]
+        self._slot_for_id = {int(self._id_for_slot[s]): int(s)
+                             for s in live.tolist()}
+        self._slot_arr[self._id_for_slot[live]] = live.astype(np.int32)
+        return {k: np.asarray(v) for k, v in blob["cache"].items()}
+
+    # -- capacity accounting / inspection ------------------------------------
+
+    def host_bytes(self) -> int:
+        s = self.store
+        if s is None:
+            return 0
+        if hasattr(s, "host_bytes"):        # tiered: host-tier arrays only
+            return s.host_bytes()
+        return int(s.payload_bytes() + s.opt_acc.nbytes + s.prev.nbytes
+                   + s.next.nbytes + s.keys.nbytes)
+
+    def cache_metrics(self) -> dict:
+        """Per-step admission gauges (empty when the sketch is off)."""
+        if self._sketch is None:
+            return {}
+        return {"admit": float(self.last_admit),
+                "bypass": float(self.last_bypass),
+                "promote": float(self.last_promote)}
+
+    def recency_order(self) -> list[int]:
+        """Host-store ids most- to least-recently used (checkpointed)."""
+        return self.store.recency_ids()
+
+
+def _store_logical_rows(sblob, rows: int, dim: int):
+    """Host-store checkpoint sub-blob -> dense ``(vec, acc)`` over all
+    ``rows`` logical rows (zeros for never-stored ids), from the plain LRU
+    blob or the tiered host+disk blob (the disk tier laid down first, then
+    the host tier over it: the host copy is the freshest)."""
+    vec = np.zeros((rows, dim), np.float32)
+    acc = np.zeros((rows,), np.float32)
+
+    def overlay(b):
+        meta = np.asarray(b["meta"], np.int64).reshape(-1)
+        # plain LRU meta is [capacity, dim, head, tail, size, evictions];
+        # the mmap tier's is just [capacity, dim, size]
+        size = int(meta[4]) if meta.size > 4 else int(meta[2])
+        keys = np.asarray(b["keys"], np.int64)[:size]
+        vec[keys] = np.asarray(b["vectors"], np.float32)[:size]
+        acc[keys] = np.asarray(b["opt_acc"], np.float32)[:size]
+
+    if "disk" in sblob:
+        overlay(sblob["disk"])
+        overlay(sblob["host"])
+    else:
+        overlay(sblob)
+    return vec, acc
+
+
 class CompressedWireBackend(EmbeddingBackend):
     """The paper's §4.2.3 communication compression, as a decorator over
-    the dense backend: gradient puts are deduplicated to one row per unique
-    id (lossless), and both get and put payloads cross the wire as
+    either storage backend: gradient puts are deduplicated to one row per
+    unique id (lossless), and both get and put payloads cross the wire as
     blockscale fp16 (lossy), through the ``blockscale_compress`` and
     ``blockscale_decompress`` CUDA kernels (their plain versions on the
     CPU). Per-step bytes-moved metrics surface through the trainer's
@@ -456,10 +1248,40 @@ class CompressedWireBackend(EmbeddingBackend):
     def dedup_rows(self) -> int:
         return self.inner.dedup_rows()
 
+    def dev_rows(self) -> int:
+        return self.inner.dev_rows()
+
     def queue_width(self, n_occ: int) -> int:
         # the wire ALWAYS dedups its puts (even at occurrence width), so its
-        # queue is capped whatever batch_dedup says
-        return D.dedup_cap(n_occ, self.dedup_rows())
+        # queue is capped whatever batch_dedup says, over the device ids
+        return D.dedup_cap(n_occ, self.dev_rows())
+
+    def read_lock(self):
+        return self.inner.read_lock()
+
+    def pin_slots(self, dev_ids):
+        self.inner.pin_slots(dev_ids)
+
+    def unpin_slots(self, dev_ids):
+        self.inner.unpin_slots(dev_ids)
+
+    def reset_pins(self):
+        self.inner.reset_pins()
+
+    def cache_metrics(self) -> dict:
+        return self.inner.cache_metrics()
+
+    def state_for_checkpoint(self, state):
+        return self.inner.state_for_checkpoint(state)
+
+    def restore_from_checkpoint(self, blob):
+        return self.inner.restore_from_checkpoint(blob)
+
+    def device_bytes(self, state) -> int:
+        return self.inner.device_bytes(state)
+
+    def host_bytes(self) -> int:
+        return self.inner.host_bytes()
 
     def queue_init(self, ids_shape, device=None):
         # the queue lives PS-side, AFTER the wire: it holds deduped puts
@@ -519,7 +1341,7 @@ class CompressedWireBackend(EmbeddingBackend):
         else:
             flat = dev_ids.reshape(-1)
             n_put = int(flat.numel())
-            plan = C.dedup_plan(flat, D.dedup_cap(n_put, self.dedup_rows()))
+            plan = C.dedup_plan(flat, D.dedup_cap(n_put, self.dev_rows()))
             n_uniq = (plan.dev >= 0).sum().float()
             n_vals = n_uniq * spec.dim
             blocks = torch.ceil(n_vals / self._block)
@@ -590,8 +1412,7 @@ def parse_backend_name(name: str | None) -> tuple[str, bool]:
     """``EmbeddingSpec.backend`` string -> (base, compressed?). Accepted
     forms, as in the JAX package: ``dense``, ``host_lru``, ``host_lru+disk``
     (``base`` keeps the ``+disk`` marker), plus a ``+compressed`` suffix on
-    any of them (``compressed`` alone means ``dense+compressed``). The port
-    builds ``dense`` and ``dense+compressed`` (:func:`create_backend`)."""
+    any of them (``compressed`` alone means ``dense+compressed``)."""
     name = (name or "dense").strip().lower()
     parts = name.split("+")
     base, flags = parts[0], parts[1:]
@@ -620,13 +1441,10 @@ def parse_backend_name(name: str | None) -> tuple[str, bool]:
 
 def create_backend(spec: EmbeddingSpec) -> EmbeddingBackend:
     """``spec.backend`` -> backend instance (see :func:`parse_backend_name`):
-    ``dense``, or ``dense`` behind the compressed wire."""
+    ``dense`` or ``host_lru[+disk]``, optionally behind the compressed
+    wire."""
     base, wrap = parse_backend_name(spec.backend)
-    if base != "dense":
-        raise ValueError(f"embedding backend {spec.backend!r} is not ported "
-                         "yet: the torch port builds 'dense' and "
-                         "'dense+compressed'")
-    backend = DenseBackend(spec)
+    backend = DenseBackend(spec) if base == "dense" else HostLRUBackend(spec)
     return CompressedWireBackend(backend) if wrap else backend
 
 
@@ -646,24 +1464,54 @@ def make_backends(collection) -> dict[str, EmbeddingBackend]:
 # collection-level fan-outs: prepare (host), lookup and put (device)
 # ---------------------------------------------------------------------------
 
-def upload_int32(arrays: list[np.ndarray], device) -> list[torch.Tensor]:
-    """Host int32 arrays -> tensors on ``device`` through ONE host-to-device
-    copy (from pinned memory, without a synchronisation, on a GPU): the
-    step's index arrays travel together."""
+def _upload(arrays: list[np.ndarray], dtype, device) -> list[torch.Tensor]:
+    """Host arrays -> tensors of ``dtype`` on ``device`` through ONE
+    host-to-device copy (from a fresh pinned buffer, without a
+    synchronisation, on a GPU)."""
     if not arrays:
         return []
     sizes = [a.size for a in arrays]
     buf = torch.from_numpy(np.concatenate(
-        [np.ascontiguousarray(a, np.int32).reshape(-1) for a in arrays]))
+        [np.ascontiguousarray(a, dtype).reshape(-1) for a in arrays]))
     if torch.device(device).type == "cuda":
         buf = buf.pin_memory().to(device, non_blocking=True)
     parts = torch.split(buf, sizes)
     return [p.view(a.shape) for p, a in zip(parts, arrays)]
 
 
+def upload_int32(arrays: list[np.ndarray], device) -> list[torch.Tensor]:
+    """Host int32 arrays -> tensors on ``device`` through ONE host-to-device
+    copy (from pinned memory, without a synchronisation, on a GPU): the
+    step's index arrays travel together."""
+    return _upload(arrays, np.int32, device)
+
+
+def _upload_read(host: dict, device) -> dict:
+    """{table: (int32 arrays, fp32 rows or None)} of serve reads -> {table:
+    (int32 tensors, fp32 rows tensor or None)} on ``device``: every
+    table's index arrays in ONE copy and every table's rows in one
+    more."""
+    ints = iter(upload_int32([a for arrs, _ in host.values() for a in arrs],
+                             device))
+    rows = iter(_upload([r for _, r in host.values() if r is not None],
+                        np.float32, device))
+    return {n: ([next(ints) for _ in arrs], None if r is None else next(rows))
+            for n, (arrs, r) in host.items()}
+
+
+def _bags(ids) -> np.ndarray:
+    """Serve-read ids as host (B, L) bags."""
+    arr = _host_ids(ids)
+    if arr.ndim != 2:
+        raise ValueError(f"read_pooled takes (B, L) bags, got shape "
+                         f"{arr.shape}")
+    return arr
+
+
 def prepare_all(backends, states, ids, device):
-    """Host-level per-table prepare: batch dedup + id translation, once per
-    (table, batch), then one upload of every index array to ``device``.
+    """Host-level per-table prepare: batch dedup + fault-in (host_lru) + id
+    translation, once per (table, batch), then one upload of every index
+    array to ``device``.
 
     For tables with ``spec.batch_dedup`` (the default) this builds the
     :class:`~repro_torch.core.dedup.DedupPlan` on the host — unique ids,
@@ -673,7 +1521,8 @@ def prepare_all(backends, states, ids, device):
 
     Returns ``(new_states, dev_ids, metrics)`` where metrics carries the
     per-table ``dedup/<table>/{dup_factor,unique_rows,bytes_saved}``
-    host gauges."""
+    host gauges and, for tables with cache admission, the
+    ``cache/<table>/{admit,bypass,promote}`` ones."""
     new_states = dict(states)
     host, metrics, n_unique = {}, {}, {}
     for n in ids:
@@ -683,13 +1532,14 @@ def prepare_all(backends, states, ids, device):
         if not spec.batch_dedup:
             new_states[n], dev = b.prepare(states[n], arr)
             host[n] = [np.asarray(dev, np.int32)]
+            _cache_tags(metrics, n, b)
             continue
         cap = D.dedup_cap(max(arr.size, 1), b.dedup_rows())
         u_pad, inv, counts, info = D.make_plan(arr, spec.rows, cap)
         new_states[n], dev_u = b.prepare(states[n], u_pad, assume_unique=True,
                                          counts=counts)
         dev_u = np.asarray(dev_u, np.int32)
-        rows = unwrap(b)._logical_to_pos(torch.from_numpy(dev_u)).numpy()
+        rows = unwrap(b).table_rows(torch.from_numpy(dev_u)).numpy()
         order, offsets = D.occurrence_csr(inv, dev_u.shape[0])
         host[n] = [dev_u, inv, rows, order, offsets]
         n_unique[n] = info["n_unique"]
@@ -698,6 +1548,7 @@ def prepare_all(backends, states, ids, device):
         metrics[f"dedup/{n}/unique_rows"] = float(info["n_unique"])
         metrics[f"dedup/{n}/bytes_saved"] = float(
             (info["n_occ"] - info["n_unique"]) * spec.dim * itemsize)
+        _cache_tags(metrics, n, b)
     flat = iter(upload_int32([a for arrs in host.values() for a in arrs],
                              device))
     dev_ids = {}
@@ -707,6 +1558,11 @@ def prepare_all(backends, states, ids, device):
             dev=got[0], inv=got[1], rows=got[2], order=got[3],
             offsets=got[4], n_unique=n_unique[n])
     return new_states, dev_ids, metrics
+
+
+def _cache_tags(metrics, name, backend):
+    for k, v in backend.cache_metrics().items():
+        metrics[f"cache/{name}/{k}"] = v
 
 
 def _tag(metrics, name, table_metrics):
@@ -719,10 +1575,11 @@ def lookup_all(backends, states, dev_ids):
     metrics), ONE launch per kernel for the stage: the tables behind the
     wire gather their rows, compress in ONE launch and decompress in ONE;
     then every table pools in ONE bag launch, through a plan (``unique_bag``
-    on a dense table's physical rows, or on a wire table's roundtripped
-    unique rows with the identity for dev) or at occurrence width
-    (``embedding_bag`` on a dense table's physical rows, or on a wire
-    table's roundtripped occurrence rows through their slots)."""
+    on a table's rows, or on a wire table's roundtripped unique rows with
+    the identity for dev) or at occurrence width (``embedding_bag`` on a
+    table's rows, or on a wire table's roundtripped occurrence rows
+    through their slots). A table's rows are its backend's
+    ``table_rows``: shuffled rows, or host_lru cache slots."""
     metrics = {}
     bags = {}                  # name -> (table, dev or None, inv, flat)
     wire = {}                  # name -> (rows, block)
@@ -737,8 +1594,8 @@ def lookup_all(backends, states, dev_ids):
         elif D.is_plan(ids):
             bags[n] = (table, b._plan_rows(ids), ids.inv, False)
         else:
-            bags[n] = (table, None,
-                       b._logical_to_pos(ids).to(table.device), True)
+            bags[n] = (table, None, b.table_rows(ids).to(table.device),
+                       True)
         _tag(metrics, n, m)
     for n, rows in _roundtrip_all(wire).items():
         ids = dev_ids[n]
@@ -807,42 +1664,38 @@ def read_pooled_all(backends, states, ids, device):
     """Serve-path pooled reads of every table (the per-table
     :meth:`EmbeddingBackend.read_pooled`, grouped): LOGICAL (B, L) ids per
     table -> ({table: (B, dim) fp32 pooled}, {table: read gauges}). Every
-    table's index arrays (a dense table's plan or occurrence rows, a wire
-    table's ids and their occurrence slots) are built on the host and
-    uploaded in ONE copy; the tables behind the wire gather their
-    occurrence rows, compress in ONE launch and decompress in ONE; then
-    every table pools in ONE bag launch (``unique_bag`` through a plan,
-    ``embedding_bag`` at occurrence width and behind the wire).
-    Read-only."""
-    host, info = {}, {}
-    for n, x in ids.items():
-        b = backends[n]
-        if isinstance(b, CompressedWireBackend):
-            arr = _host_ids(x)
-            if arr.ndim != 2:
-                raise ValueError(f"read_pooled takes (B, L) bags, got "
-                                 f"shape {arr.shape}")
-            # negatives stay padding and ids past int32 stay out of range
-            clipped = np.clip(arr, -1, _INT32_MAX)
-            host[n] = [clipped, _host_slots(clipped)]
-            c = _n_distinct(arr.reshape(-1), b.spec.rows)
-        else:
-            host[n], c = b._read_host(x)
-        info[n] = {"reads": c, "hits": c, "misses": 0}
-    flat = iter(upload_int32([a for arrs in host.values() for a in arrs],
-                             device))
-    idx = {n: [next(flat) for _ in arrs] for n, arrs in host.items()}
-    bags, wire = {}, {}
-    for n, got in idx.items():
-        b, table = backends[n], states[n]["table"]
-        if isinstance(b, CompressedWireBackend):
-            rows, _ = b.inner._lookup_flat(states[n], got[0])
-            wire[n] = (rows.float().contiguous(), b._block)
-        elif len(got) == 2:
-            bags[n] = (table, got[1], got[0], False)
-        else:
-            bags[n] = (table, None, got[0], True)
+    table's index arrays (a dense table's plan or occurrence rows, a
+    host_lru table's inverse and hit slots, a wire table's occurrence
+    slots beside its inner table's) are built on the host and uploaded in
+    ONE copy, a host_lru table's misses, read from its host store, in one
+    more; the tables behind the wire gather their occurrence rows,
+    compress in ONE launch and decompress in ONE; then every table pools
+    in ONE bag launch (``unique_bag`` through a plan or over a host_lru
+    read's unique rows, ``embedding_bag`` at occurrence width and behind
+    the wire). Read-only: the host_lru tables' locks are held from the
+    residency resolution until their gathers are enqueued."""
+    with contextlib.ExitStack() as held:
+        for n in ids:
+            held.enter_context(backends[n].read_lock())
+        host, info = {}, {}
+        for n, x in ids.items():
+            b, arr = backends[n], _bags(x)
+            wire = isinstance(b, CompressedWireBackend)
+            arrs, rows, info[n] = unwrap(b)._read_begin(arr, occ=wire)
+            if wire:
+                arrs = arrs + [_host_slots(arr)]
+            host[n] = (arrs, rows)
+        got = _upload_read(host, device)
+        bags, wire = {}, {}
+        for n, (idx, rows) in got.items():
+            b = backends[n]
+            if isinstance(b, CompressedWireBackend):
+                occ = b.inner._read_end(states[n], idx[:-1], rows, occ=True)
+                wire[n] = (occ.float().contiguous(), b._block)
+            else:
+                bags[n] = b._read_end(states[n], idx, rows)
     for n, rows in _roundtrip_all(wire).items():
-        bags[n] = (rows.reshape(-1, rows.shape[-1]), None, idx[n][1], True)
+        bags[n] = (rows.reshape(-1, rows.shape[-1]), None, got[n][0][-1],
+                   True)
     pooled = _bag_all(bags)
     return {n: pooled[n] for n in ids}, info

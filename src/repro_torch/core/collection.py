@@ -74,13 +74,27 @@ class EmbeddingCollection:
         return self.map_specs(
             lambda _, s: dataclasses.replace(s, staleness=tau))
 
-    def with_backend(self, backend: str) -> "EmbeddingCollection":
+    def with_backend(self, backend: str,
+                     cache_rows: int | None = None) -> "EmbeddingCollection":
         """Set every table's storage backend (collection-wide override),
-        e.g. ``"dense+compressed"``."""
+        e.g. ``"dense+compressed"`` or ``"host_lru+disk"``; optionally also
+        the host_lru device-cache size."""
+        def fn(_, s):
+            kw = {"backend": backend}
+            if cache_rows is not None:
+                kw["cache_rows"] = cache_rows
+            return dataclasses.replace(s, **kw)
+        return self.map_specs(fn)
+
+    def with_store_dtype(self, store_dtype: str) -> "EmbeddingCollection":
+        """Set every table's host-store row format (``"fp32"`` or the
+        blockscale-compressed ``"blockscale16"``, core/lru.py)."""
         return self.map_specs(
-            lambda _, s: dataclasses.replace(s, backend=backend))
+            lambda _, s: dataclasses.replace(s, store_dtype=store_dtype))
 
     def make_backends(self):
-        """One EmbeddingBackend per table (core/backend.py)."""
+        """One EmbeddingBackend per table (core/backend.py). Instances own
+        mutable host state (a host_lru table's store and slot map): every
+        trainer must build its own set."""
         from repro_torch.core.backend import make_backends
         return make_backends(self)

@@ -49,10 +49,12 @@ class DedupPlan:
     """One batch's unique-width routing for one table.
 
     ``dev``: (U,) int32 unique *device* ids (the logical ids, for the
-    dense backend), -1 padding.
+    dense backend; cache slots, for host_lru), -1 padding.
     ``inv``: occurrence-shaped int32, occurrence -> position in ``dev``
     (-1 for padding / out-of-range occurrences).
-    ``rows``: (U,) int32 physical table rows of ``dev``, -1 padding.
+    ``rows``: (U,) int32 table rows of ``dev`` (the backend's
+    ``table_rows``: the shuffled rows, or the slots themselves), -1
+    padding.
     ``order``/``offsets``: the occurrence CSR of ``inv``
     (:func:`occurrence_csr`).
     ``n_unique``: the host count of the valid entries of ``dev``.
@@ -69,6 +71,12 @@ class DedupPlan:
 
 def is_plan(x) -> bool:
     return isinstance(x, DedupPlan)
+
+
+def plan_dev(x):
+    """The device-id array of a plan, or the array itself (host-side
+    callers, such as slot pinning, that accept either form)."""
+    return x.dev if isinstance(x, DedupPlan) else x
 
 
 def make_plan(ids, n_rows: int, cap: int, floor: int = 32):
@@ -95,7 +103,8 @@ def make_plan(ids, n_rows: int, cap: int, floor: int = 32):
         raise ValueError(
             f"batch working set ({uniq.size} unique ids) exceeds this "
             f"table's dedup capacity ({bucket} — bounded by the occurrence "
-            "count and the table rows) — shrink the batch")
+            "count, the table rows and, for host-backed tables, the device "
+            "cache) — raise EmbeddingSpec.cache_rows or shrink the batch")
     u_pad = np.full(bucket, -1, np.int64)
     u_pad[: uniq.size] = uniq
     counts = np.zeros(bucket, np.int64)

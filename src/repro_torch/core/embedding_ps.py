@@ -44,15 +44,35 @@ class EmbeddingSpec:
     eps: float = 1e-8
     staleness: int = 0              # tau; 0 = synchronous embedding updates
     dtype: Any = torch.float32
-    # storage backend (core/backend.py): 'dense', optionally behind the
-    # '+compressed' wire ('dense+compressed'); the port builds no other
+    # storage backend (core/backend.py): 'dense' | 'host_lru' |
+    # 'host_lru+disk', optionally behind the '+compressed' wire. 'dense' is
+    # the device-resident PS shard; 'host_lru' keeps `rows` host-side
+    # behind a device hot-cache of `cache_rows` slots (paper §4.2.2
+    # out-of-core tier); '+disk' stacks a memory-mapped disk tier under a
+    # host LRU of `host_rows` (core/mmap_store.py)
     backend: str = "dense"
+    cache_rows: int = 0             # host_lru: device-resident hot slots
     wire_block: int = 128           # +compressed: blockscale block size
     # +compressed: in the JAX package, the Pallas kernel instead of the jnp
     # codec (equal outputs). It selects nothing in the port, whose wire
     # always runs the CUDA codec (ops.blockscale_*); kept so specs and
     # checkpoints round-trip, and True still needs wire_block == 128
     wire_kernel: bool = False
+    # host-store row format (core/lru.py, core/mmap_store.py): 'fp32' or
+    # 'blockscale16' (fp16 payload + one fp32 scale per <=128-wide block:
+    # the wire codec applied at rest, in numpy on the host). Rows are
+    # decompressed on fault-in and recompressed on write-back, so the
+    # device cache and the optimizer math stay fp32. host_lru only
+    store_dtype: str = "fp32"
+    # frequency-aware admission (core/hotness.py): > 0 serves a faulting
+    # id whose decayed count-min hotness is below the threshold from
+    # `bypass_rows` scratch slots instead of a main cache slot; 0 =
+    # recency-only admission
+    admit_threshold: float = 0.0
+    bypass_rows: int = 0            # scratch slots (0 = cache_rows // 4)
+    # '+disk' tier sizing (core/mmap_store.py)
+    host_rows: int = 0              # host LRU tier rows (0 = rows // 4)
+    disk_path: str | None = None    # mmap backing dir (None = tempdir)
     # worker-side batch dedup (core/dedup.py): True (default) reads through
     # a per-batch DedupPlan at unique width (the unique_bag kernel); False
     # reads at occurrence width (the embedding_bag kernel)

@@ -3,7 +3,10 @@ paper Alg. 1 + Alg. 2).
 
 One train step =
   (1) prepare (host): each table's ids become a dedup plan (unique ids,
-      inverse, physical rows, occurrence CSR), uploaded in one copy;
+      inverse, table rows, occurrence CSR), uploaded in one copy; a
+      host_lru table first faults its missing rows into its device cache
+      (writing the evicted ones back to its host store), and its plan's
+      device ids and rows are cache slots;
   (2) lookup: every table's pooled bags through ONE launch of the bag
       kernel (``unique_bag`` through a plan, ``embedding_bag`` for
       occurrence-width tables), from the (possibly tau-stale) tables
@@ -50,8 +53,15 @@ Differences from the JAX package, all of eager PyTorch:
   ``fused_backward``. Tables behind the compressed wire
   (``backend="dense+compressed"``) roundtrip their gets and puts through
   the blockscale kernels, one compress and one decompress launch for all
-  of them per get and per put. The pipelined trainer and the
-  host-cached and sharded backends come with later slices.
+  of them per get and per put. The pipelined trainer and the sharded
+  router come with later slices.
+* A host_lru table's host tiers (store, slot map, counters) live in its
+  backend, not in the ``TrainState``: ``TrainState.to`` copies the device
+  cache only, and a copy that must train on its own needs its own
+  trainer, carried across as a checkpoint blob (``convert``).
+* ``eval``, ``predict`` and ``lookup`` read through the read-only serve
+  path, as in the JAX package: a host_lru table's misses are read from
+  its host store, never faulted in.
 """
 from __future__ import annotations
 
@@ -122,7 +132,9 @@ class TrainState:
 
     def to(self, device) -> "TrainState":
         """A copy of the whole state on ``device`` (tensors copied, host
-        ints kept): a snapshot that later in-place steps do not touch."""
+        ints kept): a snapshot that later in-place steps do not touch. A
+        host_lru table's host tiers are not in the state: they stay with
+        its backend."""
         dev = torch.device(device)
         cp = lambda x: x.to(dev, copy=True) \
             if isinstance(x, torch.Tensor) else x  # noqa: E731
@@ -288,7 +300,8 @@ class PersiaTrainer:
     def _prepare(self, state: TrainState, batch):
         """Returns (state, dev_ids, metrics): each table's ids deduplicated
         into a dedup plan on the host (kept at occurrence width for
-        ``batch_dedup=False`` tables) and uploaded in one copy."""
+        ``batch_dedup=False`` tables), host_lru rows faulted in, and the
+        index arrays uploaded in one copy."""
         ids = self.adapter.emb_ids(batch)
         emb, dev_ids, m = BK.prepare_all(self.backends, state.emb, ids,
                                          self.device)

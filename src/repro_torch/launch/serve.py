@@ -1,9 +1,11 @@
 """Batched LM serving driver (port of ``repro/launch/serve.py``): prefill a
 batch of prompts, then decode tokens step by step against the per-layer KV
-caches. The vocab table lives in an embedding backend (``dense`` or
-``dense+compressed``); each step looks its tokens up there and runs the
-transformer on the activations. Every prefill attention goes through the
-``flash_attention_fwd`` CUDA kernel on the card.
+caches. The vocab table lives in an embedding backend (``dense``,
+``host_lru`` or ``host_lru+disk``, optionally behind ``+compressed``);
+each step prepares its tokens there (a host_lru table faults them into its
+device cache before the prefill and before each decode step), looks them
+up and runs the transformer on the activations. Every prefill attention
+goes through the ``flash_attention_fwd`` CUDA kernel on the card.
 
 Usage (on the card; ``--device cpu`` runs the plain versions):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_2b \\
@@ -68,7 +70,9 @@ def serve(cfg, batch=4, prompt_len=32, gen=16, seed=0, temperature=0.0,
     """Prefill ``batch`` random prompts of ``prompt_len`` tokens and decode
     ``gen`` tokens (greedy unless ``temperature`` > 0). The weights and
     the vocab table are random from ``seed``, or ``state=(emb_state,
-    dense_params)`` (e.g. a JAX state through ``repro_torch.convert``).
+    dense_params)`` (e.g. a JAX state through ``repro_torch.convert``; a
+    host_lru table's state is its checkpoint blob, loaded into the
+    backend built here).
     Returns the JAX package's keys: ``tokens`` (batch, gen) int32,
     ``prefill_s``, ``decode_s`` (host wall, ended by a synchronize) and
     ``decode_tok_per_s``."""
@@ -83,6 +87,9 @@ def serve(cfg, batch=4, prompt_len=32, gen=16, seed=0, temperature=0.0,
         emb = backend.init(generator)
     else:
         emb, dense = state
+        if "store" in emb:
+            from repro_torch.convert import table_from_numpy
+            emb = table_from_numpy(backend, emb, dev)
     prompts = torch.as_tensor(make_prompts(cfg, batch, prompt_len, seed),
                               device=dev)
 
@@ -127,9 +134,7 @@ def main():
                     choices=["dense", "host_lru", "host_lru+disk",
                              "dense+compressed", "host_lru+compressed",
                              "host_lru+disk+compressed"],
-                    help="vocab-table storage backend (the port builds "
-                         "dense and dense+compressed; the host_lru tiers "
-                         "are not ported yet)")
+                    help="vocab-table storage backend")
     ap.add_argument("--cache-rows", type=int, default=0,
                     help="host_lru device-cache slots (0 = vocab/8)")
     ap.add_argument("--emb-shards", default="1",

@@ -2,9 +2,8 @@
 shards.py``): one ``--emb-shards`` grammar (a bare int or comma-separated
 ``table=k`` pairs) and one way to build an EmbeddingSpec from CLI knobs.
 
-The port's ``EmbeddingSpec`` has neither ``emb_shards`` nor ``cache_rows``
-yet: a spec for more than one shard (the sharded router) or for a host_lru
-backend (the host-LRU tier) raises until those are ported.
+The port's ``EmbeddingSpec`` has no ``emb_shards`` yet: a spec for more
+than one shard (the sharded router) raises until that is ported.
 """
 from __future__ import annotations
 
@@ -47,9 +46,10 @@ def build_embedding_spec(rows: int, dim: int, backend: str = "dense",
                          cache_rows: int = 0, emb_shards: "str | int" = 1,
                          table: str = "vocab", **spec_kw):
     """One table's EmbeddingSpec from the shared CLI knobs: resolves the
-    ``--emb-shards`` grammar against ``table``. Extra keywords pass through
-    to the spec. ``cache_rows`` sizes a host_lru cache, which the port does
-    not have yet."""
+    ``--emb-shards`` grammar against ``table`` and fills the host_lru
+    cache-size default. Extra keywords pass through to the spec."""
+    import dataclasses
+
     from repro_torch.core.embedding_ps import EmbeddingSpec
 
     shards = shards_for_table(parse_emb_shards(emb_shards), table)
@@ -57,8 +57,8 @@ def build_embedding_spec(rows: int, dim: int, backend: str = "dense",
         raise NotImplementedError(
             f"{shards} embedding shards for {table!r}: the sharded router "
             "is not ported yet")
+    spec = EmbeddingSpec(rows=rows, dim=dim, backend=backend, **spec_kw)
     if backend.startswith("host_lru"):
-        raise NotImplementedError(
-            f"embedding backend {backend!r} (cache_rows "
-            f"{default_cache_rows(rows, cache_rows)}) is not ported yet")
-    return EmbeddingSpec(rows=rows, dim=dim, backend=backend, **spec_kw)
+        spec = dataclasses.replace(
+            spec, cache_rows=default_cache_rows(rows, cache_rows))
+    return spec

@@ -6,7 +6,7 @@ more CTR/behaviour tasks.
 Parameters are a plain dict ``{"mlp": [{"w": (d_in, d_out), "b":
 (d_out,)}, ...]}`` in the JAX package's layout, so weights carry across
 unchanged (``repro_torch.convert``). The serving forward takes the bags
-already pooled by the embedding read (``DenseBackend.read_pooled``).
+already pooled by the embedding read (``backend.read_pooled_all``).
 """
 from __future__ import annotations
 

@@ -205,7 +205,13 @@ def test_collection_validates_names_and_backends():
             EmbeddingCollection.from_dict({bad: spec})
     with pytest.raises(ValueError, match="duplicate"):
         EmbeddingCollection((("a", spec), ("a", spec)))
-    with pytest.raises(ValueError, match="not ported yet"):
+    # the host_lru tiers are ported: the fail-fast builds their backends
+    # (and still refuses a host_lru spec with no device cache)
+    lru = EmbeddingCollection.from_dict(
+        {"a": dataclasses.replace(spec, backend="host_lru+disk",
+                                  cache_rows=2)})
+    assert lru["a"].backend == "host_lru+disk"
+    with pytest.raises(ValueError, match="cache_rows"):
         EmbeddingCollection.from_dict(
             {"a": dataclasses.replace(spec, backend="host_lru")})
 

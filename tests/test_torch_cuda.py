@@ -875,3 +875,133 @@ def test_cuda_flash_attention_rejects_what_it_cannot_run(cuda_device):
     with pytest.raises(TypeError, match="contiguous"):
         ops.flash_attention_fwd(f, f[:, :1].contiguous(),
                                 f[:, :1].contiguous(), 1.0)
+
+
+# ---------------------------------------------------------------------------
+# the host_lru tier on the card: fault-in, eviction and slot puts bit for
+# bit with the CPU (the scatter, gather and copies are exact; the kernels
+# equal their plain versions)
+# ---------------------------------------------------------------------------
+
+def _lru_pair(device, rows=5_000, dim=128, cache=256, **kw):
+    """One host_lru spec as a backend on the card and one on the CPU, from
+    the same seeded init (the CPU's), carried as a checkpoint blob."""
+    from repro_torch.convert import table_from_numpy
+    from repro_torch.core import backend
+    from repro_torch.core.embedding_ps import EmbeddingSpec
+    spec = EmbeddingSpec(rows=rows, dim=dim, backend="host_lru",
+                         cache_rows=cache, lr=0.05, **kw)
+    cpu = backend.create_backend(spec)
+    sc = cpu.init(torch.Generator().manual_seed(0))
+    card = backend.create_backend(spec)
+    sg = table_from_numpy(card, cpu.state_for_checkpoint(sc), device)
+    return card, sg, cpu, sc
+
+
+def _lru_same(card, sg, cpu, sc):
+    for k in sc:
+        assert _same_bits(sg[k].cpu(), sc[k]), k
+    np.testing.assert_array_equal(card._id_for_slot, cpu._id_for_slot)
+    assert (card.faults, card.writebacks, card.hits) == \
+        (cpu.faults, cpu.writebacks, cpu.hits)
+    a, b = card.store.serialize(), cpu.store.serialize()
+    for k in b:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("staleness", [0, 2])
+def test_cuda_host_lru_fault_in_and_eviction_match_cpu(cuda_device,
+                                                       staleness):
+    """Prepares that fault in and evict (written back through one
+    device-to-host copy per prepare), then slot puts, on the card and on
+    the CPU: caches, slot maps, counters and host stores bit for bit."""
+    card, sg, cpu, sc = _lru_pair(cuda_device, staleness=staleness)
+    queues = {"card": card.queue_init((32, 8), cuda_device),
+              "cpu": cpu.queue_init((32, 8))}
+    rng = np.random.default_rng(staleness)
+    for _ in range(6):
+        ids = rng.integers(0, 5_000, (32, 8))
+        g = rng.standard_normal((32 * 8, 128)).astype(np.float32)
+        sg, dg = card.prepare(sg, ids)
+        sc, dc = cpu.prepare(sc, ids)
+        np.testing.assert_array_equal(dg, dc)
+        sg, queues["card"], _ = card.hybrid_update(
+            sg, queues["card"], torch.from_numpy(dg).to(cuda_device),
+            torch.from_numpy(g).to(cuda_device))
+        sc, queues["cpu"], _ = cpu.hybrid_update(
+            sc, queues["cpu"], torch.from_numpy(dc), torch.from_numpy(g))
+    torch.cuda.synchronize()
+    assert cpu.writebacks > 0 and cpu.faults > 256
+    _lru_same(card, sg, cpu, sc)
+    if staleness:
+        for k in ("slots", "ids", "grads"):
+            assert _same_bits(queues["card"][k].cpu(), queues["cpu"][k])
+
+
+@pytest.mark.cuda
+def test_cuda_host_lru_two_fault_ins_without_a_sync(cuda_device):
+    """Two fault-ins into free slots (no eviction, so no synchronisation)
+    enqueued behind a stream kept busy: each staging buffer must stay
+    untouched until its copy has run, so both land their own rows."""
+    card, sg, cpu, sc = _lru_pair(cuda_device, cache=512)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)            # hold the stream ~tens of ms
+    sg, d1 = card.prepare(sg, np.arange(0, 200))
+    sg, d2 = card.prepare(sg, np.arange(1_000, 1_200))
+    sc, _ = cpu.prepare(sc, np.arange(0, 200))
+    sc, _ = cpu.prepare(sc, np.arange(1_000, 1_200))
+    torch.cuda.synchronize()
+    assert card.writebacks == 0
+    _lru_same(card, sg, cpu, sc)
+    want, _ = cpu.store.read_rows(np.arange(1_000, 1_200))
+    np.testing.assert_array_equal(sg["table"][torch.from_numpy(d2).long()
+                                              .to(cuda_device)].cpu(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_host_lru_put_drops_recycled_slots(cuda_device):
+    """A tau=1 put whose slots were recycled before it pops: the card's
+    ``fused_backward`` applies only the slots that still hold their row,
+    bit for bit with the plain version, and the recycled rows are left as
+    the fault-in wrote them."""
+    card, sg, cpu, sc = _lru_pair(cuda_device, rows=600, cache=64,
+                                  staleness=1)
+    qg, qc = card.queue_init((16,), cuda_device), cpu.queue_init((16,))
+    g = np.full((16, 128), 0.5, np.float32)
+    first = np.arange(16)
+    sg, dg = card.prepare(sg, first)
+    sc, dc = cpu.prepare(sc, first)
+    sg, qg, _ = card.hybrid_update(sg, qg, torch.from_numpy(dg).to(
+        cuda_device), torch.from_numpy(g).to(cuda_device))
+    sc, qc, _ = cpu.hybrid_update(sc, qc, torch.from_numpy(dc),
+                                  torch.from_numpy(g))
+    # fill the 64 slots and evict ids 0..7; ids 8..15 keep theirs
+    for lo in range(100, 156, 8):
+        sg, _ = card.prepare(sg, np.arange(lo, lo + 8))
+        sc, _ = cpu.prepare(sc, np.arange(lo, lo + 8))
+    nxt = np.concatenate([first[8:], np.arange(300, 308)])
+    sg, dg = card.prepare(sg, nxt)
+    sc, dc = cpu.prepare(sc, nxt)
+    old_slots = qc["slots"][0].numpy().copy()
+    old_ids = qc["ids"][0].numpy().copy()
+    live = old_slots >= 0
+    recycled = live & (cpu._id_for_slot[np.clip(old_slots, 0, None)]
+                       != old_ids)
+    kept = live & ~recycled
+    assert recycled.sum() == 8 and kept.sum() == 8
+    before = sg["table"].clone()
+    ops.reset_launch_counts()
+    sg, qg, _ = card.hybrid_update(sg, qg, torch.from_numpy(dg).to(
+        cuda_device), torch.zeros((16, 128), device=cuda_device))
+    sc, qc, _ = cpu.hybrid_update(sc, qc, torch.from_numpy(dc),
+                                  torch.zeros((16, 128)))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_backward"] == 1
+    _lru_same(card, sg, cpu, sc)
+    for k in ("slots", "ids", "grads"):
+        assert _same_bits(qg[k].cpu(), qc[k])
+    gone = torch.from_numpy(old_slots[recycled]).long().to(cuda_device)
+    held = torch.from_numpy(old_slots[kept]).long().to(cuda_device)
+    assert torch.equal(sg["table"][gone], before[gone])
+    assert not torch.equal(sg["table"][held], before[held])

@@ -77,8 +77,10 @@ def test_build_embedding_spec_refuses_what_is_not_ported():
                                                    "dense+compressed")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         shards.build_embedding_spec(1024, 64, emb_shards="vocab=2")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        shards.build_embedding_spec(1024, 64, backend="host_lru")
+    spec = shards.build_embedding_spec(1024, 64, backend="host_lru")
+    assert (spec.backend, spec.cache_rows) == (
+        "host_lru", jshards.build_embedding_spec(
+            1024, 64, backend="host_lru").cache_rows)
 
 
 # ---------------------------------------------------------------------------
@@ -301,5 +303,6 @@ def test_serve_defaults_and_temperature_on_cpu():
                          device="cpu")
     np.testing.assert_array_equal(res["tokens"], again["tokens"])
     assert res["decode_tok_per_s"] > 0
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tserve.serve(CFG, emb_backend="host_lru", device="cpu")
+    lru = tserve.serve(CFG, 2, 5, 4, seed=1, temperature=0.8,
+                       emb_backend="host_lru", device="cpu")
+    np.testing.assert_array_equal(lru["tokens"], res["tokens"])

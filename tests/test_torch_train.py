@@ -501,11 +501,14 @@ def test_training_a_flat_table_raises():
         assert "dedup/field_01/dup_factor" not in tm
     _check_states(ts, js)
     assert tt.predict(ts, _batches(1)[0]).shape == (B, CFG.n_tasks)
-    with pytest.raises(ValueError, match="not ported yet"):
-        PersiaTrainer(dataclasses.replace(
-            ad, collection=ad.collection.map_specs(
-                lambda n, s: dataclasses.replace(
-                    flat(n, s), backend="host_lru"))), device="cpu")
+    # a flat table on the ported host_lru tier builds (its cache slots
+    # are what the occurrence-width bag reads)
+    lt = PersiaTrainer(dataclasses.replace(
+        ad, collection=ad.collection.map_specs(
+            lambda n, s: dataclasses.replace(
+                flat(n, s), backend="host_lru", cache_rows=RPF))),
+        device="cpu")
+    assert isinstance(lt.backends["field_01"], backend.HostLRUBackend)
 
 
 # ---------------------------------------------------------------------------

@@ -108,8 +108,11 @@ def test_create_backend_builds_dense_and_the_wire_only():
         assert type(b.inner) is backend.DenseBackend
         assert backend.unwrap(b) is b.inner
     for name in ("host_lru", "host_lru+disk", "host_lru+compressed"):
-        with pytest.raises(ValueError, match="not ported yet"):
-            backend.create_backend(dataclasses.replace(spec, backend=name))
+        b = backend.create_backend(dataclasses.replace(spec, backend=name,
+                                                       cache_rows=8))
+        assert type(backend.unwrap(b)) is backend.HostLRUBackend
+        assert isinstance(b, backend.CompressedWireBackend) == \
+            name.endswith("compressed")
     with pytest.raises(ValueError, match="block"):
         backend.create_backend(dataclasses.replace(
             spec, backend="dense+compressed", wire_kernel=True,
