@@ -131,6 +131,23 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    greedy tokens through ``launch.serve.serve``: its prefill logits equal
    those of the dense vocab table from the same seed bit for bit, and its
    tokens those of the dense serve.
+12. The pipelined trainer: kwai-dlrm at full width, hybrid(3), batch 512,
+   on ``dense`` and on ``host_lru`` (7,812 slots, warmed by 26 serial
+   steps until it evicts), from one start state per backend through the
+   serial ``trainer.run``, ``PipelinedTrainer(max_inflight=1)`` and
+   ``PipelinedTrainer(max_inflight=4)`` (host_lru: ``prefetch=2``),
+   without host latency and with a prepare delay of one serial step: 3
+   trials of 2 + 20 steps per runner, the runners taking turns; steps/s
+   (median and spread), the stages' busy seconds and occupancy, host_lru's
+   faults, write-backs and eviction wait per step. max_inflight=1 must
+   equal the serial run bit for bit (losses, tables, accumulators, queues,
+   dense parameters and moments, slot maps and host rows); every run must
+   make the serial step's launches; the deep runs must apply every put in
+   order, stay within the put window min(4, 3) and release every pin.
+   Then, per regime, syncs per step (``torch.cuda.set_sync_debug_mode(
+   "warn")``) and the device-busy share of profiled steps, serial and
+   pipelined; and 8 pipelined steps of ``repro_torch.launch.train.main``
+   on the card.
 
 The kernel phase also holds ``embedding_sgd`` bit for bit on 32 tables'
 real kwai-dlrm puts (the unique physical rows of a training put, -1 and
@@ -186,6 +203,7 @@ from repro_torch.core import backend as BK  # noqa: E402
 from repro_torch.core import compression as C  # noqa: E402
 from repro_torch.core import dedup as D  # noqa: E402
 from repro_torch.core.hybrid import PersiaTrainer, TrainMode  # noqa: E402
+from repro_torch.core.pipeline import STAGES, PipelinedTrainer  # noqa: E402
 from repro_torch.data.ctr import CTR_BENCHMARKS  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.launch import serve as lm_serve  # noqa: E402
@@ -239,6 +257,13 @@ LM_LRU_CACHE, LM_LRU_B = 6144, 1
 LRU_HOST_ROWS = 2048
 # graph replays of a one-launch graph (a lone call, the launch floor)
 LONE_REPS = 200
+# the pipelined trainer: kwai-dlrm's steps per run (warm-up and timed),
+# trials per (backend, regime, runner), steps counted under the sync debug
+# mode and profiled, serial steps that warm a host_lru cache until it
+# evicts; the deep runner's window and a host_lru trainer's look-ahead
+PIPE_STEPS = {"warmup": 2, "timed": 20, "trials": 3, "syncs": 6,
+              "profiled": 4, "lru_warm": 26}
+PIPE_INFLIGHT, PIPE_PREFETCH = 4, 2
 
 KERNELS = {
     "embedding_bag": {"source": "src/repro_torch/kernels/csrc/bag.cu",
@@ -2573,6 +2598,306 @@ def lm_serve_host_lru_phase(dev):
         "first_tokens": res["tokens"][0, :8].tolist()}
 
 
+# ---------------------------------------------------------------------------
+# the pipelined trainer
+# ---------------------------------------------------------------------------
+
+def snapshot(trainer, state):
+    """The state as numpy trees with every table's checkpoint blob (a
+    host_lru table's host tiers and slot map too): the start every run of
+    the pipeline phase restores."""
+    from repro_torch.convert import state_to_numpy
+    tree = state_to_numpy(state)
+    tree["emb"] = {n: BK.unwrap(b).state_for_checkpoint(state.emb[n])
+                   for n, b in trainer.backends.items()}
+    return tree
+
+
+def restore(trainer, tree):
+    """A fresh state on the trainer's device from :func:`snapshot`'s trees
+    (host tiers loaded back into the trainer's backends)."""
+    from repro_torch.convert import state_from_numpy
+    state = state_from_numpy(trainer, tree["dense"], tree["emb"],
+                             opt=tree["opt"], emb_queue=tree["emb_queue"],
+                             dense_queue=tree["dense_queue"],
+                             step=tree["step"])
+    torch.cuda.synchronize()
+    return state
+
+
+def pipe_engine(trainer, runner):
+    """The runner's engine: None for the serial ``trainer.run``; the
+    pipelined trainer at max_inflight 1, or at ``PIPE_INFLIGHT`` (with a
+    look-ahead of ``PIPE_PREFETCH`` on a host_lru trainer)."""
+    if runner == "serial":
+        return None
+    if runner == "pipelined_1":
+        return PipelinedTrainer(trainer, max_inflight=1)
+    lru = any(isinstance(b, BK.HostLRUBackend)
+              for b in lru_backends(trainer))
+    return PipelinedTrainer(trainer, max_inflight=PIPE_INFLIGHT,
+                            prefetch=PIPE_PREFETCH if lru else 0)
+
+
+def pipe_run(trainer, engine, state, batches, delay_fn=None):
+    """Steps through the runner, ended by a synchronize: (state, losses
+    as tensors, host wall s)."""
+    t0 = time.perf_counter()
+    if engine is None:
+        state, ms = trainer.run(state, batches, delay_fn=delay_fn)
+    else:
+        state, ms = engine.run(state, batches, delay_fn=delay_fn)
+    torch.cuda.synchronize()
+    return state, [m["loss"] for m in ms], time.perf_counter() - t0
+
+
+def lru_state_bits(trainer, state) -> tuple:
+    """What a bit-equality check of two runs compares beyond the state's
+    tensors: every host_lru table's slot map and host-store rows."""
+    return tuple((b._id_for_slot.copy(), b.store.vectors.copy(),
+                  b.store.opt_acc.copy()) for b in lru_backends(trainer)
+                 if isinstance(b, BK.HostLRUBackend))
+
+
+def same_run(a, b) -> list:
+    """Bit-equality of two runs ``(state, losses, lru bits)``: the losses
+    of every step, every table and accumulator (host_lru: cache, slot ids,
+    slot maps and host rows too), the queues, the dense parameters and
+    the optimizer's moments. Returns what differs."""
+    (sa, la, xa), (sb, lb, xb) = a, b
+    bad = []
+    if [float(x) for x in la] != [float(x) for x in lb]:
+        bad.append("losses")
+    for n in sa.emb:
+        for k in sa.emb[n]:
+            if not torch.equal(sa.emb[n][k], sb.emb[n][k]):
+                bad.append(f"{n}.{k}")
+        qa, qb = sa.emb_queue[n], sb.emb_queue[n]
+        if qa is not None and not all(
+                torch.equal(qa[k], qb[k]) for k in qa
+                if isinstance(qa[k], torch.Tensor)):
+            bad.append(f"{n} queue")
+    trees = (sa.dense, sb.dense), (sa.opt["m"], sb.opt["m"]), \
+        (sa.opt["v"], sb.opt["v"])
+    if not all(torch.equal(x, y) for ta, tb in trees
+               for x, y in zip(tree_leaves(ta), tree_leaves(tb))):
+        bad.append("dense parameters or moments")
+    if sa.step != sb.step:
+        bad.append("step")
+    if not all(np.array_equal(p, q) for u, v in zip(xa, xb)
+               for p, q in zip(u, v)):
+        bad.append("host_lru slot maps or host rows")
+    return bad
+
+
+def count_syncs(fn) -> int:
+    """Device-to-host synchronisations ``fn()`` makes, from any thread:
+    the warnings of ``torch.cuda.set_sync_debug_mode("warn")``."""
+    import warnings
+    with warnings.catch_warnings(record=True) as got:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in got)
+
+
+def spread(xs) -> dict:
+    return {"median": float(np.median(xs)), "min": float(min(xs)),
+            "max": float(max(xs)), "trials": [float(x) for x in xs]}
+
+
+def pipe_trial(trainer, runner, start, batches, delay, want, want_tables,
+               what):
+    """One trial: restore the start, ``warmup`` steps, then ``timed``
+    steps with the launch counts set to 0 just before. Checks the launches
+    per step (the serial step's), finite losses and, for a pipelined
+    runner, the order of the applied puts, the put window and the pins.
+    Returns (state, losses, the run's readings, the timed run's counts)."""
+    p = PIPE_STEPS
+    lru = any(isinstance(b, BK.HostLRUBackend)
+              for b in lru_backends(trainer))
+    state = restore(trainer, start)
+    engine = pipe_engine(trainer, runner)
+    state, l0, _ = pipe_run(trainer, engine, state, batches[:p["warmup"]],
+                            delay)
+    c1 = lru_counters(trainer) if lru else None
+    ops.reset_launch_counts()
+    state, l1, wall = pipe_run(trainer, engine, state,
+                               batches[p["warmup"]:], delay)
+    launches, served = ops.launch_counts(), ops.table_counts()
+    check(launches == want and served == want_tables,
+          f"{what}: launches {launches} (tables {served}), want {want} "
+          f"({want_tables})")
+    losses = [float(x) for x in l0 + l1]
+    check(all(np.isfinite(losses)), f"{what}: losses {losses}")
+    run = {"wall_s": wall,
+           "lru": lru_delta(c1, lru_counters(trainer), p["timed"])
+           if lru else None}
+    if engine is not None:
+        pm = engine.pipeline_metrics()
+        run["stages"] = {s: {"busy_s": pm[f"pipeline/{s}/busy_s"],
+                             "occupancy": pm[f"pipeline/{s}/occupancy"]}
+                         for s in STAGES}
+        peak = max(engine.max_outstanding.values())
+        run["max_outstanding"] = peak
+        pins = sum(int(b._pin_count.sum()) for b in lru_backends(trainer)
+                   if isinstance(b, BK.HostLRUBackend))
+        window = min(engine.max_inflight, TAU)
+        check(engine.applied_order == list(range(p["timed"]))
+              and peak <= window and pins == 0,
+              f"{what}: order {engine.applied_order}, peak {peak} > "
+              f"{window} or {pins} pins held")
+    return state, l0 + l1, run, (launches, served)
+
+
+def syncs_and_busy(trainer, runner, start, batches, delay) -> dict:
+    """From the start, ``warmup`` steps, then ``syncs`` steps counted under
+    the sync debug mode and ``profiled`` steps under the profiler: syncs
+    per step, device ms per step and the device-busy share."""
+    p = PIPE_STEPS
+    state = restore(trainer, start)
+    engine = pipe_engine(trainer, runner)
+    state, _, _ = pipe_run(trainer, engine, state, batches[:p["warmup"]],
+                           delay)
+    w = p["warmup"]
+    counted = batches[w:w + p["syncs"]]
+    profiled = batches[w + p["syncs"]:w + p["syncs"] + p["profiled"]]
+
+    def sync_steps():
+        nonlocal state
+        state = pipe_run(trainer, engine, state, counted, delay)[0]
+    syncs = count_syncs(sync_steps)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        state, _, wall = pipe_run(trainer, engine, state, profiled, delay)
+    dev_ms = sum(e.self_device_time_total
+                 for e in prof.key_averages()) / 1e3
+    del state
+    return {"syncs_per_step": syncs / p["syncs"],
+            "device_ms_per_step": dev_ms / len(profiled),
+            "device_busy_share": dev_ms / (wall * 1e3)}
+
+
+def pipeline_phase(dev, backend):
+    """kwai-dlrm at full width on ``backend`` (``dense``, or ``host_lru``
+    at the launchers' 7,812-slot cache, warmed by ``lru_warm`` serial
+    steps until it evicts), hybrid(3), batch 512, through three runners
+    from one start state: the serial ``trainer.run``, ``PipelinedTrainer(
+    max_inflight=1)`` and ``PipelinedTrainer(max_inflight=4)`` (host_lru:
+    ``prefetch=2``). Two regimes: ``nolat``, and ``hostlat`` with a
+    prepare-stage delay of the median serial step of the nolat pass (the
+    host latency of an embedding PS the size of a step, the regime of
+    paper Fig. 4–5). Per (regime, runner) ``trials`` runs of ``warmup`` +
+    ``timed`` steps: steps/s (median and spread), the stages' busy seconds
+    and occupancy, host_lru's faults, write-backs and eviction wait per
+    step, and launches per step by kernel, which must equal the serial
+    step's; the runners take turns within each trial. max_inflight=1 must
+    equal the serial run bit for bit; the deep run must apply every put
+    in order, keep each table within its put window, release every pin
+    and keep its losses finite. Then, per regime, synchronisations per
+    step (sync debug mode) and the device-busy share over profiled steps,
+    serial and pipelined. The first nolat trial of the deep runner is the
+    path whose launches the kernels line counts."""
+    ds = CTR_BENCHMARKS["kwai_video"]
+    p = PIPE_STEPS
+    lru = backend != "dense"
+    trainer = kwai_train_trainer(dev, TrainMode.hybrid(TAU), backend)
+    it = ds.sampler(TRAIN_B, seed=SEED + 30)
+    n_warm = p["lru_warm"] if lru else 0
+    warm = [next(it) for _ in range(n_warm)]
+    batches = [next(it) for _ in range(p["warmup"] + p["timed"])]
+    state = trainer.init(seed=SEED, batch_example=batches[0])
+    state, _ = trainer.run(state, warm)
+    start = snapshot(trainer, state)
+    del state
+    torch.cuda.empty_cache()
+    per_step, tables = step_launches(trainer)
+    want = {k: v * p["timed"] for k, v in per_step.items()}
+    want_tables = {k: v * p["timed"] for k, v in tables.items()}
+    runners = ("serial", "pipelined_1", "pipelined_deep")
+    out = {"phase": f"train_pipelined{'_' + backend if lru else ''}",
+           "model": KWAI.name, "backend": backend, "batch": TRAIN_B,
+           "mode": f"hybrid({TAU})", "max_inflight": PIPE_INFLIGHT,
+           "prefetch": PIPE_PREFETCH if lru else 0,
+           "warm_steps": n_warm, "steps": p}
+    main_counts, bit_equal, lat = None, {}, 0.0
+    for regime in ("nolat", "hostlat"):
+        delay = None if regime == "nolat" else \
+            (lambda stage, _i, d=lat: d if stage == "prepare" else 0.0)
+        rec = {"prepare_delay_ms": lat * 1e3}
+        sps = {r: [] for r in runners}
+        runs = {r: [] for r in runners}
+        # the runners take turns within each trial, so host drift over the
+        # call does not fall on one runner
+        for trial in range(p["trials"]):
+            for runner in runners:
+                what = f"{backend} {regime} {runner}"
+                state, losses, run, counts = pipe_trial(
+                    trainer, runner, start, batches, delay, want,
+                    want_tables, what)
+                sps[runner].append(p["timed"] / run["wall_s"])
+                runs[runner].append(run)
+                if regime == "nolat" and trial == 0:
+                    if runner == "pipelined_deep":
+                        main_counts = counts
+                    else:
+                        bit_equal[runner] = (state, losses,
+                                             lru_state_bits(trainer, state))
+                    if runner == "pipelined_1":
+                        diff = same_run(bit_equal["serial"],
+                                        bit_equal["pipelined_1"])
+                        bit_equal.clear()
+                        out["max_inflight_1_bit_equal"] = not diff
+                        check(not diff, f"{backend}: max_inflight=1 differs "
+                              f"from the serial run in {diff[:6]}")
+                del state
+        for runner in runners:
+            rec[runner] = {"steps_per_s": spread(sps[runner]),
+                           "runs": runs[runner]}
+        if regime == "nolat":
+            lat = 1.0 / rec["serial"]["steps_per_s"]["median"]
+        rec["speedup_deep_over_serial"] = (
+            rec["pipelined_deep"]["steps_per_s"]["median"]
+            / rec["serial"]["steps_per_s"]["median"])
+        for runner in ("serial", "pipelined_deep"):
+            rec[runner].update(syncs_and_busy(trainer, runner, start,
+                                              batches, delay))
+        out[regime] = rec
+        torch.cuda.empty_cache()
+
+    del trainer, start
+    torch.cuda.empty_cache()
+    emit(out)
+    return main_counts, out
+
+
+def launcher_phase(dev):
+    """``repro_torch.launch.train.main`` with ``--pipeline pipelined`` on
+    the card: 8 steps of the default taobao_ad CTR model, eval every 4;
+    two finite eval lines and the engine's metrics in its record."""
+    from repro_torch.launch import train as launch_train
+    path = ROOT / "chiprun_out" / "train_launcher.json"
+    path.parent.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    hist = launch_train.main(["--device", str(dev), "--pipeline",
+                              "pipelined", "--steps", "8", "--eval-every",
+                              "4", "--out", str(path)])
+    wall = time.perf_counter() - t0
+    rec = json.loads(path.read_text())
+    check(len(hist) == 2 and all(np.isfinite(h["loss"]) and
+                                 np.isfinite(h["auc"]) for h in hist)
+          and rec["pipeline_metrics"]["pipeline/steps"] == 4.0,
+          f"launcher: history {hist}")
+    out = {"phase": "train_launcher", "argv": "--pipeline pipelined "
+           "--steps 8 --eval-every 4", "wall_s": wall, "history": hist,
+           "device": rec["device"]}
+    emit(out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this check runs on a GPU",
@@ -2648,6 +2973,12 @@ def main() -> int:
     paths["lm_serve_host_lru"], recs["lm_serve_host_lru"] = \
         lm_serve_host_lru_phase(dev)
     emit(recs["lm_serve_host_lru"])
+    # the pipelined trainer, and the launcher that drives it
+    paths["train_pipelined"], recs["train_pipelined"] = pipeline_phase(
+        dev, "dense")
+    paths["train_pipelined_host_lru"], recs["train_pipelined_host_lru"] = \
+        pipeline_phase(dev, HOST_LRU)
+    recs["train_launcher"] = launcher_phase(dev)
 
     kernels = []
     for name, meta in KERNELS.items():

@@ -11,7 +11,9 @@ format, so checkpoints move between the two packages:
 
 The code is the JAX package's numpy code, copied; trees are nested dicts
 and lists of numpy arrays (``repro_torch.convert.state_to_numpy`` makes
-them from a train state).
+them from a train state). ``CheckpointManager`` saves every ``every``
+steps and keeps the newest ``keep``. The sharded-router layout
+(``checkpoint_shard_layout``) comes with the router.
 """
 from __future__ import annotations
 
@@ -21,6 +23,9 @@ import shutil
 import tempfile
 
 import numpy as np
+import torch
+
+from repro_torch.utils import tree_map
 
 
 def _flatten(tree, prefix=""):
@@ -124,3 +129,47 @@ def load_checkpoint(directory: str, step: int | None = None):
     if os.path.isdir(os.path.join(path, "emb")):
         emb = _read_blob(os.path.join(path, "emb"))
     return int(dense["step"]), dense["state"], emb
+
+
+def _host(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
+class CheckpointManager:
+    """Periodic saver with the paper's policy baked in."""
+
+    def __init__(self, directory: str, every: int = 100, keep: int = 3):
+        self.directory = directory
+        self.every = every
+        self.keep = keep
+
+    def maybe_save(self, step: int, dense_tree, emb_tree=None):
+        """Save the trees (of tensors or arrays, copied to the host) at
+        every ``every``-th step; returns the path or None."""
+        if step % self.every != 0:
+            return None
+        path = save_checkpoint(self.directory, step,
+                               tree_map(_host, dense_tree),
+                               tree_map(_host, emb_tree)
+                               if emb_tree is not None else None)
+        self._gc()
+        return path
+
+    def maybe_save_state(self, step: int, trainer, state):
+        """Full-state periodic save through PersiaTrainer.save: dense params
+        + optimizer moments, every PS table with its adagrad accumulator
+        (and a host_lru table's host tiers), and the staleness queues — so
+        a restore resumes bit-identically."""
+        if step % self.every != 0:
+            return None
+        path = trainer.save(self.directory, state, step=step)
+        self._gc()
+        return path
+
+    def _gc(self):
+        steps = sorted(int(d.split("_")[1]) for d in os.listdir(self.directory)
+                       if d.startswith("step_"))
+        for s in steps[: -self.keep]:
+            shutil.rmtree(os.path.join(self.directory, f"step_{s:08d}"),
+                          ignore_errors=True)

@@ -185,6 +185,17 @@ class EmbeddingBackend:
     def reset_pins(self):
         pass
 
+    # shard introspection (pipelined callers, metrics): an unsharded
+    # backend is one PS "shard", and every put lands on shard 0
+    def n_put_shards(self) -> int:
+        return 1
+
+    def put_shards(self, dev_ids) -> tuple[int, ...]:
+        return (0,)
+
+    def shard_metrics(self) -> dict:
+        return {}
+
     def cache_metrics(self) -> dict:
         """Per-step cache-admission gauges (keys are relative: the prepare
         fan-out prefixes ``cache/<table>/``). Empty for backends without
@@ -838,7 +849,11 @@ class HostLRUBackend(EmbeddingBackend):
     # cannot find enough unpinned victims raises.
 
     def _pin_targets(self, dev_ids) -> np.ndarray:
-        slots = _host_ids(D.plan_dev(dev_ids)).reshape(-1)
+        """The slots to pin: a plan's host copy of its device ids (no
+        device-to-host copy), else the ids themselves."""
+        host = dev_ids.host if D.is_plan(dev_ids) else None
+        slots = _host_ids(D.plan_dev(dev_ids) if host is None
+                          else host).reshape(-1)
         return slots[(slots >= 0) & (slots < self.dev_slots)]
 
     def pin_slots(self, dev_ids):
@@ -1268,6 +1283,15 @@ class CompressedWireBackend(EmbeddingBackend):
     def reset_pins(self):
         self.inner.reset_pins()
 
+    def n_put_shards(self) -> int:
+        return self.inner.n_put_shards()
+
+    def put_shards(self, dev_ids) -> tuple[int, ...]:
+        return self.inner.put_shards(dev_ids)
+
+    def shard_metrics(self) -> dict:
+        return self.inner.shard_metrics()
+
     def cache_metrics(self) -> dict:
         return self.inner.cache_metrics()
 
@@ -1460,6 +1484,18 @@ def make_backends(collection) -> dict[str, EmbeddingBackend]:
     return {n: create_backend(s) for n, s in collection.items()}
 
 
+def shard_step_metrics(backends) -> dict:
+    """Host-side per-shard gauges for the step-metrics dict:
+    ``shard/<table>/<k>/...`` from each backend's ``shard_metrics``. Empty
+    (and cheap) while no table is sharded, which is every table until the
+    sharded router is ported."""
+    out = {}
+    for n, b in backends.items():
+        for k, v in b.shard_metrics().items():
+            out[f"shard/{n}/{k}"] = v
+    return out
+
+
 # ---------------------------------------------------------------------------
 # collection-level fan-outs: prepare (host), lookup and put (device)
 # ---------------------------------------------------------------------------
@@ -1508,7 +1544,7 @@ def _bags(ids) -> np.ndarray:
     return arr
 
 
-def prepare_all(backends, states, ids, device):
+def prepare_all(backends, states, ids, device, lock=None, pins=None):
     """Host-level per-table prepare: batch dedup + fault-in (host_lru) + id
     translation, once per (table, batch), then one upload of every index
     array to ``device``.
@@ -1519,26 +1555,51 @@ def prepare_all(backends, states, ids, device):
     table's dev-ids entry; legacy tables (``batch_dedup=False``) keep their
     occurrence-width ids.
 
+    It runs in three phases: every table's plan (numpy, touching no
+    state), then every table's ``prepare`` (a host_lru table's slot map,
+    eviction and fault-in, which touch its state in place), then the
+    translation to table rows, the occurrence CSRs and the upload. Only
+    the middle phase runs under ``lock`` when one is given (the pipelined
+    trainer's store lock). With a dict ``pins``, each table's host device
+    ids are pinned in its backend inside that phase, right after its
+    prepare, and stored in ``pins`` for the unpin.
+
     Returns ``(new_states, dev_ids, metrics)`` where metrics carries the
     per-table ``dedup/<table>/{dup_factor,unique_rows,bytes_saved}``
     host gauges and, for tables with cache admission, the
     ``cache/<table>/{admit,bypass,promote}`` ones."""
     new_states = dict(states)
-    host, metrics, n_unique = {}, {}, {}
+    plans, metrics, n_unique = {}, {}, {}
     for n in ids:
         b = backends[n]
-        spec = b.spec
         arr = _host_ids(ids[n])
-        if not spec.batch_dedup:
-            new_states[n], dev = b.prepare(states[n], arr)
-            host[n] = [np.asarray(dev, np.int32)]
-            _cache_tags(metrics, n, b)
+        if not b.spec.batch_dedup:
+            plans[n] = (arr,)
             continue
         cap = D.dedup_cap(max(arr.size, 1), b.dedup_rows())
-        u_pad, inv, counts, info = D.make_plan(arr, spec.rows, cap)
-        new_states[n], dev_u = b.prepare(states[n], u_pad, assume_unique=True,
-                                         counts=counts)
-        dev_u = np.asarray(dev_u, np.int32)
+        plans[n] = D.make_plan(arr, b.spec.rows, cap)
+    devs = {}
+    with lock if lock is not None else contextlib.nullcontext():
+        for n, plan in plans.items():
+            b = backends[n]
+            if len(plan) == 1:
+                new_states[n], dev = b.prepare(states[n], plan[0])
+            else:
+                new_states[n], dev = b.prepare(
+                    states[n], plan[0], assume_unique=True, counts=plan[2])
+            devs[n] = np.asarray(dev, np.int32)
+            _cache_tags(metrics, n, b)
+            if pins is not None:
+                b.pin_slots(devs[n])
+                pins[n] = devs[n]
+    host = {}
+    for n, plan in plans.items():
+        dev_u = devs[n]
+        if len(plan) == 1:
+            host[n] = [dev_u]
+            continue
+        b, spec = backends[n], backends[n].spec
+        _, inv, _, info = plan
         rows = unwrap(b).table_rows(torch.from_numpy(dev_u)).numpy()
         order, offsets = D.occurrence_csr(inv, dev_u.shape[0])
         host[n] = [dev_u, inv, rows, order, offsets]
@@ -1548,7 +1609,6 @@ def prepare_all(backends, states, ids, device):
         metrics[f"dedup/{n}/unique_rows"] = float(info["n_unique"])
         metrics[f"dedup/{n}/bytes_saved"] = float(
             (info["n_occ"] - info["n_unique"]) * spec.dim * itemsize)
-        _cache_tags(metrics, n, b)
     flat = iter(upload_int32([a for arrs in host.values() for a in arrs],
                              device))
     dev_ids = {}
@@ -1556,7 +1616,7 @@ def prepare_all(backends, states, ids, device):
         got = [next(flat) for _ in arrs]
         dev_ids[n] = got[0] if len(got) == 1 else D.DedupPlan(
             dev=got[0], inv=got[1], rows=got[2], order=got[3],
-            offsets=got[4], n_unique=n_unique[n])
+            offsets=got[4], n_unique=n_unique[n], host=arrs[0])
     return new_states, dev_ids, metrics
 
 

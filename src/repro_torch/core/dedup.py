@@ -58,7 +58,9 @@ class DedupPlan:
     ``order``/``offsets``: the occurrence CSR of ``inv``
     (:func:`occurrence_csr`).
     ``n_unique``: the host count of the valid entries of ``dev``.
-    The last four are built by ``backend.prepare_all``; a plan made by
+    ``host``: the host int32 array that was uploaded as ``dev`` (slot
+    pinning reads it, so a pin waits for no device).
+    The last five are built by ``backend.prepare_all``; a plan made by
     hand may leave them ``None``.
     """
     dev: torch.Tensor
@@ -67,6 +69,7 @@ class DedupPlan:
     order: torch.Tensor | None = None
     offsets: torch.Tensor | None = None
     n_unique: int | None = None
+    host: np.ndarray | None = None
 
 
 def is_plan(x) -> bool:

@@ -58,6 +58,11 @@ class EmbeddingSpec:
     # always runs the CUDA codec (ops.blockscale_*); kept so specs and
     # checkpoints round-trip, and True still needs wire_block == 128
     wire_kernel: bool = False
+    # in the JAX package, the Pallas fused backward instead of its jnp
+    # oracle (kernels/fused_backward.py). It selects nothing in the port,
+    # whose puts always run the fused_backward CUDA kernel
+    # (ops.fused_backward); kept so specs and collections round-trip
+    backward_kernel: bool = False
     # host-store row format (core/lru.py, core/mmap_store.py): 'fp32' or
     # 'blockscale16' (fp16 payload + one fp32 scale per <=128-wide block:
     # the wire codec applied at rest, in numpy on the host). Rows are

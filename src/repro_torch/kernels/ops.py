@@ -9,7 +9,9 @@ error, never a quiet detour through the plain version.
 ``embedding_sgd`` and ``fused_backward`` update their table in place on
 both paths. Each wrapper counts its launches in ``<wrapper>.launches`` (a
 plain int, raised by one per kernel launch and nowhere else), so a caller
-can show that a run went through the kernel. ``fused_backward``'s kernel is two
+can show that a run went through the kernel; the counts are raised under one
+lock, since the pipelined trainer launches from several threads.
+``fused_backward``'s kernel is two
 grid passes on the stream (segment sums and leader election, then apply),
 launched and counted as one.
 
@@ -31,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import numpy as np
 import torch
@@ -65,6 +68,17 @@ _SIGNATURES = {
                                     _I, _F, _I, _I, _I, _I, _P)),
 }
 _fns: dict = {}
+_count_lock = threading.Lock()
+
+
+def _count(fn, launches: int = 1, tables: int = 0) -> None:
+    """Raise ``fn``'s launch (and table) counts, atomically: a wrapper may
+    be called from several threads at once (the pipelined trainer's lookup
+    and put stages both run the codec)."""
+    with _count_lock:
+        fn.launches += launches
+        if tables:
+            fn.tables += tables
 
 
 def _fn(name: str):
@@ -137,8 +151,7 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     _launch("embedding_bag", "persia_unique_bag_f32", table, out,
             (table.data_ptr(), None, ids.data_ptr(), out.data_ptr(), V, -1,
              B, L, D))
-    embedding_bag.launches += 1
-    embedding_bag.tables += 1
+    _count(embedding_bag, 1, 1)
     return out
 
 
@@ -161,8 +174,7 @@ def unique_bag(table: torch.Tensor, dev: torch.Tensor,
     _launch("unique_bag", "persia_unique_bag_f32", table, out,
             (table.data_ptr(), dev.data_ptr(), inv.data_ptr(), out.data_ptr(),
              V, U, B, L, D))
-    unique_bag.launches += 1
-    unique_bag.tables += 1
+    _count(unique_bag, 1, 1)
     return out
 
 
@@ -254,9 +266,9 @@ def unique_bag_grouped(tables, devs, invs, flat=None) -> list[torch.Tensor]:
     if n_flat + n_plan:
         made = _launch_grouped("unique_bag_grouped",
                                "persia_unique_bag_grouped_f32", device, desc)
-        (unique_bag if n_plan else embedding_bag).launches += made
-        unique_bag.tables += n_plan
-        embedding_bag.tables += n_flat
+        _count(unique_bag if n_plan else embedding_bag, made)
+        _count(unique_bag, 0, n_plan)
+        _count(embedding_bag, 0, n_flat)
     return outs
 
 
@@ -344,7 +356,7 @@ def fused_backward(table: torch.Tensor, acc: torch.Tensor | None,
         # sentinels: the next call at this size starts from fresh scratch
         _fb_scratch.pop((table.device, R), None)
         raise
-    fused_backward.launches += 1
+    _count(fused_backward)
     return push
 
 
@@ -390,8 +402,7 @@ def blockscale_compress(v: torch.Tensor, block: int = 128):
         return comp, scales
     _launch("blockscale_compress", "persia_blockscale_compress_f32", v, comp,
             (v.data_ptr(), n, block, comp.data_ptr(), scales.data_ptr()))
-    blockscale_compress.launches += 1
-    blockscale_compress.tables += 1
+    _count(blockscale_compress, 1, 1)
     return comp, scales
 
 
@@ -428,10 +439,9 @@ def blockscale_compress_grouped(vs, block=128) -> list[tuple]:
             for v, (c, s), b in zip(vs, res, blocks)]
     served = sum(1 for v in vs if v.numel())
     if served:
-        blockscale_compress.launches += _launch_grouped(
+        _count(blockscale_compress, _launch_grouped(
             "blockscale_compress_grouped",
-            "persia_blockscale_compress_grouped_f32", device, desc)
-        blockscale_compress.tables += served
+            "persia_blockscale_compress_grouped_f32", device, desc), served)
     return res
 
 
@@ -465,8 +475,7 @@ def blockscale_decompress(comp: torch.Tensor, scales: torch.Tensor,
     _launch("blockscale_decompress", "persia_blockscale_decompress_f32",
             comp, out, (comp.data_ptr(), scales.data_ptr(), n, int(block),
                         out.data_ptr()))
-    blockscale_decompress.launches += 1
-    blockscale_decompress.tables += 1
+    _count(blockscale_decompress, 1, 1)
     return out
 
 
@@ -518,10 +527,10 @@ def blockscale_decompress_grouped(comps, scales, outs) -> list[torch.Tensor]:
              int(c.shape[1])) for c, s, o in zip(comps, scales, res)]
     served = sum(1 for o in res if o.numel())
     if served:
-        blockscale_decompress.launches += _launch_grouped(
+        _count(blockscale_decompress, _launch_grouped(
             "blockscale_decompress_grouped",
-            "persia_blockscale_decompress_grouped_f32", device, desc)
-        blockscale_decompress.tables += served
+            "persia_blockscale_decompress_grouped_f32", device, desc),
+            served)
     return res
 
 
@@ -579,7 +588,7 @@ def embedding_sgd(table: torch.Tensor, ids: torch.Tensor,
     _launch("embedding_sgd", "persia_embedding_sgd_f32", table, table,
             (table.data_ptr(), ids.data_ptr(), grads.data_ptr(), V, T, D,
              float(lr)))
-    embedding_sgd.launches += 1
+    _count(embedding_sgd)
     return table
 
 
@@ -652,7 +661,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              lse.data_ptr(), B, Hq, Hkv, Sq, Sk, Dh, float(scale),
              int(bool(causal)), int(window), int(q_offset),
              _ATTN_DTYPES[q.dtype]))
-    flash_attention_fwd.launches += 1
+    _count(flash_attention_fwd)
     return o, lse
 
 
@@ -686,7 +695,8 @@ def table_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    for w in WRAPPERS:
-        w.launches = 0
-    for w in GROUPED:
-        w.tables = 0
+    with _count_lock:
+        for w in WRAPPERS:
+            w.launches = 0
+        for w in GROUPED:
+            w.tables = 0

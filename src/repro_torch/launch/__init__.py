@@ -1,2 +1,3 @@
-"""Launchers of the port: ``serve`` (LM prefill + decode) and the shared
-``--emb-shards`` / spec plumbing of ``shards``."""
+"""Launchers of the port: ``train`` (CTR training, serial or pipelined),
+``serve`` (LM prefill + decode), the ``--tuned-host`` profile of
+``hostenv`` and the shared ``--emb-shards`` / spec plumbing of ``shards``."""

@@ -1,6 +1,7 @@
 """Shared spec plumbing for the launchers (copy of ``repro/launch/
 shards.py``): one ``--emb-shards`` grammar (a bare int or comma-separated
-``table=k`` pairs) and one way to build an EmbeddingSpec from CLI knobs.
+``table=k`` pairs), one way to build an EmbeddingSpec from CLI knobs and
+one way to apply a backend choice to a collection.
 
 The port's ``EmbeddingSpec`` has no ``emb_shards`` yet: a spec for more
 than one shard (the sharded router) raises until that is ported.
@@ -62,3 +63,15 @@ def build_embedding_spec(rows: int, dim: int, backend: str = "dense",
         spec = dataclasses.replace(
             spec, cache_rows=default_cache_rows(rows, cache_rows))
     return spec
+
+
+def apply_backend_choice(coll, backend: str, cache_rows: int | None = None):
+    """Override a collection's storage backend from a CLI choice: host-
+    backed variants carry the cache size, device-resident variants must
+    NOT (dense has no cache; ``dense+compressed`` keeps each spec's own
+    cache_rows), and plain ``dense`` is the specs' default."""
+    if backend.partition("+")[0] != "dense":
+        return coll.with_backend(backend, cache_rows)
+    if backend != "dense":
+        return coll.with_backend(backend, None)
+    return coll

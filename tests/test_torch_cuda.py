@@ -1005,3 +1005,104 @@ def test_cuda_host_lru_put_drops_recycled_slots(cuda_device):
     held = torch.from_numpy(old_slots[kept]).long().to(cuda_device)
     assert torch.equal(sg["table"][gone], before[gone])
     assert not torch.equal(sg["table"][held], before[held])
+
+
+# ---------------------------------------------------------------------------
+# the pipelined trainer on the card
+# ---------------------------------------------------------------------------
+
+def _pipe_trainer(device, backend):
+    """A 3-field CTR trainer (128 rows x dim 8 per table), hybrid(3); a
+    host_lru one behind a 64-slot cache that a 16-row batch makes evict."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.core import adapters
+    from repro_torch.core.hybrid import PersiaTrainer, TrainMode
+    from repro_torch.data.ctr import CTRDataset
+    from repro_torch.optim.optimizers import OptConfig
+    cfg = ModelConfig(name="pl", arch_type="recsys", n_id_fields=3,
+                      ids_per_field=3, emb_dim=8, emb_rows=3 * 128,
+                      n_dense_features=4, mlp_dims=(16,), n_tasks=1)
+    ds = CTRDataset("pl", n_rows=3 * 128, n_fields=3, ids_per_field=3,
+                    n_dense=4)
+    coll = adapters.ctr_collection(cfg, lr=5e-2, field_rows=ds.field_rows())
+    if backend != "dense":
+        coll = coll.with_backend(backend, 64)
+    ad = adapters.recsys_adapter(cfg, field_rows=ds.field_rows(),
+                                 collection=coll)
+    return ds, PersiaTrainer(ad, TrainMode.hybrid(3),
+                             OptConfig(kind="adam", lr=5e-3), device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["dense", "host_lru"])
+def test_cuda_pipelined_inflight1_bit_exact_with_serial(cuda_device,
+                                                        backend):
+    """On the card, as on the CPU: one permit pins the serial dispatch
+    order on the one stream, so 12 pipelined steps equal 12 serial steps
+    bit for bit (losses, tables, accumulators, dense parameters), with the
+    same launches per step."""
+    from repro_torch.core.pipeline import PipelinedTrainer
+    from repro_torch.utils import tree_leaves
+    ds, ta = _pipe_trainer(cuda_device, backend)
+    it = ds.sampler(16, seed=0)
+    batches = [next(it) for _ in range(12)]
+    ops.reset_launch_counts()
+    sa, ma = ta.run(ta.init(0, batches[0]), batches)
+    torch.cuda.synchronize()
+    serial = ops.launch_counts()
+    _, tb = _pipe_trainer(cuda_device, backend)
+    ops.reset_launch_counts()
+    sb, mb = PipelinedTrainer(tb, max_inflight=1).run(
+        tb.init(0, batches[0]), batches)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == serial
+    assert serial["fused_backward"] == 12 * 3
+    assert [float(m["loss"]) for m in ma] == [float(m["loss"]) for m in mb]
+    for n in sa.emb:
+        for k in sa.emb[n]:
+            assert torch.equal(sa.emb[n][k], sb.emb[n][k]), (n, k)
+    for x, y in zip(tree_leaves(sa.dense), tree_leaves(sb.dense)):
+        assert torch.equal(x, y)
+    if backend != "dense":
+        from repro_torch.core.backend import unwrap
+        for n in ta.backends:
+            a, b = unwrap(ta.backends[n]), unwrap(tb.backends[n])
+            assert a.writebacks > 0
+            assert np.array_equal(a._id_for_slot, b._id_for_slot)
+            assert np.array_equal(a.store.vectors, b.store.vectors)
+
+
+@pytest.mark.cuda
+def test_cuda_pins_of_full_width_plans_make_no_sync(cuda_device):
+    """kwai-dlrm's 32 host_lru tables (62,500 rows, 7,812 cache slots) at
+    batch 512: pinning and unpinning the plans of a prepare_all read their
+    host copies, so under the sync debug mode "error" nothing waits for
+    the card."""
+    from repro_torch.configs.recsys_configs import KWAI
+    from repro_torch.core import adapters
+    from repro_torch.core import backend as BK
+    from repro_torch.data.ctr import CTR_BENCHMARKS
+    from repro_torch.launch.shards import default_cache_rows
+    ds = CTR_BENCHMARKS["kwai_video"]
+    coll = adapters.ctr_collection(KWAI, field_rows=ds.field_rows()) \
+        .with_backend("host_lru", default_cache_rows(ds.rows_per_field))
+    backends = coll.make_backends()
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    states = {n: b.init(gen) for n, b in backends.items()}
+    ids = next(ds.sampler(512, seed=1))["ids"]
+    _, dev_ids, _ = BK.prepare_all(
+        backends, states, {n: ids[:, i] for i, n in enumerate(coll.names)},
+        cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for n, b in backends.items():
+            b.pin_slots(dev_ids[n])
+        pinned = {n: int(b._pin_count.sum()) for n, b in backends.items()}
+        for n, b in backends.items():
+            b.unpin_slots(dev_ids[n])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for n, b in backends.items():
+        assert pinned[n] == dev_ids[n].n_unique > 0
+        assert int(b._pin_count.sum()) == 0

@@ -33,17 +33,25 @@ bad = sorted(m for m, mod in sys.modules.items() if mod is not None and
              (m == "repro" or m.startswith(("repro.", "jax"))))
 print("LOADED", len([m for m in sys.modules if m.startswith("repro_torch")]))
 print("BAD", bad)
+print("HAS", sorted(m for m in sys.modules if m in {names!r}))
 """
+
+# modules whose import must not need JAX (among all the walked ones): the
+# pipelined trainer and the launchers
+_NAMED = ("repro_torch.core.pipeline", "repro_torch.launch.train",
+          "repro_torch.launch.hostenv")
 
 
 def test_port_and_chip_smoke_import_without_jax():
-    code = _PROBE.format(src=str(ROOT / "src"), root=str(ROOT))
+    code = _PROBE.format(src=str(ROOT / "src"), root=str(ROOT),
+                         names=set(_NAMED))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, env=env, cwd=str(ROOT))
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     assert int(out.stdout.split("LOADED ")[1].split()[0]) >= 15
+    assert f"HAS {sorted(_NAMED)}" in out.stdout, out.stdout
 
 
 _IMPORT = re.compile(r"^\s*(import|from)\s+(jax\b|repro(\.|\s|$))")
