@@ -146,8 +146,38 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    order, stay within the put window min(4, 3) and release every pin.
    Then, per regime, syncs per step (``torch.cuda.set_sync_debug_mode(
    "warn")``) and the device-busy share of profiled steps, serial and
-   pipelined; and 8 pipelined steps of ``repro_torch.launch.train.main``
-   on the card.
+   pipelined.
+13. The in-process online loop (``launch.online``'s loop): kwai-dlrm at
+   full width on ``host_lru``, hybrid(2), training batch 512, a
+   ``ServingService(max_batch=64)``, 4 closed-loop clients x 256 requests
+   fed back as clicks, 30 trainer steps over the one embedding state:
+   exactly 30 steps, every served impression fed back, every table's
+   staleness gauge <= 2, predictions finite in [0, 1] (the first Adam
+   steps saturate some of fp32's sigmoids: their share is reported) and
+   the untrained model's in (0, 1), one bag launch per flush and per step
+   and 32 ``fused_backward`` per step; steps/s,
+   feedback and fallback batches, p50/p99/QPS under training beside a
+   serve-only run of the same service and clients from the same call.
+14. LM training: ``PersiaTrainer(lm_adapter)`` at the full width and
+   depth of granite-3-2b (fp32, remat per layer, B=2, S=2,048,
+   hybrid(1), Adam, ``lm_batches``): 2 warm-up and 3 timed steps, each
+   80 ``flash_attention_fwd`` (forward and recompute) and one
+   ``fused_backward`` at D=2,048, one profiled step; step ms, tokens/s,
+   device-busy share, peak memory, finite losses. Then (a) the attention
+   backward (the kernel's forward, the recompute backward) against
+   autograd through the plain attention at one layer's shape (B=1, S=2,048)
+   and at a ragged S=1,000 with window 256, within 1e-3 of the largest
+   |grad|; (b) ``fused_backward`` at the LM put's shape (4,096
+   occurrences, D=2,048, 49,155 rows), hybrid and sync, bit for bit, timed
+   beside its bound; (c) the model cut to 2 layers, B=1, S=256, 3 steps on
+   the card and on the CPU from one state (losses rtol 1e-4; the dense
+   parameters as ``dense_agreement`` holds them, and the vocab table the
+   same way: updates equal in norm to 1e-3, no element off by more than
+   lr / 100 per applied put; the accumulator in norm to 1e-3, the queued
+   put to 1e-3 of its largest element).
+15. The launcher, ``repro_torch.launch.train.main`` on the card: 8
+   pipelined steps of the CTR task, then ``--task lm --steps 8 --batch 8
+   --seq-len 128 --eval-every 4`` (the launcher's lm-100m), finite losses.
 
 The kernel phase also holds ``embedding_sgd`` bit for bit on 32 tables'
 real kwai-dlrm puts (the unique physical rows of a training put, -1 and
@@ -205,7 +235,9 @@ from repro_torch.core import dedup as D  # noqa: E402
 from repro_torch.core.hybrid import PersiaTrainer, TrainMode  # noqa: E402
 from repro_torch.core.pipeline import STAGES, PipelinedTrainer  # noqa: E402
 from repro_torch.data.ctr import CTR_BENCHMARKS  # noqa: E402
+from repro_torch.data.lm import lm_batches  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.launch import online  # noqa: E402
 from repro_torch.launch import serve as lm_serve  # noqa: E402
 from repro_torch.launch.shards import (build_embedding_spec,  # noqa: E402
                                        default_cache_rows)
@@ -265,6 +297,15 @@ PIPE_STEPS = {"warmup": 2, "timed": 20, "trials": 3, "syncs": 6,
               "profiled": 4, "lru_warm": 26}
 PIPE_INFLIGHT, PIPE_PREFETCH = 4, 2
 
+# the in-process online loop: kwai-dlrm on host_lru, hybrid(tau), the
+# service's micro-batch, closed-loop clients x requests each, trainer steps
+ONLINE = {"tau": 2, "max_batch": 64, "clients": 4, "requests": 256,
+          "steps": 30}
+# LM training: granite-3-2b at full width and depth (batch, sequence,
+# warm-up and timed steps), and the card-against-CPU cut
+LM_TRAIN = {"batch": 2, "seq": 2048, "warmup": 2, "timed": 3}
+LM_TRAIN_CPU = {"layers": 2, "batch": 1, "seq": 256, "steps": 3}
+
 KERNELS = {
     "embedding_bag": {"source": "src/repro_torch/kernels/csrc/bag.cu",
                       "replaces": "src/repro/kernels/embedding_bag.py:35"},
@@ -287,10 +328,13 @@ KERNELS = {
         "replaces": "src/repro/kernels/flash_attention.py:73"},
 }
 CODEC = ("blockscale_compress", "blockscale_decompress")
-# the grouped kernels' per-stage fields in the kernels line
+# the kernels line's fields beyond the contract's: the grouped kernels'
+# per-stage times, fused_backward's at the LM put (D = 2,048)
 STAGE_KEYS = ("stage_tables", "stage_ms", "stage_bound_ms", "stage_library_ms",
-              "train_stage_ms", "train_stage_bound_ms", "put_stage_ms",
-              "put_stage_bound_ms", "train_ms", "train_bound_ms")
+              "lm_put_ms", "lm_put_bound_ms", "lm_put_bound_by",
+              "lm_put_plain_ms", "train_stage_ms", "train_stage_bound_ms",
+              "put_stage_ms", "put_stage_bound_ms", "train_ms",
+              "train_bound_ms")
 
 
 BAG_KERNELS = ("embedding_bag", "unique_bag")
@@ -777,7 +821,7 @@ def fb_inputs(gen, ids, plan, prev, cap, sgd=False):
     return acc, grads, idx, g, False
 
 
-def fb_bound(plan, apply_idx, apply_self) -> tuple[float, float]:
+def fb_bound(plan, apply_idx, apply_self, dim=DIM) -> tuple[float, float]:
     """(bytes, operations) that one call must move and do: the valid
     occurrence rows and the CSR read, the payload written, the live
     positions' gradient rows read (unless they are the payload itself), and
@@ -788,10 +832,10 @@ def fb_bound(plan, apply_idx, apply_self) -> tuple[float, float]:
     n_valid, cap = plan.order.numel(), apply_idx.numel()
     live = apply_idx[apply_idx >= 0]
     n_live, n_rows = live.numel(), torch.unique(live).numel()
-    nb = (n_valid * (DIM + 1) * 4 + plan.offsets.numel() * 4 + cap * 4
-          + cap * DIM * 4 + (0 if apply_self else n_live * DIM * 4)
-          + n_rows * (DIM + 1) * 4 * 2)
-    no = n_valid * DIM + n_live * DIM * 5
+    nb = (n_valid * (dim + 1) * 4 + plan.offsets.numel() * 4 + cap * 4
+          + cap * dim * 4 + (0 if apply_self else n_live * dim * 4)
+          + n_rows * (dim + 1) * 4 * 2)
+    no = n_valid * dim + n_live * dim * 5
     return float(nb), float(no)
 
 
@@ -1830,7 +1874,7 @@ def card_vs_cpu(dev, ds, backend="dense",
         tc = kwai_train_trainer("cpu", mode, backend)
         sg = tg.init(seed=SEED + 1, batch_example=batches[0])
         sc = sg.to("cpu")
-        start = sc.dense            # the steps make new dense tensors
+        start = tree_map(torch.clone, sc.dense)  # updated in place
         start_emb = sg.to("cpu").emb if wire else None   # updated in place
         lg, lc = [], []
         for b in batches[:steps]:
@@ -2416,7 +2460,7 @@ def lru_card_vs_cpu(dev, trainer, state, steps=LRU_STEPS["cpu"]) -> dict:
                           emb_queue=tree["emb_queue"],
                           dense_queue=tree["dense_queue"], step=state.step)
     del blobs
-    start = sc.dense
+    start = tree_map(torch.clone, sc.dense)     # updated in place
     sg = state
     lg, lc = [], []
     for b in batches:
@@ -2874,10 +2918,356 @@ def pipeline_phase(dev, backend):
     return main_counts, out
 
 
+# ---------------------------------------------------------------------------
+# the in-process online loop, and LM training
+# ---------------------------------------------------------------------------
+
+def online_phase(dev):
+    """``launch.online``'s loop (``_online_loop``) at the full kwai-dlrm
+    width on ``host_lru`` (``run_online``'s default backend), hybrid(2),
+    training batch 512, ``ServingConfig(max_batch=64)``, 4 closed-loop
+    clients x 256 requests and 30 trainer steps over one embedding state.
+    Exactly 30 steps; every impression fed back; every table's staleness
+    gauge at most tau; predictions finite in [0, 1], and in (0, 1) for the
+    serve-only run; one bag launch per flush and, per step, one bag launch
+    and one ``fused_backward`` per table. A serve-only run of the same service and clients (no step)
+    from the same call stands beside it."""
+    ds = CTR_BENCHMARKS["kwai_video"]
+    trainer = kwai_train_trainer(dev, TrainMode.hybrid(ONLINE["tau"]),
+                                 HOST_LRU)
+    kw = dict(batch=TRAIN_B, config=ServingConfig(
+        max_batch=ONLINE["max_batch"]), n_clients=ONLINE["clients"],
+        seed=SEED)
+    online._online_loop(trainer, ds, steps=2, requests_per_client=32,
+                        **kw)                             # warm-up
+    alone, alone_x = online._online_loop(
+        trainer, ds, steps=0, requests_per_client=ONLINE["requests"], **kw)
+    torch.cuda.synchronize()
+
+    # the main path: counts set to 0 just before
+    ops.reset_launch_counts()
+    res, extras = online._online_loop(
+        trainer, ds, steps=ONLINE["steps"],
+        requests_per_client=ONLINE["requests"], **kw)
+    torch.cuda.synchronize()
+    launches, served = ops.launch_counts(), ops.table_counts()
+    sv, steps = res["serving"], ONLINE["steps"]
+    flushes = int(sv["serving/batches"])
+    n_req = ONLINE["clients"] * ONLINE["requests"]
+    check(res["steps"] == steps, f"online: {res['steps']} steps, want "
+          f"{steps}")
+    check(res["served"] == n_req and res["feedback"]["put"] == n_req
+          and sv["serving/requests"] == n_req and sv["serving/errors"] == 0,
+          f"online: served {res['served']}, fed back {res['feedback']}, "
+          f"service {sv['serving/requests']} requests")
+    stale = {n: sv[f"serving/{n}/stale_steps"] for n in trainer.collection}
+    check(max(stale.values()) <= ONLINE["tau"],
+          f"online: staleness gauges {stale} above tau {ONLINE['tau']}")
+    # the first Adam steps (lr 3e-3 on 4,096-wide layers) drive some
+    # logits past fp32 sigmoid's range, where it rounds to exactly 0 or 1:
+    # served predictions are held to [0, 1] and the saturated share is
+    # reported; the untrained model's (serve-only) to (0, 1)
+    preds, fresh = extras["preds"], alone_x["preds"]
+    saturated = float(np.mean((preds == 0) | (preds == 1)))
+    check(bool(np.all(np.isfinite(preds))) and preds.min() >= 0
+          and preds.max() <= 1, f"online: predictions not finite in [0, 1]: "
+          f"{int((~np.isfinite(preds)).sum())} not finite, min "
+          f"{np.nanmin(preds)}, max {np.nanmax(preds)}")
+    check(bool(np.all(np.isfinite(fresh))) and fresh.min() > 0
+          and fresh.max() < 1, "online: serve-only predictions not finite "
+          f"in (0, 1): min {np.nanmin(fresh)}, max {np.nanmax(fresh)}")
+    check(np.isfinite(res["loss_first"]) and np.isfinite(res["loss_last"]),
+          "online: losses not finite")
+    per_step, tables = step_launches(trainer)
+    n = len(trainer.collection)
+    want = {k: v * steps for k, v in per_step.items()}
+    want["unique_bag"] += flushes
+    want_tables = {k: v * steps for k, v in tables.items()}
+    want_tables["unique_bag"] += n * flushes
+    check(launches == want and served == want_tables,
+          f"online: launches {launches} (tables {served}), want {want} "
+          f"(tables {want_tables}): one bag launch per flush ({flushes}) "
+          f"and per step, {n} fused_backward per step")
+    wall = extras["wall_s"]
+    del trainer, extras, alone_x
+    torch.cuda.empty_cache()
+
+    def serving(r):
+        s = r["serving"]
+        return {"p50_ms": s["serving/p50_ms"], "p99_ms": s["serving/p99_ms"],
+                "qps": s["serving/qps"], "flushes": s["serving/batches"],
+                "fill": s["serving/field_00/batch_fill"]}
+
+    return (launches, served), {
+        "phase": "online", "model": KWAI.name, "backend": HOST_LRU,
+        "mode": f"hybrid({ONLINE['tau']})", "train_batch": TRAIN_B,
+        "max_batch": ONLINE["max_batch"], "clients": ONLINE["clients"],
+        "requests_per_client": ONLINE["requests"], "steps": res["steps"],
+        "wall_s": wall, "steps_per_s": res["steps_per_s"],
+        "feedback_batches": res["feedback_batches"],
+        "fallback_batches": res["fallback_batches"],
+        "loss_first": res["loss_first"], "loss_last": res["loss_last"],
+        "served_logloss_first": res["served_logloss_first"],
+        "served_logloss_last": res["served_logloss_last"],
+        "stale_steps_max": max(stale.values()),
+        "saturated_pred_share": saturated,
+        "under_training": serving(res), "serve_only": serving(alone),
+        "launches_per_step": per_step}
+
+
+def lm_trainer(cfg, dev):
+    """granite's ``PersiaTrainer(lm_adapter)``: hybrid(emb_staleness),
+    Adam, the launchers' learning rates."""
+    return PersiaTrainer(adapters.lm_adapter(cfg, lr=EMB_LR),
+                         TrainMode.hybrid(cfg.emb_staleness),
+                         OptConfig(kind="adam", lr=DENSE_LR), device=dev)
+
+
+def lm_train_phase(dev):
+    """``PersiaTrainer(lm_adapter)`` at the full width and depth of
+    granite-3-2b (fp32, remat on), B=2, S=2,048, hybrid(1), Adam, on
+    ``lm_batches``: 2 warm-up and 3 timed steps (each 80
+    ``flash_attention_fwd``, forward and recompute, and one
+    ``fused_backward`` at D=2,048), one profiled step; then checks (a)
+    to (c)."""
+    cfg = get_config(LM_ARCH)
+    check(cfg.remat, "granite's config must remat its layers")
+    p = LM_TRAIN
+    it = lm_batches(cfg.vocab_size, p["batch"], p["seq"], seed=SEED)
+    batches = [next(it) for _ in range(1 + p["warmup"] + p["timed"] + 1)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = lm_trainer(cfg, dev)
+    t0 = time.perf_counter()
+    state = trainer.init(SEED, batches[0])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_dense = sum(t.numel() for t in tree_leaves(state.dense))
+    losses = []
+    for b in batches[1:1 + p["warmup"]]:
+        state, m = trainer.step(state, b)
+        losses.append(float(m["loss"]))
+
+    # the main path: counts set to 0 just before
+    ops.reset_launch_counts()
+    step_ms = []
+    for b in batches[1 + p["warmup"]:-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = trainer.step(state, b)
+        losses.append(float(m["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches, served = ops.launch_counts(), ops.table_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_attention_fwd=2 * cfg.n_layers * p["timed"],
+                fused_backward=p["timed"])
+    check(launches == want, f"lm train: launches {launches}, want {want} "
+          f"(per step {2 * cfg.n_layers} attention forwards, forward and "
+          "remat recompute, and one put)")
+    check(all(np.isfinite(losses)), f"lm train: losses {losses}")
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = trainer.step(state, batches[-1])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    losses.append(float(m["loss"]))
+    top = sorted(((e.self_device_time_total, e.key)
+                  for e in prof.key_averages()), reverse=True)
+    device_s = sum(us for us, _ in top) / 1e6
+    del state, trainer, prof
+    torch.cuda.empty_cache()
+
+    tokens = p["batch"] * p["seq"]
+    med = float(np.median(step_ms))
+    rec = {"phase": "lm_train", "model": cfg.name, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads,
+                                             cfg.head_dim],
+           "d_ff": cfg.d_ff, "vocab": [cfg.vocab_size, cfg.padded_vocab],
+           "dtype": "fp32", "remat": cfg.remat,
+           "mode": f"hybrid({cfg.emb_staleness})", "batch": p["batch"],
+           "seq": p["seq"], "dense_params": n_dense, "init_s": init_s,
+           "step_ms": step_ms, "step_ms_median": med,
+           "tokens_per_s": tokens / (med / 1e3),
+           "profiled_wall_s": wall, "profiled_device_s": device_s,
+           "device_busy_share": device_s / wall,
+           "top_device_ms": [(k, us / 1e3) for us, k in top[:8]],
+           "peak_gib": peak / 2**30, "losses": losses,
+           "launches_per_step": {k: v / p["timed"]
+                                 for k, v in launches.items() if v}}
+    emit(rec)
+    rec["attention_backward"] = attention_backward_check(dev, cfg)
+    rec["lm_put"] = lm_put_check(dev, cfg)
+    rec["card_vs_cpu"] = lm_train_card_vs_cpu(dev)
+    return (launches, served), rec
+
+
+def attention_backward_check(dev, cfg) -> dict:
+    """(a) ``flash.FlashAttention``'s dq, dk, dv (the kernel's forward, the
+    recompute backward) against autograd through the plain attention
+    (``layers._attn_naive``), on the card, at one granite layer's shape
+    (B=1, S=2,048, 32/8 heads of 64, causal) and at a ragged S=1,000 with
+    window 256: within 1e-3 of the largest |grad| (the kernel's 3xTF32
+    forward moves o and the logsumexp the backward reads by its own
+    rounding)."""
+    out = {}
+    G, Dh = cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    for case, (S, window) in {"granite_layer": (2048, 0),
+                              "ragged_window": (1000, 256)}.items():
+        q = torch.randn((1, S, cfg.n_kv_heads, G, Dh), generator=gen,
+                        device=dev)
+        k, v = (torch.randn((1, S, cfg.n_kv_heads, Dh), generator=gen,
+                            device=dev) for _ in range(2))
+        do = torch.randn(q.shape, generator=gen, device=dev)
+        kw = dict(scale=1.0 / math.sqrt(Dh), causal=True, window=window)
+        got, want = (torch.autograd.grad(
+            fn(*(t.requires_grad_() for t in (q, k, v)), **kw),
+            (q, k, v), do)
+            for fn in (lm_flash.flash_attention,
+                       lambda *a, **w: lm_layers._attn_naive(
+                           *a, q_offset=0, **w)))
+        share = {f"d{n}": float((a - b).abs().max() / b.abs().max())
+                 for n, a, b in zip("qkv", got, want)}
+        out[case] = {"S": S, "window": window, "share_of_max": share}
+        check(max(share.values()) <= 1e-3,
+              f"attention backward [{case}]: {share} of the largest |grad| "
+              "off the plain attention's")
+    emit({"phase": "lm_attention_backward", **out})
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_put_check(dev, cfg) -> dict:
+    """(b) ``fused_backward`` at the LM put's shape: the 4,096 token
+    occurrences of a B=2, S=2,048 batch, D=2,048, granite's 49,155 vocab
+    rows; the hybrid put (the batch before's plan rows popped, random
+    payload) and the sync put (its own sums), bit for bit against the
+    plain version on the card (payload, table, accumulator); the hybrid
+    put timed by graph replay beside its bound and the plain version."""
+    spec = build_embedding_spec(cfg.vocab_size, cfg.d_model)
+    backends = {"vocab": BK.create_backend(spec)}
+    it = lm_batches(cfg.vocab_size, LM_TRAIN["batch"], LM_TRAIN["seq"],
+                    seed=SEED + 22)
+    plans = [BK.prepare_all(backends, {"vocab": None},
+                            {"vocab": next(it)["tokens"]}, dev)[1]["vocab"]
+             for _ in range(2)]
+    prev, plan = plans
+    n_occ, Dm, R = plan.inv.numel(), cfg.d_model, spec.padded_rows(1)
+    cap = backends["vocab"].queue_width(n_occ)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    table = torch.randn((R, Dm), generator=gen, device=dev) * 0.02
+    acc = torch.rand((R,), generator=gen, device=dev) * 1e-6
+    grads = torch.randn((n_occ, Dm), generator=gen, device=dev) * 1e-3
+    idx = torch.full((cap,), -1, dtype=torch.int32, device=dev)
+    idx[:prev.rows.numel()] = prev.rows
+    g = torch.randn((cap, Dm), generator=gen, device=dev) * 1e-3
+    g[prev.rows.numel():] = 0
+    errs, cases = [], {}
+    for case, ai, ag, self_ in (("hybrid", idx, g, False),
+                                ("sync", plan.rows, None, True)):
+        outs = []
+        for fn in (ops.fused_backward, ref.fused_backward_ref):
+            t, a = table.clone(), acc.clone()
+            push = fn(t, a, plan.order, plan.offsets, grads, ai, ag,
+                      lr=EMB_LR, eps=1e-8, apply_self=self_)
+            outs.append((push, t, a))
+        torch.cuda.synchronize()
+        for what, x, y in zip(("payload", "table", "acc"), *outs):
+            errs.append(exact("fused_backward", f"lm_{case}: {what}", x, y))
+        cases[case] = {"live_positions": int((ai >= 0).sum())}
+
+    def put(fn):
+        return lambda: fn(table, acc, plan.order, plan.offsets, grads, idx,
+                          g, lr=EMB_LR, eps=1e-8)
+
+    nb, no = fb_bound(plan, idx, False, Dm)
+    b_bytes, b_ops = nb / HBM_BYTES_PER_S, no / FP32_OPS_PER_S
+    out = {"n_occ": n_occ, "unique": int(plan.n_unique), "cap": cap,
+           "D": Dm, "rows": R, "cases": cases, "max_abs_err": max(errs),
+           "ms": device_ms(put(ops.fused_backward), 20),
+           "eager_ms": eager_ms(put(ops.fused_backward), 20),
+           "plain_ms": eager_ms(put(ref.fused_backward_ref), 2),
+           "bound_ms": max(b_bytes, b_ops) * 1e3,
+           "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+           "bound_bytes": nb}
+    emit({"phase": "lm_put", **out})
+    del table, acc, grads, g
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_train_card_vs_cpu(dev) -> dict:
+    """(c) granite at full width cut to 2 layers, B=1, S=256, hybrid(1):
+    3 steps from one state (drawn on the card, copied to the CPU) on the
+    card and on the CPU (TF32 off). Losses within rtol 1e-4. The dense
+    parameters as ``dense_agreement`` holds them (Adam's updates agree in
+    norm to 1e-3, no weight off by more than 2 lr a step). From the second
+    step on the two models differ by that drift, so the gradients that
+    reach the vocab table differ by more than rounding, and the row-wise
+    adagrad step scales each row's gradient to about lr: the table is held
+    like the dense parameters, its updates equal in norm to 1e-3 and no
+    element off by more than lr / 100 per applied put; the accumulator in
+    norm to 1e-3; the queued put as the CTR check holds it (rtol 1e-3,
+    atol 1e-3 of its largest element), its ids equal."""
+    p = LM_TRAIN_CPU
+    cfg = get_config(LM_ARCH).replace(pattern_repeats=p["layers"])
+    tg, tc = lm_trainer(cfg, dev), lm_trainer(cfg, "cpu")
+    it = lm_batches(cfg.vocab_size, p["batch"], p["seq"], seed=SEED + 24)
+    batches = [next(it) for _ in range(p["steps"] + 1)]
+    sg = tg.init(SEED + 24, batches[0])
+    sc = sg.to("cpu")
+    start = tree_map(torch.clone, sc.dense)     # updated in place
+    start_table = sc.emb["vocab"]["table"].clone()
+    lg, lc = [], []
+    for b in batches[1:]:
+        sg, mg = tg.step(sg, b)
+        sc, mc = tc.step(sc, b)
+        lg.append(float(mg["loss"]))
+        lc.append(float(mc["loss"]))
+    dense = dense_agreement(start, sg.dense, sc.dense, p["steps"])
+    ge, ce = sg.emb["vocab"], sc.emb["vocab"]
+    gq, cq = sg.emb_queue["vocab"], sc.emb_queue["vocab"]
+    applied = p["steps"] - cfg.emb_staleness
+
+    def rel(x, y, base):
+        return float((x.cpu() - y).double().norm()
+                     / base.double().norm().clamp(min=1e-300))
+
+    table_d = float((ge["table"].cpu() - ce["table"]).abs().max())
+    q_scale = float(cq["grads"].abs().max())
+    emb = {"table_max_abs": table_d,
+           "table_update_rel": rel(ge["table"], ce["table"],
+                                   ce["table"] - start_table),
+           "acc_rel": rel(ge["acc"], ce["acc"], ce["acc"]),
+           "queue_max_abs_share": float(
+               (gq["grads"].cpu() - cq["grads"]).abs().max()) / q_scale}
+    rec = {"phase": "lm_train_card_vs_cpu", **p, "d_model": cfg.d_model,
+           "losses_card": lg, "losses_cpu": lc, **emb, **dense}
+    emit(rec)
+    check(np.allclose(lg, lc, rtol=1e-4, atol=0),
+          f"lm train card against CPU: losses {lg} vs {lc}")
+    check(emb["table_update_rel"] <= 1e-3
+          and table_d <= EMB_LR / 100 * applied and emb["acc_rel"] <= 1e-3
+          and torch.allclose(gq["grads"].cpu(), cq["grads"], rtol=1e-3,
+                             atol=1e-3 * q_scale)
+          and torch.equal(gq["ids"].cpu(), cq["ids"]),
+          f"lm train card against CPU: vocab table, acc or queue {emb}")
+    check(dense["ok"], f"lm train card against CPU: dense {dense}")
+    del tg, tc, sg, sc, start, start_table
+    torch.cuda.empty_cache()
+    return rec
+
+
 def launcher_phase(dev):
-    """``repro_torch.launch.train.main`` with ``--pipeline pipelined`` on
-    the card: 8 steps of the default taobao_ad CTR model, eval every 4;
-    two finite eval lines and the engine's metrics in its record."""
+    """``repro_torch.launch.train.main`` on the card: 8 steps of the
+    default taobao_ad CTR model with ``--pipeline pipelined``, eval every
+    4, two finite eval lines and the engine's metrics in its record; then
+    the LM task (the launcher's lm-100m, ``--steps 8 --batch 8 --seq-len
+    128 --eval-every 4``), two finite loss lines."""
     from repro_torch.launch import train as launch_train
     path = ROOT / "chiprun_out" / "train_launcher.json"
     path.parent.mkdir(exist_ok=True)
@@ -2891,9 +3281,18 @@ def launcher_phase(dev):
                                  np.isfinite(h["auc"]) for h in hist)
           and rec["pipeline_metrics"]["pipeline/steps"] == 4.0,
           f"launcher: history {hist}")
+    lm_argv = ["--task", "lm", "--steps", "8", "--batch", "8", "--seq-len",
+               "128", "--eval-every", "4"]
+    t0 = time.perf_counter()
+    lm_hist = launch_train.main(["--device", str(dev), *lm_argv])
+    lm_wall = time.perf_counter() - t0
+    check(len(lm_hist) == 2 and all(np.isfinite(h["loss"])
+                                    for h in lm_hist),
+          f"launcher --task lm: history {lm_hist}")
     out = {"phase": "train_launcher", "argv": "--pipeline pipelined "
            "--steps 8 --eval-every 4", "wall_s": wall, "history": hist,
-           "device": rec["device"]}
+           "device": rec["device"], "lm_argv": " ".join(lm_argv),
+           "lm_wall_s": lm_wall, "lm_history": lm_hist}
     emit(out)
     return out
 
@@ -2978,6 +3377,13 @@ def main() -> int:
         dev, "dense")
     paths["train_pipelined_host_lru"], recs["train_pipelined_host_lru"] = \
         pipeline_phase(dev, HOST_LRU)
+    # the in-process online loop and LM training
+    paths["online"], recs["online"] = online_phase(dev)
+    emit(recs["online"])
+    paths["lm_train"], recs["lm_train"] = lm_train_phase(dev)
+    timing["fused_backward"].update(
+        {f"lm_put_{k}": recs["lm_train"]["lm_put"][k]
+         for k in ("ms", "bound_ms", "bound_by", "plain_ms")})
     recs["train_launcher"] = launcher_phase(dev)
 
     kernels = []

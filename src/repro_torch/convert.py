@@ -16,7 +16,9 @@ host tiers live in the backend, not in the train state.
 For the LM family, ``lm_dense_from_numpy`` carries the transformer's dense
 parameters across (``repro.models.transformer.init_dense``'s tree, key for
 key, stacked layers included) and ``emb_from_numpy`` one embedding table's
-state (``backend.init``'s ``{"table", "acc"}``).
+state (``backend.init``'s ``{"table", "acc"}``); ``state_from_numpy``
+takes a ``PersiaTrainer(lm_adapter)`` state whole (the transformer tree,
+Adam's moments shaped like it, the vocab table, its queue).
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import torch
 
 from repro_torch.core.hybrid import PersiaTrainer, TrainState
 from repro_torch.device import resolve_device
-from repro_torch.utils import tree_map
+from repro_torch.utils import tree_leaves, tree_map
 
 
 def _tensor(a, shape, what, device, dtype=torch.float32) -> torch.Tensor:
@@ -36,11 +38,27 @@ def _tensor(a, shape, what, device, dtype=torch.float32) -> torch.Tensor:
     return torch.tensor(a, dtype=dtype, device=device)
 
 
+def _as_like(tree, like):
+    """``tree`` with ``like``'s dicts where it has lists: the checkpoint
+    loader reads a dict whose keys are all digits (an LM's ``"stack":
+    {"0": ...}``) back as a list, in both packages."""
+    if isinstance(like, dict):
+        if isinstance(tree, (list, tuple)):
+            tree = {str(i): v for i, v in enumerate(tree)}
+        if isinstance(tree, dict):
+            return {k: _as_like(v, like[k]) if k in like else v
+                    for k, v in tree.items()}
+    if isinstance(like, list) and isinstance(tree, list):
+        return [_as_like(a, b) for a, b in zip(tree, like)]
+    return tree
+
+
 def _like_dense(tree, dense, what, device, lead=()):
     """A numpy tree shaped like the dense params (plus ``lead`` axes) ->
     fp32 tensors."""
     return tree_map(lambda a, p: _tensor(a, lead + tuple(p.shape), what,
-                                         device), tree, dense)
+                                         device), _as_like(tree, dense),
+                    dense)
 
 
 def _queue_from_numpy(q, spec, device):
@@ -61,7 +79,9 @@ def _queue_from_numpy(q, spec, device):
 def state_from_numpy(trainer: PersiaTrainer, dense_np: dict, emb_np: dict,
                      *, opt=None, emb_queue=None, dense_queue=None,
                      step: int = 0, device=None) -> TrainState:
-    """``dense_np``: ``{"mlp": [{"w": (d_in, d_out), "b": (d_out,)}, ...]}``;
+    """``dense_np``: ``{"mlp": [{"w": (d_in, d_out), "b": (d_out,)}, ...]}``
+    for a CTR trainer, the transformer's tree for an LM trainer
+    (:func:`lm_dense_from_numpy`);
     ``emb_np``: ``{table: {"table": (padded_rows, dim), "acc":
     (padded_rows,)}}`` in the physical shuffled layout for a dense table,
     and for a host_lru table its checkpoint blob or restored cache (see
@@ -73,15 +93,7 @@ def state_from_numpy(trainer: PersiaTrainer, dense_np: dict, emb_np: dict,
     "filled"}`` or ``None``. Shapes are checked against the trainer's model
     and collection. ``device`` defaults to the trainer's."""
     device = trainer.device if device is None else resolve_device(device)
-    want = trainer.adapter.init_dense(
-        torch.Generator(device="cpu").manual_seed(0))
-    if len(dense_np["mlp"]) != len(want["mlp"]):
-        raise ValueError(f"{len(dense_np['mlp'])} MLP layers, this trainer "
-                         f"has {len(want['mlp'])}")
-    dense = {"mlp": [
-        {k: _tensor(lyr[k], ref[k].shape, f"mlp[{i}].{k}", device)
-         for k in ("w", "b")}
-        for i, (lyr, ref) in enumerate(zip(dense_np["mlp"], want["mlp"]))]}
+    dense = _dense_from_numpy(trainer.adapter, dense_np, device)
     if set(emb_np) != set(trainer.collection.names):
         raise ValueError(f"tables {sorted(emb_np)} do not match the "
                          f"collection {sorted(trainer.collection.names)}")
@@ -98,7 +110,7 @@ def state_from_numpy(trainer: PersiaTrainer, dense_np: dict, emb_np: dict,
     queues = {n: _queue_from_numpy(emb_queue.get(n), spec, device)
               for n, spec in trainer.collection.items()}
     if dense_queue is not None:
-        tau = int(np.shape(dense_queue["grads"]["mlp"][0]["w"])[0])
+        tau = int(np.shape(tree_leaves(dense_queue["grads"])[0])[0])
         dense_queue = {
             "grads": _like_dense(dense_queue["grads"], dense,
                                  "dense_queue.grads", device, (tau,)),
@@ -106,6 +118,22 @@ def state_from_numpy(trainer: PersiaTrainer, dense_np: dict, emb_np: dict,
             "filled": int(np.asarray(dense_queue["filled"]))}
     return TrainState(dense=dense, opt=opt, emb=emb, emb_queue=queues,
                       dense_queue=dense_queue, step=int(np.asarray(step)))
+
+
+def _dense_from_numpy(adapter, dense_np: dict, device) -> dict:
+    """The dense parameters as numpy -> tensors, checked against the
+    adapter's model: the CTR FFNN's ``{"mlp": [...]}`` or an LM's
+    transformer tree (:func:`lm_dense_from_numpy`)."""
+    if adapter.cfg.arch_type != "recsys":
+        return lm_dense_from_numpy(dense_np, adapter.cfg, device)
+    want = adapter.init_dense(torch.Generator(device="cpu").manual_seed(0))
+    if len(dense_np["mlp"]) != len(want["mlp"]):
+        raise ValueError(f"{len(dense_np['mlp'])} MLP layers, this trainer "
+                         f"has {len(want['mlp'])}")
+    return {"mlp": [
+        {k: _tensor(lyr[k], ref[k].shape, f"mlp[{i}].{k}", device)
+         for k in ("w", "b")}
+        for i, (lyr, ref) in enumerate(zip(dense_np["mlp"], want["mlp"]))]}
 
 
 def _np(x):
@@ -149,6 +177,7 @@ def lm_dense_from_numpy(tree: dict, cfg, device=None) -> dict:
     device = resolve_device("cuda" if device is None else device)
     want = T.init_dense(cfg, torch.Generator(device="cpu"),
                         device=torch.device("meta"))
+    tree = _as_like(tree, want)
 
     def walk(a, w, path):
         if isinstance(w, dict):

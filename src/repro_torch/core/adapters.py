@@ -1,7 +1,8 @@
-"""The recsys ModelAdapter (port of ``repro/core/adapters.py``): one
-embedding table per ID feature field (the paper's heterogeneous feature
-groups, Table 1), pooled bags into the FFNN. The LM adapter comes with the
-LM slice.
+"""ModelAdapter constructors (port of ``repro/core/adapters.py``): recsys
+(the paper's family: one embedding table per ID feature field, the
+heterogeneous feature groups of Table 1, pooled bags into the FFNN) and LM
+(a one-table collection over the vocabulary, whose loss takes the tokens'
+activations unpooled).
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from repro_torch.core.collection import EmbeddingCollection
 from repro_torch.core.embedding_ps import EmbeddingSpec
 from repro_torch.core.hybrid import ModelAdapter
 from repro_torch.models import recsys as R
+from repro_torch.models import transformer as T
 from repro_torch.utils import default_field_rows
 
 
@@ -68,6 +70,30 @@ def recsys_adapter(cfg, *, lr=1e-2, dtype=torch.float32, field_rows=None,
         emb_ids=emb_ids,
         loss=loss,
         predict=predict,
+    )
+
+
+def lm_adapter(cfg, *, lr=1e-2, dtype=torch.float32) -> ModelAdapter:
+    """One ``"vocab"`` table (model mode, the config's row optimizer and
+    staleness); ``emb_ids`` are the batch's tokens and ``loss`` is
+    :func:`~repro_torch.models.transformer.lm_loss` on their occurrence
+    activations (``pooled=False``)."""
+    coll = EmbeddingCollection.single("vocab", EmbeddingSpec(
+        rows=cfg.vocab_size, dim=cfg.d_model, mode="model",
+        optimizer=cfg.emb_optimizer, lr=lr,
+        staleness=cfg.emb_staleness, dtype=dtype))
+
+    def loss(dense, acts, b):
+        return T.lm_loss(cfg, dense, acts["vocab"], b["targets"], b["mask"],
+                         b.get("memory"))
+
+    return ModelAdapter(
+        cfg=cfg,
+        collection=coll,
+        init_dense=lambda gen: T.init_dense(cfg, gen, dtype),
+        emb_ids=lambda b: {"vocab": b["tokens"]},
+        loss=loss,
+        pooled=False,
     )
 
 

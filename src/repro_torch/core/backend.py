@@ -1668,6 +1668,22 @@ def lookup_all(backends, states, dev_ids):
     return {n: pooled[n] for n in dev_ids}, metrics
 
 
+def lookup_occurrences_all(backends, states, dev_ids):
+    """Occurrence activations of every table -> ({table: (*ids.shape,
+    dim)}, metrics), for a loss that takes them unpooled (the LM): each
+    table's :meth:`EmbeddingBackend.lookup`, the gather of its unique rows
+    (behind the wire: roundtripped) scattered through the plan's ``inv``.
+    The gradient of these activations goes to :func:`put_all` as it is."""
+    metrics, acts = {}, {}
+    for n, ids in dev_ids.items():
+        if n not in backends:
+            raise KeyError(f"ids for unknown table {n!r}; collection has "
+                           f"{sorted(backends)}")
+        acts[n], m = backends[n].lookup(states[n], ids)
+        _tag(metrics, n, m)
+    return acts, metrics
+
+
 def _columns(items: dict, width: int) -> list[list]:
     return [[a[k] for a in items.values()] for k in range(width)]
 

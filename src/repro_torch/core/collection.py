@@ -59,6 +59,10 @@ class EmbeddingCollection:
     def from_dict(specs: Mapping[str, EmbeddingSpec]) -> "EmbeddingCollection":
         return EmbeddingCollection(tuple(specs.items()))
 
+    @staticmethod
+    def single(name: str, spec: EmbeddingSpec) -> "EmbeddingCollection":
+        return EmbeddingCollection(((name, spec),))
+
     @property
     def names(self) -> tuple[str, ...]:
         return tuple(n for n, _ in self.tables)
@@ -141,7 +145,7 @@ class EmbeddingCollection:
         if many:
             raise NotImplementedError(
                 f"{many[-1]} embedding shards: the sharded router is not "
-                "ported yet (ROADMAP.md, Queue 1 item 4)")
+                "ported yet (ROADMAP.md, Queue 1)")
         return self
 
     def make_backends(self):

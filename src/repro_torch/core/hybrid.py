@@ -9,14 +9,17 @@ One train step =
       device ids and rows are cache slots;
   (2) lookup: every table's pooled bags through ONE launch of the bag
       kernel (``unique_bag`` through a plan, ``embedding_bag`` for
-      occurrence-width tables), from the (possibly tau-stale) tables
-                                                             [Alg.1 forward]
-  (3) dense forward/backward: the pooled (B, D) bags are autograd leaves,
-      so one ``torch.autograd.grad`` gives the dense gradients and each
-      table's pooled gradient; the occurrence gradient is the pooled one
-      broadcast over the bag's valid slots (what autodiff through the JAX
-      package's ``pool_bag`` gives), and the dense side steps with Adam
-      (synchronously, or tau_d steps late in 'async')          [Alg.2]
+      occurrence-width tables), from the (possibly tau-stale) tables; for
+      an adapter whose loss takes occurrence activations (the LM), each
+      table's unique rows gathered and scattered through the plan's
+      inverse                                                [Alg.1 forward]
+  (3) dense forward/backward: the pooled (B, D) bags (or the activations)
+      are autograd leaves, so one ``torch.autograd.grad`` gives the dense
+      gradients and each table's activation gradient; a pooled bag's
+      occurrence gradient is its gradient broadcast over the bag's valid
+      slots (what autodiff through the JAX package's ``pool_bag`` gives),
+      and the dense side steps with Adam (synchronously, or tau_d steps
+      late in 'async')                                        [Alg.2]
   (4) put: each table's occurrence gradients go through the
       ``fused_backward`` kernel, which segment-sums them to unique width,
       applies row-wise adagrad to the put that pops out of the bounded-
@@ -32,18 +35,19 @@ Three modes reproduce the paper's comparison:
 Differences from the JAX package, all of eager PyTorch:
 
 * ``serve_lookup`` returns each table's sum-pooled (B, D) bags, read by the
-  bag kernels, and the adapter's ``predict``/``loss`` consume pooled bags;
-  the JAX version returns (B, L, D) occurrence activations and pools inside
-  ``predict``. ``lookup`` still returns the occurrence activations, read by
-  the plain gather.
+  bag kernels, and a ``pooled`` adapter's ``predict``/``loss`` (the CTR
+  ones) consume pooled bags; the JAX version returns (B, L, D) occurrence
+  activations and pools inside ``predict``. ``lookup`` still returns the
+  occurrence activations, read by the plain gather, and an adapter that is
+  not ``pooled`` (the LM's) trains and evaluates on them, as in the JAX
+  package.
 * ``step`` and ``decomposed_step`` are one computation: the JAX package's
   fused jit and its three donated dispatches (lookup, dense step, put)
   compute the same function, and eager torch dispatches op by op either
   way. ``decomposed_fns`` returns the three stages.
-* A step updates the tables, their accumulators and the staleness queues
-  in place (the JAX step donates the state): the state passed in must not
-  be used again. The dense parameters and optimizer moments are new
-  tensors.
+* A step updates the tables, their accumulators, the staleness queues,
+  the dense parameters and the optimizer moments in place (the JAX step
+  donates the state): the state passed in must not be used again.
 * ``TrainState.step``, the optimizer's ``t`` and the queues' ``ptr`` and
   ``filled`` are host ints (int32 scalars on the device in the JAX
   package; the checkpoint stores them in the JAX package's dtypes).
@@ -53,8 +57,8 @@ Differences from the JAX package, all of eager PyTorch:
   ``fused_backward``. Tables behind the compressed wire
   (``backend="dense+compressed"``) roundtrip their gets and puts through
   the blockscale kernels, one compress and one decompress launch for all
-  of them per get and per put. The pipelined trainer and the sharded
-  router come with later slices.
+  of them per get and per put. The pipelined trainer is
+  ``core/pipeline.py``; the sharded router comes with a later slice.
 * A host_lru table's host tiers (store, slot map, counters) live in its
   backend, not in the ``TrainState``: ``TrainState.to`` copies the device
   cache only, and a copy that must train on its own needs its own
@@ -74,6 +78,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import backend as BK
+from repro_torch.core import embedding_ps as PS
 from repro_torch.core.collection import EmbeddingCollection
 from repro_torch.device import resolve_device
 from repro_torch.utils import tree_leaves, tree_map
@@ -102,10 +107,14 @@ class TrainMode:
 class ModelAdapter:
     """Bridges a concrete model family to the trainer.
 
-    ``emb_ids`` maps a batch to a dict of per-table (B, L) id arrays keyed
-    by the collection's table names; ``loss``/``predict`` receive the
-    matching dict of pooled (B, D) bags. ``init_dense`` takes a
-    ``torch.Generator`` and draws on its device.
+    ``emb_ids`` maps a batch to a dict of per-table id arrays keyed by the
+    collection's table names. With ``pooled`` (the CTR adapters),
+    ``loss``/``predict`` receive the matching dict of pooled (B, D) bags,
+    read by the bag kernels, and the trainer expands each bag's gradient
+    over its valid slots; without it (the LM adapter), ``loss`` receives
+    the per-occurrence activations (*ids.shape, D), as the JAX package
+    hands every loss, and their gradient goes to the put unchanged.
+    ``init_dense`` takes a ``torch.Generator`` and draws on its device.
     """
     cfg: Any
     collection: EmbeddingCollection
@@ -113,6 +122,7 @@ class ModelAdapter:
     emb_ids: Callable[[dict], dict]
     loss: Callable[[Any, dict, dict], tuple]
     predict: Optional[Callable] = None       # (dense, pooled, batch) -> preds
+    pooled: bool = True
 
 
 @dataclass
@@ -204,6 +214,24 @@ def _insertion_leaves(tree) -> list:
     out: list = []
     tree_map(out.append, tree)
     return out
+
+
+def _loss_grads(loss_fn, dense, acts: dict, batch):
+    """``loss_fn(dense, acts, batch)`` and its gradients, with the dense
+    parameters and each table's activations as autograd leaves ->
+    ``(metrics, dense grads, {table: activation grad})``; the metrics
+    detached."""
+    names = list(acts)
+    leaves = {n: acts[n].detach().requires_grad_(True) for n in names}
+    params = tree_map(lambda p: p.detach().requires_grad_(True), dense)
+    flat = _insertion_leaves(params)
+    with torch.enable_grad():
+        loss, metrics = loss_fn(params, leaves, batch)
+        grads = torch.autograd.grad(loss, flat + [leaves[n] for n in names])
+    it = iter(grads[:len(flat)])
+    dgrads = tree_map(lambda _: next(it), params)
+    return ({k: v.detach() for k, v in metrics.items()}, dgrads,
+            dict(zip(names, grads[len(flat):])))
 
 
 # =============================================================================
@@ -312,43 +340,40 @@ class PersiaTrainer:
     def decomposed_fns(self):
         """(lookup_fn, dense_step, emb_put) — the step's three stages:
 
-        * ``lookup_fn(emb_states, dev_ids) -> (pooled, metrics)``;
-        * ``dense_step(dense, opt, dense_queue, pooled, batch, step_no) ->
+        * ``lookup_fn(emb_states, dev_ids) -> (acts, metrics)``: pooled
+          (B, D) bags, or with an adapter that is not ``pooled`` the
+          occurrence activations;
+        * ``dense_step(dense, opt, dense_queue, acts, batch, step_no) ->
           (dense, opt, dense_queue, agrads, metrics)``;
         * ``emb_put(emb_states, queues, dev_ids, agrads) -> (emb_states,
           queues, metrics)``."""
         backends, adapter, mode = self.backends, self.adapter, self.mode
 
-        def lookup_fn(emb_states, dev_ids):
-            return BK.lookup_all(backends, emb_states, dev_ids)  # Alg.1 fwd
+        def lookup_fn(emb_states, dev_ids):                     # Alg.1 fwd
+            if adapter.pooled:
+                return BK.lookup_all(backends, emb_states, dev_ids)
+            return BK.lookup_occurrences_all(backends, emb_states, dev_ids)
 
-        def dense_step(dense, opt, dense_queue, pooled, batch, step_no):
-            names = list(pooled)
-            bags = {n: pooled[n].detach().requires_grad_(True) for n in names}
-            params = tree_map(lambda p: p.detach().requires_grad_(True),
-                              dense)
-            flat = _insertion_leaves(params)
-            with torch.enable_grad():                           # Alg.2
-                loss, metrics = adapter.loss(params, bags, batch)
-                grads = torch.autograd.grad(
-                    loss, flat + [bags[n] for n in names])
-            it = iter(grads[:len(flat)])
-            dgrads = tree_map(lambda _: next(it), params)
-            # the occurrence gradient: the pooled one on every valid slot
-            # of the bag (autodiff through pool_bag), masked by the ids
-            ids = adapter.emb_ids(batch)
-            masks = BK.upload_int32(
-                [(np.asarray(ids[n]) >= 0).astype(np.int32) for n in names],
-                self.device)
-            agrads = {n: grads[len(flat) + i][:, None, :]
-                      * masks[i][..., None].float()
-                      for i, n in enumerate(names)}
+        def dense_step(dense, opt, dense_queue, acts, batch, step_no):
+            names = list(acts)
+            metrics, dgrads, agrads = _loss_grads(adapter.loss, dense, acts,
+                                                  batch)        # Alg.2
+            if adapter.pooled:
+                # the occurrence gradient: the pooled one on every valid
+                # slot of the bag (autodiff through pool_bag), masked by
+                # the ids
+                ids = adapter.emb_ids(batch)
+                masks = BK.upload_int32(
+                    [(np.asarray(ids[n]) >= 0).astype(np.int32)
+                     for n in names], self.device)
+                agrads = {n: agrads[n][:, None, :]
+                          * masks[i][..., None].float()
+                          for i, n in enumerate(names)}
             lr = self.lr_fn(step_no) if self.lr_fn is not None else None
             if mode.dense_staleness > 0 and dense_queue is not None:
                 dense_queue, dgrads = _dense_queue_push_pop(dense_queue,
                                                             dgrads)
             dense, opt = self.opt_update(dense, dgrads, opt, lr=lr)
-            metrics = {k: v.detach() for k, v in metrics.items()}
             metrics["emb_grad_norm"] = _emb_grad_norm(agrads)
             return dense, opt, dense_queue, agrads, metrics
 
@@ -436,10 +461,15 @@ class PersiaTrainer:
 
     @torch.no_grad()
     def eval(self, state: TrainState, batch) -> dict:
-        """Loss metrics (``loss``, ``pred_mean``) on the current tables
-        through the read-only serve path."""
-        pooled, _ = self.serve_lookup(state, batch)
-        _, metrics = self.adapter.loss(state.dense, pooled, batch)
+        """Loss metrics (``loss``, and ``pred_mean`` or ``ppl_log``) on the
+        current tables through the read-only serve path (pooled bags, or
+        for an adapter that is not ``pooled`` the plain gather of
+        :meth:`lookup`)."""
+        if self.adapter.pooled:
+            acts, _ = self.serve_lookup(state, batch)
+        else:
+            acts = self.lookup(state, batch)
+        _, metrics = self.adapter.loss(state.dense, acts, batch)
         return metrics
 
     # -- checkpoint (full state, paper §4.2.4 policy) --------------------------
@@ -516,3 +546,146 @@ class PersiaTrainer:
         return state_from_numpy(self, dense_tree["dense"], emb,
                                 opt=dense_tree["opt"], emb_queue=emb_queue,
                                 dense_queue=dq, step=step_no)
+
+
+# =============================================================================
+# Legacy single-table shims (pre-collection free-function API)
+# =============================================================================
+#
+# The JAX package keeps these for adapters whose collection holds exactly
+# one table (the LM family): a dict state, and the step built on the free
+# functions of core/embedding_ps.py, whose put runs at occurrence width
+# through the staleness queue (PS.queue_init((n_ids,))) and is grouped on
+# the device when applied (one fused_backward launch).
+
+def _sole_table(adapter: ModelAdapter):
+    items = adapter.collection.items()
+    if len(items) != 1:
+        raise ValueError(
+            "the legacy free-function API supports single-table adapters "
+            f"only (got {len(items)} tables); use PersiaTrainer instead")
+    return items[0]
+
+
+def _ids_on(ids, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(ids), device=device)
+
+
+def init_train_state(adapter: ModelAdapter, mode: TrainMode, opt_init,
+                     seed: int = 0, batch_example=None, emb_shards: int = 1,
+                     device: str | torch.device = "cuda"):
+    """``(state, spec)``: the dict state ``{"dense", "opt", "emb",
+    "emb_queue", "dense_queue", "step"}`` on ``device``, dense parameters
+    and then the table drawn from one ``torch.Generator`` seeded with
+    ``seed`` (the JAX package takes a PRNG key), and the table's spec with
+    the mode's staleness. ``batch_example`` sizes the queues."""
+    name, spec0 = _sole_table(adapter)
+    if emb_shards != 1:
+        raise NotImplementedError(f"{emb_shards} embedding shards: the "
+                                  "sharded router is not ported yet")
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    dense = adapter.init_dense(gen)
+    spec = dataclasses.replace(spec0, staleness=mode.emb_staleness)
+    state = {"dense": dense, "opt": opt_init(dense),
+             "emb": PS.ps_init(gen, spec), "emb_queue": None,
+             "dense_queue": None, "step": 0}
+    if batch_example is not None:
+        n_ids = int(np.prod(np.shape(adapter.emb_ids(batch_example)[name])))
+        if mode.emb_staleness > 0:
+            state["emb_queue"] = PS.queue_init(spec, (n_ids,), spec.dim, dev)
+        if mode.dense_staleness > 0:
+            state["dense_queue"] = _dense_queue_init(dense,
+                                                     mode.dense_staleness)
+    return state, spec
+
+
+def _put(state_emb, queue, spec, ids, agrads):
+    return PS.hybrid_emb_update(state_emb, queue, spec, ids.reshape(-1),
+                                agrads.reshape(-1, spec.dim))
+
+
+def make_train_step(adapter: ModelAdapter, spec, mode: TrainMode,
+                    opt_update, lr_fn=None):
+    """``train_step(state, batch) -> (state, metrics)``: lookup, loss and
+    gradients, the dense update (tau_d steps late in 'async'), and the
+    embedding put through the queue. Updates ``state``'s tensors in
+    place."""
+    name, _ = _sole_table(adapter)
+
+    def train_step(state, batch):
+        ids = _ids_on(adapter.emb_ids(batch)[name],
+                      state["emb"]["table"].device)
+        acts = PS.lookup(state["emb"], spec, ids)             # Alg.1 fwd
+        metrics, dgrads, agrads = _loss_grads(
+            adapter.loss, state["dense"], {name: acts}, batch)
+        lr = lr_fn(state["step"]) if lr_fn is not None else None
+        dense_queue = state["dense_queue"]                   # Alg.2
+        if mode.dense_staleness > 0 and dense_queue is not None:
+            dense_queue, dgrads = _dense_queue_push_pop(dense_queue, dgrads)
+        dense, opt = opt_update(state["dense"], dgrads, state["opt"], lr=lr)
+        emb, emb_queue = _put(state["emb"], state["emb_queue"], spec, ids,
+                              agrads[name])                  # Alg.1 bwd
+        metrics["emb_grad_norm"] = _emb_grad_norm(agrads)
+        return {"dense": dense, "opt": opt, "emb": emb,
+                "emb_queue": emb_queue, "dense_queue": dense_queue,
+                "step": state["step"] + 1}, metrics
+
+    return train_step
+
+
+def make_decomposed_fns(adapter: ModelAdapter, spec, mode: TrainMode,
+                        opt_update, lr_fn=None):
+    """The three stages of :func:`make_train_step`: ``lookup_fn(emb_state,
+    ids) -> acts``, ``dense_step(dense, opt, acts, batch, step_no) ->
+    (dense, opt, agrads, metrics)`` (the dense update is synchronous, as
+    in the JAX package's) and ``emb_put(emb_state, queue, ids, agrads) ->
+    (emb_state, queue)``."""
+    name, _ = _sole_table(adapter)
+
+    def lookup_fn(emb_state, ids):                           # Alg.1 fwd
+        return PS.lookup(emb_state, spec,
+                         _ids_on(ids, emb_state["table"].device))
+
+    def dense_step(dense, opt, acts, batch, step_no):        # Alg.2
+        metrics, dgrads, agrads = _loss_grads(adapter.loss, dense,
+                                              {name: acts}, batch)
+        lr = lr_fn(step_no) if lr_fn is not None else None
+        dense, opt = opt_update(dense, dgrads, opt, lr=lr)
+        return dense, opt, agrads[name], metrics
+
+    def emb_put(emb_state, queue, ids, agrads):              # Alg.1 bwd
+        return _put(emb_state, queue, spec,
+                    _ids_on(ids, emb_state["table"].device), agrads)
+
+    return lookup_fn, dense_step, emb_put
+
+
+def decomposed_train_step(fns, state, batch, adapter):
+    """One iteration through the decomposed stages."""
+    name, _ = _sole_table(adapter)
+    lookup_fn, dense_step, emb_put = fns
+    ids = adapter.emb_ids(batch)[name]
+    acts = lookup_fn(state["emb"], ids)
+    dense, opt, agrads, metrics = dense_step(state["dense"], state["opt"],
+                                             acts, batch, state["step"])
+    emb, queue = emb_put(state["emb"], state["emb_queue"], ids, agrads)
+    new_state = dict(state)
+    new_state.update(dense=dense, opt=opt, emb=emb, emb_queue=queue,
+                     step=state["step"] + 1)
+    return new_state, metrics
+
+
+def make_eval_step(adapter: ModelAdapter, spec):
+    """``eval_step(state, batch) -> metrics`` on the current table."""
+    name, _ = _sole_table(adapter)
+
+    @torch.no_grad()
+    def eval_step(state, batch):
+        ids = _ids_on(adapter.emb_ids(batch)[name],
+                      state["emb"]["table"].device)
+        acts = PS.lookup(state["emb"], spec, ids)
+        _, metrics = adapter.loss(state["dense"], {name: acts}, batch)
+        return metrics
+    return eval_step

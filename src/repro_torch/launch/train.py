@@ -1,6 +1,6 @@
-"""Training launcher (port of ``repro/launch/train.py``, the CTR task): runs
-the Persia hybrid trainer end to end on the card, serially or through the
-pipelined trainer.
+"""Training launcher (port of ``repro/launch/train.py``): runs the Persia
+hybrid trainer end to end on the card, serially or through the pipelined
+trainer, on the CTR task or the LM task.
 
 Usage (on the card; ``--device cpu`` runs the plain versions on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --dataset taobao_ad \\
@@ -9,14 +9,18 @@ Usage (on the card; ``--device cpu`` runs the plain versions on the CPU):
       --max-inflight 4 --emb-backend host_lru
   PYTHONPATH=src python -m repro_torch.launch.train --pipeline decomposed \\
       --ckpt-dir /tmp/ck --resume
+  PYTHONPATH=src python -m repro_torch.launch.train --task lm --steps 200 \\
+      --batch 8 --seq-len 128
 
 The CTR model trains one embedding table per ID feature field (the
 multi-table EmbeddingCollection) through the PersiaTrainer facade;
 checkpoints carry the FULL train state — dense params, optimizer moments,
 every PS table with its adagrad accumulator (a host_lru table with its
 host tiers), and the staleness queues — so ``--resume`` continues
-bit-identically. ``--task lm`` waits for LM training and ``--emb-shards``
-above 1 for the sharded router; both raise.
+bit-identically. The LM task trains ``small_lm_cfg`` (about 100M dense
+parameters) on synthetic Markov tokens through the one-table collection
+of ``adapters.lm_adapter``. ``--emb-shards`` above 1 waits for the sharded
+router and raises.
 """
 from __future__ import annotations
 
@@ -28,13 +32,15 @@ import time
 import numpy as np
 
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import BlockCfg, ModelConfig
 from repro_torch.core import adapters
 from repro_torch.core.hybrid import PersiaTrainer, TrainMode
 from repro_torch.data.ctr import CTR_BENCHMARKS
+from repro_torch.data.lm import lm_batches
 from repro_torch.launch.shards import (apply_backend_choice,
                                        default_cache_rows, parse_emb_shards)
 from repro_torch.optim.optimizers import OptConfig
+from repro_torch.utils import tree_leaves
 
 
 def scaled_recsys_cfg(dataset: str) -> ModelConfig:
@@ -44,6 +50,15 @@ def scaled_recsys_cfg(dataset: str) -> ModelConfig:
         n_id_fields=ds.n_fields, ids_per_field=ds.ids_per_field,
         emb_dim=32, emb_rows=ds.n_rows, n_dense_features=ds.n_dense,
         mlp_dims=(256, 128, 64), n_tasks=ds.n_tasks, emb_staleness=3)
+
+
+def small_lm_cfg() -> ModelConfig:
+    """~100M dense params (the end-to-end example scale)."""
+    return ModelConfig(
+        name="lm-100m", d_model=512, n_heads=8, n_kv_heads=4, head_dim=64,
+        d_ff=2048, vocab_size=8192,
+        pattern=(BlockCfg("gqa", "dense"),), pattern_repeats=20,
+        emb_staleness=2)
 
 
 def mode_from_name(name: str, tau: int) -> TrainMode:
@@ -190,6 +205,71 @@ def train_ctr(args):
     return history
 
 
+def _lm_line(step, batch, seq_len, t0, metrics):
+    dt = time.time() - t0
+    tok_s = step * batch * seq_len / dt
+    loss = float(metrics["loss"])
+    print(f"step {step:5d} loss {loss:.4f} {tok_s:,.0f} tok/s")
+    return {"step": step, "time_s": dt, "loss": loss}
+
+
+def train_lm(args):
+    """The LM task: ``small_lm_cfg`` through ``lm_adapter``, on
+    ``lm_batches``; a loss line every ``--eval-every`` steps."""
+    import dataclasses
+    cfg = small_lm_cfg()
+    adapter = adapters.lm_adapter(cfg, lr=args.emb_lr)
+    coll = apply_backend_choice(
+        adapter.collection, args.emb_backend,
+        default_cache_rows(cfg.vocab_size, args.cache_rows))
+    shards = parse_emb_shards(args.emb_shards)
+    if shards != 1:
+        coll = coll.with_shards(shards)     # more than one shard raises
+    coll = _apply_emb_tuning(coll, args)
+    if coll is not adapter.collection:
+        adapter = dataclasses.replace(adapter, collection=coll)
+    mode = mode_from_name(args.mode, args.tau)
+    trainer = PersiaTrainer(adapter, mode,
+                            OptConfig(kind="adam", lr=args.lr),
+                            batch_dedup=False if args.no_batch_dedup
+                            else None, device=args.device)
+    it = lm_batches(cfg.vocab_size, args.batch, args.seq_len)
+    state = trainer.init(args.seed, next(it))
+    n_params = sum(x.numel() for x in tree_leaves(state.dense))
+    vocab_spec = trainer.collection["vocab"]
+    print(f"dense params: {n_params/1e6:.1f}M + emb "
+          f"{vocab_spec.rows * vocab_spec.dim/1e6:.1f}M")
+    history = []
+    t0 = time.time()
+    engine = None
+    if args.pipeline == "pipelined":
+        engine = _make_engine(trainer, args)
+        step = 0
+        while step < args.steps:
+            n = min(args.eval_every - step % args.eval_every,
+                    args.steps - step)
+            state, metrics = _pipelined_span(engine, state, it, n)
+            step += n
+            if step % args.eval_every == 0:
+                history.append(_lm_line(step, args.batch, args.seq_len, t0,
+                                        metrics))
+    else:
+        step_fn = _step_fn(trainer, args.pipeline)
+        for step in range(args.steps):
+            state, metrics = step_fn(state, next(it))
+            if (step + 1) % args.eval_every == 0:
+                history.append(_lm_line(step + 1, args.batch, args.seq_len,
+                                        t0, metrics))
+    if args.out:
+        rec = {"mode": args.mode, "task": "lm", "pipeline": args.pipeline,
+               "device": str(trainer.device), "history": history}
+        if engine is not None:
+            rec["pipeline_metrics"] = engine.pipeline_metrics()
+        with open(args.out, "w") as f:
+            json.dump(rec, f, indent=1)
+    return history
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--task", choices=["ctr", "lm"], default="ctr")
@@ -207,6 +287,8 @@ def parse_args(argv=None):
                          "(1 = bit-exact with --pipeline decomposed)")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--batch", type=int, default=512)
+    ap.add_argument("--seq-len", type=int, default=128,
+                    help="LM task: tokens per sequence")
     ap.add_argument("--tau", type=int, default=3)
     ap.add_argument("--emb-backend", default="dense",
                     choices=["dense", "host_lru", "host_lru+disk",
@@ -259,9 +341,7 @@ def main(argv=None):
             print("--tuned-host: libtcmalloc not installed; "
                   "applying env-only profile")
     if args.task == "lm":
-        raise NotImplementedError(
-            "--task lm: LM training is not ported yet (ROADMAP.md, Queue 1 "
-            "item 3)")
+        return train_lm(args)
     return train_ctr(args)
 
 

@@ -10,7 +10,8 @@ package's sharding hints (``utils.shard``) do nothing on one card and are
 dropped. Every full-sequence attention (training and prefill) goes through
 the ``flash_attention_fwd`` CUDA kernel on the card, whatever its length;
 the JAX package takes ``_attn_naive`` up to 2,048 positions, the same
-function (``kernels/ref.py`` is its arithmetic). Decode attention stays
+function (``kernels/ref.py`` is its arithmetic). Training differentiates
+it through ``flash.FlashAttention`` (the JAX package's flash backward). Decode attention stays
 plain torch, as the JAX package computes it in jnp. Not ported yet: logit
 soft-capping (no config sets it), the ring-buffer decode of sliding-window
 caches, MLA, and the mesh-sharded decode.
@@ -132,7 +133,9 @@ def _attn_naive(q, k, v, *, scale, causal, window, q_offset, softcap=0.0):
 def grouped_attention(q, k, v, *, scale, causal=True, window=0, q_offset=0,
                       softcap=0.0):
     """Full-sequence attention through ``flash.flash_attention`` (the CUDA
-    kernel on the card, its plain version on the CPU), at every length."""
+    kernel on the card, its plain version on the CPU), at every length;
+    with grad enabled through its ``FlashAttention`` function, whose
+    backward recomputes the tiles from the saved logsumexp."""
     if softcap > 0:
         raise _not_ported("attention logit soft-capping")
     return flash.flash_attention(q, k, v, scale=scale, causal=causal,

@@ -1,15 +1,18 @@
 """Layer-program transformer (port of ``repro/models/transformer.py``) for
-the dense GQA family: gqa mixer + dense FFN blocks, serving (full-sequence
-forward, prefill, single-token decode against per-layer KV caches).
+the dense GQA family: gqa mixer + dense FFN blocks, training
+(:func:`lm_loss`) and serving (full-sequence forward, prefill,
+single-token decode against per-layer KV caches).
 
 Parameters keep the JAX package's tree and key names: unscanned
 ``prologue_<i>`` blocks, then ``params["stack"][str(i)]`` for pattern
 position i with every leaf stacked over a leading ``pattern_repeats`` axis,
 ``final_norm`` and ``lm_head``, so a JAX state converts leaf for leaf
 (``repro_torch.convert.lm_dense_from_numpy``). The JAX package's
-``lax.scan`` over the stack is a Python loop over layer views here; remat
-does not apply to serving. Token embeddings are not part of the dense
-parameters: they come from the embedding PS as activations.
+``lax.scan`` over the stack is a Python loop over layer views here; its
+``jax.checkpoint`` (``cfg.remat``) is ``torch.utils.checkpoint`` around
+each stack layer when grad is enabled, and does not apply to serving.
+Token embeddings are not part of the dense parameters: they come from the
+embedding PS as activations, and :func:`lm_loss` differentiates them.
 
 Caches keep the JAX tree too (``caches["stack"][str(i)]["attn"]`` with k,
 v of shape (R, B, max_len, Hkv, Dh) and len (R, B), ``caches["pos"]``),
@@ -19,19 +22,19 @@ token's K/V into them in place, where the JAX package pads its prefill
 caches (``_pad_cache_seq``) and returns new ones each step. The contents
 are the same.
 
-Not ported yet: the mla, mamba2 and cross-attention mixers, MoE FFNs, the
-encoder and learned decoder positions (``dec_pos_emb``), and LM training
-(``lm_loss``).
+Not ported yet: the mla, mamba2 and cross-attention mixers, MoE FFNs (and
+their aux loss), the encoder and learned decoder positions
+(``dec_pos_emb``).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockCfg, ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.utils import tree_map
 
 
 def _check_ported(cfg: ModelConfig):
@@ -83,21 +86,30 @@ def init_dense(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
-def layer(stacked: dict, r: int) -> dict:
-    """Layer ``r``'s view of a stacked parameter or cache tree."""
-    return tree_map(lambda a: a[r], stacked)
+def _unstack(tree, n: int) -> list:
+    """A stacked tree -> its ``n`` layers' views, each leaf split once
+    (``unbind``: autograd then stacks the layers' gradients in one copy,
+    where an index per layer would write a stacked-size gradient each)."""
+    if isinstance(tree, dict):
+        subs = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: subs[k][r] for k in tree} for r in range(n)]
+    return list(tree.unbind(0))
 
 
-def _blocks(cfg: ModelConfig, params: dict, caches: dict | None):
-    """(block config, parameters, cache) of every block in order: the
-    prologue, then the stack layer by layer."""
-    for i, blk in enumerate(cfg.prologue):
+def _layers(cfg: ModelConfig, params: dict, caches: dict | None):
+    """``(stacked, [(parameters, cache), ...])`` in order: each prologue
+    block on its own (``stacked`` False), then the pattern's blocks of
+    each stack layer."""
+    for i in range(len(cfg.prologue)):
         name = f"prologue_{i}"
-        yield blk, params[name], None if caches is None else caches[name]
-    for r in range(cfg.pattern_repeats):
-        for i, blk in enumerate(cfg.pattern):
-            c = None if caches is None else layer(caches["stack"][str(i)], r)
-            yield blk, layer(params["stack"][str(i)], r), c
+        yield False, [(params[name], None if caches is None
+                       else caches[name])]
+    R, n = cfg.pattern_repeats, len(cfg.pattern)
+    ps = [_unstack(params["stack"][str(i)], R) for i in range(n)]
+    cs = [[None] * R if caches is None
+          else _unstack(caches["stack"][str(i)], R) for i in range(n)]
+    for r in range(R):
+        yield True, [(ps[i][r], cs[i][r]) for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -122,17 +134,62 @@ def _apply_block(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     return x + L.mlp_forward(p["ffn"], cfg, h)
 
 
+def _apply_blocks(cfg, blocks, x, positions):
+    for p, c in blocks:
+        x = _apply_block(cfg, p, x, positions, c)
+    return x
+
+
 def forward(cfg: ModelConfig, params: dict, acts: torch.Tensor,
             positions: torch.Tensor, *, caches: dict | None = None
             ) -> torch.Tensor:
     """acts: (B, S, D) token embeddings from the PS. Returns the hidden
     states after the final norm; with ``caches`` (from :func:`cache_init`)
-    every block's K/V are written into them."""
+    every block's K/V are written into them. With ``cfg.remat`` and grad
+    enabled, each stack layer is checkpointed (the JAX package's
+    ``jax.checkpoint`` of the scanned body): its activations are
+    recomputed in the backward, the attention kernel included."""
     _check_ported(cfg)
+    remat = cfg.remat and caches is None and torch.is_grad_enabled()
     x = acts
-    for _, p, c in _blocks(cfg, params, caches):
-        x = _apply_block(cfg, p, x, positions, c)
+    for stacked, blocks in _layers(cfg, params, caches):
+        if remat and stacked:
+            x = checkpoint(_apply_blocks, cfg, blocks, x, positions,
+                           use_reentrant=False)
+        else:
+            x = _apply_blocks(cfg, blocks, x, positions)
     return L.apply_norm(cfg, params["final_norm"], x)
+
+
+# ---------------------------------------------------------------------------
+# Loss (training)
+# ---------------------------------------------------------------------------
+
+def lm_loss(cfg: ModelConfig, params: dict, acts: torch.Tensor, targets,
+            mask, memory=None):
+    """Next-token cross entropy. acts: (B, S, D) embedding activations;
+    targets: (B, S) integer; mask: (B, S). The logits in fp32 with the pad
+    columns at -1e30, their logsumexp, the target logit (a gather: the
+    arithmetic of the JAX package's one-hot sum), and the masked mean over
+    ``max(sum(mask), 1)``. Returns ``(loss, {"loss", "ppl_log"})``."""
+    if memory is not None or cfg.is_encdec:
+        raise NotImplementedError("encoder-decoder models are not ported "
+                                  "yet")
+    dev = acts.device
+    targets = torch.as_tensor(targets, device=dev).long()
+    mask = torch.as_tensor(mask, device=dev).float()
+    B, S = targets.shape
+    positions = torch.arange(S, device=dev)[None].expand(B, S)
+    x = forward(cfg, params, acts, positions)
+    logits = _logits(cfg, params, x)                         # (B, S, Vp)
+    if cfg.padded_vocab > cfg.vocab_size:                    # mask pads
+        cols = torch.arange(cfg.padded_vocab, device=dev)
+        logits = torch.where(cols < cfg.vocab_size, logits, L.NEG_INF)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
+    nll = (lse - tgt) * mask
+    loss = torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+    return loss, {"loss": loss, "ppl_log": loss}
 
 
 # ---------------------------------------------------------------------------
@@ -163,7 +220,8 @@ def decode_step(cfg: ModelConfig, params: dict, acts: torch.Tensor,
     fp32 with the pad columns at -1e30, caches)``."""
     _check_ported(cfg)
     x = acts
-    for _, p, c in _blocks(cfg, params, caches):
+    for p, c in (b for _, blocks in _layers(cfg, params, caches)
+                 for b in blocks):
         h = L.apply_norm(cfg, p["mixer_norm"], x)
         o, _ = L.gqa_decode(p["mixer"], cfg, h, c["attn"])
         x = x + o

@@ -6,7 +6,10 @@ the JAX package's layout, so optimizer states interchange through the
 checkpoint format: ``{"m", "v", "t"}`` for Adam, ``{"t"}`` (plus ``"m"``
 with momentum) for SGD. ``t`` is a Python int here: the step count drives
 host-side arithmetic only (the bias corrections), so keeping it on the host
-spares a device round trip per step. Updates return new tensors; the
+spares a device round trip per step. Updates write the parameters and
+moments in place, leaf by leaf, and return the same trees (the JAX
+trainer donates them; an LM's 2.5 B parameters would not fit a second
+copy of parameters and moments next to the first on one card). The
 arithmetic follows the JAX package's operation for operation, so the two
 agree to the last few bits of fp32 (XLA and torch pick different roundings
 for ``rsqrt`` and ``pow``).
@@ -36,6 +39,7 @@ def sgd_init(params, momentum=0.0):
 
 
 def sgd_update(params, grads, state, *, lr, momentum=0.0, weight_decay=0.0):
+    """One SGD step, in place (see the module doc)."""
     t = int(state["t"]) + 1
 
     def step_of(p, g, m=None):
@@ -44,14 +48,17 @@ def sgd_update(params, grads, state, *, lr, momentum=0.0, weight_decay=0.0):
             g32 = g32 + weight_decay * p.float()
         return g32 if m is None else momentum * m + g32
 
+    def upd(p, g, m=None):
+        s = step_of(p, g, m)
+        if m is not None:
+            m.copy_(s)
+        p.copy_(p.float() - lr * s)
+
     if momentum:
-        new_m = tree_map(step_of, params, grads, state["m"])
-        new_p = tree_map(lambda p, s: (p.float() - lr * s).to(p.dtype),
-                         params, new_m)
-        return new_p, {"m": new_m, "t": t}
-    new_p = tree_map(lambda p, g: (p.float() - lr * step_of(p, g))
-                     .to(p.dtype), params, grads)
-    return new_p, {"t": t}
+        tree_map(upd, params, grads, state["m"])
+        return params, {"m": state["m"], "t": t}
+    tree_map(upd, params, grads)
+    return params, {"t": t}
 
 
 # -- Adam ---------------------------------------------------------------------
@@ -63,12 +70,13 @@ def adam_init(params):
 
 def adam_update(params, grads, state, *, lr, b1=0.9, b2=0.999, eps=1e-8,
                 weight_decay=0.0, grad_clip=0.0):
+    """One Adam step, in place (see the module doc)."""
     t = int(state["t"]) + 1
+    scale = None
     if grad_clip > 0:
         gn = global_norm(grads)
         scale = torch.clamp(torch.full_like(gn, grad_clip)
                             / torch.clamp(gn, min=1e-9), max=1.0)
-        grads = tree_map(lambda g: g * scale, grads)
     # the bias corrections in fp32, as the JAX package computes them; one
     # (2,) upload, so the divisions below are tensor divisions on every
     # device (CUDA turns a division by a host scalar into a product with
@@ -81,27 +89,17 @@ def adam_update(params, grads, state, *, lr, b1=0.9, b2=0.999, eps=1e-8,
     bc1, bc2 = bc[0], bc[1]
 
     def upd(p, g, m, v):
-        g32 = g.float()
-        m_new = b1 * m + (1 - b1) * g32
-        v_new = b2 * v + (1 - b2) * (g32 * g32)
-        step = (m_new / bc1) * torch.rsqrt(v_new / bc2 + eps * eps)
+        g32 = (g if scale is None else g * scale).float()
+        m.copy_(b1 * m + (1 - b1) * g32)
+        v.copy_(b2 * v + (1 - b2) * (g32 * g32))
+        step = (m / bc1) * torch.rsqrt(v / bc2 + eps * eps)
         # rsqrt(x + eps^2) ~ 1/(sqrt(x)+eps); cheaper and stable
-        p32 = p.float()
         if weight_decay:
-            step = step + weight_decay * p32
-        return (p32 - lr * step).to(p.dtype), m_new, v_new
+            step = step + weight_decay * p.float()
+        p.copy_(p.float() - lr * step)
 
-    out = tree_map(upd, params, grads, state["m"], state["v"])
-    return _pick(out, 0), {"m": _pick(out, 1), "v": _pick(out, 2), "t": t}
-
-
-def _pick(tree, k):
-    """The k-th member of every (param, m, v) tuple leaf of ``tree``."""
-    if isinstance(tree, dict):
-        return {n: _pick(v, k) for n, v in tree.items()}
-    if isinstance(tree, list):
-        return [_pick(v, k) for v in tree]
-    return tree[k]
+    tree_map(upd, params, grads, state["m"], state["v"])
+    return params, {"m": state["m"], "v": state["v"], "t": t}
 
 
 def global_norm(tree) -> torch.Tensor:

@@ -474,6 +474,7 @@ FB_CASES = [  # (R, D, U, n_occ, cap, n_dup, sgd)
     (200, 128, 64, 400, 128, 9, False),       # shared rows
     (200, 128, 64, 400, 128, 9, True),        # sgd
     (62_500, 128, 1024, 4096, 4096, 4, False),  # one kwai-dlrm table
+    (49_155, 2048, 3000, 4096, 4096, 4, False),  # granite's vocab put
 ]
 
 
@@ -1106,3 +1107,86 @@ def test_cuda_pins_of_full_width_plans_make_no_sync(cuda_device):
     for n, b in backends.items():
         assert pinned[n] == dev_ids[n].n_unique > 0
         assert int(b._pin_count.sum()) == 0
+
+
+# ---------------------------------------------------------------------------
+# LM training: the attention backward and one trainer step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,window", [(2048, 0), (1000, 256)])
+def test_cuda_attention_backward_matches_autograd_through_plain(cuda_device,
+                                                                S, window):
+    """``flash.FlashAttention`` (the kernel's forward, the recompute
+    backward) against autograd through the plain attention at one
+    granite layer's shape (B=1, 32/8 heads of 64) and a ragged window
+    case: dq, dk, dv within 1e-3 of the largest |grad|."""
+    import math
+
+    from repro_torch.models import flash, layers
+    gen = torch.Generator(device=cuda_device).manual_seed(S)
+    q = torch.randn((1, S, 8, 4, 64), generator=gen, device=cuda_device)
+    k, v = (torch.randn((1, S, 8, 64), generator=gen, device=cuda_device)
+            for _ in range(2))
+    do = torch.randn(q.shape, generator=gen, device=cuda_device)
+    kw = dict(scale=1.0 / math.sqrt(64), causal=True, window=window)
+    ops.reset_launch_counts()
+    got = torch.autograd.grad(flash.flash_attention(
+        *(t.requires_grad_() for t in (q, k, v)), **kw), (q, k, v), do)
+    assert ops.launch_counts()["flash_attention_fwd"] == 1
+    want = torch.autograd.grad(layers._attn_naive(q, k, v, q_offset=0, **kw),
+                               (q, k, v), do)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_lm_trainer_step_matches_cpu(cuda_device):
+    """One hybrid(1) step of a 2-layer reduced granite's
+    PersiaTrainer(lm_adapter), card against CPU from one state (TF32 off):
+    loss rtol 1e-4, vocab table rtol 1e-4 atol 1e-5, accumulator rtol
+    1e-4 atol 1e-6, dense parameters within 2 lr of each other (Adam's
+    normalised step) and their updates equal in norm to 1e-3; the card
+    makes 2 attention launches per layer (forward, remat) and one put."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import adapters
+    from repro_torch.core.hybrid import PersiaTrainer, TrainMode
+    from repro_torch.data.lm import lm_batches
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.utils import tree_leaves, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("granite_3_2b", reduced=True).replace(pattern_repeats=2)
+    lr = 3e-3
+
+    def trainer(dev):
+        return PersiaTrainer(adapters.lm_adapter(cfg, lr=5e-2),
+                             TrainMode.hybrid(1),
+                             OptConfig(kind="adam", lr=lr), device=dev)
+
+    tg, tc = trainer(cuda_device), trainer("cpu")
+    it = lm_batches(cfg.vocab_size, 2, 128, seed=1)
+    b0, b1 = next(it), next(it)
+    sg = tg.init(0, b0)
+    sc = sg.to("cpu")
+    start = tree_map(torch.clone, sc.dense)
+    ops.reset_launch_counts()
+    sg, mg = tg.step(sg, b1)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    sc, mc = tc.step(sc, b1)
+    assert counts["flash_attention_fwd"] == 2 * cfg.n_layers
+    assert counts["fused_backward"] == 1
+    assert abs(float(mg["loss"]) - float(mc["loss"])) <= \
+        1e-4 * abs(float(mc["loss"]))
+    ge, ce = sg.emb["vocab"], sc.emb["vocab"]
+    assert torch.allclose(ge["table"].cpu(), ce["table"], rtol=1e-4,
+                          atol=1e-5)
+    assert torch.allclose(ge["acc"].cpu(), ce["acc"], rtol=1e-4, atol=1e-6)
+    diff2 = upd2 = 0.0
+    for w0, x, y in zip(tree_leaves(start), tree_leaves(sg.dense),
+                        tree_leaves(sc.dense)):
+        x = x.cpu()
+        assert float((x - y).abs().max()) <= 2 * lr
+        diff2 += float(((x - y).double() ** 2).sum())
+        upd2 += float(((y - w0).double() ** 2).sum())
+    assert (diff2 / upd2) ** 0.5 <= 1e-3

@@ -37,9 +37,11 @@ print("HAS", sorted(m for m in sys.modules if m in {names!r}))
 """
 
 # modules whose import must not need JAX (among all the walked ones): the
-# pipelined trainer and the launchers
+# pipelined trainer, the launchers, the click feedback and the LM data
 _NAMED = ("repro_torch.core.pipeline", "repro_torch.launch.train",
-          "repro_torch.launch.hostenv")
+          "repro_torch.launch.hostenv", "repro_torch.launch.online",
+          "repro_torch.launch.cluster", "repro_torch.serving.feedback",
+          "repro_torch.data.lm")
 
 
 def test_port_and_chip_smoke_import_without_jax():
