@@ -175,7 +175,27 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    same way: updates equal in norm to 1e-3, no element off by more than
    lr / 100 per applied put; the accumulator in norm to 1e-3, the queued
    put to 1e-3 of its largest element).
-15. The launcher, ``repro_torch.launch.train.main`` on the card: 8
+15. The sharded embedding-PS router (``sharded_phase``, k=4), kwai-dlrm
+   at full width, batch 512, hybrid(3): (a) dense tables at 65,536 rows
+   (a power of two: no uniform-shuffle collision), 4 shards against one
+   from one seed over 2 + 10 steps, the losses, every logical row and
+   accumulator and eval bit for bit, each router step ONE bag launch and
+   32 sum-only + 128 apply-only ``fused_backward`` launches (the sum-only
+   ones counted apart); both states behind a ``ServingService(
+   max_batch=64)`` for 512 requests, predictions bit-equal to each other
+   and to the plain read's within rtol 1e-5; the 4-shard checkpoint saved
+   under ``build/`` and restored into 1 and 2 shards, every logical row
+   exact, the queues restarted; (b) at the config's 62,500 rows, where
+   ids that share a row on one shard are apart on four, the router on the
+   card against the router on the CPU fed the same inputs stage by stage,
+   4 steps bit for bit (``router_card_vs_cpu``); (c) host_lru (7,812
+   slots, 1,953 a shard) on 4 shards against one over 37 steps that
+   evict, the losses and every logical row bit for bit, faults,
+   write-backs and hits a step, the prepare's parts, the imbalance gauge;
+   (d) that 4-shard state through ``PipelinedTrainer``: max_inflight 1
+   bit for bit with serial, max_inflight 4 in order, within its put
+   window, every pin released.
+16. The launcher, ``repro_torch.launch.train.main`` on the card: 8
    pipelined steps of the CTR task, then ``--task lm --steps 8 --batch 8
    --seq-len 128 --eval-every 4`` (the launcher's lm-100m), finite losses.
 
@@ -296,6 +316,16 @@ LONE_REPS = 200
 PIPE_STEPS = {"warmup": 2, "timed": 20, "trials": 3, "syncs": 6,
               "profiled": 4, "lru_warm": 26}
 PIPE_INFLIGHT, PIPE_PREFETCH = 4, 2
+# the sharded router: kwai-dlrm over SHARDS shards; its dense tables at a
+# power-of-two row count, where the uniform shuffle has no collision (at
+# 62,500 rows ids that share a row on one shard are apart on four, so one
+# and four shards differ there, in both packages); warm-up, timed dense
+# and host_lru steps (the latter evict), staged host_lru steps, the
+# card-against-CPU steps at 62,500 rows, the pipelined runs' steps
+SHARDS = 4
+SHARD_ROWS_POW2 = 65_536
+SHARD_STEPS = {"warmup": 2, "dense": 10, "lru": 30, "staged": 5, "cpu": 4,
+               "pipe": 8}
 
 # the in-process online loop: kwai-dlrm on host_lru, hybrid(tau), the
 # service's micro-batch, closed-loop clients x requests each, trainer steps
@@ -1708,17 +1738,22 @@ def serve_phase(dev, backend="dense"):
 # ---------------------------------------------------------------------------
 
 def kwai_train_trainer(dev, mode, backend="dense", batch_dedup=None,
-                       disk_path=None):
+                       disk_path=None, shards=1, rows=None):
     """kwai-dlrm's trainer; a host_lru backend gets the launchers' cache
     (``default_cache_rows``) and, under ``+disk``, a host tier of
     ``LRU_HOST_ROWS`` over mmap files in a directory of ``disk_path`` per
-    table."""
+    table. ``shards > 1`` puts every table on the sharded router;
+    ``rows`` overrides the tables' row count (the data's ids stay below
+    kwai_video's 62,500)."""
     ds = CTR_BENCHMARKS["kwai_video"]
-    adapter = adapters.recsys_adapter(KWAI, lr=EMB_LR,
-                                      field_rows=ds.field_rows())
+    field_rows = ds.field_rows() if rows is None \
+        else (rows,) * len(ds.field_rows())
+    adapter = adapters.recsys_adapter(KWAI, lr=EMB_LR, field_rows=field_rows)
     cache = default_cache_rows(ds.rows_per_field) \
         if backend.startswith(HOST_LRU) else None
     coll = adapter.collection.with_backend(backend, cache)
+    if shards > 1:
+        coll = coll.with_shards(shards)
     if "+disk" in backend:
         coll = coll.map_specs(lambda n, s: dataclasses.replace(
             s, host_rows=LRU_HOST_ROWS, disk_path=str(Path(disk_path) / n)))
@@ -1733,14 +1768,21 @@ def step_launches(trainer) -> tuple[dict, dict]:
     (``unique_bag``) and occurrence-width (``embedding_bag``) tables alike,
     counted on ``unique_bag`` when it pools a plan table. The put: one
     ``fused_backward`` per table (two behind the wire in sync mode, where
-    the sums cross the wire between their sum and their apply). Behind the
+    the sums cross the wire between their sum and their apply; 1 + k on
+    the k-shard router: one sum-only and one apply-only a shard). Behind
+    the
     wire, ONE compress and ONE decompress for all the tables, for the get
     and for the put."""
     want = dict.fromkeys(ops.launch_counts(), 0)
     tables = dict.fromkeys(ops.table_counts(), 0)
     for b in trainer.backends.values():
         wire = isinstance(b, BK.CompressedWireBackend)
+        inner = BK.unwrap(b)
         tables["unique_bag" if b.spec.batch_dedup else "embedding_bag"] += 1
+        if isinstance(inner, BK.ShardedBackend):
+            # the router: one sum-only launch, one apply-only per shard
+            want["fused_backward"] += 1 + inner.n_shards
+            continue
         want["fused_backward"] += 2 if wire and b.spec.staleness == 0 else 1
         for k in CODEC:
             tables[k] += 2 if wire else 0
@@ -1784,14 +1826,23 @@ def staged_step(trainer, state, batch, times):
                          dense_queue=dq, step=state.step + 1), m
 
 
+def parts(tree) -> list:
+    """A table's state or queue as its parts: itself, or a router's
+    per-shard ones (``"s0"``, ...)."""
+    if tree is None or "s0" not in tree:
+        return [tree]
+    return [tree[f"s{s}"] for s in range(len(tree))]
+
+
 def check_rings(trainer, state, steps, what):
     """The staleness queues' and the dense delay queue's ring pointers
-    after ``steps`` steps from empty."""
+    after ``steps`` steps from empty (every shard's, on a router)."""
     for n, q in state.emb_queue.items():
         tau = trainer.collection[n].staleness
         want = None if tau == 0 else (steps % tau, min(steps, tau))
-        got = None if q is None else (q["ptr"], q["filled"])
-        check(got == want, f"{what}: {n} queue ring {got}, want {want}")
+        for p in parts(q):
+            got = None if p is None else (p["ptr"], p["filled"])
+            check(got == want, f"{what}: {n} queue ring {got}, want {want}")
     tau_d = trainer.mode.dense_staleness
     dq = state.dense_queue
     got = None if dq is None else (dq["ptr"], dq["filled"])
@@ -2250,7 +2301,12 @@ def lm_card_vs_cpu(dev):
 # ---------------------------------------------------------------------------
 
 def lru_backends(trainer) -> list:
-    return [BK.unwrap(b) for b in trainer.backends.values()]
+    """Every table's storage backend (a router's shard backends)."""
+    out = []
+    for b in trainer.backends.values():
+        b = BK.unwrap(b)
+        out += b.shard_backends if isinstance(b, BK.ShardedBackend) else [b]
+    return out
 
 
 def lru_counters(trainer) -> dict:
@@ -2713,13 +2769,13 @@ def same_run(a, b) -> list:
     if [float(x) for x in la] != [float(x) for x in lb]:
         bad.append("losses")
     for n in sa.emb:
-        for k in sa.emb[n]:
-            if not torch.equal(sa.emb[n][k], sb.emb[n][k]):
-                bad.append(f"{n}.{k}")
+        if not all(torch.equal(x, y) for x, y in zip(
+                tree_leaves(sa.emb[n]), tree_leaves(sb.emb[n]))):
+            bad.append(f"{n} table")
         qa, qb = sa.emb_queue[n], sb.emb_queue[n]
         if qa is not None and not all(
-                torch.equal(qa[k], qb[k]) for k in qa
-                if isinstance(qa[k], torch.Tensor)):
+                torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+                for x, y in zip(tree_leaves(qa), tree_leaves(qb))):
             bad.append(f"{n} queue")
     trees = (sa.dense, sb.dense), (sa.opt["m"], sb.opt["m"]), \
         (sa.opt["v"], sb.opt["v"])
@@ -3262,6 +3318,402 @@ def lm_train_card_vs_cpu(dev) -> dict:
     return rec
 
 
+def logical_rows(trainer, state, n):
+    """Table ``n``'s logical rows and accumulators (what a lookup of each
+    id reads), read off its checkpoint blob."""
+    spec = trainer.collection[n]
+    blob = BK.unwrap(trainer.backends[n]).state_for_checkpoint(state.emb[n])
+    return BK.extract_logical_rows(
+        blob, spec, BK.parse_backend_name(spec.backend)[0])
+
+
+def same_rows(ta, sa, tb, sb) -> list:
+    """The tables whose logical rows or accumulators differ in any bit."""
+    bad = []
+    for n in ta.collection.names:
+        (va, aa), (vb, ab) = logical_rows(ta, sa, n), logical_rows(tb, sb, n)
+        if not (np.array_equal(va, vb) and np.array_equal(aa, ab)):
+            bad.append(n)
+    return bad
+
+
+def counted_steps(trainer, state, batches, what):
+    """:func:`run_steps` (launch counts set to 0 just before, checked
+    against :func:`step_launches`), timed to a synchronize, with the
+    router's sum-only ``fused_backward`` launches counted apart (the calls
+    of ``dedup.csr_segment_sum``): (state, losses, launches, tables
+    served, wall s, sum-only launches)."""
+    with mock.patch.object(D, "csr_segment_sum",
+                           wraps=D.csr_segment_sum) as sums:
+        t0 = time.perf_counter()
+        state, losses, launches, _, served = run_steps(trainer, state,
+                                                       batches, what)
+        wall = time.perf_counter() - t0
+    return state, losses, launches, served, wall, sums.call_count
+
+
+def router_card_vs_cpu(dev, ds, steps) -> dict:
+    """The 4-shard router at kwai-dlrm's 62,500 rows on the card and on the
+    CPU, fed the same inputs at every step: each router prepares, looks up
+    and puts from its own state, the CPU's with the card's activation
+    gradients, and the CPU's FFNN runs from a copy of the card's dense
+    state. The pooled bags, every shard's table, accumulator and queue
+    must be equal bit for bit after every step, the loss within rtol 1e-4.
+    (Whole trajectories apart are not held to ``card_vs_cpu``'s rule
+    here: from this start a ReLU pre-activation lands within rounding of
+    0 in the first step, the two FFNNs' gradients differ in sign on some
+    weights, and Adam's first step moves each weight by about lr whatever
+    its gradient's size, so the dense parameters part by 2 lr at once.)"""
+    it = ds.sampler(TRAIN_B, seed=SEED + 20)
+    batches = [next(it) for _ in range(steps)]
+    tg = kwai_train_trainer(dev, TrainMode.hybrid(TAU), shards=SHARDS)
+    tc = kwai_train_trainer("cpu", TrainMode.hybrid(TAU), shards=SHARDS)
+    sg = tg.init(seed=SEED + 1, batch_example=batches[0])
+    sc = sg.to("cpu")
+    (lg, dg, pg_), (lc, dc, pc_) = tg.decomposed_fns(), tc.decomposed_fns()
+    to_cpu = lambda x: x.to("cpu", copy=True) \
+        if isinstance(x, torch.Tensor) else x  # noqa: E731
+    bad, loss_card, loss_cpu = [], [], []
+    for i, b in enumerate(batches):
+        sg, ig, _ = tg._prepare(sg, b)
+        sc, ic, _ = tc._prepare(sc, b)
+        pooled_g, _ = lg(sg.emb, ig)
+        pooled_c, _ = lc(sc.emb, ic)
+        if not all(torch.equal(pooled_g[n].cpu(), pooled_c[n])
+                   for n in pooled_g):
+            bad.append(f"step {i}: pooled bags")
+        # the CPU's FFNN from a copy of the card's dense state (the dense
+        # step updates its arguments in place)
+        _, _, _, _, mc = dc(tree_map(to_cpu, sg.dense),
+                            tree_map(to_cpu, sg.opt),
+                            tree_map(to_cpu, sg.dense_queue), pooled_c, b,
+                            sg.step)
+        dense, opt, dq, agrads, mg = dg(sg.dense, sg.opt, sg.dense_queue,
+                                        pooled_g, b, sg.step)
+        loss_card.append(float(mg["loss"]))
+        loss_cpu.append(float(mc["loss"]))
+        emb, queues, _ = pg_(sg.emb, sg.emb_queue, ig, agrads)
+        emb_c, queues_c, _ = pc_(sc.emb, sc.emb_queue, ic,
+                                 {n: g.cpu() for n, g in agrads.items()})
+        sg = sg.replace(dense=dense, opt=opt, emb=emb, emb_queue=queues,
+                        dense_queue=dq, step=sg.step + 1)
+        sc = sc.replace(emb=emb_c, emb_queue=queues_c, step=sc.step + 1)
+        for n in sg.emb:
+            if not all(torch.equal(x.cpu(), y) for x, y in zip(
+                    tree_leaves(sg.emb[n]), tree_leaves(sc.emb[n]))):
+                bad.append(f"step {i}: {n} tables or accumulators")
+            if not all(torch.equal(x.cpu(), y) if isinstance(
+                    x, torch.Tensor) else x == y for x, y in zip(
+                    tree_leaves(sg.emb_queue[n]),
+                    tree_leaves(sc.emb_queue[n]))):
+                bad.append(f"step {i}: {n} queues")
+    if not np.allclose(loss_card, loss_cpu, rtol=1e-4):
+        bad.append(f"losses card {loss_card} cpu {loss_cpu}")
+    out = {"phase": "router_card_vs_cpu", "rows": ds.rows_per_field,
+           "shards": SHARDS, "mode": f"hybrid({TAU})", "steps": steps,
+           "loss_card": loss_card, "loss_cpu": loss_cpu,
+           "bit_equal": not bad}
+    emit(out)
+    check(not bad, "router card against CPU: " + "; ".join(bad[:6]))
+    return out
+
+
+def sharded_dense_runs(dev, ds, batches) -> dict:
+    """kwai-dlrm at full width with its tables at 65,536 rows, dense, on
+    one shard and on the router's 4, from one seed: warm-up, then timed
+    steps with the launch counts read around them."""
+    st, runs = SHARD_STEPS, {}
+    for k in (1, SHARDS):
+        tr = kwai_train_trainer(dev, TrainMode.hybrid(TAU), shards=k,
+                                rows=SHARD_ROWS_POW2)
+        t0 = time.perf_counter()
+        s = tr.init(seed=SEED, batch_example=batches[0])
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        warm = []
+        for b in batches[:st["warmup"]]:
+            s, m = tr.step(s, b)
+            warm.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        s, losses, launches, served, wall, n_sum = counted_steps(
+            tr, s, batches[st["warmup"]:], f"dense, {k} shard(s)")
+        runs[k] = {"trainer": tr, "state": s, "losses": warm + losses,
+                   "launches": launches, "served": served, "wall": wall,
+                   "sum_only": n_sum, "init_s": init_s}
+    return runs
+
+
+def sharded_serve(dev, ds, runs) -> tuple[dict, dict]:
+    """Both dense states behind a ``ServingService(max_batch=64)``, 512
+    requests from 4 clients: every flush ONE bag launch of the 32 tables
+    (on the router, each table's unique rows gathered from its shards into
+    one block); predictions of the two equal bit for bit (a flush is
+    padded to 64 rows, so a request's row does not depend on its batch)
+    and equal to the plain lookup's (rtol 1e-5 / atol 1e-6)."""
+    reqs = [r for _, r in TrafficModel.for_dataset(ds, seed=SEED)
+            .requests(N_REQUESTS, seed=1)]
+    config = ServingConfig(max_batch=64, max_wait_ms=2.0)
+    out, counts = {}, None
+    for k, run in runs.items():
+        tr, state = run["trainer"], run["state"]
+        cell = StateCell(state, state.step)
+        serve(tr, cell, reqs[:128], config)             # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        preds, m = serve(tr, cell, reqs, config)
+        launches, served = ops.launch_counts(), ops.table_counts()
+        flushes = int(m["serving/batches"])
+        check(launches["unique_bag"] == flushes and launches[
+            "embedding_bag"] == 0 and served["unique_bag"] ==
+            N_TABLES * flushes, f"sharded serve, {k} shard(s): launches "
+            f"{launches} (tables {served}) for {flushes} flushes")
+        plain = plain_predict(tr, state, stack(reqs))
+        check(np.allclose(preds, plain, rtol=1e-5, atol=1e-6),
+              f"sharded serve, {k} shard(s): predictions differ from the "
+              f"plain read by {float(np.abs(preds - plain).max())}")
+        out[k] = {"preds": preds, "p50_ms": m["serving/p50_ms"],
+                  "p99_ms": m["serving/p99_ms"], "qps": m["serving/qps"],
+                  "flushes": flushes,
+                  "max_abs_diff_vs_plain": float(np.abs(preds
+                                                        - plain).max())}
+        if k == SHARDS:
+            counts = (launches, served)
+    same = np.array_equal(out[1]["preds"], out[SHARDS]["preds"])
+    check(same, "sharded serve: 4-shard predictions differ from one "
+          f"shard's by {float(np.abs(out[1]['preds'] - out[SHARDS]['preds']).max())}")
+    for v in out.values():
+        del v["preds"]
+    return counts, {"requests": N_REQUESTS, "max_batch": 64,
+                    "bit_equal": same, "by_shards": out}
+
+
+def sharded_reshard(dev, runs, batch) -> dict:
+    """The 4-shard dense state saved to disk (under the git-ignored
+    build/) and restored into 1 and 2 shards: every logical row and
+    accumulator exact, the queues restarted empty, one more step finite."""
+    import shutil
+
+    from repro_torch.checkpoint import checkpoint_shard_layout
+    t4, s4 = runs[SHARDS]["trainer"], runs[SHARDS]["state"]
+    path = ROOT / "build" / "sharded_ckpt"
+    shutil.rmtree(path, ignore_errors=True)
+    t0 = time.perf_counter()
+    t4.save(str(path), s4)
+    out = {"save_s": time.perf_counter() - t0}
+    layout = checkpoint_shard_layout(str(path))
+    check(set(layout.values()) == {SHARDS}, f"shard layout {layout}")
+    try:
+        for m in (1, 2):
+            tm = kwai_train_trainer(dev, TrainMode.hybrid(TAU), shards=m,
+                                    rows=SHARD_ROWS_POW2)
+            t0 = time.perf_counter()
+            r = tm.restore(str(path))
+            restore_s = time.perf_counter() - t0
+            bad = same_rows(t4, s4, tm, r)
+            check(not bad, f"4 -> {m} shards: tables {bad[:4]} differ")
+            empty = all(int(p["ids"].max()) == -1 for n in r.emb_queue
+                        for p in parts(r.emb_queue[n]))
+            resharded = all(b.last_restore_resharded
+                            for b in tm.backends.values())
+            check(empty and resharded, f"4 -> {m} shards: queues not "
+                  "restarted or restore not marked resharded")
+            r, mt = tm.step(r, batch)
+            check(np.isfinite(float(mt["loss"])), f"4 -> {m}: loss")
+            out[f"to_{m}"] = {"restore_s": restore_s, "rows_exact": True,
+                              "queues_restarted": True,
+                              "next_loss": float(mt["loss"])}
+            del tm, r
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    return out
+
+
+def sharded_lru_runs(dev, ds) -> dict:
+    """kwai-dlrm at full width on host_lru (62,500 rows, 7,812 cache slots
+    a table: 1,953 a shard on the router), one shard against 4 from one
+    seed: warm-up, timed steps that evict (counts read around them), then
+    staged steps with the prepare split by part; faults, write-backs and
+    hits a step, the imbalance gauge."""
+    st, runs = SHARD_STEPS, {}
+    it = ds.sampler(TRAIN_B, seed=SEED + 31)
+    batches = [next(it) for _ in range(st["warmup"] + st["lru"]
+                                       + st["staged"])]
+    w = st["warmup"]
+    for k in (1, SHARDS):
+        tr = kwai_train_trainer(dev, TrainMode.hybrid(TAU), HOST_LRU,
+                                shards=k)
+        t0 = time.perf_counter()
+        s = tr.init(seed=SEED, batch_example=batches[0])
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        losses = []
+        for b in batches[:w]:
+            s, m = tr.step(s, b)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        c0 = lru_counters(tr)
+        s, ls, launches, served, wall, n_sum = counted_steps(
+            tr, s, batches[w:w + st["lru"]], f"host_lru, {k} shard(s)")
+        losses += ls
+        per_step = lru_delta(c0, lru_counters(tr), st["lru"])
+        times, split = {}, {}
+        for b in batches[w + st["lru"]:]:
+            c = lru_counters(tr)
+            s, m = staged_step(tr, s, b, times)
+            losses.append(float(m["loss"]))
+            for key, v in lru_delta(c, lru_counters(tr)).items():
+                split.setdefault(key, []).append(v)
+        med = {key: float(np.median(v)) for key, v in times.items()}
+        part = {key: float(np.median(v)) * 1e3
+                for key, v in split.items() if key.endswith("_s")}
+        gauges = BK.shard_step_metrics(tr.backends)
+        imb = [v for key, v in gauges.items() if key.endswith("/imbalance")]
+        runs[k] = {
+            "trainer": tr, "state": s, "losses": losses,
+            "launches": launches, "served": served, "init_s": init_s,
+            "step_ms": wall * 1e3 / st["lru"],
+            "steps_per_s": st["lru"] / wall, "sum_only": n_sum,
+            "per_step": per_step, "breakdown_ms": med,
+            # host seconds summed over the shards: on the router they run
+            # on its pool, so their sum can exceed the prepare's wall
+            "prepare_parts_ms": {
+                "fault_in": part["fault_s"], "eviction": part["evict_s"],
+                "eviction_sync": part["evict_sync_s"]},
+            "imbalance_max": max(imb) if imb else None,
+            "imbalance_mean": float(np.mean(imb)) if imb else None,
+            "writebacks": sum(b.writebacks for b in lru_backends(tr))}
+        check(runs[k]["writebacks"] > 0,
+              f"host_lru, {k} shard(s): no row written back")
+    return runs
+
+
+def sharded_pipeline(dev, ds, trainer, state) -> tuple[dict, dict]:
+    """The warmed (evicting) 4-shard host_lru state as a snapshot, run
+    serially, through ``PipelinedTrainer(max_inflight=1)`` (bit for bit
+    with serial) and at ``PIPE_INFLIGHT`` with a look-ahead (every put in
+    order, the put window min(4, 3) held on every shard, every pin
+    released), each making the serial step's launches."""
+    tree = snapshot(trainer, state)
+    it = ds.sampler(TRAIN_B, seed=SEED + 32)
+    batches = [next(it) for _ in range(SHARD_STEPS["pipe"])]
+    n = len(batches)
+    runs, counts = {}, None
+    for runner in ("serial", "pipelined_1", "pipelined_deep"):
+        tr = kwai_train_trainer(dev, TrainMode.hybrid(TAU), HOST_LRU,
+                                shards=SHARDS)
+        s = restore(tr, tree)
+        engine = pipe_engine(tr, runner)
+        ops.reset_launch_counts()
+        s, losses, wall = pipe_run(tr, engine, s, batches)
+        launches, served = ops.launch_counts(), ops.table_counts()
+        per_step, tables = step_launches(tr)
+        check(launches == {k: v * n for k, v in per_step.items()}
+              and served == {k: v * n for k, v in tables.items()},
+              f"sharded {runner}: launches {launches} (tables {served})")
+        losses = [float(x) for x in losses]
+        check(all(np.isfinite(losses)), f"sharded {runner}: {losses}")
+        runs[runner] = {"run": (s, losses, lru_state_bits(tr, s)),
+                        "steps_per_s": n / wall}
+        if engine is not None and runner == "pipelined_deep":
+            check(engine.applied_order == list(range(n)),
+                  f"sharded deep: order {engine.applied_order}")
+            worst = max(engine.max_outstanding.values())
+            check(worst <= min(PIPE_INFLIGHT, TAU),
+                  f"sharded deep: {worst} puts outstanding")
+            check(not any(b._pin_count.any() for b in lru_backends(tr)),
+                  "sharded deep: pins left")
+            runs[runner]["max_outstanding"] = worst
+            counts = (launches, served)
+        del tr
+    bad = same_run(runs["serial"]["run"], runs["pipelined_1"]["run"])
+    check(not bad, f"sharded pipelined_1 differs from serial: {bad}")
+    for v in runs.values():
+        del v["run"]
+    return counts, {"steps": n, "inflight1_bit_equal": True, **runs}
+
+
+def sharded_phase(dev):
+    """The sharded embedding-PS router at kwai-dlrm's full width (32 tables
+    x D=128, FFNN 4112 -> ... -> 4, batch 512, hybrid(3), k=4). Returns
+    the main paths' counts (the 4-shard runs) and the record."""
+    ds = CTR_BENCHMARKS["kwai_video"]
+    st = SHARD_STEPS
+    t_phase = time.perf_counter()
+    paths, rec = {}, {"phase": "sharded", "model": KWAI.name,
+                      "shards": SHARDS, "batch": TRAIN_B,
+                      "mode": f"hybrid({TAU})"}
+    # (a) dense at 65,536 rows a table (no shuffle collision): 4 shards
+    # against 1, bit for bit; serving; the reshard from disk
+    it = ds.sampler(TRAIN_B, seed=SEED + 30)
+    batches = [next(it) for _ in range(st["warmup"] + st["dense"])]
+    runs = sharded_dense_runs(dev, ds, batches)
+    (t1, s1), (t4, s4) = ((runs[k]["trainer"], runs[k]["state"])
+                          for k in (1, SHARDS))
+    check(runs[1]["losses"] == runs[SHARDS]["losses"],
+          f"sharded dense: losses {runs[1]['losses']} against "
+          f"{runs[SHARDS]['losses']}")
+    bad = same_rows(t1, s1, t4, s4)
+    check(not bad, f"sharded dense: tables {bad[:4]} differ from one shard")
+    eb = next(ds.sampler(4096, seed=SEED + 4))
+    e1, e4 = float(t1.eval(s1, eb)["loss"]), float(t4.eval(s4, eb)["loss"])
+    check(e1 == e4, f"sharded dense: eval {e1} against {e4}")
+    check(runs[SHARDS]["sum_only"] == N_TABLES * st["dense"]
+          and runs[1]["sum_only"] == 0,
+          f"sum-only launches {runs[SHARDS]['sum_only']} / "
+          f"{runs[1]['sum_only']}")
+    paths["train_sharded"] = (runs[SHARDS]["launches"],
+                              runs[SHARDS]["served"])
+    paths["serve_sharded"], rec["serve"] = sharded_serve(dev, ds, runs)
+    rec["reshard"] = sharded_reshard(dev, runs, batches[0])
+    rec["dense_65536"] = {
+        k: {"init_s": r["init_s"], "step_ms": r["wall"] * 1e3 / st["dense"],
+            "steps_per_s": st["dense"] / r["wall"],
+            "launches_per_step": {key: v / st["dense"]
+                                  for key, v in r["launches"].items()},
+            "sum_only_per_step": r["sum_only"] / st["dense"],
+            "apply_only_per_step": (r["launches"]["fused_backward"]
+                                    - r["sum_only"]) / st["dense"]
+            if k > 1 else 0.0, "losses": r["losses"]}
+        for k, r in runs.items()}
+    rec["dense_65536"]["bit_equal"] = {"losses": True, "rows": True,
+                                       "eval": True, "eval_loss": e4}
+    del runs, t1, s1, t4, s4
+    torch.cuda.empty_cache()
+    # (b) dense at the config's 62,500 rows: the router on the card
+    # against the router on the CPU (shuffle collisions make one shard
+    # differ from four there, in both packages)
+    rec["card_vs_cpu_62500"] = router_card_vs_cpu(dev, ds, st["cpu"])
+    # (c) host_lru at 62,500 rows, 7,812 slots: 4 shards against 1
+    lru = sharded_lru_runs(dev, ds)
+    (t1, s1), (t4, s4) = ((lru[k]["trainer"], lru[k]["state"])
+                          for k in (1, SHARDS))
+    check(lru[1]["losses"] == lru[SHARDS]["losses"],
+          f"sharded host_lru: losses {lru[1]['losses']} against "
+          f"{lru[SHARDS]['losses']}")
+    bad = same_rows(t1, s1, t4, s4)
+    check(not bad, f"sharded host_lru: tables {bad[:4]} differ")
+    paths["train_sharded_host_lru"] = (lru[SHARDS]["launches"],
+                                       lru[SHARDS]["served"])
+    rec["host_lru_62500"] = {
+        k: {key: v for key, v in r.items()
+            if key not in ("trainer", "state", "launches", "served")}
+        | {"launches_per_step": {key: v / st["lru"]
+                                 for key, v in r["launches"].items()}}
+        for k, r in lru.items()}
+    rec["host_lru_62500"]["bit_equal"] = {"losses": True, "rows": True}
+    del t1, s1
+    lru.pop(1)
+    torch.cuda.empty_cache()
+    # (d) the pipelined trainer over the sharded host_lru table
+    paths["train_sharded_pipelined"], rec["pipelined"] = sharded_pipeline(
+        dev, ds, t4, s4)
+    del lru, t4, s4
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    emit(rec)
+    return paths, rec
+
+
 def launcher_phase(dev):
     """``repro_torch.launch.train.main`` on the card: 8 steps of the
     default taobao_ad CTR model with ``--pipeline pipelined``, eval every
@@ -3384,6 +3836,9 @@ def main() -> int:
     timing["fused_backward"].update(
         {f"lm_put_{k}": recs["lm_train"]["lm_put"][k]
          for k in ("ms", "bound_ms", "bound_by", "plain_ms")})
+    # the sharded embedding-PS router
+    sharded_paths, recs["sharded"] = sharded_phase(dev)
+    paths.update(sharded_paths)
     recs["train_launcher"] = launcher_phase(dev)
 
     kernels = []

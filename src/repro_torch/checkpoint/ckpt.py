@@ -12,8 +12,9 @@ format, so checkpoints move between the two packages:
 The code is the JAX package's numpy code, copied; trees are nested dicts
 and lists of numpy arrays (``repro_torch.convert.state_to_numpy`` makes
 them from a train state). ``CheckpointManager`` saves every ``every``
-steps and keeps the newest ``keep``. The sharded-router layout
-(``checkpoint_shard_layout``) comes with the router.
+steps and keeps the newest ``keep``. ``checkpoint_shard_layout`` reads
+each table's shard count off a saved full-state checkpoint (1 for a plain
+table, N for the sharded router's shard-tagged blob).
 """
 from __future__ import annotations
 
@@ -129,6 +130,44 @@ def load_checkpoint(directory: str, step: int | None = None):
     if os.path.isdir(os.path.join(path, "emb")):
         emb = _read_blob(os.path.join(path, "emb"))
     return int(dense["step"]), dense["state"], emb
+
+
+def checkpoint_shard_layout(directory: str, step: int | None = None
+                            ) -> dict[str, int]:
+    """Per-table embedding-PS shard counts of a saved full-state
+    checkpoint: 1 for plain (unsharded) table blobs, N for shard-tagged
+    router blobs. Raises if the checkpoint has no embedding blob."""
+    _, _, emb = load_checkpoint(directory, step)
+    if not emb or "emb" not in emb:
+        raise ValueError(
+            f"checkpoint at {directory!r} carries no per-table embedding "
+            "blob (legacy save_checkpoint format?)")
+    out = {}
+    for name, blob in emb["emb"].items():
+        if not isinstance(blob, dict) or \
+                ("shard_meta" not in blob and "shards" not in blob):
+            out[name] = 1                       # plain (unsharded) table blob
+            continue
+        if "shard_meta" not in blob or "shards" not in blob:
+            missing = "shard_meta" if "shard_meta" not in blob else "shards"
+            raise ValueError(
+                f"table {name!r}: sharded checkpoint blob is missing its "
+                f"{missing!r} entry — corrupt or truncated save")
+        meta = np.asarray(blob["shard_meta"]).reshape(-1)
+        if meta.size != 3 or not np.issubdtype(meta.dtype, np.integer) \
+                or int(meta[0]) < 1:
+            raise ValueError(
+                f"table {name!r}: corrupt shard_meta {meta!r} (expected "
+                "3 ints [n_shards, rows, dim] with n_shards >= 1)")
+        k = int(meta[0])
+        have = sorted(blob["shards"])
+        want = [f"s{s}" for s in range(k)]
+        if have != sorted(want):
+            raise ValueError(
+                f"table {name!r}: shard_meta declares {k} shards but the "
+                f"blob holds {have} (expected {want})")
+        out[name] = k
+    return out
 
 
 def _host(x):

@@ -11,7 +11,10 @@ place rows with the same ``shuffle_pos``, so a table is copied as it is.
 The checkpoint format (``PersiaTrainer.save``/``restore``) goes through
 these two functions. A host_lru table crosses as its checkpoint blob
 (device cache, host store and slot map, :func:`table_from_numpy`): its
-host tiers live in the backend, not in the train state.
+host tiers live in the backend, not in the train state. A table of the
+sharded router crosses as a dict of its shards' states (``"s0"`` ..
+``"s{k-1}"``, each as above) or as its shard-tagged checkpoint blob, and
+its queues as a dict of the shards' queues, the JAX package's layout.
 
 For the LM family, ``lm_dense_from_numpy`` carries the transformer's dense
 parameters across (``repro.models.transformer.init_dense``'s tree, key for
@@ -63,9 +66,11 @@ def _like_dense(tree, dense, what, device, lead=()):
 
 def _queue_from_numpy(q, spec, device):
     """A staleness queue as numpy -> tensors (a host_lru queue's
-    ``slots`` ride beside its ids)."""
+    ``slots`` ride beside its ids; a router's queues shard by shard)."""
     if q is None:
         return None
+    if "ids" not in q:
+        return {k: _queue_from_numpy(v, spec, device) for k, v in q.items()}
     ids = np.asarray(q["ids"])
     out = {k: _tensor(q[k], ids.shape, f"queue {k}", device, torch.int32)
            for k in ("slots", "ids") if k in q}
@@ -141,9 +146,12 @@ def _np(x):
 
 
 def _ring_to_numpy(q):
-    """A staleness or delay queue as numpy; ptr/filled as int32."""
+    """A staleness or delay queue as numpy; ptr/filled as int32 (a
+    router's queues shard by shard)."""
     if q is None:
         return None
+    if "ptr" not in q:
+        return {k: _ring_to_numpy(v) for k, v in q.items()}
     out = {k: tree_map(_np, v) for k, v in q.items()
            if k not in ("ptr", "filled")}
     out["ptr"] = np.asarray(q["ptr"], np.int32)
@@ -206,9 +214,17 @@ def table_from_numpy(backend, emb_np: dict, device, what: str = "") -> dict:
     ``{"cache", "store", "cache_meta"}``, whose host tiers (store, slot
     map, counters) are loaded into ``backend`` and whose device cache is
     returned, or a cache ``{"table", "slot_ids", "acc"}`` that the backend
-    has already restored."""
-    from repro_torch.core.backend import HostLRUBackend, unwrap
+    has already restored. A router: its shard-tagged checkpoint blob, or
+    ``{"s0": .., "s{k-1}": ..}``, one of the above per shard."""
+    from repro_torch.core.backend import (HostLRUBackend, ShardedBackend,
+                                          unwrap)
     inner = unwrap(backend)
+    if isinstance(inner, ShardedBackend):
+        if "shard_meta" in emb_np:
+            emb_np = inner.restore_from_checkpoint(emb_np)
+        return {f"s{s}": table_from_numpy(sub, emb_np[f"s{s}"], device,
+                                          f"{what}s{s}.")
+                for s, sub in enumerate(inner.shard_backends)}
     if not isinstance(inner, HostLRUBackend):
         return _emb_state(emb_np, backend.spec, device, what)
     if "store" in emb_np:
@@ -224,7 +240,9 @@ def table_from_numpy(backend, emb_np: dict, device, what: str = "") -> dict:
 
 
 def _emb_state(emb_np: dict, spec, device, what: str = "") -> dict:
-    rows = spec.padded_rows(1)
+    # a table drawn with its rows padded for k shards (the legacy meaning
+    # of init(emb_shards=k) on a dense table) keeps its padding
+    rows = max(spec.padded_rows(1), int(np.shape(emb_np["table"])[0]))
     st = {"table": _tensor(emb_np["table"], (rows, spec.dim),
                            f"{what}table", device).to(spec.dtype)}
     if spec.optimizer == "adagrad":

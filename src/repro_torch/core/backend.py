@@ -39,16 +39,31 @@ the cache slots themselves), so the fan-outs treat every table alike.
 cross the wire as blockscale fp16 (the ``blockscale_compress`` /
 ``blockscale_decompress`` CUDA kernels) and its puts are deduplicated to
 one row per unique id. The stage's tables compress together and
-decompress together: ONE launch of each per get, put or serve read. The
-sharded router comes with a later slice.
+decompress together: ONE launch of each per get, put or serve read.
+
+``ShardedBackend`` is the sharded embedding-PS router (paper §4.1): a
+table with ``spec.emb_shards = k > 1`` is hash-partitioned over k dense
+or host_lru shards, each with its own state, lock, store and staleness
+queue (state and queues are dicts keyed ``"s0".."s{k-1}"``, the JAX
+package's layout, so checkpoints interchange and reshard N -> M). Its
+host_lru shards fault in concurrently on a thread pool. The stages keep
+one bag launch: a router table's lookup or serve read gathers each
+shard's owned unique rows into ONE (U, D) block by index (no arithmetic,
+so it is bit-exact with one shard) and pools it with the identity for
+``dev``. Its put keeps the JAX package's decomposition: ONE sum-only
+``fused_backward`` launch per table, then one apply-only launch per
+shard on the shard's local ids with the full sums. The wire wraps
+outside the router.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import math
+import os
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -61,6 +76,7 @@ from repro_torch.core.hotness import HotnessSketch
 from repro_torch.core.lru import STORE_DTYPES, LRUEmbeddingStore
 from repro_torch.core.mmap_store import TieredHostStore
 from repro_torch.kernels import ops as K
+from repro_torch.utils import round_up
 
 
 def _prod(shape) -> int:
@@ -92,6 +108,9 @@ class EmbeddingBackend:
     width once, here."""
 
     spec: EmbeddingSpec
+    # set by restore_from_checkpoint when the blob had another shard
+    # geometry than this backend (caches restart, queues are dropped)
+    last_restore_resharded: bool = False
 
     # -- host-level ----------------------------------------------------------
     def init(self, generator: torch.Generator, shards: int = 1,
@@ -120,7 +139,7 @@ class EmbeddingBackend:
         with self.read_lock():
             arrs, rows, info = self._read_begin(arr, occ=True)
             idx, rows = _upload_read({0: (arrs, rows)},
-                                     state["table"].device)[0]
+                                     self.state_device(state))[0]
             out = self._read_end(state, idx, rows, occ=True)
         return out.float(), info
 
@@ -132,9 +151,13 @@ class EmbeddingBackend:
         with self.read_lock():
             arrs, rows, info = self._read_begin(arr)
             idx, rows = _upload_read({0: (arrs, rows)},
-                                     state["table"].device)[0]
+                                     self.state_device(state))[0]
             bag = self._read_end(state, idx, rows)
         return _bag_all({0: bag})[0], info
+
+    def state_device(self, state) -> torch.device:
+        """The device the table's state lives on."""
+        return state["table"].device
 
     def _read_begin(self, arr: np.ndarray, occ: bool = False):
         """The host half of a serve read of LOGICAL ids ``arr`` -> (the
@@ -147,6 +170,13 @@ class EmbeddingBackend:
         """The device half of a serve read, on the uploaded arrays: the
         bag kernel's entry ``(table, dev or None, inv, flat)``, or with
         ``occ`` the occurrence rows ``arr.shape + (dim,)``."""
+        raise NotImplementedError
+
+    def _resolve_unique(self, uniq: np.ndarray):
+        """Serve-read residency of valid unique LOGICAL ids (host, under
+        :meth:`read_lock`) -> ``(hit, rows, vecs)``: the mask of the ids
+        resident on the device, their table rows (int32), and the fp32
+        rows of the others read from a host tier."""
         raise NotImplementedError
 
     def dedup_rows(self) -> int:
@@ -220,7 +250,7 @@ class EmbeddingBackend:
         """Occurrence activations (*ids.shape, dim), read by the plain
         gather."""
         if D.is_plan(dev_ids):
-            acts_u, m = self._lookup_unique(state, dev_ids.dev)
+            acts_u, m = self._plan_unique(state, dev_ids)
             return D.plan_scatter(acts_u, dev_ids.inv), m
         return self._lookup_flat(state, dev_ids)
 
@@ -235,6 +265,19 @@ class EmbeddingBackend:
                                 dev_ids.inv), {}
         return K.embedding_bag(
             table, self.table_rows(dev_ids).to(table.device)), {}
+
+    def _bag_entry(self, state, dev_ids) -> tuple:
+        """The bag kernel's entry for a lookup of ``dev_ids``: ``(table,
+        dev or None, inv, flat)``, a plan through its table rows, flat
+        (B, L) device ids translated to table rows."""
+        table = state["table"]
+        if D.is_plan(dev_ids):
+            return (table, self._plan_rows(dev_ids), dev_ids.inv, False)
+        return (table, None, self.table_rows(dev_ids).to(table.device), True)
+
+    def _plan_unique(self, state, plan):
+        """A plan's (U, dim) unique rows -> ``(rows, metrics)``."""
+        return self._lookup_unique(state, plan.dev)
 
     def apply_put(self, state, dev_ids, grads):
         if D.is_plan(dev_ids):
@@ -412,6 +455,11 @@ class DenseBackend(EmbeddingBackend):
             return (table, idx[1], idx[0], False)
         return (table, None, idx[0], True)
 
+    def _resolve_unique(self, uniq):
+        return (np.ones(uniq.size, bool),
+                self._logical_to_pos(torch.from_numpy(uniq)).numpy(),
+                np.zeros((0, self.spec.dim), np.float32))
+
     def _put_unique(self, state, dev_u, g_u):
         return PS.apply_put(state, self.spec, dev_u, g_u,
                             assume_unique=True), {}
@@ -472,10 +520,13 @@ class DenseBackend(EmbeddingBackend):
 
     def restore_from_checkpoint(self, blob):
         spec = self.spec
+        self.last_restore_resharded = False
         if isinstance(blob, dict) and "shard_meta" in blob:
-            raise NotImplementedError(
-                "this checkpoint holds a sharded-router table: resharding "
-                "on restore is not ported yet")
+            # a sharded-router checkpoint restored into one shard: gather
+            # the logical rows and rebuild (an N -> 1 reshard)
+            vec, acc = extract_logical_rows(blob, spec, "dense")
+            self.last_restore_resharded = True
+            return _dense_state_from_logical(spec, spec.rows, vec, acc)
         table = blob.get("table") if isinstance(blob, dict) else None
         if table is None:
             raise ValueError(
@@ -591,8 +642,11 @@ class HostLRUBackend(EmbeddingBackend):
         shuffle_pos(i)]``). The device cache starts empty, on the
         generator's device."""
         if shards != 1:
-            raise ValueError("HostLRUBackend is one PS shard; the sharded "
-                             "router is not ported yet")
+            raise ValueError(
+                "HostLRUBackend is one PS shard; to run a host-backed table "
+                f"over {shards} shards set EmbeddingSpec.emb_shards (or pass "
+                "emb_shards to PersiaTrainer.init), which routes through the "
+                "ShardedBackend router")
         spec = self.spec
         dense = PS.ps_init(generator, dataclasses.replace(spec,
                                                           backend="dense"),
@@ -888,21 +942,29 @@ class HostLRUBackend(EmbeddingBackend):
         flat = arr.reshape(-1)
         valid = (flat >= 0) & (flat < spec.rows)
         uniq, inv_valid = np.unique(flat[valid], return_inverse=True)
-        slots = self._slot_arr[uniq]
-        hit = slots >= 0
+        hit, hit_slots, m_vecs = self._resolve_unique(uniq)
         new_pos = np.empty(uniq.size, np.int64)
         new_pos[hit] = np.arange(int(hit.sum()))
         new_pos[~hit] = int(hit.sum()) + np.arange(int((~hit).sum()))
         inv = np.full(flat.shape, -1, np.int32)
         inv[valid] = new_pos[inv_valid]
+        return ([inv.reshape(arr.shape), hit_slots], m_vecs,
+                {"reads": int(uniq.size), "hits": int(hit.sum()),
+                 "misses": int((~hit).sum())})
+
+    def _resolve_unique(self, uniq):
+        """Hits from the host mirror of the slot map; misses read from the
+        host store, quantized through the cache dtype (a served row is the
+        same whether it is cached or not)."""
+        spec = self.spec
+        slots = self._slot_arr[uniq]
+        hit = slots >= 0
         missing = uniq[~hit]
         m_vecs, _ = self.store.read_rows(missing) if missing.size \
             else (np.zeros((0, spec.dim), np.float32), None)
         m_vecs = torch.from_numpy(np.asarray(m_vecs, np.float32)) \
             .to(spec.dtype).float().numpy()
-        return ([inv.reshape(arr.shape), slots[hit].astype(np.int32)],
-                m_vecs, {"reads": int(uniq.size), "hits": int(hit.sum()),
-                         "misses": int(missing.size)})
+        return hit, slots[hit].astype(np.int32), m_vecs
 
     def _read_end(self, state, idx, rows, occ=False):
         """Gather the hits from the device cache beside the uploaded
@@ -1091,10 +1153,16 @@ class HostLRUBackend(EmbeddingBackend):
         blob of the other store format (two-tier into ``+disk`` or the
         reverse) is rebuilt row-exactly from its logical rows; a blob of
         the other ``store_dtype`` is re-encoded."""
+        self.last_restore_resharded = False
         if isinstance(blob, dict) and "shard_meta" in blob:
-            raise NotImplementedError(
-                "this checkpoint holds a sharded-router table: resharding "
-                "on restore is not ported yet")
+            # a sharded-router checkpoint restored into one shard: gather
+            # the logical rows (device caches over host stores) and rebuild
+            # the tiers (an N -> 1 reshard; queued puts are dropped, the
+            # paper's tolerated in-flight loss)
+            vec, acc = extract_logical_rows(blob, self.spec, "host_lru")
+            state = self._init_with_rows(np.arange(self.spec.rows), vec, acc)
+            self.last_restore_resharded = True
+            return {k: v.numpy() for k, v in state.items()}
         with self._lock:
             return self._restore_locked(blob)
 
@@ -1209,6 +1277,658 @@ def _store_logical_rows(sblob, rows: int, dim: int):
     return vec, acc
 
 
+# ===========================================================================
+# ShardedBackend — the sharded embedding-PS router (paper §4.1)
+# ===========================================================================
+
+# Knuth's multiplicative-hash constant (2^32 / phi, odd): the routing premix,
+# distinct from the in-shard placement shuffle so that shard choice and row
+# placement stay decorrelated
+_ROUTE_MULT = 2_654_435_761
+_ROUTE_ADD = 97_531
+
+
+class _ShardRouting:
+    """Deterministic affine-hash ``id -> (shard, local id)`` routing (the
+    JAX package's, in numpy).
+
+    Ids are premixed by a bijective affine map over the padded domain ``P =
+    round_up(rows, k)`` (the multiplier moves up by 2 until it is coprime
+    with P); then ``shard = premix % k`` and ``local = premix // k``. The
+    map is a bijection, so the shards' local id spaces are disjoint and
+    exactly invertible: a checkpoint saved with N shards restores row-exactly
+    into M."""
+
+    def __init__(self, rows: int, k: int):
+        self.rows, self.k = int(rows), int(k)
+        P = round_up(max(self.rows, self.k), self.k)
+        mult = _ROUTE_MULT
+        while math.gcd(mult, P) != 1:
+            mult += 2
+        self.P, self.mult, self.add = P, mult, _ROUTE_ADD % P
+        self.sub_rows = P // self.k          # each shard's local id space
+
+    def shard_and_local(self, ids):
+        ids = np.asarray(ids, np.int64)
+        pre = (ids * self.mult + self.add) % self.P
+        return pre % self.k, pre // self.k
+
+
+def _dense_state_from_logical(spec: EmbeddingSpec, n_rows: int, vec, acc):
+    """A dense PS state (numpy) of ``n_rows`` storage rows holding logical
+    row ``i`` of ``vec`` at its uniform-shuffle position: the inverse of
+    reading a dense table back row by row. Ids that share a shuffled row
+    keep the last one's values, as in the JAX package."""
+    pos = PS.shuffle_pos(torch.arange(vec.shape[0]), n_rows).numpy()
+    table = np.zeros((n_rows, vec.shape[1]), vec.dtype)
+    table[pos] = vec
+    state = {"table": table}
+    if spec.optimizer == "adagrad":
+        a = np.zeros((n_rows,), np.float32)
+        if acc is not None:
+            a[pos] = np.asarray(acc, np.float32)
+        state["acc"] = a
+    return state
+
+
+def extract_logical_rows(blob, spec: EmbeddingSpec, base: str):
+    """Checkpoint blob -> ``(vec, acc)`` in logical row order: ``vec[i]`` is
+    what a lookup of id ``i`` returns and ``acc[i]`` its accumulator (None
+    when the blob has none). Takes every blob geometry: dense (rows read
+    back through the uniform shuffle), host_lru (host-store rows overlaid
+    with the device cache, whose copies are the freshest) and the router's
+    shard-tagged blobs (each shard's blob extracted and scattered back
+    through the source routing). This is the reshard path: N-shard
+    checkpoints restore row-exactly into M-shard trainers."""
+    if isinstance(blob, dict) and "shard_meta" in blob:
+        meta = np.asarray(blob["shard_meta"], np.int64).reshape(-1)
+        src_k, src_rows = int(meta[0]), int(meta[1])
+        if src_rows != spec.rows:
+            raise ValueError(
+                f"sharded checkpoint holds {src_rows} logical rows but this "
+                f"table's spec wants {spec.rows} — collection changed since "
+                "the save?")
+        routing = _ShardRouting(spec.rows, src_k)
+        own, loc = routing.shard_and_local(np.arange(spec.rows))
+        sub_spec = dataclasses.replace(spec, rows=routing.sub_rows,
+                                       emb_shards=1)
+        vec = acc = None
+        for s in range(src_k):
+            v_s, a_s = extract_logical_rows(blob["shards"][f"s{s}"],
+                                            sub_spec, base)
+            if vec is None:
+                vec = np.zeros((spec.rows, spec.dim), v_s.dtype)
+                acc = None if a_s is None \
+                    else np.zeros((spec.rows,), np.float32)
+            sel = own == s
+            vec[sel] = v_s[loc[sel]]
+            if acc is not None and a_s is not None:
+                acc[sel] = a_s[loc[sel]]
+        return vec, acc
+
+    if base == "dense":
+        table = blob.get("table") if isinstance(blob, dict) else None
+        if table is None:
+            raise ValueError(
+                "checkpoint blob has no 'table' — it was not written by the "
+                "dense backend (restoring across backends is not supported)")
+        table = np.asarray(table)
+        if table.shape[1] != spec.dim or table.shape[0] < spec.rows:
+            raise ValueError(
+                f"checkpoint table has shape {tuple(table.shape)} but this "
+                f"table's spec wants >= ({spec.rows}, {spec.dim}) — "
+                "collection changed since the save?")
+        pos = PS.shuffle_pos(torch.arange(spec.rows), table.shape[0]).numpy()
+        acc = blob.get("acc")
+        return table[pos], (None if acc is None
+                            else np.asarray(acc, np.float32)[pos])
+
+    if not isinstance(blob, dict) or "store" not in blob \
+            or "cache" not in blob:
+        raise ValueError(
+            "checkpoint blob has no host store — it was not written by "
+            "the host_lru backend (restoring across backends is not "
+            "supported)")
+    meta = blob["store"]["meta"]
+    cap, dim = int(meta[0]), int(meta[1])
+    if cap != spec.rows or dim != spec.dim:
+        raise ValueError(
+            f"checkpoint host store is ({cap}, {dim}) but this table's "
+            f"spec wants ({spec.rows}, {spec.dim}) — collection changed "
+            "since the save?")
+    vec, acc = _store_logical_rows(blob["store"], spec.rows, spec.dim)
+    # the device cache holds the freshest copy of every resident row: lay
+    # it over the store, as draining the cache would
+    id_for_slot = np.asarray(blob["cache_meta"]["id_for_slot"], np.int64)
+    live = np.nonzero(id_for_slot >= 0)[0]
+    if live.size:
+        cached = id_for_slot[live]
+        vec[cached] = np.asarray(blob["cache"]["table"], np.float32)[live]
+        if "acc" in blob["cache"]:
+            acc[cached] = np.asarray(blob["cache"]["acc"], np.float32)[live]
+    return vec, acc
+
+
+class ShardedBackend(EmbeddingBackend):
+    """Router over ``n_shards`` independent shard backends: the embedding
+    PS as a set of shards (paper §4.1: capacity and host fault-in
+    bandwidth grow with the number of shards).
+
+    Each shard is a full dense or host_lru backend over its own local id
+    space (disjoint under the bijective :class:`_ShardRouting`), with its
+    own lock, slot map, host store and staleness queue. ``prepare`` routes
+    the batch and runs the host_lru shards' fault-ins concurrently on a
+    thread pool (``emb-shard`` threads), each under its own shard's lock;
+    they upload and ``index_copy_`` on the default stream, and no pool
+    thread launches a kernel of the port.
+
+    Device ids are shard-encoded: ``dev = shard * stride + local`` with
+    one ``stride`` (a host_lru shard's slot pool, cache and bypass, or a
+    dense shard's rows). State and queues are dicts keyed ``"s0" ..
+    "s{k-1}"``; every shard's queue is as wide as the router's unique put,
+    which it holds masked to the shard's own ids.
+
+    The device side keeps each stage's launches: a lookup or serve read
+    gathers every shard's owned unique rows into ONE (U, dim) block by
+    index, which the stage's bag launch pools with the identity for
+    ``dev``; a put segment-sums its occurrence gradients ONCE (a sum-only
+    ``fused_backward`` launch) and hands the sums to every shard's put
+    (one apply-only launch each). Checkpoints are shard-tagged
+    (``shard_meta`` and one blob per shard); a restore into another shard
+    count reshards row-exactly through :func:`extract_logical_rows`, with
+    caches restarted and the queued puts dropped (the paper's tolerated
+    in-flight loss)."""
+
+    # the in-process router needs >= 2 shards (one shard IS the plain
+    # backend); a router whose shards live in other processes allows 1
+    min_shards = 2
+
+    def __init__(self, spec: EmbeddingSpec, n_shards: int | None = None):
+        base, _ = parse_backend_name(spec.backend)
+        if base.startswith("host_lru") and spec.cache_rows <= 0:
+            raise ValueError(
+                "host_lru backend needs EmbeddingSpec.cache_rows > 0 "
+                f"(got {spec.cache_rows})")
+        self.spec = spec
+        self._base = base
+        self._host = base.startswith("host_lru")
+        self._lock = threading.Lock()        # the traffic counters only
+        self._pool: ThreadPoolExecutor | None = None
+        self._configure(int(n_shards if n_shards is not None
+                            else spec.emb_shards))
+
+    def _make_sub(self, s: int, sub_spec: EmbeddingSpec) -> EmbeddingBackend:
+        """Shard ``s``'s backend: the hook a router whose shards live in
+        other processes overrides."""
+        return HostLRUBackend(sub_spec) if self._host \
+            else DenseBackend(sub_spec)
+
+    def _configure(self, k: int):
+        if k < self.min_shards:
+            raise ValueError(
+                f"{type(self).__name__} needs >= {self.min_shards} shards "
+                f"(got {k}); use the plain backend for a single shard")
+        spec = self.spec
+        self.n_shards = k
+        self._routing = _ShardRouting(spec.rows, k)
+        kw = {"backend": self._base, "emb_shards": 1,
+              "rows": self._routing.sub_rows}
+        if self._host:
+            # cache_rows stays the table's TOTAL device-cache budget, split
+            # evenly over the shards (by ceiling), as are the bypass
+            # region, the +disk host tier and the mmap directory
+            kw["cache_rows"] = -(-spec.cache_rows // k)
+            if spec.bypass_rows:
+                kw["bypass_rows"] = -(-int(spec.bypass_rows) // k)
+            if spec.host_rows:
+                kw["host_rows"] = -(-int(spec.host_rows) // k)
+        subs = []
+        for s in range(k):
+            kws = dict(kw)
+            if self._host and spec.disk_path is not None:
+                kws["disk_path"] = os.path.join(spec.disk_path, f"s{s}")
+            subs.append(self._make_sub(s, dataclasses.replace(spec, **kws)))
+        self.shard_backends = subs
+        # a host_lru shard's local device ids span its whole slot pool
+        # (cache and bypass), a dense shard's its rows
+        self.stride = subs[0].dev_slots if self._host \
+            else self._routing.sub_rows
+        self._traffic = np.zeros(k, np.int64)
+        if self._pool is not None:
+            self._pool.shutdown(wait=False)
+            self._pool = None
+
+    def _ensure_pool(self) -> ThreadPoolExecutor:
+        with self._lock:
+            if self._pool is None:
+                self._pool = ThreadPoolExecutor(
+                    max_workers=self.n_shards, thread_name_prefix="emb-shard")
+            return self._pool
+
+    def state_device(self, state) -> torch.device:
+        return state["s0"]["table"].device
+
+    # -- host-level ----------------------------------------------------------
+
+    def init(self, generator: torch.Generator, shards: int = 1,
+             scale: float = 0.02):
+        """Draw the table one shard would draw from ``generator`` (on its
+        device), read its logical rows (row ``i`` is what a one-shard
+        lookup of ``i`` reads) and distribute them over the shards: the
+        router is bit-exact with the plain backend. ``shards=1`` keeps the
+        configured count; another count reconfigures the router first."""
+        if shards not in (1, self.n_shards):
+            self._configure(int(shards))
+        spec = self.spec
+        ref_spec = dataclasses.replace(spec, backend="dense", emb_shards=1)
+        table = PS.ps_init(generator, ref_spec, 1, scale)["table"]
+        pos = PS.shuffle_pos(torch.arange(spec.rows), spec.padded_rows(1))
+        vec = table.float().cpu().numpy()[pos.numpy()]
+        del table
+        self._traffic = np.zeros(self.n_shards, np.int64)
+        return self._sub_states_from_logical(vec, None, generator.device)
+
+    def _sub_states_from_logical(self, vec, acc, device=None):
+        """Logical rows (and accumulators) distributed over the shards by
+        the routing: the init and reshard path. With ``device`` the
+        states are tensors there, else numpy (a restore's)."""
+        r = self._routing
+        ids = np.arange(self.spec.rows)
+        own, loc = r.shard_and_local(ids)
+        states = {}
+        for s, sub in enumerate(self.shard_backends):
+            sel = own == s
+            gl, ll = ids[sel], loc[sel]
+            if self._host:
+                st = sub._init_with_rows(
+                    ll, np.asarray(vec[gl], np.float32),
+                    None if acc is None else acc[gl],
+                    device="cpu" if device is None else device)
+                if device is None:
+                    st = {k: v.numpy() for k, v in st.items()}
+            else:
+                sub_vec = np.zeros((r.sub_rows, vec.shape[1]), vec.dtype)
+                sub_vec[ll] = vec[gl]
+                sub_acc = None
+                if acc is not None:
+                    sub_acc = np.zeros((r.sub_rows,), np.float32)
+                    sub_acc[ll] = acc[gl]
+                st = _dense_state_from_logical(sub.spec, r.sub_rows, sub_vec,
+                                               sub_acc)
+                if device is not None:
+                    st = {k: torch.from_numpy(v).to(device).to(
+                        sub.spec.dtype if k == "table" else torch.float32)
+                        for k, v in st.items()}
+            states[f"s{s}"] = st
+        return states
+
+    def dedup_rows(self) -> int:
+        return min(self.spec.rows, self.dev_rows())
+
+    def dev_rows(self) -> int:
+        return self.n_shards * self.stride
+
+    def _route(self, flat: np.ndarray):
+        """Logical ids -> (owner shard, -1 for invalid ids; local id)."""
+        valid = (flat >= 0) & (flat < self.spec.rows)
+        own, loc = self._routing.shard_and_local(np.where(valid, flat, 0))
+        return np.where(valid, own, -1), loc
+
+    def prepare(self, state, ids, assume_unique: bool = False, counts=None):
+        """Route the batch and prepare every shard on its local ids (the
+        host_lru shards' fault-ins concurrently on the router's pool, each
+        under its shard's lock) -> shard-encoded device ids, as host int32
+        for host ids or as a tensor on the table's device for a tensor.
+        With a plan's unique ids (``assume_unique``), ``counts`` carries
+        their occurrence counts, so the traffic and imbalance gauges count
+        the raw id stream, hot keys included."""
+        arr = _host_ids(ids)
+        flat = arr.reshape(-1)
+        own, loc = self._route(flat)
+        with self._lock:
+            if counts is None:
+                self._traffic += np.bincount(own[own >= 0],
+                                             minlength=self.n_shards)
+            else:
+                c = np.asarray(counts, np.int64).reshape(-1)
+                np.add.at(self._traffic, own[own >= 0], c[own >= 0])
+        new_state = dict(state)
+        if self._host:
+            device = self.state_device(state)
+
+            def one(s):
+                with (torch.cuda.device(device) if device.type == "cuda"
+                      else contextlib.nullcontext()):
+                    # counts stay aligned by position: the ids other
+                    # shards own are -1 here
+                    return self.shard_backends[s].prepare(
+                        state[f"s{s}"], np.where(own == s, loc, -1),
+                        assume_unique, counts)
+
+            pool = self._ensure_pool()
+            futs = [pool.submit(one, s) for s in range(self.n_shards)]
+            devs = np.empty((self.n_shards, flat.size), np.int64)
+            for s, f in enumerate(futs):
+                new_state[f"s{s}"], dev_s = f.result()
+                devs[s] = np.asarray(dev_s, np.int64).reshape(-1)
+            local = devs[np.maximum(own, 0), np.arange(flat.size)]
+        else:
+            local = loc                     # a dense shard's ids are its own
+        out = np.where((own >= 0) & (local >= 0), own * self.stride + local,
+                       -1).astype(np.int32).reshape(arr.shape)
+        if isinstance(ids, torch.Tensor):
+            return new_state, torch.from_numpy(out).to(
+                self.state_device(state))
+        return new_state, out
+
+    def plan_parts(self, dev_u: np.ndarray) -> list[np.ndarray]:
+        """The host int32 arrays of a plan's :class:`~repro_torch.core.
+        dedup.ShardParts`, from its shard-encoded unique device ids:
+        ``[perm, rows_0 .. rows_{k-1}, local_0 .. local_{k-1}]``."""
+        dev = np.asarray(dev_u, np.int64).reshape(-1)
+        ok = (dev >= 0) & (dev < self.dev_rows())
+        own = np.where(ok, dev // self.stride, -1)
+        loc = np.where(ok, dev % self.stride, -1)
+        perm = np.empty(dev.size, np.int32)
+        rows, local, off = [], [], 0
+        for s, sub in enumerate(self.shard_backends):
+            sel = np.nonzero(own == s)[0]
+            rows.append(sub.table_rows(torch.from_numpy(loc[sel])).numpy())
+            perm[sel] = off + np.arange(sel.size)
+            off += sel.size
+            local.append(np.where(own == s, loc, -1).astype(np.int32))
+        perm[~ok] = off                     # the zero row after the gathers
+        return [perm, *rows, *local]
+
+    # -- serve-path read (read-only) -----------------------------------------
+
+    @contextlib.contextmanager
+    def _all_locks(self):
+        with contextlib.ExitStack() as held:
+            for sub in self.shard_backends:
+                held.enter_context(sub.read_lock())
+            yield
+
+    def read_lock(self):
+        return self._all_locks()
+
+    def _read_begin(self, arr, occ=False):
+        """Route the read's unique ids and resolve each shard's residency:
+        the arrays to upload are the occurrence inverse, each shard's
+        positions and table rows of its resident ids and the positions of
+        the rows read from a host tier; the rows to upload are those. Call
+        under :meth:`read_lock` with the matching :meth:`_read_end`."""
+        flat = arr.reshape(-1)
+        valid = (flat >= 0) & (flat < self.spec.rows)
+        uniq, inv_valid = np.unique(flat[valid], return_inverse=True)
+        inv = np.full(flat.shape, -1, np.int32)
+        inv[valid] = inv_valid
+        own, loc = self._route(uniq)
+        idx, miss_pos, miss_vecs = [inv.reshape(arr.shape)], [], []
+        hits = 0
+        for s, sub in enumerate(self.shard_backends):
+            pos = np.nonzero(own == s)[0]
+            hit, rows, vecs = sub._resolve_unique(loc[pos])
+            idx += [pos[hit].astype(np.int32), rows]
+            miss_pos.append(pos[~hit])
+            miss_vecs.append(vecs)
+            hits += int(hit.sum())
+        idx.append(np.concatenate(miss_pos).astype(np.int32))
+        vecs = np.concatenate(miss_vecs) if self._host else None
+        return idx, vecs, {"reads": int(uniq.size), "hits": hits,
+                           "misses": int(uniq.size) - hits}
+
+    def _read_end(self, state, idx, rows, occ=False):
+        """The read's unique rows gathered into one block by index (each
+        shard's resident rows, then the rows from the host tiers; at least
+        one row, so an empty read still pools zeros)."""
+        inv, parts, miss_pos = idx[0], idx[1:-1], idx[-1]
+        tables = [state[f"s{s}"]["table"] for s in range(self.n_shards)]
+        U = sum(int(p.shape[0]) for p in parts[::2]) + int(miss_pos.shape[0])
+        block = torch.zeros((max(U, 1), self.spec.dim),
+                            dtype=torch.float32, device=tables[0].device)
+        for t, pos, r in zip(tables, parts[::2], parts[1::2]):
+            block.index_copy_(0, pos.long(),
+                              t.index_select(0, r.long()).float())
+        if rows is not None:
+            block.index_copy_(0, miss_pos.long(), rows)
+        if occ:
+            return D.plan_scatter(block, inv)
+        return (block, None, inv, False)
+
+    # -- slot pinning / shard introspection ----------------------------------
+
+    def _split_dev(self, dev_ids):
+        host = dev_ids.host if D.is_plan(dev_ids) else None
+        flat = _host_ids(D.plan_dev(dev_ids) if host is None
+                         else host).reshape(-1)
+        flat = flat[(flat >= 0) & (flat < self.dev_rows())]
+        return flat // self.stride, flat % self.stride
+
+    def pin_slots(self, dev_ids):
+        own, loc = self._split_dev(dev_ids)
+        for s, sub in enumerate(self.shard_backends):
+            sel = own == s
+            if sel.any():
+                sub.pin_slots(loc[sel])
+
+    def unpin_slots(self, dev_ids):
+        own, loc = self._split_dev(dev_ids)
+        for s, sub in enumerate(self.shard_backends):
+            sel = own == s
+            if sel.any():
+                sub.unpin_slots(loc[sel])
+
+    def reset_pins(self):
+        for sub in self.shard_backends:
+            sub.reset_pins()
+
+    def n_put_shards(self) -> int:
+        return self.n_shards
+
+    def put_shards(self, dev_ids) -> tuple[int, ...]:
+        own, _ = self._split_dev(dev_ids)
+        return tuple(np.unique(own).tolist())
+
+    def queue_init(self, ids_shape, device=None):
+        if self.spec.staleness <= 0:
+            return None
+        # every shard's queue at the ROUTER's width: the unique put is
+        # pushed into each shard masked to the shard's rows
+        return self._queue_init_width(self.queue_width(_prod(ids_shape)),
+                                      device)
+
+    def _queue_init_width(self, width: int, device=None):
+        return {f"s{s}": sub._queue_init_width(width, device)
+                for s, sub in enumerate(self.shard_backends)}
+
+    # -- device-side ---------------------------------------------------------
+
+    def _local_ids(self, flat: torch.Tensor, s: int) -> torch.Tensor:
+        local = flat - s * self.stride
+        return torch.where((local >= 0) & (local < self.stride), local, -1)
+
+    def _locals(self, dev_u: torch.Tensor, plan=None) -> list:
+        """Every shard's local ids of unique device ids (-1 where another
+        shard owns the id): the plan's uploaded ones when it has them."""
+        if plan is not None and plan.shards is not None:
+            return list(plan.shards.local)
+        return [self._local_ids(dev_u, s) for s in range(self.n_shards)]
+
+    def _lookup_flat(self, state, dev_ids):
+        """Occurrence rows: each shard's rows selected where it owns the
+        id (zeros where none does)."""
+        shape = dev_ids.shape
+        flat = dev_ids.reshape(-1)
+        out = None
+        for s, sub in enumerate(self.shard_backends):
+            local = self._local_ids(flat, s)
+            acts, _ = sub._lookup_flat(state[f"s{s}"], local)
+            out = acts if out is None else \
+                torch.where((local >= 0)[:, None], acts, out)
+        return out.reshape(*shape, self.spec.dim), {}
+
+    def _plan_unique(self, state, plan):
+        """A plan's (U, dim) unique rows in ONE block: every shard's rows
+        gathered, then put at their plan positions by one gather through
+        ``perm`` (padding reads a zero row)."""
+        parts = plan.shards
+        if parts is None:
+            return self._lookup_unique(state, plan.dev)
+        gathered = [state[f"s{s}"]["table"].index_select(0, r)
+                    for s, r in enumerate(parts.rows)]
+        gathered.append(gathered[0].new_zeros((1, self.spec.dim)))
+        return torch.cat(gathered).index_select(0, parts.perm), {}
+
+    def _bag_entry(self, state, dev_ids) -> tuple:
+        if D.is_plan(dev_ids):
+            return (self._plan_unique(state, dev_ids)[0], None, dev_ids.inv,
+                    False)
+        rows, _ = self._lookup_flat(state, dev_ids)
+        return (rows.reshape(-1, self.spec.dim), None, _slots(dev_ids), True)
+
+    def lookup_pooled(self, state, dev_ids):
+        return _bag_all({0: self._bag_entry(state, dev_ids)})[0], {}
+
+    def _sums(self, plan, grads) -> torch.Tensor:
+        """The plan's unique-width gradient sums: the sum-only
+        ``fused_backward`` launch, once for every shard."""
+        return D.csr_segment_sum(*_plan_csr(plan), grads,
+                                 int(plan.dev.shape[0]))
+
+    def _put_plan(self, state, plan, grads):
+        return self._put_unique(state, plan.dev, self._sums(plan, grads),
+                                self._locals(plan.dev, plan))
+
+    def _hybrid_plan(self, state, queue, plan, grads):
+        return self._hybrid_unique(state, queue, plan.dev,
+                                   self._sums(plan, grads),
+                                   self._locals(plan.dev, plan))
+
+    def _wire_begin(self, state, queue, plan, grads):
+        g_u = self._sums(plan, grads)
+
+        def finish():
+            return self._hybrid_unique(state, queue, plan.dev, g_u,
+                                       self._locals(plan.dev, plan))
+        return g_u, finish
+
+    def _put_flat(self, state, dev_ids, grads):
+        flat = dev_ids.reshape(-1)
+        g = grads.reshape(-1, self.spec.dim)
+        new = dict(state)
+        for s, sub in enumerate(self.shard_backends):
+            new[f"s{s}"], _ = sub._put_flat(state[f"s{s}"],
+                                            self._local_ids(flat, s), g)
+        return new, {}
+
+    def _put_unique(self, state, dev_u, g_u, local=None):
+        local = local or self._locals(dev_u)
+        new = dict(state)
+        for s, sub in enumerate(self.shard_backends):
+            new[f"s{s}"], _ = sub._put_unique(state[f"s{s}"], local[s], g_u)
+        return new, {}
+
+    def _per_shard_hybrid(self, state, queue, fn):
+        new_state, new_queue = dict(state), dict(queue or {})
+        for s in range(self.n_shards):
+            q = None if queue is None else queue.get(f"s{s}")
+            new_state[f"s{s}"], new_queue[f"s{s}"], _ = fn(s, state[f"s{s}"],
+                                                           q)
+        if queue is None and all(v is None for v in new_queue.values()):
+            return new_state, None, {}
+        return new_state, new_queue, {}
+
+    def _hybrid_flat(self, state, queue, dev_ids, grads):
+        flat = dev_ids.reshape(-1)
+        g = grads.reshape(-1, self.spec.dim)
+        return self._per_shard_hybrid(
+            state, queue, lambda s, st, q: self.shard_backends[s]._hybrid_flat(
+                st, q, self._local_ids(flat, s), g))
+
+    def _hybrid_unique(self, state, queue, dev_u, g_u, local=None):
+        local = local or self._locals(dev_u)
+        return self._per_shard_hybrid(
+            state, queue,
+            lambda s, st, q: self.shard_backends[s]._hybrid_unique(
+                st, q, local[s], g_u))
+
+    # -- checkpoint ----------------------------------------------------------
+
+    def state_for_checkpoint(self, state):
+        return {
+            "shard_meta": np.array([self.n_shards, self.spec.rows,
+                                    self.spec.dim], np.int64),
+            "shards": {f"s{s}": sub.state_for_checkpoint(state[f"s{s}"])
+                       for s, sub in enumerate(self.shard_backends)},
+        }
+
+    def restore_from_checkpoint(self, blob):
+        """A blob of this shard count restores shard by shard, bit for bit;
+        any other blob (another shard count, or a plain backend's) is
+        resharded from its logical rows (``last_restore_resharded``).
+        Returns the shards' states as numpy."""
+        self.last_restore_resharded = False
+        if isinstance(blob, dict) and "shard_meta" in blob:
+            meta = np.asarray(blob["shard_meta"], np.int64).reshape(-1)
+            if int(meta[0]) == self.n_shards:
+                out = {}
+                for s, sub in enumerate(self.shard_backends):
+                    try:
+                        out[f"s{s}"] = sub.restore_from_checkpoint(
+                            blob["shards"][f"s{s}"])
+                    except ValueError as e:
+                        raise ValueError(f"shard {s}: {e}") from e
+                return out
+        vec, acc = extract_logical_rows(blob, self.spec, self._base)
+        self.last_restore_resharded = True
+        return self._sub_states_from_logical(vec, acc)
+
+    # -- metrics / capacity accounting ---------------------------------------
+
+    def shard_metrics(self) -> dict:
+        """Per-shard gauges (keys relative: the trainer prefixes
+        ``shard/<table>/``): hit rate, faults, rows and bytes, plus
+        ``imbalance``, the max/mean of the cumulative routed-id traffic
+        (hot-key skew made visible)."""
+        out = {}
+        for s, sub in enumerate(self.shard_backends):
+            faults = getattr(sub, "faults", 0)
+            hits = getattr(sub, "hits", 0)
+            looked = hits + faults
+            out[f"{s}/hit_rate"] = (hits / looked) if looked else 1.0
+            out[f"{s}/faults"] = float(faults)
+            store = getattr(sub, "store", None)
+            if store is not None:
+                out[f"{s}/rows"] = float(store.size)
+                out[f"{s}/bytes"] = float(sub.host_bytes())
+            else:
+                itemsize = torch.empty((), dtype=sub.spec.dtype) \
+                    .element_size()
+                out[f"{s}/rows"] = float(sub.spec.rows)
+                out[f"{s}/bytes"] = float(sub.spec.rows * sub.spec.dim
+                                          * itemsize)
+        with self._lock:
+            traffic = self._traffic.copy()
+        mean = float(traffic.mean()) if traffic.size else 0.0
+        out["imbalance"] = (float(traffic.max()) / mean) if mean > 0 else 1.0
+        return out
+
+    def cache_metrics(self) -> dict:
+        out: dict[str, float] = {}
+        for sub in self.shard_backends:
+            for k, v in sub.cache_metrics().items():
+                out[k] = out.get(k, 0.0) + v
+        return out
+
+    def device_bytes(self, state) -> int:
+        return sum(sub.device_bytes(state[f"s{s}"])
+                   for s, sub in enumerate(self.shard_backends))
+
+    def host_bytes(self) -> int:
+        return sum(sub.host_bytes() for sub in self.shard_backends)
+
+
 class CompressedWireBackend(EmbeddingBackend):
     """The paper's §4.2.3 communication compression, as a decorator over
     either storage backend: gradient puts are deduplicated to one row per
@@ -1295,6 +2015,13 @@ class CompressedWireBackend(EmbeddingBackend):
     def cache_metrics(self) -> dict:
         return self.inner.cache_metrics()
 
+    @property
+    def last_restore_resharded(self) -> bool:
+        return self.inner.last_restore_resharded
+
+    def state_device(self, state) -> torch.device:
+        return self.inner.state_device(state)
+
     def state_for_checkpoint(self, state):
         return self.inner.state_for_checkpoint(state)
 
@@ -1323,7 +2050,7 @@ class CompressedWireBackend(EmbeddingBackend):
         to occurrence width happens after the wire, so the bytes shrink by
         the batch's dup factor), else one per occurrence."""
         if D.is_plan(dev_ids):
-            rows, m = self.inner._lookup_unique(state, dev_ids.dev)
+            rows, m = self.inner._plan_unique(state, dev_ids)
             n_raw = dev_ids.inv.numel() * self.spec.dim
         else:
             rows, m = self.inner.lookup(state, dev_ids)
@@ -1465,18 +2192,46 @@ def parse_backend_name(name: str | None) -> tuple[str, bool]:
 
 def create_backend(spec: EmbeddingSpec) -> EmbeddingBackend:
     """``spec.backend`` -> backend instance (see :func:`parse_backend_name`):
-    ``dense`` or ``host_lru[+disk]``, optionally behind the compressed
-    wire."""
+    ``dense`` or ``host_lru[+disk]``, through the :class:`ShardedBackend`
+    router when ``spec.emb_shards > 1``, optionally behind the compressed
+    wire, which wraps OUTSIDE the router (one wire per table)."""
     base, wrap = parse_backend_name(spec.backend)
-    backend = DenseBackend(spec) if base == "dense" else HostLRUBackend(spec)
+    if int(spec.emb_shards) > 1:
+        backend: EmbeddingBackend = ShardedBackend(spec)
+    elif base == "dense":
+        backend = DenseBackend(spec)
+    else:
+        backend = HostLRUBackend(spec)
     return CompressedWireBackend(backend) if wrap else backend
 
 
 def unwrap(backend: EmbeddingBackend) -> EmbeddingBackend:
-    """Strip wire decorators down to the storage backend."""
+    """Strip wire decorators down to the storage backend (plain or
+    router)."""
     while isinstance(backend, CompressedWireBackend):
         backend = backend.inner
     return backend
+
+
+def ensure_shards(backend: EmbeddingBackend, k: int) -> EmbeddingBackend:
+    """Route a backend through a ``k``-shard router (the
+    ``PersiaTrainer.init(emb_shards=...)`` path). ``k == 1`` means no
+    override and returns the backend as it is: it never undoes a spec's
+    router. A dense table whose spec has no ``emb_shards`` keeps the legacy
+    meaning (``init(shards=k)`` pads its rows), so only host-backed tables
+    and routers of another count are rebuilt here."""
+    if int(k) == 1:
+        return backend
+    inner = unwrap(backend)
+    if isinstance(inner, ShardedBackend):
+        if inner.n_shards == int(k):
+            return backend
+    elif not isinstance(inner, HostLRUBackend):
+        return backend                      # dense: the legacy row padding
+    new_inner = ShardedBackend(
+        dataclasses.replace(inner.spec, emb_shards=int(k)))
+    return CompressedWireBackend(new_inner) \
+        if isinstance(backend, CompressedWireBackend) else new_inner
 
 
 def make_backends(collection) -> dict[str, EmbeddingBackend]:
@@ -1486,9 +2241,9 @@ def make_backends(collection) -> dict[str, EmbeddingBackend]:
 
 def shard_step_metrics(backends) -> dict:
     """Host-side per-shard gauges for the step-metrics dict:
-    ``shard/<table>/<k>/...`` from each backend's ``shard_metrics``. Empty
-    (and cheap) while no table is sharded, which is every table until the
-    sharded router is ported."""
+    ``shard/<table>/<k>/{hit_rate,faults,rows,bytes}`` plus the
+    ``shard/<table>/imbalance`` max/mean traffic gauge. Empty (and cheap)
+    when no table is sharded."""
     out = {}
     for n, b in backends.items():
         for k, v in b.shard_metrics().items():
@@ -1557,8 +2312,10 @@ def prepare_all(backends, states, ids, device, lock=None, pins=None):
 
     It runs in three phases: every table's plan (numpy, touching no
     state), then every table's ``prepare`` (a host_lru table's slot map,
-    eviction and fault-in, which touch its state in place), then the
-    translation to table rows, the occurrence CSRs and the upload. Only
+    eviction and fault-in, which touch its state in place; a router's
+    shards on its pool), then the translation to table rows (a router
+    table's :class:`~repro_torch.core.dedup.ShardParts`), the occurrence
+    CSRs and the upload. Only
     the middle phase runs under ``lock`` when one is given (the pipelined
     trainer's store lock). With a dict ``pins``, each table's host device
     ids are pinned in its backend inside that phase, right after its
@@ -1600,9 +2357,13 @@ def prepare_all(backends, states, ids, device, lock=None, pins=None):
             continue
         b, spec = backends[n], backends[n].spec
         _, inv, _, info = plan
-        rows = unwrap(b).table_rows(torch.from_numpy(dev_u)).numpy()
         order, offsets = D.occurrence_csr(inv, dev_u.shape[0])
-        host[n] = [dev_u, inv, rows, order, offsets]
+        inner = unwrap(b)
+        if isinstance(inner, ShardedBackend):
+            host[n] = [dev_u, inv, order, offsets, *inner.plan_parts(dev_u)]
+        else:
+            rows = inner.table_rows(torch.from_numpy(dev_u)).numpy()
+            host[n] = [dev_u, inv, order, offsets, rows]
         n_unique[n] = info["n_unique"]
         itemsize = torch.empty((), dtype=spec.dtype).element_size()
         metrics[f"dedup/{n}/dup_factor"] = info["dup_factor"]
@@ -1614,9 +2375,20 @@ def prepare_all(backends, states, ids, device, lock=None, pins=None):
     dev_ids = {}
     for n, arrs in host.items():
         got = [next(flat) for _ in arrs]
-        dev_ids[n] = got[0] if len(got) == 1 else D.DedupPlan(
-            dev=got[0], inv=got[1], rows=got[2], order=got[3],
-            offsets=got[4], n_unique=n_unique[n], host=arrs[0])
+        if len(got) == 1:
+            dev_ids[n] = got[0]
+            continue
+        parts, rows = None, None
+        if len(got) == 5:
+            rows = got[4]
+        else:
+            k = (len(got) - 5) // 2
+            parts = D.ShardParts(perm=got[4], rows=tuple(got[5:5 + k]),
+                                 local=tuple(got[5 + k:]))
+        dev_ids[n] = D.DedupPlan(
+            dev=got[0], inv=got[1], rows=rows, order=got[2],
+            offsets=got[3], n_unique=n_unique[n], host=arrs[0],
+            shards=parts)
     return new_states, dev_ids, metrics
 
 
@@ -1639,7 +2411,9 @@ def lookup_all(backends, states, dev_ids):
     the identity for dev) or at occurrence width (``embedding_bag`` on a
     table's rows, or on a wire table's roundtripped occurrence rows
     through their slots). A table's rows are its backend's
-    ``table_rows``: shuffled rows, or host_lru cache slots."""
+    ``table_rows``: shuffled rows, or host_lru cache slots; a router
+    table's unique rows are gathered into one block first
+    (``ShardedBackend._bag_entry``)."""
     metrics = {}
     bags = {}                  # name -> (table, dev or None, inv, flat)
     wire = {}                  # name -> (rows, block)
@@ -1647,15 +2421,12 @@ def lookup_all(backends, states, dev_ids):
         if n not in backends:
             raise KeyError(f"ids for unknown table {n!r}; collection has "
                            f"{sorted(backends)}")
-        b, m, table = backends[n], {}, states[n]["table"]
+        b, m = backends[n], {}
         if isinstance(b, CompressedWireBackend):
             rows, m = b._get_rows(states[n], ids)
             wire[n] = (rows, b._block)
-        elif D.is_plan(ids):
-            bags[n] = (table, b._plan_rows(ids), ids.inv, False)
         else:
-            bags[n] = (table, None, b.table_rows(ids).to(table.device),
-                       True)
+            bags[n] = b._bag_entry(states[n], ids)
         _tag(metrics, n, m)
     for n, rows in _roundtrip_all(wire).items():
         ids = dev_ids[n]

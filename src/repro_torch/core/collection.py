@@ -19,8 +19,9 @@ As everywhere in the port, the puts update the states and queues in place
 tables through their backends and the grouped fan-outs of
 ``core/backend.py`` (``prepare_all``, ``lookup_all``, ``put_all``).
 ``with_backward_kernel`` selects nothing (every put runs the
-``fused_backward`` CUDA kernel), and ``with_shards`` takes only one shard
-until the sharded router is ported.
+``fused_backward`` CUDA kernel); ``with_shards`` sets each table's
+``emb_shards``, which routes it through the sharded router
+(``backend.ShardedBackend``).
 """
 from __future__ import annotations
 
@@ -53,6 +54,10 @@ class EmbeddingCollection:
             if n in seen:
                 raise ValueError(f"duplicate table name {n!r}")
             seen.add(n)
+            if int(s.emb_shards) < 1:
+                raise ValueError(
+                    f"table {n!r}: emb_shards must be >= 1 "
+                    f"(got {s.emb_shards})")
             create_backend(s)       # fail fast on bad or unported specs
 
     @staticmethod
@@ -136,17 +141,16 @@ class EmbeddingCollection:
 
     def with_shards(self, shards: "int | Mapping[str, int]"
                     ) -> "EmbeddingCollection":
-        """Per-table embedding-PS shard counts: an int for every table, or
-        a mapping of table names (validated). One shard is the collection
-        as it is; more raise until the sharded router is ported."""
+        """Set per-table embedding-PS shard counts (the ``ShardedBackend``
+        router, core/backend.py): an int shards every table, a mapping
+        shards the named tables and leaves the rest unchanged. Mapping keys
+        are validated against the registered table names."""
         self._check_shard_mapping(shards)
-        ks = shards.values() if isinstance(shards, Mapping) else [shards]
-        many = sorted({int(k) for k in ks if int(k) > 1})
-        if many:
-            raise NotImplementedError(
-                f"{many[-1]} embedding shards: the sharded router is not "
-                "ported yet (ROADMAP.md, Queue 1)")
-        return self
+        if isinstance(shards, Mapping):
+            return self.map_specs(lambda n, s: dataclasses.replace(
+                s, emb_shards=int(shards.get(n, s.emb_shards))))
+        return self.map_specs(
+            lambda _, s: dataclasses.replace(s, emb_shards=int(shards)))
 
     def make_backends(self):
         """One EmbeddingBackend per table (core/backend.py). Instances own
@@ -171,14 +175,23 @@ class EmbeddingCollection:
         if bad:
             raise ValueError(f"emb_shards must be >= 1, got {bad}")
 
+    def _shards_for(self, name: str, shards) -> int:
+        if isinstance(shards, Mapping):
+            # a mistyped table name fails loudly instead of running on one
+            # shard (every caller goes through here)
+            self._check_shard_mapping(shards)
+            return int(shards.get(name, 1))
+        return int(shards)
+
     def init(self, generator: torch.Generator,
              shards: "int | Mapping[str, int]" = 1,
              scale: float = 0.02) -> dict[str, Any]:
-        """Per-table PS state (table + row-wise optimizer accumulator),
-        drawn from ``generator`` table after table on its device. The JAX
-        package's ``jax.random`` split per table cannot be reproduced."""
-        self.with_shards(shards)
-        return {n: PS.ps_init(generator, s, 1, scale)
+        """Per-table PS state (table + row-wise optimizer accumulator, the
+        rows padded to a multiple of the table's ``shards``), drawn from
+        ``generator`` table after table on its device. The JAX package's
+        ``jax.random`` split per table cannot be reproduced."""
+        return {n: PS.ps_init(generator, s, self._shards_for(n, shards),
+                              scale)
                 for n, s in self.tables}
 
     def _check_ids(self, ids: Mapping[str, Any]) -> None:

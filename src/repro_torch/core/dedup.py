@@ -60,7 +60,10 @@ class DedupPlan:
     ``n_unique``: the host count of the valid entries of ``dev``.
     ``host``: the host int32 array that was uploaded as ``dev`` (slot
     pinning reads it, so a pin waits for no device).
-    The last five are built by ``backend.prepare_all``; a plan made by
+    ``shards``: for a table of the sharded router, its
+    :class:`ShardParts` (then ``rows`` is None: the router has no one
+    table).
+    The last six are built by ``backend.prepare_all``; a plan made by
     hand may leave them ``None``.
     """
     dev: torch.Tensor
@@ -70,6 +73,21 @@ class DedupPlan:
     offsets: torch.Tensor | None = None
     n_unique: int | None = None
     host: np.ndarray | None = None
+    shards: "ShardParts | None" = None
+
+
+@dataclasses.dataclass
+class ShardParts:
+    """A sharded-router plan's per-shard index arrays, built on the host
+    beside the plan. ``rows[s]``: the table rows of shard ``s``'s entries
+    of ``dev``, in position order; ``perm``: (U,) position -> row of the
+    concatenation of the shards' gathered rows and one zero row (padding
+    reads the zero row), so one gather puts every unique row at its plan
+    position; ``local[s]``: (U,) shard ``s``'s local device ids, -1 at the
+    positions other shards own (the put's per-shard ids)."""
+    perm: torch.Tensor
+    rows: tuple
+    local: tuple
 
 
 def is_plan(x) -> bool:

@@ -16,7 +16,8 @@ Unlike the JAX package, whose arrays are immutable, the puts and the queue
 update the state's tensors in place and return the same dicts (the JAX
 trainer donates them, so no caller sees the difference). Every apply runs
 through the ``fused_backward`` kernel (its plain version on the CPU). The
-mesh-sharded branches (``shard_map``) come with a later slice.
+mesh-sharded branches (``shard_map``) come with a later slice; the
+embedding-PS shards (``emb_shards``) are the router of ``core/backend.py``.
 """
 from __future__ import annotations
 
@@ -78,6 +79,11 @@ class EmbeddingSpec:
     # '+disk' tier sizing (core/mmap_store.py)
     host_rows: int = 0              # host LRU tier rows (0 = rows // 4)
     disk_path: str | None = None    # mmap backing dir (None = tempdir)
+    # sharded PS router (core/backend.py ShardedBackend): the number of
+    # independent embedding-PS shards the table is hash-partitioned over
+    # (paper §4.1). 1 = the plain backend; k > 1 routes ids over k
+    # per-shard backends with their own stores, locks and queues
+    emb_shards: int = 1
     # worker-side batch dedup (core/dedup.py): True (default) reads through
     # a per-batch DedupPlan at unique width (the unique_bag kernel); False
     # reads at occurrence width (the embedding_bag kernel)

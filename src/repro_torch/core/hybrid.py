@@ -58,7 +58,11 @@ Differences from the JAX package, all of eager PyTorch:
   (``backend="dense+compressed"``) roundtrip their gets and puts through
   the blockscale kernels, one compress and one decompress launch for all
   of them per get and per put. The pipelined trainer is
-  ``core/pipeline.py``; the sharded router comes with a later slice.
+  ``core/pipeline.py``. A table of the sharded router
+  (``emb_shards > 1``, or ``init(emb_shards=)``) pools in the same one bag
+  launch (its shards' unique rows gathered into one block) and puts
+  through one sum-only ``fused_backward`` launch and one apply-only launch
+  per shard.
 * A host_lru table's host tiers (store, slot map, counters) live in its
   backend, not in the ``TrainState``: ``TrainState.to`` copies the device
   cache only, and a copy that must train on its own needs its own
@@ -183,8 +187,22 @@ def _dense_queue_push_pop(queue, grads):
                 filled=min(filled + 1, n_tau)), old
 
 
+def _queue_leaf(q):
+    """The (tau, W) ``ids`` of a staleness queue, reaching into a sharded
+    router's per-shard queues (``{"s0": {...}, ...}``)."""
+    if q is None:
+        return None
+    return q["ids"] if "ids" in q else q["s0"]["ids"]
+
+
 def _queue_depth(q) -> int:
-    return 0 if q is None else int(np.shape(q["ids"])[0])
+    ids = _queue_leaf(q)
+    return 0 if ids is None else int(np.shape(ids)[0])
+
+
+def _queue_width(q) -> int:
+    ids = _queue_leaf(q)
+    return 0 if ids is None else int(np.prod(np.shape(ids)[1:]))
 
 
 def _migrate_queue_widths(backend, q):
@@ -192,11 +210,13 @@ def _migrate_queue_widths(backend, q):
     width follows from the blob's own width through the backend's capacity
     rule — idempotent, so unique-width blobs pass through unchanged, while
     occurrence-width blobs (written with ``batch_dedup=False``) are
-    re-encoded by deduplicating each pending put on the host. (The JAX
-    package's per-shard queues of its sharded router are not ported.)"""
+    re-encoded by deduplicating each pending put on the host. A router's
+    per-shard queues migrate one by one."""
     from repro_torch.core import dedup as DD
     if q is None:
         return None
+    if "ids" not in q:                  # the sharded router's queues
+        return {k: _migrate_queue_widths(backend, v) for k, v in q.items()}
     saved = int(np.shape(q["ids"])[1])
     new_w = int(backend.queue_width(saved))
     if new_w == saved:
@@ -289,7 +309,8 @@ class PersiaTrainer:
 
     # -- init -----------------------------------------------------------------
 
-    def init(self, seed: int = 0, batch_example=None) -> TrainState:
+    def init(self, seed: int = 0, batch_example=None,
+             emb_shards=1) -> TrainState:
         """Random dense params and tables on ``self.device``, drawn from one
         ``torch.Generator`` seeded with ``seed`` (dense first, then the
         tables in collection order), a fresh optimizer state and empty
@@ -297,7 +318,20 @@ class PersiaTrainer:
         required whenever any staleness is in play — without it tau>0 would
         silently train synchronously. The JAX package's ``jax.random``
         streams cannot be reproduced here: to start from a JAX state, use
-        ``repro_torch.convert.state_from_numpy``."""
+        ``repro_torch.convert.state_from_numpy``.
+
+        ``emb_shards`` (an int or a ``{table: k}`` mapping, validated
+        against the collection) sets per-table embedding-PS shard counts:
+        host-backed tables (and routers of another count) are rebuilt as
+        ``ShardedBackend`` routers of k shards; dense tables whose spec has
+        no ``emb_shards`` keep the legacy meaning (their rows padded to a
+        multiple of k). A table whose spec already has ``emb_shards > 1``
+        is a router from construction; the default 1 never undoes it."""
+        # swap the routers in BEFORE drawing the state
+        self.collection._check_shard_mapping(emb_shards)
+        for n in self.collection.names:
+            self.backends[n] = BK.ensure_shards(
+                self.backends[n], self.collection._shards_for(n, emb_shards))
         max_tau = max((s.staleness for _, s in self.collection.items()),
                       default=0)
         if batch_example is None and \
@@ -309,7 +343,9 @@ class PersiaTrainer:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
         dense = self.adapter.init_dense(gen)
-        emb = {n: self.backends[n].init(gen) for n in self.collection.names}
+        emb = {n: self.backends[n].init(
+            gen, self.collection._shards_for(n, emb_shards))
+            for n in self.collection.names}
         emb_queue = {n: None for n in self.collection.names}
         dense_queue = None
         if batch_example is not None:
@@ -398,6 +434,8 @@ class PersiaTrainer:
         metrics.update(prep_m)
         metrics.update(get_metrics)
         metrics.update(put_metrics)
+        # host-side per-shard gauges (hit rates, faults, load imbalance)
+        metrics.update(BK.shard_step_metrics(self.backends))
         return state.replace(dense=dense, opt=opt, emb=emb,
                              emb_queue=queues, dense_queue=dense_queue,
                              step=state.step + 1), metrics
@@ -528,6 +566,15 @@ class PersiaTrainer:
                     "the pending-put queue; rebuild the trainer with the "
                     "mode the checkpoint was trained under")
         for n in self.collection.names:
+            if emb_queue[n] is not None and \
+                    self.backends[n].last_restore_resharded:
+                # the table was resharded on restore: its queued puts are
+                # addressed in the OLD shard geometry (slots, local ids),
+                # so they are dropped (the paper's tolerated in-flight
+                # loss) and the queue restarts empty in the new geometry
+                emb_queue[n] = self.backends[n].queue_init(
+                    (_queue_width(emb_queue[n]),), "cpu")
+        for n in self.collection.names:
             # occurrence-width queue blobs restore into a batch-dedup (or
             # wire) trainer by re-encoding each pending put at the width
             # this trainer's backend runs (queue_width)
@@ -578,18 +625,17 @@ def init_train_state(adapter: ModelAdapter, mode: TrainMode, opt_init,
     "emb_queue", "dense_queue", "step"}`` on ``device``, dense parameters
     and then the table drawn from one ``torch.Generator`` seeded with
     ``seed`` (the JAX package takes a PRNG key), and the table's spec with
-    the mode's staleness. ``batch_example`` sizes the queues."""
+    the mode's staleness. ``batch_example`` sizes the queues;
+    ``emb_shards`` pads the table's rows to a multiple of it (the JAX
+    package's mesh padding)."""
     name, spec0 = _sole_table(adapter)
-    if emb_shards != 1:
-        raise NotImplementedError(f"{emb_shards} embedding shards: the "
-                                  "sharded router is not ported yet")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
     dense = adapter.init_dense(gen)
     spec = dataclasses.replace(spec0, staleness=mode.emb_staleness)
     state = {"dense": dense, "opt": opt_init(dense),
-             "emb": PS.ps_init(gen, spec), "emb_queue": None,
+             "emb": PS.ps_init(gen, spec, emb_shards), "emb_queue": None,
              "dense_queue": None, "step": 0}
     if batch_example is not None:
         n_ids = int(np.prod(np.shape(adapter.emb_ids(batch_example)[name])))

@@ -183,12 +183,8 @@ class PipelinedTrainer:
         return self.trainer.device
 
     def init(self, seed: int = 0, batch_example=None,
-             emb_shards: int = 1) -> TrainState:
-        if emb_shards != 1:
-            raise NotImplementedError(
-                f"emb_shards={emb_shards}: the sharded router is not ported "
-                "yet")
-        return self.trainer.init(seed, batch_example)
+             emb_shards=1) -> TrainState:
+        return self.trainer.init(seed, batch_example, emb_shards)
 
     def step(self, state, batch):
         return self.trainer.step(state, batch)
@@ -254,8 +250,8 @@ class PipelinedTrainer:
         stop = threading.Event()
         errors: list[PipelineStageError] = []
         inflight = threading.Semaphore(self.max_inflight)
-        # put backpressure per (table, PS shard); an unsharded table (every
-        # table, until the router is ported) is its one shard 0
+        # put backpressure per (table, PS shard): a router table has one
+        # window per shard, an unsharded table is its one shard 0
         windows = {(n, s): threading.Semaphore(self.put_window(n))
                    for n in names
                    for s in range(backends[n].n_put_shards())}

@@ -1,7 +1,8 @@
 """Batched LM serving driver (port of ``repro/launch/serve.py``): prefill a
 batch of prompts, then decode tokens step by step against the per-layer KV
 caches. The vocab table lives in an embedding backend (``dense``,
-``host_lru`` or ``host_lru+disk``, optionally behind ``+compressed``);
+``host_lru`` or ``host_lru+disk``, optionally behind ``+compressed``, over
+``--emb-shards`` shards of the sharded router);
 each step prepares its tokens there (a host_lru table faults them into its
 device cache before the prefill and before each decode step), looks them
 up and runs the transformer on the activations. Every prefill attention
@@ -87,7 +88,7 @@ def serve(cfg, batch=4, prompt_len=32, gen=16, seed=0, temperature=0.0,
         emb = backend.init(generator)
     else:
         emb, dense = state
-        if "store" in emb:
+        if "store" in emb or "shard_meta" in emb:
             from repro_torch.convert import table_from_numpy
             emb = table_from_numpy(backend, emb, dev)
     prompts = torch.as_tensor(make_prompts(cfg, batch, prompt_len, seed),
@@ -139,7 +140,7 @@ def main():
                     help="host_lru device-cache slots (0 = vocab/8)")
     ap.add_argument("--emb-shards", default="1",
                     help="embedding-PS shards for the vocab table (a bare "
-                         "int or 'vocab=k'; > 1 is not ported yet)")
+                         "int or 'vocab=k')")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu' (the plain versions)")
     args = ap.parse_args()

@@ -1,10 +1,9 @@
 """Shared spec plumbing for the launchers (copy of ``repro/launch/
 shards.py``): one ``--emb-shards`` grammar (a bare int or comma-separated
 ``table=k`` pairs), one way to build an EmbeddingSpec from CLI knobs and
-one way to apply a backend choice to a collection.
-
-The port's ``EmbeddingSpec`` has no ``emb_shards`` yet: a spec for more
-than one shard (the sharded router) raises until that is ported.
+one way to apply a backend choice to a collection. A table of more than
+one shard runs through the sharded router (``core/backend.py``
+``ShardedBackend``).
 """
 from __future__ import annotations
 
@@ -54,11 +53,8 @@ def build_embedding_spec(rows: int, dim: int, backend: str = "dense",
     from repro_torch.core.embedding_ps import EmbeddingSpec
 
     shards = shards_for_table(parse_emb_shards(emb_shards), table)
-    if shards > 1:
-        raise NotImplementedError(
-            f"{shards} embedding shards for {table!r}: the sharded router "
-            "is not ported yet")
-    spec = EmbeddingSpec(rows=rows, dim=dim, backend=backend, **spec_kw)
+    spec = EmbeddingSpec(rows=rows, dim=dim, backend=backend,
+                         emb_shards=max(int(shards), 1), **spec_kw)
     if backend.startswith("host_lru"):
         spec = dataclasses.replace(
             spec, cache_rows=default_cache_rows(rows, cache_rows))

@@ -19,8 +19,8 @@ every PS table with its adagrad accumulator (a host_lru table with its
 host tiers), and the staleness queues — so ``--resume`` continues
 bit-identically. The LM task trains ``small_lm_cfg`` (about 100M dense
 parameters) on synthetic Markov tokens through the one-table collection
-of ``adapters.lm_adapter``. ``--emb-shards`` above 1 waits for the sharded
-router and raises.
+of ``adapters.lm_adapter``. ``--emb-shards`` (a bare int or ``table=k``
+pairs) runs tables over the sharded router.
 """
 from __future__ import annotations
 
@@ -101,7 +101,7 @@ def _ctr_collection_for(cfg, ds, args):
         default_cache_rows(ds.rows_per_field, args.cache_rows))
     shards = parse_emb_shards(args.emb_shards)
     if shards != 1:
-        coll = coll.with_shards(shards)     # more than one shard raises
+        coll = coll.with_shards(shards)
     return _apply_emb_tuning(coll, args)
 
 
@@ -224,7 +224,7 @@ def train_lm(args):
         default_cache_rows(cfg.vocab_size, args.cache_rows))
     shards = parse_emb_shards(args.emb_shards)
     if shards != 1:
-        coll = coll.with_shards(shards)     # more than one shard raises
+        coll = coll.with_shards(shards)
     coll = _apply_emb_tuning(coll, args)
     if coll is not adapter.collection:
         adapter = dataclasses.replace(adapter, collection=coll)
@@ -315,8 +315,9 @@ def parse_args(argv=None):
                     help="disable worker-side batch dedup (core/dedup.py): "
                          "the occurrence-width lookup/queue/put path")
     ap.add_argument("--emb-shards", default="1",
-                    help="embedding-PS shards per table; only 1 until the "
-                         "sharded router is ported")
+                    help="embedding-PS shards per table: a bare int or "
+                         "comma-separated table=k pairs (the sharded "
+                         "router)")
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--emb-lr", type=float, default=5e-2)
     ap.add_argument("--eval-every", type=int, default=25)

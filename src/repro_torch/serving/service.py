@@ -84,9 +84,12 @@ class ServingStopTimeout(RuntimeError):
 def queue_lag(q, step: int, tau: int) -> int:
     """Staleness-queue lag of one table: how many steps of applied updates
     the queue is still holding back: its ``filled`` count (0 during
-    warmup, tau at steady state). Tables without a queue lag 0."""
+    warmup, tau at steady state; a sharded router's most-filled shard
+    queue). Tables without a queue lag 0."""
     if q is None or tau <= 0:
         return 0
+    if "filled" not in q:                  # sharded router: per-shard queues
+        return max((queue_lag(v, step, tau) for v in q.values()), default=0)
     return int(q["filled"])
 
 

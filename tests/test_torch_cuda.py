@@ -1190,3 +1190,109 @@ def test_cuda_lm_trainer_step_matches_cpu(cuda_device):
         diff2 += float(((x - y).double() ** 2).sum())
         upd2 += float(((y - w0).double() ** 2).sum())
     assert (diff2 / upd2) ** 0.5 <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the sharded router: its decomposed put (one sum-only launch, then one
+# apply-only launch per shard) and its block lookup, bit for bit
+# ---------------------------------------------------------------------------
+
+ROUTER_FB_CASES = {  # name: inputs of one put
+    "rows_16384": lambda: _fb_case(1, 16_384, 128, 1024, 4096, 4096, 4),
+    "rows_15625": lambda: _fb_case(2, 15_625, 128, 1024, 4096, 4096, 4),
+    "shared_by_3": lambda: _fb_shared(3, 500, 128, 48, 300, 64, 3),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("apply_self", [False, True])
+@pytest.mark.parametrize("name", list(ROUTER_FB_CASES))
+def test_cuda_sum_only_then_apply_only_equals_fused(cuda_device, name,
+                                                    apply_self):
+    """The router's put against one shard's: ``csr_segment_sum`` (the
+    sum-only launch) and then an apply-only launch of the popped put (or,
+    in sync mode, of the sums) give the fused launch's payload, table and
+    accumulator bit for bit, on a sub-shard's 16,384 and 15,625 rows and
+    on a row that three positions share."""
+    from repro_torch.core.dedup import csr_segment_sum
+    case = ROUTER_FB_CASES[name]()
+    fused = [None if a is None else torch.from_numpy(a).to(cuda_device)
+             for a in case]
+    table, acc, order, offsets, grads, idx, g = fused
+    push = ops.fused_backward(table, acc, order, offsets, grads, idx, g,
+                              lr=5e-2, eps=1e-8, apply_self=apply_self)
+    split = [None if a is None else torch.from_numpy(a).to(cuda_device)
+             for a in case]
+    t2, a2, order2, offsets2, grads2, idx2, g2 = split
+    ops.reset_launch_counts()
+    sums = csr_segment_sum(order2, offsets2, grads2, idx2.shape[0])
+    empty = torch.zeros(0, dtype=torch.int32, device=cuda_device)
+    ops.fused_backward(t2, a2, empty, torch.zeros(1, dtype=torch.int32,
+                                                  device=cuda_device),
+                       grads2.new_zeros((0, grads2.shape[1])), idx2,
+                       sums if apply_self else g2, lr=5e-2, eps=1e-8)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_backward"] == 2
+    assert torch.equal(sums, push)
+    assert torch.equal(t2, table)
+    assert torch.equal(a2, acc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend_name,rows", [("dense", 5_000),
+                                               ("dense", 62_500),
+                                               ("host_lru", 5_000)])
+@pytest.mark.parametrize("staleness", [0, 2])
+def test_cuda_router_lookup_and_put_match_cpu(cuda_device, backend_name,
+                                              rows, staleness):
+    """A 4-shard router table on the card and on the CPU from one state:
+    ``prepare_all``, ``lookup_all`` (the shards' unique rows gathered into
+    one block, ONE bag launch) and ``put_all`` (ONE sum-only and 4
+    apply-only ``fused_backward`` launches), 4 steps, the pooled bags,
+    every shard's table, accumulator and queue bit for bit. At 62,500 rows
+    a shard's 15,625 rows are past the shuffle's bijective range, so its
+    puts name shared rows."""
+    from repro_torch.convert import table_from_numpy
+    from repro_torch.core import backend
+    from repro_torch.core.embedding_ps import EmbeddingSpec
+    dim, k = 128, 4
+    spec = EmbeddingSpec(rows=rows, dim=dim, lr=0.05, staleness=staleness,
+                         backend=backend_name, emb_shards=k,
+                         cache_rows=1_024 if backend_name == "host_lru"
+                         else 0)
+    cpu, card = backend.create_backend(spec), backend.create_backend(spec)
+    states = {"cpu": cpu.init(torch.Generator().manual_seed(0))}
+    states["card"] = table_from_numpy(
+        card, cpu.state_for_checkpoint(states["cpu"]), cuda_device)
+    bks = {"cpu": {"t": cpu}, "card": {"t": card}}
+    devs = {"cpu": "cpu", "card": cuda_device}
+    queues = {d: {"t": bks[d]["t"].queue_init((32, 8), devs[d])}
+              for d in devs}
+    rng = np.random.default_rng(staleness)
+    for step in range(4):
+        ids = {"t": _bags(rng, 32, 8, rows)}
+        g = rng.standard_normal((32, 8, dim)).astype(np.float32)
+        out = {}
+        for d in ("card", "cpu"):
+            if d == "card":
+                ops.reset_launch_counts()
+            st, dev_ids, _ = backend.prepare_all(bks[d], {"t": states[d]},
+                                                 ids, devs[d])
+            pooled, _ = backend.lookup_all(bks[d], st, dev_ids)
+            st, queues[d], _ = backend.put_all(
+                bks[d], st, queues[d], dev_ids,
+                {"t": torch.from_numpy(g).to(devs[d])})
+            states[d], out[d] = st["t"], pooled["t"]
+            if d == "card":
+                torch.cuda.synchronize()
+                counts = ops.launch_counts()
+                assert counts["unique_bag"] == 1
+                assert counts["fused_backward"] == 1 + k
+        assert _same_bits(out["card"].cpu(), out["cpu"])
+    for s in range(k):
+        for key, v in states["cpu"][f"s{s}"].items():
+            assert _same_bits(states["card"][f"s{s}"][key].cpu(), v), (s, key)
+        if staleness:
+            for key in ("ids", "grads"):
+                assert _same_bits(queues["card"]["t"][f"s{s}"][key].cpu(),
+                                  queues["cpu"]["t"][f"s{s}"][key])

@@ -75,8 +75,10 @@ def test_build_embedding_spec_refuses_what_is_not_ported():
     spec = shards.build_embedding_spec(1024, 64, backend="dense+compressed")
     assert (spec.rows, spec.dim, spec.backend) == (1024, 64,
                                                    "dense+compressed")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        shards.build_embedding_spec(1024, 64, emb_shards="vocab=2")
+    for arg in ("vocab=2", 3, "field_00=2"):
+        assert shards.build_embedding_spec(1024, 64, emb_shards=arg) \
+            .emb_shards == jshards.build_embedding_spec(
+                1024, 64, emb_shards=arg).emb_shards
     spec = shards.build_embedding_spec(1024, 64, backend="host_lru")
     assert (spec.backend, spec.cache_rows) == (
         "host_lru", jshards.build_embedding_spec(

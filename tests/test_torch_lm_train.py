@@ -529,9 +529,17 @@ def test_shims_refuse_many_tables_and_shards():
              "b": EmbeddingSpec(rows=4, dim=2)}))
     with pytest.raises(ValueError, match="single-table"):
         hybrid.make_eval_step(two, None)
-    with pytest.raises(NotImplementedError, match="sharded router"):
-        hybrid.init_train_state(adapters.lm_adapter(CFG), TrainMode.sync(),
-                                lambda d: {}, emb_shards=2, device="cpu")
+    # emb_shards pads the table's rows to a multiple of it, as JAX does
+    state, _ = hybrid.init_train_state(adapters.lm_adapter(CFG),
+                                       TrainMode.sync(), lambda d: {},
+                                       emb_shards=3, device="cpu")
+    jstate, _ = jhybrid.init_train_state(jadapters.lm_adapter(CFG_J),
+                                         jhybrid.TrainMode.sync(),
+                                         lambda d: {}, jax.random.PRNGKey(0),
+                                         emb_shards=3)
+    assert tuple(state["emb"]["table"].shape) == \
+        tuple(jstate["emb"]["table"].shape) == (201, CFG.d_model)
+    assert tuple(state["emb"]["acc"].shape) == (201,)
 
 
 # ---------------------------------------------------------------------------

@@ -275,8 +275,14 @@ def test_engine_rejects_bad_construction():
     tr = _trainer()
     with pytest.raises(ValueError, match="max_inflight"):
         PipelinedTrainer(tr, max_inflight=0)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        PipelinedTrainer(tr).init(0, _batches(1)[0], emb_shards=2)
+    # emb_shards passes through to the trainer: host_lru tables go over the
+    # router, and a mistyped table name is refused
+    lru = _trainer("host_lru", RPF)
+    PipelinedTrainer(lru).init(0, _batches(1)[0], emb_shards=2)
+    assert all(isinstance(b, BK.ShardedBackend) and b.n_shards == 2
+               for b in lru.backends.values())
+    with pytest.raises(ValueError, match="unknown tables"):
+        PipelinedTrainer(tr).init(0, _batches(1)[0], emb_shards={"zz": 2})
 
 
 @pytest.mark.timeout(120)
@@ -647,9 +653,9 @@ def test_collection_sizes_membership_and_overrides_match_jax():
     assert EmbeddingSpec(rows=2, dim=2).backward_kernel == \
         JSpec(rows=2, dim=2).backward_kernel
     assert tc.with_shards(1) == tc and tc.with_shards({"a": 1}) == tc
-    for bad in (2, {"a": 3}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tc.with_shards(bad)
+    for many in (2, {"a": 3}):
+        assert [s.emb_shards for _, s in tc.with_shards(many).items()] == \
+            [s.emb_shards for _, s in jc.with_shards(many).items()]
     for bad, what in (({"z": 2}, "unknown tables"), ({"a": 0}, ">= 1"),
                       (0, ">= 1")):
         with pytest.raises(ValueError, match=what):
@@ -819,12 +825,13 @@ def test_launcher_modes_agree():
 
 
 def test_launcher_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="sharded router"):
-        launch_train.main(["--device", "cpu", "--emb-shards", "2",
-                           "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="sharded router"):
-        launch_train.main(["--device", "cpu", "--emb-shards",
-                           "field_00=2", "--steps", "1"])
+    # --emb-shards trains over the sharded router (every table, or the
+    # named ones)
+    for shards in ("2", "field_00=2"):
+        hist = launch_train.main(["--device", "cpu", "--emb-shards", shards,
+                                  "--batch", "32", "--steps", "2",
+                                  "--eval-every", "2"])
+        assert len(hist) == 1 and np.isfinite(hist[0]["loss"])
     with pytest.raises(SystemExit):
         launch_train.main(["--device", "cpu", "--resume", "--steps", "1"])
     args = launch_train.parse_args([])
