@@ -195,7 +195,30 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    (d) that 4-shard state through ``PipelinedTrainer``: max_inflight 1
    bit for bit with serial, max_inflight 4 in order, within its put
    window, every pin released.
-16. The launcher, ``repro_torch.launch.train.main`` on the card: 8
+16. The multi-process embedding PS (``remote_phase``), kwai-dlrm at full
+   width, batch 512, hybrid(3), dense and host_lru (7,812 slots): (a) PS
+   servers as threads on the card, the port's remote trainer against its
+   in-process trainer from one seed, bit for bit (losses, every logical
+   row and accumulator): one endpoint dense over 2 + 10 steps and
+   host_lru over 30 that evict, 4 endpoints against the in-process router
+   k=4 at 62,500 rows, the lossy wire on one endpoint against
+   ``dense+compressed``, ``PipelinedTrainer(max_inflight=1)`` against
+   serial, the blocking transport against the pipelined one (more
+   frames); each remote step ONE bag launch and 32 sum-only
+   ``fused_backward`` launches in the trainer and 32 k apply-only ones in
+   the PS threads; (b) PS processes (``launch.cluster.spawn_cluster``,
+   ``--device cuda``): steps/s and step ms at k=1 and k=4, dense and
+   host_lru, beside the in-process trainer's from the same call; the
+   trainer's prepare, lookup and put wall and thread ms, the PS-side
+   prepare ms (``metrics`` op), frames and wire bytes a step (the lossy
+   wire's from its bit check), syncs a step, the device-busy share, the
+   PS processes' apply-only launches (no spool: ``spool_every=0``); (c)
+   ``launch.cluster.run_cluster``'s kill drill (3 PS processes spooling
+   every put, shard 1 SIGKILLed mid-run): the step ms with the spool,
+   recovery seconds and lost rows; (d) ``launch.online.run_online(
+   n_ps=2)`` (no spool): trainer steps/s and serving p50/p99/QPS under
+   training.
+17. The launcher, ``repro_torch.launch.train.main`` on the card: 8
    pipelined steps of the CTR task, then ``--task lm --steps 8 --batch 8
    --seq-len 128 --eval-every 4`` (the launcher's lm-100m), finite losses.
 
@@ -232,6 +255,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import sys
 import threading
@@ -257,6 +281,7 @@ from repro_torch.core.pipeline import STAGES, PipelinedTrainer  # noqa: E402
 from repro_torch.data.ctr import CTR_BENCHMARKS  # noqa: E402
 from repro_torch.data.lm import lm_batches  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.launch import cluster as ps_cluster  # noqa: E402
 from repro_torch.launch import online  # noqa: E402
 from repro_torch.launch import serve as lm_serve  # noqa: E402
 from repro_torch.launch.shards import (build_embedding_spec,  # noqa: E402
@@ -265,6 +290,9 @@ from repro_torch.models import flash as lm_flash  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import transformer as lm_model  # noqa: E402
 from repro_torch.models.recsys import pool_bag  # noqa: E402
+from repro_torch.net import connect_remote_backends  # noqa: E402
+from repro_torch.net.ps_server import PSServer  # noqa: E402
+from repro_torch.net.rpc import RpcClient  # noqa: E402
 from repro_torch.optim.optimizers import OptConfig  # noqa: E402
 from repro_torch.serving import (ServingConfig, ServingService,  # noqa: E402
                                  StateCell, TrafficModel)
@@ -326,6 +354,16 @@ SHARDS = 4
 SHARD_ROWS_POW2 = 65_536
 SHARD_STEPS = {"warmup": 2, "dense": 10, "lru": 30, "staged": 5, "cpu": 4,
                "pipe": 8}
+
+# the multi-process PS: endpoints of the sharded runs; steps of the bit
+# checks (one endpoint dense and host_lru, 4 endpoints, the lossy wire,
+# pipelined, blocking) and of the timed runs over PS processes (warm-up,
+# timed, staged, counted for syncs, profiled); the kill drill's steps and
+# the step before which shard 1 dies
+REMOTE_K = 4
+REMOTE_STEPS = {"warmup": 2, "dense": 10, "lru": 30, "k4": 4, "lossy": 4,
+                "pipe": 6, "blocking": 4, "timed": 8, "staged": 4,
+                "syncs": 3, "profiled": 3, "kill": 5, "kill_at": 3}
 
 # the in-process online loop: kwai-dlrm on host_lru, hybrid(tau), the
 # service's micro-batch, closed-loop clients x requests each, trainer steps
@@ -1779,6 +1817,12 @@ def step_launches(trainer) -> tuple[dict, dict]:
         wire = isinstance(b, BK.CompressedWireBackend)
         inner = BK.unwrap(b)
         tables["unique_bag" if b.spec.batch_dedup else "embedding_bag"] += 1
+        if b.remote:
+            # a remote table: the sum-only launch here, the apply-only one
+            # in each of its PS shards (counted here when they are threads
+            # of this process); its lossy wire is the numpy codec
+            want["fused_backward"] += 1 + getattr(b, "n_shards", 1)
+            continue
         if isinstance(inner, BK.ShardedBackend):
             # the router: one sum-only launch, one apply-only per shard
             want["fused_backward"] += 1 + inner.n_shards
@@ -1864,6 +1908,9 @@ def run_steps(trainer, state, batches, what):
             if k.startswith("wire/"):
                 wire["bytes_raw" if k.endswith("_raw") else
                      "bytes_wire"] += float(v)
+    for n, bk in trainer.backends.items():
+        if bk.remote:
+            bk.sync(state.emb[n])     # its PS has applied every put
     torch.cuda.synchronize()
     launches, served = ops.launch_counts(), ops.table_counts()
     per_step, tables = step_launches(trainer)
@@ -3714,6 +3761,413 @@ def sharded_phase(dev):
     return paths, rec
 
 
+# ---------------------------------------------------------------------------
+# the multi-process embedding PS
+# ---------------------------------------------------------------------------
+
+def ps_threads(dev, k):
+    """k PS servers as threads of this process on ``dev``."""
+    return [PSServer(device=dev).start() for _ in range(k)]
+
+
+def remote_trainer(dev, endpoints, backend="dense", **kw):
+    """kwai-dlrm's trainer with its tables over the PS ``endpoints``."""
+    tr = kwai_train_trainer(dev, TrainMode.hybrid(TAU), backend)
+    connect_remote_backends(tr, endpoints, **kw)
+    return tr
+
+
+def close_remote(trainer, servers=()):
+    for b in trainer.backends.values():
+        b.close()
+    for s in servers:
+        s.stop()
+
+
+def endpoints_of(servers):
+    return [("127.0.0.1", s.port) for s in servers]
+
+
+def clients(trainer) -> list:
+    """The trainer's distinct RPC connections (tables share one an
+    endpoint)."""
+    seen = {}
+    for b in trainer.backends.values():
+        for sub in getattr(b, "shard_backends", None) or [b]:
+            seen[id(sub._client)] = sub._client
+    return list(seen.values())
+
+
+def wire_counters(trainer) -> dict:
+    cs = clients(trainer)
+    return {"frames": sum(c.frames_sent for c in cs),
+            "bytes": sum(c.bytes_sent + c.bytes_recv for c in cs)}
+
+
+def remote_pair(dev, ds, batches, what, backend="dense", k=1,
+                lossy=None):
+    """The in-process trainer (the router at k > 1) and the remote trainer
+    over k PS threads on the card, from one seed, ``batches`` each with
+    the launch counts read around them: the two must agree bit for bit
+    (losses, every logical row and accumulator). Returns the remote run's
+    (launches, served), sum-only launches, wire bytes and losses."""
+    tr0 = kwai_train_trainer(dev, TrainMode.hybrid(TAU), backend, shards=k)
+    s0 = tr0.init(seed=SEED, batch_example=batches[0])
+    s0, l0, _, _, _, _ = counted_steps(tr0, s0, batches,
+                                       f"{what}, in process")
+    servers, tr1 = ps_threads(dev, k), None
+    try:
+        tr1 = remote_trainer(dev, endpoints_of(servers), backend,
+                             lossy=lossy)
+        s1 = tr1.init(seed=SEED, batch_example=batches[0])
+        c0 = wire_counters(tr1)
+        with mock.patch.object(D, "csr_segment_sum",
+                               wraps=D.csr_segment_sum) as sums:
+            s1, l1, launches, wire, served = run_steps(tr1, s1, batches,
+                                                       f"{what}, remote")
+        c1 = wire_counters(tr1)
+        check(l0 == l1, f"{what}: losses {l1} against in-process {l0}")
+        bad = same_rows(tr0, s0, tr1, s1)
+        check(not bad, f"{what}: tables {bad[:4]} differ from in-process")
+        n = len(batches)
+        check(sums.call_count == N_TABLES * n and launches[
+            "fused_backward"] - sums.call_count == N_TABLES * k * n,
+            f"{what}: {sums.call_count} sum-only of "
+            f"{launches['fused_backward']} fused_backward launches")
+        return {"launches": launches, "served": served, "losses": l1,
+                "wire": wire, "steps": n,
+                "wire_mb_per_step": (c1["bytes"] - c0["bytes"]) / n / 1e6}
+    finally:
+        if tr1 is not None:
+            close_remote(tr1)
+        for srv in servers:
+            srv.stop()
+        torch.cuda.synchronize()
+
+
+def remote_same_runs(dev, ds) -> dict:
+    """(a) of the phase: the bit checks over PS threads on the card."""
+    st = REMOTE_STEPS
+    it = ds.sampler(TRAIN_B, seed=SEED + 40)
+    batches = [next(it) for _ in range(st["warmup"] + st["lru"])]
+    runs, paths = {}, {}
+    for key, backend, k, n, lossy in (
+            ("dense_k1", "dense", 1, st["warmup"] + st["dense"], None),
+            ("host_lru_k1", HOST_LRU, 1, st["warmup"] + st["lru"], None),
+            ("dense_k4", "dense", REMOTE_K, st["k4"], None),
+            ("lossy_k1", WIRE, 1, st["lossy"], None)):
+        runs[key] = remote_pair(dev, ds, batches[:n], f"remote {key}",
+                                backend, k, lossy)
+        torch.cuda.empty_cache()
+    paths["train_remote"] = (runs["dense_k1"]["launches"],
+                             runs["dense_k1"]["served"])
+    paths["train_remote_host_lru"] = (runs["host_lru_k1"]["launches"],
+                                      runs["host_lru_k1"]["served"])
+    paths["train_remote_sharded"] = (runs["dense_k4"]["launches"],
+                                     runs["dense_k4"]["served"])
+    paths["train_remote_lossy"] = (runs["lossy_k1"]["launches"],
+                                   runs["lossy_k1"]["served"])
+    w = runs["lossy_k1"]["wire"]
+    lossy_ratio = w["bytes_raw"] / max(w["bytes_wire"], 1.0)
+    check(lossy_ratio >= 1.8, f"remote lossy: wire byte ratio {lossy_ratio}")
+    # the bytes the connection really moved a step, raw against lossy wire
+    socket_ratio = runs["dense_k1"]["wire_mb_per_step"] \
+        / runs["lossy_k1"]["wire_mb_per_step"]
+    # pipelined max_inflight=1 against serial, and the blocking transport
+    # against the pipelined one, each over its own PS threads
+    out = {}
+    for key, runner, backend, k, kw, n in (
+            ("serial", "serial", HOST_LRU, 1, {}, st["pipe"]),
+            ("pipelined_1", "pipelined_1", HOST_LRU, 1, {}, st["pipe"]),
+            ("pipelined_wire", "serial", HOST_LRU, REMOTE_K, {},
+             st["blocking"]),
+            ("blocking_wire", "serial", HOST_LRU, REMOTE_K,
+             {"pipelined": False}, st["blocking"])):
+        servers = ps_threads(dev, k)
+        tr = remote_trainer(dev, endpoints_of(servers), backend, **kw)
+        try:
+            s = tr.init(seed=SEED, batch_example=batches[0])
+            c0 = wire_counters(tr)
+            s, losses, wall = pipe_run(tr, pipe_engine(tr, runner), s,
+                                       batches[:n])
+            for name, b in tr.backends.items():
+                b.sync(s.emb[name])
+            c1 = wire_counters(tr)
+            rows = {name: logical_rows(tr, s, name) for name in s.emb}
+            out[key] = {"losses": [float(x) for x in losses],
+                        "rows": rows, "steps_per_s": n / wall,
+                        "frames_per_step": (c1["frames"] - c0["frames"]) / n}
+        finally:
+            close_remote(tr, servers)
+        torch.cuda.empty_cache()
+
+    def same(a, b):
+        return out[a]["losses"] == out[b]["losses"] and all(
+            np.array_equal(x, y) for name in out[a]["rows"]
+            for x, y in zip(out[a]["rows"][name], out[b]["rows"][name]))
+    check(same("serial", "pipelined_1"),
+          "remote pipelined_1 differs from serial")
+    check(same("pipelined_wire", "blocking_wire"),
+          "remote blocking transport differs from the pipelined one")
+    check(out["blocking_wire"]["frames_per_step"]
+          > out["pipelined_wire"]["frames_per_step"],
+          f"remote frames a step: blocking {out['blocking_wire']} against "
+          f"pipelined {out['pipelined_wire']}")
+    for v in out.values():
+        del v["rows"]
+    rec = {key: {"steps": r["steps"], "losses": r["losses"],
+                 "wire_mb_per_step": r["wire_mb_per_step"],
+                 "launches_per_step": {n: v / r["steps"]
+                                       for n, v in r["launches"].items()},
+                 "wire_bytes_per_step": {n: v / r["steps"]
+                                         for n, v in r["wire"].items()}}
+           for key, r in runs.items()}
+    rec.update(bit_equal={key: True for key in runs},
+               lossy_wire_byte_ratio=lossy_ratio,
+               lossy_wire_mb_ratio=socket_ratio,
+               inflight1_bit_equal=True, blocking_bit_equal=True,
+               frames_per_step={k: v["frames_per_step"]
+                                for k, v in out.items()})
+    return paths, rec
+
+
+def ps_launches(members) -> dict:
+    """The PS processes' kernel launch counts, summed."""
+    total = {}
+    for m in members:
+        c = RpcClient(m.host, m.port, timeout=30.0, retries=0)
+        try:
+            for k, v in c.call("metrics")["launches"].items():
+                total[k] = total.get(k, 0) + v
+        finally:
+            c.close()
+    return total
+
+
+def ps_seconds(trainer) -> dict:
+    """The PS-side seconds of every table's prepares, lookups, reads and
+    puts, summed over tables and shards."""
+    total = {}
+    for b in trainer.backends.values():
+        for sub in getattr(b, "shard_backends", None) or [b]:
+            for k, v in sub.remote_metrics()["seconds"].items():
+                total[k] = total.get(k, 0.0) + v
+    return total
+
+
+def thread_staged(trainer, state, batch, times):
+    """``staged_step`` with each stage's thread seconds beside its wall:
+    what of a remote stage is this thread's work (the rest is the wire,
+    the PS and the other threads)."""
+    lookup_fn, dense_step, emb_put = trainer.decomposed_fns()
+    marks = [(time.perf_counter(), time.thread_time())]
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), time.thread_time()))
+
+    state, dev_ids, _ = trainer._prepare(state, batch)
+    mark()
+    pooled, _ = lookup_fn(state.emb, dev_ids)
+    mark()
+    dense, opt, dq, agrads, m = dense_step(state.dense, state.opt,
+                                           state.dense_queue, pooled, batch,
+                                           state.step)
+    mark()
+    emb, queues, _ = emb_put(state.emb, state.emb_queue, dev_ids, agrads)
+    mark()
+    for k, (a, ta), (b, tb) in zip(("prepare", "lookup", "dense", "put"),
+                                   marks, marks[1:]):
+        times.setdefault(f"{k}_ms", []).append((b - a) * 1e3)
+        times.setdefault(f"{k}_thread_ms", []).append((tb - ta) * 1e3)
+    return state.replace(dense=dense, opt=opt, emb=emb, emb_queue=queues,
+                         dense_queue=dq, step=state.step + 1), m
+
+
+def timed_run(dev, tr, batches, members=None) -> dict:
+    """Warm-up, then ``timed`` steps to a synchronize (the trainer's
+    launches counted: one bag and 32 sum-only a step; with ``members``,
+    the PS processes' apply-only launches from their ``metrics``), then
+    ``staged`` steps with each stage's wall and thread ms, ``syncs`` steps
+    under the sync debug mode and ``profiled`` steps under the profiler
+    (device ms a step, busy share). Frames, wire bytes and the PS-side
+    seconds a step over the timed steps."""
+    st = REMOTE_STEPS
+    w, t = st["warmup"], st["timed"]
+    s = tr.init(seed=SEED, batch_example=batches[0])
+    for b in batches[:w]:
+        s, _ = tr.step(s, b)
+    torch.cuda.synchronize()
+    remote = any(b.remote for b in tr.backends.values())
+    if remote:
+        for name, b in tr.backends.items():
+            b.sync(s.emb[name])       # the warm-up's puts acked and applied
+    c0 = wire_counters(tr) if remote else None
+    p0 = ps_seconds(tr) if remote else None
+    k0 = ps_launches(members) if members else None
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for b in batches[w:w + t]:
+        s, m = tr.step(s, b)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    out = {"step_ms": wall * 1e3 / t, "steps_per_s": t / wall,
+           "losses": [float(x) for x in losses],
+           "launches_per_step": {k: v / t for k, v in launches.items()}}
+    check(all(np.isfinite(out["losses"])), f"timed run: {out['losses']}")
+    if remote:
+        for name, b in tr.backends.items():
+            b.sync(s.emb[name])
+        c1, p1 = wire_counters(tr), ps_seconds(tr)
+        out["frames_per_step"] = (c1["frames"] - c0["frames"]) / t
+        out["wire_mb_per_step"] = (c1["bytes"] - c0["bytes"]) / t / 1e6
+        out["ps_ms_per_step"] = {k: (p1[k] - p0[k]) * 1e3 / t for k in p1}
+        check(launches["unique_bag"] == t and launches["fused_backward"]
+              == N_TABLES * t, f"remote timed run: trainer launches "
+              f"{launches}")
+    if members:
+        k1 = ps_launches(members)
+        apply = (k1.get("fused_backward", 0) - k0.get("fused_backward", 0))
+        out["ps_apply_launches_per_step"] = apply / t
+        k = len({m.endpoint for m in members})
+        check(apply == N_TABLES * k * t,
+              f"remote timed run: {apply} apply-only launches in the PS "
+              f"processes, want {N_TABLES * k * t}")
+    times = {}
+    i = w + t
+    for b in batches[i:i + st["staged"]]:
+        s, _ = thread_staged(tr, s, b, times)
+    out["stages_ms"] = {k: float(np.median(v)) for k, v in times.items()}
+    i += st["staged"]
+    counted = batches[i:i + st["syncs"]]
+
+    def sync_steps():
+        nonlocal s
+        for b in counted:
+            s, _ = tr.step(s, b)
+        torch.cuda.synchronize()
+    out["syncs_per_step"] = count_syncs(sync_steps) / len(counted)
+    i += st["syncs"]
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[i:i + st["profiled"]]:
+            s, _ = tr.step(s, b)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    dev_ms = sum(e.self_device_time_total
+                 for e in prof.key_averages()) / 1e3
+    out["device_ms_per_step"] = dev_ms / st["profiled"]
+    out["device_busy_share"] = dev_ms / (pwall * 1e3)
+    return out
+
+
+def remote_timed_runs(dev, ds) -> dict:
+    """(b) of the phase: dense and host_lru at k=1 and k=4 over PS
+    processes on the card, each beside the in-process trainer of its
+    geometry from the same call."""
+    st = REMOTE_STEPS
+    n = st["warmup"] + st["timed"] + st["staged"] + st["syncs"] \
+        + st["profiled"]
+    it = ds.sampler(TRAIN_B, seed=SEED + 41)
+    batches = [next(it) for _ in range(n)]
+    work = ROOT / "build" / "remote_ps"
+    t0 = time.perf_counter()
+    # no spool: a spool writes the table's whole state to disk per put
+    # (the kill drill below runs with it and reads its cost)
+    members = ps_cluster.spawn_cluster(str(work), REMOTE_K, spool_every=0,
+                                       device=str(dev))
+    rec = {"spawn_s": time.perf_counter() - t0}
+    try:
+        for backend in ("dense", HOST_LRU):
+            for k in (1, REMOTE_K):
+                key = f"{backend}_k{k}"
+                tr = kwai_train_trainer(dev, TrainMode.hybrid(TAU), backend,
+                                        shards=k)
+                rec[f"{key}_in_process"] = timed_run(dev, tr, batches)
+                del tr
+                torch.cuda.empty_cache()
+                tr = remote_trainer(dev, [m.endpoint for m in members[:k]],
+                                    backend)
+                try:
+                    rec[key] = timed_run(dev, tr, batches, members[:k])
+                finally:
+                    close_remote(tr)
+                torch.cuda.empty_cache()
+    finally:
+        ps_cluster.stop_ps(members)
+        shutil.rmtree(work, ignore_errors=True)
+    return rec
+
+
+def remote_phase(dev):
+    """The multi-process embedding PS at kwai-dlrm's full width (32 tables
+    x D=128, batch 512, hybrid(3)). Returns the main paths' counts (the
+    runs over PS threads, whose apply-only launches count in this
+    process) and the record."""
+    ds = CTR_BENCHMARKS["kwai_video"]
+    t_phase = time.perf_counter()
+    rec = {"phase": "remote", "model": KWAI.name, "batch": TRAIN_B,
+           "mode": f"hybrid({TAU})", "k": REMOTE_K}
+    paths, rec["bit_checks"] = remote_same_runs(dev, ds)
+    rec["timed"] = remote_timed_runs(dev, ds)
+    # (c) the kill drill: 3 PS processes, shard 1 SIGKILLed before step
+    # kill_at, its spooled rows resharded onto the survivors
+    st = REMOTE_STEPS
+    tr = kwai_train_trainer(dev, TrainMode.hybrid(TAU), "dense")
+    t0 = time.perf_counter()
+    drill = ps_cluster.run_cluster(
+        steps=st["kill"], n_ps=3, kill_shard=1, kill_at=st["kill_at"],
+        batch=TRAIN_B, workdir=str(ROOT / "build" / "remote_drill"),
+        heartbeats=False, device=str(dev), trainer=tr, ds=ds)
+    drill["wall_s"] = time.perf_counter() - t0
+    shutil.rmtree(drill["workdir"], ignore_errors=True)
+    resh = [e for e in drill["events"] if e["kind"] == "reshard"]
+    check(drill["members"] == 2 and resh and resh[0]["dead"] == [1]
+          and all(v == 0 for v in drill["lost_rows"].values())
+          and np.isfinite(drill["loss"]),
+          f"remote kill drill: {drill}")
+    rec["kill_drill"] = {k: drill[k] for k in ("steps", "steps_per_s",
+                                               "loss", "members",
+                                               "recovery_s", "wall_s",
+                                               "step_s")}
+    rec["kill_drill"]["lost_rows"] = sum(drill["lost_rows"].values())
+    # the steps before the kill: k=3 with every put spooled
+    rec["kill_drill"]["spooled_step_ms"] = float(np.median(
+        drill["step_s"][1:st["kill_at"]])) * 1e3
+    del tr
+    torch.cuda.empty_cache()
+    # (d) the online loop with its tables in 2 PS processes
+    tr = kwai_train_trainer(dev, TrainMode.hybrid(ONLINE["tau"]), HOST_LRU)
+    res = online.run_online(
+        steps=ONLINE["steps"], batch=TRAIN_B, max_batch=ONLINE["max_batch"],
+        n_clients=ONLINE["clients"], requests_per_client=ONLINE["requests"],
+        n_ps=2, seed=SEED, workdir=str(ROOT / "build" / "remote_online"),
+        spool_every=0, device=str(dev), trainer=tr, ds=ds)
+    shutil.rmtree(ROOT / "build" / "remote_online", ignore_errors=True)
+    sv = res["serving"]
+    served = ONLINE["clients"] * ONLINE["requests"]
+    check(res["steps"] == ONLINE["steps"] and res["served"] == served
+          and res["feedback"]["put"] == served
+          and sv["serving/errors"] == 0.0
+          and all(v <= ONLINE["tau"] for key, v in sv.items()
+                  if key.endswith("/stale_steps")),
+          f"remote online loop: {res}")
+    rec["online"] = {"steps_per_s": res["steps_per_s"],
+                     "p50_ms": sv["serving/p50_ms"],
+                     "p99_ms": sv["serving/p99_ms"],
+                     "qps": sv["serving/qps"], "served": res["served"],
+                     "feedback_batches": res["feedback_batches"]}
+    del tr
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    emit(rec)
+    return paths, rec
+
+
 def launcher_phase(dev):
     """``repro_torch.launch.train.main`` on the card: 8 steps of the
     default taobao_ad CTR model with ``--pipeline pipelined``, eval every
@@ -3839,6 +4293,9 @@ def main() -> int:
     # the sharded embedding-PS router
     sharded_paths, recs["sharded"] = sharded_phase(dev)
     paths.update(sharded_paths)
+    # the multi-process embedding PS
+    remote_paths, recs["remote"] = remote_phase(dev)
+    paths.update(remote_paths)
     recs["train_launcher"] = launcher_phase(dev)
 
     kernels = []

@@ -215,10 +215,14 @@ def table_from_numpy(backend, emb_np: dict, device, what: str = "") -> dict:
     map, counters) are loaded into ``backend`` and whose device cache is
     returned, or a cache ``{"table", "slot_ids", "acc"}`` that the backend
     has already restored. A router: its shard-tagged checkpoint blob, or
-    ``{"s0": .., "s{k-1}": ..}``, one of the above per shard."""
+    ``{"s0": .., "s{k-1}": ..}``, one of the above per shard. A remote
+    table (``repro_torch.net.remote``): any of these is restored into its
+    PS processes, and its remote state is returned."""
     from repro_torch.core.backend import (HostLRUBackend, ShardedBackend,
                                           unwrap)
     inner = unwrap(backend)
+    if inner.remote:
+        return inner.adopt(emb_np)
     if isinstance(inner, ShardedBackend):
         if "shard_meta" in emb_np:
             emb_np = inner.restore_from_checkpoint(emb_np)

@@ -111,6 +111,10 @@ class EmbeddingBackend:
     # set by restore_from_checkpoint when the blob had another shard
     # geometry than this backend (caches restart, queues are dropped)
     last_restore_resharded: bool = False
+    # the table's rows live in embedding-PS processes
+    # (``repro_torch.net.remote``): the fan-outs below move its ids and
+    # rows over the wire and keep its state out of the device state
+    remote: bool = False
 
     # -- host-level ----------------------------------------------------------
     def init(self, generator: torch.Generator, shards: int = 1,
@@ -122,6 +126,16 @@ class EmbeddingBackend:
         ``assume_unique`` marks ids as an already-deduped set (a plan's
         unique ids); ``counts`` carries the per-unique occurrence counts."""
         return state, ids
+
+    def prepare_submit(self, state, ids, assume_unique: bool = False,
+                       counts=None):
+        """Two-phase prepare: submit now, collect later. Returns a thunk
+        producing ``(state, device_ids)``, so a caller preparing several
+        tables submits them all before it collects any: a remote table
+        (``repro_torch.net.remote``) buffers its submit into one coalesced
+        frame per PS endpoint and only the collect waits. The in-process
+        default defers the blocking :meth:`prepare`."""
+        return lambda: self.prepare(state, ids, assume_unique, counts)
 
     def read_lock(self):
         """The context a serve read holds while it resolves residency and
@@ -1575,13 +1589,20 @@ class ShardedBackend(EmbeddingBackend):
         return np.where(valid, own, -1), loc
 
     def prepare(self, state, ids, assume_unique: bool = False, counts=None):
-        """Route the batch and prepare every shard on its local ids (the
-        host_lru shards' fault-ins concurrently on the router's pool, each
-        under its shard's lock) -> shard-encoded device ids, as host int32
-        for host ids or as a tensor on the table's device for a tensor.
-        With a plan's unique ids (``assume_unique``), ``counts`` carries
-        their occurrence counts, so the traffic and imbalance gauges count
-        the raw id stream, hot keys included."""
+        return self.prepare_submit(state, ids, assume_unique, counts)()
+
+    def prepare_submit(self, state, ids, assume_unique: bool = False,
+                       counts=None):
+        """Route the batch and submit every shard's prepare on its local
+        ids (a remote shard buffers one coalesced RPC into its endpoint's
+        frame, an in-process shard defers the work); the returned thunk
+        collects them, the host_lru shards' fault-ins concurrently on the
+        router's pool, each under its shard's lock -> ``(state,
+        shard-encoded device ids)``, as host int32 for host ids or as a
+        tensor on the table's device for a tensor. With a plan's unique
+        ids (``assume_unique``), ``counts`` carries their occurrence
+        counts, so the traffic and imbalance gauges count the raw id
+        stream, hot keys included."""
         arr = _host_ids(ids)
         flat = arr.reshape(-1)
         own, loc = self._route(flat)
@@ -1592,34 +1613,39 @@ class ShardedBackend(EmbeddingBackend):
             else:
                 c = np.asarray(counts, np.int64).reshape(-1)
                 np.add.at(self._traffic, own[own >= 0], c[own >= 0])
-        new_state = dict(state)
-        if self._host:
-            device = self.state_device(state)
+        # counts stay aligned by position: the ids other shards own are -1
+        # in a shard's batch
+        thunks = [self.shard_backends[s].prepare_submit(
+            state[f"s{s}"], np.where(own == s, loc, -1), assume_unique,
+            counts) for s in range(self.n_shards)] if self._host else []
 
-            def one(s):
-                with (torch.cuda.device(device) if device.type == "cuda"
-                      else contextlib.nullcontext()):
-                    # counts stay aligned by position: the ids other
-                    # shards own are -1 here
-                    return self.shard_backends[s].prepare(
-                        state[f"s{s}"], np.where(own == s, loc, -1),
-                        assume_unique, counts)
+        def collect():
+            new_state = dict(state)
+            if self._host:
+                device = self.state_device(state)
 
-            pool = self._ensure_pool()
-            futs = [pool.submit(one, s) for s in range(self.n_shards)]
-            devs = np.empty((self.n_shards, flat.size), np.int64)
-            for s, f in enumerate(futs):
-                new_state[f"s{s}"], dev_s = f.result()
-                devs[s] = np.asarray(dev_s, np.int64).reshape(-1)
-            local = devs[np.maximum(own, 0), np.arange(flat.size)]
-        else:
-            local = loc                     # a dense shard's ids are its own
-        out = np.where((own >= 0) & (local >= 0), own * self.stride + local,
-                       -1).astype(np.int32).reshape(arr.shape)
-        if isinstance(ids, torch.Tensor):
-            return new_state, torch.from_numpy(out).to(
-                self.state_device(state))
-        return new_state, out
+                def one(t):
+                    with (torch.cuda.device(device) if device.type == "cuda"
+                          else contextlib.nullcontext()):
+                        return t()
+
+                pool = self._ensure_pool()
+                futs = [pool.submit(one, t) for t in thunks]
+                devs = np.empty((self.n_shards, flat.size), np.int64)
+                for s, f in enumerate(futs):
+                    new_state[f"s{s}"], dev_s = f.result()
+                    devs[s] = np.asarray(dev_s, np.int64).reshape(-1)
+                local = devs[np.maximum(own, 0), np.arange(flat.size)]
+            else:
+                local = loc                 # a dense shard's ids are its own
+            out = np.where((own >= 0) & (local >= 0),
+                           own * self.stride + local,
+                           -1).astype(np.int32).reshape(arr.shape)
+            if isinstance(ids, torch.Tensor):
+                return new_state, torch.from_numpy(out).to(
+                    self.state_device(state))
+            return new_state, out
+        return collect
 
     def plan_parts(self, dev_u: np.ndarray) -> list[np.ndarray]:
         """The host int32 arrays of a plan's :class:`~repro_torch.core.
@@ -2315,7 +2341,12 @@ def prepare_all(backends, states, ids, device, lock=None, pins=None):
     eviction and fault-in, which touch its state in place; a router's
     shards on its pool), then the translation to table rows (a router
     table's :class:`~repro_torch.core.dedup.ShardParts`), the occurrence
-    CSRs and the upload. Only
+    CSRs and the upload. The middle phase submits every table's prepare
+    before it collects any (``prepare_submit``): a remote table buffers
+    its fault-in into one coalesced frame per PS endpoint, so a step pays
+    one round trip per endpoint, not one per table. A remote table's plan
+    carries no table rows (they live in the PS); its device ids join the
+    one upload. Only
     the middle phase runs under ``lock`` when one is given (the pipelined
     trainer's store lock). With a dict ``pins``, each table's host device
     ids are pinned in its backend inside that phase, right after its
@@ -2337,13 +2368,14 @@ def prepare_all(backends, states, ids, device, lock=None, pins=None):
         plans[n] = D.make_plan(arr, b.spec.rows, cap)
     devs = {}
     with lock if lock is not None else contextlib.nullcontext():
-        for n, plan in plans.items():
+        submitted = {
+            n: backends[n].prepare_submit(states[n], plan[0])
+            if len(plan) == 1 else backends[n].prepare_submit(
+                states[n], plan[0], assume_unique=True, counts=plan[2])
+            for n, plan in plans.items()}
+        for n, collect in submitted.items():
             b = backends[n]
-            if len(plan) == 1:
-                new_states[n], dev = b.prepare(states[n], plan[0])
-            else:
-                new_states[n], dev = b.prepare(
-                    states[n], plan[0], assume_unique=True, counts=plan[2])
+            new_states[n], dev = collect()
             devs[n] = np.asarray(dev, np.int32)
             _cache_tags(metrics, n, b)
             if pins is not None:
@@ -2359,7 +2391,9 @@ def prepare_all(backends, states, ids, device, lock=None, pins=None):
         _, inv, _, info = plan
         order, offsets = D.occurrence_csr(inv, dev_u.shape[0])
         inner = unwrap(b)
-        if isinstance(inner, ShardedBackend):
+        if inner.remote:
+            host[n] = [dev_u, inv, order, offsets]
+        elif isinstance(inner, ShardedBackend):
             host[n] = [dev_u, inv, order, offsets, *inner.plan_parts(dev_u)]
         else:
             rows = inner.table_rows(torch.from_numpy(dev_u)).numpy()
@@ -2381,7 +2415,7 @@ def prepare_all(backends, states, ids, device, lock=None, pins=None):
         parts, rows = None, None
         if len(got) == 5:
             rows = got[4]
-        else:
+        elif len(got) > 5:
             k = (len(got) - 5) // 2
             parts = D.ShardParts(perm=got[4], rows=tuple(got[5:5 + k]),
                                  local=tuple(got[5 + k:]))
@@ -2417,10 +2451,17 @@ def lookup_all(backends, states, dev_ids):
     metrics = {}
     bags = {}                  # name -> (table, dev or None, inv, flat)
     wire = {}                  # name -> (rows, block)
-    for n, ids in dev_ids.items():
+    for n in dev_ids:
         if n not in backends:
             raise KeyError(f"ids for unknown table {n!r}; collection has "
                            f"{sorted(backends)}")
+    # the remote tables' reads go out first (one coalesced frame per PS
+    # endpoint) and travel while the in-process tables' gathers enqueue
+    remote = {n: backends[n].lookup_submit(states[n], ids)
+              for n, ids in dev_ids.items() if backends[n].remote}
+    for n, ids in dev_ids.items():
+        if n in remote:
+            continue
         b, m = backends[n], {}
         if isinstance(b, CompressedWireBackend):
             rows, m = b._get_rows(states[n], ids)
@@ -2428,15 +2469,68 @@ def lookup_all(backends, states, dev_ids):
         else:
             bags[n] = b._bag_entry(states[n], ids)
         _tag(metrics, n, m)
-    for n, rows in _roundtrip_all(wire).items():
+    rows = _roundtrip_all(wire)
+    rows.update(_remote_rows(remote, dev_ids, metrics))
+    for n, r in rows.items():
         ids = dev_ids[n]
         if D.is_plan(ids):
-            bags[n] = (rows, None, ids.inv, False)
+            bags[n] = (r, None, ids.inv, False)
         else:
-            bags[n] = (rows.reshape(-1, rows.shape[-1]), None, _slots(ids),
-                       True)
+            bags[n] = (r.reshape(-1, r.shape[-1]), None, _slots(ids), True)
     pooled = _bag_all(bags)
     return {n: pooled[n] for n in dev_ids}, metrics
+
+
+def _ids_device(ids) -> torch.device:
+    return (ids.inv if D.is_plan(ids) else ids).device
+
+
+def _remote_rows(remote: dict, dev_ids, metrics) -> dict:
+    """{table: collect thunk} of remote lookups -> {table: rows on the
+    ids' device}: the rows that came back over the wire (a plan's unique
+    rows, else the occurrence rows), ALL uploaded in one copy."""
+    if not remote:
+        return {}
+    got = {n: t() for n, t in remote.items()}
+    for n, (_, m) in got.items():
+        _tag(metrics, n, m)
+    up = _upload([r for r, _ in got.values()], np.float32,
+                 _ids_device(dev_ids[next(iter(got))]))
+    return dict(zip(got, up))
+
+
+def _download(tensors) -> list[np.ndarray]:
+    """Tensors -> host numpy arrays: each device tensor copied into fresh
+    pinned memory without a wait, then ONE wait for the stream; host
+    tensors and numpy arrays as they are."""
+    out, wait = [], None
+    for t in tensors:
+        if isinstance(t, torch.Tensor) and t.device.type == "cuda":
+            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            buf.copy_(t.detach(), non_blocking=True)
+            out.append(buf)
+            wait = t.device
+        else:
+            out.append(t)
+    if wait is not None:
+        torch.cuda.current_stream(wait).synchronize()
+    return [t.detach().numpy() if isinstance(t, torch.Tensor) else t
+            for t in out]
+
+
+def _remote_puts(items) -> list:
+    """The puts of remote tables, ``items`` of (backend, state, queue,
+    dev_ids, grads), in three phases: (1) every table's unique-width sums
+    (one sum-only ``fused_backward`` launch a table; a table at
+    occurrence width sends its gradients as they are); (2) every table's
+    sums copied to the host, ONE wait for the stream; (3) every table's
+    put buffered on its PS connection (coalesced into one frame per
+    endpoint, acked in a window), where the PS applies it. Returns
+    [(state, queue, metrics)]."""
+    begun = [b.put_sums(ids, g) for b, _, _, ids, g in items]
+    host = iter(_download([x for ids, g, _ in begun for x in (ids, g)]))
+    return [b.put_host(state, queue, next(host), next(host), unique)
+            for (b, state, queue, _, _), (_, _, unique) in zip(items, begun)]
 
 
 def lookup_occurrences_all(backends, states, dev_ids):
@@ -2487,14 +2581,19 @@ def put_all(backends, states, queues, dev_ids, grads):
     tau-stale one) -> (states, queues, metrics). Dense tables put through
     one ``fused_backward`` launch each; the tables behind the wire run
     their puts in phases that share ONE compress and ONE decompress
-    (:func:`_wire_puts`)."""
+    (:func:`_wire_puts`); the remote tables sum here and apply in their
+    PS processes (:func:`_remote_puts`)."""
     queues = queues or {}
     new_states, new_queues, metrics = dict(states), dict(queues), {}
     wire = [n for n in dev_ids if isinstance(backends[n],
                                              CompressedWireBackend)]
-    done = {n: backends[n].hybrid_update(states[n], queues.get(n),
-                                         dev_ids[n], grads[n])
-            for n in dev_ids if n not in wire}
+    remote = [n for n in dev_ids if backends[n].remote]
+    done = dict(zip(remote, _remote_puts(
+        [(backends[n], states[n], queues.get(n), dev_ids[n], grads[n])
+         for n in remote])))
+    done.update({n: backends[n].hybrid_update(states[n], queues.get(n),
+                                              dev_ids[n], grads[n])
+                 for n in dev_ids if n not in wire and n not in remote})
     done.update(zip(wire, _wire_puts(
         [(backends[n], states[n], queues.get(n), dev_ids[n], grads[n])
          for n in wire])))
@@ -2519,13 +2618,23 @@ def read_pooled_all(backends, states, ids, device):
     compress in ONE launch and decompress in ONE; then every table pools
     in ONE bag launch (``unique_bag`` through a plan or over a host_lru
     read's unique rows, ``embedding_bag`` at occurrence width and behind
-    the wire). Read-only: the host_lru tables' locks are held from the
+    the wire). A remote table's read is one RPC, coalesced with the
+    others' into one frame per PS endpoint; its rows ride in the rows'
+    copy. Read-only: the host_lru tables' locks are held from the
     residency resolution until their gathers are enqueued."""
+    # the remote tables' reads go out first, one coalesced frame per PS
+    # endpoint; the PS resolves each under its own lock
+    remote = {n: backends[n].read_submit(_bags(x)) for n, x in ids.items()
+              if backends[n].remote}
     with contextlib.ExitStack() as held:
         for n in ids:
             held.enter_context(backends[n].read_lock())
         host, info = {}, {}
         for n, x in ids.items():
+            if n in remote:
+                arrs, rows, info[n] = remote[n]()
+                host[n] = (arrs, rows)
+                continue
             b, arr = backends[n], _bags(x)
             wire = isinstance(b, CompressedWireBackend)
             arrs, rows, info[n] = unwrap(b)._read_begin(arr, occ=wire)

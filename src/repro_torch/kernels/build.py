@@ -4,14 +4,18 @@ a plain C interface, at first use, and loads them with ctypes.
 Each source compiles with its own ``nvcc``, all started together, into
 ``build/lib<name>-<hash>.so`` beside this file. The hash covers the
 source and the flags, so an edited source never loads a stale library, and
-a finished library is moved into place atomically, so processes that build
-at the same time do not see half-written files. The compiler's report
+a finished library is moved into place atomically. Processes that start
+at once (a trainer and its embedding-PS processes) take an exclusive file
+lock on the build directory first: one compiles, the others wait and load
+its libraries. The compiler's report
 (``-Xptxas -v``: registers, shared memory, spills) lands in ``<lib>.log``.
 Only the sources in this package are compiled.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -51,12 +55,23 @@ def library_path(name: str) -> Path:
     return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+@contextlib.contextmanager
+def _dir_lock():
+    """The build directory's exclusive lock, across processes."""
+    BUILD.mkdir(parents=True, exist_ok=True)
+    with open(BUILD / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all() -> dict[str, Path]:
     """Compile every source that has no library yet; returns the library
     path of every source. Raises with the compiler's output if a build
     fails."""
-    with _lock:
-        BUILD.mkdir(parents=True, exist_ok=True)
+    with _lock, _dir_lock():
         libs = {name: library_path(name) for name in sources()}
         procs, failed = {}, []
         try:

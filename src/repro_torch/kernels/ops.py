@@ -276,6 +276,10 @@ def unique_bag_grouped(tables, devs, invs, flat=None) -> list[torch.Tensor]:
 # kernel: row 0 holds INT_MAX, row 1 holds -1 between calls (each call
 # restores what it touched)
 _fb_scratch: dict = {}
+# a call's two launches go onto the stream together: another thread's call
+# on the same scratch (an embedding-PS thread applying beside the trainer,
+# or two PS threads of one process) must not land between them
+_fb_lock = threading.Lock()
 
 
 def _election_scratch(device: torch.device, R: int) -> torch.Tensor:
@@ -340,22 +344,26 @@ def fused_backward(table: torch.Tensor, acc: torch.Tensor | None,
     push = torch.empty((cap, D), dtype=torch.float32, device=table.device)
     if cap == 0 or D == 0:
         return push
-    scratch = _election_scratch(table.device, R)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    try:
-        _launch("fused_backward", "persia_fused_backward_f32", table, push,
-                (table.data_ptr(), ptr(acc), order.data_ptr(),
-                 offsets.data_ptr(), grads.data_ptr(), apply_idx.data_ptr(),
-                 ptr(None if apply_self else apply_g), push.data_ptr(),
-                 scratch[0].data_ptr(), scratch[1].data_ptr(), R,
-                 int(grads.shape[0]), int(order.shape[0]),
-                 max(int(offsets.shape[0]) - 1, 0), cap, D, float(lr),
-                 float(eps), int(bool(apply_self))))
-    except RuntimeError:
-        # launch 1 may have run without the apply that restores the
-        # sentinels: the next call at this size starts from fresh scratch
-        _fb_scratch.pop((table.device, R), None)
-        raise
+    with _fb_lock:
+        scratch = _election_scratch(table.device, R)
+        try:
+            _launch("fused_backward", "persia_fused_backward_f32", table,
+                    push,
+                    (table.data_ptr(), ptr(acc), order.data_ptr(),
+                     offsets.data_ptr(), grads.data_ptr(),
+                     apply_idx.data_ptr(),
+                     ptr(None if apply_self else apply_g), push.data_ptr(),
+                     scratch[0].data_ptr(), scratch[1].data_ptr(), R,
+                     int(grads.shape[0]), int(order.shape[0]),
+                     max(int(offsets.shape[0]) - 1, 0), cap, D, float(lr),
+                     float(eps), int(bool(apply_self))))
+        except RuntimeError:
+            # launch 1 may have run without the apply that restores the
+            # sentinels: the next call at this size starts from fresh
+            # scratch
+            _fb_scratch.pop((table.device, R), None)
+            raise
     _count(fused_backward)
     return push
 

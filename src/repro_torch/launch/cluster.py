@@ -1,27 +1,47 @@
-"""The small CTR trainer of the cluster and online launchers (port of
-``repro/launch/cluster.py``).
+"""Single-box multi-process PS cluster (port of ``repro/launch/
+cluster.py``): spawn one trainer + k embedding-PS processes, train over
+the RPC wire, and (optionally) kill a shard mid-run to exercise the
+elastic recovery path end to end.
 
-The JAX package's cluster spawns one trainer and k embedding-PS processes
-and trains over its RPC wire. The port has no PS process yet
-(``ROADMAP.md``, Queue 1: the multi-process PS): ``spawn_ps``,
-``run_cluster`` and ``main`` raise. What the in-process online loop needs
-is here: :func:`small_ctr_trainer`, and :func:`wait_for_port_file`, the
-poll a launcher makes for a server's published port.
+Usage (on the card; ``--device cpu`` runs the trainer and the PS
+processes on the CPU)::
+
+    PYTHONPATH=src python -m repro_torch.launch.cluster --steps 20 --ps 2
+    PYTHONPATH=src python -m repro_torch.launch.cluster --steps 20 --ps 3 \
+        --kill-shard 1 --kill-at 8       # SIGKILL shard 1 before step 8
+
+Each PS process (``python -m repro_torch.net.ps_server``, never a fork of
+a process that has started CUDA) binds port 0 and publishes its actual
+port through a ``--port-file`` (written atomically by the server once
+listening), so parallel launches never race on ports. Every shard spools
+applied state next to its port file; when a shard is killed, the trainer
+reshards its rows from that spool onto the survivors and keeps stepping —
+the membership events and any lost rows land in the end-of-run summary.
+The PS processes run on the trainer's device and load the kernels from
+the same build directory (``kernels/build.py`` locks it, so one process
+compiles and the others wait).
 """
 from __future__ import annotations
 
+import argparse
+import os
 import subprocess
+import sys
+import tempfile
 import time
+from pathlib import Path
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import adapters
 from repro_torch.core.hybrid import PersiaTrainer, TrainMode
 from repro_torch.data.ctr import CTRDataset
+from repro_torch.device import resolve_device
 from repro_torch.launch.shards import apply_backend_choice
+from repro_torch.net.elastic import ElasticPSCluster, PSMember
 from repro_torch.optim.optimizers import OptConfig
 
-_NO_PS = ("embedding-PS processes are not ported yet (ROADMAP.md, Queue 1: "
-          "the multi-process PS)")
+# the src/ directory the PS processes import the port from
+_SRC = str(Path(__file__).resolve().parents[2])
 
 
 def wait_for_port_file(port_file: str, proc: subprocess.Popen,
@@ -46,9 +66,74 @@ def wait_for_port_file(port_file: str, proc: subprocess.Popen,
                        f"within {timeout:.0f}s")
 
 
-def spawn_ps(*args, **kwargs):
-    """Launch one PS shard process: raises until the PS is ported."""
-    raise NotImplementedError(_NO_PS)
+def _start_ps(workdir: str, idx: int, host: str, spool_every: int,
+              reply_delay: float, device: str):
+    """Start PS process ``idx`` -> (its member record with port 0, its
+    port file). Its output goes to ``ps<idx>.log`` in ``workdir``."""
+    port_file = os.path.join(workdir, f"ps{idx}.port")
+    spool_dir = os.path.join(workdir, f"ps{idx}.spool")
+    if os.path.exists(port_file):
+        os.remove(port_file)          # an earlier run's port is not ours
+    env = dict(os.environ)
+    env["PYTHONPATH"] = _SRC + os.pathsep + env.get("PYTHONPATH", "")
+    cmd = [sys.executable, "-m", "repro_torch.net.ps_server",
+           "--host", host, "--port", "0", "--port-file", port_file,
+           "--spool-dir", spool_dir, "--spool-every", str(spool_every),
+           "--device", str(device)]
+    if reply_delay > 0:
+        cmd += ["--reply-delay", str(reply_delay)]
+    with open(os.path.join(workdir, f"ps{idx}.log"), "w") as log:
+        proc = subprocess.Popen(cmd, env=env, stdout=log,
+                                stderr=subprocess.STDOUT)
+    return PSMember(host, 0, spool_dir=spool_dir, proc=proc), port_file
+
+
+def spawn_cluster(workdir: str, n_ps: int, host: str = "127.0.0.1",
+                  spool_every: int = 1, timeout: float = 60.0,
+                  reply_delay: float = 0.0,
+                  device: str = "cuda") -> list[PSMember]:
+    """Start ``n_ps`` PS shard processes on ``device`` together, then wait
+    for each to publish its port; returns their member records (endpoint
+    + spool dir + process handle). ``reply_delay`` injects a per-op reply
+    latency server-side (a synthetic network RTT the pipelined transport
+    should overlap, the blocking one pays per op). On any failure every
+    process started is killed."""
+    os.makedirs(workdir, exist_ok=True)
+    started = []
+    try:
+        for i in range(n_ps):
+            started.append(_start_ps(workdir, i, host, spool_every,
+                                      reply_delay, device))
+        for m, port_file in started:
+            m.port = wait_for_port_file(port_file, m.proc, timeout)
+    except BaseException:
+        stop_ps([m for m, _ in started])
+        raise
+    return [m for m, _ in started]
+
+
+def spawn_ps(workdir: str, idx: int, host: str = "127.0.0.1",
+             spool_every: int = 1, timeout: float = 60.0,
+             reply_delay: float = 0.0, device: str = "cuda") -> PSMember:
+    """Launch one PS shard process (as :func:`spawn_cluster`, with index
+    ``idx``)."""
+    m, port_file = _start_ps(workdir, idx, host, spool_every, reply_delay,
+                             device)
+    try:
+        m.port = wait_for_port_file(port_file, m.proc, timeout)
+    except BaseException:
+        stop_ps([m])
+        raise
+    return m
+
+
+def stop_ps(members):
+    """Kill every member process still running and reap it."""
+    for m in members:
+        if m.proc is not None and m.proc.poll() is None:
+            m.proc.kill()
+        if m.proc is not None:
+            m.proc.wait(timeout=30)
 
 
 def small_ctr_trainer(mode: str = "hybrid", backend: str = "host_lru",
@@ -75,13 +160,132 @@ def small_ctr_trainer(mode: str = "hybrid", backend: str = "host_lru",
     return trainer, ds
 
 
-def run_cluster(*args, **kwargs) -> dict:
-    """Train over k PS processes: raises until the PS is ported."""
-    raise NotImplementedError(_NO_PS)
+def run_cluster(steps: int = 20, n_ps: int = 2, mode: str = "hybrid",
+                backend: str = "host_lru", batch: int = 16,
+                kill_shard: int | None = None, kill_at: int | None = None,
+                lossy: bool | None = None, spool_every: int = 1,
+                workdir: str | None = None, seed: int = 0,
+                heartbeats: bool = True, pipelined: bool = True,
+                put_window: int | None = None,
+                reply_delay: float = 0.0, device: str = "cuda",
+                trainer=None, ds=None) -> dict:
+    """Spawn the cluster, train ``steps`` steps, optionally SIGKILL one
+    shard mid-run, and return a summary (steps/s, each step's seconds,
+    loss, membership events, lost rows, recovery seconds: the step the
+    kill fell in). ``pipelined=False`` selects the
+    blocking per-op-round-trip wire baseline; ``put_window`` overrides the
+    outstanding-ack window (default: 1 for sync, min(tau, 8) for hybrid);
+    ``reply_delay`` injects per-op reply latency PS-side. The trainer and
+    the PS processes run on ``device`` (the card by default; raises
+    without a GPU unless ``"cpu"``). ``trainer``/``ds`` replace the small
+    CTR model (and its dataset) with a built trainer on ``device``."""
+    device = str(resolve_device(device))
+    workdir = workdir or tempfile.mkdtemp(prefix="ps_cluster_")
+    if trainer is None:
+        trainer, ds = small_ctr_trainer(mode=mode, backend=backend,
+                                        seed=seed, device=device)
+    members, cluster = [], None
+    try:
+        members = spawn_cluster(workdir, n_ps, device=device,
+                                spool_every=spool_every,
+                                reply_delay=reply_delay)
+        cluster = ElasticPSCluster(trainer, members)
+        cluster.connect(lossy=lossy, pipelined=pipelined,
+                        put_window=put_window)
+        if heartbeats:
+            cluster.start_heartbeats(interval=0.3, miss_threshold=2)
+        it = ds.sampler(batch, seed=seed)
+        first = next(it)
+        state = trainer.init(seed, first)
+        metrics, recovery_s, step_s = {}, None, []
+        t0 = time.monotonic()
+        for t in range(steps):
+            killed = False
+            if kill_shard is not None and t == (kill_at or steps // 2):
+                proc = cluster.members[kill_shard].proc
+                if proc is not None:
+                    proc.kill()
+                    proc.wait()
+                    killed = True
+            t_step = time.monotonic()
+            state, metrics = cluster.step(state, first if t == 0
+                                          else next(it))
+            step_s.append(time.monotonic() - t_step)
+            if killed:
+                recovery_s = step_s[-1]
+        for name, bk in trainer.backends.items():
+            bk.sync(state.emb[name])
+        dt = time.monotonic() - t0
+        return {
+            "steps": steps,
+            "steps_per_s": steps / max(dt, 1e-9),
+            "loss": float(metrics.get("loss", float("nan"))),
+            "members": len(cluster.members),
+            "events": list(cluster.events)
+            + ([] if cluster.monitor is None
+               else list(cluster.monitor.events)),
+            "lost_rows": {k: v for e in cluster.events
+                          if e["kind"] == "reshard"
+                          for k, v in e["lost_rows"].items()},
+            "recovery_s": recovery_s,
+            "step_s": step_s,
+            "device": device,
+            "workdir": workdir,
+        }
+    finally:
+        if cluster is not None:
+            cluster.close()
+        stop_ps(members)
 
 
 def main(argv=None):
-    raise NotImplementedError(_NO_PS)
+    ap = argparse.ArgumentParser(
+        description="one-box multi-process embedding-PS training run")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--ps", type=int, default=2,
+                    help="number of PS shard processes")
+    ap.add_argument("--mode", default="hybrid",
+                    choices=["sync", "hybrid", "async"])
+    ap.add_argument("--backend", default="host_lru",
+                    choices=["dense", "host_lru"])
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--kill-shard", type=int, default=None,
+                    help="SIGKILL this shard index mid-run (fault drill)")
+    ap.add_argument("--kill-at", type=int, default=None,
+                    help="step before which the kill fires (default mid)")
+    ap.add_argument("--lossy", action="store_true", default=None,
+                    help="blockscale-fp16 wire payloads")
+    ap.add_argument("--spool-every", type=int, default=1)
+    ap.add_argument("--workdir", default=None)
+    ap.add_argument("--transport", default="pipelined",
+                    choices=["pipelined", "blocking"],
+                    help="wire path: coalesced async (default) or the "
+                         "per-op synchronous-round-trip baseline")
+    ap.add_argument("--put-window", type=int, default=None,
+                    help="outstanding-ack window per table-shard "
+                         "(default: 1 sync, min(tau, 8) hybrid)")
+    ap.add_argument("--reply-delay", type=float, default=0.0,
+                    help="server-side per-op reply latency in seconds "
+                         "(synthetic network RTT)")
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (default; raises without a GPU) or 'cpu'")
+    args = ap.parse_args(argv)
+    res = run_cluster(steps=args.steps, n_ps=args.ps, mode=args.mode,
+                      backend=args.backend, batch=args.batch,
+                      kill_shard=args.kill_shard, kill_at=args.kill_at,
+                      lossy=args.lossy, spool_every=args.spool_every,
+                      workdir=args.workdir,
+                      pipelined=args.transport == "pipelined",
+                      put_window=args.put_window,
+                      reply_delay=args.reply_delay, device=args.device)
+    print(f"cluster: {res['steps']} steps @ {res['steps_per_s']:.2f} "
+          f"steps/s on {res['device']}, final loss {res['loss']:.4f}, "
+          f"{res['members']} PS members at exit")
+    for e in res["events"]:
+        print(f"  event: {e}")
+    if res["lost_rows"]:
+        print(f"  lost rows on reshard: {res['lost_rows']}")
+    return res
 
 
 if __name__ == "__main__":

@@ -24,23 +24,29 @@ flush snapshots, reads, predicts and copies its predictions to the host
 under it (``ServingService._flush_inner``). No read of the state happens
 outside it; a flush sees the state between two steps, never inside one.
 
-The JAX package's ``--ps k`` (tables in PS processes over the RPC wire)
-raises until the multi-process PS is ported; its ``lossy`` and
-``workdir``, which only the PS processes use, come with it.
+With ``--ps k`` the tables live in k embedding-PS processes
+(``repro_torch.net.ps_server``, on the trainer's device) and the trainer
+and the service reach them over the RPC wire: the trainer's prepares and
+puts and the service's reads ride one pipelined connection per PS, and
+each PS runs its ops in arrival order, so a read under the cell's lock
+sees every put of the steps published before it.
 
 Usage (on the card; ``--device cpu`` runs the plain versions)::
 
     PYTHONPATH=src python -m repro_torch.launch.online --steps 50 --clients 2
+    PYTHONPATH=src python -m repro_torch.launch.online --steps 50 --ps 2
 """
 from __future__ import annotations
 
 import argparse
+import tempfile
 import threading
 import time
 
 import numpy as np
 
-from repro_torch.launch.cluster import small_ctr_trainer
+from repro_torch.launch.cluster import (small_ctr_trainer, spawn_cluster,
+                                        stop_ps)
 from repro_torch.serving import (ClickModel, FeedbackQueue, ServingConfig,
                                  ServingService, StateCell, TrafficGenerator,
                                  TrafficModel)
@@ -61,24 +67,43 @@ def run_online(steps: int = 50, mode: str = "hybrid",
                max_batch: int = 8, max_wait_ms: float = 2.0,
                n_clients: int = 2, requests_per_client: int = 64,
                qps: float = 0.0, n_users: int = 10_000, n_ps: int = 0,
-               seed: int = 0, device: str = "cuda") -> dict:
+               lossy: bool | None = None, seed: int = 0,
+               workdir: str | None = None, spool_every: int = 1,
+               device: str = "cuda", trainer=None, ds=None) -> dict:
     """Run the closed serve->train->serve loop; returns a summary with
     trainer throughput, serving latency percentiles, the staleness
     gauges, and the served-traffic logloss trend (first half vs second
     half of impressions — online learning should bend it down).
-    ``n_ps > 0`` (tables in PS processes) raises until that is ported."""
-    if n_ps > 0:
-        raise NotImplementedError(
-            f"run_online(n_ps={n_ps}): embedding-PS processes are not "
-            "ported yet (ROADMAP.md, Queue 1: the multi-process PS)")
-    trainer, ds = small_ctr_trainer(mode=mode, backend=backend, tau=tau,
-                                    seed=seed, device=device)
-    summary, _ = _online_loop(
-        trainer, ds, steps=steps, batch=batch,
-        config=ServingConfig(max_batch=max_batch, max_wait_ms=max_wait_ms),
-        n_clients=n_clients, requests_per_client=requests_per_client,
-        qps=qps, n_users=n_users, seed=seed)
-    return summary
+    ``n_ps > 0`` puts the tables in that many PS processes (spawned in
+    ``workdir``, on ``device``, spooling every ``spool_every`` applied
+    puts; ``lossy`` selects the blockscale wire), killed when the loop
+    ends. ``trainer``/``ds`` replace the small CTR
+    model (and its dataset) with a built trainer."""
+    if trainer is None:
+        trainer, ds = small_ctr_trainer(mode=mode, backend=backend, tau=tau,
+                                        seed=seed, device=device)
+    members = []
+    try:
+        if n_ps > 0:
+            from repro_torch.net.remote import connect_remote_backends
+            members = spawn_cluster(
+                workdir or tempfile.mkdtemp(prefix="online_ps_"), n_ps,
+                spool_every=spool_every, device=str(trainer.device))
+            connect_remote_backends(
+                trainer, [m.endpoint for m in members], lossy=lossy)
+        summary, _ = _online_loop(
+            trainer, ds, steps=steps, batch=batch,
+            config=ServingConfig(max_batch=max_batch,
+                                 max_wait_ms=max_wait_ms),
+            n_clients=n_clients, requests_per_client=requests_per_client,
+            qps=qps, n_users=n_users, seed=seed)
+        summary["n_ps"] = n_ps
+        return summary
+    finally:
+        if members:
+            for b in trainer.backends.values():
+                b.close()
+            stop_ps(members)
 
 
 def _online_loop(trainer, ds, *, steps: int, batch: int,
@@ -212,8 +237,9 @@ def main(argv=None):
                          "(0 = closed loop)")
     ap.add_argument("--users", type=int, default=10_000)
     ap.add_argument("--ps", type=int, default=0,
-                    help="embedding-PS processes (0 = in-process backend; "
-                         "more raises until the PS is ported)")
+                    help="embedding-PS processes (0 = in-process backend)")
+    ap.add_argument("--lossy", action="store_true", default=None,
+                    help="blockscale-fp16 wire payloads (with --ps)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a GPU) or 'cpu'")
@@ -223,8 +249,8 @@ def main(argv=None):
                      max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
                      n_clients=args.clients,
                      requests_per_client=args.requests, qps=args.qps,
-                     n_users=args.users, n_ps=args.ps, seed=args.seed,
-                     device=args.device)
+                     n_users=args.users, n_ps=args.ps, lossy=args.lossy,
+                     seed=args.seed, device=args.device)
     sv = res["serving"]
     print(f"online: {res['steps']} steps @ {res['steps_per_s']:.2f} "
           f"steps/s, {res['served']} impressions served "

@@ -1296,3 +1296,95 @@ def test_cuda_router_lookup_and_put_match_cpu(cuda_device, backend_name,
             for key in ("ids", "grads"):
                 assert _same_bits(queues["card"]["t"][f"s{s}"][key].cpu(),
                                   queues["cpu"]["t"][f"s{s}"][key])
+
+
+# ---------------------------------------------------------------------------
+# the multi-process embedding PS on the card: PS servers as threads of this
+# process on the GPU, the remote trainer against the in-process trainer
+# ---------------------------------------------------------------------------
+
+def _remote_pair_trainer(device, backend, rows, shards=1):
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.core import adapters
+    from repro_torch.core.hybrid import PersiaTrainer, TrainMode
+    from repro_torch.data.ctr import CTRDataset
+    from repro_torch.optim.optimizers import OptConfig
+    cfg = ModelConfig(name="rc", arch_type="recsys", n_id_fields=2,
+                      ids_per_field=3, emb_dim=16, emb_rows=2 * rows,
+                      n_dense_features=4, mlp_dims=(32,), n_tasks=1)
+    ds = CTRDataset("rc", n_rows=2 * rows, n_fields=2, ids_per_field=3,
+                    n_dense=4)
+    coll = adapters.ctr_collection(cfg, lr=5e-2, field_rows=ds.field_rows())
+    if backend != "dense":
+        coll = coll.with_backend(backend, 512 if "host_lru" in backend
+                                 else None)
+    if shards > 1:
+        coll = coll.with_shards(shards)
+    ad = adapters.recsys_adapter(cfg, field_rows=ds.field_rows(),
+                                 collection=coll)
+    return PersiaTrainer(ad, TrainMode.hybrid(2),
+                         OptConfig(kind="adam", lr=5e-3),
+                         device=device), ds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,k,rows", [
+    ("dense", 1, 15_625), ("host_lru", 1, 15_625),
+    ("dense+compressed", 1, 15_625), ("dense", 4, 15_625),
+    ("host_lru", 4, 15_625)])
+def test_cuda_remote_bit_equal_with_in_process(cuda_device, backend, k,
+                                               rows):
+    """4 hybrid(2) steps over k PS threads on the card against the
+    in-process trainer of the same geometry (the plain backend at k = 1,
+    the router at k = 4; the lossy wire against ``dense+compressed``):
+    losses, dense parameters, every logical row and accumulator bit for
+    bit; each step one bag launch, 2 sum-only ``fused_backward`` launches
+    here and 2 k apply-only ones in the PS threads."""
+    from unittest import mock
+
+    from repro_torch.core import backend as BK
+    from repro_torch.core import dedup as D
+    from repro_torch.net import connect_remote_backends
+    from repro_torch.net.ps_server import PSServer
+    from repro_torch.utils import tree_leaves
+    t0, ds = _remote_pair_trainer(cuda_device, backend, rows, shards=k)
+    it = ds.sampler(64, seed=3)
+    bs = [next(it) for _ in range(4)]
+    s0 = t0.init(0, bs[0])
+    servers = [PSServer(device=cuda_device).start() for _ in range(k)]
+    try:
+        t1, _ = _remote_pair_trainer(cuda_device, backend, rows)
+        connect_remote_backends(t1, [("127.0.0.1", s.port)
+                                     for s in servers])
+        s1 = t1.init(0, bs[0])
+        for b in bs:
+            s0, m0 = t0.step(s0, b)
+            ops.reset_launch_counts()
+            with mock.patch.object(D, "csr_segment_sum",
+                                   wraps=D.csr_segment_sum) as sums:
+                s1, m1 = t1.step(s1, b)
+                for n, bk in t1.backends.items():
+                    bk.sync(s1.emb[n])
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            assert float(m1["loss"]) == float(m0["loss"])
+            assert counts["unique_bag"] == 1 and sums.call_count == 2
+            assert counts["fused_backward"] == 2 + 2 * k
+        for x, y in zip(tree_leaves(s0.dense), tree_leaves(s1.dense)):
+            assert torch.equal(x, y)
+        for n in t0.collection.names:
+            spec = t0.collection[n]
+            base = BK.parse_backend_name(spec.backend)[0]
+            got = BK.extract_logical_rows(
+                BK.unwrap(t1.backends[n]).state_for_checkpoint(s1.emb[n]),
+                spec, base)
+            want = BK.extract_logical_rows(
+                BK.unwrap(t0.backends[n]).state_for_checkpoint(s0.emb[n]),
+                spec, base)
+            for a, b in zip(got, want):
+                np.testing.assert_array_equal(a, b)
+        for bk in t1.backends.values():
+            bk.close()
+    finally:
+        for s in servers:
+            s.stop()

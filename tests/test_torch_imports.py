@@ -37,11 +37,14 @@ print("HAS", sorted(m for m in sys.modules if m in {names!r}))
 """
 
 # modules whose import must not need JAX (among all the walked ones): the
-# pipelined trainer, the launchers, the click feedback and the LM data
+# pipelined trainer, the launchers, the click feedback, the LM data and
+# the multi-process embedding PS
 _NAMED = ("repro_torch.core.pipeline", "repro_torch.launch.train",
           "repro_torch.launch.hostenv", "repro_torch.launch.online",
           "repro_torch.launch.cluster", "repro_torch.serving.feedback",
-          "repro_torch.data.lm")
+          "repro_torch.data.lm", "repro_torch.net", "repro_torch.net.wire",
+          "repro_torch.net.rpc", "repro_torch.net.ps_server",
+          "repro_torch.net.remote", "repro_torch.net.elastic")
 
 
 def test_port_and_chip_smoke_import_without_jax():
@@ -54,6 +57,47 @@ def test_port_and_chip_smoke_import_without_jax():
     assert "BAD []" in out.stdout, out.stdout
     assert int(out.stdout.split("LOADED ")[1].split()[0]) >= 15
     assert f"HAS {sorted(_NAMED)}" in out.stdout, out.stdout
+
+
+_PS_MAIN = r"""
+import runpy, sys
+sys.modules["jax"] = None            # any attempt to import jax raises
+sys.path[:0] = [{src!r}]
+sys.argv = ["ps_server", "--device", "cpu", "--port-file", {port_file!r}]
+runpy.run_module("repro_torch.net.ps_server", run_name="__main__")
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None and
+             (m == "repro" or m.startswith(("repro.", "jax"))))
+print("BAD", bad)
+"""
+
+
+def test_ps_server_process_runs_without_jax(tmp_path):
+    """``python -m repro_torch.net.ps_server --device cpu`` with JAX
+    unimportable: it publishes its port, answers, and shuts down cleanly
+    on the ``shutdown`` op, having loaded nothing of JAX or the JAX
+    package."""
+    from repro_torch.launch.cluster import wait_for_port_file
+    from repro_torch.net.rpc import RpcClient
+    port_file = str(tmp_path / "ps.port")
+    code = _PS_MAIN.format(src=str(ROOT / "src"), port_file=port_file)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=str(ROOT),
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        port = wait_for_port_file(port_file, proc, timeout=120)
+        c = RpcClient("127.0.0.1", port, timeout=10.0, retries=0)
+        rep = c.call("ping")
+        assert rep["pid"] == proc.pid and rep["device"] == "cpu"
+        c.call("shutdown")
+        c.close()
+        out, err = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0, err
+    assert "BAD []" in out, out
 
 
 _IMPORT = re.compile(r"^\s*(import|from)\s+(jax\b|repro(\.|\s|$))")

@@ -5,7 +5,8 @@ Tolerance classes:
 * bit-exact: ``ClickModel``'s labels and probabilities and
   ``FeedbackQueue``'s batches and counters, against the JAX copies from
   one seed (numpy on both sides);
-* invariants: the closed loop itself. The thread interleaving decides
+* invariants: the closed loop itself (with PS processes:
+  ``tests/test_torch_cluster.py``). The thread interleaving decides
   which feedback batches train and when each flush reads, so a run checks
   the step count, ``feedback.put == served``, ``serving/requests ==
   served``, every table's ``stale_steps <= tau``, and predictions in
@@ -129,14 +130,3 @@ def test_online_main_on_cpu(capsys):
                        "dense", "--device", "cpu"])
     assert res["steps"] == 3
     assert "online: 3 steps" in capsys.readouterr().out
-
-
-def test_ps_processes_raise():
-    with pytest.raises(NotImplementedError, match="multi-process PS"):
-        online.run_online(steps=1, n_ps=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-process PS"):
-        cluster.spawn_ps("/nonexistent", 0)
-    with pytest.raises(NotImplementedError, match="multi-process PS"):
-        cluster.run_cluster(steps=1)
-    with pytest.raises(NotImplementedError, match="multi-process PS"):
-        cluster.main([])
