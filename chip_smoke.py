@@ -208,16 +208,18 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    ``fused_backward`` launches in the trainer and 32 k apply-only ones in
    the PS threads; (b) PS processes (``launch.cluster.spawn_cluster``,
    ``--device cuda``): steps/s and step ms at k=1 and k=4, dense and
-   host_lru, beside the in-process trainer's from the same call; the
+   host_lru, k=1 beside the in-process trainer's from the same call and
+   k=4 beside ``sharded_phase``'s router readings; the
    trainer's prepare, lookup and put wall and thread ms, the PS-side
    prepare ms (``metrics`` op), frames and wire bytes a step (the lossy
    wire's from its bit check), syncs a step, the device-busy share, the
    PS processes' apply-only launches (no spool: ``spool_every=0``); (c)
    ``launch.cluster.run_cluster``'s kill drill (3 PS processes spooling
    every put, shard 1 SIGKILLed mid-run): the step ms with the spool,
-   recovery seconds and lost rows; (d) ``launch.online.run_online(
-   n_ps=2)`` (no spool): trainer steps/s and serving p50/p99/QPS under
-   training.
+   recovery seconds and lost rows; (d) ``run_online(n_ps=2)``'s loop
+   (``spawn_cluster``, ``connect_remote_backends``, ``_online_loop``; no
+   spool): trainer steps/s and serving p50/p99/QPS under training. The
+   lossy check runs on the timed runs' batches, over their loss spike.
 17. The launcher, ``repro_torch.launch.train.main`` on the card: 8
    pipelined steps of the CTR task, then ``--task lm --steps 8 --batch 8
    --seq-len 128 --eval-every 4`` (the launcher's lm-100m), finite losses.
@@ -359,11 +361,16 @@ SHARD_STEPS = {"warmup": 2, "dense": 10, "lru": 30, "staged": 5, "cpu": 4,
 # checks (one endpoint dense and host_lru, 4 endpoints, the lossy wire,
 # pipelined, blocking) and of the timed runs over PS processes (warm-up,
 # timed, staged, counted for syncs, profiled); the kill drill's steps and
-# the step before which shard 1 dies
+# the step before which shard 1 dies. The lossy check runs the timed
+# runs' first 10 batches, over the loss spike of their steps 5-8
 REMOTE_K = 4
-REMOTE_STEPS = {"warmup": 2, "dense": 10, "lru": 30, "k4": 4, "lossy": 4,
+REMOTE_STEPS = {"warmup": 2, "dense": 10, "lru": 30, "k4": 4, "lossy": 10,
                 "pipe": 6, "blocking": 4, "timed": 8, "staged": 4,
-                "syncs": 3, "profiled": 3, "kill": 5, "kill_at": 3}
+                "syncs": 3, "profiled": 3, "kill": 4, "kill_at": 2}
+REMOTE_TIMED_SEED = SEED + 41
+# the online loop over 2 PS processes: half the in-process loop's steps
+# and requests (its rates need no longer a run)
+REMOTE_ONLINE = {"steps": 15, "requests": 128}
 
 # the in-process online loop: kwai-dlrm on host_lru, hybrid(tau), the
 # service's micro-batch, closed-loop clients x requests each, trainer steps
@@ -3779,7 +3786,8 @@ def remote_trainer(dev, endpoints, backend="dense", **kw):
 
 def close_remote(trainer, servers=()):
     for b in trainer.backends.values():
-        b.close()
+        if b.remote:
+            b.close()
     for s in servers:
         s.stop()
 
@@ -3804,8 +3812,7 @@ def wire_counters(trainer) -> dict:
             "bytes": sum(c.bytes_sent + c.bytes_recv for c in cs)}
 
 
-def remote_pair(dev, ds, batches, what, backend="dense", k=1,
-                lossy=None):
+def remote_pair(dev, ds, batches, what, backend="dense", k=1):
     """The in-process trainer (the router at k > 1) and the remote trainer
     over k PS threads on the card, from one seed, ``batches`` each with
     the launch counts read around them: the two must agree bit for bit
@@ -3817,8 +3824,7 @@ def remote_pair(dev, ds, batches, what, backend="dense", k=1,
                                        f"{what}, in process")
     servers, tr1 = ps_threads(dev, k), None
     try:
-        tr1 = remote_trainer(dev, endpoints_of(servers), backend,
-                             lossy=lossy)
+        tr1 = remote_trainer(dev, endpoints_of(servers), backend)
         s1 = tr1.init(seed=SEED, batch_example=batches[0])
         c0 = wire_counters(tr1)
         with mock.patch.object(D, "csr_segment_sum",
@@ -3835,6 +3841,7 @@ def remote_pair(dev, ds, batches, what, backend="dense", k=1,
             f"{what}: {sums.call_count} sum-only of "
             f"{launches['fused_backward']} fused_backward launches")
         return {"launches": launches, "served": served, "losses": l1,
+                "losses_in_process": l0,
                 "wire": wire, "steps": n,
                 "wire_mb_per_step": (c1["bytes"] - c0["bytes"]) / n / 1e6}
     finally:
@@ -3850,15 +3857,18 @@ def remote_same_runs(dev, ds) -> dict:
     st = REMOTE_STEPS
     it = ds.sampler(TRAIN_B, seed=SEED + 40)
     batches = [next(it) for _ in range(st["warmup"] + st["lru"])]
-    runs, paths = {}, {}
-    for key, backend, k, n, lossy in (
-            ("dense_k1", "dense", 1, st["warmup"] + st["dense"], None),
-            ("host_lru_k1", HOST_LRU, 1, st["warmup"] + st["lru"], None),
-            ("dense_k4", "dense", REMOTE_K, st["k4"], None),
-            ("lossy_k1", WIRE, 1, st["lossy"], None)):
-        runs[key] = remote_pair(dev, ds, batches[:n], f"remote {key}",
-                                backend, k, lossy)
+    it = ds.sampler(TRAIN_B, seed=REMOTE_TIMED_SEED)
+    timed = [next(it) for _ in range(st["lossy"])]
+    runs, paths, secs = {}, {}, {}
+    for key, backend, k, bs in (
+            ("dense_k1", "dense", 1, batches[:st["warmup"] + st["dense"]]),
+            ("host_lru_k1", HOST_LRU, 1, batches),
+            ("dense_k4", "dense", REMOTE_K, batches[:st["k4"]]),
+            ("lossy_k1", WIRE, 1, timed)):
+        t0 = time.perf_counter()
+        runs[key] = remote_pair(dev, ds, bs, f"remote {key}", backend, k)
         torch.cuda.empty_cache()
+        secs[key] = time.perf_counter() - t0
     paths["train_remote"] = (runs["dense_k1"]["launches"],
                              runs["dense_k1"]["served"])
     paths["train_remote_host_lru"] = (runs["host_lru_k1"]["launches"],
@@ -3883,6 +3893,7 @@ def remote_same_runs(dev, ds) -> dict:
              st["blocking"]),
             ("blocking_wire", "serial", HOST_LRU, REMOTE_K,
              {"pipelined": False}, st["blocking"])):
+        t0 = time.perf_counter()
         servers = ps_threads(dev, k)
         tr = remote_trainer(dev, endpoints_of(servers), backend, **kw)
         try:
@@ -3900,6 +3911,7 @@ def remote_same_runs(dev, ds) -> dict:
         finally:
             close_remote(tr, servers)
         torch.cuda.empty_cache()
+        secs[key] = time.perf_counter() - t0
 
     def same(a, b):
         return out[a]["losses"] == out[b]["losses"] and all(
@@ -3916,6 +3928,7 @@ def remote_same_runs(dev, ds) -> dict:
     for v in out.values():
         del v["rows"]
     rec = {key: {"steps": r["steps"], "losses": r["losses"],
+                 "losses_in_process": r["losses_in_process"],
                  "wire_mb_per_step": r["wire_mb_per_step"],
                  "launches_per_step": {n: v / r["steps"]
                                        for n, v in r["launches"].items()},
@@ -3926,6 +3939,7 @@ def remote_same_runs(dev, ds) -> dict:
                lossy_wire_byte_ratio=lossy_ratio,
                lossy_wire_mb_ratio=socket_ratio,
                inflight1_bit_equal=True, blocking_bit_equal=True,
+               seconds=secs,
                frames_per_step={k: v["frames_per_step"]
                                 for k, v in out.items()})
     return paths, rec
@@ -4065,56 +4079,102 @@ def timed_run(dev, tr, batches, members=None) -> dict:
     return out
 
 
-def remote_timed_runs(dev, ds) -> dict:
-    """(b) of the phase: dense and host_lru at k=1 and k=4 over PS
-    processes on the card, each beside the in-process trainer of its
-    geometry from the same call."""
+def remote_timed_runs(dev, ds, sharded, members) -> dict:
+    """(b) of the phase: dense and host_lru at k=1 and k=4 over the PS
+    processes ``members`` on the card; k=1 beside the in-process trainer
+    from the same batches, k=4 beside the router's k=4 readings of
+    ``sharded_phase`` in the same call (dense at 65,536 rows, host_lru at
+    62,500)."""
     st = REMOTE_STEPS
     n = st["warmup"] + st["timed"] + st["staged"] + st["syncs"] \
         + st["profiled"]
-    it = ds.sampler(TRAIN_B, seed=SEED + 41)
+    it = ds.sampler(TRAIN_B, seed=REMOTE_TIMED_SEED)
     batches = [next(it) for _ in range(n)]
-    work = ROOT / "build" / "remote_ps"
-    t0 = time.perf_counter()
-    # no spool: a spool writes the table's whole state to disk per put
-    # (the kill drill below runs with it and reads its cost)
-    members = ps_cluster.spawn_cluster(str(work), REMOTE_K, spool_every=0,
-                                       device=str(dev))
-    rec = {"spawn_s": time.perf_counter() - t0}
-    try:
-        for backend in ("dense", HOST_LRU):
-            for k in (1, REMOTE_K):
-                key = f"{backend}_k{k}"
-                tr = kwai_train_trainer(dev, TrainMode.hybrid(TAU), backend,
-                                        shards=k)
+    rec = {"dense_k4_router": sharded["dense_65536"][REMOTE_K]["step_ms"],
+           "host_lru_k4_router": {
+               "step_ms": sharded["host_lru_62500"][REMOTE_K]["step_ms"],
+               "stages_ms": sharded["host_lru_62500"][REMOTE_K][
+                   "breakdown_ms"]}}
+    for backend in ("dense", HOST_LRU):
+        for k in (1, REMOTE_K):
+            key = f"{backend}_k{k}"
+            if k == 1:
+                tr = kwai_train_trainer(dev, TrainMode.hybrid(TAU), backend)
                 rec[f"{key}_in_process"] = timed_run(dev, tr, batches)
                 del tr
                 torch.cuda.empty_cache()
-                tr = remote_trainer(dev, [m.endpoint for m in members[:k]],
-                                    backend)
-                try:
-                    rec[key] = timed_run(dev, tr, batches, members[:k])
-                finally:
-                    close_remote(tr)
-                torch.cuda.empty_cache()
-    finally:
-        ps_cluster.stop_ps(members)
-        shutil.rmtree(work, ignore_errors=True)
+            tr = remote_trainer(dev, [m.endpoint for m in members[:k]],
+                                backend)
+            try:
+                rec[key] = timed_run(dev, tr, batches, members[:k])
+            finally:
+                close_remote(tr)
+            torch.cuda.empty_cache()
     return rec
 
 
-def remote_phase(dev):
+def remote_online(dev, ds, members) -> dict:
+    """(c) of the phase: ``run_online(n_ps=2)``'s loop (kwai-dlrm on
+    host_lru, hybrid(2)) with its tables in the first 2 PS processes of
+    ``members``: exact steps, every impression fed back, staleness <=
+    tau; trainer steps/s and serving p50/p99/QPS under training."""
+    tr = kwai_train_trainer(dev, TrainMode.hybrid(ONLINE["tau"]), HOST_LRU)
+    try:
+        connect_remote_backends(tr, [m.endpoint for m in members[:2]])
+        res, _ = online._online_loop(
+            tr, ds, steps=REMOTE_ONLINE["steps"], batch=TRAIN_B,
+            config=ServingConfig(max_batch=ONLINE["max_batch"]),
+            n_clients=ONLINE["clients"],
+            requests_per_client=REMOTE_ONLINE["requests"], seed=SEED)
+    finally:
+        close_remote(tr)
+    sv = res["serving"]
+    served = ONLINE["clients"] * REMOTE_ONLINE["requests"]
+    check(res["steps"] == REMOTE_ONLINE["steps"] and res["served"] == served
+          and res["feedback"]["put"] == served
+          and sv["serving/errors"] == 0.0
+          and all(v <= ONLINE["tau"] for key, v in sv.items()
+                  if key.endswith("/stale_steps")),
+          f"remote online loop: {res}")
+    return {"steps_per_s": res["steps_per_s"], "p50_ms": sv["serving/p50_ms"],
+            "p99_ms": sv["serving/p99_ms"], "qps": sv["serving/qps"],
+            "served": res["served"],
+            "feedback_batches": res["feedback_batches"]}
+
+
+def remote_phase(dev, sharded):
     """The multi-process embedding PS at kwai-dlrm's full width (32 tables
-    x D=128, batch 512, hybrid(3)). Returns the main paths' counts (the
-    runs over PS threads, whose apply-only launches count in this
-    process) and the record."""
+    x D=128, batch 512, hybrid(3)); ``sharded`` is ``sharded_phase``'s
+    record, whose router k=4 readings stand beside the remote k=4 ones.
+    Returns the main paths' counts (the runs over PS threads, whose
+    apply-only launches count in this process) and the record, with the
+    seconds of each part."""
     ds = CTR_BENCHMARKS["kwai_video"]
     t_phase = time.perf_counter()
     rec = {"phase": "remote", "model": KWAI.name, "batch": TRAIN_B,
-           "mode": f"hybrid({TAU})", "k": REMOTE_K}
+           "mode": f"hybrid({TAU})", "k": REMOTE_K, "part_s": {}}
     paths, rec["bit_checks"] = remote_same_runs(dev, ds)
-    rec["timed"] = remote_timed_runs(dev, ds)
-    # (c) the kill drill: 3 PS processes, shard 1 SIGKILLed before step
+    rec["part_s"]["bit_checks"] = time.perf_counter() - t_phase
+    # (b) and (c) over 4 PS processes spawned once; no spool: a spool
+    # writes the table's whole state to disk per put (the kill drill
+    # below runs with it and reads its cost)
+    t0 = time.perf_counter()
+    work = ROOT / "build" / "remote_ps"
+    members = ps_cluster.spawn_cluster(str(work), REMOTE_K, spool_every=0,
+                                       device=str(dev))
+    rec["part_s"]["spawn"] = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        rec["timed"] = remote_timed_runs(dev, ds, sharded, members)
+        rec["part_s"]["timed"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec["online"] = remote_online(dev, ds, members)
+        rec["part_s"]["online"] = time.perf_counter() - t0
+    finally:
+        ps_cluster.stop_ps(members)
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    # (d) the kill drill: 3 PS processes, shard 1 SIGKILLed before step
     # kill_at, its spooled rows resharded onto the survivors
     st = REMOTE_STEPS
     tr = kwai_train_trainer(dev, TrainMode.hybrid(TAU), "dense")
@@ -4123,7 +4183,8 @@ def remote_phase(dev):
         steps=st["kill"], n_ps=3, kill_shard=1, kill_at=st["kill_at"],
         batch=TRAIN_B, workdir=str(ROOT / "build" / "remote_drill"),
         heartbeats=False, device=str(dev), trainer=tr, ds=ds)
-    drill["wall_s"] = time.perf_counter() - t0
+    drill["wall_s"] = rec["part_s"]["kill_drill"] = \
+        time.perf_counter() - t0
     shutil.rmtree(drill["workdir"], ignore_errors=True)
     resh = [e for e in drill["events"] if e["kind"] == "reshard"]
     check(drill["members"] == 2 and resh and resh[0]["dead"] == [1]
@@ -4138,29 +4199,6 @@ def remote_phase(dev):
     # the steps before the kill: k=3 with every put spooled
     rec["kill_drill"]["spooled_step_ms"] = float(np.median(
         drill["step_s"][1:st["kill_at"]])) * 1e3
-    del tr
-    torch.cuda.empty_cache()
-    # (d) the online loop with its tables in 2 PS processes
-    tr = kwai_train_trainer(dev, TrainMode.hybrid(ONLINE["tau"]), HOST_LRU)
-    res = online.run_online(
-        steps=ONLINE["steps"], batch=TRAIN_B, max_batch=ONLINE["max_batch"],
-        n_clients=ONLINE["clients"], requests_per_client=ONLINE["requests"],
-        n_ps=2, seed=SEED, workdir=str(ROOT / "build" / "remote_online"),
-        spool_every=0, device=str(dev), trainer=tr, ds=ds)
-    shutil.rmtree(ROOT / "build" / "remote_online", ignore_errors=True)
-    sv = res["serving"]
-    served = ONLINE["clients"] * ONLINE["requests"]
-    check(res["steps"] == ONLINE["steps"] and res["served"] == served
-          and res["feedback"]["put"] == served
-          and sv["serving/errors"] == 0.0
-          and all(v <= ONLINE["tau"] for key, v in sv.items()
-                  if key.endswith("/stale_steps")),
-          f"remote online loop: {res}")
-    rec["online"] = {"steps_per_s": res["steps_per_s"],
-                     "p50_ms": sv["serving/p50_ms"],
-                     "p99_ms": sv["serving/p99_ms"],
-                     "qps": sv["serving/qps"], "served": res["served"],
-                     "feedback_batches": res["feedback_batches"]}
     del tr
     torch.cuda.empty_cache()
     rec["phase_s"] = time.perf_counter() - t_phase
@@ -4294,7 +4332,7 @@ def main() -> int:
     sharded_paths, recs["sharded"] = sharded_phase(dev)
     paths.update(sharded_paths)
     # the multi-process embedding PS
-    remote_paths, recs["remote"] = remote_phase(dev)
+    remote_paths, recs["remote"] = remote_phase(dev, recs["sharded"])
     paths.update(remote_paths)
     recs["train_launcher"] = launcher_phase(dev)
 

@@ -94,7 +94,9 @@ def spawn_cluster(workdir: str, n_ps: int, host: str = "127.0.0.1",
                   device: str = "cuda") -> list[PSMember]:
     """Start ``n_ps`` PS shard processes on ``device`` together, then wait
     for each to publish its port; returns their member records (endpoint
-    + spool dir + process handle). ``reply_delay`` injects a per-op reply
+    + spool dir + process handle). Process ``i`` publishes its port in
+    ``ps<i>.port``, spools into ``ps<i>.spool`` and prints to ``ps<i>.log``
+    in ``workdir``. ``reply_delay`` injects a per-op reply
     latency server-side (a synthetic network RTT the pipelined transport
     should overlap, the blocking one pays per op). On any failure every
     process started is killed."""
@@ -110,21 +112,6 @@ def spawn_cluster(workdir: str, n_ps: int, host: str = "127.0.0.1",
         stop_ps([m for m, _ in started])
         raise
     return [m for m, _ in started]
-
-
-def spawn_ps(workdir: str, idx: int, host: str = "127.0.0.1",
-             spool_every: int = 1, timeout: float = 60.0,
-             reply_delay: float = 0.0, device: str = "cuda") -> PSMember:
-    """Launch one PS shard process (as :func:`spawn_cluster`, with index
-    ``idx``)."""
-    m, port_file = _start_ps(workdir, idx, host, spool_every, reply_delay,
-                             device)
-    try:
-        m.port = wait_for_port_file(port_file, m.proc, timeout)
-    except BaseException:
-        stop_ps([m])
-        raise
-    return m
 
 
 def stop_ps(members):

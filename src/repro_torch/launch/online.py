@@ -69,7 +69,7 @@ def run_online(steps: int = 50, mode: str = "hybrid",
                qps: float = 0.0, n_users: int = 10_000, n_ps: int = 0,
                lossy: bool | None = None, seed: int = 0,
                workdir: str | None = None, spool_every: int = 1,
-               device: str = "cuda", trainer=None, ds=None) -> dict:
+               device: str = "cuda") -> dict:
     """Run the closed serve->train->serve loop; returns a summary with
     trainer throughput, serving latency percentiles, the staleness
     gauges, and the served-traffic logloss trend (first half vs second
@@ -77,11 +77,9 @@ def run_online(steps: int = 50, mode: str = "hybrid",
     ``n_ps > 0`` puts the tables in that many PS processes (spawned in
     ``workdir``, on ``device``, spooling every ``spool_every`` applied
     puts; ``lossy`` selects the blockscale wire), killed when the loop
-    ends. ``trainer``/``ds`` replace the small CTR
-    model (and its dataset) with a built trainer."""
-    if trainer is None:
-        trainer, ds = small_ctr_trainer(mode=mode, backend=backend, tau=tau,
-                                        seed=seed, device=device)
+    ends."""
+    trainer, ds = small_ctr_trainer(mode=mode, backend=backend, tau=tau,
+                                    seed=seed, device=device)
     members = []
     try:
         if n_ps > 0:

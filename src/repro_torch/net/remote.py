@@ -154,6 +154,24 @@ class _Remote:
         st, _, m = self.hybrid_update(state, None, dev_ids, grads)
         return st, m
 
+    def put_sums(self, dev_ids, grads):
+        """The device half of a put -> ``(ids, sums, unique)``: a plan's
+        host unique ids and their (U, dim) sums (one sum-only
+        ``fused_backward`` launch); occurrence ids keep their gradients,
+        grouped first on the lossy wire (which always dedups its puts) over
+        this backend's whole device id space (a router's: every shard's)."""
+        if D.is_plan(dev_ids):
+            host = dev_ids.host if dev_ids.host is not None else dev_ids.dev
+            return host, D.csr_segment_sum(*BK._plan_csr(dev_ids), grads,
+                                           int(dev_ids.dev.shape[0])), True
+        flat, g = dev_ids.reshape(-1), grads.reshape(-1, self.spec.dim)
+        if not self.lossy:
+            return flat, g.float(), False
+        plan = C.dedup_plan(flat, D.dedup_cap(int(flat.numel()),
+                                              self.dev_rows()))
+        return plan.dev, D.csr_segment_sum(plan.order, plan.offsets, g,
+                                           int(plan.dev.shape[0])), True
+
     def lookup(self, state, dev_ids):
         rows, m = self.lookup_submit(state, dev_ids)()
         out = torch.from_numpy(rows).to(BK._ids_device(dev_ids))
@@ -173,9 +191,8 @@ class RemoteBackend(_Remote, EmbeddingBackend):
     """One table (or one shard of a table) behind a PS process."""
 
     def __init__(self, spec: EmbeddingSpec, endpoint, table: str = "t",
-                 lossy: bool = False, client: RpcClient | None = None,
-                 timeout: float = 30.0, retries: int = 3,
-                 backoff: float = 0.2, configure: bool = True,
+                 lossy: bool = False, timeout: float = 30.0,
+                 retries: int = 3, backoff: float = 0.2,
                  put_window: int | None = None, pipelined: bool = True,
                  device: str | torch.device = "cuda"):
         base, wrap = BK.parse_backend_name(spec.backend)
@@ -204,12 +221,7 @@ class RemoteBackend(_Remote, EmbeddingBackend):
         self.lossy = bool(lossy)
         self._block = int(spec.wire_block)
         self._table = str(table)
-        if client is not None:
-            self._client, self._owns_client = client, True
-        else:
-            self._client = _acquire_client(endpoint, timeout, retries,
-                                           backoff)
-            self._owns_client = False
+        self._client = _acquire_client(endpoint, timeout, retries, backoff)
         # outstanding-ack window: sync tables 1 (one unacked put at most);
         # hybrid tables up to tau (in-flight loss stays within the paper's
         # bounded-staleness tolerance), capped at DEFAULT_MAX_PUT_WINDOW
@@ -226,9 +238,8 @@ class RemoteBackend(_Remote, EmbeddingBackend):
         self.faults = 0           # host_lru fault/hit mirrors (shard gauges)
         self.hits = 0
         self._queue_width_cfg = 0
-        if configure:
-            self._call("configure", _mutating=True,
-                       spec=wire.spec_to_dict(spec), lossy=self.lossy)
+        self._call("configure", _mutating=True,
+                   spec=wire.spec_to_dict(spec), lossy=self.lossy)
 
     # -- plumbing ------------------------------------------------------------
 
@@ -260,10 +271,7 @@ class RemoteBackend(_Remote, EmbeddingBackend):
 
     def close(self):
         self.discard_pending()
-        if self._owns_client:
-            self._client.close()
-        else:
-            _release_client(self._client)
+        _release_client(self._client)
 
     def discard_pending(self):
         """Drop outstanding ack futures without raising — the membership
@@ -512,23 +520,6 @@ class RemoteBackend(_Remote, EmbeddingBackend):
         return {"get_bytes_raw": float(host.size * (4 + 4 * self.spec.dim)),
                 "get_bytes_wire": float(sent.size * 4 + n_wire)}
 
-    def put_sums(self, dev_ids, grads):
-        """The device half of a put -> ``(ids, sums, unique)``: a plan's
-        host unique ids and their (U, dim) sums (one sum-only
-        ``fused_backward`` launch); occurrence ids keep their gradients,
-        grouped first on the lossy wire (which always dedups its puts)."""
-        if D.is_plan(dev_ids):
-            host = dev_ids.host if dev_ids.host is not None else dev_ids.dev
-            return host, D.csr_segment_sum(*BK._plan_csr(dev_ids), grads,
-                                           int(dev_ids.dev.shape[0])), True
-        flat, g = dev_ids.reshape(-1), grads.reshape(-1, self.spec.dim)
-        if not self.lossy:
-            return flat, g.float(), False
-        plan = C.dedup_plan(flat, D.dedup_cap(int(flat.numel()),
-                                              self.dev_rows()))
-        return plan.dev, D.csr_segment_sum(plan.order, plan.offsets, g,
-                                           int(plan.dev.shape[0])), True
-
     def put_host(self, state, queue, ids, sums, unique: bool):
         """The host half of a put (``ids``/``sums`` host numpy): buffer it
         on the connection -> ``(state, queue, metrics)``."""
@@ -741,9 +732,6 @@ class RemoteShardedBackend(_Remote, ShardedBackend):
                 n_wire += nb
             return rows, sub0._get_metrics(host, _valid(host), n_wire)
         return collect
-
-    def put_sums(self, dev_ids, grads):
-        return self.shard_backends[0].put_sums(dev_ids, grads)
 
     def put_host(self, state, queue, ids, sums, unique: bool):
         """Each shard's own rows of the put, buffered on its endpoint (an

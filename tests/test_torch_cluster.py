@@ -57,7 +57,7 @@ def test_ps_process_refuses_a_missing_gpu(tmp_path):
     if __import__("torch").cuda.is_available():
         pytest.skip("a GPU is visible: the default device exists")
     with pytest.raises(RuntimeError, match="before publishing"):
-        cluster.spawn_ps(str(tmp_path), 0, device="cuda")
+        cluster.spawn_cluster(str(tmp_path), 1, device="cuda")
     assert "no GPU" in (tmp_path / "ps0.log").read_text()
 
 

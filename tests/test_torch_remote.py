@@ -224,6 +224,54 @@ def test_remote_lossy_sharded_trains_against_itself(servers):
     assert la != lr
 
 
+def test_remote_lossy_sharded_occurrence_width_keeps_every_id(servers):
+    """Lossy k = 2 at occurrence width (``batch_dedup=False``), host_lru
+    with 1,024 slots a shard and batches of ~1,800 distinct ids a table:
+    the put groups its occurrences over the router's whole id space, so
+    no shard's rows are dropped. Against the in-process
+    ``host_lru+compressed`` router at k = 2, which compresses at the
+    router: losses rtol 1e-5, accumulators rtol 1e-5 / atol 1e-9, rows
+    within lr 2^-11 sqrt(D) per applied put (an fp16 payload element
+    rounds within 2^-11 of itself; the blocks differ; 2 puts applied)."""
+    rows, cache, lr = 8192, 2048, 5e-2
+    cfg = dataclasses.replace(CFG, emb_rows=F * rows)
+    ds = CTRDataset("rps_occ", n_rows=F * rows, n_fields=F,
+                    ids_per_field=3, n_dense=4, zipf_a=0.0)
+
+    def trainer(shards):
+        coll = adapters.ctr_collection(cfg, lr=lr,
+                                       field_rows=ds.field_rows())
+        coll = coll.with_backend("host_lru+compressed", cache)
+        if shards != 1:
+            coll = coll.with_shards(shards)
+        ad = adapters.recsys_adapter(cfg, field_rows=ds.field_rows(),
+                                     collection=coll)
+        return PersiaTrainer(ad, TrainMode.hybrid(2),
+                             OptConfig(kind="adam", lr=5e-3),
+                             batch_dedup=False, device="cpu")
+
+    it = ds.sampler(1024, seed=0)
+    bs = [next(it) for _ in range(4)]
+    ids = np.asarray(bs[0]["ids"])[:, 0].reshape(-1)
+    assert np.unique(ids[ids >= 0]).size > 1024
+    t_ref = trainer(2)
+    ref, l_ref = _run(t_ref, bs)
+    t = trainer(1)
+    st, losses = _run(t, bs, endpoints=_endpoints(servers(2)))
+    b = t.backends["field_00"]
+    assert isinstance(b, RemoteShardedBackend) and b.lossy
+    # the grouping keeps all 2,048 device ids of the two shards
+    flat = torch.arange(b.dev_rows(), dtype=torch.int32).repeat(2)
+    got, _, unique = b.put_sums(flat, torch.ones(flat.numel(), D))
+    assert unique and sorted(got[got >= 0].tolist()) == list(
+        range(b.dev_rows()))
+    np.testing.assert_allclose(losses, l_ref, rtol=1e-5)
+    ra, rb = _rows(t, st), _rows(t_ref, ref)
+    for n in ra:
+        _close(ra[n][0], rb[n][0], 0, 2 * lr * 2.0 ** -11 * np.sqrt(D), n)
+        _close(ra[n][1], rb[n][1], 1e-5, 1e-9, n)
+
+
 def test_put_is_applied_before_the_next_prepare_and_lookup(servers):
     """A put still buffered in the window (unacked, unflushed) is applied
     by the PS before a later prepare or lookup of ANY table on its
