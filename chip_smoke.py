@@ -106,6 +106,26 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    into what the fp32 GEMMs leave alone (the card with the plain attention
    against the CPU) and what the attention kernel adds (kernel against
    plain attention on the card).
+   Then DeepSeek-V2 serving (``lm_moe_serve``): deepseek-v2-lite-16b at
+   full width and depth (27 layers: MLA with 16 heads, a query/key head of
+   128 + 64 rope and a value head of 128, kv_lora 512; 64 routed experts
+   top-6 + 2 shared of 1,408, the first layer a dense FFN of 10,944; vocab
+   102,400; fp32: 62.0 GB of dense weights drawn on the card, scaled in
+   place) through ``launch.serve.serve``, B=4, a 2,048-token prompt, 32
+   greedy tokens: 27 ``flash_attention_fwd`` launches per prefill, all at
+   (192, 128); tokens in the vocab and equal on a second (profiled) run;
+   the prefill's last-token logits through the kernel and through the
+   plain attention on the card within 1e-3 of the largest, the first
+   token equal, with both runs' routing compared (the (layer, token)
+   choices that differ and the smallest top-k gap among them are
+   printed; a check that fails names them and still fails). Prefill ms,
+   ms per token, the device-busy share, peak GiB and the decode's weight
+   bytes per token (every expert runs at a decode step). Then the model
+   cut to 2 layers (the prologue and one MoE layer), B=1, prompt 256, 4
+   tokens, on the card and on the CPU from one state: the logits of every
+   step up to the first MoE call that routed a token otherwise within
+   rtol 1e-4 / atol 1e-5, the greedy tokens there equal, the flips
+   reported (the first must lie within 1e-5 of a top-k boundary).
 9. The out-of-core tier, train: kwai-dlrm with every table ``host_lru``
    (a device cache of 7,812 slots, ``default_cache_rows``, over the
    62,500 host rows), hybrid(3), batch 512: 2 warm-up and 30 timed steps
@@ -230,8 +250,13 @@ ids >= V mixed in; ``check_unique`` must raise on a duplicate), and
 ``flash_attention_fwd`` against its plain version at granite's prefill
 shape (B=4, 32/8 heads of 64, S=2,048, fp32, causal; o within 2e-5, lse
 within 1e-4) and on edge cases (S=1,000, a ragged tile; window 256;
-non-causal; Hq = Hkv; Dh 96 and 128; q and k x30 with the scale / 900;
-bf16 inputs, o within 4e-2, and bf16 at Dh 12, whose K/V go by cp.async),
+non-causal; Hq = Hkv; Dh 96 and 128, and phi3-mini's 32 / 32 heads of 96
+and qwen3-14b's 40 / 8 of 128; q and k x30 with the scale / 900; bf16
+inputs, o within 4e-2, and bf16 at Dh 12, whose K/V go by cp.async;
+DeepSeek-V2-Lite's MLA prefill, B=4, 16 heads, S=2,048, a query/key head
+of 192 and a value head of 128, in fp32 and bf16, and a ragged Dh 160 /
+Dv 72 with Sk 777; the MLA prefill is timed beside its bound, its plain
+version and SDPA, whose backend is named),
 each timed beside its bound, its plain version and its library call
 (``index_add_``, ``scaled_dot_product_attention``; the port calls
 neither). The attention's bound is three TF32 passes of its operations
@@ -254,7 +279,9 @@ exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
 import math
 import shutil
@@ -290,6 +317,7 @@ from repro_torch.launch.shards import (build_embedding_spec,  # noqa: E402
                                        default_cache_rows)
 from repro_torch.models import flash as lm_flash  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
+from repro_torch.models import moe as lm_moe  # noqa: E402
 from repro_torch.models import transformer as lm_model  # noqa: E402
 from repro_torch.models.recsys import pool_bag  # noqa: E402
 from repro_torch.net import connect_remote_backends  # noqa: E402
@@ -380,6 +408,14 @@ ONLINE = {"tau": 2, "max_batch": 64, "clients": 4, "requests": 256,
 # warm-up and timed steps), and the card-against-CPU cut
 LM_TRAIN = {"batch": 2, "seq": 2048, "warmup": 2, "timed": 3}
 LM_TRAIN_CPU = {"layers": 2, "batch": 1, "seq": 256, "steps": 3}
+# DeepSeek-V2 serving: deepseek-v2-lite-16b at full width and depth (27
+# layers: an mla + dense prologue, 26 mla + MoE), served as granite is
+# (LM_B, LM_PROMPT, LM_GEN); the card-against-CPU cut keeps the prologue
+# and one MoE layer. A routing choice that flips within this gap of a
+# top-k boundary may follow from rounding alone
+MOE_ARCH = "deepseek_v2_lite_16b"
+MOE_CPU = {"repeats": 1, "batch": 1, "prompt": 256, "gen": 4}
+FLIP_GAP = 1e-5
 
 KERNELS = {
     "embedding_bag": {"source": "src/repro_torch/kernels/csrc/bag.cu",
@@ -404,12 +440,14 @@ KERNELS = {
 }
 CODEC = ("blockscale_compress", "blockscale_decompress")
 # the kernels line's fields beyond the contract's: the grouped kernels'
-# per-stage times, fused_backward's at the LM put (D = 2,048)
+# per-stage times, fused_backward's at the LM put (D = 2,048), the
+# attention's at DeepSeek-V2-Lite's MLA prefill (query/key 192, value 128)
 STAGE_KEYS = ("stage_tables", "stage_ms", "stage_bound_ms", "stage_library_ms",
               "lm_put_ms", "lm_put_bound_ms", "lm_put_bound_by",
               "lm_put_plain_ms", "train_stage_ms", "train_stage_bound_ms",
               "put_stage_ms", "put_stage_bound_ms", "train_ms",
-              "train_bound_ms")
+              "train_bound_ms", "mla_ms", "mla_bound_ms", "mla_bound_by",
+              "mla_plain_ms", "mla_library_ms", "mla_library_backend")
 
 
 BAG_KERNELS = ("embedding_bag", "unique_bag")
@@ -1505,12 +1543,13 @@ def flash_phase(dev):
     Hq, Hkv, Dh = lm.n_heads, lm.n_kv_heads, lm.head_dim
     gen = torch.Generator(device=dev).manual_seed(SEED + 16)
 
-    def qkv(B, hq, hkv, Sq, Sk, dh, dtype=torch.float32):
+    def qkv(B, hq, hkv, Sq, Sk, dh, dtype=torch.float32, dv=None):
         return [torch.randn(s, generator=gen, device=dev).to(dtype)
                 for s in ((B, hq, Sq, dh), (B, hkv, Sk, dh),
-                          (B, hkv, Sk, dh))]
+                          (B, hkv, Sk, dv or dh))]
 
-    # (B, Hq, Hkv, Sq, Sk, Dh, causal, window, dtype)
+    mla = mla_shape()
+    # (B, Hq, Hkv, Sq, Sk, Dh, causal, window, dtype[, Dv])
     cases = {
         "prefill": (LM_B, Hq, Hkv, LM_PROMPT, LM_PROMPT, Dh, True, 0,
                     torch.float32),
@@ -1527,12 +1566,23 @@ def flash_phase(dev):
         "x30": (2, Hq, Hkv, 300, 300, Dh, True, 0, torch.float32),
         # bf16 rows of 24 bytes: K/V by cp.async, not TMA
         "dh_12_bf16": (2, 8, 2, 300, 300, 12, True, 0, torch.bfloat16),
+        # phi3-mini's 32 / 32 heads of 96 and qwen3-14b's 40 / 8 of 128
+        "phi3_dh_96": (1, 32, 32, 512, 512, 96, True, 0, torch.float32),
+        "qwen3_dh_128": (1, 40, 8, 512, 512, 128, True, 0, torch.float32),
+        # DeepSeek-V2-Lite's MLA prefill: 16 heads, query/key 192 (128 +
+        # 64 rope), value 128; its bf16 instantiation; a ragged tile with
+        # both heads padded (160 -> 192, 72 -> 128)
+        "mla_prefill": (LM_B, mla["H"], mla["H"], LM_PROMPT, LM_PROMPT,
+                        mla["Dqk"], True, 0, torch.float32, mla["Dv"]),
+        "mla_bf16": (2, mla["H"], mla["H"], 1000, 1000, mla["Dqk"], True, 0,
+                     torch.bfloat16, mla["Dv"]),
+        "mla_ragged": (2, 4, 2, 1000, 777, 160, True, 0, torch.float32, 72),
     }
     scale = 1.0 / math.sqrt(Dh)
     errs, err32 = {}, 0.0
-    for name, (B, hq, hkv, Sq, Sk, dh, causal, window, dtype) in \
+    for name, (B, hq, hkv, Sq, Sk, dh, causal, window, dtype, *dv) in \
             cases.items():
-        q, k, v = qkv(B, hq, hkv, Sq, Sk, dh, dtype)
+        q, k, v = qkv(B, hq, hkv, Sq, Sk, dh, dtype, *dv)
         sc = 1.0 / math.sqrt(dh)
         if name == "x30":
             q, k, sc = q * 30, k * 30, sc / 900
@@ -1590,7 +1640,69 @@ def flash_phase(dev):
             q, k, v, is_causal=True, scale=scale, enable_gqa=True), 10)}
     del q, k, v
     torch.cuda.empty_cache()
+    timing["mla"] = mla_timing(dev, qkv, mla)
     return timing
+
+
+def mla_shape() -> dict:
+    """The attention shape of DeepSeek-V2-Lite's MLA (Hq = Hkv = heads;
+    query/key head_dim + rope_head_dim, value v_head_dim)."""
+    c = get_config(MOE_ARCH)
+    return {"H": c.n_heads, "Dqk": c.head_dim + c.rope_head_dim,
+            "Dv": c.v_head_dim}
+
+
+def sdpa_backend(q, k, v, **kw) -> dict:
+    """Which backend ``F.scaled_dot_product_attention`` picks for these
+    inputs: torch's own choice and the kernels the profiler saw."""
+    try:
+        from torch.nn.attention import SDPBackend
+        choice = SDPBackend(torch._fused_sdp_choice(
+            q, k, v, None, 0.0, kw.get("is_causal", False),
+            scale=kw.get("scale"))).name
+    except Exception as e:                    # a private API: report why
+        choice = f"unknown ({type(e).__name__})"
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        F.scaled_dot_product_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+    kernels = sorted({e.key for e in prof.key_averages()
+                      if e.self_device_time_total > 0})
+    return {"choice": choice, "kernels": kernels[:6]}
+
+
+def mla_timing(dev, qkv, mla) -> dict:
+    """flash_attention_fwd at the MLA prefill shape (B=4, S=2,048, 16
+    heads, query/key 192, value 128, fp32, causal): device us beside its
+    bound, the plain version and SDPA (the backend it picks named)."""
+    B, S, H = LM_B, LM_PROMPT, mla["H"]
+    dqk, dv = mla["Dqk"], mla["Dv"]
+    q, k, v = qkv(B, H, H, S, S, dqk, torch.float32, dv)
+    scale = 1.0 / math.sqrt(dqk)
+    sdpa_kw = dict(is_causal=True, scale=scale)
+    rec = {
+        "ms": device_ms(lambda: ops.flash_attention_fwd(q, k, v, scale),
+                        10),
+        "plain_ms": device_ms(lambda: ref.flash_attention_fwd_ref(
+            q, k, v, scale), 3),
+        "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, **sdpa_kw), 10),
+        "library_backend": sdpa_backend(q, k, v, **sdpa_kw),
+    }
+    pairs = attended_pairs(S, S, True, 0)
+    no = 2.0 * B * H * (dqk + dv) * pairs
+    nb = 4.0 * (B * H * S * dqk * 2 + B * H * S * dv * 2 + B * H * S)
+    b_bytes, b_ops = nb / HBM_BYTES_PER_S, 3 * no / TF32_OPS_PER_S
+    rec.update(bound_ms=max(b_bytes, b_ops) * 1e3,
+               bound_by="bytes" if b_bytes >= b_ops else "operations",
+               bound_simt_ms=max(b_bytes, no / FP32_OPS_PER_S) * 1e3,
+               bound_ops=no, bound_bytes=nb,
+               tflops=no / (rec["ms"] * 1e-3) / 1e12,
+               shape={"B": B, "H": H, "S": S, "Dqk": dqk, "Dv": dv,
+                      "causal": True})
+    del q, k, v
+    torch.cuda.empty_cache()
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -2346,6 +2458,246 @@ def lm_card_vs_cpu(dev):
     emit(rec)
     check(ok, f"lm card against CPU: logits differ by {max(errs)}")
     check(torch.equal(tg, tc), "lm card against CPU: greedy tokens differ")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek-V2 serving: MLA and the MoE FFN at deepseek-v2-lite-16b's width
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def record_routing():
+    """Every MoE call's ``(probs, topi)`` while the block runs, in call
+    order (the port's ``moe.router_topk`` wrapped)."""
+    calls = []
+    orig = lm_moe.router_topk
+
+    def wrapped(logits, k):
+        out = orig(logits, k)
+        calls.append((out[0].detach(), out[2].detach()))
+        return out
+
+    with mock.patch.object(lm_moe, "router_topk", wrapped):
+        yield calls
+
+
+def routing_flips(ref_calls, calls, k) -> dict:
+    """Where two runs' MoE calls chose other experts (or another order) for
+    a token: the (layer, token) choices that differ, the smallest top-k
+    boundary gap among them (the least gap between neighbours of the
+    reference run's k + 1 largest probabilities), the first call that
+    differs and the largest gap of its differing tokens."""
+    check(len(ref_calls) == len(calls),
+          f"routing: {len(calls)} MoE calls against {len(ref_calls)}")
+    n, gaps, first, first_max = 0, [], None, None
+    for i, ((pa, ia), (_, ib)) in enumerate(zip(ref_calls, calls)):
+        d = (ia.cpu() != ib.cpu()).any(-1)
+        if not bool(d.any()):
+            continue
+        top = torch.sort(pa.cpu()[d].double(), dim=-1,
+                         descending=True).values[:, :k + 1]
+        g = (top[:, :-1] - top[:, 1:]).min(dim=-1).values
+        if first is None:
+            first, first_max = i, float(g.max())
+        gaps.append(float(g.min()))
+        n += int(d.sum())
+    return {"calls": len(calls), "tokens": int(calls[0][1].shape[0])
+            if calls else 0, "flipped": n,
+            "min_gap": min(gaps) if gaps else None, "first_call": first,
+            "first_call_max_gap": first_max}
+
+
+def flip_note(flips: dict) -> str:
+    if not flips["flipped"]:
+        return "no routing choice differs"
+    small = flips["min_gap"] < FLIP_GAP
+    return (f"{flips['flipped']} (layer, token) routing choices differ, "
+            f"the smallest top-k gap among them {flips['min_gap']:.3g}"
+            + (f" (under {FLIP_GAP}: rounding alone can flip them)"
+               if small else ""))
+
+
+def moe_weight_bytes(cfg, dense) -> dict:
+    """The dense weights' bytes (all of them read by a decode step: the
+    capacity dispatch runs every expert) and the routed experts' share."""
+    total = sum(t.numel() * t.element_size() for t in tree_leaves(dense))
+    experts = sum(dense["stack"][str(i)]["ffn"][w].numel()
+                  * dense["stack"][str(i)]["ffn"][w].element_size()
+                  for i, blk in enumerate(cfg.pattern) if blk.ffn == "moe"
+                  for w in ("wg", "wu", "wd"))
+    return {"weight_bytes": total, "expert_bytes": experts,
+            "decode_bound_ms": total / HBM_BYTES_PER_S * 1e3,
+            "expert_bound_ms": experts / HBM_BYTES_PER_S * 1e3}
+
+
+def lm_moe_serve_phase(dev):
+    """``launch.serve.serve`` at the full width and depth of
+    deepseek-v2-lite-16b (27 layers: MLA with a 192-wide query/key head
+    and a 128-wide value head, 64 routed experts top-6 + 2 shared), fp32,
+    B=4, prompt 2,048, 32 greedy tokens: 27 flash_attention_fwd launches
+    per prefill, tokens in the vocab and equal on a second run, the
+    prefill's logits against the plain attention on the card (routing
+    flips between the two runs reported), timings, the device-busy share,
+    peak memory and the decode's weight bytes per token."""
+    cfg = get_config(MOE_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    part = {}
+    t0 = time.perf_counter()
+    bk, emb, dense = lm_state(cfg, dev, SEED)
+    state = (emb, dense)
+    n_dense = sum(t.numel() for t in tree_leaves(dense))
+    weights = moe_weight_bytes(cfg, dense)
+    lm_serve.serve(cfg, LM_B, LM_PROMPT, 2, SEED, device=dev, state=state)
+    torch.cuda.synchronize()
+    part["init_and_warmup"] = time.perf_counter() - t0
+
+    # the main path: counts set to 0 just before
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    res = lm_serve.serve(cfg, LM_B, LM_PROMPT, LM_GEN, SEED, device=dev,
+                         state=state)
+    launches, served = ops.launch_counts(), ops.table_counts()
+    part["serve"] = time.perf_counter() - t0
+    check(launches["flash_attention_fwd"] == cfg.n_layers,
+          f"lm moe serve: {launches['flash_attention_fwd']} "
+          f"flash_attention_fwd launches, want {cfg.n_layers} (one prefill)")
+    toks = res["tokens"]
+    check(toks.shape == (LM_B, LM_GEN) and toks.min() >= 0
+          and toks.max() < cfg.vocab_size,
+          f"lm moe serve tokens {toks.shape}")
+
+    # the prefill's last-token logits through the kernel and through the
+    # plain attention, on the card, with both runs' routing
+    t0 = time.perf_counter()
+    prompts = torch.as_tensor(
+        lm_serve.make_prompts(cfg, LM_B, LM_PROMPT, SEED), device=dev)
+    with record_routing() as rk:
+        _, lk, _ = lm_serve.prefill_step(cfg, bk, emb, dense, prompts,
+                                         LM_PROMPT + 1)
+    with record_routing() as rp, \
+            mock.patch.object(lm_flash, "flash_attention", plain_attention):
+        _, lp, _ = lm_serve.prefill_step(cfg, bk, emb, dense, prompts,
+                                         LM_PROMPT + 1)
+    flips = routing_flips(rp, rk, cfg.moe_top_k)
+    del rk, rp
+    emit({"phase": "lm_moe_routing", "run": "kernel_vs_plain_attention",
+          **flips})
+    lk, lp = lk[:, 0, :cfg.vocab_size], lp[:, 0, :cfg.vocab_size]
+    torch.cuda.synchronize()
+    diff = float((lk - lp).abs().max())
+    top = float(lp.abs().max())
+    note = flip_note(flips)
+    check(bool(torch.isfinite(lk).all()), "lm moe prefill logits not finite")
+    check(diff <= 1e-3 * top, f"lm moe prefill logits: kernel and plain "
+          f"attention differ by {diff} (largest logit {top}); {note}")
+    check(torch.equal(lk.argmax(-1), lp.argmax(-1)),
+          f"lm moe prefill: the first token differs with the plain "
+          f"attention; {note}")
+    check(torch.equal(lk.argmax(-1).cpu(),
+                      torch.as_tensor(toks[:, 0]).long()),
+          "lm moe prefill: serve's first token differs from the prefill's")
+    del lk, lp
+    torch.cuda.empty_cache()
+    part["kernel_vs_plain"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        prof_res = lm_serve.serve(cfg, LM_B, LM_PROMPT, LM_GEN, SEED,
+                                  device=dev, state=state)
+        wall = time.perf_counter() - t1
+    device_s = sum(e.self_device_time_total
+                   for e in prof.key_averages()) / 1e6
+    top_kernels = sorted(((e.self_device_time_total / 1e3, e.key)
+                          for e in prof.key_averages()), reverse=True)[:8]
+    check(np.array_equal(prof_res["tokens"], toks),
+          "lm moe serve: a second run gave other tokens")
+    part["profiled"] = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del bk, emb, dense, state, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    ms_tok = res["decode_s"] * 1e3 / (LM_GEN - 1)
+    return (launches, served), {
+        "phase": "lm_moe_serve", "model": cfg.name, "layers": cfg.n_layers,
+        "d_model": cfg.d_model,
+        "heads": {"n": cfg.n_heads, "qk_nope": cfg.head_dim,
+                  "rope": cfg.rope_head_dim, "v": cfg.v_head_dim,
+                  "kv_lora": cfg.kv_lora_rank, "q_lora": cfg.q_lora_rank},
+        "moe": {"experts": cfg.n_experts, "top_k": cfg.moe_top_k,
+                "shared": cfg.n_shared_experts, "d_ff": cfg.moe_d_ff,
+                "capacity_prefill": lm_moe.capacity(cfg, LM_B * LM_PROMPT),
+                "capacity_decode": lm_moe.capacity(cfg, LM_B)},
+        "vocab": [cfg.vocab_size, cfg.padded_vocab],
+        "dense_params": n_dense, "dense_gb": n_dense * 4 / 1e9, **weights,
+        "batch": LM_B, "prompt": LM_PROMPT, "gen": LM_GEN,
+        "prefill_ms": res["prefill_s"] * 1e3, "ms_per_token": ms_tok,
+        "decode_tok_per_s": res["decode_tok_per_s"],
+        "flash_launches_per_prefill": launches["flash_attention_fwd"],
+        "prefill_logit_diff_vs_plain": diff, "largest_logit": top,
+        "routing_kernel_vs_plain": flips,
+        "profiled_wall_s": wall, "profiled_device_s": device_s,
+        "device_busy_share": device_s / wall, "peak_gib": peak,
+        "resident_gib_before": resident, "top_kernels_ms": top_kernels,
+        "part_s": part, "first_tokens": toks[0, :8].tolist()}
+
+
+def lm_moe_card_vs_cpu(dev):
+    """deepseek-v2-lite-16b at full width cut to 2 layers (the mla + dense
+    prologue and one mla + MoE layer), B=1, prompt 256, 4 greedy tokens,
+    from one starting state (drawn on the CPU) on the card and on the CPU,
+    both runs' routing recorded: the logits of every step up to the first
+    MoE call that routed a token otherwise are held within rtol 1e-4 /
+    atol 1e-5 and the greedy tokens there equal; the flips are reported,
+    and the first call that differs must lie within 1e-5 of a top-k
+    boundary (else the two runs disagree for another reason than
+    rounding)."""
+    cfg = get_config(MOE_ARCH).replace(pattern_repeats=MOE_CPU["repeats"])
+    cpu = torch.device("cpu")
+    bk, emb, dense = lm_state(cfg, cpu, SEED + 1)
+    prompts = torch.as_tensor(lm_serve.make_prompts(
+        cfg, MOE_CPU["batch"], MOE_CPU["prompt"], SEED + 1))
+    n_moe = sum(b.ffn == "moe" for b in cfg.pattern) * cfg.pattern_repeats
+
+    def run(d):
+        e = {k: t.to(d) for k, t in emb.items()}
+        p = tree_map(lambda t: t.to(d), dense)
+        with record_routing() as calls:
+            first, steps, toks = lm_generate(cfg, bk, e, p, prompts.to(d),
+                                             MOE_CPU["gen"])
+        return ([first.cpu()] + [x.cpu() for x in steps], toks.cpu(),
+                [(a.cpu(), b.cpu()) for a, b in calls])
+
+    t0 = time.perf_counter()
+    (lg, tg, rg), (lc, tc, rc) = run(dev), run(cpu)
+    flips = routing_flips(rc, rg, cfg.moe_top_k)
+    # steps whose MoE calls, and every earlier step's, routed alike
+    alike = len(lg) if flips["first_call"] is None \
+        else flips["first_call"] // n_moe
+    errs = [float((a - b).abs().max()) for a, b in zip(lg, lc)]
+    ok = all(torch.allclose(a, b, rtol=1e-4, atol=1e-5)
+             for a, b in zip(lg[:alike], lc[:alike]))
+    rec = {"phase": "lm_moe_card_vs_cpu", **MOE_CPU, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "logit_max_abs_by_step": errs, "steps_routed_alike": alike,
+           "routing": flips, "tokens_card": tg.tolist(),
+           "tokens_cpu": tc.tolist(), "seconds": time.perf_counter() - t0}
+    emit(rec)
+    note = flip_note(flips)
+    check(flips["first_call"] is None
+          or flips["first_call_max_gap"] <= FLIP_GAP,
+          f"lm moe card against CPU: the first routing that differs is "
+          f"not at a top-k boundary; {note}")
+    check(alike >= 1, f"lm moe card against CPU: the prefill routed apart; "
+          f"{note}")
+    check(ok, f"lm moe card against CPU: logits differ by "
+          f"{max(errs[:alike])} where the routing agrees; {note}")
+    check(torch.equal(tg[:, :alike], tc[:, :alike]),
+          f"lm moe card against CPU: greedy tokens differ; {note}")
     return rec
 
 
@@ -4272,6 +4624,10 @@ def main() -> int:
     timing.update(blockscale_phase(dev, ds))
     timing["embedding_sgd"] = sgd_phase(dev, ds)
     timing["flash_attention_fwd"] = flash_phase(dev)
+    timing["flash_attention_fwd"].update(
+        {f"mla_{k}": timing["flash_attention_fwd"]["mla"][k]
+         for k in ("ms", "bound_ms", "bound_by", "plain_ms", "library_ms",
+                   "library_backend")})
     floor = floor_phase(dev)
     emit({"phase": "kernels", "shape": {"B": B, "L": L, "D": DIM, "V": V,
                                         "tables": N_TABLES,
@@ -4301,6 +4657,9 @@ def main() -> int:
     paths["lm_serve"], recs["lm_serve"] = lm_serve_phase(dev)
     emit(recs["lm_serve"])
     recs["lm_serve"]["card_vs_cpu"] = lm_card_vs_cpu(dev)
+    paths["lm_moe_serve"], recs["lm_moe_serve"] = lm_moe_serve_phase(dev)
+    emit(recs["lm_moe_serve"])
+    recs["lm_moe_serve"]["card_vs_cpu"] = lm_moe_card_vs_cpu(dev)
     # the out-of-core tier
     paths["train_host_lru"], recs["train_host_lru"], (tr, st) = \
         train_host_lru_phase(dev)

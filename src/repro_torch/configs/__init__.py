@@ -3,15 +3,20 @@ architectures ported so far (copies of ``repro/configs``).
 
 ``get_config('<arch-id>')`` returns the exact configuration,
 ``get_config('<arch-id>', reduced=True)`` its smoke variant, as in the JAX
-package. The port has ``granite_3_2b`` and the recsys ids; the other
-architectures of the JAX package raise until their slice is ported.
+package. The port has the ids in ``ARCH_IDS`` (the dense GQA family and
+DeepSeek-V2's MLA + MoE) and the recsys ids; the other architectures of
+the JAX package (mamba2, Jamba, the vision and encoder-decoder models)
+raise until their slice is ported.
 """
+import importlib
+
 from repro_torch.configs.base import (BlockCfg, InputShape, INPUT_SHAPES,
                                       ModelConfig)
 from repro_torch.configs.recsys_configs import (AVAZU, CRITEO, KWAI, TAOBAO,
                                                 criteo_syn)
 
-ARCH_IDS = ["granite_3_2b"]
+ARCH_IDS = ["deepseek_v2_lite_16b", "qwen3_14b", "deepseek_v2_236b",
+            "phi3_mini_3_8b", "deepseek_coder_33b", "granite_3_2b"]
 RECSYS_IDS = ["taobao_dlrm", "avazu_dlrm", "criteo_dlrm", "kwai_dlrm"]
 _RECSYS = dict(zip(RECSYS_IDS, (TAOBAO, AVAZU, CRITEO, KWAI)))
 
@@ -24,8 +29,8 @@ def get_config(name: str, *, reduced: bool = False) -> ModelConfig:
     name = canonical(name)
     if name in _RECSYS:
         cfg = _RECSYS[name]
-    elif name == "granite_3_2b":
-        from repro_torch.configs.granite_3_2b import CONFIG as cfg
+    elif name in ARCH_IDS:
+        cfg = importlib.import_module(f"repro_torch.configs.{name}").CONFIG
     else:
         raise NotImplementedError(
             f"architecture {name!r} is not ported yet: the torch port has "

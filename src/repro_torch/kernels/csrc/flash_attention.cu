@@ -3,13 +3,15 @@
 // products on the tensor cores (wgmma).
 //
 //   persia_flash_attention_fwd:
-//     q (B, Hq, Sq, Dh), k and v (B, Hkv, Sk, Dh); query head h reads kv
-//     head h / (Hq / Hkv);
+//     q (B, Hq, Sq, Dh), k (B, Hkv, Sk, Dh), v (B, Hkv, Sk, Dv); query head
+//     h reads kv head h / (Hq / Hkv); the value head Dv <= Dh may be
+//     narrower than the query/key head (MLA: Dh 192 = 128 + 64 rope, Dv
+//     128);
 //     s = (q . k) * scale + bias, bias = 0 where attended, -1e30 where masked
 //     (masked: causal and qpos < kpos, or window > 0 and qpos - kpos >=
 //     window, with qpos = query row + q_offset);
-//     o = softmax(s) v in q's dtype, lse = m + log(max(l, 1e-30)) in fp32
-//     (B, Hq, Sq).
+//     o = softmax(s) v (B, Hq, Sq, Dv) in q's dtype, lse = m + log(max(l,
+//     1e-30)) in fp32 (B, Hq, Sq).
 //
 // It replaces the Pallas TPU kernel
 //   src/repro/kernels/flash_attention.py  flash_attention_fwd (_kernel)
@@ -34,7 +36,9 @@
 //   8-row x 16-byte core matrices; V transposed to (d, key), since tf32
 //   wgmma has no transpose), writing keys past Sk as zeros, so no garbage
 //   or NaN enters a product, and free the stage. Dh is padded with zeros
-//   to DP (32, 64 or 128) in shared memory.
+//   to DP (32, 64, 128 or 192) in shared memory, Dv to DV (DP, or 128
+//   where DP is 192): the query/key width is the depth of Q K^T, the value
+//   width the N of P V, and each operand follows its own.
 // * fp32 inputs: 3xTF32. Each operand x is split once into big =
 //   tf32(x) and small = tf32(x - big) (cvt.rna.tf32.f32): Q once per CTA,
 //   K and V when their tile is restaged, P in registers. Each product is
@@ -63,24 +67,34 @@
 //   key. CTAs are issued last query tile first, so the longest causal rows
 //   start early.
 //
-// Bound: operations. 4 * B * Hq * Dh * (attended pairs) fp32-equivalent
-// operations; at fp32 accuracy the card does three TF32 passes of them at
-// 495 TFLOP/s (3 x 68.8 GFLOP: 417 us at granite's prefill shape; one fp32
-// pass outside the tensor cores, 67 TFLOP/s, would take 1,026 us), bf16
-// one pass at 989 TFLOP/s (70 us). The bytes (q, k, v read once, o
+// Bound: operations. 2 * B * Hq * (Dh + Dv) * (attended pairs)
+// fp32-equivalent operations; at fp32 accuracy the card does three TF32
+// passes of them at 495 TFLOP/s (3 x 68.8 GFLOP: 417 us at granite's
+// prefill shape, 3 x 85.9 GFLOP: 521 us at DeepSeek-V2-Lite's MLA prefill,
+// B 4, S 2,048, 16 heads of 192 / 128; one fp32 pass outside the tensor
+// cores, 67 TFLOP/s, would take 1,026 and 1,283 us), bf16 one pass at 989
+// TFLOP/s (70 and 87 us). The bytes (q, k, v read once, o
 // written once) are a few percent of that at prefill length. The
 // restaging of every K/V tile and the softmax run between the products,
 // not beside them: the kernel is far from that bound (PERF.md).
 //
-// Shared memory, bytes, fp32 / bf16 inputs (DP: Dh padded; NWG consumer
-// warpgroups; BK keys a tile):
-//   DP, NWG, BK   raw K/V stage (x 2)   Q ops          K ops, V ops (each)
-//   32, 2, 64     16,384 / 8,192        32,768 / 8,192   16,384 / 4,096
-//   64, 2, 64     32,768 / 16,384       65,536 / 16,384  32,768 / 8,192
-//   128, 1, 32    32,768 / 16,384       65,536 / 16,384  32,768 / 8,192
-// (the fp32 operand buffers hold big and small), so at most 196,640 bytes
-// with the four mbarriers: one CTA per SM, opted in to dynamic shared
-// memory above 48 KB once per instantiation.
+// Shared memory, bytes, fp32 / bf16 inputs (DP, DV: Dh, Dv padded; NWG
+// consumer warpgroups; BK keys a tile; raw K/V stages in the ring):
+//   DP, DV, NWG, BK, stages  raw K/V stage    Q ops            K ops, V ops
+//   32, 32, 2, 64, 2         16,384 / 8,192   32,768 / 8,192   16,384 / 4,096
+//   64, 64, 2, 64, 2         32,768 / 16,384  65,536 / 16,384  32,768 / 8,192
+//   128, 128, 1, 32, 2       32,768 / 16,384  65,536 / 16,384  32,768 / 8,192
+//   192, 128, 1, 32, 1 / 2   40,960 / 20,480  98,304 / 24,576  49,152, 32,768
+//                                                              / 12,288, 8,192
+// (the fp32 operand buffers hold big and small; K ops and V ops are each
+// that size in the first three rows), so at most 196,640 bytes with the
+// mbarriers where DP <= 128, and 221,200 at (192, 128) in fp32: there two
+// raw stages (262,144 in all) or the old 2 x 81,920 ring would pass the
+// 232,448 bytes a block may opt in to, so the fp32 ring keeps ONE raw
+// stage. The stage is freed as soon as it is restaged into the operand
+// layout, so the producer still loads tile i + 1 while the consumers
+// multiply tile i. One CTA per SM, opted in to dynamic shared memory
+// above 48 KB once per instantiation.
 //
 // C interface (bound with ctypes): launches on `stream`, does not
 // synchronise, allocates nothing, and returns cudaGetLastError().
@@ -94,25 +108,29 @@
 
 namespace {
 
-constexpr int kStages = 2;      // raw K/V stages in the ring
 constexpr float kMasked = -1e30f;
 
-template <typename T, int DP>
+// DP: the query/key head padded; DV: the value head padded (DP where
+// DP <= 128)
+template <typename T, int DP, int DV>
 struct Cfg {
   static constexpr bool kF32 = std::is_same<T, float>::value;
-  static constexpr int BK = DP == 128 ? 32 : 64;     // keys per tile
-  static constexpr int NWG = DP == 128 ? 1 : 2;      // consumer warpgroups
+  static constexpr int BK = DP >= 128 ? 32 : 64;     // keys per tile
+  static constexpr int NWG = DP >= 128 ? 1 : 2;      // consumer warpgroups
+  // raw K/V stages in the ring (one for fp32 at DP 192: see the table)
+  static constexpr int kStages = DP > 128 && kF32 ? 1 : 2;
   static constexpr int BQ = 64 * NWG;                // query rows per CTA
   static constexpr int NC = NWG * 128;               // consumer threads
   static constexpr int NT = NC + 32;                 // + the producer warp
   static constexpr int CH = 16 / sizeof(T);          // elements per 16 B
   static constexpr int NSPLIT = kF32 ? 2 : 1;        // big (and small)
-  static constexpr int kRaw = 2 * BK * DP * sizeof(T);         // one stage
+  static constexpr int kRaw = BK * (DP + DV) * sizeof(T);      // one stage
   static constexpr int kQ = 64 * DP * sizeof(T);               // one half
   static constexpr int kK = BK * DP * sizeof(T);
-  static constexpr int kV = DP * BK * sizeof(T);
+  static constexpr int kV = DV * BK * sizeof(T);
   static constexpr int kSmem = kStages * kRaw + NSPLIT * (NWG * kQ + kK + kV)
                                + 2 * kStages * 8;
+  static_assert(kSmem <= 232448, "over the shared memory a block may use");
 };
 
 // ---------------------------------------------------------------------------
@@ -493,15 +511,15 @@ __device__ __forceinline__ void stage_rows(T* big, T* small, const T* src,
   }
 }
 
-// The V tile (BK keys x Dh, row-major, keys >= n_valid zero) into the
-// K-major B operand of P V: [BK / CH][DP][CH], keys along the 16 bytes. For
+// The V tile (BK keys x Dv, row-major, keys >= n_valid zero) into the
+// K-major B operand of P V: [BK / CH][DV][CH], keys along the 16 bytes. For
 // tf32 the keys of each 8-key step are permuted as P's A fragment holds
 // them: chunk 2s + p holds keys 8s + p + 2i, i < 4.
-template <typename T, int DP, int BK>
+template <typename T, int DV, int BK>
 __device__ __forceinline__ void stage_v(T* big, T* small, const T* src,
-                                        int n_valid, int Dh, int tid,
+                                        int n_valid, int Dv, int tid,
                                         int nt) {
-  const int ndq = Dh / 4;
+  const int ndq = Dv / 4;
   if constexpr (std::is_same<T, float>::value) {
     for (int idx = tid; idx < (BK / 4) * ndq; idx += nt) {
       const int dq = idx % ndq, kc = idx / ndq;
@@ -511,7 +529,7 @@ __device__ __forceinline__ void stage_v(T* big, T* small, const T* src,
       for (int i = 0; i < 4; ++i) {
         const int key = key0 + 2 * i;
         v[i] = key < n_valid
-                   ? *reinterpret_cast<const float4*>(src + key * Dh + 4 * dq)
+                   ? *reinterpret_cast<const float4*>(src + key * Dv + 4 * dq)
                    : make_float4(0.f, 0.f, 0.f, 0.f);
       }
 #pragma unroll
@@ -519,7 +537,7 @@ __device__ __forceinline__ void stage_v(T* big, T* small, const T* src,
         float4 b, s;
         split4(make_float4(comp(v[0], r), comp(v[1], r), comp(v[2], r),
                            comp(v[3], r)), b, s);
-        const int o = (kc * DP + 4 * dq + r) * 4;
+        const int o = (kc * DV + 4 * dq + r) * 4;
         *reinterpret_cast<float4*>(big + o) = b;
         *reinterpret_cast<float4*>(small + o) = s;
       }
@@ -532,11 +550,11 @@ __device__ __forceinline__ void stage_v(T* big, T* small, const T* src,
       for (int i = 0; i < 8; ++i) {
         const int key = 8 * kc + i;
         v[i] = key < n_valid
-                   ? *reinterpret_cast<const uint2*>(src + key * Dh + 4 * dq)
+                   ? *reinterpret_cast<const uint2*>(src + key * Dv + 4 * dq)
                    : make_uint2(0u, 0u);
       }
       // row d takes the d-th bf16 of each key: low / high halves of .x, .y
-      uint4* out = reinterpret_cast<uint4*>(big + (kc * DP + 4 * dq) * 8);
+      uint4* out = reinterpret_cast<uint4*>(big + (kc * DV + 4 * dq) * 8);
       out[0] = make_uint4(__byte_perm(v[0].x, v[1].x, 0x5410),
                           __byte_perm(v[2].x, v[3].x, 0x5410),
                           __byte_perm(v[4].x, v[5].x, 0x5410),
@@ -572,21 +590,21 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 // the kernel
 // ---------------------------------------------------------------------------
 
-template <typename T, int DP>
-__global__ void __launch_bounds__(Cfg<T, DP>::NT, 1)
+template <typename T, int DP, int DV>
+__global__ void __launch_bounds__(Cfg<T, DP, DV>::NT, 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk,
-                 int Dh, float scale, int causal, int window, int q_offset,
-                 int bulk) {
-  using C = Cfg<T, DP>;
-  constexpr int BK = C::BK, CH = C::CH;
+                 int Dh, int Dv, float scale, int causal, int window,
+                 int q_offset, int bulk) {
+  using C = Cfg<T, DP, DV>;
+  constexpr int BK = C::BK, CH = C::CH, kStages = C::kStages;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* raw = smem;
   T* q_ops = reinterpret_cast<T*>(smem + kStages * C::kRaw);
   T* k_ops = q_ops + C::NSPLIT * C::NWG * 64 * DP;
   T* v_ops = k_ops + C::NSPLIT * BK * DP;
-  uint64_t* full = reinterpret_cast<uint64_t*>(v_ops + C::NSPLIT * DP * BK);
+  uint64_t* full = reinterpret_cast<uint64_t*>(v_ops + C::NSPLIT * DV * BK);
   uint64_t* empty = full + kStages;
 
   const int qt = gridDim.x - 1 - blockIdx.x;
@@ -595,7 +613,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = qt * C::BQ;
   const long long q_base = ((long long)b * Hq + h) * Sq;
   const T* kb = k + ((long long)b * Hkv + hk) * Sk * Dh;
-  const T* vb = v + ((long long)b * Hkv + hk) * Sk * Dh;
+  const T* vb = v + ((long long)b * Hkv + hk) * Sk * Dv;
 
   // the key tiles this query tile needs
   const long long qlo = (long long)q0 + q_offset;
@@ -632,18 +650,21 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       T* dk = reinterpret_cast<T*>(raw + s * C::kRaw);
       T* dv = dk + BK * DP;
       const T* sk = kb + (long long)k0 * Dh;
-      const T* sv = vb + (long long)k0 * Dh;
-      const uint32_t bytes = rows * Dh * sizeof(T);
+      const T* sv = vb + (long long)k0 * Dv;
+      const uint32_t kbytes = rows * Dh * sizeof(T);
+      const uint32_t vbytes = rows * Dv * sizeof(T);
       if (bulk) {
         if (lane == 0) {
-          mbar_arrive_expect_tx(&full[s], 2 * bytes);
-          bulk_load(dk, sk, bytes, &full[s]);
-          bulk_load(dv, sv, bytes, &full[s]);
+          mbar_arrive_expect_tx(&full[s], kbytes + vbytes);
+          bulk_load(dk, sk, kbytes, &full[s]);
+          bulk_load(dv, sv, vbytes, &full[s]);
         }
       } else {
         constexpr int E8 = 8 / sizeof(T);     // elements per 8 bytes
-        for (uint32_t i = lane; i < bytes / 8; i += 32) {
+        for (uint32_t i = lane; i < kbytes / 8; i += 32) {
           cp_async8(dk + i * E8, sk + i * E8);
+        }
+        for (uint32_t i = lane; i < vbytes / 8; i += 32) {
           cp_async8(dv + i * E8, sv + i * E8);
         }
         cp_async_arrive(&full[s]);
@@ -659,9 +680,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* qb_ops = q_ops + wg * C::NSPLIT * 64 * DP;   // this warpgroup's Q
   T* qs_ops = qb_ops + 64 * DP;                   // its small half (fp32)
   T* ks_ops = k_ops + BK * DP;
-  T* vs_ops = v_ops + DP * BK;
+  T* vs_ops = v_ops + DV * BK;
 
-  // the padding (Dh..DP) of every operand stays zero
+  // the padding (Dh..DP of Q and K, Dv..DV of V) of every operand stays
+  // zero
   for (int i = threadIdx.x; i * 16 < C::NSPLIT * (C::NWG * C::kQ + C::kK +
                                                   C::kV);
        i += C::NC) {
@@ -675,9 +697,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // acc: the running output; ot: one tile's P V, summed afresh on the
   // tensor cores and added to acc with a rounded fma (the tensor cores'
   // accumulation over a whole row's tiles would lose low bits)
-  float acc[DP / 2], ot[DP / 2];
+  float acc[DV / 2], ot[DV / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) acc[i] = ot[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) acc[i] = ot[i] = 0.f;
   float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
   const long long qpos0 = (long long)row0 + g + q_offset;
 
@@ -688,7 +710,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     mbar_wait(&full[s], (it / kStages) & 1);
     const T* rk = reinterpret_cast<const T*>(raw + s * C::kRaw);
     stage_rows<T, BK>(k_ops, ks_ops, rk, n_valid, Dh, threadIdx.x, C::NC);
-    stage_v<T, DP, BK>(v_ops, vs_ops, rk + BK * DP, n_valid, Dh,
+    stage_v<T, DV, BK>(v_ops, vs_ops, rk + BK * DP, n_valid, Dv,
                        threadIdx.x, C::NC);
     mbar_arrive(&empty[s]);
     fence_async_smem();
@@ -780,8 +802,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const T* vm = pass == 1 ? vs_ops : v_ops;
 #pragma unroll
         for (int j = 0; j < BK / 8; ++j) {
-          mma_rs<T, DP>(ot, pass == 0 ? pl[j] : pb[j],
-                        desc(vm + j * 2 * DP * CH, DP * 16),
+          mma_rs<T, DV>(ot, pass == 0 ? pl[j] : pb[j],
+                        desc(vm + j * 2 * DV * CH, DV * 16),
                         pass > 0 || j > 0);
         }
       }
@@ -804,7 +826,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       wgmma_fence();
 #pragma unroll
       for (int j = 0; j < BK / 16; ++j) {
-        mma_rs<T, DP>(ot, pa[j], desc(v_ops + j * 2 * DP * CH, DP * 16),
+        mma_rs<T, DV>(ot, pa[j], desc(v_ops + j * 2 * DV * CH, DV * 16),
                       j > 0);
       }
       wgmma_commit();
@@ -814,7 +836,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     fence_regs(ot);
 #pragma unroll
-    for (int i = 0; i < DP / 2; ++i) {
+    for (int i = 0; i < DV / 2; ++i) {
       acc[i] = fmaf(acc[i], corr[(i >> 1) & 1], ot[i]);
     }
     consumer_sync<C::NC>();       // the operand tiles are free again
@@ -825,11 +847,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = row0 + g + 8 * hr;
     if (row >= Sq) continue;
     const float lc = fmaxf(l[hr], 1e-30f);
-    T* orow = o + (q_base + row) * Dh;
+    T* orow = o + (q_base + row) * Dv;
 #pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       const int col = 8 * j + 2 * c;
-      if (col < Dh) {
+      if (col < Dv) {
         store2(orow + col, acc[4 * j + 2 * hr] / lc,
                acc[4 * j + 2 * hr + 1] / lc);
       }
@@ -842,12 +864,13 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-template <typename T, int DP>
+template <typename T, int DP, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int B, int Hq, int Hkv, int Sq, int Sk, int Dh, float scale,
-           int causal, int window, int q_offset, cudaStream_t stream) {
-  using C = Cfg<T, DP>;
-  auto kernel = flash_fwd_kernel<T, DP>;
+           int B, int Hq, int Hkv, int Sq, int Sk, int Dh, int Dv,
+           float scale, int causal, int window, int q_offset,
+           cudaStream_t stream) {
+  using C = Cfg<T, DP, DV>;
+  auto kernel = flash_fwd_kernel<T, DP, DV>;
   // opt in once per instantiation, so that no launch (nor one captured
   // into a CUDA graph) makes the call
   static bool opted_in = false;
@@ -858,56 +881,66 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
     opted_in = true;
   }
   // TMA's bulk copy wants 16-byte rows and 16-byte aligned sources
-  const int bulk = (Dh * sizeof(T)) % 16 == 0 && aligned16(k) &&
+  const int bulk = (Dh * sizeof(T)) % 16 == 0 &&
+                   (Dv * sizeof(T)) % 16 == 0 && aligned16(k) &&
                    aligned16(v);
   const dim3 grid((Sq + C::BQ - 1) / C::BQ, Hq, B);
   kernel<<<grid, C::NT, C::kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, Hq, Hkv, Sq, Sk, Dh,
-      scale, causal, window, q_offset, bulk);
+      Dv, scale, causal, window, q_offset, bulk);
   return static_cast<int>(cudaGetLastError());
 }
 
+// Dh <= 128 pads the value head with the query/key head (DV = DP, Dv <=
+// Dh); a query/key head over 128 takes MLA's instantiation, DP 192 with a
+// value head of up to 128
 template <typename T>
 int launch_dh(const void* q, const void* k, const void* v, void* o,
               float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int Dh,
-              float scale, int causal, int window, int q_offset,
+              int Dv, float scale, int causal, int window, int q_offset,
               cudaStream_t s) {
   if (Dh <= 32) {
-    return launch<T, 32>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, Dh, scale,
-                         causal, window, q_offset, s);
+    return launch<T, 32, 32>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, Dh, Dv,
+                             scale, causal, window, q_offset, s);
   }
   if (Dh <= 64) {
-    return launch<T, 64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, Dh, scale,
-                         causal, window, q_offset, s);
+    return launch<T, 64, 64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, Dh, Dv,
+                             scale, causal, window, q_offset, s);
   }
-  return launch<T, 128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, Dh, scale,
-                        causal, window, q_offset, s);
+  if (Dh <= 128) {
+    return launch<T, 128, 128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, Dh, Dv,
+                               scale, causal, window, q_offset, s);
+  }
+  return launch<T, 192, 128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, Dh, Dv,
+                             scale, causal, window, q_offset, s);
 }
 
 }  // namespace
 
-// q (B, Hq, Sq, Dh), k and v (B, Hkv, Sk, Dh), o (B, Hq, Sq, Dh): fp32
-// (bf16 == 0) or bf16 (bf16 == 1), contiguous, 16-byte (fp32) or 8-byte
-// (bf16) aligned; lse (B, Hq, Sq) fp32. Dh a multiple of 4 in [4, 128],
-// Hq a multiple of Hkv, Sk >= 1, window >= 0, q_offset >= 0.
+// q (B, Hq, Sq, Dh), k (B, Hkv, Sk, Dh), v (B, Hkv, Sk, Dv), o (B, Hq, Sq,
+// Dv): fp32 (bf16 == 0) or bf16 (bf16 == 1), contiguous, 16-byte (fp32) or
+// 8-byte (bf16) aligned; lse (B, Hq, Sq) fp32. Dh a multiple of 4 in [4,
+// 192], Dv a multiple of 4 in [4, min(Dh, 128)], Hq a multiple of Hkv, Sk
+// >= 1, window >= 0, q_offset >= 0.
 extern "C" int persia_flash_attention_fwd(const void* q, const void* k,
                                           const void* v, void* o, float* lse,
                                           int B, int Hq, int Hkv, int Sq,
-                                          int Sk, int Dh, float scale,
+                                          int Sk, int Dh, int Dv, float scale,
                                           int causal, int window,
                                           int q_offset, int bf16,
                                           void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Sk <= 0 ||
-      Dh < 4 || Dh > 128 || Dh % 4 != 0 || window < 0 || q_offset < 0 ||
-      Hq > 65535 || B > 65535) {
+      Dh < 4 || Dh > 192 || Dh % 4 != 0 || Dv < 4 || Dv > Dh || Dv > 128 ||
+      Dv % 4 != 0 || window < 0 || q_offset < 0 || Hq > 65535 ||
+      B > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
     return launch_dh<__nv_bfloat16>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, Dh,
-                                    scale, causal, window, q_offset, s);
+                                    Dv, scale, causal, window, q_offset, s);
   }
-  return launch_dh<float>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, Dh, scale,
+  return launch_dh<float>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, Dh, Dv, scale,
                           causal, window, q_offset, s);
 }

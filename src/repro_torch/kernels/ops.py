@@ -65,7 +65,7 @@ _SIGNATURES = {
     "persia_launch_floor": ("embedding_sgd", (_I, _P)),
     "persia_flash_attention_fwd": ("flash_attention",
                                    (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                    _I, _F, _I, _I, _I, _I, _P)),
+                                    _I, _I, _F, _I, _I, _I, _I, _P)),
 }
 _fns: dict = {}
 _count_lock = threading.Lock()
@@ -622,21 +622,24 @@ _ATTN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: float, causal: bool = True, window: int = 0,
                         q_offset: int = 0):
-    """(B, Hq, Sq, Dh) x (B, Hkv, Sk, Dh) -> ``(o, lse)``: causal and/or
-    sliding-window GQA attention forward (query head h reads kv head
-    h // (Hq // Hkv)) with an fp32 online softmax; ``o`` in q's dtype,
-    ``lse`` (B, Hq, Sq) fp32. Port of ``repro.kernels.ops.
-    flash_attention_fwd``, plus ``q_offset`` (the first query row's
-    position, as ``repro.models.flash.flash_attention`` takes it); no block
-    sizes and no padding: any Sq and Sk >= 1. The CUDA kernel takes fp32 or
-    bf16, contiguous, Dh a multiple of 4 up to 128."""
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or \
-            k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] or \
-            k.shape[1] == 0 or q.shape[1] % k.shape[1] != 0:
-        raise ValueError(f"flash_attention_fwd: q (B, Hq, Sq, Dh), k and v "
-                         f"(B, Hkv, Sk, Dh) with Hkv dividing Hq, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)} and "
-                         f"{tuple(v.shape)}")
+    """(B, Hq, Sq, Dh) x (B, Hkv, Sk, Dh) x (B, Hkv, Sk, Dv) -> ``(o, lse)``:
+    causal and/or sliding-window GQA attention forward (query head h reads
+    kv head h // (Hq // Hkv)) with an fp32 online softmax; ``o`` (B, Hq, Sq,
+    Dv) in q's dtype, ``lse`` (B, Hq, Sq) fp32. The value head Dv may be
+    narrower than the query/key head Dh (MLA: 192 and 128). Port of
+    ``repro.kernels.ops.flash_attention_fwd``, plus ``q_offset`` (the first
+    query row's position, as ``repro.models.flash.flash_attention`` takes
+    it) and Dv; no block sizes and no padding: any Sq and Sk >= 1. The CUDA
+    kernel takes fp32 or bf16, contiguous, Dh a multiple of 4 up to 192 and
+    Dv a multiple of 4 up to min(Dh, 128); any other shape raises."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or \
+            k.shape[:3] != v.shape[:3] or k.shape[0] != q.shape[0] or \
+            k.shape[3] != q.shape[3] or k.shape[1] == 0 or \
+            q.shape[1] % k.shape[1] != 0:
+        raise ValueError(f"flash_attention_fwd: q (B, Hq, Sq, Dh), k (B, "
+                         f"Hkv, Sk, Dh) and v (B, Hkv, Sk, Dv) with Hkv "
+                         f"dividing Hq, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
     if k.shape[2] == 0:
         raise ValueError("flash_attention_fwd: needs at least one key")
     if window < 0 or q_offset < 0:
@@ -649,24 +652,28 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  **{n: (t, q.dtype) for n, t in (("q", q), ("k", k),
                                                  ("v", v))})
     B, Hq, Sq, Dh = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
+    Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
     if q.dtype not in _ATTN_DTYPES:
         raise TypeError(f"flash_attention_fwd: the CUDA kernel takes fp32 "
                         f"or bf16, got {q.dtype}")
-    if Dh % 4 or not 4 <= Dh <= 128:
+    if Dh % 4 or not 4 <= Dh <= 192:
         raise ValueError(f"flash_attention_fwd: the CUDA kernel takes a "
-                         f"head dim that is a multiple of 4 up to 128, got "
-                         f"{Dh}")
+                         f"query/key head dim that is a multiple of 4 up "
+                         f"to 192, got {Dh}")
+    if Dv % 4 or not 4 <= Dv <= min(Dh, 128):
+        raise ValueError(f"flash_attention_fwd: the CUDA kernel takes a "
+                         f"value head dim that is a multiple of 4 up to "
+                         f"min(Dh, 128) = {min(Dh, 128)}, got {Dv}")
     if any(t.data_ptr() % (4 * t.element_size()) for t in (q, k, v)):
         raise ValueError("flash_attention_fwd: q, k and v must be aligned "
                          "to 4 elements")
-    o = torch.empty_like(q)
+    o = torch.empty((B, Hq, Sq, Dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     if B * Hq * Sq == 0:
         return o, lse
     _launch("flash_attention_fwd", "persia_flash_attention_fwd", q, o,
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             lse.data_ptr(), B, Hq, Hkv, Sq, Sk, Dh, float(scale),
+             lse.data_ptr(), B, Hq, Hkv, Sq, Sk, Dh, Dv, float(scale),
              int(bool(causal)), int(window), int(q_offset),
              _ATTN_DTYPES[q.dtype]))
     _count(flash_attention_fwd)

@@ -257,15 +257,16 @@ def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, scale: float,
                             causal: bool = True, window: int = 0,
                             q_offset: int = 0):
-    """q (B, Hq, Sq, Dh), k and v (B, Hkv, Sk, Dh) -> (o (B, Hq, Sq, Dh) in
-    q's dtype, lse (B, Hq, Sq) fp32); query head h reads kv head
-    h // (Hq // Hkv). The arithmetic of ``repro/models/layers.py::
-    _attn_naive`` in fp32: scores times ``scale``, masked to -1e30 (causal:
-    qpos < kpos; window > 0: qpos - kpos >= window; qpos = row +
-    ``q_offset``), softmax over the keys; ``lse`` is the scores'
+    """q (B, Hq, Sq, Dh), k (B, Hkv, Sk, Dh), v (B, Hkv, Sk, Dv) -> (o (B,
+    Hq, Sq, Dv) in q's dtype, lse (B, Hq, Sq) fp32); query head h reads kv
+    head h // (Hq // Hkv). The value head Dv may differ from the query/key
+    head Dh (MLA: 192 and 128). The arithmetic of ``repro/models/
+    layers.py::_attn_naive`` in fp32: scores times ``scale``, masked to
+    -1e30 (causal: qpos < kpos; window > 0: qpos - kpos >= window; qpos =
+    row + ``q_offset``), softmax over the keys; ``lse`` is the scores'
     logsumexp."""
     B, Hq, Sq, Dh = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
+    Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
     qg = q.float().reshape(B, Hkv, Hq // Hkv, Sq, Dh)
     s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
     qpos = torch.arange(Sq, device=q.device)[:, None] + q_offset
@@ -279,5 +280,5 @@ def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor,
     lse = torch.logsumexp(s, dim=-1)
     o = torch.einsum("bhgqk,bhkd->bhgqd", torch.softmax(s, dim=-1),
                      v.float())
-    return (o.reshape(B, Hq, Sq, Dh).to(q.dtype),
+    return (o.reshape(B, Hq, Sq, Dv).to(q.dtype),
             lse.reshape(B, Hq, Sq))

@@ -6,11 +6,15 @@ caches. The vocab table lives in an embedding backend (``dense``,
 each step prepares its tokens there (a host_lru table faults them into its
 device cache before the prefill and before each decode step), looks them
 up and runs the transformer on the activations. Every prefill attention
-goes through the ``flash_attention_fwd`` CUDA kernel on the card.
+goes through the ``flash_attention_fwd`` CUDA kernel on the card, MLA's
+(DeepSeek-V2: a 192-wide query/key head, a 128-wide value head) too.
 
-Usage (on the card; ``--device cpu`` runs the plain versions):
+Usage (on the card; ``--device cpu`` runs the plain versions; ``--arch``
+any of ``configs.ARCH_IDS``):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_2b \\
       --full --batch 4 --prompt-len 32 --gen 16
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch deepseek_v2_lite_16b --full --batch 4 --prompt-len 2048 --gen 32
 """
 from __future__ import annotations
 

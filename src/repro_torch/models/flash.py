@@ -1,9 +1,11 @@
 """Flash attention over the grouped-GQA layout (port of
 ``repro/models/flash.py::flash_attention``), forward and backward.
 
-The models keep q as (B, Sq, Hkv, G, Dh) and k, v as (B, Sk, Hkv, Dh); the
-``flash_attention_fwd`` kernel takes (B, Hq, S, Dh) with query head
-``h = hkv * G + g``. This module converts between the two (contiguous
+The models keep q as (B, Sq, Hkv, G, Dh), k as (B, Sk, Hkv, Dh) and v as
+(B, Sk, Hkv, Dv); the ``flash_attention_fwd`` kernel takes (B, Hq, S, D*)
+with query head ``h = hkv * G + g``. The value head Dv may be narrower
+than the query/key head (MLA's 128 beside 192) in the forward; the
+backward at Dv != Dh is not ported yet. This module converts between the two (contiguous
 copies) and calls ``kernels.ops.flash_attention_fwd``: the CUDA kernel on
 the card, its plain version on the CPU. No padding: the kernel masks its
 ragged tiles itself.
@@ -28,8 +30,8 @@ Q_BLOCK, K_BLOCK = 256, 512
 
 
 def to_kernel_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """(B, Sq, Hkv, G, Dh), (B, Sk, Hkv, Dh) x2 -> (B, Hkv * G, Sq, Dh),
-    (B, Hkv, Sk, Dh) x2, contiguous."""
+    """(B, Sq, Hkv, G, Dh), (B, Sk, Hkv, Dh), (B, Sk, Hkv, Dv) -> (B, Hkv *
+    G, Sq, Dh), (B, Hkv, Sk, Dh), (B, Hkv, Sk, Dv), contiguous."""
     B, Sq, Hkv, G, Dh = q.shape
     qk = q.permute(0, 2, 3, 1, 4).reshape(B, Hkv * G, Sq, Dh).contiguous()
     return (qk, k.permute(0, 2, 1, 3).contiguous(),
@@ -129,6 +131,10 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
+        if v.shape[-1] != q.shape[-1]:
+            raise NotImplementedError(
+                "the attention backward at a value head dim other than the "
+                "query's (MLA) is not ported yet")
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, *ctx.args)
         return dq, dk, dv, None, None, None, None
 
@@ -136,13 +142,11 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float, causal: bool = True, window: int = 0,
                     q_offset: int = 0) -> torch.Tensor:
-    """q: (B, Sq, Hkv, G, Dh); k: (B, Sk, Hkv, Dh); v: (B, Sk, Hkv, Dh) ->
-    (B, Sq, Hkv, G, Dh) in q's dtype. Differentiable (through
+    """q: (B, Sq, Hkv, G, Dh); k: (B, Sk, Hkv, Dh); v: (B, Sk, Hkv, Dv) ->
+    (B, Sq, Hkv, G, Dv) in q's dtype. Differentiable (through
     :class:`FlashAttention`) when grad is enabled and an input requires
-    it; otherwise the bare forward call, as serving makes it."""
-    if v.shape[-1] != q.shape[-1]:
-        raise NotImplementedError("a value head dim other than the query's "
-                                  "is not ported yet")
+    it (its backward needs Dv == Dh); otherwise the bare forward call, as
+    serving makes it."""
     args = (*to_kernel_layout(q, k, v), scale, causal, window, q_offset)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         o = FlashAttention.apply(*args)

@@ -1,20 +1,25 @@
 """Primitive layers of the LM family (port of ``repro/models/layers.py``):
-inits, norms, RoPE, attention, the GQA attention block and the MLPs, as
+inits, norms, RoPE, attention, the GQA and MLA attention blocks and the
+MLPs, as
 plain functions over parameter dicts in the JAX package's layout and key
 names, so weights carry across unchanged (``repro_torch.convert``).
 
 Inits draw from an explicit ``torch.Generator``; ``lead`` puts a leading
 stack axis in front of every weight (the transformer's stacked layers),
-drawn in one call. Norms and RoPE run in fp32, as in JAX. The JAX
+drawn in one call and scaled in place (a stacked expert leaf of
+DeepSeek-V2-Lite is 19.2 GB in fp32: no second copy). Norms and RoPE run
+in fp32, as in JAX. The JAX
 package's sharding hints (``utils.shard``) do nothing on one card and are
 dropped. Every full-sequence attention (training and prefill) goes through
 the ``flash_attention_fwd`` CUDA kernel on the card, whatever its length;
 the JAX package takes ``_attn_naive`` up to 2,048 positions, the same
 function (``kernels/ref.py`` is its arithmetic). Training differentiates
 it through ``flash.FlashAttention`` (the JAX package's flash backward). Decode attention stays
-plain torch, as the JAX package computes it in jnp. Not ported yet: logit
-soft-capping (no config sets it), the ring-buffer decode of sliding-window
-caches, MLA, and the mesh-sharded decode.
+plain torch, as the JAX package computes it in jnp; MLA's decode is the
+JAX package's weight-absorbed decode against the latent cache, in plain
+torch too. Not ported yet: logit soft-capping (no config sets it), the
+ring-buffer decode of sliding-window caches, and the mesh-sharded decode
+(``decode_dist``).
 """
 from __future__ import annotations
 
@@ -44,17 +49,18 @@ def dense_init(generator: torch.Generator, d_in: int, d_out: int,
     default), on ``device`` (the generator's by default)."""
     scale = (1.0 / math.sqrt(d_in)) if scale is None else scale
     device = generator.device if device is None else device
-    return (torch.randn((*lead, d_in, d_out), generator=generator,
-                        device=device, dtype=torch.float32)
-            * scale).to(dtype)
+    w = torch.randn((*lead, d_in, d_out), generator=generator,
+                    device=device, dtype=torch.float32)
+    return w.mul_(scale).to(dtype)
 
 
 def embed_init(generator: torch.Generator, rows: int, dim: int,
                dtype=torch.float32, scale: float = 0.02, *, device=None
                ) -> torch.Tensor:
     device = generator.device if device is None else device
-    return (torch.randn((rows, dim), generator=generator, device=device,
-                        dtype=torch.float32) * scale).to(dtype)
+    w = torch.randn((rows, dim), generator=generator, device=device,
+                    dtype=torch.float32)
+    return w.mul_(scale).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -251,6 +257,128 @@ def gqa_cache_init(cfg, batch: int, max_len: int, dtype=torch.float32, *,
     shape = (*lead, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
+            "len": torch.zeros((*lead, batch), dtype=torch.int32,
+                               device=device)}
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, DeepSeek-V2) block
+# ---------------------------------------------------------------------------
+
+def mla_init(generator: torch.Generator, cfg, dtype=torch.float32, *,
+             lead: tuple = (), device=None) -> dict:
+    """The JAX package's MLA weights: a direct query projection ``wq``, or
+    with ``q_lora_rank`` > 0 the low-rank ``wdq`` -> ``q_ln`` -> ``wuq``;
+    the joint KV down-projection ``wdkv`` (latent + the shared rope key),
+    ``kv_ln``, the up-projections ``wuk`` / ``wuv`` and ``wo``."""
+    d, H = cfg.d_model, cfg.n_heads
+    dn, dr, dv = cfg.head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    r_kv, r_q = cfg.kv_lora_rank, cfg.q_lora_rank
+    kw = dict(lead=lead, device=device)
+    p = {}
+    if r_q > 0:
+        p["wdq"] = dense_init(generator, d, r_q, dtype, **kw)
+        p["wuq"] = dense_init(generator, r_q, H * (dn + dr), dtype, **kw)
+    else:
+        p["wq"] = dense_init(generator, d, H * (dn + dr), dtype, **kw)
+    p["wdkv"] = dense_init(generator, d, r_kv + dr, dtype, **kw)
+    p["wuk"] = dense_init(generator, r_kv, H * dn, dtype, **kw)
+    p["wuv"] = dense_init(generator, r_kv, H * dv, dtype, **kw)
+    p["wo"] = dense_init(generator, H * dv, d, dtype,
+                         scale=1.0 / math.sqrt(H * dv), **kw)
+    ones = dict(dtype=torch.float32, device=p["wo"].device)
+    if r_q > 0:
+        p["q_ln"] = {"w": torch.ones((*lead, r_q), **ones)}
+    p["kv_ln"] = {"w": torch.ones((*lead, r_kv), **ones)}
+    return p
+
+
+def _mla_q(p: dict, cfg, x: torch.Tensor):
+    """(q_nope (B, S, H, head_dim), q_rope (B, S, H, rope_head_dim))."""
+    B, S, _ = x.shape
+    H, dn, dr = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
+    if cfg.q_lora_rank > 0:
+        cq = rmsnorm(x @ p["wdq"], p["q_ln"]["w"], cfg.norm_eps)
+        q = (cq @ p["wuq"]).reshape(B, S, H, dn + dr)
+    else:
+        q = (x @ p["wq"]).reshape(B, S, H, dn + dr)
+    return q[..., :dn], q[..., dn:]
+
+
+def mla_forward(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor):
+    """Full-sequence MLA (training / prefill): every head attends with a
+    query/key of head_dim + rope_head_dim (the rope key shared by the
+    heads) and a value of v_head_dim, through :func:`grouped_attention`
+    (the kernel on the card, Hkv = H, G = 1). Returns ``(out, cache)``,
+    the latent cache ``{"ckv": (B, S, kv_lora_rank), "k_rope": (B, S,
+    rope_head_dim), "len": (B,)}``."""
+    B, S, _ = x.shape
+    H, dn, dr, r = (cfg.n_heads, cfg.head_dim, cfg.rope_head_dim,
+                    cfg.kv_lora_rank)
+    q_nope, q_rope = _mla_q(p, cfg, x)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    ckv_full = x @ p["wdkv"]                                  # (B, S, r+dr)
+    ckv = rmsnorm(ckv_full[..., :r], p["kv_ln"]["w"], cfg.norm_eps)
+    k_rope = apply_rope(ckv_full[..., None, r:], positions,
+                        cfg.rope_theta)                       # (B, S, 1, dr)
+    k_nope = (ckv @ p["wuk"]).reshape(B, S, H, dn)
+    v = (ckv @ p["wuv"]).reshape(B, S, H, cfg.v_head_dim)
+    q = torch.cat([q_nope, q_rope], -1)[:, :, :, None, :]    # Hkv = H, G = 1
+    k = torch.cat([k_nope, k_rope.expand(B, S, H, dr)], -1)
+    out = grouped_attention(q, k, v, scale=1.0 / math.sqrt(dn + dr),
+                            causal=True)
+    out = out.reshape(B, S, -1) @ p["wo"]
+    cache = {"ckv": ckv, "k_rope": k_rope[:, :, 0, :],
+             "len": torch.full((B,), S, dtype=torch.int32, device=x.device)}
+    return out, cache
+
+
+def mla_decode(p: dict, cfg, x: torch.Tensor, cache: dict):
+    """Weight-absorbed single-token MLA decode against the latent cache
+    ``{'ckv': (B, S, r), 'k_rope': (B, S, dr), 'len': (B,)}``, updated IN
+    PLACE as :func:`gqa_decode` updates its cache (the new latent at slot
+    ``len``, clamped to the last slot; ``len`` + 1). ``wuk`` is absorbed
+    into the query and ``wuv`` applied after the context, so each head
+    attends over r + dr numbers a position. Returns ``(out, cache)``."""
+    B = x.shape[0]
+    H, dn, dr, dv, r = (cfg.n_heads, cfg.head_dim, cfg.rope_head_dim,
+                        cfg.v_head_dim, cfg.kv_lora_rank)
+    q_nope, q_rope = _mla_q(p, cfg, x)                        # (B, 1, H, *)
+    pos = cache["len"][:, None]
+    q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
+    ckv_full = x @ p["wdkv"]
+    ckv_new = rmsnorm(ckv_full[..., :r], p["kv_ln"]["w"], cfg.norm_eps)
+    kr_new = apply_rope(ckv_full[..., None, r:], pos, cfg.rope_theta)[:, :, 0]
+    ckv_c, kr_c = cache["ckv"], cache["k_rope"]
+    rows = torch.arange(B, device=x.device)
+    slot = cache["len"].long().clamp(max=ckv_c.shape[1] - 1)
+    ckv_c[rows, slot] = ckv_new[:, 0].to(ckv_c.dtype)
+    kr_c[rows, slot] = kr_new[:, 0].to(kr_c.dtype)
+    cache["len"] += 1
+    # absorb W_uk into q: q_abs[h, r] = sum_dn q_nope[h, dn] * wuk[r, h, dn]
+    wuk = p["wuk"].reshape(r, H, dn)
+    q_abs = torch.einsum("bqhd,rhd->bqhr", q_nope.float(), wuk.float())
+    s = (torch.einsum("bqhr,bkr->bhqk", q_abs, ckv_c.float())
+         + torch.einsum("bqhd,bkd->bhqk", q_rope.float(), kr_c.float())
+         ) / math.sqrt(dn + dr)
+    kpos = torch.arange(ckv_c.shape[1], device=x.device)
+    valid = kpos[None, :] < cache["len"][:, None]             # (B, S)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    pa = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhqk,bkr->bqhr", pa, ckv_c.float())   # (B, 1, H, r)
+    wuv = p["wuv"].reshape(r, H, dv)
+    out = torch.einsum("bqhr,rhd->bqhd", ctx, wuv.float())
+    out = out.reshape(B, 1, H * dv).to(x.dtype) @ p["wo"]
+    return out, cache
+
+
+def mla_cache_init(cfg, batch: int, max_len: int, dtype=torch.float32, *,
+                   lead: tuple = (), device=None) -> dict:
+    return {"ckv": torch.zeros((*lead, batch, max_len, cfg.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "k_rope": torch.zeros((*lead, batch, max_len,
+                                   cfg.rope_head_dim), dtype=dtype,
+                                  device=device),
             "len": torch.zeros((*lead, batch), dtype=torch.int32,
                                device=device)}
 

@@ -1,7 +1,8 @@
 """Layer-program transformer (port of ``repro/models/transformer.py``) for
-the dense GQA family: gqa mixer + dense FFN blocks, training
-(:func:`lm_loss`) and serving (full-sequence forward, prefill,
-single-token decode against per-layer KV caches).
+the dense GQA family and DeepSeek-V2: gqa or mla mixers with dense or MoE
+FFNs, training (:func:`lm_loss`, with the MoE aux loss) and serving
+(full-sequence forward, prefill, single-token decode against per-layer
+KV or latent caches).
 
 Parameters keep the JAX package's tree and key names: unscanned
 ``prologue_<i>`` blocks, then ``params["stack"][str(i)]`` for pattern
@@ -15,16 +16,20 @@ Token embeddings are not part of the dense parameters: they come from the
 embedding PS as activations, and :func:`lm_loss` differentiates them.
 
 Caches keep the JAX tree too (``caches["stack"][str(i)]["attn"]`` with k,
-v of shape (R, B, max_len, Hkv, Dh) and len (R, B), ``caches["pos"]``),
+v of shape (R, B, max_len, Hkv, Dh) and len (R, B), or an mla block's
+latent ckv (R, B, max_len, kv_lora_rank) and k_rope (R, B, max_len,
+rope_head_dim), ``caches["pos"]``),
 but are allocated at ``max_len`` once by :func:`prefill`, which writes the
 prompt's K/V into their head, and :func:`decode_step` writes each new
 token's K/V into them in place, where the JAX package pads its prefill
 caches (``_pad_cache_seq``) and returns new ones each step. The contents
 are the same.
 
-Not ported yet: the mla, mamba2 and cross-attention mixers, MoE FFNs (and
-their aux loss), the encoder and learned decoder positions
-(``dec_pos_emb``).
+A MoE block's aux stats (``moe_balance``, ``moe_z``, ``moe_drop_frac``)
+add up over the layers as the JAX package's ``_acc_aux`` adds them.
+
+Not ported yet: the mamba2 and cross-attention mixers, the encoder and
+learned decoder positions (``dec_pos_emb``).
 """
 from __future__ import annotations
 
@@ -35,14 +40,16 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockCfg, ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 
 
 def _check_ported(cfg: ModelConfig):
     for blk in cfg.prologue + cfg.pattern:
-        if blk.mixer != "gqa" or blk.ffn != "dense" or blk.cross:
+        if blk.mixer not in ("gqa", "mla") or \
+                blk.ffn not in ("dense", "moe") or blk.cross:
             raise NotImplementedError(
                 f"block {blk} is not ported yet: the torch port runs gqa "
-                "mixers with dense FFNs")
+                "and mla mixers with dense and MoE FFNs")
     if cfg.is_encdec:
         raise NotImplementedError("encoder-decoder models are not ported "
                                   "yet")
@@ -55,10 +62,14 @@ def _check_ported(cfg: ModelConfig):
 def _block_init(generator, cfg: ModelConfig, blk: BlockCfg, dtype, *,
                 lead=(), device=None) -> dict:
     kw = dict(lead=lead, device=device)
-    return {"mixer_norm": L.norm_init(cfg, cfg.d_model, **kw),
-            "mixer": L.gqa_init(generator, cfg, dtype, **kw),
-            "ffn_norm": L.norm_init(cfg, cfg.d_model, **kw),
-            "ffn": L.mlp_init(generator, cfg, dtype=dtype, **kw)}
+    mixer = L.gqa_init if blk.mixer == "gqa" else L.mla_init
+    p = {"mixer_norm": L.norm_init(cfg, cfg.d_model, **kw),
+         "mixer": mixer(generator, cfg, dtype, **kw),
+         "ffn_norm": L.norm_init(cfg, cfg.d_model, **kw)}
+    p["ffn"] = (L.mlp_init(generator, cfg, dtype=dtype, **kw)
+                if blk.ffn == "dense" else
+                MOE.moe_init(generator, cfg, dtype, **kw))
+    return p
 
 
 def init_dense(cfg: ModelConfig, generator: torch.Generator,
@@ -97,68 +108,87 @@ def _unstack(tree, n: int) -> list:
 
 
 def _layers(cfg: ModelConfig, params: dict, caches: dict | None):
-    """``(stacked, [(parameters, cache), ...])`` in order: each prologue
-    block on its own (``stacked`` False), then the pattern's blocks of
-    each stack layer."""
-    for i in range(len(cfg.prologue)):
+    """``(stacked, [(block config, parameters, cache), ...])`` in order:
+    each prologue block on its own (``stacked`` False), then the pattern's
+    blocks of each stack layer."""
+    for i, blk in enumerate(cfg.prologue):
         name = f"prologue_{i}"
-        yield False, [(params[name], None if caches is None
+        yield False, [(blk, params[name], None if caches is None
                        else caches[name])]
     R, n = cfg.pattern_repeats, len(cfg.pattern)
     ps = [_unstack(params["stack"][str(i)], R) for i in range(n)]
     cs = [[None] * R if caches is None
           else _unstack(caches["stack"][str(i)], R) for i in range(n)]
     for r in range(R):
-        yield True, [(ps[i][r], cs[i][r]) for i in range(n)]
+        yield True, [(cfg.pattern[i], ps[i][r], cs[i][r]) for i in range(n)]
+
+
+def _acc_aux(total: dict, aux: dict) -> dict:
+    if not aux:
+        return total
+    return {k: total[k] + aux[k] if k in total else aux[k] for k in aux}
 
 
 # ---------------------------------------------------------------------------
 # Full sequence
 # ---------------------------------------------------------------------------
 
-def _apply_block(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
-                 cache: dict | None) -> torch.Tensor:
-    """One gqa + dense block; with ``cache`` its attention K/V are written
-    into the head of the cache's (B, max_len, Hkv, Dh) buffers and its
-    ``len`` set to S."""
+def _apply_block(cfg, blk: BlockCfg, p: dict, x: torch.Tensor,
+                 positions: torch.Tensor, cache: dict | None):
+    """One block: ``(x, aux)``. With ``cache`` the attention's K/V (gqa)
+    or latent ckv / k_rope (mla) are written into the head of the cache's
+    max_len buffers and its ``len`` set to S. ``aux`` holds a MoE FFN's
+    stats, empty for a dense one."""
+    S = x.shape[1]
     h = L.apply_norm(cfg, p["mixer_norm"], x)
-    o, (k, v) = L.gqa_forward(p["mixer"], cfg, h, positions)
+    if blk.mixer == "gqa":
+        o, (k, v) = L.gqa_forward(p["mixer"], cfg, h, positions)
+        new = {"k": k, "v": v}
+    else:
+        o, new = L.mla_forward(p["mixer"], cfg, h, positions)
+        new.pop("len")
     x = x + o
     if cache is not None:
-        S = x.shape[1]
         a = cache["attn"]
-        a["k"][:, :S] = k.to(a["k"].dtype)
-        a["v"][:, :S] = v.to(a["v"].dtype)
+        for key, t in new.items():
+            a[key][:, :S] = t.to(a[key].dtype)
         a["len"].fill_(S)
     h = L.apply_norm(cfg, p["ffn_norm"], x)
-    return x + L.mlp_forward(p["ffn"], cfg, h)
+    if blk.ffn == "dense":
+        return x + L.mlp_forward(p["ffn"], cfg, h), {}
+    o, aux = MOE.moe_forward(p["ffn"], cfg, h)
+    return x + o, aux
 
 
 def _apply_blocks(cfg, blocks, x, positions):
-    for p, c in blocks:
-        x = _apply_block(cfg, p, x, positions, c)
-    return x
+    aux_total: dict = {}
+    for blk, p, c in blocks:
+        x, aux = _apply_block(cfg, blk, p, x, positions, c)
+        aux_total = _acc_aux(aux_total, aux)
+    return x, aux_total
 
 
 def forward(cfg: ModelConfig, params: dict, acts: torch.Tensor,
-            positions: torch.Tensor, *, caches: dict | None = None
-            ) -> torch.Tensor:
-    """acts: (B, S, D) token embeddings from the PS. Returns the hidden
-    states after the final norm; with ``caches`` (from :func:`cache_init`)
-    every block's K/V are written into them. With ``cfg.remat`` and grad
-    enabled, each stack layer is checkpointed (the JAX package's
-    ``jax.checkpoint`` of the scanned body): its activations are
-    recomputed in the backward, the attention kernel included."""
+            positions: torch.Tensor, *, caches: dict | None = None):
+    """acts: (B, S, D) token embeddings from the PS. Returns ``(hidden
+    states after the final norm, aux)``, ``aux`` the MoE stats summed over
+    the layers (empty without MoE blocks); with ``caches`` (from
+    :func:`cache_init`) every block's K/V or latents are written into
+    them. With ``cfg.remat`` and grad enabled, each stack layer is
+    checkpointed (the JAX package's ``jax.checkpoint`` of the scanned
+    body): its activations are recomputed in the backward, the attention
+    kernel included."""
     _check_ported(cfg)
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
-    x = acts
+    x, aux_total = acts, {}
     for stacked, blocks in _layers(cfg, params, caches):
         if remat and stacked:
-            x = checkpoint(_apply_blocks, cfg, blocks, x, positions,
-                           use_reentrant=False)
+            x, aux = checkpoint(_apply_blocks, cfg, blocks, x, positions,
+                                use_reentrant=False)
         else:
-            x = _apply_blocks(cfg, blocks, x, positions)
-    return L.apply_norm(cfg, params["final_norm"], x)
+            x, aux = _apply_blocks(cfg, blocks, x, positions)
+        aux_total = _acc_aux(aux_total, aux)
+    return L.apply_norm(cfg, params["final_norm"], x), aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -171,7 +201,11 @@ def lm_loss(cfg: ModelConfig, params: dict, acts: torch.Tensor, targets,
     targets: (B, S) integer; mask: (B, S). The logits in fp32 with the pad
     columns at -1e30, their logsumexp, the target logit (a gather: the
     arithmetic of the JAX package's one-hot sum), and the masked mean over
-    ``max(sum(mask), 1)``. Returns ``(loss, {"loss", "ppl_log"})``."""
+    ``max(sum(mask), 1)``. With MoE blocks the loss adds
+    ``moe_aux_total`` of the stats averaged over the layers, as the JAX
+    package does. Returns ``(loss, {"loss" (the cross entropy), "ppl_log"
+    and, with MoE blocks, "moe_balance", "moe_z", "moe_drop_frac" summed
+    over the layers})``."""
     if memory is not None or cfg.is_encdec:
         raise NotImplementedError("encoder-decoder models are not ported "
                                   "yet")
@@ -180,7 +214,7 @@ def lm_loss(cfg: ModelConfig, params: dict, acts: torch.Tensor, targets,
     mask = torch.as_tensor(mask, device=dev).float()
     B, S = targets.shape
     positions = torch.arange(S, device=dev)[None].expand(B, S)
-    x = forward(cfg, params, acts, positions)
+    x, aux = forward(cfg, params, acts, positions)
     logits = _logits(cfg, params, x)                         # (B, S, Vp)
     if cfg.padded_vocab > cfg.vocab_size:                    # mask pads
         cols = torch.arange(cfg.padded_vocab, device=dev)
@@ -189,22 +223,35 @@ def lm_loss(cfg: ModelConfig, params: dict, acts: torch.Tensor, targets,
     tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
     nll = (lse - tgt) * mask
     loss = torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
-    return loss, {"loss": loss, "ppl_log": loss}
+    metrics = {"loss": loss, "ppl_log": loss}
+    if aux:
+        n = max(cfg.n_layers, 1)
+        loss = loss + MOE.moe_aux_total(
+            cfg, {k: v / n for k, v in aux.items()})
+        metrics.update(aux)
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------
 # Serving: prefill + single-token decode against per-layer caches
 # ---------------------------------------------------------------------------
 
+def _block_cache_init(cfg, blk: BlockCfg, batch, max_len, dtype, *,
+                      lead=(), device=None) -> dict:
+    init = L.gqa_cache_init if blk.mixer == "gqa" else L.mla_cache_init
+    return {"attn": init(cfg, batch, max_len, dtype, lead=lead,
+                         device=device)}
+
+
 def cache_init(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.float32, device=None) -> dict:
     _check_ported(cfg)
-    caches = {f"prologue_{i}": {"attn": L.gqa_cache_init(
-        cfg, batch, max_len, dtype, device=device)}
-        for i in range(len(cfg.prologue))}
-    caches["stack"] = {str(i): {"attn": L.gqa_cache_init(
-        cfg, batch, max_len, dtype, lead=(cfg.pattern_repeats,),
-        device=device)} for i in range(len(cfg.pattern))}
+    caches = {f"prologue_{i}": _block_cache_init(
+        cfg, blk, batch, max_len, dtype, device=device)
+        for i, blk in enumerate(cfg.prologue)}
+    caches["stack"] = {str(i): _block_cache_init(
+        cfg, blk, batch, max_len, dtype, lead=(cfg.pattern_repeats,),
+        device=device) for i, blk in enumerate(cfg.pattern)}
     caches["pos"] = torch.zeros((batch,), dtype=torch.int32, device=device)
     return caches
 
@@ -217,16 +264,22 @@ def decode_step(cfg: ModelConfig, params: dict, acts: torch.Tensor,
                 caches: dict):
     """One-token decode. acts: (B, 1, D) embedding of the new token.
     Updates ``caches`` in place and returns ``(logits (B, 1, padded_vocab)
-    fp32 with the pad columns at -1e30, caches)``."""
+    fp32 with the pad columns at -1e30, caches)``. A MoE FFN routes the B
+    tokens of the step together (its capacity from B), as in the JAX
+    package."""
     _check_ported(cfg)
     x = acts
-    for p, c in (b for _, blocks in _layers(cfg, params, caches)
-                 for b in blocks):
+    for blk, p, c in (b for _, blocks in _layers(cfg, params, caches)
+                      for b in blocks):
         h = L.apply_norm(cfg, p["mixer_norm"], x)
-        o, _ = L.gqa_decode(p["mixer"], cfg, h, c["attn"])
+        decode = L.gqa_decode if blk.mixer == "gqa" else L.mla_decode
+        o, _ = decode(p["mixer"], cfg, h, c["attn"])
         x = x + o
         h = L.apply_norm(cfg, p["ffn_norm"], x)
-        x = x + L.mlp_forward(p["ffn"], cfg, h)
+        if blk.ffn == "dense":
+            x = x + L.mlp_forward(p["ffn"], cfg, h)
+        else:
+            x = x + MOE.moe_forward(p["ffn"], cfg, h, with_aux=False)[0]
     caches["pos"] += 1
     x = L.apply_norm(cfg, params["final_norm"], x)
     logits = _logits(cfg, params, x)
@@ -238,13 +291,13 @@ def decode_step(cfg: ModelConfig, params: dict, acts: torch.Tensor,
 def prefill(cfg: ModelConfig, params: dict, acts: torch.Tensor,
             max_len: int | None = None):
     """Full-sequence prefill: caches of ``max(max_len, S)`` positions with
-    the prompt's K/V in their head, and the last token's logits (B, 1,
-    padded_vocab) fp32, the pad columns NOT masked (as in the JAX package:
-    the caller slices ``[:vocab_size]``)."""
+    the prompt's K/V (or latents) in their head, and the last token's
+    logits (B, 1, padded_vocab) fp32, the pad columns NOT masked (as in
+    the JAX package: the caller slices ``[:vocab_size]``)."""
     B, S, _ = acts.shape
     positions = torch.arange(S, device=acts.device)[None].expand(B, S)
     caches = cache_init(cfg, B, max(S, max_len or 0), acts.dtype,
                         acts.device)
-    x = forward(cfg, params, acts, positions, caches=caches)
+    x, _ = forward(cfg, params, acts, positions, caches=caches)
     caches["pos"].fill_(S)
     return _logits(cfg, params, x[:, -1:]), caches

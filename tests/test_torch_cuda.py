@@ -864,11 +864,61 @@ def test_cuda_flash_attention_matches_plain_version(
     assert torch.allclose(lse, plse, atol=1e-4, rtol=1e-6)
 
 
+# a value head of its own (MLA: query/key 192 = 128 + 64 rope, value 128)
+FLASH_DV_CASES = [  # (B, Hq, Hkv, Sq, Sk, Dh, Dv, causal, window, q_offset)
+    (1, 16, 16, 300, 300, 192, 128, True, 0, 0),    # DeepSeek-V2's heads
+    (2, 4, 4, 64, 64, 192, 128, True, 0, 0),
+    (1, 4, 2, 100, 77, 160, 72, True, 0, 23),       # ragged, both padded
+    (1, 2, 2, 300, 300, 192, 128, True, 64, 0),     # window
+    (1, 2, 1, 129, 129, 192, 128, False, 0, 0),
+    (1, 4, 4, 70, 70, 24, 16, True, 0, 0),          # tests' MLA config
+    (1, 2, 1, 129, 129, 128, 64, False, 0, 0),      # Dv < Dh at DP 128
+    (2, 4, 2, 150, 90, 96, 40, True, 0, 60),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,Dh,Dv,causal,window,q_offset",
+                         [pytest.param(*c, id="-".join(map(str, c)))
+                          for c in FLASH_DV_CASES])
+def test_cuda_flash_attention_value_head_matches_plain_version(
+        cuda_device, dtype, B, Hq, Hkv, Sq, Sk, Dh, Dv, causal, window,
+        q_offset):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda_device).manual_seed(Sq + Dh + Dv)
+    q, k, v = (torch.randn(s, generator=g, device=cuda_device).to(dtype)
+               for s in ((B, Hq, Sq, Dh), (B, Hkv, Sk, Dh),
+                         (B, Hkv, Sk, Dv)))
+    scale = Dh ** -0.5
+    ops.reset_launch_counts()
+    o, lse = ops.flash_attention_fwd(q, k, v, scale, causal, window,
+                                     q_offset)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention_fwd"] == 1
+    po, plse = ref.flash_attention_fwd_ref(q, k, v, scale, causal, window,
+                                           q_offset)
+    assert o.shape == (B, Hq, Sq, Dv) and o.dtype == dtype
+    atol = 2e-5 if dtype == torch.float32 else 4e-2
+    assert torch.allclose(o.float(), po.float(), atol=atol, rtol=0)
+    assert torch.allclose(lse, plse, atol=1e-4, rtol=1e-6)
+
+
 @pytest.mark.cuda
 def test_cuda_flash_attention_rejects_what_it_cannot_run(cuda_device):
-    q = torch.ones((1, 2, 8, 130), device=cuda_device)
-    with pytest.raises(ValueError, match="multiple of 4 up to 128"):
+    q = torch.ones((1, 2, 8, 196), device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 4 up to 192"):
         ops.flash_attention_fwd(q, q[:, :1], q[:, :1], 1.0)
+    q = torch.ones((1, 2, 8, 192), device=cuda_device)
+    for dv in (132, 30):
+        v = torch.ones((1, 1, 8, dv), device=cuda_device)
+        with pytest.raises(ValueError, match="value head dim"):
+            ops.flash_attention_fwd(q, q[:, :1], v, 1.0)
+    q = torch.ones((1, 2, 8, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="value head dim"):
+        ops.flash_attention_fwd(q, q[:, :1],
+                                torch.ones((1, 1, 8, 96), device=cuda_device),
+                                1.0)
     h = torch.ones((1, 2, 8, 64), dtype=torch.float16, device=cuda_device)
     with pytest.raises(TypeError, match="fp32 or bf16"):
         ops.flash_attention_fwd(h, h[:, :1], h[:, :1], 1.0)

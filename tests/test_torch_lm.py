@@ -1,6 +1,9 @@
 """The port's LM serving path (repro_torch/models, launch/serve) against the
 JAX package on the CPU: layers, prefill and decode with their KV caches,
-and the serve driver from the JAX package's own state.
+and the serve driver from the JAX package's own state (granite, and the
+reduced variants of every other ported architecture: qwen3, phi3,
+deepseek-coder, and DeepSeek-V2's mla + MoE, held while their routing is
+the JAX package's, as ``test_torch_mla.py`` holds it).
 
 Tolerance (allclose): XLA and torch reduce matmuls and softmax sums in
 other orders, and the port's prefill attention runs the flash kernel's
@@ -10,6 +13,8 @@ atol 1e-5. Greedy tokens must be equal wherever the JAX logits' top-2
 margin exceeds 1e-3; after the first step of a row at or under that margin
 the two trajectories may part, so the row is compared up to there.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,11 +29,13 @@ from repro.models import layers as JL
 from repro.models import transformer as JT
 
 from repro_torch import convert
-from repro_torch.configs import BlockCfg, get_config
+from repro_torch.configs import ARCH_IDS, BlockCfg, get_config
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import shards
+from repro_torch.models import flash
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from test_torch_moe import record_routing, routed_alike
 
 RTOL, ATOL = 1e-4, 1e-5
 CFG_J = jget_config("granite_3_2b", reduced=True).replace(pattern_repeats=2)
@@ -48,17 +55,20 @@ def _close(got, want, what=""):
                                atol=ATOL, err_msg=what)
 
 
-def test_configs_copy_the_jax_package():
-    for name in ("granite_3_2b", "granite-3-2b"):
-        for reduced in (False, True):
-            t, j = get_config(name, reduced=reduced), \
-                jget_config(name, reduced=reduced)
-            for f in ("d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff",
-                      "vocab_size", "padded_vocab", "n_layers", "rope_theta",
-                      "norm_eps", "ffn_act", "norm", "qk_norm"):
-                assert getattr(t, f) == getattr(j, f), f
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("qwen3_14b")
+@pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
+@pytest.mark.parametrize("name", ARCH_IDS + ["granite-3-2b", "mamba2_1_3b"])
+def test_configs_copy_the_jax_package(name, reduced):
+    """Every ported architecture is the JAX package's configuration, field
+    for field (the reduced variant too); one that is not ported raises."""
+    if name == "mamba2_1_3b":
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            get_config(name, reduced=reduced)
+        return
+    t, j = get_config(name, reduced=reduced), \
+        jget_config(name, reduced=reduced)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    for f in ("padded_vocab", "n_layers", "is_encdec", "has_attention"):
+        assert getattr(t, f) == getattr(j, f), f
 
 
 @pytest.mark.parametrize("arg", [3, "2", "vocab=4,field_00=2", None])
@@ -159,9 +169,18 @@ def test_unported_paths_raise():
         L.grouped_attention(q, k, k, scale=1.0, softcap=30.0)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         L.gqa_cache_init(CFG.replace(sliding_window=8), 1, 4)
+    # what stays unported of the model: the mamba2 and cross-attention
+    # mixers, and the attention backward at a value head other than the
+    # query's (DeepSeek-V2 training)
+    for blk in (BlockCfg("mamba2", "none"), BlockCfg("cross_attn", "dense"),
+                BlockCfg("gqa", "dense", cross=True)):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            T.init_dense(CFG.replace(pattern=(blk,)), torch.Generator())
+    qg = torch.randn((1, 4, 1, 1, 12), requires_grad=True)
+    o = flash.flash_attention(qg, torch.randn((1, 4, 1, 12)),
+                              torch.randn((1, 4, 1, 8)), scale=0.3)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        T.init_dense(CFG.replace(pattern=(BlockCfg("mla", "moe"),)),
-                     torch.Generator())
+        o.sum().backward()
 
 
 # ---------------------------------------------------------------------------
@@ -283,6 +302,46 @@ def test_serve_from_jax_state_matches_jax(backend_name, layers):
     compared = 0
     for b in range(B):
         for t in range(G):
+            assert got["tokens"][b, t] == want["tokens"][b, t] or \
+                margins[b, t] <= 1e-3, (b, t, margins[b])
+            if margins[b, t] <= 1e-3:
+                break
+            compared += 1
+    assert compared >= B      # at least each row's first token
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCH_IDS
+                                  if a != "granite_3_2b"])
+def test_reduced_serve_matches_jax(arch):
+    """``serve`` of each other ported architecture's reduced variant from
+    the JAX serve's own state, under the token-or-margin rule; a MoE
+    model's rows are compared up to the step of its first MoE call that
+    routed a token otherwise than the JAX package (within 1e-5 of a top-k
+    boundary: ``test_torch_moe.routed_alike``)."""
+    B, P, G, seed = 2, 8, 5, 3
+    cfg_j, cfg = jget_config(arch, reduced=True), get_config(arch,
+                                                              reduced=True)
+    dense, jbackend, emb = _jax_state(cfg_j, seed, "dense")
+    spec = shards.build_embedding_spec(cfg.vocab_size, cfg.d_model)
+    state = (convert.emb_from_numpy(_np_tree(emb), spec, device="cpu"),
+             convert.lm_dense_from_numpy(_np_tree(dense), cfg,
+                                         device="cpu"))
+    with record_routing() as (jrec, trec):
+        want = jserve.serve(cfg_j, B, P, G, seed=seed)
+        got = tserve.serve(cfg, B, P, G, seed=seed, device="cpu",
+                           state=state)
+        jax.effects_barrier()
+    n_moe = sum(b.ffn == "moe" for b in cfg.pattern) * cfg.pattern_repeats
+    assert len(trec) == n_moe * G
+    routed = G if n_moe == 0 else \
+        routed_alike(jrec, trec, cfg.moe_top_k) // n_moe
+    assert got["tokens"].shape == want["tokens"].shape == (B, G)
+    margins = _jax_margins(cfg_j, dense, jbackend, emb,
+                           tserve.make_prompts(cfg, B, P, seed),
+                           want["tokens"])
+    compared = 0
+    for b in range(B):
+        for t in range(routed):
             assert got["tokens"][b, t] == want["tokens"][b, t] or \
                 margins[b, t] <= 1e-3, (b, t, margins[b])
             if margins[b, t] <= 1e-3:
