@@ -195,7 +195,42 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    same way: updates equal in norm to 1e-3, no element off by more than
    lr / 100 per applied put; the accumulator in norm to 1e-3, the queued
    put to 1e-3 of its largest element).
-15. The sharded embedding-PS router (``sharded_phase``, k=4), kwai-dlrm
+15. DeepSeek-V2 training (``lm_moe_train``): ``PersiaTrainer(lm_adapter)``
+   at the full width of deepseek-v2-lite-16b, its depth cut to the
+   prologue and 5 MoE layers (3.21 G dense parameters; with their
+   gradients and Adam's moments ~51 GB), fp32, remat, B=2, S=2,048,
+   hybrid(1), Adam: 2 warm-up and 3 timed steps, each 11
+   ``flash_attention_fwd`` at (192, 128) (the prologue's forward, each MoE
+   layer's forward and recompute) and one ``fused_backward`` at D=2,048,
+   one profiled step; step ms, tokens/s, busy share, peak memory, the top
+   device kernels, finite losses. Then the attention backward at the MLA
+   shape (B=1, S=2,048, 16 heads, 192 / 128; and S=1,000 with window 256)
+   against autograd through the plain attention, within 1e-3 of the
+   largest |grad|, and the 2-layer cut (the prologue and one MoE layer,
+   B=1, S=256): one step's loss and every gradient on the card against
+   the CPU within rtol 1e-4 / atol 1e-5, its routing compared.
+16. Mamba-2 serving (``ssm_serve``): mamba2-1.3b at full width and depth
+   (48 layers, 1.34 G parameters, 5.38 GB fp32) through
+   ``launch.serve.serve``, B=4, prompt 2,048, 32 greedy tokens: no kernel
+   launch (the SSD mixer is plain torch), tokens equal on a second
+   (profiled) run; prefill ms, ms a token, busy share, peak memory; one
+   layer's chunked SSD against the step-by-step recurrence on the card
+   (within 1e-4 of its largest output); the 2-layer cut on the card
+   against the CPU (B=1, prompt 256, 4 tokens: logits within rtol 1e-4 /
+   atol 1e-5, tokens equal).
+17. The Jamba hybrid (``hybrid_serve``): jamba-v0.1-52b at full width cut
+   to 1 of its 4 pattern repeats (8 layers: 7 mamba2, 1 GQA of 32 / 8
+   heads of 128; 4 dense FFNs and 4 MoE of 16 experts top-2 of 14,336;
+   13.0 G parameters, 52.0 GB fp32), B=4, prompt 2,048, 32 greedy tokens:
+   one ``flash_attention_fwd`` a prefill at (128, 128), tokens equal on a
+   second (profiled) run; prefill ms, ms a token, busy share, peak
+   memory, the decode's weight bytes; then the 2-layer cut (the GQA +
+   dense block and the mamba2 + MoE block after it) on the card against
+   the CPU as in phase 8, split as granite's is: where a step's logits
+   miss rtol 1e-4 / atol 1e-5, within twice the distance that the card's
+   fp32 GEMMs alone (the plain attention on the card) leave from the CPU
+   at Jamba's widths.
+18. The sharded embedding-PS router (``sharded_phase``, k=4), kwai-dlrm
    at full width, batch 512, hybrid(3): (a) dense tables at 65,536 rows
    (a power of two: no uniform-shuffle collision), 4 shards against one
    from one seed over 2 + 10 steps, the losses, every logical row and
@@ -215,7 +250,7 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    (d) that 4-shard state through ``PipelinedTrainer``: max_inflight 1
    bit for bit with serial, max_inflight 4 in order, within its put
    window, every pin released.
-16. The multi-process embedding PS (``remote_phase``), kwai-dlrm at full
+19. The multi-process embedding PS (``remote_phase``), kwai-dlrm at full
    width, batch 512, hybrid(3), dense and host_lru (7,812 slots): (a) PS
    servers as threads on the card, the port's remote trainer against its
    in-process trainer from one seed, bit for bit (losses, every logical
@@ -240,7 +275,7 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    (``spawn_cluster``, ``connect_remote_backends``, ``_online_loop``; no
    spool): trainer steps/s and serving p50/p99/QPS under training. The
    lossy check runs on the timed runs' batches, over their loss spike.
-17. The launcher, ``repro_torch.launch.train.main`` on the card: 8
+20. The launcher, ``repro_torch.launch.train.main`` on the card: 8
    pipelined steps of the CTR task, then ``--task lm --steps 8 --batch 8
    --seq-len 128 --eval-every 4`` (the launcher's lm-100m), finite losses.
 
@@ -255,8 +290,9 @@ and qwen3-14b's 40 / 8 of 128; q and k x30 with the scale / 900; bf16
 inputs, o within 4e-2, and bf16 at Dh 12, whose K/V go by cp.async;
 DeepSeek-V2-Lite's MLA prefill, B=4, 16 heads, S=2,048, a query/key head
 of 192 and a value head of 128, in fp32 and bf16, and a ragged Dh 160 /
-Dv 72 with Sk 777; the MLA prefill is timed beside its bound, its plain
-version and SDPA, whose backend is named),
+Dv 72 with Sk 777; Jamba's GQA prefill, B=4, 32 / 8 heads of 128; the
+MLA and Jamba prefills are timed beside their bounds, their plain
+versions and SDPA, whose backend is named),
 each timed beside its bound, its plain version and its library call
 (``index_add_``, ``scaled_dot_product_attention``; the port calls
 neither). The attention's bound is three TF32 passes of its operations
@@ -317,6 +353,7 @@ from repro_torch.launch.shards import (build_embedding_spec,  # noqa: E402
                                        default_cache_rows)
 from repro_torch.models import flash as lm_flash  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
+from repro_torch.models import mamba2 as lm_ssm  # noqa: E402
 from repro_torch.models import moe as lm_moe  # noqa: E402
 from repro_torch.models import transformer as lm_model  # noqa: E402
 from repro_torch.models.recsys import pool_bag  # noqa: E402
@@ -416,6 +453,25 @@ LM_TRAIN_CPU = {"layers": 2, "batch": 1, "seq": 256, "steps": 3}
 MOE_ARCH = "deepseek_v2_lite_16b"
 MOE_CPU = {"repeats": 1, "batch": 1, "prompt": 256, "gen": 4}
 FLIP_GAP = 1e-5
+# DeepSeek-V2 training: deepseek-v2-lite-16b at full width, its depth cut
+# to the prologue and 5 MoE layers (6 of 27: a MoE layer's 585 M
+# parameters take 9.4 GB with their gradient and Adam's two moments, all
+# 27 layers ~250 GB); B=2, S=2,048 as granite's training; the
+# card-against-CPU cut keeps the prologue and one MoE layer, one step
+MOE_TRAIN = {"repeats": 5, "batch": 2, "seq": 2048, "warmup": 2, "timed": 3}
+MOE_TRAIN_CPU = {"repeats": 1, "batch": 1, "seq": 256}
+# Mamba-2 serving: mamba2-1.3b at full width and depth (48 layers), served
+# as granite is; the card-against-CPU cut keeps 2 layers
+SSM_ARCH = "mamba2_1_3b"
+SSM_CPU = {"repeats": 2, "batch": 1, "prompt": 256, "gen": 4}
+# the Jamba hybrid: jamba-v0.1-52b at full width, its depth cut to 1 of 4
+# pattern repeats (8 layers: 7 mamba2 and 1 GQA; 4 dense FFNs and 4 MoE
+# of 16 experts x 14,336: 12.7 G parameters, 50.9 GB fp32; all 4 ~210
+# GB); the card-against-CPU cut keeps the GQA + dense block and the
+# mamba2 + MoE block after it (pattern positions 4 and 5)
+HYBRID_ARCH = "jamba_v0_1_52b"
+HYBRID_REPEATS = 1
+HYBRID_CPU = {"blocks": (4, 5), "batch": 1, "prompt": 256, "gen": 4}
 
 KERNELS = {
     "embedding_bag": {"source": "src/repro_torch/kernels/csrc/bag.cu",
@@ -447,7 +503,9 @@ STAGE_KEYS = ("stage_tables", "stage_ms", "stage_bound_ms", "stage_library_ms",
               "lm_put_plain_ms", "train_stage_ms", "train_stage_bound_ms",
               "put_stage_ms", "put_stage_bound_ms", "train_ms",
               "train_bound_ms", "mla_ms", "mla_bound_ms", "mla_bound_by",
-              "mla_plain_ms", "mla_library_ms", "mla_library_backend")
+              "mla_plain_ms", "mla_library_ms", "mla_library_backend",
+              "jamba_ms", "jamba_bound_ms", "jamba_bound_by",
+              "jamba_plain_ms", "jamba_library_ms", "jamba_library_backend")
 
 
 BAG_KERNELS = ("embedding_bag", "unique_bag")
@@ -1548,7 +1606,7 @@ def flash_phase(dev):
                 for s in ((B, hq, Sq, dh), (B, hkv, Sk, dh),
                           (B, hkv, Sk, dv or dh))]
 
-    mla = mla_shape()
+    mla, jam = mla_shape(), get_config(HYBRID_ARCH)
     # (B, Hq, Hkv, Sq, Sk, Dh, causal, window, dtype[, Dv])
     cases = {
         "prefill": (LM_B, Hq, Hkv, LM_PROMPT, LM_PROMPT, Dh, True, 0,
@@ -1577,6 +1635,9 @@ def flash_phase(dev):
         "mla_bf16": (2, mla["H"], mla["H"], 1000, 1000, mla["Dqk"], True, 0,
                      torch.bfloat16, mla["Dv"]),
         "mla_ragged": (2, 4, 2, 1000, 777, 160, True, 0, torch.float32, 72),
+        # Jamba's GQA layer: 32 / 8 heads of 128 (a group of 4)
+        "jamba_prefill": (LM_B, jam.n_heads, jam.n_kv_heads, LM_PROMPT,
+                          LM_PROMPT, jam.head_dim, True, 0, torch.float32),
     }
     scale = 1.0 / math.sqrt(Dh)
     errs, err32 = {}, 0.0
@@ -1640,7 +1701,12 @@ def flash_phase(dev):
             q, k, v, is_causal=True, scale=scale, enable_gqa=True), 10)}
     del q, k, v
     torch.cuda.empty_cache()
-    timing["mla"] = mla_timing(dev, qkv, mla)
+    # DeepSeek-V2-Lite's MLA prefill and Jamba's GQA prefill (B=4, S=2,048)
+    timing["mla"] = shape_timing(qkv, LM_B, LM_PROMPT, mla["H"], mla["H"],
+                                 mla["Dqk"], mla["Dv"])
+    timing["jamba"] = shape_timing(qkv, LM_B, LM_PROMPT, jam.n_heads,
+                                   jam.n_kv_heads, jam.head_dim,
+                                   jam.head_dim)
     return timing
 
 
@@ -1671,15 +1737,15 @@ def sdpa_backend(q, k, v, **kw) -> dict:
     return {"choice": choice, "kernels": kernels[:6]}
 
 
-def mla_timing(dev, qkv, mla) -> dict:
-    """flash_attention_fwd at the MLA prefill shape (B=4, S=2,048, 16
-    heads, query/key 192, value 128, fp32, causal): device us beside its
-    bound, the plain version and SDPA (the backend it picks named)."""
-    B, S, H = LM_B, LM_PROMPT, mla["H"]
-    dqk, dv = mla["Dqk"], mla["Dv"]
-    q, k, v = qkv(B, H, H, S, S, dqk, torch.float32, dv)
+def shape_timing(qkv, B, S, Hq, Hkv, dqk, dv) -> dict:
+    """flash_attention_fwd at a prefill shape (fp32, causal): device us
+    beside its bound, the plain version and SDPA (the backend it picks
+    named)."""
+    q, k, v = qkv(B, Hq, Hkv, S, S, dqk, torch.float32, dv)
     scale = 1.0 / math.sqrt(dqk)
     sdpa_kw = dict(is_causal=True, scale=scale)
+    if Hq != Hkv:
+        sdpa_kw["enable_gqa"] = True
     rec = {
         "ms": device_ms(lambda: ops.flash_attention_fwd(q, k, v, scale),
                         10),
@@ -1690,16 +1756,17 @@ def mla_timing(dev, qkv, mla) -> dict:
         "library_backend": sdpa_backend(q, k, v, **sdpa_kw),
     }
     pairs = attended_pairs(S, S, True, 0)
-    no = 2.0 * B * H * (dqk + dv) * pairs
-    nb = 4.0 * (B * H * S * dqk * 2 + B * H * S * dv * 2 + B * H * S)
+    no = 2.0 * B * Hq * (dqk + dv) * pairs
+    nb = 4.0 * (B * Hq * S * (dqk + dv) + B * Hkv * S * (dqk + dv)
+                + B * Hq * S)
     b_bytes, b_ops = nb / HBM_BYTES_PER_S, 3 * no / TF32_OPS_PER_S
     rec.update(bound_ms=max(b_bytes, b_ops) * 1e3,
                bound_by="bytes" if b_bytes >= b_ops else "operations",
                bound_simt_ms=max(b_bytes, no / FP32_OPS_PER_S) * 1e3,
                bound_ops=no, bound_bytes=nb,
                tflops=no / (rec["ms"] * 1e-3) / 1e12,
-               shape={"B": B, "H": H, "S": S, "Dqk": dqk, "Dv": dv,
-                      "causal": True})
+               shape={"B": B, "Hq": Hq, "Hkv": Hkv, "S": S, "Dqk": dqk,
+                      "Dv": dv, "causal": True})
     del q, k, v
     torch.cuda.empty_cache()
     return rec
@@ -2649,55 +2716,87 @@ def lm_moe_serve_phase(dev):
 def lm_moe_card_vs_cpu(dev):
     """deepseek-v2-lite-16b at full width cut to 2 layers (the mla + dense
     prologue and one mla + MoE layer), B=1, prompt 256, 4 greedy tokens,
-    from one starting state (drawn on the CPU) on the card and on the CPU,
-    both runs' routing recorded: the logits of every step up to the first
-    MoE call that routed a token otherwise are held within rtol 1e-4 /
-    atol 1e-5 and the greedy tokens there equal; the flips are reported,
-    and the first call that differs must lie within 1e-5 of a top-k
-    boundary (else the two runs disagree for another reason than
-    rounding)."""
+    from one starting state drawn on the CPU (``lm_cut_card_vs_cpu``)."""
     cfg = get_config(MOE_ARCH).replace(pattern_repeats=MOE_CPU["repeats"])
+    return lm_cut_card_vs_cpu(dev, cfg, MOE_CPU, SEED + 1,
+                              "lm_moe_card_vs_cpu", torch.device("cpu"))
+
+
+def lm_cut_card_vs_cpu(dev, cfg, p, seed, phase, draw_dev,
+                       split=False) -> dict:
+    """A model cut to a few layers, ``p["batch"]`` prompts of
+    ``p["prompt"]`` tokens and ``p["gen"]`` greedy tokens, from one
+    starting state (drawn on ``draw_dev``, copied) on the card and on the
+    CPU, both runs' MoE routing recorded: the logits of every step up to
+    the first MoE call that routed a token otherwise are held within rtol
+    1e-4 / atol 1e-5 and the greedy tokens there equal; the flips are
+    reported, and the first call that differs must lie within 1e-5 of a
+    top-k boundary (else the two runs disagree for another reason than
+    rounding). A model without MoE blocks routes nothing: every step is
+    held. With ``split``, the card runs a third time with the plain
+    attention in the place of the kernel, routed as the kernel's run:
+    its distance from the CPU is what the card's fp32 GEMMs alone leave
+    (at Jamba's widths, 4,096 and 14,336, more than atol 1e-5 on logits
+    of RMS 1), and a step that misses rtol 1e-4 / atol 1e-5 is held
+    within twice that distance instead: the kernel may add no more than
+    the GEMMs' own rounding."""
     cpu = torch.device("cpu")
-    bk, emb, dense = lm_state(cfg, cpu, SEED + 1)
+    bk, emb, dense = lm_state(cfg, draw_dev, seed)
     prompts = torch.as_tensor(lm_serve.make_prompts(
-        cfg, MOE_CPU["batch"], MOE_CPU["prompt"], SEED + 1))
-    n_moe = sum(b.ffn == "moe" for b in cfg.pattern) * cfg.pattern_repeats
+        cfg, p["batch"], p["prompt"], seed))
+    n_moe = sum(b.ffn == "moe" for b in cfg.prologue) + \
+        sum(b.ffn == "moe" for b in cfg.pattern) * cfg.pattern_repeats
 
     def run(d):
         e = {k: t.to(d) for k, t in emb.items()}
-        p = tree_map(lambda t: t.to(d), dense)
+        w = tree_map(lambda t: t.to(d), dense)
         with record_routing() as calls:
-            first, steps, toks = lm_generate(cfg, bk, e, p, prompts.to(d),
-                                             MOE_CPU["gen"])
-        return ([first.cpu()] + [x.cpu() for x in steps], toks.cpu(),
-                [(a.cpu(), b.cpu()) for a, b in calls])
+            first, steps, toks = lm_generate(cfg, bk, e, w, prompts.to(d),
+                                             p["gen"])
+        out = ([first.cpu()] + [x.cpu() for x in steps], toks.cpu(),
+               [(a.cpu(), b.cpu()) for a, b in calls])
+        del e, w
+        return out
 
     t0 = time.perf_counter()
     (lg, tg, rg), (lc, tc, rc) = run(dev), run(cpu)
+    gemm = None
+    if split:
+        with mock.patch.object(lm_flash, "flash_attention", plain_attention):
+            lp, _, rp = run(dev)
+        gemm_alike = routing_flips(rg, rp, cfg.moe_top_k)["first_call"]
+        n = len(lp) if gemm_alike is None else gemm_alike // n_moe
+        gemm = [float((a - b).abs().max()) for a, b in zip(lp[:n], lc)]
+    del emb, dense
+    torch.cuda.empty_cache()
     flips = routing_flips(rc, rg, cfg.moe_top_k)
     # steps whose MoE calls, and every earlier step's, routed alike
     alike = len(lg) if flips["first_call"] is None \
         else flips["first_call"] // n_moe
     errs = [float((a - b).abs().max()) for a, b in zip(lg, lc)]
-    ok = all(torch.allclose(a, b, rtol=1e-4, atol=1e-5)
-             for a, b in zip(lg[:alike], lc[:alike]))
-    rec = {"phase": "lm_moe_card_vs_cpu", **MOE_CPU, "layers": cfg.n_layers,
+    within = [torch.allclose(a, b, rtol=1e-4, atol=1e-5)
+              or (gemm is not None and i < len(gemm)
+                  and errs[i] <= 2 * gemm[i])
+              for i, (a, b) in enumerate(zip(lg[:alike], lc[:alike]))]
+    ok = all(within)
+    rec = {"phase": phase, **p, "layers": cfg.n_layers,
            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
            "logit_max_abs_by_step": errs, "steps_routed_alike": alike,
            "routing": flips, "tokens_card": tg.tolist(),
            "tokens_cpu": tc.tolist(), "seconds": time.perf_counter() - t0}
+    if split:
+        rec["gemm_only_max_abs_by_step"] = gemm
     emit(rec)
     note = flip_note(flips)
     check(flips["first_call"] is None
           or flips["first_call_max_gap"] <= FLIP_GAP,
-          f"lm moe card against CPU: the first routing that differs is "
-          f"not at a top-k boundary; {note}")
-    check(alike >= 1, f"lm moe card against CPU: the prefill routed apart; "
-          f"{note}")
-    check(ok, f"lm moe card against CPU: logits differ by "
-          f"{max(errs[:alike])} where the routing agrees; {note}")
+          f"{phase}: the first routing that differs is not at a top-k "
+          f"boundary; {note}")
+    check(alike >= 1, f"{phase}: the prefill routed apart; {note}")
+    check(ok, f"{phase}: logits differ by {max(errs[:alike])} where the "
+          f"routing agrees; {note}")
     check(torch.equal(tg[:, :alike], tc[:, :alike]),
-          f"lm moe card against CPU: greedy tokens differ; {note}")
+          f"{phase}: greedy tokens differ; {note}")
     return rec
 
 
@@ -3561,30 +3660,30 @@ def lm_train_phase(dev):
            "launches_per_step": {k: v / p["timed"]
                                  for k, v in launches.items() if v}}
     emit(rec)
-    rec["attention_backward"] = attention_backward_check(dev, cfg)
+    G, Dh = cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    rec["attention_backward"] = attention_backward_check(
+        dev, {"granite_layer": (2048, 0, cfg.n_kv_heads, G, Dh, Dh),
+              "ragged_window": (1000, 256, cfg.n_kv_heads, G, Dh, Dh)},
+        "lm_attention_backward")
     rec["lm_put"] = lm_put_check(dev, cfg)
     rec["card_vs_cpu"] = lm_train_card_vs_cpu(dev)
     return (launches, served), rec
 
 
-def attention_backward_check(dev, cfg) -> dict:
+def attention_backward_check(dev, cases: dict, phase: str) -> dict:
     """(a) ``flash.FlashAttention``'s dq, dk, dv (the kernel's forward, the
     recompute backward) against autograd through the plain attention
-    (``layers._attn_naive``), on the card, at one granite layer's shape
-    (B=1, S=2,048, 32/8 heads of 64, causal) and at a ragged S=1,000 with
-    window 256: within 1e-3 of the largest |grad| (the kernel's 3xTF32
-    forward moves o and the logsumexp the backward reads by its own
-    rounding)."""
+    (``layers._attn_naive``), on the card, for each case ``(S, window,
+    Hkv, G, Dh, Dv)`` (causal): within 1e-3 of the largest |grad| (the
+    kernel's 3xTF32 forward moves o and the logsumexp the backward reads
+    by its own rounding)."""
     out = {}
-    G, Dh = cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
     gen = torch.Generator(device=dev).manual_seed(SEED + 21)
-    for case, (S, window) in {"granite_layer": (2048, 0),
-                              "ragged_window": (1000, 256)}.items():
-        q = torch.randn((1, S, cfg.n_kv_heads, G, Dh), generator=gen,
-                        device=dev)
-        k, v = (torch.randn((1, S, cfg.n_kv_heads, Dh), generator=gen,
-                            device=dev) for _ in range(2))
-        do = torch.randn(q.shape, generator=gen, device=dev)
+    for case, (S, window, hkv, G, Dh, Dv) in cases.items():
+        q = torch.randn((1, S, hkv, G, Dh), generator=gen, device=dev)
+        k = torch.randn((1, S, hkv, Dh), generator=gen, device=dev)
+        v = torch.randn((1, S, hkv, Dv), generator=gen, device=dev)
+        do = torch.randn((1, S, hkv, G, Dv), generator=gen, device=dev)
         kw = dict(scale=1.0 / math.sqrt(Dh), causal=True, window=window)
         got, want = (torch.autograd.grad(
             fn(*(t.requires_grad_() for t in (q, k, v)), **kw),
@@ -3594,11 +3693,13 @@ def attention_backward_check(dev, cfg) -> dict:
                            *a, q_offset=0, **w)))
         share = {f"d{n}": float((a - b).abs().max() / b.abs().max())
                  for n, a, b in zip("qkv", got, want)}
-        out[case] = {"S": S, "window": window, "share_of_max": share}
+        out[case] = {"S": S, "window": window, "heads": [hkv * G, hkv],
+                     "Dh": Dh, "Dv": Dv, "share_of_max": share}
         check(max(share.values()) <= 1e-3,
               f"attention backward [{case}]: {share} of the largest |grad| "
               "off the plain attention's")
-    emit({"phase": "lm_attention_backward", **out})
+        del q, k, v, do, got, want
+    emit({"phase": phase, **out})
     torch.cuda.empty_cache()
     return out
 
@@ -3722,6 +3823,299 @@ def lm_train_card_vs_cpu(dev) -> dict:
     del tg, tc, sg, sc, start, start_table
     torch.cuda.empty_cache()
     return rec
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek-V2 training; Mamba-2 and Jamba serving
+# ---------------------------------------------------------------------------
+
+def profile_run(fn):
+    """``fn()`` under the profiler (device activity): ``(its result, wall
+    s, device s, the top 8 device kernels as (name, ms))``."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    top = sorted(((e.self_device_time_total, e.key)
+                  for e in prof.key_averages()), reverse=True)
+    return (out, wall, sum(us for us, _ in top) / 1e6,
+            [(k, us / 1e3) for us, k in top[:8]])
+
+
+def lm_moe_train_phase(dev):
+    """``PersiaTrainer(lm_adapter)`` at the full width of
+    deepseek-v2-lite-16b cut to the prologue and 5 MoE layers (fp32, remat
+    on), B=2, S=2,048, hybrid(1), Adam, on ``lm_batches``: 2 warm-up and 3
+    timed steps, each 11 ``flash_attention_fwd`` at (192, 128) (the
+    prologue's forward, which the JAX package does not checkpoint either,
+    and each MoE layer's forward and remat recompute) and one
+    ``fused_backward`` at D=2,048; one profiled step; then the attention
+    backward at the MLA shape against autograd through the plain attention
+    and the 2-layer cut's step on the card against the CPU."""
+    p = MOE_TRAIN
+    cfg = get_config(MOE_ARCH).replace(pattern_repeats=p["repeats"])
+    check(cfg.remat, "DeepSeek-V2's config must remat its layers")
+    it = lm_batches(cfg.vocab_size, p["batch"], p["seq"], seed=SEED)
+    batches = [next(it) for _ in range(1 + p["warmup"] + p["timed"] + 1)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = lm_trainer(cfg, dev)
+    t0 = time.perf_counter()
+    state = trainer.init(SEED, batches[0])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_dense = sum(t.numel() for t in tree_leaves(state.dense))
+    losses = []
+    for b in batches[1:1 + p["warmup"]]:
+        state, m = trainer.step(state, b)
+        losses.append(float(m["loss"]))
+
+    # the main path: counts set to 0 just before
+    ops.reset_launch_counts()
+    step_ms = []
+    for b in batches[1 + p["warmup"]:-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = trainer.step(state, b)
+        losses.append(float(m["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches, served = ops.launch_counts(), ops.table_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = len(cfg.prologue) + 2 * len(cfg.pattern) * cfg.pattern_repeats
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_attention_fwd=per_step * p["timed"],
+                fused_backward=p["timed"])
+    check(launches == want, f"lm moe train: launches {launches}, want "
+          f"{want} (per step {per_step} attention forwards: the prologue's "
+          "and each MoE layer's forward and remat recompute; one put)")
+    check(all(np.isfinite(losses)), f"lm moe train: losses {losses}")
+    (state, m), wall, device_s, top = profile_run(
+        lambda: trainer.step(state, batches[-1]))
+    losses.append(float(m["loss"]))
+    check(math.isfinite(losses[-1]), f"lm moe train: losses {losses}")
+    moe_aux = {k: float(m[k]) for k in ("moe_balance", "moe_z",
+                                        "moe_drop_frac") if k in m}
+    del state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tokens = p["batch"] * p["seq"]
+    med = float(np.median(step_ms))
+    rec = {"phase": "lm_moe_train", "model": cfg.name,
+           "layers": cfg.n_layers, "cut": "depth: the prologue and "
+           f"{p['repeats']} of 26 MoE layers, full width",
+           "d_model": cfg.d_model, "vocab": [cfg.vocab_size,
+                                             cfg.padded_vocab],
+           "moe": {"experts": cfg.n_experts, "top_k": cfg.moe_top_k,
+                   "shared": cfg.n_shared_experts, "d_ff": cfg.moe_d_ff,
+                   "capacity": lm_moe.capacity(cfg, tokens)},
+           "dtype": "fp32", "remat": cfg.remat,
+           "mode": f"hybrid({cfg.emb_staleness})", "batch": p["batch"],
+           "seq": p["seq"], "dense_params": n_dense,
+           "dense_gb": n_dense * 4 / 1e9, "init_s": init_s,
+           "step_ms": step_ms, "step_ms_median": med,
+           "tokens_per_s": tokens / (med / 1e3),
+           "profiled_wall_s": wall, "profiled_device_s": device_s,
+           "device_busy_share": device_s / wall, "top_device_ms": top,
+           "peak_gib": peak / 2**30, "losses": losses, "moe_aux": moe_aux,
+           "launches_per_step": {k: v / p["timed"]
+                                 for k, v in launches.items() if v}}
+    emit(rec)
+    mla = mla_shape()
+    rec["attention_backward"] = attention_backward_check(
+        dev, {"mla_layer": (p["seq"], 0, mla["H"], 1, mla["Dqk"],
+                            mla["Dv"]),
+              "mla_ragged_window": (1000, 256, mla["H"], 1, mla["Dqk"],
+                                    mla["Dv"])},
+        "lm_moe_attention_backward")
+    rec["card_vs_cpu"] = lm_moe_train_card_vs_cpu(dev)
+    return (launches, served), rec
+
+
+def lm_moe_train_card_vs_cpu(dev) -> dict:
+    """deepseek-v2-lite-16b at full width cut to 2 layers (the mla + dense
+    prologue and one mla + MoE layer), B=1, S=256: one step's ``lm_loss``
+    (the MoE aux term included) and its gradients (every dense leaf and
+    the activations), from one state drawn on the card, on the card and
+    on the CPU, both runs' routing recorded. Where every token routed
+    alike: the loss, and every gradient, within rtol 1e-4 / atol 1e-5
+    (``lm_moe_card_vs_cpu``'s class); a flip must lie within 1e-5 of a
+    top-k boundary, and it is reported."""
+    p = MOE_TRAIN_CPU
+    cfg = get_config(MOE_ARCH).replace(pattern_repeats=p["repeats"])
+    bk, emb, dense = lm_state(cfg, dev, SEED + 25)
+    b = next(lm_batches(cfg.vocab_size, p["batch"], p["seq"],
+                        seed=SEED + 25))
+    emb, dev_ids = bk.prepare(emb, torch.as_tensor(b["tokens"], device=dev))
+    acts, _ = bk.lookup(emb, dev_ids)
+    del emb
+
+    def run(d):
+        w = tree_map(lambda t: t.detach().to(d).requires_grad_(), dense)
+        a = acts.detach().to(d).requires_grad_()
+        with record_routing() as calls:
+            loss, _ = lm_model.lm_loss(cfg, w, a, b["targets"], b["mask"])
+            loss.backward()
+        return (float(loss.detach()), [a.grad.cpu()] + [x.grad.cpu()
+                                               for x in tree_leaves(w)],
+                [(x.cpu(), y.cpu()) for x, y in calls])
+
+    t0 = time.perf_counter()
+    (lg, gg, rg), (lc, gcpu, rc) = run(dev), run(torch.device("cpu"))
+    del dense, acts
+    torch.cuda.empty_cache()
+    flips = routing_flips(rc, rg, cfg.moe_top_k)
+    worst = max(float(((x - y).abs() / (1e-5 + 1e-4 * y.abs())).max())
+                for x, y in zip(gg, gcpu))
+    rec = {"phase": "lm_moe_train_card_vs_cpu", **p,
+           "layers": cfg.n_layers, "loss_card": lg, "loss_cpu": lc,
+           "grad_leaves": len(gg), "grad_max_abs": max(
+               float((x - y).abs().max()) for x, y in zip(gg, gcpu)),
+           "grad_worst_share_of_tol": worst, "routing": flips,
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    note = flip_note(flips)
+    check(flips["first_call"] is None, f"lm moe train card against CPU: "
+          f"the step routed apart, its gradients are not comparable; "
+          f"{note}")
+    check(abs(lg - lc) <= 1e-4 * abs(lc),
+          f"lm moe train card against CPU: loss {lg} vs {lc}")
+    check(worst <= 1.0, f"lm moe train card against CPU: a gradient off by "
+          f"{worst} of rtol 1e-4 / atol 1e-5")
+    return rec
+
+
+def full_serve(dev, cfg, want_flash: int, what: str):
+    """Random weights and vocab table from ``SEED`` on the card; a warm-up
+    serve, then the main path (``launch.serve.serve``, B=4, prompt 2,048,
+    32 greedy tokens; the launch counts set to 0 just before): it must
+    launch ``flash_attention_fwd`` ``want_flash`` times (one prefill) and
+    nothing else, and give tokens in the vocab, equal on a second run
+    under the profiler. Returns ``((launches, served), the record's
+    common fields, (backend, emb state, dense params))``."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    part = {}
+    t0 = time.perf_counter()
+    bk, emb, dense = lm_state(cfg, dev, SEED)
+    state = (emb, dense)
+    n_dense = sum(t.numel() for t in tree_leaves(dense))
+    lm_serve.serve(cfg, LM_B, LM_PROMPT, 2, SEED, device=dev, state=state)
+    torch.cuda.synchronize()
+    part["init_and_warmup"] = time.perf_counter() - t0
+
+    # the main path: counts set to 0 just before
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    res = lm_serve.serve(cfg, LM_B, LM_PROMPT, LM_GEN, SEED, device=dev,
+                         state=state)
+    launches, served = ops.launch_counts(), ops.table_counts()
+    part["serve"] = time.perf_counter() - t0
+    want = dict.fromkeys(launches, 0)
+    want["flash_attention_fwd"] = want_flash
+    check(launches == want, f"{what}: launches {launches}, want {want} "
+          "(one prefill)")
+    toks = res["tokens"]
+    check(toks.shape == (LM_B, LM_GEN) and toks.min() >= 0
+          and toks.max() < cfg.vocab_size, f"{what} tokens {toks.shape}")
+    t0 = time.perf_counter()
+    again, wall, device_s, top = profile_run(lambda: lm_serve.serve(
+        cfg, LM_B, LM_PROMPT, LM_GEN, SEED, device=dev, state=state))
+    check(np.array_equal(again["tokens"], toks),
+          f"{what}: a second run gave other tokens")
+    part["profiled"] = time.perf_counter() - t0
+    rec = {"model": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": [cfg.vocab_size, cfg.padded_vocab],
+           "dense_params": n_dense, "dense_gb": n_dense * 4 / 1e9,
+           "batch": LM_B, "prompt": LM_PROMPT, "gen": LM_GEN,
+           "prefill_ms": res["prefill_s"] * 1e3,
+           "ms_per_token": res["decode_s"] * 1e3 / (LM_GEN - 1),
+           "decode_tok_per_s": res["decode_tok_per_s"],
+           "flash_launches_per_prefill": launches["flash_attention_fwd"],
+           "profiled_wall_s": wall, "profiled_device_s": device_s,
+           "device_busy_share": device_s / wall,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "resident_gib_before": resident, "top_kernels_ms": top,
+           "part_s": part, "first_tokens": toks[0, :8].tolist()}
+    return (launches, served), rec, (bk, emb, dense)
+
+
+def ssm_serve_phase(dev):
+    """``full_serve`` of mamba2-1.3b at full width and depth (48 mamba2
+    layers, d_model 2,048, 64 heads of 64, state 128, chunk 256), fp32: no
+    kernel launch (the mixer is plain torch, as the JAX package's is jnp);
+    then one layer's chunked forward against the step-by-step oracle on
+    the card, within 1e-4 of the oracle's largest output, and the 2-layer
+    cut on the card against the CPU."""
+    cfg = get_config(SSM_ARCH)
+    paths, rec, (bk, emb, dense) = full_serve(dev, cfg, 0, "ssm serve")
+    t0 = time.perf_counter()
+    layer = tree_map(lambda t: t[0], dense["stack"]["0"]["mixer"])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    x = torch.randn((1, LM_PROMPT, cfg.d_model), generator=gen, device=dev)
+    with torch.no_grad():
+        chunked = lm_ssm.mamba2_forward(layer, cfg, x)
+        oracle = lm_ssm.mamba2_reference_scan(layer, cfg, x)
+    torch.cuda.synchronize()
+    ssd_err = float((chunked - oracle).abs().max())
+    ssd_top = float(oracle.abs().max())
+    rec["part_s"]["ssd_vs_oracle"] = time.perf_counter() - t0
+    check(math.isfinite(ssd_err) and ssd_err <= 1e-4 * ssd_top,
+          f"ssm: one layer's chunked SSD {ssd_err} off the recurrence "
+          f"(largest |out| {ssd_top})")
+    del bk, emb, dense, layer, x, chunked, oracle
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = {"phase": "ssm_serve", **rec,
+           "ssm": {"heads": lm_ssm.ssm_dims(cfg)[1],
+                   "head_dim": cfg.ssm_head_dim, "state": cfg.ssm_state,
+                   "chunk": cfg.ssm_chunk, "conv": cfg.ssm_conv_width},
+           "ssd_vs_oracle_max_abs": ssd_err, "ssd_largest_out": ssd_top}
+    emit(rec)
+    cut = cfg.replace(pattern_repeats=SSM_CPU["repeats"])
+    rec["card_vs_cpu"] = lm_cut_card_vs_cpu(dev, cut, SSM_CPU, SEED + 27,
+                                            "ssm_card_vs_cpu", dev)
+    return paths, rec
+
+
+def hybrid_serve_phase(dev):
+    """``full_serve`` of jamba-v0.1-52b at full width cut to 1 of its 4
+    pattern repeats (8 layers: 7 mamba2 and 1 GQA of 32 / 8 heads of 128;
+    4 dense FFNs and 4 MoE of 16 experts top-2 of 14,336; vocab 65,536),
+    fp32: one ``flash_attention_fwd`` per prefill at (128, 128), a group of
+    4; the decode's weight bytes; then the 2-layer cut (the GQA + dense
+    block and the mamba2 + MoE block) on the card against the CPU."""
+    cfg = get_config(HYBRID_ARCH).replace(pattern_repeats=HYBRID_REPEATS)
+    n_attn = sum(b.mixer == "gqa" for b in cfg.pattern) * cfg.pattern_repeats
+    paths, rec, (bk, emb, dense) = full_serve(dev, cfg, n_attn,
+                                              "hybrid serve")
+    weights = moe_weight_bytes(cfg, dense)
+    del bk, emb, dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = {"phase": "hybrid_serve", **rec,
+           "cut": f"depth: {HYBRID_REPEATS} of 4 pattern repeats, full "
+           "width", "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+           "moe": {"experts": cfg.n_experts, "top_k": cfg.moe_top_k,
+                   "d_ff": cfg.moe_d_ff, "capacity_prefill":
+                   lm_moe.capacity(cfg, LM_B * LM_PROMPT),
+                   "capacity_decode": lm_moe.capacity(cfg, LM_B)},
+           **weights}
+    emit(rec)
+    full = get_config(HYBRID_ARCH)
+    cut = full.replace(pattern=tuple(full.pattern[i]
+                                     for i in HYBRID_CPU["blocks"]),
+                       pattern_repeats=1)
+    rec["card_vs_cpu"] = lm_cut_card_vs_cpu(
+        dev, cut, {k: v for k, v in HYBRID_CPU.items() if k != "blocks"},
+        SEED + 28, "hybrid_card_vs_cpu", dev, split=True)
+    return paths, rec
 
 
 def logical_rows(trainer, state, n):
@@ -4625,7 +5019,8 @@ def main() -> int:
     timing["embedding_sgd"] = sgd_phase(dev, ds)
     timing["flash_attention_fwd"] = flash_phase(dev)
     timing["flash_attention_fwd"].update(
-        {f"mla_{k}": timing["flash_attention_fwd"]["mla"][k]
+        {f"{shape}_{k}": timing["flash_attention_fwd"][shape][k]
+         for shape in ("mla", "jamba")
          for k in ("ms", "bound_ms", "bound_by", "plain_ms", "library_ms",
                    "library_backend")})
     floor = floor_phase(dev)
@@ -4687,6 +5082,10 @@ def main() -> int:
     timing["fused_backward"].update(
         {f"lm_put_{k}": recs["lm_train"]["lm_put"][k]
          for k in ("ms", "bound_ms", "bound_by", "plain_ms")})
+    # DeepSeek-V2 training, then Mamba-2 and the Jamba hybrid serving
+    paths["lm_moe_train"], recs["lm_moe_train"] = lm_moe_train_phase(dev)
+    paths["ssm_serve"], recs["ssm_serve"] = ssm_serve_phase(dev)
+    paths["hybrid_serve"], recs["hybrid_serve"] = hybrid_serve_phase(dev)
     # the sharded embedding-PS router
     sharded_paths, recs["sharded"] = sharded_phase(dev)
     paths.update(sharded_paths)

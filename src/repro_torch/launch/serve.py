@@ -7,7 +7,9 @@ each step prepares its tokens there (a host_lru table faults them into its
 device cache before the prefill and before each decode step), looks them
 up and runs the transformer on the activations. Every prefill attention
 goes through the ``flash_attention_fwd`` CUDA kernel on the card, MLA's
-(DeepSeek-V2: a 192-wide query/key head, a 128-wide value head) too.
+(DeepSeek-V2: a 192-wide query/key head, a 128-wide value head) and
+Jamba's GQA layer too; a Mamba-2 layer prefills by the chunked SSD and
+decodes against its fixed-size state.
 
 Usage (on the card; ``--device cpu`` runs the plain versions; ``--arch``
 any of ``configs.ARCH_IDS``):
@@ -15,6 +17,10 @@ any of ``configs.ARCH_IDS``):
       --full --batch 4 --prompt-len 32 --gen 16
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch deepseek_v2_lite_16b --full --batch 4 --prompt-len 2048 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_1_3b \\
+      --full --batch 4 --prompt-len 2048 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba_v0_1_52b \\
+      --device cpu
 """
 from __future__ import annotations
 

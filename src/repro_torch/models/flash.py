@@ -4,11 +4,11 @@
 The models keep q as (B, Sq, Hkv, G, Dh), k as (B, Sk, Hkv, Dh) and v as
 (B, Sk, Hkv, Dv); the ``flash_attention_fwd`` kernel takes (B, Hq, S, D*)
 with query head ``h = hkv * G + g``. The value head Dv may be narrower
-than the query/key head (MLA's 128 beside 192) in the forward; the
-backward at Dv != Dh is not ported yet. This module converts between the two (contiguous
-copies) and calls ``kernels.ops.flash_attention_fwd``: the CUDA kernel on
-the card, its plain version on the CPU. No padding: the kernel masks its
-ragged tiles itself.
+than the query/key head (MLA's 128 beside 192), forward and backward.
+This module converts between the two (contiguous copies) and calls
+``kernels.ops.flash_attention_fwd``: the CUDA kernel on the card, its
+plain version on the CPU. No padding: the kernel masks its ragged tiles
+itself.
 
 With grad enabled the call goes through :class:`FlashAttention`, whose
 forward is that same call, saving q, k, v, o and the rows' logsumexp, and
@@ -57,19 +57,20 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale: float,
                         causal: bool = True, window: int = 0,
                         q_offset: int = 0):
     """The gradients (dq, dk, dv) of ``flash_attention_fwd`` in the kernel
-    layout: q, o, do (B, Hq, Sq, Dh); k, v (B, Hkv, Sk, Dh); lse (B, Hq,
-    Sq) fp32. fp32 arithmetic; the gradients come back in the inputs'
-    dtypes. The masks are the forward's (causal, window, the ragged last
-    block); tiles that are wholly masked are skipped. A tile is
-    ``Q_BLOCK`` x ``K_BLOCK``."""
+    layout: q (B, Hq, Sq, Dh); o, do (B, Hq, Sq, Dv); k (B, Hkv, Sk, Dh);
+    v (B, Hkv, Sk, Dv); lse (B, Hq, Sq) fp32. ``Drow`` and ``dP = dO V^T``
+    contract over Dv; dv is (..., Dv), dq and dk (..., Dh). fp32
+    arithmetic; the gradients come back in the inputs' dtypes. The masks
+    are the forward's (causal, window, the ragged last block); tiles that
+    are wholly masked are skipped. A tile is ``Q_BLOCK`` x ``K_BLOCK``."""
     B, Hq, Sq, Dh = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
-    G = Hq // Hkv
+    G, Dv = Hq // Hkv, v.shape[-1]
     qf = q.float().reshape(B, Hkv, G, Sq, Dh)
-    dof = do.float().reshape(B, Hkv, G, Sq, Dh)
+    dof = do.float().reshape(B, Hkv, G, Sq, Dv)
     kf, vf = k.float(), v.float()
     lsef = lse.float().reshape(B, Hkv, G, Sq, 1)
-    drow = torch.sum(dof * o.float().reshape(B, Hkv, G, Sq, Dh), dim=-1,
+    drow = torch.sum(dof * o.float().reshape(B, Hkv, G, Sq, Dv), dim=-1,
                      keepdim=True)                       # (B,Hkv,G,Sq,1)
     qpos = torch.arange(Sq, device=q.device) + q_offset
     kpos = torch.arange(Sk, device=q.device)
@@ -131,10 +132,6 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        if v.shape[-1] != q.shape[-1]:
-            raise NotImplementedError(
-                "the attention backward at a value head dim other than the "
-                "query's (MLA) is not ported yet")
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, *ctx.args)
         return dq, dk, dv, None, None, None, None
 
@@ -145,8 +142,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, Sq, Hkv, G, Dh); k: (B, Sk, Hkv, Dh); v: (B, Sk, Hkv, Dv) ->
     (B, Sq, Hkv, G, Dv) in q's dtype. Differentiable (through
     :class:`FlashAttention`) when grad is enabled and an input requires
-    it (its backward needs Dv == Dh); otherwise the bare forward call, as
-    serving makes it."""
+    it; otherwise the bare forward call, as serving makes it."""
     args = (*to_kernel_layout(q, k, v), scale, causal, window, q_offset)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         o = FlashAttention.apply(*args)

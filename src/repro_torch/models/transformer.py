@@ -1,14 +1,15 @@
 """Layer-program transformer (port of ``repro/models/transformer.py``) for
-the dense GQA family and DeepSeek-V2: gqa or mla mixers with dense or MoE
-FFNs, training (:func:`lm_loss`, with the MoE aux loss) and serving
-(full-sequence forward, prefill, single-token decode against per-layer
-KV or latent caches).
+the dense GQA family, DeepSeek-V2, Mamba-2 and the Jamba hybrid: gqa, mla
+or mamba2 mixers with dense, MoE or no FFNs, training (:func:`lm_loss`,
+with the MoE aux loss) and serving (full-sequence forward, prefill,
+single-token decode against per-layer KV, latent or SSM caches).
 
 Parameters keep the JAX package's tree and key names: unscanned
 ``prologue_<i>`` blocks, then ``params["stack"][str(i)]`` for pattern
 position i with every leaf stacked over a leading ``pattern_repeats`` axis,
 ``final_norm`` and ``lm_head``, so a JAX state converts leaf for leaf
-(``repro_torch.convert.lm_dense_from_numpy``). The JAX package's
+(``repro_torch.convert.lm_dense_from_numpy``). A block without an FFN
+(``ffn == "none"``, Mamba-2) has no ``ffn_norm`` either. The JAX package's
 ``lax.scan`` over the stack is a Python loop over layer views here; its
 ``jax.checkpoint`` (``cfg.remat``) is ``torch.utils.checkpoint`` around
 each stack layer when grad is enabled, and does not apply to serving.
@@ -18,18 +19,19 @@ embedding PS as activations, and :func:`lm_loss` differentiates them.
 Caches keep the JAX tree too (``caches["stack"][str(i)]["attn"]`` with k,
 v of shape (R, B, max_len, Hkv, Dh) and len (R, B), or an mla block's
 latent ckv (R, B, max_len, kv_lora_rank) and k_rope (R, B, max_len,
-rope_head_dim), ``caches["pos"]``),
-but are allocated at ``max_len`` once by :func:`prefill`, which writes the
-prompt's K/V into their head, and :func:`decode_step` writes each new
-token's K/V into them in place, where the JAX package pads its prefill
-caches (``_pad_cache_seq``) and returns new ones each step. The contents
-are the same.
+rope_head_dim), or a mamba2 block's ``["ssm"]`` with h (R, B, H, N, P)
+fp32 and conv (R, B, K - 1, conv channels); ``caches["pos"]``), but are
+allocated at ``max_len`` once by :func:`prefill`, which writes the
+prompt's K/V into their head (and the SSM state after the prompt), and
+:func:`decode_step` writes each new token's K/V (or state) into them in
+place, where the JAX package pads its prefill caches (``_pad_cache_seq``)
+and returns new ones each step. The contents are the same.
 
 A MoE block's aux stats (``moe_balance``, ``moe_z``, ``moe_drop_frac``)
 add up over the layers as the JAX package's ``_acc_aux`` adds them.
 
-Not ported yet: the mamba2 and cross-attention mixers, the encoder and
-learned decoder positions (``dec_pos_emb``).
+Not ported yet: the cross-attention mixers, the encoder and learned
+decoder positions (``dec_pos_emb``).
 """
 from __future__ import annotations
 
@@ -40,16 +42,20 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockCfg, ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
+
+_MIXER_INIT = {"gqa": L.gqa_init, "mla": L.mla_init,
+               "mamba2": M2.mamba2_init}
 
 
 def _check_ported(cfg: ModelConfig):
     for blk in cfg.prologue + cfg.pattern:
-        if blk.mixer not in ("gqa", "mla") or \
-                blk.ffn not in ("dense", "moe") or blk.cross:
+        if blk.mixer not in _MIXER_INIT or \
+                blk.ffn not in ("dense", "moe", "none") or blk.cross:
             raise NotImplementedError(
-                f"block {blk} is not ported yet: the torch port runs gqa "
-                "and mla mixers with dense and MoE FFNs")
+                f"block {blk} is not ported yet: the torch port runs gqa, "
+                "mla and mamba2 mixers with dense, MoE or no FFNs")
     if cfg.is_encdec:
         raise NotImplementedError("encoder-decoder models are not ported "
                                   "yet")
@@ -62,13 +68,13 @@ def _check_ported(cfg: ModelConfig):
 def _block_init(generator, cfg: ModelConfig, blk: BlockCfg, dtype, *,
                 lead=(), device=None) -> dict:
     kw = dict(lead=lead, device=device)
-    mixer = L.gqa_init if blk.mixer == "gqa" else L.mla_init
     p = {"mixer_norm": L.norm_init(cfg, cfg.d_model, **kw),
-         "mixer": mixer(generator, cfg, dtype, **kw),
-         "ffn_norm": L.norm_init(cfg, cfg.d_model, **kw)}
-    p["ffn"] = (L.mlp_init(generator, cfg, dtype=dtype, **kw)
-                if blk.ffn == "dense" else
-                MOE.moe_init(generator, cfg, dtype, **kw))
+         "mixer": _MIXER_INIT[blk.mixer](generator, cfg, dtype, **kw)}
+    if blk.ffn != "none":
+        p["ffn_norm"] = L.norm_init(cfg, cfg.d_model, **kw)
+        p["ffn"] = (L.mlp_init(generator, cfg, dtype=dtype, **kw)
+                    if blk.ffn == "dense" else
+                    MOE.moe_init(generator, cfg, dtype, **kw))
     return p
 
 
@@ -137,22 +143,34 @@ def _apply_block(cfg, blk: BlockCfg, p: dict, x: torch.Tensor,
                  positions: torch.Tensor, cache: dict | None):
     """One block: ``(x, aux)``. With ``cache`` the attention's K/V (gqa)
     or latent ckv / k_rope (mla) are written into the head of the cache's
-    max_len buffers and its ``len`` set to S. ``aux`` holds a MoE FFN's
-    stats, empty for a dense one."""
+    max_len buffers and its ``len`` set to S; a mamba2 block writes its
+    state after the last position. ``aux`` holds a MoE FFN's stats, empty
+    for a dense one or none."""
     S = x.shape[1]
     h = L.apply_norm(cfg, p["mixer_norm"], x)
-    if blk.mixer == "gqa":
-        o, (k, v) = L.gqa_forward(p["mixer"], cfg, h, positions)
-        new = {"k": k, "v": v}
+    if blk.mixer == "mamba2":
+        if cache is None:
+            o = M2.mamba2_forward(p["mixer"], cfg, h)
+        else:
+            o, st = M2.mamba2_forward(p["mixer"], cfg, h, return_state=True)
+            for key, t in st.items():
+                cache["ssm"][key].copy_(t)
+        x = x + o
     else:
-        o, new = L.mla_forward(p["mixer"], cfg, h, positions)
-        new.pop("len")
-    x = x + o
-    if cache is not None:
-        a = cache["attn"]
-        for key, t in new.items():
-            a[key][:, :S] = t.to(a[key].dtype)
-        a["len"].fill_(S)
+        if blk.mixer == "gqa":
+            o, (k, v) = L.gqa_forward(p["mixer"], cfg, h, positions)
+            new = {"k": k, "v": v}
+        else:
+            o, new = L.mla_forward(p["mixer"], cfg, h, positions)
+            new.pop("len")
+        x = x + o
+        if cache is not None:
+            a = cache["attn"]
+            for key, t in new.items():
+                a[key][:, :S] = t.to(a[key].dtype)
+            a["len"].fill_(S)
+    if blk.ffn == "none":
+        return x, {}
     h = L.apply_norm(cfg, p["ffn_norm"], x)
     if blk.ffn == "dense":
         return x + L.mlp_forward(p["ffn"], cfg, h), {}
@@ -238,6 +256,9 @@ def lm_loss(cfg: ModelConfig, params: dict, acts: torch.Tensor, targets,
 
 def _block_cache_init(cfg, blk: BlockCfg, batch, max_len, dtype, *,
                       lead=(), device=None) -> dict:
+    if blk.mixer == "mamba2":       # fixed-size: no max_len
+        return {"ssm": M2.mamba2_cache_init(cfg, batch, dtype, lead=lead,
+                                            device=device)}
     init = L.gqa_cache_init if blk.mixer == "gqa" else L.mla_cache_init
     return {"attn": init(cfg, batch, max_len, dtype, lead=lead,
                          device=device)}
@@ -272,9 +293,14 @@ def decode_step(cfg: ModelConfig, params: dict, acts: torch.Tensor,
     for blk, p, c in (b for _, blocks in _layers(cfg, params, caches)
                       for b in blocks):
         h = L.apply_norm(cfg, p["mixer_norm"], x)
-        decode = L.gqa_decode if blk.mixer == "gqa" else L.mla_decode
-        o, _ = decode(p["mixer"], cfg, h, c["attn"])
+        if blk.mixer == "mamba2":
+            o, _ = M2.mamba2_decode(p["mixer"], cfg, h, c["ssm"])
+        else:
+            decode = L.gqa_decode if blk.mixer == "gqa" else L.mla_decode
+            o, _ = decode(p["mixer"], cfg, h, c["attn"])
         x = x + o
+        if blk.ffn == "none":
+            continue
         h = L.apply_norm(cfg, p["ffn_norm"], x)
         if blk.ffn == "dense":
             x = x + L.mlp_forward(p["ffn"], cfg, h)

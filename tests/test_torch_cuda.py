@@ -826,6 +826,7 @@ FLASH_CASES = [  # (B, Hq, Hkv, Sq, Sk, Dh, causal, window, q_offset, x)
     (1, 2, 1, 129, 129, 128, False, 0, 0, 1),     # ... and Dh 128's 64
     (1, 32, 8, 300, 300, 64, True, 0, 0, 1),      # granite's 32 / 8 heads
     (1, 16, 2, 300, 300, 64, True, 0, 0, 1),      # a GQA group of 8
+    (1, 32, 8, 300, 300, 128, True, 0, 0, 1),     # Jamba's 32 / 8 of 128
 ]
 
 
@@ -902,6 +903,51 @@ def test_cuda_flash_attention_value_head_matches_plain_version(
     atol = 2e-5 if dtype == torch.float32 else 4e-2
     assert torch.allclose(o.float(), po.float(), atol=atol, rtol=0)
     assert torch.allclose(lse, plse, atol=1e-4, rtol=1e-6)
+
+
+# the differentiable attention (the kernel's forward, the recompute
+# backward) on the card: (B, Hkv, G, S, Dh, Dv, window)
+FLASH_GRAD_CASES = {
+    "mla_192_128": (1, 16, 1, 300, 192, 128, 0),     # DeepSeek-V2's heads
+    "mla_192_128_window": (1, 4, 1, 257, 192, 128, 64),
+    "jamba_128_g4": (1, 8, 4, 300, 128, 128, 0),     # Jamba's GQA layer
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FLASH_GRAD_CASES))
+def test_cuda_flash_attention_grads_match_plain_version(cuda_device, case):
+    """``flash.flash_attention``'s output and dq, dk, dv against autograd
+    through the plain attention (``layers._attn_naive``) on the card: the
+    output within 2e-5, each gradient within 1e-3 of its largest |grad|
+    (the kernel's 3xTF32 forward moves o and the logsumexp the backward
+    reads by its own rounding)."""
+    from repro_torch.models import flash, layers
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, Hkv, G, S, Dh, Dv, window = FLASH_GRAD_CASES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(S + Dh + Dv)
+    q = torch.randn((B, S, Hkv, G, Dh), generator=g, device=cuda_device)
+    k = torch.randn((B, S, Hkv, Dh), generator=g, device=cuda_device)
+    v = torch.randn((B, S, Hkv, Dv), generator=g, device=cuda_device)
+    do = torch.randn((B, S, Hkv, G, Dv), generator=g, device=cuda_device)
+    kw = dict(scale=Dh ** -0.5, causal=True, window=window)
+    outs, grads = [], []
+    for fn in (flash.flash_attention,
+               lambda *a, **w: layers._attn_naive(*a, q_offset=0, **w)):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = fn(*leaves, **kw)
+        outs.append(o.detach())
+        grads.append(torch.autograd.grad(o, leaves, do))
+    ops.reset_launch_counts()
+    flash.flash_attention(*(t.clone().requires_grad_() for t in (q, k, v)),
+                          **kw)
+    assert ops.launch_counts()["flash_attention_fwd"] == 1
+    assert outs[0].shape == (B, S, Hkv, G, Dv)
+    assert torch.allclose(outs[0], outs[1], atol=2e-5, rtol=0)
+    for name, a, b in zip("qkv", *grads):
+        assert a.shape == b.shape
+        share = float((a - b).abs().max() / b.abs().max())
+        assert share <= 1e-3, (name, share)
 
 
 @pytest.mark.cuda

@@ -32,7 +32,6 @@ from repro_torch import convert
 from repro_torch.configs import ARCH_IDS, BlockCfg, get_config
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import shards
-from repro_torch.models import flash
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from test_torch_moe import record_routing, routed_alike
@@ -56,14 +55,14 @@ def _close(got, want, what=""):
 
 
 @pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
-@pytest.mark.parametrize("name", ARCH_IDS + ["granite-3-2b", "mamba2_1_3b"])
+@pytest.mark.parametrize("name", [a for a in ARCH_IDS if a != "mamba2_1_3b"]
+                         + ["granite-3-2b", "mamba2_1_3b"])
 def test_configs_copy_the_jax_package(name, reduced):
     """Every ported architecture is the JAX package's configuration, field
     for field (the reduced variant too); one that is not ported raises."""
-    if name == "mamba2_1_3b":
+    for unported in ("whisper_medium", "llama_3_2_vision_90b"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
-            get_config(name, reduced=reduced)
-        return
+            get_config(unported, reduced=reduced)
     t, j = get_config(name, reduced=reduced), \
         jget_config(name, reduced=reduced)
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
@@ -169,18 +168,16 @@ def test_unported_paths_raise():
         L.grouped_attention(q, k, k, scale=1.0, softcap=30.0)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         L.gqa_cache_init(CFG.replace(sliding_window=8), 1, 4)
-    # what stays unported of the model: the mamba2 and cross-attention
-    # mixers, and the attention backward at a value head other than the
-    # query's (DeepSeek-V2 training)
-    for blk in (BlockCfg("mamba2", "none"), BlockCfg("cross_attn", "dense"),
-                BlockCfg("gqa", "dense", cross=True)):
+    # what stays unported of the model: the cross-attention mixers and
+    # the encoder-decoder models
+    for blk in (BlockCfg("cross_attn", "dense"),
+                BlockCfg("gqa", "dense", cross=True),
+                BlockCfg("mamba2", "none", cross=True)):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             T.init_dense(CFG.replace(pattern=(blk,)), torch.Generator())
-    qg = torch.randn((1, 4, 1, 1, 12), requires_grad=True)
-    o = flash.flash_attention(qg, torch.randn((1, 4, 1, 12)),
-                              torch.randn((1, 4, 1, 8)), scale=0.3)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        o.sum().backward()
+        T.lm_loss(CFG, {}, torch.zeros((1, 4, CFG.d_model)),
+                  np.zeros((1, 4)), np.ones((1, 4)), memory=torch.zeros(1))
 
 
 # ---------------------------------------------------------------------------

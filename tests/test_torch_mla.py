@@ -2,7 +2,8 @@
 path (mla + MoE blocks in repro_torch/models/transformer.py) against the
 JAX package on the CPU: ``mla_forward``, the weight-absorbed
 ``mla_decode`` and the latent caches, with and without q-lora; the
-attention at a value head narrower than the query/key head; prefill plus
+attention at a value head narrower than the query/key head, forward and
+backward (against ``jax.vjp``); prefill plus
 teacher-forced decode of ``tests/test_models.py``'s MLA config; the value
 of ``lm_loss`` with the MoE aux term; the converter on MLA / MoE trees.
 
@@ -71,13 +72,52 @@ def test_attention_with_a_narrower_value_head_matches_jax(Sq, Sk, causal):
     _close(got, want)
 
 
-def test_attention_backward_at_a_narrower_value_head_raises():
-    q = torch.randn(1, 5, 2, 1, 24, requires_grad=True)
-    k = torch.randn(1, 5, 2, 24)
-    v = torch.randn(1, 5, 2, 16)
-    o = flash.flash_attention(q, k, v, scale=0.2)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        o.sum().backward()
+# Sq, Sk, G, causal, (q_block, k_block) of the JAX flash attention: equal
+# blocks and causal take its triangle-ordered backward (``_bwd_tri``)
+BWD_CASES = {"causal_ragged": (70, 70, 2, True, (32, 16)),
+             "causal_tri": (64, 64, 1, True, (16, 16)),
+             "non_causal": (9, 21, 2, False, (8, 8))}
+
+
+@pytest.mark.parametrize("dims", [(24, 16), (48, 32)],
+                         ids=["24_16", "48_32"])
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_attention_backward_at_a_narrower_value_head_raises(case, dims,
+                                                            monkeypatch):
+    """The backward at a value head narrower than the query/key head
+    (MLA's 192 / 128 at narrow widths) raises nothing and matches
+    ``jax.vjp`` of the JAX package's ``_attn_naive`` and of its flash
+    attention (``_bwd`` or ``_bwd_tri``): dq and dk (..., Dh), dv (...,
+    Dv), each within 2e-6 of the largest |grad| on the JAX side (the
+    class of ``test_torch_lm_train.py``'s attention backward)."""
+    from repro.models import flash as jflash
+    Sq, Sk, G, causal, (qb, kb) = BWD_CASES[case]
+    Dh, Dv = dims
+    rng = np.random.default_rng(Sq + Dh)
+    q = rng.standard_normal((2, Sq, 2, G, Dh)).astype(np.float32)
+    k = rng.standard_normal((2, Sk, 2, Dh)).astype(np.float32)
+    v = rng.standard_normal((2, Sk, 2, Dv)).astype(np.float32)
+    do = rng.standard_normal((2, Sq, 2, G, Dv)).astype(np.float32)
+    scale = 1.0 / np.sqrt(Dh)
+    _, vjp_f = jax.vjp(lambda a, b, c: jflash.flash_attention(
+        a, b, c, scale=scale, causal=causal, qblk=qb, kblk=kb), q, k, v)
+    _, vjp_n = jax.vjp(lambda a, b, c: JL._attn_naive(
+        a, b, c, scale=scale, causal=causal, window=0, q_offset=0), q, k, v)
+    monkeypatch.setattr(flash, "Q_BLOCK", 16)
+    monkeypatch.setattr(flash, "K_BLOCK", 8)
+    tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    o = flash.flash_attention(tq, tk, tv, scale=scale, causal=causal)
+    assert o.shape == (2, Sq, 2, G, Dv)
+    o.backward(torch.from_numpy(do))
+    assert (tq.grad.shape, tk.grad.shape, tv.grad.shape) == \
+        (tq.shape, tk.shape, tv.shape)
+    for want in (vjp_f(do), vjp_n(do)):
+        for name, got, w in zip("qkv", (tq.grad, tk.grad, tv.grad), want):
+            w = np.asarray(w)
+            assert got.shape == w.shape
+            np.testing.assert_allclose(
+                got.numpy(), w, rtol=0, atol=2e-6 * float(np.abs(w).max()),
+                err_msg=f"{case} {dims}: d{name}")
 
 
 # ---------------------------------------------------------------------------

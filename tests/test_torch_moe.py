@@ -272,3 +272,100 @@ def test_moe_decode_capacity_one_drops_in_token_order():
     # expert 1 before token 0's later choices reach them
     assert got[0, 1] == 64 and got[0, 5] == 64 and got[1, 5] == 64
     assert got[1, 0] == 5 and got[3, 0] == 1 and got[2, 5] == 15
+
+
+# ---------------------------------------------------------------------------
+# gradients: moe_forward + moe_aux_total against jax.grad
+# ---------------------------------------------------------------------------
+
+def _moe_grads_both(cfg_j, cfg, cf, seed=4, B=4, S=16, aux=True):
+    """Gradients of ``sum(out * w) (+ moe_aux_total(aux))`` w.r.t. the
+    input and every parameter through both packages, with the JAX routing
+    and both slot tables (the sharp router of ``_moe_both``)."""
+    pj = JMOE.moe_init(jax.random.PRNGKey(seed), cfg_j)
+    pj["router"] = pj["router"] * 60.0
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    r0 = np.asarray(pj["router"][:, 0])
+    x = (x + r0 / np.linalg.norm(r0)).astype(np.float32)
+    w = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+
+    def jloss(p, xx):
+        o, a = JMOE.moe_forward(p, cfg_j, xx, capacity_factor=cf)
+        out = jnp.sum(o * w)
+        return out + JMOE.moe_aux_total(cfg_j, a) if aux else out
+
+    gpj, gxj = jax.grad(jloss, argnums=(0, 1))(pj, jnp.asarray(x))
+    pt = jax.tree.map(lambda a: a.requires_grad_(), _torch_tree(pj))
+    xt = torch.tensor(x, requires_grad=True)
+    o, a = MOE.moe_forward(pt, cfg, xt, capacity_factor=cf)
+    loss = torch.sum(o * torch.from_numpy(w))
+    if aux:
+        loss = loss + MOE.moe_aux_total(cfg, a)
+    loss.backward()
+    flat = x.reshape(B * S, -1)
+    probs, _, ij = JMOE.router_topk(jnp.asarray(flat) @ pj["router"],
+                                    cfg.moe_top_k)
+    _, _, it = MOE.router_topk(_t(flat) @ _t(pj["router"]), cfg.moe_top_k)
+    C = MOE.capacity(cfg, B * S, cf)
+    sj = np.asarray(JMOE._dispatch_positions(ij, cfg.n_experts, C))
+    st = MOE._dispatch_positions(it, cfg.n_experts, C).numpy()
+    return (gpj, np.asarray(gxj)), (pt, xt.grad.numpy()), \
+        (np.asarray(probs), np.asarray(ij), it.numpy(), sj, st)
+
+
+def _grad_close(got, want, what):
+    """Within 1e-5 of the largest |grad| of the leaf (rtol 1e-4 on top)."""
+    want = np.asarray(want)
+    np.testing.assert_allclose(
+        got, want, rtol=RTOL, atol=ATOL * max(1.0, float(np.abs(want).max())),
+        err_msg=what)
+
+
+NO_SHARED = dataclasses.replace(CFG, n_shared_experts=0)
+NO_SHARED_J = dataclasses.replace(CFG_J, n_shared_experts=0)
+
+
+@pytest.mark.parametrize("shared", [1, 0], ids=["shared", "no_shared"])
+@pytest.mark.parametrize("cf", [8.0, 1.25])
+def test_moe_grads_and_aux_grads_match_jax(cf, shared):
+    """``torch.autograd`` through the router's top-k, the capacity scatter
+    into the (E, C, D) buffer and its drop row, the three batched expert
+    products, the weighted gather and the aux terms (balance and z)
+    against ``jax.grad``, with drops (factor 1.25) and without (8); with
+    one shared expert and with none (Jamba), which takes no shared
+    branch. Held where the routing and the slots agree for every token
+    (a token within 1e-5 of a top-k boundary may route otherwise)."""
+    cfg_j, cfg = (CFG_J, CFG) if shared else (NO_SHARED_J, NO_SHARED)
+    (gpj, gxj), (pt, gxt), (probs, ij, it, sj, st) = _moe_grads_both(
+        cfg_j, cfg, cf)
+    assert ("shared" in pt) == bool(shared)
+    same = (ij == it).all(-1) & (sj == st).all(-1)
+    assert same[topk_gaps(probs, CFG.moe_top_k) > GAP].all()
+    assert same.all(), "a token routed otherwise: pick no such seed"
+    assert ((sj == CFG.n_experts * MOE.capacity(CFG, 64, cf)).any()) == \
+        (cf == 1.25)
+    _grad_close(gxt, gxj, "dx")
+    for (path, g), tg in zip(jax.tree_util.tree_flatten_with_path(gpj)[0],
+                             jax.tree.leaves(jax.tree.map(
+                                 lambda t: t.grad.numpy(), pt))):
+        _grad_close(tg, g, jax.tree_util.keystr(path))
+
+
+def test_moe_dropped_token_gets_exactly_zero_gradient():
+    """A token whose every (token, choice) pair is dropped adds nothing to
+    the output, so without shared experts and aux terms its input
+    gradient is exactly 0 in both packages: the drop row's duplicate
+    writes carry no gradient back (JAX: the ``.at[].set`` transpose). A
+    factor of 0.25 (8 slots an expert for 128 pairs) drops both choices
+    of the later tokens."""
+    (_, gxj), (_, gxt), (_, ij, it, sj, st) = _moe_grads_both(
+        NO_SHARED_J, NO_SHARED, 0.25, aux=False)
+    np.testing.assert_array_equal(sj, st)
+    dropped = (sj == NO_SHARED.n_experts * MOE.capacity(NO_SHARED, 64,
+                                                        0.25)).all(-1)
+    assert dropped.any()
+    gj, gt = gxj.reshape(64, -1), gxt.reshape(64, -1)
+    assert (gj[dropped] == 0).all() and (gt[dropped] == 0).all()
+    assert (np.abs(gt[~dropped]).max(-1) > 0).all()
+    _grad_close(gxt, gxj, "dx")
