@@ -230,7 +230,45 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    miss rtol 1e-4 / atol 1e-5, within twice the distance that the card's
    fp32 GEMMs alone (the plain attention on the card) leave from the CPU
    at Jamba's widths.
-18. The sharded embedding-PS router (``sharded_phase``, k=4), kwai-dlrm
+18. Whisper serving (``encdec_serve``): whisper-medium at full width and
+   depth (24 encoder and 24 decoder layers, d_model 1,024, 16 heads of
+   64, GELU, LayerNorm, vocab 51,865, 65,536 learned decoder positions;
+   828.1 M parameters, 3.31 GB fp32) through ``launch.serve.serve``, B=4,
+   a 2,048-token prompt over 1,500 frames of 1,024 (random normal x 0.1
+   from the prompts' stream, as the JAX serve draws them), 32 greedy
+   tokens: 72 ``flash_attention_fwd`` a serve (24 encoder layers over the
+   1,500 frames, non-causal; 24 causal self-attentions; 24
+   cross-attentions, 2,048 x 1,500) and none in the decode (its
+   cross-attention is plain torch over the cached memory K/V), tokens
+   equal on a second (profiled) run, the prefill's logits through the
+   kernel and through the plain attention within 1e-3 of the largest,
+   the first token equal; prefill ms, ms a token, busy share, peak GiB.
+   Then the cut to 2 encoder + 2 decoder layers on the card against the
+   CPU (B=1, prompt 256, 4 tokens) in the plain class.
+19. Llama-3.2-Vision serving (``vlm_serve``): llama-3.2-vision-90b at
+   full width cut to 1 of its 20 pattern repeats (4 gqa layers of 64 / 8
+   heads of 128 and one tanh-gated ``cross_attn`` layer; d_ff 28,672;
+   5.33 G parameters, 21.3 GB, and a 4.2 GB vocab table), every
+   ``xgate`` set to 0.5 (at its init value 0 the cross-attention would
+   add nothing), 1,600 patches of 8,192, served as whisper: 5
+   ``flash_attention_fwd`` a serve (4 causal at a group of 8, one 2,048
+   x 1,600 cross); then the gqa + cross_attn cut on the card against
+   the CPU, split.
+20. Whisper training (``encdec_train``): ``PersiaTrainer(lm_adapter)`` at
+   full width and depth, fp32, remat in the encoder and the decoder,
+   B=2, S=2,048, 1,500 frames a row, hybrid(1), Adam: 2 warm-up and 3
+   timed steps, each 144 ``flash_attention_fwd`` (72 forward, 72
+   recompute) and one ``fused_backward`` at D=1,024, one profiled step;
+   the attention backward at the cross-attention's shape (2,048 over
+   1,500) and the encoder's (1,500, non-causal) against autograd
+   through the plain attention, within 1e-3 of the largest |grad|; the
+   put at D=1,024 (51,865 rows) bit for bit and timed; the 2 + 2 layer
+   cut trained 2 steps on the card against the CPU (the classes of phase
+   14). Then granite-3-2b cut to 2 layers with a 64-token sliding window
+   (the kernel's windowed prefill and the ring decode's mask) and with
+   logit soft-capping at 50 (the capped attention is plain torch,
+   blockwise), each on the card against the CPU, split.
+21. The sharded embedding-PS router (``sharded_phase``, k=4), kwai-dlrm
    at full width, batch 512, hybrid(3): (a) dense tables at 65,536 rows
    (a power of two: no uniform-shuffle collision), 4 shards against one
    from one seed over 2 + 10 steps, the losses, every logical row and
@@ -250,7 +288,7 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    (d) that 4-shard state through ``PipelinedTrainer``: max_inflight 1
    bit for bit with serial, max_inflight 4 in order, within its put
    window, every pin released.
-19. The multi-process embedding PS (``remote_phase``), kwai-dlrm at full
+22. The multi-process embedding PS (``remote_phase``), kwai-dlrm at full
    width, batch 512, hybrid(3), dense and host_lru (7,812 slots): (a) PS
    servers as threads on the card, the port's remote trainer against its
    in-process trainer from one seed, bit for bit (losses, every logical
@@ -275,7 +313,7 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    (``spawn_cluster``, ``connect_remote_backends``, ``_online_loop``; no
    spool): trainer steps/s and serving p50/p99/QPS under training. The
    lossy check runs on the timed runs' batches, over their loss spike.
-20. The launcher, ``repro_torch.launch.train.main`` on the card: 8
+23. The launcher, ``repro_torch.launch.train.main`` on the card: 8
    pipelined steps of the CTR task, then ``--task lm --steps 8 --batch 8
    --seq-len 128 --eval-every 4`` (the launcher's lm-100m), finite losses.
 
@@ -290,8 +328,13 @@ and qwen3-14b's 40 / 8 of 128; q and k x30 with the scale / 900; bf16
 inputs, o within 4e-2, and bf16 at Dh 12, whose K/V go by cp.async;
 DeepSeek-V2-Lite's MLA prefill, B=4, 16 heads, S=2,048, a query/key head
 of 192 and a value head of 128, in fp32 and bf16, and a ragged Dh 160 /
-Dv 72 with Sk 777; Jamba's GQA prefill, B=4, 32 / 8 heads of 128; the
-MLA and Jamba prefills are timed beside their bounds, their plain
+Dv 72 with Sk 777; Jamba's GQA prefill, B=4, 32 / 8 heads of 128;
+whisper-medium's encoder (16 / 16 heads of 64, 1,500 frames,
+non-causal), cross-attention (2,048 queries over 1,500 frames, the last
+key tile ragged; also in bf16) and decoder self-attention, and
+llama-3.2-vision's self-attention (64 / 8 heads of 128, a group of 8)
+and cross-attention (2,048 over 1,600), all at B=4; the MLA, Jamba,
+whisper and vision shapes are timed beside their bounds, their plain
 versions and SDPA, whose backend is named),
 each timed beside its bound, its plain version and its library call
 (``index_add_``, ``scaled_dot_product_attention``; the port calls
@@ -472,6 +515,25 @@ SSM_CPU = {"repeats": 2, "batch": 1, "prompt": 256, "gen": 4}
 HYBRID_ARCH = "jamba_v0_1_52b"
 HYBRID_REPEATS = 1
 HYBRID_CPU = {"blocks": (4, 5), "batch": 1, "prompt": 256, "gen": 4}
+# whisper-medium (the encoder-decoder: 24 encoder and 24 decoder layers,
+# 1,500 frames of memory) served and trained at full width and depth;
+# llama-3.2-vision-90b at full width cut to 1 of its 20 pattern repeats
+# (4 gqa + 1 gated cross_attn layer over 1,600 patches of 8,192: 21.3 GB
+# of dense weights and a 4.2 GB vocab table; all 100 layers ~350 GB),
+# its gates opened to tanh(0.5) (at 0 the cross-attention adds nothing).
+# Training: B=2, S=2,048, warm-up, timed, profiled steps. The
+# card-against-CPU cuts: whisper at 2 + 2 layers (served, and trained 2
+# steps), the vision model's gqa + cross_attn blocks, granite at 2 layers
+# with a 64-token sliding window (under the 256-token prompt: the window
+# bites in the prefill and the ring decode) and with soft-capping at 50
+ENCDEC_ARCH, VLM_ARCH = "whisper_medium", "llama_3_2_vision_90b"
+VLM_REPEATS, XGATE = 1, 0.5
+ENCDEC_TRAIN = {"batch": 2, "seq": 2048, "warmup": 2, "timed": 3}
+ENCDEC_CPU = {"layers": 2, "batch": 1, "prompt": 256, "gen": 4}
+ENCDEC_TRAIN_CPU = {"layers": 2, "batch": 1, "seq": 256, "steps": 2}
+VLM_CPU = {"batch": 1, "prompt": 256, "gen": 4}
+GRANITE_CUTS = {"sliding_window": {"sliding_window": 64},
+                "softcap": {"attn_logit_softcap": 50.0}}
 
 KERNELS = {
     "embedding_bag": {"source": "src/repro_torch/kernels/csrc/bag.cu",
@@ -496,16 +558,21 @@ KERNELS = {
 }
 CODEC = ("blockscale_compress", "blockscale_decompress")
 # the kernels line's fields beyond the contract's: the grouped kernels'
-# per-stage times, fused_backward's at the LM put (D = 2,048), the
-# attention's at DeepSeek-V2-Lite's MLA prefill (query/key 192, value 128)
+# per-stage times, fused_backward's at the LM puts (D = 2,048 and 1,024)
 STAGE_KEYS = ("stage_tables", "stage_ms", "stage_bound_ms", "stage_library_ms",
               "lm_put_ms", "lm_put_bound_ms", "lm_put_bound_by",
               "lm_put_plain_ms", "train_stage_ms", "train_stage_bound_ms",
               "put_stage_ms", "put_stage_bound_ms", "train_ms",
-              "train_bound_ms", "mla_ms", "mla_bound_ms", "mla_bound_by",
-              "mla_plain_ms", "mla_library_ms", "mla_library_backend",
-              "jamba_ms", "jamba_bound_ms", "jamba_bound_by",
-              "jamba_plain_ms", "jamba_library_ms", "jamba_library_backend")
+              "train_bound_ms", "lm_put_1024_ms", "lm_put_1024_bound_ms",
+              "lm_put_1024_bound_by", "lm_put_1024_plain_ms")
+# the attention's shapes timed beside its bound, plain version and SDPA
+# (the kernels line takes each one's keys with its name in front)
+FLASH_SHAPES = ("mla", "jamba", "whisper_encoder", "whisper_cross",
+                "whisper_self", "vision_self", "vision_cross",
+                "whisper_cross_bf16")
+SHAPE_KEYS = tuple(f"{shape}_{k}" for shape in FLASH_SHAPES
+                   for k in ("ms", "bound_ms", "bound_by", "plain_ms",
+                             "library_ms", "library_backend"))
 
 
 BAG_KERNELS = ("embedding_bag", "unique_bag")
@@ -1639,6 +1706,16 @@ def flash_phase(dev):
         "jamba_prefill": (LM_B, jam.n_heads, jam.n_kv_heads, LM_PROMPT,
                           LM_PROMPT, jam.head_dim, True, 0, torch.float32),
     }
+    # whisper-medium and llama-3.2-vision-90b at B=4: the encoder's
+    # non-causal 1,500 frames, the cross-attention of the 2,048-token
+    # prefill over 1,500 frames / 1,600 patches (non-causal, Sq != Sk, the
+    # last key tile ragged), the decoder's and the vision model's causal
+    # self-attention (a group of 8 at a 128-wide head), and the whisper
+    # cross shape in bf16
+    shapes = encdec_shapes()
+    cases.update({name: (LM_B, hq, hkv, sq, sk, dh, causal, 0, dtype)
+                  for name, (hq, hkv, sq, sk, dh, causal, dtype)
+                  in shapes.items()})
     scale = 1.0 / math.sqrt(Dh)
     errs, err32 = {}, 0.0
     for name, (B, hq, hkv, Sq, Sk, dh, causal, window, dtype, *dv) in \
@@ -1702,12 +1779,38 @@ def flash_phase(dev):
     del q, k, v
     torch.cuda.empty_cache()
     # DeepSeek-V2-Lite's MLA prefill and Jamba's GQA prefill (B=4, S=2,048)
-    timing["mla"] = shape_timing(qkv, LM_B, LM_PROMPT, mla["H"], mla["H"],
-                                 mla["Dqk"], mla["Dv"])
-    timing["jamba"] = shape_timing(qkv, LM_B, LM_PROMPT, jam.n_heads,
-                                   jam.n_kv_heads, jam.head_dim,
-                                   jam.head_dim)
+    timing["mla"] = shape_timing(qkv, LM_B, mla["H"], mla["H"], LM_PROMPT,
+                                 LM_PROMPT, mla["Dqk"], True, mla["Dv"])
+    timing["jamba"] = shape_timing(qkv, LM_B, jam.n_heads, jam.n_kv_heads,
+                                   LM_PROMPT, LM_PROMPT, jam.head_dim, True)
+    for name, (hq, hkv, sq, sk, dh, causal, dtype) in shapes.items():
+        timing[name] = shape_timing(qkv, LM_B, hq, hkv, sq, sk, dh, causal,
+                                    dtype=dtype)
     return timing
+
+
+def encdec_shapes() -> dict:
+    """The attention's shapes in whisper-medium and llama-3.2-vision-90b
+    (B aside): ``name: (Hq, Hkv, Sq, Sk, Dh, causal, dtype)``."""
+    w, vl = get_config(ENCDEC_ARCH), get_config(VLM_ARCH)
+    e = w.encoder
+    wh = (w.n_heads, w.n_kv_heads)
+    return {
+        "whisper_encoder": (e.n_heads, e.n_kv_heads, e.n_memory_tokens,
+                            e.n_memory_tokens, e.head_dim, False,
+                            torch.float32),
+        "whisper_cross": (*wh, LM_PROMPT, e.n_memory_tokens, w.head_dim,
+                          False, torch.float32),
+        "whisper_self": (*wh, LM_PROMPT, LM_PROMPT, w.head_dim, True,
+                         torch.float32),
+        "vision_self": (vl.n_heads, vl.n_kv_heads, LM_PROMPT, LM_PROMPT,
+                        vl.head_dim, True, torch.float32),
+        "vision_cross": (vl.n_heads, vl.n_kv_heads, LM_PROMPT,
+                         vl.n_memory_tokens, vl.head_dim, False,
+                         torch.float32),
+        "whisper_cross_bf16": (*wh, LM_PROMPT, e.n_memory_tokens,
+                               w.head_dim, False, torch.bfloat16),
+    }
 
 
 def mla_shape() -> dict:
@@ -1737,36 +1840,47 @@ def sdpa_backend(q, k, v, **kw) -> dict:
     return {"choice": choice, "kernels": kernels[:6]}
 
 
-def shape_timing(qkv, B, S, Hq, Hkv, dqk, dv) -> dict:
-    """flash_attention_fwd at a prefill shape (fp32, causal): device us
-    beside its bound, the plain version and SDPA (the backend it picks
-    named)."""
-    q, k, v = qkv(B, Hq, Hkv, S, S, dqk, torch.float32, dv)
+def shape_timing(qkv, B, Hq, Hkv, Sq, Sk, dqk, causal, dv=None,
+                 dtype=torch.float32) -> dict:
+    """flash_attention_fwd at one shape (Sq queries over Sk keys, causal
+    or not, fp32 or bf16 inputs): device ms beside its bound, the plain
+    version and SDPA (the backend it picks named). The bound counts the
+    pairs the mask leaves: 2 (dqk + dv) operations a pair and head, in
+    three TF32 passes for fp32 inputs (the kernel's 3xTF32; the one-pass
+    SIMT bound beside it) or one bf16 pass; bytes: q, k, v and o once, the
+    fp32 logsumexp."""
+    dv = dv or dqk
+    q, k, v = qkv(B, Hq, Hkv, Sq, Sk, dqk, dtype, dv)
     scale = 1.0 / math.sqrt(dqk)
-    sdpa_kw = dict(is_causal=True, scale=scale)
+    sdpa_kw = dict(is_causal=causal, scale=scale)
     if Hq != Hkv:
         sdpa_kw["enable_gqa"] = True
     rec = {
-        "ms": device_ms(lambda: ops.flash_attention_fwd(q, k, v, scale),
-                        10),
+        "ms": device_ms(lambda: ops.flash_attention_fwd(q, k, v, scale,
+                                                        causal), 10),
         "plain_ms": device_ms(lambda: ref.flash_attention_fwd_ref(
-            q, k, v, scale), 3),
+            q, k, v, scale, causal), 3),
         "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, **sdpa_kw), 10),
         "library_backend": sdpa_backend(q, k, v, **sdpa_kw),
     }
-    pairs = attended_pairs(S, S, True, 0)
+    pairs = attended_pairs(Sq, Sk, causal, 0)
     no = 2.0 * B * Hq * (dqk + dv) * pairs
-    nb = 4.0 * (B * Hq * S * (dqk + dv) + B * Hkv * S * (dqk + dv)
-                + B * Hq * S)
-    b_bytes, b_ops = nb / HBM_BYTES_PER_S, 3 * no / TF32_OPS_PER_S
+    size = q.element_size()
+    nb = (size * (B * Hq * Sq * (dqk + dv) + B * Hkv * Sk * (dqk + dv))
+          + 4.0 * B * Hq * Sq)
+    fp32 = dtype == torch.float32
+    b_bytes = nb / HBM_BYTES_PER_S
+    b_ops = 3 * no / TF32_OPS_PER_S if fp32 else no / BF16_OPS_PER_S
     rec.update(bound_ms=max(b_bytes, b_ops) * 1e3,
                bound_by="bytes" if b_bytes >= b_ops else "operations",
-               bound_simt_ms=max(b_bytes, no / FP32_OPS_PER_S) * 1e3,
                bound_ops=no, bound_bytes=nb,
                tflops=no / (rec["ms"] * 1e-3) / 1e12,
-               shape={"B": B, "Hq": Hq, "Hkv": Hkv, "S": S, "Dqk": dqk,
-                      "Dv": dv, "causal": True})
+               shape={"B": B, "Hq": Hq, "Hkv": Hkv, "Sq": Sq, "Sk": Sk,
+                      "Dqk": dqk, "Dv": dv, "causal": causal,
+                      "dtype": str(dtype).replace("torch.", "")})
+    if fp32:
+        rec["bound_simt_ms"] = max(b_bytes, no / FP32_OPS_PER_S) * 1e3
     del q, k, v
     torch.cuda.empty_cache()
     return rec
@@ -2383,16 +2497,28 @@ def lm_state(cfg, dev, seed, backend="dense"):
     return bk, bk.init(gen), dense
 
 
+def open_gates(dense, value=XGATE):
+    """Every ``cross_attn`` block's ``xgate`` set to ``value`` in place:
+    at its init value 0, tanh(0) = 0 would hide the whole cross-attention
+    branch."""
+    blocks = [p for name, p in dense.items() if name.startswith("prologue")]
+    for p in blocks + list(dense["stack"].values()):
+        if "xgate" in p:
+            p["xgate"].fill_(value)
+    return dense
+
+
 def plain_attention(q, k, v, **kw):
     """The plain full-sequence attention in the place of the kernel."""
     return lm_layers._attn_naive(q, k, v, **kw)
 
 
-def lm_generate(cfg, bk, emb, dense, prompts, gen):
-    """Greedy generation through the serving functions, keeping every
-    step's logits: (prefill logits (B, vocab), [decode logits], tokens)."""
+def lm_generate(cfg, bk, emb, dense, prompts, gen, memory=None):
+    """Greedy generation through the serving functions (over ``memory``
+    for a model with cross-attention), keeping every step's logits:
+    (prefill logits (B, vocab), [decode logits], tokens)."""
     emb, logits, caches = lm_serve.prefill_step(
-        cfg, bk, emb, dense, prompts, prompts.shape[1] + gen)
+        cfg, bk, emb, dense, prompts, prompts.shape[1] + gen, memory)
     first = logits[:, 0, :cfg.vocab_size]
     tok = torch.argmax(first, dim=-1)[:, None].int()
     steps, toks = [], [tok]
@@ -2433,26 +2559,7 @@ def lm_serve_phase(dev):
 
     # the prefill's last-token logits through the kernel and through the
     # plain attention, on the card
-    prompts = torch.as_tensor(
-        lm_serve.make_prompts(cfg, LM_B, LM_PROMPT, SEED), device=dev)
-    _, lk, _ = lm_serve.prefill_step(cfg, bk, emb, dense, prompts,
-                                     LM_PROMPT + 1)
-    with mock.patch.object(lm_flash, "flash_attention", plain_attention):
-        _, lp, _ = lm_serve.prefill_step(cfg, bk, emb, dense, prompts,
-                                         LM_PROMPT + 1)
-    lk, lp = lk[:, 0, :cfg.vocab_size], lp[:, 0, :cfg.vocab_size]
-    torch.cuda.synchronize()
-    diff = float((lk - lp).abs().max())
-    top = float(lp.abs().max())
-    check(bool(torch.isfinite(lk).all()), "lm prefill logits not finite")
-    check(diff <= 1e-3 * top, f"lm prefill logits: kernel and plain "
-          f"attention differ by {diff} (largest logit {top})")
-    check(torch.equal(lk.argmax(-1), lp.argmax(-1)),
-          "lm prefill: the first token differs with the plain attention")
-    check(torch.equal(lk.argmax(-1).cpu(), torch.as_tensor(toks[:, 0]).long()),
-          "lm prefill: serve's first token differs from the prefill's")
-    del lk, lp
-    torch.cuda.empty_cache()
+    vs_plain = prefill_vs_plain(dev, cfg, bk, emb, dense, toks[:, 0], "lm")
 
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -2478,8 +2585,7 @@ def lm_serve_phase(dev):
         "prefill_ms": res["prefill_s"] * 1e3, "ms_per_token": ms_tok,
         "decode_tok_per_s": res["decode_tok_per_s"],
         "flash_launches_per_prefill": launches["flash_attention_fwd"],
-        "prefill_logit_diff_vs_plain": diff, "largest_logit": top,
-        "profiled_wall_s": wall, "profiled_device_s": device_s,
+        **vs_plain, "profiled_wall_s": wall, "profiled_device_s": device_s,
         "device_busy_share": device_s / wall, "peak_gib": peak,
         "first_tokens": toks[0, :8].tolist()}
 
@@ -2723,27 +2829,33 @@ def lm_moe_card_vs_cpu(dev):
 
 
 def lm_cut_card_vs_cpu(dev, cfg, p, seed, phase, draw_dev,
-                       split=False) -> dict:
+                       split=False, gates=None) -> dict:
     """A model cut to a few layers, ``p["batch"]`` prompts of
-    ``p["prompt"]`` tokens and ``p["gen"]`` greedy tokens, from one
-    starting state (drawn on ``draw_dev``, copied) on the card and on the
-    CPU, both runs' MoE routing recorded: the logits of every step up to
-    the first MoE call that routed a token otherwise are held within rtol
-    1e-4 / atol 1e-5 and the greedy tokens there equal; the flips are
-    reported, and the first call that differs must lie within 1e-5 of a
-    top-k boundary (else the two runs disagree for another reason than
-    rounding). A model without MoE blocks routes nothing: every step is
-    held. With ``split``, the card runs a third time with the plain
-    attention in the place of the kernel, routed as the kernel's run:
-    its distance from the CPU is what the card's fp32 GEMMs alone leave
-    (at Jamba's widths, 4,096 and 14,336, more than atol 1e-5 on logits
-    of RMS 1), and a step that misses rtol 1e-4 / atol 1e-5 is held
-    within twice that distance instead: the kernel may add no more than
-    the GEMMs' own rounding."""
+    ``p["prompt"]`` tokens (and the serve's memory, for a model with
+    cross-attention) and ``p["gen"]`` greedy tokens, from one starting
+    state (drawn on ``draw_dev``, copied; with ``gates`` every ``xgate``
+    set to it) on the card and on the CPU, both runs' MoE routing
+    recorded: the logits of every step up to the first MoE call that
+    routed a token otherwise are held within rtol 1e-4 / atol 1e-5 and
+    the greedy tokens there equal; the flips are reported, and the first
+    call that differs must lie within 1e-5 of a top-k boundary (else the
+    two runs disagree for another reason than rounding). A model without
+    MoE blocks routes nothing: every step is held. With ``split``, the
+    card runs a third time with the plain attention in the place of the
+    kernel, routed as the kernel's run: its distance from the CPU is what
+    the card's fp32 GEMMs alone leave (at Jamba's widths, 4,096 and
+    14,336, more than atol 1e-5 on logits of RMS 1), and a step that
+    misses rtol 1e-4 / atol 1e-5 is held within twice that distance
+    instead: the kernel may add no more than the GEMMs' own rounding. The
+    record says which steps held in the plain class."""
     cpu = torch.device("cpu")
     bk, emb, dense = lm_state(cfg, draw_dev, seed)
-    prompts = torch.as_tensor(lm_serve.make_prompts(
-        cfg, p["batch"], p["prompt"], seed))
+    if gates is not None:
+        open_gates(dense, gates)
+    prompts, memory = lm_serve.make_inputs(cfg, p["batch"], p["prompt"],
+                                           seed)
+    prompts = torch.as_tensor(prompts)
+    memory = None if memory is None else torch.as_tensor(memory)
     n_moe = sum(b.ffn == "moe" for b in cfg.prologue) + \
         sum(b.ffn == "moe" for b in cfg.pattern) * cfg.pattern_repeats
 
@@ -2751,8 +2863,9 @@ def lm_cut_card_vs_cpu(dev, cfg, p, seed, phase, draw_dev,
         e = {k: t.to(d) for k, t in emb.items()}
         w = tree_map(lambda t: t.to(d), dense)
         with record_routing() as calls:
-            first, steps, toks = lm_generate(cfg, bk, e, w, prompts.to(d),
-                                             p["gen"])
+            first, steps, toks = lm_generate(
+                cfg, bk, e, w, prompts.to(d), p["gen"],
+                None if memory is None else memory.to(d))
         out = ([first.cpu()] + [x.cpu() for x in steps], toks.cpu(),
                [(a.cpu(), b.cpu()) for a, b in calls])
         del e, w
@@ -2774,16 +2887,22 @@ def lm_cut_card_vs_cpu(dev, cfg, p, seed, phase, draw_dev,
     alike = len(lg) if flips["first_call"] is None \
         else flips["first_call"] // n_moe
     errs = [float((a - b).abs().max()) for a, b in zip(lg, lc)]
-    within = [torch.allclose(a, b, rtol=1e-4, atol=1e-5)
-              or (gemm is not None and i < len(gemm)
-                  and errs[i] <= 2 * gemm[i])
-              for i, (a, b) in enumerate(zip(lg[:alike], lc[:alike]))]
+    plain = [torch.allclose(a, b, rtol=1e-4, atol=1e-5)
+             for a, b in zip(lg[:alike], lc[:alike])]
+    within = [ok or (gemm is not None and i < len(gemm)
+                     and errs[i] <= 2 * gemm[i])
+              for i, ok in enumerate(plain)]
     ok = all(within)
     rec = {"phase": phase, **p, "layers": cfg.n_layers,
            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
            "logit_max_abs_by_step": errs, "steps_routed_alike": alike,
+           "plain_class_by_step": plain,
            "routing": flips, "tokens_card": tg.tolist(),
            "tokens_cpu": tc.tolist(), "seconds": time.perf_counter() - t0}
+    if memory is not None:
+        rec["memory"] = list(memory.shape)
+    if gates is not None:
+        rec["xgate"] = gates
     if split:
         rec["gemm_only_max_abs_by_step"] = gemm
     emit(rec)
@@ -3584,18 +3703,15 @@ def lm_trainer(cfg, dev):
                          OptConfig(kind="adam", lr=DENSE_LR), device=dev)
 
 
-def lm_train_phase(dev):
-    """``PersiaTrainer(lm_adapter)`` at the full width and depth of
-    granite-3-2b (fp32, remat on), B=2, S=2,048, hybrid(1), Adam, on
-    ``lm_batches``: 2 warm-up and 3 timed steps (each 80
-    ``flash_attention_fwd``, forward and recompute, and one
-    ``fused_backward`` at D=2,048), one profiled step; then checks (a)
-    to (c)."""
-    cfg = get_config(LM_ARCH)
-    check(cfg.remat, "granite's config must remat its layers")
-    p = LM_TRAIN
-    it = lm_batches(cfg.vocab_size, p["batch"], p["seq"], seed=SEED)
-    batches = [next(it) for _ in range(1 + p["warmup"] + p["timed"] + 1)]
+def lm_train_run(dev, cfg, p, batches, per_step: int, what: str):
+    """``PersiaTrainer(lm_adapter)`` of ``cfg`` on the card from ``SEED``
+    (``lm_trainer``): init on ``batches[0]``, ``p["warmup"]`` warm-up
+    steps, ``p["timed"]`` timed steps (the main path: the launch counts
+    set to 0 just before; each step must launch ``flash_attention_fwd``
+    ``per_step`` times and ``fused_backward`` once, and nothing else) and
+    one step under the profiler; every loss finite. Returns ``((launches,
+    served), the record's common fields, the last step's metrics)``."""
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     trainer = lm_trainer(cfg, dev)
@@ -3612,7 +3728,7 @@ def lm_train_phase(dev):
     # the main path: counts set to 0 just before
     ops.reset_launch_counts()
     step_ms = []
-    for b in batches[1 + p["warmup"]:-1]:
+    for b in batches[1 + p["warmup"]:1 + p["warmup"] + p["timed"]]:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = trainer.step(state, b)
@@ -3621,44 +3737,51 @@ def lm_train_phase(dev):
     launches, served = ops.launch_counts(), ops.table_counts()
     peak = torch.cuda.max_memory_allocated()
     want = dict.fromkeys(launches, 0)
-    want.update(flash_attention_fwd=2 * cfg.n_layers * p["timed"],
+    want.update(flash_attention_fwd=per_step * p["timed"],
                 fused_backward=p["timed"])
-    check(launches == want, f"lm train: launches {launches}, want {want} "
-          f"(per step {2 * cfg.n_layers} attention forwards, forward and "
-          "remat recompute, and one put)")
-    check(all(np.isfinite(losses)), f"lm train: losses {losses}")
-
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = trainer.step(state, batches[-1])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    check(launches == want, f"{what}: launches {launches}, want {want} "
+          f"(per step {per_step} attention forwards and one put)")
+    (state, m), wall, device_s, top, n_kernels = profile_run(
+        lambda: trainer.step(state, batches[-1]))
     losses.append(float(m["loss"]))
-    top = sorted(((e.self_device_time_total, e.key)
-                  for e in prof.key_averages()), reverse=True)
-    device_s = sum(us for us, _ in top) / 1e6
-    del state, trainer, prof
+    check(all(np.isfinite(losses)), f"{what}: losses {losses}")
+    del state, trainer
+    gc.collect()
     torch.cuda.empty_cache()
-
-    tokens = p["batch"] * p["seq"]
     med = float(np.median(step_ms))
-    rec = {"phase": "lm_train", "model": cfg.name, "layers": cfg.n_layers,
-           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads,
-                                             cfg.head_dim],
-           "d_ff": cfg.d_ff, "vocab": [cfg.vocab_size, cfg.padded_vocab],
-           "dtype": "fp32", "remat": cfg.remat,
+    rec = {"model": cfg.name, "d_model": cfg.d_model,
+           "vocab": [cfg.vocab_size, cfg.padded_vocab], "dtype": "fp32",
            "mode": f"hybrid({cfg.emb_staleness})", "batch": p["batch"],
-           "seq": p["seq"], "dense_params": n_dense, "init_s": init_s,
+           "seq": p["seq"], "dense_params": n_dense,
+           "dense_gb": n_dense * 4 / 1e9, "init_s": init_s,
            "step_ms": step_ms, "step_ms_median": med,
-           "tokens_per_s": tokens / (med / 1e3),
+           "tokens_per_s": p["batch"] * p["seq"] / (med / 1e3),
            "profiled_wall_s": wall, "profiled_device_s": device_s,
-           "device_busy_share": device_s / wall,
-           "top_device_ms": [(k, us / 1e3) for us, k in top[:8]],
-           "peak_gib": peak / 2**30, "losses": losses,
+           "device_busy_share": device_s / wall, "top_device_ms": top,
+           "device_kernels": n_kernels, "peak_gib": peak / 2**30,
+           "losses": losses,
            "launches_per_step": {k: v / p["timed"]
                                  for k, v in launches.items() if v}}
+    return (launches, served), rec, m
+
+
+def lm_train_phase(dev):
+    """``PersiaTrainer(lm_adapter)`` at the full width and depth of
+    granite-3-2b (fp32, remat on), B=2, S=2,048, hybrid(1), Adam, on
+    ``lm_batches``: 2 warm-up and 3 timed steps (each 80
+    ``flash_attention_fwd``, forward and recompute, and one
+    ``fused_backward`` at D=2,048), one profiled step (``lm_train_run``);
+    then checks (a) to (c)."""
+    cfg = get_config(LM_ARCH)
+    check(cfg.remat, "granite's config must remat its layers")
+    p = LM_TRAIN
+    it = lm_batches(cfg.vocab_size, p["batch"], p["seq"], seed=SEED)
+    batches = [next(it) for _ in range(1 + p["warmup"] + p["timed"] + 1)]
+    paths, common, _ = lm_train_run(dev, cfg, p, batches, 2 * cfg.n_layers,
+                                    "lm train")
+    rec = {"phase": "lm_train", **common, "layers": cfg.n_layers,
+           "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+           "d_ff": cfg.d_ff, "remat": cfg.remat}
     emit(rec)
     G, Dh = cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
     rec["attention_backward"] = attention_backward_check(
@@ -3667,24 +3790,25 @@ def lm_train_phase(dev):
         "lm_attention_backward")
     rec["lm_put"] = lm_put_check(dev, cfg)
     rec["card_vs_cpu"] = lm_train_card_vs_cpu(dev)
-    return (launches, served), rec
+    return paths, rec
 
 
 def attention_backward_check(dev, cases: dict, phase: str) -> dict:
     """(a) ``flash.FlashAttention``'s dq, dk, dv (the kernel's forward, the
     recompute backward) against autograd through the plain attention
     (``layers._attn_naive``), on the card, for each case ``(S, window,
-    Hkv, G, Dh, Dv)`` (causal): within 1e-3 of the largest |grad| (the
-    kernel's 3xTF32 forward moves o and the logsumexp the backward reads
-    by its own rounding)."""
+    Hkv, G, Dh, Dv[, causal, Sk])`` (causal over S keys unless given):
+    within 1e-3 of the largest |grad| (the kernel's 3xTF32 forward moves
+    o and the logsumexp the backward reads by its own rounding)."""
     out = {}
     gen = torch.Generator(device=dev).manual_seed(SEED + 21)
-    for case, (S, window, hkv, G, Dh, Dv) in cases.items():
+    for case, (S, window, hkv, G, Dh, Dv, *rest) in cases.items():
+        causal, Sk = rest if rest else (True, S)
         q = torch.randn((1, S, hkv, G, Dh), generator=gen, device=dev)
-        k = torch.randn((1, S, hkv, Dh), generator=gen, device=dev)
-        v = torch.randn((1, S, hkv, Dv), generator=gen, device=dev)
+        k = torch.randn((1, Sk, hkv, Dh), generator=gen, device=dev)
+        v = torch.randn((1, Sk, hkv, Dv), generator=gen, device=dev)
         do = torch.randn((1, S, hkv, G, Dv), generator=gen, device=dev)
-        kw = dict(scale=1.0 / math.sqrt(Dh), causal=True, window=window)
+        kw = dict(scale=1.0 / math.sqrt(Dh), causal=causal, window=window)
         got, want = (torch.autograd.grad(
             fn(*(t.requires_grad_() for t in (q, k, v)), **kw),
             (q, k, v), do)
@@ -3693,8 +3817,9 @@ def attention_backward_check(dev, cases: dict, phase: str) -> dict:
                            *a, q_offset=0, **w)))
         share = {f"d{n}": float((a - b).abs().max() / b.abs().max())
                  for n, a, b in zip("qkv", got, want)}
-        out[case] = {"S": S, "window": window, "heads": [hkv * G, hkv],
-                     "Dh": Dh, "Dv": Dv, "share_of_max": share}
+        out[case] = {"S": S, "Sk": Sk, "causal": causal, "window": window,
+                     "heads": [hkv * G, hkv], "Dh": Dh, "Dv": Dv,
+                     "share_of_max": share}
         check(max(share.values()) <= 1e-3,
               f"attention backward [{case}]: {share} of the largest |grad| "
               "off the plain attention's")
@@ -3704,11 +3829,12 @@ def attention_backward_check(dev, cases: dict, phase: str) -> dict:
     return out
 
 
-def lm_put_check(dev, cfg) -> dict:
+def lm_put_check(dev, cfg, phase="lm_put") -> dict:
     """(b) ``fused_backward`` at the LM put's shape: the 4,096 token
-    occurrences of a B=2, S=2,048 batch, D=2,048, granite's 49,155 vocab
-    rows; the hybrid put (the batch before's plan rows popped, random
-    payload) and the sync put (its own sums), bit for bit against the
+    occurrences of a B=2, S=2,048 batch, D=d_model (granite's 2,048 over
+    its 49,155 vocab rows; whisper's 1,024 over 51,865); the hybrid put
+    (the batch before's plan rows popped, random payload) and the sync
+    put (its own sums), bit for bit against the
     plain version on the card (payload, table, accumulator); the hybrid
     put timed by graph replay beside its bound and the plain version."""
     spec = build_embedding_spec(cfg.vocab_size, cfg.d_model)
@@ -3757,31 +3883,49 @@ def lm_put_check(dev, cfg) -> dict:
            "bound_ms": max(b_bytes, b_ops) * 1e3,
            "bound_by": "bytes" if b_bytes >= b_ops else "operations",
            "bound_bytes": nb}
-    emit({"phase": "lm_put", **out})
+    emit({"phase": phase, **out})
     del table, acc, grads, g
     torch.cuda.empty_cache()
     return out
 
 
-def lm_train_card_vs_cpu(dev) -> dict:
-    """(c) granite at full width cut to 2 layers, B=1, S=256, hybrid(1):
-    3 steps from one state (drawn on the card, copied to the CPU) on the
-    card and on the CPU (TF32 off). Losses within rtol 1e-4. The dense
-    parameters as ``dense_agreement`` holds them (Adam's updates agree in
-    norm to 1e-3, no weight off by more than 2 lr a step). From the second
-    step on the two models differ by that drift, so the gradients that
-    reach the vocab table differ by more than rounding, and the row-wise
-    adagrad step scales each row's gradient to about lr: the table is held
-    like the dense parameters, its updates equal in norm to 1e-3 and no
-    element off by more than lr / 100 per applied put; the accumulator in
-    norm to 1e-3; the queued put as the CTR check holds it (rtol 1e-3,
-    atol 1e-3 of its largest element), its ids equal."""
-    p = LM_TRAIN_CPU
-    cfg = get_config(LM_ARCH).replace(pattern_repeats=p["layers"])
+def lm_batches_with_memory(cfg, p, seed, n, dev=None) -> list:
+    """``n`` ``lm_batches`` of ``p["batch"]`` x ``p["seq"]`` tokens; for a
+    model with cross-attention each carries its memory (frames or
+    patches, random normal x 0.1 from ``seed``, as the serve draws them),
+    on ``dev`` if given (else numpy: each trainer moves it)."""
+    it = lm_batches(cfg.vocab_size, p["batch"], p["seq"], seed=seed)
+    batches = [next(it) for _ in range(n)]
+    shape = lm_serve.memory_shape(cfg, p["batch"])
+    if shape is not None:
+        rng = np.random.default_rng(seed)
+        for b in batches:
+            m = (rng.standard_normal(shape) * 0.1).astype(np.float32)
+            b["memory"] = m if dev is None else torch.as_tensor(m,
+                                                                device=dev)
+    return batches
+
+
+def lm_train_card_vs_cpu(dev, cfg=None, p=LM_TRAIN_CPU, seed=SEED + 24,
+                         phase="lm_train_card_vs_cpu") -> dict:
+    """(c) granite at full width cut to 2 layers (or ``cfg``: whisper's
+    2 + 2 layer cut, each batch with its frames), B=1, S=256, hybrid(1):
+    ``p["steps"]`` steps from one state (drawn on the card, copied to the
+    CPU) on the card and on the CPU (TF32 off). Losses within rtol 1e-4.
+    The dense parameters as ``dense_agreement`` holds them (Adam's updates
+    agree in norm to 1e-3, no weight off by more than 2 lr a step). From
+    the second step on the two models differ by that drift, so the
+    gradients that reach the vocab table differ by more than rounding, and
+    the row-wise adagrad step scales each row's gradient to about lr: the
+    table is held like the dense parameters, its updates equal in norm to
+    1e-3 and no element off by more than lr / 100 per applied put; the
+    accumulator in norm to 1e-3; the queued put as the CTR check holds it
+    (rtol 1e-3, atol 1e-3 of its largest element), its ids equal."""
+    if cfg is None:
+        cfg = get_config(LM_ARCH).replace(pattern_repeats=p["layers"])
     tg, tc = lm_trainer(cfg, dev), lm_trainer(cfg, "cpu")
-    it = lm_batches(cfg.vocab_size, p["batch"], p["seq"], seed=SEED + 24)
-    batches = [next(it) for _ in range(p["steps"] + 1)]
-    sg = tg.init(SEED + 24, batches[0])
+    batches = lm_batches_with_memory(cfg, p, seed, p["steps"] + 1)
+    sg = tg.init(seed, batches[0])
     sc = sg.to("cpu")
     start = tree_map(torch.clone, sc.dense)     # updated in place
     start_table = sc.emb["vocab"]["table"].clone()
@@ -3808,18 +3952,18 @@ def lm_train_card_vs_cpu(dev) -> dict:
            "acc_rel": rel(ge["acc"], ce["acc"], ce["acc"]),
            "queue_max_abs_share": float(
                (gq["grads"].cpu() - cq["grads"]).abs().max()) / q_scale}
-    rec = {"phase": "lm_train_card_vs_cpu", **p, "d_model": cfg.d_model,
+    rec = {"phase": phase, **p, "d_model": cfg.d_model,
            "losses_card": lg, "losses_cpu": lc, **emb, **dense}
     emit(rec)
     check(np.allclose(lg, lc, rtol=1e-4, atol=0),
-          f"lm train card against CPU: losses {lg} vs {lc}")
+          f"{phase}: losses {lg} vs {lc}")
     check(emb["table_update_rel"] <= 1e-3
           and table_d <= EMB_LR / 100 * applied and emb["acc_rel"] <= 1e-3
           and torch.allclose(gq["grads"].cpu(), cq["grads"], rtol=1e-3,
                              atol=1e-3 * q_scale)
           and torch.equal(gq["ids"].cpu(), cq["ids"]),
-          f"lm train card against CPU: vocab table, acc or queue {emb}")
-    check(dense["ok"], f"lm train card against CPU: dense {dense}")
+          f"{phase}: vocab table, acc or queue {emb}")
+    check(dense["ok"], f"{phase}: dense {dense}")
     del tg, tc, sg, sc, start, start_table
     torch.cuda.empty_cache()
     return rec
@@ -3831,7 +3975,8 @@ def lm_train_card_vs_cpu(dev) -> dict:
 
 def profile_run(fn):
     """``fn()`` under the profiler (device activity): ``(its result, wall
-    s, device s, the top 8 device kernels as (name, ms))``."""
+    s, device s, the top 8 device kernels as (name, ms), the device
+    kernels run)``."""
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -3839,10 +3984,12 @@ def profile_run(fn):
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    top = sorted(((e.self_device_time_total, e.key)
-                  for e in prof.key_averages()), reverse=True)
+    events = prof.key_averages()
+    top = sorted(((e.self_device_time_total, e.key) for e in events),
+                 reverse=True)
     return (out, wall, sum(us for us, _ in top) / 1e6,
-            [(k, us / 1e3) for us, k in top[:8]])
+            [(k, us / 1e3) for us, k in top[:8]],
+            sum(e.count for e in events if e.self_device_time_total > 0))
 
 
 def lm_moe_train_phase(dev):
@@ -3852,78 +3999,27 @@ def lm_moe_train_phase(dev):
     timed steps, each 11 ``flash_attention_fwd`` at (192, 128) (the
     prologue's forward, which the JAX package does not checkpoint either,
     and each MoE layer's forward and remat recompute) and one
-    ``fused_backward`` at D=2,048; one profiled step; then the attention
-    backward at the MLA shape against autograd through the plain attention
-    and the 2-layer cut's step on the card against the CPU."""
+    ``fused_backward`` at D=2,048; one profiled step (``lm_train_run``);
+    then the attention backward at the MLA shape against autograd through
+    the plain attention and the 2-layer cut's step on the card against the
+    CPU."""
     p = MOE_TRAIN
     cfg = get_config(MOE_ARCH).replace(pattern_repeats=p["repeats"])
     check(cfg.remat, "DeepSeek-V2's config must remat its layers")
     it = lm_batches(cfg.vocab_size, p["batch"], p["seq"], seed=SEED)
     batches = [next(it) for _ in range(1 + p["warmup"] + p["timed"] + 1)]
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    trainer = lm_trainer(cfg, dev)
-    t0 = time.perf_counter()
-    state = trainer.init(SEED, batches[0])
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_dense = sum(t.numel() for t in tree_leaves(state.dense))
-    losses = []
-    for b in batches[1:1 + p["warmup"]]:
-        state, m = trainer.step(state, b)
-        losses.append(float(m["loss"]))
-
-    # the main path: counts set to 0 just before
-    ops.reset_launch_counts()
-    step_ms = []
-    for b in batches[1 + p["warmup"]:-1]:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = trainer.step(state, b)
-        losses.append(float(m["loss"]))
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-    launches, served = ops.launch_counts(), ops.table_counts()
-    peak = torch.cuda.max_memory_allocated()
     per_step = len(cfg.prologue) + 2 * len(cfg.pattern) * cfg.pattern_repeats
-    want = dict.fromkeys(launches, 0)
-    want.update(flash_attention_fwd=per_step * p["timed"],
-                fused_backward=p["timed"])
-    check(launches == want, f"lm moe train: launches {launches}, want "
-          f"{want} (per step {per_step} attention forwards: the prologue's "
-          "and each MoE layer's forward and remat recompute; one put)")
-    check(all(np.isfinite(losses)), f"lm moe train: losses {losses}")
-    (state, m), wall, device_s, top = profile_run(
-        lambda: trainer.step(state, batches[-1]))
-    losses.append(float(m["loss"]))
-    check(math.isfinite(losses[-1]), f"lm moe train: losses {losses}")
-    moe_aux = {k: float(m[k]) for k in ("moe_balance", "moe_z",
-                                        "moe_drop_frac") if k in m}
-    del state, trainer
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    tokens = p["batch"] * p["seq"]
-    med = float(np.median(step_ms))
-    rec = {"phase": "lm_moe_train", "model": cfg.name,
-           "layers": cfg.n_layers, "cut": "depth: the prologue and "
+    paths, common, m = lm_train_run(dev, cfg, p, batches, per_step,
+                                    "lm moe train")
+    rec = {"phase": "lm_moe_train", **common, "layers": cfg.n_layers,
+           "cut": "depth: the prologue and "
            f"{p['repeats']} of 26 MoE layers, full width",
-           "d_model": cfg.d_model, "vocab": [cfg.vocab_size,
-                                             cfg.padded_vocab],
            "moe": {"experts": cfg.n_experts, "top_k": cfg.moe_top_k,
                    "shared": cfg.n_shared_experts, "d_ff": cfg.moe_d_ff,
-                   "capacity": lm_moe.capacity(cfg, tokens)},
-           "dtype": "fp32", "remat": cfg.remat,
-           "mode": f"hybrid({cfg.emb_staleness})", "batch": p["batch"],
-           "seq": p["seq"], "dense_params": n_dense,
-           "dense_gb": n_dense * 4 / 1e9, "init_s": init_s,
-           "step_ms": step_ms, "step_ms_median": med,
-           "tokens_per_s": tokens / (med / 1e3),
-           "profiled_wall_s": wall, "profiled_device_s": device_s,
-           "device_busy_share": device_s / wall, "top_device_ms": top,
-           "peak_gib": peak / 2**30, "losses": losses, "moe_aux": moe_aux,
-           "launches_per_step": {k: v / p["timed"]
-                                 for k, v in launches.items() if v}}
+                   "capacity": lm_moe.capacity(cfg, p["batch"] * p["seq"])},
+           "remat": cfg.remat,
+           "moe_aux": {k: float(m[k]) for k in ("moe_balance", "moe_z",
+                                                "moe_drop_frac") if k in m}}
     emit(rec)
     mla = mla_shape()
     rec["attention_backward"] = attention_backward_check(
@@ -3933,7 +4029,7 @@ def lm_moe_train_phase(dev):
                                     mla["Dv"])},
         "lm_moe_attention_backward")
     rec["card_vs_cpu"] = lm_moe_train_card_vs_cpu(dev)
-    return (launches, served), rec
+    return paths, rec
 
 
 def lm_moe_train_card_vs_cpu(dev) -> dict:
@@ -3989,9 +4085,10 @@ def lm_moe_train_card_vs_cpu(dev) -> dict:
     return rec
 
 
-def full_serve(dev, cfg, want_flash: int, what: str):
-    """Random weights and vocab table from ``SEED`` on the card; a warm-up
-    serve, then the main path (``launch.serve.serve``, B=4, prompt 2,048,
+def full_serve(dev, cfg, want_flash: int, what: str, gates=None):
+    """Random weights and vocab table from ``SEED`` on the card (with
+    ``gates`` every ``xgate`` set to it); a warm-up serve, then the main
+    path (``launch.serve.serve``, B=4, prompt 2,048,
     32 greedy tokens; the launch counts set to 0 just before): it must
     launch ``flash_attention_fwd`` ``want_flash`` times (one prefill) and
     nothing else, and give tokens in the vocab, equal on a second run
@@ -4004,6 +4101,8 @@ def full_serve(dev, cfg, want_flash: int, what: str):
     part = {}
     t0 = time.perf_counter()
     bk, emb, dense = lm_state(cfg, dev, SEED)
+    if gates is not None:
+        open_gates(dense, gates)
     state = (emb, dense)
     n_dense = sum(t.numel() for t in tree_leaves(dense))
     lm_serve.serve(cfg, LM_B, LM_PROMPT, 2, SEED, device=dev, state=state)
@@ -4025,8 +4124,9 @@ def full_serve(dev, cfg, want_flash: int, what: str):
     check(toks.shape == (LM_B, LM_GEN) and toks.min() >= 0
           and toks.max() < cfg.vocab_size, f"{what} tokens {toks.shape}")
     t0 = time.perf_counter()
-    again, wall, device_s, top = profile_run(lambda: lm_serve.serve(
-        cfg, LM_B, LM_PROMPT, LM_GEN, SEED, device=dev, state=state))
+    again, wall, device_s, top, n_kernels = profile_run(
+        lambda: lm_serve.serve(cfg, LM_B, LM_PROMPT, LM_GEN, SEED,
+                               device=dev, state=state))
     check(np.array_equal(again["tokens"], toks),
           f"{what}: a second run gave other tokens")
     part["profiled"] = time.perf_counter() - t0
@@ -4039,11 +4139,190 @@ def full_serve(dev, cfg, want_flash: int, what: str):
            "decode_tok_per_s": res["decode_tok_per_s"],
            "flash_launches_per_prefill": launches["flash_attention_fwd"],
            "profiled_wall_s": wall, "profiled_device_s": device_s,
-           "device_busy_share": device_s / wall,
+           "device_busy_share": device_s / wall, "device_kernels": n_kernels,
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
            "resident_gib_before": resident, "top_kernels_ms": top,
-           "part_s": part, "first_tokens": toks[0, :8].tolist()}
+           "part_s": part, "first_tokens": toks[0, :8].tolist(),
+           "first_token_by_row": toks[:, 0].tolist()}
     return (launches, served), rec, (bk, emb, dense)
+
+
+def attention_launches(cfg) -> int:
+    """``flash_attention_fwd`` launches of one prefill: a self-attention
+    (gqa, mla) or cross-attention (the ``cross_attn`` mixer, a ``cross``
+    sub-block) a launch, and each encoder layer's."""
+    def per(blocks):
+        return sum((b.mixer in ("gqa", "mla", "cross_attn")) + b.cross
+                   for b in blocks)
+    n = per(cfg.prologue) + per(cfg.pattern) * cfg.pattern_repeats
+    if cfg.is_encdec:
+        n += per(cfg.encoder.pattern) * cfg.encoder.pattern_repeats
+    return n
+
+
+def prefill_vs_plain(dev, cfg, bk, emb, dense, first_tokens, what) -> dict:
+    """The serve's prefill (its prompts and memory) through the kernel and
+    through the plain attention on the card: last-token logits finite,
+    within 1e-3 of the largest, the first token equal in both and equal
+    to the serve's (``first_tokens``, one a row)."""
+    t0 = time.perf_counter()
+    prompts, memory = lm_serve.make_inputs(cfg, LM_B, LM_PROMPT, SEED)
+    prompts = torch.as_tensor(prompts, device=dev)
+    memory = None if memory is None else torch.as_tensor(memory, device=dev)
+    _, lk, _ = lm_serve.prefill_step(cfg, bk, emb, dense, prompts,
+                                     LM_PROMPT + 1, memory)
+    with mock.patch.object(lm_flash, "flash_attention", plain_attention):
+        _, lp, _ = lm_serve.prefill_step(cfg, bk, emb, dense, prompts,
+                                         LM_PROMPT + 1, memory)
+    lk, lp = lk[:, 0, :cfg.vocab_size], lp[:, 0, :cfg.vocab_size]
+    torch.cuda.synchronize()
+    diff, top = float((lk - lp).abs().max()), float(lp.abs().max())
+    check(bool(torch.isfinite(lk).all()), f"{what}: prefill logits not "
+          "finite")
+    check(diff <= 1e-3 * top, f"{what}: prefill logits through the kernel "
+          f"and the plain attention differ by {diff} (largest {top})")
+    check(torch.equal(lk.argmax(-1), lp.argmax(-1)),
+          f"{what}: the first token differs with the plain attention")
+    check(lk.argmax(-1).cpu().tolist() == list(first_tokens),
+          f"{what}: serve's first token differs from the prefill's")
+    del lk, lp, memory
+    torch.cuda.empty_cache()
+    return {"prefill_logit_diff_vs_plain": diff, "largest_logit": top,
+            "prefill_vs_plain_s": time.perf_counter() - t0}
+
+
+def encdec_serve_phase(dev):
+    """``full_serve`` of whisper-medium at full width and depth (24
+    encoder and 24 decoder layers, d_model 1,024, 16 heads of 64, GELU,
+    LayerNorm, 51,865 vocab, learned decoder positions), fp32, B=4, a
+    2,048-token prompt over 1,500 frames of 1,024 (random normal x 0.1,
+    the serve's draw): 72 ``flash_attention_fwd`` a serve (24 encoder, 24
+    self, 24 cross over the frames) and none in the decode (its
+    cross-attention is plain torch over the cached memory K/V); the
+    prefill through the kernel against the plain attention; then the cut
+    to 2 + 2 layers on the card against the CPU, in the plain class (its
+    GEMMs alone leave 4.8e-6 at d_model 1,024)."""
+    cfg = get_config(ENCDEC_ARCH)
+    n_attn = attention_launches(cfg)
+    paths, rec, (bk, emb, dense) = full_serve(dev, cfg, n_attn,
+                                              "encdec serve")
+    rec.update(prefill_vs_plain(dev, cfg, bk, emb, dense,
+                                rec["first_token_by_row"], "encdec serve"))
+    del bk, emb, dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    e = cfg.encoder
+    rec = {"phase": "encdec_serve", **rec,
+           "encoder_layers": e.n_layers, "decoder_layers": cfg.n_layers,
+           "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+           "memory": list(lm_serve.memory_shape(cfg, LM_B)),
+           "attention_launches": {"encoder": e.n_layers,
+                                  "self": cfg.n_layers,
+                                  "cross": cfg.n_layers}}
+    emit(rec)
+    rec["card_vs_cpu"] = lm_cut_card_vs_cpu(
+        dev, encdec_cut(cfg, ENCDEC_CPU["layers"]),
+        {k: v for k, v in ENCDEC_CPU.items() if k != "layers"}, SEED + 31,
+        "encdec_card_vs_cpu", dev)
+    return paths, rec
+
+
+def encdec_cut(cfg, layers: int):
+    """An encoder-decoder cut to ``layers`` encoder and ``layers`` decoder
+    layers, full width."""
+    return cfg.replace(pattern_repeats=layers,
+                       encoder=cfg.encoder.replace(pattern_repeats=layers))
+
+
+def vlm_serve_phase(dev):
+    """``full_serve`` of llama-3.2-vision-90b at full width cut to 1 of
+    its 20 pattern repeats (4 gqa layers of 64 / 8 heads of 128 and one
+    tanh-gated ``cross_attn`` layer over 1,600 patches of 8,192; d_ff
+    28,672; vocab 128,256), fp32, every ``xgate`` at 0.5: 5
+    ``flash_attention_fwd`` a serve (4 causal, a group of 8; 1 cross,
+    2,048 x 1,600); the prefill through the kernel against the plain
+    attention; then the gqa + cross_attn cut on the card against the CPU
+    (split: at d_model 8,192 the fp32 GEMMs alone may leave more than atol
+    1e-5)."""
+    full = get_config(VLM_ARCH)
+    cfg = full.replace(pattern_repeats=VLM_REPEATS)
+    paths, rec, (bk, emb, dense) = full_serve(
+        dev, cfg, attention_launches(cfg), "vlm serve", gates=XGATE)
+    rec.update(prefill_vs_plain(dev, cfg, bk, emb, dense,
+                                rec["first_token_by_row"], "vlm serve"))
+    del bk, emb, dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = {"phase": "vlm_serve", **rec,
+           "cut": f"depth: {VLM_REPEATS} of 20 pattern repeats, full width",
+           "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+           "d_ff": cfg.d_ff, "xgate": XGATE,
+           "memory": list(lm_serve.memory_shape(cfg, LM_B))}
+    emit(rec)
+    cut = full.replace(pattern=(full.pattern[0], next(
+        b for b in full.pattern if b.mixer == "cross_attn")),
+        pattern_repeats=1)
+    rec["card_vs_cpu"] = lm_cut_card_vs_cpu(dev, cut, VLM_CPU, SEED + 32,
+                                            "vlm_card_vs_cpu", dev,
+                                            split=True, gates=XGATE)
+    return paths, rec
+
+
+def encdec_train_phase(dev):
+    """``PersiaTrainer(lm_adapter)`` at the full width and depth of
+    whisper-medium (fp32, remat on in the encoder and the decoder), B=2,
+    S=2,048, each row with 1,500 frames (random normal x 0.1 from the
+    seed, on the card), hybrid(1), Adam: 2 warm-up and 3 timed steps (each
+    144 ``flash_attention_fwd``: 72 forward, 72 remat recompute, and one
+    ``fused_backward`` at D=1,024), one profiled step (``lm_train_run``);
+    then the attention backward at the cross-attention's shape (2,048
+    queries over 1,500 frames) and the encoder's (1,500, non-causal), the
+    put at D=1,024 bit for bit, and the 2 + 2 layer cut trained 2 steps
+    on the card against the CPU."""
+    cfg = get_config(ENCDEC_ARCH)
+    e = cfg.encoder
+    check(cfg.remat and e.remat, "whisper's config must remat its layers")
+    p = ENCDEC_TRAIN
+    batches = lm_batches_with_memory(
+        cfg, p, SEED, 1 + p["warmup"] + p["timed"] + 1, dev)
+    paths, common, _ = lm_train_run(dev, cfg, p, batches,
+                                    2 * attention_launches(cfg),
+                                    "encdec train")
+    del batches
+    rec = {"phase": "encdec_train", **common,
+           "layers": [e.n_layers, cfg.n_layers],
+           "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+           "remat": [e.remat, cfg.remat],
+           "memory": list(lm_serve.memory_shape(cfg, p["batch"]))}
+    emit(rec)
+    H, Dh, M = cfg.n_heads, cfg.head_dim, e.n_memory_tokens
+    rec["attention_backward"] = attention_backward_check(
+        dev, {"whisper_cross": (p["seq"], 0, H, 1, Dh, Dh, False, M),
+              "whisper_encoder": (M, 0, e.n_heads, 1, e.head_dim,
+                                  e.head_dim, False, M)},
+        "encdec_attention_backward")
+    rec["lm_put"] = lm_put_check(dev, cfg, "encdec_put")
+    rec["card_vs_cpu"] = lm_train_card_vs_cpu(
+        dev, encdec_cut(cfg, ENCDEC_TRAIN_CPU["layers"]), ENCDEC_TRAIN_CPU,
+        SEED + 34, "encdec_train_card_vs_cpu")
+    return paths, rec
+
+
+def granite_cuts_phase(dev) -> dict:
+    """granite-3-2b at full width cut to 2 layers with a 64-token sliding
+    window (under the 256-token prompt: the kernel's windowed prefill and
+    the ring decode's mask over the prefill's full-length cache) and with
+    logit soft-capping at 50 (the capped attention is plain torch on the
+    card, blockwise), each on the card against the CPU, split: granite's
+    GEMMs alone leave up to 1.0e-5 from the CPU, at the atol."""
+    base = get_config(LM_ARCH).replace(pattern_repeats=LM_CPU["layers"])
+    p = {k: v for k, v in LM_CPU.items() if k != "layers"}
+    out = {}
+    for i, (name, kw) in enumerate(GRANITE_CUTS.items()):
+        out[name] = lm_cut_card_vs_cpu(
+            dev, base.replace(**kw), {**p, **kw}, SEED + 33 + i,
+            f"granite_{name}_card_vs_cpu", dev, split=True)
+    return out
 
 
 def ssm_serve_phase(dev):
@@ -5020,7 +5299,7 @@ def main() -> int:
     timing["flash_attention_fwd"] = flash_phase(dev)
     timing["flash_attention_fwd"].update(
         {f"{shape}_{k}": timing["flash_attention_fwd"][shape][k]
-         for shape in ("mla", "jamba")
+         for shape in FLASH_SHAPES
          for k in ("ms", "bound_ms", "bound_by", "plain_ms", "library_ms",
                    "library_backend")})
     floor = floor_phase(dev)
@@ -5086,6 +5365,15 @@ def main() -> int:
     paths["lm_moe_train"], recs["lm_moe_train"] = lm_moe_train_phase(dev)
     paths["ssm_serve"], recs["ssm_serve"] = ssm_serve_phase(dev)
     paths["hybrid_serve"], recs["hybrid_serve"] = hybrid_serve_phase(dev)
+    # whisper-medium (encoder-decoder) serving and training, the vision
+    # model's gated cross-attention, granite with a window and a cap
+    paths["encdec_serve"], recs["encdec_serve"] = encdec_serve_phase(dev)
+    paths["vlm_serve"], recs["vlm_serve"] = vlm_serve_phase(dev)
+    paths["encdec_train"], recs["encdec_train"] = encdec_train_phase(dev)
+    timing["fused_backward"].update(
+        {f"lm_put_1024_{k}": recs["encdec_train"]["lm_put"][k]
+         for k in ("ms", "bound_ms", "bound_by", "plain_ms")})
+    recs["granite_cuts"] = granite_cuts_phase(dev)
     # the sharded embedding-PS router
     sharded_paths, recs["sharded"] = sharded_phase(dev)
     paths.update(sharded_paths)
@@ -5114,7 +5402,7 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             # the grouped kernels: one launch for a stage's 32 tables
-            **{k: t[k] for k in STAGE_KEYS if k in t}})
+            **{k: t[k] for k in STAGE_KEYS + SHAPE_KEYS if k in t}})
         check(kernels[-1]["launches"] > 0, f"{name} was never launched")
     record = {"card": card, "build_s": build_s, "ptxas": ptxas,
               "kernel_timing": timing, "launch_floor_ms": floor, **recs,

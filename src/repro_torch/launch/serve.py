@@ -9,7 +9,12 @@ up and runs the transformer on the activations. Every prefill attention
 goes through the ``flash_attention_fwd`` CUDA kernel on the card, MLA's
 (DeepSeek-V2: a 192-wide query/key head, a 128-wide value head) and
 Jamba's GQA layer too; a Mamba-2 layer prefills by the chunked SSD and
-decodes against its fixed-size state.
+decodes against its fixed-size state. A model with cross-attention
+(llama-3.2-vision's gated layers over image patches, whisper's decoder
+over its encoder's output) reads a memory drawn as the JAX package's
+serve draws it, random normal x 0.1 from the prompts' stream (both
+frontends are stubs): whisper's 1,500 frames of 1,024 go through its
+encoder in the prefill, and the cross-attentions' K/V are cached there.
 
 Usage (on the card; ``--device cpu`` runs the plain versions; ``--arch``
 any of ``configs.ARCH_IDS``):
@@ -21,6 +26,10 @@ any of ``configs.ARCH_IDS``):
       --full --batch 4 --prompt-len 2048 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba_v0_1_52b \\
       --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper_medium \\
+      --full --batch 4 --prompt-len 2048 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch llama_3_2_vision_90b --device cpu
 """
 from __future__ import annotations
 
@@ -39,20 +48,43 @@ from repro_torch.models import transformer as T
 VOCAB_TABLE = "vocab"      # serve's sole table name in --emb-shards pairs
 
 
+def memory_shape(cfg, batch: int) -> tuple | None:
+    """(batch, M, d_memory) of the memory the model's cross-attentions
+    read: an encoder-decoder's frames, else ``n_memory_tokens`` patches;
+    None without a memory."""
+    if cfg.is_encdec:
+        return (batch, cfg.encoder.n_memory_tokens, cfg.encoder.d_memory)
+    if cfg.n_memory_tokens:
+        return (batch, cfg.n_memory_tokens, cfg.d_memory)
+    return None
+
+
+def make_inputs(cfg, batch: int, prompt_len: int, seed: int):
+    """The JAX package's serve inputs from one ``default_rng(seed)``: the
+    (batch, prompt_len) int32 prompts, then the memory (random normal x
+    0.1, fp32; None without one)."""
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (batch, prompt_len)).astype(np.int32)
+    shape = memory_shape(cfg, batch)
+    memory = None if shape is None else \
+        (rng.standard_normal(shape) * 0.1).astype(np.float32)
+    return prompts, memory
+
+
 def make_prompts(cfg, batch: int, prompt_len: int, seed: int) -> np.ndarray:
     """(batch, prompt_len) int32 token ids: the JAX package's prompts."""
-    rng = np.random.default_rng(seed)
-    return rng.integers(0, cfg.vocab_size,
-                        (batch, prompt_len)).astype(np.int32)
+    return make_inputs(cfg, batch, prompt_len, seed)[0]
 
 
 def prefill_step(cfg, backend, emb, dense, prompts: torch.Tensor,
-                 max_len: int):
-    """Look the prompts up and prefill: ``(emb, last-token logits (B, 1,
-    padded_vocab) fp32, caches)``."""
+                 max_len: int, memory=None):
+    """Look the prompts up and prefill (over ``memory``, if the model
+    reads one): ``(emb, last-token logits (B, 1, padded_vocab) fp32,
+    caches)``."""
     emb, dev_ids = backend.prepare(emb, prompts)
     acts, _ = backend.lookup(emb, dev_ids)
-    logits, caches = T.prefill(cfg, dense, acts, max_len=max_len)
+    logits, caches = T.prefill(cfg, dense, acts, memory, max_len=max_len)
     return emb, logits, caches
 
 
@@ -80,7 +112,8 @@ def serve(cfg, batch=4, prompt_len=32, gen=16, seed=0, temperature=0.0,
           device="cuda", state=None):
     """Prefill ``batch`` random prompts of ``prompt_len`` tokens and decode
     ``gen`` tokens (greedy unless ``temperature`` > 0). The weights and
-    the vocab table are random from ``seed``, or ``state=(emb_state,
+    the vocab table are random from ``seed`` (the memory, if the model
+    reads one, too: :func:`make_inputs`), or ``state=(emb_state,
     dense_params)`` (e.g. a JAX state through ``repro_torch.convert``; a
     host_lru table's state is its checkpoint blob, loaded into the
     backend built here).
@@ -101,8 +134,10 @@ def serve(cfg, batch=4, prompt_len=32, gen=16, seed=0, temperature=0.0,
         if "store" in emb or "shard_meta" in emb:
             from repro_torch.convert import table_from_numpy
             emb = table_from_numpy(backend, emb, dev)
-    prompts = torch.as_tensor(make_prompts(cfg, batch, prompt_len, seed),
-                              device=dev)
+    prompts, memory = make_inputs(cfg, batch, prompt_len, seed)
+    prompts = torch.as_tensor(prompts, device=dev)
+    if memory is not None:
+        memory = torch.as_tensor(memory, device=dev)
 
     def sync():
         if dev.type == "cuda":
@@ -110,7 +145,7 @@ def serve(cfg, batch=4, prompt_len=32, gen=16, seed=0, temperature=0.0,
 
     t0 = time.perf_counter()
     emb, logits, caches = prefill_step(cfg, backend, emb, dense, prompts,
-                                       prompt_len + gen)
+                                       prompt_len + gen, memory)
     tok = torch.argmax(logits[:, 0, :cfg.vocab_size], dim=-1)[:, None].int()
     sync()
     t_prefill = time.perf_counter() - t0

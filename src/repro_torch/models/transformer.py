@@ -1,37 +1,51 @@
-"""Layer-program transformer (port of ``repro/models/transformer.py``) for
-the dense GQA family, DeepSeek-V2, Mamba-2 and the Jamba hybrid: gqa, mla
-or mamba2 mixers with dense, MoE or no FFNs, training (:func:`lm_loss`,
-with the MoE aux loss) and serving (full-sequence forward, prefill,
-single-token decode against per-layer KV, latent or SSM caches).
+"""Layer-program transformer (port of ``repro/models/transformer.py``):
+one code path for every architecture of the JAX package (dense GQA,
+DeepSeek-V2's MLA + MoE, Mamba-2, the Jamba hybrid, Llama-3.2-Vision's
+interleaved tanh-gated cross-attention, the Whisper encoder-decoder):
+gqa, mla, mamba2, cross_attn or no mixers, an optional cross-attention
+sub-block (``BlockCfg.cross``), dense, MoE or no FFNs; training
+(:func:`lm_loss`, with the MoE aux loss) and serving (full-sequence
+forward, prefill, single-token decode against per-layer KV, latent, SSM
+and cross-attention caches).
 
 Parameters keep the JAX package's tree and key names: unscanned
 ``prologue_<i>`` blocks, then ``params["stack"][str(i)]`` for pattern
-position i with every leaf stacked over a leading ``pattern_repeats`` axis,
-``final_norm`` and ``lm_head``, so a JAX state converts leaf for leaf
+position i with every leaf stacked over a leading ``pattern_repeats`` axis
+(a ``cross_attn`` block's 0-d ``xgate`` becomes (R,)), ``final_norm`` and
+``lm_head``; an encoder-decoder adds ``encoder`` (``in_proj``, ``pos_emb``,
+its own ``stack`` and ``final_norm``) and the learned decoder positions
+``dec_pos_emb`` (65,536 rows), so a JAX state converts leaf for leaf
 (``repro_torch.convert.lm_dense_from_numpy``). A block without an FFN
 (``ffn == "none"``, Mamba-2) has no ``ffn_norm`` either. The JAX package's
 ``lax.scan`` over the stack is a Python loop over layer views here; its
 ``jax.checkpoint`` (``cfg.remat``) is ``torch.utils.checkpoint`` around
-each stack layer when grad is enabled, and does not apply to serving.
-Token embeddings are not part of the dense parameters: they come from the
-embedding PS as activations, and :func:`lm_loss` differentiates them.
+each stack layer (and each encoder layer, under the encoder's ``remat``)
+when grad is enabled, and does not apply to serving. Token embeddings
+are not part of the dense parameters: they come from the embedding PS as
+activations, and :func:`lm_loss` differentiates them. The memory (image
+patches, or an encoder-decoder's frames, which :func:`encode` turns into
+the decoder's memory) is an input of :func:`lm_loss` and
+:func:`prefill`.
 
 Caches keep the JAX tree too (``caches["stack"][str(i)]["attn"]`` with k,
 v of shape (R, B, max_len, Hkv, Dh) and len (R, B), or an mla block's
 latent ckv (R, B, max_len, kv_lora_rank) and k_rope (R, B, max_len,
 rope_head_dim), or a mamba2 block's ``["ssm"]`` with h (R, B, H, N, P)
-fp32 and conv (R, B, K - 1, conv channels); ``caches["pos"]``), but are
-allocated at ``max_len`` once by :func:`prefill`, which writes the
-prompt's K/V into their head (and the SSM state after the prompt), and
+fp32 and conv (R, B, K - 1, conv channels); a cross-attention's
+``["cross"]`` k, v (R, B, M, Hkv, Dh) of the memory's M positions;
+``caches["pos"]``), but are allocated at ``max_len`` once by
+:func:`prefill`, which writes the prompt's K/V into their head (the
+memory's K/V whole, the SSM state after the prompt), and
 :func:`decode_step` writes each new token's K/V (or state) into them in
 place, where the JAX package pads its prefill caches (``_pad_cache_seq``)
-and returns new ones each step. The contents are the same.
+and returns new ones each step. The contents are the same. A
+sliding-window model's prefill cache is that full-length cache too (the
+JAX package's padded prefill cache), and its decode writes slot ``len %
+S`` of whatever cache it is given: a ring of ``min(max_len, window)``
+slots from :func:`cache_init` wraps, a prefill's never does.
 
 A MoE block's aux stats (``moe_balance``, ``moe_z``, ``moe_drop_frac``)
 add up over the layers as the JAX package's ``_acc_aux`` adds them.
-
-Not ported yet: the cross-attention mixers, the encoder and learned
-decoder positions (``dec_pos_emb``).
 """
 from __future__ import annotations
 
@@ -45,20 +59,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
 
-_MIXER_INIT = {"gqa": L.gqa_init, "mla": L.mla_init,
-               "mamba2": M2.mamba2_init}
-
-
-def _check_ported(cfg: ModelConfig):
-    for blk in cfg.prologue + cfg.pattern:
-        if blk.mixer not in _MIXER_INIT or \
-                blk.ffn not in ("dense", "moe", "none") or blk.cross:
-            raise NotImplementedError(
-                f"block {blk} is not ported yet: the torch port runs gqa, "
-                "mla and mamba2 mixers with dense, MoE or no FFNs")
-    if cfg.is_encdec:
-        raise NotImplementedError("encoder-decoder models are not ported "
-                                  "yet")
+# learned decoder positions of an encoder-decoder (Whisper style): 64k
+# rows, as the JAX package draws them
+DEC_POSITIONS = 1 << 16
 
 
 # ---------------------------------------------------------------------------
@@ -68,14 +71,33 @@ def _check_ported(cfg: ModelConfig):
 def _block_init(generator, cfg: ModelConfig, blk: BlockCfg, dtype, *,
                 lead=(), device=None) -> dict:
     kw = dict(lead=lead, device=device)
-    p = {"mixer_norm": L.norm_init(cfg, cfg.d_model, **kw),
-         "mixer": _MIXER_INIT[blk.mixer](generator, cfg, dtype, **kw)}
+    p: dict = {}
+    if blk.mixer != "none":
+        p["mixer_norm"] = L.norm_init(cfg, cfg.d_model, **kw)
+    if blk.mixer in ("gqa", "cross_attn"):
+        p["mixer"] = L.gqa_init(generator, cfg, dtype,
+                                cross=blk.mixer == "cross_attn", **kw)
+    elif blk.mixer == "mla":
+        p["mixer"] = L.mla_init(generator, cfg, dtype, **kw)
+    elif blk.mixer == "mamba2":
+        p["mixer"] = M2.mamba2_init(generator, cfg, dtype, **kw)
+    if blk.mixer == "cross_attn":                   # tanh(0): the gate shut
+        p["xgate"] = torch.zeros(lead, dtype=torch.float32, device=device)
+    if blk.cross:
+        p["cross_norm"] = L.norm_init(cfg, cfg.d_model, **kw)
+        p["cross"] = L.gqa_init(generator, cfg, dtype, cross=True, **kw)
     if blk.ffn != "none":
         p["ffn_norm"] = L.norm_init(cfg, cfg.d_model, **kw)
         p["ffn"] = (L.mlp_init(generator, cfg, dtype=dtype, **kw)
                     if blk.ffn == "dense" else
                     MOE.moe_init(generator, cfg, dtype, **kw))
     return p
+
+
+def _stack_init(generator, cfg: ModelConfig, dtype, device) -> dict:
+    return {str(i): _block_init(generator, cfg, blk, dtype,
+                                lead=(cfg.pattern_repeats,), device=device)
+            for i, blk in enumerate(cfg.pattern)}
 
 
 def init_dense(cfg: ModelConfig, generator: torch.Generator,
@@ -85,22 +107,35 @@ def init_dense(cfg: ModelConfig, generator: torch.Generator,
     stacked leaf is drawn in one call over its (pattern_repeats, ...)
     shape: the same distribution as the JAX package's per-layer draws,
     other numbers (``jax.random`` streams cannot be reproduced)."""
-    _check_ported(cfg)
     device = generator.device if device is None else device
     params: dict = {}
     for i, blk in enumerate(cfg.prologue):
         params[f"prologue_{i}"] = _block_init(generator, cfg, blk, dtype,
                                               device=device)
-    params["stack"] = {
-        str(i): _block_init(generator, cfg, blk, dtype,
-                            lead=(cfg.pattern_repeats,), device=device)
-        for i, blk in enumerate(cfg.pattern)}
+    params["stack"] = _stack_init(generator, cfg, dtype, device)
     params["final_norm"] = L.norm_init(cfg, cfg.d_model, device=device)
     params["lm_head"] = L.dense_init(generator, cfg.d_model,
                                      cfg.padded_vocab, dtype,
                                      scale=1.0 / math.sqrt(cfg.d_model),
                                      device=device)
+    if cfg.is_encdec:
+        params["encoder"] = _init_encoder(cfg.encoder, generator, dtype,
+                                          device)
+        params["dec_pos_emb"] = L.embed_init(generator, DEC_POSITIONS,
+                                             cfg.d_model, dtype,
+                                             device=device)
     return params
+
+
+def _init_encoder(ecfg: ModelConfig, generator, dtype, device) -> dict:
+    """The encoder's input projection (d_memory -> d_model), its learned
+    positions (n_memory_tokens rows), stacked blocks and final norm."""
+    return {"pos_emb": L.embed_init(generator, ecfg.n_memory_tokens,
+                                    ecfg.d_model, dtype, device=device),
+            "in_proj": L.dense_init(generator, ecfg.d_memory, ecfg.d_model,
+                                    dtype, device=device),
+            "stack": _stack_init(generator, ecfg, dtype, device),
+            "final_norm": L.norm_init(ecfg, ecfg.d_model, device=device)}
 
 
 def _unstack(tree, n: int) -> list:
@@ -113,6 +148,16 @@ def _unstack(tree, n: int) -> list:
     return list(tree.unbind(0))
 
 
+def _stack_layers(cfg: ModelConfig, stack: dict, caches: dict | None):
+    """Each stack layer's ``[(block config, parameters, cache), ...]``."""
+    R, n = cfg.pattern_repeats, len(cfg.pattern)
+    ps = [_unstack(stack[str(i)], R) for i in range(n)]
+    cs = [[None] * R if caches is None
+          else _unstack(caches["stack"][str(i)], R) for i in range(n)]
+    for r in range(R):
+        yield [(cfg.pattern[i], ps[i][r], cs[i][r]) for i in range(n)]
+
+
 def _layers(cfg: ModelConfig, params: dict, caches: dict | None):
     """``(stacked, [(block config, parameters, cache), ...])`` in order:
     each prologue block on its own (``stacked`` False), then the pattern's
@@ -121,12 +166,8 @@ def _layers(cfg: ModelConfig, params: dict, caches: dict | None):
         name = f"prologue_{i}"
         yield False, [(blk, params[name], None if caches is None
                        else caches[name])]
-    R, n = cfg.pattern_repeats, len(cfg.pattern)
-    ps = [_unstack(params["stack"][str(i)], R) for i in range(n)]
-    cs = [[None] * R if caches is None
-          else _unstack(caches["stack"][str(i)], R) for i in range(n)]
-    for r in range(R):
-        yield True, [(cfg.pattern[i], ps[i][r], cs[i][r]) for i in range(n)]
+    for blocks in _stack_layers(cfg, params["stack"], caches):
+        yield True, blocks
 
 
 def _acc_aux(total: dict, aux: dict) -> dict:
@@ -139,15 +180,25 @@ def _acc_aux(total: dict, aux: dict) -> dict:
 # Full sequence
 # ---------------------------------------------------------------------------
 
+def _write_cross(cache: dict | None, kv) -> None:
+    if cache is not None:
+        for key, t in zip(("k", "v"), kv):
+            cache["cross"][key].copy_(t)
+
+
 def _apply_block(cfg, blk: BlockCfg, p: dict, x: torch.Tensor,
-                 positions: torch.Tensor, cache: dict | None):
+                 positions: torch.Tensor, cache: dict | None,
+                 memory: torch.Tensor | None = None):
     """One block: ``(x, aux)``. With ``cache`` the attention's K/V (gqa)
     or latent ckv / k_rope (mla) are written into the head of the cache's
     max_len buffers and its ``len`` set to S; a mamba2 block writes its
-    state after the last position. ``aux`` holds a MoE FFN's stats, empty
-    for a dense one or none."""
+    state after the last position; a cross-attention (the ``cross_attn``
+    mixer, tanh(``xgate``)-gated, or the ``cross`` sub-block after the
+    mixer) attends to ``memory`` and writes the memory's K/V. ``aux``
+    holds a MoE FFN's stats, empty for a dense one or none."""
     S = x.shape[1]
-    h = L.apply_norm(cfg, p["mixer_norm"], x)
+    if blk.mixer != "none":
+        h = L.apply_norm(cfg, p["mixer_norm"], x)
     if blk.mixer == "mamba2":
         if cache is None:
             o = M2.mamba2_forward(p["mixer"], cfg, h)
@@ -156,7 +207,11 @@ def _apply_block(cfg, blk: BlockCfg, p: dict, x: torch.Tensor,
             for key, t in st.items():
                 cache["ssm"][key].copy_(t)
         x = x + o
-    else:
+    elif blk.mixer == "cross_attn":
+        o, kv = L.cross_attn_forward(p["mixer"], cfg, h, memory)
+        x = x + torch.tanh(p["xgate"]).to(x.dtype) * o
+        _write_cross(cache, kv)
+    elif blk.mixer in ("gqa", "mla"):
         if blk.mixer == "gqa":
             o, (k, v) = L.gqa_forward(p["mixer"], cfg, h, positions)
             new = {"k": k, "v": v}
@@ -169,6 +224,11 @@ def _apply_block(cfg, blk: BlockCfg, p: dict, x: torch.Tensor,
             for key, t in new.items():
                 a[key][:, :S] = t.to(a[key].dtype)
             a["len"].fill_(S)
+    if blk.cross:
+        h = L.apply_norm(cfg, p["cross_norm"], x)
+        o, kv = L.cross_attn_forward(p["cross"], cfg, h, memory)
+        x = x + o
+        _write_cross(cache, kv)
     if blk.ffn == "none":
         return x, {}
     h = L.apply_norm(cfg, p["ffn_norm"], x)
@@ -178,35 +238,83 @@ def _apply_block(cfg, blk: BlockCfg, p: dict, x: torch.Tensor,
     return x + o, aux
 
 
-def _apply_blocks(cfg, blocks, x, positions):
+def _apply_blocks(cfg, blocks, x, positions, memory):
     aux_total: dict = {}
     for blk, p, c in blocks:
-        x, aux = _apply_block(cfg, blk, p, x, positions, c)
+        x, aux = _apply_block(cfg, blk, p, x, positions, c, memory)
         aux_total = _acc_aux(aux_total, aux)
     return x, aux_total
 
 
 def forward(cfg: ModelConfig, params: dict, acts: torch.Tensor,
-            positions: torch.Tensor, *, caches: dict | None = None):
-    """acts: (B, S, D) token embeddings from the PS. Returns ``(hidden
-    states after the final norm, aux)``, ``aux`` the MoE stats summed over
-    the layers (empty without MoE blocks); with ``caches`` (from
-    :func:`cache_init`) every block's K/V or latents are written into
-    them. With ``cfg.remat`` and grad enabled, each stack layer is
-    checkpointed (the JAX package's ``jax.checkpoint`` of the scanned
-    body): its activations are recomputed in the backward, the attention
-    kernel included."""
-    _check_ported(cfg)
+            positions: torch.Tensor, memory: torch.Tensor | None = None, *,
+            caches: dict | None = None):
+    """acts: (B, S, D) token embeddings from the PS; positions (B, S);
+    memory (B, M, d_memory) for cross-attention (an encoder-decoder's
+    encoded frames, :func:`encode`). Returns ``(hidden states after the
+    final norm, aux)``, ``aux`` the MoE stats summed over the layers
+    (empty without MoE blocks); with ``caches`` (from :func:`cache_init`)
+    every block's K/V or latents are written into them. An
+    encoder-decoder adds ``dec_pos_emb[positions]`` first. With
+    ``cfg.remat`` and grad enabled, each stack layer is checkpointed (the
+    JAX package's ``jax.checkpoint`` of the scanned body): its activations
+    are recomputed in the backward, the attention kernel included."""
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
     x, aux_total = acts, {}
+    if cfg.is_encdec:
+        x = x + params["dec_pos_emb"][positions].to(x.dtype)
     for stacked, blocks in _layers(cfg, params, caches):
         if remat and stacked:
             x, aux = checkpoint(_apply_blocks, cfg, blocks, x, positions,
-                                use_reentrant=False)
+                                memory, use_reentrant=False)
         else:
-            x, aux = _apply_blocks(cfg, blocks, x, positions)
+            x, aux = _apply_blocks(cfg, blocks, x, positions, memory)
         aux_total = _acc_aux(aux_total, aux)
     return L.apply_norm(cfg, params["final_norm"], x), aux_total
+
+
+def _encoder_layer(ecfg: ModelConfig, blocks, x: torch.Tensor):
+    """One encoder layer: per block a non-causal self-attention (no RoPE,
+    no window, no cap, as in JAX) and the MLP, each pre-normed."""
+    B, S, _ = x.shape
+    for _, p, _ in blocks:
+        h = L.apply_norm(ecfg, p["mixer_norm"], x)
+        q, k, v = L._qkv(p["mixer"], ecfg, h)
+        o = L.grouped_attention(q, k, v,
+                                scale=1.0 / math.sqrt(ecfg.head_dim),
+                                causal=False)
+        x = x + o.reshape(B, S, -1) @ p["mixer"]["wo"]
+        h = L.apply_norm(ecfg, p["ffn_norm"], x)
+        x = x + L.mlp_forward(p["ffn"], ecfg, h)
+    return x
+
+
+def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor
+           ) -> torch.Tensor:
+    """Whisper-style encoder over precomputed (stub) frame embeddings:
+    frames (B, M, d_memory) -> memory (B, M, D): ``in_proj``, the learned
+    ``pos_emb`` of the first M positions, the encoder's layers (each
+    checkpointed under the encoder's ``remat`` when grad is enabled, as
+    the JAX package checkpoints its scanned body) and its final norm.
+    Every layer's attention is the kernel on the card (Sq = Sk = M)."""
+    ecfg, enc = cfg.encoder, params["encoder"]
+    x = frames @ enc["in_proj"]
+    x = x + enc["pos_emb"][None, :x.shape[1]].to(x.dtype)
+    remat = ecfg.remat and torch.is_grad_enabled()
+    for blocks in _stack_layers(ecfg, enc["stack"], None):
+        x = (checkpoint(_encoder_layer, ecfg, blocks, x, use_reentrant=False)
+             if remat else _encoder_layer(ecfg, blocks, x))
+    return L.apply_norm(ecfg, enc["final_norm"], x)
+
+
+def _memory(cfg: ModelConfig, params: dict, memory, like: torch.Tensor):
+    """The memory the cross-attentions read: ``memory`` (numpy or a
+    tensor) on ``like``'s device and dtype, encoded first for an
+    encoder-decoder; None without a memory."""
+    if memory is None:
+        return None
+    memory = torch.as_tensor(memory, device=like.device, dtype=like.dtype)
+    return encode(cfg, params, memory) if cfg.is_encdec else memory
 
 
 # ---------------------------------------------------------------------------
@@ -216,23 +324,23 @@ def forward(cfg: ModelConfig, params: dict, acts: torch.Tensor,
 def lm_loss(cfg: ModelConfig, params: dict, acts: torch.Tensor, targets,
             mask, memory=None):
     """Next-token cross entropy. acts: (B, S, D) embedding activations;
-    targets: (B, S) integer; mask: (B, S). The logits in fp32 with the pad
-    columns at -1e30, their logsumexp, the target logit (a gather: the
-    arithmetic of the JAX package's one-hot sum), and the masked mean over
-    ``max(sum(mask), 1)``. With MoE blocks the loss adds
+    targets: (B, S) integer; mask: (B, S); memory: (B, M, d_memory)
+    patches or, for an encoder-decoder, frames (numpy or a tensor, moved
+    to the activations' device and dtype), encoded first. The logits in
+    fp32 with the pad columns at -1e30, their logsumexp, the target logit
+    (a gather: the arithmetic of the JAX package's one-hot sum), and the
+    masked mean over ``max(sum(mask), 1)``. With MoE blocks the loss adds
     ``moe_aux_total`` of the stats averaged over the layers, as the JAX
     package does. Returns ``(loss, {"loss" (the cross entropy), "ppl_log"
     and, with MoE blocks, "moe_balance", "moe_z", "moe_drop_frac" summed
     over the layers})``."""
-    if memory is not None or cfg.is_encdec:
-        raise NotImplementedError("encoder-decoder models are not ported "
-                                  "yet")
     dev = acts.device
     targets = torch.as_tensor(targets, device=dev).long()
     mask = torch.as_tensor(mask, device=dev).float()
     B, S = targets.shape
     positions = torch.arange(S, device=dev)[None].expand(B, S)
-    x, aux = forward(cfg, params, acts, positions)
+    memory = _memory(cfg, params, memory, acts)
+    x, aux = forward(cfg, params, acts, positions, memory)
     logits = _logits(cfg, params, x)                         # (B, S, Vp)
     if cfg.padded_vocab > cfg.vocab_size:                    # mask pads
         cols = torch.arange(cfg.padded_vocab, device=dev)
@@ -254,25 +362,39 @@ def lm_loss(cfg: ModelConfig, params: dict, acts: torch.Tensor, targets,
 # Serving: prefill + single-token decode against per-layer caches
 # ---------------------------------------------------------------------------
 
-def _block_cache_init(cfg, blk: BlockCfg, batch, max_len, dtype, *,
-                      lead=(), device=None) -> dict:
+def _block_cache_init(cfg, blk: BlockCfg, batch, max_len, dtype,
+                      memory_len, window, *, lead=(), device=None) -> dict:
+    kw = dict(lead=lead, device=device)
+    c = {}
     if blk.mixer == "mamba2":       # fixed-size: no max_len
-        return {"ssm": M2.mamba2_cache_init(cfg, batch, dtype, lead=lead,
-                                            device=device)}
-    init = L.gqa_cache_init if blk.mixer == "gqa" else L.mla_cache_init
-    return {"attn": init(cfg, batch, max_len, dtype, lead=lead,
-                         device=device)}
+        c["ssm"] = M2.mamba2_cache_init(cfg, batch, dtype, **kw)
+    elif blk.mixer == "gqa":
+        c["attn"] = L.gqa_cache_init(cfg, batch, max_len, dtype,
+                                     window=window, **kw)
+    elif blk.mixer == "mla":
+        c["attn"] = L.mla_cache_init(cfg, batch, max_len, dtype, **kw)
+    if blk.mixer == "cross_attn" or blk.cross:
+        shape = (*lead, batch, memory_len, cfg.n_kv_heads, cfg.head_dim)
+        c["cross"] = {k: torch.zeros(shape, dtype=dtype, device=device)
+                      for k in ("k", "v")}
+    return c
 
 
 def cache_init(cfg: ModelConfig, batch: int, max_len: int,
-               dtype=torch.float32, device=None) -> dict:
-    _check_ported(cfg)
-    caches = {f"prologue_{i}": _block_cache_init(
-        cfg, blk, batch, max_len, dtype, device=device)
-        for i, blk in enumerate(cfg.prologue)}
+               dtype=torch.float32, device=None, memory_len: int = 0, *,
+               window: int | None = None) -> dict:
+    """Zero caches for ``batch`` sequences of up to ``max_len`` positions
+    and a memory of ``memory_len`` (the JAX package's ``cache_init``): a
+    sliding-window gqa cache is a ring of ``min(max_len, window)`` slots,
+    ``window`` the config's unless given (0: full length, as the
+    prefill's)."""
+    args = (batch, max_len, dtype, memory_len, window)
+    caches = {f"prologue_{i}": _block_cache_init(cfg, blk, *args,
+                                                 device=device)
+              for i, blk in enumerate(cfg.prologue)}
     caches["stack"] = {str(i): _block_cache_init(
-        cfg, blk, batch, max_len, dtype, lead=(cfg.pattern_repeats,),
-        device=device) for i, blk in enumerate(cfg.pattern)}
+        cfg, blk, *args, lead=(cfg.pattern_repeats,), device=device)
+        for i, blk in enumerate(cfg.pattern)}
     caches["pos"] = torch.zeros((batch,), dtype=torch.int32, device=device)
     return caches
 
@@ -281,24 +403,51 @@ def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     return (x @ params["lm_head"]).float()
 
 
+def _cross_decode(p: dict, cfg, x: torch.Tensor, ckv: dict) -> torch.Tensor:
+    """The decode's cross-attention of (B, 1, D) against the memory's
+    cached K/V (B, M, Hkv, Dh): the JAX package's ``grouped_attention`` at
+    Sq = 1 is ``_attn_naive``, whose arithmetic is the plain
+    :func:`~repro_torch.models.layers.decode_attention` with every one of
+    the M positions valid (decode attention is plain torch)."""
+    B = x.shape[0]
+    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, 1, Hkv, H // Hkv, Dh)
+    if cfg.qk_norm:
+        q = L.rmsnorm(q, p["q_norm"]["w"], cfg.norm_eps)
+    M = ckv["k"].shape[1]
+    n = torch.full((B,), M, dtype=torch.int32, device=x.device)
+    o = L.decode_attention(q, ckv["k"], ckv["v"], n,
+                           scale=1.0 / math.sqrt(Dh))
+    return o.reshape(B, 1, -1) @ p["wo"]
+
+
 def decode_step(cfg: ModelConfig, params: dict, acts: torch.Tensor,
                 caches: dict):
     """One-token decode. acts: (B, 1, D) embedding of the new token.
     Updates ``caches`` in place and returns ``(logits (B, 1, padded_vocab)
     fp32 with the pad columns at -1e30, caches)``. A MoE FFN routes the B
     tokens of the step together (its capacity from B), as in the JAX
-    package."""
-    _check_ported(cfg)
+    package. An encoder-decoder adds ``dec_pos_emb[pos]``; the
+    cross-attentions read the memory's K/V that the prefill cached."""
     x = acts
+    if cfg.is_encdec:
+        x = x + params["dec_pos_emb"][caches["pos"].long()][:, None].to(
+            x.dtype)
     for blk, p, c in (b for _, blocks in _layers(cfg, params, caches)
                       for b in blocks):
-        h = L.apply_norm(cfg, p["mixer_norm"], x)
+        if blk.mixer != "none":
+            h = L.apply_norm(cfg, p["mixer_norm"], x)
         if blk.mixer == "mamba2":
-            o, _ = M2.mamba2_decode(p["mixer"], cfg, h, c["ssm"])
-        else:
+            x = x + M2.mamba2_decode(p["mixer"], cfg, h, c["ssm"])[0]
+        elif blk.mixer == "cross_attn":
+            o = _cross_decode(p["mixer"], cfg, h, c["cross"])
+            x = x + torch.tanh(p["xgate"]).to(x.dtype) * o
+        elif blk.mixer in ("gqa", "mla"):
             decode = L.gqa_decode if blk.mixer == "gqa" else L.mla_decode
-            o, _ = decode(p["mixer"], cfg, h, c["attn"])
-        x = x + o
+            x = x + decode(p["mixer"], cfg, h, c["attn"])[0]
+        if blk.cross:
+            h = L.apply_norm(cfg, p["cross_norm"], x)
+            x = x + _cross_decode(p["cross"], cfg, h, c["cross"])
         if blk.ffn == "none":
             continue
         h = L.apply_norm(cfg, p["ffn_norm"], x)
@@ -315,15 +464,21 @@ def decode_step(cfg: ModelConfig, params: dict, acts: torch.Tensor,
 
 
 def prefill(cfg: ModelConfig, params: dict, acts: torch.Tensor,
-            max_len: int | None = None):
+            memory=None, max_len: int | None = None):
     """Full-sequence prefill: caches of ``max(max_len, S)`` positions with
-    the prompt's K/V (or latents) in their head, and the last token's
-    logits (B, 1, padded_vocab) fp32, the pad columns NOT masked (as in
-    the JAX package: the caller slices ``[:vocab_size]``)."""
+    the prompt's K/V (or latents) in their head (full length with a
+    sliding window too: the JAX package's padded prefill cache), the
+    memory's K/V in the cross-attention caches (``memory`` as
+    :func:`lm_loss` takes it, encoded first for an encoder-decoder), and
+    the last token's logits (B, 1, padded_vocab) fp32, the pad columns
+    NOT masked (as in the JAX package: the caller slices
+    ``[:vocab_size]``)."""
     B, S, _ = acts.shape
     positions = torch.arange(S, device=acts.device)[None].expand(B, S)
+    memory = _memory(cfg, params, memory, acts)
     caches = cache_init(cfg, B, max(S, max_len or 0), acts.dtype,
-                        acts.device)
-    x, _ = forward(cfg, params, acts, positions, caches=caches)
+                        acts.device,
+                        0 if memory is None else memory.shape[1], window=0)
+    x, _ = forward(cfg, params, acts, positions, memory, caches=caches)
     caches["pos"].fill_(S)
     return _logits(cfg, params, x[:, -1:]), caches

@@ -827,6 +827,10 @@ FLASH_CASES = [  # (B, Hq, Hkv, Sq, Sk, Dh, causal, window, q_offset, x)
     (1, 32, 8, 300, 300, 64, True, 0, 0, 1),      # granite's 32 / 8 heads
     (1, 16, 2, 300, 300, 64, True, 0, 0, 1),      # a GQA group of 8
     (1, 32, 8, 300, 300, 128, True, 0, 0, 1),     # Jamba's 32 / 8 of 128
+    # cross-attention: non-causal, Sq != Sk, the last key tile ragged
+    (1, 4, 4, 300, 190, 64, False, 0, 0, 1),
+    # ... with a GQA group of 8 at a 128-wide head (Llama-3.2-Vision's)
+    (1, 16, 2, 200, 160, 128, False, 0, 0, 1),
 ]
 
 
@@ -943,6 +947,46 @@ def test_cuda_flash_attention_grads_match_plain_version(cuda_device, case):
                           **kw)
     assert ops.launch_counts()["flash_attention_fwd"] == 1
     assert outs[0].shape == (B, S, Hkv, G, Dv)
+    assert torch.allclose(outs[0], outs[1], atol=2e-5, rtol=0)
+    for name, a, b in zip("qkv", *grads):
+        assert a.shape == b.shape
+        share = float((a - b).abs().max() / b.abs().max())
+        assert share <= 1e-3, (name, share)
+
+
+# the differentiable attention at a cross-attention's shape (non-causal,
+# Sq != Sk): (B, Hkv, G, Sq, Sk, Dh)
+FLASH_CROSS_GRAD_CASES = {
+    "whisper_cross": (1, 4, 1, 300, 190, 64),
+    "vision_cross_g8": (1, 2, 8, 200, 160, 128),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FLASH_CROSS_GRAD_CASES))
+def test_cuda_flash_attention_cross_grads_match_plain_version(cuda_device,
+                                                              case):
+    """``flash.flash_attention`` non-causal at Sq != Sk (one launch):
+    output within 2e-5 and dq, dk, dv within 1e-3 of the largest |grad|
+    of autograd through the plain attention, as the causal cases."""
+    from repro_torch.models import flash, layers
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, Hkv, G, Sq, Sk, Dh = FLASH_CROSS_GRAD_CASES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(Sq + Sk + Dh)
+    q = torch.randn((B, Sq, Hkv, G, Dh), generator=g, device=cuda_device)
+    k, v = (torch.randn((B, Sk, Hkv, Dh), generator=g, device=cuda_device)
+            for _ in range(2))
+    do = torch.randn((B, Sq, Hkv, G, Dh), generator=g, device=cuda_device)
+    kw = dict(scale=Dh ** -0.5, causal=False, window=0)
+    outs, grads = [], []
+    ops.reset_launch_counts()
+    for fn in (flash.flash_attention,
+               lambda *a, **w: layers._attn_naive(*a, q_offset=0, **w)):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = fn(*leaves, **kw)
+        outs.append(o.detach())
+        grads.append(torch.autograd.grad(o, leaves, do))
+    assert ops.launch_counts()["flash_attention_fwd"] == 1
     assert torch.allclose(outs[0], outs[1], atol=2e-5, rtol=0)
     for name, a, b in zip("qkv", *grads):
         assert a.shape == b.shape

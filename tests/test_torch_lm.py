@@ -1,9 +1,11 @@
 """The port's LM serving path (repro_torch/models, launch/serve) against the
 JAX package on the CPU: layers, prefill and decode with their KV caches,
 and the serve driver from the JAX package's own state (granite, and the
-reduced variants of every other ported architecture: qwen3, phi3,
-deepseek-coder, and DeepSeek-V2's mla + MoE, held while their routing is
-the JAX package's, as ``test_torch_mla.py`` holds it).
+reduced variants of every other architecture: qwen3, phi3,
+deepseek-coder, DeepSeek-V2's mla + MoE, held while their routing is the
+JAX package's, as ``test_torch_mla.py`` holds it, Mamba-2, Jamba,
+Llama-3.2-Vision and Whisper, the last two over the memory the JAX serve
+draws).
 
 Tolerance (allclose): XLA and torch reduce matmuls and softmax sums in
 other orders, and the port's prefill attention runs the flash kernel's
@@ -58,11 +60,8 @@ def _close(got, want, what=""):
 @pytest.mark.parametrize("name", [a for a in ARCH_IDS if a != "mamba2_1_3b"]
                          + ["granite-3-2b", "mamba2_1_3b"])
 def test_configs_copy_the_jax_package(name, reduced):
-    """Every ported architecture is the JAX package's configuration, field
-    for field (the reduced variant too); one that is not ported raises."""
-    for unported in ("whisper_medium", "llama_3_2_vision_90b"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            get_config(unported, reduced=reduced)
+    """Every architecture is the JAX package's configuration, field for
+    field (the reduced variant too, and an encoder-decoder's encoder)."""
     t, j = get_config(name, reduced=reduced), \
         jget_config(name, reduced=reduced)
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
@@ -161,23 +160,55 @@ def test_decode_attention_matches_jax():
                                    scale=0.25, window=window))
 
 
-def test_unported_paths_raise():
-    q = torch.zeros((1, 4, 1, 1, 8))
-    k = torch.zeros((1, 4, 1, 8))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        L.grouped_attention(q, k, k, scale=1.0, softcap=30.0)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        L.gqa_cache_init(CFG.replace(sliding_window=8), 1, 4)
-    # what stays unported of the model: the cross-attention mixers and
-    # the encoder-decoder models
-    for blk in (BlockCfg("cross_attn", "dense"),
-                BlockCfg("gqa", "dense", cross=True),
-                BlockCfg("mamba2", "none", cross=True)):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            T.init_dense(CFG.replace(pattern=(blk,)), torch.Generator())
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        T.lm_loss(CFG, {}, torch.zeros((1, 4, CFG.d_model)),
-                  np.zeros((1, 4)), np.ones((1, 4)), memory=torch.zeros(1))
+# every block kind of the JAX package in one narrow model: mixers x FFNs x
+# the cross-attention sub-block
+ALL_KINDS = [BlockCfg(m, f, c) for m in ("gqa", "mla", "mamba2",
+                                         "cross_attn", "none")
+             for f in ("dense", "moe", "none") for c in (False, True)]
+KINDS = dict(d_model=64, n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128,
+             vocab_size=128, n_experts=4, moe_top_k=2, moe_d_ff=32,
+             capacity_factor=8.0, kv_lora_rank=32, rope_head_dim=8,
+             v_head_dim=16, ssm_state=16, ssm_head_dim=16, ssm_chunk=4,
+             n_memory_tokens=8, d_memory=24, pattern_repeats=2)
+
+
+def _shapes(tree):
+    return jax.tree.map(lambda a: tuple(a.shape), tree)
+
+
+def test_arch_ids_and_every_block_kind_are_ported():
+    """The port's ``ARCH_IDS`` are the JAX package's, and ``init_dense``
+    and ``cache_init`` build the JAX package's trees, key for key and
+    shape for shape, for every block kind (each mixer, FFN and the
+    cross-attention sub-block, the ``cross_attn`` mixer's gate); a
+    prefill and decode steps through all of them give finite logits."""
+    from repro.configs import ARCH_IDS as JARCH_IDS
+    assert set(ARCH_IDS) == set(JARCH_IDS)
+    cfg_j = jget_config("granite_3_2b").replace(pattern=tuple(ALL_KINDS),
+                                                **KINDS)
+    cfg = get_config("granite_3_2b").replace(pattern=tuple(ALL_KINDS),
+                                             **KINDS)
+    want = jax.eval_shape(lambda k: JT.init_dense(cfg_j, k),
+                          jax.random.PRNGKey(0))
+    dense = T.init_dense(cfg, torch.Generator().manual_seed(0))
+    assert _shapes(dense) == _shapes(want)
+    assert all(p["xgate"].shape == (2,) and not p["xgate"].any()
+               for p in dense["stack"].values() if "xgate" in p)
+    jc = jax.eval_shape(lambda: JT.cache_init(cfg_j, 2, 9, jnp.float32,
+                                              memory_len=8))
+    tc = T.cache_init(cfg, 2, 9, memory_len=8, device="cpu")
+    assert _shapes(tc) == _shapes(jc)
+    for p in dense["stack"].values():
+        if "xgate" in p:
+            p["xgate"].fill_(0.5)
+    rng = np.random.default_rng(0)
+    acts = torch.tensor(rng.standard_normal((2, 6, 64)), dtype=torch.float32)
+    mem = rng.standard_normal((2, 8, 24)).astype(np.float32) * 0.1
+    logits, caches = T.prefill(cfg, dense, acts, mem, max_len=9)
+    for _ in range(3):
+        logits, caches = T.decode_step(cfg, dense, acts[:, :1], caches)
+        assert torch.isfinite(logits[..., :cfg.vocab_size]).all()
+    assert int(caches["pos"][0]) == 9
 
 
 # ---------------------------------------------------------------------------
@@ -248,15 +279,16 @@ def _jax_state(cfg_j, seed, backend_name):
     return dense, backend, emb
 
 
-def _jax_margins(cfg_j, dense, backend, emb, prompts, tokens):
+def _jax_margins(cfg_j, dense, backend, emb, prompts, tokens, memory=None):
     """Top-2 margin of JAX's logits at every generated step, along JAX's
-    own greedy trajectory (teacher forcing ``tokens``)."""
+    own greedy trajectory (teacher forcing ``tokens``), over ``memory``
+    (the serve's) for a model with cross-attention."""
     def top2(logits):
         s = np.sort(np.asarray(logits), axis=-1)
         return s[:, -1] - s[:, -2]
 
     acts, _ = backend.lookup(emb, jnp.asarray(prompts))
-    logits, caches = JT.prefill(cfg_j, dense, acts,
+    logits, caches = JT.prefill(cfg_j, dense, acts, memory=memory,
                                 max_len=prompts.shape[1] + tokens.shape[1])
     out = [top2(logits[:, 0, :cfg_j.vocab_size])]
     for t in range(tokens.shape[1] - 1):
@@ -310,8 +342,9 @@ def test_serve_from_jax_state_matches_jax(backend_name, layers):
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS
                                   if a != "granite_3_2b"])
 def test_reduced_serve_matches_jax(arch):
-    """``serve`` of each other ported architecture's reduced variant from
-    the JAX serve's own state, under the token-or-margin rule; a MoE
+    """``serve`` of each other architecture's reduced variant from the JAX
+    serve's own state (its memory drawn as the JAX serve draws it), under
+    the token-or-margin rule; a MoE
     model's rows are compared up to the step of its first MoE call that
     routed a token otherwise than the JAX package (within 1e-5 of a top-k
     boundary: ``test_torch_moe.routed_alike``)."""
@@ -333,9 +366,9 @@ def test_reduced_serve_matches_jax(arch):
     routed = G if n_moe == 0 else \
         routed_alike(jrec, trec, cfg.moe_top_k) // n_moe
     assert got["tokens"].shape == want["tokens"].shape == (B, G)
-    margins = _jax_margins(cfg_j, dense, jbackend, emb,
-                           tserve.make_prompts(cfg, B, P, seed),
-                           want["tokens"])
+    prompts, memory = tserve.make_inputs(cfg, B, P, seed)
+    margins = _jax_margins(cfg_j, dense, jbackend, emb, prompts,
+                           want["tokens"], memory)
     compared = 0
     for b in range(B):
         for t in range(routed):
