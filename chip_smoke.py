@@ -313,7 +313,32 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    (``spawn_cluster``, ``connect_remote_backends``, ``_online_loop``; no
    spool): trainer steps/s and serving p50/p99/QPS under training. The
    lossy check runs on the timed runs' batches, over their loss spike.
-23. The launcher, ``repro_torch.launch.train.main`` on the card: 8
+23. The mesh paths (``mesh_phase``): the script runs itself as 4
+   ``--mesh-worker`` processes on the one card, a gloo world meshed data
+   2 x model 2 (NCCL takes one card a rank), and as a world of one over
+   NCCL through ``make_host_mesh()``. Each worker first checks that its
+   backend carries the collectives the paths call on CUDA tensors
+   (``all_reduce`` SUM and MAX, ``all_gather_into_tensor``,
+   ``all_to_all_single``); a part whose collectives are not carried is
+   recorded, not run. The gloo world: (a) kwai-dlrm at full width under
+   the mesh, hybrid(3) for 6 steps and sync for 2 (each data rank on 256
+   rows of the 512, the 32 tables' rows over all 4 ranks, 15,625 a
+   rank), against the port's trainer in one process on the card from the
+   same seed: the first step's pooled lookups bit for bit, the losses
+   within rtol 1e-4, tables, accumulators and dense parameters in
+   ``card_vs_cpu``'s classes; per rank and step 1 bag launch and 64
+   ``fused_backward`` launches (a sum-only and a dedup-and-apply per
+   table), the collectives and ms a step; (b) deepseek-v2-lite-16b's
+   MoE layer (64 experts top-6, 2 shared, d_model 2,048; 32 experts a
+   model rank), B=2, S=2,048, the psum and the a2a dispatch at capacity
+   factor 8 against ``moe_forward`` with no mesh: the plain class (rtol
+   1e-4 / atol 1e-5) or twice the GEMM-only distance (the no-mesh layer
+   against itself in fp64); (c) 32 decode steps after a 2,048-token
+   prefill of granite-3-2b's attention and DeepSeek-V2-Lite's MLA (B=4,
+   a 4,096-position cache, 2,048 positions a model rank) against the
+   decode with no mesh, within 3e-5 of the largest output. The NCCL
+   world of one decodes granite through ``decode_dist`` the same way.
+24. The launcher, ``repro_torch.launch.train.main`` on the card: 8
    pipelined steps of the CTR task, then ``--task lm --steps 8 --batch 8
    --seq-len 128 --eval-every 4`` (the launcher's lm-100m), finite losses.
 
@@ -384,6 +409,7 @@ from repro_torch.core import adapters  # noqa: E402
 from repro_torch.core import backend as BK  # noqa: E402
 from repro_torch.core import compression as C  # noqa: E402
 from repro_torch.core import dedup as D  # noqa: E402
+from repro_torch.core import embedding_ps as PS  # noqa: E402
 from repro_torch.core.hybrid import PersiaTrainer, TrainMode  # noqa: E402
 from repro_torch.core.pipeline import STAGES, PipelinedTrainer  # noqa: E402
 from repro_torch.data.ctr import CTR_BENCHMARKS  # noqa: E402
@@ -406,6 +432,8 @@ from repro_torch.net.rpc import RpcClient  # noqa: E402
 from repro_torch.optim.optimizers import OptConfig  # noqa: E402
 from repro_torch.serving import (ServingConfig, ServingService,  # noqa: E402
                                  StateCell, TrafficModel)
+from repro_torch.sharding import partition as SP  # noqa: E402
+from repro_torch.utils import Mesh, set_mesh  # noqa: E402
 from repro_torch.utils import tree_leaves, tree_map  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 outside the
@@ -534,6 +562,21 @@ ENCDEC_TRAIN_CPU = {"layers": 2, "batch": 1, "seq": 256, "steps": 2}
 VLM_CPU = {"batch": 1, "prompt": 256, "gen": 4}
 GRANITE_CUTS = {"sliding_window": {"sliding_window": 64},
                 "softcap": {"attn_logit_softcap": 50.0}}
+
+# the mesh paths: a world of 4 gloo processes on the one card, mesh (data
+# 2, model 2); kwai-dlrm at full width (each data rank on 256 of the 512
+# rows, the tables over all 4 ranks: 15,625 rows a rank) for hybrid(3) and
+# sync steps; the expert-parallel MoE at deepseek-v2-lite-16b's layer
+# widths; the sequence-sharded decode at granite-3-2b's attention and
+# DeepSeek-V2-Lite's MLA after a prefill; then a world of one over NCCL
+MESH_SHAPE, MESH_AXES = (2, 2), ("data", "model")
+MESH_TRAIN = (("hybrid", TrainMode.hybrid(TAU), 6),
+              ("sync", TrainMode.sync(), 2))
+MESH_MOE = {"batch": 2, "seq": 2048, "cf": 8.0}
+MESH_DECODE = {"batch": 4, "cache": 4096, "prefill": 2048, "steps": 32}
+MESH_SEED = SEED + 70
+MESH_COLLECTIVES = ("all_reduce", "all_gather_into_tensor",
+                    "all_to_all_single")
 
 KERNELS = {
     "embedding_bag": {"source": "src/repro_torch/kernels/csrc/bag.cu",
@@ -5231,6 +5274,537 @@ def remote_phase(dev, sharded):
     return paths, rec
 
 
+# ---------------------------------------------------------------------------
+# the mesh paths (mesh_phase): SPMD worlds of worker processes on the card
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def count_collectives():
+    """Counts the ``torch.distributed`` collectives the mesh paths call
+    (by name) while it is open."""
+    import torch.distributed as dist
+    calls = dict.fromkeys(MESH_COLLECTIVES, 0)
+
+    def counted(name, fn):
+        def call(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return call
+    with contextlib.ExitStack() as stack:
+        for name in MESH_COLLECTIVES:
+            stack.enter_context(mock.patch.object(
+                dist, name, counted(name, getattr(dist, name))))
+        yield calls
+
+
+def probe_collectives(mesh, dev) -> dict:
+    """Each collective the mesh paths use, once on CUDA tensors over the
+    mesh's group of every rank: True when it ran and gave the right
+    values, else the error it raised. Wrong values fail the run."""
+    import torch.distributed as dist
+    g, n, r = mesh.get_group(mesh.axis_names), mesh.n_ranks, mesh.rank
+    got = {}
+
+    def probe(name, fn):
+        try:
+            ok = fn()
+        except RuntimeError as e:        # the backend does not carry it
+            got[name] = f"{type(e).__name__}: {e}"[:300]
+            return
+        check(ok, f"mesh: {name} over {dist.get_backend()} gave wrong "
+              "values")
+        got[name] = True
+
+    def reduce(op, want):
+        x = torch.tensor([r + 1.0, -r], device=dev)
+        dist.all_reduce(x, op=op, group=g)
+        return torch.equal(x.cpu(), torch.tensor(want))
+
+    def gather():
+        out = torch.empty(2 * n, device=dev, dtype=torch.int32)
+        dist.all_gather_into_tensor(
+            out, torch.tensor([r, 10 * r], device=dev, dtype=torch.int32),
+            group=g)
+        return out.tolist() == [v for i in range(n) for v in (i, 10 * i)]
+
+    def a2a():
+        out = torch.empty(n, device=dev)
+        dist.all_to_all_single(out, torch.arange(n, device=dev) + 10.0 * r,
+                               group=g)
+        return out.tolist() == [10.0 * i + r for i in range(n)]
+
+    probe("all_reduce_sum", lambda: reduce(
+        dist.ReduceOp.SUM, [n * (n + 1) / 2, -n * (n - 1) / 2]))
+    probe("all_reduce_max", lambda: reduce(dist.ReduceOp.MAX, [float(n),
+                                                               0.0]))
+    probe("all_gather_into_tensor", gather)
+    probe("all_to_all_single", a2a)
+    torch.cuda.synchronize()
+    return got
+
+
+def mesh_batch_block(mesh, batch) -> dict:
+    """A global batch's block of this rank (rows over the batch axes)."""
+    return {k: SP.local_block(mesh, SP.P(SP.BATCH), torch.from_numpy(
+        np.ascontiguousarray(v))).numpy() for k, v in batch.items()}
+
+
+def first_pooled(trainer, state, batch) -> dict:
+    """The training path's pooled lookups of ``batch`` (prepare, then the
+    stage's one bag launch), changing no state."""
+    st, dev_ids, _ = trainer._prepare(state, batch)
+    pooled, _ = trainer.decomposed_fns()[0](st.emb, dev_ids)
+    return pooled
+
+
+def shared_rows(spec) -> torch.Tensor:
+    """(padded rows,) bool: the physical rows that two or more logical ids
+    share under the uniform shuffle (at 62,500 rows about a quarter)."""
+    rows = spec.padded_rows(1)
+    pos = PS.shuffle_pos(torch.arange(spec.rows), rows)
+    return torch.bincount(pos, minlength=rows) > 1
+
+
+def table_agreement(mesh, trainer, got: dict, want: dict, shared) -> dict:
+    """A mesh state's table blocks (``got``) against the rank's blocks of
+    one process's (``want``): on the rows no two ids share, the tables
+    within rtol 1e-4 / atol 1e-6 and the accumulators within rtol 1e-3 /
+    atol 1e-12 (``card_vs_cpu``'s classes); on the shared rows the
+    largest differences, recorded. There the mesh put sums the ids'
+    gradients before the accumulator sees them (the JAX mesh path's
+    second dedup, on physical rows) and one process adds each id's
+    increment to the accumulator first (the JAX one-device path): two
+    definitions, not rounding."""
+    out = {"table": 0.0, "acc": 0.0, "table_shared": 0.0, "acc_shared": 0.0,
+           "off": []}
+    for n in trainer.collection.names:
+        spec = trainer.collection[n]
+        specs = SP.emb_state_specs(want[n], spec)
+        mask = SP.local_block(mesh, specs["acc"], shared).to(
+            got[n]["acc"].device)
+        for k, rtol, atol in (("table", 1e-4, 1e-6), ("acc", 1e-3, 1e-12)):
+            x, y = got[n][k], SP.local_block(mesh, specs[k], want[n][k])
+            d = (x - y).abs().reshape(mask.shape[0], -1).amax(1)
+            for key, rows in ((k, d[~mask]), (f"{k}_shared", d[mask])):
+                if rows.numel():
+                    out[key] = max(out[key], float(rows.max()))
+            close = torch.isclose(x, y, rtol=rtol, atol=atol).reshape(
+                mask.shape[0], -1).all(1)
+            if not bool(close[~mask].all()):
+                out["off"].append(f"{n}.{k}")
+    return out
+
+
+def mesh_train_rank(dev, mesh) -> dict:
+    """kwai-dlrm at full width under the mesh, per mode of MESH_TRAIN: the
+    main path's run from ``init`` (launches, collectives and ms a step
+    counted), then each step held against the port's single-process
+    trainer on the card, stage by stage from a common state as
+    ``router_card_vs_cpu`` holds the router: before each step the mesh
+    state becomes this rank's blocks of one process's state (its queues
+    cut over the batch axes: the ranks' popped halves, gathered, are its
+    put), both take the step, and the pooled lookups must be equal bit
+    for bit, the loss within rtol 1e-4, the dense parameters in
+    ``dense_agreement``'s class and the tables and accumulators in
+    ``table_agreement``'s. Whole trajectories part after the run's loss
+    spikes (rounding through Adam's sign steps, and the shared rows'
+    second definition), so the main run's distances are recorded, not
+    held. The first pooled lookups of the main run bit for bit."""
+    ds = CTR_BENCHMARKS["kwai_video"]
+    out = {}
+    for tag, mode, steps in MESH_TRAIN:
+        it = ds.sampler(TRAIN_B, seed=MESH_SEED)
+        batches = [next(it) for _ in range(steps)]
+        blocks = [mesh_batch_block(mesh, b) for b in batches]
+        tr = kwai_train_trainer(dev, mode)
+        with set_mesh(mesh):
+            st = tr.init(seed=MESH_SEED, batch_example=blocks[0])
+            start0 = tree_map(torch.clone, st.dense)
+            first = first_pooled(tr, st, blocks[0])
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            losses, ms = [], []
+            with count_collectives() as calls:
+                for b in blocks:
+                    t0 = time.perf_counter()
+                    st, m = tr.step(st, b)
+                    losses.append(float(m["loss"]))
+                    ms.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            launches, served = ops.launch_counts(), ops.table_counts()
+        shared = shared_rows(tr.collection[tr.collection.names[0]])
+        check(all(tr.collection[n].rows == tr.collection[
+            tr.collection.names[0]].rows for n in tr.collection.names),
+            "mesh: kwai-dlrm's tables differ in rows")
+        rt = kwai_train_trainer(dev, mode)
+        ref = rt.init(seed=MESH_SEED, batch_example=batches[0])
+        ref_first = first_pooled(rt, ref, batches[0])
+        bad = [n for n in first if not torch.equal(
+            first[n], SP.local_block(mesh, SP.P(SP.BATCH), ref_first[n]))]
+        del first, ref_first
+        per_step, ref_losses = [], []
+        for i, (b, blk) in enumerate(zip(batches, blocks)):
+            with set_mesh(mesh):
+                ms_ = tr.local_state(ref.to(dev))
+                pooled = first_pooled(tr, ms_, blk)
+                ms_, m = tr.step(ms_, blk)
+            start = tree_map(torch.clone, ref.dense)
+            ref_pooled = first_pooled(rt, ref, b)
+            ref, mr = rt.step(ref, b)
+            ref_losses.append(float(mr["loss"]))
+            one = {"loss": float(m["loss"]), "loss_one_process":
+                   float(mr["loss"]), "pooled_bit_exact": all(
+                       torch.equal(pooled[n], SP.local_block(
+                           mesh, SP.P(SP.BATCH), ref_pooled[n]))
+                       for n in pooled),
+                   **table_agreement(mesh, tr, ms_.emb, ref.emb, shared),
+                   **dense_agreement(start, ms_.dense, ref.dense, 1)}
+            one["ok"] = (one["ok"] and one["pooled_bit_exact"]
+                         and not one["off"] and bool(np.isclose(
+                             one["loss"], one["loss_one_process"],
+                             rtol=1e-4)))
+            per_step.append(one)
+            del ms_, pooled, ref_pooled, start
+        whole = table_agreement(mesh, tr, st.emb, ref.emb, shared)
+        out[tag] = {
+            "steps": steps, "losses": losses, "losses_one_process":
+            ref_losses, "first_lookup_bit_exact": not bad,
+            "first_lookup_off": bad[:4], "per_step": per_step,
+            "steps_ok": all(p["ok"] for p in per_step),
+            "whole_run": {"table_max_abs": whole["table"],
+                          "table_shared_max_abs": whole["table_shared"],
+                          "acc_max_abs": whole["acc"],
+                          **dense_agreement(start0, st.dense, ref.dense,
+                                            steps)},
+            "shared_row_share": float(shared.float().mean()),
+            "launches": launches, "tables": served,
+            "collectives_per_step": {k: v / steps for k, v in calls.items()},
+            "step_ms": ms}
+        del tr, st, rt, ref, start0
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_moe_rank(dev, mesh) -> dict:
+    """deepseek-v2-lite-16b's MoE layer (64 experts top-6, 2 shared, d_model
+    2,048, experts 1,408 wide) drawn whole from one seed on every rank,
+    which keeps its 32 experts and its batch row; the psum and the a2a
+    dispatch at capacity factor 8 against ``moe_forward`` with no mesh on
+    the same draw, on this rank's block. Rank 0 also runs the no-mesh
+    layer in fp64 (the experts' products in fp64): the fp32 run's
+    distance from it is the GEMMs' own."""
+    cfg = get_config(MOE_ARCH)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(MESH_SEED + 1)
+    p = lm_moe.moe_init(gen, cfg, device=dev)
+    x = torch.randn((MESH_MOE["batch"], MESH_MOE["seq"], cfg.d_model),
+                    generator=gen, device=dev)
+    cf = MESH_MOE["cf"]
+    ref, _ = lm_moe.moe_forward(p, cfg, x, cf)
+    rec = {"largest": float(ref.abs().max())}
+    if mesh.rank == 0:
+        p64 = tree_map(lambda t: t.double(), p)
+        ref64, _ = lm_moe.moe_forward(p64, cfg, x.double(), cf)
+        rec["gemm_only_max_abs"] = float((ref - ref64).abs().max())
+        del p64, ref64
+    specs = lm_moe._moe_param_specs(cfg)
+    blk = {k: ({kk: SP.local_block(mesh, specs[k][kk], vv).clone()
+                for kk, vv in v.items()} if isinstance(v, dict)
+               else SP.local_block(mesh, specs[k], v).clone())
+           for k, v in p.items()}
+    del p
+    torch.cuda.empty_cache()
+    rec["expert_bytes_per_rank"] = sum(blk[k].numel() * 4
+                                       for k in ("wg", "wu", "wd"))
+    xb = SP.local_block(mesh, SP.P(SP.BATCH), x).contiguous()
+    want = SP.local_block(mesh, SP.P(SP.BATCH), ref)
+    with set_mesh(mesh):
+        for disp in ("psum", "a2a"):
+            lm_moe.MOE_DISPATCH = disp
+            try:
+                lm_moe.moe_forward(blk, cfg, xb, cf)       # warm-up
+                with count_collectives() as calls:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    got, aux = lm_moe.moe_forward(blk, cfg, xb, cf)
+                    torch.cuda.synchronize()
+                    t = (time.perf_counter() - t0) * 1e3
+            finally:
+                lm_moe.MOE_DISPATCH = "psum"
+            rec[disp] = {
+                "max_abs": float((got - want).abs().max()),
+                "plain_class": bool(torch.allclose(got, want, rtol=1e-4,
+                                                   atol=1e-5)),
+                "ms": t, "collectives": dict(calls),
+                "aux": {k: float(v) for k, v in aux.items()}}
+    del blk, x, ref
+    torch.cuda.empty_cache()
+    return rec
+
+
+def decode_inputs(dev, kind: str) -> tuple:
+    """One attention layer of granite-3-2b (``gqa``) or DeepSeek-V2-Lite
+    (``mla``), its cache of MESH_DECODE's length filled by a prefill of
+    its first positions (the layer's own projections and RoPE: the K/V or
+    latents a prefill writes), and the decode steps' inputs, from one
+    seed."""
+    d = MESH_DECODE
+    cfg = get_config("granite_3_2b" if kind == "gqa" else MOE_ARCH)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(MESH_SEED + (2 if kind == "gqa" else 3))
+    init = lm_layers.gqa_init if kind == "gqa" else lm_layers.mla_init
+    p = init(gen, cfg, device=dev)
+    B, P = d["batch"], d["prefill"]
+    x = torch.randn((B, P, cfg.d_model), generator=gen, device=dev)
+    xs = torch.randn((d["steps"], B, 1, cfg.d_model), generator=gen,
+                     device=dev)
+    pos = torch.arange(P, device=dev).expand(B, P)
+    if kind == "gqa":
+        cache = lm_layers.gqa_cache_init(cfg, B, d["cache"], device=dev)
+        _, k, v = lm_layers._qkv(p, cfg, x)
+        cache["k"][:, :P] = lm_layers.apply_rope(k, pos, cfg.rope_theta)
+        cache["v"][:, :P] = v
+    else:
+        r = cfg.kv_lora_rank
+        cache = lm_layers.mla_cache_init(cfg, B, d["cache"], device=dev)
+        full = x @ p["wdkv"]
+        cache["ckv"][:, :P] = lm_layers.rmsnorm(full[..., :r],
+                                                p["kv_ln"]["w"],
+                                                cfg.norm_eps)
+        cache["k_rope"][:, :P] = lm_layers.apply_rope(
+            full[..., None, r:], pos, cfg.rope_theta)[:, :, 0]
+    cache["len"].fill_(P)
+    return cfg, p, cache, xs
+
+
+def mesh_decode_rank(dev, mesh, kinds=("gqa", "mla")) -> dict:
+    """MESH_DECODE's steps under the mesh (this rank's batch rows and
+    sequence span of the cache, through ``decode_dist``) against the same
+    decode with no mesh: every step's output within 3e-5 of the largest
+    (the JAX test's bound)."""
+    rec = {}
+    decode = {"gqa": lm_layers.gqa_decode, "mla": lm_layers.mla_decode}
+    for kind in kinds:
+        cfg, p, cache, xs = decode_inputs(dev, kind)
+        specs = SP.cache_specs(cache, cfg)
+        blk = {k: SP.local_block(mesh, specs[k], v).clone()
+               for k, v in cache.items()}
+        want, got, ms = [], [], []
+        for x in xs:
+            o, cache = decode[kind](p, cfg, x, cache)
+            want.append(SP.local_block(mesh, SP.P(SP.BATCH), o))
+        with set_mesh(mesh), count_collectives() as calls:
+            for x in xs:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                o, blk = decode[kind](
+                    p, cfg, SP.local_block(mesh, SP.P(SP.BATCH), x)
+                    .contiguous(), blk)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                got.append(o)
+        want, got = torch.stack(want), torch.stack(got)
+        largest = float(want.abs().max())
+        worst = float((got - want).abs().max())
+        rec[kind] = {"max_abs": worst, "largest": largest,
+                     "ok": worst <= 3e-5 * largest,
+                     "len": int(blk["len"][0]), "step_ms": ms,
+                     "collectives_per_step": {
+                         k: v / len(xs) for k, v in calls.items()},
+                     "seq_span": int(blk["k" if kind == "gqa"
+                                         else "ckv"].shape[1])}
+        del p, cache, blk
+        torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_worker(rank: int, world: int, backend: str, work: str,
+                device: str = "cuda") -> int:
+    """One rank of ``mesh_phase``'s worlds (``--mesh-worker rank world
+    backend workdir``): the gloo world of 4 runs the collective probes,
+    the trainer, the MoE and the decode; the NCCL world of one runs the
+    probes and the granite decode on ``make_host_mesh()``. Writes its
+    record to ``<workdir>/rank<rank>.json``. ``device="cpu"`` rehearses
+    it without a card."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    if device == "cuda":
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device visible", file=sys.stderr)
+            return 1
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        build.build_all()
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(
+        "cpu")
+    t0 = time.perf_counter()
+    dist.init_process_group(backend, init_method=f"file://{work}/rdzv",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = Mesh(MESH_SHAPE, MESH_AXES, device) if world > 1 \
+            else make_host_mesh(device)
+        rec = {"rank": rank, "backend": backend, "mesh": mesh.shape,
+               "collectives": probe_collectives(mesh, dev),
+               "setup_s": time.perf_counter() - t0}
+        carried = {k for k, v in rec["collectives"].items() if v is True}
+        parts = {"train": {"all_reduce_sum", "all_gather_into_tensor"},
+                 "moe": {"all_reduce_sum", "all_gather_into_tensor",
+                         "all_to_all_single"},
+                 "decode": {"all_reduce_sum", "all_reduce_max"}}
+        rec["not_carried"] = {k: sorted(v - carried)
+                              for k, v in parts.items() if v - carried}
+        for part, fn in (("train", mesh_train_rank), ("moe", mesh_moe_rank),
+                         ("decode", mesh_decode_rank)):
+            if part in rec["not_carried"] or (world == 1 and
+                                              part != "decode"):
+                continue
+            t = time.perf_counter()
+            rec[part] = fn(dev, mesh, ("gqa",)) if world == 1 else \
+                fn(dev, mesh)
+            rec[f"{part}_s"] = time.perf_counter() - t
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    Path(work, f"rank{rank}.json").write_text(json.dumps(rec))
+    return 0
+
+
+def mesh_phase(dev):
+    """The mesh paths on the card: a world of 4 gloo processes (mesh data
+    2 x model 2) and a world of one over NCCL, started together as
+    ``--mesh-worker`` processes of this script. Checks every rank's
+    record (the collectives gloo carries on CUDA tensors; kwai-dlrm under
+    the mesh against one process; the MoE's two dispatches; the decode)
+    and returns the trainer's launches summed over the ranks as the
+    ``mesh_train`` path, with the phase's record."""
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "mesh"
+    shutil.rmtree(work, ignore_errors=True)
+    worlds = {"gloo": math.prod(MESH_SHAPE), "nccl": 1}
+    procs = []
+    try:
+        for backend, n in worlds.items():
+            (work / backend).mkdir(parents=True)
+            procs += [(backend, r, subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--mesh-worker", str(r), str(n), backend,
+                 str(work / backend)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+                for r in range(n)]
+        logs = {(b, r): p.communicate(timeout=600)[0] for b, r, p in procs}
+    finally:
+        for _, _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    recs = {}
+    for b, r, p in procs:
+        path = work / b / f"rank{r}.json"
+        check(p.returncode == 0 and path.exists(),
+              f"mesh: {b} rank {r} exited {p.returncode}:\n"
+              f"{logs[(b, r)][-3000:]}")
+        recs[(b, r)] = json.loads(path.read_text())
+    shutil.rmtree(work, ignore_errors=True)
+    gl = [recs[("gloo", r)] for r in range(worlds["gloo"])]
+    nc = recs[("nccl", 0)]
+    launches = dict.fromkeys(ops.launch_counts(), 0)
+    served = dict.fromkeys(ops.table_counts(), 0)
+    rec = {"phase": "mesh", "mesh": dict(zip(MESH_AXES, MESH_SHAPE)),
+           "ranks": worlds["gloo"], "backend": "gloo",
+           "collectives_gloo_cuda": gl[0]["collectives"],
+           "collectives_nccl_world_of_one": nc["collectives"],
+           "not_carried": gl[0]["not_carried"],
+           "setup_s": max(g["setup_s"] for g in gl)}
+    for g in gl:
+        check(g["collectives"] == gl[0]["collectives"],
+              f"mesh: ranks disagree on the collectives {g['collectives']}")
+    # kwai-dlrm under the mesh against one process
+    if "train" in gl[0]:
+        rec["train"] = {}
+        for tag, _, steps in MESH_TRAIN:
+            per = [g["train"][tag] for g in gl]
+            for g in per:
+                check(g["first_lookup_bit_exact"] and g["steps_ok"]
+                      and np.isfinite(g["losses"]).all(),
+                      f"mesh train {tag}: first lookups "
+                      f"{g['first_lookup_bit_exact']}, steps "
+                      f"{[p for p in g['per_step'] if not p['ok']][:2]}")
+                for k in launches:
+                    launches[k] += g["launches"][k]
+                for k in served:
+                    served[k] += g["tables"][k]
+            want = {"unique_bag": steps, "fused_backward": 2 * N_TABLES
+                    * steps}
+            for g in per:
+                check(all(g["launches"][k] == v for k, v in want.items()),
+                      f"mesh train {tag}: launches {g['launches']}, want "
+                      f"{want}")
+            steps_rec = [{k: max(g["per_step"][i][k] for g in per)
+                          for k in ("table", "acc", "table_shared",
+                                    "acc_shared", "dense_max_abs",
+                                    "dense_update_rel")}
+                         | {"loss": per[0]["per_step"][i]["loss"],
+                            "loss_one_process":
+                            per[0]["per_step"][i]["loss_one_process"]}
+                         for i in range(steps)]
+            rec["train"][tag] = {
+                "steps": steps, "losses": per[0]["losses"],
+                "losses_one_process": per[0]["losses_one_process"],
+                "per_step": steps_rec,
+                "whole_run": {k: max(g["whole_run"][k] for g in per)
+                              for k in per[0]["whole_run"]
+                              if k != "ok"},
+                "shared_row_share": per[0]["shared_row_share"],
+                "launches_per_rank": per[0]["launches"],
+                "collectives_per_step": per[0]["collectives_per_step"],
+                "step_ms_per_rank": [float(np.median(g["step_ms"][1:]))
+                                     for g in per]}
+    # the expert-parallel MoE against moe_forward with no mesh
+    if "moe" in gl[0]:
+        gemm = gl[0]["moe"]["gemm_only_max_abs"]
+        rec["moe"] = {"gemm_only_max_abs": gemm,
+                      "largest": gl[0]["moe"]["largest"],
+                      "expert_bytes_per_rank":
+                      gl[0]["moe"]["expert_bytes_per_rank"]}
+        for disp in ("psum", "a2a"):
+            worst = max(g["moe"][disp]["max_abs"] for g in gl)
+            plain = all(g["moe"][disp]["plain_class"] for g in gl)
+            check(plain or worst <= 2 * gemm,
+                  f"mesh moe {disp}: max |d| {worst}, GEMM-only {gemm}")
+            rec["moe"][disp] = {
+                "max_abs": worst, "plain_class": plain,
+                "held_by": "plain class" if plain else "2x GEMM-only",
+                "ms_per_rank": [g["moe"][disp]["ms"] for g in gl],
+                "collectives": gl[0]["moe"][disp]["collectives"],
+                "aux": gl[0]["moe"][disp]["aux"]}
+    # the sequence-sharded decode, and the world of one over NCCL
+    for name, rs in (("decode", gl), ("decode_nccl_world_of_one", [nc])):
+        if "decode" not in rs[0]:
+            continue
+        rec[name] = {}
+        for kind in rs[0]["decode"]:
+            per = [g["decode"][kind] for g in rs]
+            for g in per:
+                check(g["ok"] and g["len"] == MESH_DECODE["prefill"]
+                      + MESH_DECODE["steps"], f"mesh {name} {kind}: {g}")
+            rec[name][kind] = {
+                "max_abs": max(g["max_abs"] for g in per),
+                "largest": per[0]["largest"], "seq_span": per[0]["seq_span"],
+                "collectives_per_step": per[0]["collectives_per_step"],
+                "step_ms_per_rank": [float(np.median(g["step_ms"][1:]))
+                                     for g in per]}
+    check("train" in rec and "decode_nccl_world_of_one" in rec,
+          f"mesh: gloo carries too little to train: {rec['not_carried']}")
+    rec["part_s"] = {k: max(g.get(f"{k}_s", 0.0) for g in gl)
+                     for k in ("train", "moe", "decode")}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    emit(rec)
+    return {"mesh_train": (launches, served)}, rec
+
+
 def launcher_phase(dev):
     """``repro_torch.launch.train.main`` on the card: 8 steps of the
     default taobao_ad CTR model with ``--pipeline pipelined``, eval every
@@ -5380,6 +5954,9 @@ def main() -> int:
     # the multi-process embedding PS
     remote_paths, recs["remote"] = remote_phase(dev, recs["sharded"])
     paths.update(remote_paths)
+    # the mesh paths: SPMD worlds of worker processes on the one card
+    mesh_paths, recs["mesh"] = mesh_phase(dev)
+    paths.update(mesh_paths)
     recs["train_launcher"] = launcher_phase(dev)
 
     kernels = []
@@ -5419,4 +5996,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        sys.exit(mesh_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                             sys.argv[5]))
     sys.exit(main())

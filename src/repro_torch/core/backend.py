@@ -402,8 +402,32 @@ def _fused_backward(spec: EmbeddingSpec, state: dict, plan, grads,
     return state, g_push
 
 
+def _plan_sums(plan, grads) -> torch.Tensor:
+    """The plan's unique-width gradient sums: one sum-only
+    ``fused_backward`` launch."""
+    return D.csr_segment_sum(*_plan_csr(plan), grads, int(plan.dev.shape[0]))
+
+
+def _pad_to(arr: np.ndarray, width: int, fill: int = -1) -> np.ndarray:
+    """A plan's unique ids (or counts) padded with ``fill`` to ``width``:
+    under a mesh every rank's plan has the dedup cap's width, so the ids
+    gathered over the batch axes have one width on every rank."""
+    out = np.full(width, fill, arr.dtype)
+    out[:arr.size] = arr
+    return out
+
+
 class DenseBackend(EmbeddingBackend):
-    """Device-resident PS shard; device ids ARE the logical ids."""
+    """Device-resident PS shard; device ids ARE the logical ids.
+
+    Under a mesh (``utils.set_mesh``) whose axes shard the table, its state
+    is the rank's row block (``init(shards=n)`` pads the rows to a multiple
+    of the n ranks), and it keeps the JAX package's decomposition
+    (``_fusable`` is false there): a lookup reads its unique rows through
+    the mesh lookup of ``embedding_ps``, which the stage's one bag launch
+    pools with the identity for ``dev``; a put sums to unique width
+    (a sum-only ``fused_backward`` launch), pushes and pops the rank's own
+    queue, and sends the popped put through the mesh put."""
 
     def __init__(self, spec: EmbeddingSpec):
         if spec.store_dtype != "fp32":
@@ -429,13 +453,45 @@ class DenseBackend(EmbeddingBackend):
     def _lookup_flat(self, state, dev_ids):
         return PS.lookup(state, self.spec, dev_ids), {}
 
+    def _fusable(self) -> bool:
+        """False where a mesh in scope shards the table: the fused put is
+        the single-shard apply."""
+        return PS.n_shards(self.spec) == 1
+
     def _logical_to_pos(self, ids: torch.Tensor) -> torch.Tensor:
-        """Logical id -> physical shuffled row as int32; padding and ids
-        out of range (< 0 or >= rows) become -1."""
+        """Logical id -> physical shuffled row as int32 (over the rows of
+        every shard of a mesh in scope); padding and ids out of range (< 0
+        or >= rows) become -1."""
         spec = self.spec
         valid = (ids >= 0) & (ids < spec.rows)
-        pos = PS.shuffle_pos(torch.where(valid, ids, 0), spec.padded_rows(1))
+        pos = PS.shuffle_pos(torch.where(valid, ids, 0),
+                             spec.padded_rows(PS.n_shards(spec)))
         return torch.where(valid, pos, -1).to(torch.int32)
+
+    def _bag_entry(self, state, dev_ids) -> tuple:
+        if self._fusable():
+            return super()._bag_entry(state, dev_ids)
+        if D.is_plan(dev_ids):
+            return (PS.lookup(state, self.spec, dev_ids.dev), None,
+                    dev_ids.inv, False)
+        rows = PS.lookup(state, self.spec, dev_ids)
+        return (rows.reshape(-1, self.spec.dim), None, _slots(dev_ids), True)
+
+    def lookup_pooled(self, state, dev_ids):
+        if self._fusable():
+            return super().lookup_pooled(state, dev_ids)
+        return _bag_all({0: self._bag_entry(state, dev_ids)})[0], {}
+
+    def _put_plan(self, state, plan, grads):
+        if self._fusable():
+            return super()._put_plan(state, plan, grads)
+        return self._put_unique(state, plan.dev, _plan_sums(plan, grads))
+
+    def _hybrid_plan(self, state, queue, plan, grads):
+        if self._fusable():
+            return super()._hybrid_plan(state, queue, plan, grads)
+        return self._hybrid_unique(state, queue, plan.dev,
+                                   _plan_sums(plan, grads))
 
     def table_rows(self, dev_ids: torch.Tensor) -> torch.Tensor:
         return self._logical_to_pos(dev_ids)
@@ -453,8 +509,11 @@ class DenseBackend(EmbeddingBackend):
         elif spec.batch_dedup:
             cap = D.dedup_cap(max(arr.size, 1), self.dedup_rows())
             u_pad, inv, _, info = D.make_plan(arr, spec.rows, cap)
-            arrs = [inv, self._logical_to_pos(torch.from_numpy(u_pad))
-                    .numpy()]
+            if self._fusable():
+                u_pad = self._logical_to_pos(torch.from_numpy(u_pad)).numpy()
+            else:               # the mesh lookup reads logical ids
+                u_pad = _pad_to(u_pad, cap)
+            arrs = [inv, u_pad]
             n = info["n_unique"]
         else:
             arrs = [self._logical_to_pos(torch.from_numpy(arr)).numpy()]
@@ -465,6 +524,11 @@ class DenseBackend(EmbeddingBackend):
         table = state["table"]
         if occ:
             return self._lookup_flat(state, idx[0])[0]
+        if not self._fusable():
+            ids = idx[1] if len(idx) == 2 else idx[0]
+            return self._bag_entry(
+                state, D.DedupPlan(dev=ids, inv=idx[0])
+                if len(idx) == 2 else ids)
         if len(idx) == 2:
             return (table, idx[1], idx[0], False)
         return (table, None, idx[0], True)
@@ -1816,23 +1880,17 @@ class ShardedBackend(EmbeddingBackend):
     def lookup_pooled(self, state, dev_ids):
         return _bag_all({0: self._bag_entry(state, dev_ids)})[0], {}
 
-    def _sums(self, plan, grads) -> torch.Tensor:
-        """The plan's unique-width gradient sums: the sum-only
-        ``fused_backward`` launch, once for every shard."""
-        return D.csr_segment_sum(*_plan_csr(plan), grads,
-                                 int(plan.dev.shape[0]))
-
     def _put_plan(self, state, plan, grads):
-        return self._put_unique(state, plan.dev, self._sums(plan, grads),
+        return self._put_unique(state, plan.dev, _plan_sums(plan, grads),
                                 self._locals(plan.dev, plan))
 
     def _hybrid_plan(self, state, queue, plan, grads):
         return self._hybrid_unique(state, queue, plan.dev,
-                                   self._sums(plan, grads),
+                                   _plan_sums(plan, grads),
                                    self._locals(plan.dev, plan))
 
     def _wire_begin(self, state, queue, plan, grads):
-        g_u = self._sums(plan, grads)
+        g_u = _plan_sums(plan, grads)
 
         def finish():
             return self._hybrid_unique(state, queue, plan.dev, g_u,
@@ -2356,6 +2414,7 @@ def prepare_all(backends, states, ids, device, lock=None, pins=None):
     per-table ``dedup/<table>/{dup_factor,unique_rows,bytes_saved}``
     host gauges and, for tables with cache admission, the
     ``cache/<table>/{admit,bypass,promote}`` ones."""
+    check_mesh(backends)
     new_states = dict(states)
     plans, metrics, n_unique = {}, {}, {}
     for n in ids:
@@ -2365,7 +2424,10 @@ def prepare_all(backends, states, ids, device, lock=None, pins=None):
             plans[n] = (arr,)
             continue
         cap = D.dedup_cap(max(arr.size, 1), b.dedup_rows())
-        plans[n] = D.make_plan(arr, b.spec.rows, cap)
+        u, inv, counts, info = D.make_plan(arr, b.spec.rows, cap)
+        if _mesh_sharded(b):
+            u, counts = _pad_to(u, cap), _pad_to(counts, cap, 0)
+        plans[n] = (u, inv, counts, info)
     devs = {}
     with lock if lock is not None else contextlib.nullcontext():
         submitted = {
@@ -2424,6 +2486,22 @@ def prepare_all(backends, states, ids, device, lock=None, pins=None):
             offsets=got[3], n_unique=n_unique[n], host=arrs[0],
             shards=parts)
     return new_states, dev_ids, metrics
+
+
+def _mesh_sharded(backend) -> bool:
+    """A dense table that the mesh in scope shards."""
+    return isinstance(backend, DenseBackend) and not backend._fusable()
+
+
+def check_mesh(backends):
+    """Under a mesh that shards a table, only the dense backend is ported
+    (host_lru, the router, the wire and remote tables under a mesh come
+    with a later slice): raise for any other."""
+    for n, b in backends.items():
+        if PS.n_shards(b.spec) > 1 and type(b) is not DenseBackend:
+            raise NotImplementedError(
+                f"table {n!r}: a {type(b).__name__} under a mesh that "
+                "shards it is not ported; only dense tables are")
 
 
 def _cache_tags(metrics, name, backend):
@@ -2622,6 +2700,7 @@ def read_pooled_all(backends, states, ids, device):
     others' into one frame per PS endpoint; its rows ride in the rows'
     copy. Read-only: the host_lru tables' locks are held from the
     residency resolution until their gathers are enqueued."""
+    check_mesh(backends)
     # the remote tables' reads go out first, one coalesced frame per PS
     # endpoint; the PS resolves each under its own lock
     remote = {n: backends[n].read_submit(_bags(x)) for n, x in ids.items()

@@ -14,10 +14,28 @@ package does (both increments reach the accumulator first).
 
 Unlike the JAX package, whose arrays are immutable, the puts and the queue
 update the state's tensors in place and return the same dicts (the JAX
-trainer donates them, so no caller sees the difference). Every apply runs
-through the ``fused_backward`` kernel (its plain version on the CPU). The
-mesh-sharded branches (``shard_map``) come with a later slice; the
-embedding-PS shards (``emb_shards``) are the router of ``core/backend.py``.
+trainer donates them, so no caller sees the difference). Every sparse
+apply runs through the ``fused_backward`` kernel (its plain version on the
+CPU). The embedding-PS shards (``emb_shards``) are the router of
+``core/backend.py``.
+
+Under a mesh (``utils.set_mesh``) the table is sharded as the JAX
+package's ``shard_map`` paths shard it, and each rank passes its blocks:
+its rows of the table (``table_spec``), its block of the ids and grads (a
+batch sharded over the batch axes). Two modes:
+
+* ``mode='model'`` (LM vocab tables): rows over the ``model`` axis,
+  replicated over the batch axes. Lookup: each model rank reads its own
+  rows, a sum over ``model`` combines them. Put: each rank's dense delta
+  and count of its own rows, summed over the batch axes (every replica
+  applies the same delta, ``_apply_delta``).
+* ``mode='full'`` (the paper's CTR tables): rows over every axis. Lookup:
+  the ids are gathered over the batch axes, each rank reads its own rows,
+  a sum over every axis combines them, and each rank slices its tokens
+  back out. Put: each rank's deduplicated put is gathered over the batch
+  axes, deduplicated once more on the physical rows, and each rank
+  applies its own rows (one ``fused_backward`` launch: the sums of the
+  second dedup and the apply).
 """
 from __future__ import annotations
 
@@ -27,7 +45,8 @@ from typing import Any
 import torch
 
 from repro_torch.kernels import ops as K
-from repro_torch.utils import round_up
+from repro_torch.utils import (_mesh_axis_names, all_gather, axis_size,
+                               flat_index, psum, round_up)
 
 # Affine permutation constants (odd multiplier => bijection mod 2^k when padded)
 _SHUFFLE_MULT = 1_000_003
@@ -93,6 +112,32 @@ class EmbeddingSpec:
         return round_up(self.rows, max(n_shards, 1))
 
 
+def _axes_for(mode: str) -> tuple[tuple[str, ...], tuple[str, ...]]:
+    """(shard_axes, batch_axes) present in the mesh in scope."""
+    names = _mesh_axis_names()
+    batch = tuple(a for a in ("pod", "data") if a in names)
+    if mode == "model":
+        shard_axes = ("model",) if "model" in names else ()
+    else:
+        shard_axes = tuple(a for a in ("pod", "data", "model") if a in names)
+    return shard_axes, batch
+
+
+def n_shards(spec: EmbeddingSpec) -> int:
+    """The ranks the table's rows are sharded over in the mesh in scope (1
+    without a mesh)."""
+    return axis_size(_axes_for(spec.mode)[0])
+
+
+def table_spec(spec: EmbeddingSpec):
+    """The table's partition spec: rows over ``model`` or over every
+    axis."""
+    from repro_torch.sharding.partition import P
+    if spec.mode == "model":
+        return P("model", None)
+    return P(("pod", "data", "model"), None)
+
+
 def shuffle_pos(ids: torch.Tensor, padded_rows: int) -> torch.Tensor:
     """Uniform-shuffle storage position for a row id (int64). The JAX
     package multiplies in uint32, so the product wraps mod 2^32; int64
@@ -122,10 +167,36 @@ def lookup(state: dict, spec: EmbeddingSpec, ids: torch.Tensor
     rows) return zeros (used as padding in multi-hot bags)."""
     shape = ids.shape
     flat = ids.reshape(-1)
+    shard_axes, batch_axes = _axes_for(spec.mode)
+    n = axis_size(shard_axes)
     valid = (flat >= 0) & (flat < spec.rows)
-    pos = shuffle_pos(torch.where(valid, flat, 0), spec.padded_rows(1))
-    out = torch.where(valid[:, None], state["table"][pos], 0)
+    pos = shuffle_pos(torch.where(valid, flat, 0), spec.padded_rows(n))
+    if n == 1:
+        out = torch.where(valid[:, None], state["table"][pos], 0)
+        return out.reshape(*shape, spec.dim)
+    out = _lookup_sharded(state["table"], spec, torch.where(valid, pos, -1),
+                          shard_axes, batch_axes, spec.padded_rows(n) // n)
     return out.reshape(*shape, spec.dim)
+
+
+def _lookup_sharded(table: torch.Tensor, spec: EmbeddingSpec,
+                    pos: torch.Tensor, shard_axes, batch_axes,
+                    rows_local: int) -> torch.Tensor:
+    """The mesh lookup of this rank's (T,) shuffled rows (-1 = padding)
+    from its (rows_local, D) block of the table: every id gathered over
+    the batch axes (full mode), each rank's own rows read (zeros
+    elsewhere), the sum over the shard axes, this rank's T rows kept.
+    Each row is one rank's value plus zeros, so it is exact."""
+    full = spec.mode != "model"
+    pos_all = all_gather(pos, batch_axes) if full else pos
+    mine = (pos_all >= 0) & (pos_all // rows_local == flat_index(shard_axes))
+    local = torch.where(mine, pos_all % rows_local, 0)
+    vals = torch.where(mine[:, None], table[local], 0).contiguous()
+    psum(vals, shard_axes)
+    if full and batch_axes:
+        t = int(pos.shape[0])
+        vals = vals[flat_index(batch_axes) * t:][:t]
+    return vals
 
 
 # ---------------------------------------------------------------------------
@@ -147,9 +218,18 @@ def apply_put(state: dict, spec: EmbeddingSpec, ids: torch.Tensor,
     ``fused_backward`` launch."""
     from repro_torch.core import compression as C
     from repro_torch.core.dedup import dedup_cap
+    shard_axes, batch_axes = _axes_for(spec.mode)
+    if axis_size(shard_axes) > 1:
+        return _put_sharded(state, spec, ids, grads, assume_unique,
+                            shard_axes, batch_axes)
     rows = spec.padded_rows(1)
     flat = ids.reshape(-1)
     grads = grads.reshape(-1, spec.dim)
+    if axis_size(batch_axes) > 1:
+        # a table the mesh replicates: every rank applies the whole put
+        flat = all_gather(flat.contiguous(), batch_axes)
+        grads = all_gather(grads.contiguous(), batch_axes)
+        assume_unique = False
     valid = (flat >= 0) & (flat < spec.rows)
     pos = shuffle_pos(torch.where(valid, flat, 0), rows)
     pos_signed = torch.where(valid, pos, -1)
@@ -160,6 +240,68 @@ def apply_put(state: dict, spec: EmbeddingSpec, ids: torch.Tensor,
     fused_apply(state, spec, plan.order, plan.offsets,
                 grads.float().contiguous(), plan.dev, None)
     return state
+
+
+def _put_sharded(state: dict, spec: EmbeddingSpec, ids: torch.Tensor,
+                 grads: torch.Tensor, assume_unique: bool, shard_axes,
+                 batch_axes) -> dict:
+    """The mesh put of this rank's block of (ids, grads) into its block of
+    the table, in place (see the module docstring for the two modes)."""
+    from repro_torch.core import compression as C
+    from repro_torch.core.dedup import dedup_cap
+    n = axis_size(shard_axes)
+    rows = spec.padded_rows(n)
+    rows_local = rows // n
+    me = flat_index(shard_axes)
+    flat = ids.reshape(-1)
+    valid = (flat >= 0) & (flat < spec.rows)
+    pos = shuffle_pos(torch.where(valid, flat, 0), rows)
+    pos_signed = torch.where(valid, pos, -1)
+    g = torch.where(valid[:, None], grads.reshape(-1, spec.dim).float(), 0.0)
+    if spec.mode == "model":
+        # a dense delta of this rank's rows aggregates duplicates exactly
+        # without a sort; the extra row rows_local takes the others' ids
+        owner = torch.where(pos_signed >= 0, pos_signed // rows_local, -1)
+        local = torch.where(owner == me, pos_signed % rows_local, rows_local)
+        f32 = dict(dtype=torch.float32, device=g.device)
+        delta = torch.zeros((rows_local + 1, spec.dim), **f32).index_add_(
+            0, local, g)[:rows_local]
+        cnt = torch.zeros((rows_local + 1,), **f32).index_add_(
+            0, local, (owner == me).float())[:rows_local]
+        psum(delta, batch_axes)
+        psum(cnt, batch_axes)
+        return _apply_delta(state, spec, delta, cnt)
+    # the deduplicated put is what crosses the wire: gathered over the
+    # batch shards, where a row can arrive from several of them, so it is
+    # aggregated once more before each rank applies its own rows
+    if assume_unique:
+        pos_u, g_u = pos_signed, g
+    else:
+        pos_u, g_u = C.dedup_put(pos_signed, g,
+                                 dedup_cap(int(flat.numel()), rows))
+    uniq_all = all_gather(pos_u.to(torch.int32), batch_axes)
+    g_all = all_gather(g_u.contiguous(), batch_axes)
+    plan = C.dedup_plan(uniq_all, min(int(uniq_all.shape[0]), rows))
+    mine = (plan.dev >= 0) & (plan.dev // rows_local == me)
+    fused_apply(state, spec, plan.order, plan.offsets, g_all,
+                torch.where(mine, plan.dev % rows_local, -1), None)
+    return state
+
+
+def _apply_delta(st: dict, spec: EmbeddingSpec, delta: torch.Tensor,
+                 cnt: torch.Tensor) -> dict:
+    """PS-shard-local optimizer step given a dense per-shard delta
+    (model-mode tables: V_local x D is small), in place. ``cnt`` (the puts
+    a row received) is carried as in the JAX package, which does not read
+    it either."""
+    if spec.optimizer == "adagrad":
+        acc = st["acc"].add_(torch.mean(torch.square(delta), dim=-1))
+        step = delta * torch.rsqrt(acc + spec.eps)[:, None]
+    else:
+        step = delta
+    table = st["table"]
+    table.copy_((table.float() - spec.lr * step).to(table.dtype))
+    return st
 
 
 def fused_apply(st: dict, spec: EmbeddingSpec, order, offsets, grads,

@@ -70,6 +70,16 @@ Differences from the JAX package, all of eager PyTorch:
 * ``eval``, ``predict`` and ``lookup`` read through the read-only serve
   path, as in the JAX package: a host_lru table's misses are read from
   its host store, never faulted in.
+* Under a mesh (``utils.set_mesh``; the JAX package's GSPMD), the trainer
+  is SPMD, one process per mesh position: each rank steps on its block of
+  the batch (``sharding.batch_specs``) and holds its block of each table
+  (its rows, ``sharding.emb_state_specs``) and its own staleness queues;
+  the dense half is replicated. The dense gradients are summed over the
+  batch axes and divided by their size, and the activation gradients are
+  those of the global batch's mean loss (1 / size of the local mean's),
+  so the tables move as in one process; ``loss``, ``emb_grad_norm`` and
+  ``eval``'s metrics are over the global batch. Only dense tables are
+  ported under a mesh.
 """
 from __future__ import annotations
 
@@ -85,7 +95,8 @@ from repro_torch.core import backend as BK
 from repro_torch.core import embedding_ps as PS
 from repro_torch.core.collection import EmbeddingCollection
 from repro_torch.device import resolve_device
-from repro_torch.utils import tree_leaves, tree_map
+from repro_torch.utils import (axis_size, batch_axes, get_mesh, psum,
+                               tree_leaves, tree_map)
 
 
 @dataclass(frozen=True)
@@ -225,8 +236,21 @@ def _migrate_queue_widths(backend, q):
 
 
 def _emb_grad_norm(agrads: dict) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in agrads.values()))
+    sq = sum(torch.sum(torch.square(g.float())) for g in agrads.values())
+    if axis_size(batch_axes()) > 1:       # the global batch's norm
+        sq = psum(sq.reshape(1), batch_axes())[0]
+    return torch.sqrt(sq)
+
+
+def _batch_mean(tree):
+    """The mean over the batch axes' ranks of a tree of tensors: one sum
+    over them (one collective for the whole tree), then a division by
+    their number."""
+    leaves = _insertion_leaves(tree)
+    flat = torch.cat([x.reshape(-1).float() for x in leaves])
+    psum(flat, batch_axes()).div_(axis_size(batch_axes()))
+    it = iter(torch.split(flat, [x.numel() for x in leaves]))
+    return tree_map(lambda x: next(it).view(x.shape).to(x.dtype), tree)
 
 
 def _insertion_leaves(tree) -> list:
@@ -332,6 +356,7 @@ class PersiaTrainer:
         for n in self.collection.names:
             self.backends[n] = BK.ensure_shards(
                 self.backends[n], self.collection._shards_for(n, emb_shards))
+        BK.check_mesh(self.backends)
         max_tau = max((s.staleness for _, s in self.collection.items()),
                       default=0)
         if batch_example is None and \
@@ -343,9 +368,13 @@ class PersiaTrainer:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
         dense = self.adapter.init_dense(gen)
+        # under a mesh every rank draws the global tables (rows padded to
+        # the ranks that shard them) and keeps its block
         emb = {n: self.backends[n].init(
-            gen, self.collection._shards_for(n, emb_shards))
+            gen, max(self.collection._shards_for(n, emb_shards),
+                     PS.n_shards(self.collection[n])))
             for n in self.collection.names}
+        emb = self._local_emb(emb)
         emb_queue = {n: None for n in self.collection.names}
         dense_queue = None
         if batch_example is not None:
@@ -358,6 +387,41 @@ class PersiaTrainer:
         return TrainState(dense=dense, opt=self.opt_init(dense), emb=emb,
                           emb_queue=emb_queue, dense_queue=dense_queue,
                           step=0)
+
+    # -- blocks under a mesh ---------------------------------------------------
+
+    def _local_emb(self, emb: dict) -> dict:
+        """Copies of the rank's blocks of global table states under the
+        mesh in scope (the states themselves without one)."""
+        from repro_torch.sharding.partition import (emb_state_specs,
+                                                    local_block)
+        mesh = get_mesh()
+        if mesh is None:
+            return emb
+        return {n: {k: local_block(mesh, sp, emb[n][k]).clone() for k, sp in
+                    emb_state_specs(emb[n], self.collection[n]).items()}
+                for n in emb}
+
+    def local_state(self, state: TrainState) -> TrainState:
+        """The rank's blocks of a global state (a state of one process,
+        e.g. from ``convert.state_from_numpy``) under the mesh in scope:
+        each table's rows cut to its block (``emb_state_specs``), each
+        staleness queue's width cut over the batch axes (``queue_specs``:
+        the ranks' halves of a popped put, gathered over the batch axes,
+        are that put), the dense half replicated. The blocks are copies.
+        Without a mesh, the state itself."""
+        from repro_torch.sharding.partition import local_block, queue_specs
+        mesh = get_mesh()
+        if mesh is None:
+            return state
+        queues = {}
+        for n, q in state.emb_queue.items():
+            sp = queue_specs(q)
+            queues[n] = None if q is None else {
+                k: local_block(mesh, sp[k], v).clone()
+                if isinstance(v, torch.Tensor) else v for k, v in q.items()}
+        return state.replace(emb=self._local_emb(state.emb),
+                             emb_queue=queues)
 
     # -- the host-side prepare phase (batch dedup) -----------------------------
 
@@ -394,6 +458,13 @@ class PersiaTrainer:
             names = list(acts)
             metrics, dgrads, agrads = _loss_grads(adapter.loss, dense, acts,
                                                   batch)        # Alg.2
+            nb = axis_size(batch_axes())
+            if nb > 1:
+                # the global batch's mean loss: the dense gradients'
+                # mean over the batch ranks, the activations' 1 / nb
+                dgrads = _batch_mean(dgrads)
+                agrads = {n: g / nb for n, g in agrads.items()}
+                metrics = _batch_mean(metrics)
             if adapter.pooled:
                 # the occurrence gradient: the pooled one on every valid
                 # slot of the bag (autodiff through pool_bag), masked by
@@ -508,6 +579,8 @@ class PersiaTrainer:
         else:
             acts = self.lookup(state, batch)
         _, metrics = self.adapter.loss(state.dense, acts, batch)
+        if axis_size(batch_axes()) > 1:       # over the global batch
+            metrics = _batch_mean(metrics)
         return metrics
 
     # -- checkpoint (full state, paper §4.2.4 policy) --------------------------
@@ -517,10 +590,17 @@ class PersiaTrainer:
     # embedding blob. The format is the JAX package's (same key paths and
     # dtypes), so checkpoints move between the two packages.
 
+    def _no_mesh(self, what: str):
+        if any(PS.n_shards(s) > 1 for _, s in self.collection.items()):
+            raise NotImplementedError(
+                f"{what} under a mesh that shards the tables is not ported "
+                "yet (each rank holds only its block)")
+
     def save(self, directory: str, state: TrainState,
              step: int | None = None) -> str:
         from repro_torch.checkpoint.ckpt import save_checkpoint
         from repro_torch.convert import state_to_numpy
+        self._no_mesh("save")
         step = int(state.step) if step is None else int(step)
         tree = state_to_numpy(state)
         dense_tree = {"dense": tree["dense"], "opt": tree["opt"]}
@@ -535,6 +615,7 @@ class PersiaTrainer:
     def restore(self, directory: str, step: int | None = None) -> TrainState:
         from repro_torch.checkpoint.ckpt import load_checkpoint
         from repro_torch.convert import state_from_numpy
+        self._no_mesh("restore")
         step_no, dense_tree, emb_tree = load_checkpoint(directory, step)
         if not emb_tree or "emb" not in emb_tree or "dense" not in dense_tree:
             raise ValueError(

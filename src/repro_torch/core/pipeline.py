@@ -67,6 +67,17 @@ What differs from the JAX package, all of eager PyTorch on one card:
   op dispatch, the ctypes kernel launches and ``time.sleep`` release it,
   but the Python between them does not, so the stages overlap only as far
   as their host work is outside the lock.
+* Under a mesh (``utils.set_mesh``), the lookup, dense and put stages run
+  collectives. Each of the three threads runs them over process groups
+  of its own (a :meth:`~repro_torch.utils.Mesh.fork` of the mesh, made
+  once per engine and mesh, in the same order on every rank), so no two
+  threads' calls interleave on one group. The store lock orders a rank's
+  lookups and puts, and ranks must order them alike, or a rank's put
+  waits in a collective for a peer whose lookup waits for that rank's
+  lookup, behind the put: so the put of batch i also waits until the
+  lookup of batch i + w - 1 has run (w: the smallest put window), which
+  fixes the one order L0 .. L(w-1) P0 Lw P1 ... on every rank (the
+  windows alone already hold lookup j until put j - w).
 """
 from __future__ import annotations
 
@@ -80,6 +91,7 @@ import torch
 
 from repro_torch.core import backend as BK
 from repro_torch.core.hybrid import PersiaTrainer, TrainState
+from repro_torch.utils import get_mesh, use_groups
 
 STAGES = ("loader", "prefetch", "prepare", "lookup", "dense", "put")
 
@@ -159,6 +171,7 @@ class PipelinedTrainer:
         self.max_outstanding: dict[str, int] = {}
         self.applied_order: list[int] = []
         self._running = False
+        self._forks: tuple = (None, {})     # (mesh, {stage: its fork})
 
     # -- delegated PersiaTrainer surface --------------------------------------
 
@@ -218,6 +231,19 @@ class PipelinedTrainer:
         tau = self.trainer.collection[name].staleness
         return 1 if tau <= 0 else min(self.max_inflight, tau)
 
+    def _stage_groups(self) -> dict:
+        """{stage: a fork of the mesh in scope} for the stages that run
+        collectives, made once per engine and mesh (collective: every rank
+        builds them at its first run under the mesh); empty without a
+        mesh of more than one rank."""
+        mesh = get_mesh()
+        if mesh is None or mesh.n_ranks == 1:
+            return {}
+        if self._forks[0] is not mesh:
+            self._forks = (mesh, {s: mesh.fork()
+                                  for s in ("lookup", "dense", "put")})
+        return self._forks[1]
+
     # -- the pipelined loop ---------------------------------------------------
 
     def run(self, state: TrainState, batches: Iterable[Any],
@@ -270,6 +296,26 @@ class PipelinedTrainer:
         qs["prepare"] = queue.Queue(
             maxsize=self.max_inflight + self.prefetch)
         results: list[tuple[int, dict]] = []
+        groups = self._stage_groups()
+        # under a mesh: lookups run so far, and whether the last has run
+        # (put i waits for lookup i + w - 1, so every rank orders alike)
+        looked = {"n": 0, "done": False}
+        looked_cv = threading.Condition()
+        w_min = min((self.put_window(n) for n in names), default=1)
+
+        def lookups_reached(idx: int) -> bool:
+            with looked_cv:
+                while not stop.is_set():
+                    if looked["done"] or looked["n"] >= idx + w_min:
+                        return True
+                    looked_cv.wait(timeout=_TICK)
+            return False
+
+        def count_lookup(done: bool = False):
+            with looked_cv:
+                looked["n"] += not done
+                looked["done"] |= done
+                looked_cv.notify_all()
 
         def fail(stage: str, idx: int, exc: BaseException):
             errors.append(PipelineStageError(stage, idx, exc))
@@ -419,6 +465,7 @@ class PipelinedTrainer:
                 if item is None:
                     return
                 if item is _DONE:
+                    count_lookup(done=True)
                     q_put("dense", _DONE)
                     return
                 idx, batch, dev_ids, pins, touched, prep_m = item
@@ -438,6 +485,7 @@ class PipelinedTrainer:
                                 self.max_outstanding[n], outstanding[n])
                     with store_lock:
                         pooled, get_m = lookup_fn(store["emb"], dev_ids)
+                    count_lookup()
                     st.busy_s += time.perf_counter() - t0
                     st.items += 1
                     if not q_put("dense", (idx, batch, dev_ids, pins, pooled,
@@ -487,6 +535,8 @@ class PipelinedTrainer:
                 try:
                     t0 = time.perf_counter()
                     sleep_for("put", idx)
+                    if groups and not lookups_reached(idx):
+                        return
                     with store_lock:
                         emb, queues, put_m = emb_put(
                             store["emb"], store["queues"], dev_ids, agrads)
@@ -516,18 +566,21 @@ class PipelinedTrainer:
                     fail("put", idx, e)
                     return
 
-        def on_device(fn):
-            """A stage body that dispatches on the trainer's device: the
+        def on_device(name, fn):
+            """A stage body that dispatches on the trainer's device (the
             current CUDA device is per host thread, and a new thread
-            starts on device 0."""
+            starts on device 0) and, under a mesh, runs its collectives
+            over its own groups."""
             def body():
                 with torch.cuda.device(device) if device.type == "cuda" \
-                        else contextlib.nullcontext():
+                        else contextlib.nullcontext(), \
+                        use_groups(groups.get(name)):
                     fn()
             return body
 
         threads = [
-            threading.Thread(target=on_device(fn), name=f"pipeline-{name}",
+            threading.Thread(target=on_device(name, fn),
+                             name=f"pipeline-{name}",
                              daemon=True)
             for name, fn in (("loader", loader),
                              ("prefetch", prefetch_stage),

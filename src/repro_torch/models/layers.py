@@ -27,8 +27,9 @@ its scan. Decode attention stays plain torch, as the JAX package
 computes it in jnp: the full-length cache's :func:`decode_attention`, a
 sliding window's ring buffer (:func:`_decode_ring`) and the decode's
 cross-attention over its cached memory K/V; MLA's decode is the JAX
-package's weight-absorbed decode against the latent cache. The
-mesh-sharded decode (``decode_dist``) is not ported.
+package's weight-absorbed decode against the latent cache. Under a mesh
+with a ``model`` axis, a full-length cache's decode and MLA's decode go
+through ``decode_dist`` (sequence-sharded caches), as in the JAX package.
 """
 from __future__ import annotations
 
@@ -321,7 +322,10 @@ def gqa_decode(p: dict, cfg, x: torch.Tensor, cache: dict, *, window=None,
     own length: a ring from :func:`gqa_cache_init`, or a prefill's
     full-length cache, which then never wraps), and ``len`` grows by one.
     The cache's contents then equal the new cache the JAX package returns.
-    Returns ``(out, cache)``."""
+    Under a mesh with a ``model`` axis a full-length cache is the rank's
+    sequence span (``decode_dist.gqa_decode_dist``). Returns ``(out,
+    cache)``."""
+    from repro_torch.models import decode_dist as DD
     w = cfg.sliding_window if window is None else window
     B, Dh = x.shape[0], cfg.head_dim
     q, k, v = _qkv(p, cfg, x)
@@ -330,6 +334,11 @@ def gqa_decode(p: dict, cfg, x: torch.Tensor, cache: dict, *, window=None,
         q = apply_rope(q.reshape(B, 1, -1, Dh), pos,
                        cfg.rope_theta).reshape(q.shape)
         k = apply_rope(k, pos, cfg.rope_theta)
+    if w <= 0 and DD.have_model_axis():
+        out, cache = DD.gqa_decode_dist(
+            p, cfg, q, k, v, cache, scale=1.0 / math.sqrt(Dh),
+            softcap=cfg.attn_logit_softcap)
+        return out.reshape(B, 1, -1) @ p["wo"], cache
     rows = torch.arange(B, device=x.device)
     S = cache["k"].shape[1]
     slot = cache["len"].long()
@@ -455,7 +464,10 @@ def mla_decode(p: dict, cfg, x: torch.Tensor, cache: dict):
     PLACE as :func:`gqa_decode` updates its cache (the new latent at slot
     ``len``, clamped to the last slot; ``len`` + 1). ``wuk`` is absorbed
     into the query and ``wuv`` applied after the context, so each head
-    attends over r + dr numbers a position. Returns ``(out, cache)``."""
+    attends over r + dr numbers a position. Under a mesh with a ``model``
+    axis the cache is the rank's sequence span
+    (``decode_dist.mla_decode_dist``). Returns ``(out, cache)``."""
+    from repro_torch.models import decode_dist as DD
     B = x.shape[0]
     H, dn, dr, dv, r = (cfg.n_heads, cfg.head_dim, cfg.rope_head_dim,
                         cfg.v_head_dim, cfg.kv_lora_rank)
@@ -465,6 +477,14 @@ def mla_decode(p: dict, cfg, x: torch.Tensor, cache: dict):
     ckv_full = x @ p["wdkv"]
     ckv_new = rmsnorm(ckv_full[..., :r], p["kv_ln"]["w"], cfg.norm_eps)
     kr_new = apply_rope(ckv_full[..., None, r:], pos, cfg.rope_theta)[:, :, 0]
+    if DD.have_model_axis():
+        wuk = p["wuk"].reshape(r, H, dn)
+        q_abs = torch.einsum("bqhd,rhd->bqhr", q_nope.float(), wuk.float())
+        ctx, cache = DD.mla_decode_dist(cfg, q_abs, q_rope, ckv_new, kr_new,
+                                        cache)
+        wuv = p["wuv"].reshape(r, H, dv)
+        out = torch.einsum("bqhr,rhd->bqhd", ctx, wuv.float())
+        return out.reshape(B, 1, H * dv).to(x.dtype) @ p["wo"], cache
     ckv_c, kr_c = cache["ckv"], cache["k_rope"]
     rows = torch.arange(B, device=x.device)
     slot = cache["len"].long().clamp(max=ckv_c.shape[1] - 1)

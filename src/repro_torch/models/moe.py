@@ -1,5 +1,5 @@
-"""Mixture-of-Experts FFN with capacity-based dispatch (port of
-``repro/models/moe.py``), on one device.
+"""Mixture-of-Experts FFN with capacity-based dispatch and expert
+parallelism (port of ``repro/models/moe.py``).
 
 A token's router logits go through a softmax, its top ``moe_top_k``
 experts are kept and their weights renormalised (DeepSeek-V2). Each
@@ -23,17 +23,45 @@ Parameters keep the JAX package's tree: ``router`` (D, E) fp32, ``wg``
 / ``wu`` (E, D, F), ``wd`` (E, F, D), ``shared`` {wg, wu, wd}; in a
 stacked layer the expert axis goes after the layer axis (``lead``).
 
-Not ported yet: the expert-parallel branches (the ``shard_map`` psum
-dispatch and ``_moe_forward_a2a``) wait for the mesh slice.
+Under a mesh with a ``model`` axis (``utils.set_mesh``) the experts are
+sharded over it, forward only (their backward through collectives comes
+with LM training under a mesh), and each rank passes its blocks: its
+(B_local, S, D) block of the batch (sharded over the batch axes,
+replicated over ``model``) and its E / n experts (``_moe_param_specs``).
+Two dispatches, as in the JAX package, chosen by ``MOE_DISPATCH``
+(``REPRO_MOE_DISPATCH``):
+
+* ``'psum'``: every model rank routes the same local tokens but runs only
+  its own experts (capacity from the local token count), a sum over
+  ``model`` combines their contributions, and the shared experts are
+  added after it. One (T_local, D) all-reduce a layer.
+* ``'a2a'``: each model rank routes its own S / n span of the sequence,
+  ships each routed token to its expert's rank in per-destination buckets
+  and gets the results back (two all-to-alls), with per-expert capacity
+  buffers on the expert's rank. The JAX layer returns the span (its
+  residual stream is sequence-sharded); the port's residual is replicated
+  over ``model``, so the spans are gathered back over ``model``, which is
+  the reshard XLA makes at that boundary.
+
+The aux statistics are each rank's over its tokens, averaged over
+``model`` and the batch axes.
 """
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init
+from repro_torch.utils import (_mesh_axis_names, all_gather, all_to_all,
+                               axis_size, batch_axes, flat_index, psum)
+
+# token dispatch strategy over the 'model' axis: 'psum' (baseline, tokens
+# replicated over the model ranks) or 'a2a' (routed tokens sent to their
+# expert's rank and back)
+MOE_DISPATCH = os.environ.get("REPRO_MOE_DISPATCH", "psum")
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -111,29 +139,37 @@ def _dispatch_positions(topi: torch.Tensor, n_experts: int,
 
 
 def _moe_local(p: dict, cfg, xt: torch.Tensor, *, capacity: int,
-               out_dtype, with_aux: bool = True):
-    """Dispatch, compute and combine the (T, D) tokens over every expert
-    (the JAX package's ``_moe_local`` with e_offset 0 and e_local E, its
-    one-device case): ``(out (T, D), aux)``, aux empty without
+               out_dtype, with_aux: bool = True, e_offset: int = 0,
+               e_local: int | None = None):
+    """Dispatch, compute and combine the (T, D) tokens over the
+    ``e_local`` experts from ``e_offset`` that ``p`` holds (every expert
+    by default, the one-device case): ``(out (T, D), aux)``, zeros where
+    a token's choice went to another rank's expert; aux empty without
     ``with_aux``."""
     T, D = xt.shape
     E, k = cfg.n_experts, cfg.moe_top_k
+    e_local = E if e_local is None else e_local
     logits = xt.float() @ p["router"].float()
     probs, topv, topi = router_topk(logits, k)
 
-    slot = _dispatch_positions(topi, E, capacity)                  # (T, k)
-    n_slots = E * capacity
+    slot_all = _dispatch_positions(topi, E, capacity)              # (T, k)
+    n_slots = e_local * capacity
+    slot = slot_all
+    if e_local != E:       # keep the slots of this rank's experts
+        lo = e_offset * capacity
+        slot = torch.where((slot_all >= lo) & (slot_all < lo + n_slots),
+                           slot_all - lo, n_slots)
     # each slot's token: row T of xt_pad is zeros (an unclaimed slot); the
     # dropped pairs all write the extra entry n_slots, which is cut off
     src = torch.full((n_slots + 1,), T, dtype=torch.long, device=xt.device)
     src[slot.reshape(-1)] = torch.arange(
         T, device=xt.device).repeat_interleave(k)
     xt_pad = torch.cat([xt, xt.new_zeros((1, D))])
-    buf = xt_pad[src[:n_slots]].view(E, capacity, D)
+    buf = xt_pad[src[:n_slots]].view(e_local, capacity, D)
     del xt_pad, src
     h = F.silu(torch.bmm(buf, p["wg"])) * torch.bmm(buf, p["wu"])
     del buf
-    y = torch.bmm(h, p["wd"])                                  # (E, C, D)
+    y = torch.bmm(h, p["wd"])                            # (e_local, C, D)
     del h
     flat = torch.cat([y.view(n_slots, D), y.new_zeros((1, D))])
     del y
@@ -142,12 +178,30 @@ def _moe_local(p: dict, cfg, xt: torch.Tensor, *, capacity: int,
 
     aux = {}
     if with_aux:
-        aux = {
-            "moe_balance": load_balance_loss(probs, topi, E),
-            "moe_z": torch.mean(torch.logsumexp(logits, dim=-1) ** 2),
-            "moe_drop_frac": 1.0 - torch.mean(kept.float()),
-        }
+        aux = _aux(probs, topi, logits, E, slot_all < E * capacity)
     return out.to(out_dtype), aux
+
+
+def _aux(probs, topi, logits, n_experts: int, kept) -> dict:
+    return {
+        "moe_balance": load_balance_loss(probs, topi, n_experts),
+        "moe_z": torch.mean(torch.logsumexp(logits, dim=-1) ** 2),
+        "moe_drop_frac": 1.0 - torch.mean(kept.float()),
+    }
+
+
+def _shared(p: dict, xt: torch.Tensor) -> torch.Tensor:
+    sh = p["shared"]
+    return (F.silu(xt @ sh["wg"]) * (xt @ sh["wu"])) @ sh["wd"]
+
+
+def _pmean(aux: dict) -> dict:
+    """The aux statistics' mean over ``model`` and the batch axes (one
+    collective for all of them)."""
+    axes = ("model",) + batch_axes()
+    vals = psum(torch.stack([v.float().reshape(()) for v in aux.values()]),
+                axes) / axis_size(axes)
+    return dict(zip(aux, vals))
 
 
 def capacity(cfg, n_tokens: int, capacity_factor=None) -> int:
@@ -158,22 +212,118 @@ def capacity(cfg, n_tokens: int, capacity_factor=None) -> int:
 
 def moe_forward(p: dict, cfg, x: torch.Tensor, capacity_factor=None, *,
                 with_aux: bool = True):
-    """x: (B, S, D) -> ``(out (B, S, D), aux)``: the one-device branch of
-    the JAX package's ``moe_forward`` (every expert local), plus the
-    shared experts. ``aux``: ``moe_balance``, ``moe_z``,
-    ``moe_drop_frac``; empty with ``with_aux=False`` (a decode step drops
-    them, as XLA drops the JAX package's unused stats)."""
+    """x: (B, S, D) -> ``(out (B, S, D), aux)``, the shared experts added.
+    ``aux``: ``moe_balance``, ``moe_z``, ``moe_drop_frac``; empty with
+    ``with_aux=False`` (a decode step drops them, as XLA drops the JAX
+    package's unused stats). Expert-parallel over ``model`` when the mesh
+    in scope has that axis (x and the experts are then the rank's blocks,
+    see the module docstring); every expert local otherwise."""
     B, S, D = x.shape
+    E = cfg.n_experts
+    n = axis_size(("model",)) if "model" in _mesh_axis_names() else 1
+    if E % n:
+        raise ValueError(f"{E} experts do not shard over {n} model ranks")
+    e_local = E // n
+    if MOE_DISPATCH == "a2a" and n > 1 and S % n == 0 and S > 1:
+        cf = cfg.capacity_factor if capacity_factor is None \
+            else capacity_factor
+        return _moe_forward_a2a(p, cfg, x, cf, n, e_local, with_aux)
     xt = x.reshape(B * S, D)
     C = capacity(cfg, B * S, capacity_factor)
     out, aux = _moe_local(p, cfg, xt, capacity=C, out_dtype=x.dtype,
-                          with_aux=with_aux)
+                          with_aux=with_aux,
+                          e_offset=flat_index(("model",)) * e_local,
+                          e_local=e_local)
+    if n > 1:
+        # combine the experts' contributions in the activation dtype
+        out = psum(out.contiguous(), ("model",))
+        aux = _pmean(aux) if with_aux else aux
     out = out.reshape(B, S, D)
     if cfg.n_shared_experts:
-        sh = p["shared"]
-        hs = F.silu(xt @ sh["wg"]) * (xt @ sh["wu"])
-        out = out + (hs @ sh["wd"]).reshape(B, S, D)
+        out = out + _shared(p, xt).reshape(B, S, D)
     return out, aux
+
+
+def _moe_forward_a2a(p: dict, cfg, x: torch.Tensor, cf, n: int,
+                     e_local: int, with_aux: bool):
+    """All-to-all token dispatch (``MOE_DISPATCH = 'a2a'``) on this rank's
+    S / n span of its (B_local, S, D) block; the spans' outputs gathered
+    back over ``model``."""
+    B, S, D = x.shape
+    E, k = cfg.n_experts, cfg.moe_top_k
+    me = flat_index(("model",))
+    Sl = S // n
+    xt = x[:, me * Sl:(me + 1) * Sl].reshape(B * Sl, D)        # (T_r, D)
+    T_r = B * Sl
+    # per-destination-rank bucket capacity and per-local-expert capacity
+    C = max(1, _cdiv(int(T_r * k), n) * 2)
+    C2 = max(1, _cdiv(int(n * C), e_local))
+    logits = xt.float() @ p["router"].float()
+    probs, topv, topi = router_topk(logits, k)
+
+    # ---- dispatch into per-destination-rank buckets (choice-major) -----
+    slot = _dispatch_positions(topi // e_local, n, C)          # (T_r, k)
+    keep = slot < n * C
+    src = torch.full((n * C + 1,), T_r, dtype=torch.long, device=x.device)
+    src[slot.reshape(-1)] = torch.arange(
+        T_r, device=x.device).repeat_interleave(k)
+    xt_pad = torch.cat([xt, xt.new_zeros((1, D))])
+    buf = xt_pad[src[:n * C]].view(n, C, D)
+    ebuf = torch.full((n * C + 1,), -1, dtype=torch.long, device=x.device)
+    ebuf[slot.reshape(-1)] = torch.where(keep, topi, -1).reshape(-1)
+    ebuf = ebuf[:n * C].view(n, C)
+
+    # ---- ship to the experts' ranks ------------------------------------
+    rt = all_to_all(buf, ("model",)).view(n * C, D)
+    re = all_to_all(ebuf, ("model",)).view(n * C) - me * e_local
+
+    # ---- local per-expert capacity buffers + FFN ------------------------
+    live = (re >= 0) & (re < e_local)
+    e2 = torch.where(live, re, e_local)
+    experts = torch.arange(e_local, device=x.device)
+    cum = torch.cumsum(experts[:, None] == e2[None, :], dim=1,
+                       dtype=torch.int32)                      # (e_l, n*C)
+    pos2 = torch.gather(cum, 0, e2.clamp(max=e_local - 1)[None, :])[0] - 1
+    keep2 = live & (pos2 < C2)
+    slot2 = torch.where(keep2, e2 * C2 + pos2, e_local * C2)
+    src2 = torch.full((e_local * C2 + 1,), n * C, dtype=torch.long,
+                      device=x.device)
+    src2[slot2] = torch.arange(n * C, device=x.device)
+    rt_pad = torch.cat([rt, rt.new_zeros((1, D))])
+    ebuf2 = rt_pad[src2[:e_local * C2]].view(e_local, C2, D)
+    h = F.silu(torch.bmm(ebuf2, p["wg"])) * torch.bmm(ebuf2, p["wu"])
+    y = torch.bmm(h, p["wd"]).view(e_local * C2, D)
+    flat_y = torch.cat([y, y.new_zeros((1, D))])
+    yt = torch.where(keep2[:, None], flat_y[slot2], 0.0)       # (n*C, D)
+
+    # ---- ship the results back + combine --------------------------------
+    yback = all_to_all(yt.view(n, C, D), ("model",)).view(n * C, D)
+    yfull = torch.cat([yback, yback.new_zeros((1, D))])
+    out = torch.einsum("tkd,tk->td", yfull[slot].float(), topv * keep)
+    out = out.to(x.dtype)
+    if cfg.n_shared_experts:
+        out = out + _shared(p, xt)
+    # the spans back into the (B, S, D) block, replicated over 'model'
+    spans = all_gather(out.view(1, B, Sl, D), ("model",))
+    out = spans.permute(1, 0, 2, 3).reshape(B, S, D)
+    aux = _pmean(_aux(probs, topi, logits, E, keep)) if with_aux else {}
+    return out, aux
+
+
+def _moe_param_specs(cfg):
+    """The experts over ``model``; the router and the shared experts
+    replicated."""
+    from repro_torch.sharding.partition import P
+    specs = {
+        "router": P(None, None),
+        "wg": P("model", None, None),
+        "wu": P("model", None, None),
+        "wd": P("model", None, None),
+    }
+    if cfg.n_shared_experts:
+        specs["shared"] = {"wg": P(None, None), "wu": P(None, None),
+                           "wd": P(None, None)}
+    return specs
 
 
 def moe_aux_total(cfg, aux: dict) -> torch.Tensor:

@@ -1528,3 +1528,144 @@ def test_cuda_remote_bit_equal_with_in_process(cuda_device, backend, k,
     finally:
         for s in servers:
             s.stop()
+
+
+# ---------------------------------------------------------------------------
+# the mesh paths: a world of 2 gloo processes on the one card
+# ---------------------------------------------------------------------------
+
+MESH_CFG = dict(name="mesh", arch_type="recsys", n_id_fields=4,
+                ids_per_field=8, emb_dim=128, emb_rows=4 * 4096,
+                n_dense_features=4, mlp_dims=(64, 32), n_tasks=1)
+MESH_B, MESH_STEPS = 128, 3
+
+MESH_WORLD = """
+import datetime, pickle, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+
+rank, work = int(sys.argv[1]), sys.argv[2]
+dist.init_process_group("gloo", init_method=f"file://{work}/rdzv",
+                        rank=rank, world_size=2,
+                        timeout=datetime.timedelta(seconds=120))
+torch.backends.cuda.matmul.allow_tf32 = False
+from repro_torch.sharding import partition as SP
+from repro_torch.utils import Mesh, set_mesh
+import test_torch_cuda as T
+
+mesh = Mesh((2, 1), ("data", "model"))
+with set_mesh(mesh):
+    out = T._mesh_runs(mesh.device, lambda a: SP.local_block(
+        mesh, SP.P(SP.BATCH), a).contiguous())
+with open(f"{work}/rank{rank}.pkl", "wb") as f:
+    pickle.dump(out, f)
+dist.destroy_process_group()
+print("RANK_OK", rank)
+"""
+
+
+def _mesh_runs(dev, block):
+    """The full-mode lookup and put of one table, then MESH_STEPS hybrid(2)
+    steps of a 4-table CTR trainer (``init`` keeps the rank's blocks under
+    a mesh), on the rank's blocks (``block`` cuts a batch-sharded array)
+    or, with the identity, in one process. Returns host arrays."""
+    from repro_torch.core import adapters
+    from repro_torch.core import embedding_ps as PS
+    from repro_torch.core.hybrid import PersiaTrainer, TrainMode
+    from repro_torch.data.ctr import CTRDataset
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.sharding import partition as SP
+    from repro_torch.utils import get_mesh
+    spec = PS.EmbeddingSpec(rows=4096, dim=128, mode="full", lr=0.05)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    st = PS.ps_init(gen, spec, 2)
+    mesh = get_mesh()
+    if mesh is not None:
+        st = {k: SP.local_block(mesh, SP.emb_state_specs(st, spec)[k], v)
+              .clone() for k, v in st.items()}
+    rng = np.random.default_rng(2)
+    ids = torch.from_numpy(rng.integers(-1, 4096, (256, 8))).to(dev)
+    g = torch.from_numpy(rng.standard_normal((256 * 8, 128)).astype(
+        np.float32)).to(dev)
+    out = {"lookup": PS.lookup(st, spec, block(ids)).cpu().numpy()}
+    PS.apply_put(st, spec, block(ids).reshape(-1), block(g))
+    out["put"] = {k: v.cpu().numpy() for k, v in st.items()}
+    cfg = ModelConfig(**MESH_CFG)
+    ds = CTRDataset("mesh", n_rows=cfg.emb_rows, n_fields=4, ids_per_field=8,
+                    n_dense=4)
+    tr = PersiaTrainer(adapters.recsys_adapter(
+        cfg, lr=5e-2, field_rows=ds.field_rows()), TrainMode.hybrid(2),
+        OptConfig(kind="adam", lr=3e-3), device=dev)
+    it = ds.sampler(MESH_B, seed=4)
+    batches = [next(it) for _ in range(MESH_STEPS)]
+    blocks = [{k: block(torch.from_numpy(v)).numpy() for k, v in b.items()}
+              for b in batches]
+    s = tr.init(seed=3, batch_example=blocks[0])
+    s, ms = tr.run(s, blocks)
+    out["losses"] = [float(m["loss"]) for m in ms]
+    out["emb"] = {n: {k: v.cpu().numpy() for k, v in e.items()}
+                  for n, e in s.emb.items()}
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_two_ranks_match_one_process(cuda_device, tmp_path):
+    """Two gloo ranks on the one card, mesh (data 2, model 1): the
+    full-mode lookup bit for bit with one process, the put and 3
+    hybrid(2) steps of a 4-table trainer within 1e-5 (the second dedup
+    sums a row's two ranks' puts in another order), the losses rtol
+    1e-5."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+    from pathlib import Path
+    from repro_torch.kernels import build
+    from repro_torch.sharding import partition as SP
+    from repro_torch.utils import MeshLayout
+    build.build_all()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    (tmp_path / "world.py").write_text(MESH_WORLD)
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(here.parent / "src"), str(here),
+         os.environ.get("PYTHONPATH", "")]))
+    procs = [subprocess.Popen([sys.executable, str(tmp_path / "world.py"),
+                               str(r), str(tmp_path)], env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, log in enumerate(logs):
+        assert f"RANK_OK {r}" in log, log[-4000:]
+    ranks = []
+    for r in range(2):
+        with open(tmp_path / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    want = _mesh_runs(cuda_device, lambda a: a)
+    layout = MeshLayout((2, 1), ("data", "model"))
+
+    def join(fn, spec):
+        return SP.from_blocks(layout, spec, [torch.from_numpy(fn(r))
+                                             for r in ranks]).numpy()
+    np.testing.assert_array_equal(join(lambda r: r["lookup"],
+                                       SP.P(SP.BATCH)), want["lookup"])
+    rows = SP.P(("data", "model"), None)
+    for k, v in want["put"].items():
+        np.testing.assert_allclose(join(lambda r: r["put"][k], rows), v,
+                                   atol=1e-5, err_msg=k)
+    np.testing.assert_allclose(ranks[0]["losses"], want["losses"],
+                               rtol=1e-5)
+    for n, e in want["emb"].items():
+        for k, v in e.items():
+            np.testing.assert_allclose(
+                join(lambda r: r["emb"][n][k], rows), v, atol=1e-5,
+                err_msg=f"{n}.{k}")

@@ -37,14 +37,17 @@ print("HAS", sorted(m for m in sys.modules if m in {names!r}))
 """
 
 # modules whose import must not need JAX (among all the walked ones): the
-# pipelined trainer, the launchers, the click feedback, the LM data and
-# the multi-process embedding PS
+# pipelined trainer, the launchers, the click feedback, the LM data, the
+# multi-process embedding PS and the mesh paths
 _NAMED = ("repro_torch.core.pipeline", "repro_torch.launch.train",
           "repro_torch.launch.hostenv", "repro_torch.launch.online",
           "repro_torch.launch.cluster", "repro_torch.serving.feedback",
           "repro_torch.data.lm", "repro_torch.net", "repro_torch.net.wire",
           "repro_torch.net.rpc", "repro_torch.net.ps_server",
-          "repro_torch.net.remote", "repro_torch.net.elastic")
+          "repro_torch.net.remote", "repro_torch.net.elastic",
+          "repro_torch.sharding", "repro_torch.sharding.partition",
+          "repro_torch.launch.mesh", "repro_torch.models.decode_dist",
+          "repro_torch.core.theory")
 
 
 def test_port_and_chip_smoke_import_without_jax():
