@@ -336,9 +336,29 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    against itself in fp64); (c) 32 decode steps after a 2,048-token
    prefill of granite-3-2b's attention and DeepSeek-V2-Lite's MLA (B=4,
    a 4,096-position cache, 2,048 positions a model rank) against the
-   decode with no mesh, within 3e-5 of the largest output. The NCCL
-   world of one decodes granite through ``decode_dist`` the same way.
-24. The launcher, ``repro_torch.launch.train.main`` on the card: 8
+   decode with no mesh, within 3e-5 of the largest output; (d) the LM
+   under the mesh, tensor-parallel over model and ZeRO-3 over data
+   (``mesh_lm_rank``): granite-3-2b cut to 2 layers at full width, 3
+   hybrid(1) Adam steps at B=2, S=2,048 with remat (4 attention
+   launches at 16 / 4 heads of 64 and 1 ``fused_backward`` a step a
+   rank), and its serve (a 2,048-token prefill and 32 greedy tokens at
+   B=4, a 4,096-position cache, 2,048 a model rank); deepseek-v2-lite-16b
+   cut to its prologue and one MoE layer, 2 steps under psum and under
+   a2a (3 attention launches a step at 8 heads of (192, 128)). Each is
+   held against one process on the card from the same state (one rank's
+   at a time): the losses within rtol 1e-4, the dense blocks in
+   ``dense_agreement``'s trajectory class after each step whose lookups
+   read the initial table while the MoE routed alike, the vocab table on
+   the rows no two ids share, every greedy token equal where the top-2
+   gap exceeds the prefill's distance; then ``launch.op_cost`` around one
+   more granite step. The NCCL world of one decodes granite through
+   ``decode_dist`` the same way.
+24. The dry run (``dryrun_phase``, a CPU process started beside the mesh
+   phase): granite-3-2b's train_4k, prefill_32k and decode_32k rows on
+   the 16 x 16 mesh on the meta device, all ``ok``, and the mesh phase's
+   granite cut at (2, 2), whose FLOPs, collectives and argument bytes
+   must equal rank 0's count on the card, its HBM bytes within 1%.
+25. The launcher, ``repro_torch.launch.train.main`` on the card: 8
    pipelined steps of the CTR task, then ``--task lm --steps 8 --batch 8
    --seq-len 128 --eval-every 4`` (the launcher's lm-100m), finite losses.
 
@@ -388,11 +408,13 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
 import threading
 import time
+import warnings
 from pathlib import Path
 from unittest import mock
 
@@ -424,6 +446,7 @@ from repro_torch.models import flash as lm_flash  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import mamba2 as lm_ssm  # noqa: E402
 from repro_torch.models import moe as lm_moe  # noqa: E402
+from repro_torch.models import tp as lm_tp  # noqa: E402
 from repro_torch.models import transformer as lm_model  # noqa: E402
 from repro_torch.models.recsys import pool_bag  # noqa: E402
 from repro_torch.net import connect_remote_backends  # noqa: E402
@@ -575,6 +598,15 @@ MESH_TRAIN = (("hybrid", TrainMode.hybrid(TAU), 6),
 MESH_MOE = {"batch": 2, "seq": 2048, "cf": 8.0}
 MESH_DECODE = {"batch": 4, "cache": 4096, "prefill": 2048, "steps": 32}
 MESH_SEED = SEED + 70
+# the LM under the mesh (tensor parallelism over model, ZeRO-3 over data)
+# in the same world: granite-3-2b at full width cut to 2 layers, 3
+# hybrid(1) Adam steps at B = 2, S = 2,048 with remat; its serve (a
+# 2,048-token prefill, 32 greedy tokens at B = 4 into a 4,096-position
+# cache sequence-sharded over model); deepseek-v2-lite-16b cut to its
+# dense prologue and one MoE layer, 2 steps under each dispatch
+MESH_LM = {"layers": 2, "batch": 2, "seq": 2048, "steps": 3}
+MESH_LM_SERVE = {"batch": 4, "prompt": 2048, "gen": 32, "cache": 4096}
+MESH_LM_MOE = {"repeats": 1, "batch": 2, "seq": 2048, "steps": 2}
 MESH_COLLECTIVES = ("all_reduce", "all_gather_into_tensor",
                     "all_to_all_single")
 
@@ -5337,8 +5369,20 @@ def probe_collectives(mesh, dev) -> dict:
         dist.ReduceOp.SUM, [n * (n + 1) / 2, -n * (n - 1) / 2]))
     probe("all_reduce_max", lambda: reduce(dist.ReduceOp.MAX, [float(n),
                                                                0.0]))
+    def scatter():
+        out = torch.empty(2, device=dev)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", FutureWarning)
+            dist.reduce_scatter_tensor(
+                out, torch.arange(2.0 * n, device=dev) + r, group=g)
+        return out.tolist() == [n * (2 * r + i) + n * (n - 1) / 2
+                                for i in range(2)]
+
     probe("all_gather_into_tensor", gather)
     probe("all_to_all_single", a2a)
+    # the LM's ZeRO-3 gradients; utils.reduce_scatter takes an all-reduce
+    # and a slice where the backend refuses it
+    probe("reduce_scatter_tensor", scatter)
     torch.cuda.synchronize()
     return got
 
@@ -5619,6 +5663,384 @@ def mesh_decode_rank(dev, mesh, kinds=("gqa", "mla")) -> dict:
     return rec
 
 
+
+def mesh_lm_cfg(kind: str):
+    """The LM mesh phase's cut configs (granite's 2 layers, DeepSeek-V2's
+    prologue and one MoE layer), at full width."""
+    if kind == "granite":
+        return get_config(LM_ARCH).replace(pattern_repeats=MESH_LM["layers"])
+    return get_config(MOE_ARCH).replace(pattern_repeats=MESH_LM_MOE["repeats"])
+
+
+def mesh_vocab_adapter(cfg, n_model: int):
+    """``lm_adapter(cfg)`` whose vocab table holds the rows the mesh pads
+    it to (a multiple of the model ranks): a process with no mesh then
+    shuffles the ids over the same rows as the mesh (granite's 49,155
+    rows over 2 ranks are 49,156; no id reaches the extra row)."""
+    import dataclasses
+    from repro_torch.core.collection import EmbeddingCollection
+    ad = adapters.lm_adapter(cfg)
+    name, spec = ad.collection.items()[0]
+    spec = dataclasses.replace(spec, rows=spec.padded_rows(n_model))
+    return dataclasses.replace(
+        ad, collection=EmbeddingCollection.single(name, spec))
+
+
+def a2a_reference(p, cfg, xd, n: int, route):
+    """The a2a dispatch's routed output over one data rank's (B, S, D)
+    rows, computed in one process: each model rank's S / n span routed
+    on its own, its choices bucketed per destination rank with the
+    dispatch's capacity C, each destination's received choices (source
+    rank, then bucket slot) cut at each local expert's capacity C2, and
+    every kept choice's expert applied to its token, one expert at a time
+    (``moe._moe_forward_a2a``'s drops, without its buffers). Returns the
+    output and each span's chosen experts."""
+    B, S, D = xd.shape
+    E, k = cfg.n_experts, cfg.moe_top_k
+    e_local, Sl = E // n, S // n
+    T_r = B * Sl
+    C = max(1, -(-T_r * k // n) * 2)
+    C2 = max(1, -(-n * C // e_local))
+    spans = [xd[:, m * Sl:(m + 1) * Sl].reshape(T_r, D) for m in range(n)]
+    routes = [route(p, cfg, xs) for xs in spans]     # (topv, topi) each
+    slots = [lm_moe._dispatch_positions(ti // e_local, n, C)
+             for _, ti in routes]
+    keep = [sl < n * C for sl in slots]
+    for r in range(n):                  # the expert stage on rank r
+        picks = []
+        for m in range(n):
+            t_i, c_i = (keep[m] & (slots[m] // C == r)).nonzero(
+                as_tuple=True)
+            order = slots[m][t_i, c_i].argsort()
+            picks.append((m, t_i[order], c_i[order]))
+        e_all = torch.cat([routes[m][1][t, c] - r * e_local
+                           for m, t, c in picks])
+        ex = torch.arange(e_local, device=xd.device)
+        pos = torch.cumsum(ex[:, None] == e_all[None, :], dim=1).gather(
+            0, e_all[None, :])[0] - 1
+        off = 0
+        for m, t, c in picks:
+            keep[m][t, c] = pos[off:off + t.numel()] < C2
+            off += t.numel()
+    outs = []
+    for m, xs in enumerate(spans):
+        topv, topi = routes[m]
+        w = topv * keep[m]
+        o = torch.zeros(xs.shape, dtype=torch.float32, device=xs.device)
+        for e in range(E):
+            t, c = (topi == e).nonzero(as_tuple=True)
+            if t.numel():
+                xe = xs[t]
+                y = (F.silu(xe @ p["wg"][e]) * (xe @ p["wu"][e])) @ p["wd"][e]
+                o = o.index_add(0, t, y.float() * w[t, c][:, None])
+        outs.append(o.to(xs.dtype).view(B, Sl, D))
+    return torch.cat(outs, 1), [ti for _, ti in routes]
+
+
+def moe_reference(nb: int, n_model: int, disp: str, routes: list):
+    """``moe_forward`` as one process computes what the mesh's dispatch
+    computes: each data rank's rows routed on their own; under psum the
+    capacity from the local tokens; under a2a :func:`a2a_reference`, its
+    aux statistics over each model rank's span. The aux statistics
+    averaged over the chunks (the mesh's mean over the ranks). Each call
+    appends every data rank's chosen experts (under a2a, every span's)
+    to ``routes``."""
+    orig = lm_moe.moe_forward
+
+    def route(p, cfg, xt):
+        logits = xt.float() @ p["router"].float()
+        probs, topv, topi = lm_moe.router_topk(logits, cfg.moe_top_k)
+        return logits, probs, topv, topi
+
+    def span_aux(p, cfg, xd):
+        S, out = xd.shape[1], []
+        for m in range(n_model):
+            logits, probs, _, topi = route(p, cfg, xd[:, m * S // n_model:(
+                m + 1) * S // n_model].reshape(-1, xd.shape[-1]))
+            out.append(lm_moe._aux(probs, topi, logits, cfg.n_experts,
+                                   torch.ones_like(topi, dtype=torch.bool)))
+        return {k: sum(a[k] for a in out) / n_model for k in out[0]}
+
+    def fwd(p, cfg, x, capacity_factor=None, *, with_aux=True):
+        outs, auxs, chosen = [], [], []
+        for xd in x.chunk(nb, 0):
+            if disp == "psum":
+                chosen.append(route(p, cfg, xd.reshape(-1, x.shape[-1]))[3])
+                o, a = orig(p, cfg, xd, capacity_factor, with_aux=with_aux)
+            else:
+                o, spans = a2a_reference(
+                    p, cfg, xd, n_model, lambda p_, c_, xs: route(
+                        p_, c_, xs)[2:])
+                chosen.append(spans)
+                if cfg.n_shared_experts:
+                    o = o + lm_moe._shared(
+                        p, xd.reshape(-1, x.shape[-1])).view(xd.shape)
+                a = span_aux(p, cfg, xd) if with_aux else {}
+            outs.append(o)
+            auxs.append(a)
+        routes.append(chosen)
+        aux = {k: sum(a[k] for a in auxs) / nb for k in auxs[0]} \
+            if with_aux else {}
+        return torch.cat(outs), aux
+    return fwd
+
+
+def routed_alike_steps(mesh, p: dict, disp: str, got: list,
+                       want: list) -> list:
+    """Per step, whether the mesh's MoE calls up to it chose the experts
+    the one-process reference chose for the same tokens (``got``: this
+    rank's chosen experts a call, its data rank's rows or, under a2a, its
+    span of them; ``want``: a call's per data rank, and under a2a per
+    span, choices). A step's first call is its forward's; a checkpointed
+    layer's recompute routes its same inputs again."""
+    d, m = mesh.coords(mesh.rank)["data"], mesh.coords(mesh.rank)["model"]
+    pg, pw = len(got) // p["steps"], len(want) // p["steps"]
+    steps, run = [], True
+    for i in range(p["steps"]):
+        w = want[i * pw][d]
+        w = w[m] if disp == "a2a" else w
+        run = run and torch.equal(got[i * pg].cpu(), w.cpu())
+        steps.append(run)
+    return steps
+
+
+def mesh_lm_train(dev, mesh, cfg, p: dict, disp: str = "psum") -> dict:
+    """``PersiaTrainer(lm_adapter)`` under the mesh for ``p["steps"]``
+    hybrid(1) Adam steps (the main path: its launches and collectives
+    counted) from one process's ``init`` (this rank's blocks of it), then
+    the same steps from the same state in one process on the card (a MoE
+    through :func:`moe_reference`), one rank's reference at a time. Held:
+    each step's loss within rtol 1e-4; the rank's blocks of the dense
+    leaves after each step whose lookups read the initial vocab table
+    (the first tau + 1 = 2) in ``dense_agreement``'s trajectory class
+    (Adam moves a weight by about lr a step whatever the size of its
+    gradient); the vocab table on the rows no two ids share. Above 4,294
+    rows ids share physical rows, and there the reference's mesh put sums
+    a row's ids before its accumulator sees them while its one-device put
+    adds each id's increment (ROADMAP Queue 3): from the first lookup of
+    a row so put (step 3) the two runs part by definition, and the later
+    steps' distances are recorded."""
+    from repro_torch.utils import collective_counts, reset_collective_counts
+    n_model, tau = mesh.shape["model"], 1
+    it = lm_batches(cfg.vocab_size, p["batch"], p["seq"], seed=MESH_SEED)
+    batches = [next(it) for _ in range(p["steps"])]
+    ad = mesh_vocab_adapter(cfg, n_model)
+    mk = lambda: PersiaTrainer(ad, TrainMode.hybrid(tau), OptConfig(  # noqa
+        kind="adam", lr=DENSE_LR), device=dev)
+    rt, tr = mk(), mk()
+    ref = rt.init(MESH_SEED, batches[0])
+    tspec = SP.emb_state_specs(ref.emb["vocab"],
+                               tr.collection["vocab"])["table"]
+    with set_mesh(mesh):
+        st = tr.local_state(ref)
+        specs = tr.dense_specs()
+        blk = lambda tree: SP._zip_map(  # noqa: E731
+            lambda s, x: SP.local_block(mesh, s, x).clone(), specs, tree)
+        start = blk(ref.dense)
+        unshared = ~SP.local_block(mesh, SP.P(tspec[0]), shared_rows(
+            tr.collection["vocab"]).to(dev))
+    # the global state is drawn again from the seed for the reference:
+    # four of it (DeepSeek-V2's cut with its moments) do not fit the card
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    snaps, got = [], []
+    orig_topk = lm_moe.router_topk
+
+    def recorded(logits, k):            # the mesh's chosen experts
+        out = orig_topk(logits, k)
+        got.append(out[2].detach().clone())
+        return out
+    with set_mesh(mesh), mock.patch.object(lm_moe, "router_topk",
+                                           recorded):
+        rec = {"dense_bytes_per_rank": sum(
+            x.numel() * 4 for x in tree_leaves(st.dense)),
+            "moment_bytes_per_rank": sum(
+            x.numel() * 4 for x in tree_leaves(st.opt["m"]))}
+        lm_moe.MOE_DISPATCH = disp
+        try:
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            reset_collective_counts()
+            losses, ms, drops = [], [], []
+            for b in batches:
+                t0 = time.perf_counter()
+                st, m = tr.step(st, mesh_batch_block(mesh, b))
+                losses.append(float(m["loss"]))
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if "moe_drop_frac" in m:
+                    drops.append(float(m["moe_drop_frac"]))
+                snaps.append(tree_map(torch.clone, st.dense))
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+            colls = collective_counts()
+        finally:
+            lm_moe.MOE_DISPATCH = "psum"
+    nb = mesh.shape["data"]
+    ref_losses, per_step, want_routes = [], [], []
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one rank's reference at a time: four one-process DeepSeek-V2 cuts
+    # with their gradients and moments do not fit the card together
+    for r in range(mesh.n_ranks):
+        if r == mesh.rank:
+            ref = rt.init(MESH_SEED, batches[0])
+            with mock.patch.object(lm_moe, "moe_forward", moe_reference(
+                    nb, n_model, disp, want_routes)):
+                for i, b in enumerate(batches):
+                    ref, m = rt.step(ref, b)
+                    ref_losses.append(float(m["loss"]))
+                    with set_mesh(mesh):
+                        want = blk(ref.dense)
+                    per_step.append(dense_agreement(start, snaps[i], want,
+                                                    i + 1))
+                    del want
+            with set_mesh(mesh):
+                table_want = SP.local_block(
+                    mesh, tspec, ref.emb["vocab"]["table"]).clone()
+            del rt, ref
+            gc.collect()
+            torch.cuda.empty_cache()
+        torch.distributed.barrier()
+    diff = (st.emb["vocab"]["table"] - table_want).abs().amax(dim=1)
+    table = float(diff[unshared].max())
+    # the steps held: those whose lookups read the initial table, while
+    # every MoE call up to them routed as the reference's
+    alike = routed_alike_steps(mesh, p, disp, got, want_routes) \
+        if got else [True] * p["steps"]
+    n_held = sum(1 for i in range(min(tau + 1, p["steps"])) if alike[i])
+    held = per_step[:n_held]
+    rec.update({
+        "steps": p["steps"], "dispatch": disp, "losses": losses,
+        "losses_one_process": ref_losses,
+        "losses_ok": bool(np.allclose(losses[:n_held], ref_losses[:n_held],
+                                      rtol=1e-4, atol=1e-5)),
+        "routed_alike": alike,
+        "moe_drop_frac": drops, "held_steps": len(held),
+        "ok": all(a["ok"] for a in held),
+        "per_step": [{k: a[k] for k in ("dense_update_rel",
+                                        "dense_max_abs", "dense_off")}
+                     for a in per_step],
+        "dense_update_rel": max((a["dense_update_rel"] for a in held),
+                                default=None),
+        "dense_max_abs": max((a["dense_max_abs"] for a in held),
+                             default=None),
+        "dense_off": held[-1]["dense_off"] if held else None,
+        "table_max_abs": table,
+        "table_shared_max_abs": float(diff[~unshared].max())
+        if bool((~unshared).any()) else 0.0,
+        "unshared_row_share": float(unshared.float().mean()),
+        # the table after the run holds the puts of steps 1..steps - tau
+        "table_held": n_held >= p["steps"] - tau,
+        "table_ok": n_held < p["steps"] - tau
+        or table <= EMB_LR / 100 * p["steps"] + 1e-6,
+        "launches": launches,
+        "collectives_per_step": {k: {kk: vv / p["steps"]
+                                     for kk, vv in v.items()}
+                                 for k, v in colls.items()},
+        "step_ms": ms})
+    del tr, st, start, snaps, got, want_routes
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_lm_generate(cfg, dense, table, spec, prompts, p: dict):
+    """Greedy generation: the vocab lookup and ``transformer.prefill``
+    into ``p["cache"]`` positions, then ``p["gen"]`` decode steps; the
+    logits of every step (B, V) and the tokens."""
+    V = cfg.vocab_size
+    logits, caches = lm_model.prefill(
+        cfg, dense, PS.lookup({"table": table}, spec, prompts),
+        max_len=p["cache"])
+    steps = [logits[:, -1, :V].clone()]
+    for _ in range(p["gen"]):
+        tok = steps[-1].argmax(-1)[:, None]
+        logits, caches = lm_model.decode_step(
+            cfg, dense, PS.lookup({"table": table}, spec, tok), caches)
+        steps.append(logits[:, -1, :V].clone())
+    return torch.stack(steps), torch.stack([s.argmax(-1) for s in steps])
+
+
+@torch.no_grad()
+def mesh_lm_serve(dev, mesh, cfg, p: dict) -> dict:
+    """granite's cut served under the mesh (this rank's batch rows, its
+    blocks of the weights and of the vocab table, the caches sequence-
+    sharded over model) against one process on the card over the same
+    rows: the prefill's logits' distance is the measured distance, and
+    every greedy token must equal the one process's wherever the top-2
+    gap of its logits exceeds it (a row parts from there on)."""
+    n_model = mesh.shape["model"]
+    spec = mesh_vocab_adapter(cfg, n_model).collection["vocab"]
+    gen = torch.Generator(device=dev).manual_seed(MESH_SEED + 3)
+    dense = lm_model.init_dense(cfg, gen)
+    table = torch.randn((spec.padded_rows(n_model), cfg.d_model),
+                        generator=gen, device=dev).mul_(0.02)
+    prompts = SP.local_block(mesh, SP.P(SP.BATCH), torch.as_tensor(
+        lm_serve.make_prompts(cfg, p["batch"], p["prompt"], MESH_SEED),
+        device=dev)).contiguous()
+    with set_mesh(mesh):
+        specs = lm_tp.dense_specs(cfg)
+        blk = SP._zip_map(lambda s, x: SP.local_block(mesh, s, x).clone(),
+                          specs, dense)
+        tb = SP.local_block(mesh, SP.P("model", None), table).clone()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        got, toks = mesh_lm_generate(cfg, blk, tb, spec, prompts, p)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    del blk, tb
+    want, wtoks = mesh_lm_generate(cfg, dense, table, spec, prompts, p)
+    dist0 = float((got[0] - want[0]).abs().max())
+    top2 = torch.topk(want, 2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]                      # (steps, B)
+    live = torch.ones(toks.shape[1], dtype=torch.bool, device=dev)
+    bad, parted = 0, 0
+    for i in range(toks.shape[0]):
+        same = toks[i] == wtoks[i]
+        bad += int((live & ~same & (gap[i] > dist0)).sum())
+        parted += int((live & ~same).sum())
+        live &= same
+    rec = {"prefill_max_abs": dist0,
+           "prefill_plain_class": bool(torch.allclose(
+               got[0], want[0], rtol=1e-4, atol=1e-5)),
+           "tokens_equal": bool(torch.equal(toks, wtoks)),
+           "tokens_off_beyond_gap": bad, "rows_parted": parted,
+           "serve_s": serve_s, "launches": launches,
+           "cache_span": p["cache"] // n_model}
+    del dense, table
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_lm_rank(dev, mesh) -> dict:
+    """The LM under the mesh on this rank: granite's cut trained and
+    served, DeepSeek-V2's cut trained under both dispatches, and
+    ``launch.op_cost`` around one more (untimed) granite train step, the
+    record the dry run at mesh (2, 2) is held to."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun as lm_dry
+    granite, ds2 = mesh_lm_cfg("granite"), mesh_lm_cfg("moe")
+    rec = {"granite_train": mesh_lm_train(dev, mesh, granite, MESH_LM),
+           "granite_serve": mesh_lm_serve(dev, mesh, granite,
+                                          MESH_LM_SERVE)}
+    for disp in ("psum", "a2a"):
+        rec["moe_train_" + disp] = mesh_lm_train(dev, mesh, ds2,
+                                                 MESH_LM_MOE, disp)
+    shape = InputShape("mesh_train", MESH_LM["seq"], MESH_LM["batch"],
+                       "training")
+    cost = lm_dry.measure(granite, shape, mesh, device=dev,
+                          seed=MESH_SEED)
+    rec["granite_cost"] = {k: cost[k] for k in (
+        "flops_per_device", "hbm_bytes_per_device", "collectives",
+        "argument_bytes_per_device", "kernels", "hbm_bytes_by_op")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 def mesh_worker(rank: int, world: int, backend: str, work: str,
                 device: str = "cuda") -> int:
     """One rank of ``mesh_phase``'s worlds (``--mesh-worker rank world
@@ -5653,11 +6075,13 @@ def mesh_worker(rank: int, world: int, backend: str, work: str,
         parts = {"train": {"all_reduce_sum", "all_gather_into_tensor"},
                  "moe": {"all_reduce_sum", "all_gather_into_tensor",
                          "all_to_all_single"},
-                 "decode": {"all_reduce_sum", "all_reduce_max"}}
+                 "decode": {"all_reduce_sum", "all_reduce_max"},
+                 "lm": {"all_reduce_sum", "all_reduce_max",
+                        "all_gather_into_tensor", "all_to_all_single"}}
         rec["not_carried"] = {k: sorted(v - carried)
                               for k, v in parts.items() if v - carried}
         for part, fn in (("train", mesh_train_rank), ("moe", mesh_moe_rank),
-                         ("decode", mesh_decode_rank)):
+                         ("decode", mesh_decode_rank), ("lm", mesh_lm_rank)):
             if part in rec["not_carried"] or (world == 1 and
                                               part != "decode"):
                 continue
@@ -5798,11 +6222,193 @@ def mesh_phase(dev):
                                      for g in per]}
     check("train" in rec and "decode_nccl_world_of_one" in rec,
           f"mesh: gloo carries too little to train: {rec['not_carried']}")
+    lm_launches = dict.fromkeys(ops.launch_counts(), 0)
+    check("lm" in gl[0], f"mesh: the LM did not run: {rec['not_carried']}")
+    rec["lm"] = mesh_lm_check(gl, lm_launches)
     rec["part_s"] = {k: max(g.get(f"{k}_s", 0.0) for g in gl)
-                     for k in ("train", "moe", "decode")}
+                     for k in ("train", "moe", "decode", "lm")}
     rec["phase_s"] = time.perf_counter() - t_phase
     emit(rec)
-    return {"mesh_train": (launches, served)}, rec
+    return {"mesh_train": (launches, served),
+            "mesh_lm": (lm_launches, dict.fromkeys(ops.table_counts(), 0))
+            }, rec
+
+
+def mesh_lm_check(gl: list, launches: dict) -> dict:
+    """Every rank's LM record held (see :func:`mesh_lm_train` and
+    :func:`mesh_lm_serve`); the main paths' launches summed over the ranks
+    into ``launches``. Per rank: the attention and put launches and the
+    collectives a step, by kind and bytes. A step is held while every MoE
+    call up to it routed as the reference's (an a2a dispatch that drops a
+    token routes otherwise than its reference, which drops none); a run
+    with no such step is recorded, not held."""
+    out = {"per_rank": []}
+    for key in ("granite_train", "moe_train_psum", "moe_train_a2a"):
+        per = [g["lm"][key] for g in gl]
+        for g in per:
+            for k, v in g["launches"].items():
+                launches[k] += v
+            check(np.isfinite(g["losses"]).all(),
+                  f"mesh lm {key}: losses {g['losses']}")
+            check(g["launches"]["flash_attention_fwd"] > 0
+                  and g["launches"]["fused_backward"] == g["steps"],
+                  f"mesh lm {key}: launches {g['launches']}")
+            check(g["losses_ok"] and g["ok"] and g["table_ok"],
+                  f"mesh lm {key}: losses {g['losses']} against "
+                  f"{g['losses_one_process']} (held steps "
+                  f"{g['held_steps']}), dense rel {g['dense_update_rel']} "
+                  f"max {g['dense_max_abs']}, table {g['table_max_abs']}")
+        # granite routes nothing: its first tau + 1 = 2 steps are held
+        check(key != "granite_train" or all(g["held_steps"] == 2
+                                            for g in per),
+              f"mesh lm {key}: held steps {[g['held_steps'] for g in per]}")
+        alike = min(g["held_steps"] for g in per) > 0
+        out[key] = {
+            "held": alike, "losses": per[0]["losses"],
+            "losses_one_process": per[0]["losses_one_process"],
+            "moe_drop_frac": per[0]["moe_drop_frac"],
+            "dense_update_rel": max((g["dense_update_rel"] for g in per
+                                     if g["held_steps"]), default=None),
+            "dense_max_abs": max((g["dense_max_abs"] for g in per
+                                  if g["held_steps"]), default=None),
+            "held_steps": [g["held_steps"] for g in per],
+            "routed_alike": [g["routed_alike"] for g in per],
+            "per_step_rel": [max(g["per_step"][i]["dense_update_rel"]
+                                 for g in per)
+                             for i in range(per[0]["steps"])],
+            "table_max_abs": max(g["table_max_abs"] for g in per),
+            "table_shared_max_abs": max(g["table_shared_max_abs"]
+                                        for g in per),
+            "unshared_row_share": per[0]["unshared_row_share"],
+            "dense_bytes_per_rank": per[0]["dense_bytes_per_rank"],
+            "moment_bytes_per_rank": per[0]["moment_bytes_per_rank"],
+            "step_ms_per_rank": [float(np.median(g["step_ms"][1:]))
+                                 for g in per],
+            "launches_per_rank": per[0]["launches"],
+            "collectives_per_step": per[0]["collectives_per_step"]}
+    check(gl[0]["lm"]["granite_train"]["launches"]["flash_attention_fwd"]
+          == 2 * MESH_LM["layers"] * MESH_LM["steps"],
+          "mesh lm granite: not every attention (forward and remat "
+          "recompute) went through the kernel")
+    sv = [g["lm"]["granite_serve"] for g in gl]
+    for g in sv:
+        for k, v in g["launches"].items():
+            launches[k] += v
+        check(g["tokens_off_beyond_gap"] == 0
+              and g["launches"]["flash_attention_fwd"] == MESH_LM["layers"],
+              f"mesh lm serve: {g}")
+    out["granite_serve"] = {
+        "prefill_max_abs": max(g["prefill_max_abs"] for g in sv),
+        "prefill_plain_class": all(g["prefill_plain_class"] for g in sv),
+        "tokens_equal": all(g["tokens_equal"] for g in sv),
+        "rows_parted": sum(g["rows_parted"] for g in sv),
+        "serve_s_per_rank": [g["serve_s"] for g in sv],
+        "cache_span": sv[0]["cache_span"]}
+    for g in gl:
+        out["per_rank"].append({
+            "rank": g["rank"],
+            **{key: {"attention_launches":
+                     g["lm"][key]["launches"]["flash_attention_fwd"],
+                     "fused_backward_launches":
+                     g["lm"][key]["launches"]["fused_backward"],
+                     "collectives_per_step":
+                     g["lm"][key]["collectives_per_step"]}
+               for key in ("granite_train", "moe_train_psum",
+                           "moe_train_a2a")}})
+    out["granite_cost_rank0"] = gl[0]["lm"]["granite_cost"]
+    return out
+
+
+DRYRUN_CODE = """
+import json, sys
+from repro_torch.configs import get_config
+from repro_torch.configs.base import InputShape
+from repro_torch.launch import dryrun as DR
+rows = [DR.run_case("granite_3_2b", s, verbose=False)
+        for s in ("train_4k", "prefill_32k", "decode_32k")]
+cut = get_config("granite_3_2b").replace(pattern_repeats=%(layers)d)
+rows.append(DR.run_case(
+    "granite_3_2b", "train_4k", cfg=cut,
+    shape=InputShape("mesh_train", %(seq)d, %(batch)d, "training"),
+    mesh_shape=(%(shape)r, %(axes)r), verbose=False, seed=%(seed)d))
+print("ROWS" + json.dumps(rows))
+"""
+
+
+def dryrun_start():
+    """The dry run in a process of its own, on the CPU, started beside the
+    mesh phase: granite-3-2b's train_4k, prefill_32k and decode_32k rows
+    on the 16 x 16 mesh (a world of 256 on torch.distributed's fake
+    backend, the meta device), and the mesh phase's granite cut and train
+    shape at mesh (2, 2)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = DRYRUN_CODE % {"layers": MESH_LM["layers"], "seq": MESH_LM["seq"],
+                          "batch": MESH_LM["batch"], "shape": MESH_SHAPE,
+                          "axes": MESH_AXES, "seed": MESH_SEED}
+    return subprocess.Popen([sys.executable, "-c", code], env=env,
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), \
+        time.perf_counter()
+
+
+def dryrun_phase(started, mesh_rec) -> dict:
+    """The dry run's rows: every one ``ok``; the (2, 2) row's FLOPs,
+    collective counts and bytes and argument bytes equal to what rank 0
+    of the mesh phase counted around one more granite step on the card
+    (``launch.op_cost``), its HBM bytes within 1% (the ops whose bytes
+    differ recorded)."""
+    proc, t0 = started
+    try:
+        log = proc.communicate(timeout=900)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    line = [ln for ln in log.splitlines() if ln.startswith("ROWS")]
+    check(proc.returncode == 0 and bool(line),
+          f"dryrun: exited {proc.returncode}:\n{log[-3000:]}")
+    rows = json.loads(line[0][4:])
+    for r in rows:
+        check(r["status"] == "ok", f"dryrun {r['shape']}: {r.get('error')}")
+    dry, real = rows[-1], mesh_rec["lm"]["granite_cost_rank0"]
+    gap = {k: [v, dry["hbm_bytes_by_op"].get(k, 0)]
+           for k, v in real["hbm_bytes_by_op"].items()
+           if dry["hbm_bytes_by_op"].get(k, 0) != v}
+    gap.update({k: [0, v] for k, v in dry["hbm_bytes_by_op"].items()
+                if k not in real["hbm_bytes_by_op"]})
+    hbm_rel = abs(real["hbm_bytes_per_device"]
+                  - dry["hbm_bytes_per_device"]) / dry["hbm_bytes_per_device"]
+    rec = {"phase": "dryrun", "seconds": time.perf_counter() - t0,
+           "rows": [{k: r[k] for k in (
+               "arch", "shape", "mesh", "note", "dtype", "trace_s",
+               "argument_bytes_per_device", "temp_bytes_per_device",
+               "peak_bytes_per_device", "flops_per_device",
+               "hbm_bytes_per_device", "collectives", "compute_s",
+               "memory_s", "collective_s", "dominant", "model_flops",
+               "useful_flops_frac", "kernels")} for r in rows],
+           "hardware": rows[0]["hardware"],
+           "card_vs_dry_2x2": {
+               "flops_equal": real["flops_per_device"]
+               == dry["flops_per_device"],
+               "collectives_equal": real["collectives"]
+               == dry["collectives"],
+               "argument_bytes_equal": real["argument_bytes_per_device"]
+               == dry["argument_bytes_per_device"],
+               "kernels_equal": real["kernels"] == dry["kernels"],
+               "hbm_rel": hbm_rel, "hbm_gap_by_op": gap,
+               "card": {k: real[k] for k in (
+                   "flops_per_device", "hbm_bytes_per_device",
+                   "collectives", "argument_bytes_per_device", "kernels")},
+               "dry": {k: dry[k] for k in (
+                   "flops_per_device", "hbm_bytes_per_device",
+                   "collectives", "argument_bytes_per_device",
+                   "kernels")}}}
+    c = rec["card_vs_dry_2x2"]
+    emit(rec)
+    check(c["flops_equal"] and c["collectives_equal"]
+          and c["argument_bytes_equal"] and c["kernels_equal"]
+          and hbm_rel <= 0.01, f"dryrun at (2, 2) against the card: {c}")
+    return rec
 
 
 def launcher_phase(dev):
@@ -5954,9 +6560,12 @@ def main() -> int:
     # the multi-process embedding PS
     remote_paths, recs["remote"] = remote_phase(dev, recs["sharded"])
     paths.update(remote_paths)
-    # the mesh paths: SPMD worlds of worker processes on the one card
+    # the mesh paths: SPMD worlds of worker processes on the one card, the
+    # dry run on the CPU beside them
+    dry = dryrun_start()
     mesh_paths, recs["mesh"] = mesh_phase(dev)
     paths.update(mesh_paths)
+    recs["dryrun"] = dryrun_phase(dry, recs["mesh"])
     recs["train_launcher"] = launcher_phase(dev)
 
     kernels = []

@@ -77,7 +77,9 @@ def lm_adapter(cfg, *, lr=1e-2, dtype=torch.float32) -> ModelAdapter:
     """One ``"vocab"`` table (model mode, the config's row optimizer and
     staleness); ``emb_ids`` are the batch's tokens and ``loss`` is
     :func:`~repro_torch.models.transformer.lm_loss` on their occurrence
-    activations (``pooled=False``)."""
+    activations (``pooled=False``). Under a mesh the dense stack is
+    tensor-parallel and ZeRO-3 sharded (``dense_specs``)."""
+    from repro_torch.models import tp as TP
     coll = EmbeddingCollection.single("vocab", EmbeddingSpec(
         rows=cfg.vocab_size, dim=cfg.d_model, mode="model",
         optimizer=cfg.emb_optimizer, lr=lr,
@@ -94,6 +96,7 @@ def lm_adapter(cfg, *, lr=1e-2, dtype=torch.float32) -> ModelAdapter:
         emb_ids=lambda b: {"vocab": b["tokens"]},
         loss=loss,
         pooled=False,
+        dense_specs=lambda mesh: TP.dense_specs(cfg, mesh),
     )
 
 

@@ -2350,6 +2350,8 @@ def _upload(arrays: list[np.ndarray], dtype, device) -> list[torch.Tensor]:
         [np.ascontiguousarray(a, dtype).reshape(-1) for a in arrays]))
     if torch.device(device).type == "cuda":
         buf = buf.pin_memory().to(device, non_blocking=True)
+    elif torch.device(device).type == "meta":          # the dry run
+        buf = buf.to("meta")
     parts = torch.split(buf, sizes)
     return [p.view(a.shape) for p, a in zip(parts, arrays)]
 

@@ -79,7 +79,14 @@ Differences from the JAX package, all of eager PyTorch:
   those of the global batch's mean loss (1 / size of the local mean's),
   so the tables move as in one process; ``loss``, ``emb_grad_norm`` and
   ``eval``'s metrics are over the global batch. Only dense tables are
-  ported under a mesh.
+  ported under a mesh. An adapter with ``dense_specs`` (the LM's) keeps
+  the rank's block of every dense leaf and Adam moment instead
+  (``dense_param_specs``: tensor parallelism over ``model``, ZeRO-3 over
+  ``data``): a leaf sharded over ``data`` takes its gradient's sum over
+  the data ranks from the reduce-scatter of its gather (the other batch
+  axes summed here), one replicated over the batch axes is summed over
+  them, both divided by their size; the gradient clip's global norm sums
+  each leaf's squares over the axes it is sharded on.
 """
 from __future__ import annotations
 
@@ -138,6 +145,9 @@ class ModelAdapter:
     loss: Callable[[Any, dict, dict], tuple]
     predict: Optional[Callable] = None       # (dense, pooled, batch) -> preds
     pooled: bool = True
+    # mesh -> the dense leaves' spec tree (the LM's tensor parallelism and
+    # ZeRO-3); None: the dense half is replicated under a mesh
+    dense_specs: Optional[Callable] = None
 
 
 @dataclass
@@ -251,6 +261,56 @@ def _batch_mean(tree):
     psum(flat, batch_axes()).div_(axis_size(batch_axes()))
     it = iter(torch.split(flat, [x.numel() for x in leaves]))
     return tree_map(lambda x: next(it).view(x.shape).to(x.dtype), tree)
+
+
+def _spec_groups(grads, specs, axes_of):
+    """Leaves of ``grads`` grouped by ``axes_of(spec)``: {axes: [(path
+    index, leaf)]} in walk order."""
+    from repro_torch.sharding.partition import _zip_map
+    groups: dict = {}
+    _zip_map(lambda sp, g: groups.setdefault(axes_of(sp), []).append(g),
+             specs, grads)
+    return groups
+
+
+def _mesh_dense_grads(dgrads, specs):
+    """The dense gradients' sum over the batch axes, each leaf's blocks:
+    a leaf sharded over ``data`` was summed over it by its gather's
+    reduce-scatter, so only the batch axes it is not sharded on are
+    summed here (one collective per set of axes). The caller divides by
+    the batch ranks."""
+    from repro_torch.models.tp import sharded_axes
+    from repro_torch.sharding.partition import _zip_map
+    nb = axis_size(batch_axes())
+
+    def missing(sp):
+        have = sharded_axes(sp)
+        return tuple(a for a in batch_axes() if a not in have)
+    for axes, leaves in _spec_groups(dgrads, specs, missing).items():
+        if not axes or axis_size(axes) == 1:
+            continue
+        flat = torch.cat([g.reshape(-1) for g in leaves])
+        psum(flat, axes)
+        for g, part in zip(leaves, torch.split(flat, [g.numel()
+                                                      for g in leaves])):
+            g.copy_(part.view(g.shape))
+    if nb > 1:
+        dgrads = _zip_map(lambda _, g: g / nb, specs, dgrads)
+    return dgrads
+
+
+def _mesh_global_norm(dgrads, specs) -> torch.Tensor:
+    """The global norm of the gradients of the whole dense tree from the
+    rank's blocks: each leaf's squares summed over the axes it is sharded
+    on (one collective per set of axes); a replicated leaf counts once."""
+    from repro_torch.models.tp import sharded_axes
+    total = None
+    for axes, leaves in _spec_groups(dgrads, specs, sharded_axes).items():
+        sq = sum(torch.sum(torch.square(g.float())) for g in leaves)
+        if axes and axis_size(axes) > 1:
+            sq = psum(sq.reshape(1).contiguous(), axes)[0]
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
 
 
 def _insertion_leaves(tree) -> list:
@@ -367,7 +427,7 @@ class PersiaTrainer:
                 f"{self.mode.dense_staleness})")
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
-        dense = self.adapter.init_dense(gen)
+        dense = self._local_dense(self.adapter.init_dense(gen))
         # under a mesh every rank draws the global tables (rows padded to
         # the ranks that shard them) and keeps its block
         emb = {n: self.backends[n].init(
@@ -402,14 +462,39 @@ class PersiaTrainer:
                     emb_state_specs(emb[n], self.collection[n]).items()}
                 for n in emb}
 
+    def dense_specs(self):
+        """The dense leaves' specs under the mesh in scope (the adapter's
+        ``dense_specs``), or None: the dense half replicated."""
+        mesh = get_mesh()
+        if mesh is None or self.adapter.dense_specs is None:
+            return None
+        from repro_torch.sharding.partition import ZERO_STAGE
+        if ZERO_STAGE != 3:
+            raise NotImplementedError(
+                f"REPRO_ZERO_STAGE={ZERO_STAGE}: the port trains the dense "
+                "stack under a mesh at ZeRO stage 3 only")
+        return self.adapter.dense_specs(mesh)
+
+    def _local_dense(self, tree, specs=None):
+        """Copies of the rank's blocks of a global dense tree (the tree
+        itself where the dense half is replicated)."""
+        from repro_torch.sharding.partition import _zip_map, local_block
+        specs = self.dense_specs() if specs is None else specs
+        if specs is None:
+            return tree
+        mesh = get_mesh()
+        return _zip_map(lambda sp, x: local_block(mesh, sp, x).clone(),
+                        specs, tree)
+
     def local_state(self, state: TrainState) -> TrainState:
         """The rank's blocks of a global state (a state of one process,
         e.g. from ``convert.state_from_numpy``) under the mesh in scope:
         each table's rows cut to its block (``emb_state_specs``), each
         staleness queue's width cut over the batch axes (``queue_specs``:
         the ranks' halves of a popped put, gathered over the batch axes,
-        are that put), the dense half replicated. The blocks are copies.
-        Without a mesh, the state itself."""
+        are that put), the dense leaves and the Adam moments cut to their
+        blocks where the adapter has ``dense_specs`` (else replicated). The
+        blocks are copies. Without a mesh, the state itself."""
         from repro_torch.sharding.partition import local_block, queue_specs
         mesh = get_mesh()
         if mesh is None:
@@ -420,8 +505,13 @@ class PersiaTrainer:
             queues[n] = None if q is None else {
                 k: local_block(mesh, sp[k], v).clone()
                 if isinstance(v, torch.Tensor) else v for k, v in q.items()}
+        opt = state.opt
+        if self.dense_specs() is not None:
+            opt = {k: self._local_dense(v) if k in ("m", "v") else v
+                   for k, v in opt.items()}
         return state.replace(emb=self._local_emb(state.emb),
-                             emb_queue=queues)
+                             emb_queue=queues,
+                             dense=self._local_dense(state.dense), opt=opt)
 
     # -- the host-side prepare phase (batch dedup) -----------------------------
 
@@ -459,10 +549,14 @@ class PersiaTrainer:
             metrics, dgrads, agrads = _loss_grads(adapter.loss, dense, acts,
                                                   batch)        # Alg.2
             nb = axis_size(batch_axes())
+            specs = self.dense_specs()
+            if specs is not None:
+                dgrads = _mesh_dense_grads(dgrads, specs)
             if nb > 1:
                 # the global batch's mean loss: the dense gradients'
                 # mean over the batch ranks, the activations' 1 / nb
-                dgrads = _batch_mean(dgrads)
+                if specs is None:
+                    dgrads = _batch_mean(dgrads)
                 agrads = {n: g / nb for n, g in agrads.items()}
                 metrics = _batch_mean(metrics)
             if adapter.pooled:
@@ -480,7 +574,12 @@ class PersiaTrainer:
             if mode.dense_staleness > 0 and dense_queue is not None:
                 dense_queue, dgrads = _dense_queue_push_pop(dense_queue,
                                                             dgrads)
-            dense, opt = self.opt_update(dense, dgrads, opt, lr=lr)
+            if specs is not None:
+                dense, opt = self.opt_update(
+                    dense, dgrads, opt, lr=lr,
+                    norm=_mesh_global_norm(dgrads, specs))
+            else:
+                dense, opt = self.opt_update(dense, dgrads, opt, lr=lr)
             metrics["emb_grad_norm"] = _emb_grad_norm(agrads)
             return dense, opt, dense_queue, agrads, metrics
 

@@ -31,6 +31,7 @@ the launches made.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 import threading
@@ -79,6 +80,125 @@ def _count(fn, launches: int = 1, tables: int = 0) -> None:
         fn.launches += launches
         if tables:
             fn.tables += tables
+
+
+def _flat_tensors(x):
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            yield from _flat_tensors(v)
+
+
+def _costed(name: str, cost, meta):
+    """A wrapper counted by ``launch.op_cost`` as one kernel ``name`` of
+    ``cost(*args)`` = (operations, bytes), its own ops uncounted; in a
+    count with every tensor on the ``meta`` device (:func:`_meta`) it
+    returns ``meta(*args)``, the outputs' shapes, and launches nothing."""
+    import functools
+
+    def deco(f):
+        @functools.wraps(f)
+        def g(*args, **kwargs):
+            ts = list(_flat_tensors((args, tuple(kwargs.values()))))
+            if not ts:                       # an empty group: no kernel
+                return f(*args, **kwargs)
+            try:
+                c = cost(*args, **kwargs)
+            except (AttributeError, ArithmeticError, IndexError, TypeError,
+                    ValueError):
+                c = (0.0, 0.0)        # bad shapes: the wrapper says why
+            with _kernel(name, *c):
+                if _meta(*ts):
+                    return meta(*args, **kwargs)
+                return f(*args, **kwargs)
+        return g
+    return deco
+
+
+def _bag_cost(table, dev, inv) -> tuple[float, float]:
+    """One bag call from its shapes (``chip_smoke.py``'s bound with every
+    index a distinct row): the rows read, the pooled rows written, the
+    indices read; an add per element of a bag slot."""
+    (B, L), D = inv.shape, table.shape[1]
+    rows = min(B * L, table.shape[0]) if dev is None else dev.shape[0]
+    n_index = B * L + (0 if dev is None else dev.shape[0])
+    return float(B * L * D), float(rows * D * 4 + B * D * 4 + n_index * 4)
+
+
+def _codec_cost(n: int, block: int) -> tuple[float, float]:
+    """One compress or decompress of n fp32 elements in blocks of
+    ``block`` (``chip_smoke.py``'s ``codec_bound``)."""
+    nb = -(-n // block)
+    return float(2 * n + nb), float(n * 6 + nb * 4)
+
+
+def _meta_empty(shape, dtype=torch.float32):
+    return torch.empty(tuple(int(x) for x in shape), dtype=dtype,
+                       device="meta")
+
+
+@contextlib.contextmanager
+def _kernel(name: str, flops: float, nbytes: float):
+    """One call of kernel ``name`` for ``launch.op_cost``: counted as one
+    kernel of ``flops`` and ``nbytes`` (its bound's formula) while a count
+    is open, the plain ops inside uncounted."""
+    from repro_torch.launch import op_cost
+    c = op_cost.active()
+    if c is not None:
+        c.kernel(name, flops, nbytes)
+    with op_cost.suspended():
+        yield
+
+
+def _meta(*ts: torch.Tensor) -> bool:
+    """The dry run's call: every tensor on the ``meta`` device while a
+    ``launch.op_cost`` count is open. The wrapper then makes its outputs'
+    shapes and launches nothing. Outside a count a meta tensor is one
+    more device that is not a CUDA device: the wrapper raises."""
+    from repro_torch.launch import op_cost
+    ts = [t for t in ts if t is not None]
+    return bool(ts) and op_cost.active() is not None and all(
+        t.device.type == "meta" for t in ts)
+
+
+def attended_pairs(Sq: int, Sk: int, causal: bool, window: int,
+                   q_offset: int = 0) -> int:
+    """(query, key) pairs the attention's masks leave, one head's work:
+    per query at position p the keys k < Sk with k <= p (causal) and
+    p - k < window (a window), counted in O(Sq)."""
+    p = np.arange(Sq, dtype=np.int64) + q_offset
+    hi = np.minimum(p + 1, Sk) if causal else np.full_like(p, Sk)
+    lo = np.maximum(p - window + 1, 0) if window > 0 else np.zeros_like(p)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def flash_cost(q, k, v, causal: bool, window: int, q_offset: int):
+    """(operations, bytes) of one ``flash_attention_fwd`` call: 2 (Dh +
+    Dv) a (query, key) pair the masks leave and head; q, k, v and o once
+    and the fp32 logsumexp (``chip_smoke.py``'s bound)."""
+    B, Hq, Sq, Dh = q.shape
+    Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
+    pairs = attended_pairs(Sq, Sk, causal, window, q_offset)
+    size = q.element_size()
+    return (2.0 * B * Hq * (Dh + Dv) * pairs,
+            size * (B * Hq * Sq * (Dh + Dv) + B * Hkv * Sk * (Dh + Dv))
+            + 4.0 * B * Hq * Sq)
+
+
+def fused_backward_cost(order, offsets, grads, apply_idx, apply_self: bool,
+                        D: int):
+    """(operations, bytes) of one ``fused_backward`` call from its shapes
+    (``chip_smoke.py``'s bound with every apply slot live and distinct):
+    the occurrence rows and the CSR read, the payload written, the apply
+    rows read (unless they are the payload), the table rows and
+    accumulators read and written; an add per occurrence element and five
+    operations per applied element."""
+    n_valid, cap = int(order.numel()), int(apply_idx.numel())
+    nb = (n_valid * (D + 1) * 4 + offsets.numel() * 4 + cap * 4
+          + cap * D * 4 + (0 if apply_self else cap * D * 4)
+          + cap * (D + 1) * 4 * 2)
+    return float(n_valid * D + cap * D * 5), float(nb)
 
 
 def _fn(name: str):
@@ -134,6 +254,10 @@ def _launch(op: str, name: str, table: torch.Tensor, out: torch.Tensor,
     return out
 
 
+@_costed("embedding_bag",
+         lambda table, ids: _bag_cost(table, None, ids),
+         lambda table, ids: _meta_empty((ids.shape[0], table.shape[1]),
+                                        table.dtype))
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """(V, D) x (B, L) ids (< 0 = padding) -> (B, D) fused gather and sum
     pool. Port of ``repro.kernels.ops.embedding_bag``: on the card the
@@ -155,6 +279,9 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@_costed("unique_bag", _bag_cost,
+         lambda table, dev, inv: _meta_empty((inv.shape[0], table.shape[1]),
+                                             table.dtype))
 def unique_bag(table: torch.Tensor, dev: torch.Tensor,
                inv: torch.Tensor) -> torch.Tensor:
     """(V, D) x (U,) unique table rows x (B, L) inverse -> (B, D): the
@@ -212,6 +339,13 @@ def _launch_grouped(op: str, name: str, device: torch.device,
     return int(made[0])
 
 
+@_costed("unique_bag",
+         lambda tables, devs, invs, flat=None: tuple(map(sum, zip(
+             *[_bag_cost(t, d, i) for t, d, i in zip(tables, devs, invs)],
+             (0.0, 0.0)))),
+         lambda tables, devs, invs, flat=None: [
+             _meta_empty((i.shape[0], t.shape[1]))
+             for t, i in zip(tables, invs)])
 def unique_bag_grouped(tables, devs, invs, flat=None) -> list[torch.Tensor]:
     """:func:`unique_bag` of every table of a group in ONE launch (one per
     chunk of descriptors): per table t, (V_t, D_t) x (U_t,) dev x (B_t,
@@ -335,10 +469,23 @@ def fused_backward(table: torch.Tensor, acc: torch.Tensor | None,
     given = {k: t for k, t in (("acc", acc), ("grads", grads),
                                ("apply_g", None if apply_self else apply_g))
              if t is not None}
-    if _all_on_cpu(table, order, offsets, apply_idx, *given.values()):
-        return ref.fused_backward_ref(table, acc, order, offsets, grads,
-                                      apply_idx, apply_g, lr=lr, eps=eps,
-                                      apply_self=apply_self)
+    with _kernel("fused_backward", *fused_backward_cost(
+            order, offsets, grads, apply_idx, apply_self, D)):
+        if _meta(table, acc, order, offsets, grads, apply_idx, apply_g):
+            return torch.empty((cap, D), dtype=torch.float32,
+                               device="meta")
+        if _all_on_cpu(table, order, offsets, apply_idx, *given.values()):
+            return ref.fused_backward_ref(table, acc, order, offsets, grads,
+                                          apply_idx, apply_g, lr=lr,
+                                          eps=eps, apply_self=apply_self)
+        return _fused_backward_cuda(table, acc, order, offsets, grads,
+                                    apply_idx, apply_g, given, lr=lr,
+                                    eps=eps, apply_self=apply_self)
+
+
+def _fused_backward_cuda(table, acc, order, offsets, grads, apply_idx,
+                         apply_g, given, *, lr, eps, apply_self):
+    (R, D), cap = table.shape, int(apply_idx.shape[0])
     _check_cuda("fused_backward", table, floats=given, order=order,
                 offsets=offsets, apply_idx=apply_idx)
     push = torch.empty((cap, D), dtype=torch.float32, device=table.device)
@@ -390,6 +537,11 @@ def _check_block(block) -> int:
     return int(block)
 
 
+@_costed("blockscale_compress",
+         lambda v, block=128: _codec_cost(v.numel(), block),
+         lambda v, block=128: (
+             _meta_empty((-(-v.numel() // block), block), torch.float16),
+             _meta_empty((-(-v.numel() // block),))))
 def blockscale_compress(v: torch.Tensor, block: int = 128):
     """Any-shape fp32 ``v``, flattened and zero-padded to whole blocks of
     ``block`` -> ``(comp, scales)``: (n_blocks, block) fp16 and (n_blocks,)
@@ -414,6 +566,15 @@ def blockscale_compress(v: torch.Tensor, block: int = 128):
     return comp, scales
 
 
+@_costed("blockscale_compress",
+         lambda vs, block=128: tuple(map(sum, zip(*[_codec_cost(
+             v.numel(), b) for v, b in zip(vs, [block] * len(vs) if isinstance(
+                 block, (int, np.integer)) else block)], (0.0, 0.0)))),
+         lambda vs, block=128: [(
+             _meta_empty((-(-v.numel() // b), b), torch.float16),
+             _meta_empty((-(-v.numel() // b),))) for v, b in zip(
+                 vs, [block] * len(vs) if isinstance(block, (int, np.integer))
+                 else block)])
 def blockscale_compress_grouped(vs, block=128) -> list[tuple]:
     """:func:`blockscale_compress` of every payload of a group in ONE
     launch (one per chunk of descriptors) -> ``[(comp, scales)]``.
@@ -453,6 +614,11 @@ def blockscale_compress_grouped(vs, block=128) -> list[tuple]:
     return res
 
 
+@_costed("blockscale_decompress",
+         lambda comp, scales, shape=None: _codec_cost(comp.numel(),
+                                                      comp.shape[1]),
+         lambda comp, scales, shape=None: _meta_empty(
+             comp.shape if shape is None else shape))
 def blockscale_decompress(comp: torch.Tensor, scales: torch.Tensor,
                           shape=None) -> torch.Tensor:
     """(n_blocks, block) fp16 and (n_blocks,) fp32 scales -> fp32 ``comp /
@@ -487,6 +653,12 @@ def blockscale_decompress(comp: torch.Tensor, scales: torch.Tensor,
     return out
 
 
+@_costed("blockscale_decompress",
+         lambda comps, scales, outs: tuple(map(sum, zip(*[_codec_cost(
+             c.numel(), c.shape[1]) for c in comps], (0.0, 0.0)))),
+         lambda comps, scales, outs: [
+             o if isinstance(o, torch.Tensor) else _meta_empty(o)
+             for o in outs])
 def blockscale_decompress_grouped(comps, scales, outs) -> list[torch.Tensor]:
     """:func:`blockscale_decompress` of every table of a group in ONE
     launch (one per chunk of descriptors). ``outs[t]`` is either a shape
@@ -570,6 +742,10 @@ def check_unique(ids) -> None:
             "assume_unique=True if the rows are already aggregated.")
 
 
+@_costed("embedding_sgd",
+         lambda table, ids, grads, lr=1e-2, assume_unique=False: (
+             2.0 * grads.numel(), float(ids.numel() * 4 + grads.numel() * 12)),
+         lambda table, ids, grads, lr=1e-2, assume_unique=False: table)
 def embedding_sgd(table: torch.Tensor, ids: torch.Tensor,
                   grads: torch.Tensor, lr: float = 1e-2,
                   assume_unique: bool = False) -> torch.Tensor:
@@ -645,9 +821,21 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window < 0 or q_offset < 0:
         raise ValueError(f"flash_attention_fwd: window ({window}) and "
                          f"q_offset ({q_offset}) must be >= 0")
-    if _all_on_cpu(q, k, v):
-        return ref.flash_attention_fwd_ref(q, k, v, scale, causal, window,
-                                           q_offset)
+    with _kernel("flash_attention_fwd", *flash_cost(
+            q, k, v, causal, window, q_offset)):
+        if _meta(q, k, v):
+            B, Hq, Sq, _ = q.shape
+            return (torch.empty((B, Hq, Sq, v.shape[3]), dtype=q.dtype,
+                                device="meta"),
+                    torch.empty((B, Hq, Sq), dtype=torch.float32,
+                                device="meta"))
+        if _all_on_cpu(q, k, v):
+            return ref.flash_attention_fwd_ref(q, k, v, scale, causal,
+                                               window, q_offset)
+        return _flash_cuda(q, k, v, scale, causal, window, q_offset)
+
+
+def _flash_cuda(q, k, v, scale, causal, window, q_offset):
     _check_codec("flash_attention_fwd",
                  **{n: (t, q.dtype) for n, t in (("q", q), ("k", k),
                                                  ("v", v))})

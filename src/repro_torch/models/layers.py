@@ -40,6 +40,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ref
 from repro_torch.models import flash
+from repro_torch.models import tp as TP
 
 NEG_INF = ref.NEG_INF
 
@@ -269,7 +270,8 @@ def gqa_init(generator: torch.Generator, cfg, dtype=torch.float32, *,
 
 def _qkv(p: dict, cfg, x: torch.Tensor, memory: torch.Tensor | None = None):
     """q (B, S, Hkv, G, Dh) from ``x``; k, v (B, M, Hkv, Dh) from
-    ``memory`` (B, M, d_memory) when given, else from ``x``."""
+    ``memory`` (B, M, d_memory) when given, else from ``x`` (every head:
+    under tensor parallelism :func:`_project` takes its place)."""
     B, S, _ = x.shape
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     src = x if memory is None else memory
@@ -282,34 +284,169 @@ def _qkv(p: dict, cfg, x: torch.Tensor, memory: torch.Tensor | None = None):
     return q, k, v
 
 
-def gqa_forward(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor, *,
-                window=None, use_rope=True):
-    """Self-attention over the full sequence (training / prefill). Returns
-    ``(out, (k, v))`` with k and v after RoPE, (B, S, Hkv, Dh)."""
+def _project(p: dict, cfg, x: torch.Tensor, memory=None):
+    """The tensor-parallel projections: ``(q (B, S, Hq, Dh), k, v (B, M,
+    Hk, Dh), k0, h0)``: q the query heads from ``h0`` that this rank's
+    column block of ``wq`` covers (its own heads; where the block ends
+    inside a head, as 40 heads over 16 ranks do, the blocks are gathered
+    over ``model`` and the rank keeps every head its block touches), k and
+    v the key/value heads from ``k0`` on: the rank's own column block where
+    the n model ranks split the Hkv heads evenly, else every head (each
+    rank's column block is part of a head: the blocks are gathered over
+    ``model``; the rank keeps the heads it reads in
+    :func:`_group_heads`). The per-head norms run on those heads."""
     B, S, _ = x.shape
-    q, k, v = _qkv(p, cfg, x)
-    if use_rope:
-        q = apply_rope(q.reshape(B, S, -1, cfg.head_dim), positions,
-                       cfg.rope_theta).reshape(q.shape)
-        k = apply_rope(k, positions, cfg.rope_theta)
+    Hkv, Dh = cfg.n_kv_heads, cfg.head_dim
+    n, r = TP.n_model(), TP.model_index()
+    xe = TP.enter(x)
+    src = xe if memory is None else TP.enter(memory)
+    q = xe @ p["wq"]
+    cols = q.shape[-1]
+    h0 = r * cols // Dh
+    if cols % Dh:                         # the block ends inside a head
+        h1 = -(-(r + 1) * cols // Dh)
+        q = TP.gather_model(q)[..., h0 * Dh:h1 * Dh]
+    q = q.reshape(B, S, -1, Dh)
+    k, v = src @ p["wk"], src @ p["wv"]
+    if Hkv % n == 0 and k.shape[-1] == Hkv // n * Dh:
+        k0 = r * (Hkv // n)
+    else:
+        if k.shape[-1] != Hkv * Dh:
+            k, v = TP.gather_model(k), TP.gather_model(v)
+        k0 = 0
+    k = k.reshape(B, src.shape[1], -1, Dh)
+    v = v.reshape(B, src.shape[1], -1, Dh)
+    if cfg.qk_norm:
+        q = rmsnorm(q, TP.enter(p["q_norm"]["w"]), cfg.norm_eps)
+        k = rmsnorm(k, TP.enter(p["k_norm"]["w"]), cfg.norm_eps)
+    return q, k, v, k0, h0
+
+
+def _group_heads(cfg, q, k, v, k0: int, h0: int):
+    """The (B, S, Hq, Dh) query heads from ``h0`` over the key/value heads
+    they read (from ``k``'s heads, the first of them head ``k0``): q
+    grouped (B, S, Hkv_l, G_l, Dh), k and v (B, M, Hkv_l, Dh)."""
+    B, S, Hq, Dh = q.shape
+    G = cfg.n_heads // cfg.n_kv_heads
+    lo, hi = h0 // G, (h0 + Hq - 1) // G + 1
+    if Hq % (hi - lo) or (hi - lo > 1 and (h0 % G or Hq % G)):
+        raise ValueError(f"query heads {h0}..{h0 + Hq - 1} do not group "
+                         f"evenly over key/value heads of {G}")
+    k, v = k[:, :, lo - k0:hi - k0], v[:, :, lo - k0:hi - k0]
+    return q.reshape(B, S, hi - lo, Hq // (hi - lo), Dh), k, v
+
+
+def _rank_cols(o: torch.Tensor, w: torch.Tensor, h0: int, Dh: int):
+    """The attention output's (B, S, Hq * Dv) columns of query heads from
+    ``h0`` cut to this rank's block of ``w``'s rows (the rank computed
+    every head its block touches)."""
+    rows = w.shape[0]
+    if o.shape[-1] == rows:
+        return o
+    c0 = TP.model_index() * rows - h0 * Dh
+    return o[..., c0:c0 + rows]
+
+
+def _full_kv(cfg, k, k0: int):
+    """Every key/value head of the rank's (B, M, Hk, Dh) heads from
+    ``k0`` (the decode caches hold every head)."""
+    return k if k.shape[2] == cfg.n_kv_heads else TP.gather_model(k, 2)
+
+
+def _out_proj(w: torch.Tensor, o: torch.Tensor, full: int) -> torch.Tensor:
+    """``o`` (..., H_l * Dv) through ``w``: under tensor parallelism ``w``
+    is the rank's block of rows (of ``full``) and the products are summed
+    over ``model``."""
+    if TP.split(w, full, 0):
+        return TP.leave(o @ w)
+    return o @ w
+
+
+def gqa_forward(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor, *,
+                window=None, use_rope=True, full_kv: bool = False):
+    """Self-attention over the full sequence (training / prefill). Returns
+    ``(out, (k, v))`` with k and v after RoPE, (B, S, Hkv, Dh): under
+    tensor parallelism the heads this rank reads, every head with
+    ``full_kv`` (a prefill's caches)."""
+    B, S, _ = x.shape
+    Dh = cfg.head_dim
+    h0 = 0
+    if TP.split(p["wq"], cfg.n_heads * Dh):
+        q, k, v, k0, h0 = _project(p, cfg, x)
+        if use_rope:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+        kv = (_full_kv(cfg, k, k0), _full_kv(cfg, v, k0)) if full_kv \
+            else None
+        q, k, v = _group_heads(cfg, q, k, v, k0, h0)
+    else:
+        q, k, v = _qkv(p, cfg, x)
+        if use_rope:
+            q = apply_rope(q.reshape(B, S, -1, Dh), positions,
+                           cfg.rope_theta).reshape(q.shape)
+            k = apply_rope(k, positions, cfg.rope_theta)
+        kv = None
     w = cfg.sliding_window if window is None else window
-    out = grouped_attention(q, k, v, scale=1.0 / math.sqrt(cfg.head_dim),
+    out = grouped_attention(q, k, v, scale=1.0 / math.sqrt(Dh),
                             causal=True, window=w,
                             softcap=cfg.attn_logit_softcap)
-    return out.reshape(B, S, -1) @ p["wo"], (k, v)
+    out = _rank_cols(out.reshape(B, S, -1), p["wo"], h0, Dh)
+    out = _out_proj(p["wo"], out, cfg.n_heads * Dh)
+    return out, (kv or (k, v))
 
 
-def cross_attn_forward(p: dict, cfg, x: torch.Tensor, memory: torch.Tensor):
+def cross_attn_forward(p: dict, cfg, x: torch.Tensor, memory: torch.Tensor,
+                       *, causal: bool = False, full_kv: bool = False):
     """Cross-attention of the (B, S) queries to a fixed memory (B, M,
     d_memory) (image patches / encoder frames): non-causal, no RoPE, no
     window, no cap (as in JAX), Sq = S over Sk = M through
     :func:`grouped_attention` (the kernel on the card). Returns ``(out,
-    (k, v))``, k and v (B, M, Hkv, Dh) for the decode's cache."""
+    (k, v))``, k and v (B, M, Hkv, Dh) for the decode's cache (every head
+    with ``full_kv`` under tensor parallelism). With ``memory`` the
+    queries' own sequence it is the encoder's self-attention."""
     B, S, _ = x.shape
-    q, k, v = _qkv(p, cfg, x, memory=memory)
-    out = grouped_attention(q, k, v, scale=1.0 / math.sqrt(cfg.head_dim),
-                            causal=False, window=0)
-    return out.reshape(B, S, -1) @ p["wo"], (k, v)
+    Dh = cfg.head_dim
+    h0 = 0
+    if TP.split(p["wq"], cfg.n_heads * Dh):
+        q, k, v, k0, h0 = _project(p, cfg, x, memory)
+        kv = (_full_kv(cfg, k, k0), _full_kv(cfg, v, k0)) if full_kv \
+            else None
+        q, k, v = _group_heads(cfg, q, k, v, k0, h0)
+    else:
+        q, k, v = _qkv(p, cfg, x, memory=memory)
+        kv = None
+    out = grouped_attention(q, k, v, scale=1.0 / math.sqrt(Dh),
+                            causal=causal, window=0)
+    out = _rank_cols(out.reshape(B, S, -1), p["wo"], h0, Dh)
+    out = _out_proj(p["wo"], out, cfg.n_heads * Dh)
+    return out, (kv or (k, v))
+
+
+def _decode_heads(p: dict, cfg, x: torch.Tensor):
+    """The decode step's q (B, 1, Hkv, G, Dh) and new k, v (B, 1, Hkv, Dh)
+    over every head: under tensor parallelism the rank's blocks gathered
+    over ``model`` (the caches, and the sequence-sharded decode, need
+    every head on every rank)."""
+    if not TP.split(p["wq"], cfg.n_heads * cfg.head_dim):
+        return _qkv(p, cfg, x)
+    B, Dh = x.shape[0], cfg.head_dim
+    q = TP.gather_model(TP.enter(x) @ p["wq"]).reshape(B, 1, -1, Dh)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"]["w"], cfg.norm_eps)
+    _, k, v, k0, _ = _project(p, cfg, x)
+    k, v = _full_kv(cfg, k, k0), _full_kv(cfg, v, k0)
+    return q.reshape(B, 1, cfg.n_kv_heads, -1, Dh), k, v
+
+
+def decode_out(p: dict, cfg, o: torch.Tensor, dv: int) -> torch.Tensor:
+    """A decode step's every-head output (B, 1, H * dv) through ``wo``:
+    under tensor parallelism the rank's heads through its rows, summed
+    over ``model``."""
+    full = cfg.n_heads * dv
+    if TP.split(p["wo"], full, 0):
+        hl = p["wo"].shape[0]
+        o = o[..., TP.model_index() * hl:][..., :hl]
+    return _out_proj(p["wo"], o, full)
 
 
 def gqa_decode(p: dict, cfg, x: torch.Tensor, cache: dict, *, window=None,
@@ -323,12 +460,13 @@ def gqa_decode(p: dict, cfg, x: torch.Tensor, cache: dict, *, window=None,
     full-length cache, which then never wraps), and ``len`` grows by one.
     The cache's contents then equal the new cache the JAX package returns.
     Under a mesh with a ``model`` axis a full-length cache is the rank's
-    sequence span (``decode_dist.gqa_decode_dist``). Returns ``(out,
-    cache)``."""
+    sequence span (``decode_dist.gqa_decode_dist``); under tensor
+    parallelism the step's heads are gathered first and the output leaves
+    through the rank's rows of ``wo``. Returns ``(out, cache)``."""
     from repro_torch.models import decode_dist as DD
     w = cfg.sliding_window if window is None else window
     B, Dh = x.shape[0], cfg.head_dim
-    q, k, v = _qkv(p, cfg, x)
+    q, k, v = _decode_heads(p, cfg, x)
     pos = cache["len"][:, None]                                   # (B, 1)
     if use_rope:
         q = apply_rope(q.reshape(B, 1, -1, Dh), pos,
@@ -338,7 +476,7 @@ def gqa_decode(p: dict, cfg, x: torch.Tensor, cache: dict, *, window=None,
         out, cache = DD.gqa_decode_dist(
             p, cfg, q, k, v, cache, scale=1.0 / math.sqrt(Dh),
             softcap=cfg.attn_logit_softcap)
-        return out.reshape(B, 1, -1) @ p["wo"], cache
+        return decode_out(p, cfg, out.reshape(B, 1, -1), Dh), cache
     rows = torch.arange(B, device=x.device)
     S = cache["k"].shape[1]
     slot = cache["len"].long()
@@ -352,7 +490,7 @@ def gqa_decode(p: dict, cfg, x: torch.Tensor, cache: dict, *, window=None,
         out = decode_attention(q, cache["k"], cache["v"], cache["len"],
                                scale=1.0 / math.sqrt(Dh),
                                softcap=cfg.attn_logit_softcap)
-    return out.reshape(B, 1, -1) @ p["wo"], cache
+    return decode_out(p, cfg, out.reshape(B, 1, -1), Dh), cache
 
 
 def _decode_ring(q, kc, vc, new_len, window: int, cfg):
@@ -419,14 +557,16 @@ def mla_init(generator: torch.Generator, cfg, dtype=torch.float32, *,
 
 
 def _mla_q(p: dict, cfg, x: torch.Tensor):
-    """(q_nope (B, S, H, head_dim), q_rope (B, S, H, rope_head_dim))."""
+    """(q_nope (B, S, H, head_dim), q_rope (B, S, H, rope_head_dim)); under
+    tensor parallelism the rank's heads (``wq`` / ``wuq`` column blocks;
+    the q latent of ``wdq`` is replicated)."""
     B, S, _ = x.shape
-    H, dn, dr = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
+    dn, dr = cfg.head_dim, cfg.rope_head_dim
     if cfg.q_lora_rank > 0:
         cq = rmsnorm(x @ p["wdq"], p["q_ln"]["w"], cfg.norm_eps)
-        q = (cq @ p["wuq"]).reshape(B, S, H, dn + dr)
+        q = (TP.enter(cq) @ p["wuq"]).reshape(B, S, -1, dn + dr)
     else:
-        q = (x @ p["wq"]).reshape(B, S, H, dn + dr)
+        q = (TP.enter(x) @ p["wq"]).reshape(B, S, -1, dn + dr)
     return q[..., :dn], q[..., dn:]
 
 
@@ -436,23 +576,27 @@ def mla_forward(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor):
     heads) and a value of v_head_dim, through :func:`grouped_attention`
     (the kernel on the card, Hkv = H, G = 1). Returns ``(out, cache)``,
     the latent cache ``{"ckv": (B, S, kv_lora_rank), "k_rope": (B, S,
-    rope_head_dim), "len": (B,)}``."""
+    rope_head_dim), "len": (B,)}``. Under tensor parallelism the rank's
+    heads (``wuk`` / ``wuv`` column blocks, ``wo`` rows) over the
+    replicated latent (``wdkv`` is replicated over ``model``)."""
     B, S, _ = x.shape
-    H, dn, dr, r = (cfg.n_heads, cfg.head_dim, cfg.rope_head_dim,
-                    cfg.kv_lora_rank)
+    dn, dr, r = cfg.head_dim, cfg.rope_head_dim, cfg.kv_lora_rank
     q_nope, q_rope = _mla_q(p, cfg, x)
+    H = q_nope.shape[2]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     ckv_full = x @ p["wdkv"]                                  # (B, S, r+dr)
     ckv = rmsnorm(ckv_full[..., :r], p["kv_ln"]["w"], cfg.norm_eps)
     k_rope = apply_rope(ckv_full[..., None, r:], positions,
                         cfg.rope_theta)                       # (B, S, 1, dr)
-    k_nope = (ckv @ p["wuk"]).reshape(B, S, H, dn)
-    v = (ckv @ p["wuv"]).reshape(B, S, H, cfg.v_head_dim)
+    ckv_e, k_rope_e = TP.enter(ckv), TP.enter(k_rope)
+    k_nope = (ckv_e @ p["wuk"]).reshape(B, S, H, dn)
+    v = (ckv_e @ p["wuv"]).reshape(B, S, H, cfg.v_head_dim)
     q = torch.cat([q_nope, q_rope], -1)[:, :, :, None, :]    # Hkv = H, G = 1
-    k = torch.cat([k_nope, k_rope.expand(B, S, H, dr)], -1)
+    k = torch.cat([k_nope, k_rope_e.expand(B, S, H, dr)], -1)
     out = grouped_attention(q, k, v, scale=1.0 / math.sqrt(dn + dr),
                             causal=True)
-    out = out.reshape(B, S, -1) @ p["wo"]
+    out = _out_proj(p["wo"], out.reshape(B, S, -1),
+                    cfg.n_heads * cfg.v_head_dim)
     cache = {"ckv": ckv, "k_rope": k_rope[:, :, 0, :],
              "len": torch.full((B,), S, dtype=torch.int32, device=x.device)}
     return out, cache
@@ -466,34 +610,44 @@ def mla_decode(p: dict, cfg, x: torch.Tensor, cache: dict):
     into the query and ``wuv`` applied after the context, so each head
     attends over r + dr numbers a position. Under a mesh with a ``model``
     axis the cache is the rank's sequence span
-    (``decode_dist.mla_decode_dist``). Returns ``(out, cache)``."""
+    (``decode_dist.mla_decode_dist``); under tensor parallelism the
+    absorbed queries of every head are gathered over ``model`` first and
+    the rank's heads leave through its rows of ``wo``. Returns ``(out,
+    cache)``."""
     from repro_torch.models import decode_dist as DD
     B = x.shape[0]
-    H, dn, dr, dv, r = (cfg.n_heads, cfg.head_dim, cfg.rope_head_dim,
-                        cfg.v_head_dim, cfg.kv_lora_rank)
+    dn, dr, dv, r = (cfg.head_dim, cfg.rope_head_dim, cfg.v_head_dim,
+                     cfg.kv_lora_rank)
     q_nope, q_rope = _mla_q(p, cfg, x)                        # (B, 1, H, *)
+    H = q_nope.shape[2]
     pos = cache["len"][:, None]
     q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
     ckv_full = x @ p["wdkv"]
     ckv_new = rmsnorm(ckv_full[..., :r], p["kv_ln"]["w"], cfg.norm_eps)
     kr_new = apply_rope(ckv_full[..., None, r:], pos, cfg.rope_theta)[:, :, 0]
+    # absorb W_uk into q: q_abs[h, r] = sum_dn q_nope[h, dn] * wuk[r, h, dn]
+    wuk = p["wuk"].reshape(r, H, dn)
+    q_abs = torch.einsum("bqhd,rhd->bqhr", q_nope.float(), wuk.float())
+    wuv = p["wuv"].reshape(r, H, dv)
+    tp = H != cfg.n_heads
+    if tp:
+        q_abs, q_rope = TP.gather_model(q_abs, 2), TP.gather_model(q_rope, 2)
+
+    def heads(ctx):                           # the rank's heads of the ctx
+        return ctx[:, :, TP.model_index() * H:][:, :, :H] if tp else ctx
+
     if DD.have_model_axis():
-        wuk = p["wuk"].reshape(r, H, dn)
-        q_abs = torch.einsum("bqhd,rhd->bqhr", q_nope.float(), wuk.float())
         ctx, cache = DD.mla_decode_dist(cfg, q_abs, q_rope, ckv_new, kr_new,
                                         cache)
-        wuv = p["wuv"].reshape(r, H, dv)
-        out = torch.einsum("bqhr,rhd->bqhd", ctx, wuv.float())
-        return out.reshape(B, 1, H * dv).to(x.dtype) @ p["wo"], cache
+        out = torch.einsum("bqhr,rhd->bqhd", heads(ctx), wuv.float())
+        return _out_proj(p["wo"], out.reshape(B, 1, H * dv).to(x.dtype),
+                         cfg.n_heads * dv), cache
     ckv_c, kr_c = cache["ckv"], cache["k_rope"]
     rows = torch.arange(B, device=x.device)
     slot = cache["len"].long().clamp(max=ckv_c.shape[1] - 1)
     ckv_c[rows, slot] = ckv_new[:, 0].to(ckv_c.dtype)
     kr_c[rows, slot] = kr_new[:, 0].to(kr_c.dtype)
     cache["len"] += 1
-    # absorb W_uk into q: q_abs[h, r] = sum_dn q_nope[h, dn] * wuk[r, h, dn]
-    wuk = p["wuk"].reshape(r, H, dn)
-    q_abs = torch.einsum("bqhd,rhd->bqhr", q_nope.float(), wuk.float())
     s = (torch.einsum("bqhr,bkr->bhqk", q_abs, ckv_c.float())
          + torch.einsum("bqhd,bkd->bhqk", q_rope.float(), kr_c.float())
          ) / math.sqrt(dn + dr)
@@ -502,9 +656,9 @@ def mla_decode(p: dict, cfg, x: torch.Tensor, cache: dict):
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     pa = torch.softmax(s, dim=-1)
     ctx = torch.einsum("bhqk,bkr->bqhr", pa, ckv_c.float())   # (B, 1, H, r)
-    wuv = p["wuv"].reshape(r, H, dv)
-    out = torch.einsum("bqhr,rhd->bqhd", ctx, wuv.float())
-    out = out.reshape(B, 1, H * dv).to(x.dtype) @ p["wo"]
+    out = torch.einsum("bqhr,rhd->bqhd", heads(ctx), wuv.float())
+    out = _out_proj(p["wo"], out.reshape(B, 1, H * dv).to(x.dtype),
+                    cfg.n_heads * dv)
     return out, cache
 
 
@@ -536,8 +690,13 @@ def mlp_init(generator: torch.Generator, cfg, d_ff=None, dtype=torch.float32,
 
 
 def mlp_forward(p: dict, cfg, x: torch.Tensor) -> torch.Tensor:
+    """The dense FFN; under tensor parallelism the rank's ``wg`` / ``wu``
+    columns and ``wd`` rows, summed over ``model``."""
+    tp = TP.split(p["wd"], cfg.d_ff, 0)
+    if tp:
+        x = TP.enter(x)
     if "wg" in p:
         h = F.silu(x @ p["wg"]) * (x @ p["wu"])
     else:
         h = F.gelu(x @ p["wu"], approximate="tanh")   # jax.nn.gelu's default
-    return h @ p["wd"]
+    return TP.leave(h @ p["wd"]) if tp else h @ p["wd"]

@@ -30,7 +30,9 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import tp as TP
 from repro_torch.models.layers import dense_init
+from repro_torch.utils import psum
 
 
 def ssm_dims(cfg):
@@ -89,13 +91,21 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
 
 
 def _gated_out(p: dict, cfg, y: torch.Tensor, z: torch.Tensor, x_dtype):
-    """y * silu(z), an RMSNorm over d_inner in fp32, then ``out_proj``."""
+    """y * silu(z), an RMSNorm over d_inner in fp32, then ``out_proj``.
+    Under tensor parallelism (``out_proj`` the rank's block of rows) the
+    whole of y is computed on every rank and the rank's columns go
+    through its rows, summed over ``model``."""
     y = y * F.silu(z.to(y.dtype))
     y32 = y.float()
     var = torch.mean(y32 * y32, dim=-1, keepdim=True)
     y = (y32 * torch.rsqrt(var + cfg.norm_eps)
          * p["out_norm"]["w"]).to(x_dtype)
-    return y @ p["out_proj"]
+    w = p["out_proj"]
+    if TP.split(w, y.shape[-1], 0):
+        rows = w.shape[0]
+        y = TP.enter(y)[..., TP.model_index() * rows:][..., :rows]
+        return TP.leave(y @ w)
+    return y @ w
 
 
 def mamba2_forward(p: dict, cfg, x: torch.Tensor, *, return_state=False):
@@ -185,15 +195,39 @@ def mamba2_decode(p: dict, cfg, x: torch.Tensor, cache: dict):
     xs, Bm, Cm = torch.split(conv, [d_inner, N, N], dim=-1)
     xs = xs.reshape(B, H, P_).float()
     dt = F.softplus(dt_raw[:, 0].float() + p["dt_bias"])           # (B,H)
-    dA = torch.exp(dt * -torch.exp(p["A_log"]))
+    A_log, D_ = p["A_log"], p["D"]
+    Hl = cache["h"].shape[1]
+    if Hl != H:            # tensor parallelism: the state of the rank's heads
+        h0 = TP.model_index() * Hl
+        xs, dt = xs[:, h0:h0 + Hl], dt[:, h0:h0 + Hl]
+        A_log, D_ = A_log[h0:h0 + Hl], D_[h0:h0 + Hl]
+        z = z[..., h0 * P_:(h0 + Hl) * P_]
+    dA = torch.exp(dt * -torch.exp(A_log))
     bx = torch.einsum("bn,bhp->bhnp", Bm[:, 0].float(), xs * dt[..., None])
     h = cache["h"] * dA[:, :, None, None] + bx                     # (B,H,N,P)
     y = torch.einsum("bn,bhnp->bhp", Cm[:, 0].float(), h)
-    y = y + xs * p["D"][None, :, None]
-    out = _gated_out(p, cfg, y.reshape(B, 1, d_inner), z, x.dtype)
+    y = y + xs * D_[None, :, None]
+    if Hl != H:
+        out = _gated_out_heads(p, cfg, y.reshape(B, 1, Hl * P_), z, x.dtype,
+                               h0 * P_)
+    else:
+        out = _gated_out(p, cfg, y.reshape(B, 1, d_inner), z, x.dtype)
     cache["h"].copy_(h)
     cache["conv"].copy_(window[:, 1:])
     return out, cache
+
+
+def _gated_out_heads(p: dict, cfg, y, z, x_dtype, c0: int):
+    """:func:`_gated_out` of the rank's columns of y (from ``c0``): the
+    norm's mean square summed over ``model``, the rank's ``out_proj``
+    rows, the products summed over ``model``."""
+    y = y * F.silu(z.to(y.dtype))
+    y32 = y.float()
+    var = psum(torch.sum(y32 * y32, dim=-1, keepdim=True).contiguous(),
+               TP.MODEL) / (y.shape[-1] * TP.n_model())
+    w = p["out_norm"]["w"][c0:c0 + y.shape[-1]]
+    y = (y32 * torch.rsqrt(var + cfg.norm_eps) * w).to(x_dtype)
+    return TP.leave(y @ p["out_proj"])
 
 
 def mamba2_cache_init(cfg, batch: int, dtype=torch.float32, *,

@@ -24,10 +24,16 @@ Parameters keep the JAX package's tree: ``router`` (D, E) fp32, ``wg``
 stacked layer the expert axis goes after the layer axis (``lead``).
 
 Under a mesh with a ``model`` axis (``utils.set_mesh``) the experts are
-sharded over it, forward only (their backward through collectives comes
-with LM training under a mesh), and each rank passes its blocks: its
-(B_local, S, D) block of the batch (sharded over the batch axes,
-replicated over ``model``) and its E / n experts (``_moe_param_specs``).
+sharded over it, and each rank passes its blocks: its (B_local, S, D)
+block of the batch (sharded over the batch axes, replicated over
+``model``) and its E / n experts (``_moe_param_specs``, or the LM's
+``dense_param_specs``, whose shared experts are tensor-parallel: column
+blocks of ``wg`` / ``wu``, rows of ``wd``). Both dispatches
+differentiate: the collectives are the autograd pairs of ``utils`` (the
+routed tokens and the router enter the split work through Megatron's f,
+the experts' sums leave through its g, the all-to-alls' backward is the
+reversed all-to-all, the spans' gather keeps each rank's span of the
+gradient).
 Two dispatches, as in the JAX package, chosen by ``MOE_DISPATCH``
 (``REPRO_MOE_DISPATCH``):
 
@@ -44,7 +50,10 @@ Two dispatches, as in the JAX package, chosen by ``MOE_DISPATCH``
   the reshard XLA makes at that boundary.
 
 The aux statistics are each rank's over its tokens, averaged over
-``model`` and the batch axes.
+``model`` and the batch axes. Their backward takes 1 / n of the gradient
+to each rank's statistics (n the model ranks; the router's gradient is
+then summed over ``model``), the batch axes' mean being the trainer's
+mean of the gradients over the batch ranks.
 """
 from __future__ import annotations
 
@@ -54,9 +63,11 @@ import os
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import tp as TP
 from repro_torch.models.layers import dense_init
-from repro_torch.utils import (_mesh_axis_names, all_gather, all_to_all,
-                               axis_size, batch_axes, flat_index, psum)
+from repro_torch.utils import (_mesh_axis_names, all_to_all,
+                               all_to_all_grad, axis_size, batch_axes,
+                               flat_index, gather_split, psum, tree_map)
 
 # token dispatch strategy over the 'model' axis: 'psum' (baseline, tokens
 # replicated over the model ranks) or 'a2a' (routed tokens sent to their
@@ -140,7 +151,7 @@ def _dispatch_positions(topi: torch.Tensor, n_experts: int,
 
 def _moe_local(p: dict, cfg, xt: torch.Tensor, *, capacity: int,
                out_dtype, with_aux: bool = True, e_offset: int = 0,
-               e_local: int | None = None):
+               e_local: int | None = None, router=None):
     """Dispatch, compute and combine the (T, D) tokens over the
     ``e_local`` experts from ``e_offset`` that ``p`` holds (every expert
     by default, the one-device case): ``(out (T, D), aux)``, zeros where
@@ -149,7 +160,8 @@ def _moe_local(p: dict, cfg, xt: torch.Tensor, *, capacity: int,
     T, D = xt.shape
     E, k = cfg.n_experts, cfg.moe_top_k
     e_local = E if e_local is None else e_local
-    logits = xt.float() @ p["router"].float()
+    router = p["router"] if router is None else router
+    logits = xt.float() @ router.float()
     probs, topv, topi = router_topk(logits, k)
 
     slot_all = _dispatch_positions(topi, E, capacity)              # (T, k)
@@ -195,12 +207,40 @@ def _shared(p: dict, xt: torch.Tensor) -> torch.Tensor:
     return (F.silu(xt @ sh["wg"]) * (xt @ sh["wu"])) @ sh["wd"]
 
 
+def _shared_split(cfg, p: dict) -> bool:
+    """The shared experts are this rank's tensor-parallel block."""
+    return bool(cfg.n_shared_experts) and TP.split(
+        p["shared"]["wd"], (cfg.moe_d_ff or cfg.d_ff) * cfg.n_shared_experts,
+        0)
+
+
+def _aux_mean_fn():
+    class AuxMean(torch.autograd.Function):
+        """The stats' mean over ``axes`` forward; the backward takes 1 /
+        ``n_model`` of the gradient (see the module docstring)."""
+
+        @staticmethod
+        def forward(ctx, x, axes, n_model):
+            ctx.n_model = n_model
+            return psum(x.contiguous().clone(), axes) / axis_size(axes)
+
+        @staticmethod
+        def backward(ctx, g):
+            return g / ctx.n_model, None, None
+    return AuxMean
+
+
+_AUX_MEAN: list = []
+
+
 def _pmean(aux: dict) -> dict:
     """The aux statistics' mean over ``model`` and the batch axes (one
     collective for all of them)."""
+    if not _AUX_MEAN:
+        _AUX_MEAN.append(_aux_mean_fn())
     axes = ("model",) + batch_axes()
-    vals = psum(torch.stack([v.float().reshape(()) for v in aux.values()]),
-                axes) / axis_size(axes)
+    stack = torch.stack([v.float().reshape(()) for v in aux.values()])
+    vals = _AUX_MEAN[0].apply(stack, axes, axis_size(("model",)))
     return dict(zip(aux, vals))
 
 
@@ -230,16 +270,26 @@ def moe_forward(p: dict, cfg, x: torch.Tensor, capacity_factor=None, *,
         return _moe_forward_a2a(p, cfg, x, cf, n, e_local, with_aux)
     xt = x.reshape(B * S, D)
     C = capacity(cfg, B * S, capacity_factor)
-    out, aux = _moe_local(p, cfg, xt, capacity=C, out_dtype=x.dtype,
+    if n == 1:
+        out, aux = _moe_local(p, cfg, xt, capacity=C, out_dtype=x.dtype,
+                              with_aux=with_aux)
+        out = out.reshape(B, S, D)
+        if cfg.n_shared_experts:
+            out = out + _shared(p, xt).reshape(B, S, D)
+        return out, aux
+    # every model rank routes the same tokens through its own experts
+    xe = TP.enter(xt)
+    out, aux = _moe_local(p, cfg, xe, capacity=C, out_dtype=x.dtype,
                           with_aux=with_aux,
                           e_offset=flat_index(("model",)) * e_local,
-                          e_local=e_local)
-    if n > 1:
-        # combine the experts' contributions in the activation dtype
-        out = psum(out.contiguous(), ("model",))
-        aux = _pmean(aux) if with_aux else aux
-    out = out.reshape(B, S, D)
-    if cfg.n_shared_experts:
+                          e_local=e_local, router=TP.enter(p["router"]))
+    split = _shared_split(cfg, p)
+    if split:                  # the shared experts' partial sums join them
+        out = out + _shared(p, xe)
+    # combine the experts' contributions in the activation dtype
+    out = TP.leave(out).reshape(B, S, D)
+    aux = _pmean(aux) if with_aux else aux
+    if cfg.n_shared_experts and not split:
         out = out + _shared(p, xt).reshape(B, S, D)
     return out, aux
 
@@ -253,12 +303,13 @@ def _moe_forward_a2a(p: dict, cfg, x: torch.Tensor, cf, n: int,
     E, k = cfg.n_experts, cfg.moe_top_k
     me = flat_index(("model",))
     Sl = S // n
-    xt = x[:, me * Sl:(me + 1) * Sl].reshape(B * Sl, D)        # (T_r, D)
+    xe = TP.enter(x)
+    xt = xe[:, me * Sl:(me + 1) * Sl].reshape(B * Sl, D)       # (T_r, D)
     T_r = B * Sl
     # per-destination-rank bucket capacity and per-local-expert capacity
     C = max(1, _cdiv(int(T_r * k), n) * 2)
     C2 = max(1, _cdiv(int(n * C), e_local))
-    logits = xt.float() @ p["router"].float()
+    logits = xt.float() @ TP.enter(p["router"]).float()
     probs, topv, topi = router_topk(logits, k)
 
     # ---- dispatch into per-destination-rank buckets (choice-major) -----
@@ -274,7 +325,7 @@ def _moe_forward_a2a(p: dict, cfg, x: torch.Tensor, cf, n: int,
     ebuf = ebuf[:n * C].view(n, C)
 
     # ---- ship to the experts' ranks ------------------------------------
-    rt = all_to_all(buf, ("model",)).view(n * C, D)
+    rt = all_to_all_grad(buf, ("model",)).view(n * C, D)
     re = all_to_all(ebuf, ("model",)).view(n * C) - me * e_local
 
     # ---- local per-expert capacity buffers + FFN ------------------------
@@ -297,15 +348,20 @@ def _moe_forward_a2a(p: dict, cfg, x: torch.Tensor, cf, n: int,
     yt = torch.where(keep2[:, None], flat_y[slot2], 0.0)       # (n*C, D)
 
     # ---- ship the results back + combine --------------------------------
-    yback = all_to_all(yt.view(n, C, D), ("model",)).view(n * C, D)
+    yback = all_to_all_grad(yt.view(n, C, D), ("model",)).view(n * C, D)
     yfull = torch.cat([yback, yback.new_zeros((1, D))])
     out = torch.einsum("tkd,tk->td", yfull[slot].float(), topv * keep)
     out = out.to(x.dtype)
-    if cfg.n_shared_experts:
-        out = out + _shared(p, xt)
+    split = _shared_split(cfg, p)
+    if cfg.n_shared_experts and not split:
+        sh = {"shared": tree_map(TP.enter, p["shared"])}
+        out = out + _shared(sh, xt)
     # the spans back into the (B, S, D) block, replicated over 'model'
-    spans = all_gather(out.view(1, B, Sl, D), ("model",))
+    spans = gather_split(out.view(1, B, Sl, D), ("model",))
     out = spans.permute(1, 0, 2, 3).reshape(B, S, D)
+    if split:                  # tensor-parallel shared experts, all tokens
+        out = out + TP.leave(_shared(p, xe.reshape(B * S, D))).reshape(
+            B, S, D)
     aux = _pmean(_aux(probs, topi, logits, E, keep)) if with_aux else {}
     return out, aux
 

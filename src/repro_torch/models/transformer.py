@@ -58,6 +58,8 @@ from repro_torch.configs.base import BlockCfg, ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
+from repro_torch.models import tp as TP
+from repro_torch.utils import get_mesh, pmax
 
 # learned decoder positions of an encoder-decoder (Whisper style): 64k
 # rows, as the JAX package draws them
@@ -148,26 +150,50 @@ def _unstack(tree, n: int) -> list:
     return list(tree.unbind(0))
 
 
-def _stack_layers(cfg: ModelConfig, stack: dict, caches: dict | None):
-    """Each stack layer's ``[(block config, parameters, cache), ...]``."""
+def _stack_layers(cfg: ModelConfig, stack: dict, caches: dict | None,
+                  specs: dict | None = None, cspecs: dict | None = None):
+    """Each stack layer's ``[(block config, parameters, cache, (parameter
+    specs, cache specs)), ...]``; the specs (one layer's, under a mesh)
+    None without a mesh."""
     R, n = cfg.pattern_repeats, len(cfg.pattern)
     ps = [_unstack(stack[str(i)], R) for i in range(n)]
     cs = [[None] * R if caches is None
           else _unstack(caches["stack"][str(i)], R) for i in range(n)]
+    sp = [(None if specs is None else TP.unstacked(specs[str(i)]),
+           None if cspecs is None else TP.unstacked(cspecs["stack"][str(i)]))
+          for i in range(n)]
     for r in range(R):
-        yield [(cfg.pattern[i], ps[i][r], cs[i][r]) for i in range(n)]
+        yield [(cfg.pattern[i], ps[i][r], cs[i][r], sp[i]) for i in range(n)]
 
 
-def _layers(cfg: ModelConfig, params: dict, caches: dict | None):
-    """``(stacked, [(block config, parameters, cache), ...])`` in order:
-    each prologue block on its own (``stacked`` False), then the pattern's
-    blocks of each stack layer."""
+def _layers(cfg: ModelConfig, params: dict, caches: dict | None,
+            specs: dict | None = None, cspecs: dict | None = None):
+    """``(stacked, [(block config, parameters, cache, specs), ...])`` in
+    order: each prologue block on its own (``stacked`` False), then the
+    pattern's blocks of each stack layer."""
     for i, blk in enumerate(cfg.prologue):
         name = f"prologue_{i}"
         yield False, [(blk, params[name], None if caches is None
-                       else caches[name])]
-    for blocks in _stack_layers(cfg, params["stack"], caches):
+                       else caches[name],
+                       (None if specs is None else specs[name],
+                        None if cspecs is None else cspecs[name]))]
+    stack_specs = None if specs is None else specs["stack"]
+    for blocks in _stack_layers(cfg, params["stack"], caches, stack_specs,
+                                cspecs):
         yield True, blocks
+
+
+def _specs(cfg: ModelConfig):
+    """The dense leaves' specs under the mesh in scope (None without
+    one): under a mesh the parameters are the rank's blocks."""
+    return None if get_mesh() is None else TP.dense_specs(cfg)
+
+
+def _leaf(params: dict, specs, name: str) -> torch.Tensor:
+    """A top-level leaf, gathered over ``data`` under a mesh (ZeRO-3)."""
+    if specs is None:
+        return params[name]
+    return TP.gather_params(params[name], specs[name])
 
 
 def _acc_aux(total: dict, aux: dict) -> dict:
@@ -180,23 +206,47 @@ def _acc_aux(total: dict, aux: dict) -> dict:
 # Full sequence
 # ---------------------------------------------------------------------------
 
-def _write_cross(cache: dict | None, kv) -> None:
+def _write(buf: torch.Tensor, t: torch.Tensor, spec) -> None:
+    """Writes ``t`` (the rank's batch rows, every position and head) into
+    the head of the cache buffer ``buf``: under a mesh ``buf`` is the
+    rank's block by ``spec`` (its span of the positions or its heads,
+    over ``model``), and the rank writes its part of ``t``."""
+    if spec is not None:
+        for d, e in enumerate(spec):
+            if d and e is not None and "model" in ((e,) if isinstance(
+                    e, str) else e):
+                size = buf.shape[d]
+                lo = TP.model_index() * size
+                t = t.narrow(d, min(lo, t.shape[d]),
+                             max(0, min(size, t.shape[d] - lo)))
+    idx = tuple(slice(0, n) for n in t.shape)
+    buf[idx] = t.to(buf.dtype)
+
+
+def _write_cross(cache: dict | None, kv, cspec=None) -> None:
     if cache is not None:
         for key, t in zip(("k", "v"), kv):
-            cache["cross"][key].copy_(t)
+            _write(cache["cross"][key], t,
+                   None if cspec is None else cspec["cross"][key])
 
 
 def _apply_block(cfg, blk: BlockCfg, p: dict, x: torch.Tensor,
                  positions: torch.Tensor, cache: dict | None,
-                 memory: torch.Tensor | None = None):
+                 memory: torch.Tensor | None = None, specs=(None, None)):
     """One block: ``(x, aux)``. With ``cache`` the attention's K/V (gqa)
     or latent ckv / k_rope (mla) are written into the head of the cache's
     max_len buffers and its ``len`` set to S; a mamba2 block writes its
     state after the last position; a cross-attention (the ``cross_attn``
     mixer, tanh(``xgate``)-gated, or the ``cross`` sub-block after the
     mixer) attends to ``memory`` and writes the memory's K/V. ``aux``
-    holds a MoE FFN's stats, empty for a dense one or none."""
+    holds a MoE FFN's stats, empty for a dense one or none. Under a mesh
+    (``specs``: the block's parameter and cache specs) the block's leaves
+    are gathered over ``data`` first (ZeRO-3) and each rank writes its
+    block of the caches."""
+    pspec, cspec = specs
+    p = TP.gather_params(p, pspec)
     S = x.shape[1]
+    full = cache is not None
     if blk.mixer != "none":
         h = L.apply_norm(cfg, p["mixer_norm"], x)
     if blk.mixer == "mamba2":
@@ -205,15 +255,18 @@ def _apply_block(cfg, blk: BlockCfg, p: dict, x: torch.Tensor,
         else:
             o, st = M2.mamba2_forward(p["mixer"], cfg, h, return_state=True)
             for key, t in st.items():
-                cache["ssm"][key].copy_(t)
+                _write(cache["ssm"][key], t,
+                       None if cspec is None else cspec["ssm"][key])
         x = x + o
     elif blk.mixer == "cross_attn":
-        o, kv = L.cross_attn_forward(p["mixer"], cfg, h, memory)
+        o, kv = L.cross_attn_forward(p["mixer"], cfg, h, memory,
+                                     full_kv=full)
         x = x + torch.tanh(p["xgate"]).to(x.dtype) * o
-        _write_cross(cache, kv)
+        _write_cross(cache, kv, cspec)
     elif blk.mixer in ("gqa", "mla"):
         if blk.mixer == "gqa":
-            o, (k, v) = L.gqa_forward(p["mixer"], cfg, h, positions)
+            o, (k, v) = L.gqa_forward(p["mixer"], cfg, h, positions,
+                                      full_kv=full)
             new = {"k": k, "v": v}
         else:
             o, new = L.mla_forward(p["mixer"], cfg, h, positions)
@@ -222,13 +275,15 @@ def _apply_block(cfg, blk: BlockCfg, p: dict, x: torch.Tensor,
         if cache is not None:
             a = cache["attn"]
             for key, t in new.items():
-                a[key][:, :S] = t.to(a[key].dtype)
+                _write(a[key], t, None if cspec is None
+                       else cspec["attn"][key])
             a["len"].fill_(S)
     if blk.cross:
         h = L.apply_norm(cfg, p["cross_norm"], x)
-        o, kv = L.cross_attn_forward(p["cross"], cfg, h, memory)
+        o, kv = L.cross_attn_forward(p["cross"], cfg, h, memory,
+                                     full_kv=full)
         x = x + o
-        _write_cross(cache, kv)
+        _write_cross(cache, kv, cspec)
     if blk.ffn == "none":
         return x, {}
     h = L.apply_norm(cfg, p["ffn_norm"], x)
@@ -240,15 +295,15 @@ def _apply_block(cfg, blk: BlockCfg, p: dict, x: torch.Tensor,
 
 def _apply_blocks(cfg, blocks, x, positions, memory):
     aux_total: dict = {}
-    for blk, p, c in blocks:
-        x, aux = _apply_block(cfg, blk, p, x, positions, c, memory)
+    for blk, p, c, sp in blocks:
+        x, aux = _apply_block(cfg, blk, p, x, positions, c, memory, sp)
         aux_total = _acc_aux(aux_total, aux)
     return x, aux_total
 
 
 def forward(cfg: ModelConfig, params: dict, acts: torch.Tensor,
             positions: torch.Tensor, memory: torch.Tensor | None = None, *,
-            caches: dict | None = None):
+            caches: dict | None = None, cspecs: dict | None = None):
     """acts: (B, S, D) token embeddings from the PS; positions (B, S);
     memory (B, M, d_memory) for cross-attention (an encoder-decoder's
     encoded frames, :func:`encode`). Returns ``(hidden states after the
@@ -258,12 +313,16 @@ def forward(cfg: ModelConfig, params: dict, acts: torch.Tensor,
     encoder-decoder adds ``dec_pos_emb[positions]`` first. With
     ``cfg.remat`` and grad enabled, each stack layer is checkpointed (the
     JAX package's ``jax.checkpoint`` of the scanned body): its activations
-    are recomputed in the backward, the attention kernel included."""
+    are recomputed in the backward, the attention kernel included. Under
+    a mesh ``params`` are the rank's blocks (``tp``), each block's leaves
+    gathered over ``data`` inside its checkpoint, so the recompute gathers
+    them again, and ``cspecs`` are the caches' specs."""
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
     x, aux_total = acts, {}
+    specs = _specs(cfg)
     if cfg.is_encdec:
-        x = x + params["dec_pos_emb"][positions].to(x.dtype)
-    for stacked, blocks in _layers(cfg, params, caches):
+        x = x + _leaf(params, specs, "dec_pos_emb")[positions].to(x.dtype)
+    for stacked, blocks in _layers(cfg, params, caches, specs, cspecs):
         if remat and stacked:
             x, aux = checkpoint(_apply_blocks, cfg, blocks, x, positions,
                                 memory, use_reentrant=False)
@@ -275,15 +334,12 @@ def forward(cfg: ModelConfig, params: dict, acts: torch.Tensor,
 
 def _encoder_layer(ecfg: ModelConfig, blocks, x: torch.Tensor):
     """One encoder layer: per block a non-causal self-attention (no RoPE,
-    no window, no cap, as in JAX) and the MLP, each pre-normed."""
-    B, S, _ = x.shape
-    for _, p, _ in blocks:
+    no window, no cap, as in JAX) and the MLP, each pre-normed (their
+    leaves gathered over ``data`` first under a mesh)."""
+    for _, p, _, (pspec, _) in blocks:
+        p = TP.gather_params(p, pspec)
         h = L.apply_norm(ecfg, p["mixer_norm"], x)
-        q, k, v = L._qkv(p["mixer"], ecfg, h)
-        o = L.grouped_attention(q, k, v,
-                                scale=1.0 / math.sqrt(ecfg.head_dim),
-                                causal=False)
-        x = x + o.reshape(B, S, -1) @ p["mixer"]["wo"]
+        x = x + L.cross_attn_forward(p["mixer"], ecfg, h, h)[0]
         h = L.apply_norm(ecfg, p["ffn_norm"], x)
         x = x + L.mlp_forward(p["ffn"], ecfg, h)
     return x
@@ -298,10 +354,13 @@ def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor
     the JAX package checkpoints its scanned body) and its final norm.
     Every layer's attention is the kernel on the card (Sq = Sk = M)."""
     ecfg, enc = cfg.encoder, params["encoder"]
-    x = frames @ enc["in_proj"]
-    x = x + enc["pos_emb"][None, :x.shape[1]].to(x.dtype)
+    specs = _specs(cfg)
+    especs = None if specs is None else specs["encoder"]
+    x = frames @ _leaf(enc, especs, "in_proj")
+    x = x + _leaf(enc, especs, "pos_emb")[None, :x.shape[1]].to(x.dtype)
     remat = ecfg.remat and torch.is_grad_enabled()
-    for blocks in _stack_layers(ecfg, enc["stack"], None):
+    for blocks in _stack_layers(ecfg, enc["stack"], None,
+                                None if especs is None else especs["stack"]):
         x = (checkpoint(_encoder_layer, ecfg, blocks, x, use_reentrant=False)
              if remat else _encoder_layer(ecfg, blocks, x))
     return L.apply_norm(ecfg, enc["final_norm"], x)
@@ -341,12 +400,16 @@ def lm_loss(cfg: ModelConfig, params: dict, acts: torch.Tensor, targets,
     positions = torch.arange(S, device=dev)[None].expand(B, S)
     memory = _memory(cfg, params, memory, acts)
     x, aux = forward(cfg, params, acts, positions, memory)
-    logits = _logits(cfg, params, x)                         # (B, S, Vp)
-    if cfg.padded_vocab > cfg.vocab_size:                    # mask pads
-        cols = torch.arange(cfg.padded_vocab, device=dev)
-        logits = torch.where(cols < cfg.vocab_size, logits, L.NEG_INF)
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
+    head = _leaf(params, _specs(cfg), "lm_head")
+    if TP.split(head, cfg.padded_vocab):
+        lse, tgt = _vocab_parallel_ce(cfg, head, x, targets)
+    else:
+        logits = (x @ head).float()                          # (B, S, Vp)
+        if cfg.padded_vocab > cfg.vocab_size:                # mask pads
+            cols = torch.arange(cfg.padded_vocab, device=dev)
+            logits = torch.where(cols < cfg.vocab_size, logits, L.NEG_INF)
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
     nll = (lse - tgt) * mask
     loss = torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
     metrics = {"loss": loss, "ppl_log": loss}
@@ -356,6 +419,30 @@ def lm_loss(cfg: ModelConfig, params: dict, acts: torch.Tensor, targets,
             cfg, {k: v / n for k, v in aux.items()})
         metrics.update(aux)
     return loss, metrics
+
+
+def _vocab_parallel_ce(cfg: ModelConfig, head: torch.Tensor, x, targets):
+    """The cross entropy's logsumexp and target logit, (B, S) each, with
+    ``head`` this rank's block of vocabulary columns (Megatron's
+    vocab-parallel cross entropy): the maximum over every rank's logits
+    (a ``pmax`` over ``model``, outside the gradient as in a logsumexp),
+    the sum of the shifted exponentials over ``model``, and the target
+    logit from the rank that owns its column; the pad columns masked by
+    their global index."""
+    Vl = head.shape[1]
+    lo = TP.model_index() * Vl
+    logits = (TP.enter(x) @ head).float()                    # (B, S, Vl)
+    if cfg.padded_vocab > cfg.vocab_size:
+        cols = lo + torch.arange(Vl, device=x.device)
+        logits = torch.where(cols < cfg.vocab_size, logits, L.NEG_INF)
+    m = pmax(logits.detach().amax(dim=-1).contiguous(), TP.MODEL)
+    sumexp = TP.leave(torch.sum(torch.exp(logits - m[..., None]), dim=-1))
+    lse = m + torch.log(sumexp)
+    local = targets - lo
+    mine = (local >= 0) & (local < Vl)
+    tgt = torch.gather(logits, -1, local.clamp(0, Vl - 1)[..., None])[..., 0]
+    tgt = TP.leave(torch.where(mine, tgt, 0.0))
+    return lse, tgt
 
 
 # ---------------------------------------------------------------------------
@@ -400,7 +487,13 @@ def cache_init(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
-    return (x @ params["lm_head"]).float()
+    """(..., padded_vocab) fp32 logits; under tensor parallelism the
+    rank's columns gathered over ``model`` (serving takes the argmax of
+    every column)."""
+    head = _leaf(params, _specs(cfg), "lm_head")
+    if TP.split(head, cfg.padded_vocab):
+        return TP.gather_model((x @ head).float())
+    return (x @ head).float()
 
 
 def _cross_decode(p: dict, cfg, x: torch.Tensor, ckv: dict) -> torch.Tensor:
@@ -408,17 +501,40 @@ def _cross_decode(p: dict, cfg, x: torch.Tensor, ckv: dict) -> torch.Tensor:
     cached K/V (B, M, Hkv, Dh): the JAX package's ``grouped_attention`` at
     Sq = 1 is ``_attn_naive``, whose arithmetic is the plain
     :func:`~repro_torch.models.layers.decode_attention` with every one of
-    the M positions valid (decode attention is plain torch)."""
+    the M positions valid (decode attention is plain torch). Under a mesh
+    whose ``model`` axis shards the memory's positions (the cache spec's
+    rule) the rank attends over its span and the spans combine as the
+    sequence-sharded decode combines them; under tensor parallelism the
+    step's heads are gathered and leave through the rank's ``wo`` rows."""
+    from repro_torch.models import decode_dist as DD
     B = x.shape[0]
-    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, 1, Hkv, H // Hkv, Dh)
-    if cfg.qk_norm:
-        q = L.rmsnorm(q, p["q_norm"]["w"], cfg.norm_eps)
+    Hkv, Dh = cfg.n_kv_heads, cfg.head_dim
+    if TP.split(p["wq"], cfg.n_heads * Dh):
+        q = TP.gather_model(x @ p["wq"]).reshape(B, 1, -1, Dh)
+        if cfg.qk_norm:
+            q = L.rmsnorm(q, p["q_norm"]["w"], cfg.norm_eps)
+    else:
+        q = x @ p["wq"]
+        if cfg.qk_norm:
+            q = L.rmsnorm(q.reshape(B, 1, -1, Dh), p["q_norm"]["w"],
+                          cfg.norm_eps)
+    q = q.reshape(B, 1, Hkv, -1, Dh)
     M = ckv["k"].shape[1]
-    n = torch.full((B,), M, dtype=torch.int32, device=x.device)
-    o = L.decode_attention(q, ckv["k"], ckv["v"], n,
-                           scale=1.0 / math.sqrt(Dh))
-    return o.reshape(B, 1, -1) @ p["wo"]
+    if DD.have_model_axis() and M != _memory_len(cfg):   # its span of M
+        s = torch.einsum("bqhgd,bkhd->bhgqk", q.float(),
+                         ckv["k"].float()) / math.sqrt(Dh)
+        o = DD._combine(s, ckv["v"], "bhgqk,bkhd->bhgqd")
+        o = o.permute(0, 3, 1, 2, 4).to(q.dtype)
+    else:
+        n = torch.full((B,), M, dtype=torch.int32, device=x.device)
+        o = L.decode_attention(q, ckv["k"], ckv["v"], n,
+                               scale=1.0 / math.sqrt(Dh))
+    return L.decode_out(p, cfg, o.reshape(B, 1, -1), Dh)
+
+
+def _memory_len(cfg: ModelConfig) -> int:
+    return cfg.encoder.n_memory_tokens if cfg.is_encdec \
+        else cfg.n_memory_tokens
 
 
 def decode_step(cfg: ModelConfig, params: dict, acts: torch.Tensor,
@@ -430,11 +546,14 @@ def decode_step(cfg: ModelConfig, params: dict, acts: torch.Tensor,
     package. An encoder-decoder adds ``dec_pos_emb[pos]``; the
     cross-attentions read the memory's K/V that the prefill cached."""
     x = acts
+    specs = _specs(cfg)
     if cfg.is_encdec:
-        x = x + params["dec_pos_emb"][caches["pos"].long()][:, None].to(
-            x.dtype)
-    for blk, p, c in (b for _, blocks in _layers(cfg, params, caches)
-                      for b in blocks):
+        x = x + _leaf(params, specs, "dec_pos_emb")[
+            caches["pos"].long()][:, None].to(x.dtype)
+    for blk, p, c, sp in (b for _, blocks in _layers(cfg, params, caches,
+                                                     specs)
+                          for b in blocks):
+        p = TP.gather_params(p, sp[0])
         if blk.mixer != "none":
             h = L.apply_norm(cfg, p["mixer_norm"], x)
         if blk.mixer == "mamba2":
@@ -463,6 +582,36 @@ def decode_step(cfg: ModelConfig, params: dict, acts: torch.Tensor,
     return logits, caches
 
 
+def local_cache_init(cfg: ModelConfig, batch: int, max_len: int,
+                     dtype=torch.float32, device=None, memory_len: int = 0,
+                     *, window: int | None = None):
+    """``(caches, specs)``: :func:`cache_init`'s caches as the rank's
+    blocks under the mesh in scope (``partition.cache_specs`` fitted to
+    the global shapes: the positions, latents or SSM heads over
+    ``model``), ``batch`` being the rank's own rows, and the fitted specs;
+    ``(cache_init(...), None)`` without a mesh."""
+    from repro_torch.sharding import partition as SP
+    mesh = get_mesh()
+    if mesh is None:
+        return cache_init(cfg, batch, max_len, dtype, device, memory_len,
+                          window=window), None
+    meta = cache_init(cfg, batch, max_len, dtype, torch.device("meta"),
+                      memory_len, window=window)
+
+    def fit(spec, leaf):        # the batch rows are the rank's already
+        spec = SP._fit(spec, mesh, leaf)
+        return SP.P(*(e if "model" in ((e,) if isinstance(e, str)
+                                      else (e or ())) else None
+                      for e in spec))
+    specs = SP._zip_map(fit, SP.cache_specs(meta, cfg), meta)
+
+    def alloc(spec, leaf):
+        shape = [n // (TP.n_model() if e is not None else 1)
+                 for n, e in zip(leaf.shape, list(spec) + [None] * 8)]
+        return torch.zeros(shape, dtype=leaf.dtype, device=device)
+    return SP._zip_map(alloc, specs, meta), specs
+
+
 def prefill(cfg: ModelConfig, params: dict, acts: torch.Tensor,
             memory=None, max_len: int | None = None):
     """Full-sequence prefill: caches of ``max(max_len, S)`` positions with
@@ -472,13 +621,17 @@ def prefill(cfg: ModelConfig, params: dict, acts: torch.Tensor,
     :func:`lm_loss` takes it, encoded first for an encoder-decoder), and
     the last token's logits (B, 1, padded_vocab) fp32, the pad columns
     NOT masked (as in the JAX package: the caller slices
-    ``[:vocab_size]``)."""
+    ``[:vocab_size]``). Under a mesh the caches are the rank's blocks
+    (:func:`local_cache_init`; a full-length cache needs a length that
+    ``cache_specs`` shards over ``model``, which the decode reads as its
+    span)."""
     B, S, _ = acts.shape
     positions = torch.arange(S, device=acts.device)[None].expand(B, S)
     memory = _memory(cfg, params, memory, acts)
-    caches = cache_init(cfg, B, max(S, max_len or 0), acts.dtype,
-                        acts.device,
-                        0 if memory is None else memory.shape[1], window=0)
-    x, _ = forward(cfg, params, acts, positions, memory, caches=caches)
+    caches, cspecs = local_cache_init(
+        cfg, B, max(S, max_len or 0), acts.dtype, acts.device,
+        0 if memory is None else memory.shape[1], window=0)
+    x, _ = forward(cfg, params, acts, positions, memory, caches=caches,
+                   cspecs=cspecs)
     caches["pos"].fill_(S)
     return _logits(cfg, params, x[:, -1:]), caches

@@ -69,12 +69,15 @@ def adam_init(params):
 
 
 def adam_update(params, grads, state, *, lr, b1=0.9, b2=0.999, eps=1e-8,
-                weight_decay=0.0, grad_clip=0.0):
-    """One Adam step, in place (see the module doc)."""
+                weight_decay=0.0, grad_clip=0.0, norm=None):
+    """One Adam step, in place (see the module doc). ``norm``, when given,
+    is the gradients' global norm for the clip (the trainer's under a mesh,
+    where each rank holds blocks of the leaves); else
+    :func:`global_norm` of ``grads``."""
     t = int(state["t"]) + 1
     scale = None
     if grad_clip > 0:
-        gn = global_norm(grads)
+        gn = global_norm(grads) if norm is None else norm
         scale = torch.clamp(torch.full_like(gn, grad_clip)
                             / torch.clamp(gn, min=1e-9), max=1.0)
     # the bias corrections in fp32, as the JAX package computes them; one
@@ -134,21 +137,23 @@ class OptConfig:
 
 
 def make_optimizer(cfg: OptConfig):
-    """``(init, update)`` with ``update(params, grads, state, lr=None) ->
-    (params, state)``; ``lr=None`` takes ``cfg.lr``."""
+    """``(init, update)`` with ``update(params, grads, state, lr=None,
+    norm=None) -> (params, state)``; ``lr=None`` takes ``cfg.lr``, and
+    ``norm`` is the gradients' global norm for Adam's clip (SGD has no
+    clip)."""
     if cfg.kind == "adam":
-        def update(params, grads, state, lr=None):
+        def update(params, grads, state, lr=None, norm=None):
             return adam_update(params, grads, state,
                                lr=cfg.lr if lr is None else lr,
                                b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
                                weight_decay=cfg.weight_decay,
-                               grad_clip=cfg.grad_clip)
+                               grad_clip=cfg.grad_clip, norm=norm)
         return adam_init, update
     if cfg.kind == "sgd":
         def init(params):
             return sgd_init(params, cfg.momentum)
 
-        def update(params, grads, state, lr=None):
+        def update(params, grads, state, lr=None, norm=None):
             return sgd_update(params, grads, state,
                               lr=cfg.lr if lr is None else lr,
                               momentum=cfg.momentum,

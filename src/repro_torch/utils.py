@@ -269,23 +269,85 @@ def _group(axes):
     return mesh.get_group(axes)
 
 
+# Every collective goes through :func:`_collective`, which counts each call
+# and the bytes of its result by the collective's name in the JAX package's
+# HLO (``all-reduce``, ``all-gather``, ``reduce-scatter``, ``all-to-all``):
+# ``collective_counts()`` for a run on ranks, and the recorders that
+# ``launch.op_cost`` opens for a dry run, which reads the same numbers.
+
+COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+               "collective-permute")
+_COUNTS: dict = {}
+_RECORDERS: list = []
+_COUNT_LOCK = threading.Lock()
+
+
+def _collective(kind: str, run, result):
+    """Runs ``run()`` (the ``torch.distributed`` call that writes
+    ``result``), counts it under ``kind`` with ``result``'s bytes, tells the
+    open recorders, and returns ``result``. The tensor ops a backend needs
+    to carry it (the reduce-scatter's all-reduce and slice) are part of the
+    collective: ``launch.op_cost`` does not count them as kernels."""
+    from repro_torch.launch.op_cost import suspended
+    with suspended():
+        run()
+    nbytes = result.numel() * result.element_size()
+    with _COUNT_LOCK:
+        c = _COUNTS.setdefault(kind, [0, 0])
+        c[0] += 1
+        c[1] += nbytes
+        recorders = list(_RECORDERS)
+    for rec in recorders:
+        rec(kind, nbytes)
+    return result
+
+
+def collective_counts() -> dict:
+    """{kind: {"calls", "bytes"}} of the collectives since the last
+    :func:`reset_collective_counts` (result bytes, each call once)."""
+    with _COUNT_LOCK:
+        return {k: {"calls": c[0], "bytes": c[1]}
+                for k, c in sorted(_COUNTS.items())}
+
+
+def reset_collective_counts() -> None:
+    with _COUNT_LOCK:
+        _COUNTS.clear()
+
+
+@contextlib.contextmanager
+def record_collectives(fn):
+    """Calls ``fn(kind, result_bytes)`` for every collective of this
+    process while open (``launch.op_cost``)."""
+    with _COUNT_LOCK:
+        _RECORDERS.append(fn)
+    try:
+        yield fn
+    finally:
+        with _COUNT_LOCK:
+            _RECORDERS.remove(fn)
+
+
 def psum(x, axes):
     """``jax.lax.psum`` over ``axes``: the sum over their ranks, in place
-    on ``x`` (contiguous), returned."""
+    on ``x`` (contiguous), returned. No backward: see :func:`reduce_from`
+    and :func:`copy_to` for the differentiable pair."""
     import torch.distributed as dist
     g = _group(axes)
-    if g is not None:
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=g)
-    return x
+    if g is None:
+        return x
+    return _collective("all-reduce", lambda: dist.all_reduce(
+        x, op=dist.ReduceOp.SUM, group=g), x)
 
 
 def pmax(x, axes):
     """``jax.lax.pmax`` over ``axes``, in place on ``x``, returned."""
     import torch.distributed as dist
     g = _group(axes)
-    if g is not None:
-        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=g)
-    return x
+    if g is None:
+        return x
+    return _collective("all-reduce", lambda: dist.all_reduce(
+        x, op=dist.ReduceOp.MAX, group=g), x)
 
 
 def all_gather(x, axes):
@@ -300,11 +362,51 @@ def all_gather(x, axes):
     x = x.contiguous()
     out = torch.empty((axis_size(axes) * x.shape[0], *x.shape[1:]),
                       dtype=x.dtype, device=x.device)
-    with warnings.catch_warnings():
-        # newer torch renames it all_gather_single; the name stays valid
-        warnings.simplefilter("ignore", FutureWarning)
-        dist.all_gather_into_tensor(out, x, group=g)
-    return out
+
+    def run():
+        with warnings.catch_warnings():
+            # newer torch renames it all_gather_single; the name stays valid
+            warnings.simplefilter("ignore", FutureWarning)
+            dist.all_gather_into_tensor(out, x, group=g)
+    return _collective("all-gather", run, out)
+
+
+# backends that refuse reduce_scatter_tensor (gloo on CUDA tensors in some
+# releases): there the same sum is an all_reduce and this rank's slice
+_NO_REDUCE_SCATTER: set = set()
+
+
+def reduce_scatter(x, axes):
+    """``jax.lax.psum_scatter(x, axes, tiled=True)``: the sum over the
+    ranks of ``axes`` of (n * m, ...) ``x``, of which this rank keeps rows
+    [i * m, (i + 1) * m), i its flat index. Where the backend has no
+    ``reduce_scatter_tensor`` for the tensor's device, an ``all_reduce``
+    and the slice give the same sum; either way it counts as one
+    reduce-scatter of the result's bytes."""
+    import torch
+    import torch.distributed as dist
+    g = _group(axes)
+    if g is None:
+        return x
+    n = axis_size(axes)
+    x = x.contiguous()
+    m = x.shape[0] // n
+    out = torch.empty((m, *x.shape[1:]), dtype=x.dtype, device=x.device)
+    key = (dist.get_backend(g), x.device.type)
+
+    def run():
+        if key not in _NO_REDUCE_SCATTER:
+            try:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore", FutureWarning)
+                    dist.reduce_scatter_tensor(out, x, group=g)
+                return
+            except (RuntimeError, NotImplementedError):
+                _NO_REDUCE_SCATTER.add(key)
+        full = x.clone()
+        dist.all_reduce(full, op=dist.ReduceOp.SUM, group=g)
+        out.copy_(full[flat_index(axes) * m:][:m])
+    return _collective("reduce-scatter", run, out)
 
 
 def all_to_all(x, axes):
@@ -318,8 +420,138 @@ def all_to_all(x, axes):
         return x
     x = x.contiguous()
     out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=g)
-    return out
+    return _collective("all-to-all", lambda: dist.all_to_all_single(
+        out, x, group=g), out)
+
+
+# ---------------------------------------------------------------------------
+# Collectives that autograd passes through (Megatron's f / g, ZeRO-3's
+# gather). Each is the identity where its axes have one rank.
+# ---------------------------------------------------------------------------
+
+def _functions():
+    import torch
+
+    class CopyTo(torch.autograd.Function):
+        """Megatron's f: the identity forward, a sum over ``axes``
+        backward (a replicated input of work split over the ranks)."""
+
+        @staticmethod
+        def forward(ctx, x, axes):
+            ctx.axes = axes
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            return psum(g.contiguous().clone(), ctx.axes), None
+
+    class ReduceFrom(torch.autograd.Function):
+        """Megatron's g: a sum over ``axes`` forward, the identity
+        backward (the partial results of work split over the ranks)."""
+
+        @staticmethod
+        def forward(ctx, x, axes):
+            return psum(x.contiguous().clone(), axes)
+
+        @staticmethod
+        def backward(ctx, g):
+            return g, None
+
+    class GatherScatter(torch.autograd.Function):
+        """An all-gather along ``dim`` forward, a reduce-scatter (sum)
+        along it backward: a ZeRO-3 weight, or a column block every rank
+        reads."""
+
+        @staticmethod
+        def forward(ctx, x, axes, dim):
+            ctx.axes, ctx.dim = axes, dim
+            return _gather_dim(x, axes, dim)
+
+        @staticmethod
+        def backward(ctx, g):
+            return _scatter_dim(g, ctx.axes, ctx.dim), None, None
+
+    class AllToAll(torch.autograd.Function):
+        """:func:`all_to_all` forward, the reversed all-to-all backward
+        (row j of the gradient goes back to rank j)."""
+
+        @staticmethod
+        def forward(ctx, x, axes):
+            ctx.axes = axes
+            return all_to_all(x, axes)
+
+        @staticmethod
+        def backward(ctx, g):
+            return all_to_all(g, ctx.axes), None
+
+    class GatherSplit(torch.autograd.Function):
+        """An all-gather along ``dim`` forward, this rank's block of the
+        gradient backward: disjoint pieces joined into a tensor every rank
+        then holds alike (a replicated activation, whose gradient every
+        rank holds alike)."""
+
+        @staticmethod
+        def forward(ctx, x, axes, dim):
+            ctx.axes, ctx.dim, ctx.size = axes, dim, x.shape[dim]
+            return _gather_dim(x, axes, dim)
+
+        @staticmethod
+        def backward(ctx, g):
+            i = flat_index(ctx.axes)
+            return g.narrow(ctx.dim, i * ctx.size, ctx.size), None, None
+
+    return CopyTo, ReduceFrom, GatherScatter, AllToAll, GatherSplit
+
+
+_FUNCTIONS: list = []
+
+
+def _fn(i: int):
+    if not _FUNCTIONS:
+        _FUNCTIONS.extend(_functions())
+    return _FUNCTIONS[i]
+
+
+def _gather_dim(x, axes, dim: int):
+    if _group(axes) is None:
+        return x
+    d = dim % x.dim()
+    y = all_gather(x.movedim(d, 0), axes)
+    return y.movedim(0, d)
+
+
+def _scatter_dim(x, axes, dim: int):
+    if _group(axes) is None:
+        return x
+    d = dim % x.dim()
+    y = reduce_scatter(x.movedim(d, 0), axes)
+    return y.movedim(0, d)
+
+
+def copy_to(x, axes):
+    """Identity forward, sum over ``axes`` backward (Megatron's f)."""
+    return x if _group(axes) is None else _fn(0).apply(x, axes)
+
+
+def reduce_from(x, axes):
+    """Sum over ``axes`` forward, identity backward (Megatron's g)."""
+    return x if _group(axes) is None else _fn(1).apply(x, axes)
+
+
+def gather_grad(x, axes, dim: int = 0):
+    """All-gather along ``dim`` over ``axes``, reduce-scatter backward."""
+    return x if _group(axes) is None else _fn(2).apply(x, axes, dim)
+
+
+def all_to_all_grad(x, axes):
+    """:func:`all_to_all` with the reversed all-to-all as its backward."""
+    return x if _group(axes) is None else _fn(3).apply(x, axes)
+
+
+def gather_split(x, axes, dim: int = 0):
+    """All-gather along ``dim`` over ``axes``; the backward keeps this
+    rank's block of the gradient."""
+    return x if _group(axes) is None else _fn(4).apply(x, axes, dim)
 
 
 def gather_batch(x):

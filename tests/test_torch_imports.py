@@ -47,7 +47,9 @@ _NAMED = ("repro_torch.core.pipeline", "repro_torch.launch.train",
           "repro_torch.net.remote", "repro_torch.net.elastic",
           "repro_torch.sharding", "repro_torch.sharding.partition",
           "repro_torch.launch.mesh", "repro_torch.models.decode_dist",
-          "repro_torch.core.theory")
+          "repro_torch.core.theory", "repro_torch.models.tp",
+          "repro_torch.launch.dryrun", "repro_torch.launch.op_cost",
+          "repro_torch.launch.input_specs")
 
 
 def test_port_and_chip_smoke_import_without_jax():
