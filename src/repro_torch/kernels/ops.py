@@ -116,19 +116,31 @@ def _costed(name: str, cost, meta):
     return deco
 
 
+def bag_work(n_slots: int, n_rows: int, n_out: int, n_index: int,
+             D: int) -> tuple[float, float]:
+    """(operations, bytes) of one bag call: each of ``n_rows`` distinct
+    rows read once, each of ``n_out`` pooled rows written once, each of
+    ``n_index`` indices read once; one fp32 add per element of each of
+    ``n_slots`` valid bag slots. The bound of ``chip_smoke.py`` and the
+    dry run's count."""
+    return float(n_slots * D), float(n_rows * D * 4 + n_out * D * 4
+                                     + n_index * 4)
+
+
 def _bag_cost(table, dev, inv) -> tuple[float, float]:
-    """One bag call from its shapes (``chip_smoke.py``'s bound with every
-    index a distinct row): the rows read, the pooled rows written, the
-    indices read; an add per element of a bag slot."""
+    """:func:`bag_work` from the shapes, every index a distinct row."""
     (B, L), D = inv.shape, table.shape[1]
     rows = min(B * L, table.shape[0]) if dev is None else dev.shape[0]
     n_index = B * L + (0 if dev is None else dev.shape[0])
-    return float(B * L * D), float(rows * D * 4 + B * D * 4 + n_index * 4)
+    return bag_work(B * L, rows, B, n_index, D)
 
 
-def _codec_cost(n: int, block: int) -> tuple[float, float]:
-    """One compress or decompress of n fp32 elements in blocks of
-    ``block`` (``chip_smoke.py``'s ``codec_bound``)."""
+def codec_cost(n: int, block: int) -> tuple[float, float]:
+    """(operations, bytes) of one compress or decompress of n fp32
+    elements in blocks of ``block``: 4 bytes read and 2 written per
+    element (or the reverse) plus one 4-byte scale per block; compress
+    does an abs-max and a product per element and a division per block,
+    decompress one division per element (both about 2n operations)."""
     nb = -(-n // block)
     return float(2 * n + nb), float(n * 6 + nb * 4)
 
@@ -187,18 +199,26 @@ def flash_cost(q, k, v, causal: bool, window: int, q_offset: int):
 
 
 def fused_backward_cost(order, offsets, grads, apply_idx, apply_self: bool,
-                        D: int):
-    """(operations, bytes) of one ``fused_backward`` call from its shapes
-    (``chip_smoke.py``'s bound with every apply slot live and distinct):
-    the occurrence rows and the CSR read, the payload written, the apply
-    rows read (unless they are the payload), the table rows and
-    accumulators read and written; an add per occurrence element and five
-    operations per applied element."""
+                        D: int, *, data: bool = False):
+    """(operations, bytes) of one ``fused_backward`` call: the valid
+    occurrence rows and the CSR read, the payload written, the live
+    positions' gradient rows read (unless they are the payload itself),
+    and the live table rows and accumulators read and written; a fp32 add
+    per occurrence element, three operations per applied element (the
+    step, its scaling, the row add) and two per squared element. From the
+    shapes, every apply slot live and distinct; with ``data`` the live
+    positions and distinct rows that ``apply_idx`` holds (a bound of this
+    call's data). The kernel's own leader-election scratch is a choice of
+    its design, not counted."""
     n_valid, cap = int(order.numel()), int(apply_idx.numel())
+    n_live = n_rows = cap
+    if data:
+        live = apply_idx[apply_idx >= 0]
+        n_live, n_rows = int(live.numel()), int(torch.unique(live).numel())
     nb = (n_valid * (D + 1) * 4 + offsets.numel() * 4 + cap * 4
-          + cap * D * 4 + (0 if apply_self else cap * D * 4)
-          + cap * (D + 1) * 4 * 2)
-    return float(n_valid * D + cap * D * 5), float(nb)
+          + cap * D * 4 + (0 if apply_self else n_live * D * 4)
+          + n_rows * (D + 1) * 4 * 2)
+    return float(n_valid * D + n_live * D * 5), float(nb)
 
 
 def _fn(name: str):
@@ -538,7 +558,7 @@ def _check_block(block) -> int:
 
 
 @_costed("blockscale_compress",
-         lambda v, block=128: _codec_cost(v.numel(), block),
+         lambda v, block=128: codec_cost(v.numel(), block),
          lambda v, block=128: (
              _meta_empty((-(-v.numel() // block), block), torch.float16),
              _meta_empty((-(-v.numel() // block),))))
@@ -567,7 +587,7 @@ def blockscale_compress(v: torch.Tensor, block: int = 128):
 
 
 @_costed("blockscale_compress",
-         lambda vs, block=128: tuple(map(sum, zip(*[_codec_cost(
+         lambda vs, block=128: tuple(map(sum, zip(*[codec_cost(
              v.numel(), b) for v, b in zip(vs, [block] * len(vs) if isinstance(
                  block, (int, np.integer)) else block)], (0.0, 0.0)))),
          lambda vs, block=128: [(
@@ -615,7 +635,7 @@ def blockscale_compress_grouped(vs, block=128) -> list[tuple]:
 
 
 @_costed("blockscale_decompress",
-         lambda comp, scales, shape=None: _codec_cost(comp.numel(),
+         lambda comp, scales, shape=None: codec_cost(comp.numel(),
                                                       comp.shape[1]),
          lambda comp, scales, shape=None: _meta_empty(
              comp.shape if shape is None else shape))
@@ -654,7 +674,7 @@ def blockscale_decompress(comp: torch.Tensor, scales: torch.Tensor,
 
 
 @_costed("blockscale_decompress",
-         lambda comps, scales, outs: tuple(map(sum, zip(*[_codec_cost(
+         lambda comps, scales, outs: tuple(map(sum, zip(*[codec_cost(
              c.numel(), c.shape[1]) for c in comps], (0.0, 0.0)))),
          lambda comps, scales, outs: [
              o if isinstance(o, torch.Tensor) else _meta_empty(o)

@@ -268,42 +268,34 @@ def gqa_init(generator: torch.Generator, cfg, dtype=torch.float32, *,
     return p
 
 
-def _qkv(p: dict, cfg, x: torch.Tensor, memory: torch.Tensor | None = None):
-    """q (B, S, Hkv, G, Dh) from ``x``; k, v (B, M, Hkv, Dh) from
-    ``memory`` (B, M, d_memory) when given, else from ``x`` (every head:
-    under tensor parallelism :func:`_project` takes its place)."""
-    B, S, _ = x.shape
-    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    src = x if memory is None else memory
-    q = (x @ p["wq"]).reshape(B, S, Hkv, H // Hkv, Dh)
-    k = (src @ p["wk"]).reshape(B, src.shape[1], Hkv, Dh)
-    v = (src @ p["wv"]).reshape(B, src.shape[1], Hkv, Dh)
-    if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"]["w"], cfg.norm_eps)
-        k = rmsnorm(k, p["k_norm"]["w"], cfg.norm_eps)
-    return q, k, v
-
-
-def _project(p: dict, cfg, x: torch.Tensor, memory=None):
-    """The tensor-parallel projections: ``(q (B, S, Hq, Dh), k, v (B, M,
-    Hk, Dh), k0, h0)``: q the query heads from ``h0`` that this rank's
-    column block of ``wq`` covers (its own heads; where the block ends
-    inside a head, as 40 heads over 16 ranks do, the blocks are gathered
-    over ``model`` and the rank keeps every head its block touches), k and
-    v the key/value heads from ``k0`` on: the rank's own column block where
-    the n model ranks split the Hkv heads evenly, else every head (each
-    rank's column block is part of a head: the blocks are gathered over
+def _project(p: dict, cfg, x: torch.Tensor, memory=None, *,
+             every_head: bool = False):
+    """The q, k, v projections of ``x`` (k and v of ``memory`` (B, M,
+    d_memory) when given): ``(q (B, S, Hq, Dh), k, v (B, M, Hk, Dh), k0,
+    h0)``, every head where the weights are whole. Under tensor
+    parallelism q is the query heads from ``h0`` that this rank's column
+    block of ``wq`` covers (its own heads; where the block ends inside a
+    head, as 40 heads over 16 ranks do, the blocks are gathered over
+    ``model`` and the rank keeps every head its block touches; with
+    ``every_head`` all of them, as the decode needs), k and v the
+    key/value heads from ``k0`` on: the rank's own column block where the
+    n model ranks split the Hkv heads evenly, else every head (each rank's
+    column block is part of a head: the blocks are gathered over
     ``model``; the rank keeps the heads it reads in
     :func:`_group_heads`). The per-head norms run on those heads."""
     B, S, _ = x.shape
     Hkv, Dh = cfg.n_kv_heads, cfg.head_dim
-    n, r = TP.n_model(), TP.model_index()
-    xe = TP.enter(x)
-    src = xe if memory is None else TP.enter(memory)
+    tp = TP.split(p["wq"], cfg.n_heads * Dh)
+    n, r = (TP.n_model(), TP.model_index()) if tp else (1, 0)
+    enter = TP.enter if tp else (lambda t: t)
+    xe = enter(x)
+    src = xe if memory is None else enter(memory)
     q = xe @ p["wq"]
     cols = q.shape[-1]
     h0 = r * cols // Dh
-    if cols % Dh:                         # the block ends inside a head
+    if tp and every_head:
+        q, h0 = TP.gather_model(q), 0
+    elif cols % Dh:                       # the block ends inside a head
         h1 = -(-(r + 1) * cols // Dh)
         q = TP.gather_model(q)[..., h0 * Dh:h1 * Dh]
     q = q.reshape(B, S, -1, Dh)
@@ -317,8 +309,8 @@ def _project(p: dict, cfg, x: torch.Tensor, memory=None):
     k = k.reshape(B, src.shape[1], -1, Dh)
     v = v.reshape(B, src.shape[1], -1, Dh)
     if cfg.qk_norm:
-        q = rmsnorm(q, TP.enter(p["q_norm"]["w"]), cfg.norm_eps)
-        k = rmsnorm(k, TP.enter(p["k_norm"]["w"]), cfg.norm_eps)
+        q = rmsnorm(q, enter(p["q_norm"]["w"]), cfg.norm_eps)
+        k = rmsnorm(k, enter(p["k_norm"]["w"]), cfg.norm_eps)
     return q, k, v, k0, h0
 
 
@@ -370,22 +362,12 @@ def gqa_forward(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor, *,
     ``full_kv`` (a prefill's caches)."""
     B, S, _ = x.shape
     Dh = cfg.head_dim
-    h0 = 0
-    if TP.split(p["wq"], cfg.n_heads * Dh):
-        q, k, v, k0, h0 = _project(p, cfg, x)
-        if use_rope:
-            q = apply_rope(q, positions, cfg.rope_theta)
-            k = apply_rope(k, positions, cfg.rope_theta)
-        kv = (_full_kv(cfg, k, k0), _full_kv(cfg, v, k0)) if full_kv \
-            else None
-        q, k, v = _group_heads(cfg, q, k, v, k0, h0)
-    else:
-        q, k, v = _qkv(p, cfg, x)
-        if use_rope:
-            q = apply_rope(q.reshape(B, S, -1, Dh), positions,
-                           cfg.rope_theta).reshape(q.shape)
-            k = apply_rope(k, positions, cfg.rope_theta)
-        kv = None
+    q, k, v, k0, h0 = _project(p, cfg, x)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    kv = (_full_kv(cfg, k, k0), _full_kv(cfg, v, k0)) if full_kv else None
+    q, k, v = _group_heads(cfg, q, k, v, k0, h0)
     w = cfg.sliding_window if window is None else window
     out = grouped_attention(q, k, v, scale=1.0 / math.sqrt(Dh),
                             causal=True, window=w,
@@ -406,15 +388,9 @@ def cross_attn_forward(p: dict, cfg, x: torch.Tensor, memory: torch.Tensor,
     queries' own sequence it is the encoder's self-attention."""
     B, S, _ = x.shape
     Dh = cfg.head_dim
-    h0 = 0
-    if TP.split(p["wq"], cfg.n_heads * Dh):
-        q, k, v, k0, h0 = _project(p, cfg, x, memory)
-        kv = (_full_kv(cfg, k, k0), _full_kv(cfg, v, k0)) if full_kv \
-            else None
-        q, k, v = _group_heads(cfg, q, k, v, k0, h0)
-    else:
-        q, k, v = _qkv(p, cfg, x, memory=memory)
-        kv = None
+    q, k, v, k0, h0 = _project(p, cfg, x, memory)
+    kv = (_full_kv(cfg, k, k0), _full_kv(cfg, v, k0)) if full_kv else None
+    q, k, v = _group_heads(cfg, q, k, v, k0, h0)
     out = grouped_attention(q, k, v, scale=1.0 / math.sqrt(Dh),
                             causal=causal, window=0)
     out = _rank_cols(out.reshape(B, S, -1), p["wo"], h0, Dh)
@@ -427,15 +403,9 @@ def _decode_heads(p: dict, cfg, x: torch.Tensor):
     over every head: under tensor parallelism the rank's blocks gathered
     over ``model`` (the caches, and the sequence-sharded decode, need
     every head on every rank)."""
-    if not TP.split(p["wq"], cfg.n_heads * cfg.head_dim):
-        return _qkv(p, cfg, x)
-    B, Dh = x.shape[0], cfg.head_dim
-    q = TP.gather_model(TP.enter(x) @ p["wq"]).reshape(B, 1, -1, Dh)
-    if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"]["w"], cfg.norm_eps)
-    _, k, v, k0, _ = _project(p, cfg, x)
+    q, k, v, k0, _ = _project(p, cfg, x, every_head=True)
     k, v = _full_kv(cfg, k, k0), _full_kv(cfg, v, k0)
-    return q.reshape(B, 1, cfg.n_kv_heads, -1, Dh), k, v
+    return q.reshape(*q.shape[:2], cfg.n_kv_heads, -1, cfg.head_dim), k, v
 
 
 def decode_out(p: dict, cfg, o: torch.Tensor, dv: int) -> torch.Tensor:

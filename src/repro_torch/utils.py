@@ -371,41 +371,24 @@ def all_gather(x, axes):
     return _collective("all-gather", run, out)
 
 
-# backends that refuse reduce_scatter_tensor (gloo on CUDA tensors in some
-# releases): there the same sum is an all_reduce and this rank's slice
-_NO_REDUCE_SCATTER: set = set()
-
-
 def reduce_scatter(x, axes):
     """``jax.lax.psum_scatter(x, axes, tiled=True)``: the sum over the
     ranks of ``axes`` of (n * m, ...) ``x``, of which this rank keeps rows
-    [i * m, (i + 1) * m), i its flat index. Where the backend has no
-    ``reduce_scatter_tensor`` for the tensor's device, an ``all_reduce``
-    and the slice give the same sum; either way it counts as one
-    reduce-scatter of the result's bytes."""
+    [i * m, (i + 1) * m), i its flat index."""
     import torch
     import torch.distributed as dist
     g = _group(axes)
     if g is None:
         return x
-    n = axis_size(axes)
     x = x.contiguous()
-    m = x.shape[0] // n
-    out = torch.empty((m, *x.shape[1:]), dtype=x.dtype, device=x.device)
-    key = (dist.get_backend(g), x.device.type)
+    out = torch.empty((x.shape[0] // axis_size(axes), *x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
 
     def run():
-        if key not in _NO_REDUCE_SCATTER:
-            try:
-                with warnings.catch_warnings():
-                    warnings.simplefilter("ignore", FutureWarning)
-                    dist.reduce_scatter_tensor(out, x, group=g)
-                return
-            except (RuntimeError, NotImplementedError):
-                _NO_REDUCE_SCATTER.add(key)
-        full = x.clone()
-        dist.all_reduce(full, op=dist.ReduceOp.SUM, group=g)
-        out.copy_(full[flat_index(axes) * m:][:m])
+        with warnings.catch_warnings():
+            # newer torch renames it reduce_scatter_single
+            warnings.simplefilter("ignore", FutureWarning)
+            dist.reduce_scatter_tensor(out, x, group=g)
     return _collective("reduce-scatter", run, out)
 
 
