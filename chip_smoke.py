@@ -499,10 +499,11 @@ LRU_HOST_ROWS = 2048
 # graph replays of a one-launch graph (a lone call, the launch floor)
 LONE_REPS = 200
 # the pipelined trainer: kwai-dlrm's steps per run (warm-up and timed),
-# trials per (backend, regime, runner), steps counted under the sync debug
+# trials per (backend, regime, runner: one, for the script's time),
+# steps counted under the sync debug
 # mode and profiled, serial steps that warm a host_lru cache until it
 # evicts; the deep runner's window and a host_lru trainer's look-ahead
-PIPE_STEPS = {"warmup": 2, "timed": 20, "trials": 3, "syncs": 6,
+PIPE_STEPS = {"warmup": 2, "timed": 20, "trials": 1, "syncs": 6,
               "profiled": 4, "lru_warm": 26}
 PIPE_INFLIGHT, PIPE_PREFETCH = 4, 2
 # the sharded router: kwai-dlrm over SHARDS shards; its dense tables at a
@@ -510,10 +511,11 @@ PIPE_INFLIGHT, PIPE_PREFETCH = 4, 2
 # 62,500 rows ids that share a row on one shard are apart on four, so one
 # and four shards differ there, in both packages); warm-up, timed dense
 # and host_lru steps (the latter evict), staged host_lru steps, the
-# card-against-CPU steps at 62,500 rows, the pipelined runs' steps
+# card-against-CPU steps at 62,500 rows (two, for the script's time), the
+# pipelined runs' steps
 SHARDS = 4
 SHARD_ROWS_POW2 = 65_536
-SHARD_STEPS = {"warmup": 2, "dense": 10, "lru": 30, "staged": 5, "cpu": 4,
+SHARD_STEPS = {"warmup": 2, "dense": 10, "lru": 30, "staged": 5, "cpu": 2,
                "pipe": 8}
 
 # the multi-process PS: endpoints of the sharded runs; steps of the bit
@@ -521,15 +523,16 @@ SHARD_STEPS = {"warmup": 2, "dense": 10, "lru": 30, "staged": 5, "cpu": 4,
 # pipelined, blocking) and of the timed runs over PS processes (warm-up,
 # timed, staged, counted for syncs, profiled); the kill drill's steps and
 # the step before which shard 1 dies. The lossy check runs the timed
-# runs' first 10 batches, over the loss spike of their steps 5-8
+# runs' first 10 batches, over the loss spike of their steps 5-8 (the
+# dense check 5 steps, for the script's time)
 REMOTE_K = 4
-REMOTE_STEPS = {"warmup": 2, "dense": 10, "lru": 30, "k4": 4, "lossy": 10,
+REMOTE_STEPS = {"warmup": 2, "dense": 5, "lru": 30, "k4": 4, "lossy": 10,
                 "pipe": 6, "blocking": 4, "timed": 8, "staged": 4,
                 "syncs": 3, "profiled": 3, "kill": 4, "kill_at": 2}
 REMOTE_TIMED_SEED = SEED + 41
-# the online loop over 2 PS processes: half the in-process loop's steps
-# and requests (its rates need no longer a run)
-REMOTE_ONLINE = {"steps": 15, "requests": 128}
+# the online loop over 2 PS processes: 8 steps (for the script's time)
+# and half the in-process loop's requests
+REMOTE_ONLINE = {"steps": 8, "requests": 128}
 
 # the in-process online loop: kwai-dlrm on host_lru, hybrid(tau), the
 # service's micro-batch, closed-loop clients x requests each, trainer steps
@@ -589,11 +592,11 @@ GRANITE_CUTS = {"sliding_window": {"sliding_window": 64},
 # the mesh paths: a world of 4 gloo processes on the one card, mesh (data
 # 2, model 2); kwai-dlrm at full width (each data rank on 256 of the 512
 # rows, the tables over all 4 ranks: 15,625 rows a rank) for hybrid(3) and
-# sync steps; the expert-parallel MoE at deepseek-v2-lite-16b's layer
+# sync steps (hybrid cut from 6 to 4 steps for the tiers' time); the expert-parallel MoE at deepseek-v2-lite-16b's layer
 # widths; the sequence-sharded decode at granite-3-2b's attention and
 # DeepSeek-V2-Lite's MLA after a prefill; then a world of one over NCCL
 MESH_SHAPE, MESH_AXES = (2, 2), ("data", "model")
-MESH_TRAIN = (("hybrid", TrainMode.hybrid(TAU), 6),
+MESH_TRAIN = (("hybrid", TrainMode.hybrid(TAU), 4),
               ("sync", TrainMode.sync(), 2))
 MESH_MOE = {"batch": 2, "seq": 2048, "cf": 8.0}
 MESH_DECODE = {"batch": 4, "cache": 4096, "prefill": 2048, "steps": 32}
@@ -601,14 +604,30 @@ MESH_SEED = SEED + 70
 # the LM under the mesh (tensor parallelism over model, ZeRO-3 over data)
 # in the same world: granite-3-2b at full width cut to 2 layers, 3
 # hybrid(1) Adam steps at B = 2, S = 2,048 with remat; its serve (a
-# 2,048-token prefill, 32 greedy tokens at B = 4 into a 4,096-position
-# cache sequence-sharded over model); deepseek-v2-lite-16b cut to its
+# 2,048-token prefill, 16 greedy tokens (for the script's time) at B = 4
+# into a 4,096-position cache sequence-sharded over model);
+# deepseek-v2-lite-16b cut to its
 # dense prologue and one MoE layer, 2 steps under each dispatch
 MESH_LM = {"layers": 2, "batch": 2, "seq": 2048, "steps": 3}
-MESH_LM_SERVE = {"batch": 4, "prompt": 2048, "gen": 32, "cache": 4096}
+MESH_LM_SERVE = {"batch": 4, "prompt": 2048, "gen": 16, "cache": 4096}
 MESH_LM_MOE = {"repeats": 1, "batch": 2, "seq": 2048, "steps": 2}
 MESH_COLLECTIVES = ("all_reduce", "all_gather_into_tensor",
                     "all_to_all_single")
+# the out-of-core tier and the wire under the mesh (hybrid(3), kwai-dlrm at
+# full width): host_lru with admission (threshold 1.5) and its default
+# bypass, 7,812 + 1,953 = 9,765 slots a table, which do not divide the 4
+# ranks (the rules replicate the cache); the same with bypass_rows 1,952:
+# 9,764 slots, 2,441 a rank (row-sharded); dense+compressed. One process
+# trains alone until every host_lru table has evicted (at most
+# "warm_cap" steps; the wire tau + 1 steps, so its puts apply), the mesh
+# takes its state, then "steps" steps are held step by step; the sharded
+# tier's state is then saved and resumed for "resume" steps
+MESH_TIERS = (("lru_replicated", HOST_LRU, {"admit_threshold": 1.5}),
+              ("lru_sharded", HOST_LRU, {"admit_threshold": 1.5,
+                                         "bypass_rows": 1952}),
+              ("wire", WIRE, {}))
+MESH_TIER = {"warm_cap": 40, "steps": 2, "resume": 1,
+             "checkpoint": "lru_sharded"}
 
 KERNELS = {
     "embedding_bag": {"source": "src/repro_torch/kernels/csrc/bag.cu",
@@ -2826,10 +2845,10 @@ def lm_moe_serve_phase(dev):
         prof_res = lm_serve.serve(cfg, LM_B, LM_PROMPT, LM_GEN, SEED,
                                   device=dev, state=state)
         wall = time.perf_counter() - t1
-    device_s = sum(e.self_device_time_total
-                   for e in prof.key_averages()) / 1e6
+    events = prof.key_averages()        # slow at a full model's events
+    device_s = sum(e.self_device_time_total for e in events) / 1e6
     top_kernels = sorted(((e.self_device_time_total / 1e3, e.key)
-                          for e in prof.key_averages()), reverse=True)[:8]
+                          for e in events), reverse=True)[:8]
     check(np.array_equal(prof_res["tokens"], toks),
           "lm moe serve: a second run gave other tokens")
     part["profiled"] = time.perf_counter() - t0
@@ -5497,6 +5516,325 @@ def mesh_train_rank(dev, mesh) -> dict:
     return out
 
 
+def mesh_tier_trainer(dev, backend, extra: dict):
+    """kwai-dlrm's hybrid(TAU) trainer on ``backend``, its tables' specs
+    given the fields ``extra``."""
+    tr = kwai_train_trainer(dev, TrainMode.hybrid(TAU), backend)
+    if not extra:
+        return tr
+    ad = dataclasses.replace(tr.adapter, collection=tr.adapter.collection
+                             .map_specs(lambda _, sp: dataclasses.replace(
+                                 sp, **extra)))
+    return PersiaTrainer(ad, tr.mode, OptConfig(kind="adam", lr=DENSE_LR),
+                         device=dev)
+
+
+def lru_tiers_of(trainer) -> dict:
+    """{table: its HostLRUBackend} of a trainer's host_lru tables."""
+    return {n: BK.unwrap(b) for n, b in trainer.backends.items()
+            if isinstance(BK.unwrap(b), BK.HostLRUBackend)}
+
+
+def lru_table_counters(trainer) -> dict:
+    """{table: [faults, writebacks, hits, admits, bypasses, promotes]} of
+    a trainer's host_lru tables."""
+    return {n: [b.faults, b.writebacks, b.hits, b.admits, b.bypasses,
+                b.promotes] for n, b in lru_tiers_of(trainer).items()}
+
+
+def lru_maps_equal(a, b) -> bool:
+    """The slot maps and LRU clocks of two trainers' host_lru tables
+    equal."""
+    x, y = lru_tiers_of(a), lru_tiers_of(b)
+    return set(x) == set(y) and all(
+        np.array_equal(x[n]._id_for_slot, y[n]._id_for_slot)
+        and np.array_equal(x[n]._slot_clock, y[n]._slot_clock) for n in x)
+
+
+def lru_stores_equal(a, b) -> bool:
+    """The host stores (vectors, accumulators) of two trainers' host_lru
+    tables bit for bit."""
+    x, y = lru_tiers_of(a), lru_tiers_of(b)
+    return set(x) == set(y) and all(
+        np.array_equal(x[n].store.vectors, y[n].store.vectors)
+        and np.array_equal(x[n].store.opt_acc, y[n].store.opt_acc)
+        for n in x)
+
+
+def states_equal(a, b) -> bool:
+    """Two TrainStates bit for bit (tensors on either device, host ints)."""
+    def eq(x, y):
+        if isinstance(x, torch.Tensor):
+            return isinstance(y, torch.Tensor) and x.dtype == y.dtype \
+                and x.shape == y.shape and torch.equal(x, y.to(x.device))
+        if isinstance(x, dict):
+            return isinstance(y, dict) and set(x) == set(y) and all(
+                eq(x[k], y[k]) for k in x)
+        if isinstance(x, (list, tuple)):
+            return len(x) == len(y) and all(eq(u, v) for u, v in zip(x, y))
+        return x == y
+    return all(eq(getattr(a, f), getattr(b, f)) for f in (
+        "dense", "opt", "emb", "emb_queue", "dense_queue", "step"))
+
+
+def tier_agreement(mesh, trainer, got: dict, want: dict, start: dict,
+                   lossy: bool) -> dict:
+    """A mesh state's table blocks (``got``: a host_lru table's device
+    cache, a dense table's rows) against the rank's blocks of one
+    process's (``want``, from ``start`` one step before). A cache (a slot
+    holds one id; its slot ids equal) and a dense table's rows no two ids
+    share in ``table_agreement``'s classes; behind the wire (``lossy``) at
+    most 1% of the elements outside them and the distance within 1e-3 of
+    the step's update (``card_vs_cpu``'s lossy class: a payload value on
+    an fp16 rounding boundary rounds one way or the other)."""
+    out = {"table": 0.0, "acc": 0.0, "update_rel": 0.0, "off_elements": 0,
+           "off": []}
+    for n in trainer.collection.names:
+        spec = trainer.collection[n]
+        specs = SP.emb_state_specs(want[n], spec)
+        mask = None
+        if "slot_ids" in want[n]:
+            if not torch.equal(got[n]["slot_ids"], SP.local_block(
+                    mesh, specs["slot_ids"], want[n]["slot_ids"])):
+                out["off"].append(f"{n}.slot_ids")
+        else:
+            mask = ~SP.local_block(mesh, specs["acc"], shared_rows(
+                spec)).to(got[n]["acc"].device)
+        for k, rtol, atol in (("table", 1e-4, 1e-6), ("acc", 1e-3, 1e-12)):
+            x = got[n][k]
+            y = SP.local_block(mesh, specs[k], want[n][k])
+            y0 = SP.local_block(mesh, specs[k], start[n][k])
+            if mask is not None:
+                x, y, y0 = x[mask], y[mask], y0[mask]
+            out[k] = max(out[k], float((x - y).abs().max()))
+            off = ~torch.isclose(x, y, rtol=rtol, atol=atol)
+            ok = not bool(off.any())
+            if lossy:
+                rel = float((x - y).double().norm()
+                            / (y - y0).double().norm().clamp(min=1e-300))
+                out["update_rel"] = max(out["update_rel"], rel)
+                out["off_elements"] += int(off.sum())
+                ok = rel <= 1e-3 and float(off.float().mean()) <= 0.01
+            if not ok:
+                out["off"].append(f"{n}.{k}")
+    return out
+
+
+def queue_agreement(mesh, trainer, got: dict, want: dict,
+                    lossy: bool) -> dict:
+    """The put a step pushed (each queue's slot before ``ptr``): the mesh
+    ranks' shares gathered over the batch axes and added up by logical id
+    (a rank pushes its own unique put; behind the wire, its share of the
+    global one) against one process's, by id: within rtol 1e-4 / atol
+    1e-4 of the largest (the ranks' sums add in another order, and a sum
+    that nearly cancels keeps the rounding of its terms; ``card_vs_cpu``
+    holds payloads to 1e-3 of the largest); behind the wire at most 1% of
+    the elements outside that, each within 2^-10 of the largest (an fp16
+    step). A host_lru put's slots equal one process's, by id. The largest
+    distance over the largest element is recorded."""
+    from repro_torch.utils import all_gather, batch_axes
+    out = {"queue_max_abs": 0.0, "queue_rel": 0.0, "queue_off": []}
+    for n in trainer.collection.names:
+        gq, wq = got[n], want[n]
+        if wq is None:
+            continue
+        rows, dim = trainer.collection[n].rows, int(wq["grads"].shape[-1])
+        p = (int(wq["ptr"]) - 1) % int(wq["ids"].shape[0])
+
+        def by_id(q, gather):
+            cat = (lambda x: all_gather(x.contiguous(), batch_axes())) \
+                if gather else (lambda x: x)
+            ids, g = cat(q["ids"][p]).long(), cat(q["grads"][p]).float()
+            ok = ids >= 0
+            sums = torch.zeros((rows, dim), device=g.device).index_add_(
+                0, ids[ok], g[ok])
+            slot = None
+            if "slots" in q:
+                slot = torch.full((rows,), -1, dtype=torch.int32,
+                                  device=g.device)
+                slot[ids[ok]] = cat(q["slots"][p])[ok]
+            return sums, slot
+        (x, xs), (y, ys) = by_id(gq, True), by_id(wq, False)
+        top = float(y.abs().max())
+        d = (x - y).abs()
+        out["queue_max_abs"] = max(out["queue_max_abs"], float(d.max()))
+        out["queue_rel"] = max(out["queue_rel"],
+                               float(d.max()) / max(top, 1e-30))
+        off = ~torch.isclose(x, y, rtol=1e-4, atol=1e-4 * top)
+        ok = not bool(off.any())
+        if lossy:
+            ok = float(off.float().mean()) <= 0.01 \
+                and float(d.max()) <= 2.0 ** -10 * top
+        if ys is not None:
+            ok = ok and torch.equal(xs, ys)
+        if not ok or (gq["ptr"], gq["filled"]) != (wq["ptr"], wq["filled"]):
+            out["queue_off"].append(n)
+    return out
+
+
+def mesh_tier_checkpoint(dev, mesh, work, tr, st, blocks, backend,
+                         extra) -> dict:
+    """The tier's state saved under the mesh (``PersiaTrainer.save``: the
+    blocks joined, rank 0 writes) and restored by one process on rank 0:
+    equal bit for bit to the joined mesh state, host tiers and counters
+    too; then restored under the mesh by a fresh trainer and run
+    ``blocks`` (each rank's): equal bit for bit to the uninterrupted run
+    (states, counters, slot maps, stores)."""
+    ck = str(Path(work) / "tier_ckpt")
+    with set_mesh(mesh):
+        t0 = time.perf_counter()
+        tr.save(ck, st)
+        save_s = time.perf_counter() - t0
+        saved = tr.global_state(st)
+    rec = {"save_s": save_s, "bytes": sum(
+        f.stat().st_size for f in Path(ck).rglob("*") if f.is_file())}
+    if mesh.rank == 0:
+        ot = mesh_tier_trainer(dev, backend, extra)
+        t0 = time.perf_counter()
+        os_ = ot.restore(ck)
+        rec["one_process_restore_s"] = time.perf_counter() - t0
+        rec["one_process_bit_exact"] = bool(
+            states_equal(os_, saved) and lru_maps_equal(ot, tr)
+            and lru_stores_equal(ot, tr)
+            and lru_table_counters(ot) == lru_table_counters(tr))
+        del ot, os_
+    del saved
+    with set_mesh(mesh):
+        cont = st
+        for b in blocks:
+            cont, _ = tr.step(cont, b)
+        g1 = tr.global_state(cont)
+        t2 = mesh_tier_trainer(dev, backend, extra)
+        t0 = time.perf_counter()
+        s2 = t2.restore(ck)
+        rec["restore_s"] = time.perf_counter() - t0
+        for b in blocks:
+            s2, _ = t2.step(s2, b)
+        g2 = t2.global_state(s2)
+    rec["resume_steps"] = len(blocks)
+    rec["resume_bit_exact"] = bool(
+        states_equal(g1, g2)
+        and lru_table_counters(t2) == lru_table_counters(tr)
+        and lru_maps_equal(t2, tr) and lru_stores_equal(t2, tr))
+    del g1, g2, t2, s2
+    return rec
+
+
+def mesh_tier_rank(dev, mesh, work) -> dict:
+    """kwai-dlrm at full width on each tier of MESH_TIERS under the mesh:
+    one process trains alone on the card until its host_lru tables evict
+    (the wire: until its queued puts apply), the mesh takes its state
+    (this rank's blocks; the host tiers, every rank's, from its checkpoint
+    blobs), then each of MESH_TIER["steps"] steps is held against one
+    process from a common state, as ``mesh_train_rank`` holds dense
+    tables: the pooled lookups bit for bit, the loss within rtol 1e-4, the
+    tables in ``tier_agreement``'s class, every LRU counter, slot map and
+    clock equal to one process's (the mesh prepares the global batch's ids
+    on every rank), the put it pushed in ``queue_agreement``'s class, the
+    host stores bit for bit after the run (a sharded cache gathers its
+    evicted rows exactly). Only the mesh's steps are
+    counted (launches, tables, ms). The checkpointed tier is then saved
+    and resumed (:func:`mesh_tier_checkpoint`)."""
+    ds = CTR_BENCHMARKS["kwai_video"]
+    n_b = MESH_TIER["warm_cap"] + MESH_TIER["steps"] + MESH_TIER["resume"]
+    it = ds.sampler(TRAIN_B, seed=MESH_SEED + 1)
+    batches = [next(it) for _ in range(n_b)]
+    out = {}
+    for tag, backend, extra in MESH_TIERS:
+        rt = mesh_tier_trainer(dev, backend, extra)
+        ref = rt.init(seed=MESH_SEED, batch_example=batches[0])
+        lru = lru_tiers_of(rt)
+        warm, t0 = 0, time.perf_counter()
+        while warm < MESH_TIER["warm_cap"] and (
+                any(b.writebacks == 0 for b in lru.values()) if lru
+                else warm < TAU + 1):
+            ref, _ = rt.step(ref, batches[warm])
+            warm += 1
+        rec = {"warm_steps": warm, "warm_s": time.perf_counter() - t0,
+               "evicted": all(b.writebacks > 0 for b in lru.values())}
+        tr = mesh_tier_trainer(dev, backend, extra)
+        with set_mesh(mesh):
+            st = tr.init(seed=MESH_SEED,
+                         batch_example=mesh_batch_block(mesh, batches[0]))
+            for n, b in lru_tiers_of(tr).items():
+                b.restore_from_checkpoint(
+                    lru[n].state_for_checkpoint(ref.emb[n]))
+        launches = dict.fromkeys(ops.launch_counts(), 0)
+        served = dict.fromkeys(ops.table_counts(), 0)
+        per_step, ms = [], []
+        for i in range(MESH_TIER["steps"]):
+            b = batches[warm + i]
+            blk = mesh_batch_block(mesh, b)
+            snap = ref.to(dev)
+            with set_mesh(mesh):
+                st = tr.local_state(snap)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, ids, _ = tr._prepare(st, blk)
+                prep = time.perf_counter() - t0
+                # the lookup held against one process's (not counted)
+                pooled = tr.decomposed_fns()[0](st.emb, ids)[0]
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                st, m = tr.train_step(st, blk, ids)
+                torch.cuda.synchronize()
+                ms.append((prep + time.perf_counter() - t0) * 1e3)
+                for k, v in ops.launch_counts().items():
+                    launches[k] += v
+                for k, v in ops.table_counts().items():
+                    served[k] += v
+            ref, rids, _ = rt._prepare(ref, b)
+            rpooled = rt.decomposed_fns()[0](ref.emb, rids)[0]
+            ref, mr = rt.train_step(ref, b, rids)
+            with set_mesh(mesh):
+                one = {"loss": float(m["loss"]),
+                       "loss_one_process": float(mr["loss"]),
+                       "pooled_bit_exact": all(torch.equal(
+                           pooled[n], SP.local_block(mesh, SP.P(SP.BATCH),
+                                                     rpooled[n]))
+                           for n in pooled),
+                       "counters_equal": lru_table_counters(tr)
+                       == lru_table_counters(rt),
+                       "slot_maps_equal": lru_maps_equal(tr, rt),
+                       **tier_agreement(mesh, tr, st.emb, ref.emb, snap.emb,
+                                        backend == WIRE),
+                       **queue_agreement(mesh, tr, st.emb_queue,
+                                         ref.emb_queue, backend == WIRE)}
+            one["ok"] = bool(one["pooled_bit_exact"] and one["counters_equal"]
+                             and one["slot_maps_equal"] and not one["off"]
+                             and not one["queue_off"]
+                             and np.isclose(one["loss"],
+                                            one["loss_one_process"],
+                                            rtol=1e-4))
+            per_step.append(one)
+            del snap, pooled, rpooled
+        rec.update({
+            "per_step": per_step, "steps_ok": all(p["ok"] for p in per_step),
+            "stores_equal": lru_stores_equal(tr, rt),
+            "counters": lru_table_counters(tr),
+            "counters_one_process": lru_table_counters(rt),
+            "slots_a_rank": {n: int(e["table"].shape[0])
+                             for n, e in list(st.emb.items())[:1]},
+            "cache_bytes_a_rank": sum(
+                tr.backends[n].device_bytes(e) for n, e in st.emb.items()),
+            "host_bytes_a_rank": sum(b.host_bytes()
+                                     for b in lru_tiers_of(tr).values()),
+            "launches": launches, "tables": served, "step_ms": ms})
+        if tag == MESH_TIER["checkpoint"]:
+            done = warm + MESH_TIER["steps"]
+            rec["checkpoint"] = mesh_tier_checkpoint(
+                dev, mesh, work, tr, st,
+                [mesh_batch_block(mesh, b)
+                 for b in batches[done:done + MESH_TIER["resume"]]],
+                backend, extra)
+        out[tag] = rec
+        del rt, ref, tr, st, lru
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def mesh_moe_rank(dev, mesh) -> dict:
     """deepseek-v2-lite-16b's MoE layer (64 experts top-6, 2 shared, d_model
     2,048, experts 1,408 wide) drawn whole from one seed on every rank,
@@ -5854,7 +6192,9 @@ def mesh_lm_train(dev, mesh, cfg, p: dict, disp: str = "psum") -> dict:
     torch.cuda.empty_cache()
     # one rank's reference at a time: four one-process DeepSeek-V2 cuts
     # with their gradients and moments do not fit the card together
-    for r in range(mesh.n_ranks):
+    # (granite's cut does: its ranks run theirs at once)
+    turns = range(mesh.n_ranks) if cfg.n_experts else [mesh.rank]
+    for r in turns:
         if r == mesh.rank:
             ref = rt.init(MESH_SEED, batches[0])
             with mock.patch.object(lm_moe, "moe_forward", moe_reference(
@@ -6014,15 +6354,31 @@ def mesh_lm_serve(dev, mesh, cfg, p: dict) -> dict:
     return rec
 
 
+def mesh_lm_train_at(dev, mesh, cfg, p: dict, stage: int) -> dict:
+    """:func:`mesh_lm_train` at ZeRO stage ``stage`` (the partition rules'
+    ``ZERO_STAGE``, as ``REPRO_ZERO_STAGE`` sets it): at 2 the
+    tensor-parallel weights are whole over ``data`` and a step
+    reduce-scatters each one's gradient into its moment block and
+    all-gathers the updated block."""
+    prev, SP.ZERO_STAGE = SP.ZERO_STAGE, stage
+    try:
+        return mesh_lm_train(dev, mesh, cfg, p)
+    finally:
+        SP.ZERO_STAGE = prev
+
+
 def mesh_lm_rank(dev, mesh) -> dict:
-    """The LM under the mesh on this rank: granite's cut trained and
-    served, DeepSeek-V2's cut trained under both dispatches, and
-    ``launch.op_cost`` around one more (untimed) granite train step, the
-    record the dry run at mesh (2, 2) is held to."""
+    """The LM under the mesh on this rank: granite's cut trained (ZeRO
+    stages 3 and 2) and served, DeepSeek-V2's cut trained under both
+    dispatches, and ``launch.op_cost`` around one more (untimed) granite
+    train step at each stage, the records the dry run at mesh (2, 2) is
+    held to."""
     from repro_torch.configs.base import InputShape
     from repro_torch.launch import dryrun as lm_dry
     granite, ds2 = mesh_lm_cfg("granite"), mesh_lm_cfg("moe")
     rec = {"granite_train": mesh_lm_train(dev, mesh, granite, MESH_LM),
+           "granite_train_zero2": mesh_lm_train_at(dev, mesh, granite,
+                                                   MESH_LM, 2),
            "granite_serve": mesh_lm_serve(dev, mesh, granite,
                                           MESH_LM_SERVE)}
     for disp in ("psum", "a2a"):
@@ -6030,11 +6386,16 @@ def mesh_lm_rank(dev, mesh) -> dict:
                                                  MESH_LM_MOE, disp)
     shape = InputShape("mesh_train", MESH_LM["seq"], MESH_LM["batch"],
                        "training")
-    cost = lm_dry.measure(granite, shape, mesh, device=dev,
-                          seed=MESH_SEED)
-    rec["granite_cost"] = {k: cost[k] for k in (
-        "flops_per_device", "hbm_bytes_per_device", "collectives",
-        "argument_bytes_per_device", "kernels", "hbm_bytes_by_op")}
+    for key, stage in (("granite_cost", 3), ("granite_cost_zero2", 2)):
+        prev, SP.ZERO_STAGE = SP.ZERO_STAGE, stage
+        try:
+            cost = lm_dry.measure(granite, shape, mesh, device=dev,
+                                  seed=MESH_SEED)
+        finally:
+            SP.ZERO_STAGE = prev
+        rec[key] = {k: cost[k] for k in (
+            "flops_per_device", "hbm_bytes_per_device", "collectives",
+            "argument_bytes_per_device", "kernels", "hbm_bytes_by_op")}
     gc.collect()
     torch.cuda.empty_cache()
     return rec
@@ -6072,6 +6433,7 @@ def mesh_worker(rank: int, world: int, backend: str, work: str,
                "setup_s": time.perf_counter() - t0}
         carried = {k for k, v in rec["collectives"].items() if v is True}
         parts = {"train": {"all_reduce_sum", "all_gather_into_tensor"},
+                 "tiers": {"all_reduce_sum", "all_gather_into_tensor"},
                  "moe": {"all_reduce_sum", "all_gather_into_tensor",
                          "all_to_all_single"},
                  "decode": {"all_reduce_sum", "all_reduce_max"},
@@ -6079,7 +6441,9 @@ def mesh_worker(rank: int, world: int, backend: str, work: str,
                         "all_gather_into_tensor", "all_to_all_single"}}
         rec["not_carried"] = {k: sorted(v - carried)
                               for k, v in parts.items() if v - carried}
-        for part, fn in (("train", mesh_train_rank), ("moe", mesh_moe_rank),
+        for part, fn in (("train", mesh_train_rank),
+                         ("tiers", lambda d, m: mesh_tier_rank(d, m, work)),
+                         ("moe", mesh_moe_rank),
                          ("decode", mesh_decode_rank), ("lm", mesh_lm_rank)):
             if part in rec["not_carried"] or (world == 1 and
                                               part != "decode"):
@@ -6185,6 +6549,11 @@ def mesh_phase(dev):
                 "collectives_per_step": per[0]["collectives_per_step"],
                 "step_ms_per_rank": [float(np.median(g["step_ms"][1:]))
                                      for g in per]}
+    # the out-of-core tier and the wire under the mesh, and checkpoints
+    tier_launches = dict.fromkeys(ops.launch_counts(), 0)
+    tier_served = dict.fromkeys(ops.table_counts(), 0)
+    if "tiers" in gl[0]:
+        rec["tiers"] = mesh_tier_check(gl, tier_launches, tier_served)
     # the expert-parallel MoE against moe_forward with no mesh
     if "moe" in gl[0]:
         gemm = gl[0]["moe"]["gemm_only_max_abs"]
@@ -6219,18 +6588,85 @@ def mesh_phase(dev):
                 "collectives_per_step": per[0]["collectives_per_step"],
                 "step_ms_per_rank": [float(np.median(g["step_ms"][1:]))
                                      for g in per]}
-    check("train" in rec and "decode_nccl_world_of_one" in rec,
+    check("train" in rec and "tiers" in rec
+          and "decode_nccl_world_of_one" in rec,
           f"mesh: gloo carries too little to train: {rec['not_carried']}")
     lm_launches = dict.fromkeys(ops.launch_counts(), 0)
     check("lm" in gl[0], f"mesh: the LM did not run: {rec['not_carried']}")
     rec["lm"] = mesh_lm_check(gl, lm_launches)
     rec["part_s"] = {k: max(g.get(f"{k}_s", 0.0) for g in gl)
-                     for k in ("train", "moe", "decode", "lm")}
+                     for k in ("train", "tiers", "moe", "decode", "lm")}
     rec["phase_s"] = time.perf_counter() - t_phase
     emit(rec)
     return {"mesh_train": (launches, served),
+            "mesh_tiers": (tier_launches, tier_served),
             "mesh_lm": (lm_launches, dict.fromkeys(ops.table_counts(), 0))
             }, rec
+
+
+def mesh_tier_check(gl: list, launches: dict, served: dict) -> dict:
+    """Every rank's tier records held (see :func:`mesh_tier_rank`): each
+    step, the stores after the run, the eviction before it, a step's
+    launches (the get's one bag launch; a host_lru table's sum-only and
+    gathered apply ``fused_backward``, the wire's sums, global sums and
+    apply; the wire's compress and decompress for the get and for the
+    put), the checkpoint's resume on every rank and its one-process
+    restore; the mesh's launches summed over the ranks into
+    ``launches`` / ``served``."""
+    out, steps = {}, MESH_TIER["steps"]
+    for tag, backend, _ in MESH_TIERS:
+        per = [g["tiers"][tag] for g in gl]
+        lru = backend.startswith(HOST_LRU)
+        want = {"unique_bag": steps,
+                "fused_backward": (2 if lru else 3) * N_TABLES * steps,
+                "blockscale_compress": 0 if lru else 2 * steps,
+                "blockscale_decompress": 0 if lru else 2 * steps}
+        for g in per:
+            check(g["steps_ok"] and g["stores_equal"]
+                  and (g["evicted"] or not lru),
+                  f"mesh tier {tag}: evicted {g['evicted']} after "
+                  f"{g['warm_steps']} steps, stores equal "
+                  f"{g['stores_equal']}, steps "
+                  f"{[p for p in g['per_step'] if not p['ok']][:2]}")
+            check(all(g["launches"][k] == v for k, v in want.items()),
+                  f"mesh tier {tag}: launches {g['launches']}, want {want}")
+            for k in launches:
+                launches[k] += g["launches"][k]
+            for k in served:
+                served[k] += g["tables"][k]
+        out[tag] = {
+            "backend": backend, "warm_steps": per[0]["warm_steps"],
+            "warm_s": max(g["warm_s"] for g in per),
+            "losses": [p["loss"] for p in per[0]["per_step"]],
+            "losses_one_process": [p["loss_one_process"]
+                                   for p in per[0]["per_step"]],
+            "per_step": [{k: max(g["per_step"][i][k] for g in per)
+                          for k in ("table", "acc", "update_rel",
+                                    "off_elements", "queue_max_abs",
+                                    "queue_rel")}
+                         for i in range(steps)],
+            "counters": per[0]["counters"], "slots_a_rank":
+            per[0]["slots_a_rank"], "cache_bytes_a_rank":
+            per[0]["cache_bytes_a_rank"], "host_bytes_a_rank":
+            per[0]["host_bytes_a_rank"],
+            "launches_per_rank": per[0]["launches"],
+            "step_ms_per_rank": [float(np.median(g["step_ms"]))
+                                 for g in per]}
+        if "checkpoint" in per[0]:
+            for r, g in enumerate(per):
+                check(g["checkpoint"]["resume_bit_exact"],
+                      f"mesh tier {tag}: the resume under the mesh differs "
+                      f"from the uninterrupted run on rank {r}")
+            c = per[0]["checkpoint"]
+            check(c["one_process_bit_exact"],
+                  f"mesh tier {tag}: one process's restore differs from the "
+                  "joined mesh state")
+            out[tag]["checkpoint"] = {
+                k: c[k] for k in ("bytes", "save_s", "restore_s",
+                                  "one_process_restore_s", "resume_steps",
+                                  "resume_bit_exact",
+                                  "one_process_bit_exact")}
+    return out
 
 
 def mesh_lm_check(gl: list, launches: dict) -> dict:
@@ -6241,7 +6677,9 @@ def mesh_lm_check(gl: list, launches: dict) -> dict:
     call up to it routed as the reference's; every run holds at least its
     first step."""
     out = {"per_rank": []}
-    for key in ("granite_train", "moe_train_psum", "moe_train_a2a"):
+    keys = ("granite_train", "granite_train_zero2", "moe_train_psum",
+            "moe_train_a2a")
+    for key in keys:
         per = [g["lm"][key] for g in gl]
         for g in per:
             for k, v in g["launches"].items():
@@ -6259,7 +6697,7 @@ def mesh_lm_check(gl: list, launches: dict) -> dict:
         # granite routes nothing: its first tau + 1 = 2 steps' dense
         # blocks and every step's loss are held. A MoE run's first step
         # starts from the same state on both sides and must route alike.
-        if key == "granite_train":
+        if key.startswith("granite_train"):
             check(all(g["held_steps"] == 2 and g["loss_steps_held"]
                       == g["steps"] for g in per),
                   f"mesh lm {key}: held steps "
@@ -6293,10 +6731,19 @@ def mesh_lm_check(gl: list, launches: dict) -> dict:
                                  for g in per],
             "launches_per_rank": per[0]["launches"],
             "collectives_per_step": per[0]["collectives_per_step"]}
-    check(gl[0]["lm"]["granite_train"]["launches"]["flash_attention_fwd"]
-          == 2 * MESH_LM["layers"] * MESH_LM["steps"],
-          "mesh lm granite: not every attention (forward and remat "
-          "recompute) went through the kernel")
+    for key in ("granite_train", "granite_train_zero2"):
+        check(gl[0]["lm"][key]["launches"]["flash_attention_fwd"]
+              == 2 * MESH_LM["layers"] * MESH_LM["steps"],
+              f"mesh lm {key}: not every attention (forward and remat "
+              "recompute) went through the kernel")
+    # ZeRO stage 2: no per-layer gather of the tensor-parallel weights
+    gathers = {k: [g["lm"][k]["collectives_per_step"]["all-gather"]["calls"]
+                   for g in gl]
+               for k in ("granite_train", "granite_train_zero2")}
+    check(all(z2 < z3 for z2, z3 in zip(gathers["granite_train_zero2"],
+                                        gathers["granite_train"])),
+          f"mesh lm: all-gathers a step at ZeRO 2 {gathers}")
+    out["all_gathers_per_step"] = gathers
     sv = [g["lm"]["granite_serve"] for g in gl]
     for g in sv:
         for k, v in g["launches"].items():
@@ -6324,9 +6771,9 @@ def mesh_lm_check(gl: list, launches: dict) -> dict:
                      g["lm"][key]["launches"]["fused_backward"],
                      "collectives_per_step":
                      g["lm"][key]["collectives_per_step"]}
-               for key in ("granite_train", "moe_train_psum",
-                           "moe_train_a2a")}})
+               for key in keys}})
     out["granite_cost_rank0"] = gl[0]["lm"]["granite_cost"]
+    out["granite_cost_zero2_rank0"] = gl[0]["lm"]["granite_cost_zero2"]
     return out
 
 
@@ -6338,10 +6785,12 @@ from repro_torch.launch import dryrun as DR
 rows = [DR.run_case("granite_3_2b", s, verbose=False)
         for s in ("train_4k", "prefill_32k", "decode_32k")]
 cut = get_config("granite_3_2b").replace(pattern_repeats=%(layers)d)
-rows.append(DR.run_case(
-    "granite_3_2b", "train_4k", cfg=cut,
-    shape=InputShape("mesh_train", %(seq)d, %(batch)d, "training"),
-    mesh_shape=(%(shape)r, %(axes)r), verbose=False, seed=%(seed)d))
+for stage in (3, 2):
+    rows.append(DR.run_case(
+        "granite_3_2b", "train_4k", cfg=cut,
+        shape=InputShape("mesh_train", %(seq)d, %(batch)d, "training"),
+        mesh_shape=(%(shape)r, %(axes)r), verbose=False, seed=%(seed)d,
+        zero_stage=stage))
 print("ROWS" + json.dumps(rows))
 """
 
@@ -6363,11 +6812,12 @@ def dryrun_start():
 
 
 def dryrun_phase(started, mesh_rec) -> dict:
-    """The dry run's rows: every one ``ok``; the (2, 2) row's FLOPs,
+    """The dry run's rows: every one ``ok``; the (2, 2) rows' FLOPs,
     collective counts and bytes and argument bytes equal to what rank 0
     of the mesh phase counted around one more granite step on the card
-    (``launch.op_cost``), its HBM bytes within 1% (the ops whose bytes
-    differ recorded)."""
+    (``launch.op_cost``) at ZeRO stages 3 and 2, their HBM bytes within 1%
+    (the ops whose bytes differ recorded); the stage-2 row's all-gathers
+    those of a stage-2 step of the mesh's granite run."""
     proc, t0 = started
     try:
         log = proc.communicate(timeout=900)[0]
@@ -6381,44 +6831,57 @@ def dryrun_phase(started, mesh_rec) -> dict:
     rows = json.loads(line[0][4:])
     for r in rows:
         check(r["status"] == "ok", f"dryrun {r['shape']}: {r.get('error')}")
-    dry, real = rows[-1], mesh_rec["lm"]["granite_cost_rank0"]
-    gap = {k: [v, dry["hbm_bytes_by_op"].get(k, 0)]
-           for k, v in real["hbm_bytes_by_op"].items()
-           if dry["hbm_bytes_by_op"].get(k, 0) != v}
-    gap.update({k: [0, v] for k, v in dry["hbm_bytes_by_op"].items()
-                if k not in real["hbm_bytes_by_op"]})
-    hbm_rel = abs(real["hbm_bytes_per_device"]
-                  - dry["hbm_bytes_per_device"]) / dry["hbm_bytes_per_device"]
     rec = {"phase": "dryrun", "seconds": time.perf_counter() - t0,
            "rows": [{k: r[k] for k in (
-               "arch", "shape", "mesh", "note", "dtype", "trace_s",
-               "argument_bytes_per_device", "temp_bytes_per_device",
-               "peak_bytes_per_device", "flops_per_device",
-               "hbm_bytes_per_device", "collectives", "compute_s",
-               "memory_s", "collective_s", "dominant", "model_flops",
-               "useful_flops_frac", "kernels")} for r in rows],
-           "hardware": rows[0]["hardware"],
-           "card_vs_dry_2x2": {
-               "flops_equal": real["flops_per_device"]
-               == dry["flops_per_device"],
-               "collectives_equal": real["collectives"]
-               == dry["collectives"],
-               "argument_bytes_equal": real["argument_bytes_per_device"]
-               == dry["argument_bytes_per_device"],
-               "kernels_equal": real["kernels"] == dry["kernels"],
-               "hbm_rel": hbm_rel, "hbm_gap_by_op": gap,
-               "card": {k: real[k] for k in (
-                   "flops_per_device", "hbm_bytes_per_device",
-                   "collectives", "argument_bytes_per_device", "kernels")},
-               "dry": {k: dry[k] for k in (
-                   "flops_per_device", "hbm_bytes_per_device",
-                   "collectives", "argument_bytes_per_device",
-                   "kernels")}}}
-    c = rec["card_vs_dry_2x2"]
+               "arch", "shape", "mesh", "note", "dtype", "zero_stage",
+               "trace_s", "argument_bytes_per_device",
+               "temp_bytes_per_device", "peak_bytes_per_device",
+               "flops_per_device", "hbm_bytes_per_device", "collectives",
+               "compute_s", "memory_s", "collective_s", "dominant",
+               "model_flops", "useful_flops_frac", "kernels")}
+               for r in rows],
+           "hardware": rows[0]["hardware"]}
+    lm = mesh_rec["lm"]
+    for key, dry, real in (
+            ("card_vs_dry_2x2", rows[-2], lm["granite_cost_rank0"]),
+            ("card_vs_dry_2x2_zero2", rows[-1],
+             lm["granite_cost_zero2_rank0"])):
+        gap = {k: [v, dry["hbm_bytes_by_op"].get(k, 0)]
+               for k, v in real["hbm_bytes_by_op"].items()
+               if dry["hbm_bytes_by_op"].get(k, 0) != v}
+        gap.update({k: [0, v] for k, v in dry["hbm_bytes_by_op"].items()
+                    if k not in real["hbm_bytes_by_op"]})
+        hbm_rel = abs(real["hbm_bytes_per_device"]
+                      - dry["hbm_bytes_per_device"]) \
+            / dry["hbm_bytes_per_device"]
+        rec[key] = {
+            "zero_stage": dry["zero_stage"],
+            "flops_equal": real["flops_per_device"]
+            == dry["flops_per_device"],
+            "collectives_equal": real["collectives"] == dry["collectives"],
+            "argument_bytes_equal": real["argument_bytes_per_device"]
+            == dry["argument_bytes_per_device"],
+            "kernels_equal": real["kernels"] == dry["kernels"],
+            "hbm_rel": hbm_rel, "hbm_gap_by_op": gap,
+            "card": {k: real[k] for k in (
+                "flops_per_device", "hbm_bytes_per_device", "collectives",
+                "argument_bytes_per_device", "kernels")},
+            "dry": {k: dry[k] for k in (
+                "flops_per_device", "hbm_bytes_per_device", "collectives",
+                "argument_bytes_per_device", "kernels")}}
+    z2 = rows[-1]["collectives"]["counts"]["all-gather"]
+    ran = lm["all_gathers_per_step"]["granite_train_zero2"]
+    rec["zero2_all_gathers"] = {"dry": z2, "run_per_rank": ran,
+                                "stage3_dry": rows[-2]["collectives"][
+                                    "counts"]["all-gather"]}
     emit(rec)
-    check(c["flops_equal"] and c["collectives_equal"]
-          and c["argument_bytes_equal"] and c["kernels_equal"]
-          and hbm_rel <= 0.01, f"dryrun at (2, 2) against the card: {c}")
+    for key in ("card_vs_dry_2x2", "card_vs_dry_2x2_zero2"):
+        c = rec[key]
+        check(c["flops_equal"] and c["collectives_equal"]
+              and c["argument_bytes_equal"] and c["kernels_equal"]
+              and c["hbm_rel"] <= 0.01, f"dryrun {key} against the card: {c}")
+    check(all(r == z2 for r in ran) and z2 < rec["zero2_all_gathers"][
+        "stage3_dry"], f"dryrun: all-gathers at ZeRO 2 {rec['zero2_all_gathers']}")
     return rec
 
 

@@ -26,7 +26,7 @@ import tempfile
 import numpy as np
 import torch
 
-from repro_torch.utils import tree_map
+from repro_torch.utils import get_mesh, tree_map
 
 
 def _flatten(tree, prefix=""):
@@ -199,11 +199,15 @@ class CheckpointManager:
         """Full-state periodic save through PersiaTrainer.save: dense params
         + optimizer moments, every PS table with its adagrad accumulator
         (and a host_lru table's host tiers), and the staleness queues — so
-        a restore resumes bit-identically."""
+        a restore resumes bit-identically. Under a mesh every rank calls it:
+        rank 0 writes the joined state (see ``PersiaTrainer.save``) and
+        drops the old checkpoints."""
         if step % self.every != 0:
             return None
         path = trainer.save(self.directory, state, step=step)
-        self._gc()
+        mesh = get_mesh()
+        if mesh is None or mesh.rank == 0:      # the rank that writes
+            self._gc()
         return path
 
     def _gc(self):

@@ -78,7 +78,9 @@ def lm_adapter(cfg, *, lr=1e-2, dtype=torch.float32) -> ModelAdapter:
     staleness); ``emb_ids`` are the batch's tokens and ``loss`` is
     :func:`~repro_torch.models.transformer.lm_loss` on their occurrence
     activations (``pooled=False``). Under a mesh the dense stack is
-    tensor-parallel and ZeRO-3 sharded (``dense_specs``)."""
+    tensor-parallel and ZeRO sharded (``dense_specs``: the stage of
+    ``REPRO_ZERO_STAGE``, 3 by default; ``stage=3`` gives the Adam
+    moments' specs)."""
     from repro_torch.models import tp as TP
     coll = EmbeddingCollection.single("vocab", EmbeddingSpec(
         rows=cfg.vocab_size, dim=cfg.d_model, mode="model",
@@ -96,7 +98,8 @@ def lm_adapter(cfg, *, lr=1e-2, dtype=torch.float32) -> ModelAdapter:
         emb_ids=lambda b: {"vocab": b["tokens"]},
         loss=loss,
         pooled=False,
-        dense_specs=lambda mesh: TP.dense_specs(cfg, mesh),
+        dense_specs=lambda mesh, stage=None: TP.dense_specs(cfg, mesh,
+                                                            stage),
     )
 
 

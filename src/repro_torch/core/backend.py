@@ -76,7 +76,8 @@ from repro_torch.core.hotness import HotnessSketch
 from repro_torch.core.lru import STORE_DTYPES, LRUEmbeddingStore
 from repro_torch.core.mmap_store import TieredHostStore
 from repro_torch.kernels import ops as K
-from repro_torch.utils import round_up
+from repro_torch.utils import (all_gather, axis_size, batch_axes, flat_index,
+                               get_mesh, round_up)
 
 
 def _prod(shape) -> int:
@@ -337,7 +338,11 @@ class EmbeddingBackend:
         and the PS, up to the wire: ``(payload, finish)`` as
         :meth:`_hybrid_begin`; the caller roundtrips ``payload`` IN PLACE
         before it calls ``finish()``. In sync mode the sums are a sum-only
-        launch here and their apply an apply-only launch in ``finish``."""
+        launch here and their apply an apply-only launch in ``finish``.
+        Under a mesh the payload is this rank's share of the global put
+        (:func:`_wire_begin_mesh`)."""
+        if _on_mesh():
+            return _wire_begin_mesh(self, state, queue, plan, grads)
         if self.spec.staleness > 0 and queue is not None:
             return self._hybrid_begin(state, queue, plan, grads)
         g_u = D.csr_segment_sum(*_plan_csr(plan), grads,
@@ -368,6 +373,13 @@ class EmbeddingBackend:
         raise NotImplementedError
 
     def _hybrid_unique(self, state, queue, dev_u, g_u):
+        raise NotImplementedError
+
+    def _mesh_unique(self, state, queue, dev_u, ids_u, g_u):
+        """Under a mesh, this rank's share of a put that is unique over the
+        global batch (device ids, logical ids, fp32 sums): pushed into the
+        rank's queue, and the put that pops out applied as the mesh applies
+        a put -> (state, queue, metrics)."""
         raise NotImplementedError
 
     # -- capacity accounting -------------------------------------------------
@@ -406,6 +418,51 @@ def _plan_sums(plan, grads) -> torch.Tensor:
     """The plan's unique-width gradient sums: one sum-only
     ``fused_backward`` launch."""
     return D.csr_segment_sum(*_plan_csr(plan), grads, int(plan.dev.shape[0]))
+
+
+# the ROADMAP items of what is not ported under a mesh yet
+MESH_ROUTER_ITEM = ("ROADMAP Queue 1 item 7 (the router and remote tables "
+                    "under a mesh)")
+MESH_LRU_ITEM = ("ROADMAP Queue 1 item 8 (serving, the pipelined trainer and "
+                 "occurrence-width tables on host_lru under a mesh)")
+
+
+def _on_mesh() -> bool:
+    """A mesh of more than one rank is in scope."""
+    mesh = get_mesh()
+    return mesh is not None and mesh.n_ranks > 1
+
+
+def _wire_begin_mesh(backend, state, queue, plan, grads):
+    """The wire's put under a mesh, up to the wire (``_wire_begin``'s
+    contract): this rank's unique-width sums (one sum-only
+    ``fused_backward`` launch) are gathered over the batch axes and
+    deduplicated again on the logical ids, as the full-mode mesh put does
+    (one more sum-only launch), so the codec sees the global put of one
+    process (whole rows of blocks: ``check_mesh`` holds the block to the
+    dim). The payload is this rank's share of it, the rows [i W, (i + 1)
+    W) of the global put (W this rank's width, i its batch index): the
+    ranks' shares, gathered, are the put, as a staleness queue is cut.
+    ``finish`` sends the share to :meth:`EmbeddingBackend._mesh_unique`."""
+    axes = batch_axes()
+    key = plan.dev if plan.ids is None else plan.ids
+    key_all = all_gather(key.to(torch.int32).contiguous(), axes)
+    dev_all = key_all if plan.ids is None else \
+        all_gather(plan.dev.to(torch.int32).contiguous(), axes)
+    g_all = all_gather(_plan_sums(plan, grads).contiguous(), axes)
+    width = int(key_all.shape[0])
+    glob = C.dedup_plan(key_all, width)
+    sums = D.csr_segment_sum(glob.order, glob.offsets, g_all, width)
+    first = glob.order[glob.offsets[:-1].clamp(max=max(width - 1, 0))]
+    dev_u = torch.where(glob.dev >= 0, dev_all[first.long()], -1)
+    w = int(key.shape[0])
+    lo = flat_index(axes) * w
+    payload = sums[lo:lo + w]
+
+    def finish():
+        return backend._mesh_unique(state, queue, dev_u[lo:lo + w],
+                                    glob.dev[lo:lo + w], payload)
+    return payload, finish
 
 
 def _pad_to(arr: np.ndarray, width: int, fill: int = -1) -> np.ndarray:
@@ -593,6 +650,9 @@ class DenseBackend(EmbeddingBackend):
         st = PS.apply_put(state, spec, old_ids, old_g, assume_unique=True)
         return st, queue, {}
 
+    def _mesh_unique(self, state, queue, dev_u, ids_u, g_u):
+        return self._hybrid_unique(state, queue, ids_u, g_u)
+
     def state_for_checkpoint(self, state):
         return {k: v.detach().cpu().numpy() for k, v in state.items()}
 
@@ -655,7 +715,25 @@ class HostLRUBackend(EmbeddingBackend):
 
     The host tier (slot map, clock, store) is guarded by an RLock, held
     through ``prepare`` and through a serve read's residency resolution
-    and its enqueued gathers."""
+    and its enqueued gathers.
+
+    Under a mesh (``utils.set_mesh``, more than one rank) the tier is the
+    JAX package's one LRU over the global batch, SPMD: ``prepare_all``
+    gathers the batch's ids over the batch axes and every rank runs the
+    same prepare on them, so every rank's slot map, store, clock and
+    counters are those of one process, bit for bit; each rank's plan
+    then reads its own rows' slots. The device cache is laid out by the
+    partition rules (``emb_state_specs``): row-sharded over the table's
+    shard axes where they divide the slots (:meth:`_cache_split`), else
+    replicated. A sharded cache reads through the mesh lookup
+    (``embedding_ps._lookup_sharded``, the slot as the position), a rank
+    faults rows into its own slots only, and the rows an eviction writes
+    back are gathered over the shard axes first. A put sums to unique
+    width, pushes the rank's own queue, and the put that pops out is
+    gathered over the batch axes, deduplicated on the slots and applied
+    where the rank holds the slot (:meth:`_mesh_apply`). ``+disk`` takes a
+    directory per rank (``disk_path/r<rank>``). Serve reads under a mesh
+    are not ported."""
 
     def __init__(self, spec: EmbeddingSpec):
         if spec.cache_rows <= 0:
@@ -718,8 +796,9 @@ class HostLRUBackend(EmbeddingBackend):
         (on its device, then copied out) and park it host-side: the host
         row of id i is what a dense lookup of i reads (``table[
         shuffle_pos(i)]``). The device cache starts empty, on the
-        generator's device."""
-        if shards != 1:
+        generator's device. Under a mesh ``shards`` may be the ranks that
+        shard the table (the cache's layout, not PS shards)."""
+        if shards not in (1, PS.n_shards(self.spec)):
             raise ValueError(
                 "HostLRUBackend is one PS shard; to run a host-backed table "
                 f"over {shards} shards set EmbeddingSpec.emb_shards (or pass "
@@ -752,10 +831,18 @@ class HostLRUBackend(EmbeddingBackend):
             host_rows = int(spec.host_rows) or max(1024, spec.rows // 4)
             return TieredHostStore(spec.rows, spec.dim,
                                    host_rows=host_rows,
-                                   path=spec.disk_path,
+                                   path=self._disk_path(),
                                    store_dtype=spec.store_dtype)
         return LRUEmbeddingStore(spec.rows, spec.dim, track_recency=False,
                                  store_dtype=spec.store_dtype)
+
+    def _disk_path(self):
+        """The disk tier's directory: under a mesh one per rank
+        (``disk_path/r<rank>``), as the router takes ``disk_path/s<k>``."""
+        path, mesh = self.spec.disk_path, get_mesh()
+        if path is None or not _on_mesh():
+            return path
+        return os.path.join(path, f"r{mesh.rank}")
 
     def _init_with_rows_locked(self, ids, vecs, accs=None, device="cpu"):
         spec = self.spec
@@ -885,8 +972,18 @@ class HostLRUBackend(EmbeddingBackend):
     def _fault_in(self, state, slots, ids, vecs, accs):
         """Scatter the faulted rows into their slots, in place: slots,
         ids, accs and vectors travel in ONE staging buffer and one
-        host-to-device copy (pinned and non-blocking on a GPU)."""
+        host-to-device copy (pinned and non-blocking on a GPU). A
+        row-sharded cache under a mesh takes the rows of its own slots."""
+        n, i = self._cache_split()
+        if n > 1:
+            rl = self.dev_slots // n
+            mine = slots // rl == i
+            slots, ids = slots[mine] - i * rl, ids[mine]
+            vecs = np.asarray(vecs)[mine]
+            accs = None if accs is None else np.asarray(accs)[mine]
         m, dim = int(slots.size), self.spec.dim
+        if m == 0:
+            return
         has_acc = "acc" in state
         base = 3 * m if has_acc else 2 * m
         buf = np.empty(base + m * dim, np.int32)
@@ -953,12 +1050,7 @@ class HostLRUBackend(EmbeddingBackend):
         t0 = time.perf_counter()
         n, dim = int(evict.size), self.spec.dim
         ev_ids = self._id_for_slot[evict]
-        table = state["table"]
-        idx = upload_int32([evict], table.device)[0].long()
-        rows = table.index_select(0, idx).float()
-        if "acc" in state:
-            acc = state["acc"].index_select(0, idx)
-            rows = torch.cat([rows, acc[:, None]], 1)
+        rows = self._rows_at(state, evict)
         t1 = time.perf_counter()
         host = rows.cpu().numpy()
         self.stage_s["evict_sync"] += time.perf_counter() - t1
@@ -971,6 +1063,48 @@ class HostLRUBackend(EmbeddingBackend):
         self._slot_arr[ev_ids] = -1
         self._id_for_slot[evict] = -1
         self.stage_s["evict"] += time.perf_counter() - t0
+
+    def _rows_at(self, state, slots: np.ndarray) -> torch.Tensor:
+        """The (E, dim [+ 1]) fp32 rows (and accumulators) at host
+        ``slots``, on the cache's device. A row-sharded cache reads its own
+        slots and gathers the others' over the shard axes (each row taken
+        from its owner's block: exact)."""
+        table = state["table"]
+        idx = upload_int32([slots], table.device)[0].long()
+        n, i = self._cache_split()
+        if n > 1:
+            rl = self.dev_slots // n
+            owner = idx // rl
+            idx = torch.where(owner == i, idx - i * rl, 0)
+        rows = table.index_select(0, idx).float()
+        if "acc" in state:
+            rows = torch.cat([rows, state["acc"].index_select(0, idx)[:, None]],
+                             1)
+        if n > 1:
+            got = all_gather(rows.contiguous(),
+                             PS._axes_for(self.spec.mode)[0])
+            rows = got.view(n, *rows.shape)[
+                owner, torch.arange(rows.shape[0], device=rows.device)]
+        return rows
+
+    def _cache_split(self) -> tuple[int, int]:
+        """(the ranks the device cache's slots are cut over, this rank's
+        index among them): the partition rules' layout (the table's shard
+        axes where they divide the slots, ``_guard``'s rule), (1, 0) for a
+        replicated cache or with no mesh."""
+        n = PS.n_shards(self.spec)
+        if n <= 1 or self.dev_slots % n:
+            return 1, 0
+        return n, flat_index(PS._axes_for(self.spec.mode)[0])
+
+    def slots_of(self, ids: np.ndarray) -> np.ndarray:
+        """The cache slots of host LOGICAL ids (int32; -1 for padding,
+        ids out of range and ids not resident)."""
+        ids = np.asarray(ids, np.int64)
+        ok = (ids >= 0) & (ids < self.spec.rows)
+        with self._lock:
+            return np.where(ok, self._slot_arr[np.where(ok, ids, 0)],
+                            -1).astype(np.int32)
 
     # -- slot pinning (pipelined callers) ------------------------------------
     #
@@ -1016,6 +1150,10 @@ class HostLRUBackend(EmbeddingBackend):
         occurrence inverse into that order and the hit slots, the rows to
         upload the misses. Call under :meth:`read_lock` with the
         matching :meth:`_read_end`."""
+        if _on_mesh():
+            raise NotImplementedError(
+                "a host_lru table's serve read under a mesh is not ported "
+                f"yet: {MESH_LRU_ITEM}")
         spec = self.spec
         flat = arr.reshape(-1)
         valid = (flat >= 0) & (flat < spec.rows)
@@ -1107,10 +1245,82 @@ class HostLRUBackend(EmbeddingBackend):
     def _lookup_flat(self, state, dev_ids):
         shape = dev_ids.shape
         flat = dev_ids.reshape(-1)
+        if self._cache_split()[0] > 1:
+            out = self._sharded_rows(state, flat)
+            return out.reshape(*shape, self.spec.dim), {}
         valid = (flat >= 0) & (flat < self.dev_slots)
         table = state["table"]
         out = table[self._safe(flat)] * valid[:, None].to(table.dtype)
         return out.reshape(*shape, self.spec.dim), {}
+
+    def _sharded_rows(self, state, slots: torch.Tensor) -> torch.Tensor:
+        """The rows of a row-sharded cache at (T,) slots (-1 padding):
+        ``embedding_ps``'s mesh lookup with the slot as the position (no
+        shuffle); each row is its owner's value plus zeros (exact)."""
+        n, _ = self._cache_split()
+        shard_axes, batch = PS._axes_for(self.spec.mode)
+        return PS._lookup_sharded(state["table"], self.spec,
+                                  self.table_rows(slots), shard_axes, batch,
+                                  self.dev_slots // n)
+
+    def _bag_entry(self, state, dev_ids) -> tuple:
+        if self._cache_split()[0] == 1:
+            return super()._bag_entry(state, dev_ids)
+        if D.is_plan(dev_ids):
+            return (self._sharded_rows(state, self._plan_rows(dev_ids)),
+                    None, dev_ids.inv, False)
+        rows = self._sharded_rows(state, dev_ids.reshape(-1))
+        return (rows, None, _slots(dev_ids), True)
+
+    def lookup_pooled(self, state, dev_ids):
+        if self._cache_split()[0] == 1:
+            return super().lookup_pooled(state, dev_ids)
+        return _bag_all({0: self._bag_entry(state, dev_ids)})[0], {}
+
+    def _put_plan(self, state, plan, grads):
+        if not _on_mesh():
+            return super()._put_plan(state, plan, grads)
+        return self._mesh_apply(state, plan.dev, None,
+                                _plan_sums(plan, grads)), {}
+
+    def _hybrid_plan(self, state, queue, plan, grads):
+        if not _on_mesh():
+            return super()._hybrid_plan(state, queue, plan, grads)
+        return self._mesh_unique(state, queue, plan.dev, plan.ids,
+                                 _plan_sums(plan, grads))
+
+    def _mesh_unique(self, state, queue, dev_u, ids_u, g_u):
+        if self.spec.staleness <= 0 or queue is None:
+            return self._mesh_apply(state, dev_u, None, g_u), queue, {}
+        cap = int(queue["slots"].shape[1])
+        queue, old_slots, old_ids, old_g = self._queue_push_pop(
+            queue, D.pad_axis0(dev_u.to(torch.int32), cap, -1),
+            D.pad_axis0(ids_u.to(torch.int32), cap, -1),
+            D.pad_axis0(g_u, cap, 0))
+        return self._mesh_apply(state, old_slots, old_ids, old_g), queue, {}
+
+    def _mesh_apply(self, state, slots, ids, g):
+        """A put under a mesh, in place: every batch rank's (slots, grads)
+        gathered over the batch axes, deduplicated on the slots this rank
+        holds (the slot map is every rank's) and applied there, the sums
+        and the apply in one ``fused_backward`` launch. With the popped
+        put's logical ``ids``, an entry lands only where its slot still
+        holds its row (:meth:`_still`, on the gathered entries)."""
+        axes = PS._axes_for(self.spec.mode)[1]
+        n, i = self._cache_split()
+        rl = self.dev_slots // n
+        slots = all_gather(self.table_rows(slots).contiguous(), axes)
+        g = all_gather(g.float().contiguous(), axes)
+        keep = (slots >= 0) & (slots // rl == i)
+        local = torch.where(keep, slots - i * rl, 0)
+        if ids is not None:
+            ids = all_gather(ids.to(torch.int32).contiguous(), axes)
+            keep &= (ids >= 0) & (state["slot_ids"][local.long()] == ids)
+        plan = C.dedup_plan(torch.where(keep, local, -1),
+                            min(int(slots.numel()), rl))
+        PS.fused_apply(state, self.spec, plan.order, plan.offsets, g,
+                       plan.dev, None)
+        return state
 
     def _put_flat(self, state, dev_ids, grads):
         spec = self.spec
@@ -1273,7 +1483,7 @@ class HostLRUBackend(EmbeddingBackend):
             # store_dtype mismatch re-encodes the blob's fp32 rows)
             if self._disk:
                 self.store = TieredHostStore.deserialize(
-                    sblob, path=spec.disk_path,
+                    sblob, path=self._disk_path(),
                     store_dtype=spec.store_dtype)
             else:
                 self.store = LRUEmbeddingStore.deserialize(
@@ -2419,6 +2629,11 @@ def prepare_all(backends, states, ids, device, lock=None, pins=None):
     check_mesh(backends)
     new_states = dict(states)
     plans, metrics, n_unique = {}, {}, {}
+    # under a mesh a host_lru table prepares the global batch's ids on
+    # every rank (one all_gather for all of them)
+    glob = _gather_batch_ids({n: _host_ids(ids[n]) for n in ids
+                              if _mesh_lru(backends[n])})
+    prep = {}                  # the unique ids (and counts) each prepares
     for n in ids:
         b = backends[n]
         arr = _host_ids(ids[n])
@@ -2427,19 +2642,28 @@ def prepare_all(backends, states, ids, device, lock=None, pins=None):
             continue
         cap = D.dedup_cap(max(arr.size, 1), b.dedup_rows())
         u, inv, counts, info = D.make_plan(arr, b.spec.rows, cap)
-        if _mesh_sharded(b):
+        if _mesh_sharded(b) or n in glob:
             u, counts = _pad_to(u, cap), _pad_to(counts, cap, 0)
         plans[n] = (u, inv, counts, info)
+        prep[n] = (u, counts)
+        if n in glob:           # the global batch's plan, one process's
+            g = glob[n]
+            gu, _, gc, _ = D.make_plan(g, b.spec.rows, D.dedup_cap(
+                max(g.size, 1), b.dedup_rows()))
+            prep[n] = (gu, gc)
     devs = {}
     with lock if lock is not None else contextlib.nullcontext():
         submitted = {
             n: backends[n].prepare_submit(states[n], plan[0])
             if len(plan) == 1 else backends[n].prepare_submit(
-                states[n], plan[0], assume_unique=True, counts=plan[2])
+                states[n], prep[n][0], assume_unique=True,
+                counts=prep[n][1])
             for n, plan in plans.items()}
         for n, collect in submitted.items():
             b = backends[n]
             new_states[n], dev = collect()
+            if n in glob:       # this rank's own ids' slots
+                dev = unwrap(b).slots_of(plans[n][0])
             devs[n] = np.asarray(dev, np.int32)
             _cache_tags(metrics, n, b)
             if pins is not None:
@@ -2449,61 +2673,114 @@ def prepare_all(backends, states, ids, device, lock=None, pins=None):
     for n, plan in plans.items():
         dev_u = devs[n]
         if len(plan) == 1:
-            host[n] = [dev_u]
+            host[n] = ("flat", [dev_u])
             continue
         b, spec = backends[n], backends[n].spec
-        _, inv, _, info = plan
+        u, inv, _, info = plan
         order, offsets = D.occurrence_csr(inv, dev_u.shape[0])
         inner = unwrap(b)
         if inner.remote:
-            host[n] = [dev_u, inv, order, offsets]
+            host[n] = ("remote", [dev_u, inv, order, offsets])
         elif isinstance(inner, ShardedBackend):
-            host[n] = [dev_u, inv, order, offsets, *inner.plan_parts(dev_u)]
+            host[n] = ("router", [dev_u, inv, order, offsets,
+                                  *inner.plan_parts(dev_u)])
         else:
             rows = inner.table_rows(torch.from_numpy(dev_u)).numpy()
-            host[n] = [dev_u, inv, order, offsets, rows]
+            host[n] = ("rows", [dev_u, inv, order, offsets, rows])
+            if n in glob:
+                host[n] = ("ids", host[n][1] + [u])
         n_unique[n] = info["n_unique"]
         itemsize = torch.empty((), dtype=spec.dtype).element_size()
         metrics[f"dedup/{n}/dup_factor"] = info["dup_factor"]
         metrics[f"dedup/{n}/unique_rows"] = float(info["n_unique"])
         metrics[f"dedup/{n}/bytes_saved"] = float(
             (info["n_occ"] - info["n_unique"]) * spec.dim * itemsize)
-    flat = iter(upload_int32([a for arrs in host.values() for a in arrs],
+    flat = iter(upload_int32([a for _, arrs in host.values() for a in arrs],
                              device))
     dev_ids = {}
-    for n, arrs in host.items():
+    for n, (kind, arrs) in host.items():
         got = [next(flat) for _ in arrs]
-        if len(got) == 1:
+        if kind == "flat":
             dev_ids[n] = got[0]
             continue
-        parts, rows = None, None
-        if len(got) == 5:
-            rows = got[4]
-        elif len(got) > 5:
+        parts = None
+        if kind == "router":
             k = (len(got) - 5) // 2
             parts = D.ShardParts(perm=got[4], rows=tuple(got[5:5 + k]),
                                  local=tuple(got[5 + k:]))
         dev_ids[n] = D.DedupPlan(
-            dev=got[0], inv=got[1], rows=rows, order=got[2],
-            offsets=got[3], n_unique=n_unique[n], host=arrs[0],
-            shards=parts)
+            dev=got[0], inv=got[1],
+            rows=got[4] if kind in ("rows", "ids") else None,
+            order=got[2], offsets=got[3], n_unique=n_unique[n],
+            host=arrs[0], shards=parts,
+            ids=got[5] if kind == "ids" else None)
     return new_states, dev_ids, metrics
 
 
+def _gather_batch_ids(arrays: dict) -> dict:
+    """{table: this rank's host ids (batch rows first)} -> {table: the
+    global batch's ids}, the rows in the batch ranks' order, every table's
+    ids in ONE ``all_gather`` over the batch axes. The ids travel on the
+    mesh's device: NCCL carries CUDA tensors only."""
+    axes = batch_axes()
+    nb = axis_size(axes)
+    if not arrays or nb == 1:
+        return dict(arrays)
+    names = list(arrays)
+    x = torch.from_numpy(np.concatenate(
+        [arrays[n].reshape(-1) for n in names])).to(get_mesh().device)
+    got = all_gather(x, axes).cpu().numpy().reshape(nb, -1)
+    out, off = {}, 0
+    for n in names:
+        a = arrays[n]
+        out[n] = got[:, off:off + a.size].reshape((nb * a.shape[0],)
+                                                  + a.shape[1:])
+        off += a.size
+    return out
+
+
 def _mesh_sharded(backend) -> bool:
-    """A dense table that the mesh in scope shards."""
-    return isinstance(backend, DenseBackend) and not backend._fusable()
+    """A dense table (behind the wire or not) that the mesh in scope
+    shards."""
+    inner = unwrap(backend)
+    return isinstance(inner, DenseBackend) and not inner._fusable()
+
+
+def _mesh_lru(backend) -> bool:
+    """A host_lru table (behind the wire or not) under a mesh of more than
+    one rank: its prepare runs on the global batch's ids."""
+    return isinstance(unwrap(backend), HostLRUBackend) and _on_mesh()
 
 
 def check_mesh(backends):
-    """Under a mesh that shards a table, only the dense backend is ported
-    (host_lru, the router, the wire and remote tables under a mesh come
-    with a later slice): raise for any other."""
+    """Under a mesh of more than one rank, dense and host_lru tables (with
+    ``+disk``, behind the wire or not) are ported. Raise for the router and
+    remote tables (:data:`MESH_ROUTER_ITEM`), for occurrence-width host_lru
+    tables (:data:`MESH_LRU_ITEM`), and for a wire whose block does not
+    divide the dim (its codec's blocks would run across the rows that
+    the ranks roundtrip apart)."""
+    if not _on_mesh():
+        return
     for n, b in backends.items():
-        if PS.n_shards(b.spec) > 1 and type(b) is not DenseBackend:
+        inner = unwrap(b)
+        if inner.remote or not isinstance(inner, (DenseBackend,
+                                                  HostLRUBackend)):
             raise NotImplementedError(
-                f"table {n!r}: a {type(b).__name__} under a mesh that "
-                "shards it is not ported; only dense tables are")
+                f"table {n!r}: a {type(inner).__name__} under a mesh is "
+                f"not ported yet: {MESH_ROUTER_ITEM}")
+        if isinstance(inner, HostLRUBackend) and not b.spec.batch_dedup:
+            raise NotImplementedError(
+                f"table {n!r}: an occurrence-width (batch_dedup=False) "
+                f"host_lru table under a mesh is not ported yet: "
+                f"{MESH_LRU_ITEM}")
+        if isinstance(b, CompressedWireBackend) and \
+                b.spec.dim % b._block:
+            raise NotImplementedError(
+                f"table {n!r}: the compressed wire under a mesh needs "
+                f"wire_block ({b._block}) to divide dim ({b.spec.dim}): "
+                "each rank roundtrips its own rows, which equals the "
+                "reference's codec over the global rows only when every "
+                "row is whole blocks")
 
 
 def _cache_tags(metrics, name, backend):

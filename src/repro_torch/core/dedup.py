@@ -63,7 +63,9 @@ class DedupPlan:
     ``shards``: for a table of the sharded router, its
     :class:`ShardParts` (then ``rows`` is None: the router has no one
     table).
-    The last six are built by ``backend.prepare_all``; a plan made by
+    ``ids``: for a host_lru table under a mesh, the (U,) int32 logical
+    ids of ``dev``'s slots (the mesh put dedups and queues by them).
+    The last seven are built by ``backend.prepare_all``; a plan made by
     hand may leave them ``None``.
     """
     dev: torch.Tensor
@@ -74,6 +76,7 @@ class DedupPlan:
     n_unique: int | None = None
     host: np.ndarray | None = None
     shards: "ShardParts | None" = None
+    ids: torch.Tensor | None = None
 
 
 @dataclasses.dataclass

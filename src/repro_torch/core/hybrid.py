@@ -78,15 +78,26 @@ Differences from the JAX package, all of eager PyTorch:
   batch axes and divided by their size, and the activation gradients are
   those of the global batch's mean loss (1 / size of the local mean's),
   so the tables move as in one process; ``loss``, ``emb_grad_norm`` and
-  ``eval``'s metrics are over the global batch. Only dense tables are
-  ported under a mesh. An adapter with ``dense_specs`` (the LM's) keeps
-  the rank's block of every dense leaf and Adam moment instead
-  (``dense_param_specs``: tensor parallelism over ``model``, ZeRO-3 over
-  ``data``): a leaf sharded over ``data`` takes its gradient's sum over
-  the data ranks from the reduce-scatter of its gather (the other batch
-  axes summed here), one replicated over the batch axes is summed over
-  them, both divided by their size; the gradient clip's global norm sums
-  each leaf's squares over the axes it is sharded on.
+  ``eval``'s metrics are over the global batch. Dense and host_lru tables
+  (with ``+disk``, behind the wire or not) are ported under a mesh
+  (``core/backend.py``); the router and remote tables raise. An adapter
+  with ``dense_specs`` (the LM's) keeps the rank's block of every dense
+  leaf and Adam moment instead (``dense_param_specs``: tensor
+  parallelism over ``model``, ZeRO over ``data``): a leaf sharded over
+  ``data`` takes its gradient's sum over the data ranks from the
+  reduce-scatter of its gather (the other batch axes summed here), one
+  replicated over the batch axes is summed over them, both divided by
+  their size; the gradient clip's global norm sums each leaf's squares
+  over the axes it is sharded on. At ZeRO stage 2
+  (``REPRO_ZERO_STAGE=2``) the tensor-parallel leaves and the expert
+  stacks are whole over ``data`` (no per-layer gather) while their Adam
+  moments keep the stage-3 blocks: each such gradient is reduce-scattered
+  over ``data`` into its moment block, Adam updates that block of the
+  parameter, and the block is all-gathered back into the parameter, one
+  reduce-scatter and one all-gather a leaf a step.
+* Under a mesh ``save`` joins the blocks (``global_state``) and rank 0
+  writes the JAX package's format; ``restore`` reads it on every rank and
+  keeps the rank's blocks (``local_state``).
 """
 from __future__ import annotations
 
@@ -102,8 +113,8 @@ from repro_torch.core import backend as BK
 from repro_torch.core import embedding_ps as PS
 from repro_torch.core.collection import EmbeddingCollection
 from repro_torch.device import resolve_device
-from repro_torch.utils import (axis_size, batch_axes, get_mesh, psum,
-                               tree_leaves, tree_map)
+from repro_torch.utils import (axis_size, batch_axes, flat_index, get_mesh,
+                               psum, tree_leaves, tree_map)
 
 
 @dataclass(frozen=True)
@@ -145,8 +156,10 @@ class ModelAdapter:
     loss: Callable[[Any, dict, dict], tuple]
     predict: Optional[Callable] = None       # (dense, pooled, batch) -> preds
     pooled: bool = True
-    # mesh -> the dense leaves' spec tree (the LM's tensor parallelism and
-    # ZeRO-3); None: the dense half is replicated under a mesh
+    # (mesh, stage=None) -> the dense leaves' spec tree (the LM's tensor
+    # parallelism and ZeRO sharding at ``stage``, the partition rules'
+    # ZERO_STAGE by default); None: the dense half is replicated under a
+    # mesh
     dense_specs: Optional[Callable] = None
 
 
@@ -313,6 +326,171 @@ def _mesh_global_norm(dgrads, specs) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def _spec_leaves(specs) -> list:
+    """The specs of a spec tree in its walk order (a spec is a tuple, so
+    ``tree_map`` would walk into it)."""
+    from repro_torch.sharding.partition import _zip_map
+    out: list = []
+    _zip_map(lambda sp, _: out.append(sp), specs, specs)
+    return out
+
+
+def _zero_axes(spec, mspec) -> list:
+    """Per dim of a dense leaf, the batch axes its moment block is cut over
+    and its parameter block is not: ZeRO stage 2's ``data`` on the
+    tensor-parallel leaves and the expert stacks, none at stage 3."""
+    from repro_torch.models.tp import _data_axes
+    n = max(len(spec), len(mspec))
+    out = []
+    for e, m in zip(tuple(spec) + (None,) * (n - len(spec)),
+                    tuple(mspec) + (None,) * (n - len(mspec))):
+        have = _data_axes(e)
+        extra = tuple(a for a in _data_axes(m) if a not in have)
+        if extra and have:
+            raise ValueError(f"spec {spec} against moment spec {mspec}: a "
+                             "dim cut over data at both stages")
+        out.append(extra)
+    return out
+
+
+def _zero_map(fn, tree, specs, mspecs):
+    """``tree`` with ``fn(x, dim, axes)`` applied to each leaf along each
+    dim whose moment block is cut over ``axes`` (of ``data``) while its
+    parameter block is not: ZeRO stage 2's tensor-parallel leaves and
+    expert stacks; the identity at stage 3."""
+    from repro_torch.sharding.partition import _zip_map
+    it = iter(_spec_leaves(mspecs))
+
+    def one(sp, x):
+        for dim, axes in enumerate(_zero_axes(sp, next(it))):
+            if axes and axis_size(axes) > 1:
+                x = fn(x, dim, axes)
+        return x
+    return _zip_map(one, specs, tree)
+
+
+def _moment_views(dense, specs, mspecs):
+    """The blocks of the dense leaves that their Adam moments cover (views
+    of the leaves): at ZeRO stage 2 the rank's block over ``data`` of a
+    parameter it holds whole over ``data``, else the leaf itself."""
+    def block(x, dim, axes):
+        size = x.shape[dim] // axis_size(axes)
+        return x.narrow(dim, flat_index(axes) * size, size)
+    return _zero_map(block, dense, specs, mspecs)
+
+
+def _zero_scatter(dgrads, specs, mspecs):
+    """ZeRO stage 2: each gradient of a leaf held whole over ``data``
+    reduce-scattered over ``data`` into the rank's moment block (one
+    collective a leaf)."""
+    from repro_torch.utils import _scatter_dim
+    return _zero_map(lambda g, dim, axes: _scatter_dim(g, axes, dim),
+                     dgrads, specs, mspecs)
+
+
+def _zero_gather(dense, blocks, specs, mspecs):
+    """ZeRO stage 2: each parameter block Adam updated all-gathered over
+    ``data`` back into the leaf every data rank holds whole (one
+    collective a leaf)."""
+    from repro_torch.utils import _gather_dim
+    full = _zero_map(lambda v, dim, axes: _gather_dim(v.contiguous(), axes,
+                                                      dim),
+                     blocks, specs, mspecs)
+    for x, v, f in zip(_insertion_leaves(dense), _insertion_leaves(blocks),
+                       _insertion_leaves(full)):
+        if f is not v:
+            x.copy_(f)
+
+
+def _join_blocks(mesh, items: list) -> list:
+    """[(spec, this rank's block, global shape or None)] -> the global
+    tensors (``sharding.from_blocks`` of every rank's block), with one
+    ``all_gather`` over every axis of the mesh per dtype (a rank's index
+    over every axis is its rank)."""
+    from repro_torch.sharding.partition import from_blocks
+    from repro_torch.utils import all_gather
+    out: list = [None] * len(items)
+    by_dtype: dict = {}
+    for i, (_, x, _) in enumerate(items):
+        by_dtype.setdefault(x.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = torch.cat([items[i][1].reshape(-1) for i in idx])
+        got = all_gather(flat, mesh.axis_names).view(mesh.n_ranks, -1)
+        off = 0
+        for i in idx:
+            sp, x, shape = items[i]
+            k = x.numel()
+            blocks = [got[r, off:off + k].view(x.shape)
+                      for r in range(mesh.n_ranks)]
+            out[i] = from_blocks(mesh, sp, blocks, shape)
+            off += k
+    return out
+
+
+def _canonical_queue(q: dict, key: np.ndarray) -> dict:
+    """A joined staleness queue whose slots hold every batch rank's put
+    side by side -> the queue of one process holding the put the mesh
+    applies: in each slot where a ``key`` repeats (the row the mesh put
+    groups the entries by: a dense table's physical row, a host_lru
+    table's cache slot; -1 for padding), the entries of one key become
+    one, the first's id (and slot), their grads added in their order from
+    0.0, the order in which the mesh put adds them when it gathers the
+    slot over the batch axes, so a resume under the mesh applies the same
+    sums. Keys ascending, padded with -1 and zeros. Slots without a
+    repeat stay as they are."""
+    ids = q["ids"].cpu().numpy()
+    g = q["grads"].detach().cpu().numpy()
+    slots = q["slots"].cpu().numpy() if "slots" in q else None
+    changed = False
+    for t in range(ids.shape[0]):
+        ok = key[t] >= 0
+        u, first, inv = np.unique(key[t][ok], return_index=True,
+                                  return_inverse=True)
+        if u.size == int(ok.sum()):
+            continue
+        sums = np.zeros((u.size,) + g.shape[2:], g.dtype)
+        np.add.at(sums, inv, g[t][ok])
+        for arr in (ids, slots):
+            if arr is not None:
+                kept = arr[t][ok][first]
+                arr[t] = -1
+                arr[t][:u.size] = kept
+        g[t] = 0
+        g[t][:u.size] = sums
+        changed = True
+    if not changed:
+        return q
+    dev = q["ids"].device
+    out = dict(q, ids=torch.from_numpy(ids).to(dev),
+               grads=torch.from_numpy(g).to(dev))
+    if slots is not None:
+        out["slots"] = torch.from_numpy(slots).to(dev)
+    return out
+
+
+def _check_rows(name: str, spec, rows: int, shuffled_over=None):
+    """A dense table's state must be read over the rows it was written
+    over. The uniform shuffle takes ``padded_rows`` of the ranks that
+    shard the table as its modulus: a table drawn or saved under k shards
+    has ``round_up(rows, k)`` rows and its ids sit at their positions
+    modulo that. Raise where the trainer would shuffle over other rows:
+    under a mesh, a table of other rows than its ``padded_rows``; anywhere,
+    a checkpoint that records another modulus (``shuffled_over``: a save
+    under a mesh records it). One process reads a larger table with no
+    record over its logical rows, as the JAX package does (the padding of
+    ``init(emb_shards=k)``)."""
+    n = PS.n_shards(spec)
+    want = spec.padded_rows(n)
+    got = rows if shuffled_over is None else int(shuffled_over)
+    if got != want and (shuffled_over is not None or n > 1):
+        raise ValueError(
+            f"table {name!r} was shuffled over {got} rows but this trainer "
+            f"shuffles its {spec.rows} ids over {want} ({n} shard(s) of the "
+            f"mesh in scope): the ids would read other rows. A table "
+            f"under k shards has round_up({spec.rows}, k) rows; restore it "
+            f"under a shard count that pads to {got}")
+
+
 def _insertion_leaves(tree) -> list:
     """Leaves in ``tree_map``'s walk order (dict insertion order)."""
     out: list = []
@@ -428,6 +606,7 @@ class PersiaTrainer:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
         dense = self._local_dense(self.adapter.init_dense(gen))
+        moments = self._moment_views(dense)
         # under a mesh every rank draws the global tables (rows padded to
         # the ranks that shard them) and keeps its block
         emb = {n: self.backends[n].init(
@@ -442,9 +621,9 @@ class PersiaTrainer:
             emb_queue.update({n: self.backends[n].queue_init(
                 tuple(np.shape(a)), self.device) for n, a in ids.items()})
             if self.mode.dense_staleness > 0:
-                dense_queue = _dense_queue_init(dense,
+                dense_queue = _dense_queue_init(moments,
                                                 self.mode.dense_staleness)
-        return TrainState(dense=dense, opt=self.opt_init(dense), emb=emb,
+        return TrainState(dense=dense, opt=self.opt_init(moments), emb=emb,
                           emb_queue=emb_queue, dense_queue=dense_queue,
                           step=0)
 
@@ -452,28 +631,48 @@ class PersiaTrainer:
 
     def _local_emb(self, emb: dict) -> dict:
         """Copies of the rank's blocks of global table states under the
-        mesh in scope (the states themselves without one)."""
+        mesh in scope (the states themselves without one). A dense table
+        must have the rows the mesh shuffles its ids over
+        (:func:`_check_rows`)."""
         from repro_torch.sharding.partition import (emb_state_specs,
                                                     local_block)
         mesh = get_mesh()
         if mesh is None:
             return emb
+        for n in emb:
+            if isinstance(BK.unwrap(self.backends[n]), BK.DenseBackend):
+                _check_rows(n, self.collection[n],
+                            int(emb[n]["table"].shape[0]))
         return {n: {k: local_block(mesh, sp, emb[n][k]).clone() for k, sp in
                     emb_state_specs(emb[n], self.collection[n]).items()}
                 for n in emb}
 
     def dense_specs(self):
         """The dense leaves' specs under the mesh in scope (the adapter's
-        ``dense_specs``), or None: the dense half replicated."""
+        ``dense_specs`` at the partition rules' ``ZERO_STAGE``), or None:
+        the dense half replicated."""
         mesh = get_mesh()
         if mesh is None or self.adapter.dense_specs is None:
             return None
-        from repro_torch.sharding.partition import ZERO_STAGE
-        if ZERO_STAGE != 3:
-            raise NotImplementedError(
-                f"REPRO_ZERO_STAGE={ZERO_STAGE}: the port trains the dense "
-                "stack under a mesh at ZeRO stage 3 only")
         return self.adapter.dense_specs(mesh)
+
+    def moment_specs(self):
+        """The Adam moments' specs under the mesh in scope: ZeRO-sharded
+        over ``data`` at every stage (the partition rules' ``_opt_specs``,
+        the stage-3 specs), or None."""
+        mesh = get_mesh()
+        if mesh is None or self.adapter.dense_specs is None:
+            return None
+        return self.adapter.dense_specs(mesh, 3)
+
+    def _moment_views(self, dense):
+        """The blocks of the rank's dense leaves that its Adam moments
+        cover (:func:`_moment_views`): the leaves themselves at ZeRO stage
+        3 or with the dense half replicated."""
+        specs = self.dense_specs()
+        if specs is None:
+            return dense
+        return _moment_views(dense, specs, self.moment_specs())
 
     def _local_dense(self, tree, specs=None):
         """Copies of the rank's blocks of a global dense tree (the tree
@@ -486,15 +685,37 @@ class PersiaTrainer:
         return _zip_map(lambda sp, x: local_block(mesh, sp, x).clone(),
                         specs, tree)
 
+    def _dense_queue_specs(self):
+        from repro_torch.sharding.partition import P, _zip_map
+        m = self.moment_specs()
+        return None if m is None else _zip_map(lambda sp, _: P(None, *sp),
+                                               m, m)
+
+    def _queue_key(self, name: str, q: dict) -> np.ndarray:
+        """The rows a joined queue's entries land on when the mesh applies
+        them (see :func:`_canonical_queue`): a host_lru table's cache
+        slots, a dense table's physical rows; -1 for padding."""
+        if "slots" in q:
+            return q["slots"].cpu().numpy()
+        spec = self.collection[name]
+        ids = q["ids"].cpu().long()
+        ok = (ids >= 0) & (ids < spec.rows)
+        pos = PS.shuffle_pos(torch.where(ok, ids, 0),
+                             spec.padded_rows(PS.n_shards(spec)))
+        return torch.where(ok, pos, -1).numpy()
+
     def local_state(self, state: TrainState) -> TrainState:
         """The rank's blocks of a global state (a state of one process,
         e.g. from ``convert.state_from_numpy``) under the mesh in scope:
-        each table's rows cut to its block (``emb_state_specs``), each
+        each table's rows cut to its block (``emb_state_specs``; a host_lru
+        table's device cache, its host tiers being every rank's), each
         staleness queue's width cut over the batch axes (``queue_specs``:
-        the ranks' halves of a popped put, gathered over the batch axes,
-        are that put), the dense leaves and the Adam moments cut to their
-        blocks where the adapter has ``dense_specs`` (else replicated). The
-        blocks are copies. Without a mesh, the state itself."""
+        the ranks' shares of a popped put, gathered over the batch axes,
+        are that put), the dense leaves, the Adam moments and the async
+        dense queue cut to their blocks where the adapter has
+        ``dense_specs`` (else replicated; the moments at the stage-3 specs
+        at every ZeRO stage). The blocks are copies. Without a mesh, the
+        state itself."""
         from repro_torch.sharding.partition import local_block, queue_specs
         mesh = get_mesh()
         if mesh is None:
@@ -505,13 +726,89 @@ class PersiaTrainer:
             queues[n] = None if q is None else {
                 k: local_block(mesh, sp[k], v).clone()
                 if isinstance(v, torch.Tensor) else v for k, v in q.items()}
-        opt = state.opt
+        opt, dq = state.opt, state.dense_queue
         if self.dense_specs() is not None:
-            opt = {k: self._local_dense(v) if k in ("m", "v") else v
-                   for k, v in opt.items()}
+            opt = {k: self._local_dense(v, self.moment_specs())
+                   if k in ("m", "v") else v for k, v in opt.items()}
+            if dq is not None:
+                dq = dict(dq, grads=self._local_dense(
+                    dq["grads"], self._dense_queue_specs()))
         return state.replace(emb=self._local_emb(state.emb),
                              emb_queue=queues,
-                             dense=self._local_dense(state.dense), opt=opt)
+                             dense=self._local_dense(state.dense), opt=opt,
+                             dense_queue=dq)
+
+    def global_state(self, state: TrainState) -> TrainState:
+        """The inverse of :meth:`local_state` under the mesh in scope: every
+        block joined into the state of one process, on every rank (a
+        collective: one ``all_gather`` over every axis per dtype;
+        ``sharding.from_blocks`` by the same specs). The tables and their
+        accumulators (a host_lru table's device cache), the staleness
+        queues (width over the batch axes), the dense leaves, the Adam
+        moments and the async dense queue where the adapter has
+        ``dense_specs``. A joined queue slot holds the ranks' puts side by
+        side, where one row can come from several ranks: such a slot
+        becomes the put one process holds, each row once, its ranks' sums
+        added in the order the mesh put adds them when it pops
+        (:func:`_canonical_queue`). Without a mesh, the state itself.
+        Under one, every tensor is a new one: later steps, which update the
+        rank's state in place, leave it as it is."""
+        from repro_torch.sharding.partition import (_zip_map,
+                                                    emb_state_specs,
+                                                    queue_specs)
+        mesh = get_mesh()
+        if mesh is None or mesh.n_ranks == 1:
+            return state
+        items: list = []            # (spec, local block, global shape)
+
+        def add(sp, x, shape=None):
+            items.append((sp, x, shape))
+            return len(items) - 1
+        emb_idx = {}
+        for n, st in state.emb.items():
+            inner = BK.unwrap(self.backends[n])
+            spec = self.collection[n]
+            rows = inner.dev_slots if isinstance(inner, BK.HostLRUBackend) \
+                else spec.padded_rows(PS.n_shards(spec))
+            emb_idx[n] = {k: add(sp, st[k], (rows,) + tuple(st[k].shape[1:]))
+                          for k, sp in emb_state_specs(st, spec).items()}
+        q_idx = {}
+        for n, q in state.emb_queue.items():
+            if q is not None:
+                q_idx[n] = {k: add(sp, q[k]) for k, sp in
+                            queue_specs(q).items()
+                            if isinstance(q[k], torch.Tensor)}
+        specs = self.dense_specs()
+        dense_idx = opt_idx = dq_idx = None
+        if specs is not None:
+            msp = self.moment_specs()
+            dense_idx = _zip_map(add, specs, state.dense)
+            opt_idx = {k: _zip_map(add, msp, v) for k, v in state.opt.items()
+                       if k in ("m", "v")}
+            if state.dense_queue is not None:
+                dq_idx = _zip_map(add, self._dense_queue_specs(),
+                                  state.dense_queue["grads"])
+        full = _join_blocks(mesh, items)
+        get = lambda i: full[i]  # noqa: E731
+        emb = {n: {k: full[i] for k, i in ix.items()}
+               for n, ix in emb_idx.items()}
+        queues = dict(state.emb_queue)
+        for n, ix in q_idx.items():
+            q = dict(state.emb_queue[n], **{k: full[i] for k, i in
+                                            ix.items()})
+            queues[n] = _canonical_queue(q, self._queue_key(n, q))
+        cp = lambda x: x.clone() if isinstance(  # noqa: E731
+            x, torch.Tensor) else x
+        dense, opt, dq = (tree_map(cp, state.dense), tree_map(cp, state.opt),
+                          tree_map(cp, state.dense_queue))
+        if specs is not None:
+            dense = tree_map(get, dense_idx)
+            opt = dict(opt, **{k: tree_map(get, v)
+                               for k, v in opt_idx.items()})
+            if dq is not None:
+                dq = dict(dq, grads=tree_map(get, dq_idx))
+        return state.replace(emb=emb, emb_queue=queues, dense=dense,
+                             opt=opt, dense_queue=dq)
 
     # -- the host-side prepare phase (batch dedup) -----------------------------
 
@@ -549,9 +846,11 @@ class PersiaTrainer:
             metrics, dgrads, agrads = _loss_grads(adapter.loss, dense, acts,
                                                   batch)        # Alg.2
             nb = axis_size(batch_axes())
-            specs = self.dense_specs()
+            specs, mspecs = self.dense_specs(), self.moment_specs()
             if specs is not None:
-                dgrads = _mesh_dense_grads(dgrads, specs)
+                # ZeRO stage 2: reduce-scattered into the moment blocks
+                dgrads = _mesh_dense_grads(
+                    _zero_scatter(dgrads, specs, mspecs), mspecs)
             if nb > 1:
                 # the global batch's mean loss: the dense gradients'
                 # mean over the batch ranks, the activations' 1 / nb
@@ -575,9 +874,13 @@ class PersiaTrainer:
                 dense_queue, dgrads = _dense_queue_push_pop(dense_queue,
                                                             dgrads)
             if specs is not None:
-                dense, opt = self.opt_update(
-                    dense, dgrads, opt, lr=lr,
-                    norm=_mesh_global_norm(dgrads, specs))
+                # Adam on the moment blocks; at ZeRO stage 2 each updated
+                # block is then all-gathered over data into its parameter
+                blocks = _moment_views(dense, specs, mspecs)
+                blocks, opt = self.opt_update(
+                    blocks, dgrads, opt, lr=lr,
+                    norm=_mesh_global_norm(dgrads, mspecs))
+                _zero_gather(dense, blocks, specs, mspecs)
             else:
                 dense, opt = self.opt_update(dense, dgrads, opt, lr=lr)
             metrics["emb_grad_norm"] = _emb_grad_norm(agrads)
@@ -689,18 +992,25 @@ class PersiaTrainer:
     # embedding blob. The format is the JAX package's (same key paths and
     # dtypes), so checkpoints move between the two packages.
 
-    def _no_mesh(self, what: str):
-        if any(PS.n_shards(s) > 1 for _, s in self.collection.items()):
-            raise NotImplementedError(
-                f"{what} under a mesh that shards the tables is not ported "
-                "yet (each rank holds only its block)")
-
     def save(self, directory: str, state: TrainState,
              step: int | None = None) -> str:
+        """Write the full state in the JAX package's format; returns the
+        checkpoint's path. Under a mesh every rank takes part: the blocks
+        are joined into the state of one process (:meth:`global_state`),
+        rank 0 writes it, and every rank returns once it is written (a
+        barrier), so no rank reads a checkpoint before it exists."""
+        import os
+
         from repro_torch.checkpoint.ckpt import save_checkpoint
         from repro_torch.convert import state_to_numpy
-        self._no_mesh("save")
+        from repro_torch.utils import barrier
         step = int(state.step) if step is None else int(step)
+        mesh = get_mesh()
+        if mesh is not None and mesh.n_ranks > 1:
+            state = self.global_state(state)
+            if mesh.rank != 0:
+                barrier()
+                return os.path.join(directory, f"step_{step:08d}")
         tree = state_to_numpy(state)
         dense_tree = {"dense": tree["dense"], "opt": tree["opt"]}
         if tree["dense_queue"] is not None:
@@ -709,12 +1019,27 @@ class PersiaTrainer:
                             .state_for_checkpoint(state.emb[n])
                             for n in state.emb},
                     "emb_queue": tree["emb_queue"]}
-        return save_checkpoint(directory, step, dense_tree, emb_tree)
+        if mesh is not None and mesh.n_ranks > 1:
+            # the rows each dense table's ids were shuffled over (the JAX
+            # package reads the two keys above and ignores this one)
+            emb_tree["shuffled_over"] = {
+                n: np.int64(sp.padded_rows(PS.n_shards(sp)))
+                for n, sp in self.collection.items()
+                if isinstance(BK.unwrap(self.backends[n]), BK.DenseBackend)}
+        path = save_checkpoint(directory, step, dense_tree, emb_tree)
+        if mesh is not None and mesh.n_ranks > 1:
+            barrier()
+        return path
 
     def restore(self, directory: str, step: int | None = None) -> TrainState:
+        """The state a checkpoint holds (this package's or the JAX
+        package's). Under a mesh every rank reads it (a host_lru table's
+        host tiers into every rank's backend) and keeps its blocks
+        (:meth:`local_state`). A dense table saved under shards whose
+        padded rows differ from this trainer's raises
+        (:func:`_check_rows`)."""
         from repro_torch.checkpoint.ckpt import load_checkpoint
         from repro_torch.convert import state_from_numpy
-        self._no_mesh("restore")
         step_no, dense_tree, emb_tree = load_checkpoint(directory, step)
         if not emb_tree or "emb" not in emb_tree or "dense" not in dense_tree:
             raise ValueError(
@@ -727,9 +1052,13 @@ class PersiaTrainer:
                 f"trainer's collection {sorted(want)}")
         emb = {}
         for n in self.collection.names:
+            inner = BK.unwrap(self.backends[n])
             try:
-                emb[n] = BK.unwrap(self.backends[n]) \
-                    .restore_from_checkpoint(emb_tree["emb"][n])
+                emb[n] = inner.restore_from_checkpoint(emb_tree["emb"][n])
+                if isinstance(inner, BK.DenseBackend):
+                    _check_rows(n, self.collection[n],
+                                int(np.shape(emb[n]["table"])[0]),
+                                emb_tree.get("shuffled_over", {}).get(n))
             except ValueError as e:
                 raise ValueError(f"checkpoint table {n!r}: {e}") from e
         queues = emb_tree.get("emb_queue", {})
@@ -770,9 +1099,9 @@ class PersiaTrainer:
                 f"{dq_depth} but this trainer runs tau_d={tau_d} — "
                 "rebuild the trainer with the mode the checkpoint was "
                 "trained under")
-        return state_from_numpy(self, dense_tree["dense"], emb,
-                                opt=dense_tree["opt"], emb_queue=emb_queue,
-                                dense_queue=dq, step=step_no)
+        return self.local_state(state_from_numpy(
+            self, dense_tree["dense"], emb, opt=dense_tree["opt"],
+            emb_queue=emb_queue, dense_queue=dq, step=step_no))
 
 
 # =============================================================================

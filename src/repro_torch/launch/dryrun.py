@@ -11,8 +11,11 @@ tensors of the ``meta`` device, so a 2.5B-parameter model traces with no
 memory. The program is the one a rank runs on the card: the trainer's
 step (``PersiaTrainer.train_step`` over ``lm_adapter``, hybrid mode, Adam),
 or the vocab lookup and ``transformer.prefill`` / ``decode_step``, each
-under the mesh (tensor parallelism over ``model``, ZeRO-3 over ``data``,
-the sequence-sharded decode caches). ``launch.op_cost`` counts it: FLOPs,
+under the mesh (tensor parallelism over ``model``, ZeRO over ``data`` at
+``REPRO_ZERO_STAGE`` or ``--zero-stage``: 3 by default, 2 with the
+tensor-parallel weights whole over ``data`` and the per-step update's
+reduce-scatter and all-gather a leaf; the sequence-sharded decode
+caches). ``launch.op_cost`` counts it: FLOPs,
 HBM bytes, collective bytes by kind, the kernel wrappers as one kernel
 each. The token ids are real (the host builds the dedup plans from them).
 
@@ -31,7 +34,7 @@ H100's rates (``H100``), not a TPU's.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite_3_2b
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod] \\
-      [--out f.json]
+      [--zero-stage 2] [--out f.json]
 """
 from __future__ import annotations
 
@@ -235,7 +238,7 @@ def _meta_state(tr, cfg, batch, n_model: int):
     ids = tr.adapter.emb_ids(batch)
     queues = {n: tr.backends[n].queue_init(tuple(np.shape(a)), META)
               for n, a in ids.items()}
-    return TrainState(dense=dense, opt=tr.opt_init(dense),
+    return TrainState(dense=dense, opt=tr.opt_init(tr._moment_views(dense)),
                       emb=tr._local_emb(emb), emb_queue=queues,
                       dense_queue=None, step=0)
 
@@ -443,18 +446,31 @@ def roofline(stats: dict, cfg, shape, n_chips: int) -> dict:
 
 def run_case(arch: str, shape_name: str, *, multi_pod: bool = False,
              verbose: bool = True, cfg=None, shape=None,
-             mesh_shape=None, seed: int = 0) -> dict:
+             mesh_shape=None, seed: int = 0,
+             zero_stage: int | None = None) -> dict:
     """One row. ``cfg`` / ``shape`` / ``mesh_shape`` override the arch's
     config, the named input shape and the production mesh (``mesh_shape``
     a ``(shape, axes)`` pair): a small case checked against a real run;
-    ``seed`` draws the token ids."""
+    ``seed`` draws the token ids; ``zero_stage`` sets the partition rules'
+    ZeRO stage for this row (``REPRO_ZERO_STAGE``'s by default)."""
+    from repro_torch.sharding import partition as SP
+    if zero_stage is not None:
+        prev = SP.ZERO_STAGE
+        SP.ZERO_STAGE = int(zero_stage)
+        try:
+            return run_case(arch, shape_name, multi_pod=multi_pod,
+                            verbose=verbose, cfg=cfg, shape=shape,
+                            mesh_shape=mesh_shape, seed=seed)
+        finally:
+            SP.ZERO_STAGE = prev
     shape = INPUT_SHAPES[shape_name] if shape is None else shape
     run, transform, note = arch_shape_plan(arch, shape_name)
     mshape, axes = production_shape(multi_pod) if mesh_shape is None \
         else mesh_shape
     row = {"arch": arch, "shape": shape_name,
            "mesh": "x".join(map(str, mshape)), "note": note,
-           "dtype": "float32", "hardware": H100}
+           "dtype": "float32", "zero_stage": SP.ZERO_STAGE,
+           "hardware": H100}
     if not run:
         row["status"] = "skipped"
         return row
@@ -488,13 +504,16 @@ def main(argv=None) -> int:
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--zero-stage", type=int, default=None, choices=(2, 3),
+                    help="the dense stack's ZeRO stage (default: "
+                    "REPRO_ZERO_STAGE, else 3)")
     args = ap.parse_args(argv)
     torch.set_num_threads(1)
     archs = ARCH_IDS if (args.all or not args.arch) else [args.arch]
     shapes = list(INPUT_SHAPES) if (args.all or not args.shape) \
         else [args.shape]
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
-    cases = [run_case(a, s, multi_pod=mp)
+    cases = [run_case(a, s, multi_pod=mp, zero_stage=args.zero_stage)
              for mp in meshes for a in archs for s in shapes]
     if args.out:
         with open(args.out, "w") as f:

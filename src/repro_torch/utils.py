@@ -542,3 +542,13 @@ def gather_batch(x):
     the batch axes along dim 0), on every rank; ``x`` itself without a
     mesh."""
     return all_gather(x, batch_axes())
+
+
+def barrier() -> None:
+    """Every rank of the mesh in scope waits until all have arrived (the
+    identity without a mesh of more than one rank)."""
+    import torch.distributed as dist
+    mesh = get_mesh()
+    if mesh is None or mesh.n_ranks == 1:
+        return
+    dist.barrier(group=mesh.get_group(mesh.axis_names))

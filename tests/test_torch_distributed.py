@@ -17,7 +17,19 @@ the port's single-process trainer (the JAX test's bound) and the class of
 ``tests/test_torch_pipeline.py`` against JAX's trainer; the first pooled
 lookups bit for bit. The partition rules, ``_guard`` / ``_strip`` /
 ``to_placements`` and ``core/theory.py`` run without the world.
+
+The world also runs the out-of-core tier and the wire under the mesh
+(``TIERS``: host_lru with a row-sharded and a replicated cache, ``+disk``,
+``dense+compressed``, ``host_lru+compressed``; hybrid(2), caches small
+enough to evict) from a JAX checkpoint, against the JAX trainer with no
+mesh (losses rtol 1e-5; tables, caches and stores allclose, the wire's
+in the lossy class of ``tests/test_torch_train.py``; the LRU counters and
+slot maps equal on every rank), and its checkpoints: saved under the mesh
+and restored by JAX and by one port process bit for bit, a resume under
+the mesh bit for bit, and a table whose padded rows differ between shard
+counts refused.
 """
+import dataclasses
 import os
 import pickle
 import subprocess
@@ -35,6 +47,7 @@ from repro.configs import ARCH_IDS as JARCH_IDS
 from repro.configs import get_config as jget_config
 from repro.configs.base import ModelConfig as JModelConfig
 from repro.core import adapters as jadapters
+from repro.core import backend as jbackend
 from repro.core import embedding_ps as JPS
 from repro.core import hybrid as jhybrid
 from repro.core import theory as jtheory
@@ -48,6 +61,7 @@ from repro.sharding import partition as JSP
 from repro_torch import convert
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import adapters, theory
+from repro_torch.core import backend as BK
 from repro_torch.core import embedding_ps as PS
 from repro_torch.core.embedding_ps import EmbeddingSpec
 from repro_torch.core.hybrid import PersiaTrainer, TrainMode
@@ -58,6 +72,7 @@ from repro_torch.optim.optimizers import OptConfig
 from repro_torch.sharding import partition as SP
 from repro_torch.utils import MeshLayout
 from test_torch_moe import CFG as MLA_CFG, CFG_J as MLA_CFG_J
+from test_torch_train import _close_lossy
 
 ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
@@ -84,6 +99,18 @@ DS_KW = dict(name="pm", n_rows=192, n_fields=3, ids_per_field=2, n_dense=4)
 STEPS, BATCH, EMB_LR, DENSE_LR = 8, 32, 5e-2, 5e-3
 MODES = {"sync": (jhybrid.TrainMode.sync(), TrainMode.sync()),
          "hybrid": (jhybrid.TrainMode.hybrid(2), TrainMode.hybrid(2))}
+# the tiers under the mesh: (backend, cache_rows, spec fields). A batch
+# reads about 22 of a table's 64 rows: 32 slots (4 a rank) are row-sharded
+# over the 8 ranks, 34 do not divide them (replicated); both evict within
+# 4 steps. The wire's block is the dim (whole rows of blocks).
+TIERS = {"lru_sharded": ("host_lru", 32, {}),
+         "lru_replicated": ("host_lru", 34, {}),
+         "lru_disk": ("host_lru+disk", 32, {"host_rows": 32}),
+         "dense_wire": ("dense+compressed", 0, {"wire_block": 8}),
+         "lru_wire": ("host_lru+compressed", 32, {"wire_block": 8})}
+# JAX steps before its checkpoint, mesh steps after it, the mesh's save
+TIER_PRE, TIER_STEPS, TIER_SAVE = 2, 4, 2
+PAD_ROWS = (60, 60, 60)             # pad to 64 over 8 ranks
 
 
 def _np(tree):
@@ -117,6 +144,77 @@ def _port_trainer(mode):
 
 def _jnp(batch):
     return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def _tier_trainers(tag, field_rows=None):
+    """The JAX and the port trainer (hybrid(2)) over a tier's
+    collection (``field_rows`` overrides the tables' rows)."""
+    name, cache, kw = TIERS[tag]
+    rows = field_rows or CTRDataset(**DS_KW).field_rows()
+    jcfg = JModelConfig(**CTR_KW)
+    jcoll = jadapters.ctr_collection(jcfg, lr=EMB_LR, field_rows=rows) \
+        .with_backend(name, cache) \
+        .map_specs(lambda _, sp: dataclasses.replace(sp, **kw))
+    tcoll = adapters.ctr_collection(ModelConfig(**CTR_KW), lr=EMB_LR,
+                                    field_rows=rows) \
+        .with_backend(name, cache) \
+        .map_specs(lambda _, sp: dataclasses.replace(sp, **kw))
+    jt = jhybrid.PersiaTrainer(
+        jadapters.recsys_adapter(jcfg, field_rows=rows, collection=jcoll),
+        MODES["hybrid"][0], jopt.OptConfig(kind="adam", lr=DENSE_LR))
+    tt = PersiaTrainer(
+        adapters.recsys_adapter(ModelConfig(**CTR_KW), field_rows=rows,
+                                collection=tcoll),
+        MODES["hybrid"][1], OptConfig(kind="adam", lr=DENSE_LR),
+        device="cpu")
+    return jt, tt
+
+
+def _counters(backends) -> dict:
+    """Every host_lru table's slot map and counters."""
+    out = {}
+    for n, b in backends.items():
+        b = jbackend.unwrap(b) if not isinstance(b, BK.EmbeddingBackend) \
+            else BK.unwrap(b)
+        if hasattr(b, "faults"):
+            out[n] = {"counts": (b.faults, b.writebacks, b.hits, b.admits),
+                      "id_for_slot": np.asarray(b._id_for_slot).copy(),
+                      "store": b.store.serialize()}
+    return out
+
+
+def _tier_inputs(work) -> tuple[dict, object]:
+    """Each tier's JAX checkpoint after TIER_PRE steps (the world starts
+    from it), and a function that computes the oracles (JAX's next
+    TIER_STEPS steps), run while the world runs."""
+    batches, inp, runs = _batches(), {}, {}
+    for tag in TIERS:
+        jt, _ = _tier_trainers(tag)
+        js = jt.init(jax.random.PRNGKey(0), _jnp(batches[0]))
+        for b in batches[:TIER_PRE]:
+            js, _ = jt.step(js, _jnp(b))
+        jt.save(str(work / f"jax_{tag}"), js)
+        inp[tag] = {"jax_ckpt": str(work / f"jax_{tag}")}
+        runs[tag] = (jt, js)
+    one = PersiaTrainer(adapters.recsys_adapter(
+        ModelConfig(**CTR_KW), lr=EMB_LR, field_rows=PAD_ROWS),
+        TrainMode.hybrid(2), OptConfig(kind="adam", lr=DENSE_LR),
+        device="cpu")
+    one.save(str(work / "pad60"), one.init(0, batches[0]))
+    inp["pad"] = {"one_process_ckpt": str(work / "pad60"), "rows": PAD_ROWS}
+
+    def oracle():
+        out = {}
+        for tag, (jt, js) in runs.items():
+            losses = []
+            for b in batches[TIER_PRE:TIER_PRE + TIER_STEPS]:
+                js, m = jt.step(js, _jnp(b))
+                losses.append(float(m["loss"]))
+            out[tag] = {"losses": losses, "emb": _np(js.emb),
+                        "dense": _np(js.dense),
+                        "counters": _counters(jt.backends)}
+        return out
+    return inp, oracle
 
 
 def _inputs() -> tuple[dict, dict]:
@@ -200,7 +298,9 @@ def _inputs() -> tuple[dict, dict]:
                   "mla": MLA_CFG, "ctr": ModelConfig(**CTR_KW),
                   "field_rows": CTRDataset(**DS_KW).field_rows(),
                   "modes": {m: t for m, (_, t) in MODES.items()},
-                  "steps": STEPS, "lr": (EMB_LR, DENSE_LR)}
+                  "steps": STEPS, "lr": (EMB_LR, DENSE_LR),
+                  "tiers": TIERS,
+                  "tier_steps": (TIER_PRE, TIER_STEPS, TIER_SAVE)}
     for mode in MODES:
         jt = _jax_trainer(mode)
         js = jt.init(jax.random.PRNGKey(0), _jnp(batches[0]))
@@ -230,7 +330,7 @@ def _jax_decode(fn, p, cfg, cache, xs):
 # ---------------------------------------------------------------------------
 
 WORLD = textwrap.dedent("""
-    import datetime, pickle, sys
+    import dataclasses, datetime, pickle, sys
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -243,6 +343,7 @@ WORLD = textwrap.dedent("""
 
     from repro_torch import convert
     from repro_torch.core import adapters
+    from repro_torch.core import backend as BK
     from repro_torch.core import embedding_ps as PS
     from repro_torch.core.hybrid import PersiaTrainer
     from repro_torch.core.pipeline import PipelinedTrainer
@@ -368,6 +469,68 @@ WORLD = textwrap.dedent("""
                                 "emb_grad_norm": [float(m["emb_grad_norm"])
                                                   for m in ms]}
             out[f"train_{mode}"] = runs
+        # ---- the tiers and the wire under the mesh, from JAX checkpoints -
+        P0, T, SAVE = C["tier_steps"]
+
+        def tier_trainer(tag, rows=None):
+            name, cache, kw = C["tiers"][tag]
+            coll = adapters.ctr_collection(
+                C["ctr"], lr=C["lr"][0],
+                field_rows=rows or C["field_rows"]).with_backend(
+                name, cache).map_specs(
+                lambda _, sp: dataclasses.replace(sp, **kw))
+            return PersiaTrainer(
+                adapters.recsys_adapter(C["ctr"], field_rows=rows or
+                                        C["field_rows"], collection=coll),
+                C["modes"]["hybrid"], OptConfig(kind="adam", lr=C["lr"][1]),
+                device="cpu")
+
+        def glob(tr, s):
+            g = tr.global_state(s)
+            return {"emb": g.emb, "queue": g.emb_queue, "dense": g.dense}
+
+        def counters(tr):
+            return {n: {"counts": (b.faults, b.writebacks, b.hits, b.admits),
+                        "id_for_slot": b._id_for_slot.copy(),
+                        "store": b.store.serialize()}
+                    for n, b in ((n, BK.unwrap(b))
+                                 for n, b in tr.backends.items())
+                    if hasattr(b, "faults")}
+        for tag in C["tiers"]:
+            tr = tier_trainer(tag)
+            s = tr.restore(inp["tiers"][tag]["jax_ckpt"])
+            rec = {"restored": glob(tr, s), "losses": []}
+            for i, b in enumerate(batches[P0:P0 + T]):
+                s, m = tr.step(s, b)
+                rec["losses"].append(float(m["loss"]))
+                if i + 1 == SAVE:
+                    tr.save(f"{work}/mesh_{tag}", s)
+                    rec["ckpt"] = f"{work}/mesh_{tag}"
+                    rec["saved"] = glob(tr, s)
+            rec.update(glob(tr, s), counters=counters(tr),
+                       local_rows={n: int(e["table"].shape[0])
+                                   for n, e in s.emb.items()})
+            tr2 = tier_trainer(tag)
+            s2 = tr2.restore(rec["ckpt"])
+            for b in batches[P0 + SAVE:P0 + T]:
+                s2, _ = tr2.step(s2, b)
+            rec["resumed"] = glob(tr2, s2)
+            rec["resumed_counters"] = counters(tr2)
+            out["tier_" + tag] = rec
+        # ---- padded rows: 60-row tables pad to 64 over the 8 ranks --------
+        pad = inp["tiers"]["pad"]
+        tr = PersiaTrainer(adapters.recsys_adapter(
+            C["ctr"], lr=C["lr"][0], field_rows=pad["rows"]),
+            C["modes"]["hybrid"], OptConfig(kind="adam", lr=C["lr"][1]),
+            device="cpu")
+        s = tr.init(seed=0, batch_example=batches[0])
+        tr.save(f"{work}/pad64", s)
+        out["pad"] = {"ckpt": f"{work}/pad64", "saved": glob(tr, s)}
+        try:
+            tr.restore(pad["one_process_ckpt"])
+            out["pad"]["refused"] = None
+        except ValueError as e:
+            out["pad"]["refused"] = str(e)
     dist.barrier()
 
     def host(x):
@@ -430,6 +593,7 @@ def world(tmp_path_factory):
     runs."""
     work = tmp_path_factory.mktemp("mesh_world")
     inp, ora = _inputs()
+    inp["tiers"], tier_oracle = _tier_inputs(work)
     with open(work / "inputs.pkl", "wb") as f:
         pickle.dump(inp, f)
     (work / "world.py").write_text(WORLD)
@@ -449,6 +613,7 @@ def world(tmp_path_factory):
          repr(MOE_KW)], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
     port = _port_runs(inp)
+    ora["tiers"] = tier_oracle()
     logs = []
     try:
         for p in procs + [jproc]:
@@ -775,6 +940,185 @@ def test_eval_is_over_the_global_batch(world, mode):
 
 
 # ---------------------------------------------------------------------------
+# the out-of-core tier and the wire under the mesh; checkpoints
+# ---------------------------------------------------------------------------
+
+def _tier(world, tag):
+    return world["ranks"][0]["tier_" + tag]
+
+
+def _equal_trees(got, want, what):
+    """Two trees of arrays (dicts, lists, tensors or arrays), bit for
+    bit."""
+    if isinstance(want, dict):
+        assert set(got) == set(want), what
+        for k in want:
+            _equal_trees(got[k], want[k], f"{what}/{k}")
+    elif isinstance(want, (list, tuple)):
+        for i, (g, w) in enumerate(zip(got, want)):
+            _equal_trees(g, w, f"{what}/{i}")
+    elif want is None:
+        assert got is None, what
+    elif np.ndim(want) == 0:        # the queues' ptr / filled: host ints
+        assert int(np.asarray(got)) == int(np.asarray(want)), what
+    else:
+        g, w = np.asarray(got), np.asarray(want)
+        assert g.dtype == w.dtype and g.shape == w.shape, what
+        np.testing.assert_array_equal(g, w, err_msg=what)
+
+
+def _jax_state_np(jt, js):
+    return {"emb": {n: jbackend.unwrap(b).state_for_checkpoint(js.emb[n])
+                    for n, b in jt.backends.items()},
+            "queue": _np(js.emb_queue), "dense": _np(js.dense)}
+
+
+@pytest.mark.parametrize("tag", list(TIERS))
+def test_tier_under_mesh_matches_jax(world, tag):
+    """4 hybrid(2) steps under the (2, 4) mesh from JAX's checkpoint
+    against JAX's trainer with no mesh: losses rtol 1e-5; every rank's
+    slot map, faults, write-backs, hits and admits equal to JAX's (the
+    tier evicts); host stores and device caches allclose (tables rtol 1e-5
+    / atol 1e-6, the wire's in the lossy class, accumulators atol 1e-9);
+    a row-sharded cache holds its slots' block, a replicated one every
+    slot."""
+    ora = world["oracle"]["tiers"][tag]
+    got = _tier(world, tag)
+    _close(got["losses"], ora["losses"], 0, "losses", rtol=1e-5)
+    name, cache, _ = TIERS[tag]
+    lossy = name.endswith("+compressed")
+    for r in world["ranks"]:
+        rc = r["tier_" + tag]["counters"]
+        assert set(rc) == set(ora["counters"])
+        for n, c in ora["counters"].items():
+            assert rc[n]["counts"] == c["counts"], (n, rc[n]["counts"])
+            np.testing.assert_array_equal(rc[n]["id_for_slot"],
+                                          c["id_for_slot"])
+            for k in ("vectors", "opt_acc") if "disk" not in c["store"] \
+                    else ():
+                _close(rc[n]["store"][k], c["store"][k], 1e-6, k, 1e-5)
+        rows = r["tier_" + tag]["local_rows"]
+        want = {"lru_sharded": 4, "lru_replicated": 34, "lru_disk": 4,
+                "dense_wire": 8, "lru_wire": 4}[tag]
+        assert set(rows.values()) == {want}
+    if name.startswith("host_lru"):
+        assert all(c["counts"][1] > 0 for c in ora["counters"].values())
+    for n, e in ora["emb"].items():
+        if lossy:
+            _close_lossy(got["emb"][n]["table"], e["table"], 1e-4, n)
+        else:
+            _close(got["emb"][n]["table"], e["table"], 1e-6, n, 1e-5)
+        _close(got["emb"][n]["acc"], e["acc"], 1e-9, n, 1e-5)
+        if "slot_ids" in e:
+            np.testing.assert_array_equal(got["emb"][n]["slot_ids"],
+                                          e["slot_ids"])
+    for a, b in zip(jax.tree.leaves(got["dense"]),
+                    jax.tree.leaves(ora["dense"])):
+        _close(a, b, 1e-6, "dense", 1e-5)
+
+
+@pytest.mark.parametrize("tag", list(TIERS))
+def test_jax_checkpoint_restores_under_mesh(world, tag):
+    """JAX's checkpoint restored under the mesh: the ranks' blocks joined
+    (``global_state``) are its tables, caches, queues and dense
+    parameters bit for bit."""
+    jt, _ = _tier_trainers(tag)
+    js = jt.restore(world["inputs"]["tiers"][tag]["jax_ckpt"])
+    got = _tier(world, tag)["restored"]
+    want = _jax_state_np(jt, js)
+    _equal_trees({n: {k: v for k, v in e.items()}
+                  for n, e in got["emb"].items()},
+                 {n: e["cache"] if "cache" in e else e
+                  for n, e in want["emb"].items()}, "emb")
+    _equal_trees(got["queue"], want["queue"], "queue")
+    _equal_trees(got["dense"], want["dense"], "dense")
+
+
+@pytest.mark.parametrize("tag", list(TIERS))
+def test_mesh_checkpoint_restores_in_jax_and_one_process(world, tag):
+    """The checkpoint saved under the mesh (after 2 of the 4 steps),
+    restored by the JAX package and by one port process: the tables,
+    device caches, host tiers, queues and dense parameters equal the
+    joined mesh state bit for bit, and each one's next step gives the
+    mesh's next loss (JAX rtol 1e-5, the port 1e-6)."""
+    got = _tier(world, tag)
+    saved = got["saved"]
+    nxt = _batches()[TIER_PRE + TIER_SAVE]
+    jt, tt = _tier_trainers(tag)
+    js = jt.restore(got["ckpt"])
+    ts = tt.restore(got["ckpt"])
+    want = _jax_state_np(jt, js)
+    for n, e in saved["emb"].items():
+        jc = want["emb"][n].get("cache", want["emb"][n])
+        _equal_trees({k: jc[k] for k in e}, e, f"jax {n}")
+        _equal_trees({k: v.numpy() for k, v in ts.emb[n].items()}, e,
+                     f"port {n}")
+    _equal_trees(want["queue"], saved["queue"], "jax queue")
+    _equal_trees(convert.state_to_numpy(ts)["emb_queue"], saved["queue"],
+                 "port queue")
+    _equal_trees(want["dense"], saved["dense"], "jax dense")
+    _equal_trees(convert.state_to_numpy(ts)["dense"], saved["dense"],
+                 "port dense")
+    for n in _counters(tt.backends):
+        jb, tb = jbackend.unwrap(jt.backends[n]), BK.unwrap(tt.backends[n])
+        assert (jb.faults, jb.writebacks, jb.hits) == \
+            (tb.faults, tb.writebacks, tb.hits)
+        _equal_trees(tb.store.serialize(), jb.store.serialize(), n)
+    _, jm = jt.step(js, _jnp(nxt))
+    _, tm = tt.step(ts, nxt)
+    mesh_loss = got["losses"][TIER_SAVE]
+    _close(float(jm["loss"]), mesh_loss, 0, "jax next loss", rtol=1e-5)
+    _close(float(tm["loss"]), mesh_loss, 0, "port next loss", rtol=1e-6)
+
+
+@pytest.mark.parametrize("tag", list(TIERS))
+def test_resume_under_mesh_is_bit_exact(world, tag):
+    """The mesh's checkpoint restored under the mesh by a fresh trainer
+    and run the last 2 steps: tables, caches, queues, dense parameters
+    and every rank's LRU counters and host stores equal the uninterrupted
+    run's bit for bit."""
+    got = _tier(world, tag)
+    for k in ("emb", "queue", "dense"):
+        _equal_trees(got["resumed"][k], got[k], k)
+    for r in world["ranks"]:
+        t = r["tier_" + tag]
+        _equal_trees(t["resumed_counters"], t["counters"], "counters")
+
+
+def test_padded_rows_between_shard_counts_are_refused(world):
+    """60-row tables under 8 ranks are drawn and saved with 64 rows (the
+    shuffle's modulus). One port process refuses that checkpoint, naming
+    both sizes, and the mesh refuses one process's 60-row checkpoint.
+    The JAX package restores the 64-row table into one device and reads
+    other rows than the mesh wrote (its lookup takes the shuffle modulo
+    60): the finding ROADMAP Queue 3 records."""
+    pad = world["ranks"][0]["pad"]
+    for r in world["ranks"]:
+        assert r["pad"]["refused"] is not None
+        assert "60" in r["pad"]["refused"] and "64" in r["pad"]["refused"]
+    tt = PersiaTrainer(adapters.recsys_adapter(
+        ModelConfig(**CTR_KW), lr=EMB_LR, field_rows=PAD_ROWS),
+        TrainMode.hybrid(2), OptConfig(kind="adam", lr=DENSE_LR),
+        device="cpu")
+    with pytest.raises(ValueError, match=r"over 64 rows .* 60 ids over 60"):
+        tt.restore(pad["ckpt"])
+    jt = jhybrid.PersiaTrainer(jadapters.recsys_adapter(
+        JModelConfig(**CTR_KW), lr=EMB_LR, field_rows=PAD_ROWS),
+        jhybrid.TrainMode.hybrid(2), jopt.OptConfig(kind="adam"))
+    js = jt.restore(pad["ckpt"])
+    n = "field_00"
+    table = np.asarray(js.emb[n]["table"])
+    np.testing.assert_array_equal(table, pad["saved"]["emb"][n]["table"])
+    assert table.shape[0] == 64
+    ids = np.arange(60)
+    spec = jt.collection[n]
+    jax_rows = np.asarray(JPS.lookup(js.emb[n], spec, jnp.asarray(ids)))
+    mesh_rows = table[np.asarray(JPS.shuffle_pos(jnp.asarray(ids), 64))]
+    other = ~np.all(jax_rows == mesh_rows, axis=1)
+    assert other.mean() > 0.5, other.mean()
+
+
+# ---------------------------------------------------------------------------
 # without the world: the partition rules, placements, theory
 # ---------------------------------------------------------------------------
 
@@ -928,3 +1272,4 @@ def test_no_mesh_paths_are_unchanged_without_a_mesh():
     assert utils.all_gather(x, ("data",)) is x
     assert PS.n_shards(EmbeddingSpec(**PS_FULL)) == 1
     assert utils.shard(x, "data") is x
+    utils.barrier()                     # the identity: no group to wait on

@@ -257,6 +257,46 @@ def test_dry_run_small_case_on_a_fake_mesh():
         assert row["flops_per_device"] > 0 and row["collectives"]["total"] > 0
 
 
+def test_dry_run_at_zero_stage_2_on_a_fake_mesh():
+    """The train row of reduced granite at mesh (2, 4) at ZeRO stages 3
+    and 2 (``run_case(zero_stage=)``, the CLI's ``--zero-stage``): stage 2
+    holds the tensor-parallel weights whole over ``data`` (more argument
+    bytes) and all-gathers fewer times (one gather a leaf after the
+    update, none a layer), and the stage is restored after the row.
+    ``tests/test_torch_lm_mesh.py`` holds the stage-2 row to the CPU
+    world's own count."""
+    code = textwrap.dedent("""
+        import json
+        from repro_torch.configs import get_config
+        from repro_torch.configs.base import InputShape
+        from repro_torch.launch import dryrun as DR
+        from repro_torch.sharding import partition as SP
+        cfg = get_config("granite_3_2b", reduced=True)
+        rows = {s: DR.run_case("granite_3_2b", "t", cfg=cfg,
+                               shape=InputShape("t", 64, 4, "training"),
+                               mesh_shape=((2, 4), ("data", "model")),
+                               verbose=False, zero_stage=s)
+                for s in (3, 2)}
+        rows["after"] = SP.ZERO_STAGE
+        print("ROWS" + json.dumps(rows))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    line = [ln for ln in out.stdout.splitlines() if ln.startswith("ROWS")]
+    assert line, out.stdout[-3000:] + out.stderr[-3000:]
+    rows = json.loads(line[0][4:])
+    z3, z2 = rows["3"], rows["2"]
+    assert rows["after"] == 3
+    for s, r in ((3, z3), (2, z2)):
+        assert r["status"] == "ok", r.get("error")
+        assert r["zero_stage"] == s
+    c3, c2 = z3["collectives"]["counts"], z2["collectives"]["counts"]
+    assert c2["all-gather"] < c3["all-gather"]
+    assert c2["reduce-scatter"] > 0
+    assert z2["argument_bytes_per_device"] > z3["argument_bytes_per_device"]
+    assert z2["kernels"] == z3["kernels"]
+
+
 def test_dry_run_cli_granite_on_the_production_mesh(tmp_path):
     """``python -m repro_torch.launch.dryrun --arch granite_3_2b --out f``:
     one row per input shape on the 16 x 16 mesh, every one ``ok`` (the

@@ -38,8 +38,10 @@ print("HAS", sorted(m for m in sys.modules if m in {names!r}))
 
 # modules whose import must not need JAX (among all the walked ones): the
 # pipelined trainer, the launchers, the click feedback, the LM data, the
-# multi-process embedding PS and the mesh paths
-_NAMED = ("repro_torch.core.pipeline", "repro_torch.launch.train",
+# multi-process embedding PS and the mesh paths (the tier, the wire and
+# checkpoints under a mesh among them)
+_NAMED = ("repro_torch.core.backend", "repro_torch.core.hybrid",
+          "repro_torch.checkpoint.ckpt", "repro_torch.core.pipeline", "repro_torch.launch.train",
           "repro_torch.launch.hostenv", "repro_torch.launch.online",
           "repro_torch.launch.cluster", "repro_torch.serving.feedback",
           "repro_torch.data.lm", "repro_torch.net", "repro_torch.net.wire",

@@ -246,7 +246,8 @@ WORLD = textwrap.dedent("""
     from repro_torch.models import transformer as T
     from repro_torch.optim.optimizers import OptConfig
     from repro_torch.sharding import partition as SP
-    from repro_torch.utils import Mesh, set_mesh
+    from repro_torch.utils import (Mesh, collective_counts,
+                                   reset_collective_counts, set_mesh)
 
     with open(f"{work}/inputs.pkl", "rb") as f:
         inp = pickle.load(f)
@@ -257,6 +258,51 @@ WORLD = textwrap.dedent("""
         lambda s, x: out.append(x), specs, tree), out)[1])([])
     host = lambda xs: [x.detach().numpy() for x in xs]
     out = {}
+
+    def zero2(cfg, tr, s, g0, st):
+        # the stage-3 state saved and restored at ZeRO stage 2; the same
+        # 2 steps at stage 2 from the JAX state, their collectives counted
+        # beside stage 3's
+        rec = {}
+        tr.save(f"{work}/lm_ck", s)
+        rec["saved"] = convert.state_to_numpy(tr.global_state(s))
+        SP.ZERO_STAGE = 2
+        try:
+            t2 = PersiaTrainer(adapters.lm_adapter(cfg, lr=%(emb_lr)r),
+                               TrainMode.hybrid(1),
+                               OptConfig(kind="adam", lr=%(dense_lr)r),
+                               device="cpu")
+            rec["restored_z2"] = convert.state_to_numpy(t2.global_state(
+                t2.restore(f"{work}/lm_ck")))
+            calls = {}
+            for stage in (2, 3):
+                SP.ZERO_STAGE = stage
+                t = PersiaTrainer(adapters.lm_adapter(cfg, lr=%(emb_lr)r),
+                                  TrainMode.hybrid(1),
+                                  OptConfig(kind="adam", lr=%(dense_lr)r),
+                                  device="cpu")
+                sz = t.local_state(g0)
+                losses = []
+                for i, b in enumerate(st["batches"]):
+                    reset_collective_counts()
+                    sz, m = t.step(sz, {k: bat(v).numpy()
+                                        for k, v in b.items()})
+                    losses.append(float(m["loss"]))
+                    if i == 0:
+                        calls[stage] = collective_counts()
+                if stage == 2:
+                    rec["z2"] = {
+                        "losses": losses,
+                        "dense": convert.state_to_numpy(
+                            t.global_state(sz))["dense"],
+                        "dense_bytes": sum(x.numel() * 4 for x in leaves(
+                            t.dense_specs(), sz.dense)),
+                        "moment_bytes": sum(x.numel() * 4 for x in leaves(
+                            t.moment_specs(), sz.opt["m"]))}
+            rec["z2"]["collectives"] = calls
+        finally:
+            SP.ZERO_STAGE = 3
+        return rec
     for arch in inp["archs"]:
         d, cfg = inp[arch], get_config(arch, reduced=True)
         specs = TP.dense_specs(cfg, mesh)
@@ -312,6 +358,8 @@ WORLD = textwrap.dedent("""
             rec["train"] = {"losses": losses,
                             "dense": host(leaves(specs, s.dense)),
                             "table": s.emb["vocab"]["table"].numpy()}
+            if arch == "granite_3_2b":
+                rec.update(zero2(cfg, tr, s, g0, st))
         out[arch] = rec
     # ---- the MoE layer's backward under both dispatches -------------------
     cfg = get_config("deepseek_v2_lite_16b", reduced=True)
@@ -340,10 +388,13 @@ WORLD = textwrap.dedent("""
                               "drop": float(aux["moe_drop_frac"])}
     # ---- op_cost around one train step, against the dry run --------------
     shape = InputShape("mesh_train", %(seq)d, %(batch)d, "training")
-    for arch in %(cost)r:
+    for arch, stage in [(a, 3) for a in %(cost)r] + [(%(cost)r[0], 2)]:
+        SP.ZERO_STAGE = stage
         c = DR.measure(get_config(arch, reduced=True), shape, mesh,
                        device="cpu")
-        out["cost_" + arch] = {k: c[k] for k in (
+        SP.ZERO_STAGE = 3
+        key = "cost_" + arch + ("" if stage == 3 else "_zero2")
+        out[key] = {k: c[k] for k in (
             "flops_per_device", "hbm_bytes_per_device", "collectives",
             "argument_bytes_per_device", "kernels",
             "hbm_bytes_by_op")}
@@ -378,6 +429,10 @@ DRY = textwrap.dedent("""
                           mesh_shape=((2, 4), ("data", "model")),
                           verbose=False)
         out[arch] = row
+    out[%(cost)r[0] + "_zero2"] = DR.run_case(
+        %(cost)r[0], "train_4k", cfg=get_config(%(cost)r[0], reduced=True),
+        shape=InputShape("mesh_train", %(seq)d, %(batch)d, "training"),
+        mesh_shape=((2, 4), ("data", "model")), verbose=False, zero_stage=2)
     print("DRY" + json.dumps(out))
 """) % {"cost": COST_ARCHS, "seq": S, "batch": B}
 
@@ -426,7 +481,7 @@ def world(tmp_path_factory):
         with open(work / f"rank{r}.pkl", "rb") as f:
             ranks.append(pickle.load(f))
     return {"ranks": ranks, "oracle": ora, "inputs": inp,
-            "dry": json.loads(line[0][3:])}
+            "dry": json.loads(line[0][3:]), "work": str(work)}
 
 
 def _close(got, want, what, rtol=RTOL, atol=ATOL):
@@ -553,6 +608,96 @@ def test_trainer_matches_jax(world, arch):
     assert local < full
     for r in rk:
         assert r[arch]["dense_bytes"] == local == r[arch]["moment_bytes"]
+
+
+def _pairs(got, want, path=""):
+    """(path, port leaf, JAX leaf) over two dict trees of arrays."""
+    if isinstance(want, dict):
+        for k in want:
+            yield from _pairs(got[k], want[k], f"{path}/{k}")
+    else:
+        yield path, np.asarray(got), np.asarray(want)
+
+
+def _equal(got, want, what):
+    for path, g, w in _pairs(got, want, what):
+        if np.ndim(w) == 0:
+            assert int(g) == int(w), path
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape, path
+        np.testing.assert_array_equal(g, w, err_msg=path)
+
+
+def test_zero2_trainer_matches_jax(world):
+    """granite's cut at ZeRO stage 2 (``REPRO_ZERO_STAGE=2``: the
+    tensor-parallel leaves whole over ``data``, the Adam moments at the
+    stage-3 blocks) takes the same 2 hybrid(1) Adam steps from the JAX
+    state: the losses in the allclose class, the trained dense leaves in
+    the trajectory class of the stage-3 test; a rank holds more of the
+    parameters than at stage 3 and the same moments, and the first step
+    all-gathers less (no per-layer gather of the tensor-parallel
+    weights, one gather a leaf after the update)."""
+    ora = world["oracle"]["granite_3_2b"]["train"]
+    rk = world["ranks"]
+    z2 = rk[0]["granite_3_2b"]["z2"]
+    _close(z2["losses"], ora["losses"], "losses")
+    num = den = 0.0
+    for path, got, want in _pairs(z2["dense"], ora["dense"]):
+        start = np.asarray(_get(ora["start"], path.strip("/")))
+        num += float(np.sum((got - want) ** 2))
+        den += float(np.sum((want - start) ** 2))
+        assert float(np.abs(got - want).max()) <= 2 * DENSE_LR * 2, path
+    assert np.sqrt(num / max(den, 1e-30)) <= 1e-3
+    for r in rk:
+        g = r["granite_3_2b"]
+        assert g["z2"]["losses"] == z2["losses"]
+        assert g["z2"]["moment_bytes"] == g["moment_bytes"]
+        assert g["z2"]["dense_bytes"] > g["dense_bytes"]
+        calls = g["z2"]["collectives"]
+        assert calls[2]["all-gather"]["calls"] < \
+            calls[3]["all-gather"]["calls"]
+
+
+def test_lm_checkpoint_saved_at_stage3_restores_at_stage2_and_one_process(
+        world):
+    """The trained granite state saved under the mesh at ZeRO stage 3,
+    restored under the mesh at stage 2 (joined by ``global_state``) and
+    by one process: the dense leaves, the Adam moments, the vocab table
+    and its queue equal the saved state bit for bit."""
+    from repro_torch import convert
+    from repro_torch.core import adapters
+    from repro_torch.core.hybrid import PersiaTrainer, TrainMode
+    from repro_torch.optim.optimizers import OptConfig
+    g = world["ranks"][0]["granite_3_2b"]
+    saved = g["saved"]
+    for k in ("dense", "opt", "emb", "emb_queue"):
+        _equal(g["restored_z2"][k], saved[k], k)
+    tr = PersiaTrainer(adapters.lm_adapter(get_config(
+        "granite_3_2b", reduced=True), lr=EMB_LR), TrainMode.hybrid(1),
+        OptConfig(kind="adam", lr=DENSE_LR), device="cpu")
+    one = convert.state_to_numpy(tr.restore(world["work"] + "/lm_ck"))
+    for k in ("dense", "opt", "emb", "emb_queue"):
+        _equal(one[k], saved[k], k)
+
+
+def test_dry_run_counts_the_zero2_run(world):
+    """The dry run at ZeRO stage 2 (granite's cut, mesh (2, 4), the meta
+    device) against ``op_cost`` around the CPU world's stage-2 train step:
+    FLOPs, collective counts and bytes, argument bytes and kernels equal,
+    HBM bytes within 1%; fewer all-gathers than at stage 3."""
+    got = world["ranks"][0]["cost_granite_3_2b_zero2"]
+    row = world["dry"]["granite_3_2b_zero2"]
+    assert row["status"] == "ok", row.get("error")
+    assert row["zero_stage"] == 2
+    assert got["flops_per_device"] == row["flops_per_device"]
+    assert got["collectives"] == row["collectives"]
+    assert got["argument_bytes_per_device"] == \
+        row["argument_bytes_per_device"]
+    assert got["kernels"] == row["kernels"]
+    assert abs(got["hbm_bytes_per_device"] - row["hbm_bytes_per_device"]) \
+        <= 0.01 * row["hbm_bytes_per_device"]
+    z3 = world["ranks"][0]["cost_granite_3_2b"]["collectives"]["counts"]
+    assert got["collectives"]["counts"]["all-gather"] < z3["all-gather"]
 
 
 def _get(tree, path):
