@@ -321,7 +321,7 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    (``all_reduce`` SUM and MAX, ``all_gather_into_tensor``,
    ``all_to_all_single``); a part whose collectives are not carried is
    recorded, not run. The gloo world: (a) kwai-dlrm at full width under
-   the mesh, hybrid(3) for 6 steps and sync for 2 (each data rank on 256
+   the mesh, hybrid(3) for 4 steps and sync for 2 (each data rank on 256
    rows of the 512, the 32 tables' rows over all 4 ranks, 15,625 a
    rank), against the port's trainer in one process on the card from the
    same seed: the first step's pooled lookups bit for bit, the losses
@@ -353,11 +353,11 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    gap exceeds the prefill's distance; then ``launch.op_cost`` around one
    more granite step. The NCCL world of one decodes granite through
    ``decode_dist`` the same way.
-24. The dry run (``dryrun_phase``, a CPU process started beside the mesh
-   phase): granite-3-2b's train_4k, prefill_32k and decode_32k rows on
-   the 16 x 16 mesh on the meta device, all ``ok``, and the mesh phase's
-   granite cut at (2, 2), whose FLOPs, collectives and argument bytes
-   must equal rank 0's count on the card, its HBM bytes within 1%.
+24. The dry run (``dryrun_phase``, a CPU process started before the LM
+   training phases): granite-3-2b's train_4k, prefill_32k and decode_32k
+   rows on the 16 x 16 mesh on the meta device, all ``ok``, and the mesh
+   phase's granite cut at (2, 2), whose FLOPs, collectives and argument
+   bytes must equal rank 0's count on the card, its HBM bytes within 1%.
 25. The launcher, ``repro_torch.launch.train.main`` on the card: 8
    pipelined steps of the CTR task, then ``--task lm --steps 8 --batch 8
    --seq-len 128 --eval-every 4`` (the launcher's lm-100m), finite losses.
@@ -499,11 +499,10 @@ LRU_HOST_ROWS = 2048
 # graph replays of a one-launch graph (a lone call, the launch floor)
 LONE_REPS = 200
 # the pipelined trainer: kwai-dlrm's steps per run (warm-up and timed),
-# trials per (backend, regime, runner: one, for the script's time),
-# steps counted under the sync debug
+# trials per (backend, regime, runner), steps counted under the sync debug
 # mode and profiled, serial steps that warm a host_lru cache until it
 # evicts; the deep runner's window and a host_lru trainer's look-ahead
-PIPE_STEPS = {"warmup": 2, "timed": 20, "trials": 1, "syncs": 6,
+PIPE_STEPS = {"warmup": 2, "timed": 20, "trials": 3, "syncs": 6,
               "profiled": 4, "lru_warm": 26}
 PIPE_INFLIGHT, PIPE_PREFETCH = 4, 2
 # the sharded router: kwai-dlrm over SHARDS shards; its dense tables at a
@@ -511,11 +510,11 @@ PIPE_INFLIGHT, PIPE_PREFETCH = 4, 2
 # 62,500 rows ids that share a row on one shard are apart on four, so one
 # and four shards differ there, in both packages); warm-up, timed dense
 # and host_lru steps (the latter evict), staged host_lru steps, the
-# card-against-CPU steps at 62,500 rows (two, for the script's time), the
+# card-against-CPU steps at 62,500 rows (tau + 1, so a put applies), the
 # pipelined runs' steps
 SHARDS = 4
 SHARD_ROWS_POW2 = 65_536
-SHARD_STEPS = {"warmup": 2, "dense": 10, "lru": 30, "staged": 5, "cpu": 2,
+SHARD_STEPS = {"warmup": 2, "dense": 10, "lru": 30, "staged": 5, "cpu": 4,
                "pipe": 8}
 
 # the multi-process PS: endpoints of the sharded runs; steps of the bit
@@ -523,16 +522,15 @@ SHARD_STEPS = {"warmup": 2, "dense": 10, "lru": 30, "staged": 5, "cpu": 2,
 # pipelined, blocking) and of the timed runs over PS processes (warm-up,
 # timed, staged, counted for syncs, profiled); the kill drill's steps and
 # the step before which shard 1 dies. The lossy check runs the timed
-# runs' first 10 batches, over the loss spike of their steps 5-8 (the
-# dense check 5 steps, for the script's time)
+# runs' first 10 batches, over the loss spike of their steps 5-8
 REMOTE_K = 4
-REMOTE_STEPS = {"warmup": 2, "dense": 5, "lru": 30, "k4": 4, "lossy": 10,
+REMOTE_STEPS = {"warmup": 2, "dense": 10, "lru": 30, "k4": 4, "lossy": 10,
                 "pipe": 6, "blocking": 4, "timed": 8, "staged": 4,
                 "syncs": 3, "profiled": 3, "kill": 4, "kill_at": 2}
 REMOTE_TIMED_SEED = SEED + 41
-# the online loop over 2 PS processes: 8 steps (for the script's time)
-# and half the in-process loop's requests
-REMOTE_ONLINE = {"steps": 8, "requests": 128}
+# the online loop over 2 PS processes: half the in-process loop's steps
+# and requests (its rates need no longer a run)
+REMOTE_ONLINE = {"steps": 15, "requests": 128}
 
 # the in-process online loop: kwai-dlrm on host_lru, hybrid(tau), the
 # service's micro-batch, closed-loop clients x requests each, trainer steps
@@ -592,9 +590,10 @@ GRANITE_CUTS = {"sliding_window": {"sliding_window": 64},
 # the mesh paths: a world of 4 gloo processes on the one card, mesh (data
 # 2, model 2); kwai-dlrm at full width (each data rank on 256 of the 512
 # rows, the tables over all 4 ranks: 15,625 rows a rank) for hybrid(3) and
-# sync steps (hybrid cut from 6 to 4 steps for the tiers' time); the expert-parallel MoE at deepseek-v2-lite-16b's layer
-# widths; the sequence-sharded decode at granite-3-2b's attention and
-# DeepSeek-V2-Lite's MLA after a prefill; then a world of one over NCCL
+# sync steps (hybrid tau + 1 = 4 steps, so a put applies); the
+# expert-parallel MoE at deepseek-v2-lite-16b's layer widths; the
+# sequence-sharded decode at granite-3-2b's attention and DeepSeek-V2-
+# Lite's MLA after a prefill; then a world of one over NCCL
 MESH_SHAPE, MESH_AXES = (2, 2), ("data", "model")
 MESH_TRAIN = (("hybrid", TrainMode.hybrid(TAU), 4),
               ("sync", TrainMode.sync(), 2))
@@ -604,12 +603,11 @@ MESH_SEED = SEED + 70
 # the LM under the mesh (tensor parallelism over model, ZeRO-3 over data)
 # in the same world: granite-3-2b at full width cut to 2 layers, 3
 # hybrid(1) Adam steps at B = 2, S = 2,048 with remat; its serve (a
-# 2,048-token prefill, 16 greedy tokens (for the script's time) at B = 4
-# into a 4,096-position cache sequence-sharded over model);
-# deepseek-v2-lite-16b cut to its
+# 2,048-token prefill, 32 greedy tokens at B = 4 into a 4,096-position
+# cache sequence-sharded over model); deepseek-v2-lite-16b cut to its
 # dense prologue and one MoE layer, 2 steps under each dispatch
 MESH_LM = {"layers": 2, "batch": 2, "seq": 2048, "steps": 3}
-MESH_LM_SERVE = {"batch": 4, "prompt": 2048, "gen": 16, "cache": 4096}
+MESH_LM_SERVE = {"batch": 4, "prompt": 2048, "gen": 32, "cache": 4096}
 MESH_LM_MOE = {"repeats": 1, "batch": 2, "seq": 2048, "steps": 2}
 MESH_COLLECTIVES = ("all_reduce", "all_gather_into_tensor",
                     "all_to_all_single")
@@ -618,15 +616,17 @@ MESH_COLLECTIVES = ("all_reduce", "all_gather_into_tensor",
 # bypass, 7,812 + 1,953 = 9,765 slots a table, which do not divide the 4
 # ranks (the rules replicate the cache); the same with bypass_rows 1,952:
 # 9,764 slots, 2,441 a rank (row-sharded); dense+compressed. One process
-# trains alone until every host_lru table has evicted (at most
-# "warm_cap" steps; the wire tau + 1 steps, so its puts apply), the mesh
-# takes its state, then "steps" steps are held step by step; the sharded
-# tier's state is then saved and resumed for "resume" steps
+# trains alone for tau + 1 steps, so every later step applies a put, and
+# on until every host_lru table has written back a row that a put moved
+# (at most "warm_cap" steps: admission evicts first-seen rows before their
+# puts apply), so the held steps' write-backs carry updated rows; the
+# mesh takes its state, then "steps" steps are held step by step; the
+# sharded tier's state is then saved and resumed for "resume" steps
 MESH_TIERS = (("lru_replicated", HOST_LRU, {"admit_threshold": 1.5}),
               ("lru_sharded", HOST_LRU, {"admit_threshold": 1.5,
                                          "bypass_rows": 1952}),
               ("wire", WIRE, {}))
-MESH_TIER = {"warm_cap": 40, "steps": 2, "resume": 1,
+MESH_TIER = {"warm_cap": 60, "steps": 3, "resume": 2,
              "checkpoint": "lru_sharded"}
 
 KERNELS = {
@@ -681,7 +681,15 @@ def check(cond: bool, what: str):
         raise SmokeFailure(what)
 
 
+# (phase, seconds since the script started) of every emitted record: where
+# the script's time goes
+TIMELINE: list = []
+T_START = time.perf_counter()
+
+
 def emit(obj: dict):
+    TIMELINE.append((obj.get("phase", next(iter(obj), None)),
+                     round(time.perf_counter() - T_START, 1)))
     print(json.dumps(obj), flush=True)
 
 
@@ -5722,8 +5730,9 @@ def mesh_tier_checkpoint(dev, mesh, work, tr, st, blocks, backend,
 
 def mesh_tier_rank(dev, mesh, work) -> dict:
     """kwai-dlrm at full width on each tier of MESH_TIERS under the mesh:
-    one process trains alone on the card until its host_lru tables evict
-    (the wire: until its queued puts apply), the mesh takes its state
+    one process trains alone on the card until its queued puts apply and
+    every host_lru table has written back a row a put moved (the store's
+    accumulator leaves 0), the mesh takes its state
     (this rank's blocks; the host tiers, every rank's, from its checkpoint
     blobs), then each of MESH_TIER["steps"] steps is held against one
     process from a common state, as ``mesh_train_rank`` holds dense
@@ -5732,8 +5741,9 @@ def mesh_tier_rank(dev, mesh, work) -> dict:
     clock equal to one process's (the mesh prepares the global batch's ids
     on every rank), the put it pushed in ``queue_agreement``'s class, the
     host stores bit for bit after the run (a sharded cache gathers its
-    evicted rows exactly). Only the mesh's steps are
-    counted (launches, tables, ms). The checkpointed tier is then saved
+    evicted rows exactly), and rows that an applied put moved among those
+    written back in the held steps. Only the mesh's steps are counted
+    (launches, tables, ms). The checkpointed tier is then saved
     and resumed (:func:`mesh_tier_checkpoint`)."""
     ds = CTR_BENCHMARKS["kwai_video"]
     n_b = MESH_TIER["warm_cap"] + MESH_TIER["steps"] + MESH_TIER["resume"]
@@ -5745,13 +5755,15 @@ def mesh_tier_rank(dev, mesh, work) -> dict:
         ref = rt.init(seed=MESH_SEED, batch_example=batches[0])
         lru = lru_tiers_of(rt)
         warm, t0 = 0, time.perf_counter()
-        while warm < MESH_TIER["warm_cap"] and (
-                any(b.writebacks == 0 for b in lru.values()) if lru
-                else warm < TAU + 1):
+        # a store row's accumulator leaves 0 when the row is written back
+        # with an applied put: warm on until every table's store holds one
+        while warm < TAU + 1 or (warm < MESH_TIER["warm_cap"] and not all(
+                b.store.opt_acc.any() for b in lru.values())):
             ref, _ = rt.step(ref, batches[warm])
             warm += 1
         rec = {"warm_steps": warm, "warm_s": time.perf_counter() - t0,
-               "evicted": all(b.writebacks > 0 for b in lru.values())}
+               "wrote_back_updated": all(b.store.opt_acc.any()
+                                         for b in lru.values())}
         tr = mesh_tier_trainer(dev, backend, extra)
         with set_mesh(mesh):
             st = tr.init(seed=MESH_SEED,
@@ -5762,6 +5774,9 @@ def mesh_tier_rank(dev, mesh, work) -> dict:
         launches = dict.fromkeys(ops.launch_counts(), 0)
         served = dict.fromkeys(ops.table_counts(), 0)
         per_step, ms = [], []
+        # the stores' accumulators before the held steps: a row whose
+        # accumulator moves was written back with an applied put
+        accs = {n: b.store.opt_acc.copy() for n, b in lru.items()}
         for i in range(MESH_TIER["steps"]):
             b = batches[warm + i]
             blk = mesh_batch_block(mesh, b)
@@ -5812,6 +5827,9 @@ def mesh_tier_rank(dev, mesh, work) -> dict:
         rec.update({
             "per_step": per_step, "steps_ok": all(p["ok"] for p in per_step),
             "stores_equal": lru_stores_equal(tr, rt),
+            "updated_rows_written_back": sum(
+                int((b.store.opt_acc != accs[n]).sum())
+                for n, b in lru.items()),
             "counters": lru_table_counters(tr),
             "counters_one_process": lru_table_counters(rt),
             "slots_a_rank": {n: int(e["table"].shape[0])
@@ -6354,19 +6372,6 @@ def mesh_lm_serve(dev, mesh, cfg, p: dict) -> dict:
     return rec
 
 
-def mesh_lm_train_at(dev, mesh, cfg, p: dict, stage: int) -> dict:
-    """:func:`mesh_lm_train` at ZeRO stage ``stage`` (the partition rules'
-    ``ZERO_STAGE``, as ``REPRO_ZERO_STAGE`` sets it): at 2 the
-    tensor-parallel weights are whole over ``data`` and a step
-    reduce-scatters each one's gradient into its moment block and
-    all-gathers the updated block."""
-    prev, SP.ZERO_STAGE = SP.ZERO_STAGE, stage
-    try:
-        return mesh_lm_train(dev, mesh, cfg, p)
-    finally:
-        SP.ZERO_STAGE = prev
-
-
 def mesh_lm_rank(dev, mesh) -> dict:
     """The LM under the mesh on this rank: granite's cut trained (ZeRO
     stages 3 and 2) and served, DeepSeek-V2's cut trained under both
@@ -6376,26 +6381,33 @@ def mesh_lm_rank(dev, mesh) -> dict:
     from repro_torch.configs.base import InputShape
     from repro_torch.launch import dryrun as lm_dry
     granite, ds2 = mesh_lm_cfg("granite"), mesh_lm_cfg("moe")
-    rec = {"granite_train": mesh_lm_train(dev, mesh, granite, MESH_LM),
-           "granite_train_zero2": mesh_lm_train_at(dev, mesh, granite,
-                                                   MESH_LM, 2),
-           "granite_serve": mesh_lm_serve(dev, mesh, granite,
-                                          MESH_LM_SERVE)}
+    rec, part_s = {}, {}
+
+    def run(key, fn, *args):
+        t0 = time.perf_counter()
+        rec[key] = fn(dev, mesh, *args)
+        part_s[key] = time.perf_counter() - t0
+    run("granite_train", mesh_lm_train, granite, MESH_LM)
+    # at ZeRO stage 2 the tensor-parallel weights are whole over data and
+    # a step reduce-scatters each one's gradient into its moment block and
+    # all-gathers the updated block
+    with SP.zero_stage(2):
+        run("granite_train_zero2", mesh_lm_train, granite, MESH_LM)
+    run("granite_serve", mesh_lm_serve, granite, MESH_LM_SERVE)
     for disp in ("psum", "a2a"):
-        rec["moe_train_" + disp] = mesh_lm_train(dev, mesh, ds2,
-                                                 MESH_LM_MOE, disp)
+        run("moe_train_" + disp, mesh_lm_train, ds2, MESH_LM_MOE, disp)
     shape = InputShape("mesh_train", MESH_LM["seq"], MESH_LM["batch"],
                        "training")
     for key, stage in (("granite_cost", 3), ("granite_cost_zero2", 2)):
-        prev, SP.ZERO_STAGE = SP.ZERO_STAGE, stage
-        try:
+        t0 = time.perf_counter()
+        with SP.zero_stage(stage):
             cost = lm_dry.measure(granite, shape, mesh, device=dev,
                                   seed=MESH_SEED)
-        finally:
-            SP.ZERO_STAGE = prev
         rec[key] = {k: cost[k] for k in (
             "flops_per_device", "hbm_bytes_per_device", "collectives",
             "argument_bytes_per_device", "kernels", "hbm_bytes_by_op")}
+        part_s[key] = time.perf_counter() - t0
+    rec["part_s"] = part_s
     gc.collect()
     torch.cuda.empty_cache()
     return rec
@@ -6419,6 +6431,9 @@ def mesh_worker(rank: int, world: int, backend: str, work: str,
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         build.build_all()
+    # the worlds' 5 processes share the host's cores: their CPU work is
+    # numpy, gloo's copies and dispatch, so few intra-op threads each
+    torch.set_num_threads(2)
     dev = torch.device(device, 0) if device == "cuda" else torch.device(
         "cpu")
     t0 = time.perf_counter()
@@ -6606,12 +6621,13 @@ def mesh_phase(dev):
 
 def mesh_tier_check(gl: list, launches: dict, served: dict) -> dict:
     """Every rank's tier records held (see :func:`mesh_tier_rank`): each
-    step, the stores after the run, the eviction before it, a step's
-    launches (the get's one bag launch; a host_lru table's sum-only and
-    gathered apply ``fused_backward``, the wire's sums, global sums and
-    apply; the wire's compress and decompress for the get and for the
-    put), the checkpoint's resume on every rank and its one-process
-    restore; the mesh's launches summed over the ranks into
+    step, the stores after the run, the warm-up of at least tau + 1 steps
+    and the updated rows written back in it and in the held steps, a
+    step's launches (the get's one bag launch; a host_lru table's
+    sum-only and gathered apply ``fused_backward``, the wire's sums,
+    global sums and apply; the wire's compress and decompress for the get
+    and for the put), the checkpoint's resume on every rank and its
+    one-process restore; the mesh's launches summed over the ranks into
     ``launches`` / ``served``."""
     out, steps = {}, MESH_TIER["steps"]
     for tag, backend, _ in MESH_TIERS:
@@ -6623,9 +6639,13 @@ def mesh_tier_check(gl: list, launches: dict, served: dict) -> dict:
                 "blockscale_decompress": 0 if lru else 2 * steps}
         for g in per:
             check(g["steps_ok"] and g["stores_equal"]
-                  and (g["evicted"] or not lru),
-                  f"mesh tier {tag}: evicted {g['evicted']} after "
-                  f"{g['warm_steps']} steps, stores equal "
+                  and g["warm_steps"] >= TAU + 1 and (not lru or (
+                      g["wrote_back_updated"]
+                      and g["updated_rows_written_back"] > 0)),
+                  f"mesh tier {tag}: after {g['warm_steps']} warm steps "
+                  f"every table wrote back an updated row: "
+                  f"{g['wrote_back_updated']}; the held steps wrote back "
+                  f"{g['updated_rows_written_back']}; stores equal "
                   f"{g['stores_equal']}, steps "
                   f"{[p for p in g['per_step'] if not p['ok']][:2]}")
             check(all(g["launches"][k] == v for k, v in want.items()),
@@ -6636,6 +6656,8 @@ def mesh_tier_check(gl: list, launches: dict, served: dict) -> dict:
                 served[k] += g["tables"][k]
         out[tag] = {
             "backend": backend, "warm_steps": per[0]["warm_steps"],
+            "updated_rows_written_back":
+            per[0]["updated_rows_written_back"],
             "warm_s": max(g["warm_s"] for g in per),
             "losses": [p["loss"] for p in per[0]["per_step"]],
             "losses_one_process": [p["loss_one_process"]
@@ -6772,6 +6794,8 @@ def mesh_lm_check(gl: list, launches: dict) -> dict:
                      "collectives_per_step":
                      g["lm"][key]["collectives_per_step"]}
                for key in keys}})
+    out["part_s"] = {k: max(g["lm"]["part_s"][k] for g in gl)
+                     for k in gl[0]["lm"]["part_s"]}
     out["granite_cost_rank0"] = gl[0]["lm"]["granite_cost"]
     out["granite_cost_zero2_rank0"] = gl[0]["lm"]["granite_cost_zero2"]
     return out
@@ -6779,28 +6803,31 @@ def mesh_lm_check(gl: list, launches: dict) -> dict:
 
 DRYRUN_CODE = """
 import json, sys
+import torch
 from repro_torch.configs import get_config
 from repro_torch.configs.base import InputShape
 from repro_torch.launch import dryrun as DR
+from repro_torch.sharding import partition as SP
+torch.set_num_threads(1)            # as the CLI does
 rows = [DR.run_case("granite_3_2b", s, verbose=False)
         for s in ("train_4k", "prefill_32k", "decode_32k")]
 cut = get_config("granite_3_2b").replace(pattern_repeats=%(layers)d)
 for stage in (3, 2):
-    rows.append(DR.run_case(
-        "granite_3_2b", "train_4k", cfg=cut,
-        shape=InputShape("mesh_train", %(seq)d, %(batch)d, "training"),
-        mesh_shape=(%(shape)r, %(axes)r), verbose=False, seed=%(seed)d,
-        zero_stage=stage))
+    with SP.zero_stage(stage):
+        rows.append(DR.run_case(
+            "granite_3_2b", "train_4k", cfg=cut,
+            shape=InputShape("mesh_train", %(seq)d, %(batch)d, "training"),
+            mesh_shape=(%(shape)r, %(axes)r), verbose=False, seed=%(seed)d))
 print("ROWS" + json.dumps(rows))
 """
 
 
 def dryrun_start():
-    """The dry run in a process of its own, on the CPU, started beside the
-    mesh phase: granite-3-2b's train_4k, prefill_32k and decode_32k rows
-    on the 16 x 16 mesh (a world of 256 on torch.distributed's fake
-    backend, the meta device), and the mesh phase's granite cut and train
-    shape at mesh (2, 2)."""
+    """The dry run in a process of its own, on the CPU, started before the
+    LM training phases and read after the mesh phase: granite-3-2b's
+    train_4k, prefill_32k and decode_32k rows on the 16 x 16 mesh (a
+    world of 256 on torch.distributed's fake backend, the meta device),
+    and the mesh phase's granite cut and train shape at mesh (2, 2)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     code = DRYRUN_CODE % {"layers": MESH_LM["layers"], "seq": MESH_LM["seq"],
                           "batch": MESH_LM["batch"], "shape": MESH_SHAPE,
@@ -7011,6 +7038,9 @@ def main() -> int:
     # the in-process online loop and LM training
     paths["online"], recs["online"] = online_phase(dev)
     emit(recs["online"])
+    # the dry run on the CPU from here on, beside the device-bound LM
+    # phases (beside the mesh phase it would take a core from its ranks)
+    dry = dryrun_start()
     paths["lm_train"], recs["lm_train"] = lm_train_phase(dev)
     timing["fused_backward"].update(
         {f"lm_put_{k}": recs["lm_train"]["lm_put"][k]
@@ -7034,9 +7064,7 @@ def main() -> int:
     # the multi-process embedding PS
     remote_paths, recs["remote"] = remote_phase(dev, recs["sharded"])
     paths.update(remote_paths)
-    # the mesh paths: SPMD worlds of worker processes on the one card, the
-    # dry run on the CPU beside them
-    dry = dryrun_start()
+    # the mesh paths: SPMD worlds of worker processes on the one card
     mesh_paths, recs["mesh"] = mesh_phase(dev)
     paths.update(mesh_paths)
     recs["dryrun"] = dryrun_phase(dry, recs["mesh"])
@@ -7064,9 +7092,10 @@ def main() -> int:
             # the grouped kernels: one launch for a stage's 32 tables
             **{k: t[k] for k in STAGE_KEYS + SHAPE_KEYS if k in t}})
         check(kernels[-1]["launches"] > 0, f"{name} was never launched")
+    emit({"phase": "timeline", "at_s": TIMELINE})
     record = {"card": card, "build_s": build_s, "ptxas": ptxas,
               "kernel_timing": timing, "launch_floor_ms": floor, **recs,
-              "kernels": kernels}
+              "kernels": kernels, "timeline": TIMELINE}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(record, indent=1))

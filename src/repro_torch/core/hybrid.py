@@ -474,21 +474,24 @@ def _check_rows(name: str, spec, rows: int, shuffled_over=None):
     shard the table as its modulus: a table drawn or saved under k shards
     has ``round_up(rows, k)`` rows and its ids sit at their positions
     modulo that. Raise where the trainer would shuffle over other rows:
-    under a mesh, a table of other rows than its ``padded_rows``; anywhere,
-    a checkpoint that records another modulus (``shuffled_over``: a save
-    under a mesh records it). One process reads a larger table with no
-    record over its logical rows, as the JAX package does (the padding of
-    ``init(emb_shards=k)``)."""
+    under a mesh, a table of other rows than its ``padded_rows``; a
+    checkpoint that records another modulus (``shuffled_over``: this
+    package's ``save`` records it for every padded table); with no record,
+    a table of other rows than the modulus. So one process refuses a JAX
+    checkpoint saved under shards that pad (it records nothing, and a
+    table padded by the JAX package's ``init(emb_shards=k)`` in one
+    process looks the same) and takes this package's own padded save."""
     n = PS.n_shards(spec)
     want = spec.padded_rows(n)
-    got = rows if shuffled_over is None else int(shuffled_over)
-    if got != want and (shuffled_over is not None or n > 1):
+    got = int(shuffled_over) if shuffled_over is not None else rows
+    if got != want or (n > 1 and rows != want):
+        how = "was shuffled over" if shuffled_over is not None else "has"
         raise ValueError(
-            f"table {name!r} was shuffled over {got} rows but this trainer "
-            f"shuffles its {spec.rows} ids over {want} ({n} shard(s) of the "
-            f"mesh in scope): the ids would read other rows. A table "
-            f"under k shards has round_up({spec.rows}, k) rows; restore it "
-            f"under a shard count that pads to {got}")
+            f"table {name!r} {how} {got} rows but this trainer shuffles "
+            f"its {spec.rows} ids over {want} ({n} shard(s) of the mesh in "
+            f"scope): the ids would read other rows. A table under k "
+            f"shards has round_up({spec.rows}, k) rows; restore it under a "
+            f"shard count that pads to {got}")
 
 
 def _insertion_leaves(tree) -> list:
@@ -640,7 +643,8 @@ class PersiaTrainer:
         if mesh is None:
             return emb
         for n in emb:
-            if isinstance(BK.unwrap(self.backends[n]), BK.DenseBackend):
+            if isinstance(BK.unwrap(self.backends[n]), BK.DenseBackend) \
+                    and PS.n_shards(self.collection[n]) > 1:
                 _check_rows(n, self.collection[n],
                             int(emb[n]["table"].shape[0]))
         return {n: {k: local_block(mesh, sp, emb[n][k]).clone() for k, sp in
@@ -995,40 +999,54 @@ class PersiaTrainer:
     def save(self, directory: str, state: TrainState,
              step: int | None = None) -> str:
         """Write the full state in the JAX package's format; returns the
-        checkpoint's path. Under a mesh every rank takes part: the blocks
-        are joined into the state of one process (:meth:`global_state`),
-        rank 0 writes it, and every rank returns once it is written (a
-        barrier), so no rank reads a checkpoint before it exists."""
-        import os
-
+        checkpoint's path. A dense table with more rows than ids (padded
+        under shards) records the rows its ids were shuffled over (a key
+        the JAX package ignores; see :func:`_check_rows`). Under a mesh every rank takes part: the
+        blocks are joined into the state of one process
+        (:meth:`global_state`), rank 0 writes it and sends every rank its
+        outcome, so no rank reads a checkpoint before it exists, and a
+        write that fails raises on every rank."""
         from repro_torch.checkpoint.ckpt import save_checkpoint
         from repro_torch.convert import state_to_numpy
-        from repro_torch.utils import barrier
+        from repro_torch.utils import from_rank0
         step = int(state.step) if step is None else int(step)
         mesh = get_mesh()
-        if mesh is not None and mesh.n_ranks > 1:
+        spmd = mesh is not None and mesh.n_ranks > 1
+        if spmd:
             state = self.global_state(state)
-            if mesh.rank != 0:
-                barrier()
-                return os.path.join(directory, f"step_{step:08d}")
-        tree = state_to_numpy(state)
-        dense_tree = {"dense": tree["dense"], "opt": tree["opt"]}
-        if tree["dense_queue"] is not None:
-            dense_tree["dense_queue"] = tree["dense_queue"]
-        emb_tree = {"emb": {n: BK.unwrap(self.backends[n])
-                            .state_for_checkpoint(state.emb[n])
-                            for n in state.emb},
-                    "emb_queue": tree["emb_queue"]}
-        if mesh is not None and mesh.n_ranks > 1:
-            # the rows each dense table's ids were shuffled over (the JAX
-            # package reads the two keys above and ignores this one)
-            emb_tree["shuffled_over"] = {
-                n: np.int64(sp.padded_rows(PS.n_shards(sp)))
-                for n, sp in self.collection.items()
-                if isinstance(BK.unwrap(self.backends[n]), BK.DenseBackend)}
-        path = save_checkpoint(directory, step, dense_tree, emb_tree)
-        if mesh is not None and mesh.n_ranks > 1:
-            barrier()
+        path, error = None, None
+        if not spmd or mesh.rank == 0:
+            tree = state_to_numpy(state)
+            dense_tree = {"dense": tree["dense"], "opt": tree["opt"]}
+            if tree["dense_queue"] is not None:
+                dense_tree["dense_queue"] = tree["dense_queue"]
+            emb_tree = {"emb": {n: BK.unwrap(self.backends[n])
+                                .state_for_checkpoint(state.emb[n])
+                                for n in state.emb},
+                        "emb_queue": tree["emb_queue"]}
+            shuffled = {n: np.int64(sp.padded_rows(PS.n_shards(sp)))
+                        for n, sp in self.collection.items()
+                        if isinstance(BK.unwrap(self.backends[n]),
+                                      BK.DenseBackend)
+                        and state.emb[n]["table"].shape[0] != sp.rows}
+            if shuffled:
+                emb_tree["shuffled_over"] = shuffled
+            try:
+                path = save_checkpoint(directory, step, dense_tree, emb_tree)
+            except Exception as e:
+                if not spmd:
+                    raise
+                error = e
+        if not spmd:
+            return path
+        path, failed = from_rank0(
+            (path, None if error is None else f"{type(error).__name__}: "
+             f"{error}"))
+        if error is not None:
+            raise error
+        if failed is not None:
+            raise RuntimeError(f"rank 0 could not write the checkpoint in "
+                               f"{directory!r}: {failed}")
         return path
 
     def restore(self, directory: str, step: int | None = None) -> TrainState:

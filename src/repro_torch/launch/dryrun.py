@@ -12,12 +12,12 @@ memory. The program is the one a rank runs on the card: the trainer's
 step (``PersiaTrainer.train_step`` over ``lm_adapter``, hybrid mode, Adam),
 or the vocab lookup and ``transformer.prefill`` / ``decode_step``, each
 under the mesh (tensor parallelism over ``model``, ZeRO over ``data`` at
-``REPRO_ZERO_STAGE`` or ``--zero-stage``: 3 by default, 2 with the
-tensor-parallel weights whole over ``data`` and the per-step update's
-reduce-scatter and all-gather a leaf; the sequence-sharded decode
-caches). ``launch.op_cost`` counts it: FLOPs,
-HBM bytes, collective bytes by kind, the kernel wrappers as one kernel
-each. The token ids are real (the host builds the dedup plans from them).
+``REPRO_ZERO_STAGE``: 3 by default, 2 with the tensor-parallel weights
+whole over ``data`` and the per-step update's reduce-scatter and
+all-gather a leaf; the sequence-sharded decode caches).
+``launch.op_cost`` counts it: FLOPs, HBM bytes, collective bytes by kind,
+the kernel wrappers as one kernel each. The token ids are real (the host
+builds the dedup plans from them).
 
 A row has the JAX dry run's keys, with three changes: ``trace_s`` stands
 for ``lower_s`` / ``compile_s`` (nothing is compiled), XLA's
@@ -34,7 +34,9 @@ H100's rates (``H100``), not a TPU's.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite_3_2b
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod] \\
-      [--zero-stage 2] [--out f.json]
+      [--out f.json]
+  REPRO_ZERO_STAGE=2 PYTHONPATH=src python -m repro_torch.launch.dryrun \\
+      --arch granite_3_2b
 """
 from __future__ import annotations
 
@@ -446,23 +448,13 @@ def roofline(stats: dict, cfg, shape, n_chips: int) -> dict:
 
 def run_case(arch: str, shape_name: str, *, multi_pod: bool = False,
              verbose: bool = True, cfg=None, shape=None,
-             mesh_shape=None, seed: int = 0,
-             zero_stage: int | None = None) -> dict:
+             mesh_shape=None, seed: int = 0) -> dict:
     """One row. ``cfg`` / ``shape`` / ``mesh_shape`` override the arch's
     config, the named input shape and the production mesh (``mesh_shape``
     a ``(shape, axes)`` pair): a small case checked against a real run;
-    ``seed`` draws the token ids; ``zero_stage`` sets the partition rules'
-    ZeRO stage for this row (``REPRO_ZERO_STAGE``'s by default)."""
+    ``seed`` draws the token ids. The row is at the partition rules'
+    ZeRO stage (``REPRO_ZERO_STAGE``, or ``partition.zero_stage``)."""
     from repro_torch.sharding import partition as SP
-    if zero_stage is not None:
-        prev = SP.ZERO_STAGE
-        SP.ZERO_STAGE = int(zero_stage)
-        try:
-            return run_case(arch, shape_name, multi_pod=multi_pod,
-                            verbose=verbose, cfg=cfg, shape=shape,
-                            mesh_shape=mesh_shape, seed=seed)
-        finally:
-            SP.ZERO_STAGE = prev
     shape = INPUT_SHAPES[shape_name] if shape is None else shape
     run, transform, note = arch_shape_plan(arch, shape_name)
     mshape, axes = production_shape(multi_pod) if mesh_shape is None \
@@ -504,16 +496,13 @@ def main(argv=None) -> int:
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--out", default=None)
-    ap.add_argument("--zero-stage", type=int, default=None, choices=(2, 3),
-                    help="the dense stack's ZeRO stage (default: "
-                    "REPRO_ZERO_STAGE, else 3)")
     args = ap.parse_args(argv)
     torch.set_num_threads(1)
     archs = ARCH_IDS if (args.all or not args.arch) else [args.arch]
     shapes = list(INPUT_SHAPES) if (args.all or not args.shape) \
         else [args.shape]
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
-    cases = [run_case(a, s, multi_pod=mp, zero_stage=args.zero_stage)
+    cases = [run_case(a, s, multi_pod=mp)
              for mp in meshes for a in archs for s in shapes]
     if args.out:
         with open(args.out, "w") as f:

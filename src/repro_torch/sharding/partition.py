@@ -19,6 +19,7 @@ and :func:`from_blocks` joins every rank's blocks back (``out_specs``).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import re
 from typing import Any
@@ -53,6 +54,18 @@ class P(tuple):
 #   2 — params replicated over 'data' (still TP over 'model'); optimizer
 #       m/v stay 'data'-sharded
 ZERO_STAGE = int(os.environ.get("REPRO_ZERO_STAGE", "3"))
+
+
+@contextlib.contextmanager
+def zero_stage(stage: int):
+    """``ZERO_STAGE`` set to ``stage`` while open, for a run in the same
+    process (``REPRO_ZERO_STAGE`` sets it for a process)."""
+    global ZERO_STAGE
+    prev, ZERO_STAGE = ZERO_STAGE, int(stage)
+    try:
+        yield
+    finally:
+        ZERO_STAGE = prev
 
 # param-name -> (spec for 2D (d_in, d_out)) rules
 _COL_PARALLEL = {"wq", "wk", "wv", "wg", "wu", "wuq", "wuk", "wuv", "wq_b",

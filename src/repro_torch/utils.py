@@ -544,11 +544,16 @@ def gather_batch(x):
     return all_gather(x, batch_axes())
 
 
-def barrier() -> None:
-    """Every rank of the mesh in scope waits until all have arrived (the
-    identity without a mesh of more than one rank)."""
+def from_rank0(obj):
+    """Rank 0's ``obj`` (any picklable value) on every rank of the mesh in
+    scope; every rank waits until rank 0 sends it, so it doubles as a
+    barrier that carries rank 0's outcome. ``obj`` itself without a mesh
+    of more than one rank."""
     import torch.distributed as dist
     mesh = get_mesh()
     if mesh is None or mesh.n_ranks == 1:
-        return
-    dist.barrier(group=mesh.get_group(mesh.axis_names))
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=0,
+                               group=mesh.get_group(mesh.axis_names))
+    return box[0]

@@ -1085,13 +1085,14 @@ def test_resume_under_mesh_is_bit_exact(world, tag):
         _equal_trees(t["resumed_counters"], t["counters"], "counters")
 
 
-def test_padded_rows_between_shard_counts_are_refused(world):
+def test_padded_rows_between_shard_counts_are_refused(world, tmp_path):
     """60-row tables under 8 ranks are drawn and saved with 64 rows (the
     shuffle's modulus). One port process refuses that checkpoint, naming
     both sizes, and the mesh refuses one process's 60-row checkpoint.
     The JAX package restores the 64-row table into one device and reads
     other rows than the mesh wrote (its lookup takes the shuffle modulo
-    60): the finding ROADMAP Queue 3 records."""
+    60): the finding ROADMAP Queue 3 records. Its save of that state
+    records no modulus, and one port process refuses it too."""
     pad = world["ranks"][0]["pad"]
     for r in world["ranks"]:
         assert r["pad"]["refused"] is not None
@@ -1116,6 +1117,9 @@ def test_padded_rows_between_shard_counts_are_refused(world):
     mesh_rows = table[np.asarray(JPS.shuffle_pos(jnp.asarray(ids), 64))]
     other = ~np.all(jax_rows == mesh_rows, axis=1)
     assert other.mean() > 0.5, other.mean()
+    jt.save(str(tmp_path), js)
+    with pytest.raises(ValueError, match=r"has 64 rows .* 60 ids over 60"):
+        tt.restore(str(tmp_path))
 
 
 # ---------------------------------------------------------------------------
@@ -1272,4 +1276,4 @@ def test_no_mesh_paths_are_unchanged_without_a_mesh():
     assert utils.all_gather(x, ("data",)) is x
     assert PS.n_shards(EmbeddingSpec(**PS_FULL)) == 1
     assert utils.shard(x, "data") is x
-    utils.barrier()                     # the identity: no group to wait on
+    assert utils.from_rank0(x) is x     # no group to wait on

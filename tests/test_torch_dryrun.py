@@ -259,7 +259,7 @@ def test_dry_run_small_case_on_a_fake_mesh():
 
 def test_dry_run_at_zero_stage_2_on_a_fake_mesh():
     """The train row of reduced granite at mesh (2, 4) at ZeRO stages 3
-    and 2 (``run_case(zero_stage=)``, the CLI's ``--zero-stage``): stage 2
+    and 2 (``partition.zero_stage``; ``REPRO_ZERO_STAGE`` for the CLI): stage 2
     holds the tensor-parallel weights whole over ``data`` (more argument
     bytes) and all-gathers fewer times (one gather a leaf after the
     update, none a layer), and the stage is restored after the row.
@@ -272,11 +272,13 @@ def test_dry_run_at_zero_stage_2_on_a_fake_mesh():
         from repro_torch.launch import dryrun as DR
         from repro_torch.sharding import partition as SP
         cfg = get_config("granite_3_2b", reduced=True)
-        rows = {s: DR.run_case("granite_3_2b", "t", cfg=cfg,
-                               shape=InputShape("t", 64, 4, "training"),
-                               mesh_shape=((2, 4), ("data", "model")),
-                               verbose=False, zero_stage=s)
-                for s in (3, 2)}
+        rows = {}
+        for s in (3, 2):
+            with SP.zero_stage(s):
+                rows[s] = DR.run_case(
+                    "granite_3_2b", "t", cfg=cfg,
+                    shape=InputShape("t", 64, 4, "training"),
+                    mesh_shape=((2, 4), ("data", "model")), verbose=False)
         rows["after"] = SP.ZERO_STAGE
         print("ROWS" + json.dumps(rows))
     """)

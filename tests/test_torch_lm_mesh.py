@@ -266,17 +266,16 @@ WORLD = textwrap.dedent("""
         rec = {}
         tr.save(f"{work}/lm_ck", s)
         rec["saved"] = convert.state_to_numpy(tr.global_state(s))
-        SP.ZERO_STAGE = 2
-        try:
+        with SP.zero_stage(2):
             t2 = PersiaTrainer(adapters.lm_adapter(cfg, lr=%(emb_lr)r),
                                TrainMode.hybrid(1),
                                OptConfig(kind="adam", lr=%(dense_lr)r),
                                device="cpu")
             rec["restored_z2"] = convert.state_to_numpy(t2.global_state(
                 t2.restore(f"{work}/lm_ck")))
-            calls = {}
-            for stage in (2, 3):
-                SP.ZERO_STAGE = stage
+        calls = {}
+        for stage in (2, 3):
+            with SP.zero_stage(stage):
                 t = PersiaTrainer(adapters.lm_adapter(cfg, lr=%(emb_lr)r),
                                   TrainMode.hybrid(1),
                                   OptConfig(kind="adam", lr=%(dense_lr)r),
@@ -299,9 +298,7 @@ WORLD = textwrap.dedent("""
                             t.dense_specs(), sz.dense)),
                         "moment_bytes": sum(x.numel() * 4 for x in leaves(
                             t.moment_specs(), sz.opt["m"]))}
-            rec["z2"]["collectives"] = calls
-        finally:
-            SP.ZERO_STAGE = 3
+        rec["z2"]["collectives"] = calls
         return rec
     for arch in inp["archs"]:
         d, cfg = inp[arch], get_config(arch, reduced=True)
@@ -389,10 +386,9 @@ WORLD = textwrap.dedent("""
     # ---- op_cost around one train step, against the dry run --------------
     shape = InputShape("mesh_train", %(seq)d, %(batch)d, "training")
     for arch, stage in [(a, 3) for a in %(cost)r] + [(%(cost)r[0], 2)]:
-        SP.ZERO_STAGE = stage
-        c = DR.measure(get_config(arch, reduced=True), shape, mesh,
-                       device="cpu")
-        SP.ZERO_STAGE = 3
+        with SP.zero_stage(stage):
+            c = DR.measure(get_config(arch, reduced=True), shape, mesh,
+                           device="cpu")
         key = "cost_" + arch + ("" if stage == 3 else "_zero2")
         out[key] = {k: c[k] for k in (
             "flops_per_device", "hbm_bytes_per_device", "collectives",
@@ -420,6 +416,7 @@ DRY = textwrap.dedent("""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import InputShape
     from repro_torch.launch import dryrun as DR
+    from repro_torch.sharding import partition as SP
     out = {}
     for arch in %(cost)r:
         row = DR.run_case(arch, "train_4k",
@@ -429,10 +426,12 @@ DRY = textwrap.dedent("""
                           mesh_shape=((2, 4), ("data", "model")),
                           verbose=False)
         out[arch] = row
-    out[%(cost)r[0] + "_zero2"] = DR.run_case(
-        %(cost)r[0], "train_4k", cfg=get_config(%(cost)r[0], reduced=True),
-        shape=InputShape("mesh_train", %(seq)d, %(batch)d, "training"),
-        mesh_shape=((2, 4), ("data", "model")), verbose=False, zero_stage=2)
+    with SP.zero_stage(2):
+        out[%(cost)r[0] + "_zero2"] = DR.run_case(
+            %(cost)r[0], "train_4k",
+            cfg=get_config(%(cost)r[0], reduced=True),
+            shape=InputShape("mesh_train", %(seq)d, %(batch)d, "training"),
+            mesh_shape=((2, 4), ("data", "model")), verbose=False)
     print("DRY" + json.dumps(out))
 """) % {"cost": COST_ARCHS, "seq": S, "batch": B}
 
