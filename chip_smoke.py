@@ -502,7 +502,7 @@ LONE_REPS = 200
 # trials per (backend, regime, runner), steps counted under the sync debug
 # mode and profiled, serial steps that warm a host_lru cache until it
 # evicts; the deep runner's window and a host_lru trainer's look-ahead
-PIPE_STEPS = {"warmup": 2, "timed": 20, "trials": 3, "syncs": 6,
+PIPE_STEPS = {"warmup": 2, "timed": 10, "trials": 3, "syncs": 6,
               "profiled": 4, "lru_warm": 26}
 PIPE_INFLIGHT, PIPE_PREFETCH = 4, 2
 # the sharded router: kwai-dlrm over SHARDS shards; its dense tables at a
@@ -749,7 +749,40 @@ def device_split(fn, reps: int, calls_per_fn: int) -> dict:
             us = e.self_cuda_time_total
         if us > 0:
             split[e.key] = us / n
+    # the raw events' sums every other profiled run reads stand here beside
+    # the profiler's own
+    raw = {k: us / n for k, (us, _) in device_times(prof).items() if us > 0}
+    check(raw.keys() == split.keys() and all(
+        abs(raw[k] - split[k]) <= 1e-6 * max(1.0, split[k]) for k in raw),
+        f"device times from the raw events {raw} against key_averages "
+        f"{split}")
     return split
+
+
+def device_times(prof) -> dict:
+    """{name: [device us, count]} of every device activity (kernel, copy,
+    memset) ``prof`` recorded, summed from the profiler's raw events: the
+    ``self_device_time_total`` and ``count`` that ``key_averages()`` gives
+    under device-only profiling, without building its event tree (which
+    takes seconds at a full model's events)."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or _filter_name(e.name()) \
+                or getattr(e, "is_hidden_event", lambda: False)() \
+                or e.is_async() or e.start_thread_id() != e.end_thread_id():
+            continue
+        t = out.setdefault(_rewrite_name(name=e.name(), with_wildcard=True),
+                           [0.0, 0])
+        t[0] += (e.end_ns() - e.start_ns()) / 1e3
+        t[1] += 1
+    return out
+
+
+def device_us(prof) -> float:
+    """Device us of everything ``prof`` recorded (``device_times``)."""
+    return sum(us for us, _ in device_times(prof).values())
 
 
 # ---------------------------------------------------------------------------
@@ -1909,8 +1942,8 @@ def sdpa_backend(q, k, v, **kw) -> dict:
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         F.scaled_dot_product_attention(q, k, v, **kw)
         torch.cuda.synchronize()
-    kernels = sorted({e.key for e in prof.key_averages()
-                      if e.self_device_time_total > 0})
+    kernels = sorted(k for k, (us, _) in device_times(prof).items()
+                     if us > 0)
     return {"choice": choice, "kernels": kernels[:6]}
 
 
@@ -2033,12 +2066,12 @@ def flush_breakdown(trainer, state, batch, reps: int = 20) -> dict:
         for _ in range(reps):
             pooled, _ = trainer.serve_lookup(state, batch)
             trainer.adapter.predict(state.dense, pooled, batch).cpu()
-    device_us = sum(e.self_device_time_total for e in prof.key_averages())
+    busy_us = device_us(prof)
     flush_ms = float(np.median(lookup_ms) + np.median(predict_ms))
     return {"lookup_ms": float(np.median(lookup_ms)),
             "predict_ms": float(np.median(predict_ms)),
-            "device_ms": device_us / 1e3 / reps,
-            "device_busy_share": device_us / 1e3 / reps / flush_ms}
+            "device_ms": busy_us / 1e3 / reps,
+            "device_busy_share": busy_us / 1e3 / reps / flush_ms}
 
 
 def plain_predict(trainer, state, batch):
@@ -2439,8 +2472,7 @@ def train_phase(dev, backend="dense", timed=TIMED_STEPS,
         for b in rest[breakdown:]:
             state, _ = trainer.step(state, b)
         torch.cuda.synchronize()
-    device_ms = sum(e.self_device_time_total
-                    for e in prof.key_averages()) / 1e3 / profiled
+    device_ms = device_us(prof) / 1e3 / profiled
     check_rings(trainer, state, n_main, f"{backend} hybrid")
     ratio = None
     if backend != "dense":
@@ -2513,8 +2545,7 @@ def flat_train_phase(dev, steps=4, profiled=2):
         for b in batches[steps:]:
             state, _ = trainer.step(state, b)
         torch.cuda.synchronize()
-    device_ms = sum(e.self_device_time_total
-                    for e in prof.key_averages()) / 1e3 / profiled
+    device_ms = device_us(prof) / 1e3 / profiled
     check_rings(trainer, state, steps + profiled, "flat hybrid")
     width = int(state.emb_queue["field_00"]["ids"].shape[1])
     check(width == TRAIN_B * L, f"flat queue width {width}")
@@ -2637,8 +2668,7 @@ def lm_serve_phase(dev):
         prof_res = lm_serve.serve(cfg, LM_B, LM_PROMPT, LM_GEN, SEED,
                                   device=dev, state=state)
         wall = time.perf_counter() - t0
-    device_s = sum(e.self_device_time_total
-                   for e in prof.key_averages()) / 1e6
+    device_s = device_us(prof) / 1e6
     check(np.array_equal(prof_res["tokens"], toks),
           "lm serve: a second run gave other tokens")
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2853,10 +2883,10 @@ def lm_moe_serve_phase(dev):
         prof_res = lm_serve.serve(cfg, LM_B, LM_PROMPT, LM_GEN, SEED,
                                   device=dev, state=state)
         wall = time.perf_counter() - t1
-    events = prof.key_averages()        # slow at a full model's events
-    device_s = sum(e.self_device_time_total for e in events) / 1e6
-    top_kernels = sorted(((e.self_device_time_total / 1e3, e.key)
-                          for e in events), reverse=True)[:8]
+    events = device_times(prof)
+    device_s = sum(us for us, _ in events.values()) / 1e6
+    top_kernels = sorted(((us / 1e3, k) for k, (us, _) in events.items()),
+                         reverse=True)[:8]
     check(np.array_equal(prof_res["tokens"], toks),
           "lm moe serve: a second run gave other tokens")
     part["profiled"] = time.perf_counter() - t0
@@ -3067,8 +3097,7 @@ def train_host_lru_phase(dev):
         for b in rest[steps["breakdown"]:]:
             state, _ = trainer.step(state, b)
         torch.cuda.synchronize()
-    device_ms = sum(e.self_device_time_total
-                    for e in prof.key_averages()) / 1e3 / steps["profiled"]
+    device_ms = device_us(prof) / 1e3 / steps["profiled"]
     check_rings(trainer, state, n_main, "host_lru hybrid")
     tables = lru_backends(trainer)
     few = [n for n, b in zip(trainer.collection.names, tables)
@@ -3567,8 +3596,7 @@ def syncs_and_busy(trainer, runner, start, batches, delay) -> dict:
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         state, _, wall = pipe_run(trainer, engine, state, profiled, delay)
-    dev_ms = sum(e.self_device_time_total
-                 for e in prof.key_averages()) / 1e3
+    dev_ms = device_us(prof) / 1e3
     del state
     return {"syncs_per_step": syncs / p["syncs"],
             "device_ms_per_step": dev_ms / len(profiled),
@@ -4054,12 +4082,11 @@ def profile_run(fn):
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    top = sorted(((e.self_device_time_total, e.key) for e in events),
-                 reverse=True)
+    events = device_times(prof)
+    top = sorted(((us, k) for k, (us, _) in events.items()), reverse=True)
     return (out, wall, sum(us for us, _ in top) / 1e6,
             [(k, us / 1e3) for us, k in top[:8]],
-            sum(e.count for e in events if e.self_device_time_total > 0))
+            sum(n for us, n in events.values() if us > 0))
 
 
 def lm_moe_train_phase(dev):
@@ -4781,10 +4808,11 @@ def sharded_pipeline(dev, ds, trainer, state) -> tuple[dict, dict]:
     return counts, {"steps": n, "inflight1_bit_equal": True, **runs}
 
 
-def sharded_phase(dev):
+def sharded_phase(dev, router_cpu: dict):
     """The sharded embedding-PS router at kwai-dlrm's full width (32 tables
-    x D=128, FFNN 4112 -> ... -> 4, batch 512, hybrid(3), k=4). Returns
-    the main paths' counts (the 4-shard runs) and the record."""
+    x D=128, FFNN 4112 -> ... -> 4, batch 512, hybrid(3), k=4), with
+    ``router_card_vs_cpu``'s record ``router_cpu``. Returns the main
+    paths' counts (the 4-shard runs) and the record."""
     ds = CTR_BENCHMARKS["kwai_video"]
     st = SHARD_STEPS
     t_phase = time.perf_counter()
@@ -4830,8 +4858,8 @@ def sharded_phase(dev):
     torch.cuda.empty_cache()
     # (b) dense at the config's 62,500 rows: the router on the card
     # against the router on the CPU (shuffle collisions make one shard
-    # differ from four there, in both packages)
-    rec["card_vs_cpu_62500"] = router_card_vs_cpu(dev, ds, st["cpu"])
+    # differ from four there, in both packages), run before this phase
+    rec["card_vs_cpu_62500"] = router_cpu
     # (c) host_lru at 62,500 rows, 7,812 slots: 4 shards against 1
     lru = sharded_lru_runs(dev, ds)
     (t1, s1), (t4, s4) = ((lru[k]["trainer"], lru[k]["state"])
@@ -5167,8 +5195,7 @@ def timed_run(dev, tr, batches, members=None) -> dict:
             s, _ = tr.step(s, b)
         torch.cuda.synchronize()
         pwall = time.perf_counter() - t0
-    dev_ms = sum(e.self_device_time_total
-                 for e in prof.key_averages()) / 1e3
+    dev_ms = device_us(prof) / 1e3
     out["device_ms_per_step"] = dev_ms / st["profiled"]
     out["device_busy_share"] = dev_ms / (pwall * 1e3)
     return out
@@ -5237,38 +5264,17 @@ def remote_online(dev, ds, members) -> dict:
             "feedback_batches": res["feedback_batches"]}
 
 
-def remote_phase(dev, sharded):
-    """The multi-process embedding PS at kwai-dlrm's full width (32 tables
-    x D=128, batch 512, hybrid(3)); ``sharded`` is ``sharded_phase``'s
-    record, whose router k=4 readings stand beside the remote k=4 ones.
-    Returns the main paths' counts (the runs over PS threads, whose
-    apply-only launches count in this process) and the record, with the
-    seconds of each part."""
+def remote_checks(dev) -> tuple[dict, dict]:
+    """The multi-process embedding PS's parts that read no rate but
+    ``recovery_s``: (a) the bit checks over PS threads and (d) the kill
+    drill. Returns the main paths' counts (the runs over PS threads, whose
+    apply-only launches count in this process) and their records, with
+    the seconds of each part."""
     ds = CTR_BENCHMARKS["kwai_video"]
-    t_phase = time.perf_counter()
-    rec = {"phase": "remote", "model": KWAI.name, "batch": TRAIN_B,
-           "mode": f"hybrid({TAU})", "k": REMOTE_K, "part_s": {}}
-    paths, rec["bit_checks"] = remote_same_runs(dev, ds)
-    rec["part_s"]["bit_checks"] = time.perf_counter() - t_phase
-    # (b) and (c) over 4 PS processes spawned once; no spool: a spool
-    # writes the table's whole state to disk per put (the kill drill
-    # below runs with it and reads its cost)
     t0 = time.perf_counter()
-    work = ROOT / "build" / "remote_ps"
-    members = ps_cluster.spawn_cluster(str(work), REMOTE_K, spool_every=0,
-                                       device=str(dev))
-    rec["part_s"]["spawn"] = time.perf_counter() - t0
-    try:
-        t0 = time.perf_counter()
-        rec["timed"] = remote_timed_runs(dev, ds, sharded, members)
-        rec["part_s"]["timed"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        rec["online"] = remote_online(dev, ds, members)
-        rec["part_s"]["online"] = time.perf_counter() - t0
-    finally:
-        ps_cluster.stop_ps(members)
-        shutil.rmtree(work, ignore_errors=True)
-    torch.cuda.empty_cache()
+    rec = {"part_s": {}}
+    paths, rec["bit_checks"] = remote_same_runs(dev, ds)
+    rec["part_s"]["bit_checks"] = time.perf_counter() - t0
     # (d) the kill drill: 3 PS processes, shard 1 SIGKILLed before step
     # kill_at, its spooled rows resharded onto the survivors
     st = REMOTE_STEPS
@@ -5296,9 +5302,43 @@ def remote_phase(dev, sharded):
         drill["step_s"][1:st["kill_at"]])) * 1e3
     del tr
     torch.cuda.empty_cache()
+    return paths, rec
+
+
+def remote_phase(dev, sharded, checks: dict):
+    """The multi-process embedding PS at kwai-dlrm's full width (32 tables
+    x D=128, batch 512, hybrid(3)): ``remote_checks``' record ``checks``,
+    then the timed runs and the online loop over PS processes;
+    ``sharded`` is ``sharded_phase``'s record, whose router k=4 readings
+    stand beside the remote k=4 ones. Returns the record, with the
+    seconds of each part."""
+    ds = CTR_BENCHMARKS["kwai_video"]
+    t_phase = time.perf_counter()
+    rec = {"phase": "remote", "model": KWAI.name, "batch": TRAIN_B,
+           "mode": f"hybrid({TAU})", "k": REMOTE_K, **checks,
+           "part_s": dict(checks["part_s"])}
+    # (b) and (c) over 4 PS processes spawned once; no spool: a spool
+    # writes the table's whole state to disk per put (the kill drill of
+    # remote_checks runs with it and reads its cost)
+    t0 = time.perf_counter()
+    work = ROOT / "build" / "remote_ps"
+    members = ps_cluster.spawn_cluster(str(work), REMOTE_K, spool_every=0,
+                                       device=str(dev))
+    rec["part_s"]["spawn"] = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        rec["timed"] = remote_timed_runs(dev, ds, sharded, members)
+        rec["part_s"]["timed"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec["online"] = remote_online(dev, ds, members)
+        rec["part_s"]["online"] = time.perf_counter() - t0
+    finally:
+        ps_cluster.stop_ps(members)
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
     rec["phase_s"] = time.perf_counter() - t_phase
     emit(rec)
-    return paths, rec
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -6156,22 +6196,30 @@ def mesh_lm_train(dev, mesh, cfg, p: dict, disp: str = "psum") -> dict:
     mk = lambda: PersiaTrainer(ad, TrainMode.hybrid(tau), OptConfig(  # noqa
         kind="adam", lr=DENSE_LR), device=dev)
     rt, tr = mk(), mk()
-    ref = rt.init(MESH_SEED, batches[0])
-    tspec = SP.emb_state_specs(ref.emb["vocab"],
-                               tr.collection["vocab"])["table"]
     with set_mesh(mesh):
-        st = tr.local_state(ref)
         specs = tr.dense_specs()
-        blk = lambda tree: SP._zip_map(  # noqa: E731
-            lambda s, x: SP.local_block(mesh, s, x).clone(), specs, tree)
-        start = blk(ref.dense)
-        unshared = ~SP.local_block(mesh, SP.P(tspec[0]), shared_rows(
-            tr.collection["vocab"]).to(dev))
-    # the global state is drawn again from the seed for the reference:
-    # four of it (DeepSeek-V2's cut with its moments) do not fit the card
-    del ref
-    gc.collect()
-    torch.cuda.empty_cache()
+    blk = lambda tree: SP._zip_map(  # noqa: E731
+        lambda s, x: SP.local_block(mesh, s, x).clone(), specs, tree)
+    # the global state is drawn from the seed, its blocks kept and drawn
+    # again for the reference: four of it (DeepSeek-V2's cut with its
+    # moments) do not fit the card beside the other processes' work, so
+    # a MoE's ranks draw theirs in turn
+    turns = range(mesh.n_ranks) if cfg.n_experts else [mesh.rank]
+    for r in turns:
+        if r == mesh.rank:
+            ref = rt.init(MESH_SEED, batches[0])
+            tspec = SP.emb_state_specs(ref.emb["vocab"],
+                                       tr.collection["vocab"])["table"]
+            with set_mesh(mesh):
+                st = tr.local_state(ref)
+                start = blk(ref.dense)
+                unshared = ~SP.local_block(mesh, SP.P(tspec[0]), shared_rows(
+                    tr.collection["vocab"]).to(dev))
+            del ref
+            gc.collect()
+            torch.cuda.empty_cache()
+        if len(turns) > 1:
+            torch.distributed.barrier()
     snaps, got = [], []
     orig_topk = lm_moe.router_topk
 
@@ -6467,6 +6515,8 @@ def mesh_worker(rank: int, world: int, backend: str, work: str,
             rec[part] = fn(dev, mesh, ("gqa",)) if world == 1 else \
                 fn(dev, mesh)
             rec[f"{part}_s"] = time.perf_counter() - t
+        if device == "cuda":
+            rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -6474,34 +6524,63 @@ def mesh_worker(rank: int, world: int, backend: str, work: str,
     return 0
 
 
-def mesh_phase(dev):
-    """The mesh paths on the card: a world of 4 gloo processes (mesh data
-    2 x model 2) and a world of one over NCCL, started together as
-    ``--mesh-worker`` processes of this script. Checks every rank's
-    record (the collectives gloo carries on CUDA tensors; kwai-dlrm under
-    the mesh against one process; the MoE's two dispatches; the decode)
-    and returns the trainer's launches summed over the ranks as the
-    ``mesh_train`` path, with the phase's record."""
-    t_phase = time.perf_counter()
+MESH_WORLDS = {"gloo": math.prod(MESH_SHAPE), "nccl": 1}
+
+
+def mesh_start() -> dict:
+    """Starts ``mesh_phase``'s worlds: a world of 4 gloo processes (mesh
+    data 2 x model 2) and a world of one over NCCL, together, as
+    ``--mesh-worker`` processes of this script, each writing its output to
+    a log file. They run while this process goes on."""
     work = ROOT / "build" / "mesh"
     shutil.rmtree(work, ignore_errors=True)
-    worlds = {"gloo": math.prod(MESH_SHAPE), "nccl": 1}
-    procs = []
+    started = {"t0": time.perf_counter(), "work": work, "procs": []}
     try:
-        for backend, n in worlds.items():
+        for backend, n in MESH_WORLDS.items():
             (work / backend).mkdir(parents=True)
-            procs += [(backend, r, subprocess.Popen(
-                [sys.executable, str(ROOT / "chip_smoke.py"),
-                 "--mesh-worker", str(r), str(n), backend,
-                 str(work / backend)], stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True))
-                for r in range(n)]
-        logs = {(b, r): p.communicate(timeout=600)[0] for b, r, p in procs}
+            for r in range(n):
+                log = open(work / backend / f"rank{r}.log", "w")
+                started["procs"].append((backend, r, log, subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"),
+                     "--mesh-worker", str(r), str(n), backend,
+                     str(work / backend)], stdout=log,
+                    stderr=subprocess.STDOUT)))
+    except BaseException:
+        mesh_stop(started)
+        raise
+    return started
+
+
+def mesh_stop(started: dict):
+    """Ends every process of ``mesh_start`` that is still running."""
+    for _, _, log, p in started["procs"]:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+        log.close()
+
+
+def mesh_phase(started: dict):
+    """The mesh paths on the card, from the worlds ``mesh_start`` started:
+    waits for them, then checks every rank's record (the collectives gloo
+    carries on CUDA tensors; kwai-dlrm under the mesh against one process;
+    the tiers and checkpoints; the MoE's two dispatches; the decode; the
+    LM) and returns the trainer's launches summed over the ranks as the
+    ``mesh_train`` path, with the phase's record."""
+    t_phase, work, procs = started["t0"], started["work"], started["procs"]
+    worlds = MESH_WORLDS
+    t_wait = time.perf_counter()
+    try:
+        for _, _, _, p in procs:
+            p.wait(timeout=max(1.0, 900 - (time.perf_counter() - t_phase)))
+    except subprocess.TimeoutExpired:
+        pass
     finally:
-        for _, _, p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        mesh_stop(started)
+    wait_s = time.perf_counter() - t_wait
+    logs = {(b, r): (work / b / f"rank{r}.log").read_text()
+            for b, r, _, _ in procs}
+    procs = [(b, r, p) for b, r, _, p in procs]
     recs = {}
     for b, r, p in procs:
         path = work / b / f"rank{r}.json"
@@ -6519,7 +6598,9 @@ def mesh_phase(dev):
            "collectives_gloo_cuda": gl[0]["collectives"],
            "collectives_nccl_world_of_one": nc["collectives"],
            "not_carried": gl[0]["not_carried"],
-           "setup_s": max(g["setup_s"] for g in gl)}
+           "setup_s": max(g["setup_s"] for g in gl),
+           "peak_gib_per_rank": [g.get("peak_gib") for g in gl]
+           + [nc.get("peak_gib")]}
     for g in gl:
         check(g["collectives"] == gl[0]["collectives"],
               f"mesh: ranks disagree on the collectives {g['collectives']}")
@@ -6611,7 +6692,10 @@ def mesh_phase(dev):
     rec["lm"] = mesh_lm_check(gl, lm_launches)
     rec["part_s"] = {k: max(g.get(f"{k}_s", 0.0) for g in gl)
                      for k in ("train", "tiers", "moe", "decode", "lm")}
+    # from the worlds' start; the checks run beside them until "wait_s"
+    # before the end of the phase
     rec["phase_s"] = time.perf_counter() - t_phase
+    rec["wait_s"] = wait_s
     emit(rec)
     return {"mesh_train": (launches, served),
             "mesh_tiers": (tier_launches, tier_served),
@@ -6998,13 +7082,10 @@ def main() -> int:
     emit(recs["serve_wire"])
     paths["train"], recs["train"] = train_phase(dev)
     emit(recs["train"])
-    recs["train"]["card_vs_cpu"] = card_vs_cpu(dev, ds)
     paths["train_wire"], recs["train_wire"] = train_phase(
         dev, WIRE, WIRE_STEPS["timed"], WIRE_STEPS["breakdown"],
         WIRE_STEPS["profiled"], WIRE_STEPS["modes"])
     emit(recs["train_wire"])
-    recs["train_wire"]["card_vs_cpu"] = card_vs_cpu(
-        dev, ds, WIRE, ((TrainMode.sync(), 2), (TrainMode.hybrid(TAU), 4)))
     paths["train_flat"], recs["train_flat"] = flat_train_phase(dev)
     emit(recs["train_flat"])
     paths["sgd_entry"], recs["sgd_entry"] = sgd_entry_path(dev)
@@ -7058,15 +7139,28 @@ def main() -> int:
         {f"lm_put_1024_{k}": recs["encdec_train"]["lm_put"][k]
          for k in ("ms", "bound_ms", "bound_by", "plain_ms")})
     recs["granite_cuts"] = granite_cuts_phase(dev)
-    # the sharded embedding-PS router
-    sharded_paths, recs["sharded"] = sharded_phase(dev)
-    paths.update(sharded_paths)
-    # the multi-process embedding PS
-    remote_paths, recs["remote"] = remote_phase(dev, recs["sharded"])
+    # the mesh paths: SPMD worlds of worker processes on the one card, run
+    # beside this process's checks that read no rate (the card against
+    # the CPU, the PS's bit checks and kill drill); the phases that time
+    # steps follow once the worlds are done
+    mesh = mesh_start()
+    try:
+        recs["train"]["card_vs_cpu"] = card_vs_cpu(dev, ds)
+        recs["train_wire"]["card_vs_cpu"] = card_vs_cpu(
+            dev, ds, WIRE, ((TrainMode.sync(), 2),
+                            (TrainMode.hybrid(TAU), 4)))
+        router_cpu = router_card_vs_cpu(dev, ds, SHARD_STEPS["cpu"])
+        remote_paths, remote_recs = remote_checks(dev)
+    except BaseException:
+        mesh_stop(mesh)
+        raise
     paths.update(remote_paths)
-    # the mesh paths: SPMD worlds of worker processes on the one card
-    mesh_paths, recs["mesh"] = mesh_phase(dev)
+    mesh_paths, recs["mesh"] = mesh_phase(mesh)
     paths.update(mesh_paths)
+    # the sharded embedding-PS router, and the multi-process embedding PS
+    sharded_paths, recs["sharded"] = sharded_phase(dev, router_cpu)
+    paths.update(sharded_paths)
+    recs["remote"] = remote_phase(dev, recs["sharded"], remote_recs)
     recs["dryrun"] = dryrun_phase(dry, recs["mesh"])
     recs["train_launcher"] = launcher_phase(dev)
 
