@@ -156,8 +156,8 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    steps until it evicts), from one start state per backend through the
    serial ``trainer.run``, ``PipelinedTrainer(max_inflight=1)`` and
    ``PipelinedTrainer(max_inflight=4)`` (host_lru: ``prefetch=2``),
-   without host latency and with a prepare delay of one serial step: 3
-   trials of 2 + 20 steps per runner, the runners taking turns; steps/s
+   without host latency and with a prepare delay of one serial step: 2
+   trials of 2 + 8 steps per runner, the runners taking turns; steps/s
    (median and spread), the stages' busy seconds and occupancy, host_lru's
    faults, write-backs and eviction wait per step. max_inflight=1 must
    equal the serial run bit for bit (losses, tables, accumulators, queues,
@@ -338,10 +338,10 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    a 4,096-position cache, 2,048 positions a model rank) against the
    decode with no mesh, within 3e-5 of the largest output; (d) the LM
    under the mesh, tensor-parallel over model and ZeRO-3 over data
-   (``mesh_lm_rank``): granite-3-2b cut to 2 layers at full width, 3
+   (``mesh_lm_rank``): granite-3-2b cut to 2 layers at full width, 2
    hybrid(1) Adam steps at B=2, S=2,048 with remat (4 attention
    launches at 16 / 4 heads of 64 and 1 ``fused_backward`` a step a
-   rank), and its serve (a 2,048-token prefill and 32 greedy tokens at
+   rank), and its serve (a 2,048-token prefill and 8 greedy tokens at
    B=4, a 4,096-position cache, 2,048 a model rank); deepseek-v2-lite-16b
    cut to its prologue and one MoE layer, 2 steps under psum and under
    a2a (3 attention launches a step at 8 heads of (192, 128)). Each is
@@ -351,8 +351,20 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    read the initial table while the MoE routed alike, the vocab table on
    the rows no two ids share, every greedy token equal where the top-2
    gap exceeds the prefill's distance; then ``launch.op_cost`` around one
-   more granite step. The NCCL world of one decodes granite through
-   ``decode_dist`` the same way.
+   more granite step; (e) the embedding tiers that earlier slices did
+   not run under a mesh (``mesh_emb_rank``): the router over 4 shards
+   (dense at 65,536 rows a table; host_lru at 1,953 slots a shard with
+   admission, warmed until it writes back a row an applied put moved)
+   and kwai-dlrm's tables at occurrence width, each held step by step
+   as the tiers are; the serve read of the replicated and the
+   row-sharded tier's held state, bit for bit with one process; the
+   pipelined trainer on the row-sharded tier (max_inflight 1 bit for
+   bit with serial, PIPE_INFLIGHT's puts in batch order, the host tiers
+   alike on every rank); remote tables over PS processes (one with the
+   dense tables, REMOTE_K with host_lru tables) against the same run of
+   this process beside the world: the first step's lookups bit for bit,
+   the PS's counters, launches and frames equal. The NCCL world of one
+   decodes granite through ``decode_dist`` the same way.
 24. The dry run (``dryrun_phase``, a CPU process started before the LM
    training phases): granite-3-2b's train_4k, prefill_32k and decode_32k
    rows on the 16 x 16 mesh on the meta device, all ``ok``, and the mesh
@@ -502,7 +514,7 @@ LONE_REPS = 200
 # trials per (backend, regime, runner), steps counted under the sync debug
 # mode and profiled, serial steps that warm a host_lru cache until it
 # evicts; the deep runner's window and a host_lru trainer's look-ahead
-PIPE_STEPS = {"warmup": 2, "timed": 10, "trials": 3, "syncs": 6,
+PIPE_STEPS = {"warmup": 2, "timed": 8, "trials": 2, "syncs": 6,
               "profiled": 4, "lru_warm": 26}
 PIPE_INFLIGHT, PIPE_PREFETCH = 4, 2
 # the sharded router: kwai-dlrm over SHARDS shards; its dense tables at a
@@ -525,7 +537,7 @@ SHARD_STEPS = {"warmup": 2, "dense": 10, "lru": 30, "staged": 5, "cpu": 4,
 # runs' first 10 batches, over the loss spike of their steps 5-8
 REMOTE_K = 4
 REMOTE_STEPS = {"warmup": 2, "dense": 10, "lru": 30, "k4": 4, "lossy": 10,
-                "pipe": 6, "blocking": 4, "timed": 8, "staged": 4,
+                "pipe": 6, "blocking": 4, "timed": 6, "staged": 4,
                 "syncs": 3, "profiled": 3, "kill": 4, "kill_at": 2}
 REMOTE_TIMED_SEED = SEED + 41
 # the online loop over 2 PS processes: half the in-process loop's steps
@@ -601,13 +613,13 @@ MESH_MOE = {"batch": 2, "seq": 2048, "cf": 8.0}
 MESH_DECODE = {"batch": 4, "cache": 4096, "prefill": 2048, "steps": 32}
 MESH_SEED = SEED + 70
 # the LM under the mesh (tensor parallelism over model, ZeRO-3 over data)
-# in the same world: granite-3-2b at full width cut to 2 layers, 3
-# hybrid(1) Adam steps at B = 2, S = 2,048 with remat; its serve (a
-# 2,048-token prefill, 32 greedy tokens at B = 4 into a 4,096-position
+# in the same world: granite-3-2b at full width cut to 2 layers, 2
+# hybrid(1) Adam steps (tau + 1) at B = 2, S = 2,048 with remat; its serve (a
+# 2,048-token prefill, 8 greedy tokens at B = 4 into a 4,096-position
 # cache sequence-sharded over model); deepseek-v2-lite-16b cut to its
 # dense prologue and one MoE layer, 2 steps under each dispatch
-MESH_LM = {"layers": 2, "batch": 2, "seq": 2048, "steps": 3}
-MESH_LM_SERVE = {"batch": 4, "prompt": 2048, "gen": 32, "cache": 4096}
+MESH_LM = {"layers": 2, "batch": 2, "seq": 2048, "steps": 2}
+MESH_LM_SERVE = {"batch": 4, "prompt": 2048, "gen": 8, "cache": 4096}
 MESH_LM_MOE = {"repeats": 1, "batch": 2, "seq": 2048, "steps": 2}
 MESH_COLLECTIVES = ("all_reduce", "all_gather_into_tensor",
                     "all_to_all_single")
@@ -628,6 +640,29 @@ MESH_TIERS = (("lru_replicated", HOST_LRU, {"admit_threshold": 1.5}),
               ("wire", WIRE, {}))
 MESH_TIER = {"warm_cap": 60, "steps": 3, "resume": 2,
              "checkpoint": "lru_sharded"}
+# the embedding tiers under the mesh that earlier slices refused (mesh_emb,
+# in the same world), each held as MESH_TIERS are: the router over SHARDS
+# shards, its dense shards at SHARD_ROWS_POW2 rows a table (16,384 a
+# shard: the shuffle is a bijection), its host_lru shards at
+# sharded_lru_runs' 1,953 slots a shard, with admission and a bypass of
+# 487 (2,440 slots: 610 a rank); kwai-dlrm's tables at occurrence width
+# (batch_dedup=False) on the row-sharded tier's cache. The serve read on
+# the replicated and the row-sharded tiers' held state; the pipelined
+# trainer on the row-sharded one (serial, max_inflight 1, PIPE_INFLIGHT
+# with a look-ahead of PIPE_PREFETCH; "pipe_steps" steps each); remote
+# tables over PS processes that mesh_start starts (one with the dense
+# tables, REMOTE_K with host_lru tables), "remote_steps" steps each
+# against the same run of one process (this one, beside the world) over
+# PS processes of its own
+MESH_EMB_TIERS = (
+    ("router_dense", "dense", {"emb_shards": SHARDS,
+                               "rows": SHARD_ROWS_POW2}),
+    ("router_lru", HOST_LRU, {"emb_shards": SHARDS, "admit_threshold": 1.5,
+                              "bypass_rows": 1948}),
+    ("lru_flat", HOST_LRU, {"batch_dedup": False, "admit_threshold": 1.5,
+                            "bypass_rows": 1952}))
+MESH_EMB = {"serve": ("lru_replicated", "lru_sharded"),
+            "pipe": "lru_sharded", "pipe_steps": 3, "remote_steps": TAU + 1}
 
 KERNELS = {
     "embedding_bag": {"source": "src/repro_torch/kernels/csrc/bag.cu",
@@ -5346,11 +5381,11 @@ def remote_phase(dev, sharded, checks: dict):
 # ---------------------------------------------------------------------------
 
 @contextlib.contextmanager
-def count_collectives():
+def count_collectives(names=MESH_COLLECTIVES):
     """Counts the ``torch.distributed`` collectives the mesh paths call
     (by name) while it is open."""
     import torch.distributed as dist
-    calls = dict.fromkeys(MESH_COLLECTIVES, 0)
+    calls = dict.fromkeys(names, 0)
 
     def counted(name, fn):
         def call(*a, **k):
@@ -5358,7 +5393,7 @@ def count_collectives():
             return fn(*a, **k)
         return call
     with contextlib.ExitStack() as stack:
-        for name in MESH_COLLECTIVES:
+        for name in names:
             stack.enter_context(mock.patch.object(
                 dist, name, counted(name, getattr(dist, name))))
         yield calls
@@ -5578,9 +5613,35 @@ def mesh_tier_trainer(dev, backend, extra: dict):
 
 
 def lru_tiers_of(trainer) -> dict:
-    """{table: its HostLRUBackend} of a trainer's host_lru tables."""
-    return {n: BK.unwrap(b) for n, b in trainer.backends.items()
-            if isinstance(BK.unwrap(b), BK.HostLRUBackend)}
+    """{table: its HostLRUBackend} of a trainer's host_lru tables (a
+    router's host_lru shards under ``table/s<k>``)."""
+    out = {}
+    for key, sub, _ in storage_parts(trainer):
+        if isinstance(sub, BK.HostLRUBackend):
+            out[key] = sub
+    return out
+
+
+def storage_parts(trainer) -> list:
+    """[(key, storage backend, path)] of a trainer's tables: each table's
+    backend under its name, a router's shard backends under
+    ``table/s<k>`` (path: the keys to its state and queue)."""
+    out = []
+    for n, b in trainer.backends.items():
+        b = BK.unwrap(b)
+        if isinstance(b, BK.ShardedBackend):
+            out += [(f"{n}/s{k}", sub, (n, f"s{k}"))
+                    for k, sub in enumerate(b.shard_backends)]
+        else:
+            out.append((n, b, (n,)))
+    return out
+
+
+def at(tree: dict, path: tuple):
+    """``tree[path[0]][path[1]]...``."""
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 def lru_table_counters(trainer) -> dict:
@@ -5637,21 +5698,22 @@ def tier_agreement(mesh, trainer, got: dict, want: dict, start: dict,
     an fp16 rounding boundary rounds one way or the other)."""
     out = {"table": 0.0, "acc": 0.0, "update_rel": 0.0, "off_elements": 0,
            "off": []}
-    for n in trainer.collection.names:
-        spec = trainer.collection[n]
-        specs = SP.emb_state_specs(want[n], spec)
+    for n, sub, path in storage_parts(trainer):
+        spec = sub.spec
+        g, w, w0 = at(got, path), at(want, path), at(start, path)
+        specs = SP.emb_state_specs(w, spec)
         mask = None
-        if "slot_ids" in want[n]:
-            if not torch.equal(got[n]["slot_ids"], SP.local_block(
-                    mesh, specs["slot_ids"], want[n]["slot_ids"])):
+        if "slot_ids" in w:
+            if not torch.equal(g["slot_ids"], SP.local_block(
+                    mesh, specs["slot_ids"], w["slot_ids"])):
                 out["off"].append(f"{n}.slot_ids")
         else:
             mask = ~SP.local_block(mesh, specs["acc"], shared_rows(
-                spec)).to(got[n]["acc"].device)
+                spec)).to(g["acc"].device)
         for k, rtol, atol in (("table", 1e-4, 1e-6), ("acc", 1e-3, 1e-12)):
-            x = got[n][k]
-            y = SP.local_block(mesh, specs[k], want[n][k])
-            y0 = SP.local_block(mesh, specs[k], start[n][k])
+            x = g[k]
+            y = SP.local_block(mesh, specs[k], w[k])
+            y0 = SP.local_block(mesh, specs[k], w0[k])
             if mask is not None:
                 x, y, y0 = x[mask], y[mask], y0[mask]
             out[k] = max(out[k], float((x - y).abs().max()))
@@ -5682,11 +5744,11 @@ def queue_agreement(mesh, trainer, got: dict, want: dict,
     distance over the largest element is recorded."""
     from repro_torch.utils import all_gather, batch_axes
     out = {"queue_max_abs": 0.0, "queue_rel": 0.0, "queue_off": []}
-    for n in trainer.collection.names:
-        gq, wq = got[n], want[n]
-        if wq is None:
+    for n, sub, path in storage_parts(trainer):
+        if want[path[0]] is None:
             continue
-        rows, dim = trainer.collection[n].rows, int(wq["grads"].shape[-1])
+        gq, wq = at(got, path), at(want, path)
+        rows, dim = sub.spec.rows, int(wq["grads"].shape[-1])
         p = (int(wq["ptr"]) - 1) % int(wq["ids"].shape[0])
 
         def by_id(q, gather):
@@ -5768,8 +5830,8 @@ def mesh_tier_checkpoint(dev, mesh, work, tr, st, blocks, backend,
     return rec
 
 
-def mesh_tier_rank(dev, mesh, work) -> dict:
-    """kwai-dlrm at full width on each tier of MESH_TIERS under the mesh:
+def mesh_tier_rank(dev, mesh, work, tiers=None) -> dict:
+    """kwai-dlrm at full width on each tier of ``tiers`` under the mesh:
     one process trains alone on the card until its queued puts apply and
     every host_lru table has written back a row a put moved (the store's
     accumulator leaves 0), the mesh takes its state
@@ -5784,13 +5846,17 @@ def mesh_tier_rank(dev, mesh, work) -> dict:
     evicted rows exactly), and rows that an applied put moved among those
     written back in the held steps. Only the mesh's steps are counted
     (launches, tables, ms). The checkpointed tier is then saved
-    and resumed (:func:`mesh_tier_checkpoint`)."""
+    and resumed (:func:`mesh_tier_checkpoint`); the held state of the
+    tiers of MESH_EMB["serve"] is read by the serve path
+    (:func:`mesh_serve_read`), and MESH_EMB["pipe"]'s is run by the
+    pipelined trainer (:func:`mesh_pipeline`)."""
     ds = CTR_BENCHMARKS["kwai_video"]
-    n_b = MESH_TIER["warm_cap"] + MESH_TIER["steps"] + MESH_TIER["resume"]
+    n_b = MESH_TIER["warm_cap"] + MESH_TIER["steps"] + max(
+        MESH_TIER["resume"], MESH_EMB["pipe_steps"] + 1)
     it = ds.sampler(TRAIN_B, seed=MESH_SEED + 1)
     batches = [next(it) for _ in range(n_b)]
     out = {}
-    for tag, backend, extra in MESH_TIERS:
+    for tag, backend, extra in MESH_TIERS if tiers is None else tiers:
         rt = mesh_tier_trainer(dev, backend, extra)
         ref = rt.init(seed=MESH_SEED, batch_example=batches[0])
         lru = lru_tiers_of(rt)
@@ -5808,9 +5874,10 @@ def mesh_tier_rank(dev, mesh, work) -> dict:
         with set_mesh(mesh):
             st = tr.init(seed=MESH_SEED,
                          batch_example=mesh_batch_block(mesh, batches[0]))
-            for n, b in lru_tiers_of(tr).items():
-                b.restore_from_checkpoint(
-                    lru[n].state_for_checkpoint(ref.emb[n]))
+            for n, b, path in storage_parts(tr):
+                if n in lru:
+                    b.restore_from_checkpoint(
+                        lru[n].state_for_checkpoint(at(ref.emb, path)))
         launches = dict.fromkeys(ops.launch_counts(), 0)
         served = dict.fromkeys(ops.table_counts(), 0)
         per_step, ms = [], []
@@ -5872,15 +5939,22 @@ def mesh_tier_rank(dev, mesh, work) -> dict:
                 for n, b in lru.items()),
             "counters": lru_table_counters(tr),
             "counters_one_process": lru_table_counters(rt),
-            "slots_a_rank": {n: int(e["table"].shape[0])
-                             for n, e in list(st.emb.items())[:1]},
+            "slots_a_rank": {n: int(at(st.emb, path)["table"].shape[0])
+                             for n, _, path in storage_parts(tr)[:1]},
             "cache_bytes_a_rank": sum(
                 tr.backends[n].device_bytes(e) for n, e in st.emb.items()),
             "host_bytes_a_rank": sum(b.host_bytes()
                                      for b in lru_tiers_of(tr).values()),
             "launches": launches, "tables": served, "step_ms": ms})
+        done = warm + MESH_TIER["steps"]
+        if tag in MESH_EMB["serve"]:
+            rec["serve_read"] = mesh_serve_read(mesh, tr, rt, ref,
+                                                batches[done])
+        if tag == MESH_EMB["pipe"]:
+            rec["pipeline"] = mesh_pipeline(
+                dev, mesh, backend, extra, rt, ref,
+                batches[done:done + MESH_EMB["pipe_steps"]])
         if tag == MESH_TIER["checkpoint"]:
-            done = warm + MESH_TIER["steps"]
             rec["checkpoint"] = mesh_tier_checkpoint(
                 dev, mesh, work, tr, st,
                 [mesh_batch_block(mesh, b)
@@ -5888,6 +5962,209 @@ def mesh_tier_rank(dev, mesh, work) -> dict:
                 backend, extra)
         out[tag] = rec
         del rt, ref, tr, st, lru
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_serve_read(mesh, tr, rt, ref, batch) -> dict:
+    """The serve read (``PersiaTrainer.serve_lookup``) under the mesh of
+    this rank's block of ``batch`` from one process's held state (the
+    host tiers every rank's, the device cache its block), against that
+    process's read of the whole batch: the pooled rows bit for bit, the
+    read gauges of the rank's block, nothing of the tier moved; its
+    launches (one bag launch)."""
+    blk = mesh_batch_block(mesh, batch)
+    with set_mesh(mesh):
+        st = tr.local_state(ref)
+        c0 = lru_table_counters(tr)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with count_collectives() as calls:
+            pooled, info = tr.serve_lookup(st, blk)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches, served = ops.launch_counts(), ops.table_counts()
+    want, _ = rt.serve_lookup(ref, batch)      # one process: no mesh
+    with set_mesh(mesh):
+        want = {n: SP.local_block(mesh, SP.P(SP.BATCH), w)
+                for n, w in want.items()}
+    off = [n for n in pooled if not torch.equal(pooled[n], want[n])]
+    dist = max(float((pooled[n] - want[n]).abs().max()) for n in pooled)
+    return {"bit_exact": not off, "off": off[:4], "max_abs": dist,
+            "unchanged": lru_table_counters(tr) == c0
+            and lru_maps_equal(tr, rt),
+            "hits": sum(i["hits"] for i in info.values()),
+            "misses": sum(i["misses"] for i in info.values()),
+            "launches": launches, "tables": served, "ms": ms,
+            "collectives": calls}
+
+
+def lru_digest(trainer) -> str:
+    """A digest of every host_lru table's slot map, clock, counters and
+    store (vectors and accumulators): equal on every rank of a mesh whose
+    ranks hold one process's host tiers."""
+    import hashlib
+    h = hashlib.sha256()
+    for n, b in sorted(lru_tiers_of(trainer).items()):
+        h.update(n.encode())
+        for a in (b._id_for_slot, b._slot_clock, b.store.vectors,
+                  b.store.opt_acc,
+                  np.array([b.faults, b.writebacks, b.hits], np.int64)):
+            h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def mesh_pipeline(dev, mesh, backend, extra, rt, ref, batches) -> dict:
+    """The pipelined trainer with host_lru tables under the mesh, from one
+    process's held state (its host tiers as checkpoint blobs, its device
+    state cut into this rank's blocks): serial, ``max_inflight=1`` (bit
+    for bit with serial: the states, the host tiers) and
+    ``PIPE_INFLIGHT`` with a look-ahead of ``PIPE_PREFETCH`` (its puts in
+    batch order; the host tiers' digest, compared over the ranks), each
+    ``len(batches)`` steps; the serial run's launches."""
+    blobs = {n: b.state_for_checkpoint(at(ref.emb, path))
+             for n, b, path in storage_parts(rt)
+             if isinstance(b, BK.HostLRUBackend)}
+    blocks = [mesh_batch_block(mesh, b) for b in batches]
+    runs, out = {}, {}
+    for runner in ("serial", "pipelined_1", "pipelined_deep"):
+        tr = mesh_tier_trainer(dev, backend, extra)
+        for n, b in lru_tiers_of(tr).items():
+            b.restore_from_checkpoint(blobs[n])
+        eng = pipe_engine(tr, runner)
+        with set_mesh(mesh):
+            # a copy: the dense half is replicated, and a step updates it
+            # in place
+            st = tr.local_state(ref.to(dev))
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            st, ms = (tr.run(st, blocks) if eng is None
+                      else eng.run(st, blocks))
+            torch.cuda.synchronize()
+            out[runner] = {"s": time.perf_counter() - t0,
+                           "losses": [float(m["loss"]) for m in ms],
+                           "launches": ops.launch_counts(),
+                           "tables": ops.table_counts(),
+                           "digest": lru_digest(tr)}
+            if eng is not None:
+                out[runner]["order"] = list(eng.applied_order)
+        if runner != "pipelined_deep":
+            runs[runner] = (tr, st)
+        del tr, st, eng
+    (ts, ss), (t1, s1) = runs["serial"], runs["pipelined_1"]
+    out["inflight_1_bit_exact"] = bool(
+        states_equal(ss, s1) and lru_maps_equal(ts, t1)
+        and lru_stores_equal(ts, t1)
+        and lru_table_counters(ts) == lru_table_counters(t1))
+    out["deep_in_order"] = out["pipelined_deep"]["order"] == list(
+        range(len(batches)))
+    del runs, ts, ss, t1, s1
+    return out
+
+
+def mesh_remote_run(dev, mesh, eps: dict) -> dict:
+    """kwai-dlrm on remote tables, one PS process with the dense tables
+    (``eps["dense"]``) and REMOTE_K with host_lru tables (``eps["lru"]``,
+    the remote router), MESH_EMB["remote_steps"] hybrid(TAU) steps from
+    one seed on the global batches: under ``mesh`` on this rank's blocks
+    (the mesh's first rank holds the connections), or, with ``mesh``
+    None, in one process. Per run: every step's loss, the first step's
+    pooled lookups (one lookup op more, either way), the serve read of
+    the first batch after the run (its put applied), the PS's counters
+    (puts, faults, hits), its processes' kernel launches, the frames the
+    steps sent (the first rank's), the trainer's launches and collectives
+    a step."""
+    ds = CTR_BENCHMARKS["kwai_video"]
+    it = ds.sampler(TRAIN_B, seed=MESH_SEED + 2)
+    batches = [next(it) for _ in range(MESH_EMB["remote_steps"])]
+    cut = (lambda b: mesh_batch_block(mesh, b)) if mesh is not None \
+        else (lambda b: b)
+    out = {}
+    from repro_torch.net import remote as net_remote
+    for tag, backend in (("dense", "dense"), ("lru", HOST_LRU)):
+        t_run = time.perf_counter()
+        tr = kwai_train_trainer(dev, TrainMode.hybrid(TAU), backend)
+        # the first put each PS endpoint gets for each table (the first
+        # step's): (ids, sums) of its valid entries
+        first_puts, orig = {}, net_remote.RemoteBackend._put_host
+        where = [tuple(e) for e in eps[tag]]
+
+        def put_host(self, queue, ids, g, unique):
+            key = f"{self._table}/{where.index(tuple(self.endpoint))}"
+            if key not in first_puts:
+                ok = np.asarray(ids) >= 0
+                first_puts[key] = (torch.from_numpy(np.asarray(ids)[ok]),
+                                   torch.from_numpy(np.asarray(g)[ok]))
+            return orig(self, queue, ids, g, unique)
+        with set_mesh(mesh), mock.patch.object(
+                net_remote.RemoteBackend, "_put_host", put_host):
+            connect_remote_backends(tr, eps[tag])
+            st = tr.init(seed=MESH_SEED + 2,
+                         batch_example=cut(batches[0]))
+            losses, pooled_steps, ms = [], [], []
+            launches = dict.fromkeys(ops.launch_counts(), 0)
+            served = dict.fromkeys(ops.table_counts(), 0)
+            with count_collectives(MESH_COLLECTIVES
+                                   + ("broadcast_object_list",)) as calls:
+                for i, b in enumerate(batches):
+                    blk = cut(b)
+                    if i == 0:
+                        # the first step's pooled lookups (not counted;
+                        # one lookup op more to the PS either way)
+                        pooled = first_pooled(tr, st, blk)
+                        pooled_steps.append({n: p.cpu() for n, p in
+                                             pooled.items()})
+                    torch.cuda.synchronize()
+                    ops.reset_launch_counts()
+                    t0 = time.perf_counter()
+                    st, m = tr.step(st, blk)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    for k, v in ops.launch_counts().items():
+                        launches[k] += v
+                    for k, v in ops.table_counts().items():
+                        served[k] += v
+                    losses.append(float(m["loss"]))
+            subs = [sub for b in tr.backends.values()
+                    for sub in (getattr(b, "shard_backends", None) or [b])]
+            lead = subs[0]._client is not None
+            # the frames the steps sent (the serve read below sends one
+            # read a rank's block under the mesh)
+            frames = sum({id(s._client): s._client.frames_sent
+                          for s in subs if lead}.values())
+            rows, _ = tr.serve_lookup(st, cut(batches[0]))
+            # tensors: the first step's pooled lookups, the pooled rows
+            # of the first batch after the run (its put applied), the
+            # first puts the PS got (the first rank's)
+            rec = {"losses": losses, "pooled_first": pooled_steps[0],
+                   "rows": {n: r.cpu() for n, r in rows.items()},
+                   "first_puts": first_puts,
+                   "launches": launches, "tables": served, "step_ms": ms,
+                   "collectives_per_step": {
+                       k: v / len(batches) for k, v in calls.items()},
+                   "connected": lead}
+            if lead:
+                rec["ps"] = {f"{n}/{k}": {key: v for key, v in sub
+                                          .remote_metrics().items()
+                                          if key in ("puts", "faults",
+                                                     "hits")}
+                             for n, b in tr.backends.items()
+                             for k, sub in enumerate(getattr(
+                                 b, "shard_backends", None) or [b])}
+                seen = {}
+                for sub in subs:
+                    seen[sub.endpoint] = sub._client
+                rec["ps_launches"] = [c.call("metrics")["launches"]
+                                      for c in seen.values()]
+                rec["frames"] = frames
+            for b in tr.backends.values():
+                b.close()
+        rec["s"] = time.perf_counter() - t_run
+        out[tag] = rec
+        del tr, st
         gc.collect()
         torch.cuda.empty_cache()
     return out
@@ -6461,14 +6738,18 @@ def mesh_lm_rank(dev, mesh) -> dict:
     return rec
 
 
-def mesh_worker(rank: int, world: int, backend: str, work: str,
+def mesh_worker(rank: int, world: int, name: str, work: str,
                 device: str = "cuda") -> int:
     """One rank of ``mesh_phase``'s worlds (``--mesh-worker rank world
-    backend workdir``): the gloo world of 4 runs the collective probes,
-    the trainer, the MoE and the decode; the NCCL world of one runs the
-    probes and the granite decode on ``make_host_mesh()``. Writes its
-    record to ``<workdir>/rank<rank>.json``. ``device="cpu"`` rehearses
-    it without a card."""
+    name workdir``): the gloo world of 4 (``gloo``) runs the collective
+    probes, the trainer, the tiers, the MoE, the decode and the LM; the
+    second gloo world of 4 (``emb``) runs ``mesh_emb_rank`` beside the
+    first one's CTR parts, which wait for it to end before the LM (whose
+    device memory the two would not share); the NCCL world of one runs
+    the probes and the granite decode on ``make_host_mesh()``. Writes its
+    record to ``<workdir>/rank<rank>.json`` and, at its end, success or
+    not, ``rank<rank>.end``. ``device="cpu"`` rehearses it without a
+    card."""
     import datetime
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
@@ -6485,9 +6766,10 @@ def mesh_worker(rank: int, world: int, backend: str, work: str,
     dev = torch.device(device, 0) if device == "cuda" else torch.device(
         "cpu")
     t0 = time.perf_counter()
+    backend = "nccl" if name == "nccl" else "gloo"
     dist.init_process_group(backend, init_method=f"file://{work}/rdzv",
                             rank=rank, world_size=world,
-                            timeout=datetime.timedelta(seconds=300))
+                            timeout=datetime.timedelta(seconds=600))
     try:
         mesh = Mesh(MESH_SHAPE, MESH_AXES, device) if world > 1 \
             else make_host_mesh(device)
@@ -6501,16 +6783,22 @@ def mesh_worker(rank: int, world: int, backend: str, work: str,
                          "all_to_all_single"},
                  "decode": {"all_reduce_sum", "all_reduce_max"},
                  "lm": {"all_reduce_sum", "all_reduce_max",
-                        "all_gather_into_tensor", "all_to_all_single"}}
+                        "all_gather_into_tensor", "all_to_all_single"},
+                 "emb": {"all_reduce_sum", "all_gather_into_tensor"}}
         rec["not_carried"] = {k: sorted(v - carried)
                               for k, v in parts.items() if v - carried}
+        runs = {"gloo": ("train", "tiers", "moe", "decode", "lm"),
+                "emb": ("emb",), "nccl": ("decode",)}[name]
         for part, fn in (("train", mesh_train_rank),
                          ("tiers", lambda d, m: mesh_tier_rank(d, m, work)),
+                         ("emb", lambda d, m: mesh_emb_rank(d, m, work)),
                          ("moe", mesh_moe_rank),
                          ("decode", mesh_decode_rank), ("lm", mesh_lm_rank)):
-            if part in rec["not_carried"] or (world == 1 and
-                                              part != "decode"):
+            if part in rec["not_carried"] or part not in runs:
                 continue
+            if part == "moe":
+                rec["emb_wait_s"] = wait_for_world(
+                    Path(work).parent / "emb", MESH_WORLDS["emb"])
             t = time.perf_counter()
             rec[part] = fn(dev, mesh, ("gqa",)) if world == 1 else \
                 fn(dev, mesh)
@@ -6518,32 +6806,103 @@ def mesh_worker(rank: int, world: int, backend: str, work: str,
         if device == "cuda":
             rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         dist.barrier()
-    finally:
         dist.destroy_process_group()
-    Path(work, f"rank{rank}.json").write_text(json.dumps(rec))
+        Path(work, f"rank{rank}.json").write_text(json.dumps(rec))
+    finally:
+        Path(work, f"rank{rank}.end").write_text("")
     return 0
 
 
-MESH_WORLDS = {"gloo": math.prod(MESH_SHAPE), "nccl": 1}
+def wait_for_world(work: Path, n: int, timeout: float = 900.0) -> float:
+    """Waits until every rank of the world in ``work`` has ended (its
+    ``rank<r>.end``); returns the seconds waited."""
+    t0 = time.perf_counter()
+    while not all((work / f"rank{r}.end").exists() for r in range(n)):
+        check(time.perf_counter() - t0 < timeout,
+              f"mesh: the world in {work} did not end")
+        time.sleep(0.5)
+    return time.perf_counter() - t0
+
+
+def mesh_emb_rank(dev, mesh, work) -> dict:
+    """The embedding tiers under the mesh that earlier slices refused, on
+    this rank: MESH_EMB_TIERS held as the tiers are
+    (:func:`mesh_tier_rank`), then the remote tables
+    (:func:`mesh_remote_run`) over the PS processes ``mesh_start``
+    started (their endpoints in ``ps.json`` of the world's directory,
+    written once they are up); the remote runs' tensors go to
+    ``remote_rank<r>.pt`` there for ``mesh_phase``."""
+    out = {"tiers": mesh_tier_rank(dev, mesh, work, MESH_EMB_TIERS)}
+    path, t0 = Path(work) / "ps.json", time.perf_counter()
+    while not path.exists():
+        check(time.perf_counter() - t0 < 600, "mesh: no PS endpoints")
+        time.sleep(0.2)
+    eps = json.loads(path.read_text())
+    check("error" not in eps, f"mesh: the PS processes: {eps.get('error')}")
+    out["remote"] = mesh_remote_run(dev, mesh, eps["mesh"])
+    torch.save({tag: {k: r.pop(k) for k in ("pooled_first", "rows",
+                                            "first_puts")}
+                for tag, r in out["remote"].items()},
+               Path(work) / f"remote_rank{mesh.rank}.pt")
+    return out
+
+
+def remote_reference(dev, started: dict) -> dict:
+    """The remote runs of ``mesh_emb_rank`` in this process, with no mesh
+    and the global batches, over the PS processes ``mesh_start`` started
+    for it (:func:`mesh_remote_run`), beside the worlds."""
+    started["ps_thread"].join()
+    eps = started["ps"]
+    check("error" not in eps, f"mesh: the PS processes: {eps.get('error')}")
+    return mesh_remote_run(dev, None, eps["one"])
+
+
+MESH_WORLDS = {"gloo": math.prod(MESH_SHAPE), "emb": math.prod(MESH_SHAPE),
+               "nccl": 1}
 
 
 def mesh_start() -> dict:
-    """Starts ``mesh_phase``'s worlds: a world of 4 gloo processes (mesh
-    data 2 x model 2) and a world of one over NCCL, together, as
-    ``--mesh-worker`` processes of this script, each writing its output to
-    a log file. They run while this process goes on."""
+    """Starts ``mesh_phase``'s worlds: two worlds of 4 gloo processes
+    (mesh data 2 x model 2; the second for ``mesh_emb_rank``) and a world
+    of one over NCCL, together, as ``--mesh-worker`` processes of this
+    script, each writing its output to a log file, and the PS processes of
+    the remote runs. They run while this process goes on."""
     work = ROOT / "build" / "mesh"
     shutil.rmtree(work, ignore_errors=True)
-    started = {"t0": time.perf_counter(), "work": work, "procs": []}
+    started = {"t0": time.perf_counter(), "work": work, "procs": [],
+               "members": [], "ps": {}}
+    (work / "emb").mkdir(parents=True)
+
+    def spawn():
+        # the PS processes of mesh_emb_rank's remote runs: one with the
+        # dense tables and REMOTE_K with host_lru tables for the world,
+        # and as many for the same runs in this process
+        try:
+            for key in ("mesh", "one"):
+                # no spool: the kill drill is not run under the mesh
+                ms = ps_cluster.spawn_cluster(
+                    str(work / f"ps_{key}"), 1 + REMOTE_K, spool_every=0,
+                    device="cuda")
+                started["members"] += ms
+                eps = [(m.host, m.port) for m in ms]
+                started["ps"][key] = {"dense": eps[:1], "lru": eps[1:]}
+        except Exception as e:          # noqa: BLE001
+            started["ps"] = {"error": f"{type(e).__name__}: {e}"}
+        out = started["ps"]
+        (work / "emb" / "ps.tmp").write_text(json.dumps(
+            out if "error" in out else {"mesh": out["mesh"]}))
+        os.replace(work / "emb" / "ps.tmp", work / "emb" / "ps.json")
+    started["ps_thread"] = threading.Thread(target=spawn, daemon=True)
+    started["ps_thread"].start()
     try:
-        for backend, n in MESH_WORLDS.items():
-            (work / backend).mkdir(parents=True)
+        for name, n in MESH_WORLDS.items():
+            (work / name).mkdir(parents=True, exist_ok=True)
             for r in range(n):
-                log = open(work / backend / f"rank{r}.log", "w")
-                started["procs"].append((backend, r, log, subprocess.Popen(
+                log = open(work / name / f"rank{r}.log", "w")
+                started["procs"].append((name, r, log, subprocess.Popen(
                     [sys.executable, str(ROOT / "chip_smoke.py"),
-                     "--mesh-worker", str(r), str(n), backend,
-                     str(work / backend)], stdout=log,
+                     "--mesh-worker", str(r), str(n), name,
+                     str(work / name)], stdout=log,
                     stderr=subprocess.STDOUT)))
     except BaseException:
         mesh_stop(started)
@@ -6552,15 +6911,18 @@ def mesh_start() -> dict:
 
 
 def mesh_stop(started: dict):
-    """Ends every process of ``mesh_start`` that is still running."""
+    """Ends every process of ``mesh_start`` that is still running (the
+    PS processes too)."""
     for _, _, log, p in started["procs"]:
         if p.poll() is None:
             p.kill()
         p.wait()
         log.close()
+    started["ps_thread"].join()
+    ps_cluster.stop_ps(started["members"])
 
 
-def mesh_phase(started: dict):
+def mesh_phase(started: dict, remote_ref: dict):
     """The mesh paths on the card, from the worlds ``mesh_start`` started:
     waits for them, then checks every rank's record (the collectives gloo
     carries on CUDA tensors; kwai-dlrm under the mesh against one process;
@@ -6588,8 +6950,15 @@ def mesh_phase(started: dict):
               f"mesh: {b} rank {r} exited {p.returncode}:\n"
               f"{logs[(b, r)][-3000:]}")
         recs[(b, r)] = json.loads(path.read_text())
-    shutil.rmtree(work, ignore_errors=True)
     gl = [recs[("gloo", r)] for r in range(worlds["gloo"])]
+    el = [recs[("emb", r)] for r in range(worlds["emb"])]
+    emb_launches = dict.fromkeys(ops.launch_counts(), 0)
+    emb_served = dict.fromkeys(ops.table_counts(), 0)
+    emb = None
+    if "emb" in el[0]:
+        emb = mesh_emb_check(gl, el, remote_ref, work / "emb", emb_launches,
+                             emb_served)
+    shutil.rmtree(work, ignore_errors=True)
     nc = recs[("nccl", 0)]
     launches = dict.fromkeys(ops.launch_counts(), 0)
     served = dict.fromkeys(ops.table_counts(), 0)
@@ -6690,8 +7059,12 @@ def mesh_phase(started: dict):
     lm_launches = dict.fromkeys(ops.launch_counts(), 0)
     check("lm" in gl[0], f"mesh: the LM did not run: {rec['not_carried']}")
     rec["lm"] = mesh_lm_check(gl, lm_launches)
-    rec["part_s"] = {k: max(g.get(f"{k}_s", 0.0) for g in gl)
-                     for k in ("train", "tiers", "moe", "decode", "lm")}
+    check(emb is not None, f"mesh: mesh_emb did not run: "
+          f"{el[0]['not_carried']}")
+    rec["emb"] = emb
+    rec["part_s"] = {k: max(g.get(f"{k}_s", 0.0) for g in gl + el)
+                     for k in ("train", "tiers", "emb", "emb_wait", "moe",
+                               "decode", "lm")}
     # from the worlds' start; the checks run beside them until "wait_s"
     # before the end of the phase
     rec["phase_s"] = time.perf_counter() - t_phase
@@ -6699,11 +7072,34 @@ def mesh_phase(started: dict):
     emit(rec)
     return {"mesh_train": (launches, served),
             "mesh_tiers": (tier_launches, tier_served),
+            "mesh_emb": (emb_launches, emb_served),
             "mesh_lm": (lm_launches, dict.fromkeys(ops.table_counts(), 0))
             }, rec
 
 
-def mesh_tier_check(gl: list, launches: dict, served: dict) -> dict:
+def tier_step_launches(backend: str, extra: dict) -> dict:
+    """What one step of a tier makes on a rank under the mesh: the get's
+    one bag launch (``embedding_bag`` at occurrence width); a host_lru
+    table's sum-only and gathered apply ``fused_backward`` (at occurrence
+    width the gathered apply alone), a router table's sum-only and one
+    apply a shard, the wire's sums, global sums and apply; the wire's
+    compress and decompress for the get and for the put."""
+    wire, k = backend == WIRE, extra.get("emb_shards", 1)
+    flat = extra.get("batch_dedup") is False
+    if flat:
+        fb = 1
+    elif wire:
+        fb = 3
+    else:
+        fb = 1 + k if k > 1 else 2
+    return {"embedding_bag" if flat else "unique_bag": 1,
+            "fused_backward": fb * N_TABLES,
+            "blockscale_compress": 2 if wire else 0,
+            "blockscale_decompress": 2 if wire else 0}
+
+
+def mesh_tier_check(gl: list, launches: dict, served: dict,
+                    tiers=None, part: str = "tiers") -> dict:
     """Every rank's tier records held (see :func:`mesh_tier_rank`): each
     step, the stores after the run, the warm-up of at least tau + 1 steps
     and the updated rows written back in it and in the held steps, a
@@ -6714,13 +7110,11 @@ def mesh_tier_check(gl: list, launches: dict, served: dict) -> dict:
     one-process restore; the mesh's launches summed over the ranks into
     ``launches`` / ``served``."""
     out, steps = {}, MESH_TIER["steps"]
-    for tag, backend, _ in MESH_TIERS:
-        per = [g["tiers"][tag] for g in gl]
+    for tag, backend, extra in MESH_TIERS if tiers is None else tiers:
+        per = [g[part][tag] for g in gl]
         lru = backend.startswith(HOST_LRU)
-        want = {"unique_bag": steps,
-                "fused_backward": (2 if lru else 3) * N_TABLES * steps,
-                "blockscale_compress": 0 if lru else 2 * steps,
-                "blockscale_decompress": 0 if lru else 2 * steps}
+        want = {k: v * steps
+                for k, v in tier_step_launches(backend, extra).items()}
         for g in per:
             check(g["steps_ok"] and g["stores_equal"]
                   and g["warm_steps"] >= TAU + 1 and (not lru or (
@@ -6772,6 +7166,156 @@ def mesh_tier_check(gl: list, launches: dict, served: dict) -> dict:
                                   "one_process_restore_s", "resume_steps",
                                   "resume_bit_exact",
                                   "one_process_bit_exact")}
+    return out
+
+
+def mesh_emb_check(gl: list, el: list, ref: dict, work: Path,
+                   launches: dict, served: dict) -> dict:
+    """Every rank's mesh_emb record held (see :func:`mesh_emb_rank`): the
+    router and occurrence-width tiers as the tiers are; the serve reads
+    (bit for bit with one process, gauges with hits and misses, nothing of
+    the tier moved, one bag launch); the pipelined trainer (max_inflight
+    1 bit for bit with serial, the deep run's puts in batch order, the
+    host tiers' digest equal on every rank); the remote tables against
+    this process's run of them (``ref``): the ranks' losses equal, the
+    first step's pooled lookups bit for bit and its loss within rtol
+    1e-5, the later losses within rtol 1e-3 (a whole run: the mesh's
+    dense steps part from one process's by rounding through Adam's sign
+    steps, the class PR 29 records for mesh_train's whole run), the first
+    puts on the same ids, the serve read of the first batch after the run
+    (its put applied) within what the first put's measured distance
+    allows through adagrad's step (on the card the dense backward at a
+    256-row block and at the 512-row batch differs by up to ~1% of a
+    small activation gradient, and adagrad's 1 / sqrt(eps) carries it
+    into the rows), the PS's counters, its processes' launches and the
+    frames sent equal one process's, the first rank alone connected.
+    ``gl``: the first world's records (the tiers' serve reads and
+    pipeline), ``el``: the emb world's. The launches summed over the
+    ranks into ``launches`` / ``served``."""
+    from repro_torch.utils import MeshLayout
+    out = {"tiers": mesh_tier_check([g["emb"] for g in el], launches,
+                                    served, MESH_EMB_TIERS)}
+    # the serve reads and the pipeline, on MESH_TIERS' held states
+    for tag in MESH_EMB["serve"]:
+        per = [g["tiers"][tag]["serve_read"] for g in gl]
+        for g in per:
+            check(g["bit_exact"] and g["unchanged"] and g["hits"] > 0
+                  and g["misses"] > 0 and g["launches"]["unique_bag"] == 1,
+                  f"mesh serve read {tag}: {g}")
+            for k in launches:
+                launches[k] += g["launches"][k]
+            for k in served:
+                served[k] += g["tables"][k]
+        out[f"serve_read_{tag}"] = {
+            "bit_exact": True, "hits": per[0]["hits"],
+            "misses": per[0]["misses"], "launches_per_rank":
+            per[0]["launches"], "ms_per_rank": [g["ms"] for g in per],
+            "collectives_per_rank": per[0]["collectives"]}
+    per = [g["tiers"][MESH_EMB["pipe"]]["pipeline"] for g in gl]
+    steps = MESH_EMB["pipe_steps"]
+    extra = {t: e for t, _, e in MESH_TIERS}[MESH_EMB["pipe"]]
+    want = {k: v * steps
+            for k, v in tier_step_launches(HOST_LRU, extra).items()}
+    for r, g in enumerate(per):
+        check(g["inflight_1_bit_exact"] and g["deep_in_order"],
+              f"mesh pipeline rank {r}: max_inflight 1 bit for bit "
+              f"{g['inflight_1_bit_exact']}, deep in order "
+              f"{g['deep_in_order']}")
+        for runner in ("serial", "pipelined_1", "pipelined_deep"):
+            check(g[runner]["digest"] == per[0][runner]["digest"],
+                  f"mesh pipeline {runner}: rank {r}'s host tiers differ "
+                  "from rank 0's")
+            check(all(g[runner]["launches"][k] == v
+                      for k, v in want.items()),
+                  f"mesh pipeline {runner}: launches "
+                  f"{g[runner]['launches']}, want {want}")
+        for k in launches:
+            launches[k] += g["serial"]["launches"][k]
+        for k in served:
+            served[k] += g["serial"]["tables"][k]
+    out["pipeline"] = {
+        "tier": MESH_EMB["pipe"], "steps": steps,
+        "max_inflight": PIPE_INFLIGHT, "prefetch": PIPE_PREFETCH,
+        "inflight_1_bit_exact": True, "deep_in_order": True,
+        "losses": {k: per[0][k]["losses"] for k in
+                   ("serial", "pipelined_1", "pipelined_deep")},
+        "s_per_rank": {k: [g[k]["s"] for g in per] for k in
+                       ("serial", "pipelined_1", "pipelined_deep")}}
+    # the remote tables against this process's run
+    layout = MeshLayout(MESH_SHAPE, MESH_AXES)
+    tensors = [torch.load(work / f"remote_rank{r}.pt")
+               for r in range(len(el))]
+    steps = MESH_EMB["remote_steps"]
+    for tag in ("dense", "lru"):
+        per, one = [g["emb"]["remote"][tag] for g in el], ref[tag]
+        conn = [g["connected"] for g in per]
+        check(conn == [True] + [False] * (len(per) - 1),
+              f"mesh remote {tag}: connections {conn}")
+        check(all(g["losses"] == per[0]["losses"] for g in per),
+              f"mesh remote {tag}: the ranks' losses differ")
+        rel = [abs(a - b) / abs(b) for a, b in zip(per[0]["losses"],
+                                                   one["losses"])]
+        first = all(torch.equal(tensors[r][tag]["pooled_first"][n],
+                                SP.local_block(layout, SP.P(SP.BATCH), v,
+                                               rank=r))
+                    for r in range(len(el))
+                    for n, v in one["pooled_first"].items())
+        rows = max(float((tensors[r][tag]["rows"][n] - SP.local_block(
+            layout, SP.P(SP.BATCH), v, rank=r)).abs().max())
+            for r in range(len(el)) for n, v in one["rows"].items())
+        # the first step's puts: the mesh's global deduplicated sums
+        # against one process's, by id (the PS applies each as it comes)
+        mp, op = tensors[0][tag]["first_puts"], one["first_puts"]
+        same_ids = set(mp) == set(op) and all(torch.equal(
+            mp[k][0].sort().values, op[k][0].sort().values) for k in op)
+        put_d = max(float((mp[k][1][mp[k][0].argsort()]
+                           - op[k][1][op[k][0].argsort()]).abs().max())
+                    for k in op) if same_ids else float("inf")
+        put_top = max(float(v[1].abs().max()) for v in op.values())
+        # the rows after the run: what that distance of the applied put
+        # allows through adagrad's step (lr (1 + sqrt(D)) / sqrt(eps) per
+        # unit of gradient, first order), pooled over a bag's L ids
+        spec = PS.EmbeddingSpec(rows=1, dim=DIM, lr=EMB_LR)
+        rows_bound = KWAI.ids_per_field * spec.lr * (1 + DIM ** 0.5) \
+            * put_d / spec.eps ** 0.5 + 1e-6
+        check(first and rel[0] <= 1e-5 and max(rel) <= 1e-3 and same_ids
+              and rows <= rows_bound
+              and per[0]["ps"] == one["ps"]
+              and per[0]["ps_launches"] == one["ps_launches"]
+              and per[0]["frames"] == one["frames"],
+              f"mesh remote {tag}: first lookups bit for bit {first}, "
+              f"loss distances {rel}, first puts' ids equal {same_ids}, "
+              f"their distance {put_d} (largest {put_top}), rows after "
+              f"the run {rows} (bound {rows_bound}), PS "
+              f"counters equal {per[0]['ps'] == one['ps']}, launches "
+              f"{per[0]['ps_launches']} / {one['ps_launches']}, frames "
+              f"{per[0]['frames']} / {one['frames']}")
+        for r, g in enumerate(per):
+            want = {"unique_bag": steps, "fused_backward":
+                    (2 if r == 0 else 1) * N_TABLES * steps}
+            check(all(g["launches"][k] == v for k, v in want.items()),
+                  f"mesh remote {tag} rank {r}: launches {g['launches']}, "
+                  f"want {want}")
+            for k in launches:
+                launches[k] += g["launches"][k]
+            for k in served:
+                served[k] += g["tables"][k]
+        ps_apply = sum(sum(v.values()) for v in one["ps_launches"])
+        out[f"remote_{tag}"] = {
+            "ps_processes": len(one["ps_launches"]), "steps": steps,
+            "losses": per[0]["losses"], "losses_one_process":
+            one["losses"], "loss_rel": rel, "first_lookup_bit_exact": first,
+            "first_put_max_abs": put_d, "first_put_largest": put_top,
+            "rows_max_abs": rows, "rows_bound": rows_bound,
+            "ps_counters_equal": True,
+            "ps_launches": per[0]["ps_launches"], "ps_launches_sum":
+            ps_apply, "frames": per[0]["frames"],
+            "launches_per_rank": [g["launches"] for g in per],
+            "collectives_per_step": per[0]["collectives_per_step"],
+            "step_ms_per_rank": [float(np.median(g["step_ms"]))
+                                 for g in per],
+            "step_ms_one_process": float(np.median(one["step_ms"])),
+            "s_per_rank": [g["s"] for g in per], "s_one_process": one["s"]}
     return out
 
 
@@ -7151,11 +7695,12 @@ def main() -> int:
                             (TrainMode.hybrid(TAU), 4)))
         router_cpu = router_card_vs_cpu(dev, ds, SHARD_STEPS["cpu"])
         remote_paths, remote_recs = remote_checks(dev)
+        remote_ref = remote_reference(dev, mesh)
     except BaseException:
         mesh_stop(mesh)
         raise
     paths.update(remote_paths)
-    mesh_paths, recs["mesh"] = mesh_phase(mesh)
+    mesh_paths, recs["mesh"] = mesh_phase(mesh, remote_ref)
     paths.update(mesh_paths)
     # the sharded embedding-PS router, and the multi-process embedding PS
     sharded_paths, recs["sharded"] = sharded_phase(dev, router_cpu)

@@ -54,6 +54,17 @@ so it is bit-exact with one shard) and pools it with the identity for
 ``fused_backward`` launch per table, then one apply-only launch per
 shard on the shard's local ids with the full sums. The wire wraps
 outside the router.
+
+Under a mesh (``utils.set_mesh``, more than one rank) every tier runs,
+SPMD, as one process runs it on the global batch: a table with host-side
+state (host_lru, a router over host_lru shards, a remote host_lru table)
+prepares the global batch's ids on every rank (``prepare_all``); a
+router's shards hold their rows as tables of their own, prepare in shard
+order on the calling thread (an eviction gathers rows over the mesh),
+read through the mesh lookup and put as the mesh puts; a remote table's
+PS ops run on the mesh's first rank alone, which shares their results
+(``_remote_lookup_mesh``, ``_remote_puts_mesh``); a serve read is
+collective (:func:`_mesh_rows`).
 """
 from __future__ import annotations
 
@@ -77,7 +88,7 @@ from repro_torch.core.lru import STORE_DTYPES, LRUEmbeddingStore
 from repro_torch.core.mmap_store import TieredHostStore
 from repro_torch.kernels import ops as K
 from repro_torch.utils import (all_gather, axis_size, batch_axes, flat_index,
-                               get_mesh, round_up)
+                               from_rank0, get_mesh, psum, round_up)
 
 
 def _prod(shape) -> int:
@@ -420,17 +431,33 @@ def _plan_sums(plan, grads) -> torch.Tensor:
     return D.csr_segment_sum(*_plan_csr(plan), grads, int(plan.dev.shape[0]))
 
 
-# the ROADMAP items of what is not ported under a mesh yet
-MESH_ROUTER_ITEM = ("ROADMAP Queue 1 item 7 (the router and remote tables "
-                    "under a mesh)")
-MESH_LRU_ITEM = ("ROADMAP Queue 1 item 8 (serving, the pipelined trainer and "
-                 "occurrence-width tables on host_lru under a mesh)")
-
-
 def _on_mesh() -> bool:
     """A mesh of more than one rank is in scope."""
     mesh = get_mesh()
     return mesh is not None and mesh.n_ranks > 1
+
+
+def _mesh_rows(backend, state, rows: torch.Tensor) -> torch.Tensor:
+    """Under a mesh, the fp32 rows of a dense or host_lru table at (T,)
+    table rows (its shuffled rows, or its cache slots; -1 reads zeros),
+    ``T`` the same on every rank: through the mesh lookup
+    (``embedding_ps._lookup_sharded``, a collective) where the partition
+    rules row-shard the state, else read from the rank's whole copy. Each
+    row is its owner's value (plus zeros): exact."""
+    table = state["table"]
+    if isinstance(backend, HostLRUBackend):
+        n = backend._cache_split()[0]
+        local = backend.dev_slots // n
+    else:
+        n = PS.n_shards(backend.spec)
+        local = backend.spec.padded_rows(n) // n
+    if n == 1:
+        ok = rows >= 0
+        got = table[torch.where(ok, rows, 0).long()]
+        return torch.where(ok[:, None], got, 0).float()
+    shard_axes, batch = PS._axes_for(backend.spec.mode)
+    return PS._lookup_sharded(table, backend.spec, rows.to(torch.int32),
+                              shard_axes, batch, local).float()
 
 
 def _wire_begin_mesh(backend, state, queue, plan, grads):
@@ -732,8 +759,14 @@ class HostLRUBackend(EmbeddingBackend):
     width, pushes the rank's own queue, and the put that pops out is
     gathered over the batch axes, deduplicated on the slots and applied
     where the rank holds the slot (:meth:`_mesh_apply`). ``+disk`` takes a
-    directory per rank (``disk_path/r<rank>``). Serve reads under a mesh
-    are not ported."""
+    directory per rank (``disk_path/r<rank>``). A serve read under a mesh
+    resolves each rank's own requests against the slot map and the store
+    and reads its hits through the mesh lookup by slot (a row-sharded
+    cache); nothing of the tier moves. An occurrence-width table
+    (``batch_dedup=False``) prepares the global batch as a dedup table
+    does, reads its occurrences' slots through the same lookup, and
+    queues and applies its occurrence-width puts through
+    :meth:`_mesh_apply`."""
 
     def __init__(self, spec: EmbeddingSpec):
         if spec.cache_rows <= 0:
@@ -1097,15 +1130,6 @@ class HostLRUBackend(EmbeddingBackend):
             return 1, 0
         return n, flat_index(PS._axes_for(self.spec.mode)[0])
 
-    def slots_of(self, ids: np.ndarray) -> np.ndarray:
-        """The cache slots of host LOGICAL ids (int32; -1 for padding,
-        ids out of range and ids not resident)."""
-        ids = np.asarray(ids, np.int64)
-        ok = (ids >= 0) & (ids < self.spec.rows)
-        with self._lock:
-            return np.where(ok, self._slot_arr[np.where(ok, ids, 0)],
-                            -1).astype(np.int32)
-
     # -- slot pinning (pipelined callers) ------------------------------------
     #
     # Between a batch's prepare and its applied put, a deep pipeline must
@@ -1149,19 +1173,24 @@ class HostLRUBackend(EmbeddingBackend):
         unique ids are reordered hits first: the arrays to upload are the
         occurrence inverse into that order and the hit slots, the rows to
         upload the misses. Call under :meth:`read_lock` with the
-        matching :meth:`_read_end`."""
-        if _on_mesh():
-            raise NotImplementedError(
-                "a host_lru table's serve read under a mesh is not ported "
-                f"yet: {MESH_LRU_ITEM}")
+        matching :meth:`_read_end`.
+
+        Under a mesh every rank reads its own block of requests at the
+        same time (blocks of one shape; the slot map and the store are
+        every rank's): the hit slots are padded with -1 to the block's
+        size, so a row-sharded cache reads them through the mesh lookup
+        (:func:`_mesh_rows`), and the misses follow the padded hits."""
         spec = self.spec
         flat = arr.reshape(-1)
         valid = (flat >= 0) & (flat < spec.rows)
         uniq, inv_valid = np.unique(flat[valid], return_inverse=True)
         hit, hit_slots, m_vecs = self._resolve_unique(uniq)
+        n_hit = int(hit.sum())
+        if _on_mesh():
+            hit_slots = _pad_to(hit_slots, max(flat.size, 1))
         new_pos = np.empty(uniq.size, np.int64)
-        new_pos[hit] = np.arange(int(hit.sum()))
-        new_pos[~hit] = int(hit.sum()) + np.arange(int((~hit).sum()))
+        new_pos[hit] = np.arange(n_hit)
+        new_pos[~hit] = hit_slots.size + np.arange(int((~hit).sum()))
         inv = np.full(flat.shape, -1, np.int32)
         inv[valid] = new_pos[inv_valid]
         return ([inv.reshape(arr.shape), hit_slots], m_vecs,
@@ -1188,8 +1217,9 @@ class HostLRUBackend(EmbeddingBackend):
         an empty read still pools zeros)."""
         inv, hit_slots = idx
         table = state["table"]
-        rows_u = torch.cat([table.index_select(0, hit_slots.long()).float(),
-                            rows])
+        hits = _mesh_rows(self, state, hit_slots) if _on_mesh() else \
+            table.index_select(0, hit_slots.long()).float()
+        rows_u = torch.cat([hits, rows])
         if rows_u.shape[0] == 0:
             rows_u = table.new_zeros((1, self.spec.dim), dtype=torch.float32)
         if occ:
@@ -1233,7 +1263,16 @@ class HostLRUBackend(EmbeddingBackend):
         return slots.clamp(0, self.dev_slots - 1).long()
 
     def _logical(self, state, slots: torch.Tensor) -> torch.Tensor:
-        """The logical ids the cache holds at ``slots`` (-1 where < 0)."""
+        """The logical ids the cache holds at ``slots`` (-1 where < 0); a
+        row-sharded cache under a mesh reads them through the mesh
+        lookup (every rank's ``slots`` of one width)."""
+        if self._cache_split()[0] > 1:
+            n = self._cache_split()[0]
+            shard_axes, batch = PS._axes_for(self.spec.mode)
+            got = PS._lookup_sharded(state["slot_ids"][:, None], self.spec,
+                                     self.table_rows(slots), shard_axes,
+                                     batch, self.dev_slots // n)[:, 0]
+            return torch.where(slots >= 0, got, -1).to(torch.int32)
         return torch.where(slots >= 0, state["slot_ids"][self._safe(slots)],
                            -1).to(torch.int32)
 
@@ -1286,7 +1325,9 @@ class HostLRUBackend(EmbeddingBackend):
     def _hybrid_plan(self, state, queue, plan, grads):
         if not _on_mesh():
             return super()._hybrid_plan(state, queue, plan, grads)
-        return self._mesh_unique(state, queue, plan.dev, plan.ids,
+        ids = plan.ids if plan.ids is not None \
+            else self._logical(state, plan.dev)
+        return self._mesh_unique(state, queue, plan.dev, ids,
                                  _plan_sums(plan, grads))
 
     def _mesh_unique(self, state, queue, dev_u, ids_u, g_u):
@@ -1307,14 +1348,20 @@ class HostLRUBackend(EmbeddingBackend):
         put's logical ``ids``, an entry lands only where its slot still
         holds its row (:meth:`_still`, on the gathered entries)."""
         axes = PS._axes_for(self.spec.mode)[1]
-        n, i = self._cache_split()
-        rl = self.dev_slots // n
         slots = all_gather(self.table_rows(slots).contiguous(), axes)
         g = all_gather(g.float().contiguous(), axes)
+        if ids is not None:
+            ids = all_gather(ids.to(torch.int32).contiguous(), axes)
+        return self._mesh_apply_gathered(state, slots, ids, g)
+
+    def _mesh_apply_gathered(self, state, slots, ids, g):
+        """:meth:`_mesh_apply` on the entries every batch rank holds
+        (gathered: table rows, logical ids or None, fp32 grads)."""
+        n, i = self._cache_split()
+        rl = self.dev_slots // n
         keep = (slots >= 0) & (slots // rl == i)
         local = torch.where(keep, slots - i * rl, 0)
         if ids is not None:
-            ids = all_gather(ids.to(torch.int32).contiguous(), axes)
             keep &= (ids >= 0) & (state["slot_ids"][local.long()] == ids)
         plan = C.dedup_plan(torch.where(keep, local, -1),
                             min(int(slots.numel()), rl))
@@ -1325,6 +1372,9 @@ class HostLRUBackend(EmbeddingBackend):
     def _put_flat(self, state, dev_ids, grads):
         spec = self.spec
         flat = dev_ids.reshape(-1)
+        if _on_mesh():
+            return self._mesh_apply(state, flat, None,
+                                    grads.reshape(-1, spec.dim)), {}
         valid = (flat >= 0) & (flat < self.dev_slots)
         plan = C.dedup_plan(torch.where(valid, flat, -1),
                             D.dedup_cap(int(flat.numel()), self.dev_slots))
@@ -1345,6 +1395,11 @@ class HostLRUBackend(EmbeddingBackend):
             st, m = self._put_flat(state, flat, g)
             return st, queue, m
         slot_signed = self.table_rows(flat)
+        if _on_mesh() and not spec.batch_dedup:
+            # the rank's occurrences pushed with the ids their slots hold,
+            # the popped put gathered and applied as the mesh applies one
+            return self._mesh_unique(state, queue, slot_signed,
+                                     self._logical(state, slot_signed), g)
         if not spec.batch_dedup:
             return self._hybrid_flat_legacy(state, queue, slot_signed, g)
         # unique-width queue: dedup by slot before the push
@@ -1725,7 +1780,17 @@ class ShardedBackend(EmbeddingBackend):
     (``shard_meta`` and one blob per shard); a restore into another shard
     count reshards row-exactly through :func:`extract_logical_rows`, with
     caches restarted and the queued puts dropped (the paper's tolerated
-    in-flight loss)."""
+    in-flight loss).
+
+    Under a mesh a shard's state is row-sharded as a table of its own (a
+    dense shard's rows padded to the ranks that shard it), a plan carries
+    no :class:`~repro_torch.core.dedup.ShardParts` but the logical ids
+    (``kind="ids"``): a lookup reads every shard's rows through one mesh
+    lookup (:meth:`_mesh_lookup`; a serve read shard by shard through
+    :func:`_mesh_rows`), a put sums once and hands each shard its share
+    (:meth:`_mesh_unique`: the shards' popped puts gathered together),
+    and the host_lru shards prepare in shard order on the calling
+    thread."""
 
     # the in-process router needs >= 2 shards (one shard IS the plain
     # backend); a router whose shards live in other processes allows 1
@@ -1841,8 +1906,10 @@ class ShardedBackend(EmbeddingBackend):
                 if acc is not None:
                     sub_acc = np.zeros((r.sub_rows,), np.float32)
                     sub_acc[ll] = acc[gl]
-                st = _dense_state_from_logical(sub.spec, r.sub_rows, sub_vec,
-                                               sub_acc)
+                # under a mesh a shard's rows pad to the ranks sharding it
+                st = _dense_state_from_logical(
+                    sub.spec, sub.spec.padded_rows(PS.n_shards(sub.spec)),
+                    sub_vec, sub_acc)
                 if device is not None:
                     st = {k: torch.from_numpy(v).to(device).to(
                         sub.spec.dtype if k == "table" else torch.float32)
@@ -1903,11 +1970,17 @@ class ShardedBackend(EmbeddingBackend):
                           else contextlib.nullcontext()):
                         return t()
 
-                pool = self._ensure_pool()
-                futs = [pool.submit(one, t) for t in thunks]
+                if _on_mesh():
+                    # an eviction under a mesh gathers rows over the mesh:
+                    # the shards prepare in shard order, on this thread
+                    got = [t() for t in thunks]
+                else:
+                    pool = self._ensure_pool()
+                    got = [f.result() for f in
+                           [pool.submit(one, t) for t in thunks]]
                 devs = np.empty((self.n_shards, flat.size), np.int64)
-                for s, f in enumerate(futs):
-                    new_state[f"s{s}"], dev_s = f.result()
+                for s, (st_s, dev_s) in enumerate(got):
+                    new_state[f"s{s}"] = st_s
                     devs[s] = np.asarray(dev_s, np.int64).reshape(-1)
                 local = devs[np.maximum(own, 0), np.arange(flat.size)]
             else:
@@ -1966,10 +2039,18 @@ class ShardedBackend(EmbeddingBackend):
         own, loc = self._route(uniq)
         idx, miss_pos, miss_vecs = [inv.reshape(arr.shape)], [], []
         hits = 0
+        # under a mesh each shard's rows are read through the mesh lookup
+        # at one width on every rank (the block's size); the padding
+        # reads zeros into the row after the read's own
+        width = max(flat.size, 1) if _on_mesh() else None
         for s, sub in enumerate(self.shard_backends):
             pos = np.nonzero(own == s)[0]
             hit, rows, vecs = sub._resolve_unique(loc[pos])
-            idx += [pos[hit].astype(np.int32), rows]
+            if width is None:
+                idx += [pos[hit].astype(np.int32), rows]
+            else:
+                idx += [_pad_to(pos[hit].astype(np.int32), width, flat.size),
+                        _pad_to(np.asarray(rows, np.int32), width)]
             miss_pos.append(pos[~hit])
             miss_vecs.append(vecs)
             hits += int(hit.sum())
@@ -1984,12 +2065,16 @@ class ShardedBackend(EmbeddingBackend):
         one row, so an empty read still pools zeros)."""
         inv, parts, miss_pos = idx[0], idx[1:-1], idx[-1]
         tables = [state[f"s{s}"]["table"] for s in range(self.n_shards)]
-        U = sum(int(p.shape[0]) for p in parts[::2]) + int(miss_pos.shape[0])
+        mesh = _on_mesh()
+        U = int(inv.numel()) + 1 if mesh else \
+            sum(int(p.shape[0]) for p in parts[::2]) + int(miss_pos.shape[0])
         block = torch.zeros((max(U, 1), self.spec.dim),
                             dtype=torch.float32, device=tables[0].device)
-        for t, pos, r in zip(tables, parts[::2], parts[1::2]):
-            block.index_copy_(0, pos.long(),
-                              t.index_select(0, r.long()).float())
+        for s, (t, pos, r) in enumerate(zip(tables, parts[::2],
+                                            parts[1::2])):
+            got = _mesh_rows(self.shard_backends[s], state[f"s{s}"], r) \
+                if mesh else t.index_select(0, r.long()).float()
+            block.index_copy_(0, pos.long(), got)
         if rows is not None:
             block.index_copy_(0, miss_pos.long(), rows)
         if occ:
@@ -2057,9 +2142,13 @@ class ShardedBackend(EmbeddingBackend):
 
     def _lookup_flat(self, state, dev_ids):
         """Occurrence rows: each shard's rows selected where it owns the
-        id (zeros where none does)."""
+        id (zeros where none does); under a mesh, row-sharded shards
+        through one mesh lookup (:meth:`_mesh_lookup`)."""
         shape = dev_ids.shape
         flat = dev_ids.reshape(-1)
+        if _on_mesh() and not self.remote and self._shards_split():
+            return self._mesh_lookup(state, flat).reshape(
+                *shape, self.spec.dim), {}
         out = None
         for s, sub in enumerate(self.shard_backends):
             local = self._local_ids(flat, s)
@@ -2091,15 +2180,139 @@ class ShardedBackend(EmbeddingBackend):
         return _bag_all({0: self._bag_entry(state, dev_ids)})[0], {}
 
     def _put_plan(self, state, plan, grads):
+        if _on_mesh():
+            st, _, m = self._mesh_unique(state, None, plan.dev, plan.ids,
+                                         _plan_sums(plan, grads))
+            return st, m
         return self._put_unique(state, plan.dev, _plan_sums(plan, grads),
                                 self._locals(plan.dev, plan))
 
     def _hybrid_plan(self, state, queue, plan, grads):
+        if _on_mesh():
+            return self._mesh_unique(state, queue, plan.dev, plan.ids,
+                                     _plan_sums(plan, grads))
         return self._hybrid_unique(state, queue, plan.dev,
                                    _plan_sums(plan, grads),
                                    self._locals(plan.dev, plan))
 
+    def _route_t(self, ids: torch.Tensor):
+        """:meth:`_route` of a tensor of logical ids, on its device:
+        (owner shard, -1 for invalid ids; local id, -1 there)."""
+        r = self._routing
+        ids = ids.long()
+        valid = (ids >= 0) & (ids < self.spec.rows)
+        pre = (torch.where(valid, ids, 0) * r.mult + r.add) % r.P
+        return (torch.where(valid, pre % self.n_shards, -1),
+                torch.where(valid, pre // self.n_shards, -1))
+
+    def _mesh_unique(self, state, queue, dev_u, ids_u, g_u):
+        """Under a mesh, every shard's share of a put that is unique over
+        the global batch (shard-encoded device ids, logical ids, fp32
+        sums), in shard order on every rank: each shard pushes its own
+        entries (its local device and logical ids, -1 where another shard
+        owns the id) and applies the put that pops out as the mesh applies
+        one. The shards' popped entries travel together: one all_gather of
+        every shard's table rows (and a host_lru shard's logical ids) and
+        one of their grads, then each shard applies its own rows
+        (``embedding_ps.apply_gathered``, ``_mesh_apply_gathered``), as
+        each one's ``_mesh_unique`` would on its own. A table in model
+        mode puts shard by shard."""
+        _, loc = self._route_t(ids_u)
+        own = torch.where(dev_u >= 0, dev_u // self.stride, -1)
+        subs = self.shard_backends
+        new_state, new_queue = dict(state), dict(queue or {})
+        if self.spec.mode == "model":
+            for s, sub in enumerate(subs):
+                mine = own == s
+                q = None if queue is None else queue.get(f"s{s}")
+                new_state[f"s{s}"], new_queue[f"s{s}"], _ = sub._mesh_unique(
+                    state[f"s{s}"], q,
+                    torch.where(mine, dev_u - s * self.stride, -1),
+                    torch.where(mine, loc, -1), g_u)
+            return new_state, None if queue is None else new_queue, {}
+        keys, ids, grads = [], [], []
+        for s, sub in enumerate(subs):
+            mine = own == s
+            k = torch.where(mine, dev_u - s * self.stride, -1) \
+                .to(torch.int32)
+            i = torch.where(mine, loc, -1).to(torch.int32)
+            g = g_u
+            q = None if queue is None else queue.get(f"s{s}")
+            if q is not None:
+                cap = int(q["ids"].shape[1])
+                k, i, g = (D.pad_axis0(k, cap, -1), D.pad_axis0(i, cap, -1),
+                           D.pad_axis0(g_u, cap, 0))
+                if self._host:
+                    q, k, i, g = sub._queue_push_pop(q, k, i, g)
+                else:
+                    q, i, g = PS.queue_push_pop(q, i, g)
+                    k = i
+                new_queue[f"s{s}"] = q
+            keys.append(sub.table_rows(k))
+            ids.append(i.to(torch.int32))
+            grads.append(g.float())
+        # the popped puts' ids are checked against a host_lru shard's
+        # slots (a sync put's are this step's own)
+        check = self._host and queue is not None
+        axes = PS._axes_for(self.spec.mode)[1]
+        k_all = all_gather(torch.stack(keys + ids if check else keys)
+                           .contiguous(), axes)
+        g_all = all_gather(torch.stack(grads).contiguous(), axes)
+        nb, k = axis_size(axes), len(subs)
+        k_all = k_all.view(nb, -1, k_all.shape[-1])
+        g_all = g_all.view(nb, k, *g_all.shape[1:])
+        for s, sub in enumerate(subs):
+            rows, g = k_all[:, s].reshape(-1), g_all[:, s].reshape(
+                -1, g_all.shape[-1])
+            if self._host:
+                i = k_all[:, k + s].reshape(-1) if check else None
+                new_state[f"s{s}"] = sub._mesh_apply_gathered(
+                    state[f"s{s}"], rows, i, g)
+            else:
+                new_state[f"s{s}"] = PS.apply_gathered(
+                    state[f"s{s}"], sub.spec, rows, g)
+        return new_state, None if queue is None else new_queue, {}
+
+    def _mesh_lookup(self, state, flat: torch.Tensor) -> torch.Tensor:
+        """Under a mesh, the rows of (T,) shard-encoded device ids when
+        every shard's state is row-sharded: one mesh lookup for all the
+        shards (the ids gathered over the batch axes in full mode, each
+        rank's own rows of every shard read, one sum over the shard axes;
+        each row one owner's value plus zeros: exact), as each shard's
+        ``_lookup_flat`` reads its own."""
+        shard_axes, batch = PS._axes_for(self.spec.mode)
+        full = self.spec.mode != "model"
+        flat = flat.to(torch.int32).contiguous()
+        dev_all = all_gather(flat, batch) if full else flat
+        me = flat_index(shard_axes)
+        vals = None
+        for s, sub in enumerate(self.shard_backends):
+            table = state[f"s{s}"]["table"]
+            rows = sub.table_rows(self._local_ids(dev_all, s))
+            rl = int(table.shape[0])
+            mine = (rows >= 0) & (rows // rl == me)
+            got = table[torch.where(mine, rows % rl, 0).long()]
+            vals = torch.where(mine[:, None], got,
+                               0 if vals is None else vals)
+        vals = vals.contiguous()
+        psum(vals, shard_axes)
+        if full and batch:
+            t = int(flat.shape[0])
+            vals = vals[flat_index(batch) * t:][:t]
+        return vals
+
+    def _shards_split(self) -> bool:
+        """Under a mesh, every shard's state row-sharded over the mesh
+        (a dense shard's always; a host_lru shard's where its slots divide
+        the ranks)."""
+        return all(sub._cache_split()[0] > 1
+                   if isinstance(sub, HostLRUBackend)
+                   else PS.n_shards(sub.spec) > 1
+                   for sub in self.shard_backends)
+
     def _wire_begin(self, state, queue, plan, grads):
+        if _on_mesh():
+            return _wire_begin_mesh(self, state, queue, plan, grads)
         g_u = _plan_sums(plan, grads)
 
         def finish():
@@ -2629,46 +2842,59 @@ def prepare_all(backends, states, ids, device, lock=None, pins=None):
     check_mesh(backends)
     new_states = dict(states)
     plans, metrics, n_unique = {}, {}, {}
-    # under a mesh a host_lru table prepares the global batch's ids on
-    # every rank (one all_gather for all of them)
+    mesh = _on_mesh()
+    # under a mesh a table with host-side state (host_lru, a router over
+    # host_lru shards, a remote host_lru table) prepares the global batch's
+    # ids on every rank (one all_gather for all of them), as one process
+    # prepares them, and each rank's plan then reads its own ids' slots
     glob = _gather_batch_ids({n: _host_ids(ids[n]) for n in ids
-                              if _mesh_lru(backends[n])})
-    prep = {}                  # the unique ids (and counts) each prepares
+                              if mesh and _host_state(backends[n])})
+    prep = {}                  # what each table's prepare takes
     for n in ids:
         b = backends[n]
         arr = _host_ids(ids[n])
         if not b.spec.batch_dedup:
             plans[n] = (arr,)
+            prep[n] = (glob.get(n, arr), False, None)
             continue
         cap = D.dedup_cap(max(arr.size, 1), b.dedup_rows())
         u, inv, counts, info = D.make_plan(arr, b.spec.rows, cap)
-        if _mesh_sharded(b) or n in glob:
+        if mesh:                # one plan width on every rank
             u, counts = _pad_to(u, cap), _pad_to(counts, cap, 0)
         plans[n] = (u, inv, counts, info)
-        prep[n] = (u, counts)
+        prep[n] = (u, True, counts)
         if n in glob:           # the global batch's plan, one process's
             g = glob[n]
             gu, _, gc, _ = D.make_plan(g, b.spec.rows, D.dedup_cap(
                 max(g.size, 1), b.dedup_rows()))
-            prep[n] = (gu, gc)
+            prep[n] = (gu, True, gc)
+    # a remote table's host-side prepare runs on the mesh's first rank
+    # alone (it holds the PS connections); the others take its result
+    lead = not mesh or get_mesh().rank == 0
+    shared = [n for n in plans if mesh and unwrap(backends[n]).remote
+              and n in glob]
     devs = {}
     with lock if lock is not None else contextlib.nullcontext():
-        submitted = {
-            n: backends[n].prepare_submit(states[n], plan[0])
-            if len(plan) == 1 else backends[n].prepare_submit(
-                states[n], prep[n][0], assume_unique=True,
-                counts=prep[n][1])
-            for n, plan in plans.items()}
+        submitted = {n: backends[n].prepare_submit(states[n], *prep[n])
+                     for n in plans if lead or n not in shared}
         for n, collect in submitted.items():
-            b = backends[n]
             new_states[n], dev = collect()
-            if n in glob:       # this rank's own ids' slots
-                dev = unwrap(b).slots_of(plans[n][0])
             devs[n] = np.asarray(dev, np.int32)
+        if shared:
+            got = from_rank0({n: (devs[n], unwrap(backends[n]).counters())
+                              for n in shared} if lead else None)
+            for n in shared:
+                devs[n] = got[n][0]
+                unwrap(backends[n]).set_counters(got[n][1])
+        for n in plans:
+            b = backends[n]
+            pinned = devs[n]
+            if n in glob:       # this rank's own ids' device ids
+                devs[n] = _map_ids(plans[n][0], prep[n][0], pinned)
             _cache_tags(metrics, n, b)
             if pins is not None:
-                b.pin_slots(devs[n])
-                pins[n] = devs[n]
+                b.pin_slots(pinned)
+                pins[n] = pinned
     host = {}
     for n, plan in plans.items():
         dev_u = devs[n]
@@ -2681,6 +2907,10 @@ def prepare_all(backends, states, ids, device, lock=None, pins=None):
         inner = unwrap(b)
         if inner.remote:
             host[n] = ("remote", [dev_u, inv, order, offsets])
+        elif isinstance(inner, ShardedBackend) and mesh:
+            # under a mesh a router reads its shards through the mesh
+            # lookup and queues its shards' puts by their logical ids
+            host[n] = ("ids", [dev_u, inv, order, offsets, u])
         elif isinstance(inner, ShardedBackend):
             host[n] = ("router", [dev_u, inv, order, offsets,
                                   *inner.plan_parts(dev_u)])
@@ -2688,7 +2918,7 @@ def prepare_all(backends, states, ids, device, lock=None, pins=None):
             rows = inner.table_rows(torch.from_numpy(dev_u)).numpy()
             host[n] = ("rows", [dev_u, inv, order, offsets, rows])
             if n in glob:
-                host[n] = ("ids", host[n][1] + [u])
+                host[n] = ("rows_ids", host[n][1] + [u])
         n_unique[n] = info["n_unique"]
         itemsize = torch.empty((), dtype=spec.dtype).element_size()
         metrics[f"dedup/{n}/dup_factor"] = info["dup_factor"]
@@ -2710,11 +2940,29 @@ def prepare_all(backends, states, ids, device, lock=None, pins=None):
                                  local=tuple(got[5 + k:]))
         dev_ids[n] = D.DedupPlan(
             dev=got[0], inv=got[1],
-            rows=got[4] if kind in ("rows", "ids") else None,
+            rows=got[4] if kind in ("rows", "rows_ids") else None,
             order=got[2], offsets=got[3], n_unique=n_unique[n],
             host=arrs[0], shards=parts,
-            ids=got[5] if kind == "ids" else None)
+            ids=got[-1] if kind in ("ids", "rows_ids") else None)
     return new_states, dev_ids, metrics
+
+
+def _map_ids(own: np.ndarray, keys, vals) -> np.ndarray:
+    """This rank's ids -> their device ids, from the global prepare's
+    ``keys`` (ids, any shape) and ``vals`` (their device ids, the same
+    shape): int32 in ``own``'s shape, -1 where an id is padding or was
+    given none."""
+    k = np.asarray(keys, np.int64).reshape(-1)
+    v = np.asarray(vals, np.int64).reshape(-1)
+    ok = k >= 0
+    k, first = np.unique(k[ok], return_index=True)
+    v = v[ok][first]
+    o = np.asarray(own, np.int64).reshape(-1)
+    if k.size == 0:
+        return np.full(own.shape, -1, np.int32)
+    pos = np.searchsorted(k, o).clip(max=k.size - 1)
+    hit = (o >= 0) & (k[pos] == o)
+    return np.where(hit, v[pos], -1).astype(np.int32).reshape(own.shape)
 
 
 def _gather_batch_ids(arrays: dict) -> dict:
@@ -2739,45 +2987,31 @@ def _gather_batch_ids(arrays: dict) -> dict:
     return out
 
 
-def _mesh_sharded(backend) -> bool:
-    """A dense table (behind the wire or not) that the mesh in scope
-    shards."""
+def _host_state(backend) -> bool:
+    """A table with host-side state that a prepare moves: host_lru (behind
+    the wire or not), a router over host_lru shards, a remote host_lru
+    table. Under a mesh it prepares the global batch's ids."""
     inner = unwrap(backend)
-    return isinstance(inner, DenseBackend) and not inner._fusable()
-
-
-def _mesh_lru(backend) -> bool:
-    """A host_lru table (behind the wire or not) under a mesh of more than
-    one rank: its prepare runs on the global batch's ids."""
-    return isinstance(unwrap(backend), HostLRUBackend) and _on_mesh()
+    return isinstance(inner, HostLRUBackend) or getattr(inner, "_host",
+                                                        False)
 
 
 def check_mesh(backends):
-    """Under a mesh of more than one rank, dense and host_lru tables (with
-    ``+disk``, behind the wire or not) are ported. Raise for the router and
-    remote tables (:data:`MESH_ROUTER_ITEM`), for occurrence-width host_lru
-    tables (:data:`MESH_LRU_ITEM`), and for a wire whose block does not
-    divide the dim (its codec's blocks would run across the rows that
-    the ranks roundtrip apart)."""
+    """Under a mesh of more than one rank every tier is ported. Raise for a
+    wire whose block does not divide the dim (its codec's blocks would run
+    across the rows that the ranks roundtrip apart), behind the
+    in-process wire or a remote table's lossy one."""
     if not _on_mesh():
         return
     for n, b in backends.items():
         inner = unwrap(b)
-        if inner.remote or not isinstance(inner, (DenseBackend,
-                                                  HostLRUBackend)):
-            raise NotImplementedError(
-                f"table {n!r}: a {type(inner).__name__} under a mesh is "
-                f"not ported yet: {MESH_ROUTER_ITEM}")
-        if isinstance(inner, HostLRUBackend) and not b.spec.batch_dedup:
-            raise NotImplementedError(
-                f"table {n!r}: an occurrence-width (batch_dedup=False) "
-                f"host_lru table under a mesh is not ported yet: "
-                f"{MESH_LRU_ITEM}")
-        if isinstance(b, CompressedWireBackend) and \
-                b.spec.dim % b._block:
+        wire = isinstance(b, CompressedWireBackend) or (
+            inner.remote and getattr(inner, "lossy", False))
+        block = int(b.spec.wire_block)
+        if wire and b.spec.dim % block:
             raise NotImplementedError(
                 f"table {n!r}: the compressed wire under a mesh needs "
-                f"wire_block ({b._block}) to divide dim ({b.spec.dim}): "
+                f"wire_block ({block}) to divide dim ({b.spec.dim}): "
                 "each rank roundtrips its own rows, which equals the "
                 "reference's codec over the global rows only when every "
                 "row is whole blocks")
@@ -2814,8 +3048,13 @@ def lookup_all(backends, states, dev_ids):
                            f"{sorted(backends)}")
     # the remote tables' reads go out first (one coalesced frame per PS
     # endpoint) and travel while the in-process tables' gathers enqueue
-    remote = {n: backends[n].lookup_submit(states[n], ids)
-              for n, ids in dev_ids.items() if backends[n].remote}
+    remote = {n: ids for n, ids in dev_ids.items() if backends[n].remote}
+    if _on_mesh():
+        collect = _remote_lookup_mesh(backends, states, remote)
+    else:
+        thunks = {n: backends[n].lookup_submit(states[n], ids)
+                  for n, ids in remote.items()}
+        collect = lambda m: _remote_rows(thunks, dev_ids, m)  # noqa: E731
     for n, ids in dev_ids.items():
         if n in remote:
             continue
@@ -2827,7 +3066,7 @@ def lookup_all(backends, states, dev_ids):
             bags[n] = b._bag_entry(states[n], ids)
         _tag(metrics, n, m)
     rows = _roundtrip_all(wire)
-    rows.update(_remote_rows(remote, dev_ids, metrics))
+    rows.update(collect(metrics))
     for n, r in rows.items():
         ids = dev_ids[n]
         if D.is_plan(ids):
@@ -2854,6 +3093,113 @@ def _remote_rows(remote: dict, dev_ids, metrics) -> dict:
     up = _upload([r for r, _ in got.values()], np.float32,
                  _ids_device(dev_ids[next(iter(got))]))
     return dict(zip(got, up))
+
+
+def _remote_lookup_mesh(backends, states, dev_ids: dict):
+    """Under a mesh, the remote tables' lookups of the global batch as one
+    process sends them: every rank's device ids gathered over the batch
+    axes (a plan's unique ids, or the occurrences), the mesh's first rank
+    alone reading the global batch's unique rows (or its occurrences'
+    rows) from the PS, one read a table. Returns ``collect(metrics)`` ->
+    {table: this rank's rows on its ids' device}: the first rank sends
+    every table's rows to the others in one broadcast, and each rank
+    takes its own (bit for bit the PS's rows)."""
+    if not dev_ids:
+        return lambda m: {}
+    axes = batch_axes()
+    lead = get_mesh().rank == 0
+    want, futs = {}, {}
+    for n, ids in dev_ids.items():
+        plan = D.is_plan(ids)
+        own = (ids.dev if plan else ids).reshape(-1).to(torch.int32)
+        got = all_gather(own.contiguous(), axes).cpu().numpy()
+        if plan:
+            keys = np.unique(got[got >= 0]).astype(np.int32)
+            want[n] = (keys, _host_ids(ids.host if ids.host is not None
+                                       else ids.dev))
+            req = D.DedupPlan(dev=None, inv=None, host=keys)
+        else:
+            w = int(own.numel())
+            want[n] = (None, slice(flat_index(axes) * w,
+                                   (flat_index(axes) + 1) * w))
+            req = torch.from_numpy(got)
+        if lead:
+            futs[n] = backends[n].lookup_submit(states[n], req)
+
+    def collect(metrics):
+        got = from_rank0({n: f() for n, f in futs.items()} if lead
+                         else None)
+        rows = []
+        for n, (keys, own) in want.items():
+            r, m = got[n]
+            _tag(metrics, n, m)
+            if keys is None:
+                rows.append(r[own])
+                continue
+            out = np.zeros((own.size, r.shape[1]), np.float32)
+            if keys.size:
+                pos = np.searchsorted(keys, own).clip(max=keys.size - 1)
+                hit = (own >= 0) & (keys[pos] == own)
+                out[hit] = r[pos[hit]]
+            rows.append(out)
+        ids0 = next(iter(dev_ids.values()))
+        return dict(zip(want, _upload(rows, np.float32, _ids_device(ids0))))
+    return collect
+
+
+def _remote_puts_mesh(items) -> list:
+    """Under a mesh, the remote tables' puts as one process sends them:
+    each rank's unique-width sums (one sum-only ``fused_backward``
+    launch a table) gathered over the batch axes with their device ids
+    and deduplicated again on the device ids (one more sum-only launch),
+    or a table at occurrence width its occurrences gathered as they are;
+    the mesh's first rank alone puts the global put to the PS (one put a
+    table and step, at the queue width of the global batch). Every rank's
+    queue placeholder turns as the PS queue does. Returns [(state, queue,
+    metrics)]: the put's byte metrics on the first rank."""
+    axes = batch_axes()
+    nb = axis_size(axes)
+    lead = get_mesh().rank == 0
+    begun = []
+    for b, state, queue, ids, g in items:
+        if D.is_plan(ids):
+            key = ids.dev.to(torch.int32).contiguous()
+            g = _plan_sums(ids, g)
+        else:
+            key = ids.reshape(-1).to(torch.int32).contiguous()
+            g = g.reshape(-1, b.spec.dim).float()
+        key_all = all_gather(key, axes)
+        g_all = all_gather(g.contiguous(), axes)
+        if not lead:
+            begun.append(None)
+        elif D.is_plan(ids):
+            width = int(key_all.shape[0])
+            glob = C.dedup_plan(key_all, width)
+            begun.append((glob.dev, D.csr_segment_sum(
+                glob.order, glob.offsets, g_all, width), True))
+        else:
+            begun.append(b.put_sums(key_all, g_all))
+    host = iter(_download([x for one in begun if one is not None
+                           for x in one[:2]]))
+    out = []
+    for (b, state, queue, _, _), one in zip(items, begun):
+        m = {}
+        if one is not None:
+            _, _, m = b.put_host(state, _wide_queue(queue, nb), next(host),
+                                 next(host), one[2])
+        out.append((state, b.pushed(queue), m))
+    return out
+
+
+def _wide_queue(q, n: int):
+    """A queue placeholder ``n`` times as wide: the PS queue of the global
+    batch, whose width a put op names."""
+    if q is None:
+        return None
+    if "ids" not in q:
+        return {k: _wide_queue(v, n) for k, v in q.items()}
+    tau, w = int(q["ids"].shape[0]), int(q["ids"].shape[1])
+    return dict(q, ids=q["ids"][:, :1].expand(tau, w * n))
 
 
 def _download(tensors) -> list[np.ndarray]:
@@ -2945,7 +3291,8 @@ def put_all(backends, states, queues, dev_ids, grads):
     wire = [n for n in dev_ids if isinstance(backends[n],
                                              CompressedWireBackend)]
     remote = [n for n in dev_ids if backends[n].remote]
-    done = dict(zip(remote, _remote_puts(
+    puts = _remote_puts_mesh if _on_mesh() else _remote_puts
+    done = dict(zip(remote, puts(
         [(backends[n], states[n], queues.get(n), dev_ids[n], grads[n])
          for n in remote])))
     done.update({n: backends[n].hybrid_update(states[n], queues.get(n),
@@ -2984,6 +3331,8 @@ def read_pooled_all(backends, states, ids, device):
     # endpoint; the PS resolves each under its own lock
     remote = {n: backends[n].read_submit(_bags(x)) for n, x in ids.items()
               if backends[n].remote}
+    # (under a mesh a remote table's read_submit is a collective: every
+    # rank submits, in table order, and the first rank reads for all)
     with contextlib.ExitStack() as held:
         for n in ids:
             held.enter_context(backends[n].read_lock())

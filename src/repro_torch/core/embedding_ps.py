@@ -281,8 +281,22 @@ def _put_sharded(state: dict, spec: EmbeddingSpec, ids: torch.Tensor,
                                  dedup_cap(int(flat.numel()), rows))
     uniq_all = all_gather(pos_u.to(torch.int32), batch_axes)
     g_all = all_gather(g_u.contiguous(), batch_axes)
-    plan = C.dedup_plan(uniq_all, min(int(uniq_all.shape[0]), rows))
-    mine = (plan.dev >= 0) & (plan.dev // rows_local == me)
+    return apply_gathered(state, spec, uniq_all, g_all)
+
+
+def apply_gathered(state: dict, spec: EmbeddingSpec, pos_all: torch.Tensor,
+                   g_all: torch.Tensor) -> dict:
+    """The full-mode mesh put's second half, in place: a put gathered over
+    the batch axes (physical rows, -1 for padding; fp32 rows) deduplicated
+    once more on the rows and applied where this rank holds them, the
+    sums and the apply in one ``fused_backward`` launch."""
+    from repro_torch.core import compression as C
+    shard_axes, _ = _axes_for(spec.mode)
+    n = axis_size(shard_axes)
+    rows = spec.padded_rows(n)
+    rows_local = rows // n
+    plan = C.dedup_plan(pos_all, min(int(pos_all.shape[0]), rows))
+    mine = (plan.dev >= 0) & (plan.dev // rows_local == flat_index(shard_axes))
     fused_apply(state, spec, plan.order, plan.offsets, g_all,
                 torch.where(mine, plan.dev % rows_local, -1), None)
     return state

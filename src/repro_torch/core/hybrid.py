@@ -78,9 +78,11 @@ Differences from the JAX package, all of eager PyTorch:
   batch axes and divided by their size, and the activation gradients are
   those of the global batch's mean loss (1 / size of the local mean's),
   so the tables move as in one process; ``loss``, ``emb_grad_norm`` and
-  ``eval``'s metrics are over the global batch. Dense and host_lru tables
-  (with ``+disk``, behind the wire or not) are ported under a mesh
-  (``core/backend.py``); the router and remote tables raise. An adapter
+  ``eval``'s metrics are over the global batch. Every tier runs under a
+  mesh (``core/backend.py``): dense and host_lru tables (with ``+disk``,
+  behind the wire or not), the router (each shard's state blocked as a
+  table of its own) and remote tables (the mesh's first rank holds the
+  PS connections). An adapter
   with ``dense_specs`` (the LM's) keeps the rank's block of every dense
   leaf and Adam moment instead (``dense_param_specs``: tensor
   parallelism over ``model``, ZeRO over ``data``): a leaf sharded over
@@ -468,6 +470,22 @@ def _canonical_queue(q: dict, key: np.ndarray) -> dict:
     return out
 
 
+def _at(tree, path: tuple):
+    """``tree[path[0]][path[1]]...`` (``tree`` itself for ``()``)."""
+    for p in path:
+        tree = tree[p]
+    return tree
+
+
+def _blocks(mesh, specs, tree):
+    """Copies of the rank's blocks of a global state or queue, leaf by leaf
+    under ``specs`` (a router's shard by shard); host ints as they are."""
+    from repro_torch.sharding.partition import local_block
+    return {k: _blocks(mesh, specs[k], v) if isinstance(v, dict)
+            else local_block(mesh, specs[k], v).clone()
+            if isinstance(v, torch.Tensor) else v for k, v in tree.items()}
+
+
 def _check_rows(name: str, spec, rows: int, shuffled_over=None):
     """A dense table's state must be read over the rows it was written
     over. The uniform shuffle takes ``padded_rows`` of the ranks that
@@ -612,10 +630,8 @@ class PersiaTrainer:
         moments = self._moment_views(dense)
         # under a mesh every rank draws the global tables (rows padded to
         # the ranks that shard them) and keeps its block
-        emb = {n: self.backends[n].init(
-            gen, max(self.collection._shards_for(n, emb_shards),
-                     PS.n_shards(self.collection[n])))
-            for n in self.collection.names}
+        emb = {n: self.backends[n].init(gen, self._init_shards(n, emb_shards))
+               for n in self.collection.names}
         emb = self._local_emb(emb)
         emb_queue = {n: None for n in self.collection.names}
         dense_queue = None
@@ -630,26 +646,46 @@ class PersiaTrainer:
                           emb_queue=emb_queue, dense_queue=dense_queue,
                           step=0)
 
+    def _init_shards(self, name: str, emb_shards) -> int:
+        """The ``shards`` a table's backend draws its state for: a router's
+        or a remote table's own count; a dense table's rows padded to the
+        override or to the ranks of the mesh in scope that shard it."""
+        inner = BK.unwrap(self.backends[name])
+        k = self.collection._shards_for(name, emb_shards)
+        if inner.remote or isinstance(inner, BK.ShardedBackend):
+            return k
+        return max(k, PS.n_shards(self.collection[name]))
+
     # -- blocks under a mesh ---------------------------------------------------
+
+    def _storage(self, name: str) -> list:
+        """[(path, storage backend)] of a table: its backend, or a router's
+        shard backends under ``"s<k>"``."""
+        inner = BK.unwrap(self.backends[name])
+        if isinstance(inner, BK.ShardedBackend):
+            return [((f"s{s}",), sub)
+                    for s, sub in enumerate(inner.shard_backends)]
+        return [((), inner)]
 
     def _local_emb(self, emb: dict) -> dict:
         """Copies of the rank's blocks of global table states under the
-        mesh in scope (the states themselves without one). A dense table
-        must have the rows the mesh shuffles its ids over
+        mesh in scope (the states themselves without one; a router's
+        shard by shard). A dense table (or a router's dense shard) must
+        have the rows the mesh shuffles its ids over
         (:func:`_check_rows`)."""
-        from repro_torch.sharding.partition import (emb_state_specs,
-                                                    local_block)
+        from repro_torch.sharding.partition import emb_state_specs
         mesh = get_mesh()
         if mesh is None:
             return emb
         for n in emb:
-            if isinstance(BK.unwrap(self.backends[n]), BK.DenseBackend) \
-                    and PS.n_shards(self.collection[n]) > 1:
-                _check_rows(n, self.collection[n],
-                            int(emb[n]["table"].shape[0]))
-        return {n: {k: local_block(mesh, sp, emb[n][k]).clone() for k, sp in
-                    emb_state_specs(emb[n], self.collection[n]).items()}
-                for n in emb}
+            for path, sub in self._storage(n):
+                st = _at(emb[n], path)
+                if isinstance(sub, BK.DenseBackend) and "table" in st \
+                        and PS.n_shards(sub.spec) > 1:
+                    _check_rows(n + "".join(f".{p}" for p in path),
+                                sub.spec, int(st["table"].shape[0]))
+        return {n: _blocks(mesh, emb_state_specs(emb[n], self.collection[n]),
+                           emb[n]) for n in emb}
 
     def dense_specs(self):
         """The dense leaves' specs under the mesh in scope (the adapter's
@@ -695,13 +731,13 @@ class PersiaTrainer:
         return None if m is None else _zip_map(lambda sp, _: P(None, *sp),
                                                m, m)
 
-    def _queue_key(self, name: str, q: dict) -> np.ndarray:
+    def _queue_key(self, spec, q: dict) -> np.ndarray:
         """The rows a joined queue's entries land on when the mesh applies
         them (see :func:`_canonical_queue`): a host_lru table's cache
-        slots, a dense table's physical rows; -1 for padding."""
+        slots, a dense table's physical rows (``spec``: the table's, or a
+        router shard's); -1 for padding."""
         if "slots" in q:
             return q["slots"].cpu().numpy()
-        spec = self.collection[name]
         ids = q["ids"].cpu().long()
         ok = (ids >= 0) & (ids < spec.rows)
         pos = PS.shuffle_pos(torch.where(ok, ids, 0),
@@ -720,16 +756,12 @@ class PersiaTrainer:
         ``dense_specs`` (else replicated; the moments at the stage-3 specs
         at every ZeRO stage). The blocks are copies. Without a mesh, the
         state itself."""
-        from repro_torch.sharding.partition import local_block, queue_specs
+        from repro_torch.sharding.partition import queue_specs
         mesh = get_mesh()
         if mesh is None:
             return state
-        queues = {}
-        for n, q in state.emb_queue.items():
-            sp = queue_specs(q)
-            queues[n] = None if q is None else {
-                k: local_block(mesh, sp[k], v).clone()
-                if isinstance(v, torch.Tensor) else v for k, v in q.items()}
+        queues = {n: None if q is None else _blocks(mesh, queue_specs(q), q)
+                  for n, q in state.emb_queue.items()}
         opt, dq = state.opt, state.dense_queue
         if self.dense_specs() is not None:
             opt = {k: self._local_dense(v, self.moment_specs())
@@ -768,20 +800,22 @@ class PersiaTrainer:
         def add(sp, x, shape=None):
             items.append((sp, x, shape))
             return len(items) - 1
-        emb_idx = {}
+        emb_idx, q_idx = {}, {}
         for n, st in state.emb.items():
-            inner = BK.unwrap(self.backends[n])
-            spec = self.collection[n]
-            rows = inner.dev_slots if isinstance(inner, BK.HostLRUBackend) \
-                else spec.padded_rows(PS.n_shards(spec))
-            emb_idx[n] = {k: add(sp, st[k], (rows,) + tuple(st[k].shape[1:]))
-                          for k, sp in emb_state_specs(st, spec).items()}
-        q_idx = {}
-        for n, q in state.emb_queue.items():
-            if q is not None:
-                q_idx[n] = {k: add(sp, q[k]) for k, sp in
-                            queue_specs(q).items()
-                            if isinstance(q[k], torch.Tensor)}
+            specs = emb_state_specs(st, self.collection[n])
+            q = state.emb_queue.get(n)
+            qspecs = None if q is None else queue_specs(q)
+            for path, sub in self._storage(n):
+                part, sp = _at(st, path), _at(specs, path)
+                rows = sub.dev_slots if isinstance(sub, BK.HostLRUBackend) \
+                    else sub.spec.padded_rows(PS.n_shards(sub.spec))
+                emb_idx[n, path] = {
+                    k: add(sp[k], x, (rows,) + tuple(x.shape[1:]))
+                    for k, x in part.items()}
+                if q is not None:
+                    qp, qsp = _at(q, path), _at(qspecs, path)
+                    q_idx[n, path] = {k: add(qsp[k], x) for k, x in qp.items()
+                                      if isinstance(x, torch.Tensor)}
         specs = self.dense_specs()
         dense_idx = opt_idx = dq_idx = None
         if specs is not None:
@@ -794,13 +828,25 @@ class PersiaTrainer:
                                   state.dense_queue["grads"])
         full = _join_blocks(mesh, items)
         get = lambda i: full[i]  # noqa: E731
-        emb = {n: {k: full[i] for k, i in ix.items()}
-               for n, ix in emb_idx.items()}
+        emb = {n: {} for n in state.emb}
+        for (n, path), ix in emb_idx.items():
+            joined = {k: full[i] for k, i in ix.items()}
+            if path:
+                emb[n][path[0]] = joined
+            else:
+                emb[n] = joined
         queues = dict(state.emb_queue)
-        for n, ix in q_idx.items():
-            q = dict(state.emb_queue[n], **{k: full[i] for k, i in
-                                            ix.items()})
-            queues[n] = _canonical_queue(q, self._queue_key(n, q))
+        for (n, path), ix in q_idx.items():
+            sub = dict(self._storage(n))[path]
+            q = dict(_at(state.emb_queue[n], path),
+                     **{k: full[i] for k, i in ix.items()})
+            q = _canonical_queue(q, self._queue_key(sub.spec, q))
+            if not path:
+                queues[n] = q
+                continue
+            if queues[n] is state.emb_queue[n]:
+                queues[n] = dict(queues[n])
+            queues[n][path[0]] = q
         cp = lambda x: x.clone() if isinstance(  # noqa: E731
             x, torch.Tensor) else x
         dense, opt, dq = (tree_map(cp, state.dense), tree_map(cp, state.opt),

@@ -67,18 +67,22 @@ What differs from the JAX package, all of eager PyTorch on one card:
   op dispatch, the ctypes kernel launches and ``time.sleep`` release it,
   but the Python between them does not, so the stages overlap only as far
   as their host work is outside the lock.
-* Under a mesh (``utils.set_mesh``), the lookup, dense and put stages run
-  collectives. Each of the three threads runs them over process groups
-  of its own (a :meth:`~repro_torch.utils.Mesh.fork` of the mesh, made
-  once per engine and mesh, in the same order on every rank), so no two
-  threads' calls interleave on one group. The store lock orders a rank's
-  lookups and puts, and ranks must order them alike, or a rank's put
-  waits in a collective for a peer whose lookup waits for that rank's
-  lookup, behind the put: so the put of batch i also waits until the
-  lookup of batch i + w - 1 has run (w: the smallest put window), which
-  fixes the one order L0 .. L(w-1) P0 Lw P1 ... on every rank (the
-  windows alone already hold lookup j until put j - w). host_lru tables
-  under a mesh are not ported here yet: ``run`` raises.
+* Under a mesh (``utils.set_mesh``), the fault-in (prepare or prefetch),
+  lookup, dense and put stages run collectives: a host_lru fault-in
+  gathers the batch's ids and its evicted rows, a remote table's takes
+  the first rank's result. Each stage thread runs them over process
+  groups of its own (a :meth:`~repro_torch.utils.Mesh.fork` of the mesh,
+  made once per engine and mesh, in the same order on every rank), so no
+  two threads' calls interleave on one group. The store lock orders a
+  rank's fault-ins, lookups and puts, and ranks must order them alike:
+  else a rank's put waits in a collective for a peer whose fault-in waits
+  for that rank's, behind the put, and a rank's eviction writes back
+  rows that its peers' puts have or have not reached yet, so the
+  replicated caches and host stores part. So every rank runs them in
+  one order (``_Turns``): F0 .. F(h-1) L0 .. L(w-1), then P(i) F(i + h)
+  L(i + w) for each i (h: max_inflight + prefetch, the fault-in's
+  horizon; w: the smallest put window). With max_inflight=1 that is the
+  serial order.
 """
 from __future__ import annotations
 
@@ -126,6 +130,67 @@ class _StageStats:
         self.depth_max = max(self.depth_max, depth)
         self.depth_sum += depth
         self.depth_samples += 1
+
+
+class _Turns:
+    """The one order in which every rank of a mesh runs its fault-ins (F),
+    lookups (L) and puts (P) (see the module note): F0 .. F(h-1), L0 ..
+    L(w-1), then P(i), F(i + h), L(i + w) for i = 0, 1, ..., where ``h``
+    is the fault-in horizon (max_inflight + prefetch) and ``w`` the
+    smallest put window; a batch past the end of the stream (``end``)
+    is skipped. Each event comes after what it waits for: F(j) after P(j -
+    h) (the inflight or prefetch permit), L(j) after F(j) and P(j - w)
+    (the windows), P(i) after L(i + w - 1) (so lookups and puts keep the
+    order L0 .. L(w-1) P0 Lw P1 ...)."""
+
+    def __init__(self, h: int, w: int, stop: threading.Event):
+        self._order = self._events(h, w)
+        self._ran = {"F": 0, "L": 0, "P": 0}
+        self._end = {"F": None, "L": None}
+        self._stop = stop
+        self._cv = threading.Condition()
+        self._cur = next(self._order)
+
+    @staticmethod
+    def _events(h: int, w: int):
+        yield from (("F", j) for j in range(h))
+        yield from (("L", j) for j in range(w))
+        i = 0
+        while True:
+            yield from (("P", i), ("F", i + h), ("L", i + w))
+            i += 1
+
+    def _skip(self):
+        while True:
+            kind, idx = self._cur
+            # a put exists for every lookup that ran
+            end = self._end["L" if kind == "P" else kind]
+            if end is None or idx < end:
+                return
+            self._cur = next(self._order)
+
+    def wait(self, kind: str, idx: int) -> bool:
+        """Block until it is ``(kind, idx)``'s turn; False on a stop."""
+        with self._cv:
+            while not self._stop.is_set():
+                self._skip()
+                if self._cur == (kind, idx):
+                    return True
+                self._cv.wait(timeout=_TICK)
+        return False
+
+    def advance(self):
+        """The event whose turn it was has run."""
+        with self._cv:
+            self._ran[self._cur[0]] += 1
+            self._cur = next(self._order)
+            self._cv.notify_all()
+
+    def end(self, kind: str):
+        """The stream ended: no ``kind`` event past those that ran."""
+        with self._cv:
+            self._end[kind] = self._ran[kind]
+            self._cv.notify_all()
 
 
 class PipelinedTrainer:
@@ -241,8 +306,9 @@ class PipelinedTrainer:
         if mesh is None or mesh.n_ranks == 1:
             return {}
         if self._forks[0] is not mesh:
-            self._forks = (mesh, {s: mesh.fork()
-                                  for s in ("lookup", "dense", "put")})
+            self._forks = (mesh, {s: mesh.fork() for s in
+                                  ("prefetch", "prepare", "lookup", "dense",
+                                   "put")})
         return self._forks[1]
 
     # -- the pipelined loop ---------------------------------------------------
@@ -264,11 +330,6 @@ class PipelinedTrainer:
         adapter, backends = trainer.adapter, trainer.backends
         names = trainer.collection.names
         device = trainer.device
-        lru = [n for n in names if BK._mesh_lru(backends[n])]
-        if lru:
-            raise NotImplementedError(
-                f"tables {lru}: the pipelined trainer with host_lru tables "
-                f"under a mesh is not ported yet: {BK.MESH_LRU_ITEM}")
 
         # shared cells: the table store (tables, accumulators, staleness
         # queues, host_lru slot maps; every dispatch that touches them is
@@ -303,25 +364,23 @@ class PipelinedTrainer:
             maxsize=self.max_inflight + self.prefetch)
         results: list[tuple[int, dict]] = []
         groups = self._stage_groups()
-        # under a mesh: lookups run so far, and whether the last has run
-        # (put i waits for lookup i + w - 1, so every rank orders alike)
-        looked = {"n": 0, "done": False}
-        looked_cv = threading.Condition()
+        # under a mesh every rank runs the fault-ins, lookups and puts in
+        # one order (see the module note)
         w_min = min((self.put_window(n) for n in names), default=1)
+        turns = _Turns(self.max_inflight + self.prefetch, w_min, stop) \
+            if groups else None
 
-        def lookups_reached(idx: int) -> bool:
-            with looked_cv:
-                while not stop.is_set():
-                    if looked["done"] or looked["n"] >= idx + w_min:
-                        return True
-                    looked_cv.wait(timeout=_TICK)
-            return False
-
-        def count_lookup(done: bool = False):
-            with looked_cv:
-                looked["n"] += not done
-                looked["done"] |= done
-                looked_cv.notify_all()
+        @contextlib.contextmanager
+        def turn(kind: str, idx: int):
+            if turns is None:
+                yield True
+                return
+            ok = turns.wait(kind, idx)
+            try:
+                yield ok
+            finally:
+                if ok:
+                    turns.advance()
 
         def fail(stage: str, idx: int, exc: BaseException):
             errors.append(PipelineStageError(stage, idx, exc))
@@ -389,17 +448,20 @@ class PipelinedTrainer:
                 return tuple(range(bk.n_put_shards()))
             return bk.put_shards(pins[n]) if n in pins else (0,)
 
-        def fault_in(batch):
+        def fault_in(idx, batch):
             """The host prepare: every table's plan, then (under the store
             lock) its fault-in and the pin of its slots until its put has
             been applied, then the upload. The pins are the host arrays
             the upload was made from; the touched shards are decoded from
-            them too."""
+            them too. ``None`` when the run stops before its turn."""
             ids = adapter.emb_ids(batch)
             pins: dict = {}
-            emb, dev_ids, prep_m = BK.prepare_all(
-                backends, store["emb"], ids, device, lock=store_lock,
-                pins=pins)
+            with turn("F", idx) as ok:
+                if not ok:
+                    return None
+                emb, dev_ids, prep_m = BK.prepare_all(
+                    backends, store["emb"], ids, device, lock=store_lock,
+                    pins=pins)
             with store_lock:
                 store["emb"] = emb
             touched = {n: touched_shards(n, pins) for n in names}
@@ -414,6 +476,8 @@ class PipelinedTrainer:
                 if item is None:
                     return
                 if item is _DONE:
+                    if self.prefetch > 0 and turns is not None:
+                        turns.end("F")
                     q_put("prepare", _DONE)
                     return
                 if self.prefetch <= 0:
@@ -427,7 +491,9 @@ class PipelinedTrainer:
                         return
                     t0 = time.perf_counter()
                     sleep_for("prefetch", idx)
-                    faulted = fault_in(batch)
+                    faulted = fault_in(idx, batch)
+                    if faulted is None:
+                        return
                     st.busy_s += time.perf_counter() - t0
                     st.items += 1
                     if not q_put("prepare", (idx, batch, *faulted)):
@@ -443,6 +509,8 @@ class PipelinedTrainer:
                 if item is None:
                     return
                 if item is _DONE:
+                    if self.prefetch <= 0 and turns is not None:
+                        turns.end("F")
                     q_put("lookup", _DONE)
                     return
                 idx, batch = item[0], item[1]
@@ -454,8 +522,10 @@ class PipelinedTrainer:
                         return
                     t0 = time.perf_counter()
                     sleep_for("prepare", idx)
-                    faulted = fault_in(batch) if len(item) == 2 \
+                    faulted = fault_in(idx, batch) if len(item) == 2 \
                         else item[2:]        # faulted by the prefetch stage
+                    if faulted is None:
+                        return
                     st.busy_s += time.perf_counter() - t0
                     st.items += 1
                     if not q_put("lookup", (idx, batch, *faulted)):
@@ -471,7 +541,8 @@ class PipelinedTrainer:
                 if item is None:
                     return
                 if item is _DONE:
-                    count_lookup(done=True)
+                    if turns is not None:
+                        turns.end("L")
                     q_put("dense", _DONE)
                     return
                 idx, batch, dev_ids, pins, touched, prep_m = item
@@ -489,9 +560,11 @@ class PipelinedTrainer:
                             outstanding[n] += 1
                             self.max_outstanding[n] = max(
                                 self.max_outstanding[n], outstanding[n])
-                    with store_lock:
-                        pooled, get_m = lookup_fn(store["emb"], dev_ids)
-                    count_lookup()
+                    with turn("L", idx) as ok:
+                        if not ok:
+                            return
+                        with store_lock:
+                            pooled, get_m = lookup_fn(store["emb"], dev_ids)
                     st.busy_s += time.perf_counter() - t0
                     st.items += 1
                     if not q_put("dense", (idx, batch, dev_ids, pins, pooled,
@@ -541,15 +614,17 @@ class PipelinedTrainer:
                 try:
                     t0 = time.perf_counter()
                     sleep_for("put", idx)
-                    if groups and not lookups_reached(idx):
-                        return
-                    with store_lock:
-                        emb, queues, put_m = emb_put(
-                            store["emb"], store["queues"], dev_ids, agrads)
-                        store["emb"] = emb
-                        store["queues"] = queues
-                        for n, slots in pins.items():
-                            backends[n].unpin_slots(slots)
+                    with turn("P", idx) as ok:
+                        if not ok:
+                            return
+                        with store_lock:
+                            emb, queues, put_m = emb_put(
+                                store["emb"], store["queues"], dev_ids,
+                                agrads)
+                            store["emb"] = emb
+                            store["queues"] = queues
+                            for n, slots in pins.items():
+                                backends[n].unpin_slots(slots)
                     self.applied_order.append(idx)
                     with out_lock:
                         for n in names:

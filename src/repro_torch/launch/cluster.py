@@ -114,6 +114,36 @@ def spawn_cluster(workdir: str, n_ps: int, host: str = "127.0.0.1",
     return [m for m, _ in started]
 
 
+def mesh_cluster(workdir: str, n_ps: int, **kw) -> tuple[list, list]:
+    """PS start-up for a mesh world (collective: every rank of the mesh in
+    scope calls it): the mesh's first rank, which holds a remote table's
+    connections under a mesh, starts ``n_ps`` PS processes
+    (:func:`spawn_cluster` with ``kw``) and sends every rank their
+    endpoints. Returns ``(members, endpoints)``: the members on the first
+    rank (stop them with :func:`stop_ps`), none on the others. Connect
+    the tables with ``connect_remote_backends`` under the same mesh. A
+    failed start raises on every rank."""
+    from repro_torch.utils import from_rank0, get_mesh
+    mesh = get_mesh()
+    members, error = [], None
+    if mesh is None or mesh.rank == 0:
+        try:
+            members = spawn_cluster(workdir, n_ps, **kw)
+        except Exception as e:          # noqa: BLE001
+            if mesh is None or mesh.n_ranks == 1:
+                raise
+            error = e
+    eps, failed = from_rank0(([(m.host, m.port) for m in members],
+                              None if error is None
+                              else f"{type(error).__name__}: {error}"))
+    if error is not None:
+        raise error
+    if failed is not None:
+        raise RuntimeError(f"the mesh's first rank could not start the PS "
+                           f"processes: {failed}")
+    return members, eps
+
+
 def stop_ps(members):
     """Kill every member process still running and reap it."""
     for m in members:

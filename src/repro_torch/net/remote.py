@@ -66,6 +66,22 @@ width) shape, with ``ptr`` and ``filled`` counting the puts the PS queue
 holds, so the serving staleness gauge reads it as it reads an
 in-process queue and a checkpoint restores into an in-process trainer
 (with the pending puts dropped, as in the JAX package).
+
+Under a mesh
+------------
+A remote table built under a mesh of more than one rank
+(``connect_remote_backends`` inside ``utils.set_mesh``) keeps one
+process's op stream to the PS. The mesh's first rank (the leader) alone
+holds the connections and sends every op: the configure, the init (the
+others take the generator's state it gets back), the queue's creation at
+the global batch's width, the prepare of the global batch's ids, one
+lookup of the global batch's unique rows, one put of the global
+deduplicated sums a table and step (``core/backend.py``'s
+``prepare_all``, ``_remote_lookup_mesh``, ``_remote_puts_mesh``). The
+others hold no connection; the fan-outs send them the leader's results
+(``utils.from_rank0``), and their queue placeholders turn as the PS's
+queue does. A serve read is collective: the leader reads every rank's
+block, one read each, and sends each rank its own.
 """
 from __future__ import annotations
 
@@ -126,6 +142,37 @@ def _release_client(client: RpcClient):
             client.close()
 
 
+def _leader():
+    """(the mesh in scope if it has more than one rank, else None; whether
+    this process holds the PS connections: no such mesh, or its first
+    rank)."""
+    mesh = BK.get_mesh()
+    if mesh is None or mesh.n_ranks == 1:
+        return None, True
+    return mesh, mesh.rank == 0
+
+
+def _from_leader(mesh, obj):
+    """The leader's ``obj`` on every rank of ``mesh`` (the mesh in scope,
+    or the one the backend was built under when a caller takes it out of
+    scope, as a global state's conversion does); ``obj`` itself without
+    one."""
+    import torch.distributed as dist
+    m = BK.get_mesh()
+    m = m if m is not None and m.n_ranks > 1 else mesh
+    if m is None:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=0, group=m.get_group(m.axis_names))
+    return box[0]
+
+
+def _batch_ranks(mesh) -> int:
+    """The ranks the mesh cuts the batch over (1 without one)."""
+    return 1 if mesh is None else mesh.axis_size(
+        tuple(a for a in ("pod", "data") if a in mesh.axis_names))
+
+
 def _is_blob(x) -> bool:
     """A table's state as numpy that must go to the PS (a checkpoint blob,
     or a dense / host_lru state), as opposed to a remote state."""
@@ -173,8 +220,14 @@ class _Remote:
                                            int(plan.dev.shape[0])), True
 
     def lookup(self, state, dev_ids):
-        rows, m = self.lookup_submit(state, dev_ids)()
-        out = torch.from_numpy(rows).to(BK._ids_device(dev_ids))
+        if BK._on_mesh():
+            m = {}
+            out = BK._remote_lookup_mesh({0: self}, {0: state},
+                                         {0: dev_ids})(m)[0]
+            m = {k.split("/", 2)[-1]: v for k, v in m.items()}
+        else:
+            rows, m = self.lookup_submit(state, dev_ids)()
+            out = torch.from_numpy(rows).to(BK._ids_device(dev_ids))
         if D.is_plan(dev_ids):
             return D.plan_scatter(out, dev_ids.inv), m
         return out.reshape(*dev_ids.shape, self.spec.dim), m
@@ -185,6 +238,26 @@ class _Remote:
 
     def _read_begin(self, arr, occ=False):
         return self.read_submit(arr, occ)()
+
+    def read_submit(self, arr: np.ndarray, occ: bool = False):
+        """Buffer a serve read of LOGICAL ids ``arr``; the thunk returns
+        ``_read_begin``'s triple. Under a mesh it is a collective: every
+        rank submits its own block of requests (blocks of one shape), the
+        first rank reads every rank's block (one read each, as that rank
+        alone would) and sends each rank its own."""
+        mesh = BK.get_mesh()
+        if mesh is None or mesh.n_ranks == 1:
+            return self._read_one(arr, occ)
+        arr = np.asarray(arr, np.int64)
+        got = BK.all_gather(torch.from_numpy(arr.reshape(1, -1)).to(
+            mesh.device), mesh.axis_names).cpu().numpy()
+        thunks = [self._read_one(a.reshape(arr.shape), occ) for a in got] \
+            if mesh.rank == 0 else None
+
+        def collect():
+            res = BK.from_rank0([t() for t in thunks] if thunks else None)
+            return res[mesh.rank]
+        return collect
 
 
 class RemoteBackend(_Remote, EmbeddingBackend):
@@ -221,7 +294,11 @@ class RemoteBackend(_Remote, EmbeddingBackend):
         self.lossy = bool(lossy)
         self._block = int(spec.wire_block)
         self._table = str(table)
-        self._client = _acquire_client(endpoint, timeout, retries, backoff)
+        # under a mesh of more than one rank in scope at construction, the
+        # mesh's first rank alone holds the PS connection (the leader)
+        self._mesh, self._lead = _leader()
+        self._client = _acquire_client(endpoint, timeout, retries,
+                                       backoff) if self._lead else None
         # outstanding-ack window: sync tables 1 (one unacked put at most);
         # hybrid tables up to tau (in-flight loss stays within the paper's
         # bounded-staleness tolerance), capped at DEFAULT_MAX_PUT_WINDOW
@@ -248,10 +325,17 @@ class RemoteBackend(_Remote, EmbeddingBackend):
         return self._client.endpoint
 
     def _call(self, op: str, _mutating: bool = False, **kw):
+        if not self._lead:      # another rank of the mesh sends it
+            return None
         return self._client.call(op, _mutating=_mutating, table=self._table,
                                  **kw)
 
     def _coal(self, op: str, _mutating: bool = False, **kw) -> Future:
+        if not self._lead:
+            raise RuntimeError(
+                f"{op!r} on a remote table of the mesh's rank "
+                f"{self._mesh.rank}: the mesh's first rank alone sends the "
+                "PS ops (core/backend.py's fan-outs share its results)")
         if not self._pipelined:
             # blocking-baseline preset (the benchmark's comparison bar):
             # every op is its own synchronous round-trip, no coalescing —
@@ -271,7 +355,8 @@ class RemoteBackend(_Remote, EmbeddingBackend):
 
     def close(self):
         self.discard_pending()
-        _release_client(self._client)
+        if self._client is not None:
+            _release_client(self._client)
 
     def discard_pending(self):
         """Drop outstanding ack futures without raising — the membership
@@ -287,7 +372,7 @@ class RemoteBackend(_Remote, EmbeddingBackend):
             err = q.popleft().exception()
             if err is not None:
                 raise err
-        while len(q) > limit:
+        while len(q) > limit:           # (only the leader holds acks)
             self._client.flush()            # oldest may still be buffered
             err = None
             try:
@@ -326,6 +411,7 @@ class RemoteBackend(_Remote, EmbeddingBackend):
                          gen_state=generator.get_state().numpy(),
                          gen_device=generator.device.type,
                          scale=float(scale))
+        rep = _from_leader(self._mesh, rep)
         generator.set_state(torch.from_numpy(
             np.asarray(rep["gen_state"], np.uint8)))
         return {}
@@ -388,10 +474,13 @@ class RemoteBackend(_Remote, EmbeddingBackend):
     def _queue_init_width(self, width: int, device=None):
         # width 0 = "re-derive" (a resharded restore of a placeholder):
         # fall back to the last configured width; the server also
-        # re-creates its queue lazily at the first put's width
+        # re-creates its queue lazily at the first put's width. Under a
+        # mesh the placeholder is the rank's share of the queue, the PS's
+        # queue the global batch's
         width = int(width) or self._queue_width_cfg
         self._queue_width_cfg = int(width)
-        self._call("queue_init", _mutating=True, width=int(width))
+        self._call("queue_init", _mutating=True,
+                   width=int(width) * _batch_ranks(self._mesh))
         return self._placeholder(width, 0, 0)
 
     def _placeholder(self, width: int, ptr: int, filled: int) -> dict:
@@ -409,19 +498,19 @@ class RemoteBackend(_Remote, EmbeddingBackend):
         return q
 
     def pin_slots(self, dev_ids):
-        if self._host:
+        if self._host and self._lead:
             self._reap(self._aux, _AUX_WINDOW)
             self._aux.append(self._coal(
                 "pin", _mutating=True, slots=self._pin_host(dev_ids)))
 
     def unpin_slots(self, dev_ids):
-        if self._host:
+        if self._host and self._lead:
             self._reap(self._aux, _AUX_WINDOW)
             self._aux.append(self._coal(
                 "unpin", _mutating=True, slots=self._pin_host(dev_ids)))
 
     def reset_pins(self):
-        if self._host:
+        if self._host and self._lead:
             self._reap(self._aux, _AUX_WINDOW)
             self._aux.append(self._coal("reset_pins", _mutating=True))
 
@@ -438,7 +527,8 @@ class RemoteBackend(_Remote, EmbeddingBackend):
         return self._call("checkpoint")["blob"]
 
     def restore_from_checkpoint(self, blob):
-        rep = self._call("restore", _mutating=True, blob=blob)
+        rep = _from_leader(self._mesh, self._call("restore", _mutating=True,
+                                                  blob=blob))
         self.last_restore_resharded = bool(rep["resharded"])
         return {}
 
@@ -538,9 +628,16 @@ class RemoteBackend(_Remote, EmbeddingBackend):
                                int(queue["ids"].shape[1]) if hybrid else 0)
         m = {"put_bytes_raw": float(ids.size * (4 + 4 * self.spec.dim)),
              "put_bytes_wire": float(n_wire)}
-        return {}, self._pushed(queue), m
+        return {}, self.pushed(queue), m
 
-    def _pushed(self, queue):
+    def counters(self) -> tuple:
+        """The PS's fault and hit counters as the last prepare saw them."""
+        return self.faults, self.hits
+
+    def set_counters(self, got):
+        self.faults, self.hits = got
+
+    def pushed(self, queue):
         """The queue placeholder after one more push into the PS queue."""
         if self.spec.staleness <= 0 or queue is None:
             return queue
@@ -552,7 +649,7 @@ class RemoteBackend(_Remote, EmbeddingBackend):
 
     # -- serve-path reads -----------------------------------------------------
 
-    def read_submit(self, arr: np.ndarray, occ: bool = False):
+    def _read_one(self, arr: np.ndarray, occ: bool = False):
         """Buffer a serve read of LOGICAL ids ``arr`` (one atomic RPC under
         the server's lock); the thunk returns ``_read_begin``'s triple.
         The raw wire reads the unique ids (rows ``(U, dim)``, at least
@@ -666,7 +763,8 @@ class RemoteShardedBackend(_Remote, ShardedBackend):
         # flush every shard's buffer first so the ack waits overlap across
         # shards instead of paying one serial round-trip each
         for sub in self.shard_backends:
-            sub._client.flush()
+            if sub._client is not None:
+                sub._client.flush()
         for s, sub in enumerate(self.shard_backends):
             sub.sync(state[f"s{s}"])
         return state
@@ -703,6 +801,19 @@ class RemoteShardedBackend(_Remote, ShardedBackend):
         if self.lossy:
             return D.dedup_cap(int(n_occ), self.dev_rows())
         return super().queue_width(n_occ)
+
+    def pushed(self, queue):
+        if queue is None:
+            return None
+        return {f"s{s}": sub.pushed(queue[f"s{s}"])
+                for s, sub in enumerate(self.shard_backends)}
+
+    def counters(self) -> list:
+        return [sub.counters() for sub in self.shard_backends]
+
+    def set_counters(self, got):
+        for sub, c in zip(self.shard_backends, got):
+            sub.set_counters(c)
 
     # -- the fan-outs' phases -------------------------------------------------
 
@@ -764,7 +875,7 @@ class RemoteShardedBackend(_Remote, ShardedBackend):
         return new_state, new_queue, m
 
 
-    def read_submit(self, arr: np.ndarray, occ: bool = False):
+    def _read_one(self, arr: np.ndarray, occ: bool = False):
         """A serve read routed over the shards: every shard reads its own
         unique ids (one RPC each, buffered on its endpoint); the thunk
         merges them into the read's unique rows, as ``_read_begin``."""

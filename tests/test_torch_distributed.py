@@ -1277,3 +1277,85 @@ def test_no_mesh_paths_are_unchanged_without_a_mesh():
     assert PS.n_shards(EmbeddingSpec(**PS_FULL)) == 1
     assert utils.shard(x, "data") is x
     assert utils.from_rank0(x) is x     # no group to wait on
+
+
+def _world_of_one():
+    """A mesh of one rank as a world of one builds it, without a process
+    group: every axis has size 1, so every collective is the identity."""
+    from repro_torch.utils import Mesh
+    m = object.__new__(Mesh)
+    MeshLayout.__init__(m, (1, 1), ("data", "model"))
+    m.rank, m.device, m.device_type, m._groups = 0, torch.device("cpu"), \
+        "cpu", {}
+    m._coords = m.coords(0)
+    return m
+
+
+@pytest.mark.parametrize("tier", ["router_dense", "router_lru",
+                                  "host_lru_flat", "remote_lru"])
+def test_no_mesh_tables_take_the_one_process_path(tier):
+    """The router, remote and host_lru tables with no mesh in scope and
+    under a mesh of one rank take the one-process path: a router's plan
+    carries its ``ShardParts`` and no logical ids, a plan keeps its
+    power-of-two width, a remote table holds its own connection, and 3
+    hybrid(2) steps give the same losses, tables and LRU counters bit for
+    bit."""
+    from repro_torch.net import connect_remote_backends
+    from repro_torch.net.ps_server import PSServer
+    from repro_torch.utils import set_mesh
+    base, kw = {"router_dense": ("dense", {"emb_shards": 2}),
+                "router_lru": ("host_lru", {"emb_shards": 2}),
+                "host_lru_flat": ("host_lru", {"batch_dedup": False}),
+                "remote_lru": ("host_lru", {})}[tier]
+    batches = _batches()[:3]
+    runs = []
+    for mesh in (None, _world_of_one()):
+        coll = adapters.ctr_collection(
+            ModelConfig(**CTR_KW), lr=EMB_LR,
+            field_rows=CTRDataset(**DS_KW).field_rows()).with_backend(
+            base, 32).map_specs(lambda _, sp: dataclasses.replace(sp, **kw))
+        tr = PersiaTrainer(adapters.recsys_adapter(
+            ModelConfig(**CTR_KW), field_rows=CTRDataset(**DS_KW)
+            .field_rows(), collection=coll), TrainMode.hybrid(2),
+            OptConfig(kind="adam", lr=DENSE_LR), device="cpu")
+        servers = []
+        with set_mesh(mesh):
+            if tier == "remote_lru":
+                servers = [PSServer(device="cpu").start() for _ in range(2)]
+                connect_remote_backends(
+                    tr, [("127.0.0.1", s.port) for s in servers])
+                assert all(sub._lead and sub._client is not None
+                           for b in tr.backends.values()
+                           for sub in b.shard_backends)
+            s = tr.init(seed=0, batch_example=batches[0])
+            _, dev_ids, _ = tr._prepare(s, batches[0])
+            plan = dev_ids["field_00"]
+            if tier.startswith("router"):
+                assert plan.shards is not None and plan.ids is None
+            if tier == "host_lru_flat":
+                assert isinstance(plan, torch.Tensor)
+            else:                               # a power of two
+                assert plan.dev.shape[0] & (plan.dev.shape[0] - 1) == 0
+            losses = []
+            for b in batches:
+                s, m = tr.step(s, b)
+                losses.append(float(m["loss"]))
+            if tier == "remote_lru":
+                tables = {n: b.state_for_checkpoint(s.emb[n])
+                          for n, b in tr.backends.items()}
+                for b in tr.backends.values():
+                    b.close()
+                for srv in servers:
+                    srv.stop()
+            else:
+                tables = convert.state_to_numpy(s)["emb"]
+        subs = {f"{n}/{k}": sub for n, b in tr.backends.items()
+                for k, sub in enumerate(getattr(BK.unwrap(b),
+                                                "shard_backends", None)
+                                        or [BK.unwrap(b)])}
+        runs.append((losses, tables, {
+            n: (getattr(b, "faults", 0), getattr(b, "hits", 0),
+                getattr(b, "writebacks", 0)) for n, b in subs.items()}))
+    assert runs[0][0] == runs[1][0]
+    _equal_trees(runs[1][1], runs[0][1], "tables")
+    assert runs[0][2] == runs[1][2]
