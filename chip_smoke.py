@@ -354,16 +354,18 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    more granite step; (e) the embedding tiers that earlier slices did
    not run under a mesh (``mesh_emb_rank``): the router over 4 shards
    (dense at 65,536 rows a table; host_lru at 1,953 slots a shard with
-   admission, warmed until it writes back a row an applied put moved)
-   and kwai-dlrm's tables at occurrence width, each held step by step
-   as the tiers are; the serve read of the replicated and the
-   row-sharded tier's held state, bit for bit with one process; the
-   pipelined trainer on the row-sharded tier (max_inflight 1 bit for
-   bit with serial, PIPE_INFLIGHT's puts in batch order, the host tiers
-   alike on every rank); remote tables over PS processes (one with the
-   dense tables, REMOTE_K with host_lru tables) against the same run of
-   this process beside the world: the first step's lookups bit for bit,
-   the PS's counters, launches and frames equal. The NCCL world of one
+   admission, warmed until it writes back a row an applied put moved,
+   also behind the compressed wire) and kwai-dlrm's tables at occurrence
+   width, each held step by step as the tiers are; the serve read of the
+   replicated and the row-sharded tier's held state, bit for bit with
+   one process; the pipelined trainer on the row-sharded tier
+   (max_inflight 1 bit for bit with serial, PIPE_INFLIGHT's puts in
+   batch order, the host tiers alike on every rank); remote tables over
+   PS processes (one with the dense tables, REMOTE_K with the host_lru
+   ones, in one run of tau + 2 steps) against the same run of this
+   process beside the world: the first step's lookups bit for bit, each
+   applied put against one process's put of the mesh's own ranks'
+   shares, the PS's counters, launches and frames equal. The NCCL world of one
    decodes granite through ``decode_dist`` the same way.
 24. The dry run (``dryrun_phase``, a CPU process started before the LM
    training phases): granite-3-2b's train_4k, prefill_32k and decode_32k
@@ -645,24 +647,33 @@ MESH_TIER = {"warm_cap": 60, "steps": 3, "resume": 2,
 # shards, its dense shards at SHARD_ROWS_POW2 rows a table (16,384 a
 # shard: the shuffle is a bijection), its host_lru shards at
 # sharded_lru_runs' 1,953 slots a shard, with admission and a bypass of
-# 487 (2,440 slots: 610 a rank); kwai-dlrm's tables at occurrence width
+# 487 (2,440 slots: 610 a rank), and the same behind the compressed wire
+# (its block the dim); kwai-dlrm's tables at occurrence width
 # (batch_dedup=False) on the row-sharded tier's cache. The serve read on
 # the replicated and the row-sharded tiers' held state; the pipelined
 # trainer on the row-sharded one (serial, max_inflight 1, PIPE_INFLIGHT
 # with a look-ahead of PIPE_PREFETCH; "pipe_steps" steps each); remote
-# tables over PS processes that mesh_start starts (one with the dense
-# tables, REMOTE_K with host_lru tables), "remote_steps" steps each
-# against the same run of one process (this one, beside the world) over
-# PS processes of its own
+# tables over PS processes that mesh_start starts, in one run (the even
+# tables dense on one PS process, the odd ones host_lru over REMOTE_K),
+# "remote_steps" steps (tau + 2: the last loss reads the first applied
+# put) against the same run of one process (this one, beside the world)
+# over PS processes of its own. Each applied put's distance from one
+# process's is held to PUT_CAP of its largest element (the card's dense
+# backward at a rank's 256-row block against the 512-row batch: 5.5e-4
+# and 1.4e-3 read, PERF.md), and the rows after the run, in norm, to
+# ROWS_REL of what the applied puts moved them
 MESH_EMB_TIERS = (
     ("router_dense", "dense", {"emb_shards": SHARDS,
                                "rows": SHARD_ROWS_POW2}),
     ("router_lru", HOST_LRU, {"emb_shards": SHARDS, "admit_threshold": 1.5,
                               "bypass_rows": 1948}),
+    ("router_wire", HOST_LRU + "+compressed", {
+        "emb_shards": SHARDS, "admit_threshold": 1.5, "bypass_rows": 1948}),
     ("lru_flat", HOST_LRU, {"batch_dedup": False, "admit_threshold": 1.5,
                             "bypass_rows": 1952}))
 MESH_EMB = {"serve": ("lru_replicated", "lru_sharded"),
-            "pipe": "lru_sharded", "pipe_steps": 3, "remote_steps": TAU + 1}
+            "pipe": "lru_sharded", "pipe_steps": 3, "remote_steps": TAU + 2}
+PUT_CAP, ROWS_REL = 1e-2, 0.05
 
 KERNELS = {
     "embedding_bag": {"source": "src/repro_torch/kernels/csrc/bag.cu",
@@ -5857,6 +5868,7 @@ def mesh_tier_rank(dev, mesh, work, tiers=None) -> dict:
     batches = [next(it) for _ in range(n_b)]
     out = {}
     for tag, backend, extra in MESH_TIERS if tiers is None else tiers:
+        lossy = backend.endswith("+compressed")
         rt = mesh_tier_trainer(dev, backend, extra)
         ref = rt.init(seed=MESH_SEED, batch_example=batches[0])
         lru = lru_tiers_of(rt)
@@ -5920,9 +5932,9 @@ def mesh_tier_rank(dev, mesh, work, tiers=None) -> dict:
                        == lru_table_counters(rt),
                        "slot_maps_equal": lru_maps_equal(tr, rt),
                        **tier_agreement(mesh, tr, st.emb, ref.emb, snap.emb,
-                                        backend == WIRE),
+                                        lossy),
                        **queue_agreement(mesh, tr, st.emb_queue,
-                                         ref.emb_queue, backend == WIRE)}
+                                         ref.emb_queue, lossy)}
             one["ok"] = bool(one["pooled_bit_exact"] and one["counters_equal"]
                              and one["slot_maps_equal"] and not one["off"]
                              and not one["queue_off"]
@@ -6065,109 +6077,158 @@ def mesh_pipeline(dev, mesh, backend, extra, rt, ref, batches) -> dict:
     return out
 
 
+def remote_mixed_trainer(dev) -> tuple:
+    """kwai-dlrm's hybrid(TAU) trainer with its even tables dense and its
+    odd ones host_lru (the launchers' cache), and the names of each."""
+    tr = kwai_train_trainer(dev, TrainMode.hybrid(TAU))
+    names = list(tr.collection)
+    cache = default_cache_rows(CTR_BENCHMARKS["kwai_video"].rows_per_field)
+    lru = names[1::2]
+    ad = dataclasses.replace(tr.adapter, collection=tr.adapter.collection
+                             .map_specs(lambda n, sp: dataclasses.replace(
+                                 sp, backend=HOST_LRU, cache_rows=cache)
+                                 if n in lru else sp))
+    return (PersiaTrainer(ad, tr.mode, OptConfig(kind="adam", lr=DENSE_LR),
+                          device=dev), names[0::2], lru)
+
+
+def put_share(plan, grads) -> tuple:
+    """A rank's share of a remote table's put, by plain means: its
+    occurrences' gradients summed by device id in fp64 on the host ->
+    (sorted ids int32, fp32 sums)."""
+    inv = plan.inv.reshape(-1).long().cpu()
+    g = grads.reshape(inv.numel(), -1).cpu().double()
+    ok = inv >= 0
+    ids = plan.dev.long().cpu()[inv[ok]]
+    g, keep = g[ok], ids >= 0
+    u, pos = torch.unique(ids[keep], return_inverse=True)
+    sums = torch.zeros((u.numel(), g.shape[1]), dtype=torch.float64)
+    return u.int(), sums.index_add_(0, pos, g[keep]).float()
+
+
 def mesh_remote_run(dev, mesh, eps: dict) -> dict:
-    """kwai-dlrm on remote tables, one PS process with the dense tables
-    (``eps["dense"]``) and REMOTE_K with host_lru tables (``eps["lru"]``,
-    the remote router), MESH_EMB["remote_steps"] hybrid(TAU) steps from
-    one seed on the global batches: under ``mesh`` on this rank's blocks
-    (the mesh's first rank holds the connections), or, with ``mesh``
-    None, in one process. Per run: every step's loss, the first step's
-    pooled lookups (one lookup op more, either way), the serve read of
-    the first batch after the run (its put applied), the PS's counters
-    (puts, faults, hits), its processes' kernel launches, the frames the
-    steps sent (the first rank's), the trainer's launches and collectives
-    a step."""
+    """kwai-dlrm on remote tables in one run: its even tables dense on one
+    PS process (``eps["dense"]``), its odd ones host_lru over REMOTE_K
+    (``eps["lru"]``, the remote router), MESH_EMB["remote_steps"]
+    hybrid(TAU) steps from one seed on the global batches: under ``mesh``
+    on this rank's blocks (the mesh's first rank holds the connections),
+    or, with ``mesh`` None, in one process. Records every step's loss;
+    the first step's pooled lookups (one lookup op more to the PS either
+    way); the serve read of the first batch after the run; the global put
+    of each step whose put the run applies (the first ``remote_steps -
+    TAU``), as the PS got it (the first rank's, by table: valid ids and
+    sums) and, under the mesh on the ranks that gather with the first
+    one, this rank's share of it (:func:`put_share`, taken before the
+    mesh put gathers it); the PS's counters (puts, faults, hits), its
+    processes' kernel launches, the frames the steps sent (the first
+    rank's); the trainer's launches and collectives a step."""
+    from repro_torch.net import remote as net_remote
+    from repro_torch.utils import batch_axes
     ds = CTR_BENCHMARKS["kwai_video"]
     it = ds.sampler(TRAIN_B, seed=MESH_SEED + 2)
-    batches = [next(it) for _ in range(MESH_EMB["remote_steps"])]
+    steps = MESH_EMB["remote_steps"]
+    batches = [next(it) for _ in range(steps)]
     cut = (lambda b: mesh_batch_block(mesh, b)) if mesh is not None \
         else (lambda b: b)
-    out = {}
-    from repro_torch.net import remote as net_remote
-    for tag, backend in (("dense", "dense"), ("lru", HOST_LRU)):
-        t_run = time.perf_counter()
-        tr = kwai_train_trainer(dev, TrainMode.hybrid(TAU), backend)
-        # the first put each PS endpoint gets for each table (the first
-        # step's): (ids, sums) of its valid entries
-        first_puts, orig = {}, net_remote.RemoteBackend._put_host
-        where = [tuple(e) for e in eps[tag]]
+    t_run = time.perf_counter()
+    tr, dense, lru = remote_mixed_trainer(dev)
+    applied = steps - TAU
+    puts = [{} for _ in range(applied)]
+    shares = [{} for _ in range(applied)]
+    now = [None]
+    keep = mesh is not None and all(
+        mesh.coords(mesh.rank)[a] == mesh.coords(0)[a]
+        for a in mesh.axis_names if a not in ("pod", "data"))
 
-        def put_host(self, queue, ids, g, unique):
-            key = f"{self._table}/{where.index(tuple(self.endpoint))}"
-            if key not in first_puts:
-                ok = np.asarray(ids) >= 0
-                first_puts[key] = (torch.from_numpy(np.asarray(ids)[ok]),
-                                   torch.from_numpy(np.asarray(g)[ok]))
-            return orig(self, queue, ids, g, unique)
-        with set_mesh(mesh), mock.patch.object(
-                net_remote.RemoteBackend, "_put_host", put_host):
-            connect_remote_backends(tr, eps[tag])
-            st = tr.init(seed=MESH_SEED + 2,
-                         batch_example=cut(batches[0]))
-            losses, pooled_steps, ms = [], [], []
-            launches = dict.fromkeys(ops.launch_counts(), 0)
-            served = dict.fromkeys(ops.table_counts(), 0)
-            with count_collectives(MESH_COLLECTIVES
-                                   + ("broadcast_object_list",)) as calls:
-                for i, b in enumerate(batches):
-                    blk = cut(b)
-                    if i == 0:
-                        # the first step's pooled lookups (not counted;
-                        # one lookup op more to the PS either way)
-                        pooled = first_pooled(tr, st, blk)
-                        pooled_steps.append({n: p.cpu() for n, p in
-                                             pooled.items()})
-                    torch.cuda.synchronize()
-                    ops.reset_launch_counts()
-                    t0 = time.perf_counter()
-                    st, m = tr.step(st, blk)
-                    torch.cuda.synchronize()
-                    ms.append((time.perf_counter() - t0) * 1e3)
-                    for k, v in ops.launch_counts().items():
-                        launches[k] += v
-                    for k, v in ops.table_counts().items():
-                        served[k] += v
-                    losses.append(float(m["loss"]))
-            subs = [sub for b in tr.backends.values()
-                    for sub in (getattr(b, "shard_backends", None) or [b])]
-            lead = subs[0]._client is not None
-            # the frames the steps sent (the serve read below sends one
-            # read a rank's block under the mesh)
-            frames = sum({id(s._client): s._client.frames_sent
-                          for s in subs if lead}.values())
-            rows, _ = tr.serve_lookup(st, cut(batches[0]))
-            # tensors: the first step's pooled lookups, the pooled rows
-            # of the first batch after the run (its put applied), the
-            # first puts the PS got (the first rank's)
-            rec = {"losses": losses, "pooled_first": pooled_steps[0],
-                   "rows": {n: r.cpu() for n, r in rows.items()},
-                   "first_puts": first_puts,
-                   "launches": launches, "tables": served, "step_ms": ms,
-                   "collectives_per_step": {
-                       k: v / len(batches) for k, v in calls.items()},
-                   "connected": lead}
-            if lead:
-                rec["ps"] = {f"{n}/{k}": {key: v for key, v in sub
-                                          .remote_metrics().items()
-                                          if key in ("puts", "faults",
-                                                     "hits")}
-                             for n, b in tr.backends.items()
-                             for k, sub in enumerate(getattr(
-                                 b, "shard_backends", None) or [b])}
-                seen = {}
-                for sub in subs:
-                    seen[sub.endpoint] = sub._client
-                rec["ps_launches"] = [c.call("metrics")["launches"]
-                                      for c in seen.values()]
-                rec["frames"] = frames
-            for b in tr.backends.values():
-                b.close()
-        rec["s"] = time.perf_counter() - t_run
-        out[tag] = rec
-        del tr, st
-        gc.collect()
-        torch.cuda.empty_cache()
-    return out
+    def recorder(cls):
+        orig = cls.put_host
+
+        def put_host(self, state, queue, ids, sums, unique):
+            if now[0] is not None and now[0] < applied:
+                h = np.asarray(ids).reshape(-1)
+                ok = h >= 0
+                puts[now[0]][self._table] = (
+                    torch.from_numpy(h[ok].astype(np.int32)),
+                    torch.from_numpy(np.asarray(sums, np.float32)[ok]))
+            return orig(self, state, queue, ids, sums, unique)
+        return mock.patch.object(cls, "put_host", put_host)
+    orig_mesh = BK._remote_puts_mesh
+
+    def puts_mesh(items):
+        if keep and now[0] is not None and now[0] < applied:
+            for b, _, _, ids, g in items:
+                shares[now[0]][b._table] = put_share(ids, g)
+        return orig_mesh(items)
+    with set_mesh(mesh), recorder(net_remote.RemoteBackend), \
+            recorder(net_remote.RemoteShardedBackend), \
+            mock.patch.object(BK, "_remote_puts_mesh", puts_mesh):
+        connect_remote_backends(tr, eps["dense"], tables=dense)
+        connect_remote_backends(tr, eps["lru"], tables=lru)
+        check(all(tr.backends[n].remote for n in tr.collection),
+              "mesh remote: a table is not remote")
+        st = tr.init(seed=MESH_SEED + 2, batch_example=cut(batches[0]))
+        losses, ms = [], []
+        launches = dict.fromkeys(ops.launch_counts(), 0)
+        served = dict.fromkeys(ops.table_counts(), 0)
+        with count_collectives(MESH_COLLECTIVES
+                               + ("broadcast_object_list",)) as calls:
+            for i, b in enumerate(batches):
+                blk = cut(b)
+                if i == 0:
+                    # the first step's pooled lookups (not counted; one
+                    # lookup op more to the PS either way)
+                    pooled = {n: p.cpu() for n, p in
+                              first_pooled(tr, st, blk).items()}
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                now[0] = i
+                t0 = time.perf_counter()
+                st, m = tr.step(st, blk)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                now[0] = None
+                for k, v in ops.launch_counts().items():
+                    launches[k] += v
+                for k, v in ops.table_counts().items():
+                    served[k] += v
+                losses.append(float(m["loss"]))
+        subs = [sub for b in tr.backends.values()
+                for sub in (getattr(b, "shard_backends", None) or [b])]
+        lead = subs[0]._client is not None
+        # the frames the steps sent (the serve read below sends one read
+        # a rank's block under the mesh)
+        frames = sum({id(s._client): s._client.frames_sent
+                      for s in subs if lead}.values())
+        rows, _ = tr.serve_lookup(st, cut(batches[0]))
+        rec = {"losses": losses, "pooled_first": pooled,
+               "rows": {n: r.cpu() for n, r in rows.items()},
+               "puts": puts, "shares": shares,
+               "launches": launches, "tables": served, "step_ms": ms,
+               "collectives_per_step": {
+                   k: v / len(batches) for k, v in calls.items()},
+               "connected": lead, "dense_tables": len(dense),
+               "lru_tables": len(lru)}
+        if lead:
+            rec["ps"] = {f"{n}/{k}": {key: v for key, v in sub
+                                      .remote_metrics().items()
+                                      if key in ("puts", "faults",
+                                                 "hits")}
+                         for n, b in tr.backends.items()
+                         for k, sub in enumerate(getattr(
+                             b, "shard_backends", None) or [b])}
+            seen = {}
+            for sub in subs:
+                seen[sub.endpoint] = sub._client
+            rec["ps_launches"] = [c.call("metrics")["launches"]
+                                  for c in seen.values()]
+            rec["frames"] = frames
+        for b in tr.backends.values():
+            b.close()
+    rec["s"] = time.perf_counter() - t_run
+    del tr, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
 
 
 def mesh_moe_rank(dev, mesh) -> dict:
@@ -6840,9 +6901,8 @@ def mesh_emb_rank(dev, mesh, work) -> dict:
     eps = json.loads(path.read_text())
     check("error" not in eps, f"mesh: the PS processes: {eps.get('error')}")
     out["remote"] = mesh_remote_run(dev, mesh, eps["mesh"])
-    torch.save({tag: {k: r.pop(k) for k in ("pooled_first", "rows",
-                                            "first_puts")}
-                for tag, r in out["remote"].items()},
+    torch.save({k: out["remote"].pop(k)
+                for k in ("pooled_first", "rows", "puts", "shares")},
                Path(work) / f"remote_rank{mesh.rank}.pt")
     return out
 
@@ -7082,14 +7142,15 @@ def tier_step_launches(backend: str, extra: dict) -> dict:
     one bag launch (``embedding_bag`` at occurrence width); a host_lru
     table's sum-only and gathered apply ``fused_backward`` (at occurrence
     width the gathered apply alone), a router table's sum-only and one
-    apply a shard, the wire's sums, global sums and apply; the wire's
-    compress and decompress for the get and for the put."""
-    wire, k = backend == WIRE, extra.get("emb_shards", 1)
+    apply a shard, the wire's sums, global sums and one apply a shard
+    (one for a table of one); the wire's compress and decompress for the
+    get and for the put."""
+    wire, k = backend.endswith("+compressed"), extra.get("emb_shards", 1)
     flat = extra.get("batch_dedup") is False
     if flat:
         fb = 1
     elif wire:
-        fb = 3
+        fb = 2 + k
     else:
         fb = 1 + k if k > 1 else 2
     return {"embedding_bag" if flat else "unique_bag": 1,
@@ -7172,23 +7233,29 @@ def mesh_tier_check(gl: list, launches: dict, served: dict,
 def mesh_emb_check(gl: list, el: list, ref: dict, work: Path,
                    launches: dict, served: dict) -> dict:
     """Every rank's mesh_emb record held (see :func:`mesh_emb_rank`): the
-    router and occurrence-width tiers as the tiers are; the serve reads
-    (bit for bit with one process, gauges with hits and misses, nothing of
-    the tier moved, one bag launch); the pipelined trainer (max_inflight
-    1 bit for bit with serial, the deep run's puts in batch order, the
-    host tiers' digest equal on every rank); the remote tables against
-    this process's run of them (``ref``): the ranks' losses equal, the
-    first step's pooled lookups bit for bit and its loss within rtol
-    1e-5, the later losses within rtol 1e-3 (a whole run: the mesh's
-    dense steps part from one process's by rounding through Adam's sign
-    steps, the class PR 29 records for mesh_train's whole run), the first
-    puts on the same ids, the serve read of the first batch after the run
-    (its put applied) within what the first put's measured distance
-    allows through adagrad's step (on the card the dense backward at a
-    256-row block and at the 512-row batch differs by up to ~1% of a
-    small activation gradient, and adagrad's 1 / sqrt(eps) carries it
-    into the rows), the PS's counters, its processes' launches and the
-    frames sent equal one process's, the first rank alone connected.
+    router (also behind the compressed wire) and occurrence-width tiers
+    as the tiers are; the serve reads (bit for bit with one process,
+    gauges with hits and misses, nothing of the tier moved, one bag
+    launch); the pipelined trainer (max_inflight 1 bit for bit with
+    serial, the deep run's puts in batch order, the host tiers' digest
+    equal on every rank); the remote run against this process's run of
+    it (``ref``): the ranks' losses equal, the first step's pooled
+    lookups bit for bit and its loss within rtol 1e-5, the later losses
+    (the last reads the first applied put) within rtol 1e-3 (a whole
+    run: the mesh's dense steps part from one process's by rounding
+    through Adam's sign steps, the class PR 29 records for mesh_train's
+    whole run); each applied put, as the PS got it, against one
+    process's put of the mesh's own ranks' shares (the same ids, the sums
+    in ``queue_agreement``'s class) and against one process's run (the
+    same ids, within PUT_CAP of its largest element: on the card the
+    dense backward at a 256-row block and at the 512-row batch differs by
+    up to ~1% of a small activation gradient); the serve read of the
+    first batch after the run apart from one process's, in norm, by at
+    most ROWS_REL of what the applied puts moved it (adagrad's
+    1 / sqrt(eps) carries the puts' distance into rows with a small
+    gradient);
+    the PS's counters, its processes' launches and the frames sent equal
+    one process's, the first rank alone connected.
     ``gl``: the first world's records (the tiers' serve reads and
     pipeline), ``el``: the emb world's. The launches summed over the
     ranks into ``launches`` / ``served``."""
@@ -7243,79 +7310,111 @@ def mesh_emb_check(gl: list, el: list, ref: dict, work: Path,
                        ("serial", "pipelined_1", "pipelined_deep")}}
     # the remote tables against this process's run
     layout = MeshLayout(MESH_SHAPE, MESH_AXES)
-    tensors = [torch.load(work / f"remote_rank{r}.pt")
-               for r in range(len(el))]
-    steps = MESH_EMB["remote_steps"]
-    for tag in ("dense", "lru"):
-        per, one = [g["emb"]["remote"][tag] for g in el], ref[tag]
-        conn = [g["connected"] for g in per]
-        check(conn == [True] + [False] * (len(per) - 1),
-              f"mesh remote {tag}: connections {conn}")
-        check(all(g["losses"] == per[0]["losses"] for g in per),
-              f"mesh remote {tag}: the ranks' losses differ")
-        rel = [abs(a - b) / abs(b) for a, b in zip(per[0]["losses"],
-                                                   one["losses"])]
-        first = all(torch.equal(tensors[r][tag]["pooled_first"][n],
-                                SP.local_block(layout, SP.P(SP.BATCH), v,
-                                               rank=r))
-                    for r in range(len(el))
-                    for n, v in one["pooled_first"].items())
-        rows = max(float((tensors[r][tag]["rows"][n] - SP.local_block(
-            layout, SP.P(SP.BATCH), v, rank=r)).abs().max())
-            for r in range(len(el)) for n, v in one["rows"].items())
-        # the first step's puts: the mesh's global deduplicated sums
-        # against one process's, by id (the PS applies each as it comes)
-        mp, op = tensors[0][tag]["first_puts"], one["first_puts"]
+    n = len(el)
+    tensors = [torch.load(work / f"remote_rank{r}.pt") for r in range(n)]
+    per, one = [g["emb"]["remote"] for g in el], ref
+    steps, applied = MESH_EMB["remote_steps"], MESH_EMB["remote_steps"] - TAU
+    conn = [g["connected"] for g in per]
+    check(conn == [True] + [False] * (n - 1),
+          f"mesh remote: connections {conn}")
+    check(all(g["losses"] == per[0]["losses"] for g in per),
+          "mesh remote: the ranks' losses differ")
+    rel = [abs(a - b) / abs(b) for a, b in zip(per[0]["losses"],
+                                               one["losses"])]
+    first = all(torch.equal(tensors[r]["pooled_first"][t],
+                            SP.local_block(layout, SP.P(SP.BATCH), v, rank=r))
+                for r in range(n) for t, v in one["pooled_first"].items())
+    # the serve read of the first batch after the run against one
+    # process's, over what the applied puts moved its rows (one process's
+    # read after the run against its first step's lookup of that batch)
+    blk = lambda v, r: SP.local_block(layout, SP.P(SP.BATCH), v, rank=r)  # noqa: E731
+    rows = max(float((tensors[r]["rows"][t] - blk(v, r)).abs().max())
+               for r in range(n) for t, v in one["rows"].items())
+    rows_d, moved = (math.sqrt(sum(float(x.double().square().sum())
+                                   for x in xs)) for xs in (
+        [tensors[r]["rows"][t] - blk(v, r) for r in range(n)
+         for t, v in one["rows"].items()],
+        [blk(v - one["pooled_first"][t], r) for r in range(n)
+         for t, v in one["rows"].items()]))
+    rows_rel = rows_d / max(moved, 1e-30)
+    # the ranks whose shares the first rank's put gathers
+    group = [r for r in range(n) if all(
+        layout.coords(r)[a] == layout.coords(0)[a]
+        for a in MESH_AXES if a not in ("pod", "data"))]
+    held = []
+    for i in range(applied):
+        mp, op = tensors[0]["puts"][i], one["puts"][i]
+        # the mesh's global put against one process's put of its ranks'
+        # shares (summed by id in fp64): the same ids, every sum in
+        # queue_agreement's class (the shares' sums add in another order)
+        share_ok, share_d = set(mp) == set(op) and len(mp) == N_TABLES, 0.0
+        for t in op:
+            ids = torch.cat([tensors[r]["shares"][i][t][0] for r in group])
+            sh = torch.cat([tensors[r]["shares"][i][t][1]
+                            for r in group]).double()
+            u, pos = torch.unique(ids.long(), return_inverse=True)
+            want = torch.zeros((u.numel(), DIM),
+                               dtype=torch.float64).index_add_(0, pos, sh)
+            o = mp[t][0].long().argsort()
+            got = mp[t][1][o].double()
+            top = float(want.abs().max()) if want.numel() else 0.0
+            same = torch.equal(mp[t][0][o].long(), u)
+            if same:
+                share_d = max(share_d, float((got - want).abs().max()))
+            share_ok = share_ok and same and bool(torch.isclose(
+                got, want, rtol=1e-4, atol=1e-4 * top).all())
+        # against one process's put on the same ids: its distance, the
+        # card's dense backward at a rank's block against the batch's
+        # (PERF.md), held to PUT_CAP of the put's largest element
         same_ids = set(mp) == set(op) and all(torch.equal(
-            mp[k][0].sort().values, op[k][0].sort().values) for k in op)
-        put_d = max(float((mp[k][1][mp[k][0].argsort()]
-                           - op[k][1][op[k][0].argsort()]).abs().max())
-                    for k in op) if same_ids else float("inf")
+            mp[t][0].sort().values, op[t][0].sort().values) for t in op)
+        put_d = max(float((mp[t][1][mp[t][0].argsort()]
+                           - op[t][1][op[t][0].argsort()]).abs().max())
+                    for t in op) if same_ids else float("inf")
         put_top = max(float(v[1].abs().max()) for v in op.values())
-        # the rows after the run: what that distance of the applied put
-        # allows through adagrad's step (lr (1 + sqrt(D)) / sqrt(eps) per
-        # unit of gradient, first order), pooled over a bag's L ids
-        spec = PS.EmbeddingSpec(rows=1, dim=DIM, lr=EMB_LR)
-        rows_bound = KWAI.ids_per_field * spec.lr * (1 + DIM ** 0.5) \
-            * put_d / spec.eps ** 0.5 + 1e-6
-        check(first and rel[0] <= 1e-5 and max(rel) <= 1e-3 and same_ids
-              and rows <= rows_bound
-              and per[0]["ps"] == one["ps"]
-              and per[0]["ps_launches"] == one["ps_launches"]
-              and per[0]["frames"] == one["frames"],
-              f"mesh remote {tag}: first lookups bit for bit {first}, "
-              f"loss distances {rel}, first puts' ids equal {same_ids}, "
-              f"their distance {put_d} (largest {put_top}), rows after "
-              f"the run {rows} (bound {rows_bound}), PS "
-              f"counters equal {per[0]['ps'] == one['ps']}, launches "
-              f"{per[0]['ps_launches']} / {one['ps_launches']}, frames "
-              f"{per[0]['frames']} / {one['frames']}")
-        for r, g in enumerate(per):
-            want = {"unique_bag": steps, "fused_backward":
-                    (2 if r == 0 else 1) * N_TABLES * steps}
-            check(all(g["launches"][k] == v for k, v in want.items()),
-                  f"mesh remote {tag} rank {r}: launches {g['launches']}, "
-                  f"want {want}")
-            for k in launches:
-                launches[k] += g["launches"][k]
-            for k in served:
-                served[k] += g["tables"][k]
-        ps_apply = sum(sum(v.values()) for v in one["ps_launches"])
-        out[f"remote_{tag}"] = {
-            "ps_processes": len(one["ps_launches"]), "steps": steps,
-            "losses": per[0]["losses"], "losses_one_process":
-            one["losses"], "loss_rel": rel, "first_lookup_bit_exact": first,
-            "first_put_max_abs": put_d, "first_put_largest": put_top,
-            "rows_max_abs": rows, "rows_bound": rows_bound,
-            "ps_counters_equal": True,
-            "ps_launches": per[0]["ps_launches"], "ps_launches_sum":
-            ps_apply, "frames": per[0]["frames"],
-            "launches_per_rank": [g["launches"] for g in per],
-            "collectives_per_step": per[0]["collectives_per_step"],
-            "step_ms_per_rank": [float(np.median(g["step_ms"]))
-                                 for g in per],
-            "step_ms_one_process": float(np.median(one["step_ms"])),
-            "s_per_rank": [g["s"] for g in per], "s_one_process": one["s"]}
+        held.append({"step": i, "shares_held": share_ok,
+                     "share_max_abs": share_d, "same_ids": same_ids,
+                     "one_process_max_abs": put_d, "largest": put_top,
+                     "rel": put_d / put_top})
+    puts_ok = all(h["shares_held"] and h["same_ids"]
+                  and h["rel"] <= PUT_CAP for h in held)
+    check(first and rel[0] <= 1e-5 and max(rel) <= 1e-3 and puts_ok
+          and rows_rel <= ROWS_REL
+          and per[0]["ps"] == one["ps"]
+          and per[0]["ps_launches"] == one["ps_launches"]
+          and per[0]["frames"] == one["frames"],
+          f"mesh remote: first lookups bit for bit {first}, loss distances "
+          f"{rel}, the applied puts {held} (cap {PUT_CAP} of the largest), "
+          f"rows after the run {rows} apart, {rows_rel} of their move "
+          f"(bound {ROWS_REL}), PS counters "
+          f"equal {per[0]['ps'] == one['ps']}, launches "
+          f"{per[0]['ps_launches']} / {one['ps_launches']}, frames "
+          f"{per[0]['frames']} / {one['frames']}")
+    for r, g in enumerate(per):
+        want = {"unique_bag": steps, "fused_backward":
+                (2 if r == 0 else 1) * N_TABLES * steps}
+        check(all(g["launches"][k] == v for k, v in want.items()),
+              f"mesh remote rank {r}: launches {g['launches']}, want {want}")
+        for k in launches:
+            launches[k] += g["launches"][k]
+        for k in served:
+            served[k] += g["tables"][k]
+    out["remote"] = {
+        "ps_processes": len(one["ps_launches"]),
+        "dense_tables": one["dense_tables"], "lru_tables": one["lru_tables"],
+        "steps": steps, "applied_puts": applied,
+        "losses": per[0]["losses"], "losses_one_process": one["losses"],
+        "loss_rel": rel, "first_lookup_bit_exact": first, "puts": held,
+        "put_cap": PUT_CAP, "rows_max_abs": rows, "rows_rel": rows_rel,
+        "rows_moved_norm": moved, "rows_rel_bound": ROWS_REL,
+        "ps_counters_equal": True, "ps_launches": per[0]["ps_launches"],
+        "ps_launches_sum": sum(sum(v.values()) for v in one["ps_launches"]),
+        "frames": per[0]["frames"],
+        "launches_per_rank": [g["launches"] for g in per],
+        "collectives_per_step": per[0]["collectives_per_step"],
+        "step_ms_per_rank": [float(np.median(g["step_ms"])) for g in per],
+        "step_ms_one_process": float(np.median(one["step_ms"])),
+        "s_per_rank": [g["s"] for g in per], "s_one_process": one["s"]}
     return out
 
 

@@ -315,8 +315,9 @@ class RemoteBackend(_Remote, EmbeddingBackend):
         self.faults = 0           # host_lru fault/hit mirrors (shard gauges)
         self.hits = 0
         self._queue_width_cfg = 0
-        self._call("configure", _mutating=True,
-                   spec=wire.spec_to_dict(spec), lossy=self.lossy)
+        if self._lead:
+            self._call("configure", _mutating=True,
+                       spec=wire.spec_to_dict(spec), lossy=self.lossy)
 
     # -- plumbing ------------------------------------------------------------
 
@@ -324,18 +325,22 @@ class RemoteBackend(_Remote, EmbeddingBackend):
     def endpoint(self):
         return self._client.endpoint
 
+    def _not_lead(self, op: str):
+        """A PS op asked of a rank of the mesh that holds no connection."""
+        return RuntimeError(
+            f"{op!r} on a remote table of the mesh's rank {self._mesh.rank}: "
+            "the mesh's first rank alone sends the PS ops (core/backend.py's "
+            "fan-outs share its results)")
+
     def _call(self, op: str, _mutating: bool = False, **kw):
-        if not self._lead:      # another rank of the mesh sends it
-            return None
+        if not self._lead:
+            raise self._not_lead(op)
         return self._client.call(op, _mutating=_mutating, table=self._table,
                                  **kw)
 
     def _coal(self, op: str, _mutating: bool = False, **kw) -> Future:
         if not self._lead:
-            raise RuntimeError(
-                f"{op!r} on a remote table of the mesh's rank "
-                f"{self._mesh.rank}: the mesh's first rank alone sends the "
-                "PS ops (core/backend.py's fan-outs share its results)")
+            raise self._not_lead(op)
         if not self._pipelined:
             # blocking-baseline preset (the benchmark's comparison bar):
             # every op is its own synchronous round-trip, no coalescing —
@@ -410,7 +415,7 @@ class RemoteBackend(_Remote, EmbeddingBackend):
         rep = self._call("init", _mutating=True,
                          gen_state=generator.get_state().numpy(),
                          gen_device=generator.device.type,
-                         scale=float(scale))
+                         scale=float(scale)) if self._lead else None
         rep = _from_leader(self._mesh, rep)
         generator.set_state(torch.from_numpy(
             np.asarray(rep["gen_state"], np.uint8)))
@@ -418,11 +423,12 @@ class RemoteBackend(_Remote, EmbeddingBackend):
 
     def seed_rows(self, ids, vecs, accs=None):
         """Seed this shard's local rows (router init / reshard path)."""
-        self._call("seed_rows", _mutating=True,
-                   ids=np.asarray(ids, np.int64),
-                   vecs=np.asarray(vecs, np.float32),
-                   accs=None if accs is None
-                   else np.asarray(accs, np.float32))
+        if self._lead:
+            self._call("seed_rows", _mutating=True,
+                       ids=np.asarray(ids, np.int64),
+                       vecs=np.asarray(vecs, np.float32),
+                       accs=None if accs is None
+                       else np.asarray(accs, np.float32))
         return {}
 
     def prepare(self, state, ids, assume_unique: bool = False, counts=None):
@@ -479,8 +485,9 @@ class RemoteBackend(_Remote, EmbeddingBackend):
         # queue the global batch's
         width = int(width) or self._queue_width_cfg
         self._queue_width_cfg = int(width)
-        self._call("queue_init", _mutating=True,
-                   width=int(width) * _batch_ranks(self._mesh))
+        if self._lead:
+            self._call("queue_init", _mutating=True,
+                       width=int(width) * _batch_ranks(self._mesh))
         return self._placeholder(width, 0, 0)
 
     def _placeholder(self, width: int, ptr: int, filled: int) -> dict:
@@ -527,8 +534,8 @@ class RemoteBackend(_Remote, EmbeddingBackend):
         return self._call("checkpoint")["blob"]
 
     def restore_from_checkpoint(self, blob):
-        rep = _from_leader(self._mesh, self._call("restore", _mutating=True,
-                                                  blob=blob))
+        rep = _from_leader(self._mesh, self._call(
+            "restore", _mutating=True, blob=blob) if self._lead else None)
         self.last_restore_resharded = bool(rep["resharded"])
         return {}
 
@@ -972,8 +979,10 @@ def connect_remote_backends(trainer, endpoints, lossy: bool | None = None,
                             timeout: float = 30.0, retries: int = 3,
                             backoff: float = 0.2,
                             put_window: int | None = None,
-                            pipelined: bool = True) -> dict:
-    """Point every table of a built ``PersiaTrainer`` at remote PS members.
+                            pipelined: bool = True,
+                            tables=None) -> dict:
+    """Point every table of a built ``PersiaTrainer`` (or only those
+    named in ``tables``) at remote PS members.
 
     Call AFTER constructing the trainer and BEFORE ``init``/``restore``.
     With one endpoint each table gets a plain :class:`RemoteBackend`
@@ -986,6 +995,8 @@ def connect_remote_backends(trainer, endpoints, lossy: bool | None = None,
     the trainer)."""
     endpoints = [tuple(e) for e in endpoints]
     for name, spec in trainer.collection.items():
+        if tables is not None and name not in tables:
+            continue
         base, wrap = BK.parse_backend_name(spec.backend)
         if spec.emb_shards > 1 and spec.emb_shards != len(endpoints):
             raise ValueError(

@@ -688,3 +688,21 @@ def test_remote_under_mesh_matches_one_process(world, cell):
             else:
                 _close(v, block, 1e-6, n, 1e-5)
             np.testing.assert_array_equal(v, ranks[2 * d][cell]["serve"][n])
+
+
+@pytest.mark.parametrize("op", ["state_for_checkpoint", "export_logical",
+                                "remote_metrics"])
+def test_remote_ops_off_the_first_rank_raise(op):
+    """A remote table on a rank of the mesh that holds no PS connection
+    raises a clear error for an op whose reply it would read, instead of
+    handing its caller None."""
+    from collections import deque
+    from types import SimpleNamespace
+
+    from repro_torch.net.remote import RemoteBackend
+    b = object.__new__(RemoteBackend)
+    b._lead, b._mesh, b._table = False, SimpleNamespace(rank=1), "t"
+    b._acks, b._aux = deque(), deque()
+    args = ({},) if op == "state_for_checkpoint" else ()
+    with pytest.raises(RuntimeError, match="first rank alone"):
+        getattr(b, op)(*args)

@@ -171,6 +171,26 @@ def test_remote_training_bit_exact(servers, backend, cache, mode, k):
     _same_rows(t, st, t_ref, ref)
 
 
+def test_connect_some_tables_leaves_the_others_in_process(servers):
+    """``connect_remote_backends(tables=...)`` points only the named
+    tables at PS members: one table on one endpoint, another on two, the
+    rest in process, 4 steps bit for bit with the in-process trainer."""
+    bs = _batches(4)
+    t_ref = _trainer()
+    ref, l_ref = _run(t_ref, bs)
+    t = _trainer()
+    names = list(t.collection)
+    connect_remote_backends(t, _endpoints(servers(1)), tables=names[:1])
+    connect_remote_backends(t, _endpoints(servers(2)), tables=names[1:2])
+    assert type(t.backends[names[0]]) is RemoteBackend
+    assert type(t.backends[names[1]]) is RemoteShardedBackend
+    assert not any(t.backends[n].remote for n in names[2:])
+    st, losses = _run(t, bs)
+    assert losses == l_ref
+    _same_dense(st, ref)
+    _same_rows(t, st, t_ref, ref)
+
+
 @pytest.mark.parametrize("backend,cache", [("dense", None),
                                            ("host_lru", 48)])
 def test_remote_occurrence_width_bit_exact(servers, backend, cache):

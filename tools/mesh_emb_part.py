@@ -7,9 +7,9 @@ held state the serve read and the pipelined trainer run on:
 A gloo world of 4 processes (mesh data 2 x model 2) runs
 ``mesh_tier_rank`` on the replicated and the row-sharded host_lru tiers
 (with ``mesh_serve_read`` and ``mesh_pipeline``) and ``mesh_emb_rank``
-(the router over 4 shards, occurrence width, the remote tables over PS
-processes this script starts); this process runs the remote runs' one-
-process reference beside it. Then ``mesh_emb_check`` with every failed
+(the router over 4 shards, also behind the wire, occurrence width, the
+remote tables over PS processes this script starts); this process runs
+the remote run's one-process reference beside it. Then ``mesh_emb_check`` with every failed
 check recorded, not raised. Prints each part's seconds, per-step ms and
 the check's record; writes ``chiprun_out/mesh_emb_part.json``. Needs a
 GPU."""
@@ -120,8 +120,7 @@ def main():
         pipe = g["tiers"][cs.MESH_EMB["pipe"]]["pipeline"]
         print("pipeline s", {k: round(v["s"], 1) for k, v in pipe.items()
                              if isinstance(v, dict)})
-        print("remote s", {k: round(v["s"], 1)
-                           for k, v in g["emb"]["remote"].items()})
+        print("remote s", round(g["emb"]["remote"]["s"], 1))
     out["launches"] = launches
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "mesh_emb_part.json").write_text(
