@@ -635,12 +635,14 @@ MESH_COLLECTIVES = ("all_reduce", "all_gather_into_tensor",
 # (at most "warm_cap" steps: admission evicts first-seen rows before their
 # puts apply), so the held steps' write-backs carry updated rows; the
 # mesh takes its state, then "steps" steps are held step by step; the
-# sharded tier's state is then saved and resumed for "resume" steps
+# sharded tier's state is then saved and resumed for "resume" steps (the
+# resumed run is mesh_online's trajectory, the uninterrupted one its
+# serial run)
 MESH_TIERS = (("lru_replicated", HOST_LRU, {"admit_threshold": 1.5}),
               ("lru_sharded", HOST_LRU, {"admit_threshold": 1.5,
                                          "bypass_rows": 1952}),
               ("wire", WIRE, {}))
-MESH_TIER = {"warm_cap": 60, "steps": 3, "resume": 2,
+MESH_TIER = {"warm_cap": 60, "steps": 3, "resume": 3,
              "checkpoint": "lru_sharded"}
 # the embedding tiers under the mesh that earlier slices refused (mesh_emb,
 # in the same world), each held as MESH_TIERS are: the router over SHARDS
@@ -674,6 +676,23 @@ MESH_EMB_TIERS = (
 MESH_EMB = {"serve": ("lru_replicated", "lru_sharded"),
             "pipe": "lru_sharded", "pipe_steps": 3, "remote_steps": TAU + 2}
 PUT_CAP, ROWS_REL = 1e-2, 0.05
+# the service and the online loop under the mesh (mesh_online, in the first
+# gloo world after the tiers, in time its ranks would spend waiting for
+# the mesh_emb world): kwai-dlrm at full width on the row-sharded host_lru
+# tier of MESH_TIERS, on the tiers part's checkpoint resume: the resumed
+# run is the trajectory, the uninterrupted run of the same blocks its
+# serial run (so the part adds no step of its own there). The trajectory:
+# "steps" (the resume's) published steps, each taken by ServingService.
+# train_turn after a flush of the 2 reader threads a rank read the step
+# before it, against the same mesh's serial run of the same batches and
+# reads (bit for bit); then launch.online._online_loop, from the
+# trajectory's state, for tau + 2 steps with "clients" closed-loop clients a rank
+# of "requests" requests each, ServingConfig(max_batch=64): every flush
+# pads (a closed loop of 2 clients holds at most 2 requests a rank), every
+# step falls back to the sampler (a feedback share is 128 impressions a
+# rank)
+MESH_ONLINE = {"steps": MESH_TIER["resume"], "max_batch": 64, "clients": 2,
+               "requests": 2, "loop_steps": TAU + 2}
 
 KERNELS = {
     "embedding_bag": {"source": "src/repro_torch/kernels/csrc/bag.cu",
@@ -5794,13 +5813,19 @@ def queue_agreement(mesh, trainer, got: dict, want: dict,
 
 
 def mesh_tier_checkpoint(dev, mesh, work, tr, st, blocks, backend,
-                         extra) -> dict:
+                         extra, keep=None) -> dict:
     """The tier's state saved under the mesh (``PersiaTrainer.save``: the
     blocks joined, rank 0 writes) and restored by one process on rank 0:
     equal bit for bit to the joined mesh state, host tiers and counters
     too; then restored under the mesh by a fresh trainer and run
     ``blocks`` (each rank's): equal bit for bit to the uninterrupted run
-    (states, counters, slot maps, stores)."""
+    (states, counters, slot maps, stores). With ``keep`` (a dict) the
+    resumed run is mesh_online's trajectory (a service beside it,
+    :func:`mesh_online_trajectory`) and the uninterrupted run its serial
+    run, which reads every block a flush read at the flush's step:
+    ``keep`` takes the trajectory's record with the serial run's holds,
+    their seconds, and the resumed trainer and state (``keep["pair"]``)
+    for ``mesh_online_rank``."""
     ck = str(Path(work) / "tier_ckpt")
     with set_mesh(mesh):
         t0 = time.perf_counter()
@@ -5821,27 +5846,55 @@ def mesh_tier_checkpoint(dev, mesh, work, tr, st, blocks, backend,
         del ot, os_
     del saved
     with set_mesh(mesh):
-        cont = st
-        for b in blocks:
-            cont, _ = tr.step(cont, b)
-        g1 = tr.global_state(cont)
         t2 = mesh_tier_trainer(dev, backend, extra)
         t0 = time.perf_counter()
         s2 = t2.restore(ck)
         rec["restore_s"] = time.perf_counter() - t0
-        for b in blocks:
-            s2, _ = t2.step(s2, b)
+        flushes = []
+        if keep is None:
+            for b in blocks:
+                s2, _ = t2.step(s2, b)
+        else:
+            s2, traj, flushes = mesh_online_trajectory(mesh, t2, s2,
+                                                       blocks, keep)
+        # the uninterrupted run; with ``keep`` the trajectory's serial run
+        t0, c0 = time.perf_counter(), time.process_time()
+        cont, off, reads, losses, dist_max = st, [], 0, [], 0.0
+        for t in range(len(blocks) + 1):
+            for i, (at_step, block, pooled) in enumerate(flushes):
+                if at_step != t:
+                    continue
+                got, _ = tr.serve_lookup(cont, block)
+                reads += 1
+                dist_max = max([dist_max] + [
+                    float((got[n] - pooled[n]).abs().max()) for n in pooled])
+                if not all(torch.equal(got[n], pooled[n]) for n in pooled):
+                    off.append(i)
+            if t < len(blocks):
+                cont, m = tr.step(cont, blocks[t])
+                losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        serial_s = time.perf_counter() - t0, time.process_time() - c0
+        g1 = tr.global_state(cont)
         g2 = t2.global_state(s2)
+    holds = {"state_bit_exact": bool(states_equal(g1, g2)),
+             "counters_equal": lru_table_counters(t2)
+             == lru_table_counters(tr),
+             "slot_maps_equal": lru_maps_equal(t2, tr),
+             "stores_equal": lru_stores_equal(t2, tr)}
     rec["resume_steps"] = len(blocks)
-    rec["resume_bit_exact"] = bool(
-        states_equal(g1, g2)
-        and lru_table_counters(t2) == lru_table_counters(tr)
-        and lru_maps_equal(t2, tr) and lru_stores_equal(t2, tr))
-    del g1, g2, t2, s2
+    rec["resume_bit_exact"] = all(holds.values())
+    del g1, g2
+    if keep is not None:
+        traj.update(holds, reads=reads, off=off[:8],
+                    pooled_max_abs=dist_max,
+                    losses_equal=losses == traj["losses"])
+        keep.update(trajectory=traj, pair=(t2, s2), serial_s=serial_s[0],
+                    serial_cpu_s=serial_s[1])
     return rec
 
 
-def mesh_tier_rank(dev, mesh, work, tiers=None) -> dict:
+def mesh_tier_rank(dev, mesh, work, tiers=None, keep=None) -> dict:
     """kwai-dlrm at full width on each tier of ``tiers`` under the mesh:
     one process trains alone on the card until its queued puts apply and
     every host_lru table has written back a row a put moved (the store's
@@ -5860,7 +5913,8 @@ def mesh_tier_rank(dev, mesh, work, tiers=None) -> dict:
     and resumed (:func:`mesh_tier_checkpoint`); the held state of the
     tiers of MESH_EMB["serve"] is read by the serve path
     (:func:`mesh_serve_read`), and MESH_EMB["pipe"]'s is run by the
-    pipelined trainer (:func:`mesh_pipeline`)."""
+    pipelined trainer (:func:`mesh_pipeline`); ``keep`` takes the
+    checkpointed tier's two trainers (:func:`mesh_tier_checkpoint`)."""
     ds = CTR_BENCHMARKS["kwai_video"]
     n_b = MESH_TIER["warm_cap"] + MESH_TIER["steps"] + max(
         MESH_TIER["resume"], MESH_EMB["pipe_steps"] + 1)
@@ -5971,7 +6025,7 @@ def mesh_tier_rank(dev, mesh, work, tiers=None) -> dict:
                 dev, mesh, work, tr, st,
                 [mesh_batch_block(mesh, b)
                  for b in batches[done:done + MESH_TIER["resume"]]],
-                backend, extra)
+                backend, extra, keep)
         out[tag] = rec
         del rt, ref, tr, st, lru
         gc.collect()
@@ -6845,25 +6899,34 @@ def mesh_worker(rank: int, world: int, name: str, work: str,
                  "decode": {"all_reduce_sum", "all_reduce_max"},
                  "lm": {"all_reduce_sum", "all_reduce_max",
                         "all_gather_into_tensor", "all_to_all_single"},
-                 "emb": {"all_reduce_sum", "all_gather_into_tensor"}}
+                 "emb": {"all_reduce_sum", "all_gather_into_tensor"},
+                 "online": {"all_reduce_sum", "all_reduce_max",
+                            "all_gather_into_tensor"}}
         rec["not_carried"] = {k: sorted(v - carried)
                               for k, v in parts.items() if v - carried}
-        runs = {"gloo": ("train", "tiers", "moe", "decode", "lm"),
+        runs = {"gloo": ("train", "tiers", "online", "moe", "decode", "lm"),
                 "emb": ("emb",), "nccl": ("decode",)}[name]
+        kept = {}           # the tiers' checkpointed trainers, for online
         for part, fn in (("train", mesh_train_rank),
-                         ("tiers", lambda d, m: mesh_tier_rank(d, m, work)),
+                         ("tiers", lambda d, m: mesh_tier_rank(
+                             d, m, work, keep=kept)),
+                         ("online",
+                          lambda d, m: mesh_online_rank(d, m, kept)),
                          ("emb", lambda d, m: mesh_emb_rank(d, m, work)),
                          ("moe", mesh_moe_rank),
                          ("decode", mesh_decode_rank), ("lm", mesh_lm_rank)):
             if part in rec["not_carried"] or part not in runs:
                 continue
             if part == "moe":
+                t = time.process_time()
                 rec["emb_wait_s"] = wait_for_world(
                     Path(work).parent / "emb", MESH_WORLDS["emb"])
-            t = time.perf_counter()
+                rec["emb_wait_cpu_s"] = time.process_time() - t
+            t, c = time.perf_counter(), time.process_time()
             rec[part] = fn(dev, mesh, ("gqa",)) if world == 1 else \
                 fn(dev, mesh)
             rec[f"{part}_s"] = time.perf_counter() - t
+            rec[f"{part}_cpu_s"] = time.process_time() - c
         if device == "cuda":
             rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         dist.barrier()
@@ -6905,6 +6968,156 @@ def mesh_emb_rank(dev, mesh, work) -> dict:
                 for k in ("pooled_first", "rows", "puts", "shares")},
                Path(work) / f"remote_rank{mesh.rank}.pt")
     return out
+
+
+def mesh_online_trajectory(mesh, tr, st, blocks, times: dict):
+    """mesh_online's trajectory on this rank (under the mesh in scope):
+    a service with 2 reader threads beside a trainer thread that takes
+    each of ``blocks``' steps through ``train_turn`` once a flush read
+    the step before it. Returns the final state, the record (losses,
+    turns, flushes, launches and collectives of the service's run) and
+    every flush's (published step, block, pooled rows); ``times`` takes
+    ``trajectory_s`` / ``trajectory_cpu_s``."""
+    import threading
+
+    from repro_torch.utils import collective_counts, reset_collective_counts
+    p = MESH_ONLINE
+    ds = CTR_BENCHMARKS["kwai_video"]
+    reqs = [r for _, r in TrafficModel.for_dataset(ds, seed=SEED).requests(
+        64, seed=MESH_SEED + 10 + mesh.rank)]
+    t0 = time.perf_counter(), time.process_time()
+    cell = StateCell(st, 0)
+    svc = ServingService(tr, cell, ServingConfig(
+        max_batch=p["max_batch"], max_wait_ms=2.0))
+    flushes, real = [], tr.serve_lookup
+
+    def recording(state, batch):
+        pooled, info = real(state, batch)
+        flushes.append((cell.step, batch, {n: v.clone()
+                                           for n, v in pooled.items()}))
+        return pooled, info
+    tr.serve_lookup = recording
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    reset_collective_counts()
+    svc.start()
+    done, losses, errors, final = threading.Event(), [], [], {}
+
+    def train():
+        s = st
+        for t in range(len(blocks)):
+            while not any(f[0] == t for f in flushes) and not errors:
+                time.sleep(1e-3)
+
+            def fn(agreed, t=t):
+                nonlocal s
+                s, m = tr.step(s, blocks[t])
+                cell.publish(s, t + 1)
+                return float(m["loss"])
+            losses.append(svc.train_turn(fn))
+        final["state"] = s
+
+    def reader(i):
+        # until a flush read the last published step (no flush after it)
+        k = 0
+        while not done.is_set() and not any(f[0] == len(blocks)
+                                             for f in flushes):
+            svc.predict(reqs[(2 * k + i) % len(reqs)])
+            k += 1
+
+    def guarded(fn, *a):
+        try:
+            fn(*a)
+        except Exception as e:      # noqa: BLE001 -- recorded, checked
+            errors.append(f"{type(e).__name__}: {e}")
+    threads = [threading.Thread(target=guarded, args=(train,))] + [
+        threading.Thread(target=guarded, args=(reader, i)) for i in range(2)]
+    for th in threads:
+        th.start()
+    threads[0].join()
+    while not any(f[0] == len(blocks) for f in flushes) and not errors:
+        time.sleep(1e-3)
+    done.set()
+    for th in threads[1:]:
+        th.join()
+    guarded(svc.stop)
+    torch.cuda.synchronize()
+    del tr.serve_lookup
+    times["trajectory_s"] = time.perf_counter() - t0[0]
+    times["trajectory_cpu_s"] = time.process_time() - t0[1]
+    traj = {"errors": errors, "losses": losses,
+            "turns": svc.turn_counts(), "flushes": len(flushes),
+            "flush_steps": [f[0] for f in flushes],
+            "requests": svc.metrics()["serving/requests"],
+            "launches": ops.launch_counts(), "tables": ops.table_counts(),
+            "collectives": collective_counts()}
+    check(not errors, f"mesh_online: the trajectory raised {errors[:2]}")
+    return final["state"], traj, flushes
+
+
+def mesh_online_rank(dev, mesh, kept: dict) -> dict:
+    """The service and the online loop under the mesh on this rank
+    (MESH_ONLINE). The trajectory and its serial run were the tiers
+    part's checkpoint resume (:func:`mesh_tier_checkpoint`: ``kept``
+    holds their record, seconds, and the trajectory's trainer and
+    state); here ``_online_loop`` runs from the trajectory's state.
+    Launches and collectives are counted around the loop."""
+    from repro_torch.utils import collective_counts, reset_collective_counts
+    p = MESH_ONLINE
+    ds = CTR_BENCHMARKS["kwai_video"]
+    tr, st = kept.pop("pair")
+    rec = {"trajectory": kept.pop("trajectory"),
+           **{k: kept.pop(k) for k in ("trajectory_s", "trajectory_cpu_s",
+                                       "serial_s", "serial_cpu_s")}}
+
+    def clock():
+        return time.perf_counter(), time.process_time()
+
+    def lap(key, start):
+        rec[f"{key}_s"] = time.perf_counter() - start[0]
+        rec[f"{key}_cpu_s"] = time.process_time() - start[1]
+
+    with set_mesh(mesh):
+        # the closed loop from the trajectory's state
+        t0 = clock()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        reset_collective_counts()
+        summary, extras = online._online_loop(
+            tr, ds, steps=p["loop_steps"], batch=TRAIN_B,
+            config=ServingConfig(max_batch=p["max_batch"]),
+            n_clients=p["clients"], requests_per_client=p["requests"],
+            seed=SEED, state=st)
+        torch.cuda.synchronize()
+        lap("loop", t0)
+        sv = summary["serving"]
+        preds = extras["preds"]
+        rec["loop"] = {
+            "steps": summary["steps"], "served": summary["served"],
+            "feedback_put": summary["feedback"]["put"],
+            "requests": sv["serving/requests"],
+            "errors": sv["serving/errors"],
+            "flushes": sv["serving/batches"],
+            "fill": sv["serving/field_00/batch_fill"],
+            "stale_max": max(sv[f"serving/{n}/stale_steps"]
+                             for n in tr.collection.names),
+            "feedback_batches": summary["feedback_batches"],
+            "fallback_batches": summary["fallback_batches"],
+            "losses_finite": bool(np.isfinite(summary["loss_first"])
+                                  and np.isfinite(summary["loss_last"])),
+            "preds_in_range": bool(np.all(np.isfinite(preds))
+                                   and preds.min() >= 0
+                                   and preds.max() <= 1),
+            "p50_ms": sv["serving/p50_ms"], "p99_ms": sv["serving/p99_ms"],
+            "steps_per_s": summary["steps_per_s"], "wall_s":
+            extras["wall_s"], "turns": extras["turns"],
+            "launches": ops.launch_counts(), "tables": ops.table_counts(),
+            "collectives": collective_counts(),
+            "counters": lru_table_counters(tr), "digest": lru_digest(tr)}
+    del tr, st, extras
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
 
 
 def remote_reference(dev, started: dict) -> dict:
@@ -7079,6 +7292,13 @@ def mesh_phase(started: dict, remote_ref: dict):
     tier_served = dict.fromkeys(ops.table_counts(), 0)
     if "tiers" in gl[0]:
         rec["tiers"] = mesh_tier_check(gl, tier_launches, tier_served)
+    # the service and the online loop under the mesh
+    online_launches = dict.fromkeys(ops.launch_counts(), 0)
+    online_served = dict.fromkeys(ops.table_counts(), 0)
+    check("online" in gl[0], f"mesh: mesh_online did not run: "
+          f"{gl[0]['not_carried']}")
+    rec["online"] = mesh_online_check(gl, online_launches, online_served)
+    emit({"phase": "mesh_online", **rec["online"]})
     # the expert-parallel MoE against moe_forward with no mesh
     if "moe" in gl[0]:
         gemm = gl[0]["moe"]["gemm_only_max_abs"]
@@ -7122,9 +7342,12 @@ def mesh_phase(started: dict, remote_ref: dict):
     check(emb is not None, f"mesh: mesh_emb did not run: "
           f"{el[0]['not_carried']}")
     rec["emb"] = emb
+    parts = ("train", "tiers", "online", "emb", "emb_wait", "moe",
+             "decode", "lm")
     rec["part_s"] = {k: max(g.get(f"{k}_s", 0.0) for g in gl + el)
-                     for k in ("train", "tiers", "emb", "emb_wait", "moe",
-                               "decode", "lm")}
+                     for k in parts}
+    rec["part_cpu_s"] = {k: max(g.get(f"{k}_cpu_s", 0.0) for g in gl + el)
+                         for k in parts}
     # from the worlds' start; the checks run beside them until "wait_s"
     # before the end of the phase
     rec["phase_s"] = time.perf_counter() - t_phase
@@ -7132,6 +7355,7 @@ def mesh_phase(started: dict, remote_ref: dict):
     emit(rec)
     return {"mesh_train": (launches, served),
             "mesh_tiers": (tier_launches, tier_served),
+            "mesh_online": (online_launches, online_served),
             "mesh_emb": (emb_launches, emb_served),
             "mesh_lm": (lm_launches, dict.fromkeys(ops.table_counts(), 0))
             }, rec
@@ -7228,6 +7452,92 @@ def mesh_tier_check(gl: list, launches: dict, served: dict,
                                   "resume_bit_exact",
                                   "one_process_bit_exact")}
     return out
+
+
+def mesh_online_check(gl: list, launches: dict, served: dict) -> dict:
+    """Every rank's mesh_online record held (see :func:`mesh_online_rank`):
+    the trajectory's flushes bit for bit with the serial run's reads at
+    the same steps, its losses, every rank's blocks of the final state,
+    LRU counters, slot maps and stores equal to the serial run's; the
+    same turns and flush steps on every rank; the loop's invariants on
+    every rank (the steps asked for, every impression fed back and
+    served, no error, stale steps within tau, a padded flush, the same
+    flushes, turns and feedback / fallback choices, slot maps and
+    counters on every rank); the launches of the trajectory's service run
+    and of the loop (one ``unique_bag`` a flush a rank,
+    ``tier_step_launches`` a step), summed over the ranks into
+    ``launches`` / ``served``."""
+    p = MESH_ONLINE
+    _, backend, extra = next(t for t in MESH_TIERS
+                             if t[0] == MESH_TIER["checkpoint"])
+    per_step = tier_step_launches(backend, extra)
+    per = [g["online"] for g in gl]
+    t0, l0 = per[0]["trajectory"], per[0]["loop"]
+    n_req = p["clients"] * p["requests"]
+    for r, g in enumerate(per):
+        t, lp = g["trajectory"], g["loop"]
+        check(t["reads"] == t["flushes"] > p["steps"] and not t["off"]
+              and t["losses_equal"] and t["state_bit_exact"]
+              and t["counters_equal"] and t["slot_maps_equal"]
+              and t["stores_equal"],
+              f"mesh_online rank {r}: the trajectory left the serial run: "
+              f"{t['reads']} reads of {t['flushes']} flushes, off "
+              f"{t['off']}, losses {t['losses_equal']}, state "
+              f"{t['state_bit_exact']}, counters {t['counters_equal']}, "
+              f"slot maps {t['slot_maps_equal']}, stores "
+              f"{t['stores_equal']}")
+        check(t["turns"] == t0["turns"] and t["flush_steps"]
+              == t0["flush_steps"] and t["turns"]["step"] == p["steps"]
+              and set(t["flush_steps"]) == set(range(p["steps"] + 1)),
+              f"mesh_online rank {r}: turns {t['turns']} at "
+              f"{t['flush_steps']}, rank 0 {t0['turns']} at "
+              f"{t0['flush_steps']}")
+        check(lp["steps"] == p["loop_steps"] and lp["served"] == n_req
+              and lp["feedback_put"] == n_req and lp["requests"] == n_req
+              and lp["errors"] == 0 and lp["stale_max"] <= TAU
+              and lp["fill"] < 1 and lp["losses_finite"]
+              and lp["preds_in_range"],
+              f"mesh_online rank {r}: the loop's invariants: {lp}")
+        check(lp["flushes"] == l0["flushes"] and lp["turns"] == l0["turns"]
+              and (lp["feedback_batches"], lp["fallback_batches"])
+              == (l0["feedback_batches"], l0["fallback_batches"])
+              and lp["counters"] == l0["counters"]
+              and lp["digest"] == l0["digest"],
+              f"mesh_online rank {r}: the loop's flushes, turns, choices or "
+              f"host tiers differ from rank 0's")
+        for part, steps, flushes in (("trajectory", p["steps"], t["flushes"]),
+                                     ("loop", p["loop_steps"],
+                                      int(lp["flushes"]))):
+            got = g[part]["launches"]
+            want = {k: v * steps for k, v in per_step.items()}
+            want["unique_bag"] += flushes
+            check(all(got[k] == want.get(k, 0) for k in got),
+                  f"mesh_online rank {r} {part}: launches {got}, want {want}")
+            for k in launches:
+                launches[k] += got[k]
+            for k in served:
+                served[k] += g[part]["tables"][k]
+    keys = ("trajectory", "serial", "loop")
+    return {
+        "tier": MESH_TIER["checkpoint"], "steps": p["steps"],
+        "loop_steps": p["loop_steps"], "max_batch": p["max_batch"],
+        "clients_per_rank": p["clients"],
+        "requests_per_client": p["requests"],
+        "pooled_max_abs": max(g["trajectory"]["pooled_max_abs"]
+                              for g in per),
+        "trajectory": {k: t0[k] for k in ("turns", "flushes", "reads",
+                                          "flush_steps", "losses",
+                                          "requests", "collectives")},
+        "loop": {k: l0[k] for k in ("turns", "flushes", "fill",
+                                    "stale_max", "feedback_batches",
+                                    "fallback_batches", "collectives")},
+        "loop_p50_ms": [g["loop"]["p50_ms"] for g in per],
+        "loop_p99_ms": [g["loop"]["p99_ms"] for g in per],
+        "loop_steps_per_s": [g["loop"]["steps_per_s"] for g in per],
+        "launches_per_rank": {part: per[0][part]["launches"]
+                              for part in ("trajectory", "loop")},
+        "seconds": {k: max(g[f"{k}_s"] for g in per) for k in keys},
+        "cpu_seconds": {k: max(g[f"{k}_cpu_s"] for g in per) for k in keys}}
 
 
 def mesh_emb_check(gl: list, el: list, ref: dict, work: Path,

@@ -31,6 +31,19 @@ puts and the service's reads ride one pipelined connection per PS, and
 each PS runs its ops in arrival order, so a read under the cell's lock
 sees every put of the steps published before it.
 
+Under a ``torch.distributed`` mesh of more than one rank (``utils.
+set_mesh`` on every rank, as the JAX package runs under an ambient mesh)
+every rank runs the loop: its own clients, its own feedback queue and a
+service that takes turns with the trainer in one order on every rank
+(``serving/service.py``'s module note). A step trains on the rank's block
+of a global batch: the ranks of a data row each feed back ``batch /
+ranks`` impressions, gathered along ``model``, or, where any rank has too
+few, every rank takes its block of the offline sampler's next batch (the
+choice agreed by the turn). Client ``c`` of rank ``r`` draws its requests
+from seed ``seed + r * n_clients + c``. ``run_online(n_ps=k)`` starts the
+PS processes from the mesh's first rank (``launch.cluster.mesh_cluster``),
+which alone holds their connections.
+
 Usage (on the card; ``--device cpu`` runs the plain versions)::
 
     PYTHONPATH=src python -m repro_torch.launch.online --steps 50 --clients 2
@@ -45,11 +58,13 @@ import time
 
 import numpy as np
 
-from repro_torch.launch.cluster import (small_ctr_trainer, spawn_cluster,
-                                        stop_ps)
+from repro_torch.launch.cluster import (mesh_cluster, small_ctr_trainer,
+                                        spawn_cluster, stop_ps)
 from repro_torch.serving import (ClickModel, FeedbackQueue, ServingConfig,
                                  ServingService, StateCell, TrafficGenerator,
                                  TrafficModel)
+from repro_torch.serving.service import gather_row
+from repro_torch.utils import get_mesh
 
 
 def logloss(p: np.ndarray, y: np.ndarray) -> float:
@@ -77,18 +92,22 @@ def run_online(steps: int = 50, mode: str = "hybrid",
     ``n_ps > 0`` puts the tables in that many PS processes (spawned in
     ``workdir``, on ``device``, spooling every ``spool_every`` applied
     puts; ``lossy`` selects the blockscale wire), killed when the loop
-    ends."""
+    ends. Under a mesh of more than one rank every rank calls it: the
+    mesh's first rank starts the PS processes."""
     trainer, ds = small_ctr_trainer(mode=mode, backend=backend, tau=tau,
                                     seed=seed, device=device)
     members = []
     try:
         if n_ps > 0:
             from repro_torch.net.remote import connect_remote_backends
-            members = spawn_cluster(
-                workdir or tempfile.mkdtemp(prefix="online_ps_"), n_ps,
-                spool_every=spool_every, device=str(trainer.device))
-            connect_remote_backends(
-                trainer, [m.endpoint for m in members], lossy=lossy)
+            kw = dict(spool_every=spool_every, device=str(trainer.device))
+            workdir = workdir or tempfile.mkdtemp(prefix="online_ps_")
+            if _spmd():
+                members, eps = mesh_cluster(workdir, n_ps, **kw)
+            else:
+                members = spawn_cluster(workdir, n_ps, **kw)
+                eps = [m.endpoint for m in members]
+            connect_remote_backends(trainer, eps, lossy=lossy)
         summary, _ = _online_loop(
             trainer, ds, steps=steps, batch=batch,
             config=ServingConfig(max_batch=max_batch,
@@ -98,49 +117,96 @@ def run_online(steps: int = 50, mode: str = "hybrid",
         summary["n_ps"] = n_ps
         return summary
     finally:
-        if members:
-            for b in trainer.backends.values():
+        # every rank's remote tables (the mesh's first rank alone holds
+        # the connections and the PS processes)
+        for b in trainer.backends.values():
+            if b.remote:
                 b.close()
-            stop_ps(members)
+        stop_ps(members)
+
+
+def _spmd() -> bool:
+    """A mesh of more than one rank is in scope."""
+    mesh = get_mesh()
+    return mesh is not None and mesh.n_ranks > 1
+
+
+def _rank_block(batch: dict) -> dict:
+    """This rank's block of a global batch (rows over the batch axes of
+    the mesh in scope)."""
+    import torch
+
+    from repro_torch.sharding.partition import BATCH, P, local_block
+    return {k: local_block(get_mesh(), P(BATCH), torch.from_numpy(
+        np.ascontiguousarray(v))).numpy() for k, v in batch.items()}
 
 
 def _online_loop(trainer, ds, *, steps: int, batch: int,
                  config: ServingConfig, n_clients: int,
                  requests_per_client: int, qps: float = 0.0,
-                 n_users: int = 10_000, seed: int = 0):
+                 n_users: int = 10_000, seed: int = 0, state=None,
+                 feedback_wait_s: float = 0.05):
     """The loop of :func:`run_online` over a given CTR ``trainer`` and its
-    dataset ``ds``: initialise from the sampler's first batch, then train
-    ``steps`` steps on one thread while ``n_clients`` threads are served.
-    Returns ``(summary, extras)``: ``extras`` holds the final ``state``,
-    the served ``preds`` (n_served,) in arrival order and the loop's
-    ``wall_s``."""
+    dataset ``ds``: initialise from the sampler's first batch (or start
+    from ``state``, the rank's blocks under a mesh), then train ``steps``
+    steps on one thread while ``n_clients`` threads are served. Returns
+    ``(summary, extras)``: ``extras`` holds the final ``state``, the
+    served ``preds`` (n_served,) in arrival order, the loop's ``wall_s``,
+    the service's ``turns`` (under a mesh) and ``fed_back`` (a step's
+    batch was feedback, not the sampler's). A step waits up to
+    ``feedback_wait_s`` for a feedback batch. Under a mesh of more than
+    one rank every rank calls it (see the module note); ``batch`` is the
+    global batch and must divide over the ranks."""
+    spmd = _spmd()
+    ranks = get_mesh().n_ranks if spmd else 1
+    if batch % ranks:
+        raise ValueError(f"batch {batch} does not divide over the mesh's "
+                         f"{ranks} ranks")
+    block = _rank_block if spmd else (lambda b: b)
     sampler = ds.sampler(batch, seed=seed)
-    state = trainer.init(seed, next(sampler))
+    first = next(sampler)
+    if state is None:
+        state = trainer.init(seed, block(first))
     cell = StateCell(state, 0)
 
     traffic = TrafficModel.for_dataset(ds, n_users=n_users)
     click = ClickModel.for_dataset(ds)
-    feedback = FeedbackQueue(batch_size=batch)
+    feedback = FeedbackQueue(batch_size=batch // ranks)
     svc = ServingService(trainer, cell, config)
 
     train_log = {"losses": [], "feedback_batches": 0,
-                 "fallback_batches": 0, "state": state}
+                 "fallback_batches": 0, "fed_back": [], "state": state}
 
     def trainer_loop():
+        # each step takes its turn (with no mesh: the cell's lock). It
+        # trains on feedback when the rank's queue holds a batch after
+        # waiting up to ``feedback_wait_s`` for one (under a mesh only if
+        # every rank's does: the turn agrees on it, and the ranks of a
+        # data row train on their shares side by side), else on its block
+        # of the sampler's next batch
         s = state
         for t in range(steps):
-            fb = feedback.next_batch(timeout=0.05)
-            if fb is None:
-                fb = next(sampler)
-                train_log["fallback_batches"] += 1
-            else:
-                train_log["feedback_batches"] += 1
-            with cell.lock:
+            until = time.monotonic() + feedback_wait_s
+            while len(feedback) < feedback.batch_size \
+                    and time.monotonic() < until:
+                time.sleep(1e-3)
+
+            def step(use_feedback, t=t):
+                nonlocal s
+                fb = gather_row(feedback.next_batch(timeout=0))[0] \
+                    if use_feedback else block(next(sampler))
                 s, m = trainer.step(s, fb)
                 cell.publish(s, t + 1)
+                return m, use_feedback
+            m, used = svc.train_turn(
+                step, agree=len(feedback) >= feedback.batch_size)
+            train_log["feedback_batches" if used
+                      else "fallback_batches"] += 1
+            train_log["fed_back"].append(used)
             train_log["losses"].append(float(m.get("loss", np.nan)))
         train_log["state"] = s
 
+    base = seed + (get_mesh().rank * n_clients if spmd else 0)
     served = []                       # (pred, label) per impression
     served_lock = threading.Lock()
 
@@ -154,7 +220,7 @@ def _online_loop(trainer, ds, *, steps: int, batch: int,
 
         if qps > 0:
             gen = TrafficGenerator(traffic, qps=qps / max(n_clients, 1),
-                                   seed=seed + cid)
+                                   seed=base + cid)
             gen.replay(requests_per_client, serve_one)
         else:
             # closed loop: serve the full quota as fast as replies come
@@ -162,7 +228,7 @@ def _online_loop(trainer, ds, *, steps: int, batch: int,
             # run, so `served` counts are deterministic however fast the
             # training side moves
             for _, req in traffic.requests(requests_per_client,
-                                           seed=seed + cid):
+                                           seed=base + cid):
                 serve_one(req)
 
     errors = []
@@ -208,7 +274,9 @@ def _online_loop(trainer, ds, *, steps: int, batch: int,
         "feedback": feedback.stats,
         "serving": svc.metrics(),
     }
-    return summary, {"state": train_log["state"], "preds": p, "wall_s": dt}
+    return summary, {"state": train_log["state"], "preds": p, "wall_s": dt,
+                     "turns": svc.turn_counts(),
+                     "fed_back": train_log["fed_back"]}
 
 
 def main(argv=None):

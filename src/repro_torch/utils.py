@@ -121,9 +121,13 @@ class Mesh(MeshLayout):
     creates the same groups in the same order. ``device_type`` is
     ``"cuda"`` (the rank's current device) unless the caller asks for
     ``"cpu"``; the collectives run on the default group's backend (gloo
-    carries CPU and CUDA tensors, NCCL CUDA ones)."""
+    carries CPU and CUDA tensors, NCCL CUDA ones). ``timeout`` (seconds)
+    bounds each collective of its groups (default: the backend's)."""
 
-    def __init__(self, shape, axis_names, device_type: str = "cuda"):
+    def __init__(self, shape, axis_names, device_type: str = "cuda",
+                 timeout: float | None = None):
+        import datetime
+
         import torch
         import torch.distributed as dist
         super().__init__(shape, axis_names)
@@ -145,6 +149,8 @@ class Mesh(MeshLayout):
         self._coords = self.coords(self.rank)
         self._groups = {}
         names = self.axis_names
+        span = None if timeout is None else datetime.timedelta(
+            seconds=timeout)
         for mask in range(1, 1 << len(names)):
             sub = tuple(a for i, a in enumerate(names) if mask >> i & 1)
             fibers: dict = {}
@@ -154,16 +160,17 @@ class Mesh(MeshLayout):
                 fibers.setdefault(key, []).append(r)
             mine = tuple(self._coords[a] for a in names if a not in sub)
             for key in sorted(fibers):
-                g = dist.new_group(fibers[key])
+                g = dist.new_group(fibers[key], timeout=span)
                 if key == mine:
                     self._groups[sub] = g
 
-    def fork(self) -> "Mesh":
+    def fork(self, timeout: float | None = None) -> "Mesh":
         """A mesh of the same layout with groups of its own (collective):
         threads that run collectives concurrently each use one, so no two
-        threads' calls interleave on one group."""
+        threads' calls interleave on one group. ``timeout`` as for the
+        constructor."""
         return Mesh(tuple(self.shape.values()), self.axis_names,
-                    self.device_type)
+                    self.device_type, timeout)
 
     def get_group(self, axes):
         return self._groups[self.axes(axes)]

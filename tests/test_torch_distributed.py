@@ -1291,6 +1291,63 @@ def _world_of_one():
     return m
 
 
+@pytest.mark.parametrize("scope", ["no_mesh", "world_of_one"])
+def test_no_mesh_service_and_online_loop_take_the_one_process_path(scope):
+    """The case of ``test_no_mesh_paths_are_unchanged_without_a_mesh`` for
+    the service and the online loop: with no mesh in scope and under a
+    mesh of one rank the service runs its free flush loop (no fork, no
+    turns), ``train_turn`` is the cell's lock with ``agreed = agree``, a
+    failed flush counts an error and raises nothing, and
+    ``launch.online._online_loop`` trains every step on the sampler's
+    batches (a feedback batch wider than all the requests served) to the
+    losses and state of a run with no mesh, bit for bit."""
+    from repro_torch.launch import cluster, online
+    from repro_torch.serving import (ServingConfig, ServingService,
+                                     StateCell, TrafficModel)
+    from repro_torch.utils import set_mesh
+    mesh = None if scope == "no_mesh" else _world_of_one()
+    reqs = [r for _, r in TrafficModel.for_dataset(
+        CTRDataset(**DS_KW), n_users=300).requests(6, seed=3)]
+    runs = []
+    for m in (None, mesh):
+        tr = PersiaTrainer(adapters.recsys_adapter(
+            ModelConfig(**CTR_KW), field_rows=CTRDataset(**DS_KW)
+            .field_rows()), TrainMode.sync(), OptConfig(kind="adam",
+                                                        lr=DENSE_LR),
+            device="cpu")
+        cell = StateCell(tr.init(seed=0), 0)
+        with set_mesh(m):
+            svc = ServingService(tr, cell, ServingConfig(1, 0.0)).start()
+            assert svc._fork is None and svc._thread.name == "serving-flush"
+            preds = svc.predict_many(reqs)
+            held = svc.train_turn(lambda agreed: (agreed,
+                                                  cell.lock._is_owned()),
+                                  agree=False)
+            real = tr.serve_lookup
+            tr.serve_lookup = lambda *a: 1 / 0
+            with pytest.raises(ZeroDivisionError):
+                svc.predict(reqs[0])
+            tr.serve_lookup = real
+            svc.stop()
+            assert held == (False, True)
+            assert svc.metrics()["serving/errors"] == 1.0
+            assert svc.turn_counts() == {"ticks": 0, "flush": 0, "step": 0}
+            ltr, ds = cluster.small_ctr_trainer(backend="host_lru",
+                                                device="cpu")
+            summary, extras = online._online_loop(
+                ltr, ds, steps=3, batch=8, config=ServingConfig(max_batch=4),
+                n_clients=1, requests_per_client=6, n_users=200, seed=1)
+        assert summary["fallback_batches"] == 3 and summary["served"] == 6
+        assert summary["feedback"]["put"] == 6
+        assert extras["turns"] == {"ticks": 0, "flush": 0, "step": 0}
+        runs.append((preds, extras["state"], summary))
+    np.testing.assert_array_equal(runs[0][0], runs[1][0])
+    _equal_trees(convert.state_to_numpy(runs[1][1]),
+                 convert.state_to_numpy(runs[0][1]), "state")
+    assert runs[0][2]["loss_first"] == runs[1][2]["loss_first"]
+    assert runs[0][2]["loss_last"] == runs[1][2]["loss_last"]
+
+
 @pytest.mark.parametrize("tier", ["router_dense", "router_lru",
                                   "host_lru_flat", "remote_lru"])
 def test_no_mesh_tables_take_the_one_process_path(tier):

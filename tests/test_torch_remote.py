@@ -21,6 +21,8 @@ Tolerance classes:
   losses, membership, zero lost rows."""
 import dataclasses
 import os
+import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -49,6 +51,7 @@ from repro_torch.net import (ClusterDeadError, ElasticPSCluster,
                              connect_remote_backends, is_ps_failure, remote)
 from repro_torch.net.ps_server import PSServer, read_spool
 from repro_torch.optim.optimizers import OptConfig
+from repro_torch.serving import StateCell
 from repro_torch.utils import tree_leaves
 
 from test_torch_train import _close, _to_np
@@ -343,6 +346,80 @@ def test_remote_serving_reads_match_in_process(servers):
         occ, occ_ref = t.lookup(st, batch), t_ref.lookup(ref, batch)
         for n in occ:
             assert torch.equal(occ[n], occ_ref[n]), (backend, k, n)
+
+
+# ---------------------------------------------------------------------------
+# serve-while-train over the wire (port of tests/test_online_loop.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("backend,n_ps", [("dense", 1), ("dense", 2),
+                                          ("host_lru", 2)])
+def test_remote_serve_while_train_is_serial(servers, backend, n_ps):
+    """Port of ``tests/test_online_loop.py::
+    test_remote_serve_while_train_is_serial``: a reader thread reading the
+    remote serve path under the cell's lock during remote sync training
+    observes, at every published step, bit for bit the pooled rows an
+    uninterrupted in-process run of the same geometry (the plain backend
+    at k = 1, the router at k = 2) reads at that step, and the final rows
+    and dense parameters equal that run's."""
+    steps = 4
+    bs = _batches(steps + 1)
+    probe = bs[0]
+    cache = 40 if backend == "host_lru" else None
+
+    def acts(trainer, state):
+        return {n: a.numpy().copy()
+                for n, a in trainer.serve_lookup(state, probe)[0].items()}
+
+    t_ref = _trainer(backend, cache, "sync", shards=n_ps)
+    s = t_ref.init(0, bs[0])
+    ref = {0: acts(t_ref, s)}
+    for t in range(steps):
+        s, _ = t_ref.decomposed_step(s, bs[t + 1])
+        ref[t + 1] = acts(t_ref, s)
+
+    trainer = _trainer(backend, cache, "sync")
+    connect_remote_backends(trainer, _endpoints(servers(n_ps)))
+    state = trainer.init(0, bs[0])
+    cell = StateCell(state, 0)
+    errors, seen = [], set()
+    done = threading.Event()
+
+    def reader():
+        while not done.is_set():
+            with cell.lock:
+                snap, t = cell.snapshot()
+                got = acts(trainer, snap)
+            for n, a in got.items():
+                if not np.array_equal(a, ref[t][n]):
+                    errors.append((t, n))
+            seen.add(t)
+
+    def read_at(t):
+        until = time.monotonic() + 30
+        while t not in seen and time.monotonic() < until:
+            time.sleep(1e-3)
+
+    th = threading.Thread(target=reader)
+    th.start()
+    st = state
+    for t in range(steps):
+        read_at(t)
+        with cell.lock:
+            st, _ = trainer.decomposed_step(st, bs[t + 1])
+            cell.publish(st, t + 1)
+    read_at(steps)
+    done.set()
+    th.join(timeout=60)
+    assert not th.is_alive()
+    assert not errors, f"remote reader saw non-serial rows at {errors[:5]}"
+    assert seen == set(range(steps + 1))
+    with cell.lock:
+        final = acts(trainer, st)
+    for n, a in final.items():
+        np.testing.assert_array_equal(a, ref[steps][n])
+    _same_rows(trainer, st, t_ref, s)
+    _same_dense(st, s)
 
 
 # ---------------------------------------------------------------------------

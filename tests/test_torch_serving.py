@@ -1,13 +1,19 @@
 """The port's ServingService (repro_torch/serving) on the CPU: micro-batching
 against single requests and against the JAX service, flush triggers, error
-propagation, stop, and the staleness gauge.
+propagation, stop, the staleness gauge, and serve-while-train (readers
+under the cell's lock see the serial trajectory).
 
 Tolerance: a micro-batch pads to ``max_batch`` rows, so batch-1 and batch-8
 services run the FFNN at different GEMM shapes, which may reduce in another
 order; predictions are compared with rtol 1e-5, atol 1e-6 (the JAX twin of
 the first test demands bit-equality and fails on the CPU for that reason).
+Serve-while-train: the readers' pooled rows bit for bit against the port's
+own serial run; that run's pooled rows against JAX's ``step`` and
+``serve_lookup`` from one checkpoint in the same rtol 1e-5 / atol 1e-6
+(torch and XLA round the FFNN's backward differently).
 """
 import threading
+import time
 
 import jax
 import numpy as np
@@ -27,6 +33,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import adapters
 from repro_torch.core.hybrid import PersiaTrainer, TrainMode
 from repro_torch.data.ctr import CTRDataset
+from repro_torch.optim.optimizers import OptConfig as TOptConfig
 from repro_torch.serving import (ServingConfig, ServingService, StateCell,
                                  TrafficModel)
 from repro_torch.serving.service import queue_lag
@@ -194,3 +201,122 @@ def test_queue_lag_helper():
     assert queue_lag(None, 5, 3) == 0
     assert queue_lag({"filled": np.int32(2)}, 5, 3) == 2
     assert queue_lag({"filled": 3}, 5, 0) == 0
+
+
+# ---------------------------------------------------------------------------
+# serve-while-train (port of tests/test_serving.py's concurrency check)
+# ---------------------------------------------------------------------------
+
+def _hybrid_pair(backend):
+    """The JAX twin's trainers (tests/test_serving.py's ``_trainer``:
+    hybrid(2), tables at lr 5e-2, host_lru at 40 slots, the router over 2
+    shards) on this file's model: (JAX trainer, port trainer factory)."""
+    def specs(coll):
+        if backend == "sharded":
+            return coll.with_shards(2)
+        return coll if backend == "dense" else coll.with_backend(backend, 40)
+    jcoll = specs(jadapters.ctr_collection(JConfig(**KW), lr=5e-2,
+                                           field_rows=DS.field_rows()))
+    jt = JTrainer(jadapters.recsys_adapter(JConfig(**KW),
+                                           field_rows=DS.field_rows(),
+                                           collection=jcoll),
+                  JMode.hybrid(2), OptConfig(kind="adam", lr=5e-3))
+
+    def port():
+        coll = specs(adapters.ctr_collection(CFG, lr=5e-2,
+                                             field_rows=DS.field_rows()))
+        return PersiaTrainer(adapters.recsys_adapter(
+            CFG, field_rows=DS.field_rows(), collection=coll),
+            TrainMode.hybrid(2), TOptConfig(kind="adam", lr=5e-3),
+            device="cpu")
+    return jt, port
+
+
+def _acts(pooled):
+    return {n: np.asarray(a) for n, a in pooled.items()}
+
+
+def _jax_pooled(jt, js, batch):
+    """JAX's serve read (occurrence rows; an invalid id reads a zero row)
+    pooled over each bag's ids, as the port's serve read pools."""
+    rows, _ = jt.serve_lookup(js, {k: jax.numpy.asarray(v)
+                                   for k, v in batch.items()})
+    return {n: np.asarray(a).sum(1) for n, a in rows.items()}
+
+
+@pytest.mark.parametrize("backend", ["dense", "host_lru", "sharded"])
+def test_concurrent_reader_sees_serial_trajectory(backend, tmp_path):
+    """Port of ``tests/test_serving.py::
+    test_concurrent_reader_sees_serial_trajectory``: two reader threads
+    reading the serve path under the cell's lock during training observe,
+    at every published step, bit for bit the pooled rows the port's serial
+    run reads at that step, and never perturb the trajectory. The serial
+    run starts from JAX's checkpoint and holds JAX's ``step`` and
+    ``serve_lookup`` at every step within rtol 1e-5 / atol 1e-6."""
+    steps = 6
+    it = DS.sampler(16, seed=0)
+    bs = [next(it) for _ in range(steps + 1)]
+    probe = bs[0]
+    jt, port = _hybrid_pair(backend)
+    js = jt.init(jax.random.PRNGKey(0),
+                 {k: jax.numpy.asarray(v) for k, v in bs[0].items()})
+    jt.save(str(tmp_path / "start"), js)
+
+    ref_trainer = port()
+    s = ref_trainer.restore(str(tmp_path / "start"))
+    ref = {0: _acts(ref_trainer.serve_lookup(s, probe)[0])}
+    jref = {0: _jax_pooled(jt, js, probe)}
+    for t in range(steps):
+        s, _ = ref_trainer.step(s, bs[t + 1])
+        ref[t + 1] = _acts(ref_trainer.serve_lookup(s, probe)[0])
+        js, _ = jt.step(js, {k: jax.numpy.asarray(v)
+                             for k, v in bs[t + 1].items()})
+        jref[t + 1] = _jax_pooled(jt, js, probe)
+    for t in ref:
+        for n, a in ref[t].items():
+            np.testing.assert_allclose(a, jref[t][n], rtol=RTOL, atol=ATOL,
+                                       err_msg=f"step {t} {n}")
+
+    trainer = port()
+    state = trainer.restore(str(tmp_path / "start"))
+    cell = StateCell(state, 0)
+    errors, seen = [], set()
+    done = threading.Event()
+
+    def reader():
+        while not done.is_set():
+            with cell.lock:
+                snap, t = cell.snapshot()
+                acts = _acts(trainer.serve_lookup(snap, probe)[0])
+            for n, a in acts.items():
+                if not np.array_equal(a, ref[t][n]):
+                    errors.append((t, n))
+            seen.add(t)
+
+    def read_at(t):
+        # the port's steps are quick enough to starve the readers of the
+        # lock: a step waits (outside it) until a reader read step t
+        until = time.monotonic() + 30
+        while t not in seen and time.monotonic() < until:
+            time.sleep(1e-3)
+
+    threads = [threading.Thread(target=reader) for _ in range(2)]
+    for th in threads:
+        th.start()
+    st = state
+    for t in range(steps):
+        read_at(t)
+        with cell.lock:
+            st, _ = trainer.step(st, bs[t + 1])
+            cell.publish(st, t + 1)
+    read_at(steps)
+    done.set()
+    for th in threads:
+        th.join(timeout=60)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors, f"reader saw non-serial rows at {errors[:5]}"
+    assert seen == set(range(steps + 1))   # the readers overlapped
+    with cell.lock:
+        final = _acts(trainer.serve_lookup(st, probe)[0])
+    for n, a in final.items():
+        np.testing.assert_array_equal(a, ref[steps][n])
